@@ -1,4 +1,4 @@
-"""Carry the JAX package's stack weights and masks into the port.
+"""Carry the JAX package's stack weights, masks and int8 scales into the port.
 
 ``jax.random`` draws cannot be reproduced with ``torch.Generator``s, so
 parity tests and served checkpoints move weights across instead of
@@ -15,6 +15,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.quant import LayerScales, StackScales
 from repro_torch.core.sparsity import PatternMask
 from repro_torch.models.ffn import stack_layer_cfgs
 
@@ -55,3 +56,18 @@ def masks_from_keep(keeps: Sequence[Optional[Any]]
     ``.keep``) -> the port's PatternMasks; None stays None."""
     return [None if k is None else PatternMask(np.asarray(k, bool).copy())
             for k in keeps]
+
+
+def scales_from_jax(scales: Any) -> StackScales:
+    """The JAX ``StackScales`` (read through its fields as plain floats and
+    numpy arrays) -> the port's, value for value."""
+    out = []
+    for ls in scales.scales:
+        if ls.kind == "mlp":
+            out.append(LayerScales(kind="mlp", x=float(ls.x),
+                                   w=np.array(ls.w, np.float32)))
+        else:
+            out.append(LayerScales(kind="kan", x=float(ls.x),
+                                   w_b=float(ls.w_b),
+                                   t=np.array(ls.t, np.float32)))
+    return StackScales(tuple(out))

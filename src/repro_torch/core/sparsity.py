@@ -67,6 +67,28 @@ def sparsity_to_pattern(rate: float) -> Tuple[int, ...]:
     return table[rate]
 
 
+def magnitude_mask(saliency: np.ndarray, keep_per_group: int) -> PatternMask:
+    """m-of-4 mask keeping the highest-saliency entries per group ([23,24]).
+
+    ``saliency`` is any per-node importance score, e.g. sum|W| over the
+    fan-out (Wanda-style) -- computed offline from trained weights.
+    """
+    n = saliency.shape[0]
+    keep = np.ones(n, bool)
+    full = (n // GROUP) * GROUP
+    g = saliency[:full].reshape(-1, GROUP)
+    order = np.argsort(-g, axis=1)  # descending
+    gkeep = np.zeros_like(g, dtype=bool)
+    np.put_along_axis(gkeep, order[:, :keep_per_group], True, axis=1)
+    keep[:full] = gkeep.reshape(-1)
+    return PatternMask(keep)
+
+
+def weight_saliency(w: np.ndarray, axis_out: int = -1) -> np.ndarray:
+    """Fan-out L1 saliency of each input node of a weight matrix."""
+    return np.abs(w).sum(axis=axis_out)
+
+
 def apply_mask(x: torch.Tensor, mask: PatternMask) -> torch.Tensor:
     """Multiplicative form (semantics oracle): zero masked-out lanes."""
     keep = torch.as_tensor(mask.keep.astype(np.float32), device=x.device)

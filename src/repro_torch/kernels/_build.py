@@ -4,8 +4,9 @@ Each kernel is one ``csrc/*.cu`` file with a plain C entry point that
 takes device pointers, sizes and the stream, launches, and returns
 ``cudaGetLastError()``.  It is compiled for ``sm_90a`` into
 ``build/repro_torch_kernels/`` at the repository root at first use (the
-library name carries a hash of the source and flags, so an edited
-source is rebuilt) and loaded with ``ctypes``.  Only sources in the
+library name carries a hash of the source, of every header it includes
+with quotes, and of the flags, so an edited source or header is rebuilt)
+and loaded with ``ctypes``.  Only sources in the
 repository are compiled; nothing here runs at import time, so the
 package imports on machines without ``nvcc`` or a GPU.
 
@@ -19,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -45,7 +47,20 @@ KERNELS = {
         "pattern_matmul_f32",
         # x, w, bias (or NULL), y, M, K, N, act, stream
         (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "kan_fused_v2_q8": (
+        KERNELS_DIR / "kan_fused" / "csrc" / "kan_fused_q8.cu",
+        "kan_fused_v2_q8",
+        # x_q, wt_q, slot_scales, slot_of, out, B, n_in, n_out, nbk, G, K,
+        # x_scale, x0, hi, inv_h, stream
+        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P)),
+    "pattern_matmul_q8": (
+        KERNELS_DIR / "pattern_matmul" / "csrc" / "pattern_matmul_q8.cu",
+        "pattern_matmul_s8",
+        # x_q, w_q, y, M, K, N, stream
+        (_P, _P, _P, _I, _I, _I, _P)),
 }
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -64,10 +79,26 @@ def _nvcc() -> str:
     return path
 
 
+def source_files(src: Path) -> List[Path]:
+    """``src`` and every file it includes with quotes, recursively, each
+    resolved against the directory of the file that includes it."""
+    out: List[Path] = []
+    todo = [src.resolve()]
+    while todo:
+        f = todo.pop(0)
+        if f in out:
+            continue
+        out.append(f)
+        todo.extend((f.parent / inc).resolve()
+                    for inc in _INCLUDE.findall(f.read_text()))
+    return out
+
+
 def library_path(name: str) -> Path:
     """Where kernel ``name``'s shared library lives once built."""
-    src = KERNELS[name][0]
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256()
+    for f in source_files(KERNELS[name][0]):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -4,7 +4,8 @@ Counterpart of ``repro/kernels/epilogue.py``.  ``gelu`` is the tanh form
 because ``jax.nn.gelu`` defaults to ``approximate=True``.  The CUDA
 pattern-matmul kernel applies the same ``act(acc + bias)`` in the same
 order (``pattern_matmul/csrc/pattern_matmul.cu``); ``ACT_CODES`` is the
-integer the kernel takes for each activation.
+integer the kernel takes for each activation.  ``scale_bias_act`` is the
+int8 matmul's epilogue, applied outside its kernel in both paths.
 """
 from __future__ import annotations
 
@@ -33,3 +34,19 @@ def bias_act(acc: torch.Tensor, bias: Optional[torch.Tensor],
     """
     y = acc if bias is None else acc + bias.to(torch.float32)
     return ACTS[act](y).to(out_dtype)
+
+
+def scale_bias_act(acc: torch.Tensor, col_scale: torch.Tensor,
+                   bias: Optional[torch.Tensor],
+                   act: Optional[str]) -> torch.Tensor:
+    """Int8 dequantization epilogue: ``act(acc * s + bias)``, f32 out.
+
+    Applied once, after full accumulation, to the int8 matmul's raw
+    integer accumulator (kernel or plain version alike).  The scale
+    multiply and the bias add are two separate roundings, never one FMA,
+    as in the reference.
+    """
+    y = acc * col_scale.to(torch.float32)
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    return ACTS[act](y).to(torch.float32)

@@ -41,132 +41,9 @@
 // nothing but the row's own inputs, so batched == single holds bitwise.
 // The spline arithmetic uses round-to-nearest intrinsics, so no FMA
 // contraction makes it differ from the plain version (kan_fused/ref.py).
-#include <cuda_runtime.h>
-
-namespace {
-
-constexpr int KMAX = 4;                // SplineSpec.VALID_K
-constexpr int BN = 32;                 // outputs per block: one per lane
-constexpr int WARPS = 8;
-constexpr int RPW = 2;                 // rows per warp
-constexpr int BM = WARPS * RPW;        // 16 rows per block
-constexpr int PC = 32;                 // input features per staged chunk
-
-__device__ __forceinline__ float inv_lut(int j) {
-  // core/splines.INV_LUT: 1/j as f32
-  return j == 1 ? 1.f : j == 2 ? 0.5f : j == 3 ? 0.3333333432674408f : 0.25f;
-}
-
-__global__ void __launch_bounds__(BN * WARPS)
-kan_fused_v2_kernel(const float* __restrict__ x,
-                    const float* __restrict__ wt,
-                    const int* __restrict__ slot_of,
-                    float* __restrict__ out,
-                    int B, int n_in, int n_out, int nbk, int G, int K,
-                    float x0, float hi, float inv_h) {
-  __shared__ float s_silu[BM][PC];
-  __shared__ float s_val[BM][PC][KMAX + 1];
-  __shared__ int s_row[BM][PC][KMAX + 1];
-
-  const int tid = threadIdx.y * BN + threadIdx.x;
-  const int n = blockIdx.x * BN + threadIdx.x;
-  const int b0 = blockIdx.y * BM;
-  const int stride = nbk + 1;
-  const float cell_max = (float)(G - 1);
-
-  float acc[RPW];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) acc[r] = 0.f;
-
-  for (int p0 = 0; p0 < n_in; p0 += PC) {
-    const int pc = min(PC, n_in - p0);
-    // SIMD + SPU + TSE: once per (row, feature) of the chunk.
-    for (int e = tid; e < BM * PC; e += BN * WARPS) {
-      const int bl = e / PC, pl = e % PC;
-      const int b = b0 + bl, p = p0 + pl;
-      if (b >= B || pl >= pc) {
-        s_silu[bl][pl] = 0.f;
-#pragma unroll
-        for (int j = 0; j <= KMAX; ++j) {
-          s_val[bl][pl][j] = 0.f;
-          s_row[bl][pl][j] = -1;
-        }
-        continue;
-      }
-      const float xv = x[(size_t)b * n_in + p];
-      s_silu[bl][pl] = xv * (1.f / (1.f + expf(-xv)));
-
-      // Interval location on the clipped input (core/splines.locate_cell).
-      const float xc = fminf(fmaxf(xv, x0), hi);
-      const float u = __fmul_rn(__fsub_rn(xc, x0), inv_h);
-      const float cf = fminf(fmaxf(floorf(u), 0.f), cell_max);
-      const float r = __fsub_rn(u, cf);
-      const int cell = (int)cf;
-
-      // Stage-buffer de Boor recursion (core/splines.bases_local).
-      float right[KMAX], left[KMAX], vals[KMAX + 1];
-#pragma unroll
-      for (int d = 0; d < KMAX; ++d) {
-        right[d] = __fsub_rn((float)(d + 1), r);
-        left[d] = __fadd_rn(r, (float)d);
-      }
-      vals[0] = 1.f;
-#pragma unroll
-      for (int j = 1; j <= KMAX; ++j) {
-        vals[j] = 0.f;
-        if (j > K) continue;
-        const float inv = inv_lut(j);
-        float saved = 0.f;
-#pragma unroll
-        for (int rr = 0; rr < j; ++rr) {
-          const float temp = __fmul_rn(vals[rr], inv);
-          vals[rr] = __fadd_rn(saved, __fmul_rn(right[rr], temp));
-          saved = __fmul_rn(left[j - rr - 1], temp);
-        }
-        vals[j] = saved;
-      }
-      // TSE: the weight row each non-zero value multiplies, or -1.
-#pragma unroll
-      for (int j = 0; j <= KMAX; ++j) {
-        const int slot = j <= K ? __ldg(&slot_of[cell + j]) : -1;
-        s_val[bl][pl][j] = vals[j];
-        s_row[bl][pl][j] = slot >= 0 ? p * stride + 1 + slot : -1;
-      }
-    }
-    __syncthreads();
-
-    // PE: accumulate in registers, features ascending.
-    if (n < n_out) {
-      for (int pl = 0; pl < pc; ++pl) {
-        const float wb = __ldg(&wt[(size_t)(p0 + pl) * stride * n_out + n]);
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) {
-          const int bl = threadIdx.y * RPW + r;
-          float a = fmaf(s_silu[bl][pl], wb, acc[r]);
-#pragma unroll
-          for (int j = 0; j <= KMAX; ++j) {
-            const int row = s_row[bl][pl][j];
-            if (row >= 0)
-              a = fmaf(s_val[bl][pl][j], __ldg(&wt[(size_t)row * n_out + n]),
-                       a);
-          }
-          acc[r] = a;
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  if (n < n_out) {
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const int b = b0 + threadIdx.y * RPW + r;
-      if (b < B) out[(size_t)b * n_out + n] = acc[r];
-    }
-  }
-}
-
-}  // namespace
+// The kernel body is kan_fused.cuh, shared with the int8 kernel
+// (kan_fused_q8.cu).
+#include "kan_fused.cuh"
 
 // x: (B, n_in), wt: (n_in*(nbk+1), n_out), slot_of: (G+K,) int32,
 // out: (B, n_out).  All contiguous, on the stream's device.  `hi` is the
@@ -176,12 +53,6 @@ extern "C" int kan_fused_v2_f32(const float* x, const float* wt,
                                 int n_in, int n_out, int nbk, int G, int K,
                                 float x0, float hi, float inv_h,
                                 void* stream) {
-  if (B <= 0 || n_out <= 0 || n_in < 0 || nbk < 0 || nbk > G + K || G < 1 ||
-      K < 1 || K > KMAX)
-    return (int)cudaErrorInvalidValue;
-  dim3 block(BN, WARPS);
-  dim3 grid((n_out + BN - 1) / BN, (B + BM - 1) / BM);
-  kan_fused_v2_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      x, wt, slot_of, out, B, n_in, n_out, nbk, G, K, x0, hi, inv_h);
-  return (int)cudaGetLastError();
+  return kan_fused::launch(kan_fused::F32{x, wt}, slot_of, out, B, n_in,
+                           n_out, nbk, G, K, x0, hi, inv_h, stream);
 }

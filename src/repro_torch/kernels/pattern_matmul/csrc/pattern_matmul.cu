@@ -10,7 +10,7 @@
 //
 // What bounds it on an H100 (3.35 TB/s, 67 TFLOP/s f32 on CUDA cores):
 //   * serving buckets (M = 2..16; vikin-mixed 72->304 relu and Kc=16 ->96,
-//     vikin-mlp3 72->304 relu and Kc=152 ->96): the weight matrix is the
+//     vikin-mlp3 72->304 relu and Kc=228 ->96): the weight matrix is the
 //     traffic (87.6 KB for 72x304 f32), 26 ns of memory time against
 //     0.35 MFLOP (5 ns) at M=8 -- bytes bound in principle, and in fact
 //     bound by the launch itself, which costs microseconds;

@@ -15,6 +15,13 @@ requests are submitted round-robin across the archs:
       --arch vikin-kan2,vikin-mlp3,vikin-mixed --requests 12 --slots 4
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels instead.
+``--precision int8`` serves the post-training quantized stack through the
+int8 kernels, with scales calibrated from a seeded batch, or restored
+with the weights and masks by ``--ckpt DIR`` (a checkpoint in the
+reference's layout):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch vikin-mixed \
+      --precision int8 --requests 8
 """
 from __future__ import annotations
 
@@ -24,16 +31,60 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import (
+    restore_checkpoint,
+    restore_masks,
+    restore_scales,
+)
 from repro_torch.configs.vikin_models import VIKIN_ARCHS
+from repro_torch.core.calibrate import calibrate_scales
 from repro_torch.models.ffn import vikin_stack_init
 from repro_torch.runtime.backends import MultiWorkloadBackend, VikinBackend
 from repro_torch.runtime.server import Engine
 
 
-def make_vikin_backend(model: Any, device: str, seed: int = 0) -> VikinBackend:
-    """A backend serving ``model`` with weights drawn from ``seed``."""
+def make_vikin_backend(model: Any, device: str, seed: int = 0, *,
+                       precision: str = "f32",
+                       ckpt: Optional[str] = None) -> VikinBackend:
+    """A backend serving ``model`` at ``precision``.
+
+    Weights are drawn from ``seed``, or restored from ``ckpt`` with the
+    masks and int8 scales saved beside them.  At int8 without a
+    checkpoint, scales are calibrated on the CPU from a seed-0 batch like
+    the features ``submit_burst`` sends.
+    """
     params = vikin_stack_init(model, torch.Generator().manual_seed(seed))
-    backend = VikinBackend(model, params, device=device)
+    masks = scales = None
+    if ckpt:
+        params, step, extra = restore_checkpoint(ckpt, params)
+        masks = restore_masks(ckpt)
+        scales = restore_scales(ckpt)
+        print(f"restored {model.name} from {ckpt} step {step}")
+        if extra:
+            print(f"  trained on task={extra.get('task')} "
+                  f"pattern_rate={extra.get('pattern_rate')} "
+                  f"val_dense={extra.get('val_dense')} "
+                  f"val_sparse={extra.get('val_sparse')}")
+        if masks is not None:
+            kept = [None if m is None else f"{m.n_keep}/{m.n}"
+                    for m in masks]
+            print(f"  restored per-layer masks (kept): {kept}")
+        if precision == "int8" and scales is None:
+            raise SystemExit(
+                f"--precision int8 needs calibrated scales, but {ckpt} has "
+                f"no scales.npz; re-export it with the reference's "
+                f"launch/train.py (scales are emitted beside the masks)")
+    elif precision == "int8":
+        rng = np.random.default_rng(0)
+        calib_x = rng.random((256, model.sizes[0])).astype(np.float32)
+        scales = calibrate_scales(params, model, calib_x)
+        print(f"no checkpoint: calibrated int8 scales from a synthetic "
+              f"batch (x={scales.summary()['x']})")
+    backend = VikinBackend(model, params, device=device, masks=masks,
+                           precision=precision, scales=scales)
+    if precision != "f32":
+        print(f"serving precision: {precision} "
+              f"(f32 accumulation, dtype-aware DMA model)")
     plan = backend.plan.summary()
     print(f"arch {model.name}: layers={list(model.layer_kinds)} "
           f"sizes={list(model.sizes)} pattern_rate={model.pattern_rate}")
@@ -44,9 +95,12 @@ def make_vikin_backend(model: Any, device: str, seed: int = 0) -> VikinBackend:
 
 
 def make_engine(models: Sequence[Any], *, slots: int, policy: str,
-                device: str, seed: int = 0) -> Engine:
+                device: str, seed: int = 0, precision: str = "f32",
+                ckpt: Optional[str] = None) -> Engine:
     """One engine over one backend, or a MultiWorkloadBackend for several."""
-    backends = {m.name: make_vikin_backend(m, device, seed) for m in models}
+    backends = {m.name: make_vikin_backend(m, device, seed,
+                                           precision=precision, ckpt=ckpt)
+                for m in models}
     if len(models) > 1:
         backend: Any = MultiWorkloadBackend(backends)
         print(f"multi-workload scheduler: {sorted(backends)} "
@@ -121,10 +175,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Engine:
                     help="batch-formation policy (runtime/scheduler.py)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain versions")
+    ap.add_argument("--precision", default="f32", choices=["f32", "int8"],
+                    help="served numerics; int8 is the post-training "
+                         "quantized path (core/quant.py)")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory of the reference's layout: "
+                         "params, masks and int8 scales are restored")
     args = ap.parse_args(argv)
     models = parse_archs(args.arch)
+    if args.ckpt and len(models) > 1:
+        raise SystemExit("--ckpt restores one arch; pass a single --arch")
     eng = make_engine(models, slots=args.slots, policy=args.policy,
-                      device=args.device)
+                      device=args.device, precision=args.precision,
+                      ckpt=args.ckpt)
     rids = submit_burst(eng, models, args.requests)
     out = eng.run_until_done()
     print_report(eng, out, rids)

@@ -16,9 +16,9 @@ model-shaped lives behind the ``ModelBackend`` protocol:
 (configs/vikin_models.PaperModelConfig) on a torch device: a request is
 one feature vector, and the batched step pads the active slots into a
 power-of-two bucket (>= ``min_bucket`` = 2, as the reference) and runs
-the whole stack (models/ffn.VikinStack) through the fused KAN and
-pattern-matmul kernels.  Every served batch is charged its mode-switch
-schedule in the simulated-cycle report.
+the whole stack (models/ffn.VikinStack, or core/quant.QuantVikinStack at
+int8) through the fused KAN and pattern-matmul kernels.  Every served
+batch is charged its mode-switch schedule in the simulated-cycle report.
 
 ``MultiWorkloadBackend`` dispatches the same protocol across several
 named VIKIN workloads (``--arch a,b,c``).
@@ -31,8 +31,15 @@ from typing import Any, Dict, FrozenSet, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.calibrate import masked_pattern_rates
 from repro_torch.core.engine import VikinHW, serving_report
 from repro_torch.core.modes import ExecMode, ModePlan
+from repro_torch.core.quant import (
+    QuantVikinStack,
+    StackScales,
+    quantize_stack_params,
+)
+from repro_torch.core.sparsity import PatternMask
 from repro_torch.models.ffn import VikinStack
 from repro_torch.utils import next_pow2, resolve_device
 
@@ -116,23 +123,61 @@ class VikinBackend(ModelBackend):
     ``params`` is one dict of tensors (or numpy arrays) per layer in the
     JAX package's layout.  The stack is built once on ``device`` (default
     ``"cuda"``, refused when CUDA is missing); ``device="cpu"`` runs the
-    plain PyTorch versions.  Serving is f32.
+    plain PyTorch versions.  ``masks`` (one Optional[PatternMask] per
+    layer, e.g. a calibrated checkpoint's) override the config's tiled
+    masks, and the cycle model is then charged their measured rates.
+
+    ``precision`` selects the served numerics: "f32" (default) or "int8"
+    (post-training quantized, core/quant), which needs the calibrated
+    ``scales`` (core/calibrate.calibrate_scales or a checkpoint's
+    restore_scales); params are quantized once, here, and the cycle model
+    charges int8 DMA bytes.  Requests submit f32 payloads either way.
     """
 
-    precision = "f32"
     min_bucket = 2
 
     def __init__(self, model: Any, params: Sequence[Dict[str, Any]], *,
-                 device: str | torch.device = "cuda") -> None:
+                 device: str | torch.device = "cuda",
+                 masks: Optional[Sequence[Optional[PatternMask]]] = None,
+                 precision: str = "f32",
+                 scales: Optional[StackScales] = None) -> None:
+        if precision == "bf16":
+            raise ValueError(
+                "precision='bf16' is not ported yet (ROADMAP item 7): the "
+                "port's kernels are f32 and int8 only")
+        if precision not in ("f32", "int8"):
+            raise ValueError(
+                f"unknown precision {precision!r}; expected f32|int8")
+        if precision == "int8" and scales is None:
+            raise ValueError(
+                "precision='int8' requires calibrated scales "
+                "(core/calibrate.calibrate_scales or "
+                "checkpoint.restore_scales)")
         self.device = resolve_device(device)
         self.model, self.hw = model, VikinHW()
+        self.precision, self.scales = precision, scales
+        self.masks = list(masks) if masks is not None else None
         self.plan = ModePlan.for_layers(model.layer_kind_enums())
-        self.layers = model.layer_works()
+        if self.masks is not None:
+            # calibrated model: charge the cycle model the MEASURED
+            # per-layer mask sparsity, not the config-level rate
+            self.layers = model.layer_works(
+                pattern_rates=masked_pattern_rates(self.masks))
+        else:
+            self.layers = model.layer_works()
         self.n_in = int(model.sizes[0])
         tensors = [{k: torch.as_tensor(v, dtype=torch.float32,
                                        device=self.device)
                     for k, v in p.items()} for p in params]
-        self.stack = VikinStack(model, tensors).eval()
+        self.stack: torch.nn.Module
+        if precision == "int8":
+            assert scales is not None            # checked above
+            self.stack = QuantVikinStack(
+                model, quantize_stack_params(tensors, model, scales), scales,
+                self.masks)
+        else:
+            self.stack = VikinStack(model, tensors, self.masks)
+        self.stack.eval()
         self._report_cache: Dict[Tuple[int, Optional[ExecMode]],
                                  Dict[str, float]] = {}
         self.n_slots: Optional[int] = None

@@ -1,6 +1,9 @@
 """Small shared utilities (counterpart of ``repro/utils.py``)."""
 from __future__ import annotations
 
+from typing import Any
+
+import numpy as np
 import torch
 
 
@@ -21,3 +24,10 @@ def resolve_device(device: str | torch.device) -> torch.device:
             f"device {str(device)!r} requested but CUDA is not available; "
             f"pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def host_f32(a: Any) -> np.ndarray:
+    """A tensor (on any device) or array-like as a host f32 numpy array."""
+    if torch.is_tensor(a):
+        a = a.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(a, np.float32)

@@ -48,6 +48,27 @@ def test_every_kernel_has_a_cuda_source():
         assert src.is_relative_to(PORT)
 
 
+def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
+    """An edited header that a source includes rebuilds the kernel."""
+    from repro_torch.kernels import _build
+
+    hdr = tmp_path / "inc" / "h.cuh"
+    hdr.parent.mkdir()
+    hdr.write_text("#pragma once\nconstexpr int A = 1;\n")
+    src = tmp_path / "k.cu"
+    src.write_text('#include <cuda_runtime.h>\n#include "inc/h.cuh"\n'
+                   'extern "C" int k() { return A; }\n')
+    monkeypatch.setitem(_build.KERNELS, "k", (src, "k", ()))
+    assert _build.source_files(src) == [src.resolve(), hdr.resolve()]
+    before = _build.library_path("k")
+    assert _build.library_path("k") == before
+    hdr.write_text("#pragma once\nconstexpr int A = 2;\n")
+    assert _build.library_path("k") != before
+    for name in ("kan_fused_v2", "kan_fused_v2_q8"):
+        files = _build.source_files(_build.KERNELS[name][0])
+        assert [f.name for f in files[1:]] == ["kan_fused.cuh"], name
+
+
 def test_imports_need_no_gpu_or_nvcc(tmp_path):
     """Every port module imports with no nvcc on PATH and no visible GPU,
     never imports jax, and builds nothing at import."""
