@@ -8,7 +8,7 @@ Run from anywhere on a machine with one NVIDIA GPU:
 Phases, each of which fails the run (non-zero exit) on any fault:
 
 1. device and build -- print the card (nvidia-smi name and power limit)
-   and the torch/CUDA versions, then build all four kernels from
+   and the torch/CUDA versions, then build all six kernels from
    ``src/repro_torch/kernels/*/csrc/*.cu`` with nvcc for sm_90a, one
    compiler per source, in parallel;
 2. kernels vs plain -- each kernel against its plain PyTorch version on
@@ -16,7 +16,13 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    stacks give it at buckets 2/4/8/16 (f32, and int8 with scales
    calibrated as the launcher does), at ragged shapes and at one batch
    of 8192: within ``1e-5 * (1 + max|plain|)``, and the int8 matmul
-   bitwise;
+   bitwise.  The kernel-tooling kernels too: the spline-basis kernel
+   bitwise for every G x K, on the flattened KAN-layer inputs of
+   vikin-mixed and vikin-kan2 at the same batches, at ragged n, on
+   inputs outside [-1, 1] and at every ``block_n`` candidate; the v1 KAN
+   kernel at the same KAN layers and at a ragged shape, within the
+   tolerance of its plain version and of the v2 kernel, and batched ==
+   single, bitwise;
 3. serve -- 48 requests of vikin-kan2, vikin-mlp3 and vikin-mixed through
    the port's Engine + MultiWorkloadBackend on 8 slots, once in f32 and
    once in int8: every answer against the same stack run through the
@@ -31,9 +37,23 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    version's ms, one PyTorch call's ms where one computes the same
    function (``addmm``; ``torch._int_mm`` where its shape rules allow),
    and the bound max(bytes / 3.35 TB/s, operations / peak rate: 67
-   TFLOP/s f32, 1979 TOP/s int8 for the int8 matmul); then, per arch at
-   bucket 8 and per precision, where one served batch's time goes (host
-   wall of a backend forward, the stack on the card, the kernels alone).
+   TFLOP/s f32, 1979 TOP/s int8 for the int8 matmul); the spline-basis
+   kernel on the vikin-mixed KAN layer's input, flattened, and the v1
+   KAN kernel at that layer beside the v2 one; then, per arch at bucket
+   8 and per precision, where one served batch's time goes (host wall of
+   a backend forward, the stack on the card, the kernels alone);
+5. the v1 path -- a ``KANLayer`` at ``version=1`` built from the
+   vikin-kan2 stack's weights runs forward on the card at buckets
+   2/4/8/16 and 8192: exactly one v1 launch per call and no v2 launch,
+   answers within tolerance of the v2 layer and of the plain versions;
+6. the kernel bench -- ``repro_torch.benchmarks.kernel_bench.run`` on
+   the card with its own asserts (spline-basis, v1 and v2 KAN and
+   matmul kernels against plain versions and oracles, one
+   ``tune_spline_basis`` search round-tripped through a temporary
+   cache), its JSON in ``chiprun_out/kernel_bench.json``.
+
+No served path launches the spline-basis or v1 kernel, so their
+``launches`` in the record are those of phases 6 and 5.
 
 It prints the ``{"kernels": [...]}`` record, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It imports nothing
@@ -41,6 +61,7 @@ of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -83,9 +104,19 @@ KERNEL_INFO = {
                    "pattern_matmul_q8.cu"),
         "replaces": "src/repro/kernels/pattern_matmul/pattern_matmul.py:79",
     },
+    "spline_basis": {
+        "source": ("src/repro_torch/kernels/spline_basis/csrc/"
+                   "spline_basis.cu"),
+        "replaces": "src/repro/kernels/spline_basis/spline_basis.py:68",
+    },
+    "kan_fused_v1": {
+        "source": "src/repro_torch/kernels/kan_fused/csrc/kan_fused_v1.cu",
+        "replaces": "src/repro/kernels/kan_fused/kan_fused.py:227",
+    },
 }
 F32_KERNELS = ("kan_fused_v2", "pattern_matmul")
 Q8_KERNELS = ("kan_fused_v2_q8", "pattern_matmul_q8")
+TOOLING_KERNELS = ("spline_basis", "kan_fused_v1")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -166,6 +197,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
 
+    from repro_torch.benchmarks import kernel_bench
     from repro_torch.configs.vikin_models import VIKIN_ARCHS
     from repro_torch.core.kan import KANLayer
     from repro_torch.core.quant import (
@@ -173,15 +205,24 @@ def main() -> int:
         quantize_static,
         static_reciprocal,
     )
-    from repro_torch.core.splines import SplineSpec, locate_cell, spu_op_count
-    from repro_torch.kernels import _build
+    from repro_torch.core.splines import (
+        VALID_G,
+        VALID_K,
+        SplineSpec,
+        locate_cell,
+        spu_op_count,
+    )
+    from repro_torch.kernels import _build, autotune
     from repro_torch.kernels.epilogue import scale_bias_act
     from repro_torch.kernels.kan_fused.ops import (
+        flatten_t,
+        kan_fused_v1,
         kan_fused_v2,
         kan_fused_v2_q8,
         slot_table,
     )
     from repro_torch.kernels.kan_fused.ref import (
+        kan_fused_v1_ref,
         kan_fused_v2_q8_ref,
         kan_fused_v2_ref,
     )
@@ -193,6 +234,8 @@ def main() -> int:
         matmul_compact_ref,
         matmul_q8_ref,
     )
+    from repro_torch.kernels.spline_basis.ops import spline_basis
+    from repro_torch.kernels.spline_basis.ref import spline_basis_plain
     from repro_torch.launch.serve import (
         make_engine,
         make_vikin_backend,
@@ -379,11 +422,88 @@ def main() -> int:
     check_stack_q8(q8_backends["vikin-mixed"].stack, x_big,
                    f"vikin-mixed B={BIG}")
     torch.cuda.synchronize()
+
+    # the kernel-tooling kernels: spline_basis bitwise at every block_n
+    # candidate; kan_fused_v1 against its plain version, the v2 kernel on
+    # the same weights, and itself one row at a time
+    def kan_inputs(stack, x: torch.Tensor):
+        """(layer, input) of each KAN layer of ``stack`` on ``x``, the
+        stack run layer by layer through the plain versions."""
+        out = []
+        for layer in stack.layers:
+            if isinstance(layer, KANLayer):
+                out.append((layer, x))
+            x = layer_calls(layer, x)[3]()
+        return out
+
+    def check_spline(x: torch.Tensor, spec, what: str) -> None:
+        flat = x.reshape(-1)
+        plain = spline_basis_plain(flat, spec)
+        for cand in autotune.candidates_spline_basis(flat.numel()):
+            bn = cand["block_n"]
+            compare("spline_basis", spline_basis(flat, spec, block_n=bn),
+                    plain, f"{what} block_n={bn}", exact=True)
+
+    v1_v2 = {"err": 0.0, "n": 0}
+
+    def check_v1(x, w_b, t_flat, wt, spec, kb, slot, what: str) -> None:
+        got = kan_fused_v1(x, w_b, t_flat, spec, kb, slot)
+        compare("kan_fused_v1", got,
+                kan_fused_v1_ref(x, w_b, t_flat, spec, kb), what)
+        err, scale, nan = rel_err(got, kan_fused_v2(x, wt, spec, kb, slot))
+        check(not nan and err <= KERNEL_TOL * scale,
+              f"kan_fused_v1 {what}: max|v1 - v2| = {err:.3e} > "
+              f"{KERNEL_TOL:g} * {scale:.4g} (NaN: {nan})")
+        v1_v2["err"] = max(v1_v2["err"], err)
+        v1_v2["n"] += 1
+
+    rng_sb = np.random.default_rng(3)
+    for g in VALID_G:
+        for k in VALID_K:
+            x = torch.from_numpy(rng_sb.uniform(-2.5, 2.5, 4096).astype(
+                np.float32)).to(dev)
+            check_spline(x, SplineSpec(g, k), f"G{g}K{k} n=4096 in "
+                         f"[-2.5, 2.5]")
+    for name in ("vikin-mixed", "vikin-kan2"):
+        for b in BUCKETS + (BIG,):
+            x = torch.from_numpy(rng.random(
+                (b, VIKIN_ARCHS[name].sizes[0]), dtype=np.float32)).to(dev)
+            for layer, xin in kan_inputs(backends[name].stack, x):
+                check_spline(xin, layer.cfg.spec,
+                             f"{name} KAN input B={b}")
+                check_v1(xin, layer.w_b,
+                         flatten_t(layer.t, layer.cfg.kb).contiguous(),
+                         layer.wt, layer.cfg.spec, layer.kb, layer.slot_of,
+                         f"{name} B={b}")
+    for n in (1, 7, 1025, 1000 * 304):
+        x = torch.from_numpy(rng_sb.uniform(-2.5, 2.5, n).astype(
+            np.float32)).to(dev)
+        check_spline(x, spec, f"ragged n={n} in [-2.5, 2.5]")
+    # ragged 1000x304->96: the ragged v2 weights, unfused
+    xr = (torch.randn((1000, 304), generator=gen) * 1.5).to(dev)
+    w3 = wt.reshape(304, len(kb) + 1, 96)
+    check_v1(xr, w3[:, 0].contiguous(),
+             w3[:, 1:].reshape(304 * len(kb), 96).contiguous(), wt, spec,
+             kb, slot, "ragged 1000x304->96")
+    # batched == single, bitwise, at vikin-mixed's KAN layer
+    layer, xin = kan_inputs(backends["vikin-mixed"].stack, x_big[:16])[0]
+    t_flat = flatten_t(layer.t, layer.cfg.kb).contiguous()
+    full = kan_fused_v1(xin, layer.w_b, t_flat, layer.cfg.spec, layer.kb,
+                        layer.slot_of)
+    for i in range(6):
+        one = kan_fused_v1(xin[i:i + 1].contiguous(), layer.w_b, t_flat,
+                           layer.cfg.spec, layer.kb, layer.slot_of)
+        check(torch.equal(one, full[i:i + 1]),
+              f"kan_fused_v1: row {i} alone != row {i} of a batch of 16")
+    torch.cuda.synchronize()
     for name in KERNEL_INFO:
-        how = ("bitwise" if name == "pattern_matmul_q8"
+        how = ("bitwise" if name in ("pattern_matmul_q8", "spline_basis")
                else f"within {KERNEL_TOL:g}*(1+max|plain|)")
         print(f"phase 2: {name}: {n_checks[name]} shapes {how}, max abs "
               f"err {max_err[name]:.3e}")
+    print(f"phase 2: kan_fused_v1 vs kan_fused_v2: {v1_v2['n']} shapes "
+          f"within {KERNEL_TOL:g}*(1+max|v2|), max abs err "
+          f"{v1_v2['err']:.3e}; v1 batched == single, bitwise, on 6 rows")
 
     # ---------------------------------------------------------------- 3
     models = [VIKIN_ARCHS[n] for n in ARCHS]
@@ -411,7 +531,7 @@ def main() -> int:
     for k in want:
         check(launches[k] == want[k] and want[k] > 0,
               f"{k}: {launches[k]} launches, served batches imply {want[k]}")
-    for k in Q8_KERNELS:
+    for k in Q8_KERNELS + TOOLING_KERNELS:
         check(launches[k] == 0, f"{k}: {launches[k]} launches in f32 serving")
 
     sub = eng.backend.backends
@@ -473,7 +593,7 @@ def main() -> int:
           f"batches {q_want}")
     for k in KERNEL_INFO:
         check(q_launches[k] == q_want[k] and (q_want[k] > 0 or
-                                              k in F32_KERNELS),
+                                              k not in Q8_KERNELS),
               f"int8 {k}: {q_launches[k]} launches, served batches imply "
               f"{q_want[k]}")
 
@@ -600,6 +720,68 @@ def main() -> int:
             }
             records[(k, batch)] = rec
             print(json.dumps(rec))
+    # the kernel-tooling kernels at vikin-mixed's KAN layer: the spline
+    # basis of its input, flattened, and v1 beside v2 on the same weights.
+    # Neither computes what one PyTorch call does: no library time.
+    def tool_record(k: str, batch: int, shapes, kernel, plain,
+                    nbytes: float, ops: float) -> dict:
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_FLOPS_PER_S * 1e3
+        return {
+            "kernel": k, "model": "vikin-mixed", "batch": batch,
+            "shapes": shapes, "ms": time_ms(kernel),
+            "graph_ms": graph_ms(kernel),
+            "plain_ms": time_ms(plain, iters=20), "library_ms": None,
+            "library_graph_ms": None, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops, "card": card,
+        }
+
+    for batch in (8, BIG):
+        x = torch.from_numpy(np.random.default_rng(2).random(
+            (batch, mixed.sizes[0]), dtype=np.float32)).to(dev)
+        layer, xin = kan_inputs(stack, x)[0]
+        kan_spec, n_in, n_out = layer.cfg.spec, layer.cfg.n_in, layer.cfg.n_out
+        flat = xin.reshape(-1)
+        n = flat.numel()
+        # each input read once and its G+K values written once; the SPU
+        # operations of core/splines.spu_op_count per input
+        rec = tool_record(
+            "spline_basis", batch,
+            [f"n={n} ({batch}x{n_in} flattened) G{kan_spec.grid_size}"
+             f"K{kan_spec.order}"],
+            lambda: spline_basis(flat, kan_spec),
+            lambda: spline_basis_plain(flat, kan_spec),
+            4.0 * n * (1 + kan_spec.n_bases),
+            float(n * spu_op_count(kan_spec)))
+        records[("spline_basis", batch)] = rec
+        print(json.dumps(rec))
+        t_flat = flatten_t(layer.t, layer.cfg.kb).contiguous()
+        cell, _ = locate_cell(kan_spec.clip(xin), kan_spec)
+        slots = layer.slot_of.long()
+        hits = sum(int((slots[(cell + j).long()] >= 0).sum())
+                   for j in range(kan_spec.n_active))
+        rec = tool_record(
+            "kan_fused_v1", batch,
+            [f"{batch}x{n_in}->{n_out} kb={list(layer.kb)}"],
+            lambda: kan_fused_v1(xin, layer.w_b, t_flat, kan_spec, layer.kb,
+                                 layer.slot_of),
+            lambda: kan_fused_v1_ref(xin, layer.w_b, t_flat, kan_spec,
+                                     layer.kb),
+            4.0 * (xin.numel() + layer.w_b.numel() + t_flat.numel()
+                   + layer.slot_of.numel() + batch * n_out),
+            2.0 * n_out * (batch * n_in + hits)
+            + batch * n_in * (spu_op_count(kan_spec) + 4))
+
+        def v2(xin=xin, layer=layer):
+            return kan_fused_v2(xin, layer.wt, layer.cfg.spec, layer.kb,
+                                layer.slot_of)
+        rec["v2_ms"] = time_ms(v2)
+        rec["v2_graph_ms"] = graph_ms(v2)
+        records[("kan_fused_v1", batch)] = rec
+        print(json.dumps(rec))
+        torch.cuda.synchronize()
+
     # the int8 kernels at the int8 vikin-mixed stack's shapes
     q_stack = q8_backends["vikin-mixed"].stack
     for batch in (8, BIG):
@@ -736,13 +918,78 @@ def main() -> int:
                                 "wall_rps": len(q_out) / q_serve_s,
                                 "card": card}}))
 
+    # ---------------------------------------------------------------- 5
+    # the v1 path: a KAN layer configured at version 1, on vikin-kan2's
+    # weights, at the serving buckets and one large batch
+    kan2 = VIKIN_ARCHS["vikin-kan2"]
+    layer2 = backends["vikin-kan2"].stack.layers[0]
+    layer1 = KANLayer(dataclasses.replace(layer2.cfg, version=1),
+                      {"w_b": layer2.w_b, "t": layer2.t})
+    v1_rng = np.random.default_rng(4)
+    v1_x = {b: torch.from_numpy(v1_rng.random(
+        (b, kan2.sizes[0]), dtype=np.float32)).to(dev)
+        for b in BUCKETS + (BIG,)}
+    _build.reset_launches()
+    v1_out = {b: layer1(x) for b, x in v1_x.items()}
+    torch.cuda.synchronize()
+    v1_launches = dict(_build.LAUNCHES)
+    want = {k: 0 for k in v1_launches}
+    want["kan_fused_v1"] = len(v1_x)
+    check(v1_launches == want, f"v1 path: launches {v1_launches}, the "
+          f"{len(v1_x)} layer calls imply {want}")
+    cpu_layer = KANLayer(layer1.cfg, {"w_b": layer2.w_b.cpu(),
+                                      "t": layer2.t.cpu()})
+    v1_err = 0.0
+    for b, x in v1_x.items():
+        y = v1_out[b]
+        check(y.shape == (b, kan2.sizes[-1]) and bool(torch.isfinite(y).all()),
+              f"v1 path B={b}: output {tuple(y.shape)} or not finite")
+        refs = (("the v2 layer", layer2(x)),
+                ("the plain version", kan_fused_v1_ref(
+                    x, layer1.w_b, layer1.t_flat, layer1.cfg.spec,
+                    layer1.kb)),
+                ("the layer on the CPU", cpu_layer(x.cpu()).to(dev)))
+        for what, ref in refs:
+            err, scale, nan = rel_err(y, ref)
+            check(not nan and err <= KERNEL_TOL * scale,
+                  f"v1 path B={b}: max|v1 layer - {what}| = {err:.3e} > "
+                  f"{KERNEL_TOL:g} * {scale:.4g} (NaN: {nan})")
+            v1_err = max(v1_err, err)
+    print(f"phase 5: v1 KANLayer on vikin-kan2's weights at batches "
+          f"{sorted(v1_x)}: launches {v1_launches}; within "
+          f"{KERNEL_TOL:g}*(1+max|ref|) of the v2 layer, the plain version "
+          f"and the layer on the CPU, max abs err {v1_err:.3e}")
+
+    # ---------------------------------------------------------------- 6
+    _build.reset_launches()
+    bench = kernel_bench.run(device=DEVICE,
+                             out=ROOT / "chiprun_out" / "kernel_bench.json")
+    torch.cuda.synchronize()
+    bench_launches = dict(_build.LAUNCHES)
+    for k in ("spline_basis", "kan_fused_v1", "kan_fused_v2",
+              "pattern_matmul"):
+        check(bench_launches[k] > 0,
+              f"kernel bench: {k} launched {bench_launches[k]} times")
+    check(bench["tuning"]["cache_round_trip"],
+          "kernel bench: the tuned block_n did not round-trip")
+    print(f"phase 6: kernel bench passed its asserts; launches "
+          f"{bench_launches}; tuned {bench['tuning']['tuned_blocks']} at "
+          f"n={bench['tuning']['n']}")
+
+    launched = {k: (launches[k], "phase 3, f32 burst") for k in F32_KERNELS}
+    launched.update({k: (q_launches[k], "phase 3, int8 burst")
+                     for k in Q8_KERNELS})
+    launched["kan_fused_v1"] = (v1_launches["kan_fused_v1"],
+                                "phase 5, v1 path")
+    launched["spline_basis"] = (bench_launches["spline_basis"],
+                                "phase 6, kernel bench")
     kernels = []
     for k, info in KERNEL_INFO.items():
         rec = records[(k, 8)]
         kernels.append({
             "name": k, "route": "cuda", "source": info["source"],
-            "replaces": info["replaces"],
-            "launches": (q_launches if k in Q8_KERNELS else launches)[k],
+            "replaces": info["replaces"], "launches": launched[k][0],
+            "launches_phase": launched[k][1],
             "max_abs_err": max_err[k], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -759,7 +1006,9 @@ def main() -> int:
                    "stats": {k: v for k, v in eng.stats.items()}},
          "serve_int8": {"wall_s": q_serve_s,
                         "wall_rps": len(q_out) / q_serve_s,
-                        "stats": {k: v for k, v in q_eng.stats.items()}}},
+                        "stats": {k: v for k, v in q_eng.stats.items()}},
+         "v1_path": {"launches": v1_launches, "max_abs_err": v1_err},
+         "kernel_bench_launches": bench_launches},
         indent=1, default=str))
     print(json.dumps(summary))
     print(card_line())

@@ -1,0 +1,311 @@
+"""Kernel bench of the PyTorch/CUDA port: agreement, counts and card times.
+
+Counterpart of ``benchmarks/kernel_bench.py``, with the same sections:
+
+* ``spline_basis`` -- the spline-basis kernel at G4K3, G16K3 and G8K2 on
+  n = 4096 inputs: its error against the plain version (bitwise on the
+  card) and the dense oracle, the SPU and dense op counts per input,
+  bytes in and out, and its time on the card;
+* ``kan_fused`` -- the v1 and v2 KAN kernels at 256x72->96 (no mask and
+  ``(1,0,1,0)``) and 256x128->128 ``(1,0,0,0)`` in f32: each against its
+  plain version, v1 against v2, v2 against ``kan_reference_dense``, the
+  contraction sizes, weight bytes and both times;
+* ``pattern_matmul`` -- the compacted matmul at rates 0, 0.5 and 0.75 on
+  128x512->256 against the dense masked oracle;
+* ``tuning`` -- a ``tune_spline_basis`` search and its round trip through
+  a fresh ``AutotuneCache`` on a temporary file.
+
+Run (from the repository root, with ``PYTHONPATH=src``)::
+
+    python -m repro_torch.benchmarks.kernel_bench [--device cpu] [--out PATH]
+
+On the card (the default) every kernel is launched, and every ``ms`` is
+device time (calls replayed from a CUDA graph).  On the CPU the wrappers
+run the plain versions, so the run checks the sweep, the oracle
+agreement and the counts, and times nothing: every ``ms`` is null.  The
+bench asserts its tolerances as the JAX bench does, so a non-zero exit is
+a fault.  It writes JSON to ``--out`` (``chiprun_out/kernel_bench.json``
+at the repository root by default), never to ``BENCH_kernels.json`` or
+``experiments/``.
+
+Left out: the JAX field ``mxu_dispatches_per_step`` counts ``dot_general``
+calls in a TPU jaxpr; the CUDA kernels issue no MXU contractions and
+PyTorch traces no jaxpr, so it has no counterpart on the card.  The JAX
+bench's bf16 rows wait for bf16 kernels (ROADMAP item 7); the JSON says
+so under ``"bf16"`` instead of faking them.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import tempfile
+from pathlib import Path
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.kan import KANConfig, kan_init, kan_reference_dense
+from repro_torch.core.sparsity import sparsity_to_pattern, tiled_mask
+from repro_torch.core.splines import (
+    SplineSpec,
+    dense_eval_op_count,
+    spu_op_count,
+)
+from repro_torch.kernels import autotune
+from repro_torch.kernels.kan_fused.ops import (
+    flatten_t,
+    fuse_wt,
+    kan_fused_v1,
+    kan_fused_v2,
+    slot_table,
+)
+from repro_torch.kernels.kan_fused.ref import (
+    kan_fused_v1_ref,
+    kan_fused_v2_ref,
+)
+from repro_torch.kernels.pattern_matmul.ops import matmul_compact
+from repro_torch.kernels.pattern_matmul.ref import pattern_matmul_ref
+from repro_torch.kernels.spline_basis.ops import (
+    DEFAULT_BLOCK_N,
+    spline_basis,
+)
+from repro_torch.kernels.spline_basis.ref import (
+    spline_basis_plain,
+    spline_basis_ref,
+)
+from repro_torch.utils import resolve_device
+
+ROOT = Path(__file__).resolve().parents[3]
+DEFAULT_OUT = ROOT / "chiprun_out" / "kernel_bench.json"
+SCHEMA = 1
+
+
+def _check(cond: bool, *what: object) -> None:
+    """The bench's asserts: raise (also under ``python -O``)."""
+    if not cond:
+        raise AssertionError(f"kernel_bench: {what}")
+
+
+def _max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.to(torch.float32) - b.to(torch.float32)).abs().max())
+
+
+def _time_ms(fn: Callable[[], object], dev: torch.device, iters: int = 20,
+             reps: int = 5) -> Optional[float]:
+    """Device time of one call: ``iters`` calls captured in one CUDA graph
+    after a warm-up call, each replay timed by CUDA events, the median of
+    ``reps`` replays over ``iters``.  The host's launch overhead, which
+    paces back-to-back calls of a small kernel, drops out.  None off the
+    card (nothing measured)."""
+    if dev.type != "cuda":
+        return None
+    fn()
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def bench_spline_basis(dev: torch.device) -> Dict:
+    out = {}
+    for g, k in ((4, 3), (16, 3), (8, 2)):
+        spec = SplineSpec(g, k)
+        x = torch.from_numpy(np.random.default_rng(0).uniform(
+            -0.99, 0.99, 4096).astype(np.float32)).to(dev)
+        got = spline_basis(x, spec)
+        plain = spline_basis_plain(x, spec)
+        err_ref = _max_abs(got, spline_basis_ref(x, spec))
+        out[f"G{g}K{k}"] = {
+            "max_err": err_ref,
+            "max_err_plain": _max_abs(got, plain),
+            "bitwise_plain": bool(torch.equal(got, plain)),
+            "ms": _time_ms(lambda: spline_basis(x, spec), dev),
+            "spu_ops_per_input": spu_op_count(spec),
+            "dense_ops_per_input": dense_eval_op_count(spec),
+            "zero_free_saving": 1 - spu_op_count(spec)
+            / dense_eval_op_count(spec),
+            "bytes_in": x.numel() * x.element_size(),
+            "bytes_out": x.numel() * spec.n_bases * x.element_size(),
+        }
+        _check(torch.equal(got, plain), g, k, "kernel != plain")
+        _check(err_ref < 1e-4, g, k, err_ref)
+    return out
+
+
+def bench_kan_fused(dev: torch.device) -> Dict:
+    """v1 and v2 at the JAX bench's shapes, f32; each within 1e-4 of its
+    plain version, of the other and of the dense oracle."""
+    out = {}
+    B = 256
+    spec = SplineSpec(4, 3)
+    for n_in, n_out, pat in ((72, 96, None), (72, 96, (1, 0, 1, 0)),
+                             (128, 128, (1, 0, 0, 0))):
+        cfg = KANConfig(n_in, n_out, spec, pattern=pat)
+        params = {k: v.to(dev) for k, v in kan_init(
+            cfg, torch.Generator().manual_seed(0)).items()}
+        x = torch.randn((B, n_in),
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+        kb = cfg.kb if cfg.kb is not None else tuple(range(spec.n_bases))
+        nbk = len(kb)
+        w_b = params["w_b"]
+        t_flat = flatten_t(params["t"], cfg.kb).contiguous()
+        wt = fuse_wt(w_b, t_flat, nbk)
+        # built once, outside the timed (graph-captured) calls
+        slot = slot_table(kb, spec.n_bases, dev)
+        v1 = kan_fused_v1(x, w_b, t_flat, spec, kb, slot)
+        v2 = kan_fused_v2(x, wt, spec, kb, slot)
+        errs = {
+            "max_err_v1": _max_abs(v1, kan_fused_v1_ref(x, w_b, t_flat,
+                                                        spec, kb)),
+            "max_err_v2": _max_abs(v2, kan_fused_v2_ref(x, wt, spec, kb)),
+            "max_err_v1_v2": _max_abs(v1, v2),
+            "max_err_dense_ref": _max_abs(
+                v2, kan_reference_dense(params, x, cfg)),
+        }
+        key = (f"{n_in}x{n_out}"
+               + (f"_p{pat.count(0) * 25}" if pat else "") + "_float32")
+        out[key] = {
+            **errs,
+            "max_err": errs["max_err_v2"],
+            "contraction_full": n_in * spec.n_bases,
+            "contraction_kept": n_in * nbk,
+            "contraction_fused_v2": n_in * (nbk + 1),
+            "basis_saving": 1 - nbk / spec.n_bases,
+            "bytes_weights_v1": (w_b.numel() + t_flat.numel()) * 4,
+            "bytes_weights_v2": wt.numel() * 4,
+            "bytes_act_in": x.numel() * 4,
+            "ms_v1": _time_ms(
+                lambda: kan_fused_v1(x, w_b, t_flat, spec, kb, slot), dev),
+            "ms_v2": _time_ms(
+                lambda: kan_fused_v2(x, wt, spec, kb, slot), dev),
+        }
+        for name, err in errs.items():
+            _check(err <= 1e-4, key, name, err)
+    return out
+
+
+def bench_pattern_matmul(dev: torch.device) -> Dict:
+    out = {}
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((128, 512), generator=gen).to(dev)
+    w = torch.randn((512, 256), generator=gen).to(dev)
+    for rate in (0.0, 0.5, 0.75):
+        mask = tiled_mask(512, sparsity_to_pattern(rate))
+        idx = torch.as_tensor(mask.indices(), dtype=torch.long, device=dev)
+        xc = x.index_select(1, idx).contiguous()
+        wc = w.index_select(0, idx).contiguous()
+        err = _max_abs(matmul_compact(xc, wc), pattern_matmul_ref(x, w, mask))
+        out[f"rate{rate}"] = {
+            "max_err": err,
+            "k_dim": int(xc.shape[1]),
+            "flop_saving": rate,
+            "bytes_weights": wc.numel() * 4,
+            "ms": _time_ms(lambda: matmul_compact(xc, wc), dev),
+        }
+        _check(err < 1e-2, rate, err)
+    return out
+
+
+def bench_tuning(dev: torch.device) -> Dict:
+    """A ``tune_spline_basis`` search at vikin-mixed's KAN input (1024
+    rows of 304 features, flattened) in a temporary cache file, reloaded
+    by a fresh ``AutotuneCache``; the tuned knob changes no result."""
+    spec = SplineSpec(4, 3)
+    n = 1024 * 304
+    x = torch.from_numpy(np.random.default_rng(1).uniform(
+        -1.5, 1.5, n).astype(np.float32)).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = autotune.AutotuneCache(os.path.join(tmp, "autotune.json"))
+        best = autotune.tune_spline_basis(x, spec, cache=cache)
+        key = autotune.cache_key("spline_basis", (n, spec.n_bases),
+                                 x.dtype, dev)
+        fresh = autotune.AutotuneCache(cache.path)
+        round_trip = fresh.lookup(key) == best
+        hit = autotune.lookup_blocks("spline_basis", (n, spec.n_bases),
+                                     x.dtype, dev, cache=fresh)
+    _check(round_trip and hit == best, key, best, hit)
+    _check(torch.equal(spline_basis(x, spec, block_n=best["block_n"]),
+                       spline_basis(x, spec, block_n=DEFAULT_BLOCK_N)),
+           "the tuned block_n changed the result")
+    return {
+        "n": n,
+        "candidates": autotune.candidates_spline_basis(n),
+        "tuned_blocks": best,
+        "default_blocks": {"block_n": DEFAULT_BLOCK_N},
+        "cache_key": key,
+        "cache_round_trip": round_trip,
+        "ms_default": _time_ms(
+            lambda: spline_basis(x, spec, block_n=DEFAULT_BLOCK_N), dev),
+        "ms_tuned": _time_ms(
+            lambda: spline_basis(x, spec, block_n=best["block_n"]), dev),
+    }
+
+
+def run(device: str = "cuda", out: Optional[str | Path] = None) -> Dict:
+    """Run every section on ``device``, write the JSON to ``out`` (default
+    ``DEFAULT_OUT``) and return it; raises on any fault."""
+    dev = resolve_device(device)
+    # the plain versions run torch.matmul on the card: hold them to IEEE
+    # f32, as the kernels are
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        results = {
+            "schema": SCHEMA,
+            "device": autotune.device_tag(dev),
+            "torch": torch.__version__,
+            "spline_basis": bench_spline_basis(dev),
+            "kan_fused": bench_kan_fused(dev),
+            "pattern_matmul": bench_pattern_matmul(dev),
+            "tuning": bench_tuning(dev),
+            "bf16": "not run: the kernels are f32 and int8 only; bf16 rows "
+                    "wait for bf16 kernels (ROADMAP item 7)",
+        }
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    path = Path(out) if out is not None else DEFAULT_OUT
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(results, indent=1))
+    for section in ("spline_basis", "kan_fused", "pattern_matmul"):
+        for case, r in results[section].items():
+            ms = {k: v for k, v in r.items() if k.startswith("ms")}
+            print(f"{section:15s} {case:20s} max_err={r['max_err']:.2e} "
+                  f"{ms}", flush=True)
+    t = results["tuning"]
+    print(f"{'tuning':15s} n={t['n']} tuned={t['tuned_blocks']} "
+          f"round_trip={t['cache_round_trip']}", flush=True)
+    print(f"wrote {path} ({results['device']})", flush=True)
+    return results
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default: launch the kernels) or cpu (the "
+                         "plain versions, nothing timed)")
+    ap.add_argument("--out", default=None,
+                    help=f"JSON output path (default {DEFAULT_OUT})")
+    args = ap.parse_args()
+    run(args.device, args.out)
+
+
+if __name__ == "__main__":
+    main()

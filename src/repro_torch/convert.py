@@ -1,4 +1,4 @@
-"""Carry the JAX package's stack weights, masks and int8 scales into the port.
+"""Carry the JAX package's weights, masks and int8 scales into the port.
 
 ``jax.random`` draws cannot be reproduced with ``torch.Generator``s, so
 parity tests and served checkpoints move weights across instead of
@@ -15,9 +15,40 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.kan import KANConfig
 from repro_torch.core.quant import LayerScales, StackScales
 from repro_torch.core.sparsity import PatternMask
 from repro_torch.models.ffn import stack_layer_cfgs
+
+
+def _layer_from_jax(p: Mapping[str, Any], want: Mapping[str, tuple],
+                    what: str) -> Dict[str, torch.Tensor]:
+    """f32 CPU tensors of one layer's arrays; raises naming ``what`` if a
+    key or shape differs from ``want``."""
+    if set(p) != set(want):
+        raise ValueError(f"{what}: keys {sorted(p)}, expected "
+                         f"{sorted(want)}")
+    layer = {}
+    for k, shape in want.items():
+        a = np.asarray(p[k], np.float32)
+        if a.shape != shape:
+            raise ValueError(f"{what} {k}: shape {a.shape}, expected {shape}")
+        layer[k] = torch.from_numpy(a.copy())
+    return layer
+
+
+def _kan_shapes(cfg: KANConfig) -> Dict[str, tuple]:
+    return {"w_b": (cfg.n_in, cfg.n_out),
+            "t": (cfg.n_in, cfg.spec.n_bases, cfg.n_out)}
+
+
+def kan_params_from_jax(p: Mapping[str, Any],
+                        cfg: KANConfig) -> Dict[str, torch.Tensor]:
+    """One lone KAN layer's ``{"w_b", "t"}`` (numpy arrays, e.g.
+    ``np.asarray`` of each JAX leaf) as f32 CPU tensors; raises if a key
+    or shape does not match ``cfg``."""
+    return _layer_from_jax(p, _kan_shapes(cfg),
+                           f"KAN layer {cfg.n_in}->{cfg.n_out}")
 
 
 def stack_params_from_jax(params: Sequence[Mapping[str, Any]],
@@ -32,21 +63,10 @@ def stack_params_from_jax(params: Sequence[Mapping[str, Any]],
     out = []
     for i, (p, (kind, cfg)) in enumerate(zip(params, cfgs)):
         if kind == "kan":
-            want = {"w_b": (cfg.n_in, cfg.n_out),
-                    "t": (cfg.n_in, cfg.spec.n_bases, cfg.n_out)}
+            want = _kan_shapes(cfg)
         else:
             want = {"w": (cfg["n_in"], cfg["n_out"]), "b": (cfg["n_out"],)}
-        if set(p) != set(want):
-            raise ValueError(f"layer {i} ({kind}): keys {sorted(p)}, "
-                             f"expected {sorted(want)}")
-        layer = {}
-        for k, shape in want.items():
-            a = np.asarray(p[k], np.float32)
-            if a.shape != shape:
-                raise ValueError(f"layer {i} ({kind}) {k}: shape {a.shape}, "
-                                 f"expected {shape}")
-            layer[k] = torch.from_numpy(a.copy())
-        out.append(layer)
+        out.append(_layer_from_jax(p, want, f"layer {i} ({kind})"))
     return out
 
 

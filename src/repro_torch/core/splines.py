@@ -162,6 +162,17 @@ def scatter_kept(vals: torch.Tensor, cell: torch.Tensor, kbv: torch.Tensor,
     return out
 
 
+def gather_local(dense: torch.Tensor, cell: torch.Tensor,
+                 spec: SplineSpec) -> torch.Tensor:
+    """Inverse of ``scatter_local``: the K+1 values at ``cell..cell+K``."""
+    idx = torch.arange(spec.n_bases, dtype=torch.int32, device=dense.device)
+    out = []
+    for j in range(spec.n_active):
+        sel = (idx == cell[..., None] + j).to(dense.dtype)
+        out.append(torch.sum(dense * sel, dim=-1))
+    return torch.stack(out, dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Operation counting (feeds the VIKIN cycle model).
 # ---------------------------------------------------------------------------

@@ -58,6 +58,17 @@ KERNELS = {
         "pattern_matmul_s8",
         # x_q, w_q, y, M, K, N, stream
         (_P, _P, _P, _I, _I, _I, _P)),
+    "spline_basis": (
+        KERNELS_DIR / "spline_basis" / "csrc" / "spline_basis.cu",
+        "spline_basis_f32",
+        # x, out, n, G, K, x0, inv_h, block_n, stream
+        (_P, _P, _I, _I, _I, _F, _F, _I, _P)),
+    "kan_fused_v1": (
+        KERNELS_DIR / "kan_fused" / "csrc" / "kan_fused_v1.cu",
+        "kan_fused_v1_f32",
+        # x, w_b, t_flat, slot_of, out, B, n_in, n_out, nbk, G, K, x0, hi,
+        # inv_h, stream
+        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P)),
 }
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)

@@ -42,7 +42,7 @@
 // The spline arithmetic uses round-to-nearest intrinsics, so no FMA
 // contraction makes it differ from the plain version (kan_fused/ref.py).
 // The kernel body is kan_fused.cuh, shared with the int8 kernel
-// (kan_fused_q8.cu).
+// (kan_fused_q8.cu) and the v1 kernel (kan_fused_v1.cu).
 #include "kan_fused.cuh"
 
 // x: (B, n_in), wt: (n_in*(nbk+1), n_out), slot_of: (G+K,) int32,
@@ -53,6 +53,6 @@ extern "C" int kan_fused_v2_f32(const float* x, const float* wt,
                                 int n_in, int n_out, int nbk, int G, int K,
                                 float x0, float hi, float inv_h,
                                 void* stream) {
-  return kan_fused::launch(kan_fused::F32{x, wt}, slot_of, out, B, n_in,
-                           n_out, nbk, G, K, x0, hi, inv_h, stream);
+  return kan_fused::launch(kan_fused::F32{{nbk}, x, wt}, slot_of, out, B,
+                           n_in, n_out, nbk, G, K, x0, hi, inv_h, stream);
 }

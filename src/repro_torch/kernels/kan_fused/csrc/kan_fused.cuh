@@ -1,14 +1,22 @@
-// The fused KAN layer kernel shared by kan_fused.cu (f32) and
-// kan_fused_q8.cu (int8 codes), for sm_90a.
+// The fused KAN layer kernel shared by kan_fused.cu (v2, f32),
+// kan_fused_q8.cu (v2, int8 codes) and kan_fused_v1.cu (v1, f32), and the
+// SPU stage shared with spline_basis.cu, for sm_90a.
 //
 // One template body; the operand policy `Op` says how an input value and
-// a fused weight are read: as f32 (`F32`), or as int8 codes dequantized
-// on load (`Q8`: x times the layer's static scale, each weight times the
-// scale of its row slot -- silu row 0, kept basis 1 + slot).  Everything
-// else -- the staging of silu, the cell and the K+1 de Boor values, the
-// round-to-nearest spline arithmetic and the fixed summation order -- is
-// the same code for both, so each keeps batched == single bitwise.  See
-// kan_fused.cu for the function, the design and what bounds it.
+// a weight are read and where a feature's weights live:
+//   * `F32`: the fused [w_b ; t[kb]] rows of ops.fuse_wt, as f32;
+//   * `Q8`: the same rows as int8 codes dequantized on load (x times the
+//     layer's static scale, each weight times the scale of its row slot --
+//     silu row 0, kept basis 1 + slot);
+//   * `F32Split`: the v1 layout, `w_b` and `t_flat` as two arrays, summed
+//     into two accumulators (silu branch, spline branch) that are added
+//     once at the end, as the plain version's `dot(s, w_b) + dot(act,
+//     t_flat)` does.
+// Everything else -- the staging of silu, the cell and the K+1 de Boor
+// values, the round-to-nearest spline arithmetic and the fixed summation
+// order -- is the same code for all three, so each keeps batched == single
+// bitwise.  See kan_fused.cu for the function, the design and what bounds
+// it.
 #pragma once
 
 #include <cstdint>
@@ -29,20 +37,73 @@ __device__ __forceinline__ float inv_lut(int j) {
   return j == 1 ? 1.f : j == 2 ? 0.5f : j == 3 ? 0.3333333432674408f : 0.25f;
 }
 
+// SPU: interval location on `xv` as given (core/splines.locate_cell; the
+// caller clips first where the function clips) and the stage-buffer de
+// Boor recursion (core/splines.bases_local).  Writes the K+1 values into
+// vals[0..K] (vals[K+1..KMAX] = 0) and returns the cell.  Every operation
+// is one round-to-nearest f32 op, so nvcc contracts none of them into an
+// FMA and the values equal the plain version's bit for bit.
+__device__ __forceinline__ int spu(float xv, float x0, float inv_h, int G,
+                                   int K, float vals[KMAX + 1]) {
+  const float u = __fmul_rn(__fsub_rn(xv, x0), inv_h);
+  const float cf = fminf(fmaxf(floorf(u), 0.f), (float)(G - 1));
+  const float r = __fsub_rn(u, cf);
+
+  float right[KMAX], left[KMAX];
+#pragma unroll
+  for (int d = 0; d < KMAX; ++d) {
+    right[d] = __fsub_rn((float)(d + 1), r);
+    left[d] = __fadd_rn(r, (float)d);
+  }
+  vals[0] = 1.f;
+#pragma unroll
+  for (int j = 1; j <= KMAX; ++j) {
+    vals[j] = 0.f;
+    if (j > K) continue;
+    const float inv = inv_lut(j);
+    float saved = 0.f;
+#pragma unroll
+    for (int rr = 0; rr < j; ++rr) {
+      const float temp = __fmul_rn(vals[rr], inv);
+      vals[rr] = __fadd_rn(saved, __fmul_rn(right[rr], temp));
+      saved = __fmul_rn(left[j - rr - 1], temp);
+    }
+    vals[j] = saved;
+  }
+  return (int)cf;
+}
+
+// Feature p's rows in the fused [w_b ; t[kb]] layout (ops.fuse_wt): the
+// silu row p*(nbk+1), kept slot s at p*(nbk+1) + 1 + s.
+struct FusedRows {
+  int nbk;
+  static constexpr bool kTwoAcc = false;
+  __device__ __forceinline__ int silu_row(int p) const {
+    return p * (nbk + 1);
+  }
+  __device__ __forceinline__ int spline_row(int p, int slot) const {
+    return p * (nbk + 1) + 1 + slot;
+  }
+};
+
 // f32 operands, read as they are.
-struct F32 {
+struct F32 : FusedRows {
   const float* x;
   const float* wt;
   __device__ __forceinline__ float load_x(size_t i) const { return x[i]; }
-  __device__ __forceinline__ float load_w(size_t i, int) const {
-    return __ldg(&wt[i]);
+  __device__ __forceinline__ float silu_w(int p, int n, int n_out) const {
+    return __ldg(&wt[(size_t)silu_row(p) * n_out + n]);
+  }
+  __device__ __forceinline__ float spline_w(int row, int, int n,
+                                            int n_out) const {
+    return __ldg(&wt[(size_t)row * n_out + n]);
   }
 };
 
 // int8 codes, dequantized on load as the reference does (`dequantize`,
 // `_dequant_wt`): one round-to-nearest product each, never fused into the
 // multiply-add that consumes it.
-struct Q8 {
+struct Q8 : FusedRows {
   const int8_t* x;
   const int8_t* wt;
   const float* slot_scales;            // (nbk+1,): silu row, kept bases
@@ -50,16 +111,43 @@ struct Q8 {
   __device__ __forceinline__ float load_x(size_t i) const {
     return __fmul_rn((float)x[i], x_scale);
   }
-  __device__ __forceinline__ float load_w(size_t i, int slot) const {
-    return __fmul_rn((float)__ldg(&wt[i]), __ldg(&slot_scales[slot]));
+  __device__ __forceinline__ float silu_w(int p, int n, int n_out) const {
+    return __fmul_rn((float)__ldg(&wt[(size_t)silu_row(p) * n_out + n]),
+                     __ldg(&slot_scales[0]));
+  }
+  __device__ __forceinline__ float spline_w(int row, int p, int n,
+                                            int n_out) const {
+    return __fmul_rn((float)__ldg(&wt[(size_t)row * n_out + n]),
+                     __ldg(&slot_scales[row - silu_row(p)]));
+  }
+};
+
+// v1: `w_b` (n_in, n_out) and `t_flat` (n_in*nbk, n_out), f32, each
+// branch summed in its own accumulator.
+struct F32Split {
+  int nbk;
+  const float* x;
+  const float* w_b;
+  const float* t_flat;
+  static constexpr bool kTwoAcc = true;
+  __device__ __forceinline__ float load_x(size_t i) const { return x[i]; }
+  __device__ __forceinline__ int spline_row(int p, int slot) const {
+    return p * nbk + slot;
+  }
+  __device__ __forceinline__ float silu_w(int p, int n, int n_out) const {
+    return __ldg(&w_b[(size_t)p * n_out + n]);
+  }
+  __device__ __forceinline__ float spline_w(int row, int, int n,
+                                            int n_out) const {
+    return __ldg(&t_flat[(size_t)row * n_out + n]);
   }
 };
 
 template <class Op>
 __global__ void __launch_bounds__(BN * WARPS)
-kan_fused_v2_kernel(Op op, const int* __restrict__ slot_of,
-                    float* __restrict__ out, int B, int n_in, int n_out,
-                    int nbk, int G, int K, float x0, float hi, float inv_h) {
+kan_fused_kernel(Op op, const int* __restrict__ slot_of,
+                 float* __restrict__ out, int B, int n_in, int n_out, int G,
+                 int K, float x0, float hi, float inv_h) {
   __shared__ float s_silu[BM][PC];
   __shared__ float s_val[BM][PC][KMAX + 1];
   __shared__ int s_row[BM][PC][KMAX + 1];
@@ -67,12 +155,12 @@ kan_fused_v2_kernel(Op op, const int* __restrict__ slot_of,
   const int tid = threadIdx.y * BN + threadIdx.x;
   const int n = blockIdx.x * BN + threadIdx.x;
   const int b0 = blockIdx.y * BM;
-  const int stride = nbk + 1;
-  const float cell_max = (float)(G - 1);
 
-  float acc[RPW];
+  // acc: the whole sum (v2), or the silu branch (v1); acc_t: v1's
+  // spline branch.
+  float acc[RPW], acc_t[RPW];
 #pragma unroll
-  for (int r = 0; r < RPW; ++r) acc[r] = 0.f;
+  for (int r = 0; r < RPW; ++r) acc[r] = acc_t[r] = 0.f;
 
   for (int p0 = 0; p0 < n_in; p0 += PC) {
     const int pc = min(PC, n_in - p0);
@@ -92,62 +180,42 @@ kan_fused_v2_kernel(Op op, const int* __restrict__ slot_of,
       const float xv = op.load_x((size_t)b * n_in + p);
       s_silu[bl][pl] = xv * (1.f / (1.f + expf(-xv)));
 
-      // Interval location on the clipped input (core/splines.locate_cell).
-      const float xc = fminf(fmaxf(xv, x0), hi);
-      const float u = __fmul_rn(__fsub_rn(xc, x0), inv_h);
-      const float cf = fminf(fmaxf(floorf(u), 0.f), cell_max);
-      const float r = __fsub_rn(u, cf);
-      const int cell = (int)cf;
-
-      // Stage-buffer de Boor recursion (core/splines.bases_local).
-      float right[KMAX], left[KMAX], vals[KMAX + 1];
-#pragma unroll
-      for (int d = 0; d < KMAX; ++d) {
-        right[d] = __fsub_rn((float)(d + 1), r);
-        left[d] = __fadd_rn(r, (float)d);
-      }
-      vals[0] = 1.f;
-#pragma unroll
-      for (int j = 1; j <= KMAX; ++j) {
-        vals[j] = 0.f;
-        if (j > K) continue;
-        const float inv = inv_lut(j);
-        float saved = 0.f;
-#pragma unroll
-        for (int rr = 0; rr < j; ++rr) {
-          const float temp = __fmul_rn(vals[rr], inv);
-          vals[rr] = __fadd_rn(saved, __fmul_rn(right[rr], temp));
-          saved = __fmul_rn(left[j - rr - 1], temp);
-        }
-        vals[j] = saved;
-      }
+      // The KAN layer evaluates its bases on x clipped to [x0, x1 - eps).
+      float vals[KMAX + 1];
+      const int cell = spu(fminf(fmaxf(xv, x0), hi), x0, inv_h, G, K, vals);
       // TSE: the weight row each non-zero value multiplies, or -1.
 #pragma unroll
       for (int j = 0; j <= KMAX; ++j) {
         const int slot = j <= K ? __ldg(&slot_of[cell + j]) : -1;
         s_val[bl][pl][j] = vals[j];
-        s_row[bl][pl][j] = slot >= 0 ? p * stride + 1 + slot : -1;
+        s_row[bl][pl][j] = slot >= 0 ? op.spline_row(p, slot) : -1;
       }
     }
     __syncthreads();
 
-    // PE: accumulate in registers, features ascending.
+    // PE: accumulate in registers, features ascending; per feature the
+    // silu term first, then j = 0..K.
     if (n < n_out) {
       for (int pl = 0; pl < pc; ++pl) {
-        const int base = (p0 + pl) * stride;   // the feature's silu row
-        const float wb = op.load_w((size_t)base * n_out + n, 0);
+        const int p = p0 + pl;
+        const float wb = op.silu_w(p, n, n_out);
 #pragma unroll
         for (int r = 0; r < RPW; ++r) {
           const int bl = threadIdx.y * RPW + r;
-          float a = fmaf(s_silu[bl][pl], wb, acc[r]);
+          const float a = fmaf(s_silu[bl][pl], wb, acc[r]);
+          float c = Op::kTwoAcc ? acc_t[r] : a;
 #pragma unroll
           for (int j = 0; j <= KMAX; ++j) {
             const int row = s_row[bl][pl][j];
             if (row >= 0)
-              a = fmaf(s_val[bl][pl][j],
-                       op.load_w((size_t)row * n_out + n, row - base), a);
+              c = fmaf(s_val[bl][pl][j], op.spline_w(row, p, n, n_out), c);
           }
-          acc[r] = a;
+          if constexpr (Op::kTwoAcc) {
+            acc[r] = a;
+            acc_t[r] = c;
+          } else {
+            acc[r] = c;
+          }
         }
       }
     }
@@ -158,7 +226,9 @@ kan_fused_v2_kernel(Op op, const int* __restrict__ slot_of,
 #pragma unroll
     for (int r = 0; r < RPW; ++r) {
       const int b = b0 + threadIdx.y * RPW + r;
-      if (b < B) out[(size_t)b * n_out + n] = acc[r];
+      if (b < B)
+        out[(size_t)b * n_out + n] =
+            Op::kTwoAcc ? __fadd_rn(acc[r], acc_t[r]) : acc[r];
     }
   }
 }
@@ -173,8 +243,8 @@ int launch(Op op, const int* slot_of, float* out, int B, int n_in, int n_out,
     return (int)cudaErrorInvalidValue;
   dim3 block(BN, WARPS);
   dim3 grid((n_out + BN - 1) / BN, (B + BM - 1) / BM);
-  kan_fused_v2_kernel<Op><<<grid, block, 0, (cudaStream_t)stream>>>(
-      op, slot_of, out, B, n_in, n_out, nbk, G, K, x0, hi, inv_h);
+  kan_fused_kernel<Op><<<grid, block, 0, (cudaStream_t)stream>>>(
+      op, slot_of, out, B, n_in, n_out, G, K, x0, hi, inv_h);
   return (int)cudaGetLastError();
 }
 

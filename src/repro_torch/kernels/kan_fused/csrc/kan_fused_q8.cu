@@ -43,7 +43,7 @@ extern "C" int kan_fused_v2_q8(const int8_t* x_q, const int8_t* wt_q,
                                float* out, int B, int n_in, int n_out,
                                int nbk, int G, int K, float x_scale, float x0,
                                float hi, float inv_h, void* stream) {
-  return kan_fused::launch(kan_fused::Q8{x_q, wt_q, slot_scales, x_scale},
-                           slot_of, out, B, n_in, n_out, nbk, G, K, x0, hi,
-                           inv_h, stream);
+  return kan_fused::launch(
+      kan_fused::Q8{{nbk}, x_q, wt_q, slot_scales, x_scale}, slot_of, out, B,
+      n_in, n_out, nbk, G, K, x0, hi, inv_h, stream);
 }

@@ -1,10 +1,11 @@
 """Public entry for the fused KAN layer, dispatched on the tensor's device.
 
-Counterpart of ``repro/kernels/kan_fused/ops.py`` (version 2 only).  A
-CPU tensor runs the plain version (``ref.kan_fused_v2_ref``, or
-``ref.kan_fused_v2_q8_ref`` for int8 codes); a CUDA tensor launches the
-hand-written kernel ``csrc/kan_fused.cu`` (``csrc/kan_fused_q8.cu``) or
-raises.  There is no fallback from a kernel to its plain version.
+Counterpart of ``repro/kernels/kan_fused/ops.py``.  A CPU tensor runs
+the plain version (``ref.kan_fused_v2_ref``, ``ref.kan_fused_v1_ref`` for
+version 1, or ``ref.kan_fused_v2_q8_ref`` for int8 codes); a CUDA tensor
+launches the hand-written kernel ``csrc/kan_fused.cu``
+(``csrc/kan_fused_v1.cu``, ``csrc/kan_fused_q8.cu``) or raises.  There is
+no fallback from a kernel to its plain version.
 
 Weights keep the JAX package's layouts: ``w_b`` (n_in, n_out), ``t``
 (n_in, G+K, n_out), ``t_flat`` (n_in*nbk, n_out) feature-major, and the
@@ -20,12 +21,15 @@ import torch
 from repro_torch.core.splines import SplineSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels.kan_fused.ref import (
+    kan_fused_v1_ref,
     kan_fused_v2_q8_ref,
     kan_fused_v2_ref,
 )
 
 KERNEL = "kan_fused_v2"
+KERNEL_V1 = "kan_fused_v1"
 KERNEL_Q8 = "kan_fused_v2_q8"
+DEFAULT_VERSION = 2
 
 
 def flatten_t(t: torch.Tensor,
@@ -67,12 +71,14 @@ def slot_table(kb: Tuple[int, ...], n_bases: int,
     return torch.tensor(slot, dtype=torch.int32, device=device)
 
 
-def _check_operands(fn: str, x: torch.Tensor, wt: torch.Tensor,
-                    slot_of: torch.Tensor, spec: SplineSpec, nbk: int,
+def _check_operands(fn: str, x: torch.Tensor,
+                    weights: Sequence[Tuple[str, torch.Tensor, int]],
+                    slot_of: torch.Tensor, spec: SplineSpec,
                     operands: Sequence[Tuple[str, torch.Tensor, torch.dtype]],
                     what: str) -> Tuple[int, int, int]:
     """(B, n_in, n_out) of one layer call; raises on a shape, device,
-    dtype or layout the kernel does not take."""
+    dtype or layout the kernel does not take.  ``weights`` holds (name,
+    tensor, rows per input feature) of each (rows, n_out) weight array."""
     if x.dim() != 2:
         raise ValueError(f"{fn} takes (B, n_in) x, got {tuple(x.shape)}")
     B, n_in = x.shape
@@ -84,15 +90,17 @@ def _check_operands(fn: str, x: torch.Tensor, wt: torch.Tensor,
                             f"({what})")
         if not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous")
-    if wt.dim() != 2 or wt.shape[0] != n_in * (nbk + 1):
-        raise ValueError(f"{fn}: wt has shape {tuple(wt.shape)}, "
-                         f"expected ({n_in * (nbk + 1)}, n_out)")
+    n_out = weights[0][1].shape[-1] if weights[0][1].dim() == 2 else -1
+    for name, w, per_feature in weights:
+        if tuple(w.shape) != (n_in * per_feature, n_out):
+            raise ValueError(f"{fn}: {name} has shape {tuple(w.shape)}, "
+                             f"expected ({n_in * per_feature}, {n_out})")
     if slot_of.shape != (spec.n_bases,):
         raise ValueError(f"{fn}: slot_of has shape "
                          f"{tuple(slot_of.shape)}, expected ({spec.n_bases},)")
     if B > 65535 * 16:
         raise ValueError(f"{fn}: batch {B} exceeds the grid limit")
-    return B, n_in, wt.shape[1]
+    return B, n_in, n_out
 
 
 def kan_fused_v2(x: torch.Tensor, wt: torch.Tensor, spec: SplineSpec,
@@ -110,7 +118,7 @@ def kan_fused_v2(x: torch.Tensor, wt: torch.Tensor, spec: SplineSpec,
     if slot_of is None:
         slot_of = slot_table(kb, spec.n_bases, x.device)
     B, n_in, n_out = _check_operands(
-        "kan_fused_v2", x, wt, slot_of, spec, len(kb),
+        "kan_fused_v2", x, [("wt", wt, len(kb) + 1)], slot_of, spec,
         [("x", x, torch.float32), ("wt", wt, torch.float32),
          ("slot_of", slot_of, torch.int32)], "this kernel is f32 only")
     out = torch.empty((B, n_out), dtype=torch.float32, device=x.device)
@@ -121,6 +129,36 @@ def kan_fused_v2(x: torch.Tensor, wt: torch.Tensor, spec: SplineSpec,
         out.data_ptr(), B, n_in, n_out, len(kb), spec.grid_size, spec.order,
         float(spec.x0), float(spec.clip_hi), float(spec.inv_h),
         torch.cuda.current_stream(x.device).cuda_stream)
+    return out
+
+
+def kan_fused_v1(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
+                 spec: SplineSpec, kb: Tuple[int, ...],
+                 slot_of: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One KAN layer, version 1: (B, n_in) x against the unfused ``w_b``
+    (n_in, n_out) and ``t_flat`` (n_in*nbk, n_out), the silu and spline
+    branches summed apart and added once."""
+    if x.device.type == "cpu":
+        return kan_fused_v1_ref(x, w_b, t_flat, spec, kb)
+    if x.device.type != "cuda":
+        raise ValueError(f"kan_fused_v1: no kernel for device {x.device}")
+    if slot_of is None:
+        slot_of = slot_table(kb, spec.n_bases, x.device)
+    nbk = len(kb)
+    B, n_in, n_out = _check_operands(
+        "kan_fused_v1", x, [("w_b", w_b, 1), ("t_flat", t_flat, nbk)],
+        slot_of, spec,
+        [("x", x, torch.float32), ("w_b", w_b, torch.float32),
+         ("t_flat", t_flat, torch.float32),
+         ("slot_of", slot_of, torch.int32)], "this kernel is f32 only")
+    out = torch.empty((B, n_out), dtype=torch.float32, device=x.device)
+    if B == 0 or n_out == 0:
+        return out
+    _build.launch(
+        KERNEL_V1, x.data_ptr(), w_b.data_ptr(), t_flat.data_ptr(),
+        slot_of.data_ptr(), out.data_ptr(), B, n_in, n_out, nbk,
+        spec.grid_size, spec.order, float(spec.x0), float(spec.clip_hi),
+        float(spec.inv_h), torch.cuda.current_stream(x.device).cuda_stream)
     return out
 
 
@@ -143,7 +181,7 @@ def kan_fused_v2_q8(x_q: torch.Tensor, wt_q: torch.Tensor,
     if slot_of is None:
         slot_of = slot_table(kb, spec.n_bases, x_q.device)
     B, n_in, n_out = _check_operands(
-        "kan_fused_v2_q8", x_q, wt_q, slot_of, spec, nbk,
+        "kan_fused_v2_q8", x_q, [("wt_q", wt_q, nbk + 1)], slot_of, spec,
         [("x_q", x_q, torch.int8), ("wt_q", wt_q, torch.int8),
          ("slot_scales", slot_scales, torch.float32),
          ("slot_of", slot_of, torch.int32)], "this kernel takes int8 codes")
@@ -160,18 +198,28 @@ def kan_fused_v2_q8(x_q: torch.Tensor, wt_q: torch.Tensor,
 
 
 def kan_linear(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
-               spec: SplineSpec,
-               kb: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+               spec: SplineSpec, kb: Optional[Tuple[int, ...]] = None, *,
+               version: int = DEFAULT_VERSION) -> torch.Tensor:
     """phi(x) per Eq. 3 with two-stage sparsity; batch dims preserved.
 
-    Functional form of the JAX ``kan_linear``: fuses the weights on every
-    call.  ``core/kan.KANLayer`` fuses them once instead.
+    ``version`` selects the kernel generation: 2, one pass against the
+    fused ``[w_b ; t]`` rows, or 1, the silu and spline branches against
+    ``w_b`` and ``t_flat`` apart.  Functional form of the JAX
+    ``kan_linear``: at version 2 it fuses the weights on every call;
+    ``core/kan.KANLayer`` does so once instead.
     """
+    if version not in (1, 2):
+        raise ValueError(f"kan_linear: version must be 1 or 2, got "
+                         f"{version!r}")
     lead = x.shape[:-1]
     n_in = x.shape[-1]
+    xf = x.reshape(-1, n_in).contiguous()
     kb = tuple(range(spec.n_bases)) if kb is None else tuple(kb)
-    wt = fuse_wt(w_b, t_flat, len(kb))
-    y = kan_fused_v2(x.reshape(-1, n_in).contiguous(), wt, spec, kb)
+    if version == 2:
+        wt = fuse_wt(w_b, t_flat, len(kb))
+        y = kan_fused_v2(xf, wt, spec, kb)
+    else:
+        y = kan_fused_v1(xf, w_b.contiguous(), t_flat.contiguous(), spec, kb)
     return y.reshape(*lead, w_b.shape[-1])
 
 

@@ -4,8 +4,10 @@
 ``repro/kernels/kan_fused/ops.py`` (version 2): the K+1 local basis
 values scattered into the kept-basis columns, ``[silu | bases]`` per input
 feature, one contraction against the fused ``[w_b ; t[kb]]`` weights.
-``kan_fused_v2_q8_ref`` mirrors ``_kan_linear_q8_jnp``: the same on int8
-codes, dequantized first (``dequant_wt`` per weight-row slot).  They are
+``kan_fused_v1_ref`` is version 1 of the same: ``silu(x) @ w_b`` and
+``bases @ t_flat`` as two contractions.  ``kan_fused_v2_q8_ref`` mirrors
+``_kan_linear_q8_jnp``: version 2 on int8 codes, dequantized first
+(``dequant_wt`` per weight-row slot).  They are
 what the wrappers run for a CPU tensor and what the CUDA kernels are held
 against on the card.  The dense Eq. 3 oracle is
 ``core/kan.kan_reference_dense``.
@@ -25,18 +27,40 @@ from repro_torch.core.splines import (
 )
 
 
+def _silu_and_bases(x: torch.Tensor, spec: SplineSpec, kb: Tuple[int, ...]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SIMD + SPU + TSE: silu(x) computed in f32 and cast back, and the
+    K+1 local basis values of x clipped to [x0, x1 - eps) scattered into
+    the kept-basis columns: (B, n_in) and (B, n_in, nbk)."""
+    vals, cell = bases_local(spec.clip(x), spec)            # (B, n_in, K+1)
+    kbv = torch.as_tensor(kb, dtype=torch.int32, device=x.device)
+    act = scatter_kept(vals, cell, kbv, spec.n_active)      # (B, n_in, nbk)
+    return silu(x.to(torch.float32)).to(x.dtype), act
+
+
 def kan_fused_v2_ref(x: torch.Tensor, wt: torch.Tensor, spec: SplineSpec,
                      kb: Tuple[int, ...]) -> torch.Tensor:
     """(B, n_in) x, (n_in*(nbk+1), n_out) fused wt -> (B, n_out)."""
     n_in = x.shape[-1]
     nbk = len(kb)
-    vals, cell = bases_local(spec.clip(x), spec)            # (B, n_in, K+1)
-    kbv = torch.as_tensor(kb, dtype=torch.int32, device=x.device)
-    act = scatter_kept(vals, cell, kbv, spec.n_active)      # (B, n_in, nbk)
-    s = silu(x.to(torch.float32)).to(x.dtype)
+    s, act = _silu_and_bases(x, spec, kb)
     fused = torch.cat([s[..., None], act], dim=-1)
     y = torch.matmul(fused.reshape(-1, n_in * (nbk + 1)).to(torch.float32),
                      wt.to(torch.float32))
+    return y.to(x.dtype)
+
+
+def kan_fused_v1_ref(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
+                     spec: SplineSpec, kb: Tuple[int, ...]) -> torch.Tensor:
+    """(B, n_in) x, (n_in, n_out) w_b, (n_in*nbk, n_out) t_flat -> (B,
+    n_out): ``silu(x) @ w_b + scattered_bases @ t_flat``, two products
+    added once, as ``_kan_linear_jnp`` does at ``version=1``."""
+    n_in = x.shape[-1]
+    nbk = len(kb)
+    s, act = _silu_and_bases(x, spec, kb)
+    y = torch.matmul(s.to(torch.float32), w_b.to(torch.float32))
+    y = y + torch.matmul(act.reshape(-1, n_in * nbk).to(torch.float32),
+                         t_flat.to(torch.float32))
     return y.to(x.dtype)
 
 
@@ -59,10 +83,7 @@ def kan_fused_v2_q8_ref(x_q: torch.Tensor, wt_q: torch.Tensor,
     n_in = x_q.shape[-1]
     nbk = len(kb)
     x = x_q.to(torch.float32) * float(np.float32(x_scale))
-    vals, cell = bases_local(spec.clip(x), spec)
-    kbv = torch.as_tensor(kb, dtype=torch.int32, device=x.device)
-    act = scatter_kept(vals, cell, kbv, spec.n_active)      # (B, n_in, nbk)
-    s = silu(x)
+    s, act = _silu_and_bases(x, spec, kb)
     wt = dequant_wt(wt_q, slot_scales, nbk)
     fused = torch.cat([s[..., None], act], dim=-1)
     return torch.matmul(fused.reshape(-1, n_in * (nbk + 1)), wt)

@@ -8,8 +8,12 @@ they skip.  Run them on a GPU machine with
 Tolerance ``1e-5 * (1 + max|plain|)``: kernel and plain version sum in
 different orders (and the kernel's FMAs round once where the plain
 matmul may round twice).  The int8 matmul is held bitwise: its
-accumulator is an exact integer in both.
+accumulator is an exact integer in both.  So is the spline-basis kernel:
+every value is one chain of round-to-nearest f32 operations in both, and
+its scatter only adds zeros.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -20,14 +24,17 @@ from repro_torch.core.sparsity import (  # noqa: E402
     sparsity_to_pattern,
     tiled_mask,
 )
-from repro_torch.core.splines import SplineSpec  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.core.kan import KANConfig, KANLayer, kan_init  # noqa: E402
+from repro_torch.core.splines import VALID_G, VALID_K, SplineSpec  # noqa
+from repro_torch.kernels import _build, autotune  # noqa: E402
 from repro_torch.kernels.kan_fused.ops import (  # noqa: E402
+    kan_fused_v1,
     kan_fused_v2,
     kan_fused_v2_q8,
     slot_table,
 )
 from repro_torch.kernels.kan_fused.ref import (  # noqa: E402
+    kan_fused_v1_ref,
     kan_fused_v2_q8_ref,
     kan_fused_v2_ref,
 )
@@ -38,6 +45,10 @@ from repro_torch.kernels.pattern_matmul.ops import (  # noqa: E402
 from repro_torch.kernels.pattern_matmul.ref import (  # noqa: E402
     matmul_compact_ref,
     matmul_q8_ref,
+)
+from repro_torch.kernels.spline_basis.ops import spline_basis  # noqa: E402
+from repro_torch.kernels.spline_basis.ref import (  # noqa: E402
+    spline_basis_plain,
 )
 from repro_torch.models.ffn import vikin_stack_init  # noqa: E402
 from repro_torch.runtime.backends import VikinBackend  # noqa: E402
@@ -248,7 +259,7 @@ def test_int8_backend_on_cuda_launches_only_q8_kernels(cuda, arch):
     before = dict(_build.LAUNCHES)
     got = be.forward(xb)
     moved = {k: _build.LAUNCHES[k] - before[k] for k in before}
-    assert moved == {"kan_fused_v2": 0, "pattern_matmul": 0,
+    assert moved == {**{k: 0 for k in before},
                      "kan_fused_v2_q8": model.layer_kinds.count("kan"),
                      "pattern_matmul_q8": model.layer_kinds.count("mlp")}
     assert np.isfinite(got).all() and got.shape == (8, model.sizes[-1])
@@ -260,3 +271,104 @@ def test_int8_backend_on_cuda_launches_only_q8_kernels(cuda, arch):
     ref = VikinBackend(model, params, device="cpu", precision="int8",
                        scales=scales).forward(xb)
     _close(torch.from_numpy(got), torch.from_numpy(ref), tol=1e-4)
+
+
+@pytest.mark.parametrize("G", VALID_G)
+@pytest.mark.parametrize("K", VALID_K)
+def test_spline_basis_kernel_bitwise(cuda, G, K):
+    """At every block_n candidate, ragged n, and inputs past both ends of
+    [x0, x1) (extrapolated, not clipped)."""
+    spec = SplineSpec(G, K)
+    rng = np.random.default_rng(G * 10 + K)
+    for n in (1, 7, 1025, 4096):
+        x = torch.from_numpy(rng.uniform(-2.5, 2.5, n).astype(
+            np.float32)).to(cuda)
+        plain = spline_basis_plain(x, spec)
+        for cand in autotune.candidates_spline_basis(n):
+            got = spline_basis(x, spec, block_n=cand["block_n"])
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain), (n, cand)
+    x2 = x[:4000].reshape(40, 100)
+    assert torch.equal(spline_basis(x2, spec),
+                       spline_basis_plain(x2.reshape(-1), spec).reshape(
+                           40, 100, spec.n_bases))
+
+
+def test_spline_basis_kernel_refuses_bf16_and_bad_block_n(cuda):
+    spec = SplineSpec(4, 3)
+    x = torch.linspace(-1, 1, 64, device=cuda)
+    with pytest.raises(TypeError, match="ROADMAP item 7"):
+        spline_basis(x.bfloat16(), spec)
+    for bn in (0, 2048):
+        with pytest.raises(ValueError, match="block_n"):
+            spline_basis(x, spec, block_n=bn)
+
+
+@pytest.mark.parametrize("G,K,rate", [(4, 3, 0.5), (16, 4, 0.0),
+                                      (2, 1, 0.75), (8, 2, 0.25)])
+@pytest.mark.parametrize("B,n_in,n_out", [(1, 72, 96), (33, 45, 13),
+                                          (300, 304, 32)])
+def test_kan_v1_kernel_matches_plain_and_v2(cuda, G, K, rate, B, n_in,
+                                             n_out):
+    spec = SplineSpec(G, K)
+    kb = tuple(int(i) for i in tiled_mask(
+        spec.n_bases, sparsity_to_pattern(rate)).indices())
+    x, wt = _kan_case(cuda, G * 10 + K, B, n_in, n_out, spec, kb)
+    w3 = wt.reshape(n_in, len(kb) + 1, n_out)
+    w_b = w3[:, 0].contiguous()
+    t_flat = w3[:, 1:].reshape(n_in * len(kb), n_out).contiguous()
+    got = kan_fused_v1(x, w_b, t_flat, spec, kb)
+    torch.cuda.synchronize()
+    _close(got, kan_fused_v1_ref(x, w_b, t_flat, spec, kb))
+    _close(got, kan_fused_v2(x, wt, spec, kb))
+
+
+def test_kan_v1_kernel_is_row_independent_bitwise(cuda):
+    spec, kb = SplineSpec(4, 3), (0, 2, 4, 5, 6)
+    gen = torch.Generator().manual_seed(7)
+    x = (torch.randn((37, 304), generator=gen) * 1.5).to(cuda)
+    w_b = (torch.randn((304, 96), generator=gen) * 0.1).to(cuda)
+    t_flat = (torch.randn((304 * 5, 96), generator=gen) * 0.1).to(cuda)
+    full = kan_fused_v1(x, w_b, t_flat, spec, kb)
+    for lo, hi in ((0, 1), (5, 7), (16, 37)):
+        part = kan_fused_v1(x[lo:hi].contiguous(), w_b, t_flat, spec, kb)
+        assert torch.equal(part, full[lo:hi])
+
+
+def test_v1_layer_on_cuda_matches_v2_and_cpu(cuda):
+    cfg = KANConfig(72, 96, SplineSpec(4, 3), pattern=(1, 0, 1, 0))
+    params = kan_init(cfg, torch.Generator().manual_seed(0))
+    xb = torch.from_numpy(np.random.default_rng(1).random(
+        (8, 72), dtype=np.float32))
+    v1 = KANLayer(dataclasses.replace(cfg, version=1),
+                  {k: v.to(cuda) for k, v in params.items()})
+    v2 = KANLayer(cfg, {k: v.to(cuda) for k, v in params.items()})
+    before = dict(_build.LAUNCHES)
+    got = v1(xb.to(cuda))
+    assert _build.LAUNCHES["kan_fused_v1"] == before["kan_fused_v1"] + 1
+    assert _build.LAUNCHES["kan_fused_v2"] == before["kan_fused_v2"]
+    _close(got, v2(xb.to(cuda)))
+    ref = KANLayer(dataclasses.replace(cfg, version=1), params)(xb)
+    _close(got.cpu(), ref)
+
+
+def test_new_wrappers_count_launches_and_reject_bad_inputs(cuda):
+    spec, kb = SplineSpec(4, 3), (0, 2, 4, 5, 6)
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn((4, 8), generator=gen).to(cuda)
+    w_b = torch.randn((8, 16), generator=gen).to(cuda)
+    t_flat = torch.randn((8 * 5, 16), generator=gen).to(cuda)
+    before = dict(_build.LAUNCHES)
+    kan_fused_v1(x, w_b, t_flat, spec, kb)
+    spline_basis(x, spec)
+    spline_basis(x.cpu(), spec)
+    kan_fused_v1(x.cpu(), w_b.cpu(), t_flat.cpu(), spec, kb)
+    assert _build.LAUNCHES["kan_fused_v1"] == before["kan_fused_v1"] + 1
+    assert _build.LAUNCHES["spline_basis"] == before["spline_basis"] + 1
+    with pytest.raises(TypeError, match="f32 only"):
+        kan_fused_v1(x, w_b.double(), t_flat, spec, kb)
+    with pytest.raises(ValueError, match="expected"):
+        kan_fused_v1(x, w_b, t_flat[:-8], spec, kb)
+    with pytest.raises(ValueError, match="contiguous"):
+        kan_fused_v1(x, w_b.t().contiguous().t(), t_flat, spec, kb)
+    assert _build.LAUNCHES["kan_fused_v1"] == before["kan_fused_v1"] + 1

@@ -1,0 +1,70 @@
+"""The port's kernel bench on the CPU: it passes its own asserts (the
+plain versions against each other and the oracles, the tuning round
+trip) and writes its JSON where it is told; nothing is timed off the
+card."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core.splines import SplineSpec as JSpec  # noqa: E402
+from repro.core.splines import dense_eval_op_count as jax_dense_ops  # noqa
+from repro.core.splines import spu_op_count as jax_spu_ops  # noqa: E402
+from repro_torch.benchmarks import kernel_bench  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_run_on_cpu_writes_its_json(tmp_path):
+    out = tmp_path / "sub" / "kb.json"
+    res = kernel_bench.run("cpu", out)
+    assert json.loads(out.read_text()) == json.loads(json.dumps(res))
+    assert res["device"] == "cpu"
+    assert set(res["spline_basis"]) == {"G4K3", "G16K3", "G8K2"}
+    assert set(res["kan_fused"]) == {"72x96_float32", "72x96_p50_float32",
+                                     "128x128_p75_float32"}
+    assert set(res["pattern_matmul"]) == {"rate0.0", "rate0.5", "rate0.75"}
+    assert "ROADMAP item 7" in res["bf16"]
+    for name, r in res["spline_basis"].items():
+        g, k = int(name[1:name.index("K")]), int(name[name.index("K") + 1:])
+        assert r["bitwise_plain"] and r["ms"] is None
+        assert r["spu_ops_per_input"] == jax_spu_ops(JSpec(g, k))
+        assert r["dense_ops_per_input"] == jax_dense_ops(JSpec(g, k))
+        assert r["bytes_out"] == 4096 * (g + k) * 4
+    for r in res["kan_fused"].values():
+        assert r["ms_v1"] is None and r["ms_v2"] is None
+        assert r["bytes_weights_v1"] == r["bytes_weights_v2"]
+        assert r["max_err_v1_v2"] <= 1e-4
+    # (1,0,0,0) on 7 bases keeps basis 0 and the partial trailing group
+    assert res["kan_fused"]["128x128_p75_float32"]["contraction_kept"] \
+        == 128 * 4
+    assert res["pattern_matmul"]["rate0.75"]["k_dim"] == 128
+    t = res["tuning"]
+    assert t["cache_round_trip"] is True
+    assert t["tuned_blocks"] in t["candidates"]
+    assert t["cache_key"].endswith("|float32|cpu")
+
+
+def test_cli_on_cpu(tmp_path):
+    out = tmp_path / "kb.json"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.benchmarks.kernel_bench",
+         "--device", "cpu", "--out", str(out)],
+        env=env, cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "round_trip=True" in proc.stdout
+    assert json.loads(out.read_text())["device"] == "cpu"
+    assert not (tmp_path / "chiprun_out").exists()
+
+
+def test_run_refuses_the_card_without_cuda(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        kernel_bench.run("cuda", tmp_path / "kb.json")
+    assert not (tmp_path / "kb.json").exists()
