@@ -22,7 +22,10 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    inputs outside [-1, 1] and at every ``block_n`` candidate; the v1 KAN
    kernel at the same KAN layers and at a ragged shape, within the
    tolerance of its plain version and of the v2 kernel, and batched ==
-   single, bitwise;
+   single, bitwise.  Both matmul kernels at every candidate tile
+   (``autotune.candidates_pattern_matmul``) of vikin-mixed's and
+   vikin-mlp3's matmul layers at bucket 8 and batch 8192: bitwise the
+   output of the default tile;
 3. serve -- 48 requests of vikin-kan2, vikin-mlp3 and vikin-mixed through
    the port's Engine + MultiWorkloadBackend on 8 slots, once in f32 and
    once in int8: every answer against the same stack run through the
@@ -39,7 +42,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    and the bound max(bytes / 3.35 TB/s, operations / peak rate: 67
    TFLOP/s f32, 1979 TOP/s int8 for the int8 matmul); the spline-basis
    kernel on the vikin-mixed KAN layer's input, flattened, and the v1
-   KAN kernel at that layer beside the v2 one; then, per arch at bucket
+   KAN kernel at that layer beside the v2 one; each matmul record names
+   the tiles (bm, bk, bn) each launch took; then, per arch at bucket
    8 and per precision, where one served batch's time goes (host wall of
    a backend forward, the stack on the card, the kernels alone);
 5. the v1 path -- a ``KANLayer`` at ``version=1`` built from the
@@ -49,8 +53,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 6. the kernel bench -- ``repro_torch.benchmarks.kernel_bench.run`` on
    the card with its own asserts (spline-basis, v1 and v2 KAN and
    matmul kernels against plain versions and oracles, one
-   ``tune_spline_basis`` search round-tripped through a temporary
-   cache), its JSON in ``chiprun_out/kernel_bench.json``.
+   ``tune_spline_basis`` and one ``tune_pattern_matmul`` search (8192x72
+   ->304 relu), each round-tripped through a temporary cache and shown to
+   change no bit), its JSON in ``chiprun_out/kernel_bench.json``.
 
 No served path launches the spline-basis or v1 kernel, so their
 ``launches`` in the record are those of phases 6 and 5.
@@ -229,6 +234,7 @@ def main() -> int:
     from repro_torch.kernels.pattern_matmul.ops import (
         matmul_compact,
         matmul_q8,
+        resolve_blocks,
     )
     from repro_torch.kernels.pattern_matmul.ref import (
         matmul_compact_ref,
@@ -496,6 +502,56 @@ def main() -> int:
         check(torch.equal(one, full[i:i + 1]),
               f"kan_fused_v1: row {i} alone != row {i} of a batch of 16")
     torch.cuda.synchronize()
+
+    # every candidate tile of both matmul kernels at vikin-mixed's and
+    # vikin-mlp3's matmul layers: bitwise the default tile's output, which
+    # is held to the plain version
+    knob_checks = {"pattern_matmul": 0, "pattern_matmul_q8": 0}
+
+    def check_knobs(name: str, xin, run, what: str) -> None:
+        ref = run(None)
+        M, kc = xin.shape
+        dtype = torch.int8 if name == "pattern_matmul_q8" else torch.float32
+        n = ref.shape[1]
+        for c in autotune.candidates_pattern_matmul(M, kc, n, dtype):
+            knob = (c["bm"], c["bk"], c["bn"])
+            check(torch.equal(run(knob), ref), f"{name} {what}: tiles "
+                  f"{knob} != the default tiles, bitwise")
+            knob_checks[name] += 1
+
+    for name in ("vikin-mixed", "vikin-mlp3"):
+        for b in (8, BIG):
+            x = torch.from_numpy(rng.random(
+                (b, VIKIN_ARCHS[name].sizes[0]), dtype=np.float32)).to(dev)
+            h = x
+            for i, layer in enumerate(backends[name].stack.layers):
+                lname, xin, kernel, plain = layer_calls(layer, h)
+                if lname == "pattern_matmul":
+                    compare(lname, kernel(), plain(),
+                            f"{name} B={b} layer {i} default tiles")
+                    check_knobs(lname, xin, lambda k, xin=xin, layer=layer:
+                                matmul_compact(xin, layer.w_c, layer.b,
+                                               layer.act, blocks=k),
+                                f"{name} B={b} layer {i}")
+                h = plain()
+            stack = q8_backends[name].stack
+            h = quantize_static(x, stack.x_scales[0])
+            for i, layer in enumerate(stack.layers):
+                lname, xin, kernel, plain, finish = q8_layer_calls(layer, h)
+                ref = plain()
+                if lname == "pattern_matmul_q8":
+                    compare(lname, kernel(), ref,
+                            f"{name} B={b} int8 layer {i} default tiles",
+                            exact=True)
+                    check_knobs(lname, xin, lambda k, xin=xin, layer=layer:
+                                matmul_q8(xin, layer.w_q_c, blocks=k),
+                                f"{name} B={b} int8 layer {i}")
+                if i + 1 < len(stack.layers):
+                    h = quantize_static(finish(ref), stack.x_scales[i + 1])
+    torch.cuda.synchronize()
+    print(f"phase 2: every candidate tile bitwise the default's at "
+          f"vikin-mixed's and vikin-mlp3's matmul layers, B=8 and {BIG}: "
+          f"{knob_checks}")
     for name in KERNEL_INFO:
         how = ("bitwise" if name in ("pattern_matmul_q8", "spline_basis")
                else f"within {KERNEL_TOL:g}*(1+max|plain|)")
@@ -664,7 +720,7 @@ def main() -> int:
             (batch, mixed.sizes[0]), dtype=np.float32)).to(dev)
         acc = {k: {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0,
                    "library_ms": 0.0, "library_graph_ms": 0.0,
-                   "bytes": 0.0, "flops": 0.0, "shapes": []}
+                   "bytes": 0.0, "flops": 0.0, "shapes": [], "blocks": []}
                for k in F32_KERNELS}
         for layer in stack.layers:
             name, xin, kernel, plain = layer_calls(layer, x)
@@ -701,6 +757,8 @@ def main() -> int:
                 a["bytes"] += 4.0 * (xin.numel() + layer.w_c.numel() + n
                                      + batch * n)
                 a["shapes"].append(f"{batch}x{kc}->{n} act={layer.act}")
+                a["blocks"].append(resolve_blocks(batch, kc, n,
+                                                  torch.float32, device=dev))
             x = kernel()
         torch.cuda.synchronize()
         for k, a in acc.items():
@@ -718,6 +776,8 @@ def main() -> int:
                 "launches_per_batch": per_batch_launches[k],
                 "card": card,
             }
+            if a["blocks"]:
+                rec["blocks"] = a["blocks"]
             records[(k, batch)] = rec
             print(json.dumps(rec))
     # the kernel-tooling kernels at vikin-mixed's KAN layer: the spline
@@ -790,7 +850,7 @@ def main() -> int:
         h = quantize_static(x, q_stack.x_scales[0])
         acc = {k: {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0,
                    "library_ms": 0.0, "library_graph_ms": 0.0,
-                   "bytes": 0.0, "ops": 0.0, "shapes": []}
+                   "bytes": 0.0, "ops": 0.0, "shapes": [], "blocks": []}
                for k in Q8_KERNELS}
         for i, layer in enumerate(q_stack.layers):
             name, xin, kernel, plain, finish = q8_layer_calls(layer, h)
@@ -838,6 +898,8 @@ def main() -> int:
                 a["bytes"] += xin.numel() + layer.w_q_c.numel() + 4.0 * (
                     batch * n)
                 a["shapes"].append(f"{batch}x{kc}->{n} int8")
+                a["blocks"].append(resolve_blocks(batch, kc, n, torch.int8,
+                                                  device=dev))
             y = finish(kernel())
             if i + 1 < len(q_stack.layers):
                 h = quantize_static(y, q_stack.x_scales[i + 1])
@@ -860,6 +922,8 @@ def main() -> int:
                     k.replace("_q8", "")],
                 "card": card,
             }
+            if a["blocks"]:
+                rec["blocks"] = a["blocks"]
             records[(k, batch)] = rec
             print(json.dumps(rec))
     # Where one served batch's time goes, per arch at bucket 8: the host
@@ -972,9 +1036,14 @@ def main() -> int:
               f"kernel bench: {k} launched {bench_launches[k]} times")
     check(bench["tuning"]["cache_round_trip"],
           "kernel bench: the tuned block_n did not round-trip")
+    tm = bench["tuning"]["pattern_matmul"]
+    check(tm["cache_round_trip"],
+          "kernel bench: the tuned matmul tiles did not round-trip")
     print(f"phase 6: kernel bench passed its asserts; launches "
           f"{bench_launches}; tuned {bench['tuning']['tuned_blocks']} at "
-          f"n={bench['tuning']['n']}")
+          f"n={bench['tuning']['n']}; matmul {tm['shape']} relu tuned "
+          f"{tm['tuned_blocks']} ({tm['ms_tuned']} ms) vs default "
+          f"{tm['default_blocks']} ({tm['ms_default']} ms), bitwise equal")
 
     launched = {k: (launches[k], "phase 3, f32 burst") for k in F32_KERNELS}
     launched.update({k: (q_launches[k], "phase 3, int8 burst")
@@ -1008,6 +1077,7 @@ def main() -> int:
                         "wall_rps": len(q_out) / q_serve_s,
                         "stats": {k: v for k, v in q_eng.stats.items()}},
          "v1_path": {"launches": v1_launches, "max_abs_err": v1_err},
+         "knob_checks": knob_checks,
          "kernel_bench_launches": bench_launches},
         indent=1, default=str))
     print(json.dumps(summary))

@@ -12,8 +12,10 @@ Counterpart of ``benchmarks/kernel_bench.py``, with the same sections:
   contraction sizes, weight bytes and both times;
 * ``pattern_matmul`` -- the compacted matmul at rates 0, 0.5 and 0.75 on
   128x512->256 against the dense masked oracle;
-* ``tuning`` -- a ``tune_spline_basis`` search and its round trip through
-  a fresh ``AutotuneCache`` on a temporary file.
+* ``tuning`` -- a ``tune_spline_basis`` search and a ``tune_pattern_matmul``
+  search (8192x72->304 relu, vikin-mixed's first layer at a large batch),
+  each round-tripped through a fresh ``AutotuneCache`` on a temporary
+  file, and each tuned knob shown to change no bit of the result.
 
 Run (from the repository root, with ``PYTHONPATH=src``)::
 
@@ -66,7 +68,10 @@ from repro_torch.kernels.kan_fused.ref import (
     kan_fused_v1_ref,
     kan_fused_v2_ref,
 )
-from repro_torch.kernels.pattern_matmul.ops import matmul_compact
+from repro_torch.kernels.pattern_matmul.ops import (
+    default_blocks,
+    matmul_compact,
+)
 from repro_torch.kernels.pattern_matmul.ref import pattern_matmul_ref
 from repro_torch.kernels.spline_basis.ops import (
     DEFAULT_BLOCK_N,
@@ -223,8 +228,11 @@ def bench_pattern_matmul(dev: torch.device) -> Dict:
 
 def bench_tuning(dev: torch.device) -> Dict:
     """A ``tune_spline_basis`` search at vikin-mixed's KAN input (1024
-    rows of 304 features, flattened) in a temporary cache file, reloaded
-    by a fresh ``AutotuneCache``; the tuned knob changes no result."""
+    rows of 304 features, flattened) and a ``tune_pattern_matmul`` search
+    at its first MLP layer (8192x72->304 relu), each in a temporary cache
+    file reloaded by a fresh ``AutotuneCache``; the tuned knobs change no
+    result.  Off the card the matmul search times the plain version once
+    a candidate."""
     spec = SplineSpec(4, 3)
     n = 1024 * 304
     x = torch.from_numpy(np.random.default_rng(1).uniform(
@@ -253,6 +261,48 @@ def bench_tuning(dev: torch.device) -> Dict:
             lambda: spline_basis(x, spec, block_n=DEFAULT_BLOCK_N), dev),
         "ms_tuned": _time_ms(
             lambda: spline_basis(x, spec, block_n=best["block_n"]), dev),
+        "pattern_matmul": bench_tuning_matmul(dev),
+    }
+
+
+def bench_tuning_matmul(dev: torch.device) -> Dict:
+    M, K, N = 8192, 72, 304
+    gen = torch.Generator().manual_seed(2)
+    x = torch.rand((M, K), generator=gen).to(dev)
+    w = (torch.randn((K, N), generator=gen) * 0.1).to(dev)
+    b = torch.randn((N,), generator=gen).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = autotune.AutotuneCache(os.path.join(tmp, "autotune.json"))
+        best = autotune.tune_pattern_matmul(
+            x, w, b, act="relu", reps=10 if dev.type == "cuda" else 1,
+            cache=cache)
+        key = autotune.cache_key("pattern_matmul", (M, K, N), x.dtype, dev)
+        fresh = autotune.AutotuneCache(cache.path)
+        round_trip = fresh.lookup(key) == best
+        hit = autotune.lookup_blocks("pattern_matmul", (M, K, N), x.dtype,
+                                     dev, cache=fresh)
+    _check(round_trip and hit == best, key, best, hit)
+    default = default_blocks(M, K, x.dtype)
+    knob = {k: (v["bm"], v["bk"], v["bn"])
+            for k, v in (("tuned", best), ("default", default))}
+    _check(torch.equal(
+        matmul_compact(x, w, b, "relu", blocks=knob["tuned"]),
+        matmul_compact(x, w, b, "relu", blocks=knob["default"])),
+        "the tuned (bm, bk, bn) changed the result")
+    return {
+        "shape": [M, K, N], "act": "relu",
+        "candidates": len(autotune.candidates_pattern_matmul(M, K, N,
+                                                             x.dtype)),
+        "tuned_blocks": best,
+        "default_blocks": default,
+        "cache_key": key,
+        "cache_round_trip": round_trip,
+        "ms_default": _time_ms(
+            lambda: matmul_compact(x, w, b, "relu", blocks=knob["default"]),
+            dev),
+        "ms_tuned": _time_ms(
+            lambda: matmul_compact(x, w, b, "relu", blocks=knob["tuned"]),
+            dev),
     }
 
 
@@ -292,6 +342,10 @@ def run(device: str = "cuda", out: Optional[str | Path] = None) -> Dict:
     t = results["tuning"]
     print(f"{'tuning':15s} n={t['n']} tuned={t['tuned_blocks']} "
           f"round_trip={t['cache_round_trip']}", flush=True)
+    tm = t["pattern_matmul"]
+    print(f"{'tuning':15s} matmul {tm['shape']} tuned={tm['tuned_blocks']} "
+          f"round_trip={tm['cache_round_trip']} ms default/tuned "
+          f"{tm['ms_default']}/{tm['ms_tuned']}", flush=True)
     print(f"wrote {path} ({results['device']})", flush=True)
     return results
 

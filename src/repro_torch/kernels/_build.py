@@ -45,8 +45,8 @@ KERNELS = {
     "pattern_matmul": (
         KERNELS_DIR / "pattern_matmul" / "csrc" / "pattern_matmul.cu",
         "pattern_matmul_f32",
-        # x, w, bias (or NULL), y, M, K, N, act, stream
-        (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
+        # x, w, bias (or NULL), y, M, K, N, act, bm, bk, bn, stream
+        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     "kan_fused_v2_q8": (
         KERNELS_DIR / "kan_fused" / "csrc" / "kan_fused_q8.cu",
         "kan_fused_v2_q8",
@@ -56,8 +56,8 @@ KERNELS = {
     "pattern_matmul_q8": (
         KERNELS_DIR / "pattern_matmul" / "csrc" / "pattern_matmul_q8.cu",
         "pattern_matmul_s8",
-        # x_q, w_q, y, M, K, N, stream
-        (_P, _P, _P, _I, _I, _I, _P)),
+        # x_q, w_q, y, M, K, N, bm, bk, bn, stream
+        (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "spline_basis": (
         KERNELS_DIR / "spline_basis" / "csrc" / "spline_basis.cu",
         "spline_basis_f32",

@@ -8,26 +8,33 @@ Counterpart of ``repro/kernels/autotune.py``:
   served to a card and one card's timing never to another;
 * a measured search over a candidate grid (``tune_*``), timed on the
   card with CUDA events around a CUDA graph of the calls (device time);
-* ``lookup_blocks``, which the kernel wrappers consult, so a shape tuned
-  once is launched with its tuned knob ever after, across processes.
+* ``cached_blocks``, which the kernel wrappers consult, so a shape tuned
+  once is launched with its tuned knob ever after, across processes.  It
+  resolves each (kernel, shape bucket, dtype, device) once per process
+  and keeps the answer, hit or miss, until the cache is stored to or
+  cleared: a served batch asks no card name and builds no key string.
 
 Shapes are bucketed to the next power of two per dimension.  The cache
 file is ``$REPRO_TORCH_AUTOTUNE_CACHE`` if set, else
 ``~/.cache/repro_torch/autotune.json`` -- not the JAX package's file, so
 neither package ever reads the other's timings.  Search on a cache miss is
 opt-in (``REPRO_TORCH_AUTOTUNE=1``): a silent search in the middle of a
-serving step is worse than a default knob.
+serving step is worse than a default knob.  The spline-basis wrapper
+searches on a miss; the pattern-matmul wrappers, like the JAX
+``pattern_linear``, never search: ``launch/serve.py`` tunes the matmul
+layers it serves before the first request instead.
 
 Unlike the JAX ``search``, which skips candidates that fail to compile,
 this one lets every failure raise: the candidates are pruned up front to
-what the card takes (at most 1024 threads a block), so a launch that
-fails is a fault to see, not a candidate to skip.
+what the card takes (threads a block, shared memory a block), so a launch
+that fails is a fault to see, not a candidate to skip.
 
-Only the spline-basis kernel has a launch-time knob (``block_n``).  The
-KAN and matmul kernels' tiles are compile-time constants
-(``kan_fused.cuh``, ``pattern_matmul.cu``), so ``tune_kan_fused``,
-``tune_pattern_matmul`` and ``KANConfig.blocks`` wait for the kernels'
-redesign to give them launch-time knobs (ROADMAP).
+Knobs: ``block_n`` of the spline-basis kernel, and ``(bm, bk, bn)`` of
+the two pattern-matmul kernels, f32 and int8 alike under kernel
+``pattern_matmul`` (the dtype tells them apart, as in the JAX
+``resolve_blocks``).  The KAN kernels' tiles are compile-time constants
+(``kan_fused.cuh``), so ``tune_kan_fused`` and ``KANConfig.blocks`` wait
+for that kernel's redesign to give it launch-time knobs (ROADMAP).
 """
 from __future__ import annotations
 
@@ -42,8 +49,9 @@ from repro_torch.utils import next_pow2
 
 CACHE_SCHEMA_VERSION = 1
 
-# The card's limit on threads a block; candidates never exceed it.
+# The card's limits a block; candidates never exceed them.
 MAX_THREADS_PER_BLOCK = 1024
+MAX_SMEM_BYTES = 232448          # 227 KB of shared memory on sm_90
 
 # (kernel, key, blocks, source) of every cache hit and search result, so
 # tests (and people) can see which knob a launch was served.
@@ -138,23 +146,43 @@ class AutotuneCache:
         self._load()[key] = {"blocks": {k: int(v) for k, v in blocks.items()},
                              "us": None if us is None else float(us)}
         self.save()
+        RESOLVED.clear()
 
     def clear(self) -> None:
         """Reset to empty: the next save() overwrites rather than merges."""
         self._data = {}
         self._discard_disk = True
+        RESOLVED.clear()
 
 
-_GLOBAL_CACHE: Optional[AutotuneCache] = None
+# The process's cache (key "cache"), in a module-level dict like the
+# port's other process state (kernels/_build.LAUNCHES, DISPATCH_LOG);
+# ``reset_cache`` empties it.
+_PROCESS: Dict[str, AutotuneCache] = {}
+
+# Answers derived from the process's cache, under ``memo_key``: (kernel,
+# shape bucket, dtype, device) -> its entry (None for a miss), and what a
+# kernel wrapper derives from those (pattern_matmul/ops.py: the checked
+# tiles of an exact shape).  Emptied by every store, clear and new cache.
+RESOLVED: Dict[Tuple, object] = {}
 
 
 def get_cache() -> AutotuneCache:
-    """The process's cache at ``default_cache_path()`` (re-resolved when
-    the environment variable changes)."""
-    global _GLOBAL_CACHE
-    if _GLOBAL_CACHE is None or _GLOBAL_CACHE.path != default_cache_path():
-        _GLOBAL_CACHE = AutotuneCache()
-    return _GLOBAL_CACHE
+    """The process's cache at ``default_cache_path()`` (re-made when the
+    environment variable changes)."""
+    cache = _PROCESS.get("cache")
+    if cache is None or cache.path != default_cache_path():
+        cache = _PROCESS["cache"] = AutotuneCache()
+        RESOLVED.clear()
+    return cache
+
+
+def reset_cache() -> None:
+    """Forget the process's cache and every answer derived from it: the
+    next ``get_cache`` reads the file ``default_cache_path()`` names now
+    (for a caller that changed the environment variables)."""
+    _PROCESS.clear()
+    RESOLVED.clear()
 
 
 def lookup_blocks(kernel: str, dims: Sequence[int], dtype: torch.dtype,
@@ -168,6 +196,31 @@ def lookup_blocks(kernel: str, dims: Sequence[int], dtype: torch.dtype,
     if blocks is not None:
         note_dispatch(kernel, key, blocks, "cache")
     return blocks
+
+
+def memo_key(*parts: object) -> Tuple:
+    """A ``RESOLVED`` key: ``parts`` under the process's current cache
+    object.  A new cache (``get_cache`` after the cache file's variable
+    changed, or ``reset_cache``) starts over, and so do a store and a
+    clear; the environment is read on a miss only, never on a remembered
+    answer."""
+    return (id(_PROCESS.get("cache")),) + parts
+
+
+def cached_blocks(kernel: str, dims: Sequence[int], dtype: torch.dtype,
+                  device: torch.device | str) -> Optional[Dict[str, int]]:
+    """``lookup_blocks`` on the process's cache, asked once per (kernel,
+    shape bucket, dtype, device) and remembered, hit or miss, until the
+    cache is stored to, cleared or replaced; a hit is logged the first
+    time only.  A remembered answer costs a dict lookup: no card name, no
+    key string, no file, no environment."""
+    bucket = shape_bucket(dims)
+    try:
+        hit = RESOLVED[memo_key(kernel, bucket, dtype, device)]
+    except KeyError:
+        hit = lookup_blocks(kernel, dims, dtype, device, get_cache())
+        RESOLVED[memo_key(kernel, bucket, dtype, device)] = hit
+    return None if hit is None else dict(hit)
 
 
 def autotune_enabled() -> bool:
@@ -248,3 +301,62 @@ def tune_spline_basis(x: torch.Tensor, spec, *, reps: int = 10,
                   lambda block_n: spline_basis(flat, spec, block_n=block_n),
                   candidates_spline_basis(n), device=flat.device, reps=reps,
                   cache=cache)
+
+
+def candidates_pattern_matmul(M: int, K: int, N: int, dtype: torch.dtype
+                              ) -> List[Dict[str, int]]:
+    """``(bm, bk, bn)`` grid of the f32 or int8 pattern-matmul kernel:
+    the tiles it takes, with ``bm`` at most ``max(16, next_pow2(M))``,
+    ``bn`` at most ``max(32, next_pow2(N))`` and ``bk`` at most K's bucket
+    (floor: the smallest ``bk``), pruned to the card's thread and
+    shared-memory limits a block."""
+    from repro_torch.kernels.pattern_matmul import ops
+
+    q8 = dtype == torch.int8
+    bms, bns, bks = ((ops.Q8_BM, ops.Q8_BN, ops.Q8_BK) if q8
+                     else (ops.F32_BM, ops.F32_BN, ops.F32_BK))
+    cap_m = max(16, next_pow2(M))
+    cap_n = max(32, next_pow2(N))
+    cap_k = max(bks[0], next_pow2(K))
+    out = []
+    for bm in bms:
+        for bn in bns:
+            for bk in bks:
+                if bm > cap_m or bn > cap_n or bk > cap_k:
+                    continue
+                if (ops.kernel_threads(bm, bn, dtype) <= MAX_THREADS_PER_BLOCK
+                        and ops.kernel_smem(bm, bk, bn, K, dtype)
+                        <= MAX_SMEM_BYTES):
+                    out.append({"bm": bm, "bk": bk, "bn": bn})
+    return out
+
+
+def tune_pattern_matmul(x_c: torch.Tensor, w_c: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None, *,
+                        act: Optional[str] = None, reps: int = 10,
+                        cache: Optional[AutotuneCache] = None
+                        ) -> Dict[str, int]:
+    """Search ``(bm, bk, bn)`` for the compact matmul on ``x_c``'s device
+    (on the CPU this times the plain version, stored under ``cpu``).
+    Int8 codes tune the int8 kernel (raw accumulator: no bias, no act),
+    stored under the same kernel name with dtype int8."""
+    from repro_torch.kernels.pattern_matmul.ops import (
+        matmul_compact,
+        matmul_q8,
+    )
+
+    M, K = x_c.shape
+    N = w_c.shape[1]
+    if x_c.dtype == torch.int8:
+        if bias is not None or act is not None:
+            raise ValueError("tune_pattern_matmul: the int8 kernel writes "
+                             "the raw accumulator; bias and act apply after")
+
+        def run(bm: int, bk: int, bn: int) -> torch.Tensor:
+            return matmul_q8(x_c, w_c, blocks=(bm, bk, bn))
+    else:
+        def run(bm: int, bk: int, bn: int) -> torch.Tensor:
+            return matmul_compact(x_c, w_c, bias, act, blocks=(bm, bk, bn))
+    return search("pattern_matmul", (M, K, N), x_c.dtype, run,
+                  candidates_pattern_matmul(M, K, N, x_c.dtype),
+                  device=x_c.device, reps=reps, cache=cache)

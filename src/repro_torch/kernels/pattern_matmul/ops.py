@@ -10,15 +10,23 @@ the same with ``matmul_q8`` (``ref.matmul_q8_ref`` or
 ``csrc/pattern_matmul_q8.cu``), whose raw integer accumulator
 ``pattern_linear_q8`` scales with the shared ``scale_bias_act``.  There is
 no fallback from a kernel to its plain version.
+
+Both kernels take their tiles ``(bm, bk, bn)`` at launch time.
+``resolve_blocks`` picks them as the JAX one does: explicit ``blocks=`` >
+autotune-cache hit for (shape bucket, dtype, card) > a default by M
+bucket; the wrappers never search (``autotune.tune_pattern_matmul``
+does, and ``launch/serve.py`` runs it under ``REPRO_TORCH_AUTOTUNE=1``).
+No knob changes a bit of the output (the kernels' notes say why).  A
+knob the kernel does not take raises, on the CPU too.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.sparsity import PatternMask
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 from repro_torch.kernels.epilogue import ACT_CODES, scale_bias_act
 from repro_torch.kernels.pattern_matmul.ref import (
     matmul_compact_ref,
@@ -27,6 +35,131 @@ from repro_torch.kernels.pattern_matmul.ref import (
 
 KERNEL = "pattern_matmul"
 KERNEL_Q8 = "pattern_matmul_q8"
+
+# The tiles each kernel takes (csrc/*.cu check the same), and the bk grid
+# the autotune search walks.
+F32_BM = (8, 16, 32, 64, 128)
+F32_BN = (8, 16, 32, 64, 128)
+Q8_BM = (16, 32, 64, 128)
+Q8_BN = (32, 64, 128)
+F32_BK = (8, 16, 32, 64)          # any multiple of 4 is taken
+Q8_BK = (32, 64, 128, 256, 512)   # any multiple of 32 is taken
+MAX_GRID_Y = 65535                # N tiles; M tiles go on grid.x
+
+# The f32 kernel's ring of bk-deep slabs and its least threads a block
+# (pattern_matmul.cu).
+_MIN_THREADS = 128
+_MAX_STAGES = 16
+_STAGE_BUDGET = 32 * 1024
+
+Blocks = Dict[str, int]
+
+
+def kernel_threads(bm: int, bn: int, dtype: torch.dtype) -> int:
+    """Threads a block of the kernel for ``dtype`` at tiles ``bm x bn``
+    (its register tile, or warp tile for int8, follows the block tile)."""
+    if dtype == torch.int8:
+        mt, nt = (1, 2) if bm == 16 else (2, 4)
+        return (bm // (16 * mt)) * (bn // (8 * nt)) * 32
+    tm = 8 if bm >= 64 else bm // 8
+    tn = 8 if bn >= 64 else 4
+    return max(_MIN_THREADS, (bm // tm) * (bn // tn))
+
+
+def kernel_smem(bm: int, bk: int, bn: int, K: int,
+                dtype: torch.dtype) -> int:
+    """Dynamic shared memory, in bytes, a block of the kernel uses."""
+    if dtype == torch.int8:
+        return max((bm + bn) * (bk + 16), 4 * bm * (bn + 8))
+    slab = 4 * (bm * (bk + 4) + bk * bn)
+    nslabs = -(-K // bk)
+    stages = min(max(nslabs, 1), _MAX_STAGES, max(2, _STAGE_BUDGET // slab))
+    return stages * slab
+
+
+def check_blocks(blocks: Blocks, K: int, N: int, dtype: torch.dtype) -> None:
+    """Raise ``ValueError`` unless the kernel for ``dtype`` takes
+    ``blocks`` at contraction depth K and width N."""
+    q8 = dtype == torch.int8
+    bm, bk, bn = (blocks[k] for k in ("bm", "bk", "bn"))
+    what = f"pattern_matmul blocks (bm={bm}, bk={bk}, bn={bn})"
+    if min(bm, bk, bn) <= 0:
+        raise ValueError(f"{what}: every tile must be positive")
+    bms, bns = (Q8_BM, Q8_BN) if q8 else (F32_BM, F32_BN)
+    if bm not in bms or bn not in bns:
+        raise ValueError(f"{what}: the {dtype} kernel takes bm in {bms} "
+                         f"and bn in {bns}")
+    step = 32 if q8 else 4
+    if bk % step:
+        raise ValueError(f"{what}: bk must be a multiple of {step} for "
+                         f"{dtype}")
+    threads = kernel_threads(bm, bn, dtype)
+    if threads > autotune.MAX_THREADS_PER_BLOCK:
+        raise ValueError(f"{what}: {threads} threads a block exceed "
+                         f"{autotune.MAX_THREADS_PER_BLOCK}")
+    smem = kernel_smem(bm, bk, bn, K, dtype)
+    if smem > autotune.MAX_SMEM_BYTES:
+        raise ValueError(f"{what}: {smem} bytes of shared memory exceed "
+                         f"{autotune.MAX_SMEM_BYTES} at K={K}")
+    if -(-N // bn) > MAX_GRID_Y:
+        raise ValueError(f"{what}: N={N} needs more than {MAX_GRID_Y} "
+                         f"column tiles")
+
+
+def default_blocks(M: int, K: int, dtype: torch.dtype) -> Blocks:
+    """The tiles a launch takes when none is given or cached, by M bucket
+    (among the fastest candidates at vikin's matmul shapes at M = 8 and
+    8192 on an H100): at serving buckets narrow tiles put more blocks on
+    the card, and slabs deep enough that Kc <= 304 is one wait; at large
+    M 128-row tiles, with deeper slabs for a deep Kc.  int8's bk covers
+    all of K up to 512."""
+    if dtype == torch.int8:
+        bm = 16 if M <= 16 else 32 if M <= 32 else 64 if M <= 256 else 128
+        return {"bm": bm, "bk": min(512, 32 * max(1, -(-K // 32))),
+                "bn": 32 if M <= 64 else 64}
+    if M <= 16:
+        return {"bm": 8 if M <= 8 else 16,
+                "bk": min(64, 4 * max(1, -(-K // 4))), "bn": 8}
+    bm = 32 if M <= 64 else 64 if M <= 256 else 128
+    return {"bm": bm, "bk": 16 if K <= 128 else 64, "bn": 32}
+
+
+def _as_blocks(blocks: Sequence[int]) -> Blocks:
+    bm, bk, bn = blocks
+    return {"bm": int(bm), "bk": int(bk), "bn": int(bn)}
+
+
+def resolve_blocks(M: int, K: int, N: int, dtype: torch.dtype,
+                   blocks: Optional[Sequence[int]] = None,
+                   device: torch.device | str = "cuda") -> Blocks:
+    """(bm, bk, bn) for the compact matmul: explicit > cached > default
+    by M bucket, checked against what the kernel takes."""
+    return dict(zip(("bm", "bk", "bn"),
+                    _tiles(M, K, N, dtype, blocks, device)))
+
+
+def _tiles(M: int, K: int, N: int, dtype: torch.dtype,
+           blocks: Optional[Sequence[int]],
+           device: torch.device | str) -> Tuple[int, int, int]:
+    """``resolve_blocks`` as a tuple.  Without ``blocks`` the answer for
+    an exact shape is remembered in ``autotune.RESOLVED`` (dropped with
+    the cache's other answers on a store, clear or new cache), so a
+    served batch pays one dict lookup; the cache itself is read once per
+    shape bucket (``autotune.cached_blocks``)."""
+    if blocks is not None:
+        knob = _as_blocks(blocks)
+        check_blocks(knob, K, N, dtype)
+        return knob["bm"], knob["bk"], knob["bn"]
+    tiles = autotune.RESOLVED.get(autotune.memo_key(KERNEL, M, K, N, dtype,
+                                                    device))
+    if tiles is None:
+        knob = (autotune.cached_blocks(KERNEL, (M, K, N), dtype, device)
+                or default_blocks(M, K, dtype))
+        check_blocks(knob, K, N, dtype)
+        tiles = knob["bm"], knob["bk"], knob["bn"]
+        autotune.RESOLVED[autotune.memo_key(KERNEL, M, K, N, dtype,
+                                            device)] = tiles
+    return tiles
 
 
 def _check_operands(fn: str, x_c: torch.Tensor, w_c: torch.Tensor,
@@ -46,17 +179,19 @@ def _check_operands(fn: str, x_c: torch.Tensor, w_c: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous")
     M, K = x_c.shape
-    N = w_c.shape[1]
-    if M > 65535 * 64:
-        raise ValueError(f"{fn}: {M} rows exceed the grid limit")
-    return M, K, N
+    return M, K, w_c.shape[1]
 
 
 def matmul_compact(x_c: torch.Tensor, w_c: torch.Tensor,
                    bias: Optional[torch.Tensor] = None,
-                   act: Optional[str] = None) -> torch.Tensor:
-    """act(x_c @ w_c + bias) on (M, Kc) x_c and (Kc, N) w_c."""
+                   act: Optional[str] = None, *,
+                   blocks: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """act(x_c @ w_c + bias) on (M, Kc) x_c and (Kc, N) w_c; ``blocks``
+    overrides the kernel's (bm, bk, bn) tiles."""
     if x_c.device.type == "cpu":
+        if blocks is not None:
+            check_blocks(_as_blocks(blocks), x_c.shape[-1], w_c.shape[-1],
+                         torch.float32)
         return matmul_compact_ref(x_c, w_c, bias, act)
     if x_c.device.type != "cuda":
         raise ValueError(f"matmul_compact: no kernel for device {x_c.device}")
@@ -74,17 +209,24 @@ def matmul_compact(x_c: torch.Tensor, w_c: torch.Tensor,
     y = torch.empty((M, N), dtype=torch.float32, device=x_c.device)
     if M == 0 or N == 0:
         return y
+    bm, bk, bn = _tiles(M, K, N, torch.float32, blocks, x_c.device)
     _build.launch(
         KERNEL, x_c.data_ptr(), w_c.data_ptr(),
         None if bias is None else bias.data_ptr(), y.data_ptr(), M, K, N,
-        ACT_CODES[act], torch.cuda.current_stream(x_c.device).cuda_stream)
+        ACT_CODES[act], bm, bk, bn,
+        torch.cuda.current_stream(x_c.device).cuda_stream)
     return y
 
 
-def matmul_q8(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+def matmul_q8(x_q: torch.Tensor, w_q: torch.Tensor, *,
+              blocks: Optional[Sequence[int]] = None) -> torch.Tensor:
     """The raw accumulator ``x_q @ w_q`` as f32 on (M, Kc) and (Kc, N)
-    int8 codes: exact integers while Kc * 127^2 < 2^24."""
+    int8 codes: exact integers while Kc * 127^2 < 2^24.  ``blocks``
+    overrides the kernel's (bm, bk, bn) tiles."""
     if x_q.device.type == "cpu":
+        if blocks is not None:
+            check_blocks(_as_blocks(blocks), x_q.shape[-1], w_q.shape[-1],
+                         torch.int8)
         return matmul_q8_ref(x_q, w_q)
     if x_q.device.type != "cuda":
         raise ValueError(f"matmul_q8: no kernel for device {x_q.device}")
@@ -94,19 +236,24 @@ def matmul_q8(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     y = torch.empty((M, N), dtype=torch.float32, device=x_q.device)
     if M == 0 or N == 0:
         return y
+    bm, bk, bn = _tiles(M, K, N, torch.int8, blocks, x_q.device)
     _build.launch(KERNEL_Q8, x_q.data_ptr(), w_q.data_ptr(), y.data_ptr(),
-                  M, K, N, torch.cuda.current_stream(x_q.device).cuda_stream)
+                  M, K, N, bm, bk, bn,
+                  torch.cuda.current_stream(x_q.device).cuda_stream)
     return y
 
 
 def pattern_linear(x: torch.Tensor, w: torch.Tensor,
                    mask: Optional[PatternMask] = None,
                    bias: Optional[torch.Tensor] = None, *,
-                   act: Optional[str] = None) -> torch.Tensor:
+                   act: Optional[str] = None,
+                   blocks: Optional[Sequence[int]] = None) -> torch.Tensor:
     """y = act(x[..., keep] @ w[keep, :] + bias); x: (..., K), w: (K, N).
 
     Functional form of the JAX ``pattern_linear``: compacts the weight on
     every call.  ``models/ffn.PatternLinear`` compacts it once instead.
+    ``blocks`` overrides the (bm, bk, bn) tiles; None consults the
+    autotune cache before the defaults.
     """
     lead = x.shape[:-1]
     xf = x.reshape(-1, x.shape[-1])
@@ -115,7 +262,8 @@ def pattern_linear(x: torch.Tensor, w: torch.Tensor,
                               device=x.device)
         xf = xf.index_select(1, idx)
         w = w.index_select(0, idx.to(w.device))
-    y = matmul_compact(xf.contiguous(), w.contiguous(), bias, act=act)
+    y = matmul_compact(xf.contiguous(), w.contiguous(), bias, act=act,
+                       blocks=blocks)
     return y.reshape(*lead, w.shape[-1])
 
 
@@ -123,7 +271,9 @@ def pattern_linear_q8(x_q: torch.Tensor, w_q: torch.Tensor,
                       col_scale: torch.Tensor,
                       mask: Optional[PatternMask] = None,
                       bias: Optional[torch.Tensor] = None, *,
-                      act: Optional[str] = None) -> torch.Tensor:
+                      act: Optional[str] = None,
+                      blocks: Optional[Sequence[int]] = None
+                      ) -> torch.Tensor:
     """Int8 pattern-sparse linear: act(dq(x_q) @ dq(w_q) + bias), f32 out.
 
     x_q: (..., K) int8; w_q: (K, N) int8; col_scale: (N,) f32 = s_x * s_w
@@ -131,6 +281,7 @@ def pattern_linear_q8(x_q: torch.Tensor, w_q: torch.Tensor,
     the exact integer accumulator is then scaled by the shared epilogue,
     once, after full accumulation -- as in the reference.  Functional
     form: ``core/quant.QuantVikinStack`` compacts the weight once instead.
+    ``blocks`` overrides the int8 kernel's (bm, bk, bn) tiles.
     """
     lead = x_q.shape[:-1]
     xf = x_q.reshape(-1, x_q.shape[-1])
@@ -139,6 +290,6 @@ def pattern_linear_q8(x_q: torch.Tensor, w_q: torch.Tensor,
                               device=x_q.device)
         xf = xf.index_select(1, idx)
         w_q = w_q.index_select(0, idx.to(w_q.device))
-    acc = matmul_q8(xf.contiguous(), w_q.contiguous())
+    acc = matmul_q8(xf.contiguous(), w_q.contiguous(), blocks=blocks)
     y = scale_bias_act(acc, col_scale, bias, act)
     return y.reshape(*lead, w_q.shape[-1])

@@ -36,7 +36,7 @@ def resolve_block_n(n: int, n_bases: int, dtype: torch.dtype,
     """
     if block_n is not None:
         return int(block_n)
-    hit = autotune.lookup_blocks(KERNEL, (n, n_bases), dtype, device)
+    hit = autotune.cached_blocks(KERNEL, (n, n_bases), dtype, device)
     if hit is not None:
         return hit["block_n"]
     if tune is not None and autotune.autotune_enabled():

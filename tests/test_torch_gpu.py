@@ -10,7 +10,9 @@ different orders (and the kernel's FMAs round once where the plain
 matmul may round twice).  The int8 matmul is held bitwise: its
 accumulator is an exact integer in both.  So is the spline-basis kernel:
 every value is one chain of round-to-nearest f32 operations in both, and
-its scatter only adds zeros.
+its scatter only adds zeros.  The two matmul kernels give bitwise the
+same output under every tile (bm, bk, bn) they take: the f32 one sums
+each output in one fixed order, the int8 one exactly.
 """
 import dataclasses
 
@@ -39,6 +41,7 @@ from repro_torch.kernels.kan_fused.ref import (  # noqa: E402
     kan_fused_v2_ref,
 )
 from repro_torch.kernels.pattern_matmul.ops import (  # noqa: E402
+    default_blocks,
     matmul_compact,
     matmul_q8,
 )
@@ -109,6 +112,171 @@ def test_pattern_matmul_kernel_matches_plain(cuda, act, bias, M, K, N):
     got = matmul_compact(x, w, b, act)
     torch.cuda.synchronize()
     _close(got, matmul_compact_ref(x, w, b, act))
+
+
+# M, Kc and N of the sweeps: every serving bucket, a ragged batch and a
+# large one; contraction depths from 1 to vikin's widest; ragged widths.
+SWEEP_M = tuple(range(1, 17)) + (33, 8192)
+SWEEP_KC = (1, 16, 37, 72, 228, 304)
+SWEEP_N = (1, 33, 96, 304)
+# vikin-mixed's and vikin-mlp3's matmul layers (Kc, N, act)
+VIKIN_MATMULS = ((72, 304, "relu"), (16, 96, None), (228, 96, None))
+
+
+def _knob(c):
+    return (c["bm"], c["bk"], c["bn"])
+
+
+@pytest.mark.parametrize("Kc", SWEEP_KC)
+@pytest.mark.parametrize("N", SWEEP_N)
+def test_pattern_matmul_sweep_matches_plain(cuda, Kc, N):
+    """Every M of the sweep, every act, with and without bias, at the
+    default tiles of each M's bucket."""
+    gen = torch.Generator().manual_seed(Kc * 1000 + N)
+    w = (torch.randn((Kc, N), generator=gen) * 0.1).to(cuda)
+    b = torch.randn((N,), generator=gen).to(cuda)
+    for M in SWEEP_M:
+        x = torch.randn((M, Kc), generator=gen).to(cuda)
+        for act in (None, "relu", "gelu", "silu"):
+            for bias in (None, b):
+                got = matmul_compact(x, w, bias, act)
+                torch.cuda.synchronize()
+                _close(got, matmul_compact_ref(x, w, bias, act))
+
+
+@pytest.mark.parametrize("Kc", SWEEP_KC)
+@pytest.mark.parametrize("N", SWEEP_N)
+def test_matmul_q8_sweep_bitwise(cuda, Kc, N):
+    gen = torch.Generator().manual_seed(Kc * 1000 + N + 1)
+    w = torch.randint(-127, 128, (Kc, N), generator=gen, dtype=torch.int8)
+    for M in SWEEP_M:
+        x = torch.randint(-127, 128, (M, Kc), generator=gen,
+                          dtype=torch.int8)
+        got = matmul_q8(x.to(cuda), w.to(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), (x.long() @ w.long()).to(
+            torch.float32)), M
+
+
+@pytest.mark.parametrize("M", [8, 8192])
+@pytest.mark.parametrize("Kc,N,act", VIKIN_MATMULS)
+def test_every_knob_gives_the_default_output_bitwise(cuda, M, Kc, N, act):
+    """Every candidate tile of the autotune grid: the f32 kernel bitwise
+    equal to itself at the default tiles (and within tolerance of the
+    plain version), the int8 kernel bitwise equal to its plain version."""
+    gen = torch.Generator().manual_seed(M + Kc + N)
+    x = torch.rand((M, Kc), generator=gen).to(cuda)
+    w = (torch.randn((Kc, N), generator=gen) * 0.1).to(cuda)
+    b = torch.randn((N,), generator=gen).to(cuda)
+    ref = matmul_compact(x, w, b, act)
+    _close(ref, matmul_compact_ref(x, w, b, act))
+    cands = autotune.candidates_pattern_matmul(M, Kc, N, torch.float32)
+    assert default_blocks(M, Kc, torch.float32) in cands
+    for c in cands:
+        got = matmul_compact(x, w, b, act, blocks=_knob(c))
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), c
+    x_q = torch.randint(-127, 128, (M, Kc), generator=gen,
+                        dtype=torch.int8).to(cuda)
+    w_q = torch.randint(-127, 128, (Kc, N), generator=gen,
+                        dtype=torch.int8).to(cuda)
+    plain = matmul_q8_ref(x_q, w_q)
+    for c in autotune.candidates_pattern_matmul(M, Kc, N, torch.int8):
+        got = matmul_q8(x_q, w_q, blocks=_knob(c))
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain), c
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+def test_rows_are_independent_of_M_under_every_knob(cuda, dtype):
+    gen = torch.Generator().manual_seed(11)
+    if dtype == torch.int8:
+        x = torch.randint(-127, 128, (37, 72), generator=gen,
+                          dtype=torch.int8).to(cuda)
+        w = torch.randint(-127, 128, (72, 304), generator=gen,
+                          dtype=torch.int8).to(cuda)
+
+        def run(xs, knob):
+            return matmul_q8(xs, w, blocks=knob)
+    else:
+        x = torch.randn((37, 72), generator=gen).to(cuda)
+        w = (torch.randn((72, 304), generator=gen) * 0.1).to(cuda)
+        b = torch.randn((304,), generator=gen).to(cuda)
+
+        def run(xs, knob):
+            return matmul_compact(xs, w, b, "relu", blocks=knob)
+    full = run(x, None)
+    for c in autotune.candidates_pattern_matmul(37, 72, 304, dtype):
+        knob = _knob(c)
+        assert torch.equal(run(x, knob), full), c
+        for lo, hi in ((0, 1), (3, 11), (16, 37)):
+            assert torch.equal(run(x[lo:hi].contiguous(), knob),
+                               full[lo:hi]), (c, lo, hi)
+
+
+def test_rows_beyond_65535_tiles_run(cuda):
+    """M above 65535 * bm of the smallest bm: M tiles go on grid.x."""
+    gen = torch.Generator().manual_seed(12)
+    M = 65535 * 8 + 1
+    x = torch.randn((M, 16), generator=gen).to(cuda)
+    w = torch.randn((16, 33), generator=gen).to(cuda)
+    got = matmul_compact(x, w, None, "relu", blocks=(8, 16, 8))
+    torch.cuda.synchronize()
+    _close(got, matmul_compact_ref(x, w, None, "relu"))
+    M = 65535 * 16 + 1
+    x_q = torch.randint(-127, 128, (M, 32), generator=gen,
+                        dtype=torch.int8).to(cuda)
+    w_q = torch.randint(-127, 128, (32, 33), generator=gen,
+                        dtype=torch.int8).to(cuda)
+    got = matmul_q8(x_q, w_q, blocks=(16, 32, 32))
+    torch.cuda.synchronize()
+    assert torch.equal(got, matmul_q8_ref(x_q, w_q))
+
+
+def test_bad_knobs_raise_before_launch_on_cuda(cuda):
+    x = torch.randn((8, 72), device=cuda)
+    w = torch.randn((72, 304), device=cuda)
+    before = dict(_build.LAUNCHES)
+    for knob in ((8, 30, 32), (12, 32, 32), (128, 4096, 128)):
+        with pytest.raises(ValueError):
+            matmul_compact(x, w, blocks=knob)
+    for knob in ((16, 48, 32), (8, 32, 32), (128, 8192, 128)):
+        with pytest.raises(ValueError):
+            matmul_q8(x.to(torch.int8), w.to(torch.int8), blocks=knob)
+    assert dict(_build.LAUNCHES) == before
+
+
+def test_tune_pattern_matmul_round_trips_on_the_card(cuda, tmp_path,
+                                                     monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    monkeypatch.delenv("REPRO_TORCH_AUTOTUNE", raising=False)
+    autotune.reset_cache()
+    try:
+        gen = torch.Generator().manual_seed(13)
+        x = torch.rand((8, 72), generator=gen).to(cuda)
+        w = torch.randn((72, 304), generator=gen).to(cuda)
+        b = torch.randn((304,), generator=gen).to(cuda)
+        default = matmul_compact(x, w, b, "relu")
+        best = autotune.tune_pattern_matmul(x, w, b, act="relu", reps=3)
+        key = autotune.cache_key("pattern_matmul", (8, 72, 304),
+                                 torch.float32, cuda)
+        assert autotune.AutotuneCache(str(tmp_path / "autotune.json")
+                                      ).lookup(key) == best
+        autotune.DISPATCH_LOG.clear()
+        assert torch.equal(matmul_compact(x, w, b, "relu"), default)
+        assert autotune.DISPATCH_LOG == [
+            ("pattern_matmul", key, best, "cache")]
+        x_q = torch.randint(-127, 128, (8192, 16), generator=gen,
+                            dtype=torch.int8).to(cuda)
+        w_q = torch.randint(-127, 128, (16, 96), generator=gen,
+                            dtype=torch.int8).to(cuda)
+        best_q = autotune.tune_pattern_matmul(x_q, w_q, reps=3)
+        assert best_q in autotune.candidates_pattern_matmul(
+            8192, 16, 96, torch.int8)
+        assert torch.equal(matmul_q8(x_q, w_q), matmul_q8_ref(x_q, w_q))
+    finally:
+        autotune.reset_cache()
 
 
 def test_kernels_are_row_independent_bitwise(cuda):

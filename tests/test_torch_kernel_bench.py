@@ -48,6 +48,11 @@ def test_run_on_cpu_writes_its_json(tmp_path):
     assert t["cache_round_trip"] is True
     assert t["tuned_blocks"] in t["candidates"]
     assert t["cache_key"].endswith("|float32|cpu")
+    tm = t["pattern_matmul"]
+    assert tm["shape"] == [8192, 72, 304] and tm["act"] == "relu"
+    assert tm["cache_round_trip"] is True
+    assert tm["cache_key"] == "pattern_matmul|8192x128x512|float32|cpu"
+    assert tm["ms_default"] is None and tm["ms_tuned"] is None
 
 
 def test_cli_on_cpu(tmp_path):
@@ -59,6 +64,7 @@ def test_cli_on_cpu(tmp_path):
         env=env, cwd=tmp_path, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "round_trip=True" in proc.stdout
+    assert "matmul [8192, 72, 304]" in proc.stdout
     assert json.loads(out.read_text())["device"] == "cpu"
     assert not (tmp_path / "chiprun_out").exists()
 

@@ -131,9 +131,9 @@ def tmp_cache(tmp_path, monkeypatch):
     path = str(tmp_path / "autotune.json")
     monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", path)
     monkeypatch.delenv("REPRO_TORCH_AUTOTUNE", raising=False)
-    autotune._GLOBAL_CACHE = None
+    autotune.reset_cache()
     yield path
-    autotune._GLOBAL_CACHE = None
+    autotune.reset_cache()
 
 
 def test_resolve_block_n_precedence(tmp_cache, monkeypatch):
