@@ -25,7 +25,12 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    single, bitwise.  Both matmul kernels at every candidate tile
    (``autotune.candidates_pattern_matmul``) of vikin-mixed's and
    vikin-mlp3's matmul layers at bucket 8 and batch 8192: bitwise the
-   output of the default tile;
+   output of the default tile.  Both KAN kernels at every candidate knob
+   (``autotune.candidates_kan_fused``) of vikin-mixed's and vikin-kan2's
+   KAN layers at bucket 8 and batch 8192: bitwise the default knob's
+   output; at ragged widths (37->13, 300->33) within tolerance; and a row
+   alone under one knob bitwise equal to it in a batch under another, in
+   both precisions;
 3. serve -- 48 requests of vikin-kan2, vikin-mlp3 and vikin-mixed through
    the port's Engine + MultiWorkloadBackend on 8 slots, once in f32 and
    once in int8: every answer against the same stack run through the
@@ -43,7 +48,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    TFLOP/s f32, 1979 TOP/s int8 for the int8 matmul); the spline-basis
    kernel on the vikin-mixed KAN layer's input, flattened, and the v1
    KAN kernel at that layer beside the v2 one; each matmul record names
-   the tiles (bm, bk, bn) each launch took; then, per arch at bucket
+   the tiles (bm, bk, bn) each launch took, each KAN record the knob
+   (bm, bi, bn); then, per arch at bucket
    8 and per precision, where one served batch's time goes (host wall of
    a backend forward, the stack on the card, the kernels alone);
 5. the v1 path -- a ``KANLayer`` at ``version=1`` built from the
@@ -53,9 +59,10 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 6. the kernel bench -- ``repro_torch.benchmarks.kernel_bench.run`` on
    the card with its own asserts (spline-basis, v1 and v2 KAN and
    matmul kernels against plain versions and oracles, one
-   ``tune_spline_basis`` and one ``tune_pattern_matmul`` search (8192x72
-   ->304 relu), each round-tripped through a temporary cache and shown to
-   change no bit), its JSON in ``chiprun_out/kernel_bench.json``.
+   ``tune_spline_basis``, one ``tune_pattern_matmul`` (8192x72->304 relu)
+   and one ``tune_kan_fused`` search (8x304->32), each round-tripped
+   through a temporary cache and shown to change no bit), its JSON in
+   ``chiprun_out/kernel_bench.json``.
 
 No served path launches the spline-basis or v1 kernel, so their
 ``launches`` in the record are those of phases 6 and 5.
@@ -93,6 +100,7 @@ DEVICE = "cuda"
 KERNEL_INFO = {
     "kan_fused_v2": {
         "source": "src/repro_torch/kernels/kan_fused/csrc/kan_fused.cu",
+        "headers": ["src/repro_torch/kernels/kan_fused/csrc/kan_split.cuh"],
         "replaces": "src/repro/kernels/kan_fused/kan_fused.py:284",
     },
     "pattern_matmul": {
@@ -102,6 +110,7 @@ KERNEL_INFO = {
     },
     "kan_fused_v2_q8": {
         "source": "src/repro_torch/kernels/kan_fused/csrc/kan_fused_q8.cu",
+        "headers": ["src/repro_torch/kernels/kan_fused/csrc/kan_split.cuh"],
         "replaces": "src/repro/kernels/kan_fused/kan_fused.py:338",
     },
     "pattern_matmul_q8": {
@@ -225,6 +234,9 @@ def main() -> int:
         kan_fused_v2,
         kan_fused_v2_q8,
         slot_table,
+    )
+    from repro_torch.kernels.kan_fused.ops import (
+        resolve_blocks as kan_blocks,
     )
     from repro_torch.kernels.kan_fused.ref import (
         kan_fused_v1_ref,
@@ -552,6 +564,96 @@ def main() -> int:
     print(f"phase 2: every candidate tile bitwise the default's at "
           f"vikin-mixed's and vikin-mlp3's matmul layers, B=8 and {BIG}: "
           f"{knob_checks}")
+
+    # every candidate knob (bm, bi, bn) of both KAN kernels at the served
+    # KAN layers (vikin-mixed's 304->32, vikin-kan2's 72->96) at bucket 8
+    # and batch 8192: bitwise the default knob's output, which is held to
+    # the plain version
+    def check_kan_knobs(name: str, run, xin, layer, dtype, what: str):
+        ref = run(None)
+        B, n_in = xin.shape
+        for c in autotune.candidates_kan_fused(B, n_in, layer.cfg.n_out,
+                                               len(layer.kb), dtype):
+            knob = (c["bm"], c["bi"], c["bn"])
+            check(torch.equal(run(knob), ref), f"{name} {what}: knob "
+                  f"{knob} != the default knob, bitwise")
+            knob_checks[name] = knob_checks.get(name, 0) + 1
+
+    for name in ("vikin-mixed", "vikin-kan2"):
+        for b in (8, BIG):
+            x = torch.from_numpy(rng.random(
+                (b, VIKIN_ARCHS[name].sizes[0]), dtype=np.float32)).to(dev)
+            for layer, xin in kan_inputs(backends[name].stack, x):
+                compare("kan_fused_v2", kan_fused_v2(
+                    xin, layer.wt, layer.cfg.spec, layer.kb, layer.slot_of),
+                    kan_fused_v2_ref(xin, layer.wt, layer.cfg.spec,
+                                     layer.kb), f"{name} B={b} default knob")
+                check_kan_knobs(
+                    "kan_fused_v2", lambda k, xin=xin, layer=layer:
+                    kan_fused_v2(xin, layer.wt, layer.cfg.spec, layer.kb,
+                                 layer.slot_of, blocks=k),
+                    xin, layer, torch.float32, f"{name} B={b}")
+            stack = q8_backends[name].stack
+            h = quantize_static(x, stack.x_scales[0])
+            for i, layer in enumerate(stack.layers):
+                lname, xin, kernel, plain, finish = q8_layer_calls(layer, h)
+                ref = plain()
+                if lname == "kan_fused_v2_q8":
+                    compare(lname, kernel(), ref,
+                            f"{name} B={b} int8 layer {i} default knob")
+                    check_kan_knobs(
+                        lname, lambda k, xin=xin, layer=layer:
+                        kan_fused_v2_q8(xin, layer.wt_q, layer.slot_scales,
+                                        layer.cfg.spec, layer.kb,
+                                        layer.x_scale, layer.slot_of,
+                                        blocks=k),
+                        xin, layer, torch.int8, f"{name} B={b} int8 layer {i}")
+                if i + 1 < len(stack.layers):
+                    h = quantize_static(finish(ref), stack.x_scales[i + 1])
+    # ragged widths (n_in not a multiple of the 32-feature chunk, n_out
+    # not one of bn), int8 slot scales that differ per slot
+    for n_in, n_out in ((37, 13), (300, 33)):
+        xr = (torch.randn((77, n_in), generator=gen) * 1.5).to(dev)
+        wr = (torch.randn((n_in * (len(kb) + 1), n_out), generator=gen)
+              * 0.05).to(dev)
+        compare("kan_fused_v2", kan_fused_v2(xr, wr, spec, kb, slot),
+                kan_fused_v2_ref(xr, wr, spec, kb),
+                f"ragged 77x{n_in}->{n_out}")
+        xqr = torch.randint(-127, 128, (77, n_in), generator=gen,
+                            dtype=torch.int8).to(dev)
+        wqr = torch.randint(-127, 128, tuple(wr.shape), generator=gen,
+                            dtype=torch.int8).to(dev)
+        compare("kan_fused_v2_q8",
+                kan_fused_v2_q8(xqr, wqr, ssq, spec, kb, 0.02, slot),
+                kan_fused_v2_q8_ref(xqr, wqr, ssq, spec, kb, 0.02),
+                f"ragged 77x{n_in}->{n_out}")
+    # batched == single, bitwise, with one knob for the batch of 16 and
+    # another for each row alone, at vikin-mixed's KAN layer
+    layer, xin = kan_inputs(backends["vikin-mixed"].stack, x_big[:16])[0]
+    q_layer = q8_backends["vikin-mixed"].stack.layers[1]
+    q_in = q8_chain(q8_backends["vikin-mixed"].stack, x_big[:16], 3)[2][1]
+    full = kan_fused_v2(xin, layer.wt, layer.cfg.spec, layer.kb,
+                        layer.slot_of, blocks=(16, 512, 32))
+    q_full = kan_fused_v2_q8(q_in, q_layer.wt_q, q_layer.slot_scales,
+                             q_layer.cfg.spec, q_layer.kb, q_layer.x_scale,
+                             q_layer.slot_of, blocks=(16, 512, 32))
+    for i in range(6):
+        one = kan_fused_v2(xin[i:i + 1].contiguous(), layer.wt,
+                           layer.cfg.spec, layer.kb, layer.slot_of,
+                           blocks=(8, 32, 8))
+        check(torch.equal(one, full[i:i + 1]), f"kan_fused_v2: row {i} "
+              f"alone at (8, 32, 8) != row {i} of 16 at (16, 512, 32)")
+        one = kan_fused_v2_q8(q_in[i:i + 1].contiguous(), q_layer.wt_q,
+                              q_layer.slot_scales, q_layer.cfg.spec,
+                              q_layer.kb, q_layer.x_scale, q_layer.slot_of,
+                              blocks=(8, 64, 16))
+        check(torch.equal(one, q_full[i:i + 1]), f"kan_fused_v2_q8: row "
+              f"{i} alone at (8, 64, 16) != row {i} of 16 at (16, 512, 32)")
+    torch.cuda.synchronize()
+    print(f"phase 2: every candidate knob of both KAN kernels bitwise the "
+          f"default's at vikin-mixed's and vikin-kan2's KAN layers, B=8 "
+          f"and {BIG}; ragged 37->13 and 300->33; batched == single under "
+          f"different knobs in both precisions: {knob_checks}")
     for name in KERNEL_INFO:
         how = ("bitwise" if name in ("pattern_matmul_q8", "spline_basis")
                else f"within {KERNEL_TOL:g}*(1+max|plain|)")
@@ -745,6 +847,9 @@ def main() -> int:
                                      + batch * n_out)
                 a["shapes"].append(f"{batch}x{n_in}->{n_out} "
                                    f"kb={list(layer.kb)}")
+                a["blocks"].append(kan_blocks(batch, n_in, n_out,
+                                              len(layer.kb), torch.float32,
+                                              device=dev))
             else:
                 kc, n = layer.w_c.shape
 
@@ -878,6 +983,9 @@ def main() -> int:
                                         + batch * n_out))
                 a["shapes"].append(f"{batch}x{n_in}->{n_out} "
                                    f"kb={list(layer.kb)} int8")
+                a["blocks"].append(kan_blocks(batch, n_in, n_out,
+                                              len(layer.kb), torch.int8,
+                                              device=dev))
             else:
                 kc, n = layer.w_q_c.shape
                 # torch._int_mm takes M > 16 and K, N multiples of 8
@@ -1039,11 +1147,19 @@ def main() -> int:
     tm = bench["tuning"]["pattern_matmul"]
     check(tm["cache_round_trip"],
           "kernel bench: the tuned matmul tiles did not round-trip")
+    tk = bench["tuning"]["kan_fused"]
+    check(tk["cache_round_trip"],
+          "kernel bench: the tuned KAN knobs did not round-trip")
+    check(bench_launches["kan_fused_v2"] > 0,
+          "kernel bench: the KAN tuning launched nothing")
     print(f"phase 6: kernel bench passed its asserts; launches "
           f"{bench_launches}; tuned {bench['tuning']['tuned_blocks']} at "
           f"n={bench['tuning']['n']}; matmul {tm['shape']} relu tuned "
           f"{tm['tuned_blocks']} ({tm['ms_tuned']} ms) vs default "
-          f"{tm['default_blocks']} ({tm['ms_default']} ms), bitwise equal")
+          f"{tm['default_blocks']} ({tm['ms_default']} ms), bitwise equal; "
+          f"KAN {tk['shape']} tuned {tk['tuned_blocks']} ({tk['ms_tuned']} "
+          f"ms) vs default {tk['default_blocks']} ({tk['ms_default']} ms), "
+          f"bitwise equal")
 
     launched = {k: (launches[k], "phase 3, f32 burst") for k in F32_KERNELS}
     launched.update({k: (q_launches[k], "phase 3, int8 burst")
@@ -1057,6 +1173,7 @@ def main() -> int:
         rec = records[(k, 8)]
         kernels.append({
             "name": k, "route": "cuda", "source": info["source"],
+            "headers": info.get("headers", []),
             "replaces": info["replaces"], "launches": launched[k][0],
             "launches_phase": launched[k][1],
             "max_abs_err": max_err[k], "ms": rec["ms"],

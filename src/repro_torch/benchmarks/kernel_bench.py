@@ -12,10 +12,12 @@ Counterpart of ``benchmarks/kernel_bench.py``, with the same sections:
   contraction sizes, weight bytes and both times;
 * ``pattern_matmul`` -- the compacted matmul at rates 0, 0.5 and 0.75 on
   128x512->256 against the dense masked oracle;
-* ``tuning`` -- a ``tune_spline_basis`` search and a ``tune_pattern_matmul``
-  search (8192x72->304 relu, vikin-mixed's first layer at a large batch),
-  each round-tripped through a fresh ``AutotuneCache`` on a temporary
-  file, and each tuned knob shown to change no bit of the result.
+* ``tuning`` -- a ``tune_spline_basis`` search, a ``tune_pattern_matmul``
+  search (8192x72->304 relu, vikin-mixed's first layer at a large batch)
+  and a ``tune_kan_fused`` search (8x304->32, vikin-mixed's KAN layer at
+  the served bucket 8), each round-tripped through a fresh
+  ``AutotuneCache`` on a temporary file, and each tuned knob shown to
+  change no bit of the result.
 
 Run (from the repository root, with ``PYTHONPATH=src``)::
 
@@ -57,6 +59,7 @@ from repro_torch.core.splines import (
     spu_op_count,
 )
 from repro_torch.kernels import autotune
+from repro_torch.kernels.kan_fused import ops as kan_ops
 from repro_torch.kernels.kan_fused.ops import (
     flatten_t,
     fuse_wt,
@@ -262,6 +265,7 @@ def bench_tuning(dev: torch.device) -> Dict:
         "ms_tuned": _time_ms(
             lambda: spline_basis(x, spec, block_n=best["block_n"]), dev),
         "pattern_matmul": bench_tuning_matmul(dev),
+        "kan_fused": bench_tuning_kan(dev),
     }
 
 
@@ -306,6 +310,49 @@ def bench_tuning_matmul(dev: torch.device) -> Dict:
     }
 
 
+def bench_tuning_kan(dev: torch.device) -> Dict:
+    B, n_in, n_out, kb = 8, 304, 32, (0, 2, 4, 5, 6)
+    spec = SplineSpec(4, 3)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.rand((B, n_in), generator=gen).to(dev)
+    wt = (torch.randn((n_in * (len(kb) + 1), n_out), generator=gen)
+          * 0.05).to(dev)
+    slot = slot_table(kb, spec.n_bases, dev)
+    dims = (B, n_in, n_out, len(kb))
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = autotune.AutotuneCache(os.path.join(tmp, "autotune.json"))
+        best = autotune.tune_kan_fused(
+            x, wt, spec, kb, reps=10 if dev.type == "cuda" else 1,
+            cache=cache)
+        key = autotune.cache_key("kan_fused_v2", dims, x.dtype, dev)
+        fresh = autotune.AutotuneCache(cache.path)
+        round_trip = fresh.lookup(key) == best
+        hit = autotune.lookup_blocks("kan_fused_v2", dims, x.dtype, dev,
+                                     cache=fresh)
+    _check(round_trip and hit == best, key, best, hit)
+    default = kan_ops.default_blocks(*dims, x.dtype)
+    knob = {k: (v["bm"], v["bi"], v["bn"])
+            for k, v in (("tuned", best), ("default", default))}
+    _check(torch.equal(
+        kan_fused_v2(x, wt, spec, kb, slot, blocks=knob["tuned"]),
+        kan_fused_v2(x, wt, spec, kb, slot, blocks=knob["default"])),
+        "the tuned (bm, bi, bn) changed the result")
+    return {
+        "shape": [B, n_in, n_out], "kb": list(kb),
+        "candidates": len(autotune.candidates_kan_fused(*dims, x.dtype)),
+        "tuned_blocks": best,
+        "default_blocks": default,
+        "cache_key": key,
+        "cache_round_trip": round_trip,
+        "ms_default": _time_ms(
+            lambda: kan_fused_v2(x, wt, spec, kb, slot,
+                                 blocks=knob["default"]), dev),
+        "ms_tuned": _time_ms(
+            lambda: kan_fused_v2(x, wt, spec, kb, slot,
+                                 blocks=knob["tuned"]), dev),
+    }
+
+
 def run(device: str = "cuda", out: Optional[str | Path] = None) -> Dict:
     """Run every section on ``device``, write the JSON to ``out`` (default
     ``DEFAULT_OUT``) and return it; raises on any fault."""
@@ -346,6 +393,10 @@ def run(device: str = "cuda", out: Optional[str | Path] = None) -> Dict:
     print(f"{'tuning':15s} matmul {tm['shape']} tuned={tm['tuned_blocks']} "
           f"round_trip={tm['cache_round_trip']} ms default/tuned "
           f"{tm['ms_default']}/{tm['ms_tuned']}", flush=True)
+    tk = t["kan_fused"]
+    print(f"{'tuning':15s} kan {tk['shape']} tuned={tk['tuned_blocks']} "
+          f"round_trip={tk['cache_round_trip']} ms default/tuned "
+          f"{tk['ms_default']}/{tk['ms_tuned']}", flush=True)
     print(f"wrote {path} ({results['device']})", flush=True)
     return results
 

@@ -8,7 +8,8 @@ is
 with t_i = w_s * c_i pre-folded (Eq. 3).  Stage-2 pattern sparsity over
 the basis dimension is a static mask carried in the config, and
 ``KANConfig.version`` picks the kernel generation (2: one pass against
-the fused ``[w_b ; t]`` rows; 1: the silu and spline branches apart).
+the fused ``[w_b ; t]`` rows; 1: the silu and spline branches apart),
+and ``KANConfig.blocks`` the version-2 kernel's launch knobs.
 ``KANLayer`` compacts (and at version 2 fuses) its weights once, when it
 is built; ``kan_apply`` is the functional form that does so on every
 call.  The device of the input picks kernel or plain version.
@@ -55,11 +56,17 @@ class KANConfig:
     # explicit kept basis indices (calibrated mask); wins over ``pattern``
     basis_keep: Optional[Tuple[int, ...]] = None
     version: int = DEFAULT_VERSION               # fused-kernel generation
+    # (bm, bi, bn) of the version-2 kernel; None -> autotune cache, then
+    # the kernel's defaults
+    blocks: Optional[Tuple[int, int, int]] = None
 
     def __post_init__(self) -> None:
         if self.version not in (1, 2):
             raise ValueError(f"KANConfig.version must be 1 or 2, got "
                              f"{self.version!r}")
+        if self.version == 1 and self.blocks is not None:
+            raise ValueError("KANConfig.blocks applies to the version-2 "
+                             "kernel; the version-1 kernel has no knobs")
 
     @property
     def basis_mask(self) -> Optional[PatternMask]:
@@ -104,7 +111,7 @@ def kan_apply(params: Params, x: torch.Tensor, cfg: KANConfig) -> torch.Tensor:
     """Apply the layer functionally; leading batch dims arbitrary."""
     t_flat = flatten_t(params["t"], cfg.kb)
     return kan_linear(x, params["w_b"], t_flat, cfg.spec, cfg.kb,
-                      version=cfg.version)
+                      version=cfg.version, blocks=cfg.blocks)
 
 
 class KANLayer(nn.Module):
@@ -144,7 +151,7 @@ class KANLayer(nn.Module):
         xf = x.reshape(-1, self.cfg.n_in).contiguous()
         if self.cfg.version == 2:
             y = kan_fused_v2(xf, self.wt, self.cfg.spec, self.kb,
-                             self.slot_of)
+                             self.slot_of, blocks=self.cfg.blocks)
         else:
             y = kan_fused_v1(xf, self.w_b, self.t_flat, self.cfg.spec,
                              self.kb, self.slot_of)

@@ -255,7 +255,8 @@ class QuantKANLayer(nn.Module):
         lead = x_q.shape[:-1]
         y = kan_fused_v2_q8(x_q.reshape(-1, self.cfg.n_in).contiguous(),
                             self.wt_q, self.slot_scales, self.cfg.spec,
-                            self.kb, self.x_scale, self.slot_of)
+                            self.kb, self.x_scale, self.slot_of,
+                            blocks=self.cfg.blocks)
         return y.reshape(*lead, self.cfg.n_out)
 
 

@@ -40,8 +40,10 @@ KERNELS = {
     "kan_fused_v2": (
         KERNELS_DIR / "kan_fused" / "csrc" / "kan_fused.cu",
         "kan_fused_v2_f32",
-        # x, wt, slot_of, out, B, n_in, n_out, nbk, G, K, x0, hi, inv_h, stream
-        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P)),
+        # x, wt, slot_of, out, B, n_in, n_out, nbk, G, K, x0, hi, inv_h,
+        # bm, bi, bn, stream
+        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
+         _P)),
     "pattern_matmul": (
         KERNELS_DIR / "pattern_matmul" / "csrc" / "pattern_matmul.cu",
         "pattern_matmul_f32",
@@ -51,8 +53,9 @@ KERNELS = {
         KERNELS_DIR / "kan_fused" / "csrc" / "kan_fused_q8.cu",
         "kan_fused_v2_q8",
         # x_q, wt_q, slot_scales, slot_of, out, B, n_in, n_out, nbk, G, K,
-        # x_scale, x0, hi, inv_h, stream
-        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P)),
+        # x_scale, x0, hi, inv_h, bm, bi, bn, stream
+        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I,
+         _I, _P)),
     "pattern_matmul_q8": (
         KERNELS_DIR / "pattern_matmul" / "csrc" / "pattern_matmul_q8.cu",
         "pattern_matmul_s8",

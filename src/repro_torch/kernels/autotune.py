@@ -20,21 +20,20 @@ file is ``$REPRO_TORCH_AUTOTUNE_CACHE`` if set, else
 neither package ever reads the other's timings.  Search on a cache miss is
 opt-in (``REPRO_TORCH_AUTOTUNE=1``): a silent search in the middle of a
 serving step is worse than a default knob.  The spline-basis wrapper
-searches on a miss; the pattern-matmul wrappers, like the JAX
+searches on a miss; the pattern-matmul and KAN wrappers, like the JAX
 ``pattern_linear``, never search: ``launch/serve.py`` tunes the matmul
-layers it serves before the first request instead.
+and KAN layers it serves before the first request instead.
 
 Unlike the JAX ``search``, which skips candidates that fail to compile,
 this one lets every failure raise: the candidates are pruned up front to
 what the card takes (threads a block, shared memory a block), so a launch
 that fails is a fault to see, not a candidate to skip.
 
-Knobs: ``block_n`` of the spline-basis kernel, and ``(bm, bk, bn)`` of
-the two pattern-matmul kernels, f32 and int8 alike under kernel
-``pattern_matmul`` (the dtype tells them apart, as in the JAX
-``resolve_blocks``).  The KAN kernels' tiles are compile-time constants
-(``kan_fused.cuh``), so ``tune_kan_fused`` and ``KANConfig.blocks`` wait
-for that kernel's redesign to give it launch-time knobs (ROADMAP).
+Knobs: ``block_n`` of the spline-basis kernel, ``(bm, bk, bn)`` of the
+two pattern-matmul kernels, f32 and int8 alike under kernel
+``pattern_matmul``, and ``(bm, bi, bn)`` of the two version-2 KAN
+kernels under kernel ``kan_fused_v2`` (the dtype tells f32 from int8, as
+in the JAX ``resolve_blocks``).  The version-1 KAN kernel has none.
 """
 from __future__ import annotations
 
@@ -360,3 +359,72 @@ def tune_pattern_matmul(x_c: torch.Tensor, w_c: torch.Tensor,
     return search("pattern_matmul", (M, K, N), x_c.dtype, run,
                   candidates_pattern_matmul(M, K, N, x_c.dtype),
                   device=x_c.device, reps=reps, cache=cache)
+
+
+def candidates_kan_fused(B: int, n_in: int, n_out: int, nbk: int,
+                         dtype: torch.dtype) -> List[Dict[str, int]]:
+    """``(bm, bi, bn)`` grid of the f32 or int8 version-2 KAN kernel: bm
+    at most ``max(8, next_pow2(B))``, bn at most ``max(8,
+    next_pow2(n_out))``, bi a power of two from 32 up to the first that
+    covers ``n_in``, pruned to what the kernel takes on the card
+    (``ops.check_blocks``: tile, shared memory a block, blocks a
+    cluster; bm * bn <= 8192 keeps a block at 256 threads)."""
+    from repro_torch.kernels.kan_fused import ops
+
+    cap_m = max(8, next_pow2(B))
+    cap_n = max(8, next_pow2(n_out))
+    bis = [ops.PC]
+    while bis[-1] < n_in:
+        bis.append(2 * bis[-1])
+    out = []
+    for bm in ops.TILES:
+        for bn in ops.TILES:
+            if bm > cap_m or bn > cap_n:
+                continue
+            for bi in bis:
+                cand = {"bm": bm, "bi": bi, "bn": bn}
+                try:
+                    ops.check_blocks(cand, n_in, n_out, nbk, dtype)
+                except ValueError:
+                    continue
+                out.append(cand)
+    return out
+
+
+def tune_kan_fused(x: torch.Tensor, wt: torch.Tensor, spec,
+                   kb: Optional[Sequence[int]] = None, *,
+                   slot_scales: Optional[torch.Tensor] = None,
+                   x_scale: Optional[float] = None, reps: int = 10,
+                   cache: Optional[AutotuneCache] = None
+                   ) -> Dict[str, int]:
+    """Search ``(bm, bi, bn)`` for the version-2 KAN kernel on ``x``'s
+    device (on the CPU this times the plain version, stored under
+    ``cpu``), against the fused ``wt`` (``ops.fuse_wt``).  Int8 codes tune
+    the int8 kernel and need ``slot_scales`` and ``x_scale``; both are
+    stored under kernel ``kan_fused_v2`` with their dtype."""
+    from repro_torch.kernels.kan_fused.ops import (
+        kan_fused_v2,
+        kan_fused_v2_q8,
+        slot_table,
+    )
+
+    B, n_in = x.shape
+    n_out = wt.shape[1]
+    kb = tuple(range(spec.n_bases)) if kb is None else tuple(kb)
+    nbk = len(kb)
+    slot_of = slot_table(kb, spec.n_bases, x.device)
+    if x.dtype == torch.int8:
+        if slot_scales is None or x_scale is None:
+            raise ValueError("tune_kan_fused: int8 codes need slot_scales "
+                             "and x_scale")
+
+        def run(bm: int, bi: int, bn: int) -> torch.Tensor:
+            return kan_fused_v2_q8(x, wt, slot_scales, spec, kb, x_scale,
+                                   slot_of, blocks=(bm, bi, bn))
+    else:
+        def run(bm: int, bi: int, bn: int) -> torch.Tensor:
+            return kan_fused_v2(x, wt, spec, kb, slot_of,
+                                blocks=(bm, bi, bn))
+    return search("kan_fused_v2", (B, n_in, n_out, nbk), x.dtype, run,
+                  candidates_kan_fused(B, n_in, n_out, nbk, x.dtype),
+                  device=x.device, reps=reps, cache=cache)

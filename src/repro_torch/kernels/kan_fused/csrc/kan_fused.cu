@@ -25,34 +25,60 @@
 //   * serving buckets (B = 2..16; vikin-mixed 304->32 and vikin-kan2
 //     72->96, both kb = (0,2,4,5,6), nbk = 5): the fused weights are the
 //     traffic (304*6*32*4 = 233 KB, 70 ns) against 0.73 MFLOP (11 ns) at
-//     B=8 -- bytes bound in principle; in fact the grid is a single block
-//     at B <= 16, n_out <= 32, so one SM's latency sets the time;
+//     B=8 -- bytes bound in principle.  In fact latency: the first design
+//     ran one block of 16 rows x 32 outputs over all 304 features (one SM
+//     of 132) and waited on dependent global loads for every feature
+//     (about 400 ns each);
 //   * B = 8192, 304->32: 0.75 GFLOP (multiply-adds plus the spline
 //     evaluation, 11 us) against 11 MB of traffic (3.4 us) -- operations
-//     bound.
-// Design: a block owns 16 rows x 32 outputs (one warp per two rows, one
-// lane per output) and walks the input features in chunks of 32.  For
-// each chunk it evaluates silu, the cell and the K+1 basis values of its
-// 16x32 (row, feature) pairs once, into shared memory, together with the
-// weight row each value multiplies (or -1).  Every lane then accumulates
-// its outputs in f32 registers, reading each weight row coalesced across
-// the warp.  Each output is summed in one fixed order -- features
-// ascending, the silu term first, then j = 0..K -- that depends on
-// nothing but the row's own inputs, so batched == single holds bitwise.
-// The spline arithmetic uses round-to-nearest intrinsics, so no FMA
-// contraction makes it differ from the plain version (kan_fused/ref.py).
-// The kernel body is kan_fused.cuh, shared with the int8 kernel
-// (kan_fused_q8.cu) and the v1 kernel (kan_fused_v1.cu).
-#include "kan_fused.cuh"
+//     bound.  Each multiply-add reads its weight from shared memory (the
+//     row a cell picks differs per input row, so a weight is reused only
+//     across the 4 columns of a float4), so shared-memory bandwidth caps
+//     it near a quarter of the f32 peak.
+// Design (kan_split.cuh): launch-time knobs bm x bn outputs a block and bi
+// features a block walk; the feature loop is split over a thread-block
+// cluster along grid.z (at B=8, bi=32 and bn=8 give vikin-mixed's layer
+// 40 blocks, not 1), and rank 0 adds the members' chunk partials in chunk
+// order through distributed shared memory, inside the one launch.  Each
+// chunk's weight rows and x tile are staged with cp.async before any
+// multiply-add, the next chunk's in flight; silu, the cell and the K+1
+// de Boor values of each (row, feature) are evaluated once into shared
+// memory with the staged row each value multiplies; every compute thread
+// then runs TM rows x 4 columns, one float4 of weights a multiply-add
+// group, the silu row's float4 shared by its TM rows.
+// The summation order is fixed by the layer alone -- features in chunks of
+// 32, each chunk's partial one fmaf chain (features ascending, silu term
+// first, then j = 0..K), the partials added in chunk order -- so every
+// knob gives the same bits and batched == single holds bitwise.  The
+// spline arithmetic uses round-to-nearest intrinsics (kan_fused.cuh's
+// spu()), so no FMA contraction makes it differ from the plain version
+// (kan_fused/ref.py).  The int8 kernel (kan_fused_q8.cu) shares the body.
+#include "kan_split.cuh"
 
 // x: (B, n_in), wt: (n_in*(nbk+1), n_out), slot_of: (G+K,) int32,
 // out: (B, n_out).  All contiguous, on the stream's device.  `hi` is the
 // clip bound x1 - 1e-6*(x1 - x0) and `inv_h` = G / (x1 - x0), both f32.
+// bm, bn: rows and outputs a block, each one of 8, 16, 32, 64, 128, with
+// bm * bn <= 8192; bi: features a block walks, a multiple of 32 or >= n_in.
 extern "C" int kan_fused_v2_f32(const float* x, const float* wt,
                                 const int* slot_of, float* out, int B,
                                 int n_in, int n_out, int nbk, int G, int K,
-                                float x0, float hi, float inv_h,
-                                void* stream) {
-  return kan_fused::launch(kan_fused::F32{{nbk}, x, wt}, slot_of, out, B,
-                           n_in, n_out, nbk, G, K, x0, hi, inv_h, stream);
+                                float x0, float hi, float inv_h, int bm,
+                                int bi, int bn, void* stream) {
+  kan_split::Params p = {};
+  p.x = x;
+  p.wt = wt;
+  p.slot_of = slot_of;
+  p.out = out;
+  p.B = B;
+  p.n_in = n_in;
+  p.n_out = n_out;
+  p.nbk = nbk;
+  p.n_bases = G + K;
+  p.G = G;
+  p.K = K;
+  p.x0 = x0;
+  p.hi = hi;
+  p.inv_h = inv_h;
+  return kan_split::launch<kan_split::F32>(p, bm, bi, bn, stream);
 }

@@ -1,22 +1,16 @@
-// The fused KAN layer kernel shared by kan_fused.cu (v2, f32),
-// kan_fused_q8.cu (v2, int8 codes) and kan_fused_v1.cu (v1, f32), and the
-// SPU stage shared with spline_basis.cu, for sm_90a.
+// The v1 KAN layer kernel (kan_fused_v1.cu) and the SPU stage, `spu()`,
+// shared with spline_basis.cu and with the v2 kernels' body
+// (kan_split.cuh), for sm_90a.
 //
-// One template body; the operand policy `Op` says how an input value and
-// a weight are read and where a feature's weights live:
-//   * `F32`: the fused [w_b ; t[kb]] rows of ops.fuse_wt, as f32;
-//   * `Q8`: the same rows as int8 codes dequantized on load (x times the
-//     layer's static scale, each weight times the scale of its row slot --
-//     silu row 0, kept basis 1 + slot);
-//   * `F32Split`: the v1 layout, `w_b` and `t_flat` as two arrays, summed
-//     into two accumulators (silu branch, spline branch) that are added
-//     once at the end, as the plain version's `dot(s, w_b) + dot(act,
-//     t_flat)` does.
-// Everything else -- the staging of silu, the cell and the K+1 de Boor
-// values, the round-to-nearest spline arithmetic and the fixed summation
-// order -- is the same code for all three, so each keeps batched == single
-// bitwise.  See kan_fused.cu for the function, the design and what bounds
-// it.
+// The body walks a weight-layout policy, `F32Split`: `w_b` and `t_flat` as
+// two arrays, summed into two accumulators (silu branch, spline branch)
+// that are added once at the end, as the plain version's `dot(s, w_b) +
+// dot(act, t_flat)` does.  A block owns 16 rows x 32 outputs and walks
+// every input feature in chunks of 32: silu, the cell and the K+1 de Boor
+// values of each (row, feature) are staged once in shared memory, and
+// each output is summed in one fixed order (features ascending, the silu
+// term, then j = 0..K), so batched == single holds bitwise.  See
+// kan_fused_v1.cu for the function and what bounds it.
 #pragma once
 
 #include <cstdint>
@@ -72,55 +66,6 @@ __device__ __forceinline__ int spu(float xv, float x0, float inv_h, int G,
   }
   return (int)cf;
 }
-
-// Feature p's rows in the fused [w_b ; t[kb]] layout (ops.fuse_wt): the
-// silu row p*(nbk+1), kept slot s at p*(nbk+1) + 1 + s.
-struct FusedRows {
-  int nbk;
-  static constexpr bool kTwoAcc = false;
-  __device__ __forceinline__ int silu_row(int p) const {
-    return p * (nbk + 1);
-  }
-  __device__ __forceinline__ int spline_row(int p, int slot) const {
-    return p * (nbk + 1) + 1 + slot;
-  }
-};
-
-// f32 operands, read as they are.
-struct F32 : FusedRows {
-  const float* x;
-  const float* wt;
-  __device__ __forceinline__ float load_x(size_t i) const { return x[i]; }
-  __device__ __forceinline__ float silu_w(int p, int n, int n_out) const {
-    return __ldg(&wt[(size_t)silu_row(p) * n_out + n]);
-  }
-  __device__ __forceinline__ float spline_w(int row, int, int n,
-                                            int n_out) const {
-    return __ldg(&wt[(size_t)row * n_out + n]);
-  }
-};
-
-// int8 codes, dequantized on load as the reference does (`dequantize`,
-// `_dequant_wt`): one round-to-nearest product each, never fused into the
-// multiply-add that consumes it.
-struct Q8 : FusedRows {
-  const int8_t* x;
-  const int8_t* wt;
-  const float* slot_scales;            // (nbk+1,): silu row, kept bases
-  float x_scale;
-  __device__ __forceinline__ float load_x(size_t i) const {
-    return __fmul_rn((float)x[i], x_scale);
-  }
-  __device__ __forceinline__ float silu_w(int p, int n, int n_out) const {
-    return __fmul_rn((float)__ldg(&wt[(size_t)silu_row(p) * n_out + n]),
-                     __ldg(&slot_scales[0]));
-  }
-  __device__ __forceinline__ float spline_w(int row, int p, int n,
-                                            int n_out) const {
-    return __fmul_rn((float)__ldg(&wt[(size_t)row * n_out + n]),
-                     __ldg(&slot_scales[row - silu_row(p)]));
-  }
-};
 
 // v1: `w_b` (n_in, n_out) and `t_flat` (n_in*nbk, n_out), f32, each
 // branch summed in its own accumulator.

@@ -21,29 +21,48 @@
 //   * serving buckets (B = 2..16; vikin-mixed 304->32 and vikin-kan2
 //     72->96, nbk = 5): the int8 fused weights are the traffic, a quarter
 //     of the f32 kernel's (304*6*32 = 58 KB, 17 ns) against 0.8 MFLOP
-//     (12 ns) at B=8 -- bytes bound in principle; in fact, as for the f32
-//     kernel, one block's latency sets the time;
+//     (12 ns) at B=8 -- bytes bound in principle, latency in fact: the
+//     first design's one block also waited on a dependent load of the
+//     slot scale for every weight (about 650 ns a feature);
 //   * B = 8192, 304->32: 0.75 GFLOP (11 us) against 3.6 MB (1.1 us) --
 //     operations bound.
-// Design: the f32 kernel's body (kan_fused.cuh) with the `Q8` operand
-// policy: each (row, feature) is dequantized once when it is staged, and
-// each weight a lane reads is dequantized by its slot's scale right before
-// the multiply-add that uses it.  The products are `__fmul_rn`, so no FMA
-// contraction changes the dequantized values; the summation order is the
-// f32 kernel's (features ascending, silu first, then j = 0..K), so
-// batched == single holds bitwise.
-#include "kan_fused.cuh"
+// Design: the f32 kernel's body (kan_split.cuh, see kan_fused.cu) with the
+// `Q8` operand policy: the (nbk+1) slot scales are read into shared
+// memory once a block; the chunk's x and weight codes are copied raw with
+// cp.async and dequantized once a chunk in shared memory, x by x_scale
+// and each weight by its slot's scale.  Every product is
+// `__fmul_rn`, so no FMA contraction changes a dequantized value; the
+// summation order is the f32 kernel's (chunks of 32 features, each one
+// fmaf chain, the partials added in chunk order), so every knob gives the
+// same bits and batched == single holds bitwise.
+#include "kan_split.cuh"
 
 // x_q: (B, n_in) int8, wt_q: (n_in*(nbk+1), n_out) int8, slot_scales:
 // (nbk+1,) f32, slot_of: (G+K,) int32, out: (B, n_out) f32.  All
 // contiguous, on the stream's device.  `hi` and `inv_h` as for
-// kan_fused_v2_f32; `x_scale` is the f32 input scale.
+// kan_fused_v2_f32; `x_scale` is the f32 input scale; bm, bi, bn as there.
 extern "C" int kan_fused_v2_q8(const int8_t* x_q, const int8_t* wt_q,
                                const float* slot_scales, const int* slot_of,
                                float* out, int B, int n_in, int n_out,
                                int nbk, int G, int K, float x_scale, float x0,
-                               float hi, float inv_h, void* stream) {
-  return kan_fused::launch(
-      kan_fused::Q8{{nbk}, x_q, wt_q, slot_scales, x_scale}, slot_of, out, B,
-      n_in, n_out, nbk, G, K, x0, hi, inv_h, stream);
+                               float hi, float inv_h, int bm, int bi, int bn,
+                               void* stream) {
+  kan_split::Params p = {};
+  p.x = x_q;
+  p.wt = wt_q;
+  p.slot_scales = slot_scales;
+  p.slot_of = slot_of;
+  p.out = out;
+  p.B = B;
+  p.n_in = n_in;
+  p.n_out = n_out;
+  p.nbk = nbk;
+  p.n_bases = G + K;
+  p.G = G;
+  p.K = K;
+  p.x_scale = x_scale;
+  p.x0 = x0;
+  p.hi = hi;
+  p.inv_h = inv_h;
+  return kan_split::launch<kan_split::Q8>(p, bm, bi, bn, stream);
 }

@@ -7,29 +7,191 @@ launches the hand-written kernel ``csrc/kan_fused.cu``
 (``csrc/kan_fused_v1.cu``, ``csrc/kan_fused_q8.cu``) or raises.  There is
 no fallback from a kernel to its plain version.
 
+The two version-2 kernels take their knobs ``(bm, bi, bn)`` at launch
+time: bm rows x bn outputs a block, bi input features a block walks.
+``resolve_blocks`` picks them as the JAX one does: explicit ``blocks=`` >
+autotune-cache hit for (shape bucket, dtype, card) > a default by batch
+bucket; the wrappers never search (``autotune.tune_kan_fused`` does, and
+``launch/serve.py`` runs it under ``REPRO_TORCH_AUTOTUNE=1``).  No knob
+changes a bit of the output: the summation order is fixed by the layer
+alone (``csrc/kan_split.cuh``).  A knob the kernel does not take raises,
+on the CPU too.
+
 Weights keep the JAX package's layouts: ``w_b`` (n_in, n_out), ``t``
 (n_in, G+K, n_out), ``t_flat`` (n_in*nbk, n_out) feature-major, and the
 fused ``wt`` (n_in*(nbk+1), n_out) with the silu row first per feature.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.splines import SplineSpec
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 from repro_torch.kernels.kan_fused.ref import (
     kan_fused_v1_ref,
     kan_fused_v2_q8_ref,
     kan_fused_v2_ref,
 )
+from repro_torch.utils import next_pow2
 
 KERNEL = "kan_fused_v2"
 KERNEL_V1 = "kan_fused_v1"
 KERNEL_Q8 = "kan_fused_v2_q8"
 DEFAULT_VERSION = 2
+
+# The knobs the version-2 kernels take (csrc/kan_split.cuh checks the
+# same): bm and bn from TILES with bm * bn <= MAX_TILE; bi a multiple of
+# PC, or >= n_in (every feature in one block).  PC fixes the summation
+# order; no knob changes it.
+PC = 32
+TILES = (8, 16, 32, 64, 128)
+MAX_TILE = 8192
+MAX_SPLIT = 16                  # blocks a cluster along the features
+PORTABLE_SPLIT = 8              # above it, at most half the shared memory
+MAX_GRID_Y = 65535              # column tiles; row tiles go on grid.x
+_MIN_THREADS = 128
+_HDR_WORDS = 64
+_ACT_STRIDE = PC * 8 + 4
+_SMS = 132                      # the H100's SMs (default_blocks)
+
+Blocks = Dict[str, int]
+
+
+def tile_rows(bm: int, bn: int) -> int:
+    """Rows a compute thread owns at a bm x bn block tile."""
+    return min(8, max(1, bm * bn // 1024))
+
+
+def kernel_threads(bm: int, bn: int) -> int:
+    """Threads a block: one per TM rows x 4 columns, at least 128 (the
+    rest only stage)."""
+    return max(_MIN_THREADS, (bm // tile_rows(bm, bn)) * (bn // 4))
+
+
+def split(n_in: int, bi: int) -> Tuple[int, int, int]:
+    """(chunks of PC features, chunks a block walks, blocks a cluster
+    along the features) for ``n_in`` features at knob ``bi``."""
+    nchunks = -(-n_in // PC)
+    cpb = max(1, nchunks) if bi >= n_in else bi // PC
+    return nchunks, cpb, -(-nchunks // cpb) if nchunks else 1
+
+
+def kernel_smem(bm: int, bi: int, bn: int, n_in: int, nbk: int,
+                dtype: torch.dtype) -> int:
+    """Dynamic shared memory, in bytes, a block of the kernel for
+    ``dtype`` uses: weight and x buffers (two when a block walks several
+    chunks), the staged (row, feature) values, a cluster member's chunk
+    partials, and int8's raw weight and x codes."""
+    _, cpb, nsplit = split(n_in, bi)
+    rows = PC * (nbk + 1)
+    stages = 2 if cpb > 1 else 1
+    words = (_HDR_WORDS + stages * (rows * bn + bm * PC) + bm * _ACT_STRIDE
+             + (cpb * bm * bn if nsplit > 1 else 0))
+    return 4 * words + (stages * (rows * bn + bm * PC)
+                        if dtype == torch.int8 else 0)
+
+
+def check_blocks(blocks: Blocks, n_in: int, n_out: int, nbk: int,
+                 dtype: torch.dtype) -> None:
+    """Raise ``ValueError`` unless the kernel for ``dtype`` takes
+    ``blocks`` at this layer's widths."""
+    bm, bi, bn = (blocks[k] for k in ("bm", "bi", "bn"))
+    what = f"kan_fused blocks (bm={bm}, bi={bi}, bn={bn})"
+    if min(bm, bi, bn) <= 0:
+        raise ValueError(f"{what}: every knob must be positive")
+    if bm not in TILES or bn not in TILES:
+        raise ValueError(f"{what}: the kernel takes bm and bn in {TILES}")
+    if bm * bn > MAX_TILE:
+        raise ValueError(f"{what}: bm * bn exceeds {MAX_TILE}")
+    if bi % PC and bi < n_in:
+        raise ValueError(f"{what}: bi must be a multiple of {PC} or cover "
+                         f"all {n_in} features")
+    _, _, nsplit = split(n_in, bi)
+    if nsplit > MAX_SPLIT:
+        raise ValueError(f"{what}: {nsplit} blocks a cluster exceed "
+                         f"{MAX_SPLIT} at n_in={n_in}")
+    smem = kernel_smem(bm, bi, bn, n_in, nbk, dtype)
+    if smem > autotune.MAX_SMEM_BYTES:
+        raise ValueError(f"{what}: {smem} bytes of shared memory exceed "
+                         f"{autotune.MAX_SMEM_BYTES} at nbk={nbk}")
+    if nsplit > PORTABLE_SPLIT and 2 * smem > autotune.MAX_SMEM_BYTES:
+        raise ValueError(f"{what}: a cluster of {nsplit} blocks needs two "
+                         f"blocks an SM, {smem} bytes each do not fit")
+    if -(-n_out // bn) > MAX_GRID_Y:
+        raise ValueError(f"{what}: n_out={n_out} needs more than "
+                         f"{MAX_GRID_Y} column tiles")
+
+
+def default_blocks(B: int, n_in: int, n_out: int, nbk: int,
+                   dtype: torch.dtype) -> Blocks:
+    """The knobs a launch takes when none is given or cached (the fastest
+    candidates at vikin's KAN layers at B = 8 and 8192 on an H100): 8 or
+    16 rows x 8 outputs at serving buckets, with the features split over
+    a cluster of up to 16 blocks until the grid holds about two blocks an
+    SM; 32 x 32 tiles at large batches, where a grid of at least one wave
+    walks every feature in one block (a split only adds the combine).  bi
+    is a power of two (an autotune candidate); the tiles halve where the
+    shared memory would not fit."""
+    bm = 8 if B <= 8 else 16 if B <= 16 else 32
+    bn = min(8 if B <= 16 else 32, max(8, next_pow2(n_out)))
+    nchunks = max(1, -(-n_in // PC))
+    while True:
+        tiles = -(-B // bm) * -(-n_out // bn)
+        want = 1 if tiles >= _SMS else min(MAX_SPLIT, nchunks,
+                                           -(-2 * _SMS // tiles))
+        knob = {"bm": bm, "bi": PC * next_pow2(-(-nchunks // want)),
+                "bn": bn}
+        try:
+            check_blocks(knob, n_in, n_out, nbk, dtype)
+            return knob
+        except ValueError:
+            if bm == 8 and bn == 8:
+                raise
+        if bn > 8:
+            bn //= 2
+        else:
+            bm //= 2
+
+
+def _as_blocks(blocks: Sequence[int]) -> Blocks:
+    bm, bi, bn = blocks
+    return {"bm": int(bm), "bi": int(bi), "bn": int(bn)}
+
+
+def resolve_blocks(B: int, n_in: int, n_out: int, nbk: int,
+                   dtype: torch.dtype,
+                   blocks: Optional[Sequence[int]] = None,
+                   device: torch.device | str = "cuda") -> Blocks:
+    """(bm, bi, bn) for the version-2 kernel of ``dtype``: explicit >
+    cached (kernel ``kan_fused_v2``, the dtype telling f32 from int8) >
+    default by batch bucket, checked against what the kernel takes."""
+    return dict(zip(("bm", "bi", "bn"),
+                    _knobs(B, n_in, n_out, nbk, dtype, blocks, device)))
+
+
+def _knobs(B: int, n_in: int, n_out: int, nbk: int, dtype: torch.dtype,
+           blocks: Optional[Sequence[int]],
+           device: torch.device | str) -> Tuple[int, int, int]:
+    """``resolve_blocks`` as a tuple; without ``blocks`` the answer for an
+    exact shape is remembered in ``autotune.RESOLVED`` (dropped with the
+    cache's other answers on a store, clear or new cache), so a served
+    batch pays one dict lookup."""
+    if blocks is not None:
+        knob = _as_blocks(blocks)
+        check_blocks(knob, n_in, n_out, nbk, dtype)
+        return knob["bm"], knob["bi"], knob["bn"]
+    key = autotune.memo_key(KERNEL, B, n_in, n_out, nbk, dtype, device)
+    knobs = autotune.RESOLVED.get(key)
+    if knobs is None:
+        knob = (autotune.cached_blocks(KERNEL, (B, n_in, n_out, nbk), dtype,
+                                       device)
+                or default_blocks(B, n_in, n_out, nbk, dtype))
+        check_blocks(knob, n_in, n_out, nbk, dtype)
+        knobs = autotune.RESOLVED[key] = knob["bm"], knob["bi"], knob["bn"]
+    return knobs
 
 
 def flatten_t(t: torch.Tensor,
@@ -98,36 +260,42 @@ def _check_operands(fn: str, x: torch.Tensor,
     if slot_of.shape != (spec.n_bases,):
         raise ValueError(f"{fn}: slot_of has shape "
                          f"{tuple(slot_of.shape)}, expected ({spec.n_bases},)")
-    if B > 65535 * 16:
-        raise ValueError(f"{fn}: batch {B} exceeds the grid limit")
     return B, n_in, n_out
 
 
 def kan_fused_v2(x: torch.Tensor, wt: torch.Tensor, spec: SplineSpec,
                  kb: Tuple[int, ...],
-                 slot_of: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 slot_of: Optional[torch.Tensor] = None, *,
+                 blocks: Optional[Sequence[int]] = None) -> torch.Tensor:
     """One KAN layer on (B, n_in) x against the fused ``wt``.
 
     ``slot_of`` is ``slot_table(kb, ...)`` on the device; layers build it
-    once and pass it, else it is built here.
+    once and pass it, else it is built here.  ``blocks`` overrides the
+    kernel's (bm, bi, bn); None consults the autotune cache before the
+    defaults.
     """
     if x.device.type == "cpu":
+        if blocks is not None:
+            check_blocks(_as_blocks(blocks), x.shape[-1], wt.shape[-1],
+                         len(kb), torch.float32)
         return kan_fused_v2_ref(x, wt, spec, kb)
     if x.device.type != "cuda":
         raise ValueError(f"kan_fused_v2: no kernel for device {x.device}")
     if slot_of is None:
         slot_of = slot_table(kb, spec.n_bases, x.device)
+    nbk = len(kb)
     B, n_in, n_out = _check_operands(
-        "kan_fused_v2", x, [("wt", wt, len(kb) + 1)], slot_of, spec,
+        "kan_fused_v2", x, [("wt", wt, nbk + 1)], slot_of, spec,
         [("x", x, torch.float32), ("wt", wt, torch.float32),
          ("slot_of", slot_of, torch.int32)], "this kernel is f32 only")
     out = torch.empty((B, n_out), dtype=torch.float32, device=x.device)
     if B == 0 or n_out == 0:
         return out
+    bm, bi, bn = _knobs(B, n_in, n_out, nbk, torch.float32, blocks, x.device)
     _build.launch(
         KERNEL, x.data_ptr(), wt.data_ptr(), slot_of.data_ptr(),
-        out.data_ptr(), B, n_in, n_out, len(kb), spec.grid_size, spec.order,
-        float(spec.x0), float(spec.clip_hi), float(spec.inv_h),
+        out.data_ptr(), B, n_in, n_out, nbk, spec.grid_size, spec.order,
+        float(spec.x0), float(spec.clip_hi), float(spec.inv_h), bm, bi, bn,
         torch.cuda.current_stream(x.device).cuda_stream)
     return out
 
@@ -151,6 +319,8 @@ def kan_fused_v1(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
         [("x", x, torch.float32), ("w_b", w_b, torch.float32),
          ("t_flat", t_flat, torch.float32),
          ("slot_of", slot_of, torch.int32)], "this kernel is f32 only")
+    if B > 65535 * 16:
+        raise ValueError(f"kan_fused_v1: batch {B} exceeds the grid limit")
     out = torch.empty((B, n_out), dtype=torch.float32, device=x.device)
     if B == 0 or n_out == 0:
         return out
@@ -165,15 +335,20 @@ def kan_fused_v1(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
 def kan_fused_v2_q8(x_q: torch.Tensor, wt_q: torch.Tensor,
                     slot_scales: torch.Tensor, spec: SplineSpec,
                     kb: Tuple[int, ...], x_scale: float,
-                    slot_of: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    slot_of: Optional[torch.Tensor] = None, *,
+                    blocks: Optional[Sequence[int]] = None) -> torch.Tensor:
     """One int8 KAN layer: (B, n_in) int8 codes ``x_q`` against the int8
     fused ``wt_q``, dequantized on load by the static ``x_scale`` and the
-    (nbk+1,) f32 ``slot_scales``; f32 accumulate, f32 out."""
+    (nbk+1,) f32 ``slot_scales``; f32 accumulate, f32 out.  ``blocks``
+    overrides the kernel's (bm, bi, bn)."""
     nbk = len(kb)
     if slot_scales.shape != (nbk + 1,):
         raise ValueError(f"kan_fused_v2_q8: slot_scales has shape "
                          f"{tuple(slot_scales.shape)} for nbk={nbk}")
     if x_q.device.type == "cpu":
+        if blocks is not None:
+            check_blocks(_as_blocks(blocks), x_q.shape[-1], wt_q.shape[-1],
+                         nbk, torch.int8)
         return kan_fused_v2_q8_ref(x_q, wt_q, slot_scales, spec, kb, x_scale)
     if x_q.device.type != "cuda":
         raise ValueError(f"kan_fused_v2_q8: no kernel for device "
@@ -188,36 +363,42 @@ def kan_fused_v2_q8(x_q: torch.Tensor, wt_q: torch.Tensor,
     out = torch.empty((B, n_out), dtype=torch.float32, device=x_q.device)
     if B == 0 or n_out == 0:
         return out
+    bm, bi, bn = _knobs(B, n_in, n_out, nbk, torch.int8, blocks, x_q.device)
     _build.launch(
         KERNEL_Q8, x_q.data_ptr(), wt_q.data_ptr(), slot_scales.data_ptr(),
         slot_of.data_ptr(), out.data_ptr(), B, n_in, n_out, nbk,
         spec.grid_size, spec.order, float(x_scale), float(spec.x0),
-        float(spec.clip_hi), float(spec.inv_h),
+        float(spec.clip_hi), float(spec.inv_h), bm, bi, bn,
         torch.cuda.current_stream(x_q.device).cuda_stream)
     return out
 
 
 def kan_linear(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
                spec: SplineSpec, kb: Optional[Tuple[int, ...]] = None, *,
-               version: int = DEFAULT_VERSION) -> torch.Tensor:
+               version: int = DEFAULT_VERSION,
+               blocks: Optional[Sequence[int]] = None) -> torch.Tensor:
     """phi(x) per Eq. 3 with two-stage sparsity; batch dims preserved.
 
     ``version`` selects the kernel generation: 2, one pass against the
     fused ``[w_b ; t]`` rows, or 1, the silu and spline branches against
     ``w_b`` and ``t_flat`` apart.  Functional form of the JAX
     ``kan_linear``: at version 2 it fuses the weights on every call;
-    ``core/kan.KANLayer`` does so once instead.
+    ``core/kan.KANLayer`` does so once instead.  ``blocks`` overrides the
+    version-2 kernel's (bm, bi, bn); the version-1 kernel has no knobs.
     """
     if version not in (1, 2):
         raise ValueError(f"kan_linear: version must be 1 or 2, got "
                          f"{version!r}")
+    if version == 1 and blocks is not None:
+        raise ValueError("kan_linear: blocks= applies to the version-2 "
+                         "kernel; the version-1 kernel has no knobs")
     lead = x.shape[:-1]
     n_in = x.shape[-1]
     xf = x.reshape(-1, n_in).contiguous()
     kb = tuple(range(spec.n_bases)) if kb is None else tuple(kb)
     if version == 2:
         wt = fuse_wt(w_b, t_flat, len(kb))
-        y = kan_fused_v2(xf, wt, spec, kb)
+        y = kan_fused_v2(xf, wt, spec, kb, blocks=blocks)
     else:
         y = kan_fused_v1(xf, w_b.contiguous(), t_flat.contiguous(), spec, kb)
     return y.reshape(*lead, w_b.shape[-1])
@@ -226,12 +407,14 @@ def kan_linear(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
 def kan_linear_q8(x_q: torch.Tensor, wt_q: torch.Tensor,
                   slot_scales: Sequence[float], spec: SplineSpec,
                   kb: Optional[Tuple[int, ...]] = None, *,
-                  x_scale: float) -> torch.Tensor:
+                  x_scale: float,
+                  blocks: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Int8 phi(x) on the fused int8 ``wt_q``: dequantize on load, f32
     accumulate, f32 out; batch dims preserved.
 
     Functional form of the JAX ``kan_linear_q8``; ``slot_scales`` is the
-    (nbk+1,) ``[s_wb, s_t[kb0], ...]`` vector.
+    (nbk+1,) ``[s_wb, s_t[kb0], ...]`` vector; ``blocks`` overrides the
+    kernel's (bm, bi, bn).
     """
     lead = x_q.shape[:-1]
     n_in = x_q.shape[-1]
@@ -239,5 +422,5 @@ def kan_linear_q8(x_q: torch.Tensor, wt_q: torch.Tensor,
     ss = torch.as_tensor(np.asarray(slot_scales, np.float32),
                          device=x_q.device)
     y = kan_fused_v2_q8(x_q.reshape(-1, n_in).contiguous(), wt_q, ss, spec,
-                        kb, x_scale)
+                        kb, x_scale, blocks=blocks)
     return y.reshape(*lead, wt_q.shape[-1])

@@ -15,10 +15,10 @@ requests are submitted round-robin across the archs:
       --arch vikin-kan2,vikin-mlp3,vikin-mixed --requests 12 --slots 4
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels instead.
-With ``REPRO_TORCH_AUTOTUNE=1`` the launcher first searches the tiles of
-every matmul layer it serves, at every bucket up to ``--slots``, and
-caches them (``kernels/autotune.tune_pattern_matmul``); the served
-forwards then read them from the cache.
+With ``REPRO_TORCH_AUTOTUNE=1`` the launcher first searches the knobs of
+every matmul and KAN layer it serves, at every bucket up to ``--slots``,
+and caches them (``kernels/autotune.tune_pattern_matmul``,
+``tune_kan_fused``); the served forwards then read them from the cache.
 ``--precision int8`` serves the post-training quantized stack through the
 int8 kernels, with scales calibrated from a seeded batch, or restored
 with the weights and masks by ``--ckpt DIR`` (a checkpoint in the
@@ -42,7 +42,8 @@ from repro_torch.checkpoint import (
 )
 from repro_torch.configs.vikin_models import VIKIN_ARCHS
 from repro_torch.core.calibrate import calibrate_scales
-from repro_torch.core.quant import QuantPatternLinear
+from repro_torch.core.kan import KANLayer
+from repro_torch.core.quant import QuantKANLayer, QuantPatternLinear
 from repro_torch.kernels import autotune
 from repro_torch.models.ffn import PatternLinear, vikin_stack_init
 from repro_torch.runtime.backends import MultiWorkloadBackend, VikinBackend
@@ -100,11 +101,11 @@ def make_vikin_backend(model: Any, device: str, seed: int = 0, *,
     return backend
 
 
-def tune_matmuls(backends: Sequence[VikinBackend], slots: int) -> None:
-    """Search and cache the tiles of every matmul layer ``backends``
-    serve, at every bucket a batch of up to ``slots`` requests pads to,
-    on seeded inputs of the layer's shape.  Run before serving: the
-    matmul wrappers never search inside a forward."""
+def tune_layers(backends: Sequence[VikinBackend], slots: int) -> None:
+    """Search and cache the knobs of every matmul and KAN layer
+    ``backends`` serve, at every bucket a batch of up to ``slots``
+    requests pads to, on seeded inputs of the layer's shape.  Run before
+    serving: the kernel wrappers never search inside a forward."""
     gen = torch.Generator().manual_seed(0)
     for be in backends:
         buckets = []
@@ -113,13 +114,31 @@ def tune_matmuls(backends: Sequence[VikinBackend], slots: int) -> None:
             buckets.append(b)
             b *= 2
         for layer in be.stack.layers:
-            if isinstance(layer, PatternLinear):
-                w = layer.w_c
-            elif isinstance(layer, QuantPatternLinear):
-                w = layer.w_q_c
-            else:
-                continue
             for m in buckets:
+                if isinstance(layer, (KANLayer, QuantKANLayer)):
+                    n_in = layer.cfg.n_in
+                    if isinstance(layer, QuantKANLayer):
+                        w = layer.wt_q
+                        x = torch.randint(-127, 128, (m, n_in),
+                                          generator=gen, dtype=torch.int8)
+                        best = autotune.tune_kan_fused(
+                            x.to(w.device), w, layer.cfg.spec, layer.kb,
+                            slot_scales=layer.slot_scales,
+                            x_scale=layer.x_scale)
+                    else:
+                        w = layer.wt
+                        x = torch.rand((m, n_in), generator=gen)
+                        best = autotune.tune_kan_fused(
+                            x.to(w.device), w, layer.cfg.spec, layer.kb)
+                    print(f"tuned kan_fused_v2 {m}x{n_in}->{w.shape[1]} "
+                          f"{w.dtype}: {best}")
+                    continue
+                if isinstance(layer, PatternLinear):
+                    w = layer.w_c
+                elif isinstance(layer, QuantPatternLinear):
+                    w = layer.w_q_c
+                else:
+                    continue
                 if w.dtype == torch.int8:
                     x = torch.randint(-127, 128, (m, w.shape[0]),
                                       generator=gen, dtype=torch.int8)
@@ -136,12 +155,13 @@ def make_engine(models: Sequence[Any], *, slots: int, policy: str,
                 device: str, seed: int = 0, precision: str = "f32",
                 ckpt: Optional[str] = None) -> Engine:
     """One engine over one backend, or a MultiWorkloadBackend for several;
-    with ``REPRO_TORCH_AUTOTUNE=1`` its matmul tiles are tuned first."""
+    with ``REPRO_TORCH_AUTOTUNE=1`` its matmul and KAN knobs are tuned
+    first."""
     backends = {m.name: make_vikin_backend(m, device, seed,
                                            precision=precision, ckpt=ckpt)
                 for m in models}
     if autotune.autotune_enabled():
-        tune_matmuls(list(backends.values()), slots)
+        tune_layers(list(backends.values()), slots)
     if len(models) > 1:
         backend: Any = MultiWorkloadBackend(backends)
         print(f"multi-workload scheduler: {sorted(backends)} "

@@ -66,7 +66,10 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     assert _build.library_path("k") != before
     for name in ("kan_fused_v2", "kan_fused_v2_q8"):
         files = _build.source_files(_build.KERNELS[name][0])
-        assert [f.name for f in files[1:]] == ["kan_fused.cuh"], name
+        assert [f.name for f in files[1:]] == [
+            "kan_split.cuh", "staging.cuh", "kan_fused.cuh"], name
+    files = _build.source_files(_build.KERNELS["kan_fused_v1"][0])
+    assert [f.name for f in files[1:]] == ["kan_fused.cuh"]
 
 
 def test_imports_need_no_gpu_or_nvcc(tmp_path):

@@ -540,3 +540,174 @@ def test_new_wrappers_count_launches_and_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         kan_fused_v1(x, w_b.t().contiguous().t(), t_flat, spec, kb)
     assert _build.LAUNCHES["kan_fused_v1"] == before["kan_fused_v1"] + 1
+
+
+# vikin-mixed's and vikin-kan2's KAN layers (n_in, n_out), kb (0,2,4,5,6)
+VIKIN_KANS = ((304, 32), (72, 96))
+KAN_KB = (0, 2, 4, 5, 6)
+
+
+def _kan_knob(c):
+    return (c["bm"], c["bi"], c["bn"])
+
+
+def _kan_q8_case(dev, seed, B, n_in, n_out, nbk):
+    """int8 codes with slot scales that differ per slot by up to 4x, so a
+    scale read from the wrong slot shows."""
+    gen = torch.Generator().manual_seed(seed)
+    x_q = torch.randint(-127, 128, (B, n_in), generator=gen,
+                        dtype=torch.int8)
+    wt_q = torch.randint(-127, 128, (n_in * (nbk + 1), n_out), generator=gen,
+                         dtype=torch.int8)
+    ss = torch.linspace(5e-4, 2e-3, nbk + 1)[torch.randperm(
+        nbk + 1, generator=gen)]
+    return x_q.to(dev), wt_q.to(dev), ss.to(dev)
+
+
+@pytest.mark.parametrize("B", [8, 8192])
+@pytest.mark.parametrize("n_in,n_out", VIKIN_KANS)
+def test_every_kan_knob_gives_the_default_output_bitwise(cuda, B, n_in,
+                                                         n_out):
+    """Both KAN kernels at every candidate (bm, bi, bn): bitwise the
+    default knob's output, which is within tolerance of the plain
+    version."""
+    spec, kb = SplineSpec(4, 3), KAN_KB
+    nbk = len(kb)
+    x, wt = _kan_case(cuda, B + n_in, B, n_in, n_out, spec, kb)
+    slot = slot_table(kb, spec.n_bases, cuda)
+    ref = kan_fused_v2(x, wt, spec, kb, slot)
+    _close(ref, kan_fused_v2_ref(x, wt, spec, kb))
+    for c in autotune.candidates_kan_fused(B, n_in, n_out, nbk,
+                                           torch.float32):
+        got = kan_fused_v2(x, wt, spec, kb, slot, blocks=_kan_knob(c))
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), c
+    x_q, wt_q, ss = _kan_q8_case(cuda, B + n_in + 1, B, n_in, n_out, nbk)
+    ref = kan_fused_v2_q8(x_q, wt_q, ss, spec, kb, 0.02, slot)
+    _close(ref, kan_fused_v2_q8_ref(x_q, wt_q, ss, spec, kb, 0.02))
+    for c in autotune.candidates_kan_fused(B, n_in, n_out, nbk, torch.int8):
+        got = kan_fused_v2_q8(x_q, wt_q, ss, spec, kb, 0.02, slot,
+                              blocks=_kan_knob(c))
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), c
+
+
+@pytest.mark.parametrize("n_in,n_out", [(37, 13), (300, 33), (300, 96),
+                                        (1, 5), (32, 8)])
+@pytest.mark.parametrize("G,K,rate", [(4, 3, 0.5), (16, 4, 0.0),
+                                      (2, 1, 0.75)])
+def test_kan_kernels_at_ragged_widths_under_every_knob(cuda, n_in, n_out, G,
+                                                       K, rate):
+    """n_in not a multiple of the 32-feature chunk, n_out not a multiple
+    of bn: both kernels within tolerance of the plain version, every
+    candidate bitwise the default."""
+    spec = SplineSpec(G, K)
+    kb = tuple(int(i) for i in tiled_mask(
+        spec.n_bases, sparsity_to_pattern(rate)).indices())
+    nbk = len(kb)
+    B = 19
+    x, wt = _kan_case(cuda, n_in + n_out + G, B, n_in, n_out, spec, kb)
+    ref = kan_fused_v2(x, wt, spec, kb)
+    _close(ref, kan_fused_v2_ref(x, wt, spec, kb))
+    for c in autotune.candidates_kan_fused(B, n_in, n_out, nbk,
+                                           torch.float32):
+        assert torch.equal(kan_fused_v2(x, wt, spec, kb,
+                                        blocks=_kan_knob(c)), ref), c
+    x_q, wt_q, ss = _kan_q8_case(cuda, n_in + n_out, B, n_in, n_out, nbk)
+    ref = kan_fused_v2_q8(x_q, wt_q, ss, spec, kb, 0.02)
+    _close(ref, kan_fused_v2_q8_ref(x_q, wt_q, ss, spec, kb, 0.02))
+    for c in autotune.candidates_kan_fused(B, n_in, n_out, nbk, torch.int8):
+        assert torch.equal(kan_fused_v2_q8(x_q, wt_q, ss, spec, kb, 0.02,
+                                           blocks=_kan_knob(c)), ref), c
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+def test_kan_batched_equals_single_under_different_knobs(cuda, dtype):
+    """A row gives the same bits alone as in a batch, with one knob
+    forced for the batch and every other candidate for the rows."""
+    spec, kb = SplineSpec(4, 3), KAN_KB
+    nbk = len(kb)
+    if dtype == torch.int8:
+        x, wt, ss = _kan_q8_case(cuda, 21, 37, 304, 32, nbk)
+
+        def run(xs, knob):
+            return kan_fused_v2_q8(xs, wt, ss, spec, kb, 0.02, blocks=knob)
+    else:
+        x, wt = _kan_case(cuda, 21, 37, 304, 32, spec, kb)
+
+        def run(xs, knob):
+            return kan_fused_v2(xs, wt, spec, kb, blocks=knob)
+    full = run(x, (32, 512, 32))
+    for c in autotune.candidates_kan_fused(2, 304, 32, nbk, dtype):
+        for lo, hi in ((0, 1), (5, 7), (35, 37)):
+            assert torch.equal(run(x[lo:hi].contiguous(), _kan_knob(c)),
+                               full[lo:hi]), (c, lo, hi)
+
+
+def test_kan_wrappers_launch_once_a_call_under_every_knob(cuda):
+    """One layer call is one launch, whether or not the features are
+    split over a cluster; a bad knob raises before any launch."""
+    spec, kb = SplineSpec(4, 3), KAN_KB
+    x, wt = _kan_case(cuda, 22, 8, 304, 32, spec, kb)
+    x_q, wt_q, ss = _kan_q8_case(cuda, 22, 8, 304, 32, len(kb))
+    for knob in ((8, 32, 8), (8, 64, 32), (8, 512, 8), None):
+        before = dict(_build.LAUNCHES)
+        kan_fused_v2(x, wt, spec, kb, blocks=knob)
+        kan_fused_v2_q8(x_q, wt_q, ss, spec, kb, 0.02, blocks=knob)
+        after = dict(_build.LAUNCHES)
+        assert after["kan_fused_v2"] == before["kan_fused_v2"] + 1
+        assert after["kan_fused_v2_q8"] == before["kan_fused_v2_q8"] + 1
+        assert sum(after.values()) == sum(before.values()) + 2
+    before = dict(_build.LAUNCHES)
+    for knob in ((8, 40, 8), (12, 32, 8), (8, 32, 8 * 3)):
+        with pytest.raises(ValueError):
+            kan_fused_v2(x, wt, spec, kb, blocks=knob)
+        with pytest.raises(ValueError):
+            kan_fused_v2_q8(x_q, wt_q, ss, spec, kb, 0.02, blocks=knob)
+    assert dict(_build.LAUNCHES) == before
+
+
+def test_kan_slot_scales_are_read_per_slot(cuda):
+    """Swapping two slots' scales changes exactly the outputs whose rows
+    use those slots: the kernel reads each weight's own slot scale."""
+    spec, kb = SplineSpec(4, 3), KAN_KB
+    nbk = len(kb)
+    x_q, wt_q, ss = _kan_q8_case(cuda, 23, 16, 72, 96, nbk)
+    got = kan_fused_v2_q8(x_q, wt_q, ss, spec, kb, 0.02)
+    _close(got, kan_fused_v2_q8_ref(x_q, wt_q, ss, spec, kb, 0.02))
+    swapped = ss.clone()
+    swapped[[0, nbk]] = ss[[nbk, 0]]
+    moved = kan_fused_v2_q8(x_q, wt_q, swapped, spec, kb, 0.02)
+    _close(moved, kan_fused_v2_q8_ref(x_q, wt_q, swapped, spec, kb, 0.02))
+    assert not torch.equal(moved, got)
+
+
+def test_kan_config_blocks_reach_the_kernel(cuda, tmp_path, monkeypatch):
+    """``KANConfig.blocks`` is the knob ``KANLayer`` launches with, and a
+    tuned knob round-trips through the cache and changes no bit."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    monkeypatch.delenv("REPRO_TORCH_AUTOTUNE", raising=False)
+    autotune.reset_cache()
+    try:
+        cfg = KANConfig(304, 32, SplineSpec(4, 3), pattern=(1, 0, 1, 1))
+        params = kan_init(cfg, torch.Generator().manual_seed(24))
+        params = {k: v.to(cuda) for k, v in params.items()}
+        x = torch.rand((8, 304), generator=torch.Generator().manual_seed(
+            25)).to(cuda)
+        base = KANLayer(cfg, params)(x)
+        for knob in ((8, 32, 8), (8, 128, 16)):
+            layer = KANLayer(dataclasses.replace(cfg, blocks=knob), params)
+            assert torch.equal(layer(x), base), knob
+        kb = KANLayer(cfg, params).kb
+        wt = KANLayer(cfg, params).wt
+        best = autotune.tune_kan_fused(x, wt, cfg.spec, kb)
+        assert best in autotune.candidates_kan_fused(8, 304, 32, len(kb),
+                                                     torch.float32)
+        fresh = autotune.AutotuneCache(autotune.get_cache().path)
+        assert fresh.lookup(autotune.cache_key(
+            "kan_fused_v2", (8, 304, 32, len(kb)), torch.float32,
+            cuda)) == best
+        assert torch.equal(KANLayer(cfg, params)(x), base)
+    finally:
+        autotune.reset_cache()

@@ -53,6 +53,10 @@ def test_run_on_cpu_writes_its_json(tmp_path):
     assert tm["cache_round_trip"] is True
     assert tm["cache_key"] == "pattern_matmul|8192x128x512|float32|cpu"
     assert tm["ms_default"] is None and tm["ms_tuned"] is None
+    tk = t["kan_fused"]
+    assert tk["shape"] == [8, 304, 32] and tk["cache_round_trip"] is True
+    assert tk["cache_key"] == "kan_fused_v2|8x512x32x8|float32|cpu"
+    assert tk["ms_default"] is None and tk["ms_tuned"] is None
 
 
 def test_cli_on_cpu(tmp_path):
