@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 1. device and build -- print the card (nvidia-smi name and power limit)
    and the torch/CUDA versions, then build all six kernels from
    ``src/repro_torch/kernels/*/csrc/*.cu`` with nvcc for sm_90a, one
-   compiler per source, in parallel;
+   compiler per source, in parallel, and print what ptxas gives every
+   kernel instance (registers, spills); no v1 KAN instance may spill;
 2. kernels vs plain -- each kernel against its plain PyTorch version on
    the card, at every shape the vikin-mixed, vikin-kan2 and vikin-mlp3
    stacks give it at buckets 2/4/8/16 (f32, and int8 with scales
@@ -19,10 +20,11 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    bitwise.  The kernel-tooling kernels too: the spline-basis kernel
    bitwise for every G x K, on the flattened KAN-layer inputs of
    vikin-mixed and vikin-kan2 at the same batches, at ragged n, on
-   inputs outside [-1, 1] and at every ``block_n`` candidate; the v1 KAN
-   kernel at the same KAN layers and at a ragged shape, within the
-   tolerance of its plain version and of the v2 kernel, and batched ==
-   single, bitwise.  Both matmul kernels at every candidate tile
+   inputs outside [-1, 1], at every ``block_n`` candidate (inputs a
+   block) and into outputs 4, 8 and 12 bytes past a 16-byte boundary;
+   the v1 KAN kernel at the same KAN layers and at a ragged shape, within
+   the tolerance of its plain version and of the v2 kernel, and batched
+   == single, bitwise.  Both matmul kernels at every candidate tile
    (``autotune.candidates_pattern_matmul``) of vikin-mixed's and
    vikin-mlp3's matmul layers at bucket 8 and batch 8192: bitwise the
    output of the default tile.  Both KAN kernels at every candidate knob
@@ -30,7 +32,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    KAN layers at bucket 8 and batch 8192: bitwise the default knob's
    output; at ragged widths (37->13, 300->33) within tolerance; and a row
    alone under one knob bitwise equal to it in a batch under another, in
-   both precisions;
+   both precisions.  The v1 kernel the same way, at every candidate of
+   its own grid (``candidates_kan_fused(..., version=1)``);
 3. serve -- 48 requests of vikin-kan2, vikin-mlp3 and vikin-mixed through
    the port's Engine + MultiWorkloadBackend on 8 slots, once in f32 and
    once in int8: every answer against the same stack run through the
@@ -48,21 +51,26 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    TFLOP/s f32, 1979 TOP/s int8 for the int8 matmul); the spline-basis
    kernel on the vikin-mixed KAN layer's input, flattened, and the v1
    KAN kernel at that layer beside the v2 one; each matmul record names
-   the tiles (bm, bk, bn) each launch took, each KAN record the knob
-   (bm, bi, bn); then, per arch at bucket
+   the tiles (bm, bk, bn) each launch took, each KAN record (v1 too) the
+   knob (bm, bi, bn), the spline-basis record its ``block_n``; then, per
+   arch at bucket
    8 and per precision, where one served batch's time goes (host wall of
    a backend forward, the stack on the card, the kernels alone);
 5. the v1 path -- a ``KANLayer`` at ``version=1`` built from the
    vikin-kan2 stack's weights runs forward on the card at buckets
-   2/4/8/16 and 8192: exactly one v1 launch per call and no v2 launch,
-   answers within tolerance of the v2 layer and of the plain versions;
+   2/4/8/16, 8192 and 65535 * 16 + 1 (more 16-row tiles than grid.y
+   holds: row tiles sit on grid.x), and once more at bucket 8 with
+   explicit knobs
+   (``KANConfig(version=1, blocks=...)``): exactly one v1 launch per call
+   and no other launch, answers within tolerance of the v2 layer and of
+   the plain version (and of the layer on the CPU below the big batch);
 6. the kernel bench -- ``repro_torch.benchmarks.kernel_bench.run`` on
    the card with its own asserts (spline-basis, v1 and v2 KAN and
    matmul kernels against plain versions and oracles, one
    ``tune_spline_basis``, one ``tune_pattern_matmul`` (8192x72->304 relu)
-   and one ``tune_kan_fused`` search (8x304->32), each round-tripped
-   through a temporary cache and shown to change no bit), its JSON in
-   ``chiprun_out/kernel_bench.json``.
+   and two ``tune_kan_fused`` searches (8x304->32, the v2 and the v1
+   kernel), each round-tripped through a temporary cache and shown to
+   change no bit), its JSON in ``chiprun_out/kernel_bench.json``.
 
 No served path launches the spline-basis or v1 kernel, so their
 ``launches`` in the record are those of phases 6 and 5.
@@ -125,6 +133,7 @@ KERNEL_INFO = {
     },
     "kan_fused_v1": {
         "source": "src/repro_torch/kernels/kan_fused/csrc/kan_fused_v1.cu",
+        "headers": ["src/repro_torch/kernels/kan_fused/csrc/kan_split.cuh"],
         "replaces": "src/repro/kernels/kan_fused/kan_fused.py:227",
     },
 }
@@ -252,7 +261,10 @@ def main() -> int:
         matmul_compact_ref,
         matmul_q8_ref,
     )
-    from repro_torch.kernels.spline_basis.ops import spline_basis
+    from repro_torch.kernels.spline_basis.ops import (
+        resolve_block_n,
+        spline_basis,
+    )
     from repro_torch.kernels.spline_basis.ref import spline_basis_plain
     from repro_torch.launch.serve import (
         make_engine,
@@ -277,6 +289,16 @@ def main() -> int:
     paths = _build.build()
     print(f"built {sorted(paths)} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+    usage = _build.resource_usage()
+    for name, entries in usage.items():
+        for e in entries:
+            print(f"ptxas {name} {e['entry']}: {e.get('registers')} "
+                  f"registers, {e.get('stack')} B stack, "
+                  f"{e.get('spill_stores')} B spill stores, "
+                  f"{e.get('spill_loads')} B spill loads")
+    check(usage["kan_fused_v1"] and all(
+        e.get("spill_stores") == 0 and e.get("spill_loads") == 0
+        for e in usage["kan_fused_v1"]), "a kan_fused_v1 instance spills")
     torch.cuda.synchronize()
 
     # ---------------------------------------------------------------- 2
@@ -454,13 +476,32 @@ def main() -> int:
             x = layer_calls(layer, x)[3]()
         return out
 
-    def check_spline(x: torch.Tensor, spec, what: str) -> None:
+    def check_spline(x: torch.Tensor, spec, what: str,
+                     misaligned: bool = False) -> None:
         flat = x.reshape(-1)
         plain = spline_basis_plain(flat, spec)
-        for cand in autotune.candidates_spline_basis(flat.numel()):
+        for cand in autotune.candidates_spline_basis(flat.numel(),
+                                                     spec.n_bases):
             bn = cand["block_n"]
             compare("spline_basis", spline_basis(flat, spec, block_n=bn),
                     plain, f"{what} block_n={bn}", exact=True)
+        if not misaligned:
+            return
+        # the kernel into an output 1..3 words past a 16-byte boundary,
+        # with a guard word on each side (these launches count in no
+        # phase's launches)
+        n, nb = flat.numel(), spec.n_bases
+        for off in (1, 2, 3):
+            buf = torch.full((n * nb + 8,), -7.0, device=dev)
+            _build.launch("spline_basis", flat.data_ptr(),
+                          buf[off:].data_ptr(), n, spec.grid_size,
+                          spec.order, float(spec.x0), float(spec.inv_h),
+                          256, torch.cuda.current_stream().cuda_stream)
+            compare("spline_basis", buf[off:off + n * nb].reshape(n, nb),
+                    plain, f"{what} output +{4 * off} bytes", exact=True)
+            check(bool((buf[:off] == -7.0).all()) and bool(
+                (buf[off + n * nb:] == -7.0).all()),
+                f"spline_basis {what}: a store outside the output")
 
     v1_v2 = {"err": 0.0, "n": 0}
 
@@ -481,7 +522,7 @@ def main() -> int:
             x = torch.from_numpy(rng_sb.uniform(-2.5, 2.5, 4096).astype(
                 np.float32)).to(dev)
             check_spline(x, SplineSpec(g, k), f"G{g}K{k} n=4096 in "
-                         f"[-2.5, 2.5]")
+                         f"[-2.5, 2.5]", misaligned=True)
     for name in ("vikin-mixed", "vikin-kan2"):
         for b in BUCKETS + (BIG,):
             x = torch.from_numpy(rng.random(
@@ -496,7 +537,8 @@ def main() -> int:
     for n in (1, 7, 1025, 1000 * 304):
         x = torch.from_numpy(rng_sb.uniform(-2.5, 2.5, n).astype(
             np.float32)).to(dev)
-        check_spline(x, spec, f"ragged n={n} in [-2.5, 2.5]")
+        check_spline(x, spec, f"ragged n={n} in [-2.5, 2.5]",
+                     misaligned=True)
     # ragged 1000x304->96: the ragged v2 weights, unfused
     xr = (torch.randn((1000, 304), generator=gen) * 1.5).to(dev)
     w3 = wt.reshape(304, len(kb) + 1, 96)
@@ -569,11 +611,13 @@ def main() -> int:
     # KAN layers (vikin-mixed's 304->32, vikin-kan2's 72->96) at bucket 8
     # and batch 8192: bitwise the default knob's output, which is held to
     # the plain version
-    def check_kan_knobs(name: str, run, xin, layer, dtype, what: str):
+    def check_kan_knobs(name: str, run, xin, layer, dtype, what: str,
+                        version: int = 2):
         ref = run(None)
         B, n_in = xin.shape
         for c in autotune.candidates_kan_fused(B, n_in, layer.cfg.n_out,
-                                               len(layer.kb), dtype):
+                                               len(layer.kb), dtype,
+                                               version):
             knob = (c["bm"], c["bi"], c["bn"])
             check(torch.equal(run(knob), ref), f"{name} {what}: knob "
                   f"{knob} != the default knob, bitwise")
@@ -593,6 +637,21 @@ def main() -> int:
                     kan_fused_v2(xin, layer.wt, layer.cfg.spec, layer.kb,
                                  layer.slot_of, blocks=k),
                     xin, layer, torch.float32, f"{name} B={b}")
+                # v1 on the same weights, unfused: every candidate of its
+                # own grid bitwise its default knob, which holds to the
+                # plain version
+                t_flat = flatten_t(layer.t, layer.cfg.kb).contiguous()
+                compare("kan_fused_v1", kan_fused_v1(
+                    xin, layer.w_b, t_flat, layer.cfg.spec, layer.kb,
+                    layer.slot_of), kan_fused_v1_ref(
+                    xin, layer.w_b, t_flat, layer.cfg.spec, layer.kb),
+                    f"{name} B={b} default knob")
+                check_kan_knobs(
+                    "kan_fused_v1", lambda k, xin=xin, layer=layer,
+                    t_flat=t_flat: kan_fused_v1(
+                        xin, layer.w_b, t_flat, layer.cfg.spec, layer.kb,
+                        layer.slot_of, blocks=k),
+                    xin, layer, torch.float32, f"{name} B={b}", version=1)
             stack = q8_backends[name].stack
             h = quantize_static(x, stack.x_scales[0])
             for i, layer in enumerate(stack.layers):
@@ -627,6 +686,23 @@ def main() -> int:
                 kan_fused_v2_q8(xqr, wqr, ssq, spec, kb, 0.02, slot),
                 kan_fused_v2_q8_ref(xqr, wqr, ssq, spec, kb, 0.02),
                 f"ragged 77x{n_in}->{n_out}")
+        # v1 on the same weights, unfused, at every candidate of its grid
+        w3 = wr.reshape(n_in, len(kb) + 1, n_out)
+        w_br = w3[:, 0].contiguous()
+        t_r = w3[:, 1:].reshape(n_in * len(kb), n_out).contiguous()
+        v1_r = kan_fused_v1(xr, w_br, t_r, spec, kb, slot)
+        compare("kan_fused_v1", v1_r, kan_fused_v1_ref(xr, w_br, t_r, spec,
+                                                       kb),
+                f"ragged 77x{n_in}->{n_out}")
+        for c in autotune.candidates_kan_fused(77, n_in, n_out, len(kb),
+                                               torch.float32, 1):
+            knob = (c["bm"], c["bi"], c["bn"])
+            check(torch.equal(kan_fused_v1(xr, w_br, t_r, spec, kb, slot,
+                                           blocks=knob), v1_r),
+                  f"kan_fused_v1 ragged 77x{n_in}->{n_out}: knob {knob} != "
+                  f"the default knob, bitwise")
+            knob_checks["kan_fused_v1"] = knob_checks.get(
+                "kan_fused_v1", 0) + 1
     # batched == single, bitwise, with one knob for the batch of 16 and
     # another for each row alone, at vikin-mixed's KAN layer
     layer, xin = kan_inputs(backends["vikin-mixed"].stack, x_big[:16])[0]
@@ -637,7 +713,15 @@ def main() -> int:
     q_full = kan_fused_v2_q8(q_in, q_layer.wt_q, q_layer.slot_scales,
                              q_layer.cfg.spec, q_layer.kb, q_layer.x_scale,
                              q_layer.slot_of, blocks=(16, 512, 32))
+    t_flat = flatten_t(layer.t, layer.cfg.kb).contiguous()
+    v1_full = kan_fused_v1(xin, layer.w_b, t_flat, layer.cfg.spec, layer.kb,
+                           layer.slot_of, blocks=(16, 512, 32))
     for i in range(6):
+        one = kan_fused_v1(xin[i:i + 1].contiguous(), layer.w_b, t_flat,
+                           layer.cfg.spec, layer.kb, layer.slot_of,
+                           blocks=(8, 64, 16))
+        check(torch.equal(one, v1_full[i:i + 1]), f"kan_fused_v1: row {i} "
+              f"alone at (8, 64, 16) != row {i} of 16 at (16, 512, 32)")
         one = kan_fused_v2(xin[i:i + 1].contiguous(), layer.wt,
                            layer.cfg.spec, layer.kb, layer.slot_of,
                            blocks=(8, 32, 8))
@@ -650,10 +734,12 @@ def main() -> int:
         check(torch.equal(one, q_full[i:i + 1]), f"kan_fused_v2_q8: row "
               f"{i} alone at (8, 64, 16) != row {i} of 16 at (16, 512, 32)")
     torch.cuda.synchronize()
-    print(f"phase 2: every candidate knob of both KAN kernels bitwise the "
-          f"default's at vikin-mixed's and vikin-kan2's KAN layers, B=8 "
-          f"and {BIG}; ragged 37->13 and 300->33; batched == single under "
-          f"different knobs in both precisions: {knob_checks}")
+    print(f"phase 2: every candidate knob of the three KAN kernels (v2 "
+          f"f32, v2 int8, v1) bitwise the default's at vikin-mixed's and "
+          f"vikin-kan2's KAN layers, B=8 and {BIG}, and (v1) at ragged "
+          f"77x37->13 and 77x300->33; ragged widths within tolerance; "
+          f"batched == single under different knobs in all three: "
+          f"{knob_checks}")
     for name in KERNEL_INFO:
         how = ("bitwise" if name in ("pattern_matmul_q8", "spline_basis")
                else f"within {KERNEL_TOL:g}*(1+max|plain|)")
@@ -919,6 +1005,8 @@ def main() -> int:
             lambda: spline_basis_plain(flat, kan_spec),
             4.0 * n * (1 + kan_spec.n_bases),
             float(n * spu_op_count(kan_spec)))
+        rec["block_n"] = resolve_block_n(n, kan_spec.n_bases, flat.dtype,
+                                         device=dev)
         records[("spline_basis", batch)] = rec
         print(json.dumps(rec))
         t_flat = flatten_t(layer.t, layer.cfg.kb).contiguous()
@@ -937,6 +1025,9 @@ def main() -> int:
                    + layer.slot_of.numel() + batch * n_out),
             2.0 * n_out * (batch * n_in + hits)
             + batch * n_in * (spu_op_count(kan_spec) + 4))
+
+        rec["blocks"] = [kan_blocks(batch, n_in, n_out, len(layer.kb),
+                                    torch.float32, version=1, device=dev)]
 
         def v2(xin=xin, layer=layer):
             return kan_fused_v2(xin, layer.wt, layer.cfg.spec, layer.kb,
@@ -1092,45 +1183,62 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 5
     # the v1 path: a KAN layer configured at version 1, on vikin-kan2's
-    # weights, at the serving buckets and one large batch
+    # weights, at the serving buckets, one large batch, a batch of more
+    # 16-row tiles than grid.y holds, and once with explicit knobs
     kan2 = VIKIN_ARCHS["vikin-kan2"]
     layer2 = backends["vikin-kan2"].stack.layers[0]
     layer1 = KANLayer(dataclasses.replace(layer2.cfg, version=1),
                       {"w_b": layer2.w_b, "t": layer2.t})
+    knob1 = (8, 64, 16)
+    layer1k = KANLayer(dataclasses.replace(layer2.cfg, version=1,
+                                           blocks=knob1),
+                       {"w_b": layer2.w_b, "t": layer2.t})
+    huge = 65535 * 16 + 1
     v1_rng = np.random.default_rng(4)
     v1_x = {b: torch.from_numpy(v1_rng.random(
         (b, kan2.sizes[0]), dtype=np.float32)).to(dev)
-        for b in BUCKETS + (BIG,)}
+        for b in BUCKETS + (BIG, huge)}
     _build.reset_launches()
     v1_out = {b: layer1(x) for b, x in v1_x.items()}
+    v1_out["knob"] = layer1k(v1_x[8])
     torch.cuda.synchronize()
     v1_launches = dict(_build.LAUNCHES)
     want = {k: 0 for k in v1_launches}
-    want["kan_fused_v1"] = len(v1_x)
+    want["kan_fused_v1"] = len(v1_out)
     check(v1_launches == want, f"v1 path: launches {v1_launches}, the "
-          f"{len(v1_x)} layer calls imply {want}")
+          f"{len(v1_out)} layer calls imply {want}")
     cpu_layer = KANLayer(layer1.cfg, {"w_b": layer2.w_b.cpu(),
                                       "t": layer2.t.cpu()})
     v1_err = 0.0
-    for b, x in v1_x.items():
-        y = v1_out[b]
-        check(y.shape == (b, kan2.sizes[-1]) and bool(torch.isfinite(y).all()),
+    for b, y in v1_out.items():
+        x = v1_x[8 if b == "knob" else b]
+        rows = x.shape[0]
+        check(y.shape == (rows, kan2.sizes[-1])
+              and bool(torch.isfinite(y).all()),
               f"v1 path B={b}: output {tuple(y.shape)} or not finite")
-        refs = (("the v2 layer", layer2(x)),
+        refs = [("the v2 layer", layer2(x)),
                 ("the plain version", kan_fused_v1_ref(
                     x, layer1.w_b, layer1.t_flat, layer1.cfg.spec,
-                    layer1.kb)),
-                ("the layer on the CPU", cpu_layer(x.cpu()).to(dev)))
+                    layer1.kb))]
+        if b != huge:
+            refs.append(("the layer on the CPU", cpu_layer(x.cpu()).to(dev)))
         for what, ref in refs:
             err, scale, nan = rel_err(y, ref)
             check(not nan and err <= KERNEL_TOL * scale,
                   f"v1 path B={b}: max|v1 layer - {what}| = {err:.3e} > "
                   f"{KERNEL_TOL:g} * {scale:.4g} (NaN: {nan})")
             v1_err = max(v1_err, err)
+        del refs
+    check(torch.equal(v1_out["knob"], v1_out[8]),
+          f"v1 path: KANConfig(blocks={knob1}) != the default knob, bitwise")
+    del v1_x[huge], v1_out[huge]
+    torch.cuda.empty_cache()
     print(f"phase 5: v1 KANLayer on vikin-kan2's weights at batches "
-          f"{sorted(v1_x)}: launches {v1_launches}; within "
-          f"{KERNEL_TOL:g}*(1+max|ref|) of the v2 layer, the plain version "
-          f"and the layer on the CPU, max abs err {v1_err:.3e}")
+          f"{sorted(k for k in v1_out if k != 'knob')} and at B=8 with "
+          f"KANConfig(blocks={knob1}) (bitwise the default knob's): "
+          f"launches {v1_launches}; within {KERNEL_TOL:g}*(1+max|ref|) of "
+          f"the v2 layer, the plain version and (below B={huge}) the layer "
+          f"on the CPU, max abs err {v1_err:.3e}")
 
     # ---------------------------------------------------------------- 6
     _build.reset_launches()
@@ -1150,6 +1258,10 @@ def main() -> int:
     tk = bench["tuning"]["kan_fused"]
     check(tk["cache_round_trip"],
           "kernel bench: the tuned KAN knobs did not round-trip")
+    tk1 = bench["tuning"]["kan_fused_v1"]
+    check(tk1["cache_round_trip"] and tk1["cache_key"].startswith(
+        "kan_fused_v1|"),
+          "kernel bench: the tuned v1 KAN knobs did not round-trip")
     check(bench_launches["kan_fused_v2"] > 0,
           "kernel bench: the KAN tuning launched nothing")
     print(f"phase 6: kernel bench passed its asserts; launches "
@@ -1159,7 +1271,9 @@ def main() -> int:
           f"{tm['default_blocks']} ({tm['ms_default']} ms), bitwise equal; "
           f"KAN {tk['shape']} tuned {tk['tuned_blocks']} ({tk['ms_tuned']} "
           f"ms) vs default {tk['default_blocks']} ({tk['ms_default']} ms), "
-          f"bitwise equal")
+          f"bitwise equal; v1 KAN tuned {tk1['tuned_blocks']} "
+          f"({tk1['ms_tuned']} ms) vs default {tk1['default_blocks']} "
+          f"({tk1['ms_default']} ms), bitwise equal")
 
     launched = {k: (launches[k], "phase 3, f32 burst") for k in F32_KERNELS}
     launched.update({k: (q_launches[k], "phase 3, int8 burst")
@@ -1194,6 +1308,7 @@ def main() -> int:
                         "wall_rps": len(q_out) / q_serve_s,
                         "stats": {k: v for k, v in q_eng.stats.items()}},
          "v1_path": {"launches": v1_launches, "max_abs_err": v1_err},
+         "ptxas": usage,
          "knob_checks": knob_checks,
          "kernel_bench_launches": bench_launches},
         indent=1, default=str))

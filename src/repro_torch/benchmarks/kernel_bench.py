@@ -12,10 +12,12 @@ Counterpart of ``benchmarks/kernel_bench.py``, with the same sections:
   contraction sizes, weight bytes and both times;
 * ``pattern_matmul`` -- the compacted matmul at rates 0, 0.5 and 0.75 on
   128x512->256 against the dense masked oracle;
-* ``tuning`` -- a ``tune_spline_basis`` search, a ``tune_pattern_matmul``
+* ``tuning`` -- a ``tune_spline_basis`` search (``block_n``, inputs a
+  block), a ``tune_pattern_matmul``
   search (8192x72->304 relu, vikin-mixed's first layer at a large batch)
-  and a ``tune_kan_fused`` search (8x304->32, vikin-mixed's KAN layer at
-  the served bucket 8), each round-tripped through a fresh
+  and two ``tune_kan_fused`` searches (8x304->32, vikin-mixed's KAN layer
+  at the served bucket 8), of the version-2 and of the version-1 kernel,
+  each round-tripped through a fresh
   ``AutotuneCache`` on a temporary file, and each tuned knob shown to
   change no bit of the result.
 
@@ -35,8 +37,8 @@ at the repository root by default), never to ``BENCH_kernels.json`` or
 Left out: the JAX field ``mxu_dispatches_per_step`` counts ``dot_general``
 calls in a TPU jaxpr; the CUDA kernels issue no MXU contractions and
 PyTorch traces no jaxpr, so it has no counterpart on the card.  The JAX
-bench's bf16 rows wait for bf16 kernels (ROADMAP item 7); the JSON says
-so under ``"bf16"`` instead of faking them.
+bench's bf16 rows wait for bf16 kernels (ROADMAP queue 2 item 3); the
+JSON says so under ``"bf16"`` instead of faking them.
 """
 from __future__ import annotations
 
@@ -255,7 +257,7 @@ def bench_tuning(dev: torch.device) -> Dict:
            "the tuned block_n changed the result")
     return {
         "n": n,
-        "candidates": autotune.candidates_spline_basis(n),
+        "candidates": autotune.candidates_spline_basis(n, spec.n_bases),
         "tuned_blocks": best,
         "default_blocks": {"block_n": DEFAULT_BLOCK_N},
         "cache_key": key,
@@ -266,6 +268,7 @@ def bench_tuning(dev: torch.device) -> Dict:
             lambda: spline_basis(x, spec, block_n=best["block_n"]), dev),
         "pattern_matmul": bench_tuning_matmul(dev),
         "kan_fused": bench_tuning_kan(dev),
+        "kan_fused_v1": bench_tuning_kan(dev, version=1),
     }
 
 
@@ -310,46 +313,59 @@ def bench_tuning_matmul(dev: torch.device) -> Dict:
     }
 
 
-def bench_tuning_kan(dev: torch.device) -> Dict:
+def bench_tuning_kan(dev: torch.device, version: int = 2) -> Dict:
+    """A ``tune_kan_fused`` search of the version-2 (fused ``wt``) or the
+    version-1 (``w_b`` and ``t_flat``) kernel at 8x304->32, round-tripped
+    through a temporary cache; the tuned knob changes no bit."""
     B, n_in, n_out, kb = 8, 304, 32, (0, 2, 4, 5, 6)
+    nbk = len(kb)
     spec = SplineSpec(4, 3)
     gen = torch.Generator().manual_seed(3)
     x = torch.rand((B, n_in), generator=gen).to(dev)
-    wt = (torch.randn((n_in * (len(kb) + 1), n_out), generator=gen)
+    wt = (torch.randn((n_in * (nbk + 1), n_out), generator=gen)
           * 0.05).to(dev)
     slot = slot_table(kb, spec.n_bases, dev)
-    dims = (B, n_in, n_out, len(kb))
+    dims = (B, n_in, n_out, nbk)
+    kernel = f"kan_fused_v{version}"
+    if version == 1:
+        w3 = wt.reshape(n_in, nbk + 1, n_out)
+        w_b = w3[:, 0].contiguous()
+        t_flat = w3[:, 1:].reshape(n_in * nbk, n_out).contiguous()
+        weights, extra = w_b, {"t_flat": t_flat}
+
+        def run(knob):
+            return kan_fused_v1(x, w_b, t_flat, spec, kb, slot, blocks=knob)
+    else:
+        weights, extra = wt, {}
+
+        def run(knob):
+            return kan_fused_v2(x, wt, spec, kb, slot, blocks=knob)
     with tempfile.TemporaryDirectory() as tmp:
         cache = autotune.AutotuneCache(os.path.join(tmp, "autotune.json"))
         best = autotune.tune_kan_fused(
-            x, wt, spec, kb, reps=10 if dev.type == "cuda" else 1,
-            cache=cache)
-        key = autotune.cache_key("kan_fused_v2", dims, x.dtype, dev)
+            x, weights, spec, kb, version=version,
+            reps=10 if dev.type == "cuda" else 1, cache=cache, **extra)
+        key = autotune.cache_key(kernel, dims, x.dtype, dev)
         fresh = autotune.AutotuneCache(cache.path)
         round_trip = fresh.lookup(key) == best
-        hit = autotune.lookup_blocks("kan_fused_v2", dims, x.dtype, dev,
+        hit = autotune.lookup_blocks(kernel, dims, x.dtype, dev,
                                      cache=fresh)
     _check(round_trip and hit == best, key, best, hit)
-    default = kan_ops.default_blocks(*dims, x.dtype)
+    default = kan_ops.default_blocks(*dims, x.dtype, version)
     knob = {k: (v["bm"], v["bi"], v["bn"])
             for k, v in (("tuned", best), ("default", default))}
-    _check(torch.equal(
-        kan_fused_v2(x, wt, spec, kb, slot, blocks=knob["tuned"]),
-        kan_fused_v2(x, wt, spec, kb, slot, blocks=knob["default"])),
-        "the tuned (bm, bi, bn) changed the result")
+    _check(torch.equal(run(knob["tuned"]), run(knob["default"])),
+           f"the tuned (bm, bi, bn) of {kernel} changed the result")
     return {
-        "shape": [B, n_in, n_out], "kb": list(kb),
-        "candidates": len(autotune.candidates_kan_fused(*dims, x.dtype)),
+        "shape": [B, n_in, n_out], "kb": list(kb), "version": version,
+        "candidates": len(autotune.candidates_kan_fused(*dims, x.dtype,
+                                                        version)),
         "tuned_blocks": best,
         "default_blocks": default,
         "cache_key": key,
         "cache_round_trip": round_trip,
-        "ms_default": _time_ms(
-            lambda: kan_fused_v2(x, wt, spec, kb, slot,
-                                 blocks=knob["default"]), dev),
-        "ms_tuned": _time_ms(
-            lambda: kan_fused_v2(x, wt, spec, kb, slot,
-                                 blocks=knob["tuned"]), dev),
+        "ms_default": _time_ms(lambda: run(knob["default"]), dev),
+        "ms_tuned": _time_ms(lambda: run(knob["tuned"]), dev),
     }
 
 
@@ -373,7 +389,7 @@ def run(device: str = "cuda", out: Optional[str | Path] = None) -> Dict:
             "pattern_matmul": bench_pattern_matmul(dev),
             "tuning": bench_tuning(dev),
             "bf16": "not run: the kernels are f32 and int8 only; bf16 rows "
-                    "wait for bf16 kernels (ROADMAP item 7)",
+                    "wait for bf16 kernels (ROADMAP queue 2 item 3)",
         }
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
@@ -393,10 +409,11 @@ def run(device: str = "cuda", out: Optional[str | Path] = None) -> Dict:
     print(f"{'tuning':15s} matmul {tm['shape']} tuned={tm['tuned_blocks']} "
           f"round_trip={tm['cache_round_trip']} ms default/tuned "
           f"{tm['ms_default']}/{tm['ms_tuned']}", flush=True)
-    tk = t["kan_fused"]
-    print(f"{'tuning':15s} kan {tk['shape']} tuned={tk['tuned_blocks']} "
-          f"round_trip={tk['cache_round_trip']} ms default/tuned "
-          f"{tk['ms_default']}/{tk['ms_tuned']}", flush=True)
+    for tk in (t["kan_fused"], t["kan_fused_v1"]):
+        print(f"{'tuning':15s} kan v{tk['version']} {tk['shape']} tuned="
+              f"{tk['tuned_blocks']} round_trip={tk['cache_round_trip']} "
+              f"ms default/tuned {tk['ms_default']}/{tk['ms_tuned']}",
+              flush=True)
     print(f"wrote {path} ({results['device']})", flush=True)
     return results
 

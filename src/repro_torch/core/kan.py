@@ -9,7 +9,7 @@ with t_i = w_s * c_i pre-folded (Eq. 3).  Stage-2 pattern sparsity over
 the basis dimension is a static mask carried in the config, and
 ``KANConfig.version`` picks the kernel generation (2: one pass against
 the fused ``[w_b ; t]`` rows; 1: the silu and spline branches apart),
-and ``KANConfig.blocks`` the version-2 kernel's launch knobs.
+and ``KANConfig.blocks`` the kernel's launch knobs, at either version.
 ``KANLayer`` compacts (and at version 2 fuses) its weights once, when it
 is built; ``kan_apply`` is the functional form that does so on every
 call.  The device of the input picks kernel or plain version.
@@ -56,17 +56,14 @@ class KANConfig:
     # explicit kept basis indices (calibrated mask); wins over ``pattern``
     basis_keep: Optional[Tuple[int, ...]] = None
     version: int = DEFAULT_VERSION               # fused-kernel generation
-    # (bm, bi, bn) of the version-2 kernel; None -> autotune cache, then
-    # the kernel's defaults
+    # (bm, bi, bn) of the kernel of this version; None -> autotune cache,
+    # then the kernel's defaults
     blocks: Optional[Tuple[int, int, int]] = None
 
     def __post_init__(self) -> None:
         if self.version not in (1, 2):
             raise ValueError(f"KANConfig.version must be 1 or 2, got "
                              f"{self.version!r}")
-        if self.version == 1 and self.blocks is not None:
-            raise ValueError("KANConfig.blocks applies to the version-2 "
-                             "kernel; the version-1 kernel has no knobs")
 
     @property
     def basis_mask(self) -> Optional[PatternMask]:
@@ -154,7 +151,7 @@ class KANLayer(nn.Module):
                              self.slot_of, blocks=self.cfg.blocks)
         else:
             y = kan_fused_v1(xf, self.w_b, self.t_flat, self.cfg.spec,
-                             self.kb, self.slot_of)
+                             self.kb, self.slot_of, blocks=self.cfg.blocks)
         return y.reshape(*lead, self.cfg.n_out)
 
 

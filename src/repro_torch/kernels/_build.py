@@ -12,7 +12,8 @@ package imports on machines without ``nvcc`` or a GPU.
 
 ``LAUNCHES`` counts, per kernel, the launches made through ``launch``:
 the wrappers call nothing else, so a run can show that its path went
-through the kernels.
+through the kernels.  ``resource_usage`` reports what ``ptxas`` gives each
+compiled kernel instance: registers, stack and spills.
 """
 from __future__ import annotations
 
@@ -23,14 +24,16 @@ import os
 import re
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+DEVICE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                "-O3")
+NVCC_FLAGS = DEVICE_FLAGS + ("-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -70,11 +73,16 @@ KERNELS = {
         KERNELS_DIR / "kan_fused" / "csrc" / "kan_fused_v1.cu",
         "kan_fused_v1_f32",
         # x, w_b, t_flat, slot_of, out, B, n_in, n_out, nbk, G, K, x0, hi,
-        # inv_h, stream
-        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P)),
+        # inv_h, bm, bi, bn, stream
+        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
+         _P)),
 }
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -145,6 +153,47 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return paths
+
+
+def resource_usage(names: Optional[Iterable[str]] = None
+                   ) -> Dict[str, List[Dict[str, object]]]:
+    """Per kernel, each instance ``ptxas -v`` compiles from its source
+    (``DEVICE_FLAGS``, device code only, one ``nvcc`` per source, all
+    started together): the entry's mangled name, registers a thread,
+    stack frame and spill stores and loads in bytes.  Raises with the
+    compiler's output if a compile fails."""
+    names = list(KERNELS) if names is None else list(names)
+    nvcc = _nvcc()
+    out: Dict[str, List[Dict[str, object]]] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [(n, subprocess.Popen(
+            [nvcc, *DEVICE_FLAGS, "-cubin", "-Xptxas", "-v", "-o",
+             os.path.join(tmp, f"{n}.cubin"), str(KERNELS[n][0])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for n in names]
+        failed = []
+        for n, proc in procs:
+            text, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{n} (nvcc exit {proc.returncode}):\n{text}")
+                continue
+            entries: List[Dict[str, object]] = []
+            for line in text.splitlines():
+                m = _ENTRY.search(line)
+                if m:
+                    entries.append({"entry": m.group(1)})
+                elif entries and _FRAME.search(line):
+                    stack, stores, loads = _FRAME.search(line).groups()
+                    entries[-1].update(stack=int(stack),
+                                       spill_stores=int(stores),
+                                       spill_loads=int(loads))
+                elif entries and _REGS.search(line):
+                    entries[-1]["registers"] = int(
+                        _REGS.search(line).group(1))
+            out[n] = entries
+    if failed:
+        raise RuntimeError("ptxas report failed: " + "\n".join(failed))
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -29,11 +29,12 @@ this one lets every failure raise: the candidates are pruned up front to
 what the card takes (threads a block, shared memory a block), so a launch
 that fails is a fault to see, not a candidate to skip.
 
-Knobs: ``block_n`` of the spline-basis kernel, ``(bm, bk, bn)`` of the
-two pattern-matmul kernels, f32 and int8 alike under kernel
-``pattern_matmul``, and ``(bm, bi, bn)`` of the two version-2 KAN
-kernels under kernel ``kan_fused_v2`` (the dtype tells f32 from int8, as
-in the JAX ``resolve_blocks``).  The version-1 KAN kernel has none.
+Knobs: ``block_n`` of the spline-basis kernel (inputs a block, as in the
+JAX package), ``(bm, bk, bn)`` of the two pattern-matmul kernels, f32
+and int8 alike under kernel ``pattern_matmul``, ``(bm, bi, bn)`` of the
+two version-2 KAN kernels under kernel ``kan_fused_v2`` (the dtype tells
+f32 from int8, as in the JAX ``resolve_blocks``) and of the version-1 KAN
+kernel under ``kan_fused_v1``.
 """
 from __future__ import annotations
 
@@ -280,11 +281,23 @@ def search(kernel: str, dims: Sequence[int], dtype: torch.dtype,
     return best[1]
 
 
-def candidates_spline_basis(n: int) -> List[Dict[str, int]]:
-    """``block_n`` (threads a block, one input each): 64..1024, and none
-    above ``n``'s power-of-two bucket (floor 64)."""
-    cap = min(next_pow2(max(64, n)), MAX_THREADS_PER_BLOCK)
-    return [{"block_n": b} for b in (64, 128, 256, 512, 1024) if b <= cap]
+def candidates_spline_basis(n: int, n_bases: int) -> List[Dict[str, int]]:
+    """``block_n`` (inputs a block, the JAX package's grid): 256..4096,
+    none above ``n``'s power-of-two bucket (floor 256), pruned to what the
+    kernel takes (``ops.check_block_n``: the block's (block_n, n_bases)
+    output stretch in shared memory)."""
+    from repro_torch.kernels.spline_basis import ops
+
+    out = []
+    for b in (256, 512, 1024, 2048, 4096):
+        if b > next_pow2(max(256, n)):
+            continue
+        try:
+            ops.check_block_n(b, n_bases)
+        except ValueError:
+            continue
+        out.append({"block_n": b})
+    return out
 
 
 def tune_spline_basis(x: torch.Tensor, spec, *, reps: int = 10,
@@ -298,8 +311,8 @@ def tune_spline_basis(x: torch.Tensor, spec, *, reps: int = 10,
     n = flat.shape[0]
     return search("spline_basis", (n, spec.n_bases), flat.dtype,
                   lambda block_n: spline_basis(flat, spec, block_n=block_n),
-                  candidates_spline_basis(n), device=flat.device, reps=reps,
-                  cache=cache)
+                  candidates_spline_basis(n, spec.n_bases),
+                  device=flat.device, reps=reps, cache=cache)
 
 
 def candidates_pattern_matmul(M: int, K: int, N: int, dtype: torch.dtype
@@ -362,12 +375,13 @@ def tune_pattern_matmul(x_c: torch.Tensor, w_c: torch.Tensor,
 
 
 def candidates_kan_fused(B: int, n_in: int, n_out: int, nbk: int,
-                         dtype: torch.dtype) -> List[Dict[str, int]]:
-    """``(bm, bi, bn)`` grid of the f32 or int8 version-2 KAN kernel: bm
-    at most ``max(8, next_pow2(B))``, bn at most ``max(8,
-    next_pow2(n_out))``, bi a power of two from 32 up to the first that
-    covers ``n_in``, pruned to what the kernel takes on the card
-    (``ops.check_blocks``: tile, shared memory a block, blocks a
+                         dtype: torch.dtype,
+                         version: int = 2) -> List[Dict[str, int]]:
+    """``(bm, bi, bn)`` grid of the f32 or int8 version-2 KAN kernel, or
+    of the version-1 kernel: bm at most ``max(8, next_pow2(B))``, bn at
+    most ``max(8, next_pow2(n_out))``, bi a power of two from 32 up to the
+    first that covers ``n_in``, pruned to what the kernel takes on the
+    card (``ops.check_blocks``: tile, shared memory a block, blocks a
     cluster; bm * bn <= 8192 keeps a block at 256 threads)."""
     from repro_torch.kernels.kan_fused import ops
 
@@ -384,7 +398,7 @@ def candidates_kan_fused(B: int, n_in: int, n_out: int, nbk: int,
             for bi in bis:
                 cand = {"bm": bm, "bi": bi, "bn": bn}
                 try:
-                    ops.check_blocks(cand, n_in, n_out, nbk, dtype)
+                    ops.check_blocks(cand, n_in, n_out, nbk, dtype, version)
                 except ValueError:
                     continue
                 out.append(cand)
@@ -393,27 +407,43 @@ def candidates_kan_fused(B: int, n_in: int, n_out: int, nbk: int,
 
 def tune_kan_fused(x: torch.Tensor, wt: torch.Tensor, spec,
                    kb: Optional[Sequence[int]] = None, *,
+                   version: int = 2,
+                   t_flat: Optional[torch.Tensor] = None,
                    slot_scales: Optional[torch.Tensor] = None,
                    x_scale: Optional[float] = None, reps: int = 10,
                    cache: Optional[AutotuneCache] = None
                    ) -> Dict[str, int]:
-    """Search ``(bm, bi, bn)`` for the version-2 KAN kernel on ``x``'s
-    device (on the CPU this times the plain version, stored under
-    ``cpu``), against the fused ``wt`` (``ops.fuse_wt``).  Int8 codes tune
-    the int8 kernel and need ``slot_scales`` and ``x_scale``; both are
-    stored under kernel ``kan_fused_v2`` with their dtype."""
+    """Search ``(bm, bi, bn)`` for a KAN kernel on ``x``'s device (on the
+    CPU this times the plain version, stored under ``cpu``).  At version
+    2, against the fused ``wt`` (``ops.fuse_wt``): int8 codes tune the
+    int8 kernel and need ``slot_scales`` and ``x_scale``; both are stored
+    under kernel ``kan_fused_v2`` with their dtype.  At version 1, ``wt``
+    is ``w_b`` and ``t_flat`` the kept-basis rows, stored under kernel
+    ``kan_fused_v1``, as the JAX ``tune_kan_fused(..., version=1)``
+    does."""
     from repro_torch.kernels.kan_fused.ops import (
+        kan_fused_v1,
         kan_fused_v2,
         kan_fused_v2_q8,
         slot_table,
     )
 
+    if version not in (1, 2):
+        raise ValueError(f"tune_kan_fused: version must be 1 or 2, got "
+                         f"{version!r}")
+    if (version == 1) != (t_flat is not None):
+        raise ValueError("tune_kan_fused: version 1 takes w_b and t_flat; "
+                         "version 2 the fused wt alone")
     B, n_in = x.shape
     n_out = wt.shape[1]
     kb = tuple(range(spec.n_bases)) if kb is None else tuple(kb)
     nbk = len(kb)
     slot_of = slot_table(kb, spec.n_bases, x.device)
-    if x.dtype == torch.int8:
+    if version == 1:
+        def run(bm: int, bi: int, bn: int) -> torch.Tensor:
+            return kan_fused_v1(x, wt, t_flat, spec, kb, slot_of,
+                                blocks=(bm, bi, bn))
+    elif x.dtype == torch.int8:
         if slot_scales is None or x_scale is None:
             raise ValueError("tune_kan_fused: int8 codes need slot_scales "
                              "and x_scale")
@@ -425,6 +455,7 @@ def tune_kan_fused(x: torch.Tensor, wt: torch.Tensor, spec,
         def run(bm: int, bi: int, bn: int) -> torch.Tensor:
             return kan_fused_v2(x, wt, spec, kb, slot_of,
                                 blocks=(bm, bi, bn))
-    return search("kan_fused_v2", (B, n_in, n_out, nbk), x.dtype, run,
-                  candidates_kan_fused(B, n_in, n_out, nbk, x.dtype),
+    return search(f"kan_fused_v{version}", (B, n_in, n_out, nbk), x.dtype,
+                  run, candidates_kan_fused(B, n_in, n_out, nbk, x.dtype,
+                                            version),
                   device=x.device, reps=reps, cache=cache)

@@ -52,7 +52,8 @@
 // knob gives the same bits and batched == single holds bitwise.  The
 // spline arithmetic uses round-to-nearest intrinsics (kan_fused.cuh's
 // spu()), so no FMA contraction makes it differ from the plain version
-// (kan_fused/ref.py).  The int8 kernel (kan_fused_q8.cu) shares the body.
+// (kan_fused/ref.py).  The int8 kernel (kan_fused_q8.cu) and the version-1
+// kernel (kan_fused_v1.cu) share the body.
 #include "kan_split.cuh"
 
 // x: (B, n_in), wt: (n_in*(nbk+1), n_out), slot_of: (G+K,) int32,

@@ -19,28 +19,48 @@
 // What bounds it on an H100 (3.35 TB/s, 67 TFLOP/s f32 on CUDA cores):
 // the same work as the v2 kernel, with the same weight bytes split over
 // two arrays -- at vikin-mixed's 304->32 layer, bytes bound in principle
-// at B = 8 (233 KB of weights, 70 ns; in fact one block's latency sets
-// the time) and operations bound at B = 8192 (0.75 GFLOP, 11 us).
-// Design: kan_fused.cuh's body with the `F32Split` policy: the same zero-
-// free form (at most K+2 multiply-adds per row and feature, no (B,
-// n_in*nbk) activation anywhere), the silu weight read from w_b[p, n] and
-// each kept basis's from t_flat[p*nbk + slot, n].  Each output keeps two
-// f32 accumulators, the silu branch and the spline branch, each summed
-// features ascending (the spline terms j = 0..K within a feature), and
-// adds them once at the end, as the plain version (kan_fused/ref.py,
-// kan_fused_v1_ref) adds its two products.  The order depends on nothing
-// but the row's own inputs, so batched == single holds bitwise.
-#include "kan_fused.cuh"
+// at B = 8 (233 KB of weights, 70 ns; in fact the latency of a chain of
+// dependent steps sets the time) and operations bound at B = 8192 (0.75
+// GFLOP, 11 us; shared memory and instruction issue cap it, as they cap
+// the v2 kernel).
+// Design: the v2 kernels' body (kan_split.cuh, see kan_fused.cu) with the
+// `Split` operand policy, and the same launch-time knobs (bm, bi, bn).
+// Each chunk's rows of w_b and t_flat are copied with cp.async into the
+// fused layout the v2 kernel stages (the silu row of a feature, then its
+// kept-basis rows), so the SPU pass, the feature split over a cluster and
+// the FMA pass are the v2 kernel's.  The FMA pass keeps two chains a
+// chunk: the silu terms in one, the basis terms in the other.  Each is
+// summed in chunks of 32 features (one fmaf chain a chunk, the partials
+// added in chunk order), and the output is the two totals added once, as
+// the plain version (kan_fused/ref.py, kan_fused_v1_ref) adds its two
+// products.  The order depends on the layer alone: every knob gives the
+// same bits and batched == single holds bitwise.
+#include "kan_split.cuh"
 
 // x: (B, n_in), w_b: (n_in, n_out), t_flat: (n_in*nbk, n_out), slot_of:
 // (G+K,) int32, out: (B, n_out).  All f32 unless noted, contiguous, on the
-// stream's device.  `hi` and `inv_h` as for kan_fused_v2_f32.
+// stream's device.  `hi`, `inv_h` and bm, bi, bn as for kan_fused_v2_f32.
 extern "C" int kan_fused_v1_f32(const float* x, const float* w_b,
                                 const float* t_flat, const int* slot_of,
                                 float* out, int B, int n_in, int n_out,
                                 int nbk, int G, int K, float x0, float hi,
-                                float inv_h, void* stream) {
-  return kan_fused::launch(kan_fused::F32Split{nbk, x, w_b, t_flat}, slot_of,
-                           out, B, n_in, n_out, nbk, G, K, x0, hi, inv_h,
-                           stream);
+                                float inv_h, int bm, int bi, int bn,
+                                void* stream) {
+  kan_split::Params p = {};
+  p.x = x;
+  p.wt = w_b;
+  p.t_flat = t_flat;
+  p.slot_of = slot_of;
+  p.out = out;
+  p.B = B;
+  p.n_in = n_in;
+  p.n_out = n_out;
+  p.nbk = nbk;
+  p.n_bases = G + K;
+  p.G = G;
+  p.K = K;
+  p.x0 = x0;
+  p.hi = hi;
+  p.inv_h = inv_h;
+  return kan_split::launch<kan_split::Split>(p, bm, bi, bn, stream);
 }

@@ -1,10 +1,12 @@
-// The fused KAN layer kernel of kan_fused.cu (f32) and kan_fused_q8.cu
-// (int8 codes), for sm_90a, with its launch-time knobs (bm, bi, bn).
+// The fused KAN layer kernel of kan_fused.cu (f32), kan_fused_q8.cu
+// (int8 codes) and kan_fused_v1.cu (version 1: w_b and t_flat apart), for
+// sm_90a, with its launch-time knobs (bm, bi, bn).
 //
 // One template body over an operand policy `Op` (`F32`: x and the fused
 // [w_b ; t[kb]] rows of ops.fuse_wt as f32; `Q8`: int8 codes, copied raw
-// and dequantized once a chunk in shared memory) and the rows a thread
-// owns (`TM`).
+// and dequantized once a chunk in shared memory; `Split`: the version-1
+// weights, w_b and t_flat, staged into the same fused layout) and the rows
+// a thread owns (`TM`).
 //
 // What each output is, bit for bit, depends on the layer alone:
 //   * the input features are cut into chunks of PC = 32, a constant that
@@ -16,6 +18,10 @@
 //     never makes it -0, so the term changes no bit);
 //   * the output is partial 0, then __fadd_rn of each later partial in
 //     ascending c.
+// `Split` keeps two such chains a chunk, the silu terms in one and the
+// basis terms in the other, each summed over the chunks as above, and
+// writes __fadd_rn(silu total, spline total): the plain version's
+// `s @ w_b + act @ t_flat`, two sums added once.
 // The knobs only schedule that work.  A block owns bm rows x bn outputs
 // and walks bi features: ceil(bi / PC) chunks, all of them when bi >=
 // n_in.  When the chunks are split over several blocks, those blocks are
@@ -65,7 +71,8 @@ constexpr int MAX_SMEM = pm::MAX_SMEM;
 
 struct Params {
   const void* x;
-  const void* wt;
+  const void* wt;            // Split: w_b
+  const void* t_flat;        // Split only: the kept-basis rows
   const float* slot_scales;  // Q8 only: (nbk+1,) silu row, kept bases
   const int* slot_of;
   float* out;
@@ -82,17 +89,37 @@ inline int tile_rows(int bm, int bn) {
   return t < 1 ? 1 : t > 8 ? 8 : t;
 }
 
+// The largest bm * bn (ops.max_tile mirrors it).  Two chains at 8 rows a
+// thread hold 2 x 2 x 32 accumulators, more than ptxas fits in 255
+// registers without spilling, so Split stops at 4 rows a thread.
+constexpr int max_tile(int chains) {
+  return chains == 2 ? MAX_TILE / 2 : MAX_TILE;
+}
+
 // Dynamic shared memory of a block (ops.kernel_smem mirrors it): the
 // header, `stages` weight and x buffers, the staged (row, feature) values,
-// a cluster member's chunk partials, and int8's raw weight and x codes.
+// a cluster member's chunk partials (one set a chain), and int8's raw
+// weight and x codes.
 inline long smem_bytes(int bm, int bn, int nbk, int cpb, int nsplit,
-                       bool q8) {
+                       bool q8, int chains) {
   const long rows = (long)PC * (nbk + 1);
   const long stages = cpb > 1 ? 2 : 1;
   const long words = HDR + stages * (rows * bn + (long)bm * PC) +
                      (long)bm * ACT_STRIDE +
-                     (nsplit > 1 ? (long)cpb * bm * bn : 0);
+                     (nsplit > 1 ? (long)chains * cpb * bm * bn : 0);
   return 4 * words + (q8 ? stages * (rows * bn + (long)bm * PC) : 0);
+}
+
+// The f32 x tile of rows b0.. and features p0..; rows past B and features
+// past n_in read as zero.
+__device__ __forceinline__ void issue_x(const Params& p, float* xs, int b0,
+                                        int p0, int tid, int nthr) {
+  const float* x = static_cast<const float*>(p.x);
+  for (int e = tid; e < p.bm * PC; e += nthr) {
+    const int b = b0 + (e >> 5), f = p0 + (e & (PC - 1));
+    const bool ok = b < p.B && f < p.n_in;
+    pm::cp_async<4>(xs + e, ok ? x + (size_t)b * p.n_in + f : x, ok);
+  }
 }
 
 // The weight rows of chunk p0 .. p0+PC-1 and output columns n0 .. n0+bn-1:
@@ -101,16 +128,12 @@ inline long smem_bytes(int bm, int bn, int nbk, int cpb, int nsplit,
 // walks the rows: bn <= 128 <= threads, all powers of two.
 struct F32 {
   static constexpr bool kQ8 = false;
+  static constexpr int kChains = 1;
 
   __device__ static void issue(const Params& p, float* ws, float* xs,
                                int8_t*, int b0, int p0, int n0, int tid,
                                int nthr) {
-    const float* x = static_cast<const float*>(p.x);
-    for (int e = tid; e < p.bm * PC; e += nthr) {
-      const int b = b0 + (e >> 5), f = p0 + (e & (PC - 1));
-      const bool ok = b < p.B && f < p.n_in;
-      pm::cp_async<4>(xs + e, ok ? x + (size_t)b * p.n_in + f : x, ok);
-    }
+    issue_x(p, xs, b0, p0, tid, nthr);
     const float* wt = static_cast<const float*>(p.wt);
     const int nbk1 = p.nbk + 1, rows = PC * nbk1;
     const size_t row0 = (size_t)p0 * nbk1, nrows = (size_t)p.n_in * nbk1;
@@ -143,6 +166,7 @@ struct F32 {
 // them.
 struct Q8 {
   static constexpr bool kQ8 = true;
+  static constexpr int kChains = 1;
 
   __device__ static void issue(const Params& p, float*, float*,
                                int8_t* raw, int b0, int p0, int n0, int tid,
@@ -208,6 +232,57 @@ struct Q8 {
   }
 };
 
+// Version 1: w_b (n_in, n_out) and t_flat (n_in*nbk, n_out) apart, f32.
+// Staged row r = pl*(nbk+1) + s of the chunk at feature p0 is w_b's row
+// p0+pl for s = 0 and t_flat's row (p0+pl)*nbk + s-1 for s >= 1: the
+// fused layout F32 stages, so the SPU pass and the FMA pass read it
+// unchanged.  The (pl, s) of a thread's rows are stepped, not divided.
+struct Split {
+  static constexpr bool kQ8 = false;
+  static constexpr int kChains = 2;
+
+  template <int BYTES>
+  __device__ static void issue_w(const Params& p, float* ws, int p0, int n0,
+                                 int tid, int nthr) {
+    const float* wb = static_cast<const float*>(p.wt);
+    const float* tf = static_cast<const float*>(p.t_flat);
+    constexpr int W = BYTES / 4;                 // columns a copy
+    const int nbk1 = p.nbk + 1, rows = PC * nbk1;
+    const int cols = p.bn / W, lg = __ffs(cols) - 1;
+    const int c = tid & (cols - 1), n = n0 + W * c;
+    const int r0 = tid >> lg, step = nthr >> lg;
+    const int dpl = step / nbk1, ds = step - dpl * nbk1;
+    int pl = r0 / nbk1, s = r0 - pl * nbk1;
+    for (int r = r0; r < rows; r += step) {
+      const int f = p0 + pl;
+      const bool ok = f < p.n_in && n < p.n_out;
+      const float* src =
+          s == 0 ? wb + (size_t)f * p.n_out + n
+                 : tf + ((size_t)f * p.nbk + (s - 1)) * p.n_out + n;
+      pm::cp_async<BYTES>(ws + r * p.bn + W * c, ok ? src : wb, ok);
+      pl += dpl;
+      s += ds;
+      if (s >= nbk1) {
+        s -= nbk1;
+        ++pl;
+      }
+    }
+  }
+
+  __device__ static void issue(const Params& p, float* ws, float* xs,
+                               int8_t*, int b0, int p0, int n0, int tid,
+                               int nthr) {
+    issue_x(p, xs, b0, p0, tid, nthr);
+    if (p.vec_w)
+      issue_w<16>(p, ws, p0, n0, tid, nthr);
+    else
+      issue_w<4>(p, ws, p0, n0, tid, nthr);
+  }
+
+  __device__ static void prepare(const Params&, float*, float*,
+                                 const int8_t*, const float*, int, int) {}
+};
+
 // SIMD + SPU + TSE once per (row, feature) of the chunk.  Each entry is
 // two float4: {silu, v0, v1, v2} and {v3, v4, rel0..3, rel4}, where vj is
 // the j-th de Boor value if its basis is kept (else 0) and relj the
@@ -260,12 +335,15 @@ __device__ __forceinline__ void fma4(float (&acc)[4], float v,
 }
 
 // One chunk's partial for a thread's TM rows (tr + i * rstride) and four
-// columns (4 * tc ..): features ascending, silu term, then j = 0..K.
+// columns (4 * tc ..): features ascending, silu term, then j = 0..K.  The
+// silu terms go to `ps`, the basis terms to `pt`: two chains for Split,
+// one for the fused kernels, which pass the same array twice.
 template <int TM>
 __device__ __forceinline__ void fma_chunk(const Params& p, const float* ws,
                                           const float* s_act,
-                                          float (&part)[TM][4], int p0,
-                                          int tr, int tc, int rstride) {
+                                          float (&ps)[TM][4],
+                                          float (&pt)[TM][4], int p0, int tr,
+                                          int tc, int rstride) {
   const int bn = p.bn, fstride = (p.nbk + 1) * bn;
   const int pc = min(PC, p.n_in - p0);
   const float* wcol = ws + 4 * tc;
@@ -279,13 +357,13 @@ __device__ __forceinline__ void fma_chunk(const Params& p, const float* ws,
       const float* a = arow + i * rstride * ACT_STRIDE + pl * ACT_WORDS;
       const float4 lo = ld4(a), hi = ld4(a + 4);
       const unsigned rel = __float_as_uint(hi.z);
-      fma4(part[i], lo.x, w0);
-      fma4(part[i], lo.y, ld4(wf + (rel & 0xffu) * bn));
-      fma4(part[i], lo.z, ld4(wf + ((rel >> 8) & 0xffu) * bn));
-      if (p.K >= 2) fma4(part[i], lo.w, ld4(wf + ((rel >> 16) & 0xffu) * bn));
-      if (p.K >= 3) fma4(part[i], hi.x, ld4(wf + (rel >> 24) * bn));
+      fma4(ps[i], lo.x, w0);
+      fma4(pt[i], lo.y, ld4(wf + (rel & 0xffu) * bn));
+      fma4(pt[i], lo.z, ld4(wf + ((rel >> 8) & 0xffu) * bn));
+      if (p.K >= 2) fma4(pt[i], lo.w, ld4(wf + ((rel >> 16) & 0xffu) * bn));
+      if (p.K >= 3) fma4(pt[i], hi.x, ld4(wf + (rel >> 24) * bn));
       if (p.K >= 4)
-        fma4(part[i], hi.y, ld4(wf + __float_as_uint(hi.w) * bn));
+        fma4(pt[i], hi.y, ld4(wf + __float_as_uint(hi.w) * bn));
     }
   }
 }
@@ -293,18 +371,20 @@ __device__ __forceinline__ void fma_chunk(const Params& p, const float* ws,
 template <class Op, int TM>
 __global__ void __launch_bounds__(MAX_THREADS)
 kan_split_kernel(const Params p) {
+  constexpr int NC = Op::kChains;
   extern __shared__ __align__(16) float smem[];
   int* s_slot = reinterpret_cast<int*>(smem);
   float* s_scale = smem + TABLE;
   const int nbk1 = p.nbk + 1;
   const int wsz = PC * nbk1 * p.bn;            // elements a weight stage
   const int rsz = wsz + p.bm * PC;             // int8: raw bytes a stage
+  const int psz = p.cpb * p.bm * p.bn;         // words a chain's partials
   float* s_w = smem + HDR;
   float* s_x = s_w + p.stages * wsz;
   float* s_act = s_x + p.stages * p.bm * PC;
   float* s_part = s_act + p.bm * ACT_STRIDE;
   int8_t* s_raw = reinterpret_cast<int8_t*>(
-      s_part + (gridDim.z > 1 ? p.cpb * p.bm * p.bn : 0));
+      s_part + (gridDim.z > 1 ? NC * psz : 0));
 
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int b0 = blockIdx.x * p.bm, n0 = blockIdx.y * p.bn;
@@ -327,11 +407,13 @@ kan_split_kernel(const Params p) {
   const bool computes = tid < ct;
   const int tc = tid & (cols4 - 1), tr = tid >> (__ffs(cols4) - 1);
   const int rstride = p.bm / TM;
-  float total[TM][4];
+  float total[NC][TM][4];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int h = 0; h < NC; ++h)
 #pragma unroll
-    for (int k = 0; k < 4; ++k) total[i][k] = 0.f;
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) total[h][i][k] = 0.f;
 
   for (int l = 0; l < nloc; ++l) {
     const int buf = l & (p.stages - 1);
@@ -345,24 +427,32 @@ kan_split_kernel(const Params p) {
     spu_stage(p, xs, s_act, s_slot, p0, tid, nthr);
     __syncthreads();
     if (computes) {
-      float part[TM][4];
+      float part[NC][TM][4];
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+      for (int h = 0; h < NC; ++h)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) part[i][k] = 0.f;
-      fma_chunk<TM>(p, ws, s_act, part, p0, tr, tc, rstride);
+        for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        if (blockIdx.z == 0) {
+          for (int k = 0; k < 4; ++k) part[h][i][k] = 0.f;
+      fma_chunk<TM>(p, ws, s_act, part[0], part[NC - 1], p0, tr, tc,
+                    rstride);
 #pragma unroll
-          for (int k = 0; k < 4; ++k)
-            total[i][k] = l == 0 ? part[i][k] : __fadd_rn(total[i][k],
-                                                          part[i][k]);
-        } else {
-          *reinterpret_cast<float4*>(s_part + ((l * TM + i) * ct + tid) * 4) =
-              make_float4(part[i][0], part[i][1], part[i][2], part[i][3]);
+      for (int h = 0; h < NC; ++h)
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          if (blockIdx.z == 0) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              total[h][i][k] = l == 0 ? part[h][i][k]
+                                      : __fadd_rn(total[h][i][k],
+                                                  part[h][i][k]);
+          } else {
+            *reinterpret_cast<float4*>(
+                s_part + h * psz + ((l * TM + i) * ct + tid) * 4) =
+                make_float4(part[h][i][0], part[h][i][1], part[h][i][2],
+                            part[h][i][3]);
+          }
         }
-      }
     }
     __syncthreads();
     if (l + p.stages < nloc) {
@@ -383,13 +473,15 @@ kan_split_kernel(const Params p) {
       for (int g = p.cpb; g < p.nchunks; ++g) {
         const float* rp = cluster.map_shared_rank(s_part, r);
 #pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const float4 q = ld4(rp + ((l * TM + i) * ct + tid) * 4);
-          total[i][0] = __fadd_rn(total[i][0], q.x);
-          total[i][1] = __fadd_rn(total[i][1], q.y);
-          total[i][2] = __fadd_rn(total[i][2], q.z);
-          total[i][3] = __fadd_rn(total[i][3], q.w);
-        }
+        for (int h = 0; h < NC; ++h)
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            const float4 q = ld4(rp + h * psz + ((l * TM + i) * ct + tid) * 4);
+            total[h][i][0] = __fadd_rn(total[h][i][0], q.x);
+            total[h][i][1] = __fadd_rn(total[h][i][1], q.y);
+            total[h][i][2] = __fadd_rn(total[h][i][2], q.z);
+            total[h][i][3] = __fadd_rn(total[h][i][3], q.w);
+          }
         if (++l == p.cpb) {
           l = 0;
           ++r;
@@ -405,15 +497,19 @@ kan_split_kernel(const Params p) {
     for (int i = 0; i < TM; ++i) {
       const int b = b0 + tr + i * rstride;
       if (b >= p.B) continue;
+      float v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        v[k] = NC == 2 ? __fadd_rn(total[0][i][k], total[NC - 1][i][k])
+                       : total[0][i][k];
       float* o = p.out + (size_t)b * p.n_out + n;
       if (p.vec_out) {
         if (n < p.n_out)
-          *reinterpret_cast<float4*>(o) = make_float4(
-              total[i][0], total[i][1], total[i][2], total[i][3]);
+          *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
       } else {
 #pragma unroll
         for (int k = 0; k < 4; ++k)
-          if (n + k < p.n_out) o[k] = total[i][k];
+          if (n + k < p.n_out) o[k] = v[k];
       }
     }
   }
@@ -466,13 +562,14 @@ int launch(Params p, int bm, int bi, int bn, void* stream) {
       p.K < 1 || p.K > KMAX || p.n_bases != p.G + p.K ||
       p.G + KMAX > TABLE || p.nbk > p.n_bases)
     return (int)cudaErrorInvalidValue;
-  if (!tile_ok(bm) || !tile_ok(bn) || bm * bn > MAX_TILE || bi <= 0 ||
-      (bi % PC != 0 && bi < p.n_in))
+  if (!tile_ok(bm) || !tile_ok(bn) || bm * bn > max_tile(Op::kChains) ||
+      bi <= 0 || (bi % PC != 0 && bi < p.n_in))
     return (int)cudaErrorInvalidValue;
   const int nchunks = (p.n_in + PC - 1) / PC;
   const int cpb = bi >= p.n_in ? (nchunks > 0 ? nchunks : 1) : bi / PC;
   const int nsplit = nchunks > 0 ? (nchunks + cpb - 1) / cpb : 1;
-  const long smem = smem_bytes(bm, bn, p.nbk, cpb, nsplit, Op::kQ8);
+  const long smem =
+      smem_bytes(bm, bn, p.nbk, cpb, nsplit, Op::kQ8, Op::kChains);
   const long gx = (p.B + (long)bm - 1) / bm;
   const long gy = (p.n_out + (long)bn - 1) / bn;
   if (nsplit > MAX_SPLIT || smem > MAX_SMEM ||
@@ -488,7 +585,8 @@ int launch(Params p, int bm, int bi, int bn, void* stream) {
   p.nchunks = nchunks;
   p.stages = cpb > 1 ? 2 : 1;
   p.vec_w = p.n_out % 4 == 0 &&
-            reinterpret_cast<uintptr_t>(p.wt) % (Op::kQ8 ? 4 : 16) == 0;
+            reinterpret_cast<uintptr_t>(p.wt) % (Op::kQ8 ? 4 : 16) == 0 &&
+            reinterpret_cast<uintptr_t>(p.t_flat) % 16 == 0;
   p.vec_x = p.n_in % 4 == 0 && reinterpret_cast<uintptr_t>(p.x) % 4 == 0;
   p.vec_out = p.n_out % 4 == 0 && reinterpret_cast<uintptr_t>(p.out) % 16 == 0;
   const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)nsplit);
@@ -501,7 +599,11 @@ int launch(Params p, int bm, int bi, int bn, void* stream) {
     case 4:
       return run<Op, 4>(p, grid, threads, (int)smem, nsplit, s);
     default:
-      return run<Op, 8>(p, grid, threads, (int)smem, nsplit, s);
+      // max_tile keeps Split at 4 rows a thread: no 8-row instance
+      if constexpr (Op::kChains == 2)
+        return (int)cudaErrorInvalidConfiguration;
+      else
+        return run<Op, 8>(p, grid, threads, (int)smem, nsplit, s);
   }
 }
 

@@ -7,15 +7,16 @@ launches the hand-written kernel ``csrc/kan_fused.cu``
 (``csrc/kan_fused_v1.cu``, ``csrc/kan_fused_q8.cu``) or raises.  There is
 no fallback from a kernel to its plain version.
 
-The two version-2 kernels take their knobs ``(bm, bi, bn)`` at launch
-time: bm rows x bn outputs a block, bi input features a block walks.
-``resolve_blocks`` picks them as the JAX one does: explicit ``blocks=`` >
-autotune-cache hit for (shape bucket, dtype, card) > a default by batch
-bucket; the wrappers never search (``autotune.tune_kan_fused`` does, and
-``launch/serve.py`` runs it under ``REPRO_TORCH_AUTOTUNE=1``).  No knob
-changes a bit of the output: the summation order is fixed by the layer
-alone (``csrc/kan_split.cuh``).  A knob the kernel does not take raises,
-on the CPU too.
+All three kernels run one body (``csrc/kan_split.cuh``) and take their
+knobs ``(bm, bi, bn)`` at launch time: bm rows x bn outputs a block, bi
+input features a block walks.  ``resolve_blocks`` picks them as the JAX
+one does, at either version: explicit ``blocks=`` > autotune-cache hit
+for (kernel ``kan_fused_v{version}``, shape bucket, dtype, card) > a
+default by batch bucket; the wrappers never search
+(``autotune.tune_kan_fused`` does, and ``launch/serve.py`` runs it under
+``REPRO_TORCH_AUTOTUNE=1``).  No knob changes a bit of the output: the
+summation order is fixed by the layer alone.  A knob the kernel does not
+take raises, on the CPU too.
 
 Weights keep the JAX package's layouts: ``w_b`` (n_in, n_out), ``t``
 (n_in, G+K, n_out), ``t_flat`` (n_in*nbk, n_out) feature-major, and the
@@ -42,10 +43,10 @@ KERNEL_V1 = "kan_fused_v1"
 KERNEL_Q8 = "kan_fused_v2_q8"
 DEFAULT_VERSION = 2
 
-# The knobs the version-2 kernels take (csrc/kan_split.cuh checks the
-# same): bm and bn from TILES with bm * bn <= MAX_TILE; bi a multiple of
-# PC, or >= n_in (every feature in one block).  PC fixes the summation
-# order; no knob changes it.
+# The knobs the kernels take (csrc/kan_split.cuh checks the same): bm and
+# bn from TILES with bm * bn <= max_tile(version); bi a multiple of PC, or
+# >= n_in (every feature in one block).  PC fixes the summation order; no
+# knob changes it.
 PC = 32
 TILES = (8, 16, 32, 64, 128)
 MAX_TILE = 8192
@@ -58,6 +59,12 @@ _ACT_STRIDE = PC * 8 + 4
 _SMS = 132                      # the H100's SMs (default_blocks)
 
 Blocks = Dict[str, int]
+
+
+def max_tile(version: int = DEFAULT_VERSION) -> int:
+    """The largest bm * bn: the version-1 kernel's two accumulator chains
+    spill at 8 rows a thread, so it stops at 4 (half the tile)."""
+    return MAX_TILE // 2 if version == 1 else MAX_TILE
 
 
 def tile_rows(bm: int, bn: int) -> int:
@@ -80,32 +87,35 @@ def split(n_in: int, bi: int) -> Tuple[int, int, int]:
 
 
 def kernel_smem(bm: int, bi: int, bn: int, n_in: int, nbk: int,
-                dtype: torch.dtype) -> int:
+                dtype: torch.dtype, version: int = DEFAULT_VERSION) -> int:
     """Dynamic shared memory, in bytes, a block of the kernel for
-    ``dtype`` uses: weight and x buffers (two when a block walks several
-    chunks), the staged (row, feature) values, a cluster member's chunk
-    partials, and int8's raw weight and x codes."""
+    ``dtype`` and ``version`` uses: weight and x buffers (two when a block
+    walks several chunks), the staged (row, feature) values, a cluster
+    member's chunk partials (two sets at version 1: the silu and the
+    spline chain), and int8's raw weight and x codes."""
     _, cpb, nsplit = split(n_in, bi)
     rows = PC * (nbk + 1)
     stages = 2 if cpb > 1 else 1
+    chains = 2 if version == 1 else 1
     words = (_HDR_WORDS + stages * (rows * bn + bm * PC) + bm * _ACT_STRIDE
-             + (cpb * bm * bn if nsplit > 1 else 0))
+             + (chains * cpb * bm * bn if nsplit > 1 else 0))
     return 4 * words + (stages * (rows * bn + bm * PC)
                         if dtype == torch.int8 else 0)
 
 
 def check_blocks(blocks: Blocks, n_in: int, n_out: int, nbk: int,
-                 dtype: torch.dtype) -> None:
-    """Raise ``ValueError`` unless the kernel for ``dtype`` takes
-    ``blocks`` at this layer's widths."""
+                 dtype: torch.dtype, version: int = DEFAULT_VERSION) -> None:
+    """Raise ``ValueError`` unless the kernel for ``dtype`` and
+    ``version`` takes ``blocks`` at this layer's widths."""
     bm, bi, bn = (blocks[k] for k in ("bm", "bi", "bn"))
     what = f"kan_fused blocks (bm={bm}, bi={bi}, bn={bn})"
     if min(bm, bi, bn) <= 0:
         raise ValueError(f"{what}: every knob must be positive")
     if bm not in TILES or bn not in TILES:
         raise ValueError(f"{what}: the kernel takes bm and bn in {TILES}")
-    if bm * bn > MAX_TILE:
-        raise ValueError(f"{what}: bm * bn exceeds {MAX_TILE}")
+    if bm * bn > max_tile(version):
+        raise ValueError(f"{what}: bm * bn exceeds {max_tile(version)} at "
+                         f"version {version}")
     if bi % PC and bi < n_in:
         raise ValueError(f"{what}: bi must be a multiple of {PC} or cover "
                          f"all {n_in} features")
@@ -113,7 +123,7 @@ def check_blocks(blocks: Blocks, n_in: int, n_out: int, nbk: int,
     if nsplit > MAX_SPLIT:
         raise ValueError(f"{what}: {nsplit} blocks a cluster exceed "
                          f"{MAX_SPLIT} at n_in={n_in}")
-    smem = kernel_smem(bm, bi, bn, n_in, nbk, dtype)
+    smem = kernel_smem(bm, bi, bn, n_in, nbk, dtype, version)
     if smem > autotune.MAX_SMEM_BYTES:
         raise ValueError(f"{what}: {smem} bytes of shared memory exceed "
                          f"{autotune.MAX_SMEM_BYTES} at nbk={nbk}")
@@ -126,7 +136,8 @@ def check_blocks(blocks: Blocks, n_in: int, n_out: int, nbk: int,
 
 
 def default_blocks(B: int, n_in: int, n_out: int, nbk: int,
-                   dtype: torch.dtype) -> Blocks:
+                   dtype: torch.dtype,
+                   version: int = DEFAULT_VERSION) -> Blocks:
     """The knobs a launch takes when none is given or cached (the fastest
     candidates at vikin's KAN layers at B = 8 and 8192 on an H100): 8 or
     16 rows x 8 outputs at serving buckets, with the features split over
@@ -134,7 +145,7 @@ def default_blocks(B: int, n_in: int, n_out: int, nbk: int,
     SM; 32 x 32 tiles at large batches, where a grid of at least one wave
     walks every feature in one block (a split only adds the combine).  bi
     is a power of two (an autotune candidate); the tiles halve where the
-    shared memory would not fit."""
+    shared memory would not fit.  One rule for both versions."""
     bm = 8 if B <= 8 else 16 if B <= 16 else 32
     bn = min(8 if B <= 16 else 32, max(8, next_pow2(n_out)))
     nchunks = max(1, -(-n_in // PC))
@@ -145,7 +156,7 @@ def default_blocks(B: int, n_in: int, n_out: int, nbk: int,
         knob = {"bm": bm, "bi": PC * next_pow2(-(-nchunks // want)),
                 "bn": bn}
         try:
-            check_blocks(knob, n_in, n_out, nbk, dtype)
+            check_blocks(knob, n_in, n_out, nbk, dtype, version)
             return knob
         except ValueError:
             if bm == 8 and bn == 8:
@@ -164,32 +175,35 @@ def _as_blocks(blocks: Sequence[int]) -> Blocks:
 def resolve_blocks(B: int, n_in: int, n_out: int, nbk: int,
                    dtype: torch.dtype,
                    blocks: Optional[Sequence[int]] = None,
+                   version: int = DEFAULT_VERSION,
                    device: torch.device | str = "cuda") -> Blocks:
-    """(bm, bi, bn) for the version-2 kernel of ``dtype``: explicit >
-    cached (kernel ``kan_fused_v2``, the dtype telling f32 from int8) >
-    default by batch bucket, checked against what the kernel takes."""
-    return dict(zip(("bm", "bi", "bn"),
-                    _knobs(B, n_in, n_out, nbk, dtype, blocks, device)))
+    """(bm, bi, bn) for the kernel of ``dtype`` and ``version``: explicit >
+    cached (kernel ``kan_fused_v{version}``; at version 2 the dtype tells
+    f32 from int8) > default by batch bucket, checked against what the
+    kernel takes."""
+    return dict(zip(("bm", "bi", "bn"), _knobs(B, n_in, n_out, nbk, dtype,
+                                               blocks, device, version)))
 
 
 def _knobs(B: int, n_in: int, n_out: int, nbk: int, dtype: torch.dtype,
-           blocks: Optional[Sequence[int]],
-           device: torch.device | str) -> Tuple[int, int, int]:
+           blocks: Optional[Sequence[int]], device: torch.device | str,
+           version: int = DEFAULT_VERSION) -> Tuple[int, int, int]:
     """``resolve_blocks`` as a tuple; without ``blocks`` the answer for an
     exact shape is remembered in ``autotune.RESOLVED`` (dropped with the
     cache's other answers on a store, clear or new cache), so a served
     batch pays one dict lookup."""
     if blocks is not None:
         knob = _as_blocks(blocks)
-        check_blocks(knob, n_in, n_out, nbk, dtype)
+        check_blocks(knob, n_in, n_out, nbk, dtype, version)
         return knob["bm"], knob["bi"], knob["bn"]
-    key = autotune.memo_key(KERNEL, B, n_in, n_out, nbk, dtype, device)
+    kernel = KERNEL_V1 if version == 1 else KERNEL
+    key = autotune.memo_key(kernel, B, n_in, n_out, nbk, dtype, device)
     knobs = autotune.RESOLVED.get(key)
     if knobs is None:
-        knob = (autotune.cached_blocks(KERNEL, (B, n_in, n_out, nbk), dtype,
+        knob = (autotune.cached_blocks(kernel, (B, n_in, n_out, nbk), dtype,
                                        device)
-                or default_blocks(B, n_in, n_out, nbk, dtype))
-        check_blocks(knob, n_in, n_out, nbk, dtype)
+                or default_blocks(B, n_in, n_out, nbk, dtype, version))
+        check_blocks(knob, n_in, n_out, nbk, dtype, version)
         knobs = autotune.RESOLVED[key] = knob["bm"], knob["bi"], knob["bn"]
     return knobs
 
@@ -302,11 +316,17 @@ def kan_fused_v2(x: torch.Tensor, wt: torch.Tensor, spec: SplineSpec,
 
 def kan_fused_v1(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
                  spec: SplineSpec, kb: Tuple[int, ...],
-                 slot_of: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 slot_of: Optional[torch.Tensor] = None, *,
+                 blocks: Optional[Sequence[int]] = None) -> torch.Tensor:
     """One KAN layer, version 1: (B, n_in) x against the unfused ``w_b``
     (n_in, n_out) and ``t_flat`` (n_in*nbk, n_out), the silu and spline
-    branches summed apart and added once."""
+    branches summed apart and added once.  ``blocks`` overrides the
+    kernel's (bm, bi, bn); None consults the autotune cache (kernel
+    ``kan_fused_v1``) before the defaults."""
     if x.device.type == "cpu":
+        if blocks is not None:
+            check_blocks(_as_blocks(blocks), x.shape[-1], w_b.shape[-1],
+                         len(kb), torch.float32, version=1)
         return kan_fused_v1_ref(x, w_b, t_flat, spec, kb)
     if x.device.type != "cuda":
         raise ValueError(f"kan_fused_v1: no kernel for device {x.device}")
@@ -319,16 +339,17 @@ def kan_fused_v1(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
         [("x", x, torch.float32), ("w_b", w_b, torch.float32),
          ("t_flat", t_flat, torch.float32),
          ("slot_of", slot_of, torch.int32)], "this kernel is f32 only")
-    if B > 65535 * 16:
-        raise ValueError(f"kan_fused_v1: batch {B} exceeds the grid limit")
     out = torch.empty((B, n_out), dtype=torch.float32, device=x.device)
     if B == 0 or n_out == 0:
         return out
+    bm, bi, bn = _knobs(B, n_in, n_out, nbk, torch.float32, blocks, x.device,
+                        version=1)
     _build.launch(
         KERNEL_V1, x.data_ptr(), w_b.data_ptr(), t_flat.data_ptr(),
         slot_of.data_ptr(), out.data_ptr(), B, n_in, n_out, nbk,
         spec.grid_size, spec.order, float(spec.x0), float(spec.clip_hi),
-        float(spec.inv_h), torch.cuda.current_stream(x.device).cuda_stream)
+        float(spec.inv_h), bm, bi, bn,
+        torch.cuda.current_stream(x.device).cuda_stream)
     return out
 
 
@@ -384,14 +405,11 @@ def kan_linear(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
     ``w_b`` and ``t_flat`` apart.  Functional form of the JAX
     ``kan_linear``: at version 2 it fuses the weights on every call;
     ``core/kan.KANLayer`` does so once instead.  ``blocks`` overrides the
-    version-2 kernel's (bm, bi, bn); the version-1 kernel has no knobs.
+    kernel's (bm, bi, bn) at either version.
     """
     if version not in (1, 2):
         raise ValueError(f"kan_linear: version must be 1 or 2, got "
                          f"{version!r}")
-    if version == 1 and blocks is not None:
-        raise ValueError("kan_linear: blocks= applies to the version-2 "
-                         "kernel; the version-1 kernel has no knobs")
     lead = x.shape[:-1]
     n_in = x.shape[-1]
     xf = x.reshape(-1, n_in).contiguous()
@@ -400,7 +418,8 @@ def kan_linear(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
         wt = fuse_wt(w_b, t_flat, len(kb))
         y = kan_fused_v2(xf, wt, spec, kb, blocks=blocks)
     else:
-        y = kan_fused_v1(xf, w_b.contiguous(), t_flat.contiguous(), spec, kb)
+        y = kan_fused_v1(xf, w_b.contiguous(), t_flat.contiguous(), spec, kb,
+                         blocks=blocks)
     return y.reshape(*lead, w_b.shape[-1])
 
 

@@ -5,10 +5,13 @@ the plain version (``ref.spline_basis_plain``, f32 or bf16); a CUDA tensor
 launches the hand-written kernel ``csrc/spline_basis.cu`` (f32 only) or
 raises.  There is no fallback from the kernel to its plain version.
 
-The kernel's one launch knob, ``block_n`` (inputs, one per thread, a
-block takes), resolves: explicit argument > autotune-cache hit for (n
-bucket, dtype, card) > a measured search when ``REPRO_TORCH_AUTOTUNE=1``
-> ``DEFAULT_BLOCK_N``.  It changes no result.
+The kernel's one launch knob, ``block_n``, is the number of consecutive
+inputs a block takes (the JAX kernel's block): a power of two from 32 to
+4096 whose (block_n, G+K) output stretch fits in the block's shared
+memory; a block has min(block_n, 256) threads.  It resolves: explicit
+argument > autotune-cache hit for (n bucket, dtype, card) > a measured
+search when ``REPRO_TORCH_AUTOTUNE=1`` > ``DEFAULT_BLOCK_N``, and is
+checked (``check_block_n``) on the CPU too.  It changes no result.
 """
 from __future__ import annotations
 
@@ -22,6 +25,28 @@ from repro_torch.kernels.spline_basis.ref import spline_basis_plain
 
 KERNEL = "spline_basis"
 DEFAULT_BLOCK_N = 256
+MIN_BLOCK_N = 32
+MAX_BLOCK_N = 4096
+
+
+def kernel_smem(block_n: int, n_bases: int) -> int:
+    """Shared memory, in bytes, a block uses (csrc/spline_basis.cu's
+    smem_bytes): its output stretch and 3 words of alignment slack,
+    rounded to 16 bytes."""
+    return 4 * (block_n * n_bases + 4)
+
+
+def check_block_n(block_n: int, n_bases: int) -> None:
+    """Raise ``ValueError`` unless the kernel takes ``block_n`` at
+    ``n_bases`` basis columns."""
+    if not MIN_BLOCK_N <= block_n <= MAX_BLOCK_N or block_n & (block_n - 1):
+        raise ValueError(f"spline_basis: block_n {block_n} is not a power "
+                         f"of two in {MIN_BLOCK_N}..{MAX_BLOCK_N}")
+    smem = kernel_smem(block_n, n_bases)
+    if smem > autotune.MAX_SMEM_BYTES:
+        raise ValueError(f"spline_basis: block_n {block_n} needs {smem} "
+                         f"bytes of shared memory at {n_bases} bases, more "
+                         f"than {autotune.MAX_SMEM_BYTES}")
 
 
 def resolve_block_n(n: int, n_bases: int, dtype: torch.dtype,
@@ -29,19 +54,22 @@ def resolve_block_n(n: int, n_bases: int, dtype: torch.dtype,
                     device: torch.device | str = "cuda",
                     tune: Optional[Callable[[], Dict[str, int]]] = None
                     ) -> int:
-    """block_n for the kernel: explicit > cached > searched > default.
+    """block_n for the kernel: explicit > cached > searched > default,
+    checked against what the kernel takes.
 
     ``tune`` runs the search on a cache miss when ``REPRO_TORCH_AUTOTUNE``
     is set; it stores what it finds, so the next call hits the cache.
     """
-    if block_n is not None:
-        return int(block_n)
-    hit = autotune.cached_blocks(KERNEL, (n, n_bases), dtype, device)
-    if hit is not None:
-        return hit["block_n"]
-    if tune is not None and autotune.autotune_enabled():
-        return tune()["block_n"]
-    return DEFAULT_BLOCK_N
+    if block_n is None:
+        hit = autotune.cached_blocks(KERNEL, (n, n_bases), dtype, device)
+        if hit is not None:
+            block_n = hit["block_n"]
+        elif tune is not None and autotune.autotune_enabled():
+            block_n = tune()["block_n"]
+        else:
+            block_n = DEFAULT_BLOCK_N
+    check_block_n(int(block_n), n_bases)
+    return int(block_n)
 
 
 def _launch(x: torch.Tensor, spec: SplineSpec,
@@ -49,18 +77,16 @@ def _launch(x: torch.Tensor, spec: SplineSpec,
     """The CUDA kernel on flat contiguous ``x``: (n,) -> (n, G+K)."""
     if x.dtype != torch.float32:
         raise TypeError(f"spline_basis: the CUDA kernel is f32 only, got "
-                        f"{x.dtype} (bf16 kernels are ROADMAP item 7)")
+                        f"{x.dtype} (the bf16 kernel is ROADMAP queue 2 "
+                        f"item 3)")
     n, nb = x.shape[0], spec.n_bases
     out = torch.empty((n, nb), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    if n > 2**31 - 1 - autotune.MAX_THREADS_PER_BLOCK:
+    if n > 2**31 - 1 - MAX_BLOCK_N:
         raise ValueError(f"spline_basis: {n} inputs exceed the grid limit")
     bn = resolve_block_n(n, nb, x.dtype, block_n, x.device,
                          tune=lambda: autotune.tune_spline_basis(x, spec))
-    if not 1 <= bn <= autotune.MAX_THREADS_PER_BLOCK:
-        raise ValueError(f"spline_basis: block_n {bn} is not in 1.."
-                         f"{autotune.MAX_THREADS_PER_BLOCK}")
     _build.launch(KERNEL, x.data_ptr(), out.data_ptr(), n, spec.grid_size,
                   spec.order, float(spec.x0), float(spec.inv_h), bn,
                   torch.cuda.current_stream(x.device).cuda_stream)
@@ -70,9 +96,12 @@ def _launch(x: torch.Tensor, spec: SplineSpec,
 def spline_basis(x: torch.Tensor, spec: SplineSpec, *,
                  block_n: Optional[int] = None) -> torch.Tensor:
     """Dense (..., G+K) basis values of ``x`` (not clipped: inputs outside
-    [x0, x1) get their edge cell's extrapolated values)."""
+    [x0, x1) get their edge cell's extrapolated values).  ``block_n``
+    (inputs a block) is checked on the CPU too."""
     flat = x.reshape(-1)
     if x.device.type == "cpu":
+        if block_n is not None:
+            check_block_n(int(block_n), spec.n_bases)
         out = spline_basis_plain(flat, spec)
     elif x.device.type == "cuda":
         out = _launch(flat.contiguous(), spec, block_n)

@@ -152,14 +152,24 @@ def test_search_lets_a_failing_candidate_raise(tmp_cache):
 
 
 def test_candidates_fit_the_card():
+    """``block_n`` is inputs a block: powers of two from 256, none above
+    n's bucket, and none whose output stretch overflows shared memory."""
     for n in (1, 100, 300, 4096, 10 ** 7):
-        cands = autotune.candidates_spline_basis(n)
-        assert cands and all(
-            1 <= c["block_n"] <= autotune.MAX_THREADS_PER_BLOCK
-            for c in cands)
-    assert autotune.candidates_spline_basis(1) == [{"block_n": 64}]
-    assert [c["block_n"] for c in autotune.candidates_spline_basis(300)] \
-        == [64, 128, 256, 512]
+        for nb in (3, 7, 20):
+            cands = autotune.candidates_spline_basis(n, nb)
+            assert cands
+            for c in cands:
+                sb_ops.check_block_n(c["block_n"], nb)
+                assert sb_ops.kernel_smem(c["block_n"], nb) <= \
+                    autotune.MAX_SMEM_BYTES
+    assert autotune.candidates_spline_basis(1, 7) == [{"block_n": 256}]
+    assert [c["block_n"] for c in autotune.candidates_spline_basis(300, 7)] \
+        == [256, 512]
+    # 4096 inputs of 20 bases (320 KB) do not fit; of 7 (112 KB) they do
+    assert [c["block_n"] for c in autotune.candidates_spline_basis(
+        10 ** 7, 20)] == [256, 512, 1024, 2048]
+    assert [c["block_n"] for c in autotune.candidates_spline_basis(
+        10 ** 7, 7)] == [256, 512, 1024, 2048, 4096]
 
 
 def test_cpu_search_is_never_served_to_the_card(tmp_cache, card):

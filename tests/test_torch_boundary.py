@@ -64,11 +64,12 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     assert _build.library_path("k") == before
     hdr.write_text("#pragma once\nconstexpr int A = 2;\n")
     assert _build.library_path("k") != before
-    for name in ("kan_fused_v2", "kan_fused_v2_q8"):
+    # the three KAN kernels share one body; the spline basis only spu()
+    for name in ("kan_fused_v2", "kan_fused_v2_q8", "kan_fused_v1"):
         files = _build.source_files(_build.KERNELS[name][0])
         assert [f.name for f in files[1:]] == [
             "kan_split.cuh", "staging.cuh", "kan_fused.cuh"], name
-    files = _build.source_files(_build.KERNELS["kan_fused_v1"][0])
+    files = _build.source_files(_build.KERNELS["spline_basis"][0])
     assert [f.name for f in files[1:]] == ["kan_fused.cuh"]
 
 
@@ -120,3 +121,42 @@ def test_chip_smoke_alone_fails_without_output(tmp_path):
                          timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_resource_usage_parses_ptxas(tmp_path, monkeypatch):
+    """``resource_usage`` runs one compiler per source and reads each
+    entry's registers, stack and spills from what ``ptxas -v`` prints."""
+    from repro_torch.kernels import _build
+
+    report = tmp_path / "ptxas.txt"
+    report.write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z1kILi8EEvv' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1kILi8EEvv\n"
+        "    80 bytes stack frame, 384 bytes spill stores, 340 bytes "
+        "spill loads\n"
+        "ptxas info    : Used 255 registers, used 1 barriers, 80 bytes "
+        "cumulative stack size\n"
+        "ptxas info    : Compiling entry function '_Z1kILi4EEvv' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1kILi4EEvv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 149 registers, used 1 barriers\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"#!/bin/sh\necho \"$@\" >> {tmp_path}/argv\n"
+                    f"cat {report}\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    got = _build.resource_usage(["kan_fused_v1", "spline_basis"])
+    want = [{"entry": "_Z1kILi8EEvv", "stack": 80, "spill_stores": 384,
+             "spill_loads": 340, "registers": 255},
+            {"entry": "_Z1kILi4EEvv", "stack": 0, "spill_stores": 0,
+             "spill_loads": 0, "registers": 149}]
+    assert got == {"kan_fused_v1": want, "spline_basis": want}
+    argv = (tmp_path / "argv").read_text().splitlines()
+    assert len(argv) == 2 and all("-cubin" in a and "-Xptxas -v" in a
+                                  for a in argv)
+    assert not any("-shared" in a for a in argv)
+

@@ -452,7 +452,8 @@ def test_spline_basis_kernel_bitwise(cuda, G, K):
         x = torch.from_numpy(rng.uniform(-2.5, 2.5, n).astype(
             np.float32)).to(cuda)
         plain = spline_basis_plain(x, spec)
-        for cand in autotune.candidates_spline_basis(n):
+        for cand in autotune.candidates_spline_basis(n, spec.n_bases) + [
+                {"block_n": 32}, {"block_n": 128}]:
             got = spline_basis(x, spec, block_n=cand["block_n"])
             torch.cuda.synchronize()
             assert torch.equal(got, plain), (n, cand)
@@ -465,11 +466,42 @@ def test_spline_basis_kernel_bitwise(cuda, G, K):
 def test_spline_basis_kernel_refuses_bf16_and_bad_block_n(cuda):
     spec = SplineSpec(4, 3)
     x = torch.linspace(-1, 1, 64, device=cuda)
-    with pytest.raises(TypeError, match="ROADMAP item 7"):
+    with pytest.raises(TypeError, match="ROADMAP queue 2 item 3"):
         spline_basis(x.bfloat16(), spec)
-    for bn in (0, 2048):
+    before = dict(_build.LAUNCHES)
+    for bn in (0, 48, 8192):
         with pytest.raises(ValueError, match="block_n"):
             spline_basis(x, spec, block_n=bn)
+    with pytest.raises(ValueError, match="shared memory"):
+        spline_basis(x, SplineSpec(16, 4), block_n=4096)
+    assert dict(_build.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("G,K", [(4, 3), (16, 4), (2, 1)])
+def test_spline_basis_kernel_misaligned_output_bitwise(cuda, G, K):
+    """An output that starts 4, 8 or 12 bytes past a 16-byte boundary,
+    and ragged tiles: the words before the first aligned one and the tail
+    are stored one at a time, the rest 16 bytes at a time, bitwise the
+    plain version's and with no word outside the output touched."""
+    spec = SplineSpec(G, K)
+    nb = spec.n_bases
+    rng = np.random.default_rng(G + K)
+    for n in (1, 3, 1025, 5000):
+        x = torch.from_numpy(rng.uniform(-2.5, 2.5, n).astype(
+            np.float32)).to(cuda)
+        plain = spline_basis_plain(x, spec)
+        for off in (1, 2, 3):
+            for bn in (32, 256, 1024):
+                buf = torch.full((n * nb + 8,), -7.0, device=cuda)
+                _build.launch("spline_basis", x.data_ptr(),
+                              buf[off:].data_ptr(), n, G, K,
+                              float(spec.x0), float(spec.inv_h), bn,
+                              torch.cuda.current_stream(cuda).cuda_stream)
+                torch.cuda.synchronize()
+                got = buf[off:off + n * nb].reshape(n, nb)
+                assert torch.equal(got, plain), (n, off, bn)
+                assert bool((buf[:off] == -7.0).all())
+                assert bool((buf[off + n * nb:] == -7.0).all())
 
 
 @pytest.mark.parametrize("G,K,rate", [(4, 3, 0.5), (16, 4, 0.0),
@@ -708,6 +740,123 @@ def test_kan_config_blocks_reach_the_kernel(cuda, tmp_path, monkeypatch):
         assert fresh.lookup(autotune.cache_key(
             "kan_fused_v2", (8, 304, 32, len(kb)), torch.float32,
             cuda)) == best
+        assert torch.equal(KANLayer(cfg, params)(x), base)
+    finally:
+        autotune.reset_cache()
+
+
+@pytest.mark.parametrize("B", [8, 8192])
+@pytest.mark.parametrize("n_in,n_out", VIKIN_KANS)
+def test_every_v1_knob_gives_the_default_output_bitwise(cuda, B, n_in,
+                                                        n_out):
+    """The version-1 kernel at every candidate (bm, bi, bn): bitwise the
+    default knob's output, which is within tolerance of the plain version
+    and of the v2 kernel on the same weights."""
+    spec, kb = SplineSpec(4, 3), KAN_KB
+    nbk = len(kb)
+    x, wt = _kan_case(cuda, B + n_in + 2, B, n_in, n_out, spec, kb)
+    w3 = wt.reshape(n_in, nbk + 1, n_out)
+    w_b = w3[:, 0].contiguous()
+    t_flat = w3[:, 1:].reshape(n_in * nbk, n_out).contiguous()
+    slot = slot_table(kb, spec.n_bases, cuda)
+    ref = kan_fused_v1(x, w_b, t_flat, spec, kb, slot)
+    _close(ref, kan_fused_v1_ref(x, w_b, t_flat, spec, kb))
+    _close(ref, kan_fused_v2(x, wt, spec, kb, slot))
+    cands = autotune.candidates_kan_fused(B, n_in, n_out, nbk,
+                                          torch.float32, 1)
+    assert cands
+    for c in cands:
+        got = kan_fused_v1(x, w_b, t_flat, spec, kb, slot,
+                           blocks=_kan_knob(c))
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), c
+
+
+@pytest.mark.parametrize("n_in,n_out", [(37, 13), (300, 33), (1, 5)])
+def test_v1_at_ragged_widths_under_every_knob(cuda, n_in, n_out):
+    spec = SplineSpec(4, 3)
+    kb = (0, 2, 4, 5, 6)
+    x, wt = _kan_case(cuda, n_in + n_out + 3, 19, n_in, n_out, spec, kb)
+    w3 = wt.reshape(n_in, len(kb) + 1, n_out)
+    w_b = w3[:, 0].contiguous()
+    t_flat = w3[:, 1:].reshape(n_in * len(kb), n_out).contiguous()
+    ref = kan_fused_v1(x, w_b, t_flat, spec, kb)
+    _close(ref, kan_fused_v1_ref(x, w_b, t_flat, spec, kb))
+    for c in autotune.candidates_kan_fused(19, n_in, n_out, len(kb),
+                                           torch.float32, 1):
+        assert torch.equal(kan_fused_v1(x, w_b, t_flat, spec, kb,
+                                        blocks=_kan_knob(c)), ref), c
+
+
+def test_v1_batched_equals_single_under_different_knobs(cuda):
+    spec, kb = SplineSpec(4, 3), KAN_KB
+    x, wt = _kan_case(cuda, 26, 37, 304, 32, spec, kb)
+    w3 = wt.reshape(304, len(kb) + 1, 32)
+    w_b = w3[:, 0].contiguous()
+    t_flat = w3[:, 1:].reshape(304 * len(kb), 32).contiguous()
+    full = kan_fused_v1(x, w_b, t_flat, spec, kb, blocks=(32, 512, 32))
+    for c in autotune.candidates_kan_fused(2, 304, 32, len(kb),
+                                           torch.float32, 1):
+        for lo, hi in ((0, 1), (5, 7), (35, 37)):
+            assert torch.equal(kan_fused_v1(x[lo:hi].contiguous(), w_b,
+                                            t_flat, spec, kb,
+                                            blocks=_kan_knob(c)),
+                               full[lo:hi]), (c, lo, hi)
+
+
+def test_v1_runs_more_row_tiles_than_grid_y_holds(cuda):
+    """B = 65535 * 16 + 1 at vikin-kan2's 72->96 (row tiles sit on
+    grid.x): one launch, within tolerance of the v2 kernel and of the
+    plain version."""
+    spec, kb = SplineSpec(4, 3), KAN_KB
+    B = 65535 * 16 + 1
+    gen = torch.Generator(device=cuda).manual_seed(27)
+    x = torch.rand((B, 72), generator=gen, device=cuda) * 3.0 - 1.5
+    wt = torch.randn((72 * (len(kb) + 1), 96), generator=gen,
+                     device=cuda) * 0.1
+    w3 = wt.reshape(72, len(kb) + 1, 96)
+    w_b = w3[:, 0].contiguous()
+    t_flat = w3[:, 1:].reshape(72 * len(kb), 96).contiguous()
+    before = dict(_build.LAUNCHES)
+    got = kan_fused_v1(x, w_b, t_flat, spec, kb)
+    assert _build.LAUNCHES["kan_fused_v1"] == before["kan_fused_v1"] + 1
+    assert got.shape == (B, 96)
+    _close(got, kan_fused_v2(x, wt, spec, kb))
+    _close(got, kan_fused_v1_ref(x, w_b, t_flat, spec, kb))
+
+
+def test_v1_layer_takes_config_blocks_and_tunes(cuda, tmp_path,
+                                                monkeypatch):
+    """``KANConfig(version=1, blocks=...)`` is the knob the v1 layer
+    launches with (one launch a call), and a version-1 search round-trips
+    under ``kan_fused_v1`` and changes no bit."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    monkeypatch.delenv("REPRO_TORCH_AUTOTUNE", raising=False)
+    autotune.reset_cache()
+    try:
+        cfg = KANConfig(304, 32, SplineSpec(4, 3), pattern=(1, 0, 1, 1),
+                        version=1)
+        params = kan_init(cfg, torch.Generator().manual_seed(28))
+        params = {k: v.to(cuda) for k, v in params.items()}
+        x = torch.rand((8, 304), generator=torch.Generator().manual_seed(
+            29)).to(cuda)
+        layer = KANLayer(cfg, params)
+        base = layer(x)
+        for knob in ((8, 32, 8), (8, 128, 16), (64, 512, 32)):
+            before = dict(_build.LAUNCHES)
+            got = KANLayer(dataclasses.replace(cfg, blocks=knob), params)(x)
+            after = dict(_build.LAUNCHES)
+            assert after["kan_fused_v1"] == before["kan_fused_v1"] + 1
+            assert sum(after.values()) == sum(before.values()) + 1
+            assert torch.equal(got, base), knob
+        best = autotune.tune_kan_fused(x, layer.w_b, cfg.spec, layer.kb,
+                                       version=1, t_flat=layer.t_flat)
+        dims = (8, 304, 32, len(layer.kb))
+        assert best in autotune.candidates_kan_fused(*dims, torch.float32, 1)
+        fresh = autotune.AutotuneCache(autotune.get_cache().path)
+        assert fresh.lookup(autotune.cache_key(
+            "kan_fused_v1", dims, torch.float32, cuda)) == best
         assert torch.equal(KANLayer(cfg, params)(x), base)
     finally:
         autotune.reset_cache()

@@ -1,9 +1,11 @@
-"""Launch-time knobs of the version-2 KAN kernels, on the CPU.
+"""Launch-time knobs of the KAN kernels (version 2, f32 and int8, and
+version 1), on the CPU.
 
 ``resolve_blocks`` against the JAX one on temporary caches (explicit >
-cache hit > default), the candidate grid and its pruning, knob checks
-that raise on the CPU too, the once-per-process cache resolution, the
-serving launcher's tuning step, ``tune_kan_fused``, and ``kan_linear``,
+cache hit > default, under ``kan_fused_v{version}``), the candidate grid
+and its pruning, knob checks that raise on the CPU too, the
+once-per-process cache resolution, the serving launcher's tuning step,
+``tune_kan_fused`` at both versions, and ``kan_linear``,
 ``kan_linear_q8`` and ``KANLayer`` with ``blocks`` against the JAX
 functions run through the Pallas kernels in interpret mode with the same
 ``(bm, bi, bn)``.  On the CPU the port runs its plain versions, whatever
@@ -79,43 +81,55 @@ def _q8_inputs(seed, B, n_in, n_out, nbk):
     return x_q, wt_q, ss
 
 
-@pytest.mark.parametrize("dtype", ["float32", "int8"])
-def test_resolve_blocks_precedence_matches_jax(caches, dtype):
-    """explicit > cache hit > default, in both packages, f32 and int8
-    under kernel "kan_fused_v2" keyed by the dtype."""
+@pytest.mark.parametrize("dtype,version", [("float32", 2), ("int8", 2),
+                                           ("float32", 1)],
+                         ids=["float32", "int8", "float32-v1"])
+def test_resolve_blocks_precedence_matches_jax(caches, dtype, version):
+    """explicit > cache hit > default, in both packages: f32 and int8
+    under kernel "kan_fused_v2" keyed by the dtype, version 1 under
+    "kan_fused_v1"."""
     B, n_in, n_out, nbk = 48, 304, 32, 5
     tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    kernel = f"kan_fused_v{version}"
     explicit = (16, 64, 32)
     want_explicit = {"bm": 16, "bi": 64, "bn": 32}
     # nothing cached: each package's own default
-    assert jkf.resolve_blocks(B, n_in, n_out, nbk, jdt, backend="cpu") == {
+    assert jkf.resolve_blocks(B, n_in, n_out, nbk, jdt, version=version,
+                              backend="cpu") == {
         "bm": 128, "bi": 64, "bn": 128}
-    assert tkf.resolve_blocks(B, n_in, n_out, nbk, tdt, device="cpu") == \
-        tkf.default_blocks(B, n_in, n_out, nbk, tdt)
+    assert tkf.resolve_blocks(B, n_in, n_out, nbk, tdt, version=version,
+                              device="cpu") == \
+        tkf.default_blocks(B, n_in, n_out, nbk, tdt, version)
     for got in (jkf.resolve_blocks(B, n_in, n_out, nbk, jdt, explicit,
-                                   backend="cpu"),
+                                   version, backend="cpu"),
                 tkf.resolve_blocks(B, n_in, n_out, nbk, tdt, explicit,
-                                   device="cpu")):
+                                   version, device="cpu")):
         assert got == want_explicit
     hit = {"bm": 32, "bi": 128, "bn": 16}
     dims = (B, n_in, n_out, nbk)
     jax_autotune.get_cache().store(jax_autotune.cache_key(
-        "kan_fused_v2", dims, jdt, "cpu"), hit)
+        kernel, dims, jdt, "cpu"), hit)
     autotune.get_cache().store(autotune.cache_key(
-        "kan_fused_v2", dims, tdt, "cpu"), hit)
-    assert jkf.resolve_blocks(*dims, jdt, backend="cpu") == hit
-    assert tkf.resolve_blocks(*dims, tdt, device="cpu") == hit
+        kernel, dims, tdt, "cpu"), hit)
+    assert jkf.resolve_blocks(*dims, jdt, version=version,
+                              backend="cpu") == hit
+    assert tkf.resolve_blocks(*dims, tdt, version=version,
+                              device="cpu") == hit
     # the same bucket is served the same entry; explicit still wins
     assert tkf.resolve_blocks(B + 10, n_in + 100, n_out - 3, nbk + 1, tdt,
-                              device="cpu") == hit
-    assert jkf.resolve_blocks(*dims, jdt, explicit,
+                              version=version, device="cpu") == hit
+    assert jkf.resolve_blocks(*dims, jdt, explicit, version,
                               backend="cpu") == want_explicit
-    assert tkf.resolve_blocks(*dims, tdt, explicit,
+    assert tkf.resolve_blocks(*dims, tdt, explicit, version,
                               device="cpu") == want_explicit
-    # the other dtype's entry is not this one's
+    # the other dtype's and the other version's entries are not this one's
     other = torch.int8 if dtype == "float32" else torch.float32
-    assert tkf.resolve_blocks(*dims, other, device="cpu") == \
-        tkf.default_blocks(*dims, other)
+    assert tkf.resolve_blocks(*dims, other, version=version,
+                              device="cpu") == \
+        tkf.default_blocks(*dims, other, version)
+    assert tkf.resolve_blocks(*dims, tdt, version=3 - version,
+                              device="cpu") == \
+        tkf.default_blocks(*dims, tdt, 3 - version)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
@@ -141,6 +155,29 @@ def test_candidates_fit_the_card_and_cap_the_tiles(dtype, B, n_in, n_out,
     # the default is a knob the kernel takes, and a candidate
     default = tkf.default_blocks(B, n_in, n_out, nbk, dtype)
     tkf.check_blocks(default, n_in, n_out, nbk, dtype)
+    assert default in cands
+
+
+@pytest.mark.parametrize("B,n_in,n_out,nbk", [
+    (1, 1, 1, 1), (8, 304, 32, 5), (8, 72, 96, 5), (16, 37, 13, 20),
+    (8192, 304, 32, 5), (8192, 72, 96, 5), (300, 300, 33, 2),
+    (4, 0, 8, 3), (64, 1000, 200, 20)])
+def test_v1_candidates_fit_the_card_and_the_v1_limits(B, n_in, n_out, nbk):
+    """The version-1 grid: every candidate the version-1 kernel takes
+    (half the tile, two partial sets a cluster member), a subset of the
+    f32 version-2 grid, and the default among them."""
+    cands = autotune.candidates_kan_fused(B, n_in, n_out, nbk,
+                                          torch.float32, 1)
+    assert cands
+    v2 = autotune.candidates_kan_fused(B, n_in, n_out, nbk, torch.float32)
+    assert all(c in v2 for c in cands)
+    for c in cands:
+        tkf.check_blocks(c, n_in, n_out, nbk, torch.float32, 1)
+        assert c["bm"] * c["bn"] <= tkf.MAX_TILE // 2
+        assert tkf.kernel_smem(c["bm"], c["bi"], c["bn"], n_in, nbk,
+                               torch.float32, 1) <= autotune.MAX_SMEM_BYTES
+    default = tkf.default_blocks(B, n_in, n_out, nbk, torch.float32, 1)
+    tkf.check_blocks(default, n_in, n_out, nbk, torch.float32, 1)
     assert default in cands
 
 
@@ -180,6 +217,20 @@ def test_kernel_models_mirror_the_sources():
     # all features in one block: two stages, no partials
     words = 64 + 2 * (192 * 32 + 64 * 32) + 64 * 260
     assert tkf.kernel_smem(64, 512, 32, 304, 5, torch.float32) == 4 * words
+    # version 1 keeps two partial sets (silu and spline chains) when split
+    assert tkf.kernel_smem(64, 512, 32, 304, 5, torch.float32, 1) == \
+        4 * words
+    words = 64 + (192 * 8 + 8 * 32) + 8 * 260 + 2 * 8 * 8
+    assert tkf.kernel_smem(8, 32, 8, 304, 5, torch.float32, 1) == 4 * words
+    # 64 x 64 tiles, two chunks a block: fits at version 2, not at 1
+    knob = {"bm": 64, "bi": 64, "bn": 64}
+    tkf.check_blocks(knob, 304, 64, 5, torch.float32)
+    assert tkf.kernel_smem(64, 64, 64, 304, 5, torch.float32, 1) - \
+        tkf.kernel_smem(64, 64, 64, 304, 5, torch.float32) == 4 * 2 * 64 * 64
+    with pytest.raises(ValueError, match="shared memory"):
+        tkf.check_blocks(knob, 304, 64, 5, torch.float32, 1)
+    # two chains at 8 rows a thread spill: version 1 stops at half the tile
+    assert (tkf.max_tile(1), tkf.max_tile(2)) == (4096, 8192)
 
 
 @pytest.mark.parametrize("blocks,n_in,match", [
@@ -190,7 +241,7 @@ def test_kernel_models_mirror_the_sources():
     ((128, 512, 64), 2000, "shared memory"),
     ((64, 32, 64), 300, "two blocks an SM"),
 ])
-@pytest.mark.parametrize("precision", ["f32", "int8"])
+@pytest.mark.parametrize("precision", ["f32", "int8", "v1"])
 def test_bad_knobs_raise_on_cpu(blocks, n_in, match, precision):
     nbk = 20 if match == "shared memory" else 5
     spec = tsl.SplineSpec(16, 4) if nbk == 20 else tsl.SplineSpec(4, 3)
@@ -205,6 +256,23 @@ def test_bad_knobs_raise_on_cpu(blocks, n_in, match, precision):
         with pytest.raises(ValueError, match=match):
             tkf.kan_linear_q8(*args, ss, spec, kb, x_scale=0.01,
                               blocks=blocks)
+    elif precision == "v1":
+        x, w_b, t = _kan_inputs(2, 3, n_in, 40, spec.n_bases)
+        xt, wbt = torch.from_numpy(x), torch.from_numpy(w_b)
+        t_flat = tkf.flatten_t(torch.from_numpy(t), kb)
+        match = match.replace("8192", "4096")     # half the tile at v1
+        if match == "shared memory":              # a tile v1 takes
+            blocks = (64, 512, 64)
+        with pytest.raises(ValueError, match=match):
+            tkf.kan_fused_v1(xt, wbt, t_flat, spec, kb, blocks=blocks)
+        with pytest.raises(ValueError, match=match):
+            tkf.kan_linear(xt, wbt, t_flat, spec, kb, version=1,
+                           blocks=blocks)
+        cfg = tkan.KANConfig(n_in, 40, spec, basis_keep=kb, version=1,
+                             blocks=blocks)
+        layer = tkan.KANLayer(cfg, {"w_b": wbt, "t": torch.from_numpy(t)})
+        with pytest.raises(ValueError, match=match):
+            layer(xt)
     else:
         x, w_b, t = _kan_inputs(2, 3, n_in, 40, spec.n_bases)
         t_flat = tkf.flatten_t(torch.from_numpy(t), kb)
@@ -218,14 +286,51 @@ def test_bad_knobs_raise_on_cpu(blocks, n_in, match, precision):
     assert dict(_build.LAUNCHES) == before
 
 
-def test_version_1_takes_no_knobs():
-    x, w_b, t = _kan_inputs(3, 2, 8, 4, 7)
-    with pytest.raises(ValueError, match="version-2"):
-        tkan.KANConfig(8, 4, version=1, blocks=(8, 32, 8))
-    with pytest.raises(ValueError, match="version-2"):
-        tkf.kan_linear(torch.from_numpy(x), torch.from_numpy(w_b),
-                       tkf.flatten_t(torch.from_numpy(t)),
-                       tsl.SplineSpec(4, 3), version=1, blocks=(8, 32, 8))
+def test_version_1_tile_limit_is_half_of_version_2():
+    """A tile the version-2 kernel takes and the version-1 one does not
+    (two chains at 8 rows a thread would spill) raises at version 1
+    only."""
+    spec = tsl.SplineSpec(4, 3)
+    x, w_b, t = _kan_inputs(6, 3, 32, 64, spec.n_bases)
+    xt, wbt = torch.from_numpy(x), torch.from_numpy(w_b)
+    t_flat = tkf.flatten_t(torch.from_numpy(t), KB)
+    ref = tkf.kan_linear(xt, wbt, t_flat, spec, KB, version=1)
+    tkf.kan_linear(xt, wbt, t_flat, spec, KB, blocks=(128, 32, 64))
+    with pytest.raises(ValueError, match="exceeds 4096"):
+        tkf.kan_linear(xt, wbt, t_flat, spec, KB, version=1,
+                       blocks=(128, 32, 64))
+    got = tkf.kan_linear(xt, wbt, t_flat, spec, KB, version=1,
+                         blocks=(64, 32, 64))
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("blocks", BLOCKS)
+@pytest.mark.parametrize("B,n_in,n_out,kb", [(2, 37, 13, KB),
+                                             (9, 72, 32, None)])
+def test_version_1_takes_knobs_like_jax(B, n_in, n_out, kb, blocks):
+    """``KANConfig(version=1, blocks=...)``, ``KANLayer`` on it, and
+    ``kan_linear(..., version=1, blocks=...)`` are taken, as the JAX
+    package takes them, and match JAX ``kan_linear(impl=
+    "pallas_interpret", version=1)`` with the same (bm, bi, bn)."""
+    js, ts = jsl.SplineSpec(4, 3), tsl.SplineSpec(4, 3)
+    x, w_b, t = _kan_inputs([B, n_in, n_out, 1], B, n_in, n_out, 7)
+    ref = jkf.kan_linear(jnp.asarray(x), jnp.asarray(w_b),
+                         jkf.flatten_t(jnp.asarray(t), kb), js, kb,
+                         impl="pallas_interpret", version=1, blocks=blocks)
+    xt, wbt, tt = (torch.from_numpy(a) for a in (x, w_b, t))
+    got = tkf.kan_linear(xt, wbt, tkf.flatten_t(tt, kb), ts, kb, version=1,
+                         blocks=blocks)
+    _close(got.numpy(), ref)
+    jcfg = jkan.KANConfig(n_in, n_out, js, basis_keep=kb,
+                          impl="pallas_interpret", version=1, blocks=blocks)
+    tcfg = tkan.KANConfig(n_in, n_out, ts, basis_keep=kb, version=1,
+                          blocks=blocks)
+    assert (tcfg.version, tcfg.blocks) == (jcfg.version, jcfg.blocks)
+    jref = jkan.kan_apply({"w_b": jnp.asarray(w_b), "t": jnp.asarray(t)},
+                          jnp.asarray(x), jcfg)
+    params = {"w_b": wbt, "t": tt}
+    _close(tkan.KANLayer(tcfg, params)(xt).numpy(), jref)
+    _close(tkan.kan_apply(params, xt, tcfg).numpy(), jref)
 
 
 def test_a_bad_cached_knob_raises(caches):
@@ -323,6 +428,39 @@ def test_tune_kan_fused_round_trips_on_cpu(caches, dtype):
     assert autotune.AutotuneCache(autotune.get_cache().path).lookup(key) \
         == best
     assert tkf.resolve_blocks(*dims, dtype, device="cpu") == best
+
+
+def test_tune_kan_fused_v1_round_trips_on_cpu(caches):
+    """A version-1 search is stored under ``kan_fused_v1``, where
+    ``resolve_blocks(..., version=1)`` finds it, as the JAX
+    ``tune_kan_fused(..., version=1)`` stores it; version 2 does not see
+    it."""
+    spec = tsl.SplineSpec(4, 3)
+    xn, w_b, t = _kan_inputs(9, 8, 40, 24, spec.n_bases)
+    x, wbt = torch.from_numpy(xn), torch.from_numpy(w_b)
+    t_flat = tkf.flatten_t(torch.from_numpy(t), KB)
+    best = autotune.tune_kan_fused(x, wbt, spec, KB, version=1,
+                                   t_flat=t_flat, reps=1)
+    dims = (8, 40, 24, len(KB))
+    assert best in autotune.candidates_kan_fused(*dims, torch.float32, 1)
+    key = autotune.cache_key("kan_fused_v1", dims, torch.float32, "cpu")
+    assert key.split("|")[0] == jax_autotune.cache_key(
+        "kan_fused_v1", dims, jnp.float32, "cpu").split("|")[0]
+    assert autotune.AutotuneCache(autotune.get_cache().path).lookup(key) \
+        == best
+    assert tkf.resolve_blocks(*dims, torch.float32, version=1,
+                              device="cpu") == best
+    assert tkf.resolve_blocks(*dims, torch.float32, device="cpu") == \
+        tkf.default_blocks(*dims, torch.float32)
+    # the tuned knob changes no bit of the layer
+    assert torch.equal(
+        tkf.kan_fused_v1(x, wbt, t_flat, spec, KB),
+        tkf.kan_fused_v1(x, wbt, t_flat, spec, KB,
+                         blocks=(best["bm"], best["bi"], best["bn"])))
+    with pytest.raises(ValueError, match="t_flat"):
+        autotune.tune_kan_fused(x, wbt, spec, KB, version=1, reps=1)
+    with pytest.raises(ValueError, match="t_flat"):
+        autotune.tune_kan_fused(x, wbt, spec, KB, t_flat=t_flat, reps=1)
 
 
 def _layer_cases():

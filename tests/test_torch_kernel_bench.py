@@ -16,6 +16,7 @@ from repro.core.splines import SplineSpec as JSpec  # noqa: E402
 from repro.core.splines import dense_eval_op_count as jax_dense_ops  # noqa
 from repro.core.splines import spu_op_count as jax_spu_ops  # noqa: E402
 from repro_torch.benchmarks import kernel_bench  # noqa: E402
+from repro_torch.kernels import autotune  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -29,7 +30,7 @@ def test_run_on_cpu_writes_its_json(tmp_path):
     assert set(res["kan_fused"]) == {"72x96_float32", "72x96_p50_float32",
                                      "128x128_p75_float32"}
     assert set(res["pattern_matmul"]) == {"rate0.0", "rate0.5", "rate0.75"}
-    assert "ROADMAP item 7" in res["bf16"]
+    assert "ROADMAP queue 2 item 3" in res["bf16"]
     for name, r in res["spline_basis"].items():
         g, k = int(name[1:name.index("K")]), int(name[name.index("K") + 1:])
         assert r["bitwise_plain"] and r["ms"] is None
@@ -57,6 +58,13 @@ def test_run_on_cpu_writes_its_json(tmp_path):
     assert tk["shape"] == [8, 304, 32] and tk["cache_round_trip"] is True
     assert tk["cache_key"] == "kan_fused_v2|8x512x32x8|float32|cpu"
     assert tk["ms_default"] is None and tk["ms_tuned"] is None
+    t1 = t["kan_fused_v1"]
+    assert t1["shape"] == [8, 304, 32] and t1["version"] == 1
+    assert t1["cache_round_trip"] is True
+    assert t1["cache_key"] == "kan_fused_v1|8x512x32x8|float32|cpu"
+    assert t1["tuned_blocks"] in autotune.candidates_kan_fused(
+        8, 304, 32, 5, torch.float32, 1)
+    assert t1["ms_default"] is None and t1["ms_tuned"] is None
 
 
 def test_cli_on_cpu(tmp_path):

@@ -18,6 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.core import splines as jsl  # noqa: E402
+from repro.kernels import autotune as jax_autotune  # noqa: E402
 from repro.kernels.spline_basis import ops as jsb  # noqa: E402
 from repro.kernels.spline_basis.ref import (  # noqa: E402
     spline_basis_ref as jax_spline_basis_ref,
@@ -158,11 +159,48 @@ def test_resolve_block_n_precedence(tmp_cache, monkeypatch):
     assert searched == [1]
     assert tsb.resolve_block_n(*args, block_n=64, device="cpu",
                                tune=tune) == 64
+    # the default is a candidate: inputs a block, as the JAX knob
+    assert {"block_n": tsb.DEFAULT_BLOCK_N} in \
+        autotune.candidates_spline_basis(4096, 7)
     # the cpu entry is not the card's
     monkeypatch.setattr(torch.cuda, "get_device_name",
                         lambda *a: "NVIDIA H100 80GB HBM3")
     monkeypatch.delenv("REPRO_TORCH_AUTOTUNE")
     assert tsb.resolve_block_n(*args, device="cuda") == tsb.DEFAULT_BLOCK_N
+
+
+def test_block_n_candidates_match_jax():
+    """``block_n`` has the JAX kernel's meaning, inputs a block, and the
+    same candidate grid where the output stretch fits in shared memory."""
+    for n in (1, 300, 2432, 10 ** 6):
+        want = jax_autotune.candidates_spline_basis(n, 7, jnp.float32)
+        assert autotune.candidates_spline_basis(n, 7) == want
+
+
+@pytest.mark.parametrize("block_n,G,K,match", [
+    (0, 4, 3, "power of two"), (48, 4, 3, "power of two"),
+    (16, 4, 3, "power of two"), (8192, 4, 3, "power of two"),
+    (4096, 16, 4, "shared memory")])
+def test_bad_block_n_raises_on_cpu(tmp_cache, block_n, G, K, match):
+    """A knob the kernel does not take raises before any launch, from an
+    argument or from the cache, on the CPU too."""
+    spec = tsl.SplineSpec(G, K)
+    x = torch.linspace(-1, 1, 50)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        tsb.spline_basis(x, spec, block_n=block_n)
+    with pytest.raises(ValueError, match=match):
+        tsb.check_block_n(block_n, spec.n_bases)
+    autotune.get_cache().store(autotune.cache_key(
+        "spline_basis", (50, spec.n_bases), torch.float32, "cpu"),
+        {"block_n": block_n})
+    with pytest.raises(ValueError, match=match):
+        tsb.resolve_block_n(50, spec.n_bases, torch.float32, device="cpu")
+    assert _build.LAUNCHES == before
+    # the extremes it does take, and the default, change no result
+    plain = spline_basis_plain(x, spec)
+    for good in (32, 2048, tsb.DEFAULT_BLOCK_N):
+        assert torch.equal(tsb.spline_basis(x, spec, block_n=good), plain)
 
 
 def test_cpu_runs_the_plain_version_without_launching():
