@@ -70,10 +70,35 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    ``tune_spline_basis``, one ``tune_pattern_matmul`` (8192x72->304 relu)
    and two ``tune_kan_fused`` searches (8x304->32, the v2 and the v1
    kernel), each round-tripped through a temporary cache and shown to
-   change no bit), its JSON in ``chiprun_out/kernel_bench.json``.
+   change no bit), its JSON in ``chiprun_out/kernel_bench.json``;
+7. open-loop on the card (``runtime/loadgen``), vikin-mlp3 on 8 slots in
+   f32 and int8:
+   (a) the committed ``openloop:burst:vikin-mlp3`` trace of
+   ``BENCH_serving.json`` (its sha256 checked) replayed on the simulated
+   clock, unbounded and with ``max_queue=16, admission="shed",
+   drop_expired=True``: every report field equal to the committed row at
+   f32, and to the same replay on a CPU backend at int8 (int8 moves other
+   modelled DMA bytes);
+   (b) the same backends, and the three-arch multi-workload engine under
+   a workload-mixed trace, on the wall clock at rates sized from the
+   card: the closed-burst rate C after ``warmup`` (15 bursts of 64, each
+   submitted and served in the timed region), Poisson traces of 2000
+   arrivals at 0.5, 0.9 and 1.5 C, and for vikin-mlp3 a bursty deadline
+   trace (calm 0.5 C, bursts 5 C, deadline four batch times) unbounded
+   and shed; offered, achieved and goodput req/s, p50/p95/p99 latency,
+   the queue high-water mark and sheds are printed, and the bound, the
+   drain, every request's fate and that no kernel is built and no knob
+   resolved inside a replay are checked;
+   in both, every served answer is held to ``SERVE_TOL`` against the
+   plain versions on the card (int8 as in phase 3), and the launches to
+   what the served batches imply;
+   (c) the port's serving and load benches on the card
+   (``chiprun_out/serving_bench.json``): every simulated field equal to
+   the committed rows, batched == single bitwise under both policies.
 
 No served path launches the spline-basis or v1 kernel, so their
-``launches`` in the record are those of phases 6 and 5.
+``launches`` in the record are those of phases 6 and 5.  Rows 1-4 also
+carry ``launches_openloop``, their launches in phase 7's replays.
 
 It prints the ``{"kernels": [...]}`` record, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It imports nothing
@@ -220,7 +245,11 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
 
-    from repro_torch.benchmarks import kernel_bench
+    from repro_torch.benchmarks import (
+        kernel_bench,
+        loadgen_bench,
+        serving_bench,
+    )
     from repro_torch.configs.vikin_models import VIKIN_ARCHS
     from repro_torch.core.kan import KANLayer
     from repro_torch.core.quant import (
@@ -271,6 +300,12 @@ def main() -> int:
         make_vikin_backend,
         print_report,
         submit_burst,
+    )
+    from repro_torch.runtime.backends import MultiWorkloadBackend
+    from repro_torch.runtime.loadgen import (
+        bursty_trace,
+        poisson_trace,
+        replay,
     )
     from repro_torch.runtime.server import Engine
 
@@ -778,19 +813,25 @@ def main() -> int:
     for k in Q8_KERNELS + TOOLING_KERNELS:
         check(launches[k] == 0, f"{k}: {launches[k]} launches in f32 serving")
 
+    def hold_f32(stack, xs: np.ndarray, served: np.ndarray,
+                 what: str) -> float:
+        """Hold the f32 answers ``served`` to inputs ``xs`` against the
+        stack run through the plain versions on the card; returns the
+        max abs error."""
+        h = torch.from_numpy(xs).to(dev)
+        for layer in stack.layers:
+            h = layer_calls(layer, h)[3]()
+        err, scale, nan = rel_err(torch.from_numpy(served), h.cpu())
+        check(not nan and err <= SERVE_TOL * scale,
+              f"{what}: max|served - plain| = {err:.3e} vs "
+              f"{SERVE_TOL:g} * {scale:.4g} (NaN: {nan})")
+        return err
+
     sub = eng.backend.backends
     for name in ARCHS:
         rs = [r for r in sorted(rids) if rids[r][0] == name]
-        xs = torch.from_numpy(np.stack([rids[r][1] for r in rs])).to(dev)
-        h = xs
-        for layer in sub[name].stack.layers:
-            h = layer_calls(layer, h)[3]()
-        ref = h.cpu()
-        got = torch.from_numpy(np.stack([out[r] for r in rs]))
-        err, scale, nan = rel_err(got, ref)
-        check(not nan and err <= SERVE_TOL * scale,
-              f"served {name}: max|served - plain| = {err:.3e} vs "
-              f"{SERVE_TOL:g} * {scale:.4g} (NaN: {nan})")
+        err = hold_f32(sub[name].stack, np.stack([rids[r][1] for r in rs]),
+                       np.stack([out[r] for r in rs]), f"served {name}")
         print(f"phase 3: {name}: {len(rs)} answers within {SERVE_TOL:g}*"
               f"(1+max|ref|) of the plain stack, max abs err {err:.3e}")
 
@@ -841,15 +882,18 @@ def main() -> int:
               f"int8 {k}: {q_launches[k]} launches, served batches imply "
               f"{q_want[k]}")
 
-    q_sub = q_eng.backend.backends
-    for name in ARCHS:
-        rs = [r for r in sorted(q_rids) if q_rids[r][0] == name]
-        xs = torch.from_numpy(np.stack([q_rids[r][1] for r in rs])).to(dev)
-        stack = q_sub[name].stack
-        served = torch.from_numpy(np.stack([q_out[r] for r in rs]))
+    def hold_int8(stack, xs_np: np.ndarray, served_np: np.ndarray,
+                  what: str) -> tuple:
+        """Hold the int8 answers ``served_np`` to inputs ``xs_np``: bitwise
+        the kernels run layer by layer on the same rows, and within
+        ``SERVE_TOL`` of the plain versions on the card, where a
+        requantized code may differ only by one step at a rounding tie;
+        returns (max abs error, codes rounded across a tie)."""
+        xs = torch.from_numpy(xs_np).to(dev)
+        served = torch.from_numpy(served_np)
         y_k, _, codes_k = q8_chain(stack, xs, 2)
         check(torch.equal(served, y_k.cpu()),
-              f"int8 {name}: served answers != the kernels run layer by "
+              f"{what}: served answers != the kernels run layer by "
               f"layer on the same rows")
         y_p, pre_p, codes_p = q8_chain(stack, xs, 3)
         flips = 0
@@ -861,7 +905,7 @@ def main() -> int:
             u = (pre_p[i - 1] * static_reciprocal(stack.x_scales[i]))[diff]
             tie = ((u.abs() % 1.0) - 0.5).abs()
             check(int(step.max()) == 1 and float(tie.max()) < 1e-3,
-                  f"int8 {name}: layer {i} codes differ from the plain "
+                  f"{what}: layer {i} codes differ from the plain "
                   f"stack's by up to {int(step.max())}, "
                   f"{float(tie.max()):.2e} code units from a rounding tie")
             flips += int(diff.sum())
@@ -871,8 +915,17 @@ def main() -> int:
             y_p = q8_chain(stack, xs, 3, feed=codes_k)[0]
         err, scale, nan = rel_err(served, y_p.cpu())
         check(not nan and err <= SERVE_TOL * scale,
-              f"int8 served {name}: max|served - plain| = {err:.3e} vs "
+              f"{what}: max|served - plain| = {err:.3e} vs "
               f"{SERVE_TOL:g} * {scale:.4g} (NaN: {nan})")
+        return err, flips
+
+    q_sub = q_eng.backend.backends
+    for name in ARCHS:
+        rs = [r for r in sorted(q_rids) if q_rids[r][0] == name]
+        err, flips = hold_int8(q_sub[name].stack,
+                               np.stack([q_rids[r][1] for r in rs]),
+                               np.stack([q_out[r] for r in rs]),
+                               f"int8 served {name}")
         print(f"phase 3 int8: {name}: {len(rs)} answers within "
               f"{SERVE_TOL:g}*(1+max|ref|) of the plain int8 stack, max abs "
               f"err {err:.3e}; {flips} requantized codes rounded across a "
@@ -1275,6 +1328,202 @@ def main() -> int:
           f"({tk1['ms_tuned']} ms) vs default {tk1['default_blocks']} "
           f"({tk1['ms_default']} ms), bitwise equal")
 
+    # ---------------------------------------------------------------- 7
+    committed = json.loads((ROOT / "BENCH_serving.json").read_text())
+    burst_ref = committed["openloop:burst:vikin-mlp3"]
+    mlp3 = VIKIN_ARCHS["vikin-mlp3"]
+    burst, _, max_queue = loadgen_bench.burst_trace("vikin-mlp3")
+    check(burst.sha256() == burst_ref["trace_sha256"],
+          f"burst trace sha256 {burst.sha256()} != the committed "
+          f"{burst_ref['trace_sha256']}")
+    shed_kw = {"max_queue": max_queue, "admission": "shed",
+               "drop_expired": True}
+    mm_kernel = {"f32": "pattern_matmul", "int8": "pattern_matmul_q8"}
+    kan_kernel = {"f32": "kan_fused_v2", "int8": "kan_fused_v2_q8"}
+    open_launches = {k: 0 for k in KERNEL_INFO}
+    openloop = []
+
+    def drive(eng, trace, mode: str, precision: str, what: str) -> dict:
+        """Replay ``trace`` through ``eng``; check the drain, the bound,
+        every request's fate, that nothing was built or resolved, the
+        launches against the served batches and every answer; return the
+        report."""
+        builds, resolved = dict(_build.BUILDS), set(autotune.RESOLVED)
+        _build.reset_launches()
+        rep = replay(eng, trace, mode=mode)
+        torch.cuda.synchronize()
+        got = dict(_build.LAUNCHES)
+        check(not rep["incomplete"] and rep["bound_respected"],
+              f"{what}: incomplete {rep['incomplete']}, bound respected "
+              f"{rep['bound_respected']}")
+        check(rep["offered"] == rep["completed"] + rep["rejected"]
+              + rep["shed"] + rep["expired"],
+              f"{what}: {rep['offered']} offered, {rep['completed']} "
+              f"completed + {rep['rejected']} rejected + {rep['shed']} "
+              f"shed + {rep['expired']} expired")
+        check(dict(_build.BUILDS) == builds
+              and set(autotune.RESOLVED) == resolved,
+              f"{what}: a kernel was built or a knob resolved inside the "
+              f"replay")
+        # a fresh engine (and MultiWorkloadBackend) per replay: its
+        # batches are this replay's
+        batches = ({n: ws["batches"]
+                    for n, ws in eng.per_workload_stats().items()}
+                   or {eng.backend.model.name: eng.stats["ticks"]})
+        want = {k: 0 for k in KERNEL_INFO}
+        for name, b in batches.items():
+            kinds = VIKIN_ARCHS[name].layer_kinds
+            want[kan_kernel[precision]] += int(b) * kinds.count("kan")
+            want[mm_kernel[precision]] += int(b) * kinds.count("mlp")
+        check(got == want and want[mm_kernel[precision]] > 0,
+              f"{what}: launches {got}, the served batches imply {want}")
+        for k in KERNEL_INFO:
+            open_launches[k] += got[k]
+        subs = (eng.backend.backends if hasattr(eng.backend, "backends")
+                else {eng.backend.model.name: eng.backend})
+        done = [r for r in eng._requests.values() if r.done]
+        check(len(done) == rep["completed"],
+              f"{what}: {len(done)} answers for {rep['completed']} "
+              f"completions")
+        err = 0.0
+        for name, be in subs.items():
+            rs = [r for r in done if r.workload in (name, None)]
+            if not rs:
+                continue
+            xs = np.stack([r.prompt for r in rs]).astype(np.float32)
+            served = np.stack([r.output for r in rs])
+            if precision == "int8":
+                e = hold_int8(be.stack, xs, served, f"{what} {name}")[0]
+            else:
+                e = hold_f32(be.stack, xs, served, f"{what} {name}")
+            err = max(err, e)
+        rep["max_abs_err"] = err
+        return rep
+
+    def show(rep: dict, what: str) -> None:
+        ms = {q: rep[f"p{q}_latency_s"] * 1e3 for q in (50, 95, 99)}
+        print(f"phase 7: {what}: offered {rep['offered_rps']:.1f} req/s, "
+              f"achieved {rep['achieved_rps']:.1f}, goodput "
+              f"{rep['goodput_rps']:.1f}; latency p50/p95/p99 "
+              f"{ms[50]:.4f}/{ms[95]:.4f}/{ms[99]:.4f} ms; completed "
+              f"{rep['completed']}/{rep['offered']}, shed {rep['shed']}, "
+              f"expired {rep['expired']}, deadline met "
+              f"{rep['deadline_met']}, queue hwm {rep['queue_depth_hwm']}; "
+              f"max abs err {rep['max_abs_err']:.3e} ({card})")
+
+    # the replay loop synthesizes each arrival's payload on the host, in
+    # the thread that serves: above 1 / (this time) arrivals a second the
+    # loop falls behind the trace (each request still counts from its
+    # trace time)
+    t0 = time.perf_counter()
+    for i in range(2000):
+        np.random.default_rng(i).random(mlp3.sizes[0], dtype=np.float32)
+    payload_us = (time.perf_counter() - t0) / 2000 * 1e6
+    print(f"phase 7: card {card}; a replayed arrival's payload takes "
+          f"{payload_us:.2f} us of host time to synthesize")
+    mlp3_be = {}
+    for precision in ("f32", "int8"):
+        be = mlp3_be[precision] = make_vikin_backend(
+            mlp3, DEVICE, precision=precision)
+        loadgen_bench.warm_buckets(be, 8)
+        cpu_be = (make_vikin_backend(mlp3, "cpu", precision=precision)
+                  if precision == "int8" else None)
+        for label, kw in (("unbounded", {}), ("shed", shed_kw)):
+            what = f"(a) {precision} burst trace, {label}, sim clock"
+            rep = drive(Engine(be, n_slots=8, **kw), burst, "sim",
+                        precision, what)
+            fields = {k: rep[k] for k in loadgen_bench.BURST_FIELDS}
+            if cpu_be is None:
+                ref, whose = burst_ref[label], "the committed row"
+            else:
+                cpu_rep = replay(Engine(cpu_be, n_slots=8, **kw), burst,
+                                 mode="sim")
+                ref = {k: cpu_rep[k] for k in loadgen_bench.BURST_FIELDS}
+                whose = "the CPU replay"
+            check(fields == ref, f"{what}: {fields} != {whose} {ref}")
+            print(f"phase 7: {what}: every field equals {whose}")
+            show(rep, what)
+            openloop.append({"part": "a", "precision": precision,
+                             "engine": label, "card": card, **rep})
+
+    multi_be = {"f32": eng.backend.backends, "int8": q_eng.backend.backends}
+    for precision in ("f32", "int8"):
+        engines = {
+            "vikin-mlp3": lambda **kw: Engine(mlp3_be[precision], n_slots=8,
+                                              **kw),
+            "multi": lambda **kw: Engine(
+                MultiWorkloadBackend(dict(multi_be[precision])), n_slots=8,
+                **kw),
+        }
+        for target, make in engines.items():
+            probe = make()
+            loadgen_bench.warm_buckets(probe.backend, 8)
+            models = ([mlp3] if target == "vikin-mlp3"
+                      else [VIKIN_ARCHS[n] for n in ARCHS])
+            # C: 960 requests as 15 closed bursts of 64, each submitted
+            # and served in the timed region, as a replay submits in the
+            # serving thread; one burst of 960 (submitted first) is timed
+            # too, for what a deep queue costs the batch policy
+            t0 = time.perf_counter()
+            for i in range(15):
+                submit_burst(probe, models, 64, seed=7 + i)
+                probe.run_until_done()
+            cap = 960 / (time.perf_counter() - t0)
+            submit_burst(probe, models, 960, seed=7)
+            t0 = time.perf_counter()
+            probe.run_until_done()
+            deep = 960 / (time.perf_counter() - t0)
+            batch_s = 8 / cap
+            print(f"phase 7: (b) {precision} {target}: closed-burst rate C "
+                  f"= {cap:.1f} req/s on 8 slots (bursts of 64, submission "
+                  f"timed), one full batch {batch_s * 1e3:.4f} ms; "
+                  f"{deep:.1f} req/s serving one burst of 960 ({card})")
+            mix = (None if target == "vikin-mlp3"
+                   else [(n, 1.0) for n in ARCHS])
+            runs = [(f"poisson {m}C", {}, poisson_trace(
+                m * cap, 2000, seed=11, workloads=mix))
+                for m in (0.5, 0.9, 1.5)]
+            if target == "vikin-mlp3":
+                deadline = 4 * batch_s
+                bt = bursty_trace(
+                    0.5 * cap, 5.0 * cap, 2000, mean_calm_s=16 * batch_s,
+                    mean_burst_s=48 * batch_s, seed=11,
+                    priority_classes=[(0, 0.7, deadline),
+                                      (2, 0.3, deadline)])
+                runs += [("bursty, unbounded", {}, bt),
+                         ("bursty, shed", shed_kw, bt)]
+            for label, kw, trace in runs:
+                what = f"(b) {precision} {target} {label}, wall clock"
+                rep = drive(make(**kw), trace, "wall", precision, what)
+                show(rep, what)
+                openloop.append({"part": "b", "precision": precision,
+                                 "target": target, "run": label,
+                                 "closed_rps": cap, "closed_rps_960": deep,
+                                 "card": card, **rep})
+
+    bench_out = ROOT / "chiprun_out" / "serving_bench.json"
+    bench_out.unlink(missing_ok=True)
+    rows = serving_bench.run(DEVICE, bench_out)
+    rows.update(loadgen_bench.run(DEVICE, bench_out))
+    for key, row in json.loads(json.dumps(rows)).items():
+        ref = committed[key]
+        if key.startswith("openloop:"):
+            same = {k: v for k, v in row.items() if k != "device"} == ref
+        elif key.startswith("sched:"):
+            same = row["bitwise_identical"] and all(
+                row["policies"][p][f] == v
+                for p, pol in ref["policies"].items()
+                for f, v in pol.items() if not f.startswith("wall"))
+        else:
+            same = all(row[f] == v for f, v in ref.items()
+                       if not f.startswith("wall"))
+        check(same, f"(c) bench row {key} differs from the committed row "
+              f"in a simulated field (or is not bitwise): {row}")
+    print(f"phase 7: (c) {sorted(rows)} on the card: every simulated field "
+          f"equals the committed row; sched batched == single, bitwise, "
+          f"under both policies")
+    print(f"phase 7: launches over the replays {open_launches}")
+
     launched = {k: (launches[k], "phase 3, f32 burst") for k in F32_KERNELS}
     launched.update({k: (q_launches[k], "phase 3, int8 burst")
                      for k in Q8_KERNELS})
@@ -1290,6 +1539,7 @@ def main() -> int:
             "headers": info.get("headers", []),
             "replaces": info["replaces"], "launches": launched[k][0],
             "launches_phase": launched[k][1],
+            "launches_openloop": open_launches[k],
             "max_abs_err": max_err[k], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -1308,6 +1558,7 @@ def main() -> int:
                         "wall_rps": len(q_out) / q_serve_s,
                         "stats": {k: v for k, v in q_eng.stats.items()}},
          "v1_path": {"launches": v1_launches, "max_abs_err": v1_err},
+         "openloop": {"payload_us": payload_us, "replays": openloop},
          "ptxas": usage,
          "knob_checks": knob_checks,
          "kernel_bench_launches": bench_launches},

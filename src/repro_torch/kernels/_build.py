@@ -12,8 +12,11 @@ package imports on machines without ``nvcc`` or a GPU.
 
 ``LAUNCHES`` counts, per kernel, the launches made through ``launch``:
 the wrappers call nothing else, so a run can show that its path went
-through the kernels.  ``resource_usage`` reports what ``ptxas`` gives each
-compiled kernel instance: registers, stack and spills.
+through the kernels.  ``BUILDS`` counts, per kernel, its set-up steps:
+each ``nvcc`` compile of its source and each load of its library into
+the process, so a timed run can show that it paid for neither.
+``resource_usage`` reports what ``ptxas`` gives each compiled kernel
+instance: registers, stack and spills.
 """
 from __future__ import annotations
 
@@ -85,6 +88,7 @@ _FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
 _REGS = re.compile(r"Used (\d+) registers")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+BUILDS: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
 def reset_launches() -> None:
@@ -150,6 +154,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
             failed.append(f"{n} (nvcc exit {proc.returncode}):\n{out}")
         else:
             os.replace(tmp, paths[n])
+            BUILDS[n] += 1
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return paths
@@ -200,6 +205,7 @@ def resource_usage(names: Optional[Iterable[str]] = None
 def _entry(name: str) -> ctypes._CFuncPtr:
     path = build([name])[name]
     lib = ctypes.CDLL(str(path))
+    BUILDS[name] += 1
     _, symbol, argtypes = KERNELS[name]
     fn = getattr(lib, symbol)      # the CDLL caches it; lru_cache keeps lib
     fn.argtypes = list(argtypes)

@@ -26,6 +26,15 @@ reference's layout):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vikin-mixed \
       --precision int8 --requests 8
+
+``--trace FILE`` replays an arrival trace (``python -m
+repro_torch.runtime.loadgen``) open-loop on the simulated VIKIN clock
+instead of serving a closed burst; ``--max-queue N`` bounds each workload
+queue, ``--admission reject|shed`` says what a full queue does, and
+``--drop-expired`` sheds queued requests whose deadline has passed:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch vikin-mlp3 \
+      --trace /tmp/t.json --max-queue 16 --admission shed --drop-expired
 """
 from __future__ import annotations
 
@@ -47,6 +56,7 @@ from repro_torch.core.quant import QuantKANLayer, QuantPatternLinear
 from repro_torch.kernels import autotune
 from repro_torch.models.ffn import PatternLinear, vikin_stack_init
 from repro_torch.runtime.backends import MultiWorkloadBackend, VikinBackend
+from repro_torch.runtime.loadgen import Trace, replay
 from repro_torch.runtime.server import Engine
 
 
@@ -153,10 +163,13 @@ def tune_layers(backends: Sequence[VikinBackend], slots: int) -> None:
 
 def make_engine(models: Sequence[Any], *, slots: int, policy: str,
                 device: str, seed: int = 0, precision: str = "f32",
-                ckpt: Optional[str] = None) -> Engine:
+                ckpt: Optional[str] = None, max_queue: Optional[int] = None,
+                admission: str = "unbounded",
+                drop_expired: bool = False) -> Engine:
     """One engine over one backend, or a MultiWorkloadBackend for several;
     with ``REPRO_TORCH_AUTOTUNE=1`` its matmul and KAN knobs are tuned
-    first."""
+    first.  ``max_queue``, ``admission`` and ``drop_expired`` are the
+    engine's overload controls; a bad combination is a ``SystemExit``."""
     backends = {m.name: make_vikin_backend(m, device, seed,
                                            precision=precision, ckpt=ckpt)
                 for m in models}
@@ -168,7 +181,18 @@ def make_engine(models: Sequence[Any], *, slots: int, policy: str,
               f"under policy {policy!r}")
     else:
         backend = next(iter(backends.values()))
-    return Engine(backend, n_slots=slots, policy=policy)
+    try:
+        eng = Engine(backend, n_slots=slots, policy=policy,
+                     max_queue=max_queue, admission=admission,
+                     drop_expired=drop_expired)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if eng.max_queue is not None:
+        print(f"admission control: policy {eng.admission!r}, "
+              f"max_queue {eng.max_queue} per workload"
+              + (", expired queued requests dropped" if eng.drop_expired
+                 else ""))
+    return eng
 
 
 def submit_burst(eng: Engine, models: Sequence[Any], n: int,
@@ -212,6 +236,44 @@ def print_report(eng: Engine, out: Dict[int, np.ndarray],
               f"{ws.get('reconfig_cycles', 0):.0f} reconfig cycles")
 
 
+def replay_trace(eng: Engine, path: str) -> Dict[str, object]:
+    """Open-loop replay of the trace file ``path`` on the simulated VIKIN
+    clock: arrivals land on the trace's schedule whether or not the engine
+    keeps up, so this is the overload and load-testing entry point.
+    Prints the report and returns it."""
+    trace = Trace.load(path)
+    print(f"replaying {path}: {len(trace.events)} arrivals over "
+          f"{trace.horizon_s*1e3:.3f} ms ({trace.offered_rps():.0f} req/s "
+          f"offered), sha256 {trace.sha256()[:16]}...")
+    rep = replay(eng, trace, mode="sim")
+    print(f"\noffered {rep['offered']} -> submitted {rep['submitted']}, "
+          f"completed {rep['completed']} "
+          f"(rejected {rep['rejected']}, shed {rep['shed']}, "
+          f"expired {rep['expired']})")
+    met = rep["deadline_met"]
+    print(f"throughput: offered {rep['offered_rps']:.0f} req/s, achieved "
+          f"{rep['achieved_rps']:.0f} req/s, goodput "
+          f"{rep['goodput_rps']:.0f} req/s"
+          + (f" ({met}/{rep['completed']} met deadline, "
+             f"{rep['deadline_misses']} misses)" if met is not None else ""))
+    print(f"end-to-end latency (sim): p50 {rep['p50_latency_s']*1e6:.1f} / "
+          f"p95 {rep['p95_latency_s']*1e6:.1f} / "
+          f"p99 {rep['p99_latency_s']*1e6:.1f} us")
+    print(f"queue depth high-water mark: {rep['queue_depth_hwm']}"
+          + (f" (bound {eng.max_queue} "
+             f"{'respected' if rep['bound_respected'] else 'EXCEEDED'})"
+             if eng.max_queue is not None else " (unbounded)"))
+    ov = eng.overload_stats()
+    for kind in ("rejected", "shed", "expired"):
+        if eng.stats[kind]:
+            print(f"  {kind}: by_workload={ov[kind]['by_workload']} "
+                  f"by_priority={ov[kind]['by_priority']}")
+    if rep["incomplete"]:
+        print("WARNING: replay ended with work still in flight "
+              "(max_ticks or stalled admission)")
+    return rep
+
+
 def parse_archs(arch: str) -> List[Any]:
     names = [a.strip() for a in arch.split(",") if a.strip()]
     if not names:
@@ -242,13 +304,33 @@ def main(argv: Optional[Sequence[str]] = None) -> Engine:
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint directory of the reference's layout: "
                          "params, masks and int8 scales are restored")
+    ap.add_argument("--trace", default=None,
+                    help="replay this arrival-trace JSON (python -m "
+                         "repro_torch.runtime.loadgen) open-loop on the "
+                         "simulated clock instead of a closed burst")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="bound each workload queue at N pending requests "
+                         "(admission control)")
+    ap.add_argument("--admission", default="unbounded",
+                    choices=["unbounded", "reject", "shed"],
+                    help="full-queue policy: reject the newcomer, or shed "
+                         "the lowest-priority queued request (needs "
+                         "--max-queue)")
+    ap.add_argument("--drop-expired", action="store_true",
+                    help="shed queued requests whose deadline already "
+                         "passed instead of serving them dead")
     args = ap.parse_args(argv)
     models = parse_archs(args.arch)
     if args.ckpt and len(models) > 1:
         raise SystemExit("--ckpt restores one arch; pass a single --arch")
     eng = make_engine(models, slots=args.slots, policy=args.policy,
                       device=args.device, precision=args.precision,
-                      ckpt=args.ckpt)
+                      ckpt=args.ckpt, max_queue=args.max_queue,
+                      admission=args.admission,
+                      drop_expired=args.drop_expired)
+    if args.trace:
+        replay_trace(eng, args.trace)
+        return eng
     rids = submit_burst(eng, models, args.requests)
     out = eng.run_until_done()
     print_report(eng, out, rids)

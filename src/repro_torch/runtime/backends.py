@@ -187,6 +187,11 @@ class VikinBackend(ModelBackend):
         # staging buffer of request inputs, one lane per slot
         return np.zeros((n_slots, self.n_in), np.float32)
 
+    def input_dim(self, workload: Optional[str] = None) -> int:
+        """Feature width a request payload must have (trace replay uses
+        this to synthesize payloads from per-event seeds)."""
+        return self.n_in
+
     def validate(self, req: Request) -> None:
         vec = np.asarray(req.prompt, np.float32).reshape(-1)
         if vec.shape[0] != self.n_in:
@@ -204,6 +209,14 @@ class VikinBackend(ModelBackend):
         """Always a power of two (>= min_bucket), even for non-pow2 slot
         counts."""
         return next_pow2(max(n_active, self.min_bucket))
+
+    def warmup(self, n_active: int) -> None:
+        """Run one forward at the bucket ``n_active`` requests would use,
+        so its kernels are built and loaded and their knobs resolved and
+        memoized before a timed region.  Leaves no state behind: later
+        outputs do not change by a bit."""
+        self.forward(np.zeros((self.bucket(n_active), self.n_in),
+                              np.float32))
 
     def forward(self, xb: np.ndarray) -> np.ndarray:
         """The batched stack forward on one (bucket, n_in) host batch."""
@@ -280,6 +293,19 @@ class MultiWorkloadBackend(ModelBackend):
                 continue
             pins |= set(p)
         return frozenset(pins) if pins else None
+
+    def input_dim(self, workload: Optional[str] = None) -> int:
+        """Feature width of the named workload's payloads (trace replay)."""
+        if workload not in self.backends:
+            raise ValueError(
+                f"input_dim: unknown workload {workload!r}; this engine "
+                f"serves {sorted(self.backends)}")
+        return self.backends[workload].input_dim()
+
+    def warmup(self, n_active: int) -> None:
+        """``warmup(n_active)`` on every sub-backend."""
+        for b in self.backends.values():
+            b.warmup(n_active)
 
     def init_state(self, n_slots: int, max_len: int) -> Dict[str, Any]:
         return {n: b.init_state(n_slots, max_len)

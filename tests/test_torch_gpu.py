@@ -15,6 +15,8 @@ same output under every tile (bm, bk, bn) they take: the f32 one sums
 each output in one fixed order, the int8 one exactly.
 """
 import dataclasses
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -54,7 +56,13 @@ from repro_torch.kernels.spline_basis.ref import (  # noqa: E402
     spline_basis_plain,
 )
 from repro_torch.models.ffn import vikin_stack_init  # noqa: E402
-from repro_torch.runtime.backends import VikinBackend  # noqa: E402
+from repro_torch.benchmarks import loadgen_bench  # noqa: E402
+from repro_torch.runtime.backends import (  # noqa: E402
+    MultiWorkloadBackend,
+    VikinBackend,
+)
+from repro_torch.runtime.loadgen import poisson_trace, replay  # noqa: E402
+from repro_torch.runtime.server import Engine  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -860,3 +868,82 @@ def test_v1_layer_takes_config_blocks_and_tunes(cuda, tmp_path,
         assert torch.equal(KANLayer(cfg, params)(x), base)
     finally:
         autotune.reset_cache()
+
+
+def test_warmup_builds_every_bucket_and_a_wall_replay_builds_nothing(
+        cuda, tmp_path, monkeypatch):
+    """warm_buckets runs one forward at each bucket of up to 8 requests,
+    which loads the kernels and resolves their knobs; an open-loop wall
+    replay afterwards loads no library and resolves no knob."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    monkeypatch.delenv("REPRO_TORCH_AUTOTUNE", raising=False)
+    autotune.reset_cache()
+    try:
+        model = VIKIN_ARCHS["vikin-mixed"]
+        be = VikinBackend(model, vikin_stack_init(
+            model, torch.Generator().manual_seed(0)), device="cuda")
+        _build.reset_launches()
+        loadgen_bench.warm_buckets(be, 8)
+        torch.cuda.synchronize()
+        # 1 and 2 requests both pad to bucket 2, then buckets 4 and 8
+        assert _build.LAUNCHES["kan_fused_v2"] == 4
+        assert _build.LAUNCHES["pattern_matmul"] == 8
+        assert _build.BUILDS["kan_fused_v2"] >= 1
+        assert _build.BUILDS["pattern_matmul"] >= 1
+        assert autotune.RESOLVED
+        builds, resolved = dict(_build.BUILDS), set(autotune.RESOLVED)
+        eng = Engine(be, n_slots=8)
+        _build.reset_launches()
+        rep = replay(eng, poisson_trace(20000.0, 300, seed=0), mode="wall")
+        torch.cuda.synchronize()
+        assert dict(_build.BUILDS) == builds
+        assert set(autotune.RESOLVED) == resolved
+        assert rep["completed"] == 300 and not rep["incomplete"]
+        ticks = int(eng.stats["ticks"])
+        assert _build.LAUNCHES["kan_fused_v2"] == ticks
+        assert _build.LAUNCHES["pattern_matmul"] == 2 * ticks
+    finally:
+        autotune.reset_cache()
+
+
+def test_sim_replay_on_the_card_matches_the_committed_burst_row(cuda):
+    committed = json.loads((Path(__file__).resolve().parents[1]
+                            / "BENCH_serving.json").read_text())
+    row = loadgen_bench.burst_row("vikin-mlp3", device="cuda")
+    assert json.loads(json.dumps(row)) == committed[
+        "openloop:burst:vikin-mlp3"]
+
+
+def test_multi_workload_backend_input_dim_and_warmup_on_the_card(cuda):
+    archs = ("vikin-kan2", "vikin-mlp3", "vikin-mixed")
+    params = {a: vikin_stack_init(VIKIN_ARCHS[a],
+                                  torch.Generator().manual_seed(0))
+              for a in archs}
+    engines = {}
+    for dev in ("cuda", "cpu"):
+        multi = MultiWorkloadBackend(
+            {a: VikinBackend(VIKIN_ARCHS[a], params[a], device=dev)
+             for a in archs})
+        for a in archs:
+            assert multi.input_dim(a) == VIKIN_ARCHS[a].sizes[0]
+        with pytest.raises(ValueError, match="unknown workload"):
+            multi.input_dim(None)
+        _build.reset_launches()
+        loadgen_bench.warm_buckets(multi, 4)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            # buckets 2, 2, 4 on each arch: vikin-mixed and vikin-kan2
+            # hold a KAN layer, every arch but vikin-kan2 matmul layers
+            assert _build.LAUNCHES["kan_fused_v2"] == 3 * 2
+            assert _build.LAUNCHES["pattern_matmul"] == 3 * (2 + 2)
+        engines[dev] = Engine(multi, n_slots=4)
+    trace = poisson_trace(20000.0, 60, seed=3,
+                          workloads=[(a, 1.0) for a in archs])
+    reps = {dev: replay(eng, trace, mode="sim")
+            for dev, eng in engines.items()}
+    assert reps["cuda"] == reps["cpu"]
+    assert reps["cuda"]["completed"] == 60
+    for rid, r in engines["cpu"]._requests.items():
+        got = engines["cuda"]._requests[rid].output
+        _close(torch.from_numpy(got), torch.from_numpy(r.output), tol=1e-4)

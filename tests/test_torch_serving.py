@@ -212,3 +212,131 @@ def test_cuda_entry_points_refuse_without_cuda(monkeypatch):
         tback.VikinBackend(model, params)            # default device cuda
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tserve.main(["--arch", "vikin-small", "--requests", "1"])
+
+
+def test_backend_input_dim_matches_the_reference():
+    archs = ("vikin-small", "vikin-mixed")
+    jb, tb = {}, {}
+    for a in archs:
+        np_params, tparams = _params(a)
+        jb[a] = jback.VikinBackend(J_ARCHS[a], np_params, impl="jnp")
+        tb[a] = tback.VikinBackend(VIKIN_ARCHS[a], tparams, device="cpu")
+        assert (tb[a].input_dim() == jb[a].input_dim()
+                == VIKIN_ARCHS[a].sizes[0])
+    jm, tm = jback.MultiWorkloadBackend(jb), tback.MultiWorkloadBackend(tb)
+    for a in archs:
+        assert tm.input_dim(a) == jm.input_dim(a)
+    for m in (jm, tm):
+        with pytest.raises(ValueError, match="unknown workload"):
+            m.input_dim("vikin-nope")
+
+
+def test_warmup_changes_no_later_output_bit():
+    """warmup runs a forward at the bucket and leaves nothing behind: the
+    same requests give bitwise the same answers with and without it, on
+    one backend and behind a MultiWorkloadBackend."""
+    def serve(warm, multi):
+        backends = {}
+        for a in ("vikin-small", "vikin-mixed"):
+            model = VIKIN_ARCHS[a]
+            backends[a] = tback.VikinBackend(
+                model, vikin_stack_init(model,
+                                        torch.Generator().manual_seed(0)),
+                device="cpu")
+        be = (tback.MultiWorkloadBackend(backends) if multi
+              else backends["vikin-mixed"])
+        if warm:
+            for n in (1, 2, 3, 4):
+                be.warmup(n)
+        eng = Engine(be, n_slots=4)
+        rids = []
+        for i, p in enumerate(_burst(VIKIN_ARCHS["vikin-mixed"], 6)):
+            if multi and i % 2:
+                p = p[:VIKIN_ARCHS["vikin-small"].sizes[0]]
+            w = (("vikin-small" if i % 2 else "vikin-mixed") if multi
+                 else None)
+            rids.append(eng.submit(p, workload=w))
+        out = eng.run_until_done()
+        return [out[r] for r in rids], eng.stats["sim_cycles"]
+
+    for multi in (False, True):
+        cold, cold_cycles = serve(False, multi)
+        warm, warm_cycles = serve(True, multi)
+        assert cold_cycles == warm_cycles     # warmup is not a served batch
+        for a, b in zip(cold, warm):
+            assert np.array_equal(a, b)
+
+
+def _report_lines(text):
+    lines = text.splitlines()
+    start = next(i for i, ln in enumerate(lines)
+                 if ln.startswith("admission control"))
+    return lines[start:]
+
+
+def test_serve_replays_a_trace_with_overload_controls(tmp_path, monkeypatch,
+                                                      capsys):
+    """--trace with --max-queue/--admission shed/--drop-expired prints the
+    reference launcher's report lines, number for number."""
+    from repro.launch import serve as jserve
+    from repro.runtime.loadgen import Trace as JTrace
+    from repro.runtime.loadgen import bursty_trace
+
+    path = tmp_path / "trace.json"
+    bursty_trace(4e4, 2e5, 96, mean_calm_s=2e-4, mean_burst_s=6e-4, seed=3,
+                 priority_classes=[(0, 0.7, 5e-4), (2, 0.3, 5e-4)]).save(
+                     str(path))
+    flags = ["--arch", "vikin-mlp3", "--trace", str(path), "--max-queue",
+             "16", "--admission", "shed", "--drop-expired"]
+    eng = tserve.main([*flags, "--device", "cpu"])
+    got = capsys.readouterr().out
+    monkeypatch.setattr("sys.argv", ["serve", *flags])
+    jserve.main()
+    ref = capsys.readouterr().out
+    assert _report_lines(got) == _report_lines(ref)
+    assert "bound 16 respected" in got and "shed: by_workload" in got
+    assert eng.stats["shed"] > 0
+    assert JTrace.load(str(path)).sha256()[:16] in got
+
+
+def test_serve_refuses_admission_without_a_bound():
+    with pytest.raises(SystemExit, match="needs max_queue"):
+        tserve.main(["--arch", "vikin-small", "--admission", "shed",
+                     "--device", "cpu"])
+    with pytest.raises(SystemExit, match="max_queue must be"):
+        tserve.main(["--arch", "vikin-small", "--max-queue", "0",
+                     "--device", "cpu"])
+
+
+def test_serving_bench_rows_equal_the_committed_sim_fields(tmp_path):
+    """The port's serving bench on the CPU: every field that does not read
+    the host clock equals the JAX package's committed row, and batched
+    serving is bitwise single-request serving under both policies."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.benchmarks import serving_bench
+
+    committed = json.loads(
+        (Path(__file__).resolve().parents[1] / "BENCH_serving.json")
+        .read_text())
+    out = tmp_path / "serving_bench.json"
+    rows = json.loads(json.dumps(serving_bench.run("cpu", out)))
+    assert json.loads(out.read_text()) == rows
+    assert sorted(rows) == sorted([*serving_bench.ARCHS,
+                                   "sched:vikin-kan2+vikin-mlp3"])
+    for key, row in rows.items():
+        ref = committed[key]
+        assert row["device"] == "cpu"
+        if key.startswith("sched:"):
+            assert row["bitwise_identical"]
+            for p, pol in ref["policies"].items():
+                for f, v in pol.items():
+                    if not f.startswith("wall"):
+                        assert row["policies"][p][f] == v, (p, f)
+            for f in ("reconfig_reduction", "cycle_ratio_affinity_vs_fifo"):
+                assert row[f] == ref[f], f
+            continue
+        for f, v in ref.items():
+            if not f.startswith("wall"):
+                assert row[f] == v, (key, f)
