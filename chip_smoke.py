@@ -8,10 +8,11 @@ Run from anywhere on a machine with one NVIDIA GPU:
 Phases, each of which fails the run (non-zero exit) on any fault:
 
 1. device and build -- print the card (nvidia-smi name and power limit)
-   and the torch/CUDA versions, then build all six kernels from
-   ``src/repro_torch/kernels/*/csrc/*.cu`` with nvcc for sm_90a, one
-   compiler per source, in parallel, and print what ptxas gives every
-   kernel instance (registers, spills); no v1 KAN instance may spill;
+   and the torch/CUDA versions, then build all ten kernels (six f32 and
+   int8, four bf16) from ``src/repro_torch/kernels/*/csrc/*.cu`` with
+   nvcc for sm_90a, one compiler per source, in parallel, and print what
+   ptxas gives every kernel instance (registers, spills); no instance
+   may spill;
 2. kernels vs plain -- each kernel against its plain PyTorch version on
    the card, at every shape the vikin-mixed, vikin-kan2 and vikin-mlp3
    stacks give it at buckets 2/4/8/16 (f32, and int8 with scales
@@ -33,7 +34,17 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    output; at ragged widths (37->13, 300->33) within tolerance; and a row
    alone under one knob bitwise equal to it in a batch under another, in
    both precisions.  The v1 kernel the same way, at every candidate of
-   its own grid (``candidates_kan_fused(..., version=1)``);
+   its own grid (``candidates_kan_fused(..., version=1)``).
+   bf16: the four bf16 kernels against their plain versions on the card
+   at the bf16 stacks' shapes (buckets 2/4/8/16 and 8192), at ragged
+   shapes (odd n_in and n_out: 77x37->13, 77x301->33, 999x147->301) and
+   at every candidate knob: KAN v2 and v1 within ``1e-5 * (1 +
+   max|plain|)`` at f32 out and one bf16 ulp (``2**-8 * (1 +
+   max|plain|)``) at bf16 out, the matmul within one bf16 ulp (f32 out
+   within 1e-5), the spline basis bitwise (every G x K, in and out of
+   range, every ``block_n``, outputs 2..14 bytes past a 16-byte
+   boundary); every knob bitwise the default's; batched == single
+   bitwise at buckets 2/4/8/16 and 8192;
 3. serve -- 48 requests of vikin-kan2, vikin-mlp3 and vikin-mixed through
    the port's Engine + MultiWorkloadBackend on 8 slots, once in f32 and
    once in int8: every answer against the same stack run through the
@@ -41,21 +52,31 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    that a requantization rounds across a half-step must sit at a
    rounding tie), the launch counts against the layer applications the
    served batches imply (and none of the other precision's kernels),
-   and vikin-mixed batched == single, bitwise, in both precisions;
+   and vikin-mixed batched == single, bitwise, in both precisions; then
+   the same at bf16 through ``make_vikin_backend(precision="bf16")``:
+   every answer within ``SERVE_TOL_BF16`` of the bf16 stack through the
+   plain versions on the card and only bf16 kernels launched; in each
+   precision the served simulated fields equal a CPU engine's on the
+   same burst;
 4. times -- per kernel at the vikin-mixed shapes, bucket 8 and batch
    8192: median ms of back-to-back calls (CUDA events) and of the same
    calls replayed from a CUDA graph (device time alone), the plain
    version's ms, one PyTorch call's ms where one computes the same
    function (``addmm``; ``torch._int_mm`` where its shape rules allow),
-   and the bound max(bytes / 3.35 TB/s, operations / peak rate: 67
-   TFLOP/s f32, 1979 TOP/s int8 for the int8 matmul); the spline-basis
+   and the bound max(bytes / 3.35 TB/s, the operations each over the
+   peak rate for its type: 67 TFLOP/s f32 on CUDA cores, 989 TFLOP/s
+   for products of bf16 operands, 1979 TOP/s for the int8 matmul); the
+   spline-basis
    kernel on the vikin-mixed KAN layer's input, flattened, and the v1
    KAN kernel at that layer beside the v2 one; each matmul record names
    the tiles (bm, bk, bn) each launch took, each KAN record (v1 too) the
    knob (bm, bi, bn), the spline-basis record its ``block_n``; then, per
    arch at bucket
    8 and per precision, where one served batch's time goes (host wall of
-   a backend forward, the stack on the card, the kernels alone);
+   a backend forward, the stack on the card, the kernels alone); the same
+   rows for the four bf16 kernels (their multiply-adds at the bf16
+   rate, the SPU and spline work at the f32 rate; library ``addmm`` in
+   bf16 with f32 accumulation) and the per-arch breakdown at bf16;
 5. the v1 path -- a ``KANLayer`` at ``version=1`` built from the
    vikin-kan2 stack's weights runs forward on the card at buckets
    2/4/8/16, 8192 and 65535 * 16 + 1 (more 16-row tiles than grid.y
@@ -64,21 +85,25 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    (``KANConfig(version=1, blocks=...)``): exactly one v1 launch per call
    and no other launch, answers within tolerance of the v2 layer and of
    the plain version (and of the layer on the CPU below the big batch);
+   and a bf16 v1 layer on the same weights cast to bf16 at buckets
+   2/4/8/16 and 8192: one bf16 v1 launch per call, within one bf16 ulp of
+   the bf16 v2 layer and of the plain version;
 6. the kernel bench -- ``repro_torch.benchmarks.kernel_bench.run`` on
    the card with its own asserts (spline-basis, v1 and v2 KAN and
    matmul kernels against plain versions and oracles, one
    ``tune_spline_basis``, one ``tune_pattern_matmul`` (8192x72->304 relu)
    and two ``tune_kan_fused`` searches (8x304->32, the v2 and the v1
    kernel), each round-tripped through a temporary cache and shown to
-   change no bit), its JSON in ``chiprun_out/kernel_bench.json``;
+   change no bit), with its bf16 rows (v1, v2 and the spline basis), its
+   JSON in ``chiprun_out/kernel_bench.json``;
 7. open-loop on the card (``runtime/loadgen``), vikin-mlp3 on 8 slots in
    f32 and int8:
    (a) the committed ``openloop:burst:vikin-mlp3`` trace of
    ``BENCH_serving.json`` (its sha256 checked) replayed on the simulated
    clock, unbounded and with ``max_queue=16, admission="shed",
    drop_expired=True``: every report field equal to the committed row at
-   f32, and to the same replay on a CPU backend at int8 (int8 moves other
-   modelled DMA bytes);
+   f32, and to the same replay on a CPU backend at int8 and at bf16
+   (both move other modelled DMA bytes);
    (b) the same backends, and the three-arch multi-workload engine under
    a workload-mixed trace, on the wall clock at rates sized from the
    card: the closed-burst rate C after ``warmup`` (15 bursts of 64, each
@@ -96,9 +121,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    (``chiprun_out/serving_bench.json``): every simulated field equal to
    the committed rows, batched == single bitwise under both policies.
 
-No served path launches the spline-basis or v1 kernel, so their
-``launches`` in the record are those of phases 6 and 5.  Rows 1-4 also
-carry ``launches_openloop``, their launches in phase 7's replays.
+No served path launches the spline-basis or v1 kernels, so their
+``launches`` in the record are those of phases 6 and 5.  The served rows
+also carry ``launches_openloop``, their launches in phase 7's replays.
 
 It prints the ``{"kernels": [...]}`` record, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It imports nothing
@@ -123,8 +148,14 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 on CUDA cores (no tensor cores)
 INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core rate
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
 KERNEL_TOL = 1e-5
 SERVE_TOL = 1e-4
+BF16_ULP = 2.0 ** -8          # one bf16 ulp of (1 + max|ref|)
+# A served bf16 answer against the bf16 stack through the plain versions
+# on the card: each layer's bf16 output may round one ulp apart, and the
+# deepest served stack has three layers.
+SERVE_TOL_BF16 = 3 * BF16_ULP
 ARCHS = ("vikin-kan2", "vikin-mlp3", "vikin-mixed")
 BUCKETS = (2, 4, 8, 16)
 BIG = 8192
@@ -154,6 +185,8 @@ KERNEL_INFO = {
     "spline_basis": {
         "source": ("src/repro_torch/kernels/spline_basis/csrc/"
                    "spline_basis.cu"),
+        "headers": ["src/repro_torch/kernels/spline_basis/csrc/"
+                    "spline_basis.cuh"],
         "replaces": "src/repro/kernels/spline_basis/spline_basis.py:68",
     },
     "kan_fused_v1": {
@@ -161,10 +194,42 @@ KERNEL_INFO = {
         "headers": ["src/repro_torch/kernels/kan_fused/csrc/kan_split.cuh"],
         "replaces": "src/repro/kernels/kan_fused/kan_fused.py:227",
     },
+    "kan_fused_v2_bf16": {
+        "source": "src/repro_torch/kernels/kan_fused/csrc/kan_fused_bf16.cu",
+        "headers": ["src/repro_torch/kernels/kan_fused/csrc/kan_split.cuh"],
+        "replaces": "src/repro/kernels/kan_fused/kan_fused.py:284",
+    },
+    "pattern_matmul_bf16": {
+        "source": ("src/repro_torch/kernels/pattern_matmul/csrc/"
+                   "pattern_matmul_bf16.cu"),
+        "replaces": "src/repro/kernels/pattern_matmul/pattern_matmul.py:119",
+    },
+    "spline_basis_bf16": {
+        "source": ("src/repro_torch/kernels/spline_basis/csrc/"
+                   "spline_basis_bf16.cu"),
+        "headers": ["src/repro_torch/kernels/spline_basis/csrc/"
+                    "spline_basis.cuh"],
+        "replaces": "src/repro/kernels/spline_basis/spline_basis.py:68",
+    },
+    "kan_fused_v1_bf16": {
+        "source": ("src/repro_torch/kernels/kan_fused/csrc/"
+                   "kan_fused_v1_bf16.cu"),
+        "headers": ["src/repro_torch/kernels/kan_fused/csrc/kan_split.cuh"],
+        "replaces": "src/repro/kernels/kan_fused/kan_fused.py:227",
+    },
 }
 F32_KERNELS = ("kan_fused_v2", "pattern_matmul")
 Q8_KERNELS = ("kan_fused_v2_q8", "pattern_matmul_q8")
 TOOLING_KERNELS = ("spline_basis", "kan_fused_v1")
+BF16_KERNELS = ("kan_fused_v2_bf16", "pattern_matmul_bf16")
+BF16_TOOLING_KERNELS = ("spline_basis_bf16", "kan_fused_v1_bf16")
+PRECISIONS = ("f32", "int8", "bf16")
+SERVED_KERNELS = {"f32": F32_KERNELS, "int8": Q8_KERNELS,
+                  "bf16": BF16_KERNELS}    # (KAN, matmul) per precision
+DTYPE = {k: "bfloat16" if k.endswith("_bf16") else
+         "int8" if k.endswith("_q8") else "float32" for k in KERNEL_INFO}
+BF, F32 = torch.bfloat16, torch.float32
+SUFFIX = {F32: "", BF: "_bf16"}            # kernel name by operand dtype
 
 
 def check(cond: bool, msg: str) -> None:
@@ -182,6 +247,7 @@ def card_line() -> str:
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple:
     """(max abs error, allowed-scale 1 + max|ref|, any NaN)."""
+    got, ref = got.float(), ref.float()       # bf16: the error in f32
     nan = bool(torch.isnan(got).any() or torch.isnan(ref).any())
     err = float((got - ref).abs().max()) if got.numel() else 0.0
     scale = 1.0 + (float(ref.abs().max()) if ref.numel() else 0.0)
@@ -309,9 +375,11 @@ def main() -> int:
     )
     from repro_torch.runtime.server import Engine
 
-    # Plain versions run torch.matmul on the card: hold them to IEEE f32.
+    # Plain versions run torch.matmul on the card: hold them to IEEE f32,
+    # and the bf16 library call (addmm) to f32 accumulation.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device(DEVICE)
 
     # ---------------------------------------------------------------- 1
@@ -331,9 +399,12 @@ def main() -> int:
                   f"registers, {e.get('stack')} B stack, "
                   f"{e.get('spill_stores')} B spill stores, "
                   f"{e.get('spill_loads')} B spill loads")
-    check(usage["kan_fused_v1"] and all(
-        e.get("spill_stores") == 0 and e.get("spill_loads") == 0
-        for e in usage["kan_fused_v1"]), "a kan_fused_v1 instance spills")
+    spills = [f"{name} {e['entry']}" for name in KERNEL_INFO
+              for e in usage.get(name, [])
+              if e.get("spill_stores") != 0 or e.get("spill_loads") != 0]
+    check(all(usage.get(name) for name in KERNEL_INFO) and not spills,
+          f"ptxas found no instance of a kernel, or instances spill: "
+          f"{spills}")
     torch.cuda.synchronize()
 
     # ---------------------------------------------------------------- 2
@@ -341,7 +412,8 @@ def main() -> int:
     n_checks = {name: 0 for name in KERNEL_INFO}
 
     def compare(name: str, got: torch.Tensor, ref: torch.Tensor,
-                what: str, exact: bool = False) -> None:
+                what: str, exact: bool = False,
+                tol: float = KERNEL_TOL) -> None:
         err, scale, nan = rel_err(got, ref)
         check(not nan, f"{name} {what}: NaN in kernel or plain output")
         check(got.shape == ref.shape,
@@ -349,43 +421,81 @@ def main() -> int:
         if exact:
             check(torch.equal(got, ref), f"{name} {what}: kernel != plain "
                   f"(max abs err {err:.3e}), bitwise expected")
-        check(err <= KERNEL_TOL * scale,
+        check(err <= tol * scale,
               f"{name} {what}: max|kernel - plain| = {err:.3e} > "
-              f"{KERNEL_TOL:g} * {scale:.4g}")
+              f"{tol:g} * {scale:.4g}")
         max_err[name] = max(max_err[name], err)
         n_checks[name] += 1
 
+    def compare_calls(name: str, run, plain, what: str) -> torch.Tensor:
+        """The kernel call ``run`` against the plain call ``plain``, both
+        taking an output dtype (None: the input's).  An f32 output within
+        ``KERNEL_TOL``; a bf16 one within one bf16 ulp, its f32 output
+        within ``KERNEL_TOL`` and the bf16 output the f32 one rounded
+        once.  Returns the kernel's output."""
+        got = run(None)
+        if got.dtype != BF:
+            compare(name, got, plain(None), what)
+            return got
+        got32 = run(F32)
+        check(got32.dtype == F32, f"{name} {what}: f32 out is {got32.dtype}")
+        compare(name, got, plain(None), f"{what} bf16 out", tol=BF16_ULP)
+        compare(name, got32, plain(F32), f"{what} f32 out")
+        check(torch.equal(got, got32.to(BF)), f"{name} {what}: the bf16 "
+              f"output is not the f32 output rounded once")
+        return got
+
     def layer_calls(layer, x: torch.Tensor):
-        """(kernel name, kernel input, kernel call, plain call) of one stack
-        layer on its input ``x``; an MLP layer's mask gather is done here,
-        once, as ``PatternLinear.forward`` does it."""
+        """(kernel name, kernel input, kernel call, plain call) of one f32
+        or bf16 stack layer on its input ``x``, the kernel the one for x's
+        dtype; both calls take an output dtype (None: x's).  An MLP
+        layer's mask gather is done here, once, as ``PatternLinear.forward``
+        does it."""
+        sfx = SUFFIX[x.dtype]
         if isinstance(layer, KANLayer):
             spec = layer.cfg.spec
-            return ("kan_fused_v2", x,
-                    lambda: kan_fused_v2(x, layer.wt, spec, layer.kb,
-                                         layer.slot_of),
-                    lambda: kan_fused_v2_ref(x, layer.wt, spec, layer.kb))
+            return ("kan_fused_v2" + sfx, x,
+                    lambda od=None: kan_fused_v2(x, layer.wt, spec, layer.kb,
+                                                 layer.slot_of, out_dtype=od),
+                    lambda od=None: kan_fused_v2_ref(x, layer.wt, spec,
+                                                     layer.kb, od))
         xc = (x if layer.idx is None
               else x.index_select(1, layer.idx)).contiguous()
-        return ("pattern_matmul", xc,
-                lambda: matmul_compact(xc, layer.w_c, layer.b, layer.act),
-                lambda: matmul_compact_ref(xc, layer.w_c, layer.b,
-                                           layer.act))
+        return ("pattern_matmul" + sfx, xc,
+                lambda od=None: matmul_compact(xc, layer.w_c, layer.b,
+                                               layer.act, out_dtype=od),
+                lambda od=None: matmul_compact_ref(xc, layer.w_c, layer.b,
+                                                   layer.act, od))
 
     def check_stack(stack, x: torch.Tensor, what: str) -> None:
         for i, layer in enumerate(stack.layers):
             name, _, kernel, plain = layer_calls(layer, x)
+            compare_calls(name, kernel, plain, f"{what} layer {i}")
             x = plain()
-            compare(name, kernel(), x, f"{what} layer {i}")
+
+    def rand(rng, batch: int, name: str, dtype=F32) -> torch.Tensor:
+        """A seeded (batch, n_in) input of arch ``name`` on the card."""
+        return torch.from_numpy(rng.random(
+            (batch, VIKIN_ARCHS[name].sizes[0]), dtype=np.float32)).to(
+                dev, dtype)
 
     backends = {name: make_vikin_backend(VIKIN_ARCHS[name], DEVICE)
                 for name in ARCHS}
+    # the stacks the launcher serves at --precision bf16: the seed-0 f32
+    # weights cast once
+    bf_backends = {name: make_vikin_backend(VIKIN_ARCHS[name], DEVICE,
+                                            precision="bf16")
+                   for name in ARCHS}
+    by_dtype = {F32: backends, BF: bf_backends}
     rng = np.random.default_rng(0)
-    for name in ARCHS:
-        for b in BUCKETS:
-            x = torch.from_numpy(rng.random(
-                (b, VIKIN_ARCHS[name].sizes[0]), dtype=np.float32)).to(dev)
-            check_stack(backends[name].stack, x, f"{name} B={b}")
+    x_big = rand(rng, BIG, "vikin-mixed")
+    for dtype, bes in by_dtype.items():
+        for name in ARCHS:
+            for b in BUCKETS:
+                check_stack(bes[name].stack, rand(rng, b, name, dtype),
+                            f"{name} {dtype} B={b}")
+        check_stack(bes["vikin-mixed"].stack, x_big.to(dtype),
+                    f"vikin-mixed {dtype} B={BIG}")
     torch.cuda.synchronize()
 
     # ragged: kan 1000x304->96 and matmul 1000x152->304 relu
@@ -409,11 +519,6 @@ def main() -> int:
                 f"ragged 1000x152->304 act={act}")
     compare("pattern_matmul", matmul_compact(xm, wm, None, None),
             matmul_compact_ref(xm, wm, None, None), "ragged no bias")
-    # one large batch through the vikin-mixed stack
-    x_big = torch.from_numpy(rng.random(
-        (BIG, VIKIN_ARCHS["vikin-mixed"].sizes[0]),
-        dtype=np.float32)).to(dev)
-    check_stack(backends["vikin-mixed"].stack, x_big, f"vikin-mixed B={BIG}")
     torch.cuda.synchronize()
 
     # int8: the stacks the launcher serves at --precision int8 (scales
@@ -473,9 +578,8 @@ def main() -> int:
                    for name in ARCHS}
     for name in ARCHS:
         for b in BUCKETS:
-            x = torch.from_numpy(rng.random(
-                (b, VIKIN_ARCHS[name].sizes[0]), dtype=np.float32)).to(dev)
-            check_stack_q8(q8_backends[name].stack, x, f"{name} B={b}")
+            check_stack_q8(q8_backends[name].stack, rand(rng, b, name),
+                           f"{name} B={b}")
     torch.cuda.synchronize()
     # ragged: kan q8 1000x304->96, matmul q8 1000x152->304 and 999x147->301
     xq = torch.randint(-127, 128, (1000, 304), generator=gen,
@@ -498,9 +602,9 @@ def main() -> int:
                    f"vikin-mixed B={BIG}")
     torch.cuda.synchronize()
 
-    # the kernel-tooling kernels: spline_basis bitwise at every block_n
-    # candidate; kan_fused_v1 against its plain version, the v2 kernel on
-    # the same weights, and itself one row at a time
+    # the kernel-tooling kernels, f32 and bf16: spline_basis bitwise at
+    # every block_n candidate; kan_fused_v1 against its plain version (f32:
+    # and the v2 kernel on the same weights), and itself one row at a time
     def kan_inputs(stack, x: torch.Tensor):
         """(layer, input) of each KAN layer of ``stack`` on ``x``, the
         stack run layer by layer through the plain versions."""
@@ -511,39 +615,50 @@ def main() -> int:
             x = layer_calls(layer, x)[3]()
         return out
 
+    def t_flat_of(layer) -> torch.Tensor:
+        """The v1 kernel's basis weights of a (v2) KANLayer, unfused."""
+        return flatten_t(layer.t, layer.cfg.kb).contiguous()
+
     def check_spline(x: torch.Tensor, spec, what: str,
                      misaligned: bool = False) -> None:
+        name = "spline_basis" + SUFFIX[x.dtype]
         flat = x.reshape(-1)
         plain = spline_basis_plain(flat, spec)
-        for cand in autotune.candidates_spline_basis(flat.numel(),
-                                                     spec.n_bases):
+        for cand in autotune.candidates_spline_basis(
+                flat.numel(), spec.n_bases, flat.dtype):
             bn = cand["block_n"]
-            compare("spline_basis", spline_basis(flat, spec, block_n=bn),
-                    plain, f"{what} block_n={bn}", exact=True)
+            compare(name, spline_basis(flat, spec, block_n=bn), plain,
+                    f"{what} block_n={bn}", exact=True)
         if not misaligned:
             return
-        # the kernel into an output 1..3 words past a 16-byte boundary,
-        # with a guard word on each side (these launches count in no
-        # phase's launches)
-        n, nb = flat.numel(), spec.n_bases
-        for off in (1, 2, 3):
-            buf = torch.full((n * nb + 8,), -7.0, device=dev)
-            _build.launch("spline_basis", flat.data_ptr(),
-                          buf[off:].data_ptr(), n, spec.grid_size,
-                          spec.order, float(spec.x0), float(spec.inv_h),
-                          256, torch.cuda.current_stream().cuda_stream)
-            compare("spline_basis", buf[off:off + n * nb].reshape(n, nb),
-                    plain, f"{what} output +{4 * off} bytes", exact=True)
+        # the kernel into an output each element offset past a 16-byte
+        # boundary, up to 16 bytes, with a guard on each side (these
+        # launches count in no phase's launches)
+        n, nb, esz = flat.numel(), spec.n_bases, flat.element_size()
+        for off in range(1, 16 // esz):
+            buf = torch.full((n * nb + 32 // esz,), -7.0, device=dev,
+                             dtype=flat.dtype)
+            _build.launch(name, flat.data_ptr(), buf[off:].data_ptr(), n,
+                          spec.grid_size, spec.order, float(spec.x0),
+                          float(spec.inv_h), 256,
+                          torch.cuda.current_stream().cuda_stream)
+            compare(name, buf[off:off + n * nb].reshape(n, nb), plain,
+                    f"{what} output +{esz * off} bytes", exact=True)
             check(bool((buf[:off] == -7.0).all()) and bool(
                 (buf[off + n * nb:] == -7.0).all()),
-                f"spline_basis {what}: a store outside the output")
+                f"{name} {what}: a store outside the output")
 
     v1_v2 = {"err": 0.0, "n": 0}
 
     def check_v1(x, w_b, t_flat, wt, spec, kb, slot, what: str) -> None:
+        compare_calls("kan_fused_v1" + SUFFIX[x.dtype],
+                      lambda od=None: kan_fused_v1(x, w_b, t_flat, spec, kb,
+                                                   slot, out_dtype=od),
+                      lambda od=None: kan_fused_v1_ref(x, w_b, t_flat, spec,
+                                                       kb, od), what)
+        if x.dtype != F32:
+            return
         got = kan_fused_v1(x, w_b, t_flat, spec, kb, slot)
-        compare("kan_fused_v1", got,
-                kan_fused_v1_ref(x, w_b, t_flat, spec, kb), what)
         err, scale, nan = rel_err(got, kan_fused_v2(x, wt, spec, kb, slot))
         check(not nan and err <= KERNEL_TOL * scale,
               f"kan_fused_v1 {what}: max|v1 - v2| = {err:.3e} > "
@@ -552,28 +667,27 @@ def main() -> int:
         v1_v2["n"] += 1
 
     rng_sb = np.random.default_rng(3)
-    for g in VALID_G:
-        for k in VALID_K:
-            x = torch.from_numpy(rng_sb.uniform(-2.5, 2.5, 4096).astype(
-                np.float32)).to(dev)
-            check_spline(x, SplineSpec(g, k), f"G{g}K{k} n=4096 in "
-                         f"[-2.5, 2.5]", misaligned=True)
-    for name in ("vikin-mixed", "vikin-kan2"):
-        for b in BUCKETS + (BIG,):
-            x = torch.from_numpy(rng.random(
-                (b, VIKIN_ARCHS[name].sizes[0]), dtype=np.float32)).to(dev)
-            for layer, xin in kan_inputs(backends[name].stack, x):
-                check_spline(xin, layer.cfg.spec,
-                             f"{name} KAN input B={b}")
-                check_v1(xin, layer.w_b,
-                         flatten_t(layer.t, layer.cfg.kb).contiguous(),
-                         layer.wt, layer.cfg.spec, layer.kb, layer.slot_of,
-                         f"{name} B={b}")
-    for n in (1, 7, 1025, 1000 * 304):
-        x = torch.from_numpy(rng_sb.uniform(-2.5, 2.5, n).astype(
-            np.float32)).to(dev)
-        check_spline(x, spec, f"ragged n={n} in [-2.5, 2.5]",
-                     misaligned=True)
+    for dtype, bes in by_dtype.items():
+        for g in VALID_G:
+            for k in VALID_K:
+                x = torch.from_numpy(rng_sb.uniform(-2.5, 2.5, 4096).astype(
+                    np.float32)).to(dev, dtype)
+                check_spline(x, SplineSpec(g, k), f"G{g}K{k} n=4096 in "
+                             f"[-2.5, 2.5]", misaligned=True)
+        for name in ("vikin-mixed", "vikin-kan2"):
+            for b in BUCKETS + (BIG,):
+                x = rand(rng, b, name, dtype)
+                for layer, xin in kan_inputs(bes[name].stack, x):
+                    check_spline(xin, layer.cfg.spec,
+                                 f"{name} KAN input B={b}")
+                    check_v1(xin, layer.w_b, t_flat_of(layer), layer.wt,
+                             layer.cfg.spec, layer.kb, layer.slot_of,
+                             f"{name} B={b}")
+        for n in (1, 7, 1025, 1000 * 304):
+            x = torch.from_numpy(rng_sb.uniform(-2.5, 2.5, n).astype(
+                np.float32)).to(dev, dtype)
+            check_spline(x, spec, f"ragged n={n} in [-2.5, 2.5]",
+                         misaligned=True)
     # ragged 1000x304->96: the ragged v2 weights, unfused
     xr = (torch.randn((1000, 304), generator=gen) * 1.5).to(dev)
     w3 = wt.reshape(304, len(kb) + 1, 96)
@@ -582,7 +696,7 @@ def main() -> int:
              kb, slot, "ragged 1000x304->96")
     # batched == single, bitwise, at vikin-mixed's KAN layer
     layer, xin = kan_inputs(backends["vikin-mixed"].stack, x_big[:16])[0]
-    t_flat = flatten_t(layer.t, layer.cfg.kb).contiguous()
+    t_flat = t_flat_of(layer)
     full = kan_fused_v1(xin, layer.w_b, t_flat, layer.cfg.spec, layer.kb,
                         layer.slot_of)
     for i in range(6):
@@ -592,37 +706,37 @@ def main() -> int:
               f"kan_fused_v1: row {i} alone != row {i} of a batch of 16")
     torch.cuda.synchronize()
 
-    # every candidate tile of both matmul kernels at vikin-mixed's and
-    # vikin-mlp3's matmul layers: bitwise the default tile's output, which
-    # is held to the plain version
-    knob_checks = {"pattern_matmul": 0, "pattern_matmul_q8": 0}
+    # every candidate tile of the three matmul kernels at vikin-mixed's
+    # and vikin-mlp3's matmul layers: bitwise the default tile's output,
+    # which is held to the plain version
+    knob_checks = {}
 
     def check_knobs(name: str, xin, run, what: str) -> None:
         ref = run(None)
         M, kc = xin.shape
-        dtype = torch.int8 if name == "pattern_matmul_q8" else torch.float32
         n = ref.shape[1]
-        for c in autotune.candidates_pattern_matmul(M, kc, n, dtype):
+        for c in autotune.candidates_pattern_matmul(M, kc, n, xin.dtype):
             knob = (c["bm"], c["bk"], c["bn"])
             check(torch.equal(run(knob), ref), f"{name} {what}: tiles "
                   f"{knob} != the default tiles, bitwise")
-            knob_checks[name] += 1
+            knob_checks[name] = knob_checks.get(name, 0) + 1
 
     for name in ("vikin-mixed", "vikin-mlp3"):
         for b in (8, BIG):
-            x = torch.from_numpy(rng.random(
-                (b, VIKIN_ARCHS[name].sizes[0]), dtype=np.float32)).to(dev)
-            h = x
-            for i, layer in enumerate(backends[name].stack.layers):
-                lname, xin, kernel, plain = layer_calls(layer, h)
-                if lname == "pattern_matmul":
-                    compare(lname, kernel(), plain(),
-                            f"{name} B={b} layer {i} default tiles")
-                    check_knobs(lname, xin, lambda k, xin=xin, layer=layer:
-                                matmul_compact(xin, layer.w_c, layer.b,
-                                               layer.act, blocks=k),
-                                f"{name} B={b} layer {i}")
-                h = plain()
+            x = rand(rng, b, name)
+            for dtype, bes in by_dtype.items():
+                h = x.to(dtype)
+                for i, layer in enumerate(bes[name].stack.layers):
+                    lname, xin, kernel, plain = layer_calls(layer, h)
+                    if not isinstance(layer, KANLayer):
+                        compare_calls(lname, kernel, plain, f"{name} B={b} "
+                                      f"layer {i} default tiles")
+                        check_knobs(lname, xin,
+                                    lambda k, xin=xin, layer=layer:
+                                    matmul_compact(xin, layer.w_c, layer.b,
+                                                   layer.act, blocks=k),
+                                    f"{name} B={b} layer {i}")
+                    h = plain()
             stack = q8_backends[name].stack
             h = quantize_static(x, stack.x_scales[0])
             for i, layer in enumerate(stack.layers):
@@ -660,33 +774,36 @@ def main() -> int:
 
     for name in ("vikin-mixed", "vikin-kan2"):
         for b in (8, BIG):
-            x = torch.from_numpy(rng.random(
-                (b, VIKIN_ARCHS[name].sizes[0]), dtype=np.float32)).to(dev)
-            for layer, xin in kan_inputs(backends[name].stack, x):
-                compare("kan_fused_v2", kan_fused_v2(
-                    xin, layer.wt, layer.cfg.spec, layer.kb, layer.slot_of),
-                    kan_fused_v2_ref(xin, layer.wt, layer.cfg.spec,
-                                     layer.kb), f"{name} B={b} default knob")
-                check_kan_knobs(
-                    "kan_fused_v2", lambda k, xin=xin, layer=layer:
-                    kan_fused_v2(xin, layer.wt, layer.cfg.spec, layer.kb,
-                                 layer.slot_of, blocks=k),
-                    xin, layer, torch.float32, f"{name} B={b}")
-                # v1 on the same weights, unfused: every candidate of its
-                # own grid bitwise its default knob, which holds to the
-                # plain version
-                t_flat = flatten_t(layer.t, layer.cfg.kb).contiguous()
-                compare("kan_fused_v1", kan_fused_v1(
-                    xin, layer.w_b, t_flat, layer.cfg.spec, layer.kb,
-                    layer.slot_of), kan_fused_v1_ref(
-                    xin, layer.w_b, t_flat, layer.cfg.spec, layer.kb),
-                    f"{name} B={b} default knob")
-                check_kan_knobs(
-                    "kan_fused_v1", lambda k, xin=xin, layer=layer,
-                    t_flat=t_flat: kan_fused_v1(
-                        xin, layer.w_b, t_flat, layer.cfg.spec, layer.kb,
-                        layer.slot_of, blocks=k),
-                    xin, layer, torch.float32, f"{name} B={b}", version=1)
+            x = rand(rng, b, name)
+            for dtype, bes in by_dtype.items():
+                for layer, xin in kan_inputs(bes[name].stack, x.to(dtype)):
+                    lname, _, kernel, plain = layer_calls(layer, xin)
+                    compare_calls(lname, kernel, plain,
+                                  f"{name} B={b} default knob")
+                    check_kan_knobs(
+                        lname, lambda k, xin=xin, layer=layer:
+                        kan_fused_v2(xin, layer.wt, layer.cfg.spec, layer.kb,
+                                     layer.slot_of, blocks=k),
+                        xin, layer, dtype, f"{name} B={b}")
+                    # v1 on the same weights, unfused: every candidate of
+                    # its own grid bitwise its default knob, which holds
+                    # to the plain version
+                    t_flat = t_flat_of(layer)
+                    compare_calls(
+                        "kan_fused_v1" + SUFFIX[dtype],
+                        lambda od=None, xin=xin, layer=layer, t_flat=t_flat:
+                        kan_fused_v1(xin, layer.w_b, t_flat, layer.cfg.spec,
+                                     layer.kb, layer.slot_of, out_dtype=od),
+                        lambda od=None, xin=xin, layer=layer, t_flat=t_flat:
+                        kan_fused_v1_ref(xin, layer.w_b, t_flat,
+                                         layer.cfg.spec, layer.kb, od),
+                        f"{name} B={b} default knob")
+                    check_kan_knobs(
+                        "kan_fused_v1" + SUFFIX[dtype],
+                        lambda k, xin=xin, layer=layer, t_flat=t_flat:
+                        kan_fused_v1(xin, layer.w_b, t_flat, layer.cfg.spec,
+                                     layer.kb, layer.slot_of, blocks=k),
+                        xin, layer, dtype, f"{name} B={b}", version=1)
             stack = q8_backends[name].stack
             h = quantize_static(x, stack.x_scales[0])
             for i, layer in enumerate(stack.layers):
@@ -748,7 +865,7 @@ def main() -> int:
     q_full = kan_fused_v2_q8(q_in, q_layer.wt_q, q_layer.slot_scales,
                              q_layer.cfg.spec, q_layer.kb, q_layer.x_scale,
                              q_layer.slot_of, blocks=(16, 512, 32))
-    t_flat = flatten_t(layer.t, layer.cfg.kb).contiguous()
+    t_flat = t_flat_of(layer)
     v1_full = kan_fused_v1(xin, layer.w_b, t_flat, layer.cfg.spec, layer.kb,
                            layer.slot_of, blocks=(16, 512, 32))
     for i in range(6):
@@ -775,8 +892,107 @@ def main() -> int:
           f"77x37->13 and 77x300->33; ragged widths within tolerance; "
           f"batched == single under different knobs in all three: "
           f"{knob_checks}")
+    # ------------------------------------------------------------ 2 bf16
+    # the bf16 kernels at ragged shapes, under every knob there, and
+    # batched == single (the served bf16 layers are checked above)
+    rng_bf = np.random.default_rng(5)
+    gen_bf = torch.Generator().manual_seed(11)
+    # ragged: odd n_in (x staged an element at a time) and odd n_out
+    # (weight rows and outputs an element at a time), every knob of both
+    # versions bitwise the default's
+    for rb, n_in, n_out in ((77, 37, 13), (77, 301, 33), (1000, 304, 96)):
+        xr = (torch.randn((rb, n_in), generator=gen_bf) * 1.5).to(dev, BF)
+        wr = (torch.randn((n_in * (len(kb) + 1), n_out), generator=gen_bf)
+              * 0.05).to(dev, BF)
+        w3 = wr.reshape(n_in, len(kb) + 1, n_out)
+        w_br = w3[:, 0].contiguous()
+        t_r = w3[:, 1:].reshape(n_in * len(kb), n_out).contiguous()
+        what = f"ragged {rb}x{n_in}->{n_out}"
+        v2r = compare_calls(
+            "kan_fused_v2_bf16",
+            lambda od=None: kan_fused_v2(xr, wr, spec, kb, slot,
+                                         out_dtype=od),
+            lambda od=None: kan_fused_v2_ref(xr, wr, spec, kb, od), what)
+        v1r = compare_calls(
+            "kan_fused_v1_bf16",
+            lambda od=None: kan_fused_v1(xr, w_br, t_r, spec, kb, slot,
+                                         out_dtype=od),
+            lambda od=None: kan_fused_v1_ref(xr, w_br, t_r, spec, kb, od),
+            what)
+        if rb == 1000:
+            continue
+        for version, ref in ((2, v2r), (1, v1r)):
+            k = "kan_fused_v2_bf16" if version == 2 else "kan_fused_v1_bf16"
+            for c in autotune.candidates_kan_fused(rb, n_in, n_out, len(kb),
+                                                   BF, version):
+                knob = (c["bm"], c["bi"], c["bn"])
+                got = (kan_fused_v2(xr, wr, spec, kb, slot, blocks=knob)
+                       if version == 2 else
+                       kan_fused_v1(xr, w_br, t_r, spec, kb, slot,
+                                    blocks=knob))
+                check(torch.equal(got, ref), f"{k} {what}: knob {knob} != "
+                      f"the default knob, bitwise")
+                knob_checks[k] = knob_checks.get(k, 0) + 1
+    for m, kk, n in ((999, 147, 301), (1000, 152, 304)):
+        xm_bf = torch.randn((m, kk), generator=gen_bf).to(dev, BF)
+        wm_bf = (torch.randn((kk, n), generator=gen_bf) * 0.1).to(dev, BF)
+        bm_bf = torch.randn((n,), generator=gen_bf).to(dev, BF)
+        for act in (None, "relu", "gelu", "silu"):
+            for bias in (bm_bf, None):
+                compare_calls(
+                    "pattern_matmul_bf16",
+                    lambda od=None: matmul_compact(xm_bf, wm_bf, bias, act,
+                                                   out_dtype=od),
+                    lambda od=None: matmul_compact_ref(xm_bf, wm_bf, bias,
+                                                       act, od),
+                    f"ragged {m}x{kk}->{n} act={act} bias={bias is not None}")
+    torch.cuda.synchronize()
+
+    # batched == single, bitwise: each row alone, under another knob, is
+    # its row in a batch of 2, 4, 8, 16 and 8192
+    x_big_bf = x_big.to(BF)
+    layer, xin = kan_inputs(bf_backends["vikin-mixed"].stack, x_big_bf)[0]
+    t_flat = t_flat_of(layer)
+    mm0 = bf_backends["vikin-mixed"].stack.layers[0]
+    n_single = 0
+    for b in BUCKETS + (BIG,):
+        full2 = kan_fused_v2(xin[:b], layer.wt, layer.cfg.spec, layer.kb,
+                             layer.slot_of, blocks=(16, 512, 32))
+        full1 = kan_fused_v1(xin[:b], layer.w_b, t_flat, layer.cfg.spec,
+                             layer.kb, layer.slot_of, blocks=(16, 512, 32))
+        fullm = matmul_compact(x_big_bf[:b], mm0.w_c, mm0.b, mm0.act,
+                               blocks=(128, 64, 64))
+        for i in sorted({0, b // 2, b - 1}):
+            xi = xin[i:i + 1].contiguous()
+            check(torch.equal(kan_fused_v2(xi, layer.wt, layer.cfg.spec,
+                                           layer.kb, layer.slot_of,
+                                           blocks=(8, 32, 8)),
+                              full2[i:i + 1]),
+                  f"kan_fused_v2_bf16: row {i} alone != row {i} of {b}")
+            check(torch.equal(kan_fused_v1(xi, layer.w_b, t_flat,
+                                           layer.cfg.spec, layer.kb,
+                                           layer.slot_of, blocks=(8, 64, 16)),
+                              full1[i:i + 1]),
+                  f"kan_fused_v1_bf16: row {i} alone != row {i} of {b}")
+            check(torch.equal(matmul_compact(
+                x_big_bf[i:i + 1].contiguous(), mm0.w_c, mm0.b, mm0.act,
+                blocks=(16, 16, 8)), fullm[i:i + 1]),
+                f"pattern_matmul_bf16: row {i} alone != row {i} of {b}")
+            n_single += 3
+    torch.cuda.synchronize()
+    print(f"phase 2 bf16: every candidate knob of the bf16 kernels bitwise "
+          f"the default's at the served layers (B=8 and {BIG}) and, for "
+          f"KAN, at ragged 77x37->13 and 77x301->33: "
+          f"{ {k: v for k, v in knob_checks.items() if k.endswith('bf16')} }"
+          f"; batched == single, bitwise, at batches {BUCKETS + (BIG,)}: "
+          f"{n_single} rows")
+
     for name in KERNEL_INFO:
-        how = ("bitwise" if name in ("pattern_matmul_q8", "spline_basis")
+        how = ("bitwise" if name in ("pattern_matmul_q8", "spline_basis",
+                                     "spline_basis_bf16")
+               else f"bf16 out within {BF16_ULP:g}*(1+max|plain|), f32 out "
+               f"within {KERNEL_TOL:g}*(1+max|plain|)" if name in
+               BF16_KERNELS + BF16_TOOLING_KERNELS
                else f"within {KERNEL_TOL:g}*(1+max|plain|)")
         print(f"phase 2: {name}: {n_checks[name]} shapes {how}, max abs "
               f"err {max_err[name]:.3e}")
@@ -785,103 +1001,11 @@ def main() -> int:
           f"{v1_v2['err']:.3e}; v1 batched == single, bitwise, on 6 rows")
 
     # ---------------------------------------------------------------- 3
-    models = [VIKIN_ARCHS[n] for n in ARCHS]
-    eng = make_engine(models, slots=8, policy="mode-affinity",
-                      device=DEVICE)
-    rids = submit_burst(eng, models, 48)
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    out = eng.run_until_done()
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
-    print_report(eng, out, rids)
-    check(sorted(out) == sorted(rids), "served set != submitted set")
-
-    ws = eng.per_workload_stats()
-    want = {"kan_fused_v2": 0, "pattern_matmul": 0}
-    for name in ARCHS:
-        kinds = VIKIN_ARCHS[name].layer_kinds
-        batches = int(ws[name]["batches"])
-        want["kan_fused_v2"] += batches * kinds.count("kan")
-        want["pattern_matmul"] += batches * kinds.count("mlp")
-    print(f"phase 3: launches {launches}, implied by the served batches "
-          f"{want}")
-    for k in want:
-        check(launches[k] == want[k] and want[k] > 0,
-              f"{k}: {launches[k]} launches, served batches imply {want[k]}")
-    for k in Q8_KERNELS + TOOLING_KERNELS:
-        check(launches[k] == 0, f"{k}: {launches[k]} launches in f32 serving")
-
-    def hold_f32(stack, xs: np.ndarray, served: np.ndarray,
-                 what: str) -> float:
-        """Hold the f32 answers ``served`` to inputs ``xs`` against the
-        stack run through the plain versions on the card; returns the
-        max abs error."""
-        h = torch.from_numpy(xs).to(dev)
-        for layer in stack.layers:
-            h = layer_calls(layer, h)[3]()
-        err, scale, nan = rel_err(torch.from_numpy(served), h.cpu())
-        check(not nan and err <= SERVE_TOL * scale,
-              f"{what}: max|served - plain| = {err:.3e} vs "
-              f"{SERVE_TOL:g} * {scale:.4g} (NaN: {nan})")
-        return err
-
-    sub = eng.backend.backends
-    for name in ARCHS:
-        rs = [r for r in sorted(rids) if rids[r][0] == name]
-        err = hold_f32(sub[name].stack, np.stack([rids[r][1] for r in rs]),
-                       np.stack([out[r] for r in rs]), f"served {name}")
-        print(f"phase 3: {name}: {len(rs)} answers within {SERVE_TOL:g}*"
-              f"(1+max|ref|) of the plain stack, max abs err {err:.3e}")
-
-    mixed = VIKIN_ARCHS["vikin-mixed"]
-    batched_eng = Engine(make_vikin_backend(mixed, DEVICE), n_slots=4)
-    prompts = [rng.random(mixed.sizes[0], dtype=np.float32)
-               for _ in range(6)]
-    brids = [batched_eng.submit(p) for p in prompts]
-    batched = batched_eng.run_until_done()
-    solo_eng = Engine(make_vikin_backend(mixed, DEVICE), n_slots=4)
-    for p, rid in zip(prompts, brids):
-        srid = solo_eng.submit(p)
-        solo = solo_eng.run_until_done()
-        check(np.array_equal(batched[rid], solo[srid]),
-              f"vikin-mixed batched != single for request {rid}")
-    print("phase 3: vikin-mixed batched == single, bitwise, on 6 requests "
-          "(buckets 4/2 vs 2)")
-    s = eng.stats
-    print(f"phase 3: served sim_cycles {s['sim_cycles']:.1f}, mode_switches "
-          f"{s['mode_switches']:.0f}, reconfig_cycles "
-          f"{s['reconfig_cycles']:.0f}, wall {serve_s * 1e3:.2f} ms "
-          f"({len(out) / serve_s:.1f} req/s)")
-
-    # the same burst at int8
-    q_eng = make_engine(models, slots=8, policy="mode-affinity",
-                        device=DEVICE, precision="int8")
-    q_rids = submit_burst(q_eng, models, 48)
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    q_out = q_eng.run_until_done()
-    torch.cuda.synchronize()
-    q_serve_s = time.perf_counter() - t0
-    q_launches = dict(_build.LAUNCHES)
-    print_report(q_eng, q_out, q_rids)
-    check(sorted(q_out) == sorted(q_rids), "int8: served set != submitted set")
-    q_ws = q_eng.per_workload_stats()
-    q_want = {k: 0 for k in KERNEL_INFO}
-    for name in ARCHS:
-        kinds = VIKIN_ARCHS[name].layer_kinds
-        batches = int(q_ws[name]["batches"])
-        q_want["kan_fused_v2_q8"] += batches * kinds.count("kan")
-        q_want["pattern_matmul_q8"] += batches * kinds.count("mlp")
-    print(f"phase 3 int8: launches {q_launches}, implied by the served "
-          f"batches {q_want}")
-    for k in KERNEL_INFO:
-        check(q_launches[k] == q_want[k] and (q_want[k] > 0 or
-                                              k not in Q8_KERNELS),
-              f"int8 {k}: {q_launches[k]} launches, served batches imply "
-              f"{q_want[k]}")
-
+    # a 48-request burst of the three archs through the launcher's engine
+    # in each precision (bf16 and int8 through make_vikin_backend's
+    # precision): the launches against the served batches, every answer
+    # against the plain versions, vikin-mixed batched == single, and the
+    # simulated fields against a CPU engine's on the same burst
     def hold_int8(stack, xs_np: np.ndarray, served_np: np.ndarray,
                   what: str) -> tuple:
         """Hold the int8 answers ``served_np`` to inputs ``xs_np``: bitwise
@@ -919,208 +1043,285 @@ def main() -> int:
               f"{SERVE_TOL:g} * {scale:.4g} (NaN: {nan})")
         return err, flips
 
-    q_sub = q_eng.backend.backends
-    for name in ARCHS:
-        rs = [r for r in sorted(q_rids) if q_rids[r][0] == name]
-        err, flips = hold_int8(q_sub[name].stack,
-                               np.stack([q_rids[r][1] for r in rs]),
-                               np.stack([q_out[r] for r in rs]),
-                               f"int8 served {name}")
-        print(f"phase 3 int8: {name}: {len(rs)} answers within "
-              f"{SERVE_TOL:g}*(1+max|ref|) of the plain int8 stack, max abs "
-              f"err {err:.3e}; {flips} requantized codes rounded across a "
-              f"tie")
+    def hold(precision: str, stack, xs: np.ndarray, served: np.ndarray,
+             what: str) -> tuple:
+        """Hold the answers ``served`` to inputs ``xs`` of a stack served
+        at ``precision``: f32 within ``SERVE_TOL`` and bf16 (widened to
+        f32) within ``SERVE_TOL_BF16`` of the stack run through the plain
+        versions on the card; int8 as ``hold_int8``.  Returns (max abs
+        error, int8 codes rounded across a tie)."""
+        if precision == "int8":
+            return hold_int8(stack, xs, served, what)
+        dtype, tol = ((BF, SERVE_TOL_BF16) if precision == "bf16"
+                      else (F32, SERVE_TOL))
+        h = torch.from_numpy(xs).to(dev, dtype)
+        for layer in stack.layers:
+            h = layer_calls(layer, h)[3]()
+        err, scale, nan = rel_err(torch.from_numpy(served), h.cpu())
+        check(not nan and err <= tol * scale,
+              f"{what}: max|served - plain| = {err:.3e} vs "
+              f"{tol:g} * {scale:.4g} (NaN: {nan})")
+        return err, 0
 
-    batched_eng = Engine(make_vikin_backend(mixed, DEVICE, precision="int8"),
-                         n_slots=4)
-    brids = [batched_eng.submit(p) for p in prompts]
-    batched = batched_eng.run_until_done()
-    solo_eng = Engine(make_vikin_backend(mixed, DEVICE, precision="int8"),
-                      n_slots=4)
-    for p, rid in zip(prompts, brids):
-        srid = solo_eng.submit(p)
-        solo = solo_eng.run_until_done()
-        check(np.array_equal(batched[rid], solo[srid]),
-              f"int8 vikin-mixed batched != single for request {rid}")
-    print("phase 3 int8: vikin-mixed batched == single, bitwise, on 6 "
-          "requests (buckets 4/2 vs 2)")
-    qs = q_eng.stats
-    print(f"phase 3 int8: served sim_cycles {qs['sim_cycles']:.1f}, "
-          f"dma_bytes {qs['dma_bytes']:.0f} (f32: {s['dma_bytes']:.0f}), "
-          f"wall {q_serve_s * 1e3:.2f} ms ({len(q_out) / q_serve_s:.1f} "
-          f"req/s)")
+    models = [VIKIN_ARCHS[n] for n in ARCHS]
+    mixed = VIKIN_ARCHS["vikin-mixed"]
+    prompts = [rng.random(mixed.sizes[0], dtype=np.float32)
+               for _ in range(6)]
+    sim_fields = ("served", "ticks", "sim_cycles", "sim_latency_s",
+                  "dma_bytes", "mode_switches", "reconfig_cycles")
+    served = {}
+    for precision in PRECISIONS:
+        tol = {"bf16": SERVE_TOL_BF16}.get(precision, SERVE_TOL)
+        eng = make_engine(models, slots=8, policy="mode-affinity",
+                          device=DEVICE, precision=precision)
+        rids = submit_burst(eng, models, 48)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = eng.run_until_done()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        print_report(eng, out, rids)
+        check(sorted(out) == sorted(rids),
+              f"{precision}: served set != submitted set")
+        kan_k, mm_k = SERVED_KERNELS[precision]
+        want = {k: 0 for k in KERNEL_INFO}
+        ws = eng.per_workload_stats()
+        for name in ARCHS:
+            kinds = VIKIN_ARCHS[name].layer_kinds
+            batches = int(ws[name]["batches"])
+            want[kan_k] += batches * kinds.count("kan")
+            want[mm_k] += batches * kinds.count("mlp")
+        print(f"phase 3 {precision}: launches {launches}, implied by the "
+              f"served batches {want}")
+        for k in KERNEL_INFO:
+            check(launches[k] == want[k]
+                  and (want[k] > 0 or k not in (kan_k, mm_k)),
+                  f"{precision} {k}: {launches[k]} launches, served "
+                  f"batches imply {want[k]}")
+        for name in ARCHS:
+            rs = [r for r in sorted(rids) if rids[r][0] == name]
+            err, flips = hold(precision, eng.backend.backends[name].stack,
+                              np.stack([rids[r][1] for r in rs]),
+                              np.stack([out[r] for r in rs]),
+                              f"{precision} served {name}")
+            print(f"phase 3 {precision}: {name}: {len(rs)} answers within "
+                  f"{tol:g}*(1+max|ref|) of the plain stack, max abs err "
+                  f"{err:.3e}" + (f"; {flips} requantized codes rounded "
+                                  f"across a tie" if precision == "int8"
+                                  else ""))
+        batched_eng = Engine(make_vikin_backend(mixed, DEVICE,
+                                                precision=precision),
+                             n_slots=4)
+        brids = [batched_eng.submit(p) for p in prompts]
+        batched = batched_eng.run_until_done()
+        solo_eng = Engine(make_vikin_backend(mixed, DEVICE,
+                                             precision=precision),
+                          n_slots=4)
+        for p, rid in zip(prompts, brids):
+            srid = solo_eng.submit(p)
+            solo = solo_eng.run_until_done()
+            check(np.array_equal(batched[rid], solo[srid]),
+                  f"{precision} vikin-mixed batched != single for request "
+                  f"{rid}")
+        c_eng = make_engine(models, slots=8, policy="mode-affinity",
+                            device="cpu", precision=precision)
+        submit_burst(c_eng, models, 48)
+        c_eng.run_until_done()
+        for f in sim_fields:
+            check(eng.stats[f] == c_eng.stats[f],
+                  f"{precision} served {f} {eng.stats[f]} != the CPU "
+                  f"engine's {c_eng.stats[f]}")
+        s = eng.stats
+        print(f"phase 3 {precision}: vikin-mixed batched == single, "
+              f"bitwise, on 6 requests (buckets 4/2 vs 2); served "
+              f"sim_cycles {s['sim_cycles']:.1f}, dma_bytes "
+              f"{s['dma_bytes']:.0f}, mode_switches "
+              f"{s['mode_switches']:.0f}, reconfig_cycles "
+              f"{s['reconfig_cycles']:.0f}, {', '.join(sim_fields)} equal "
+              f"to the CPU engine's; wall {serve_s * 1e3:.2f} ms "
+              f"({len(out) / serve_s:.1f} req/s)")
+        served[precision] = {"eng": eng, "launches": launches,
+                             "wall_s": serve_s,
+                             "wall_rps": len(out) / serve_s}
 
     # ---------------------------------------------------------------- 4
-    stack = backends["vikin-mixed"].stack
+    # Each served kernel at the vikin-mixed stack's shapes in each
+    # precision, and the kernel-tooling kernels (the spline basis of its KAN
+    # layer's input, flattened; v1 beside v2 on that layer's weights).
+    # Bound: the bytes over HBM_BYTES_PER_S against the operations, each at
+    # the card's peak rate for its type: multiply-adds of f32 operands (and
+    # of int8 codes dequantized to f32, the int8 KAN kernel) at the f32
+    # CUDA-core rate, of bf16 operands at the bf16 rate, of int8 operands at
+    # the int8 rate; the SPU work (de Boor, silu, location) and epilogues at
+    # the f32 rate.  Library: addmm in f32 or bf16 (f32 accumulation),
+    # torch._int_mm where its shape rules allow; no single PyTorch call
+    # computes a KAN layer or a spline basis.
     records = {}
-    per_batch_launches = {
-        "kan_fused_v2": mixed.layer_kinds.count("kan"),
-        "pattern_matmul": mixed.layer_kinds.count("mlp")}
-    for batch in (8, BIG):
-        x = torch.from_numpy(np.random.default_rng(2).random(
-            (batch, mixed.sizes[0]), dtype=np.float32)).to(dev)
-        acc = {k: {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0,
-                   "library_ms": 0.0, "library_graph_ms": 0.0,
-                   "bytes": 0.0, "flops": 0.0, "shapes": [], "blocks": []}
-               for k in F32_KERNELS}
-        for layer in stack.layers:
-            name, xin, kernel, plain = layer_calls(layer, x)
-            a = acc[name]
-            a["ms"] += time_ms(kernel)
-            a["graph_ms"] += graph_ms(kernel)
-            a["plain_ms"] += time_ms(plain, iters=20)
-            if isinstance(layer, KANLayer):
-                kan_spec = layer.cfg.spec
-                n_in, n_out = layer.cfg.n_in, layer.cfg.n_out
-                a["library_ms"] = a["library_graph_ms"] = None
-                # multiply-adds this input needs: the silu term, plus one
-                # per local basis value whose basis the mask keeps
-                cell, _ = locate_cell(kan_spec.clip(xin), kan_spec)
-                slots = layer.slot_of.long()
-                hits = sum(int((slots[(cell + j).long()] >= 0).sum())
-                           for j in range(kan_spec.n_active))
-                a["flops"] += (2.0 * n_out * (batch * n_in + hits)
-                               + batch * n_in * (spu_op_count(kan_spec) + 4))
-                a["bytes"] += 4.0 * (xin.numel() + layer.wt.numel()
-                                     + layer.slot_of.numel()
-                                     + batch * n_out)
-                a["shapes"].append(f"{batch}x{n_in}->{n_out} "
-                                   f"kb={list(layer.kb)}")
-                a["blocks"].append(kan_blocks(batch, n_in, n_out,
-                                              len(layer.kb), torch.float32,
-                                              device=dev))
-            else:
-                kc, n = layer.w_c.shape
+    n_kan, n_mlp = (mixed.layer_kinds.count(kind) for kind in ("kan", "mlp"))
 
-                def library(xc=xin, layer=layer):
-                    y = torch.addmm(layer.b, xc, layer.w_c)
-                    return torch.relu_(y) if layer.act == "relu" else y
-                a["library_ms"] += time_ms(library)
-                a["library_graph_ms"] += graph_ms(library)
-                a["flops"] += 2.0 * batch * kc * n + batch * n
-                a["bytes"] += 4.0 * (xin.numel() + layer.w_c.numel() + n
-                                     + batch * n)
-                a["shapes"].append(f"{batch}x{kc}->{n} act={layer.act}")
-                a["blocks"].append(resolve_blocks(batch, kc, n,
-                                                  torch.float32, device=dev))
-            x = kernel()
-        torch.cuda.synchronize()
-        for k, a in acc.items():
-            t_bytes = a["bytes"] / HBM_BYTES_PER_S * 1e3
-            t_ops = a["flops"] / F32_FLOPS_PER_S * 1e3
-            rec = {
-                "kernel": k, "model": "vikin-mixed", "batch": batch,
-                "shapes": a["shapes"], "ms": a["ms"],
-                "graph_ms": a["graph_ms"], "plain_ms": a["plain_ms"],
-                "library_ms": a["library_ms"],
-                "library_graph_ms": a["library_graph_ms"],
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": a["bytes"], "flops": a["flops"],
-                "launches_per_batch": per_batch_launches[k],
-                "card": card,
-            }
-            if a["blocks"]:
-                rec["blocks"] = a["blocks"]
-            records[(k, batch)] = rec
-            print(json.dumps(rec))
-    # the kernel-tooling kernels at vikin-mixed's KAN layer: the spline
-    # basis of its input, flattened, and v1 beside v2 on the same weights.
-    # Neither computes what one PyTorch call does: no library time.
-    def tool_record(k: str, batch: int, shapes, kernel, plain,
-                    nbytes: float, ops: float) -> dict:
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_FLOPS_PER_S * 1e3
-        return {
-            "kernel": k, "model": "vikin-mixed", "batch": batch,
-            "shapes": shapes, "ms": time_ms(kernel),
-            "graph_ms": graph_ms(kernel),
-            "plain_ms": time_ms(plain, iters=20), "library_ms": None,
-            "library_graph_ms": None, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "ops": ops, "card": card,
-        }
+    def new_acc() -> dict:
+        return {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0,
+                "library_ms": 0.0, "library_graph_ms": 0.0, "bytes": 0.0,
+                "work": [], "shapes": [], "blocks": []}
 
-    for batch in (8, BIG):
-        x = torch.from_numpy(np.random.default_rng(2).random(
-            (batch, mixed.sizes[0]), dtype=np.float32)).to(dev)
-        layer, xin = kan_inputs(stack, x)[0]
-        kan_spec, n_in, n_out = layer.cfg.spec, layer.cfg.n_in, layer.cfg.n_out
-        flat = xin.reshape(-1)
-        n = flat.numel()
-        # each input read once and its G+K values written once; the SPU
-        # operations of core/splines.spu_op_count per input
-        rec = tool_record(
-            "spline_basis", batch,
-            [f"n={n} ({batch}x{n_in} flattened) G{kan_spec.grid_size}"
-             f"K{kan_spec.order}"],
-            lambda: spline_basis(flat, kan_spec),
-            lambda: spline_basis_plain(flat, kan_spec),
-            4.0 * n * (1 + kan_spec.n_bases),
-            float(n * spu_op_count(kan_spec)))
-        rec["block_n"] = resolve_block_n(n, kan_spec.n_bases, flat.dtype,
-                                         device=dev)
-        records[("spline_basis", batch)] = rec
-        print(json.dumps(rec))
-        t_flat = flatten_t(layer.t, layer.cfg.kb).contiguous()
-        cell, _ = locate_cell(kan_spec.clip(xin), kan_spec)
+    def time_into(a: dict, kernel, plain, library=None) -> None:
+        a["ms"] += time_ms(kernel)
+        a["graph_ms"] += graph_ms(kernel)
+        a["plain_ms"] += time_ms(plain, iters=20)
+        if library is None or a["library_ms"] is None:
+            a["library_ms"] = a["library_graph_ms"] = None
+        else:
+            a["library_ms"] += time_ms(library)
+            a["library_graph_ms"] += graph_ms(library)
+
+    def kan_work(layer, x_real: torch.Tensor, mac_rate: float,
+                 spu_extra: int) -> list:
+        """(operations, rate) of a KAN layer on the real-valued input
+        ``x_real``: the multiply-adds this input needs (the silu term,
+        plus one per local basis value whose basis the mask keeps) at
+        ``mac_rate``, and the SPU work per (row, feature) at the f32
+        rate."""
+        spec, n_in, n_out = layer.cfg.spec, layer.cfg.n_in, layer.cfg.n_out
+        batch = x_real.shape[0]
+        cell, _ = locate_cell(spec.clip(x_real), spec)
         slots = layer.slot_of.long()
         hits = sum(int((slots[(cell + j).long()] >= 0).sum())
-                   for j in range(kan_spec.n_active))
-        rec = tool_record(
-            "kan_fused_v1", batch,
-            [f"{batch}x{n_in}->{n_out} kb={list(layer.kb)}"],
-            lambda: kan_fused_v1(xin, layer.w_b, t_flat, kan_spec, layer.kb,
-                                 layer.slot_of),
-            lambda: kan_fused_v1_ref(xin, layer.w_b, t_flat, kan_spec,
-                                     layer.kb),
-            4.0 * (xin.numel() + layer.w_b.numel() + t_flat.numel()
-                   + layer.slot_of.numel() + batch * n_out),
-            2.0 * n_out * (batch * n_in + hits)
-            + batch * n_in * (spu_op_count(kan_spec) + 4))
+                   for j in range(spec.n_active))
+        return [(2.0 * n_out * (batch * n_in + hits), mac_rate),
+                (batch * n_in * (spu_op_count(spec) + spu_extra),
+                 F32_FLOPS_PER_S)]
 
-        rec["blocks"] = [kan_blocks(batch, n_in, n_out, len(layer.kb),
-                                    torch.float32, version=1, device=dev)]
-
-        def v2(xin=xin, layer=layer):
-            return kan_fused_v2(xin, layer.wt, layer.cfg.spec, layer.kb,
-                                layer.slot_of)
-        rec["v2_ms"] = time_ms(v2)
-        rec["v2_graph_ms"] = graph_ms(v2)
-        records[("kan_fused_v1", batch)] = rec
+    def record(k: str, precision: str, batch: int, a: dict,
+               per_batch=None) -> dict:
+        t_bytes = a["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = sum(n / rate for n, rate in a["work"]) * 1e3
+        rec = {
+            "kernel": k, "model": "vikin-mixed", "precision": precision,
+            "batch": batch, "shapes": a["shapes"], "ms": a["ms"],
+            "graph_ms": a["graph_ms"], "plain_ms": a["plain_ms"],
+            "library_ms": a["library_ms"],
+            "library_graph_ms": a["library_graph_ms"],
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": a["bytes"], "ops": sum(n for n, _ in a["work"]),
+            "card": card,
+        }
+        if per_batch is not None:
+            rec["launches_per_batch"] = per_batch
+        if a["blocks"]:
+            rec["blocks"] = a["blocks"]
+        records[(k, batch)] = rec
         print(json.dumps(rec))
-        torch.cuda.synchronize()
+        return rec
+
+    for precision, bes in (("f32", backends), ("bf16", bf_backends)):
+        dtype = BF if precision == "bf16" else F32
+        esz = 2.0 if precision == "bf16" else 4.0
+        mac_rate = BF16_FLOPS_PER_S if precision == "bf16" else F32_FLOPS_PER_S
+        stack = bes["vikin-mixed"].stack
+        kan_k, mm_k = SERVED_KERNELS[precision]
+        for batch in (8, BIG):
+            x = rand(np.random.default_rng(2), batch, "vikin-mixed", dtype)
+            acc = {kan_k: new_acc(), mm_k: new_acc()}
+            for layer in stack.layers:
+                name, xin, kernel, plain = layer_calls(layer, x)
+                a = acc[name]
+                if isinstance(layer, KANLayer):
+                    n_in, n_out = layer.cfg.n_in, layer.cfg.n_out
+                    time_into(a, kernel, plain)
+                    a["work"] += kan_work(layer, xin, mac_rate, 4)
+                    a["bytes"] += (esz * (xin.numel() + layer.wt.numel()
+                                          + batch * n_out)
+                                   + 4.0 * layer.slot_of.numel())
+                    a["shapes"].append(f"{batch}x{n_in}->{n_out} "
+                                       f"kb={list(layer.kb)} {precision}")
+                    a["blocks"].append(kan_blocks(batch, n_in, n_out,
+                                                  len(layer.kb), dtype,
+                                                  device=dev))
+                else:
+                    kc, n = layer.w_c.shape
+
+                    def library(xc=xin, layer=layer):
+                        y = torch.addmm(layer.b, xc, layer.w_c)
+                        return torch.relu_(y) if layer.act == "relu" else y
+                    time_into(a, kernel, plain, library)
+                    a["work"] += [(2.0 * batch * kc * n, mac_rate),
+                                  (batch * n, F32_FLOPS_PER_S)]
+                    a["bytes"] += esz * (xin.numel() + layer.w_c.numel() + n
+                                         + batch * n)
+                    a["shapes"].append(f"{batch}x{kc}->{n} act={layer.act} "
+                                       f"{precision}")
+                    a["blocks"].append(resolve_blocks(batch, kc, n, dtype,
+                                                      device=dev))
+                x = kernel()
+            torch.cuda.synchronize()
+            record(kan_k, precision, batch, acc[kan_k], n_kan)
+            record(mm_k, precision, batch, acc[mm_k], n_mlp)
+
+            layer, xin = kan_inputs(stack, rand(np.random.default_rng(2),
+                                                batch, "vikin-mixed",
+                                                dtype))[0]
+            kan_spec = layer.cfg.spec
+            n_in, n_out = layer.cfg.n_in, layer.cfg.n_out
+            flat = xin.reshape(-1)
+            n = flat.numel()
+            # each input read once and its G+K values written once; the
+            # SPU operations of core/splines.spu_op_count per input
+            a = new_acc()
+            time_into(a, lambda: spline_basis(flat, kan_spec),
+                      lambda: spline_basis_plain(flat, kan_spec))
+            a["bytes"] = esz * n * (1 + kan_spec.n_bases)
+            a["work"] = [(float(n * spu_op_count(kan_spec)),
+                          F32_FLOPS_PER_S)]
+            a["shapes"] = [f"n={n} ({batch}x{n_in} flattened) "
+                           f"G{kan_spec.grid_size}K{kan_spec.order} "
+                           f"{precision}"]
+            rec = record("spline_basis" + SUFFIX[dtype], precision, batch, a)
+            rec["block_n"] = resolve_block_n(n, kan_spec.n_bases, dtype,
+                                             device=dev)
+            t_flat = t_flat_of(layer)
+            a = new_acc()
+            time_into(a, lambda: kan_fused_v1(xin, layer.w_b, t_flat,
+                                              kan_spec, layer.kb,
+                                              layer.slot_of),
+                      lambda: kan_fused_v1_ref(xin, layer.w_b, t_flat,
+                                               kan_spec, layer.kb))
+            a["bytes"] = (esz * (xin.numel() + layer.w_b.numel()
+                                 + t_flat.numel() + batch * n_out)
+                          + 4.0 * layer.slot_of.numel())
+            a["work"] = kan_work(layer, xin, mac_rate, 4)
+            a["shapes"] = [f"{batch}x{n_in}->{n_out} kb={list(layer.kb)} "
+                           f"{precision}"]
+            a["blocks"] = [kan_blocks(batch, n_in, n_out, len(layer.kb),
+                                      dtype, version=1, device=dev)]
+            rec = record("kan_fused_v1" + SUFFIX[dtype], precision, batch, a)
+
+            def v2(xin=xin, layer=layer):
+                return kan_fused_v2(xin, layer.wt, kan_spec, layer.kb,
+                                    layer.slot_of)
+            rec["v2_ms"] = time_ms(v2)
+            rec["v2_graph_ms"] = graph_ms(v2)
+            torch.cuda.synchronize()
 
     # the int8 kernels at the int8 vikin-mixed stack's shapes
     q_stack = q8_backends["vikin-mixed"].stack
     for batch in (8, BIG):
-        x = torch.from_numpy(np.random.default_rng(2).random(
-            (batch, mixed.sizes[0]), dtype=np.float32)).to(dev)
+        x = rand(np.random.default_rng(2), batch, "vikin-mixed")
         h = quantize_static(x, q_stack.x_scales[0])
-        acc = {k: {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0,
-                   "library_ms": 0.0, "library_graph_ms": 0.0,
-                   "bytes": 0.0, "ops": 0.0, "shapes": [], "blocks": []}
-               for k in Q8_KERNELS}
+        acc = {k: new_acc() for k in Q8_KERNELS}
         for i, layer in enumerate(q_stack.layers):
             name, xin, kernel, plain, finish = q8_layer_calls(layer, h)
             a = acc[name]
-            a["ms"] += time_ms(kernel)
-            a["graph_ms"] += graph_ms(kernel)
-            a["plain_ms"] += time_ms(plain, iters=20)
             if isinstance(layer, QuantKANLayer):
-                kan_spec = layer.cfg.spec
                 n_in, n_out = layer.cfg.n_in, layer.cfg.n_out
-                a["library_ms"] = a["library_graph_ms"] = None
-                xf = xin.to(torch.float32) * layer.x_scale
-                cell, _ = locate_cell(kan_spec.clip(xf), kan_spec)
-                slots = layer.slot_of.long()
-                hits = sum(int((slots[(cell + j).long()] >= 0).sum())
-                           for j in range(kan_spec.n_active))
-                # multiply-adds, the spline work and the x dequantization
-                # per (row, feature), each weight dequantized once
-                a["ops"] += (2.0 * n_out * (batch * n_in + hits)
-                             + batch * n_in * (spu_op_count(kan_spec) + 5)
-                             + layer.wt_q.numel())
+                time_into(a, kernel, plain)
+                # the x dequantization per (row, feature) besides the SPU
+                # work, and each weight dequantized once
+                a["work"] += kan_work(layer, xin.to(F32) * layer.x_scale,
+                                      F32_FLOPS_PER_S, 5)
+                a["work"].append((float(layer.wt_q.numel()),
+                                  F32_FLOPS_PER_S))
                 a["bytes"] += (xin.numel() + layer.wt_q.numel()
                                + 4.0 * (layer.slot_scales.numel()
                                         + layer.slot_of.numel()
@@ -1132,21 +1333,19 @@ def main() -> int:
                                               device=dev))
             else:
                 kc, n = layer.w_q_c.shape
+                library = None
                 # torch._int_mm takes M > 16 and K, N multiples of 8
-                if a["library_ms"] is not None and (
-                        batch <= 16 or kc % 8 or n % 8):
-                    a["library_ms"] = a["library_graph_ms"] = None
-                if a["library_ms"] is not None:
+                if batch > 16 and not kc % 8 and not n % 8:
                     def library(xc=xin, w=layer.w_q_c):
                         return torch._int_mm(xc, w)
                     try:
-                        a["library_ms"] += time_ms(library)
-                        a["library_graph_ms"] += graph_ms(library)
+                        library()
                     except RuntimeError as e:
                         print(f"phase 4: torch._int_mm on {batch}x{kc}->{n} "
                               f"refused: {e}")
-                        a["library_ms"] = a["library_graph_ms"] = None
-                a["ops"] += 2.0 * batch * kc * n
+                        library = None
+                time_into(a, kernel, plain, library)
+                a["work"].append((2.0 * batch * kc * n, INT8_OPS_PER_S))
                 a["bytes"] += xin.numel() + layer.w_q_c.numel() + 4.0 * (
                     batch * n)
                 a["shapes"].append(f"{batch}x{kc}->{n} int8")
@@ -1156,83 +1355,61 @@ def main() -> int:
             if i + 1 < len(q_stack.layers):
                 h = quantize_static(y, q_stack.x_scales[i + 1])
         torch.cuda.synchronize()
-        for k, a in acc.items():
-            rate = F32_FLOPS_PER_S if k == "kan_fused_v2_q8" else \
-                INT8_OPS_PER_S
-            t_bytes = a["bytes"] / HBM_BYTES_PER_S * 1e3
-            t_ops = a["ops"] / rate * 1e3
-            rec = {
-                "kernel": k, "model": "vikin-mixed", "precision": "int8",
-                "batch": batch, "shapes": a["shapes"], "ms": a["ms"],
-                "graph_ms": a["graph_ms"], "plain_ms": a["plain_ms"],
-                "library_ms": a["library_ms"],
-                "library_graph_ms": a["library_graph_ms"],
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": a["bytes"], "ops": a["ops"],
-                "launches_per_batch": per_batch_launches[
-                    k.replace("_q8", "")],
-                "card": card,
-            }
-            if a["blocks"]:
-                rec["blocks"] = a["blocks"]
-            records[(k, batch)] = rec
-            print(json.dumps(rec))
-    # Where one served batch's time goes, per arch at bucket 8: the host
-    # wall of a backend forward (copy in, every layer, copy out and sync),
-    # the stack alone on the card (gathers + kernels, CUDA events), and
-    # the kernels alone; each "graph" time is the same work replayed from
-    # a CUDA graph, i.e. device time alone.  1 - stack_graph_ms /
-    # forward_ms is the share of a served forward the device sits idle.
+        record("kan_fused_v2_q8", "int8", batch, acc["kan_fused_v2_q8"],
+               n_kan)
+        record("pattern_matmul_q8", "int8", batch, acc["pattern_matmul_q8"],
+               n_mlp)
+
+    # Where one served batch's time goes, per precision and arch at bucket
+    # 8: the host wall of a backend forward (copy in, every layer, copy out
+    # and sync), the stack alone on the card (gathers + kernels, CUDA
+    # events), and the kernels alone; each "graph" time is the same work
+    # replayed from a CUDA graph, i.e. device time alone.  1 -
+    # stack_graph_ms / forward_ms is the share of a served forward the
+    # device sits idle.
+    def stack_kernels(precision: str, stack, x: torch.Tensor) -> list:
+        """The kernel calls of one forward of ``stack`` on ``x``, each on
+        its layer's input."""
+        calls = []
+        if precision == "int8":
+            h = quantize_static(x, stack.x_scales[0])
+            for i, layer in enumerate(stack.layers):
+                kernel, finish = q8_layer_calls(layer, h)[2::2]
+                calls.append(kernel)
+                if i + 1 < len(stack.layers):
+                    h = quantize_static(finish(kernel()),
+                                        stack.x_scales[i + 1])
+            return calls
+        for layer in stack.layers:
+            kernel = layer_calls(layer, x)[2]
+            calls.append(kernel)
+            x = kernel()
+        return calls
+
     breakdown = []
-    for name in ARCHS:
-        be = backends[name]
-        xb = rng.random((8, be.n_in), dtype=np.float32)
-        x_dev = torch.from_numpy(xb).to(dev)
-        h, kernel_ms, kernel_graph_ms = x_dev, 0.0, 0.0
-        for layer in be.stack.layers:
-            kernel = layer_calls(layer, h)[2]
-            kernel_ms += time_ms(kernel)
-            kernel_graph_ms += graph_ms(kernel)
-            h = kernel()
-        rec = {"arch": name, "bucket": 8,
-               "forward_ms": host_ms(lambda: be.forward(xb)),
-               "stack_ms": time_ms(lambda: be.stack(x_dev)),
-               "stack_graph_ms": graph_ms(lambda: be.stack(x_dev)),
-               "kernel_ms": kernel_ms, "kernel_graph_ms": kernel_graph_ms,
-               "card": card}
-        breakdown.append(rec)
-        print(json.dumps({"breakdown": rec}))
-    for name in ARCHS:
-        be = q8_backends[name]
-        xb = rng.random((8, be.n_in), dtype=np.float32)
-        x_dev = torch.from_numpy(xb).to(dev)
-        h, kernel_ms, kernel_graph_ms = (
-            quantize_static(x_dev, be.stack.x_scales[0]), 0.0, 0.0)
-        for i, layer in enumerate(be.stack.layers):
-            _, _, kernel, _, finish = q8_layer_calls(layer, h)
-            kernel_ms += time_ms(kernel)
-            kernel_graph_ms += graph_ms(kernel)
-            if i + 1 < len(be.stack.layers):
-                h = quantize_static(finish(kernel()),
-                                    be.stack.x_scales[i + 1])
-        rec = {"arch": name, "precision": "int8", "bucket": 8,
-               "forward_ms": host_ms(lambda: be.forward(xb)),
-               "stack_ms": time_ms(lambda: be.stack(x_dev)),
-               "stack_graph_ms": graph_ms(lambda: be.stack(x_dev)),
-               "kernel_ms": kernel_ms, "kernel_graph_ms": kernel_graph_ms,
-               "card": card}
-        breakdown.append(rec)
-        print(json.dumps({"breakdown": rec}))
-    print(json.dumps({"serve": {"archs": list(ARCHS), "requests": len(out),
-                                "slots": 8, "wall_s": serve_s,
-                                "wall_rps": len(out) / serve_s,
-                                "card": card}}))
-    print(json.dumps({"serve": {"archs": list(ARCHS), "precision": "int8",
-                                "requests": len(q_out), "slots": 8,
-                                "wall_s": q_serve_s,
-                                "wall_rps": len(q_out) / q_serve_s,
-                                "card": card}}))
+    for precision, bes in (("f32", backends), ("int8", q8_backends),
+                           ("bf16", bf_backends)):
+        for name in ARCHS:
+            be = bes[name]
+            xb = rng.random((8, be.n_in), dtype=np.float32)
+            x_dev = torch.from_numpy(xb).to(
+                dev, BF if precision == "bf16" else F32)
+            kernels = stack_kernels(precision, be.stack, x_dev)
+            rec = {"arch": name, "precision": precision, "bucket": 8,
+                   "forward_ms": host_ms(lambda: be.forward(xb)),
+                   "stack_ms": time_ms(lambda: be.stack(x_dev)),
+                   "stack_graph_ms": graph_ms(lambda: be.stack(x_dev)),
+                   "kernel_ms": sum(time_ms(k) for k in kernels),
+                   "kernel_graph_ms": sum(graph_ms(k) for k in kernels),
+                   "card": card}
+            breakdown.append(rec)
+            print(json.dumps({"breakdown": rec}))
+    for precision, sv in served.items():
+        print(json.dumps({"serve": {"archs": list(ARCHS),
+                                    "precision": precision, "requests": 48,
+                                    "slots": 8, "wall_s": sv["wall_s"],
+                                    "wall_rps": sv["wall_rps"],
+                                    "card": card}}))
 
     # ---------------------------------------------------------------- 5
     # the v1 path: a KAN layer configured at version 1, on vikin-kan2's
@@ -1293,6 +1470,41 @@ def main() -> int:
           f"the v2 layer, the plain version and (below B={huge}) the layer "
           f"on the CPU, max abs err {v1_err:.3e}")
 
+    # the bf16 v1 path: a version-1 KANLayer on the bf16 vikin-kan2 stack's
+    # weights, at the serving buckets and one large batch
+    b_layer2 = bf_backends["vikin-kan2"].stack.layers[0]
+    b_layer1 = KANLayer(dataclasses.replace(b_layer2.cfg, version=1),
+                        {"w_b": b_layer2.w_b, "t": b_layer2.t})
+    b_v1_x = {b: v1_x[b].to(BF) for b in BUCKETS + (BIG,)}
+    _build.reset_launches()
+    b_v1_out = {b: b_layer1(x) for b, x in b_v1_x.items()}
+    torch.cuda.synchronize()
+    b_v1_launches = dict(_build.LAUNCHES)
+    want = {k: 0 for k in b_v1_launches}
+    want["kan_fused_v1_bf16"] = len(b_v1_out)
+    check(b_v1_launches == want, f"bf16 v1 path: launches {b_v1_launches}, "
+          f"the {len(b_v1_out)} layer calls imply {want}")
+    b_v1_err = 0.0
+    for b, y in b_v1_out.items():
+        x = b_v1_x[b]
+        check(y.shape == (b, kan2.sizes[-1]) and y.dtype == BF
+              and bool(torch.isfinite(y.float()).all()),
+              f"bf16 v1 path B={b}: output {tuple(y.shape)} {y.dtype} or "
+              f"not finite")
+        for what, ref in (("the bf16 v2 layer", b_layer2(x)),
+                          ("the plain version", kan_fused_v1_ref(
+                              x, b_layer1.w_b, b_layer1.t_flat,
+                              b_layer1.cfg.spec, b_layer1.kb))):
+            err, scale, nan = rel_err(y, ref)
+            check(not nan and err <= BF16_ULP * scale,
+                  f"bf16 v1 path B={b}: max|v1 layer - {what}| = {err:.3e} "
+                  f"> {BF16_ULP:g} * {scale:.4g} (NaN: {nan})")
+            b_v1_err = max(b_v1_err, err)
+    print(f"phase 5: bf16 v1 KANLayer on vikin-kan2's bf16 weights at "
+          f"batches {sorted(b_v1_out)}: launches {b_v1_launches}; within "
+          f"{BF16_ULP:g}*(1+max|ref|) of the bf16 v2 layer and the plain "
+          f"version, max abs err {b_v1_err:.3e}")
+
     # ---------------------------------------------------------------- 6
     _build.reset_launches()
     bench = kernel_bench.run(device=DEVICE,
@@ -1300,9 +1512,19 @@ def main() -> int:
     torch.cuda.synchronize()
     bench_launches = dict(_build.LAUNCHES)
     for k in ("spline_basis", "kan_fused_v1", "kan_fused_v2",
-              "pattern_matmul"):
+              "pattern_matmul", "spline_basis_bf16", "kan_fused_v1_bf16",
+              "kan_fused_v2_bf16"):
         check(bench_launches[k] > 0,
               f"kernel bench: {k} launched {bench_launches[k]} times")
+    bf_rows = {f"{sec}.{key}": row for sec in ("spline_basis", "kan_fused")
+               for key, row in bench[sec].items() if key.endswith("bfloat16")}
+    check(len(bf_rows) == 6, f"kernel bench: bf16 rows {sorted(bf_rows)}")
+    for key, row in bf_rows.items():
+        print(f"phase 6: bf16 row {key}: "
+              + ", ".join(f"{f} {v:.3e}" if isinstance(v, float) else
+                          f"{f} {v}" for f, v in row.items()
+                          if f.startswith(("max_err", "ms"))
+                          or f == "bitwise_plain"))
     check(bench["tuning"]["cache_round_trip"],
           "kernel bench: the tuned block_n did not round-trip")
     tm = bench["tuning"]["pattern_matmul"]
@@ -1338,8 +1560,6 @@ def main() -> int:
           f"{burst_ref['trace_sha256']}")
     shed_kw = {"max_queue": max_queue, "admission": "shed",
                "drop_expired": True}
-    mm_kernel = {"f32": "pattern_matmul", "int8": "pattern_matmul_q8"}
-    kan_kernel = {"f32": "kan_fused_v2", "int8": "kan_fused_v2_q8"}
     open_launches = {k: 0 for k in KERNEL_INFO}
     openloop = []
 
@@ -1371,11 +1591,12 @@ def main() -> int:
                     for n, ws in eng.per_workload_stats().items()}
                    or {eng.backend.model.name: eng.stats["ticks"]})
         want = {k: 0 for k in KERNEL_INFO}
+        kan_k, mm_k = SERVED_KERNELS[precision]
         for name, b in batches.items():
             kinds = VIKIN_ARCHS[name].layer_kinds
-            want[kan_kernel[precision]] += int(b) * kinds.count("kan")
-            want[mm_kernel[precision]] += int(b) * kinds.count("mlp")
-        check(got == want and want[mm_kernel[precision]] > 0,
+            want[kan_k] += int(b) * kinds.count("kan")
+            want[mm_k] += int(b) * kinds.count("mlp")
+        check(got == want and want[mm_k] > 0,
               f"{what}: launches {got}, the served batches imply {want}")
         for k in KERNEL_INFO:
             open_launches[k] += got[k]
@@ -1391,12 +1612,9 @@ def main() -> int:
             if not rs:
                 continue
             xs = np.stack([r.prompt for r in rs]).astype(np.float32)
-            served = np.stack([r.output for r in rs])
-            if precision == "int8":
-                e = hold_int8(be.stack, xs, served, f"{what} {name}")[0]
-            else:
-                e = hold_f32(be.stack, xs, served, f"{what} {name}")
-            err = max(err, e)
+            answers = np.stack([r.output for r in rs])
+            err = max(err, hold(precision, be.stack, xs, answers,
+                                f"{what} {name}")[0])
         rep["max_abs_err"] = err
         return rep
 
@@ -1422,12 +1640,13 @@ def main() -> int:
     print(f"phase 7: card {card}; a replayed arrival's payload takes "
           f"{payload_us:.2f} us of host time to synthesize")
     mlp3_be = {}
-    for precision in ("f32", "int8"):
+    # (a) also at bf16 (no wall-clock sweep at bf16: the benchmark takes it)
+    for precision in ("f32", "int8", "bf16"):
         be = mlp3_be[precision] = make_vikin_backend(
             mlp3, DEVICE, precision=precision)
         loadgen_bench.warm_buckets(be, 8)
         cpu_be = (make_vikin_backend(mlp3, "cpu", precision=precision)
-                  if precision == "int8" else None)
+                  if precision != "f32" else None)
         for label, kw in (("unbounded", {}), ("shed", shed_kw)):
             what = f"(a) {precision} burst trace, {label}, sim clock"
             rep = drive(Engine(be, n_slots=8, **kw), burst, "sim",
@@ -1446,7 +1665,7 @@ def main() -> int:
             openloop.append({"part": "a", "precision": precision,
                              "engine": label, "card": card, **rep})
 
-    multi_be = {"f32": eng.backend.backends, "int8": q_eng.backend.backends}
+    multi_be = {p: served[p]["eng"].backend.backends for p in PRECISIONS}
     for precision in ("f32", "int8"):
         engines = {
             "vikin-mlp3": lambda **kw: Engine(mlp3_be[precision], n_slots=8,
@@ -1524,9 +1743,12 @@ def main() -> int:
           f"under both policies")
     print(f"phase 7: launches over the replays {open_launches}")
 
-    launched = {k: (launches[k], "phase 3, f32 burst") for k in F32_KERNELS}
-    launched.update({k: (q_launches[k], "phase 3, int8 burst")
-                     for k in Q8_KERNELS})
+    launched = {k: (served[p]["launches"][k], f"phase 3, {p} burst")
+                for p in PRECISIONS for k in SERVED_KERNELS[p]}
+    launched["kan_fused_v1_bf16"] = (b_v1_launches["kan_fused_v1_bf16"],
+                                     "phase 5, bf16 v1 path")
+    launched["spline_basis_bf16"] = (bench_launches["spline_basis_bf16"],
+                                     "phase 6, kernel bench")
     launched["kan_fused_v1"] = (v1_launches["kan_fused_v1"],
                                 "phase 5, v1 path")
     launched["spline_basis"] = (bench_launches["spline_basis"],
@@ -1535,7 +1757,8 @@ def main() -> int:
     for k, info in KERNEL_INFO.items():
         rec = records[(k, 8)]
         kernels.append({
-            "name": k, "route": "cuda", "source": info["source"],
+            "name": k, "dtype": DTYPE[k], "route": "cuda",
+            "source": info["source"],
             "headers": info.get("headers", []),
             "replaces": info["replaces"], "launches": launched[k][0],
             "launches_phase": launched[k][1],
@@ -1552,12 +1775,12 @@ def main() -> int:
          "kernels": kernels,
          "records": [records[key] for key in sorted(records)],
          "breakdown": breakdown,
-         "serve": {"wall_s": serve_s, "wall_rps": len(out) / serve_s,
-                   "stats": {k: v for k, v in eng.stats.items()}},
-         "serve_int8": {"wall_s": q_serve_s,
-                        "wall_rps": len(q_out) / q_serve_s,
-                        "stats": {k: v for k, v in q_eng.stats.items()}},
+         "serve": {p: {"wall_s": sv["wall_s"], "wall_rps": sv["wall_rps"],
+                       "stats": dict(sv["eng"].stats)}
+                   for p, sv in served.items()},
          "v1_path": {"launches": v1_launches, "max_abs_err": v1_err},
+         "v1_path_bf16": {"launches": b_v1_launches,
+                          "max_abs_err": b_v1_err},
          "openloop": {"payload_us": payload_us, "replays": openloop},
          "ptxas": usage,
          "knob_checks": knob_checks,

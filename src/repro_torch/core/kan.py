@@ -114,7 +114,8 @@ def kan_apply(params: Params, x: torch.Tensor, cfg: KANConfig) -> torch.Tensor:
 class KANLayer(nn.Module):
     """One KAN layer holding its compacted weights: the fused ``[w_b ;
     t[kb]]`` rows ``wt`` at version 2, ``w_b`` and the kept-basis rows
-    ``t_flat`` at version 1.
+    ``t_flat`` at version 1, in the params' dtype (f32, or bf16 for the
+    bf16 kernels, which then take bf16 x).
 
     The kept-basis compaction, the fused layout and the kernel's slot
     table are built once here, as JAX folds them at trace time.

@@ -79,6 +79,31 @@ KERNELS = {
         # inv_h, bm, bi, bn, stream
         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
          _P)),
+    # the bf16 instances
+    "kan_fused_v2_bf16": (
+        KERNELS_DIR / "kan_fused" / "csrc" / "kan_fused_bf16.cu",
+        "kan_fused_v2_bf16",
+        # x, wt, slot_of, out, B, n_in, n_out, nbk, G, K, x0, hi, inv_h,
+        # out_f32, bm, bi, bn, stream
+        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I,
+         _P)),
+    "pattern_matmul_bf16": (
+        KERNELS_DIR / "pattern_matmul" / "csrc" / "pattern_matmul_bf16.cu",
+        "pattern_matmul_bf16",
+        # x, w, bias (or NULL), y, M, K, N, act, out_f32, bm, bk, bn, stream
+        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "spline_basis_bf16": (
+        KERNELS_DIR / "spline_basis" / "csrc" / "spline_basis_bf16.cu",
+        "spline_basis_bf16",
+        # x, out, n, G, K, x0, inv_h, block_n, stream
+        (_P, _P, _I, _I, _I, _F, _F, _I, _P)),
+    "kan_fused_v1_bf16": (
+        KERNELS_DIR / "kan_fused" / "csrc" / "kan_fused_v1_bf16.cu",
+        "kan_fused_v1_bf16",
+        # x, w_b, t_flat, slot_of, out, B, n_in, n_out, nbk, G, K, x0, hi,
+        # inv_h, out_f32, bm, bi, bn, stream
+        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
+         _I, _P)),
 }
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)

@@ -29,12 +29,13 @@ this one lets every failure raise: the candidates are pruned up front to
 what the card takes (threads a block, shared memory a block), so a launch
 that fails is a fault to see, not a candidate to skip.
 
-Knobs: ``block_n`` of the spline-basis kernel (inputs a block, as in the
-JAX package), ``(bm, bk, bn)`` of the two pattern-matmul kernels, f32
-and int8 alike under kernel ``pattern_matmul``, ``(bm, bi, bn)`` of the
-two version-2 KAN kernels under kernel ``kan_fused_v2`` (the dtype tells
-f32 from int8, as in the JAX ``resolve_blocks``) and of the version-1 KAN
-kernel under ``kan_fused_v1``.
+Knobs: ``block_n`` of the two spline-basis kernels (inputs a block, as in
+the JAX package), ``(bm, bk, bn)`` of the three pattern-matmul kernels,
+f32, bf16 and int8 alike under kernel ``pattern_matmul``, ``(bm, bi,
+bn)`` of the three version-2 KAN kernels under kernel ``kan_fused_v2``
+(the dtype tells f32, bf16 and int8 apart, as in the JAX
+``resolve_blocks``) and of the two version-1 KAN kernels under
+``kan_fused_v1``.
 """
 from __future__ import annotations
 
@@ -281,11 +282,13 @@ def search(kernel: str, dims: Sequence[int], dtype: torch.dtype,
     return best[1]
 
 
-def candidates_spline_basis(n: int, n_bases: int) -> List[Dict[str, int]]:
+def candidates_spline_basis(n: int, n_bases: int,
+                            dtype: torch.dtype = torch.float32
+                            ) -> List[Dict[str, int]]:
     """``block_n`` (inputs a block, the JAX package's grid): 256..4096,
     none above ``n``'s power-of-two bucket (floor 256), pruned to what the
-    kernel takes (``ops.check_block_n``: the block's (block_n, n_bases)
-    output stretch in shared memory)."""
+    kernel for ``dtype`` takes (``ops.check_block_n``: the block's
+    (block_n, n_bases) output stretch in shared memory)."""
     from repro_torch.kernels.spline_basis import ops
 
     out = []
@@ -293,7 +296,7 @@ def candidates_spline_basis(n: int, n_bases: int) -> List[Dict[str, int]]:
         if b > next_pow2(max(256, n)):
             continue
         try:
-            ops.check_block_n(b, n_bases)
+            ops.check_block_n(b, n_bases, dtype)
         except ValueError:
             continue
         out.append({"block_n": b})
@@ -311,22 +314,22 @@ def tune_spline_basis(x: torch.Tensor, spec, *, reps: int = 10,
     n = flat.shape[0]
     return search("spline_basis", (n, spec.n_bases), flat.dtype,
                   lambda block_n: spline_basis(flat, spec, block_n=block_n),
-                  candidates_spline_basis(n, spec.n_bases),
+                  candidates_spline_basis(n, spec.n_bases, flat.dtype),
                   device=flat.device, reps=reps, cache=cache)
 
 
 def candidates_pattern_matmul(M: int, K: int, N: int, dtype: torch.dtype
                               ) -> List[Dict[str, int]]:
-    """``(bm, bk, bn)`` grid of the f32 or int8 pattern-matmul kernel:
-    the tiles it takes, with ``bm`` at most ``max(16, next_pow2(M))``,
-    ``bn`` at most ``max(32, next_pow2(N))`` and ``bk`` at most K's bucket
-    (floor: the smallest ``bk``), pruned to the card's thread and
-    shared-memory limits a block."""
+    """``(bm, bk, bn)`` grid of the f32, bf16 or int8 pattern-matmul
+    kernel: the tiles it takes, with ``bm`` at most ``max(16,
+    next_pow2(M))``, ``bn`` at most ``max(32, next_pow2(N))`` and ``bk`` at
+    most K's bucket (floor: the smallest ``bk``), pruned to the card's
+    thread and shared-memory limits a block."""
     from repro_torch.kernels.pattern_matmul import ops
 
-    q8 = dtype == torch.int8
-    bms, bns, bks = ((ops.Q8_BM, ops.Q8_BN, ops.Q8_BK) if q8
-                     else (ops.F32_BM, ops.F32_BN, ops.F32_BK))
+    bms, bns, _ = ops.tile_rules(dtype)
+    bks = {torch.int8: ops.Q8_BK,
+           torch.bfloat16: ops.BF16_BK}.get(dtype, ops.F32_BK)
     cap_m = max(16, next_pow2(M))
     cap_n = max(32, next_pow2(N))
     cap_k = max(bks[0], next_pow2(K))
@@ -350,8 +353,9 @@ def tune_pattern_matmul(x_c: torch.Tensor, w_c: torch.Tensor,
                         ) -> Dict[str, int]:
     """Search ``(bm, bk, bn)`` for the compact matmul on ``x_c``'s device
     (on the CPU this times the plain version, stored under ``cpu``).
-    Int8 codes tune the int8 kernel (raw accumulator: no bias, no act),
-    stored under the same kernel name with dtype int8."""
+    bf16 operands tune the bf16 kernel, int8 codes the int8 kernel (raw
+    accumulator: no bias, no act), each stored under the same kernel name
+    with its dtype."""
     from repro_torch.kernels.pattern_matmul.ops import (
         matmul_compact,
         matmul_q8,
@@ -377,12 +381,13 @@ def tune_pattern_matmul(x_c: torch.Tensor, w_c: torch.Tensor,
 def candidates_kan_fused(B: int, n_in: int, n_out: int, nbk: int,
                          dtype: torch.dtype,
                          version: int = 2) -> List[Dict[str, int]]:
-    """``(bm, bi, bn)`` grid of the f32 or int8 version-2 KAN kernel, or
-    of the version-1 kernel: bm at most ``max(8, next_pow2(B))``, bn at
-    most ``max(8, next_pow2(n_out))``, bi a power of two from 32 up to the
-    first that covers ``n_in``, pruned to what the kernel takes on the
-    card (``ops.check_blocks``: tile, shared memory a block, blocks a
-    cluster; bm * bn <= 8192 keeps a block at 256 threads)."""
+    """``(bm, bi, bn)`` grid of the f32, bf16 or int8 version-2 KAN
+    kernel, or of the f32 or bf16 version-1 kernel: bm at most ``max(8,
+    next_pow2(B))``, bn at most ``max(8, next_pow2(n_out))``, bi a power
+    of two from 32 up to the first that covers ``n_in``, pruned to what
+    the kernel takes on the card (``ops.check_blocks``: tile, shared
+    memory a block, blocks a cluster; bm * bn <= 8192 keeps a block at 256
+    threads)."""
     from repro_torch.kernels.kan_fused import ops
 
     cap_m = max(8, next_pow2(B))
@@ -415,9 +420,10 @@ def tune_kan_fused(x: torch.Tensor, wt: torch.Tensor, spec,
                    ) -> Dict[str, int]:
     """Search ``(bm, bi, bn)`` for a KAN kernel on ``x``'s device (on the
     CPU this times the plain version, stored under ``cpu``).  At version
-    2, against the fused ``wt`` (``ops.fuse_wt``): int8 codes tune the
-    int8 kernel and need ``slot_scales`` and ``x_scale``; both are stored
-    under kernel ``kan_fused_v2`` with their dtype.  At version 1, ``wt``
+    2, against the fused ``wt`` (``ops.fuse_wt``): bf16 operands tune the
+    bf16 kernel, int8 codes the int8 kernel, which needs ``slot_scales``
+    and ``x_scale``; all are stored under kernel ``kan_fused_v2`` with
+    their dtype.  At version 1, ``wt``
     is ``w_b`` and ``t_flat`` the kept-basis rows, stored under kernel
     ``kan_fused_v1``, as the JAX ``tune_kan_fused(..., version=1)``
     does."""

@@ -1,11 +1,13 @@
 """The one bias/activation epilogue of the port's plain versions.
 
 Counterpart of ``repro/kernels/epilogue.py``.  ``gelu`` is the tanh form
-because ``jax.nn.gelu`` defaults to ``approximate=True``.  The CUDA
-pattern-matmul kernel applies the same ``act(acc + bias)`` in the same
-order (``pattern_matmul/csrc/pattern_matmul.cu``); ``ACT_CODES`` is the
-integer the kernel takes for each activation.  ``scale_bias_act`` is the
-int8 matmul's epilogue, applied outside its kernel in both paths.
+because ``jax.nn.gelu`` defaults to ``approximate=True``.  The f32 and
+bf16 CUDA pattern-matmul kernels apply the same ``act(acc + bias)`` in
+the same order (``pattern_matmul/csrc/epilogue.cuh``), bf16 rounding the
+result once; ``ACT_CODES`` is the integer the kernels take for each
+activation.  ``resolve_out_dtype`` is the output-dtype rule of the f32
+and bf16 layers.  ``scale_bias_act`` is the int8 matmul's epilogue,
+applied outside its kernel in both paths.
 """
 from __future__ import annotations
 
@@ -34,6 +36,18 @@ def bias_act(acc: torch.Tensor, bias: Optional[torch.Tensor],
     """
     y = acc if bias is None else acc + bias.to(torch.float32)
     return ACTS[act](y).to(out_dtype)
+
+
+def resolve_out_dtype(fn: str, x: torch.Tensor,
+                      out_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """The output dtype of an f32 or bf16 layer: ``out_dtype``, x's dtype
+    when None.  The kernels write x's dtype or f32 (a bf16 layer's f32
+    accumulator unrounded), nothing else."""
+    out = x.dtype if out_dtype is None else out_dtype
+    if out not in (x.dtype, torch.float32):
+        raise ValueError(f"{fn}: out_dtype must be x's dtype ({x.dtype}) or "
+                         f"torch.float32, got {out}")
+    return out
 
 
 def scale_bias_act(acc: torch.Tensor, col_scale: torch.Tensor,

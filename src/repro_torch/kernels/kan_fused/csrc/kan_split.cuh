@@ -1,12 +1,15 @@
 // The fused KAN layer kernel of kan_fused.cu (f32), kan_fused_q8.cu
-// (int8 codes) and kan_fused_v1.cu (version 1: w_b and t_flat apart), for
+// (int8 codes), kan_fused_v1.cu (version 1: w_b and t_flat apart) and
+// kan_fused_bf16.cu / kan_fused_v1_bf16.cu (bf16, either version), for
 // sm_90a, with its launch-time knobs (bm, bi, bn).
 //
 // One template body over an operand policy `Op` (`F32`: x and the fused
 // [w_b ; t[kb]] rows of ops.fuse_wt as f32; `Q8`: int8 codes, copied raw
 // and dequantized once a chunk in shared memory; `Split`: the version-1
-// weights, w_b and t_flat, staged into the same fused layout) and the rows
-// a thread owns (`TM`).
+// weights, w_b and t_flat, staged into the same fused layout; `BF16<V1>`:
+// bf16 x and weights of either layout, copied raw and widened to f32 once
+// a chunk in shared memory, with the bf16 SPU and a bf16 or f32 output)
+// and the rows a thread owns (`TM`).
 //
 // What each output is, bit for bit, depends on the layer alone:
 //   * the input features are cut into chunks of PC = 32, a constant that
@@ -71,13 +74,14 @@ constexpr int MAX_SMEM = pm::MAX_SMEM;
 
 struct Params {
   const void* x;
-  const void* wt;            // Split: w_b
-  const void* t_flat;        // Split only: the kept-basis rows
+  const void* wt;            // Split, BF16<true>: w_b
+  const void* t_flat;        // Split, BF16<true>: the kept-basis rows
   const float* slot_scales;  // Q8 only: (nbk+1,) silu row, kept bases
   const int* slot_of;
-  float* out;
+  void* out;                 // f32, or bf16 where out_bf16 (BF16 only)
   int B, n_in, n_out, nbk, n_bases, G, K;
   float x_scale, x0, hi, inv_h;
+  int out_bf16;
   int bm, bn, cpb, nchunks, stages;
   int vec_w, vec_x, vec_out;
 };
@@ -97,17 +101,20 @@ constexpr int max_tile(int chains) {
 }
 
 // Dynamic shared memory of a block (ops.kernel_smem mirrors it): the
-// header, `stages` weight and x buffers, the staged (row, feature) values,
-// a cluster member's chunk partials (one set a chain), and int8's raw
-// weight and x codes.
+// header, `stages` f32 weight and x buffers (where `one_wide`, one f32
+// weight buffer and none for x), the staged (row, feature) values, a
+// cluster member's chunk partials (one set a chain), and the `stages`
+// buffers of raw weight and x elements int8 (raw = 1 byte) and bf16 (2)
+// stage before widening.
 inline long smem_bytes(int bm, int bn, int nbk, int cpb, int nsplit,
-                       bool q8, int chains) {
+                       int raw, bool one_wide, int chains) {
   const long rows = (long)PC * (nbk + 1);
   const long stages = cpb > 1 ? 2 : 1;
-  const long words = HDR + stages * (rows * bn + (long)bm * PC) +
+  const long words = HDR + (one_wide ? 1 : stages) * rows * bn +
+                     (one_wide ? 0 : stages) * (long)bm * PC +
                      (long)bm * ACT_STRIDE +
                      (nsplit > 1 ? (long)chains * cpb * bm * bn : 0);
-  return 4 * words + (q8 ? stages * (rows * bn + (long)bm * PC) : 0);
+  return 4 * words + raw * stages * (rows * bn + (long)bm * PC);
 }
 
 // The f32 x tile of rows b0.. and features p0..; rows past B and features
@@ -128,6 +135,9 @@ __device__ __forceinline__ void issue_x(const Params& p, float* xs, int b0,
 // walks the rows: bn <= 128 <= threads, all powers of two.
 struct F32 {
   static constexpr bool kQ8 = false;
+  static constexpr bool kBF16 = false;
+  static constexpr int kRaw = 0;
+  static constexpr bool kOneWide = false;
   static constexpr int kChains = 1;
 
   __device__ static void issue(const Params& p, float* ws, float* xs,
@@ -157,6 +167,11 @@ struct F32 {
 
   __device__ static void prepare(const Params&, float*, float*,
                                  const int8_t*, const float*, int, int) {}
+
+  __device__ static const float* x_of(const Params&, const float* xs,
+                                      const int8_t*) {
+    return xs;
+  }
 };
 
 // int8: the x and weight codes are copied raw and dequantized once a
@@ -166,6 +181,9 @@ struct F32 {
 // them.
 struct Q8 {
   static constexpr bool kQ8 = true;
+  static constexpr bool kBF16 = false;
+  static constexpr int kRaw = 1;
+  static constexpr bool kOneWide = false;
   static constexpr int kChains = 1;
 
   __device__ static void issue(const Params& p, float*, float*,
@@ -210,6 +228,11 @@ struct Q8 {
     }
   }
 
+  __device__ static const float* x_of(const Params&, const float* xs,
+                                      const int8_t*) {
+    return xs;
+  }
+
   __device__ static void prepare(const Params& p, float* ws, float* xs,
                                  const int8_t* raw, const float* s_scale,
                                  int tid, int nthr) {
@@ -239,6 +262,9 @@ struct Q8 {
 // unchanged.  The (pl, s) of a thread's rows are stepped, not divided.
 struct Split {
   static constexpr bool kQ8 = false;
+  static constexpr bool kBF16 = false;
+  static constexpr int kRaw = 0;
+  static constexpr bool kOneWide = false;
   static constexpr int kChains = 2;
 
   template <int BYTES>
@@ -281,6 +307,116 @@ struct Split {
 
   __device__ static void prepare(const Params&, float*, float*,
                                  const int8_t*, const float*, int, int) {}
+
+  __device__ static const float* x_of(const Params&, const float* xs,
+                                      const int8_t*) {
+    return xs;
+  }
+};
+
+// bf16, version 2 (the fused rows) or, with V1, version 1 (w_b and
+// t_flat, staged into the fused layout as Split does).  x and the weight
+// rows are copied raw, half the bytes of F32, and widened to f32 once a
+// chunk in shared memory.  Widening is exact, so the FMA pass is the f32
+// one: every product of two bf16 values is exact in f32, each fmaf rounds
+// once, and the summation order is F32's.  Rows of n_out % 4 != 0
+// elements, and x rows of n_in % 4 != 0, are staged an element at a time
+// with plain loads: cp.async copies 4 bytes at least, and a 4-byte copy
+// would straddle two rows there.
+template <bool V1>
+struct BF16 {
+  static constexpr bool kQ8 = false;
+  static constexpr bool kBF16 = true;
+  static constexpr int kRaw = 2;
+  // The raw buffers take the copies in flight, so one f32 weight buffer,
+  // which the chunk in hand widens into, suffices, and the SPU pass reads
+  // x raw: with two f32 buffers of each, a 32 x 32 tile of all 304
+  // features needs 120 KB and one block an SM, not two.
+  static constexpr bool kOneWide = true;
+  static constexpr int kChains = V1 ? 2 : 1;
+
+  // column n of staged row s (0: silu, 1 + slot: kept basis) of feature f
+  __device__ static const unsigned short* src(const Params& p, int f, int s,
+                                              int n) {
+    const unsigned short* wt = static_cast<const unsigned short*>(p.wt);
+    if constexpr (V1) {
+      const unsigned short* tf = static_cast<const unsigned short*>(p.t_flat);
+      return s == 0 ? wt + (size_t)f * p.n_out + n
+                    : tf + ((size_t)f * p.nbk + (s - 1)) * p.n_out + n;
+    } else {
+      return wt + ((size_t)f * (p.nbk + 1) + s) * p.n_out + n;
+    }
+  }
+
+  __device__ static void issue(const Params& p, float*, float*,
+                               int8_t* raw8, int b0, int p0, int n0, int tid,
+                               int nthr) {
+    unsigned short* raw = reinterpret_cast<unsigned short*>(raw8);
+    const unsigned short* base = static_cast<const unsigned short*>(p.wt);
+    const int nbk1 = p.nbk + 1, rows = PC * nbk1;
+    const int w = p.vec_w ? 4 : 1;               // columns a copy
+    const int cols = p.bn / w, lg = __ffs(cols) - 1;
+    const int c = tid & (cols - 1), n = n0 + w * c;
+    const int r0 = tid >> lg, step = nthr >> lg;
+    const int dpl = step / nbk1, ds = step - dpl * nbk1;
+    int pl = r0 / nbk1, s = r0 - pl * nbk1;
+    for (int r = r0; r < rows; r += step) {
+      const int f = p0 + pl;
+      const bool ok = f < p.n_in && n < p.n_out;
+      unsigned short* dst = raw + r * p.bn + w * c;
+      if (p.vec_w)
+        pm::cp_async<8>(dst, ok ? src(p, f, s, n) : base, ok);
+      else
+        *dst = ok ? __ldg(src(p, f, s, n)) : (unsigned short)0;
+      pl += dpl;
+      s += ds;
+      if (s >= nbk1) {
+        s -= nbk1;
+        ++pl;
+      }
+    }
+    // the x elements go to the raw area's tail (rows * bn elements on)
+    const unsigned short* x = static_cast<const unsigned short*>(p.x);
+    unsigned short* rx = raw + rows * p.bn;
+    if (p.vec_x) {
+      for (int e = tid; e < p.bm * (PC / 4); e += nthr) {
+        const int b = b0 + (e >> 3), f = p0 + 4 * (e & 7);
+        const bool ok = b < p.B && f < p.n_in;
+        pm::cp_async<8>(rx + 4 * e, ok ? x + (size_t)b * p.n_in + f : x, ok);
+      }
+    } else {
+      for (int e = tid; e < p.bm * PC; e += nthr) {
+        const int b = b0 + (e >> 5), f = p0 + (e & (PC - 1));
+        rx[e] = b < p.B && f < p.n_in ? __ldg(x + (size_t)b * p.n_in + f)
+                                      : (unsigned short)0;
+      }
+    }
+  }
+
+  // The chunk's x elements, raw, for spu_stage.
+  __device__ static const unsigned short* x_of(const Params& p,
+                                               const float*,
+                                               const int8_t* raw8) {
+    return reinterpret_cast<const unsigned short*>(raw8) +
+           PC * (p.nbk + 1) * p.bn;
+  }
+
+  // Widens the weights; the SPU pass reads x raw (x_of).
+  __device__ static void prepare(const Params& p, float* ws, float*,
+                                 const int8_t* raw8, const float*, int tid,
+                                 int nthr) {
+    const int rows = PC * (p.nbk + 1);
+    // the weights keep their layout: 4 elements in, a float4 out
+    const uint2* r4 = reinterpret_cast<const uint2*>(raw8);
+    float4* w4 = reinterpret_cast<float4*>(ws);
+    for (int v = tid; v < rows * p.bn / 4; v += nthr) {
+      const uint2 q = r4[v];
+      w4[v] = make_float4(__uint_as_float(q.x << 16),
+                          __uint_as_float(q.x & 0xffff0000u),
+                          __uint_as_float(q.y << 16),
+                          __uint_as_float(q.y & 0xffff0000u));
+    }
+  }
 };
 
 // SIMD + SPU + TSE once per (row, feature) of the chunk.  Each entry is
@@ -288,18 +424,29 @@ struct Split {
 // the j-th de Boor value if its basis is kept (else 0) and relj the
 // staged row it multiplies relative to the feature's silu row (1 + slot,
 // or 0 -- the silu row, times 0 -- for a dropped basis), one byte each.
-__device__ __forceinline__ void spu_stage(const Params& p, const float* xs,
+// With BF (x a bf16 value, read raw) silu is computed in f32 and rounded
+// once to bf16, the clipped input is rounded to bf16 (torch clamps a bf16
+// tensor to bounds rounded to bf16: the same value) and the de Boor values
+// are spu<true>'s, as the plain version computes them on a bf16 tensor.
+__device__ __forceinline__ float x_value(float v) { return v; }
+__device__ __forceinline__ float x_value(unsigned short b) {
+  return kan_fused::bf16_widen(b);
+}
+
+template <bool BF, class X>
+__device__ __forceinline__ void spu_stage(const Params& p, const X* xs,
                                           float* s_act, const int* s_slot,
                                           int p0, int tid, int nthr) {
   for (int e = tid; e < p.bm * PC; e += nthr) {
     const int bl = e >> 5, pl = e & (PC - 1);
     float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
     if (p0 + pl < p.n_in) {
-      const float xv = xs[e];
+      const float xv = x_value(xs[e]);
       // The KAN layer evaluates its bases on x clipped to [x0, x1 - eps).
       float vals[KMAX + 1];
-      const int cell = kan_fused::spu(fminf(fmaxf(xv, p.x0), p.hi), p.x0,
-                                      p.inv_h, p.G, p.K, vals);
+      const int cell = kan_fused::spu<BF>(
+          kan_fused::rnd<BF>(fminf(fmaxf(xv, p.x0), p.hi)), p.x0, p.inv_h,
+          p.G, p.K, vals);
       float v[KMAX + 1];
       unsigned rel = 0, rel4 = 0;
 #pragma unroll
@@ -312,7 +459,8 @@ __device__ __forceinline__ void spu_stage(const Params& p, const float* xs,
         else
           rel4 = r;
       }
-      lo = make_float4(xv * (1.f / (1.f + expf(-xv))), v[0], v[1], v[2]);
+      lo = make_float4(kan_fused::rnd<BF>(xv * (1.f / (1.f + expf(-xv)))),
+                       v[0], v[1], v[2]);
       hi = make_float4(v[3], v[4], __uint_as_float(rel),
                        __uint_as_float(rel4));
     }
@@ -377,11 +525,12 @@ kan_split_kernel(const Params p) {
   float* s_scale = smem + TABLE;
   const int nbk1 = p.nbk + 1;
   const int wsz = PC * nbk1 * p.bn;            // elements a weight stage
-  const int rsz = wsz + p.bm * PC;             // int8: raw bytes a stage
+  const int rsz = Op::kRaw * (wsz + p.bm * PC);  // raw bytes a stage
   const int psz = p.cpb * p.bm * p.bn;         // words a chain's partials
   float* s_w = smem + HDR;
-  float* s_x = s_w + p.stages * wsz;
-  float* s_act = s_x + p.stages * p.bm * PC;
+  // f32 weight and x buffers: `stages` of each, or one and none
+  float* s_x = s_w + (Op::kOneWide ? 1 : p.stages) * wsz;
+  float* s_act = s_x + (Op::kOneWide ? 0 : p.stages) * p.bm * PC;
   float* s_part = s_act + p.bm * ACT_STRIDE;
   int8_t* s_raw = reinterpret_cast<int8_t*>(
       s_part + (gridDim.z > 1 ? NC * psz : 0));
@@ -395,7 +544,8 @@ kan_split_kernel(const Params p) {
   // depends on the other, and their latencies overlap.  The barrier at
   // the top of the chunk loop publishes the tables.
   for (int l = 0; l < min(p.stages, nloc); ++l) {
-    Op::issue(p, s_w + l * wsz, s_x + l * p.bm * PC, s_raw + l * rsz, b0,
+    const int wl = Op::kOneWide ? 0 : l;
+    Op::issue(p, s_w + wl * wsz, s_x + wl * p.bm * PC, s_raw + l * rsz, b0,
               (c0 + l) * PC, n0, tid, nthr);
     pm::cp_async_commit();
   }
@@ -418,13 +568,14 @@ kan_split_kernel(const Params p) {
   for (int l = 0; l < nloc; ++l) {
     const int buf = l & (p.stages - 1);
     const int p0 = (c0 + l) * PC;
-    float* ws = s_w + buf * wsz;
-    float* xs = s_x + buf * p.bm * PC;
+    float* ws = s_w + (Op::kOneWide ? 0 : buf) * wsz;
+    float* xs = s_x + (Op::kOneWide ? 0 : buf) * p.bm * PC;
     pm::cp_async_wait(min(p.stages, nloc - l) - 1);
     __syncthreads();
     Op::prepare(p, ws, xs, s_raw + buf * rsz, s_scale, tid, nthr);
     if (Op::kQ8) __syncthreads();      // the dequantized x, for spu_stage
-    spu_stage(p, xs, s_act, s_slot, p0, tid, nthr);
+    spu_stage<Op::kBF16>(p, Op::x_of(p, xs, s_raw + buf * rsz), s_act,
+                         s_slot, p0, tid, nthr);
     __syncthreads();
     if (computes) {
       float part[NC][TM][4];
@@ -502,7 +653,25 @@ kan_split_kernel(const Params p) {
       for (int k = 0; k < 4; ++k)
         v[k] = NC == 2 ? __fadd_rn(total[0][i][k], total[NC - 1][i][k])
                        : total[0][i][k];
-      float* o = p.out + (size_t)b * p.n_out + n;
+      if (Op::kBF16 && p.out_bf16) {
+        // one rounding of the f32 total to bf16
+        __nv_bfloat16* o =
+            static_cast<__nv_bfloat16*>(p.out) + (size_t)b * p.n_out + n;
+        if (p.vec_out) {
+          if (n < p.n_out) {
+            reinterpret_cast<__nv_bfloat162*>(o)[0] =
+                __floats2bfloat162_rn(v[0], v[1]);
+            reinterpret_cast<__nv_bfloat162*>(o)[1] =
+                __floats2bfloat162_rn(v[2], v[3]);
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (n + k < p.n_out) o[k] = __float2bfloat16_rn(v[k]);
+        }
+        continue;
+      }
+      float* o = static_cast<float*>(p.out) + (size_t)b * p.n_out + n;
       if (p.vec_out) {
         if (n < p.n_out)
           *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
@@ -569,7 +738,8 @@ int launch(Params p, int bm, int bi, int bn, void* stream) {
   const int cpb = bi >= p.n_in ? (nchunks > 0 ? nchunks : 1) : bi / PC;
   const int nsplit = nchunks > 0 ? (nchunks + cpb - 1) / cpb : 1;
   const long smem =
-      smem_bytes(bm, bn, p.nbk, cpb, nsplit, Op::kQ8, Op::kChains);
+      smem_bytes(bm, bn, p.nbk, cpb, nsplit, Op::kRaw, Op::kOneWide,
+                 Op::kChains);
   const long gx = (p.B + (long)bm - 1) / bm;
   const long gy = (p.n_out + (long)bn - 1) / bn;
   if (nsplit > MAX_SPLIT || smem > MAX_SMEM ||
@@ -584,11 +754,16 @@ int launch(Params p, int bm, int bi, int bn, void* stream) {
   p.cpb = cpb;
   p.nchunks = nchunks;
   p.stages = cpb > 1 ? 2 : 1;
+  // a weight copy is 4 columns: 4 int8 bytes, 8 bf16 bytes, 16 f32 bytes;
+  // an x copy 4 elements (int8, bf16)
+  const uintptr_t wal = Op::kRaw ? 4 * Op::kRaw : 16;
   p.vec_w = p.n_out % 4 == 0 &&
-            reinterpret_cast<uintptr_t>(p.wt) % (Op::kQ8 ? 4 : 16) == 0 &&
-            reinterpret_cast<uintptr_t>(p.t_flat) % 16 == 0;
-  p.vec_x = p.n_in % 4 == 0 && reinterpret_cast<uintptr_t>(p.x) % 4 == 0;
-  p.vec_out = p.n_out % 4 == 0 && reinterpret_cast<uintptr_t>(p.out) % 16 == 0;
+            reinterpret_cast<uintptr_t>(p.wt) % wal == 0 &&
+            reinterpret_cast<uintptr_t>(p.t_flat) % wal == 0;
+  const uintptr_t xal = Op::kRaw ? 4 * Op::kRaw : 4;
+  p.vec_x = p.n_in % 4 == 0 && reinterpret_cast<uintptr_t>(p.x) % xal == 0;
+  p.vec_out = p.n_out % 4 == 0 &&
+              reinterpret_cast<uintptr_t>(p.out) % (p.out_bf16 ? 8 : 16) == 0;
   const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)nsplit);
   cudaStream_t s = (cudaStream_t)stream;
   switch (tm) {

@@ -3,11 +3,15 @@
 Counterpart of ``repro/kernels/kan_fused/ops.py``.  A CPU tensor runs
 the plain version (``ref.kan_fused_v2_ref``, ``ref.kan_fused_v1_ref`` for
 version 1, or ``ref.kan_fused_v2_q8_ref`` for int8 codes); a CUDA tensor
-launches the hand-written kernel ``csrc/kan_fused.cu``
-(``csrc/kan_fused_v1.cu``, ``csrc/kan_fused_q8.cu``) or raises.  There is
-no fallback from a kernel to its plain version.
+launches the hand-written kernel for its dtype -- f32:
+``csrc/kan_fused.cu`` (``csrc/kan_fused_v1.cu`` at version 1); bf16:
+``csrc/kan_fused_bf16.cu`` (``csrc/kan_fused_v1_bf16.cu``); int8 codes:
+``csrc/kan_fused_q8.cu`` -- or raises.  There is no fallback from a
+kernel to its plain version.  f32 and bf16 layers take ``out_dtype``, as
+the JAX ``kan_linear`` does: x's dtype (the default) or f32, the bf16
+kernels' f32 accumulator unrounded.
 
-All three kernels run one body (``csrc/kan_split.cuh``) and take their
+All five kernels run one body (``csrc/kan_split.cuh``) and take their
 knobs ``(bm, bi, bn)`` at launch time: bm rows x bn outputs a block, bi
 input features a block walks.  ``resolve_blocks`` picks them as the JAX
 one does, at either version: explicit ``blocks=`` > autotune-cache hit
@@ -31,6 +35,7 @@ import torch
 
 from repro_torch.core.splines import SplineSpec
 from repro_torch.kernels import _build, autotune
+from repro_torch.kernels.epilogue import resolve_out_dtype
 from repro_torch.kernels.kan_fused.ref import (
     kan_fused_v1_ref,
     kan_fused_v2_q8_ref,
@@ -41,6 +46,10 @@ from repro_torch.utils import next_pow2
 KERNEL = "kan_fused_v2"
 KERNEL_V1 = "kan_fused_v1"
 KERNEL_Q8 = "kan_fused_v2_q8"
+# the _build kernel of each (version, x dtype) of the f32 and bf16 layers
+KERNELS = {(2, torch.float32): KERNEL, (1, torch.float32): KERNEL_V1,
+           (2, torch.bfloat16): "kan_fused_v2_bf16",
+           (1, torch.bfloat16): "kan_fused_v1_bf16"}
 DEFAULT_VERSION = 2
 
 # The knobs the kernels take (csrc/kan_split.cuh checks the same): bm and
@@ -92,15 +101,20 @@ def kernel_smem(bm: int, bi: int, bn: int, n_in: int, nbk: int,
     ``dtype`` and ``version`` uses: weight and x buffers (two when a block
     walks several chunks), the staged (row, feature) values, a cluster
     member's chunk partials (two sets at version 1: the silu and the
-    spline chain), and int8's raw weight and x codes."""
+    spline chain), and the raw weight and x elements int8 (a byte each)
+    and bf16 (two) stage before they widen.  bf16 widens its weights into
+    one f32 buffer, its raw buffers taking the copies in flight, and
+    reads x raw."""
     _, cpb, nsplit = split(n_in, bi)
     rows = PC * (nbk + 1)
     stages = 2 if cpb > 1 else 1
+    bf16 = dtype == torch.bfloat16
     chains = 2 if version == 1 else 1
-    words = (_HDR_WORDS + stages * (rows * bn + bm * PC) + bm * _ACT_STRIDE
+    words = (_HDR_WORDS + (1 if bf16 else stages) * rows * bn
+             + (0 if bf16 else stages) * bm * PC + bm * _ACT_STRIDE
              + (chains * cpb * bm * bn if nsplit > 1 else 0))
-    return 4 * words + (stages * (rows * bn + bm * PC)
-                        if dtype == torch.int8 else 0)
+    raw = {torch.int8: 1, torch.bfloat16: 2}.get(dtype, 0)
+    return 4 * words + raw * stages * (rows * bn + bm * PC)
 
 
 def check_blocks(blocks: Blocks, n_in: int, n_out: int, nbk: int,
@@ -247,6 +261,14 @@ def slot_table(kb: Tuple[int, ...], n_bases: int,
     return torch.tensor(slot, dtype=torch.int32, device=device)
 
 
+def kernel_dtype(x: torch.Tensor) -> Tuple[torch.dtype, str]:
+    """(operand dtype, what) of the f32 or bf16 kernel ``x`` selects: bf16
+    for a bf16 x, else f32 (any other dtype is then refused as not f32)."""
+    if x.dtype == torch.bfloat16:
+        return torch.bfloat16, "this kernel is bf16 only"
+    return torch.float32, "this kernel is f32 only"
+
+
 def _check_operands(fn: str, x: torch.Tensor,
                     weights: Sequence[Tuple[str, torch.Tensor, int]],
                     slot_of: torch.Tensor, spec: SplineSpec,
@@ -280,19 +302,24 @@ def _check_operands(fn: str, x: torch.Tensor,
 def kan_fused_v2(x: torch.Tensor, wt: torch.Tensor, spec: SplineSpec,
                  kb: Tuple[int, ...],
                  slot_of: Optional[torch.Tensor] = None, *,
-                 blocks: Optional[Sequence[int]] = None) -> torch.Tensor:
-    """One KAN layer on (B, n_in) x against the fused ``wt``.
+                 blocks: Optional[Sequence[int]] = None,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """One KAN layer on (B, n_in) x against the fused ``wt``, f32 or bf16
+    (both of one dtype), f32 accumulation, ``out_dtype`` out (x's dtype
+    by default, or f32).
 
     ``slot_of`` is ``slot_table(kb, ...)`` on the device; layers build it
     once and pass it, else it is built here.  ``blocks`` overrides the
     kernel's (bm, bi, bn); None consults the autotune cache before the
     defaults.
     """
+    dtype, what = kernel_dtype(x)
+    out_dtype = resolve_out_dtype("kan_fused_v2", x, out_dtype)
     if x.device.type == "cpu":
         if blocks is not None:
             check_blocks(_as_blocks(blocks), x.shape[-1], wt.shape[-1],
-                         len(kb), torch.float32)
-        return kan_fused_v2_ref(x, wt, spec, kb)
+                         len(kb), dtype)
+        return kan_fused_v2_ref(x, wt, spec, kb, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"kan_fused_v2: no kernel for device {x.device}")
     if slot_of is None:
@@ -300,34 +327,41 @@ def kan_fused_v2(x: torch.Tensor, wt: torch.Tensor, spec: SplineSpec,
     nbk = len(kb)
     B, n_in, n_out = _check_operands(
         "kan_fused_v2", x, [("wt", wt, nbk + 1)], slot_of, spec,
-        [("x", x, torch.float32), ("wt", wt, torch.float32),
-         ("slot_of", slot_of, torch.int32)], "this kernel is f32 only")
-    out = torch.empty((B, n_out), dtype=torch.float32, device=x.device)
+        [("x", x, dtype), ("wt", wt, dtype),
+         ("slot_of", slot_of, torch.int32)], what)
+    out = torch.empty((B, n_out), dtype=out_dtype, device=x.device)
     if B == 0 or n_out == 0:
         return out
-    bm, bi, bn = _knobs(B, n_in, n_out, nbk, torch.float32, blocks, x.device)
+    bm, bi, bn = _knobs(B, n_in, n_out, nbk, dtype, blocks, x.device)
+    # the bf16 kernels also take the output's dtype
+    out_f32 = (() if dtype == torch.float32
+               else (int(out_dtype == torch.float32),))
     _build.launch(
-        KERNEL, x.data_ptr(), wt.data_ptr(), slot_of.data_ptr(),
+        KERNELS[2, dtype], x.data_ptr(), wt.data_ptr(), slot_of.data_ptr(),
         out.data_ptr(), B, n_in, n_out, nbk, spec.grid_size, spec.order,
-        float(spec.x0), float(spec.clip_hi), float(spec.inv_h), bm, bi, bn,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        float(spec.x0), float(spec.clip_hi), float(spec.inv_h), *out_f32, bm,
+        bi, bn, torch.cuda.current_stream(x.device).cuda_stream)
     return out
 
 
 def kan_fused_v1(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
                  spec: SplineSpec, kb: Tuple[int, ...],
                  slot_of: Optional[torch.Tensor] = None, *,
-                 blocks: Optional[Sequence[int]] = None) -> torch.Tensor:
+                 blocks: Optional[Sequence[int]] = None,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """One KAN layer, version 1: (B, n_in) x against the unfused ``w_b``
-    (n_in, n_out) and ``t_flat`` (n_in*nbk, n_out), the silu and spline
-    branches summed apart and added once.  ``blocks`` overrides the
-    kernel's (bm, bi, bn); None consults the autotune cache (kernel
+    (n_in, n_out) and ``t_flat`` (n_in*nbk, n_out), all f32 or all bf16,
+    the silu and spline branches summed apart and added once, ``out_dtype``
+    out (x's dtype by default, or f32).  ``blocks`` overrides the kernel's
+    (bm, bi, bn); None consults the autotune cache (kernel
     ``kan_fused_v1``) before the defaults."""
+    dtype, what = kernel_dtype(x)
+    out_dtype = resolve_out_dtype("kan_fused_v1", x, out_dtype)
     if x.device.type == "cpu":
         if blocks is not None:
             check_blocks(_as_blocks(blocks), x.shape[-1], w_b.shape[-1],
-                         len(kb), torch.float32, version=1)
-        return kan_fused_v1_ref(x, w_b, t_flat, spec, kb)
+                         len(kb), dtype, version=1)
+        return kan_fused_v1_ref(x, w_b, t_flat, spec, kb, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"kan_fused_v1: no kernel for device {x.device}")
     if slot_of is None:
@@ -336,19 +370,21 @@ def kan_fused_v1(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
     B, n_in, n_out = _check_operands(
         "kan_fused_v1", x, [("w_b", w_b, 1), ("t_flat", t_flat, nbk)],
         slot_of, spec,
-        [("x", x, torch.float32), ("w_b", w_b, torch.float32),
-         ("t_flat", t_flat, torch.float32),
-         ("slot_of", slot_of, torch.int32)], "this kernel is f32 only")
-    out = torch.empty((B, n_out), dtype=torch.float32, device=x.device)
+        [("x", x, dtype), ("w_b", w_b, dtype), ("t_flat", t_flat, dtype),
+         ("slot_of", slot_of, torch.int32)], what)
+    out = torch.empty((B, n_out), dtype=out_dtype, device=x.device)
     if B == 0 or n_out == 0:
         return out
-    bm, bi, bn = _knobs(B, n_in, n_out, nbk, torch.float32, blocks, x.device,
+    bm, bi, bn = _knobs(B, n_in, n_out, nbk, dtype, blocks, x.device,
                         version=1)
+    # the bf16 kernels also take the output's dtype
+    out_f32 = (() if dtype == torch.float32
+               else (int(out_dtype == torch.float32),))
     _build.launch(
-        KERNEL_V1, x.data_ptr(), w_b.data_ptr(), t_flat.data_ptr(),
+        KERNELS[1, dtype], x.data_ptr(), w_b.data_ptr(), t_flat.data_ptr(),
         slot_of.data_ptr(), out.data_ptr(), B, n_in, n_out, nbk,
         spec.grid_size, spec.order, float(spec.x0), float(spec.clip_hi),
-        float(spec.inv_h), bm, bi, bn,
+        float(spec.inv_h), *out_f32, bm, bi, bn,
         torch.cuda.current_stream(x.device).cuda_stream)
     return out
 
@@ -397,7 +433,8 @@ def kan_fused_v2_q8(x_q: torch.Tensor, wt_q: torch.Tensor,
 def kan_linear(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
                spec: SplineSpec, kb: Optional[Tuple[int, ...]] = None, *,
                version: int = DEFAULT_VERSION,
-               blocks: Optional[Sequence[int]] = None) -> torch.Tensor:
+               blocks: Optional[Sequence[int]] = None,
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """phi(x) per Eq. 3 with two-stage sparsity; batch dims preserved.
 
     ``version`` selects the kernel generation: 2, one pass against the
@@ -405,7 +442,8 @@ def kan_linear(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
     ``w_b`` and ``t_flat`` apart.  Functional form of the JAX
     ``kan_linear``: at version 2 it fuses the weights on every call;
     ``core/kan.KANLayer`` does so once instead.  ``blocks`` overrides the
-    kernel's (bm, bi, bn) at either version.
+    kernel's (bm, bi, bn) at either version; ``out_dtype`` (x's dtype by
+    default, or f32) emits the f32 accumulator unrounded for bf16 x.
     """
     if version not in (1, 2):
         raise ValueError(f"kan_linear: version must be 1 or 2, got "
@@ -416,10 +454,11 @@ def kan_linear(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
     kb = tuple(range(spec.n_bases)) if kb is None else tuple(kb)
     if version == 2:
         wt = fuse_wt(w_b, t_flat, len(kb))
-        y = kan_fused_v2(xf, wt, spec, kb, blocks=blocks)
+        y = kan_fused_v2(xf, wt, spec, kb, blocks=blocks,
+                         out_dtype=out_dtype)
     else:
         y = kan_fused_v1(xf, w_b.contiguous(), t_flat.contiguous(), spec, kb,
-                         blocks=blocks)
+                         blocks=blocks, out_dtype=out_dtype)
     return y.reshape(*lead, w_b.shape[-1])
 
 

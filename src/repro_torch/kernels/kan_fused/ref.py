@@ -5,7 +5,11 @@
 values scattered into the kept-basis columns, ``[silu | bases]`` per input
 feature, one contraction against the fused ``[w_b ; t[kb]]`` weights.
 ``kan_fused_v1_ref`` is version 1 of the same: ``silu(x) @ w_b`` and
-``bases @ t_flat`` as two contractions.  ``kan_fused_v2_q8_ref`` mirrors
+``bases @ t_flat`` as two contractions.  On bf16 x the activation is
+computed in bf16 as the reference's (silu in f32 rounded once, the de
+Boor recursion rounded op by op, ``core/splines``), the products in f32
+on the widened operands, and ``out_dtype`` (x's dtype by default, or f32)
+rounds the total once.  ``kan_fused_v2_q8_ref`` mirrors
 ``_kan_linear_q8_jnp``: version 2 on int8 codes, dequantized first
 (``dequant_wt`` per weight-row slot).  They are
 what the wrappers run for a CPU tensor and what the CUDA kernels are held
@@ -14,7 +18,7 @@ against on the card.  The dense Eq. 3 oracle is
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,29 +43,34 @@ def _silu_and_bases(x: torch.Tensor, spec: SplineSpec, kb: Tuple[int, ...]
 
 
 def kan_fused_v2_ref(x: torch.Tensor, wt: torch.Tensor, spec: SplineSpec,
-                     kb: Tuple[int, ...]) -> torch.Tensor:
-    """(B, n_in) x, (n_in*(nbk+1), n_out) fused wt -> (B, n_out)."""
+                     kb: Tuple[int, ...],
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """(B, n_in) x, (n_in*(nbk+1), n_out) fused wt -> (B, n_out): the f32
+    product of the widened operands, cast to ``out_dtype`` (x's dtype by
+    default)."""
     n_in = x.shape[-1]
     nbk = len(kb)
     s, act = _silu_and_bases(x, spec, kb)
     fused = torch.cat([s[..., None], act], dim=-1)
     y = torch.matmul(fused.reshape(-1, n_in * (nbk + 1)).to(torch.float32),
                      wt.to(torch.float32))
-    return y.to(x.dtype)
+    return y.to(out_dtype or x.dtype)
 
 
 def kan_fused_v1_ref(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
-                     spec: SplineSpec, kb: Tuple[int, ...]) -> torch.Tensor:
+                     spec: SplineSpec, kb: Tuple[int, ...],
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """(B, n_in) x, (n_in, n_out) w_b, (n_in*nbk, n_out) t_flat -> (B,
-    n_out): ``silu(x) @ w_b + scattered_bases @ t_flat``, two products
-    added once, as ``_kan_linear_jnp`` does at ``version=1``."""
+    n_out): ``silu(x) @ w_b + scattered_bases @ t_flat``, two f32 products
+    added once, as ``_kan_linear_jnp`` does at ``version=1``, cast to
+    ``out_dtype`` (x's dtype by default)."""
     n_in = x.shape[-1]
     nbk = len(kb)
     s, act = _silu_and_bases(x, spec, kb)
     y = torch.matmul(s.to(torch.float32), w_b.to(torch.float32))
     y = y + torch.matmul(act.reshape(-1, n_in * nbk).to(torch.float32),
                          t_flat.to(torch.float32))
-    return y.to(x.dtype)
+    return y.to(out_dtype or x.dtype)
 
 
 def dequant_wt(wt_q: torch.Tensor, slot_scales: torch.Tensor,

@@ -59,10 +59,12 @@
 
 #include <cuda_runtime.h>
 
+#include "epilogue.cuh"
 #include "staging.cuh"
 
 namespace {
 
+using pm::apply_act;
 using pm::cp_async;
 using pm::cp_async_commit;
 using pm::cp_async_wait;
@@ -73,24 +75,6 @@ constexpr int MAX_STAGES = 16;
 constexpr int STAGE_BUDGET = 32 * 1024;   // bytes the ring aims to fill
 constexpr int MAX_THREADS = 256;
 constexpr int MIN_THREADS = 128;   // a block stages with at least these
-
-// Activation codes: kernels/epilogue.py ACT_CODES.
-__device__ __forceinline__ float apply_act(float v, int act) {
-  switch (act) {
-    case 1:  // relu
-      return v < 0.f ? 0.f : v;
-    case 2: {  // gelu, tanh form (jax.nn.gelu's default)
-      const float kBeta = 0.7978845608028654f;  // sqrt(2 / pi)
-      const float kKappa = 0.044715f;
-      float inner = kBeta * (v + kKappa * v * v * v);
-      return 0.5f * v * (1.f + tanhf(inner));
-    }
-    case 3:  // silu
-      return v * (1.f / (1.f + expf(-v)));
-    default:
-      return v;
-  }
-}
 
 __device__ __forceinline__ float lane4(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;

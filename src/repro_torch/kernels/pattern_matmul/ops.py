@@ -5,13 +5,15 @@ m-of-4 compaction happens outside the kernels: ``pattern_linear`` gathers
 the kept activation lanes and weight rows, then ``matmul_compact`` runs
 the compact matmul with the fused ``act(acc + bias)`` epilogue -- the
 plain version (``ref.matmul_compact_ref``) for a CPU tensor, the CUDA
-kernel ``csrc/pattern_matmul.cu`` for a CUDA tensor.  The int8 path is
-the same with ``matmul_q8`` (``ref.matmul_q8_ref`` or
+kernel for its dtype for a CUDA tensor: ``csrc/pattern_matmul.cu`` (f32,
+CUDA cores) or ``csrc/pattern_matmul_bf16.cu`` (bf16 tensor cores, f32
+accumulation, bf16 or f32 out by ``out_dtype``).  The int8 path is the
+same with ``matmul_q8`` (``ref.matmul_q8_ref`` or
 ``csrc/pattern_matmul_q8.cu``), whose raw integer accumulator
 ``pattern_linear_q8`` scales with the shared ``scale_bias_act``.  There is
 no fallback from a kernel to its plain version.
 
-Both kernels take their tiles ``(bm, bk, bn)`` at launch time.
+All three kernels take their tiles ``(bm, bk, bn)`` at launch time.
 ``resolve_blocks`` picks them as the JAX one does: explicit ``blocks=`` >
 autotune-cache hit for (shape bucket, dtype, card) > a default by M
 bucket; the wrappers never search (``autotune.tune_pattern_matmul``
@@ -27,7 +29,11 @@ import torch
 
 from repro_torch.core.sparsity import PatternMask
 from repro_torch.kernels import _build, autotune
-from repro_torch.kernels.epilogue import ACT_CODES, scale_bias_act
+from repro_torch.kernels.epilogue import (
+    ACT_CODES,
+    resolve_out_dtype,
+    scale_bias_act,
+)
 from repro_torch.kernels.pattern_matmul.ref import (
     matmul_compact_ref,
     matmul_q8_ref,
@@ -35,6 +41,7 @@ from repro_torch.kernels.pattern_matmul.ref import (
 
 KERNEL = "pattern_matmul"
 KERNEL_Q8 = "pattern_matmul_q8"
+KERNEL_BF16 = "pattern_matmul_bf16"
 
 # The tiles each kernel takes (csrc/*.cu check the same), and the bk grid
 # the autotune search walks.
@@ -42,8 +49,11 @@ F32_BM = (8, 16, 32, 64, 128)
 F32_BN = (8, 16, 32, 64, 128)
 Q8_BM = (16, 32, 64, 128)
 Q8_BN = (32, 64, 128)
+BF16_BM = (16, 32, 64, 128)
+BF16_BN = (8, 16, 32, 64, 128)
 F32_BK = (8, 16, 32, 64)          # any multiple of 4 is taken
 Q8_BK = (32, 64, 128, 256, 512)   # any multiple of 32 is taken
+BF16_BK = (16, 32, 64, 128, 256)  # any multiple of 16 is taken
 MAX_GRID_Y = 65535                # N tiles; M tiles go on grid.x
 
 # The f32 kernel's ring of bk-deep slabs and its least threads a block
@@ -55,12 +65,26 @@ _STAGE_BUDGET = 32 * 1024
 Blocks = Dict[str, int]
 
 
+def tile_rules(dtype: torch.dtype) -> Tuple[Tuple[int, ...],
+                                            Tuple[int, ...], int]:
+    """(bm values, bn values, bk step) the kernel for ``dtype`` takes."""
+    if dtype == torch.int8:
+        return Q8_BM, Q8_BN, 32
+    if dtype == torch.bfloat16:
+        return BF16_BM, BF16_BN, 16
+    return F32_BM, F32_BN, 4
+
+
 def kernel_threads(bm: int, bn: int, dtype: torch.dtype) -> int:
     """Threads a block of the kernel for ``dtype`` at tiles ``bm x bn``
-    (its register tile, or warp tile for int8, follows the block tile)."""
+    (its register tile, or warp tile for int8 and bf16, follows the block
+    tile)."""
     if dtype == torch.int8:
         mt, nt = (1, 2) if bm == 16 else (2, 4)
         return (bm // (16 * mt)) * (bn // (8 * nt)) * 32
+    if dtype == torch.bfloat16:
+        mt, nt = 1 if bm == 16 else 2, min(4, bn // 8)
+        return max(_MIN_THREADS, (bm // (16 * mt)) * (bn // (8 * nt)) * 32)
     tm = 8 if bm >= 64 else bm // 8
     tn = 8 if bn >= 64 else 4
     return max(_MIN_THREADS, (bm // tm) * (bn // tn))
@@ -71,6 +95,9 @@ def kernel_smem(bm: int, bk: int, bn: int, K: int,
     """Dynamic shared memory, in bytes, a block of the kernel uses."""
     if dtype == torch.int8:
         return max((bm + bn) * (bk + 16), 4 * bm * (bn + 8))
+    if dtype == torch.bfloat16:
+        # x rows padded by 8 elements, w_c rows to an odd number of 16 B
+        return 2 * (bm * (bk + 8) + bk * (bn + (16 if bn == 8 else 8)))
     slab = 4 * (bm * (bk + 4) + bk * bn)
     nslabs = -(-K // bk)
     stages = min(max(nslabs, 1), _MAX_STAGES, max(2, _STAGE_BUDGET // slab))
@@ -80,16 +107,14 @@ def kernel_smem(bm: int, bk: int, bn: int, K: int,
 def check_blocks(blocks: Blocks, K: int, N: int, dtype: torch.dtype) -> None:
     """Raise ``ValueError`` unless the kernel for ``dtype`` takes
     ``blocks`` at contraction depth K and width N."""
-    q8 = dtype == torch.int8
     bm, bk, bn = (blocks[k] for k in ("bm", "bk", "bn"))
     what = f"pattern_matmul blocks (bm={bm}, bk={bk}, bn={bn})"
     if min(bm, bk, bn) <= 0:
         raise ValueError(f"{what}: every tile must be positive")
-    bms, bns = (Q8_BM, Q8_BN) if q8 else (F32_BM, F32_BN)
+    bms, bns, step = tile_rules(dtype)
     if bm not in bms or bn not in bns:
         raise ValueError(f"{what}: the {dtype} kernel takes bm in {bms} "
                          f"and bn in {bns}")
-    step = 32 if q8 else 4
     if bk % step:
         raise ValueError(f"{what}: bk must be a multiple of {step} for "
                          f"{dtype}")
@@ -112,7 +137,14 @@ def default_blocks(M: int, K: int, dtype: torch.dtype) -> Blocks:
     8192 on an H100): at serving buckets narrow tiles put more blocks on
     the card, and slabs deep enough that Kc <= 304 is one wait; at large
     M 128-row tiles, with deeper slabs for a deep Kc.  int8's bk covers
-    all of K up to 512."""
+    all of K up to 512, bf16's up to 256 (its m16 tiles at bm >= 16)."""
+    if dtype == torch.bfloat16:
+        bk = min(256, 16 * max(1, -(-K // 16)))
+        if M <= 16:
+            return {"bm": 16, "bk": bk, "bn": 8}
+        if M <= 64:
+            return {"bm": 32, "bk": bk, "bn": 32}
+        return {"bm": 64 if M <= 256 else 128, "bk": bk, "bn": 64}
     if dtype == torch.int8:
         bm = 16 if M <= 16 else 32 if M <= 32 else 64 if M <= 256 else 128
         return {"bm": bm, "bk": min(512, 32 * max(1, -(-K // 32))),
@@ -185,14 +217,19 @@ def _check_operands(fn: str, x_c: torch.Tensor, w_c: torch.Tensor,
 def matmul_compact(x_c: torch.Tensor, w_c: torch.Tensor,
                    bias: Optional[torch.Tensor] = None,
                    act: Optional[str] = None, *,
-                   blocks: Optional[Sequence[int]] = None) -> torch.Tensor:
-    """act(x_c @ w_c + bias) on (M, Kc) x_c and (Kc, N) w_c; ``blocks``
-    overrides the kernel's (bm, bk, bn) tiles."""
+                   blocks: Optional[Sequence[int]] = None,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """act(x_c @ w_c + bias) on (M, Kc) x_c and (Kc, N) w_c, all f32 or all
+    bf16, f32 accumulation, ``out_dtype`` out (x's dtype by default, or
+    f32); ``blocks`` overrides the kernel's (bm, bk, bn) tiles."""
+    bf16 = x_c.dtype == torch.bfloat16
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    out_dtype = resolve_out_dtype("matmul_compact", x_c, out_dtype)
     if x_c.device.type == "cpu":
         if blocks is not None:
             check_blocks(_as_blocks(blocks), x_c.shape[-1], w_c.shape[-1],
-                         torch.float32)
-        return matmul_compact_ref(x_c, w_c, bias, act)
+                         dtype)
+        return matmul_compact_ref(x_c, w_c, bias, act, out_dtype)
     if x_c.device.type != "cuda":
         raise ValueError(f"matmul_compact: no kernel for device {x_c.device}")
     if act not in ACT_CODES:
@@ -204,16 +241,19 @@ def matmul_compact(x_c: torch.Tensor, w_c: torch.Tensor,
                              f"{tuple(bias.shape)}, expected "
                              f"({w_c.shape[-1]},)")
         operands.append(("bias", bias))
-    M, K, N = _check_operands("matmul_compact", x_c, w_c, operands,
-                              torch.float32, "this kernel is f32 only")
-    y = torch.empty((M, N), dtype=torch.float32, device=x_c.device)
+    M, K, N = _check_operands(
+        "matmul_compact", x_c, w_c, operands, dtype,
+        "this kernel is bf16 only" if bf16 else "this kernel is f32 only")
+    y = torch.empty((M, N), dtype=out_dtype, device=x_c.device)
     if M == 0 or N == 0:
         return y
-    bm, bk, bn = _tiles(M, K, N, torch.float32, blocks, x_c.device)
+    bm, bk, bn = _tiles(M, K, N, dtype, blocks, x_c.device)
+    # the bf16 kernel also takes the output's dtype
+    out_f32 = (int(out_dtype == torch.float32),) if bf16 else ()
     _build.launch(
-        KERNEL, x_c.data_ptr(), w_c.data_ptr(),
+        KERNEL_BF16 if bf16 else KERNEL, x_c.data_ptr(), w_c.data_ptr(),
         None if bias is None else bias.data_ptr(), y.data_ptr(), M, K, N,
-        ACT_CODES[act], bm, bk, bn,
+        ACT_CODES[act], *out_f32, bm, bk, bn,
         torch.cuda.current_stream(x_c.device).cuda_stream)
     return y
 
@@ -247,13 +287,15 @@ def pattern_linear(x: torch.Tensor, w: torch.Tensor,
                    mask: Optional[PatternMask] = None,
                    bias: Optional[torch.Tensor] = None, *,
                    act: Optional[str] = None,
-                   blocks: Optional[Sequence[int]] = None) -> torch.Tensor:
+                   blocks: Optional[Sequence[int]] = None,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """y = act(x[..., keep] @ w[keep, :] + bias); x: (..., K), w: (K, N).
 
     Functional form of the JAX ``pattern_linear``: compacts the weight on
     every call.  ``models/ffn.PatternLinear`` compacts it once instead.
     ``blocks`` overrides the (bm, bk, bn) tiles; None consults the
-    autotune cache before the defaults.
+    autotune cache before the defaults.  f32 or bf16 (the gather is
+    exact); ``out_dtype`` x's dtype by default, or f32.
     """
     lead = x.shape[:-1]
     xf = x.reshape(-1, x.shape[-1])
@@ -263,7 +305,7 @@ def pattern_linear(x: torch.Tensor, w: torch.Tensor,
         xf = xf.index_select(1, idx)
         w = w.index_select(0, idx.to(w.device))
     y = matmul_compact(xf.contiguous(), w.contiguous(), bias, act=act,
-                       blocks=blocks)
+                       blocks=blocks, out_dtype=out_dtype)
     return y.reshape(*lead, w.shape[-1])
 
 

@@ -20,10 +20,15 @@ from repro_torch.kernels.epilogue import bias_act
 
 def matmul_compact_ref(x_c: torch.Tensor, w_c: torch.Tensor,
                        bias: Optional[torch.Tensor] = None,
-                       act: Optional[str] = None) -> torch.Tensor:
-    """act(x_c @ w_c + bias) on (M, Kc) x_c and (Kc, N) w_c."""
+                       act: Optional[str] = None,
+                       out_dtype: Optional[torch.dtype] = None
+                       ) -> torch.Tensor:
+    """act(x_c @ w_c + bias) on (M, Kc) x_c and (Kc, N) w_c: the f32
+    product of the widened operands (exact for bf16: each product of two
+    bf16 values is an f32), the f32 epilogue, one cast to ``out_dtype``
+    (x's dtype by default)."""
     acc = torch.matmul(x_c.to(torch.float32), w_c.to(torch.float32))
-    return bias_act(acc, bias, act, x_c.dtype)
+    return bias_act(acc, bias, act, out_dtype or x_c.dtype)
 
 
 def matmul_q8_ref(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:

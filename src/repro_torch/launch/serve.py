@@ -19,10 +19,12 @@ With ``REPRO_TORCH_AUTOTUNE=1`` the launcher first searches the knobs of
 every matmul and KAN layer it serves, at every bucket up to ``--slots``,
 and caches them (``kernels/autotune.tune_pattern_matmul``,
 ``tune_kan_fused``); the served forwards then read them from the cache.
-``--precision int8`` serves the post-training quantized stack through the
-int8 kernels, with scales calibrated from a seeded batch, or restored
-with the weights and masks by ``--ckpt DIR`` (a checkpoint in the
-reference's layout):
+``--precision bf16`` serves the stack in bf16 (params cast once, f32
+accumulation, f32 answers) through the bf16 kernels; ``--precision int8``
+serves the post-training quantized stack through the int8 kernels, with
+scales calibrated from a seeded batch, or restored with the weights and
+masks by ``--ckpt DIR`` (a checkpoint in the reference's layout; at bf16
+its f32 params are cast):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vikin-mixed \
       --precision int8 --requests 8
@@ -66,9 +68,10 @@ def make_vikin_backend(model: Any, device: str, seed: int = 0, *,
     """A backend serving ``model`` at ``precision``.
 
     Weights are drawn from ``seed``, or restored from ``ckpt`` with the
-    masks and int8 scales saved beside them.  At int8 without a
-    checkpoint, scales are calibrated on the CPU from a seed-0 batch like
-    the features ``submit_burst`` sends.
+    masks and int8 scales saved beside them (bf16 casts the f32 params and
+    needs no scales).  At int8 without a checkpoint, scales are calibrated
+    on the CPU from a seed-0 batch like the features ``submit_burst``
+    sends.
     """
     params = vikin_stack_init(model, torch.Generator().manual_seed(seed))
     masks = scales = None
@@ -139,7 +142,8 @@ def tune_layers(backends: Sequence[VikinBackend], slots: int) -> None:
                         w = layer.wt
                         x = torch.rand((m, n_in), generator=gen)
                         best = autotune.tune_kan_fused(
-                            x.to(w.device), w, layer.cfg.spec, layer.kb)
+                            x.to(w.device, w.dtype), w, layer.cfg.spec,
+                            layer.kb)
                     print(f"tuned kan_fused_v2 {m}x{n_in}->{w.shape[1]} "
                           f"{w.dtype}: {best}")
                     continue
@@ -156,7 +160,7 @@ def tune_layers(backends: Sequence[VikinBackend], slots: int) -> None:
                 else:
                     x = torch.rand((m, w.shape[0]), generator=gen)
                     best = autotune.tune_pattern_matmul(
-                        x.to(w.device), w, layer.b, act=layer.act)
+                        x.to(w.device, w.dtype), w, layer.b, act=layer.act)
                 print(f"tuned pattern_matmul {m}x{w.shape[0]}->"
                       f"{w.shape[1]} {w.dtype}: {best}")
 
@@ -298,9 +302,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Engine:
                     help="batch-formation policy (runtime/scheduler.py)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain versions")
-    ap.add_argument("--precision", default="f32", choices=["f32", "int8"],
-                    help="served numerics; int8 is the post-training "
-                         "quantized path (core/quant.py)")
+    ap.add_argument("--precision", default="f32",
+                    choices=["f32", "bf16", "int8"],
+                    help="served numerics: bf16 casts params and "
+                         "activations (f32 accumulation, f32 answers); "
+                         "int8 is the post-training quantized path "
+                         "(core/quant.py)")
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint directory of the reference's layout: "
                          "params, masks and int8 scales are restored")

@@ -137,7 +137,9 @@ class PatternLinear(nn.Module):
 
 
 class VikinStack(nn.Module):
-    """A whole KAN/MLP stack, its weights compacted and fused once."""
+    """A whole KAN/MLP stack, its weights compacted and fused once, in the
+    params' dtype: f32 params take f32 x, bf16 params (the reference's
+    bf16 serving) bf16 x, every layer emitting its input's dtype."""
 
     def __init__(self, model: Any, params: Sequence[Params],
                  masks: Optional[Sequence[Optional[PatternMask]]] = None,

@@ -16,8 +16,9 @@ model-shaped lives behind the ``ModelBackend`` protocol:
 (configs/vikin_models.PaperModelConfig) on a torch device: a request is
 one feature vector, and the batched step pads the active slots into a
 power-of-two bucket (>= ``min_bucket`` = 2, as the reference) and runs
-the whole stack (models/ffn.VikinStack, or core/quant.QuantVikinStack at
-int8) through the fused KAN and pattern-matmul kernels.  Every served
+the whole stack (models/ffn.VikinStack at f32 and bf16, or
+core/quant.QuantVikinStack at int8) through the fused KAN and
+pattern-matmul kernels.  Every served
 batch is charged its mode-switch schedule in the simulated-cycle report.
 
 ``MultiWorkloadBackend`` dispatches the same protocol across several
@@ -127,11 +128,15 @@ class VikinBackend(ModelBackend):
     layer, e.g. a calibrated checkpoint's) override the config's tiled
     masks, and the cycle model is then charged their measured rates.
 
-    ``precision`` selects the served numerics: "f32" (default) or "int8"
-    (post-training quantized, core/quant), which needs the calibrated
-    ``scales`` (core/calibrate.calibrate_scales or a checkpoint's
-    restore_scales); params are quantized once, here, and the cycle model
-    charges int8 DMA bytes.  Requests submit f32 payloads either way.
+    ``precision`` selects the served numerics: "f32" (default), "bf16"
+    (the params cast to bf16 once, here; each batch cast to bf16, every
+    layer bf16 in and out with f32 accumulation, the answer cast to f32,
+    as the reference's bf16 backend) or "int8" (post-training quantized,
+    core/quant), which needs the calibrated ``scales``
+    (core/calibrate.calibrate_scales or a checkpoint's restore_scales);
+    params are quantized once, here.  The cycle model charges the
+    precision's DMA bytes.  Requests submit f32 payloads at every
+    precision.
     """
 
     min_bucket = 2
@@ -141,13 +146,9 @@ class VikinBackend(ModelBackend):
                  masks: Optional[Sequence[Optional[PatternMask]]] = None,
                  precision: str = "f32",
                  scales: Optional[StackScales] = None) -> None:
-        if precision == "bf16":
+        if precision not in ("f32", "bf16", "int8"):
             raise ValueError(
-                "precision='bf16' is not ported yet (ROADMAP item 7): the "
-                "port's kernels are f32 and int8 only")
-        if precision not in ("f32", "int8"):
-            raise ValueError(
-                f"unknown precision {precision!r}; expected f32|int8")
+                f"unknown precision {precision!r}; expected f32|bf16|int8")
         if precision == "int8" and scales is None:
             raise ValueError(
                 "precision='int8' requires calibrated scales "
@@ -169,6 +170,9 @@ class VikinBackend(ModelBackend):
         tensors = [{k: torch.as_tensor(v, dtype=torch.float32,
                                        device=self.device)
                     for k, v in p.items()} for p in params]
+        # the served dtype of the stack's input and weights (int8: f32
+        # payloads, quantized inside QuantVikinStack)
+        self.dtype = torch.bfloat16 if precision == "bf16" else torch.float32
         self.stack: torch.nn.Module
         if precision == "int8":
             assert scales is not None            # checked above
@@ -176,7 +180,9 @@ class VikinBackend(ModelBackend):
                 model, quantize_stack_params(tensors, model, scales), scales,
                 self.masks)
         else:
-            self.stack = VikinStack(model, tensors, self.masks)
+            self.stack = VikinStack(
+                model, [{k: v.to(self.dtype) for k, v in p.items()}
+                        for p in tensors], self.masks)
         self.stack.eval()
         self._report_cache: Dict[Tuple[int, Optional[ExecMode]],
                                  Dict[str, float]] = {}
@@ -219,10 +225,13 @@ class VikinBackend(ModelBackend):
                               np.float32))
 
     def forward(self, xb: np.ndarray) -> np.ndarray:
-        """The batched stack forward on one (bucket, n_in) host batch."""
+        """The batched stack forward on one (bucket, n_in) host batch; at
+        bf16 the batch is rounded to bf16 and the answer widened to f32, on
+        the host (half the bytes each way)."""
         with torch.inference_mode():
-            y = self.stack(torch.from_numpy(xb).to(self.device))
-            return y.cpu().numpy()
+            x = torch.from_numpy(xb).to(self.dtype)
+            y = self.stack(x.to(self.device))
+            return y.cpu().to(torch.float32).numpy()
 
     def step(self, inputs: np.ndarray,
              slot_req: Sequence[Optional[Request]]) -> np.ndarray:

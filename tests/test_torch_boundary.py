@@ -64,13 +64,17 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     assert _build.library_path("k") == before
     hdr.write_text("#pragma once\nconstexpr int A = 2;\n")
     assert _build.library_path("k") != before
-    # the three KAN kernels share one body; the spline basis only spu()
-    for name in ("kan_fused_v2", "kan_fused_v2_q8", "kan_fused_v1"):
+    # the five KAN kernels share one body; the two spline-basis kernels
+    # share theirs, and only spu() with the KAN kernels
+    for name in ("kan_fused_v2", "kan_fused_v2_q8", "kan_fused_v1",
+                 "kan_fused_v2_bf16", "kan_fused_v1_bf16"):
         files = _build.source_files(_build.KERNELS[name][0])
         assert [f.name for f in files[1:]] == [
             "kan_split.cuh", "staging.cuh", "kan_fused.cuh"], name
-    files = _build.source_files(_build.KERNELS["spline_basis"][0])
-    assert [f.name for f in files[1:]] == ["kan_fused.cuh"]
+    for name in ("spline_basis", "spline_basis_bf16"):
+        files = _build.source_files(_build.KERNELS[name][0])
+        assert [f.name for f in files[1:]] == ["spline_basis.cuh",
+                                               "kan_fused.cuh"], name
 
 
 def test_imports_need_no_gpu_or_nvcc(tmp_path):

@@ -471,15 +471,39 @@ def test_spline_basis_kernel_bitwise(cuda, G, K):
                            40, 100, spec.n_bases))
 
 
-def test_spline_basis_kernel_refuses_bf16_and_bad_block_n(cuda):
+def test_no_kernel_instance_spills(cuda):
+    """ptxas compiles every instance of the ten kernels with no register
+    spill (chip_smoke.py phase 1 holds the same)."""
+    usage = _build.resource_usage()
+    assert sorted(usage) == sorted(_build.KERNELS)
+    for name, entries in usage.items():
+        assert entries, name
+        for e in entries:
+            assert e["spill_stores"] == 0 and e["spill_loads"] == 0, \
+                (name, e)
+
+
+def test_spline_basis_kernel_takes_bf16_and_refuses_f16_and_bad_block_n(cuda):
+    """The spline-basis kernels take f32 and bf16 (the bf16 one bitwise
+    its plain version, into a bf16 output) and refuse f16 and a block_n
+    they do not take, before any launch."""
     spec = SplineSpec(4, 3)
-    x = torch.linspace(-1, 1, 64, device=cuda)
-    with pytest.raises(TypeError, match="ROADMAP queue 2 item 3"):
-        spline_basis(x.bfloat16(), spec)
+    x = torch.linspace(-1.5, 1.5, 64, device=cuda)
     before = dict(_build.LAUNCHES)
+    got = spline_basis(x.bfloat16(), spec)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, spline_basis_plain(x.bfloat16(), spec))
+    assert _build.LAUNCHES["spline_basis_bf16"] == \
+        before["spline_basis_bf16"] + 1
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        spline_basis(x.half(), spec)
     for bn in (0, 48, 8192):
         with pytest.raises(ValueError, match="block_n"):
             spline_basis(x, spec, block_n=bn)
+        with pytest.raises(ValueError, match="block_n"):
+            spline_basis(x.bfloat16(), spec, block_n=bn)
     with pytest.raises(ValueError, match="shared memory"):
         spline_basis(x, SplineSpec(16, 4), block_n=4096)
     assert dict(_build.LAUNCHES) == before
@@ -947,3 +971,246 @@ def test_multi_workload_backend_input_dim_and_warmup_on_the_card(cuda):
     for rid, r in engines["cpu"]._requests.items():
         got = engines["cuda"]._requests[rid].output
         _close(torch.from_numpy(got), torch.from_numpy(r.output), tol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# bf16: the four bf16 kernels against their plain versions.  KAN at f32 out
+# within TOL * (1 + max|plain|), at bf16 out and the matmul within one bf16
+# ulp, 2**-8 * (1 + max|plain|) (the f32 totals differ in summation order
+# and may round to neighbouring bf16 values); the spline basis bitwise.
+# Every knob gives bitwise the default's output and a row does not depend
+# on its batch.
+# ---------------------------------------------------------------------------
+
+BF16_ULP = 2.0 ** -8
+BF = torch.bfloat16
+
+
+def _bf16_kan_case(dev, seed, B, n_in, n_out, nbk):
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn((B, n_in), generator=gen) * 1.5).to(dev, BF)
+    wt = (torch.randn((n_in * (nbk + 1), n_out), generator=gen)
+          * 0.1).to(dev, BF)
+    w3 = wt.reshape(n_in, nbk + 1, n_out)
+    return (x, wt, w3[:, 0].contiguous(),
+            w3[:, 1:].reshape(n_in * nbk, n_out).contiguous())
+
+
+def _check_kan_bf16(x, wt, w_b, t_flat, spec, kb, blocks=None):
+    """v2 and v1 at f32 and bf16 out against their plain versions; the
+    bf16 output is the f32 one rounded once.  Returns (v2, v1) at bf16
+    out."""
+    outs = []
+    for version in (2, 1):
+        if version == 2:
+            run = lambda od: kan_fused_v2(x, wt, spec, kb, blocks=blocks,
+                                          out_dtype=od)
+            ref = lambda od: kan_fused_v2_ref(x, wt, spec, kb, od)
+        else:
+            run = lambda od: kan_fused_v1(x, w_b, t_flat, spec, kb,
+                                          blocks=blocks, out_dtype=od)
+            ref = lambda od: kan_fused_v1_ref(x, w_b, t_flat, spec, kb, od)
+        got32, got = run(torch.float32), run(None)
+        torch.cuda.synchronize()
+        assert got32.dtype == torch.float32 and got.dtype == BF
+        _close(got32, ref(torch.float32))
+        _close(got.float(), ref(None).float(), BF16_ULP)
+        assert torch.equal(got, got32.to(BF))
+        outs.append(got)
+    return outs
+
+
+@pytest.mark.parametrize("G,K,rate", [(4, 3, 0.5), (16, 4, 0.0),
+                                      (2, 1, 0.75)])
+@pytest.mark.parametrize("B,n_in,n_out", [(1, 72, 96), (33, 45, 13),
+                                          (300, 304, 32), (77, 37, 13),
+                                          (8, 301, 33)])
+def test_bf16_kan_kernels_match_plain(cuda, G, K, rate, B, n_in, n_out):
+    """Odd n_in and n_out stage their rows an element at a time."""
+    spec = SplineSpec(G, K)
+    kb = tuple(int(i) for i in tiled_mask(
+        spec.n_bases, sparsity_to_pattern(rate)).indices())
+    x, wt, w_b, t_flat = _bf16_kan_case(cuda, G * 10 + K, B, n_in, n_out,
+                                        len(kb))
+    before = dict(_build.LAUNCHES)
+    _check_kan_bf16(x, wt, w_b, t_flat, spec, kb)
+    assert _build.LAUNCHES["kan_fused_v2_bf16"] == \
+        before["kan_fused_v2_bf16"] + 2
+    assert _build.LAUNCHES["kan_fused_v1_bf16"] == \
+        before["kan_fused_v1_bf16"] + 2
+    assert _build.LAUNCHES["kan_fused_v2"] == before["kan_fused_v2"]
+
+
+@pytest.mark.parametrize("B", [8, 8192])
+@pytest.mark.parametrize("n_in,n_out", VIKIN_KANS)
+def test_bf16_every_kan_knob_gives_the_default_output_bitwise(cuda, B, n_in,
+                                                              n_out):
+    spec, kb = SplineSpec(4, 3), (0, 2, 4, 5, 6)
+    x, wt, w_b, t_flat = _bf16_kan_case(cuda, B + n_in, B, n_in, n_out, 5)
+    v2, v1 = _check_kan_bf16(x, wt, w_b, t_flat, spec, kb)
+    for version, ref in ((2, v2), (1, v1)):
+        for c in autotune.candidates_kan_fused(B, n_in, n_out, 5, BF,
+                                               version):
+            if version == 2:
+                got = kan_fused_v2(x, wt, spec, kb, blocks=_kan_knob(c))
+            else:
+                got = kan_fused_v1(x, w_b, t_flat, spec, kb,
+                                   blocks=_kan_knob(c))
+            assert torch.equal(got, ref), (version, c)
+
+
+def test_bf16_kan_batched_equals_single(cuda):
+    """At every bucket and at B=8192, each row alone (under another knob)
+    is bitwise the row in the batch, both versions."""
+    spec, kb = SplineSpec(4, 3), (0, 2, 4, 5, 6)
+    x, wt, w_b, t_flat = _bf16_kan_case(cuda, 5, 8192, 304, 32, 5)
+    for B in (2, 4, 8, 16, 8192):
+        full2 = kan_fused_v2(x[:B], wt, spec, kb, blocks=(16, 512, 32))
+        full1 = kan_fused_v1(x[:B], w_b, t_flat, spec, kb,
+                             blocks=(16, 512, 32))
+        for i in (0, B // 2, B - 1):
+            xi = x[i:i + 1].contiguous()
+            assert torch.equal(kan_fused_v2(xi, wt, spec, kb,
+                                            blocks=(8, 32, 8)),
+                               full2[i:i + 1]), (B, i)
+            assert torch.equal(kan_fused_v1(xi, w_b, t_flat, spec, kb,
+                                            blocks=(8, 64, 16)),
+                               full1[i:i + 1]), (B, i)
+
+
+@pytest.mark.parametrize("act", [None, "relu", "gelu", "silu"])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("M,K,N", [(2, 72, 304), (8, 228, 96), (17, 16, 96),
+                                   (130, 152, 65), (999, 147, 301),
+                                   (5, 0, 8), (8192, 72, 304)])
+def test_bf16_matmul_kernel_matches_plain(cuda, act, bias, M, K, N):
+    """Odd K and N stage and store an element at a time."""
+    gen = torch.Generator().manual_seed(M * 1000 + K + N)
+    x = torch.randn((M, K), generator=gen).to(cuda, BF)
+    w = (torch.randn((K, N), generator=gen) * 0.1).to(cuda, BF)
+    b = torch.randn((N,), generator=gen).to(cuda, BF) if bias else None
+    before = dict(_build.LAUNCHES)
+    got = matmul_compact(x, w, b, act)
+    got32 = matmul_compact(x, w, b, act, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == BF and got32.dtype == torch.float32
+    _close(got.float(), matmul_compact_ref(x, w, b, act).float(), BF16_ULP)
+    _close(got32, matmul_compact_ref(x, w, b, act, torch.float32))
+    assert torch.equal(got, got32.to(BF))
+    assert _build.LAUNCHES["pattern_matmul_bf16"] == \
+        before["pattern_matmul_bf16"] + 2
+    assert _build.LAUNCHES["pattern_matmul"] == before["pattern_matmul"]
+
+
+@pytest.mark.parametrize("M", [8, 8192])
+@pytest.mark.parametrize("Kc,N,act", VIKIN_MATMULS)
+def test_bf16_every_matmul_tile_gives_the_default_output_bitwise(
+        cuda, M, Kc, N, act):
+    gen = torch.Generator().manual_seed(M + Kc + N)
+    x = torch.rand((M, Kc), generator=gen).to(cuda, BF)
+    w = (torch.randn((Kc, N), generator=gen) * 0.1).to(cuda, BF)
+    b = torch.randn((N,), generator=gen).to(cuda, BF)
+    ref = matmul_compact(x, w, b, act)
+    for c in autotune.candidates_pattern_matmul(M, Kc, N, BF):
+        assert torch.equal(matmul_compact(x, w, b, act, blocks=_knob(c)),
+                           ref), c
+
+
+def test_bf16_matmul_batched_equals_single(cuda):
+    gen = torch.Generator().manual_seed(3)
+    for Kc, N, act in VIKIN_MATMULS:
+        x = torch.rand((8192, Kc), generator=gen).to(cuda, BF)
+        w = (torch.randn((Kc, N), generator=gen) * 0.1).to(cuda, BF)
+        b = torch.randn((N,), generator=gen).to(cuda, BF)
+        for B in (2, 4, 8, 16, 8192):
+            full = matmul_compact(x[:B], w, b, act, blocks=(128, 64, 64))
+            for i in (0, B // 2, B - 1):
+                one = matmul_compact(x[i:i + 1].contiguous(), w, b, act,
+                                     blocks=(16, 16, 8))
+                assert torch.equal(one, full[i:i + 1]), (Kc, B, i)
+
+
+@pytest.mark.parametrize("G", VALID_G)
+@pytest.mark.parametrize("K", VALID_K)
+def test_bf16_spline_basis_kernel_bitwise(cuda, G, K):
+    """In range and past both ends, ragged n, every block_n candidate."""
+    spec = SplineSpec(G, K)
+    rng = np.random.default_rng(G * 10 + K)
+    for n in (1, 7, 1025, 4096):
+        x = torch.from_numpy(rng.uniform(-2.5, 2.5, n).astype(
+            np.float32)).to(cuda, BF)
+        plain = spline_basis_plain(x, spec)
+        for cand in autotune.candidates_spline_basis(n, spec.n_bases, BF) + [
+                {"block_n": 32}, {"block_n": 128}]:
+            got = spline_basis(x, spec, block_n=cand["block_n"])
+            torch.cuda.synchronize()
+            assert got.dtype == BF and torch.equal(got, plain), (n, cand)
+
+
+@pytest.mark.parametrize("G,K", [(4, 3), (16, 4)])
+def test_bf16_spline_basis_misaligned_output_bitwise(cuda, G, K):
+    """Outputs 2..14 bytes past a 16-byte boundary, guard elements on both
+    sides untouched."""
+    spec = SplineSpec(G, K)
+    nb = spec.n_bases
+    x = torch.from_numpy(np.random.default_rng(G).uniform(
+        -2.5, 2.5, 1025).astype(np.float32)).to(cuda, BF)
+    plain = spline_basis_plain(x, spec)
+    n = x.numel()
+    for off in range(1, 8):
+        buf = torch.full((n * nb + 16,), -7.0, device=cuda, dtype=BF)
+        _build.launch("spline_basis_bf16", x.data_ptr(),
+                      buf[off:].data_ptr(), n, G, K, float(spec.x0),
+                      float(spec.inv_h), 256,
+                      torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert torch.equal(buf[off:off + n * nb].reshape(n, nb), plain), off
+        assert bool((buf[:off] == -7.0).all())
+        assert bool((buf[off + n * nb:] == -7.0).all())
+
+
+SERVE_TOL_BF16 = 2.0 ** -8
+
+
+@pytest.mark.parametrize("arch", ["vikin-mixed", "vikin-mlp3", "vikin-kan2"])
+def test_bf16_backend_on_cuda_serves_through_bf16_kernels(cuda, arch):
+    """A served burst at bf16: answers within one bf16 ulp a layer of the
+    stack through the plain versions on the card, only bf16 kernels
+    launched, batched == single bitwise."""
+    model = VIKIN_ARCHS[arch]
+    params = vikin_stack_init(model, torch.Generator().manual_seed(0))
+    be = VikinBackend(model, params, device=cuda, precision="bf16")
+    cpu = VikinBackend(model, params, device="cpu", precision="bf16")
+    rng = np.random.default_rng(2)
+    xs = [rng.random(model.sizes[0], dtype=np.float32) for _ in range(11)]
+    before = dict(_build.LAUNCHES)
+    eng = Engine(be, n_slots=4)
+    rids = [eng.submit(x) for x in xs]
+    out = eng.run_until_done()
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    kinds = model.layer_kinds
+    ticks = int(eng.stats["ticks"])
+    want = {k: 0 for k in launched}
+    want["kan_fused_v2_bf16"] = ticks * kinds.count("kan")
+    want["pattern_matmul_bf16"] = ticks * kinds.count("mlp")
+    assert launched == want
+    h = torch.from_numpy(np.stack(xs)).to(cuda, BF)
+    with torch.inference_mode():
+        for layer in be.stack.layers:
+            if hasattr(layer, "wt"):
+                h = kan_fused_v2_ref(h, layer.wt, layer.cfg.spec, layer.kb)
+            else:
+                xc = h if layer.idx is None else h.index_select(1, layer.idx)
+                h = matmul_compact_ref(xc.contiguous(), layer.w_c, layer.b,
+                                       layer.act)
+    served = torch.from_numpy(np.stack([out[r] for r in rids]))
+    _close(served, h.float().cpu(), SERVE_TOL_BF16 * len(kinds))
+    _close(served, torch.from_numpy(cpu.forward(np.stack(xs))),
+           SERVE_TOL_BF16 * len(kinds))
+    solo = Engine(VikinBackend(model, params, device=cuda,
+                               precision="bf16"), n_slots=4)
+    for x, rid in zip(xs[:4], rids):
+        srid = solo.submit(x)
+        assert np.array_equal(solo.run_until_done()[srid], out[rid])
+    assert eng.stats["sim_cycles"] > 0

@@ -1,7 +1,7 @@
 """The port's kernel bench on the CPU: it passes its own asserts (the
-plain versions against each other and the oracles, the tuning round
-trip) and writes its JSON where it is told; nothing is timed off the
-card."""
+plain versions against each other and the oracles, in f32 and in bf16,
+the tuning round trip) and writes its JSON where it is told; nothing is
+timed off the card."""
 import json
 import os
 import subprocess
@@ -26,21 +26,41 @@ def test_run_on_cpu_writes_its_json(tmp_path):
     res = kernel_bench.run("cpu", out)
     assert json.loads(out.read_text()) == json.loads(json.dumps(res))
     assert res["device"] == "cpu"
-    assert set(res["spline_basis"]) == {"G4K3", "G16K3", "G8K2"}
-    assert set(res["kan_fused"]) == {"72x96_float32", "72x96_p50_float32",
-                                     "128x128_p75_float32"}
+    # the bf16 rows of the JAX bench (``kan_fused.*_bfloat16``) and of the
+    # spline basis beside the f32 ones; no "not run" placeholder
+    assert set(res["spline_basis"]) == {
+        f"{gk}{d}" for gk in ("G4K3", "G16K3", "G8K2")
+        for d in ("", "_bfloat16")}
+    assert set(res["kan_fused"]) == {
+        f"{shape}_{d}" for shape in ("72x96", "72x96_p50", "128x128_p75")
+        for d in ("float32", "bfloat16")}
     assert set(res["pattern_matmul"]) == {"rate0.0", "rate0.5", "rate0.75"}
-    assert "ROADMAP queue 2 item 3" in res["bf16"]
+    assert "bf16" not in res
     for name, r in res["spline_basis"].items():
-        g, k = int(name[1:name.index("K")]), int(name[name.index("K") + 1:])
+        gk, _, dtype = name.partition("_")
+        g, k = int(gk[1:gk.index("K")]), int(gk[gk.index("K") + 1:])
+        size = 2 if dtype == "bfloat16" else 4
         assert r["bitwise_plain"] and r["ms"] is None
         assert r["spu_ops_per_input"] == jax_spu_ops(JSpec(g, k))
         assert r["dense_ops_per_input"] == jax_dense_ops(JSpec(g, k))
-        assert r["bytes_out"] == 4096 * (g + k) * 4
-    for r in res["kan_fused"].values():
+        assert r["bytes_in"] == 4096 * size
+        assert r["bytes_out"] == 4096 * (g + k) * size
+        # the bench's bars against the dense f32 oracle
+        assert r["max_err"] < (2e-2 if size == 2 else 1e-4)
+    for name, r in res["kan_fused"].items():
         assert r["ms_v1"] is None and r["ms_v2"] is None
         assert r["bytes_weights_v1"] == r["bytes_weights_v2"]
         assert r["max_err_v1_v2"] <= 1e-4
+        # the JAX bench's bars: the f32 accumulator within 1e-4 of the
+        # plain version, within 5e-2 of the dense f32 oracle at bf16
+        assert r["max_err_v2"] <= 1e-4 and r["max_err_v1"] <= 1e-4
+        assert r["max_err_dense_ref"] <= (
+            5e-2 if name.endswith("bfloat16") else 1e-4)
+    for shape in ("72x96", "72x96_p50", "128x128_p75"):
+        f32, bf16 = (res["kan_fused"][f"{shape}_{d}"]
+                     for d in ("float32", "bfloat16"))
+        assert bf16["bytes_weights_v2"] * 2 == f32["bytes_weights_v2"]
+        assert bf16["contraction_kept"] == f32["contraction_kept"]
     # (1,0,0,0) on 7 bases keeps basis 0 and the partial trailing group
     assert res["kan_fused"]["128x128_p75_float32"]["contraction_kept"] \
         == 128 * 4

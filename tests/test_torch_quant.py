@@ -498,8 +498,12 @@ def test_backend_precision_errors():
     model = VIKIN_ARCHS["vikin-small"]
     with pytest.raises(ValueError, match="requires calibrated scales"):
         tback.VikinBackend(model, tparams, device="cpu", precision="int8")
-    with pytest.raises(ValueError, match="ROADMAP item 7"):
-        tback.VikinBackend(model, tparams, device="cpu", precision="bf16")
+    # bf16 constructs (no scales needed) and serves f32 answers
+    bf16 = tback.VikinBackend(model, tparams, device="cpu",
+                              precision="bf16")
+    y = bf16.forward(np.full((2, model.sizes[0]), 0.5, np.float32))
+    assert y.dtype == np.float32 and y.shape == (2, model.sizes[-1])
+    assert np.isfinite(y).all()
     with pytest.raises(ValueError, match="unknown precision"):
         tback.VikinBackend(model, tparams, device="cpu", precision="fp4")
     bad = tq.StackScales(tuple(reversed(ts.scales)))
