@@ -37,13 +37,14 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    its own grid (``candidates_kan_fused(..., version=1)``).
    bf16: the four bf16 kernels against their plain versions on the card
    at the bf16 stacks' shapes (buckets 2/4/8/16 and 8192), at ragged
-   shapes (odd n_in and n_out: 77x37->13, 77x301->33, 999x147->301) and
-   at every candidate knob: KAN v2 and v1 within ``1e-5 * (1 +
-   max|plain|)`` at f32 out and one bf16 ulp (``2**-8 * (1 +
-   max|plain|)``) at bf16 out, the matmul within one bf16 ulp (f32 out
-   within 1e-5), the spline basis bitwise (every G x K, in and out of
-   range, every ``block_n``, outputs 2..14 bytes past a 16-byte
-   boundary); every knob bitwise the default's; batched == single
+   shapes (odd n_in and n_out: 77x37->13, 77x301->33, 999x147->301; the
+   tensor-core KAN body at 21 fused rows a feature, G16K4 77x37->33, and
+   at the silu row alone, nbk = 0) and at every candidate knob: KAN v2
+   and v1 within ``1e-5 * (1 + max|plain|)`` at f32 out and one bf16 ulp
+   (``2**-8 * (1 + max|plain|)``) at bf16 out, the matmul within one
+   bf16 ulp (f32 out within 1e-5), the spline basis bitwise (every G x
+   K, in and out of range, every ``block_n``, outputs 2..14 bytes past a
+   16-byte boundary); every knob bitwise the default's; batched == single
    bitwise at buckets 2/4/8/16 and 8192;
 3. serve -- 48 requests of vikin-kan2, vikin-mlp3 and vikin-mixed through
    the port's Engine + MultiWorkloadBackend on 8 slots, once in f32 and
@@ -70,7 +71,11 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    kernel on the vikin-mixed KAN layer's input, flattened, and the v1
    KAN kernel at that layer beside the v2 one; each matmul record names
    the tiles (bm, bk, bn) each launch took, each KAN record (v1 too) the
-   knob (bm, bi, bn), the spline-basis record its ``block_n``; then, per
+   knob (bm, bi, bn), the spline-basis record its ``block_n``, and the
+   bf16 records their kernels' design (``design``): the matmul's
+   persistent grid and the row tiles a block walks, the KAN kernel's
+   shared memory a block, its cluster and the multiply-adds its dense
+   MMA tile issues beside the useful ones the bound counts; then, per
    arch at bucket
    8 and per precision, where one served batch's time goes (host wall of
    a backend forward, the stack on the card, the kernels alone); the same
@@ -196,12 +201,17 @@ KERNEL_INFO = {
     },
     "kan_fused_v2_bf16": {
         "source": "src/repro_torch/kernels/kan_fused/csrc/kan_fused_bf16.cu",
-        "headers": ["src/repro_torch/kernels/kan_fused/csrc/kan_split.cuh"],
+        "headers": ["src/repro_torch/kernels/kan_fused/csrc/kan_mma.cuh",
+                    "src/repro_torch/kernels/kan_fused/csrc/kan_split.cuh",
+                    "src/repro_torch/kernels/pattern_matmul/csrc/"
+                    "mma_bf16.cuh"],
         "replaces": "src/repro/kernels/kan_fused/kan_fused.py:284",
     },
     "pattern_matmul_bf16": {
         "source": ("src/repro_torch/kernels/pattern_matmul/csrc/"
                    "pattern_matmul_bf16.cu"),
+        "headers": ["src/repro_torch/kernels/pattern_matmul/csrc/"
+                    "mma_bf16.cuh"],
         "replaces": "src/repro/kernels/pattern_matmul/pattern_matmul.py:119",
     },
     "spline_basis_bf16": {
@@ -254,38 +264,6 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple:
     return err, scale, nan
 
 
-def time_ms(fn, iters: int = 100, reps: int = 7) -> float:
-    """Median over ``reps`` of the mean per-call time of ``iters``
-    back-to-back calls, by CUDA events, after warm-up."""
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
-
-
-def graph_ms(fn, iters: int = 20, reps: int = 7) -> float:
-    """Per-call device time of ``fn``: ``iters`` calls captured in one
-    CUDA graph, its replays timed as ``time_ms`` does.  The host's launch
-    overhead, which paces back-to-back calls of a small kernel, drops
-    out.  ``fn`` must have run eagerly before (lazy set-up)."""
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    return time_ms(graph.replay, iters=5, reps=reps) / iters
-
-
 def host_ms(fn, iters: int = 50, reps: int = 7) -> float:
     """Median over ``reps`` of the mean host wall time of ``iters`` calls
     of ``fn``, which must end in a synchronising copy to the host."""
@@ -316,6 +294,13 @@ def main() -> int:
         loadgen_bench,
         serving_bench,
     )
+    from repro_torch.benchmarks.kernel_ab import (
+        graph_ms,
+        layer_calls,
+        q8_layer_calls,
+        stack_calls,
+        time_ms,
+    )
     from repro_torch.configs.vikin_models import VIKIN_ARCHS
     from repro_torch.core.kan import KANLayer
     from repro_torch.core.quant import (
@@ -331,13 +316,14 @@ def main() -> int:
         spu_op_count,
     )
     from repro_torch.kernels import _build, autotune
-    from repro_torch.kernels.epilogue import scale_bias_act
     from repro_torch.kernels.kan_fused.ops import (
         flatten_t,
         kan_fused_v1,
         kan_fused_v2,
         kan_fused_v2_q8,
+        kernel_smem,
         slot_table,
+        split,
     )
     from repro_torch.kernels.kan_fused.ops import (
         resolve_blocks as kan_blocks,
@@ -348,6 +334,7 @@ def main() -> int:
         kan_fused_v2_ref,
     )
     from repro_torch.kernels.pattern_matmul.ops import (
+        bf16_grid,
         matmul_compact,
         matmul_q8,
         resolve_blocks,
@@ -445,28 +432,6 @@ def main() -> int:
               f"output is not the f32 output rounded once")
         return got
 
-    def layer_calls(layer, x: torch.Tensor):
-        """(kernel name, kernel input, kernel call, plain call) of one f32
-        or bf16 stack layer on its input ``x``, the kernel the one for x's
-        dtype; both calls take an output dtype (None: x's).  An MLP
-        layer's mask gather is done here, once, as ``PatternLinear.forward``
-        does it."""
-        sfx = SUFFIX[x.dtype]
-        if isinstance(layer, KANLayer):
-            spec = layer.cfg.spec
-            return ("kan_fused_v2" + sfx, x,
-                    lambda od=None: kan_fused_v2(x, layer.wt, spec, layer.kb,
-                                                 layer.slot_of, out_dtype=od),
-                    lambda od=None: kan_fused_v2_ref(x, layer.wt, spec,
-                                                     layer.kb, od))
-        xc = (x if layer.idx is None
-              else x.index_select(1, layer.idx)).contiguous()
-        return ("pattern_matmul" + sfx, xc,
-                lambda od=None: matmul_compact(xc, layer.w_c, layer.b,
-                                               layer.act, out_dtype=od),
-                lambda od=None: matmul_compact_ref(xc, layer.w_c, layer.b,
-                                                   layer.act, od))
-
     def check_stack(stack, x: torch.Tensor, what: str) -> None:
         for i, layer in enumerate(stack.layers):
             name, _, kernel, plain = layer_calls(layer, x)
@@ -524,29 +489,6 @@ def main() -> int:
     # int8: the stacks the launcher serves at --precision int8 (scales
     # calibrated on the CPU from the seed-0 batch), so the kernels see
     # the codes real quantization gives
-    def q8_layer_calls(layer, h_q: torch.Tensor):
-        """(kernel name, kernel input, kernel call, plain call, finish) of
-        one int8 stack layer on its int8 input; ``finish`` turns the
-        kernel's output into the layer's (the int8 matmul's epilogue)."""
-        if isinstance(layer, QuantKANLayer):
-            spec = layer.cfg.spec
-            return ("kan_fused_v2_q8", h_q,
-                    lambda: kan_fused_v2_q8(h_q, layer.wt_q,
-                                            layer.slot_scales, spec,
-                                            layer.kb, layer.x_scale,
-                                            layer.slot_of),
-                    lambda: kan_fused_v2_q8_ref(h_q, layer.wt_q,
-                                                layer.slot_scales, spec,
-                                                layer.kb, layer.x_scale),
-                    lambda y: y)
-        xc = (h_q if layer.idx is None
-              else h_q.index_select(1, layer.idx)).contiguous()
-        return ("pattern_matmul_q8", xc,
-                lambda: matmul_q8(xc, layer.w_q_c),
-                lambda: matmul_q8_ref(xc, layer.w_q_c),
-                lambda acc: scale_bias_act(acc, layer.col_scale, layer.b,
-                                           layer.act))
-
     def q8_chain(stack, x: torch.Tensor, use: int, feed=None):
         """The int8 stack layer by layer through the kernels (``use=2``)
         or the plain versions (``use=3``): (output, each hidden layer's
@@ -933,6 +875,30 @@ def main() -> int:
                 check(torch.equal(got, ref), f"{k} {what}: knob {knob} != "
                       f"the default knob, bitwise")
                 knob_checks[k] = knob_checks.get(k, 0) + 1
+    # the tensor-core KAN body's edges: 21 fused rows a feature (G=16,
+    # K=4, every basis kept) and the silu row alone (nbk = 0: a chunk is
+    # two k16 steps), every knob bitwise the default's
+    for (g_e, k_e), kb_e, (rb, n_in, n_out) in (
+            ((16, 4), tuple(range(20)), (77, 37, 33)),
+            ((4, 3), (), (33, 304, 32))):
+        spec_e = SplineSpec(g_e, k_e)
+        xr = (torch.randn((rb, n_in), generator=gen_bf) * 1.5).to(dev, BF)
+        wr = (torch.randn((n_in * (len(kb_e) + 1), n_out), generator=gen_bf)
+              * 0.05).to(dev, BF)
+        what = f"ragged {rb}x{n_in}->{n_out} G{g_e}K{k_e} nbk={len(kb_e)}"
+        ref = compare_calls(
+            "kan_fused_v2_bf16",
+            lambda od=None: kan_fused_v2(xr, wr, spec_e, kb_e, out_dtype=od),
+            lambda od=None: kan_fused_v2_ref(xr, wr, spec_e, kb_e, od), what)
+        for c in autotune.candidates_kan_fused(rb, n_in, n_out, len(kb_e),
+                                               BF):
+            knob = (c["bm"], c["bi"], c["bn"])
+            check(torch.equal(kan_fused_v2(xr, wr, spec_e, kb_e,
+                                           blocks=knob), ref),
+                  f"kan_fused_v2_bf16 {what}: knob {knob} != the default "
+                  f"knob, bitwise")
+            knob_checks["kan_fused_v2_bf16"] = knob_checks.get(
+                "kan_fused_v2_bf16", 0) + 1
     for m, kk, n in ((999, 147, 301), (1000, 152, 304)):
         xm_bf = torch.randn((m, kk), generator=gen_bf).to(dev, BF)
         wm_bf = (torch.randn((kk, n), generator=gen_bf) * 0.1).to(dev, BF)
@@ -982,7 +948,8 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"phase 2 bf16: every candidate knob of the bf16 kernels bitwise "
           f"the default's at the served layers (B=8 and {BIG}) and, for "
-          f"KAN, at ragged 77x37->13 and 77x301->33: "
+          f"KAN, at ragged 77x37->13 and 77x301->33, G16K4 nbk=20 "
+          f"77x37->33 and nbk=0 33x304->32: "
           f"{ {k: v for k, v in knob_checks.items() if k.endswith('bf16')} }"
           f"; batched == single, bitwise, at batches {BUCKETS + (BIG,)}: "
           f"{n_single} rows")
@@ -1159,11 +1126,12 @@ def main() -> int:
     # computes a KAN layer or a spline basis.
     records = {}
     n_kan, n_mlp = (mixed.layer_kinds.count(kind) for kind in ("kan", "mlp"))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def new_acc() -> dict:
         return {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0,
                 "library_ms": 0.0, "library_graph_ms": 0.0, "bytes": 0.0,
-                "work": [], "shapes": [], "blocks": []}
+                "work": [], "shapes": [], "blocks": [], "design": []}
 
     def time_into(a: dict, kernel, plain, library=None) -> None:
         a["ms"] += time_ms(kernel)
@@ -1211,6 +1179,8 @@ def main() -> int:
             rec["launches_per_batch"] = per_batch
         if a["blocks"]:
             rec["blocks"] = a["blocks"]
+        if a["design"]:
+            rec["design"] = a["design"]
         records[(k, batch)] = rec
         print(json.dumps(rec))
         return rec
@@ -1236,9 +1206,24 @@ def main() -> int:
                                    + 4.0 * layer.slot_of.numel())
                     a["shapes"].append(f"{batch}x{n_in}->{n_out} "
                                        f"kb={list(layer.kb)} {precision}")
-                    a["blocks"].append(kan_blocks(batch, n_in, n_out,
-                                                  len(layer.kb), dtype,
-                                                  device=dev))
+                    knob = kan_blocks(batch, n_in, n_out, len(layer.kb),
+                                      dtype, device=dev)
+                    a["blocks"].append(knob)
+                    if precision == "bf16":
+                        # the tensor-core body's shared memory a block, and
+                        # the multiply-adds its dense A tile issues (padded
+                        # rows and columns too) beside the useful ones
+                        nbk1 = len(layer.kb) + 1
+                        outs = (-(-batch // knob["bm"]) * max(16, knob["bm"])
+                                * -(-n_out // knob["bn"]) * knob["bn"])
+                        a["design"].append({
+                            "smem_bytes": kernel_smem(
+                                knob["bm"], knob["bi"], knob["bn"], n_in,
+                                len(layer.kb), dtype),
+                            "cluster": split(n_in, knob["bi"])[2],
+                            "mma_flops": 2.0 * outs * split(n_in, 32)[0]
+                            * 32 * nbk1,
+                            "useful_flops": a["work"][-2][0]})
                 else:
                     kc, n = layer.w_c.shape
 
@@ -1252,8 +1237,19 @@ def main() -> int:
                                          + batch * n)
                     a["shapes"].append(f"{batch}x{kc}->{n} act={layer.act} "
                                        f"{precision}")
-                    a["blocks"].append(resolve_blocks(batch, kc, n, dtype,
-                                                      device=dev))
+                    tiles = resolve_blocks(batch, kc, n, dtype, device=dev)
+                    a["blocks"].append(tiles)
+                    if precision == "bf16":
+                        # the grid, the row tiles a block walks, and
+                        # which kernel: one row tile runs the first
+                        # design's, more the persistent one
+                        grid = bf16_grid(batch, kc, n, tiles, sms)
+                        row_tiles = -(-batch // tiles["bm"])
+                        a["design"].append({
+                            "kernel": ("one tile" if row_tiles == 1
+                                       else "persistent"),
+                            "grid": list(grid),
+                            "row_tiles_a_block": -(-row_tiles // grid[0])})
                 x = kernel()
             torch.cuda.synchronize()
             record(kan_k, precision, batch, acc[kan_k], n_kan)
@@ -1367,25 +1363,6 @@ def main() -> int:
     # replayed from a CUDA graph, i.e. device time alone.  1 -
     # stack_graph_ms / forward_ms is the share of a served forward the
     # device sits idle.
-    def stack_kernels(precision: str, stack, x: torch.Tensor) -> list:
-        """The kernel calls of one forward of ``stack`` on ``x``, each on
-        its layer's input."""
-        calls = []
-        if precision == "int8":
-            h = quantize_static(x, stack.x_scales[0])
-            for i, layer in enumerate(stack.layers):
-                kernel, finish = q8_layer_calls(layer, h)[2::2]
-                calls.append(kernel)
-                if i + 1 < len(stack.layers):
-                    h = quantize_static(finish(kernel()),
-                                        stack.x_scales[i + 1])
-            return calls
-        for layer in stack.layers:
-            kernel = layer_calls(layer, x)[2]
-            calls.append(kernel)
-            x = kernel()
-        return calls
-
     breakdown = []
     for precision, bes in (("f32", backends), ("int8", q8_backends),
                            ("bf16", bf_backends)):
@@ -1394,7 +1371,8 @@ def main() -> int:
             xb = rng.random((8, be.n_in), dtype=np.float32)
             x_dev = torch.from_numpy(xb).to(
                 dev, BF if precision == "bf16" else F32)
-            kernels = stack_kernels(precision, be.stack, x_dev)
+            kernels = [k for _, _, k in
+                       stack_calls(precision, be.stack, x_dev)]
             rec = {"arch": name, "precision": precision, "bucket": 8,
                    "forward_ms": host_ms(lambda: be.forward(xb)),
                    "stack_ms": time_ms(lambda: be.stack(x_dev)),

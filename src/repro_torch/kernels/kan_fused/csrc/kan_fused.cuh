@@ -13,9 +13,11 @@ namespace kan_fused {
 constexpr int KMAX = 4;                // SplineSpec.VALID_K
 
 // `v` rounded to the nearest bf16 (ties to even) and widened back: one
-// bf16 rounding of an f32 result, as torch rounds each bf16 op.
+// bf16 rounding of an f32 result, as torch rounds each bf16 op.  The
+// packed convert (F2FP) gives the scalar one's bits and issues at a
+// higher rate.
 __device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+  return __low2float(__floats2bfloat162_rn(v, 0.f));
 }
 
 // The f32 value of a bf16 bit pattern (exact).

@@ -15,25 +15,29 @@
 //
 // Each product of two bf16 values is exact in f32, so the kernel and the
 // plain version (an f32 matmul of the widened operands) differ only in
-// the order of their f32 sums: within 1e-5 * (1 + max|out|) at f32 out,
-// one bf16 ulp at bf16 out.
+// the order and the rounding of their f32 sums (the tensor cores' adds
+// need not round to nearest at each step): within 1e-5 * (1 + max|out|)
+// at f32 out, one bf16 ulp at bf16 out.
 //
-// What bounds it on an H100 (3.35 TB/s, 67 TFLOP/s f32 on CUDA cores):
-// the f32 kernel's work with half the weight bytes -- at vikin-mixed's
-// 304->32 layer, 117 KB of bf16 weights (35 ns) at B = 8, bytes bound in
-// principle and latency bound in fact; 0.75 GFLOP (11 us) at B = 8192,
-// operations bound.  The arithmetic stays on CUDA cores: the activation
-// of a (row, feature) selects K+1 of its nbk+1 weight rows, which a dense
-// bf16 tensor-core tile would multiply by zeros.
-// Design: kan_split.cuh's body with the `BF16<false>` operand policy:
-// the chunk's raw bf16 x and weight rows are staged with 8-byte cp.async
-// (4 elements; a ragged row an element at a time) and widened to f32 in
-// shared memory once a chunk, as the int8 kernel dequantizes, so the SPU
-// pass, the feature split over a cluster, the FMA pass and its fixed
-// order (chunks of 32 features, partials added in chunk order) are the
-// f32 kernel's.  Every knob gives the same bits and batched == single
-// holds bitwise.
-#include "kan_split.cuh"
+// What bounds it on an H100 (3.35 TB/s; 989 TFLOP/s for products of bf16
+// operands on tensor cores, 67 TFLOP/s f32 on CUDA cores):
+//   * serving buckets (vikin-mixed's 304->32 layer at B = 8): 117 KB of
+//     bf16 weights (35 ns), bytes bound in principle, latency bound in
+//     fact: the launch, the staged copies and the cluster combine;
+//   * B = 8192, 304->32: the multiply-adds are products of two bf16 values
+//     summed in f32 -- 0.96 GFLOP in the dense tile (1.0 us on tensor
+//     cores), which the first design ran as f32 FMAs on CUDA cores (0.097
+//     ms, 43x its bound, its shared memory and its issue rate the limit)
+//     -- and the SPU work, 1.6 us at the f32 rate: operations bound.  The
+//     SPU pass and the A-tile writes, not the multiply-adds, set the pace.
+// Design: kan_mma.cuh's tensor-core body: per chunk of 32 features the
+// raw bf16 x and weight rows are staged with cp.async (the next chunk's
+// in flight), the SPU pass writes the dense [silu | kept bases] A tile in
+// bf16, and mma.sync m16n8k16 contracts it with the staged rows; the
+// chunk partials are added in chunk order (over a thread-block cluster
+// where bi < n_in), so every knob gives the same bits and batched ==
+// single holds bitwise.
+#include "kan_mma.cuh"
 
 // x: (B, n_in) bf16, wt: (n_in*(nbk+1), n_out) bf16, slot_of: (G+K,)
 // int32, out: (B, n_out) bf16, or f32 where out_f32 != 0.  All contiguous,
@@ -60,5 +64,5 @@ extern "C" int kan_fused_v2_bf16(const void* x, const void* wt,
   p.x0 = x0;
   p.hi = hi;
   p.inv_h = inv_h;
-  return kan_split::launch<kan_split::BF16<false>>(p, bm, bi, bn, stream);
+  return kan_mma::launch(p, bm, bi, bn, stream);
 }

@@ -11,8 +11,10 @@
 // tensors: the silu and spline totals are summed apart and added once.
 //
 // What bounds it on an H100: the v1 f32 kernel's work with half the
-// weight bytes (kan_fused_bf16.cu says what bounds that).
-// Design: kan_split.cuh's body with the `BF16<true>` operand policy: the
+// weight bytes (kan_fused.cu says what bounds that): at B = 8192 its
+// multiply-adds run as f32 FMAs on CUDA cores, where the bf16 version-2
+// kernel (kan_fused_bf16.cu) runs them on tensor cores.
+// Design: kan_split.cuh's body with the `BF16` operand policy: the
 // chunk's rows of w_b and t_flat are staged raw into the fused layout and
 // widened once a chunk, and the FMA pass keeps v1's two chains (silu and
 // spline) in the fixed order, so every knob gives the same bits and
@@ -46,5 +48,5 @@ extern "C" int kan_fused_v1_bf16(const void* x, const void* w_b,
   p.x0 = x0;
   p.hi = hi;
   p.inv_h = inv_h;
-  return kan_split::launch<kan_split::BF16<true>>(p, bm, bi, bn, stream);
+  return kan_split::launch<kan_split::BF16>(p, bm, bi, bn, stream);
 }

@@ -1,15 +1,17 @@
 // The fused KAN layer kernel of kan_fused.cu (f32), kan_fused_q8.cu
 // (int8 codes), kan_fused_v1.cu (version 1: w_b and t_flat apart) and
-// kan_fused_bf16.cu / kan_fused_v1_bf16.cu (bf16, either version), for
-// sm_90a, with its launch-time knobs (bm, bi, bn).
+// kan_fused_v1_bf16.cu (bf16, version 1), for sm_90a, with its launch-time
+// knobs (bm, bi, bn).
 //
 // One template body over an operand policy `Op` (`F32`: x and the fused
 // [w_b ; t[kb]] rows of ops.fuse_wt as f32; `Q8`: int8 codes, copied raw
 // and dequantized once a chunk in shared memory; `Split`: the version-1
-// weights, w_b and t_flat, staged into the same fused layout; `BF16<V1>`:
-// bf16 x and weights of either layout, copied raw and widened to f32 once
-// a chunk in shared memory, with the bf16 SPU and a bf16 or f32 output)
-// and the rows a thread owns (`TM`).
+// weights, w_b and t_flat, staged into the same fused layout; `BF16`: the
+// version-1 bf16 x and weights, copied raw and widened to f32 once a chunk
+// in shared memory, with the bf16 SPU and a bf16 or f32 output) and the
+// rows a thread owns (`TM`).  The bf16 version-2 kernel runs its own
+// tensor-core body (kan_mma.cuh) on this file's knob checks, feature split
+// and cluster launch.
 //
 // What each output is, bit for bit, depends on the layer alone:
 //   * the input features are cut into chunks of PC = 32, a constant that
@@ -74,8 +76,8 @@ constexpr int MAX_SMEM = pm::MAX_SMEM;
 
 struct Params {
   const void* x;
-  const void* wt;            // Split, BF16<true>: w_b
-  const void* t_flat;        // Split, BF16<true>: the kept-basis rows
+  const void* wt;            // Split, BF16: w_b
+  const void* t_flat;        // Split, BF16: the kept-basis rows
   const float* slot_scales;  // Q8 only: (nbk+1,) silu row, kept bases
   const int* slot_of;
   void* out;                 // f32, or bf16 where out_bf16 (BF16 only)
@@ -314,16 +316,15 @@ struct Split {
   }
 };
 
-// bf16, version 2 (the fused rows) or, with V1, version 1 (w_b and
-// t_flat, staged into the fused layout as Split does).  x and the weight
-// rows are copied raw, half the bytes of F32, and widened to f32 once a
-// chunk in shared memory.  Widening is exact, so the FMA pass is the f32
-// one: every product of two bf16 values is exact in f32, each fmaf rounds
-// once, and the summation order is F32's.  Rows of n_out % 4 != 0
-// elements, and x rows of n_in % 4 != 0, are staged an element at a time
-// with plain loads: cp.async copies 4 bytes at least, and a 4-byte copy
-// would straddle two rows there.
-template <bool V1>
+// bf16, version 1: w_b and t_flat, staged into the fused layout as Split
+// does (the bf16 version-2 kernel runs kan_mma.cuh's tensor-core body).
+// x and the weight rows are copied raw, half the bytes of F32, and widened
+// to f32 once a chunk in shared memory.  Widening is exact, so the FMA
+// pass is the f32 one: every product of two bf16 values is exact in f32,
+// each fmaf rounds once, and the summation order is Split's.  Rows of
+// n_out % 4 != 0 elements, and x rows of n_in % 4 != 0, are staged an
+// element at a time with plain loads: cp.async copies 4 bytes at least,
+// and a 4-byte copy would straddle two rows there.
 struct BF16 {
   static constexpr bool kQ8 = false;
   static constexpr bool kBF16 = true;
@@ -333,19 +334,15 @@ struct BF16 {
   // x raw: with two f32 buffers of each, a 32 x 32 tile of all 304
   // features needs 120 KB and one block an SM, not two.
   static constexpr bool kOneWide = true;
-  static constexpr int kChains = V1 ? 2 : 1;
+  static constexpr int kChains = 2;
 
   // column n of staged row s (0: silu, 1 + slot: kept basis) of feature f
   __device__ static const unsigned short* src(const Params& p, int f, int s,
                                               int n) {
-    const unsigned short* wt = static_cast<const unsigned short*>(p.wt);
-    if constexpr (V1) {
-      const unsigned short* tf = static_cast<const unsigned short*>(p.t_flat);
-      return s == 0 ? wt + (size_t)f * p.n_out + n
-                    : tf + ((size_t)f * p.nbk + (s - 1)) * p.n_out + n;
-    } else {
-      return wt + ((size_t)f * (p.nbk + 1) + s) * p.n_out + n;
-    }
+    const unsigned short* wb = static_cast<const unsigned short*>(p.wt);
+    const unsigned short* tf = static_cast<const unsigned short*>(p.t_flat);
+    return s == 0 ? wb + (size_t)f * p.n_out + n
+                  : tf + ((size_t)f * p.nbk + (s - 1)) * p.n_out + n;
   }
 
   __device__ static void issue(const Params& p, float*, float*,
@@ -684,10 +681,13 @@ kan_split_kernel(const Params p) {
   }
 }
 
-template <class Op, int TM>
-int run(const Params& p, dim3 grid, int threads, int smem, int nsplit,
+// Launches `Kern` (this body's kernel or kan_mma.cuh's) on `grid`, its
+// feature split a cluster of `nsplit` blocks along grid.z.
+template <void (*Kern)(const Params)>
+int run(const Params& p, dim3 grid, int threads, int smem,
         cudaStream_t stream) {
-  void (*kern)(const Params) = kan_split_kernel<Op, TM>;
+  void (*kern)(const Params) = Kern;
+  const int nsplit = (int)grid.z;
   static unsigned configured = 0;     // a bit per device
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -723,37 +723,58 @@ inline bool tile_ok(int t) {
   return t == 8 || t == 16 || t == 32 || t == 64 || t == 128;
 }
 
-// Checks the sizes and knobs (ops.check_blocks checks the same) and
-// launches on `stream`; returns cudaGetLastError().
-template <class Op>
-int launch(Params p, int bm, int bi, int bn, void* stream) {
+// Checks the sizes and knobs of either body (ops.check_blocks checks the
+// same; bm * bn at most `tile_cap`) and sets p's tiles and feature split;
+// returns 0 or the error.
+inline int plan(Params& p, int bm, int bi, int bn, int tile_cap) {
   if (p.B <= 0 || p.n_out <= 0 || p.n_in < 0 || p.nbk < 0 || p.G < 1 ||
       p.K < 1 || p.K > KMAX || p.n_bases != p.G + p.K ||
       p.G + KMAX > TABLE || p.nbk > p.n_bases)
     return (int)cudaErrorInvalidValue;
-  if (!tile_ok(bm) || !tile_ok(bn) || bm * bn > max_tile(Op::kChains) ||
-      bi <= 0 || (bi % PC != 0 && bi < p.n_in))
+  if (!tile_ok(bm) || !tile_ok(bn) || bm * bn > tile_cap || bi <= 0 ||
+      (bi % PC != 0 && bi < p.n_in))
     return (int)cudaErrorInvalidValue;
-  const int nchunks = (p.n_in + PC - 1) / PC;
-  const int cpb = bi >= p.n_in ? (nchunks > 0 ? nchunks : 1) : bi / PC;
-  const int nsplit = nchunks > 0 ? (nchunks + cpb - 1) / cpb : 1;
-  const long smem =
-      smem_bytes(bm, bn, p.nbk, cpb, nsplit, Op::kRaw, Op::kOneWide,
-                 Op::kChains);
-  const long gx = (p.B + (long)bm - 1) / bm;
-  const long gy = (p.n_out + (long)bn - 1) / bn;
+  p.nchunks = (p.n_in + PC - 1) / PC;
+  p.cpb = bi >= p.n_in ? (p.nchunks > 0 ? p.nchunks : 1) : bi / PC;
+  p.bm = bm;
+  p.bn = bn;
+  p.stages = p.cpb > 1 ? 2 : 1;
+  return 0;
+}
+
+// Blocks a cluster along the features of a planned launch.
+inline int nsplit_of(const Params& p) {
+  return p.nchunks > 0 ? (p.nchunks + p.cpb - 1) / p.cpb : 1;
+}
+
+// The grid of a planned launch at `smem` bytes a block; returns 0 or
+// cudaErrorInvalidConfiguration where the card does not take it.
+inline int grid_of(const Params& p, long smem, dim3* grid) {
+  const int nsplit = nsplit_of(p);
+  const long gx = (p.B + (long)p.bm - 1) / p.bm;
+  const long gy = (p.n_out + (long)p.bn - 1) / p.bn;
   if (nsplit > MAX_SPLIT || smem > MAX_SMEM ||
       (nsplit > PORTABLE_SPLIT && smem > MAX_SMEM / 2) || gy > 65535 ||
       gx > INT_MAX)
     return (int)cudaErrorInvalidConfiguration;
+  *grid = dim3((unsigned)gx, (unsigned)gy, (unsigned)nsplit);
+  return 0;
+}
+
+// Checks the sizes and knobs and launches on `stream`; returns
+// cudaGetLastError().
+template <class Op>
+int launch(Params p, int bm, int bi, int bn, void* stream) {
+  int e = plan(p, bm, bi, bn, max_tile(Op::kChains));
+  if (e != 0) return e;
+  const long smem = smem_bytes(bm, bn, p.nbk, p.cpb, nsplit_of(p), Op::kRaw,
+                               Op::kOneWide, Op::kChains);
+  dim3 grid;
+  e = grid_of(p, smem, &grid);
+  if (e != 0) return e;
   const int tm = tile_rows(bm, bn);
   int threads = (bm / tm) * (bn / 4);
   if (threads < MIN_THREADS) threads = MIN_THREADS;
-  p.bm = bm;
-  p.bn = bn;
-  p.cpb = cpb;
-  p.nchunks = nchunks;
-  p.stages = cpb > 1 ? 2 : 1;
   // a weight copy is 4 columns: 4 int8 bytes, 8 bf16 bytes, 16 f32 bytes;
   // an x copy 4 elements (int8, bf16)
   const uintptr_t wal = Op::kRaw ? 4 * Op::kRaw : 16;
@@ -764,21 +785,20 @@ int launch(Params p, int bm, int bi, int bn, void* stream) {
   p.vec_x = p.n_in % 4 == 0 && reinterpret_cast<uintptr_t>(p.x) % xal == 0;
   p.vec_out = p.n_out % 4 == 0 &&
               reinterpret_cast<uintptr_t>(p.out) % (p.out_bf16 ? 8 : 16) == 0;
-  const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)nsplit);
   cudaStream_t s = (cudaStream_t)stream;
   switch (tm) {
     case 1:
-      return run<Op, 1>(p, grid, threads, (int)smem, nsplit, s);
+      return run<kan_split_kernel<Op, 1>>(p, grid, threads, (int)smem, s);
     case 2:
-      return run<Op, 2>(p, grid, threads, (int)smem, nsplit, s);
+      return run<kan_split_kernel<Op, 2>>(p, grid, threads, (int)smem, s);
     case 4:
-      return run<Op, 4>(p, grid, threads, (int)smem, nsplit, s);
+      return run<kan_split_kernel<Op, 4>>(p, grid, threads, (int)smem, s);
     default:
       // max_tile keeps Split at 4 rows a thread: no 8-row instance
       if constexpr (Op::kChains == 2)
         return (int)cudaErrorInvalidConfiguration;
       else
-        return run<Op, 8>(p, grid, threads, (int)smem, nsplit, s);
+        return run<kan_split_kernel<Op, 8>>(p, grid, threads, (int)smem, s);
   }
 }
 

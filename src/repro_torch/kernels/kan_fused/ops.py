@@ -11,9 +11,11 @@ kernel to its plain version.  f32 and bf16 layers take ``out_dtype``, as
 the JAX ``kan_linear`` does: x's dtype (the default) or f32, the bf16
 kernels' f32 accumulator unrounded.
 
-All five kernels run one body (``csrc/kan_split.cuh``) and take their
-knobs ``(bm, bi, bn)`` at launch time: bm rows x bn outputs a block, bi
-input features a block walks.  ``resolve_blocks`` picks them as the JAX
+Four kernels run one body (``csrc/kan_split.cuh``); the bf16 version-2
+kernel runs a tensor-core body (``csrc/kan_mma.cuh``) on the same knob
+checks and feature split.  All five take their knobs ``(bm, bi, bn)`` at
+launch time: bm rows x bn outputs a block, bi input features a block
+walk.  ``resolve_blocks`` picks them as the JAX
 one does, at either version: explicit ``blocks=`` > autotune-cache hit
 for (kernel ``kan_fused_v{version}``, shape bucket, dtype, card) > a
 default by batch bucket; the wrappers never search
@@ -81,9 +83,14 @@ def tile_rows(bm: int, bn: int) -> int:
     return min(8, max(1, bm * bn // 1024))
 
 
-def kernel_threads(bm: int, bn: int) -> int:
-    """Threads a block: one per TM rows x 4 columns, at least 128 (the
-    rest only stage)."""
+def kernel_threads(bm: int, bn: int, dtype: torch.dtype = torch.float32,
+                   version: int = DEFAULT_VERSION) -> int:
+    """Threads a block: on ``kan_split.cuh``'s body one per TM rows x 4
+    columns, at least 128 (the rest only stage); the bf16 version-2
+    kernel (``kan_mma.cuh``) 256, or 512 from a 32 x 32 tile on, its SPU
+    pass on all of them, its MMAs on at most 8 warps."""
+    if dtype == torch.bfloat16 and version == 2:
+        return 512 if bm * bn >= 1024 else 256
     return max(_MIN_THREADS, (bm // tile_rows(bm, bn)) * (bn // 4))
 
 
@@ -102,13 +109,23 @@ def kernel_smem(bm: int, bi: int, bn: int, n_in: int, nbk: int,
     walks several chunks), the staged (row, feature) values, a cluster
     member's chunk partials (two sets at version 1: the silu and the
     spline chain), and the raw weight and x elements int8 (a byte each)
-    and bf16 (two) stage before they widen.  bf16 widens its weights into
-    one f32 buffer, its raw buffers taking the copies in flight, and
-    reads x raw."""
+    and bf16 (two) stage before they widen.  bf16 at version 1 widens its
+    weights into one f32 buffer, its raw buffers taking the copies in
+    flight, and reads x raw; bf16 at version 2 (``kan_mma.cuh``) widens
+    nothing and writes a bf16 A tile for its MMAs."""
     _, cpb, nsplit = split(n_in, bi)
     rows = PC * (nbk + 1)
     stages = 2 if cpb > 1 else 1
     bf16 = dtype == torch.bfloat16
+    if bf16 and version == 2:
+        # kan_mma.cuh: the slot table, a cluster member's f32 chunk
+        # partials (A-tile rows x bn), and `stages` raw bf16 weight buffers
+        # (rows padded to an odd number of 16 B), x buffers (32 + 8 a row)
+        # and bf16 A tiles (max(16, bm) rows of 32 * (nbk+1) + 8)
+        arows = max(16, bm)
+        return (4 * 32 + (4 * cpb * arows * bn if nsplit > 1 else 0)
+                + 2 * stages * (rows * (bn + (16 if bn == 8 else 8))
+                                + bm * (PC + 8) + arows * (rows + 8)))
     chains = 2 if version == 1 else 1
     words = (_HDR_WORDS + (1 if bf16 else stages) * rows * bn
              + (0 if bf16 else stages) * bm * PC + bm * _ACT_STRIDE
@@ -157,15 +174,25 @@ def default_blocks(B: int, n_in: int, n_out: int, nbk: int,
     16 rows x 8 outputs at serving buckets, with the features split over
     a cluster of up to 16 blocks until the grid holds about two blocks an
     SM; 32 x 32 tiles at large batches, where a grid of at least one wave
-    walks every feature in one block (a split only adds the combine).  bi
-    is a power of two (an autotune candidate); the tiles halve where the
-    shared memory would not fit.  One rule for both versions."""
+    walks every feature in one block (a split only adds the combine).
+    The bf16 version-2 kernel (tensor cores) evaluates every (row,
+    feature) once a column tile, so at large batches its bn covers n_out
+    (up to 128) with 32 rows a block, 64 from bn = 64 on (at most B
+    rounded up to a power of two), and it splits the features only below
+    half a wave of tiles.  bi is a power of two
+    (an autotune candidate); the tiles halve where the shared memory
+    would not fit."""
+    mma = dtype == torch.bfloat16 and version == 2 and B > 16
     bm = 8 if B <= 8 else 16 if B <= 16 else 32
     bn = min(8 if B <= 16 else 32, max(8, next_pow2(n_out)))
+    if mma:
+        bn = min(128, max(8, next_pow2(n_out)))
+        bm = min(32 if bn <= 32 else 64, next_pow2(B))
+    wave = _SMS // 2 if mma else _SMS
     nchunks = max(1, -(-n_in // PC))
     while True:
         tiles = -(-B // bm) * -(-n_out // bn)
-        want = 1 if tiles >= _SMS else min(MAX_SPLIT, nchunks,
+        want = 1 if tiles >= wave else min(MAX_SPLIT, nchunks,
                                            -(-2 * _SMS // tiles))
         knob = {"bm": bm, "bi": PC * next_pow2(-(-nchunks // want)),
                 "bn": bn}

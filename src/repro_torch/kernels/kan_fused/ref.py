@@ -52,8 +52,8 @@ def kan_fused_v2_ref(x: torch.Tensor, wt: torch.Tensor, spec: SplineSpec,
     nbk = len(kb)
     s, act = _silu_and_bases(x, spec, kb)
     fused = torch.cat([s[..., None], act], dim=-1)
-    y = torch.matmul(fused.reshape(-1, n_in * (nbk + 1)).to(torch.float32),
-                     wt.to(torch.float32))
+    y = torch.matmul(fused.reshape(x.shape[0], n_in * (nbk + 1)).to(
+        torch.float32), wt.to(torch.float32))
     return y.to(out_dtype or x.dtype)
 
 
@@ -68,8 +68,8 @@ def kan_fused_v1_ref(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
     nbk = len(kb)
     s, act = _silu_and_bases(x, spec, kb)
     y = torch.matmul(s.to(torch.float32), w_b.to(torch.float32))
-    y = y + torch.matmul(act.reshape(-1, n_in * nbk).to(torch.float32),
-                         t_flat.to(torch.float32))
+    y = y + torch.matmul(act.reshape(x.shape[0], n_in * nbk).to(
+        torch.float32), t_flat.to(torch.float32))
     return y.to(out_dtype or x.dtype)
 
 
@@ -95,4 +95,4 @@ def kan_fused_v2_q8_ref(x_q: torch.Tensor, wt_q: torch.Tensor,
     s, act = _silu_and_bases(x, spec, kb)
     wt = dequant_wt(wt_q, slot_scales, nbk)
     fused = torch.cat([s[..., None], act], dim=-1)
-    return torch.matmul(fused.reshape(-1, n_in * (nbk + 1)), wt)
+    return torch.matmul(fused.reshape(x_q.shape[0], n_in * (nbk + 1)), wt)

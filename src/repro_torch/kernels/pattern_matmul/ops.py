@@ -61,6 +61,13 @@ MAX_GRID_Y = 65535                # N tiles; M tiles go on grid.x
 _MIN_THREADS = 128
 _MAX_STAGES = 16
 _STAGE_BUDGET = 32 * 1024
+# The bf16 kernel's ring of x slabs, the bytes after each staged output
+# row, and the shared memory its w_c column tile stays resident within
+# (pattern_matmul_bf16.cu, staging.cuh's MAX_SMEM).
+_BF16_STAGES = 2
+_BF16_OPAD = 16
+_BF16_SMEM = 232448
+_SM_SMEM = 233472                 # shared memory an SM, sm_90
 
 Blocks = Dict[str, int]
 
@@ -92,16 +99,45 @@ def kernel_threads(bm: int, bn: int, dtype: torch.dtype) -> int:
 
 def kernel_smem(bm: int, bk: int, bn: int, K: int,
                 dtype: torch.dtype) -> int:
-    """Dynamic shared memory, in bytes, a block of the kernel uses."""
+    """Dynamic shared memory, in bytes, a block of the kernel uses (bf16:
+    the persistent kernel's, which sets what the kernel takes; where M
+    is one row tile, its first-design kernel runs on one x and one w_c
+    slab)."""
     if dtype == torch.int8:
         return max((bm + bn) * (bk + 16), 4 * bm * (bn + 8))
     if dtype == torch.bfloat16:
-        # x rows padded by 8 elements, w_c rows to an odd number of 16 B
-        return 2 * (bm * (bk + 8) + bk * (bn + (16 if bn == 8 else 8)))
+        # the output tile (sized for f32 out), its bias (f32), w_c's
+        # column tile -- all of K rounded up to 16 where that fits, else a
+        # bk slab a stage -- and the x slabs; x rows padded by 8 elements,
+        # w_c rows to an odd number of 16 B
+        fixed = (bm * (4 * bn + _BF16_OPAD) + 4 * bn
+                 + 2 * _BF16_STAGES * bm * (bk + 8))
+        ldb = bn + (16 if bn == 8 else 8)
+        resident = fixed + 2 * 16 * -(-K // 16) * ldb
+        if resident <= _BF16_SMEM:
+            return resident
+        return fixed + 2 * _BF16_STAGES * bk * ldb
     slab = 4 * (bm * (bk + 4) + bk * bn)
     nslabs = -(-K // bk)
     stages = min(max(nslabs, 1), _MAX_STAGES, max(2, _STAGE_BUDGET // slab))
     return stages * slab
+
+
+def bf16_grid(M: int, K: int, N: int, blocks: Blocks,
+              sms: int) -> Tuple[int, int]:
+    """(grid.x, grid.y) of the bf16 kernel's persistent grid on a card of
+    ``sms`` SMs (pattern_matmul_bf16.cu computes the same): grid.y the
+    column tiles, grid.x about two blocks an SM between them -- as many as
+    the SM's shared memory, threads and registers (128 a thread) hold at
+    once -- at least one and at most the row tiles, each block walking
+    row tiles grid.x apart."""
+    bm, bk, bn = (blocks[k] for k in ("bm", "bk", "bn"))
+    threads = kernel_threads(bm, bn, torch.bfloat16)
+    smem = kernel_smem(bm, bk, bn, K, torch.bfloat16)
+    per_sm = max(1, min(2, _SM_SMEM // (smem + 1024), 2048 // threads,
+                        65536 // (threads * 128)))
+    gy = -(-N // bn)
+    return max(1, min(-(-M // bm), per_sm * sms // gy)), gy
 
 
 def check_blocks(blocks: Blocks, K: int, N: int, dtype: torch.dtype) -> None:
@@ -137,14 +173,18 @@ def default_blocks(M: int, K: int, dtype: torch.dtype) -> Blocks:
     8192 on an H100): at serving buckets narrow tiles put more blocks on
     the card, and slabs deep enough that Kc <= 304 is one wait; at large
     M 128-row tiles, with deeper slabs for a deep Kc.  int8's bk covers
-    all of K up to 512, bf16's up to 256 (its m16 tiles at bm >= 16)."""
+    all of K up to 512, bf16's up to 256 (its m16 tiles at bm >= 16), 128
+    from M = 257 on, where two 128-row x slabs share the block's shared
+    memory with w_c's column tile and the staged output tile."""
     if dtype == torch.bfloat16:
-        bk = min(256, 16 * max(1, -(-K // 16)))
+        k16 = 16 * max(1, -(-K // 16))
         if M <= 16:
-            return {"bm": 16, "bk": bk, "bn": 8}
+            return {"bm": 16, "bk": min(256, k16), "bn": 8}
         if M <= 64:
-            return {"bm": 32, "bk": bk, "bn": 32}
-        return {"bm": 64 if M <= 256 else 128, "bk": bk, "bn": 64}
+            return {"bm": 32, "bk": min(256, k16), "bn": 32}
+        if M <= 256:
+            return {"bm": 64, "bk": min(256, k16), "bn": 64}
+        return {"bm": 128, "bk": min(128, k16), "bn": 64}
     if dtype == torch.int8:
         bm = 16 if M <= 16 else 32 if M <= 32 else 64 if M <= 256 else 128
         return {"bm": bm, "bk": min(512, 32 * max(1, -(-K // 32))),

@@ -233,15 +233,20 @@ def test_kan_wrappers_check_bf16_operands_on_cpu():
     assert tkf.kernel_dtype(xt) == (torch.bfloat16,
                                     "this kernel is bf16 only")
     assert tkf.kernel_dtype(xt.double())[0] == torch.float32
-    # bf16: one f32 weight buffer (no f32 x buffer: x is read raw) beside
-    # `stages` raw buffers of weights and x, 2 bytes an element; at bi=32
-    # the 304 features split over 10 blocks, each with its chunk partials
+    # bf16 version 1: one f32 weight buffer (no f32 x buffer: x is read
+    # raw) beside `stages` raw buffers of weights and x, 2 bytes an
+    # element; at bi=32 the 304 features split over 10 blocks, each with
+    # its chunk partials (two chains: silu and spline)
     rows = 32 * 6
-    for bm, bi, bn, stages, part in ((8, 32, 8, 1, 8 * 8),
+    for bm, bi, bn, stages, part in ((8, 32, 8, 1, 2 * 8 * 8),
                                      (32, 512, 32, 2, 0)):
         raw = 2 * stages * (rows * bn + bm * 32)
-        assert tkf.kernel_smem(bm, bi, bn, 304, 5, torch.bfloat16) == \
+        assert tkf.kernel_smem(bm, bi, bn, 304, 5, torch.bfloat16, 1) == \
             4 * (64 + rows * bn + bm * (32 * 8 + 4) + part) + raw
+    # bf16 version 2 (tensor cores): raw bf16 weight and x rows, padded,
+    # and the bf16 A tile; nothing widened
+    assert tkf.kernel_smem(32, 512, 32, 304, 5, torch.bfloat16) == \
+        4 * 32 + 2 * 2 * (rows * 40 + 32 * 40 + 32 * (rows + 8))
     assert tkf.kernel_smem(32, 512, 32, 304, 5, torch.bfloat16) < \
         tkf.kernel_smem(32, 512, 32, 304, 5, torch.float32)
     for c in autotune.candidates_kan_fused(8192, 304, 32, 5, torch.bfloat16):
@@ -314,9 +319,11 @@ def test_matmul_bf16_tile_rules_on_cpu():
     wt = _bf(rng.random((228, 96)).astype(np.float32))[0]
     before = dict(_build.LAUNCHES)
     ref = tpm.matmul_compact(xt, wt)
-    for blocks in ((16, 240, 8), (32, 16, 64), (128, 256, 128)):
+    for blocks in ((16, 240, 8), (32, 16, 64), (128, 64, 128)):
         assert torch.equal(tpm.matmul_compact(xt, wt, blocks=blocks), ref)
-    for bad in ((8, 64, 8), (16, 24, 8), (16, 64, 4)):
+    # (128, 256, 128): two x slabs and the staged output tile exceed the
+    # block's shared memory
+    for bad in ((8, 64, 8), (16, 24, 8), (16, 64, 4), (128, 256, 128)):
         with pytest.raises(ValueError, match="pattern_matmul blocks"):
             tpm.matmul_compact(xt, wt, blocks=bad)
     assert dict(_build.LAUNCHES) == before
@@ -325,7 +332,7 @@ def test_matmul_bf16_tile_rules_on_cpu():
     assert tpm.default_blocks(8192, 72, torch.bfloat16) == \
         {"bm": 128, "bk": 80, "bn": 64}
     assert tpm.kernel_smem(16, 240, 8, 228, torch.bfloat16) == \
-        2 * (16 * 248 + 240 * 24)
+        16 * (4 * 8 + 16) + 4 * 8 + 2 * 2 * 16 * 248 + 2 * 240 * 24
     assert tpm.kernel_threads(128, 128, torch.bfloat16) == 512
     assert tpm.kernel_threads(16, 8, torch.bfloat16) == 128
     for c in autotune.candidates_pattern_matmul(8192, 228, 96,

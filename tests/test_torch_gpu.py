@@ -42,6 +42,7 @@ from repro_torch.kernels.kan_fused.ref import (  # noqa: E402
     kan_fused_v2_q8_ref,
     kan_fused_v2_ref,
 )
+from repro_torch.kernels.pattern_matmul import ops as tpm_ops  # noqa: E402
 from repro_torch.kernels.pattern_matmul.ops import (  # noqa: E402
     default_blocks,
     matmul_compact,
@@ -1128,6 +1129,92 @@ def test_bf16_matmul_batched_equals_single(cuda):
                 one = matmul_compact(x[i:i + 1].contiguous(), w, b, act,
                                      blocks=(16, 16, 8))
                 assert torch.equal(one, full[i:i + 1]), (Kc, B, i)
+
+
+# The tensor-core KAN body's edges: n_in not a multiple of 32 (a zero-
+# padded last chunk), 21 fused rows a feature (G=16, K=4, every basis
+# kept), the silu row alone (nbk = 0: a chunk is two k16 steps), bm = 8
+# (one m16 tile, rows 8..15 zero), n_out not a multiple of 8, and the
+# features split over a cluster; each under every candidate knob, bitwise
+# the default's.
+@pytest.mark.parametrize("G,K,kb,B,n_in,n_out", [
+    (4, 3, KAN_KB, 8, 45, 13), (16, 4, tuple(range(20)), 8, 37, 33),
+    (16, 4, tuple(range(20)), 300, 100, 24), (4, 3, (), 8, 70, 13),
+    (4, 3, (), 33, 304, 32), (2, 1, (1,), 1, 301, 9)])
+def test_bf16_kan_mma_edges_under_every_knob(cuda, G, K, kb, B, n_in,
+                                             n_out):
+    spec = SplineSpec(G, K)
+    x, wt, w_b, t_flat = _bf16_kan_case(cuda, B * 7 + n_in, B, n_in, n_out,
+                                        len(kb))
+    ref = _check_kan_bf16(x, wt, w_b, t_flat, spec, kb)[0]
+    cands = autotune.candidates_kan_fused(B, n_in, n_out, len(kb), BF)
+    assert {"bm": 8, "bi": 32, "bn": 8} in cands
+    for c in cands:
+        assert torch.equal(kan_fused_v2(x, wt, spec, kb,
+                                        blocks=_kan_knob(c)), ref), c
+
+
+@pytest.mark.parametrize("M,Kc,N", [(8192 + 77, 72, 304), (5000, 228, 96),
+                                    (4099, 16, 96), (300, 1000, 40)])
+def test_bf16_matmul_persistent_rows_under_every_tile(cuda, M, Kc, N):
+    """Row counts that are no multiple of bm, and enough row tiles that a
+    block of the persistent grid walks several (deep slabs and shallow
+    ones, Kc past bk): every candidate tile bitwise the default's, which
+    holds to the plain version."""
+    gen = torch.Generator().manual_seed(M + Kc)
+    x = torch.randn((M, Kc), generator=gen).to(cuda, BF)
+    w = (torch.randn((Kc, N), generator=gen) * 0.1).to(cuda, BF)
+    b = torch.randn((N,), generator=gen).to(cuda, BF)
+    ref = matmul_compact(x, w, b, "relu")
+    _close(ref.float(), matmul_compact_ref(x, w, b, "relu").float(),
+           BF16_ULP)
+    for c in autotune.candidates_pattern_matmul(M, Kc, N, BF):
+        assert torch.equal(matmul_compact(x, w, b, "relu", blocks=_knob(c)),
+                           ref), c
+
+
+@pytest.mark.parametrize("M,Kc,N", [(100, 72, 304), (40, 228, 96),
+                                    (77, 147, 301)])
+def test_bf16_matmul_one_tile_and_persistent_kernels_agree(cuda, M, Kc, N):
+    """M of one row tile runs the first design's kernel, more rows the
+    persistent one: at these shapes the candidate tiles take both,
+    bitwise alike at both output dtypes (odd N: stores an element at a
+    time)."""
+    gen = torch.Generator().manual_seed(M + Kc + N)
+    x = torch.randn((M, Kc), generator=gen).to(cuda, BF)
+    w = (torch.randn((Kc, N), generator=gen) * 0.1).to(cuda, BF)
+    b = torch.randn((N,), generator=gen).to(cuda, BF)
+    ref = matmul_compact(x, w, b, "gelu")
+    ref32 = matmul_compact(x, w, b, "gelu", out_dtype=torch.float32)
+    _close(ref32, matmul_compact_ref(x, w, b, "gelu", torch.float32))
+    one = set()
+    for c in autotune.candidates_pattern_matmul(M, Kc, N, BF):
+        one.add(M <= c["bm"])
+        assert torch.equal(matmul_compact(x, w, b, "gelu", blocks=_knob(c)),
+                           ref), c
+        assert torch.equal(matmul_compact(x, w, b, "gelu", blocks=_knob(c),
+                                          out_dtype=torch.float32),
+                           ref32), c
+    assert one == {True, False}
+
+
+def test_bf16_matmul_streams_a_column_tile_too_deep_to_keep(cuda):
+    """At Kc = 1000 a 128-column tile of w_c does not fit in shared memory
+    beside 128-row x slabs and rides a bk slab with each of them; an
+    8-column one stays: both bitwise equal, the f32 output within 1e-5 of
+    the plain version and the bf16 output that rounded once."""
+    gen = torch.Generator().manual_seed(1000)
+    x = torch.randn((600, 1000), generator=gen).to(cuda, BF)
+    w = (torch.randn((1000, 200), generator=gen) * 0.02).to(cuda, BF)
+    assert tpm_ops.kernel_smem(128, 16, 128, 1000, BF) < \
+        2 * 1008 * 136                         # the slabs, not the tile
+    got = matmul_compact(x, w, None, None, blocks=(128, 16, 128))
+    assert torch.equal(got, matmul_compact(x, w, None, None,
+                                           blocks=(16, 256, 8)))
+    got32 = matmul_compact(x, w, None, None, blocks=(128, 16, 128),
+                           out_dtype=torch.float32)
+    _close(got32, matmul_compact_ref(x, w, None, None, torch.float32))
+    assert torch.equal(got, got32.to(BF))
 
 
 @pytest.mark.parametrize("G", VALID_G)

@@ -132,7 +132,8 @@ def test_resolve_blocks_precedence_matches_jax(caches, dtype, version):
         tkf.default_blocks(*dims, tdt, 3 - version)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8,
+                                   torch.bfloat16])
 @pytest.mark.parametrize("B,n_in,n_out,nbk", [
     (1, 1, 1, 1), (8, 304, 32, 5), (8, 72, 96, 5), (16, 37, 13, 20),
     (8192, 304, 32, 5), (8192, 72, 96, 5), (300, 300, 33, 2),
@@ -147,7 +148,7 @@ def test_candidates_fit_the_card_and_cap_the_tiles(dtype, B, n_in, n_out,
         assert c["bm"] <= max(8, next_pow2(B))
         assert c["bn"] <= max(8, next_pow2(n_out))
         assert c["bi"] % tkf.PC == 0
-        assert tkf.kernel_threads(c["bm"], c["bn"]) <= \
+        assert tkf.kernel_threads(c["bm"], c["bn"], dtype) <= \
             autotune.MAX_THREADS_PER_BLOCK
         assert tkf.kernel_smem(c["bm"], c["bi"], c["bn"], n_in, nbk,
                                dtype) <= autotune.MAX_SMEM_BYTES
@@ -231,6 +232,27 @@ def test_kernel_models_mirror_the_sources():
         tkf.check_blocks(knob, 304, 64, 5, torch.float32, 1)
     # two chains at 8 rows a thread spill: version 1 stops at half the tile
     assert (tkf.max_tile(1), tkf.max_tile(2)) == (4096, 8192)
+    # bf16 version 2 (kan_mma.cuh): 256 threads, 512 from 32 x 32 on; the slot
+    # table, a member's f32 partials (max(16, bm) rows x bn), and a stage
+    # of raw bf16 weight rows (bn + 16 at 8, else bn + 8), x rows (40) and
+    # the bf16 A tile (max(16, bm) rows of 32 * (nbk+1) + 8)
+    bf = torch.bfloat16
+    assert tkf.kernel_threads(8, 8, bf) == tkf.kernel_threads(16, 32, bf) \
+        == 256
+    assert tkf.kernel_threads(32, 32, bf) == tkf.kernel_threads(128, 64, bf) \
+        == 512
+    assert tkf.kernel_threads(8, 8, bf, 1) == 128      # v1: kan_split.cuh
+    assert tkf.kernel_smem(8, 32, 8, 304, 5, bf) == \
+        128 + 4 * 16 * 8 + 2 * (192 * 24 + 8 * 40) + 2 * 16 * 200
+    assert tkf.kernel_smem(32, 512, 32, 304, 5, bf) == \
+        128 + 2 * 2 * (192 * 40 + 32 * 40 + 32 * 200)
+    # nbk = 0: the silu row alone, a chunk two k16 steps deep
+    assert tkf.kernel_smem(16, 64, 16, 64, 0, bf) == \
+        128 + 2 * 2 * (32 * 24 + 16 * 40 + 16 * 40)
+    # less than the widening body's (bf16 version 1) at vikin-mixed's
+    # default knobs
+    assert tkf.kernel_smem(32, 512, 32, 304, 5, bf) < \
+        tkf.kernel_smem(32, 512, 32, 304, 5, bf, 1)
 
 
 @pytest.mark.parametrize("blocks,n_in,match", [
@@ -241,7 +263,7 @@ def test_kernel_models_mirror_the_sources():
     ((128, 512, 64), 2000, "shared memory"),
     ((64, 32, 64), 300, "two blocks an SM"),
 ])
-@pytest.mark.parametrize("precision", ["f32", "int8", "v1"])
+@pytest.mark.parametrize("precision", ["f32", "int8", "v1", "bf16"])
 def test_bad_knobs_raise_on_cpu(blocks, n_in, match, precision):
     nbk = 20 if match == "shared memory" else 5
     spec = tsl.SplineSpec(16, 4) if nbk == 20 else tsl.SplineSpec(4, 3)
@@ -273,6 +295,18 @@ def test_bad_knobs_raise_on_cpu(blocks, n_in, match, precision):
         layer = tkan.KANLayer(cfg, {"w_b": wbt, "t": torch.from_numpy(t)})
         with pytest.raises(ValueError, match=match):
             layer(xt)
+    elif precision == "bf16":
+        x, w_b, t = _kan_inputs(2, 3, n_in, 40, spec.n_bases)
+        bf = torch.bfloat16
+        xt, wbt = torch.from_numpy(x).to(bf), torch.from_numpy(w_b).to(bf)
+        t_flat = tkf.flatten_t(torch.from_numpy(t), kb).to(bf)
+        if match == "two blocks an SM":   # the bf16 tile that needs them
+            blocks = (128, 32, 64)
+        with pytest.raises(ValueError, match=match):
+            tkf.kan_fused_v2(xt, tkf.fuse_wt(wbt, t_flat, nbk), spec, kb,
+                             blocks=blocks)
+        with pytest.raises(ValueError, match=match):
+            tkf.kan_linear(xt, wbt, t_flat, spec, kb, blocks=blocks)
     else:
         x, w_b, t = _kan_inputs(2, 3, n_in, 40, spec.n_bases)
         t_flat = tkf.flatten_t(torch.from_numpy(t), kb)
@@ -339,6 +373,20 @@ def test_a_bad_cached_knob_raises(caches):
         {"bm": 8, "bi": 40, "bn": 8})
     with pytest.raises(ValueError, match="multiple of 32"):
         tkf.resolve_blocks(8, 304, 32, 5, torch.float32, device="cpu")
+
+
+@pytest.mark.parametrize("knob,match", [
+    ({"bm": 8, "bi": 40, "bn": 8}, "multiple of 32"),
+    ({"bm": 128, "bi": 32, "bn": 128}, "exceeds 8192"),
+    ({"bm": 128, "bi": 640, "bn": 64}, "shared memory")])
+def test_a_bad_cached_bf16_knob_raises(caches, knob, match):
+    """A cached knob the bf16 tensor-core kernel does not take raises,
+    and is not replaced by another (at nbk = 20 the 128 x 64 tile's two
+    weight stages and A tile exceed the block's shared memory)."""
+    autotune.get_cache().store(autotune.cache_key(
+        "kan_fused_v2", (8192, 600, 64, 20), torch.bfloat16, "cpu"), knob)
+    with pytest.raises(ValueError, match=match):
+        tkf.resolve_blocks(8192, 600, 64, 20, torch.bfloat16, device="cpu")
 
 
 def test_resolution_reads_the_cache_once_and_sees_store_and_clear(

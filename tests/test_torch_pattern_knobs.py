@@ -92,7 +92,8 @@ def test_resolve_blocks_precedence_matches_jax(caches, dtype):
         tpm.default_blocks(M, K, other)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8,
+                                   torch.bfloat16])
 @pytest.mark.parametrize("M,K,N", [(1, 1, 1), (8, 72, 304), (16, 16, 96),
                                    (33, 37, 33), (8192, 228, 96),
                                    (8192, 304, 304)])
@@ -143,6 +144,34 @@ def test_kernel_models_mirror_the_sources():
     assert tpm.kernel_smem(8, 16, 8, 0, f32) == 4 * (8 * 20 + 16 * 8)
     assert tpm.kernel_smem(16, 96, 32, 72, q8) == 48 * 112
     assert tpm.kernel_smem(128, 96, 64, 72, q8) == 4 * 128 * 72
+    # bf16: warps of 16x8 up to 32x32, at least 128 threads; the output
+    # tile (f32-sized, 16 B a row more), its f32 bias, two x slabs of bk +
+    # 8, and w_c's column tile of all K rounded up to 16 rows (bn + 8,
+    # bn + 16 at 8)
+    bf = torch.bfloat16
+    assert tpm.kernel_threads(16, 8, bf) == 128
+    assert tpm.kernel_threads(128, 64, bf) == 8 * 32
+    assert tpm.kernel_threads(128, 128, bf) == 16 * 32
+    assert tpm.kernel_smem(128, 80, 64, 72, bf) == \
+        128 * (4 * 64 + 16) + 4 * 64 + 2 * 2 * 128 * 88 + 2 * 80 * 72
+    assert tpm.kernel_smem(16, 240, 8, 228, bf) == \
+        16 * (4 * 8 + 16) + 4 * 8 + 2 * 2 * 16 * 248 + 2 * 240 * 24
+    # a column tile too deep for shared memory rides a bk slab a stage
+    assert tpm.kernel_smem(128, 16, 128, 4000, bf) == \
+        128 * (4 * 128 + 16) + 4 * 128 + 2 * 2 * 128 * 24 + 2 * 2 * 16 * 136
+    assert tpm.kernel_smem(128, 16, 128, 304, bf) == \
+        128 * (4 * 128 + 16) + 4 * 128 + 2 * 2 * 128 * 24 + 2 * 304 * 136
+    # the persistent grid on 132 SMs: two blocks an SM over the column
+    # tiles (264 // 5), at most the row tiles; one at a serving bucket
+    knob = {"bm": 128, "bk": 80, "bn": 64}
+    assert tpm.bf16_grid(8192, 72, 304, knob, 132) == (52, 5)
+    assert tpm.bf16_grid(8, 72, 304, {"bm": 16, "bk": 80, "bn": 8},
+                         132) == (1, 38)
+    # 512 threads at 128 registers fill an SM's registers: one block an SM
+    assert tpm.bf16_grid(8192, 16, 96, {"bm": 128, "bk": 16, "bn": 128},
+                         132) == (64, 1)
+    assert tpm.bf16_grid(4096, 16, 96, {"bm": 128, "bk": 16, "bn": 128},
+                         132) == (32, 1)
 
 
 @pytest.mark.parametrize("blocks,match", [
@@ -184,6 +213,20 @@ def test_a_bad_cached_knob_raises(caches):
         {"bm": 8, "bk": 30, "bn": 32})
     with pytest.raises(ValueError, match="multiple of 4"):
         tpm.resolve_blocks(8, 72, 304, torch.float32, device="cpu")
+
+
+@pytest.mark.parametrize("knob,match", [
+    ({"bm": 8, "bk": 64, "bn": 8}, "takes bm"),
+    ({"bm": 16, "bk": 24, "bn": 8}, "multiple of 16"),
+    ({"bm": 128, "bk": 256, "bn": 128}, "shared memory")])
+def test_a_bad_cached_bf16_knob_raises(caches, knob, match):
+    """A cached bf16 tile the kernel does not take raises, and is not
+    replaced by another: (128, 256, 128), which the first bf16 kernel took
+    at Kc = 228, no longer fits with its output tile staged."""
+    autotune.get_cache().store(autotune.cache_key(
+        "pattern_matmul", (8192, 228, 96), torch.bfloat16, "cpu"), knob)
+    with pytest.raises(ValueError, match=match):
+        tpm.resolve_blocks(8192, 228, 96, torch.bfloat16, device="cpu")
 
 
 def test_resolution_reads_the_cache_once_and_sees_store_and_clear(
