@@ -124,11 +124,34 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    what the served batches imply;
    (c) the port's serving and load benches on the card
    (``chiprun_out/serving_bench.json``): every simulated field equal to
-   the committed rows, batched == single bitwise under both policies.
+   the committed rows, batched == single bitwise under both policies;
+8. training on the card, f32 with TF32 off (asserted):
+   (a) one step of vikin-mixed and of vikin-kan2 at batch 64 through
+   ``StackTrainer.loss_fn``: every gradient through the kernels'
+   autograd Functions within ``1e-5 * (1 + max|plain|)`` a leaf of
+   autograd through the plain versions on the card, and the launches
+   of the forward and backward exactly ``kan_fused_v2`` x1,
+   ``pattern_matmul`` x2, ``spline_basis`` x2 (vikin-kan2: x1, x0, x1);
+   (b) ``StackTrainer`` 200 steps of each, twice from one init: the
+   validation MSE falls, the two runs are bitwise equal, the launches
+   are 200 times one step's, the first 10 losses within 1e-4 relative
+   of a CPU run's from the same init; ms a step: host wall, and CUDA
+   event spans of the forward, backward and update beside the
+   spline-basis launches of one backward (graph-replayed);
+   (c) ``python -m repro_torch.launch.train --arch vikin-mixed --steps
+   200 --batch 64 --pattern 0.5 --precision int8`` in a subprocess on
+   the card, its checkpoint served through ``make_vikin_backend(...,
+   ckpt=...)`` at f32 and int8 (answers held as in phase 3), the served
+   masks equal to the saved ones and to a calibration of the saved
+   params;
+   (d) an ``AsyncCheckpointer`` save overlapped with 20 training steps:
+   the restored params bitwise the snapshot.
 
 No served path launches the spline-basis or v1 kernels, so their
 ``launches`` in the record are those of phases 6 and 5.  The served rows
-also carry ``launches_openloop``, their launches in phase 7's replays.
+also carry ``launches_openloop``, their launches in phase 7's replays,
+and every row ``launches_train``, its launches in phase 8 (b)'s first
+run of each arch.
 
 It prints the ``{"kernels": [...]}`` record, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It imports nothing
@@ -138,9 +161,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -161,6 +186,15 @@ BF16_ULP = 2.0 ** -8          # one bf16 ulp of (1 + max|ref|)
 # on the card: each layer's bf16 output may round one ulp apart, and the
 # deepest served stack has three layers.
 SERVE_TOL_BF16 = 3 * BF16_ULP
+# phase 8: a gradient through the kernels' autograd Functions against
+# autograd through the plain versions, a leaf at a time, within
+# TRAIN_GRAD_TOL of the leaf's own max|plain| (the loss within it of its
+# value); the first CPU_STEPS losses of a card run against a CPU run from
+# the same params
+TRAIN_GRAD_TOL = 1e-5
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_STEPS = 200
+CPU_STEPS = 10
 ARCHS = ("vikin-kan2", "vikin-mlp3", "vikin-mixed")
 BUCKETS = (2, 4, 8, 16)
 BIG = 8192
@@ -297,6 +331,7 @@ def main() -> int:
     from repro_torch.benchmarks.kernel_ab import (
         graph_ms,
         layer_calls,
+        plain_grads,
         q8_layer_calls,
         stack_calls,
         time_ms,
@@ -361,6 +396,17 @@ def main() -> int:
         replay,
     )
     from repro_torch.runtime.server import Engine
+    from repro_torch.checkpoint import (
+        AsyncCheckpointer,
+        restore_checkpoint,
+        restore_masks,
+    )
+    from repro_torch.core.calibrate import stack_saliencies
+    from repro_torch.core.sparsity import magnitude_mask
+    from repro_torch.data.stack_task import task_for_model
+    from repro_torch.models.ffn import vikin_stack_init
+    from repro_torch.runtime.trainer import StackTrainer, StackTrainerConfig
+    from repro_torch.utils import leaf_paths, tree_map
 
     # Plain versions run torch.matmul on the card: hold them to IEEE f32,
     # and the bf16 library call (addmm) to f32 accumulation.
@@ -1721,6 +1767,286 @@ def main() -> int:
           f"under both policies")
     print(f"phase 7: launches over the replays {open_launches}")
 
+    # ---------------------------------------------------------------- 8
+    # training on the card (f32, IEEE products): (a) one vikin-mixed step's
+    # gradients through the kernels' autograd Functions against autograd
+    # through the plain versions, and its launches; (b) StackTrainer runs of
+    # vikin-mixed and vikin-kan2: the validation MSE falls, two runs are
+    # bitwise equal, the first losses agree with a CPU run, ms a step;
+    # (c) the launcher end to end and its checkpoint served at f32 and int8;
+    # (d) an AsyncCheckpointer write overlapped with training steps
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is allowed: the gradient products must be IEEE f32")
+    train_cfg = StackTrainerConfig(steps=TRAIN_STEPS, batch_size=64,
+                                   device=DEVICE)
+    want_step = {"vikin-mixed": {"kan_fused_v2": 1, "pattern_matmul": 2,
+                                 "spline_basis": 2},
+                 # the first layer's x needs no gradient: no order K-1 basis
+                 "vikin-kan2": {"kan_fused_v2": 1, "spline_basis": 1}}
+    tasks = {a: task_for_model(VIKIN_ARCHS[a]) for a in want_step}
+    inits = {a: vikin_stack_init(VIKIN_ARCHS[a],
+                                 torch.Generator().manual_seed(0))
+             for a in want_step}
+
+    train = {}
+    for arch in want_step:
+        model = VIKIN_ARCHS[arch]
+        tr = StackTrainer(model, tasks[arch], train_cfg, params=inits[arch])
+        x, y = tr.batch(0)
+        _build.reset_launches()
+        loss_k, g_k = tr.value_and_grad(x, y)
+        torch.cuda.synchronize()
+        g_k = dict(leaf_paths(g_k))
+        got = {k: v for k, v in _build.LAUNCHES.items() if v}
+        check(got == want_step[arch],
+              f"(a) {arch}: one step's forward and backward launched {got}, "
+              f"expected {want_step[arch]}")
+        loss_p, g_p = plain_grads(tr.params, model, x, y)
+        errs = {}
+        for k in g_p:
+            err, scale, nan = rel_err(g_k[k], g_p[k])
+            mag = scale - 1.0
+            check(not nan and err <= TRAIN_GRAD_TOL * mag,
+                  f"(a) {arch} d{k}: max|kernel - plain| = {err:.3e} vs "
+                  f"{TRAIN_GRAD_TOL:g} * max|plain| {mag:.4g}")
+            errs[k] = {"max_abs_err": err, "max_abs_plain": mag}
+        loss_k, loss_p = float(loss_k), float(loss_p)
+        check(abs(loss_k - loss_p) <= TRAIN_GRAD_TOL * abs(loss_p),
+              f"(a) {arch}: loss {loss_k} vs plain {loss_p}")
+        print(f"phase 8: (a) {arch} batch 64: one forward + backward "
+              f"launched {got}; loss {loss_k:.6f} (plain {loss_p:.6f}); "
+              f"each leaf's gradient within {TRAIN_GRAD_TOL:g}*max|plain| "
+              f"of autograd through the plain versions, max abs err / "
+              f"max|plain|: " + ", ".join(
+                  f"d{k} {e['max_abs_err']:.3e} / {e['max_abs_plain']:.3e}"
+                  for k, e in errs.items()))
+        train[arch] = {"grad_err": errs, "step_launches": got}
+
+    # (b) two runs from the same init, bitwise; a CPU run's first losses
+    train_launches = {k: 0 for k in KERNEL_INFO}
+    for arch in want_step:
+        model = VIKIN_ARCHS[arch]
+        runs = []
+        for rep in range(2):
+            tr = StackTrainer(model, tasks[arch], train_cfg,
+                              params=inits[arch])
+            val0 = tr.evaluate()["val_mse"]
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            losses = [tr.train_step(s)[0] for s in range(TRAIN_STEPS)]
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+            launched = dict(_build.LAUNCHES)
+            want = {k: TRAIN_STEPS * want_step[arch].get(k, 0)
+                    for k in KERNEL_INFO}
+            check(launched == want, f"(b) {arch}: {TRAIN_STEPS} steps "
+                  f"launched {launched}, expected {want}")
+            if rep == 0:
+                for k in KERNEL_INFO:
+                    train_launches[k] += launched[k]
+            val1 = tr.evaluate()["val_mse"]
+            runs.append({"tr": tr, "losses": torch.stack(losses).cpu(),
+                         "val0": val0, "val1": val1, "wall_ms": wall_ms})
+        a, b = runs
+        check(a["val1"] < a["val0"],
+              f"(b) {arch}: validation MSE {a['val0']:.6f} -> "
+              f"{a['val1']:.6f} after {TRAIN_STEPS} steps")
+        same = all(torch.equal(pa, pb) for (_, pa), (_, pb) in zip(
+            leaf_paths(a["tr"].params), leaf_paths(b["tr"].params)))
+        check(same and torch.equal(a["losses"], b["losses"]),
+              f"(b) {arch}: two runs from one seed differ")
+        cpu_tr = StackTrainer(model, tasks[arch],
+                              dataclasses.replace(train_cfg, device="cpu"),
+                              params=inits[arch])
+        cpu_losses = torch.stack([cpu_tr.train_step(s)[0]
+                                  for s in range(CPU_STEPS)])
+        rel = ((a["losses"][:CPU_STEPS] - cpu_losses).abs()
+               / cpu_losses.abs())
+        check(float(rel.max()) <= TRAIN_LOSS_TOL,
+              f"(b) {arch}: the first {CPU_STEPS} losses differ from the "
+              f"CPU run's by up to {float(rel.max()):.3e} relative "
+              f"(> {TRAIN_LOSS_TOL:g}): card {a['losses'][:CPU_STEPS]}, "
+              f"cpu {cpu_losses}")
+
+        # ms a step: host wall (above), and device spans by CUDA events of
+        # the forward (run alone, with grad), the forward and backward,
+        # and the AdamW update, synchronised between them (a span includes
+        # the card's idle gaps waiting on the host), over steps past the
+        # measured runs
+        tr = a["tr"]
+        spans = {"forward": [], "backward": [], "update": []}
+        for s in range(TRAIN_STEPS, TRAIN_STEPS + 30):
+            x, y = tr.batch(s)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            torch.cuda.synchronize()
+            params = tree_map(lambda p: p.detach().requires_grad_(True),
+                              tr.params)
+            ev[0].record()
+            tr.loss_fn(params, x, y)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ev[2].record()
+            _, grads = tr.value_and_grad(x, y)
+            ev[3].record()
+            torch.cuda.synchronize()
+            ev[4].record()
+            tr.apply(grads)
+            ev[5].record()
+            torch.cuda.synchronize()
+            fwd = ev[0].elapsed_time(ev[1])
+            spans["forward"].append(fwd)
+            spans["backward"].append(ev[2].elapsed_time(ev[3]) - fwd)
+            spans["update"].append(ev[4].elapsed_time(ev[5]))
+        span_ms = {k: statistics.median(v) for k, v in spans.items()}
+        # the spline-basis launches of one backward alone, device time
+        kan_i = model.layer_kinds.index("kan")
+        h = torch.from_numpy(tr._batch_at(0)[0]).to(dev)
+        with torch.no_grad():
+            for layer in range(kan_i):
+                p = tr.params[layer]
+                h = torch.relu(h @ p["w"] + p["b"])
+        spec = model.spec
+        hc = spec.clip(h)
+        orders = ([spec] + ([SplineSpec(spec.grid_size, spec.order - 1)]
+                            if want_step[arch]["spline_basis"] == 2 else []))
+        for o in orders:
+            spline_basis(hc, o)
+        sb_ms = graph_ms(lambda: [spline_basis(hc, o) for o in orders])
+        outside = 1.0 - sb_ms / span_ms["backward"]
+        train[arch].update({
+            "steps": TRAIN_STEPS, "val_mse_before": a["val0"],
+            "val_mse_after": a["val1"], "host_ms_per_step": a["wall_ms"],
+            "host_ms_per_step_run2": b["wall_ms"],
+            "device_span_ms": span_ms,
+            "device_span_ms_step": sum(span_ms.values()),
+            "spline_basis_backward_ms": sb_ms,
+            "backward_share_outside_kernels": outside,
+            "first_losses_card": a["losses"][:CPU_STEPS].tolist(),
+            "first_losses_cpu": cpu_losses.tolist(),
+            "loss_rel_err_vs_cpu": float(rel.max()), "card": card})
+        print(f"phase 8: (b) {arch}: {TRAIN_STEPS} steps at batch 64, "
+              f"validation MSE {a['val0']:.6f} -> {a['val1']:.6f}; two runs "
+              f"bitwise equal; first {CPU_STEPS} losses within "
+              f"{float(rel.max()):.3e} relative of the CPU run's; host "
+              f"{a['wall_ms']:.4f} ms a step ({b['wall_ms']:.4f} in the "
+              f"second run); device spans forward {span_ms['forward']:.4f} "
+              f"/ backward {span_ms['backward']:.4f} / update "
+              f"{span_ms['update']:.4f} ms; the backward's spline-basis "
+              f"launches {sb_ms:.4f} ms alone, {100 * outside:.1f}% of the "
+              f"backward span outside them ({card})")
+
+    # (c) the launcher end to end, then its checkpoint served
+    mixed_tr = VIKIN_ARCHS["vikin-mixed"]
+    val_x = tasks["vikin-mixed"]["val_x"][:24]
+    with tempfile.TemporaryDirectory() as ck:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "vikin-mixed", "--steps", str(TRAIN_STEPS), "--batch", "64",
+               "--pattern", "0.5", "--precision", "int8", "--device", DEVICE,
+               "--ckpt-dir", ck]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=600, env=dict(os.environ,
+                                                   PYTHONPATH=str(SRC)))
+        launcher_s = time.perf_counter() - t0
+        print("\n".join(f"phase 8: (c) | {line}"
+                        for line in run.stdout.strip().splitlines()[-8:]))
+        check(run.returncode == 0,
+              f"(c) the launcher exited {run.returncode}: "
+              f"{run.stderr[-2000:]}")
+        saved = restore_masks(ck)
+        params_ck, step_ck, extra = restore_checkpoint(
+            ck, vikin_stack_init(mixed_tr))
+        check(step_ck == TRAIN_STEPS,
+              f"(c) the checkpoint is at step {step_ck}, not {TRAIN_STEPS}")
+        # the launcher calibrated on the card, its dense forward through
+        # the kernels; a calibration of the saved params on the CPU (the
+        # plain versions) must give the same masks, except in a group where
+        # two saliencies tie within twice the largest card-vs-CPU saliency
+        # difference of their layer (each such basis is named)
+        calib_x = tasks["vikin-mixed"]["train_x"][:256]
+        sal_cpu = stack_saliencies(params_ck, mixed_tr, calib_x)
+        sal_card = stack_saliencies(tree_map(lambda p: p.to(dev), params_ck),
+                                    mixed_tr, calib_x)
+        ties, sal_diff = [], []
+        for i, (m, s_c, s_d) in enumerate(zip(saved, sal_cpu, sal_card)):
+            if s_c is None:
+                check(m is None, f"(c) layer {i}: a saved mask where the "
+                      f"calibration keeps the raw features dense")
+                continue
+            noise = float(np.abs(s_d - s_c).max())
+            sal_diff.append(noise / float(np.abs(s_c).max()))
+            cpu_keep = magnitude_mask(s_c, 2).keep
+            differ = np.nonzero(m.keep != cpu_keep)[0]
+            for g in sorted({int(j) // 4 for j in differ}):
+                idx = np.arange(4 * g, 4 * g + 4)
+                card_only = idx[m.keep[idx] & ~cpu_keep[idx]]
+                cpu_only = idx[cpu_keep[idx] & ~m.keep[idx]]
+                for a, b in zip(card_only, cpu_only):
+                    gap = abs(float(s_c[a]) - float(s_c[b]))
+                    check(gap <= 2 * noise,
+                          f"(c) layer {i}: the card kept basis {a}, the CPU "
+                          f"basis {b}; their saliencies {s_c[a]!r} and "
+                          f"{s_c[b]!r} differ by {gap:.3e}, more than twice "
+                          f"the card-vs-CPU difference {noise:.3e}")
+                    ties.append({"layer": i, "card_kept": int(a),
+                                 "cpu_kept": int(b), "gap": gap,
+                                 "noise": noise})
+        train["calibration"] = {"ties": ties,
+                                "saliency_rel_diff_card_cpu": sal_diff}
+        print(f"phase 8: (c) masks calibrated on the card by the launcher "
+              f"vs a CPU calibration of the saved params: "
+              + (f"{len(ties)} bases differ, each in a tie: {ties}" if ties
+                 else "equal")
+              + f"; card-vs-CPU saliency difference per masked layer, "
+              f"relative to its max: "
+              + ", ".join(f"{d:.3e}" for d in sal_diff))
+        for precision in ("f32", "int8"):
+            be = make_vikin_backend(mixed_tr, DEVICE, precision=precision,
+                                    ckpt=ck)
+            check(all(np.array_equal(m.keep, s_.keep) if m is not None
+                      else s_ is None for m, s_ in zip(be.masks, saved)),
+                  f"(c) {precision}: the served masks are not the saved ones")
+            eng = Engine(be, n_slots=8)
+            rids = [eng.submit(r) for r in val_x]
+            out = eng.run_until_done()
+            err, flips = hold(precision, be.stack, val_x,
+                              np.stack([out[r] for r in rids]),
+                              f"(c) {precision} trained checkpoint")
+            train.setdefault("launcher", {})[precision] = err
+            print(f"phase 8: (c) {precision}: the launcher's checkpoint "
+                  f"(step {step_ck}, {extra['task']}, val_dense "
+                  f"{extra['val_dense']}, val_sparse {extra['val_sparse']}, "
+                  f"keep rates {extra['mask_keep_rates']}) served {len(rids)} "
+                  f"validation windows, within "
+                  f"{SERVE_TOL:g}*(1+max|ref|) of the plain stack, max abs "
+                  f"err {err:.3e}; served masks == saved")
+        train["launcher"]["seconds"] = launcher_s
+
+    # (d) an asynchronous save overlapped with the next steps
+    tr = StackTrainer(mixed_tr, tasks["vikin-mixed"], train_cfg,
+                      params=inits["vikin-mixed"])
+    for s in range(20):
+        tr.train_step(s)
+    with tempfile.TemporaryDirectory() as ck:
+        saver = AsyncCheckpointer(ck, keep=2)
+        snap = tree_map(lambda p: p.detach().cpu().clone(), tr.params)
+        saver.save(20, tr.params)
+        for s in range(20, 40):
+            tr.train_step(s)
+        saver.wait()
+        back, step_ck, _ = restore_checkpoint(ck, snap)
+        same = all(torch.equal(p, q) for (_, p), (_, q) in zip(
+            leaf_paths(back), leaf_paths(snap)))
+        check(step_ck == 20 and same,
+              "(d) the restored params are not the snapshot's bits")
+        moved = not all(torch.equal(p.cpu(), q) for (_, p), (_, q) in zip(
+            leaf_paths(tr.params), leaf_paths(snap)))
+        check(moved, "(d) training did not move the params past the save")
+    print("phase 8: (d) AsyncCheckpointer: a save at step 20 written while "
+          "steps 20-39 ran on the card restores bitwise equal to the "
+          "snapshot")
+
     launched = {k: (served[p]["launches"][k], f"phase 3, {p} burst")
                 for p in PRECISIONS for k in SERVED_KERNELS[p]}
     launched["kan_fused_v1_bf16"] = (b_v1_launches["kan_fused_v1_bf16"],
@@ -1741,6 +2067,7 @@ def main() -> int:
             "replaces": info["replaces"], "launches": launched[k][0],
             "launches_phase": launched[k][1],
             "launches_openloop": open_launches[k],
+            "launches_train": train_launches[k],
             "max_abs_err": max_err[k], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -1760,6 +2087,7 @@ def main() -> int:
          "v1_path_bf16": {"launches": b_v1_launches,
                           "max_abs_err": b_v1_err},
          "openloop": {"payload_us": payload_us, "replays": openloop},
+         "train": train,
          "ptxas": usage,
          "knob_checks": knob_checks,
          "kernel_bench_launches": bench_launches},

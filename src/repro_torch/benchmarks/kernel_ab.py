@@ -5,7 +5,7 @@ Run from the repository root, on a machine with an NVIDIA GPU::
 
     git archive <parent> | tar -x -C build/base
     PYTHONPATH=src python -m repro_torch.benchmarks.kernel_ab \\
-        --parent build/base [--out chiprun_out/kernel_ab.json]
+        --parent build/base [--out chiprun_out/kernel_ab.json] [--served]
 
 Every kernel source of the parent checkout is built with ``nvcc`` beside
 this tree's (``-Xcompiler -fno-gnu-unique``: the launch helpers' function-
@@ -24,6 +24,13 @@ vikin-mlp3 stacks at batch 8192 too, and then the three archs' stacks at
 bucket 8 in each precision, as whole forwards, the same way (one
 tolerance a layer).
 It fails on the first output outside its tolerance.
+
+With ``--served`` it instead holds the served path of the two trees
+whole, Python wrappers included: each side's package, in a child process
+of its own (``dump_served``), serves every bucket (2, 4, 8, 16) of the
+three archs at f32, int8 and bf16 through ``make_vikin_backend`` on
+seeded batches, and every answer and every batch's launch counts must be
+bitwise the parent's.
 """
 from __future__ import annotations
 
@@ -31,11 +38,13 @@ import argparse
 import contextlib
 import ctypes
 import importlib.util
+import inspect
 import itertools
 import json
 import os
 import statistics
 import subprocess
+import sys
 from pathlib import Path
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -50,6 +59,7 @@ from repro_torch.kernels.epilogue import scale_bias_act
 from repro_torch.kernels.kan_fused import ops as kan_ops
 from repro_torch.kernels.kan_fused.ops import (
     flatten_t,
+    fuse_wt,
     kan_fused_v1,
     kan_fused_v2,
     kan_fused_v2_q8,
@@ -65,6 +75,8 @@ from repro_torch.kernels.pattern_matmul.ref import (
     matmul_q8_ref,
 )
 from repro_torch.kernels.spline_basis.ops import spline_basis
+from repro_torch.models.ffn import stack_layer_cfgs
+from repro_torch.utils import leaf_paths
 
 ROOT = _build.KERNELS_DIR.parents[2]
 ARCHS = ("vikin-kan2", "vikin-mlp3", "vikin-mixed")
@@ -163,6 +175,34 @@ def tooling_calls(stack, x: torch.Tensor
                      flat, layer.cfg.spec))]
         x = layer(x)
     return []
+
+
+def plain_stack(params, x: torch.Tensor, model) -> torch.Tensor:
+    """The dense stack through the kernels' plain versions, built from the
+    raw ``params`` so that autograd flows back to them: the reference the
+    training gradients through the kernels are held to."""
+    h = x
+    for p, (kind, cfg) in zip(params, stack_layer_cfgs(model)):
+        if kind == "kan":
+            kb = tuple(range(cfg.spec.n_bases))
+            h = kan_fused_v2_ref(
+                h, fuse_wt(p["w_b"], flatten_t(p["t"]), len(kb)), cfg.spec,
+                kb)
+        else:
+            h = matmul_compact_ref(h, p["w"], p["b"], cfg["act"])
+    return h
+
+
+def plain_grads(params, model, x: torch.Tensor, y: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, {leaf path: gradient}) of the mean squared error of
+    ``plain_stack`` on (x, y), at copies of ``params``."""
+    leaves = [{k: v.detach().clone().requires_grad_(True)
+               for k, v in p.items()} for p in params]
+    loss = torch.mean(torch.square(plain_stack(leaves, x, model) - y))
+    paths = leaf_paths(leaves)
+    grads = torch.autograd.grad(loss, [p for _, p in paths])
+    return loss.detach(), dict(zip((k for k, _ in paths), grads))
 
 
 # ------------------------------------------------------------------ timers
@@ -377,15 +417,104 @@ def run(parent_dir: str | Path, out: str | Path | None = None) -> Dict:
     return result
 
 
+def dump_served(out: str) -> None:
+    """Serve every bucket of the three archs at each precision through
+    ``make_vikin_backend`` (seed-0 weights) on seeded batches, on the
+    card; write the answers to ``out``.npz and each batch's launch counts
+    to ``out``.json.  ``served_ab`` runs this function's source in a child
+    process against one side's package, so it imports inside and uses only
+    what both sides have."""
+    import json
+    from pathlib import Path
+
+    import numpy as np
+
+    from repro_torch.configs.vikin_models import VIKIN_ARCHS
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import make_vikin_backend
+
+    answers, launches = {}, {}
+    for arch in ("vikin-kan2", "vikin-mlp3", "vikin-mixed"):
+        for precision in ("f32", "int8", "bf16"):
+            be = make_vikin_backend(VIKIN_ARCHS[arch], "cuda",
+                                    precision=precision)
+            for bucket in (2, 4, 8, 16):
+                xb = np.random.default_rng(bucket).random(
+                    (bucket, be.n_in), dtype=np.float32)
+                _build.reset_launches()
+                key = f"{arch}|{precision}|{bucket}"
+                answers[key] = be.forward(xb)
+                launches[key] = {k: v for k, v in _build.LAUNCHES.items()
+                                 if v}
+    np.savez(out + ".npz", **answers)
+    Path(out + ".json").write_text(json.dumps(launches))
+
+
+def served_ab(parent_dir: str | Path, out: str | Path | None = None
+              ) -> Dict:
+    """``dump_served`` under the parent's package and under this tree's,
+    each in its own process with its own kernel builds and a fresh knob
+    cache; every answer and every batch's launches must be bitwise equal
+    (raises otherwise)."""
+    code = ("import sys\n" + inspect.getsource(dump_served)
+            + "\ndump_served(sys.argv[1])\n")
+    sides = {}
+    for side, root in (("parent", Path(parent_dir).resolve()),
+                       ("change", ROOT)):
+        dump = ROOT / "build" / f"served_ab_{side}"
+        cache = ROOT / "build" / f"served_ab_{side}_autotune.json"
+        dump.parent.mkdir(parents=True, exist_ok=True)
+        cache.unlink(missing_ok=True)
+        run = subprocess.run(
+            [sys.executable, "-c", code, str(dump)], cwd=root,
+            capture_output=True, text=True, timeout=900,
+            env=dict(os.environ, PYTHONPATH=str(root / "src"),
+                     REPRO_TORCH_AUTOTUNE_CACHE=str(cache)))
+        if run.returncode != 0:
+            raise RuntimeError(f"kernel_ab --served: the {side}'s serving "
+                               f"exited {run.returncode}\n{run.stderr}")
+        with np.load(f"{dump}.npz") as z:
+            answers = {k: z[k] for k in z.files}
+        sides[side] = (answers, json.loads(Path(f"{dump}.json").read_text()))
+    (p_ans, p_launch), (c_ans, c_launch) = sides["parent"], sides["change"]
+    if sorted(p_ans) != sorted(c_ans):
+        raise AssertionError(f"kernel_ab --served: parent served "
+                             f"{sorted(p_ans)}, change {sorted(c_ans)}")
+    rows = [{"batch": k, "bitwise": bool(np.array_equal(p_ans[k], c_ans[k])),
+             "launches_equal": p_launch[k] == c_launch[k],
+             "launches": c_launch[k]} for k in sorted(c_ans)]
+    for row in rows:
+        print(json.dumps(row))
+    bad = [r["batch"] for r in rows
+           if not (r["bitwise"] and r["launches_equal"])]
+    result = {"device": torch.cuda.get_device_name(0), "served": rows}
+    if out is not None:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(json.dumps(result, indent=1))
+    if bad:
+        raise AssertionError(f"kernel_ab --served: {len(bad)} of "
+                             f"{len(rows)} served batches differ from the "
+                             f"parent's in answers or launches: {bad}")
+    print(f"kernel_ab --served: {len(rows)} served batches, answers and "
+          f"launches bitwise the parent's")
+    return result
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True,
                     help="a checkout of the commit to compare with")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" /
                                          "kernel_ab.json"))
+    ap.add_argument("--served", action="store_true",
+                    help="compare the two trees' served answers and "
+                         "launches bitwise instead (dump_served)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs a CUDA device")
+    if args.served:
+        served_ab(args.parent, args.out)
+        return
     os.environ.setdefault("REPRO_TORCH_AUTOTUNE_CACHE",
                           str(ROOT / "build" / "kernel_ab_autotune.json"))
     run(args.parent, args.out)

@@ -1,8 +1,9 @@
-"""Restore the reference's checkpoints into the port: params, masks, scales.
+"""Checkpoints in the reference's layout: params, masks, int8 scales.
 
-Counterpart of the read half of ``repro/checkpoint/checkpoint.py``; the
-on-disk layout is the reference's, so the port serves what the
-reference's trainer saved:
+Counterpart of ``repro/checkpoint/checkpoint.py``; the on-disk layout and
+commit protocol are the reference's, so the port serves what the
+reference's trainer saved and the reference restores what the port's
+trainer saved:
 
     <dir>/step_<N>/manifest.json   step, leaf shapes and dtypes, extra,
                                    and which masks / scales are present
@@ -11,6 +12,13 @@ reference's trainer saved:
     <dir>/step_<N>/masks.npz       ``mask_<i>``: bool keep array of layer i
     <dir>/step_<N>/scales.npz      ``x_<i>``, and ``w_<i>`` (mlp) or
                                    ``wb_<i>`` + ``t_<i>`` (kan)
+
+A step is written into ``<dir>/.tmp.<N>`` and ``os.replace``d into
+``step_<N>`` only when complete (params, masks and scales in one commit);
+``keep`` then deletes all but the newest ``keep`` steps.
+``AsyncCheckpointer`` copies the tree to host numpy on the calling thread
+(a CUDA tensor is copied and synchronised there) and writes it on a
+thread that touches only those host arrays.
 
 Restore works into a target of the port's shape -- a list of per-layer
 dicts of tensors or arrays -- whose leaf paths are written the way
@@ -23,13 +31,16 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Any, Dict, List, Optional, Tuple
+import shutil
+import threading
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.quant import LayerScales, StackScales
 from repro_torch.core.sparsity import PatternMask
+from repro_torch.utils import leaf_paths, tree_map, tree_map_with_path
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 _MASK_FILE = "masks.npz"
@@ -40,32 +51,10 @@ class CheckpointMismatchError(ValueError):
     """A checkpoint does not fit the restore target's tree structure."""
 
 
-def _leaf_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
-    """(keystr path, leaf) of every tensor or array in a nest of lists,
-    tuples and dicts, in order."""
-    if isinstance(tree, dict):
-        return [kv for k in sorted(tree)
-                for kv in _leaf_paths(tree[k], f"{prefix}[{k!r}]")]
-    if isinstance(tree, (list, tuple)):
-        return [kv for i, v in enumerate(tree)
-                for kv in _leaf_paths(v, f"{prefix}[{i}]")]
-    return [(prefix, tree)]
-
-
 def _np_dtype(leaf: Any) -> np.dtype:
     if torch.is_tensor(leaf):
         return torch.empty((), dtype=leaf.dtype).numpy().dtype
     return np.asarray(leaf).dtype
-
-
-def _rebuild(tree: Any, leaves: Dict[str, Any], prefix: str = "") -> Any:
-    if isinstance(tree, dict):
-        return {k: _rebuild(v, leaves, f"{prefix}[{k!r}]")
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, leaves, f"{prefix}[{i}]")
-                          for i, v in enumerate(tree))
-    return leaves[prefix]
 
 
 def _unflatten_into(target: Any, flat: Dict[str, np.ndarray],
@@ -74,7 +63,7 @@ def _unflatten_into(target: Any, flat: Dict[str, np.ndarray],
     (missing leaves, shape and dtype mismatches) is collected and raised as
     ONE CheckpointMismatchError naming each offending key.  ``cast=True``
     coerces saved leaves to the target's dtypes instead of refusing."""
-    paths = _leaf_paths(target)
+    paths = leaf_paths(target)
     problems: List[str] = []
     for key, leaf in paths:
         shape = tuple(leaf.shape)
@@ -105,7 +94,118 @@ def _unflatten_into(target: Any, flat: Dict[str, np.ndarray],
         a = flat[key].astype(_np_dtype(leaf)) if cast else flat[key]
         leaves[key] = (torch.from_numpy(np.array(a)).to(leaf.device)
                        if torch.is_tensor(leaf) else np.array(a))
-    return _rebuild(target, leaves)
+    return tree_map_with_path(lambda path, _: leaves[path], target)
+
+
+def _host(leaf: Any) -> np.ndarray:
+    """A host numpy copy of a tensor (on any device) or array leaf."""
+    if torch.is_tensor(leaf):
+        return leaf.detach().to("cpu", copy=True).numpy()
+    return np.array(leaf)
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
+                    extra: Optional[Dict[str, Any]] = None,
+                    keep: Optional[int] = None,
+                    masks: Optional[Sequence[Optional[PatternMask]]] = None,
+                    scales: Optional[StackScales] = None) -> str:
+    """Atomically write ``tree`` (and the json-serializable ``extra``) as
+    step ``step``; returns the committed directory.
+
+    ``masks`` (one Optional[PatternMask] per layer) land in ``masks.npz``
+    and ``scales`` in ``scales.npz`` inside the same commit, so params,
+    masks and scales never drift apart.  ``keep`` deletes all but the
+    newest ``keep`` committed steps, after the commit.
+    """
+    os.makedirs(ckpt_dir, exist_ok=True)
+    tmp = os.path.join(ckpt_dir, f".tmp.{step}")
+    final = os.path.join(ckpt_dir, f"step_{step}")
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+
+    flat = {k: _host(v) for k, v in leaf_paths(tree)}
+    np.savez(os.path.join(tmp, "arrays.npz"), **flat)
+    manifest: Dict[str, Any] = {
+        "step": step,
+        "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+                   for k, v in flat.items()},
+        "extra": extra or {},
+        "format": 1,
+    }
+    if masks is not None:
+        np.savez(os.path.join(tmp, _MASK_FILE),
+                 **{f"mask_{i}": np.asarray(m.keep, np.bool_)
+                    for i, m in enumerate(masks) if m is not None})
+        manifest["masks"] = {
+            "n_layers": len(masks),
+            "present": [i for i, m in enumerate(masks) if m is not None],
+        }
+    if scales is not None:
+        arrays: Dict[str, np.ndarray] = {}
+        for i, ls in enumerate(scales.scales):
+            arrays[f"x_{i}"] = np.asarray(ls.x, np.float32)
+            if ls.kind == "mlp":
+                arrays[f"w_{i}"] = np.asarray(ls.w, np.float32)
+            else:
+                arrays[f"wb_{i}"] = np.asarray(ls.w_b, np.float32)
+                arrays[f"t_{i}"] = np.asarray(ls.t, np.float32)
+        np.savez(os.path.join(tmp, _SCALE_FILE), **arrays)
+        manifest["scales"] = {
+            "n_layers": len(scales.scales),
+            "kinds": [ls.kind for ls in scales.scales],
+        }
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)  # commit point
+
+    if keep is not None:
+        for old in sorted(all_steps(ckpt_dir))[:-keep]:
+            shutil.rmtree(os.path.join(ckpt_dir, f"step_{old}"),
+                          ignore_errors=True)
+    return final
+
+
+class AsyncCheckpointer:
+    """Overlap checkpoint writes with training.
+
+    ``save`` blocks only for the copy of the tree to host numpy; the
+    files are written on a thread.  An error there is raised by the next
+    ``wait()`` (or ``save``, which waits first).  Call ``wait()`` before
+    exit or before reading the directory.
+    """
+
+    def __init__(self, ckpt_dir: str, keep: Optional[int] = 3) -> None:
+        self.ckpt_dir = ckpt_dir
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, step: int, tree: Any,
+             extra: Optional[Dict[str, Any]] = None) -> None:
+        self.wait()
+        host_tree = tree_map(_host, tree)
+
+        def write() -> None:
+            try:
+                save_checkpoint(self.ckpt_dir, step, host_tree, extra=extra,
+                                keep=self.keep)
+            except Exception as e:  # raised by the next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=write, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
 
 def all_steps(ckpt_dir: str) -> List[int]:

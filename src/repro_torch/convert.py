@@ -1,4 +1,4 @@
-"""Carry the JAX package's weights, masks and int8 scales into the port.
+"""Carry weights, masks and int8 scales between the JAX package and the port.
 
 ``jax.random`` draws cannot be reproduced with ``torch.Generator``s, so
 parity tests and served checkpoints move weights across instead of
@@ -7,6 +7,10 @@ so both packages contract like with like:
 
 * kan layer: ``{"w_b": (n_in, n_out), "t": (n_in, G+K, n_out)}``
 * mlp layer: ``{"w": (n_in, n_out), "b": (n_out,)}``
+
+``stack_params_to_numpy`` is the reverse direction: the port's params
+(trained on any device) as numpy arrays in that layout, which the
+reference's functions take as they are.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from repro_torch.core.kan import KANConfig
 from repro_torch.core.quant import LayerScales, StackScales
 from repro_torch.core.sparsity import PatternMask
 from repro_torch.models.ffn import stack_layer_cfgs
+from repro_torch.utils import host_f32
 
 
 def _layer_from_jax(p: Mapping[str, Any], want: Mapping[str, tuple],
@@ -91,3 +96,10 @@ def scales_from_jax(scales: Any) -> StackScales:
                                    w_b=float(ls.w_b),
                                    t=np.array(ls.t, np.float32)))
     return StackScales(tuple(out))
+
+
+def stack_params_to_numpy(params: Sequence[Mapping[str, Any]]
+                          ) -> List[Dict[str, np.ndarray]]:
+    """The port's stack params (one dict of tensors per layer, on any
+    device) as f32 numpy arrays in the same layout, one dict per layer."""
+    return [{k: host_f32(v).copy() for k, v in p.items()} for p in params]

@@ -13,9 +13,13 @@ Counterpart of the stack half of ``repro/core/calibrate.py``:
   * **Scales** (``calibrate_scales``): from the same calibration batch,
     the symmetric int8 scales of core/quant.
 
-Everything runs on the CPU through the kernels' plain versions, as the
-reference calibrates with ``impl="jnp"``, and reduces with host numpy, so
-a fixed seed gives the same masks and scales on every machine.
+The dense forward and the basis values run on the params' device: on
+the card the forward launches the kernels (``VikinStack`` under
+``inference_mode``, as serving runs it), on the CPU their plain versions
+run, as the reference calibrates with its trainer's ``impl``.  The
+saliencies and scales are then reduced with host numpy, as the
+reference's are, so on the CPU a fixed seed gives the reference's masks
+and scales bitwise.
 """
 from __future__ import annotations
 
@@ -65,32 +69,51 @@ def keep_per_group_for_rate(rate: float) -> int:
     return m
 
 
+def params_device(params: Sequence[Dict[str, Any]]) -> torch.device:
+    """The device of the stack's first tensor leaf (host arrays: CPU)."""
+    for p in params:
+        for v in p.values():
+            if torch.is_tensor(v):
+                return v.device
+    return torch.device("cpu")
+
+
+def _f32_on(a: Any, device: torch.device) -> torch.Tensor:
+    if torch.is_tensor(a):
+        return a.detach().to(device, torch.float32)
+    return torch.from_numpy(host_f32(a).copy()).to(device)
+
+
 def stack_activations(params: Sequence[Dict[str, Any]], model: Any,
                       x: np.ndarray) -> List[np.ndarray]:
     """Per-layer *input* activations of a dense forward over ``x``.
 
-    Returns [h_0 .. h_{L-1}] where h_i feeds layer i (h_0 = x).  The stack
-    runs dense (pattern_rate forced to 0), on the CPU, because calibration
-    must see the unmasked distribution.
+    Returns [h_0 .. h_{L-1}] where h_i feeds layer i (h_0 = x), each
+    copied to the host.  The stack runs dense (pattern_rate forced to 0),
+    because calibration must see the unmasked distribution, on the params'
+    device: the kernels on the card, their plain versions on the CPU.
     """
     dense_model = dataclasses.replace(model, pattern_rate=0.0)
-    cpu = [{k: torch.from_numpy(host_f32(v).copy()) for k, v in p.items()}
-           for p in params]
-    stack = VikinStack(dense_model, cpu)
-    h = torch.from_numpy(host_f32(x).copy())
+    dev = params_device(params)
+    stack = VikinStack(dense_model, [{k: _f32_on(v, dev)
+                                      for k, v in p.items()} for p in params])
+    h = _f32_on(x, dev)
     acts = []
     with torch.inference_mode():
         for layer in stack.layers:
-            acts.append(h.numpy().copy())
+            acts.append(host_f32(h))
             h = layer(h)
     return acts
 
 
 def kan_basis_saliency(p: Dict[str, Any], spec: SplineSpec,
                        x: np.ndarray) -> np.ndarray:
-    """Wanda-style per-basis saliency: mean |B_i(x)| x L1(t[:, i, :])."""
-    b = bases_dense(spec.clip(torch.from_numpy(host_f32(x).copy())),
-                    spec).numpy()
+    """Wanda-style per-basis saliency: mean |B_i(x)| x L1(t[:, i, :]).
+
+    The basis values are taken on the device of ``p["t"]`` through the
+    dense basis (the reference's saliency calls no kernel either)."""
+    xd = _f32_on(x, params_device([p]))
+    b = host_f32(bases_dense(spec.clip(xd), spec))
     act_energy = np.abs(b).mean(axis=(0, 1))                # (n_bases,)
     coeff_mass = np.abs(host_f32(p["t"])).sum(axis=(0, 2))  # (n_bases,)
     return act_energy * coeff_mass
@@ -103,6 +126,24 @@ def mlp_input_saliency(p: Dict[str, Any], x: np.ndarray) -> np.ndarray:
     return act_rms * weight_saliency(host_f32(p["w"]))      # (n_in,)
 
 
+def stack_saliencies(params: Sequence[Dict[str, Any]], model: Any,
+                     calib_x: np.ndarray) -> List[Optional[np.ndarray]]:
+    """Each layer's stage-2 saliency over ``calib_x`` (per basis for a KAN
+    layer, per input node for an MLP layer; None for an MLP layer 0)."""
+    dense_model = dataclasses.replace(model, pattern_rate=0.0)
+    acts = stack_activations(params, dense_model, calib_x)
+    sal: List[Optional[np.ndarray]] = []
+    for i, (p, (kind, cfg)) in enumerate(
+            zip(params, stack_layer_cfgs(dense_model))):
+        if kind == "kan":
+            sal.append(kan_basis_saliency(p, cfg.spec, acts[i]))
+        elif i == 0:
+            sal.append(None)        # raw features are never masked
+        else:
+            sal.append(mlp_input_saliency(p, acts[i]))
+    return sal
+
+
 def calibrate_stack(params: Sequence[Dict[str, Any]], model: Any,
                     calib_x: np.ndarray, *,
                     keep_per_group: int = 2) -> StackSparsity:
@@ -113,22 +154,10 @@ def calibrate_stack(params: Sequence[Dict[str, Any]], model: Any,
     """
     if not 1 <= keep_per_group <= GROUP:
         raise ValueError(f"keep_per_group must be in [1, {GROUP}]")
-    dense_model = dataclasses.replace(model, pattern_rate=0.0)
-    acts = stack_activations(params, dense_model, calib_x)
-    masks: List[Optional[PatternMask]] = []
-    for i, (p, (kind, cfg)) in enumerate(
-            zip(params, stack_layer_cfgs(dense_model))):
-        if keep_per_group == GROUP:
-            masks.append(None)
-        elif kind == "kan":
-            sal = kan_basis_saliency(p, cfg.spec, acts[i])
-            masks.append(magnitude_mask(sal, keep_per_group))
-        elif i == 0:
-            masks.append(None)      # raw features are never masked
-        else:
-            sal = mlp_input_saliency(p, acts[i])
-            masks.append(magnitude_mask(sal, keep_per_group))
-    return StackSparsity(tuple(masks))
+    sal = stack_saliencies(params, model, calib_x)
+    return StackSparsity(tuple(
+        None if s is None or keep_per_group == GROUP
+        else magnitude_mask(s, keep_per_group) for s in sal))
 
 
 def masked_pattern_rates(masks: Sequence[Optional[PatternMask]]

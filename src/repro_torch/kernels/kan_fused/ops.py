@@ -27,6 +27,12 @@ take raises, on the CPU too.
 Weights keep the JAX package's layouts: ``w_b`` (n_in, n_out), ``t``
 (n_in, G+K, n_out), ``t_flat`` (n_in*nbk, n_out) feature-major, and the
 fused ``wt`` (n_in*(nbk+1), n_out) with the silu row first per feature.
+
+``kan_fused_v2`` has a gradient at f32 (``KanFusedV2``, taken only when
+grad is enabled and x or wt requires it; ``kernels/grad.py``): the
+forward is the kernel, and the backward rebuilds the fused activations
+from the spline-basis kernel at order K and their derivatives from it at
+order K - 1.
 """
 from __future__ import annotations
 
@@ -35,14 +41,16 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.splines import SplineSpec
+from repro_torch.core.splines import SplineSpec, locate_cell
 from repro_torch.kernels import _build, autotune
 from repro_torch.kernels.epilogue import resolve_out_dtype
+from repro_torch.kernels.grad import grad_wanted, ieee_matmul, refuse_grad
 from repro_torch.kernels.kan_fused.ref import (
     kan_fused_v1_ref,
     kan_fused_v2_q8_ref,
     kan_fused_v2_ref,
 )
+from repro_torch.kernels.spline_basis.ops import spline_basis
 from repro_torch.utils import next_pow2
 
 KERNEL = "kan_fused_v2"
@@ -342,6 +350,10 @@ def kan_fused_v2(x: torch.Tensor, wt: torch.Tensor, spec: SplineSpec,
     """
     dtype, what = kernel_dtype(x)
     out_dtype = resolve_out_dtype("kan_fused_v2", x, out_dtype)
+    if grad_wanted(x, wt):
+        if dtype != torch.float32 or out_dtype != torch.float32:
+            refuse_grad("kan_fused_v2", "at bf16")
+        return KanFusedV2.apply(x, wt, spec, tuple(kb), slot_of, blocks)
     if x.device.type == "cpu":
         if blocks is not None:
             check_blocks(_as_blocks(blocks), x.shape[-1], wt.shape[-1],
@@ -371,6 +383,84 @@ def kan_fused_v2(x: torch.Tensor, wt: torch.Tensor, spec: SplineSpec,
     return out
 
 
+def _kept(v: torch.Tensor, spec: SplineSpec,
+          kb: Tuple[int, ...]) -> torch.Tensor:
+    """The kept-basis columns ``kb`` of (..., G+K) ``v``."""
+    if tuple(kb) == tuple(range(spec.n_bases)):
+        return v
+    return v.index_select(-1, torch.as_tensor(kb, dtype=torch.long,
+                                              device=v.device))
+
+
+def fused_activations(x: torch.Tensor, spec: SplineSpec,
+                      kb: Tuple[int, ...]) -> torch.Tensor:
+    """The (B, n_in, nbk+1) ``[silu(x) | kept bases of clip(x)]`` rows
+    the version-2 layer contracts against ``wt``, the bases from
+    ``spline_basis`` (the kernel on a CUDA tensor)."""
+    bases = _kept(spline_basis(spec.clip(x), spec), spec, kb)
+    return torch.cat([(x * torch.sigmoid(x))[..., None], bases], dim=-1)
+
+
+def fused_activation_grads(x: torch.Tensor, spec: SplineSpec,
+                           kb: Tuple[int, ...]) -> torch.Tensor:
+    """d/dx of ``fused_activations``, (B, n_in, nbk+1).
+
+    On the uniform grid ``B_i' = (Bm_{i-1} - Bm_i) / h``, with ``Bm`` the
+    order K - 1 basis (from ``spline_basis``; the cell indicator at K = 1)
+    and zero outside its index range.  clip's derivative is 1 inside the
+    grid, 0 outside and 1/2 at a bound, where JAX's ``jnp.clip`` splits
+    the tie.
+    """
+    G, K = spec.grid_size, spec.order
+    xc = spec.clip(x)
+    if K > 1:
+        lower = spline_basis(xc, SplineSpec(G, K - 1, spec.x0, spec.x1))
+    else:
+        cell = locate_cell(xc, spec)[0].long()
+        lower = torch.nn.functional.one_hot(cell, G).to(x.dtype)
+    lower = torch.nn.functional.pad(lower, (1, 1))          # Bm_{i-1} at i
+    dbases = _kept((lower[..., :-1] - lower[..., 1:]) * spec.inv_h, spec, kb)
+    inside = (x > spec.x0) & (x < spec.clip_hi)
+    at_bound = (x == spec.x0) | (x == spec.clip_hi)
+    dclip = inside.to(x.dtype) + 0.5 * at_bound.to(x.dtype)
+    sig = torch.sigmoid(x)
+    dsilu = sig + x * (sig * (1 - sig))
+    return torch.cat([dsilu[..., None], dbases * dclip[..., None]], dim=-1)
+
+
+class KanFusedV2(torch.autograd.Function):
+    """The f32 version-2 layer with its gradient with respect to x and
+    the fused ``wt``; ``fuse_wt`` is plain torch ops, so autograd carries
+    ``d wt`` back to ``w_b`` and ``t``.
+
+    ``d wt = A^T g`` over the (B, n_in*(nbk+1)) activations A
+    (``fused_activations``, the order-K basis), and ``dx_p = sum_s
+    dA_{p,s} (g wt^T)_{p,s}`` (``fused_activation_grads``, the order K - 1
+    basis), each basis computed only when its gradient is asked for; the
+    products in IEEE f32.  The backward runs no part of the plain version.
+    """
+
+    @staticmethod
+    def forward(ctx, x, wt, spec, kb, slot_of, blocks):  # noqa: D102
+        ctx.spec, ctx.kb = spec, kb
+        ctx.save_for_backward(x, wt)
+        return kan_fused_v2(x, wt, spec, kb, slot_of, blocks=blocks)
+
+    @staticmethod
+    def backward(ctx, g):  # noqa: D102
+        x, wt = ctx.saved_tensors
+        B, n_in = x.shape
+        g = g.contiguous()
+        dx = dwt = None
+        if ctx.needs_input_grad[1]:
+            a = fused_activations(x, ctx.spec, ctx.kb)
+            dwt = ieee_matmul(a.reshape(B, -1).t(), g)
+        if ctx.needs_input_grad[0]:
+            gw = ieee_matmul(g, wt.t()).reshape(B, n_in, -1)
+            dx = (fused_activation_grads(x, ctx.spec, ctx.kb) * gw).sum(-1)
+        return dx, dwt, None, None, None, None
+
+
 def kan_fused_v1(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
                  spec: SplineSpec, kb: Tuple[int, ...],
                  slot_of: Optional[torch.Tensor] = None, *,
@@ -384,6 +474,8 @@ def kan_fused_v1(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
     ``kan_fused_v1``) before the defaults."""
     dtype, what = kernel_dtype(x)
     out_dtype = resolve_out_dtype("kan_fused_v1", x, out_dtype)
+    if grad_wanted(x, w_b, t_flat):
+        refuse_grad("kan_fused_v1", "through the version-1 kernel")
     if x.device.type == "cpu":
         if blocks is not None:
             check_blocks(_as_blocks(blocks), x.shape[-1], w_b.shape[-1],
@@ -426,6 +518,8 @@ def kan_fused_v2_q8(x_q: torch.Tensor, wt_q: torch.Tensor,
     (nbk+1,) f32 ``slot_scales``; f32 accumulate, f32 out.  ``blocks``
     overrides the kernel's (bm, bi, bn)."""
     nbk = len(kb)
+    if grad_wanted(slot_scales):
+        refuse_grad("kan_fused_v2_q8", "through the int8 kernel")
     if slot_scales.shape != (nbk + 1,):
         raise ValueError(f"kan_fused_v2_q8: slot_scales has shape "
                          f"{tuple(slot_scales.shape)} for nbk={nbk}")

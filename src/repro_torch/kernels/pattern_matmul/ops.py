@@ -20,6 +20,11 @@ bucket; the wrappers never search (``autotune.tune_pattern_matmul``
 does, and ``launch/serve.py`` runs it under ``REPRO_TORCH_AUTOTUNE=1``).
 No knob changes a bit of the output (the kernels' notes say why).  A
 knob the kernel does not take raises, on the CPU too.
+
+``matmul_compact`` has a gradient at f32 with the ``relu`` and ``None``
+epilogues (``MatmulCompact``, taken only when grad is enabled and an
+operand requires it; ``kernels/grad.py``): the forward is the kernel,
+the backward three IEEE f32 products in PyTorch ops.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from repro_torch.kernels.epilogue import (
     resolve_out_dtype,
     scale_bias_act,
 )
+from repro_torch.kernels.grad import grad_wanted, ieee_matmul, refuse_grad
 from repro_torch.kernels.pattern_matmul.ref import (
     matmul_compact_ref,
     matmul_q8_ref,
@@ -265,6 +271,12 @@ def matmul_compact(x_c: torch.Tensor, w_c: torch.Tensor,
     bf16 = x_c.dtype == torch.bfloat16
     dtype = torch.bfloat16 if bf16 else torch.float32
     out_dtype = resolve_out_dtype("matmul_compact", x_c, out_dtype)
+    if grad_wanted(x_c, w_c, bias):
+        if bf16 or out_dtype != torch.float32:
+            refuse_grad("matmul_compact", "at bf16")
+        if act not in (None, "relu"):
+            refuse_grad("matmul_compact", f"through the {act} epilogue")
+        return MatmulCompact.apply(x_c, w_c, bias, act, blocks)
     if x_c.device.type == "cpu":
         if blocks is not None:
             check_blocks(_as_blocks(blocks), x_c.shape[-1], w_c.shape[-1],
@@ -296,6 +308,29 @@ def matmul_compact(x_c: torch.Tensor, w_c: torch.Tensor,
         ACT_CODES[act], *out_f32, bm, bk, bn,
         torch.cuda.current_stream(x_c.device).cuda_stream)
     return y
+
+
+class MatmulCompact(torch.autograd.Function):
+    """The f32 ``act(x_c @ w_c + bias)`` (act None or relu) with its
+    gradient: ``g' = g * (y > 0)`` at relu (0 at 0, as ``jax.nn.relu``),
+    ``dx_c = g' w_c^T``, ``dw_c = x_c^T g'``, ``dbias = sum_rows g'``."""
+
+    @staticmethod
+    def forward(ctx, x_c, w_c, bias, act, blocks):  # noqa: D102
+        y = matmul_compact(x_c, w_c, bias, act, blocks=blocks)
+        ctx.save_for_backward(x_c, w_c, y if act == "relu" else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):  # noqa: D102
+        x_c, w_c, y = ctx.saved_tensors
+        if y is not None:
+            g = torch.where(y > 0, g, torch.zeros_like(g))
+        need = ctx.needs_input_grad
+        dx = ieee_matmul(g, w_c.t()) if need[0] else None
+        dw = ieee_matmul(x_c.t(), g) if need[1] else None
+        db = g.sum(0) if need[2] else None
+        return dx, dw, db, None, None
 
 
 def matmul_q8(x_q: torch.Tensor, w_q: torch.Tensor, *,

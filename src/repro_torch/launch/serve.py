@@ -92,8 +92,9 @@ def make_vikin_backend(model: Any, device: str, seed: int = 0, *,
         if precision == "int8" and scales is None:
             raise SystemExit(
                 f"--precision int8 needs calibrated scales, but {ckpt} has "
-                f"no scales.npz; re-export it with the reference's "
-                f"launch/train.py (scales are emitted beside the masks)")
+                f"no scales.npz; re-export it with `python -m "
+                f"repro_torch.launch.train` (scales are saved beside the "
+                f"masks)")
     elif precision == "int8":
         rng = np.random.default_rng(0)
         calib_x = rng.random((256, model.sizes[0])).astype(np.float32)

@@ -180,6 +180,9 @@ def vikin_stack_apply(params: Sequence[Params], x: torch.Tensor, model: Any,
     ``layer_range=(lo, hi)`` runs only those layers against the full or a
     matching pre-sliced ``params``; ``x`` is then layer ``lo``'s input.
     Builds the layers on every call; serving holds a ``VikinStack``.
+    Differentiable with respect to the param tensors (and ``x``): the
+    weight fusion and compaction are torch ops, and at f32 the KAN and
+    matmul kernels carry their gradients (``kernels/grad.py``).
     """
     moved = [{k: v.to(x.device) for k, v in p.items()} for p in params]
     return VikinStack(model, moved, masks, layer_range)(x)

@@ -126,8 +126,8 @@ def test_magnitude_mask_and_weight_saliency_match_reference(keep, n):
 
 
 def test_calibration_runs_on_the_cpu_from_any_device_tensors():
-    """Params may be tensors or arrays; calibration moves them to the
-    CPU and gives the same scales either way."""
+    """Params may be tensors or arrays; calibration runs on the params'
+    device (here the CPU for both) and gives the same scales either way."""
     jp, calib_x, tp = _setup("vikin-mixed")
     model = VIKIN_ARCHS["vikin-mixed"]
     as_np = [{k: v.numpy() for k, v in p.items()} for p in tp]
@@ -135,3 +135,19 @@ def test_calibration_runs_on_the_cpu_from_any_device_tensors():
     b = tcal.calibrate_scales(as_np, model, calib_x)
     for x, y in zip(a.scales, b.scales):
         assert x.x == y.x
+
+
+@pytest.mark.parametrize("arch", ["vikin-mixed", "vikin-kan3"])
+def test_stack_saliencies_give_the_reference_masks(arch):
+    """``stack_saliencies`` (what ``calibrate_stack`` ranks) gives, through
+    ``magnitude_mask``, the reference's masks; None only for an MLP
+    layer 0."""
+    jp, calib_x, tp = _setup(arch)
+    sal = tcal.stack_saliencies(tp, VIKIN_ARCHS[arch], calib_x)
+    jm = jcal.calibrate_stack(jp, J_ARCHS[arch], calib_x, keep_per_group=2)
+    kinds = VIKIN_ARCHS[arch].layer_kinds
+    for i, (s, j) in enumerate(zip(sal, jm.masks)):
+        assert (s is None) == (i == 0 and kinds[0] == "mlp") == (j is None)
+        if s is not None:
+            np.testing.assert_array_equal(tsp.magnitude_mask(s, 2).keep,
+                                          j.keep)

@@ -1301,3 +1301,117 @@ def test_bf16_backend_on_cuda_serves_through_bf16_kernels(cuda, arch):
         srid = solo.submit(x)
         assert np.array_equal(solo.run_until_done()[srid], out[rid])
     assert eng.stats["sim_cycles"] > 0
+
+
+# ---------------------------------------------------------------- training
+# A gradient through the kernels' autograd Functions (the f32 v2 KAN and
+# pattern-matmul kernels forward, the spline-basis kernel in the KAN
+# backward) against autograd through the plain versions on the card:
+# within TOL * max|plain| of each leaf (its gradient is far below 1).
+
+from repro_torch.benchmarks.kernel_ab import plain_grads  # noqa: E402
+from repro_torch.core import calibrate as tcal  # noqa: E402
+from repro_torch.core.sparsity import magnitude_mask  # noqa: E402
+from repro_torch.data.stack_task import task_for_model  # noqa: E402
+from repro_torch.runtime.trainer import (  # noqa: E402
+    StackTrainer,
+    StackTrainerConfig,
+)
+from repro_torch.utils import leaf_paths  # noqa: E402
+
+STEP_LAUNCHES = {"vikin-mixed": {"kan_fused_v2": 1, "pattern_matmul": 2,
+                                 "spline_basis": 2},
+                 "vikin-kan2": {"kan_fused_v2": 1, "spline_basis": 1},
+                 "vikin-mlp3": {"pattern_matmul": 2}}
+
+
+@pytest.mark.parametrize("arch", sorted(STEP_LAUNCHES))
+def test_train_step_grads_and_launches(cuda, arch):
+    model = VIKIN_ARCHS[arch]
+    tr = StackTrainer(model, task_for_model(model),
+                      StackTrainerConfig(batch_size=64, device="cuda"))
+    x, y = tr.batch(0)
+    _build.reset_launches()
+    got = dict(leaf_paths(tr.value_and_grad(x, y)[1]))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == \
+        STEP_LAUNCHES[arch]
+    ref = plain_grads(tr.params, model, x, y)[1]
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        err = float((got[k] - ref[k]).abs().max())
+        assert err <= TOL * float(ref[k].abs().max()), (k, err)
+
+
+@pytest.mark.parametrize("G,K", [(4, 3), (8, 2), (16, 4), (4, 1)])
+def test_kan_grad_on_card_matches_cpu(cuda, G, K):
+    """The same layer's gradient on the card (kernels) and on the CPU
+    (plain versions), inputs at x0, at x1 - eps, outside the grid and on
+    knots included."""
+    spec = SplineSpec(G, K)
+    kb = tuple(range(0, spec.n_bases, 2))
+    gen = torch.Generator().manual_seed(G + K)
+    x = torch.rand((40, 37), generator=gen) * 2.6 - 1.3
+    x[0, :4] = torch.tensor([spec.x0, spec.clip_hi, 1.0, -1.5])
+    x[1, :G + 1] = torch.linspace(-1.0, 1.0, G + 1)
+    wt = torch.randn((37 * (len(kb) + 1), 11), generator=gen) * 0.3
+    g = torch.randn((40, 11), generator=gen)
+    out = {}
+    for dev in ("cpu", cuda):
+        xd = x.to(dev).clone().requires_grad_(True)
+        wd = wt.to(dev).clone().requires_grad_(True)
+        (kan_fused_v2(xd, wd, spec, kb) * g.to(dev)).sum().backward()
+        out[str(dev)] = (xd.grad.cpu(), wd.grad.cpu())
+    for got, ref in zip(out["cuda"], out["cpu"]):
+        _close(got, ref)
+
+
+@pytest.mark.parametrize("arch", ["vikin-mixed", "vikin-kan2"])
+def test_train_bitwise_reproducible(cuda, arch):
+    model = VIKIN_ARCHS[arch]
+    data = task_for_model(model)
+    runs = []
+    for _ in range(2):
+        tr = StackTrainer(model, data, StackTrainerConfig(
+            batch_size=64, device="cuda"))
+        losses = [tr.train_step(s)[0] for s in range(30)]
+        runs.append((torch.stack(losses).cpu(),
+                     [p.cpu() for _, p in leaf_paths(tr.params)]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+def test_calibration_on_card_runs_the_kernels_and_matches_cpu(cuda):
+    """Params on the card calibrate through the kernels (one dense
+    forward each for the masks and the scales); the masks are the CPU
+    calibration's except where two saliencies tie within twice the
+    card-vs-CPU difference, and the activation scales agree within TOL."""
+    model = VIKIN_ARCHS["vikin-mixed"]
+    tr = StackTrainer(model, task_for_model(model),
+                      StackTrainerConfig(batch_size=64, device="cuda"))
+    for s in range(20):
+        tr.train_step(s)
+    calib_x = task_for_model(model)["train_x"][:256]
+    cpu = [{k: v.cpu() for k, v in p.items()} for p in tr.params]
+    _build.reset_launches()
+    card_masks = tcal.calibrate_stack(tr.params, model, calib_x).masks
+    card_scales = tcal.calibrate_scales(tr.params, model, calib_x)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == \
+        {"kan_fused_v2": 2, "pattern_matmul": 4}
+    cpu_scales = tcal.calibrate_scales(cpu, model, calib_x)
+    for a, b in zip(card_scales.scales, cpu_scales.scales):
+        assert abs(a.x - b.x) <= TOL * abs(b.x)
+    sal_card = tcal.stack_saliencies(tr.params, model, calib_x)
+    for m, s_c, s_d in zip(card_masks,
+                           tcal.stack_saliencies(cpu, model, calib_x),
+                           sal_card):
+        if s_c is None:
+            assert m is None
+            continue
+        assert np.array_equal(m.keep, magnitude_mask(s_d, 2).keep)
+        noise = float(np.abs(s_d - s_c).max())
+        cpu_keep = magnitude_mask(s_c, 2).keep
+        for a, b in zip(np.nonzero(m.keep & ~cpu_keep)[0],
+                        np.nonzero(cpu_keep & ~m.keep)[0]):
+            assert abs(float(s_c[a]) - float(s_c[b])) <= 2 * noise
