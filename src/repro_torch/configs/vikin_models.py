@@ -1,10 +1,12 @@
-"""The paper's own benchmark models (Table I) as ``--arch vikin-*`` ids.
+"""The paper's own benchmark models (Table I) as configs and ``--arch
+vikin-*`` ids.
 
 Counterpart of ``repro/configs/vikin_models.py``.  Four models on the
 Traffic 72h->96h forecasting task -- MLP-4 [72,304,304,96], MLP-3
-[72,304,96], KAN-3 [72,32,96], KAN-2 [72,96] -- plus a mixed KAN/MLP
-stack and a CI-sized smoke model.  ``kinds`` gives a per-layer KAN/MLP
-assignment, so one workload can exercise the host's mode-switch schedule
+[72,304,96], KAN-3 [72,32,96], KAN-2 [72,96] (``PAPER_MODELS``, which
+``benchmarks/table1_models.py`` trains) -- plus a mixed KAN/MLP stack and
+a CI-sized smoke model.  ``kinds`` gives a per-layer KAN/MLP assignment,
+so one workload can exercise the host's mode-switch schedule
 (core/modes.ModePlan).
 """
 from __future__ import annotations
@@ -54,6 +56,15 @@ class PaperModelConfig:
     def layer_kind_enums(self) -> List[LayerKind]:
         return [LayerKind(k) for k in self.layer_kinds]
 
+    def param_count(self) -> int:
+        n = 0
+        for kind, a, b in zip(self.layer_kinds, self.sizes, self.sizes[1:]):
+            if kind == "mlp":
+                n += a * b + b
+            else:
+                n += a * b * (1 + self.spec.n_bases)
+        return n
+
     def layer_works(self, nnz_rates: Optional[Sequence[float]] = None,
                     pattern_rates: Optional[Sequence[float]] = None,
                     ) -> List[LayerWork]:
@@ -81,11 +92,18 @@ class PaperModelConfig:
                                      in_nnz_rate=nnz[i], pattern_rate=pr))
         return out
 
+    def reduce(self, **over: object) -> "PaperModelConfig":
+        """The reference's ``ArchConfig.reduce()`` interface; the paper
+        models are already small, so this only replaces fields."""
+        return dataclasses.replace(self, **over)
+
 
 MLP4 = PaperModelConfig("mlp-4layer", "mlp", (72, 304, 304, 96))
 MLP3 = PaperModelConfig("mlp-3layer", "mlp", (72, 304, 96))
 KAN3 = PaperModelConfig("kan-3layer", "kan", (72, 32, 96))
 KAN2 = PaperModelConfig("kan-2layer", "kan", (72, 96))
+
+PAPER_MODELS = {m.name: m for m in (MLP4, MLP3, KAN3, KAN2)}
 
 # Table II deployment configuration
 TABLE2_KAN = dataclasses.replace(KAN2, pattern_rate=0.5)

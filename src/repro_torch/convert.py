@@ -10,7 +10,10 @@ so both packages contract like with like:
 
 ``stack_params_to_numpy`` is the reverse direction: the port's params
 (trained on any device) as numpy arrays in that layout, which the
-reference's functions take as they are.
+reference's functions take as they are.  ``paper_npz_entries`` and
+``paper_params_from_npz`` read and write the trained paper models'
+``paper_models.npz`` in the reference's key layout, ``{name}/{i}/{k}``,
+so either package loads the other's weights.
 """
 from __future__ import annotations
 
@@ -103,3 +106,25 @@ def stack_params_to_numpy(params: Sequence[Mapping[str, Any]]
     """The port's stack params (one dict of tensors per layer, on any
     device) as f32 numpy arrays in the same layout, one dict per layer."""
     return [{k: host_f32(v).copy() for k, v in p.items()} for p in params]
+
+
+def paper_npz_entries(name: str, params: Sequence[Mapping[str, Any]]
+                      ) -> Dict[str, np.ndarray]:
+    """One trained paper model's params as ``paper_models.npz`` entries:
+    ``{name}/{layer}/{key}`` -> f32 numpy array."""
+    return {f"{name}/{i}/{k}": host_f32(v).copy()
+            for i, layer in enumerate(params) for k, v in layer.items()}
+
+
+def paper_params_from_npz(entries: Mapping[str, Any],
+                          model: Any) -> List[Dict[str, torch.Tensor]]:
+    """The params of the paper model ``model`` (a PaperModelConfig) from
+    ``paper_models.npz`` entries (an ``np.load`` of either package's file,
+    or any mapping of its keys) as f32 CPU tensors; raises if a layer's
+    keys or shapes do not match ``model``."""
+    layers: List[Dict[str, Any]] = [{} for _ in range(model.n_layers)]
+    for key in entries.keys():
+        mname, idx, pname = key.split("/")
+        if mname == model.name:
+            layers[int(idx)][pname] = entries[key]
+    return stack_params_from_jax(layers, model)

@@ -1,9 +1,10 @@
 """Cycle-level performance model of the VIKIN engine (paper Secs. III-V).
 
 Host-side copy of ``repro/core/engine.py`` (the port imports nothing of
-the JAX package), without the Edge-GPU baseline and the Table I
-builders, which are off the serving path.  ``tests/test_torch_serving.py``
-holds ``run_model`` and ``serving_report`` exactly equal to the original.
+the JAX package).  ``tests/test_torch_serving.py`` holds ``run_model``
+and ``serving_report`` exactly equal to the original, and
+``tests/test_torch_paper_helpers.py`` the Edge-GPU baseline and the
+Table I builders.
 
 The paper evaluates an FPGA prototype (Virtex-7 @ 115 MHz, FP16, 16-lane
 arrays).  Wall-clock time on another device cannot reproduce those
@@ -38,7 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.modes import (
     RECONFIG_CYCLES,
@@ -677,3 +678,84 @@ def _hetero_report(
         "chip_cycles": chip_cycles,
         "comm_cycles": comm,
     }
+
+
+# ---------------------------------------------------------------------------
+# Edge-GPU analytical baseline (Table II footnote 2: Jetson Xavier NX).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeGPU:
+    """Analytical Jetson Xavier NX model for tiny-model single inference.
+
+    Sub-100k-parameter MLP/KAN inference on an edge GPU is dominated by
+    per-layer kernel launch + memory traffic, not peak TOPS; utilization of
+    the 21 TOPS tensor path is far below 1% at these sizes.  Constants are
+    documented assumptions (DESIGN.md Sec. 8), not measurements.
+    """
+
+    peak_tops: float = 21e12           # paper-stated peak
+    mem_bw: float = 59.7e9             # LPDDR4x
+    launch_s: float = 3.3e-6           # per-kernel dispatch overhead
+    util: float = 0.02                 # tensor-path utilization, tiny GEMMs
+    power_w: float = 4.0               # dynamic power at this duty cycle
+    precision: str = "f16"             # Table II runs the GPU at FP16
+    bytes_per_param: Optional[int] = None   # derived from precision
+
+    def __post_init__(self) -> None:
+        if self.bytes_per_param is None:
+            object.__setattr__(self, "bytes_per_param",
+                               precision_bytes(self.precision))
+
+    def latency_s(self, layers: Sequence[LayerWork]) -> float:
+        t = 0.0
+        for w in layers:
+            ops = w.dense_ops()
+            if w.kind is LayerKind.KAN:
+                n_kernels = 3          # silu, bases, matmul (no fusion)
+                params = w.n_in * w.n_out * (w.spec.n_bases + 1)
+            else:
+                n_kernels = 1
+                params = w.n_in * w.n_out
+            t += max(
+                n_kernels * self.launch_s,
+                ops / (self.peak_tops * self.util),
+                params * self.bytes_per_param / self.mem_bw,
+            )
+        return t
+
+    def report(self, layers: Sequence[LayerWork],
+               batch: int = 1) -> Dict[str, float]:
+        lat = self.latency_s(layers) * batch
+        dense = sum(w.dense_ops() for w in layers) * batch
+        gops = dense / lat / 1e9
+        return {"latency_s": lat, "gops": gops,
+                "gops_per_w": gops / self.power_w}
+
+
+# ---------------------------------------------------------------------------
+# Convenience builders for the paper's benchmark models (Table I).
+# ---------------------------------------------------------------------------
+
+
+def mlp_layers(sizes: Sequence[int], nnz_rates: Optional[Sequence[float]] = None,
+               pattern_rate: float = 0.0) -> List[LayerWork]:
+    """[72,304,96] -> 2 LayerWork entries; nnz_rates[i] = input density of
+    layer i (first layer input is dense; later ones post-ReLU, measured)."""
+    n = len(sizes) - 1
+    nnz = list(nnz_rates) if nnz_rates is not None else [1.0] * n
+    return [
+        LayerWork(LayerKind.MLP, sizes[i], sizes[i + 1],
+                  in_nnz_rate=nnz[i], pattern_rate=pattern_rate)
+        for i in range(n)
+    ]
+
+
+def kan_layers(sizes: Sequence[int], spec: SplineSpec,
+               pattern_rate: float = 0.0) -> List[LayerWork]:
+    return [
+        LayerWork(LayerKind.KAN, sizes[i], sizes[i + 1], spec=spec,
+                  pattern_rate=pattern_rate)
+        for i in range(len(sizes) - 1)
+    ]

@@ -2,12 +2,13 @@
 
 Counterpart of ``repro/core/sparsity.py``.  Masks are host numpy: they
 are fixed at training time and compacted into the weights once, when a
-layer is built, so the contraction dimension shrinks by keep/4.
+layer is built, so the contraction dimension shrinks by keep/4.  The
+sparsity statistics at the bottom give the cycle model measured rates.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +47,16 @@ class PatternMask:
     def indices(self) -> np.ndarray:
         """Static gather indices of kept positions (host numpy)."""
         return np.nonzero(self.keep)[0].astype(np.int32)
+
+    def is_tiled(self) -> Optional[np.ndarray]:
+        """The 4-bit pattern if this mask is one pattern tiled, else None."""
+        full = (self.n // GROUP) * GROUP
+        if full == 0:
+            return None
+        g = self.keep[:full].reshape(-1, GROUP)
+        if (g == g[0]).all() and self.keep[full:].all():
+            return g[0].copy()
+        return None
 
 
 def tiled_mask(n: int, pattern: Tuple[int, ...]) -> PatternMask:
@@ -89,7 +100,39 @@ def weight_saliency(w: np.ndarray, axis_out: int = -1) -> np.ndarray:
     return np.abs(w).sum(axis=axis_out)
 
 
+def _kept_index(x: torch.Tensor, mask: PatternMask) -> torch.Tensor:
+    return torch.as_tensor(mask.indices(), dtype=torch.long, device=x.device)
+
+
+def compact_rows(w: torch.Tensor, mask: PatternMask) -> torch.Tensor:
+    """Drop weight rows (contraction-dim entries) that the mask removes."""
+    return w.index_select(0, _kept_index(w, mask))
+
+
+def compact_cols_activation(x: torch.Tensor,
+                            mask: PatternMask) -> torch.Tensor:
+    """Gather the kept activation lanes (the last dimension)."""
+    return x.index_select(-1, _kept_index(x, mask))
+
+
 def apply_mask(x: torch.Tensor, mask: PatternMask) -> torch.Tensor:
     """Multiplicative form (semantics oracle): zero masked-out lanes."""
     keep = torch.as_tensor(mask.keep.astype(np.float32), device=x.device)
     return x * keep.to(x.dtype)
+
+
+# Sparsity statistics (measured rates for the VIKIN cycle model).
+
+def activation_nnz_rate(x: torch.Tensor, atol: float = 0.0) -> float:
+    """Fraction of non-zero activations (ReLU streams etc.)."""
+    return float(torch.mean((torch.abs(x) > atol).to(torch.float32)))
+
+
+def spline_nnz_rate(grid_size: int, order: int) -> float:
+    """Structural non-zero fraction of a B-spline basis vector: (K+1)/(G+K)."""
+    return (order + 1) / (grid_size + order)
+
+
+def combined_keep_rate(structural: float, pattern: float) -> float:
+    """Expected node keep-rate after both stages (independent filters)."""
+    return structural * (1.0 - pattern)

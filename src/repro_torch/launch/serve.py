@@ -23,8 +23,10 @@ and caches them (``kernels/autotune.tune_pattern_matmul``,
 accumulation, f32 answers) through the bf16 kernels; ``--precision int8``
 serves the post-training quantized stack through the int8 kernels, with
 scales calibrated from a seeded batch, or restored with the weights and
-masks by ``--ckpt DIR`` (a checkpoint in the reference's layout; at bf16
-its f32 params are cast):
+masks by ``--ckpt DIR`` or ``--ckpt-dir DIR`` (a checkpoint in the
+reference's layout; at bf16 its f32 params are cast).  ``--scale
+smoke|full`` is the reference's flag; the paper models are already
+small, so it changes nothing for vikin archs:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vikin-mixed \
       --precision int8 --requests 8
@@ -309,9 +311,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Engine:
                          "activations (f32 accumulation, f32 answers); "
                          "int8 is the post-training quantized path "
                          "(core/quant.py)")
+    ap.add_argument("--scale", default="smoke", choices=["smoke", "full"],
+                    help="smoke applies each config's reduce(), as the "
+                         "reference does; the paper models are already "
+                         "small, so vikin archs serve the same either way")
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint directory of the reference's layout: "
                          "params, masks and int8 scales are restored")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="the same as --ckpt (launch/train.py writes "
+                         "through this spelling)")
     ap.add_argument("--trace", default=None,
                     help="replay this arrival-trace JSON (python -m "
                          "repro_torch.runtime.loadgen) open-loop on the "
@@ -329,11 +338,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Engine:
                          "passed instead of serving them dead")
     args = ap.parse_args(argv)
     models = parse_archs(args.arch)
-    if args.ckpt and len(models) > 1:
+    if args.scale == "smoke":
+        models = [m.reduce() for m in models]
+    # either spelling restores: serving random weights because train.py's
+    # --ckpt-dir was passed would be a silently wrong answer
+    ckpt = args.ckpt or args.ckpt_dir
+    if ckpt and len(models) > 1:
         raise SystemExit("--ckpt restores one arch; pass a single --arch")
     eng = make_engine(models, slots=args.slots, policy=args.policy,
                       device=args.device, precision=args.precision,
-                      ckpt=args.ckpt, max_queue=args.max_queue,
+                      ckpt=ckpt, max_queue=args.max_queue,
                       admission=args.admission,
                       drop_expired=args.drop_expired)
     if args.trace:

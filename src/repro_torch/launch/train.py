@@ -112,6 +112,9 @@ def train_vikin(args: argparse.Namespace, model: Any) -> Dict[str, Any]:
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--scale", default="smoke", choices=["smoke", "full"],
+                    help="the reference's flag; the vikin path does not "
+                         "read it")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--lr", type=float, default=1e-2)

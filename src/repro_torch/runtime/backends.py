@@ -15,11 +15,11 @@ model-shaped lives behind the ``ModelBackend`` protocol:
 ``VikinBackend`` serves a stacked KAN/MLP feed-forward workload
 (configs/vikin_models.PaperModelConfig) on a torch device: a request is
 one feature vector, and the batched step pads the active slots into a
-power-of-two bucket (>= ``min_bucket`` = 2, as the reference) and runs
-the whole stack (models/ffn.VikinStack at f32 and bf16, or
-core/quant.QuantVikinStack at int8) through the fused KAN and
-pattern-matmul kernels.  Every served
-batch is charged its mode-switch schedule in the simulated-cycle report.
+power-of-two bucket (>= ``min_bucket``, 2 by default as in the
+reference) and runs the whole stack (models/ffn.VikinStack at f32 and
+bf16, or core/quant.QuantVikinStack at int8) through the fused KAN and
+pattern-matmul kernels.  Every served batch is charged its mode-switch
+schedule in the simulated-cycle report.
 
 ``MultiWorkloadBackend`` dispatches the same protocol across several
 named VIKIN workloads (``--arch a,b,c``).
@@ -137,12 +137,20 @@ class VikinBackend(ModelBackend):
     params are quantized once, here.  The cycle model charges the
     precision's DMA bytes.  Requests submit f32 payloads at every
     precision.
-    """
 
-    min_bucket = 2
+    ``hw`` is the modelled VIKIN engine (default ``VikinHW()``),
+    ``min_bucket`` the smallest batch bucket (2, the default, keeps
+    batched == single bitwise, as in the reference), and ``nnz_rates``
+    the measured input-activation density of each layer, charged to the
+    cycle model's MLP zero-skip (default dense).  The reference's
+    ``impl=`` has no counterpart: the device picks kernels or plain
+    versions.
+    """
 
     def __init__(self, model: Any, params: Sequence[Dict[str, Any]], *,
                  device: str | torch.device = "cuda",
+                 hw: Optional[VikinHW] = None, min_bucket: int = 2,
+                 nnz_rates: Optional[Sequence[float]] = None,
                  masks: Optional[Sequence[Optional[PatternMask]]] = None,
                  precision: str = "f32",
                  scales: Optional[StackScales] = None) -> None:
@@ -155,17 +163,18 @@ class VikinBackend(ModelBackend):
                 "(core/calibrate.calibrate_scales or "
                 "checkpoint.restore_scales)")
         self.device = resolve_device(device)
-        self.model, self.hw = model, VikinHW()
+        self.model, self.hw = model, hw or VikinHW()
         self.precision, self.scales = precision, scales
+        self.min_bucket = min_bucket
         self.masks = list(masks) if masks is not None else None
         self.plan = ModePlan.for_layers(model.layer_kind_enums())
         if self.masks is not None:
             # calibrated model: charge the cycle model the MEASURED
             # per-layer mask sparsity, not the config-level rate
             self.layers = model.layer_works(
-                pattern_rates=masked_pattern_rates(self.masks))
+                nnz_rates, pattern_rates=masked_pattern_rates(self.masks))
         else:
-            self.layers = model.layer_works()
+            self.layers = model.layer_works(nnz_rates)
         self.n_in = int(model.sizes[0])
         tensors = [{k: torch.as_tensor(v, dtype=torch.float32,
                                        device=self.device)

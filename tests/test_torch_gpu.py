@@ -1415,3 +1415,54 @@ def test_calibration_on_card_runs_the_kernels_and_matches_cpu(cuda):
         for a, b in zip(np.nonzero(m.keep & ~cpu_keep)[0],
                         np.nonzero(cpu_keep & ~m.keep)[0]):
             assert abs(float(s_c[a]) - float(s_c[b])) <= 2 * noise
+
+
+# ------------------------------------------------------- Fig. 8's grids
+# KAN-3 (72 -> 32 -> 96) at batch 512, the paper scripts' training batch,
+# at grid sizes the served stacks never use: 5, 11 and 19 bases a feature.
+
+from repro_torch.benchmarks.table1_models import (  # noqa: E402
+    apply_model,
+    init_model,
+    to_device,
+)
+from repro_torch.configs.vikin_models import KAN3  # noqa: E402
+from repro_torch.kernels.kan_fused.ops import fuse_wt  # noqa: E402
+
+
+@pytest.mark.parametrize("G", [2, 8, 16])
+def test_kan3_kernel_and_grad_at_fig8_grids(cuda, G):
+    """Each layer's kernel forward against its plain version, and each
+    leaf's gradient through the kernels (one step: kan_fused_v2 x2,
+    spline_basis x3) against autograd through the plain versions."""
+    cfg = dataclasses.replace(KAN3, grid=G)
+    spec = cfg.spec
+    gen = torch.Generator().manual_seed(G)
+    params = to_device(init_model(cfg, gen), cuda)
+    x = torch.rand((512, 72), generator=gen).to(cuda)
+    y = torch.rand((512, 96), generator=gen).to(cuda)
+    h = 2.0 * x - 1.0
+    kb = tuple(range(spec.n_bases))
+    with torch.no_grad():
+        for p in params:
+            wt = fuse_wt(p["w_b"], p["t"].reshape(-1, p["t"].shape[-1]),
+                         len(kb))
+            ref = kan_fused_v2_ref(h, wt, spec, kb)
+            _close(kan_fused_v2(h, wt, spec, kb), ref)
+            h = ref
+    leaves = [{k: v.clone().requires_grad_(True) for k, v in p.items()}
+              for p in params]
+    _build.reset_launches()
+    pred, _ = apply_model(leaves, x, cfg)
+    loss = torch.mean(torch.square(pred - y))
+    paths = leaf_paths(leaves)
+    got = dict(zip((k for k, _ in paths),
+                   torch.autograd.grad(loss, [v for _, v in paths])))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == \
+        {"kan_fused_v2": 2, "spline_basis": 3}
+    ref = plain_grads(params, cfg, 2.0 * x - 1.0, y)[1]
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        err = float((got[k] - ref[k]).abs().max())
+        assert err <= TOL * float(ref[k].abs().max()), (k, err)
