@@ -170,14 +170,29 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    the card's Table I: every cycle-model and ``EdgeGPU`` field (model
    outputs) equal to the host's computation from the card's nnz rates,
    and the headline lines against the paper's points; the scripts'
-   launches equal to their steps'.
+   launches equal to their steps';
+10. KAN-FFN transformer serving (``kanffn_phase``): ``qwen2-0.5b-kanffn``
+   at full width (24 layers, d 896, vocab 151936, 12 "kan" FFNs of
+   hidden 1080), bf16 params from seed 0 and their f32 twin: (a) one
+   KAN-FFN layer at M = 1, 3, 8, 16, 64, each kernel against its plain
+   version; (b) 8 requests x 16 tokens through ``Server`` on 8 slots,
+   teacher-forced logits against the plain versions within
+   ``TF_TOL_BF16`` (f32 twin ``TF_TOL_F32``), 12 + 12 launches a prefill
+   and a decode step, batched == single; (c) ``calibrate_kanffn_masks``
+   against a calibration through the plain versions, the masked model
+   served and held as in (b), cheaper in simulated cycles; (d) the
+   launcher at ``--scale full``, f32 and bf16, in a subprocess; (e) a
+   decode step's host and device ms, idle share, profile and kernel
+   share, a prefill's ms, the two kernels' rows at the decode shape;
+   (f) the ``kanffn:kanffn-ci`` bench row.
 
 No served path launches the spline-basis or v1 kernels, so their
 ``launches`` in the record are those of phases 6 and 5.  The served rows
 also carry ``launches_openloop``, their launches in phase 7's replays,
 every row ``launches_train``, its launches in phase 8 (b)'s first
-run of each arch, and ``launches_paper``, its launches in phase 9's
-runs of the paper scripts (Table I, the Fig. 8 sweep, Table II).
+run of each arch, ``launches_paper``, its launches in phase 9's
+runs of the paper scripts (Table I, the Fig. 8 sweep, Table II), and
+``launches_kanffn``, its launches in phase 10 (b)'s three served runs.
 
 It prints the ``{"kernels": [...]}`` record, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It imports nothing
@@ -229,6 +244,24 @@ CPU_STEPS = 10
 PAPER_EPOCHS = 30
 PAPER_BATCH = 512
 FIG8_EPOCHS = 20
+# phase 10: the KAN-FFN transformer's logits, kernels against their plain
+# versions on the card (teacher-forced, the same tokens into both).  A
+# token runs 24 kernel launches (a fused-KAN and a pattern-matmul in each
+# of the 12 "kan" layers); each may differ from its plain version by its
+# per-launch tolerance (f32: KERNEL_TOL; bf16: one ulp), everything else
+# runs the same ops on the same inputs, and the residual stream carries
+# each difference to the logits without growing it (at a reduced width
+# over the same 24 layers, one ulp added to every element of every KAN-FFN
+# output moves the logits by 3.6 ulps of 1 + max|logits|, not 12).  So
+# 24 launch tolerances, of 1 + max|plain logits|:
+TF_LAUNCHES = 24
+TF_TOL_F32 = TF_LAUNCHES * KERNEL_TOL
+TF_TOL_BF16 = TF_LAUNCHES * BF16_ULP
+TF_ARCH = "qwen2-0.5b-kanffn"
+TF_SLOTS = 8
+TF_MAX_LEN = 128
+TF_NEW_TOKENS = 16
+TF_LAYER_M = (1, 3, 8, 16, 64)
 ARCHS = ("vikin-kan2", "vikin-mlp3", "vikin-mixed")
 BUCKETS = (2, 4, 8, 16)
 BIG = 8192
@@ -344,6 +377,487 @@ def host_ms(fn, iters: int = 50, reps: int = 7) -> float:
             fn()
         times.append((time.perf_counter() - t0) * 1e3 / iters)
     return statistics.median(times)
+
+
+def kanffn_phase(dev: torch.device, card: str) -> dict:
+    """Phase 10: ``qwen2-0.5b-kanffn`` served at full width on the card.
+
+    (a) one KAN-FFN layer at the arch's widths (896 -> 1080 -> 896), bf16
+    and f32, dense and with layer 0's calibrated masks, at M in
+    ``TF_LAYER_M``: one fused-KAN and one pattern-matmul launch a call,
+    each kernel within its per-launch tolerance of its plain version on
+    the same input, the layer bitwise its two kernels;
+    (b) the whole model through ``Server`` (``TF_SLOTS`` slots,
+    ``TF_MAX_LEN``), 8 seeded requests of 3-15 tokens, ``TF_NEW_TOKENS``
+    new tokens each, in bf16 and as its f32 twin: 12 + 12 launches a
+    prefill and a decode step; teacher-forced, the kernels' logits are the
+    served tokens' argmax and within ``TF_TOL_*`` of the plain versions'
+    (whose argmax is the served token wherever its top-2 margin exceeds
+    that); batched == single, token-exact, at the same slots;
+    (c) ``calibrate_kanffn_masks`` on the card from a seeded 4x64 batch
+    at keep 2 of 4: the masks equal a calibration through the plain
+    versions, a group apart only where its saliencies sit closer than
+    the two calibrations differ; the masked model served and held as in
+    (b); its simulated cycles below the dense model's;
+    (d) the launcher in a subprocess at f32 and bf16 (``--scale full``):
+    its simulated cycles the cycle model's on the host;
+    (e) times: a decode step at 8 slots (host wall, device from a CUDA
+    graph, idle share, the 24 kernel launches' device time and share),
+    a prefill, and the two kernels at the decode shape;
+    (f) the ``kanffn:kanffn-ci`` serving-bench row on the card.
+    Returns what it measured; raises on any fault."""
+    from repro_torch.benchmarks import serving_bench
+    from repro_torch.benchmarks.kernel_ab import graph_ms, layer_calls, time_ms
+    from repro_torch.configs.registry import KANFFN_ARCHS
+    from repro_torch.core.calibrate import (
+        calibrate_kanffn_masks,
+        kan_basis_saliency,
+        kanffn_saliencies,
+        mlp_input_saliency,
+    )
+    from repro_torch.core.engine import VikinHW, serving_report
+    from repro_torch.core.sparsity import GROUP, magnitude_mask
+    from repro_torch.core.splines import locate_cell, spu_op_count
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.kan_fused.ref import kan_fused_v2_ref
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.ffn import KanFFN
+    from repro_torch.runtime.backends import (
+        splice_cache,
+        transformer_layer_works,
+    )
+    from repro_torch.runtime.server import Server
+    from repro_torch.utils import host_f32, leaf_paths, tree_map
+
+    t_phase = time.perf_counter()
+    cfg_b = KANFFN_ARCHS[TF_ARCH]
+    cfg_f = dataclasses.replace(cfg_b, dtype="float32")
+    n_kan = cfg_b.ffn_kinds.count("kan")
+    t0 = time.perf_counter()
+    params_f = TF.init_params(cfg_f, torch.Generator().manual_seed(0), dev)
+    params_b = tree_map(lambda a: a.to(BF), params_f)
+    n_params = sum(int(a.numel()) for _, a in leaf_paths(params_b))
+    print(f"phase 10: {TF_ARCH} at full width: {cfg_b.n_layers} layers, d "
+          f"{cfg_b.d_model}, {cfg_b.n_heads} heads ({cfg_b.n_kv_heads} KV), "
+          f"d_ff {cfg_b.d_ff}, vocab {cfg_b.vocab_size}, {n_kan} kan FFNs "
+          f"(hidden {cfg_b.ffn_cfg(0).kanffn_hidden}); {n_params} params, "
+          f"drawn on the host and moved in "
+          f"{time.perf_counter() - t0:.2f} s")
+    kernels = {F32: ("kan_fused_v2", "pattern_matmul"),
+               BF: ("kan_fused_v2_bf16", "pattern_matmul_bf16")}
+    tol_layer = {F32: KERNEL_TOL, BF: BF16_ULP}
+    tol_model = {F32: TF_TOL_F32, BF: TF_TOL_BF16}
+
+    def launches_only(want: dict, what: str) -> dict:
+        got = dict(_build.LAUNCHES)
+        full = {k: want.get(k, 0) for k in got}
+        check(got == full, f"(phase 10) {what}: launches {got}, want {full}")
+        return got
+
+    def plain_ffns(ffns: list) -> list:
+        """The KAN-FFN layers of ``ffns`` through the plain versions of
+        their two kernels, on the card."""
+        def one(f):
+            def fn(x):
+                h = layer_calls(f.up, x.reshape(-1, x.shape[-1])
+                                .contiguous())[3]()
+                return layer_calls(f.down, h)[3]().reshape(
+                    *x.shape[:-1], -1)
+            return fn
+        return [None if f is None else one(f) for f in ffns]
+
+    # (c), first half: the masks, calibrated on the card and through the
+    # plain versions
+    calib = np.random.default_rng(10).integers(
+        0, cfg_b.vocab_size, size=(4, 64)).astype(np.int32)
+    _build.reset_launches()
+    masks = calibrate_kanffn_masks(params_b, cfg_b, calib, keep_per_group=2)
+    torch.cuda.synchronize()
+    launches_only({"kan_fused_v2_bf16": n_kan, "pattern_matmul_bf16": n_kan,
+                   "kan_fused_v2": n_kan},
+                  "calibrate_kanffn_masks (the dense bf16 forward, then the "
+                  "f32 up-projection a kan layer)")
+    sal_k = kanffn_saliencies(params_b, cfg_b, calib)
+    ffns_dense = TF.ffn_modules(params_b, cfg_b)
+    taps: dict = {}
+    with torch.no_grad():
+        TF.forward(params_b, cfg_b, torch.as_tensor(calib, device=dev),
+                   ffn_taps=taps, ffns=plain_ffns(ffns_dense))
+    ties, n_groups = [], 0
+    for i, kind in enumerate(cfg_b.ffn_kinds):
+        if kind != "kan":
+            check(masks[i] is None, f"(c) layer {i} ({kind}) got a mask")
+            continue
+        f = ffns_dense[i]
+        tap = taps[i].reshape(-1, cfg_b.d_model)
+        s1 = kan_basis_saliency(params_b["extra"][i]["ffn"]["kan_up"],
+                                f.up.cfg.spec, host_f32(tap))
+        hid = kan_fused_v2_ref(tap.float(), f.up.wt.float(), f.up.cfg.spec,
+                               f.up.kb)
+        s2 = mlp_input_saliency(params_b["extra"][i]["ffn"], host_f32(hid))
+        for stage, sp, sk, keep in zip(("basis", "hidden"), (s1, s2),
+                                       sal_k[i], masks[i]):
+            got = np.zeros(sp.shape[0], bool)
+            got[list(keep)] = True
+            want = magnitude_mask(sp, 2).keep
+            for g in range(0, (sp.shape[0] // GROUP) * GROUP, GROUP):
+                n_groups += 1
+                sl = slice(g, g + GROUP)
+                if np.array_equal(got[sl], want[sl]):
+                    continue
+                moved = np.abs(sk[sl] - sp[sl]).max()
+                swap = [j for j in range(g, g + GROUP) if got[j] != want[j]]
+                gap = float(np.ptp(sp[swap]))
+                ties.append({"layer": i, "stage": stage, "group": g // GROUP,
+                             "plain": sp[sl].tolist(), "card": sk[sl].tolist(),
+                             "gap": gap, "moved": float(moved)})
+                print(f"phase 10: (c) layer {i} {stage} group {g // GROUP}: "
+                      f"kept {np.nonzero(got[sl])[0].tolist()} on the card, "
+                      f"{np.nonzero(want[sl])[0].tolist()} through the plain "
+                      f"versions; saliencies {sp[sl].tolist()} (plain) vs "
+                      f"{sk[sl].tolist()}: the swapped pair {gap:.3e} apart, "
+                      f"the calibrations up to {moved:.3e}")
+                check(gap <= 2.0 * moved,
+                      f"(c) layer {i} {stage} group {g // GROUP}: the masks "
+                      f"differ beyond a saliency tie ({gap:.3e} > 2 x "
+                      f"{moved:.3e})")
+    print(f"phase 10: (c) calibrate_kanffn_masks on the card: {n_kan} layers, "
+          f"keep 2 of 4 bases ({len(masks[0][0])} of "
+          f"{f.up.cfg.spec.n_bases} kept) and hidden lanes "
+          f"({len(masks[0][1])} of {cfg_b.ffn_cfg(0).kanffn_hidden}); "
+          f"{len(ties)} of {n_groups} groups apart from the plain "
+          f"calibration, each at a tie")
+
+    # (a) one KAN-FFN layer at the arch's widths
+    gen = torch.Generator().manual_seed(12)
+    layer_err = {}
+    for dt, params in ((BF, params_b), (F32, params_f)):
+        kan_k, mm_k = kernels[dt]
+        for label, fcfg in (("dense", cfg_b.ffn_cfg(0)),
+                            ("masked", dataclasses.replace(
+                                cfg_b.ffn_cfg(0), basis_keep=masks[0][0],
+                                hidden_keep=masks[0][1]))):
+            f = KanFFN(fcfg, params["extra"][0]["ffn"])
+            errs = []
+            for m in TF_LAYER_M:
+                x = torch.randn((m, cfg_b.d_model), generator=gen).to(dev, dt)
+                _build.reset_launches()
+                with torch.no_grad():
+                    y = f(x)
+                torch.cuda.synchronize()
+                launches_only({kan_k: 1, mm_k: 1},
+                              f"(a) {label} {dt} layer at M={m}")
+                _, _, up_k, up_p = layer_calls(f.up, x)
+                h = up_k()
+                _, _, down_k, down_p = layer_calls(f.down, h)
+                check(torch.equal(y, down_k()),
+                      f"(a) {label} {dt} M={m}: the layer is not its two "
+                      f"kernels, bitwise")
+                for what, got, ref in (("up", h, up_p()), ("down", y,
+                                                           down_p())):
+                    err, scale, nan = rel_err(got, ref)
+                    check(not nan and err <= tol_layer[dt] * scale,
+                          f"(a) {label} {dt} M={m} {what}: max|kernel - "
+                          f"plain| = {err:.3e} vs {tol_layer[dt]:g} * "
+                          f"{scale:.4g}")
+                    errs.append(err / scale)
+            layer_err[f"{label} {'bf16' if dt == BF else 'f32'}"] = max(errs)
+    print(f"phase 10: (a) one KAN-FFN layer 896->1080->896 at M = "
+          f"{list(TF_LAYER_M)}: one {kernels[BF][0]} / {kernels[F32][0]} and "
+          f"one {kernels[BF][1]} / {kernels[F32][1]} a call; each kernel "
+          f"within its tolerance of its plain version (max err / (1 + max): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in layer_err.items()) + ")")
+
+    # (b) and (c): the whole model through Server
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg_b.vocab_size,
+                            size=int(rng.integers(3, 16))).astype(np.int32)
+               for _ in range(TF_SLOTS)]
+
+    def serve(cfg, params, masks_, what: str) -> tuple:
+        srv = Server(cfg, params, n_slots=TF_SLOTS, max_len=TF_MAX_LEN,
+                     masks=masks_, device=DEVICE)
+        rids = [srv.submit(p, max_new_tokens=TF_NEW_TOKENS) for p in prompts]
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = srv.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dt = srv.backend.params["embed"]["table"].dtype
+        n = n_kan * (len(prompts) + int(srv.stats["ticks"]))
+        got = launches_only({k: n for k in kernels[dt]}, f"(b) {what} served")
+        return srv, [out[r] for r in rids], got, wall
+
+    def teacher(srv, toks: list, ffns: list) -> tuple:
+        """Prefill each prompt into its own lane, then decode the served
+        tokens in lockstep: (prefill logits (8, V), [step logits (8, V)])."""
+        be = srv.backend
+        caches = TF.init_caches(be.cfg, TF_SLOTS, TF_MAX_LEN, dev)
+        pre, steps = [], []
+        with torch.no_grad():
+            for s, p in enumerate(prompts):
+                lg, c = TF.prefill(be.params, be.cfg,
+                                   torch.as_tensor(p[None], device=dev),
+                                   max_len=TF_MAX_LEN, ffns=ffns)
+                pre.append(lg[:, -1])
+                caches = splice_cache(caches, c, s)
+            for t in range(TF_NEW_TOKENS - 1):
+                tok = torch.as_tensor(np.array([[g[t]] for g in toks],
+                                               np.int32), device=dev)
+                lg, caches = TF.decode_step(be.params, be.cfg, tok, caches,
+                                            ffns=ffns)
+                steps.append(lg[:, -1])
+        return torch.cat(pre), steps
+
+    def hold(srv, toks: list, what: str) -> dict:
+        be = srv.backend
+        dt = be.params["embed"]["table"].dtype
+        tol = tol_model[dt]
+        pre_k, steps_k = teacher(srv, toks, be.ffns)
+        pre_p, steps_p = teacher(srv, toks, plain_ffns(be.ffns))
+        served = torch.as_tensor(np.array(toks), device=dev)     # (8, 16)
+        worst, forced = 0.0, 0
+        for t, (lk, lp) in enumerate(zip([pre_k, *steps_k],
+                                         [pre_p, *steps_p])):
+            check(torch.equal(lk.argmax(-1), served[:, t].long()),
+                  f"(b) {what} step {t}: the teacher-forced kernel logits' "
+                  f"argmax is not the served token")
+            err, scale, nan = rel_err(lk, lp)
+            check(not nan and err <= tol * scale,
+                  f"(b) {what} step {t}: max|kernel - plain| logits "
+                  f"{err:.3e} vs {tol:g} * {scale:.4g}")
+            worst = max(worst, err / scale)
+            top2 = lp.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > tol * scale
+            same = lp.argmax(-1) == served[:, t].long()
+            check(bool((same | ~clear).all()),
+                  f"(b) {what} step {t}: the plain argmax differs from the "
+                  f"served token where the top-2 margin exceeds {tol:g}")
+            forced += int((~clear).sum())
+        return {"max_err_over_scale": worst, "tol": tol,
+                "near_ties": forced}
+
+    def batched_equals_single(cfg, params, masks_, batched: list,
+                              what: str) -> None:
+        srv1 = Server(cfg, params, n_slots=TF_SLOTS, max_len=TF_MAX_LEN,
+                      masks=masks_, device=DEVICE)
+        for i, p in enumerate(prompts):
+            rid = srv1.submit(p, max_new_tokens=TF_NEW_TOKENS)
+            check(srv1.run_until_done()[rid] == batched[i],
+                  f"(b) {what}: request {i} batched != single")
+
+    served = {}
+    for what, cfg, params, masks_ in (
+            ("bf16", cfg_b, params_b, None),
+            ("bf16 masked", cfg_b, params_b, masks),
+            ("f32 twin", cfg_f, params_f, None)):
+        srv, toks, got, wall = serve(cfg, params, masks_, what)
+        held = hold(srv, toks, what)
+        if what != "f32 twin":
+            batched_equals_single(cfg, params, masks_, toks, what)
+        rep = serving_report(srv.backend.layers, srv.backend.hw, batch=1,
+                             precision=srv.backend.precision)
+        served[what] = {"srv": srv, "launches": got, "wall_s": wall,
+                        "ticks": int(srv.stats["ticks"]), **held,
+                        "sim_cycles_per_instance": rep["sim_cycles"]}
+        print(f"phase 10: (b) {what}: {len(prompts)} requests x "
+              f"{TF_NEW_TOKENS} tokens on {TF_SLOTS} slots in "
+              f"{served[what]['ticks']} decode steps, wall {wall:.3f} s; "
+              f"launches {dict((k, v) for k, v in got.items() if v)}; "
+              f"teacher-forced logits within {held['tol']:g} (max "
+              f"{held['max_err_over_scale']:.3e} of 1 + max|plain|), "
+              f"{held['near_ties']} near-tie positions"
+              + ("" if what == "f32 twin" else "; batched == single"))
+    dense_c = served["bf16"]["sim_cycles_per_instance"]
+    masked_c = served["bf16 masked"]["sim_cycles_per_instance"]
+    check(masked_c < dense_c, f"(c) masked serving's simulated cycles "
+          f"{masked_c} are not below the dense model's {dense_c}")
+    print(f"phase 10: (c) simulated cycles an instance: masked {masked_c:.1f} "
+          f"< dense {dense_c:.1f}")
+
+    # (d) the launcher in a subprocess, at full width
+    launcher = {}
+    for prec in ("f32", "bf16"):
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+               TF_ARCH, "--scale", "full", "--requests", "4",
+               "--new-tokens", "8", "--precision", prec]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=600,
+                             env=dict(os.environ, PYTHONPATH=str(SRC)))
+        secs = time.perf_counter() - t0
+        check(run.returncode == 0, f"(d) the launcher at {prec} exited "
+              f"{run.returncode}: {run.stderr[-2000:]}")
+        check("kan-ffn hybrid" in run.stdout
+              and "simulated VIKIN" in run.stdout,
+              f"(d) the launcher at {prec} printed no kan-ffn lines")
+        line = next(ln for ln in run.stdout.splitlines()
+                    if ln.startswith("simulated VIKIN:"))
+        printed = float(line.split()[2])
+        lrng = np.random.default_rng(0)
+        tokens_in = 0
+        for _ in range(4):
+            n = int(lrng.integers(3, 16))
+            lrng.integers(0, cfg_b.vocab_size, size=n)
+            tokens_in += n
+        instances = tokens_in + 4 * (8 - 1)
+        want = instances * serving_report(
+            transformer_layer_works(cfg_b), VikinHW(), batch=1,
+            precision=prec)["sim_cycles"]
+        check(abs(printed - want) <= 1.0,
+              f"(d) the launcher at {prec}: {printed:.0f} simulated cycles, "
+              f"the host's cycle model {want:.1f}")
+        launcher[prec] = {"seconds": secs, "sim_cycles": printed,
+                          "host_cycles": want}
+        print(f"phase 10: (d) launcher --precision {prec}: exit 0 in "
+              f"{secs:.1f} s, {printed:.0f} simulated cycles = the host's "
+              f"cycle model ({instances} instances); | {line}")
+
+    # (e) times, bf16 at 8 slots
+    srv = served["bf16"]["srv"]
+    be = srv.backend
+    toks8 = torch.as_tensor(np.array(
+        [[p[0]] for p in prompts], np.int32), device=dev)
+    with torch.no_grad():
+        caches = TF.init_caches(be.cfg, TF_SLOTS, TF_MAX_LEN, dev)
+        for s, p in enumerate(prompts):
+            _, c = TF.prefill(be.params, be.cfg,
+                              torch.as_tensor(p[None], device=dev),
+                              max_len=TF_MAX_LEN, ffns=be.ffns)
+            caches = splice_cache(caches, c, s)
+
+        def step():
+            return TF.decode_step(be.params, be.cfg, toks8, caches,
+                                  ffns=be.ffns)[0]
+
+        step()
+        step_host = host_ms(lambda: TF.greedy_token(step()).cpu(), iters=10,
+                            reps=5)
+        step_dev = graph_ms(step, iters=2, reps=5)
+        xs = [torch.randn((TF_SLOTS, cfg_b.d_model), generator=gen)
+              .to(dev, BF) for _ in be.ffns]
+        calls = []
+        for f, x in zip(be.ffns, xs):
+            if f is None:
+                continue
+            calls.append(layer_calls(f.up, x)[2])
+            calls.append(layer_calls(f.down, calls[-1]())[2])
+        torch.cuda.synchronize()
+        kern_dev = graph_ms(lambda: [c() for c in calls], iters=2, reps=5)
+        prefill_host = host_ms(lambda: TF.prefill(
+            be.params, be.cfg, torch.as_tensor(prompts[0][None], device=dev),
+            max_len=TF_MAX_LEN, ffns=be.ffns)[0].cpu(), iters=3, reps=5)
+        # where a decode step's time goes, by op: device time from the
+        # profiler's CUDA activity (CUPTI), host time by torch op
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            TF.greedy_token(step()).cpu()
+        ops = prof.key_averages()
+        # device rows: the kernels themselves (an aten op's row repeats
+        # the device time of the kernels it launched)
+        kern = sorted((e for e in ops
+                       if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                      key=lambda e: -_device_us(e))
+        by_host = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:8]
+        profile = {
+            "device_us_total": sum(_device_us(e) for e in kern),
+            "kernel_launches": sum(e.count for e in kern),
+            "top_device": [(e.key[:72], _device_us(e), e.count)
+                           for e in kern[:8]],
+            "top_host_self": [(e.key[:72], e.self_cpu_time_total, e.count)
+                              for e in by_host]}
+    print("phase 10: (e) a decode step profiled: "
+          f"{profile['kernel_launches']} kernels, "
+          f"{profile['device_us_total']:.1f} us of device time; by kernel "
+          + ", ".join(f"{k} {us:.1f} us x{n}"
+                      for k, us, n in profile["top_device"])
+          + "; by host self time "
+          + ", ".join(f"{k} {us:.1f} us x{n}"
+                      for k, us, n in profile["top_host_self"]))
+    times = {"decode_step_host_ms": step_host,
+             "decode_step_device_ms": step_dev,
+             "device_idle_share": 1.0 - step_dev / step_host,
+             "kernels_device_ms": kern_dev, "kernel_launches": len(calls),
+             "kernels_share_of_step": kern_dev / step_dev,
+             "prefill_host_ms": prefill_host,
+             "prefill_tokens": int(prompts[0].shape[0]),
+             "profile": profile, "card": card}
+    print(f"phase 10: (e) a decode step at {TF_SLOTS} slots (bf16): host "
+          f"{step_host:.3f} ms, device {step_dev:.4f} ms (idle "
+          f"{times['device_idle_share'] * 100:.1f}%); its {len(calls)} "
+          f"kernel launches {kern_dev:.4f} ms on the device "
+          f"({times['kernels_share_of_step'] * 100:.1f}% of the step); a "
+          f"{prompts[0].shape[0]}-token prefill {prefill_host:.3f} ms host "
+          f"({card})")
+
+    # the two kernels at the decode shape (bf16, M = 8), layer 0, dense
+    f = be.ffns[0]
+    x = xs[0]
+    spec, n_in, n_out = f.up.cfg.spec, f.up.cfg.n_in, f.up.cfg.n_out
+    _, _, up_k, up_p = layer_calls(f.up, x)
+    h = up_k()
+    _, hc, down_k, down_p = layer_calls(f.down, h)
+    kc, n = f.down.w_c.shape
+    cell, _ = locate_cell(spec.clip(x.float()), spec)
+    slots = f.up.slot_of.long()
+    hits = sum(int((slots[(cell + j).long()] >= 0).sum())
+               for j in range(spec.n_active))
+    rows = []
+    for name, kern, plain, library, n_bytes, work in (
+            (kernels[BF][0], up_k, up_p, None,
+             2.0 * (x.numel() + f.up.wt.numel() + TF_SLOTS * n_out)
+             + 4.0 * f.up.slot_of.numel(),
+             [(2.0 * n_out * (TF_SLOTS * n_in + hits), BF16_FLOPS_PER_S),
+              (TF_SLOTS * n_in * (spu_op_count(spec) + 4), F32_FLOPS_PER_S)]),
+            (kernels[BF][1], down_k, down_p,
+             lambda: torch.addmm(f.down.b, hc, f.down.w_c),
+             2.0 * (hc.numel() + f.down.w_c.numel() + n + TF_SLOTS * n),
+             [(2.0 * TF_SLOTS * kc * n, BF16_FLOPS_PER_S),
+              (TF_SLOTS * n, F32_FLOPS_PER_S)])):
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = sum(o / r for o, r in work) * 1e3
+        rows.append({
+            "kernel": name, "model": TF_ARCH, "precision": "bf16",
+            "batch": TF_SLOTS, "ms": time_ms(kern),
+            "device_ms": graph_ms(kern),
+            "plain_ms": time_ms(plain, iters=20),
+            "library_ms": None if library is None else time_ms(library),
+            "library_device_ms": (None if library is None
+                                  else graph_ms(library)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "launches_per_decode_step": n_kan, "card": card})
+        print(json.dumps(rows[-1]))
+
+    # (f) the serving bench's kanffn row on the card
+    committed = json.loads((ROOT / "BENCH_serving.json").read_text())
+    key = f"kanffn:{serving_bench.KANFFN_ARCH}"
+    row = json.loads(json.dumps(serving_bench.kanffn_dense_vs_kan(
+        device=DEVICE)))
+    check(all(row[k] == v for k, v in committed[key].items()),
+          f"(f) {key} on the card differs from the committed row: {row}")
+    print(f"phase 10: (f) {key}: every simulated field equals the committed "
+          f"row, batched_equals_single {row['batched_equals_single']}")
+
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 10: {seconds:.1f} s")
+    launches = {k: sum(sv["launches"][k] for sv in served.values())
+                for k in _build.LAUNCHES}
+    return {"seconds": seconds, "launches": launches, "times": times,
+            "kernel_rows": rows, "layer_err": layer_err, "ties": ties,
+            "launcher": launcher, "bench_row": row,
+            "served": {k: {f: v for f, v in sv.items() if f != "srv"}
+                       for k, sv in served.items()}}
+
+
+def _device_us(event) -> float:
+    """Self device time (us) of a profiler row; the attribute's name moved
+    between torch versions."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, name):
+            return float(getattr(event, name))
+    return 0.0
 
 
 def main() -> int:
@@ -2409,6 +2923,10 @@ def main() -> int:
                                        warn_only=det_before[1])
     torch_det.fill_uninitialized_memory = det_before[2]
 
+    # ---------------------------------------------------------------- 10
+    # KAN-FFN transformer serving at full width (``kanffn_phase``)
+    kanffn = kanffn_phase(dev, card)
+
     launched = {k: (served[p]["launches"][k], f"phase 3, {p} burst")
                 for p in PRECISIONS for k in SERVED_KERNELS[p]}
     launched["kan_fused_v1_bf16"] = (b_v1_launches["kan_fused_v1_bf16"],
@@ -2431,6 +2949,7 @@ def main() -> int:
             "launches_openloop": open_launches[k],
             "launches_train": train_launches[k],
             "launches_paper": paper_launches[k],
+            "launches_kanffn": kanffn["launches"][k],
             "max_abs_err": max_err[k], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -2452,6 +2971,7 @@ def main() -> int:
          "openloop": {"payload_us": payload_us, "replays": openloop},
          "train": train,
          "paper": paper,
+         "kanffn": kanffn,
          "ptxas": usage,
          "knob_checks": knob_checks,
          "kernel_bench_launches": bench_launches},

@@ -8,7 +8,8 @@ against it by the ``tests/test_torch_*.py`` parity tests.
 Kernels dispatch on the device of their input: a CPU tensor runs the
 plain PyTorch version (``kernels/*/ref.py``), a CUDA tensor launches the
 hand-written ``sm_90a`` kernel (``kernels/*/csrc/*.cu``) or raises.  The
-entry points (``runtime.backends.VikinBackend``, ``launch.serve``)
+entry points (``runtime.backends.VikinBackend`` and
+``TransformerBackend``, ``runtime.server.Server``, ``launch.serve``)
 default to ``device="cuda"`` and refuse to run when CUDA is missing
 unless the caller asks for ``"cpu"``.
 """

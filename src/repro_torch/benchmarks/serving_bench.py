@@ -10,14 +10,18 @@ nothing unported:
 * ``sched:vikin-kan2+vikin-mlp3`` -- an interleaved KAN/MLP stream served
   from one multi-workload engine under the ``fifo`` and ``mode-affinity``
   batch policies side by side, with whether batched outputs are bitwise
-  the single-request ones for every request under each policy.
+  the single-request ones for every request under each policy;
+* ``kanffn:kanffn-ci`` -- the KAN-FFN transformer against its all-"mlp"
+  twin of the same widths through the VIKIN cycle model (batch-1
+  simulated cycles, DMA bytes and mode plan a request), and whether
+  batched greedy decode equals single-request decode, token for token.
 
-Both serve f32 from random weights drawn from ``--seed``.  The simulated
+All serve f32 from random weights drawn from ``--seed``.  The simulated
 fields depend on the cycle model and the scheduler alone, so they equal
 the JAX package's committed rows exactly; ``wall_*`` fields are host
 clock on the device named in each row.  The JAX package's ``trained:``,
-``quant:``, ``kanffn:``, ``sharded:``, ``pipe:`` and ``hetero:`` rows
-wait for their modules.
+``quant:``, ``sharded:``, ``pipe:`` and ``hetero:`` rows wait for their
+modules.
 
 Run (from the repository root, with ``PYTHONPATH=src``)::
 
@@ -31,6 +35,7 @@ file.  It never writes ``BENCH_serving.json``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 from pathlib import Path
 from typing import Dict, Optional, Sequence
@@ -38,10 +43,17 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.configs.registry import KANFFN_ARCHS
 from repro_torch.configs.vikin_models import VIKIN_ARCHS
+from repro_torch.core.engine import serving_report
 from repro_torch.kernels.autotune import device_tag
+from repro_torch.models import transformer as T
 from repro_torch.models.ffn import vikin_stack_init
-from repro_torch.runtime.backends import MultiWorkloadBackend, VikinBackend
+from repro_torch.runtime.backends import (
+    MultiWorkloadBackend,
+    TransformerBackend,
+    VikinBackend,
+)
 from repro_torch.runtime.server import Engine
 from repro_torch.utils import resolve_device
 
@@ -49,6 +61,7 @@ ROOT = Path(__file__).resolve().parents[3]
 DEFAULT_OUT = ROOT / "chiprun_out" / "serving_bench.json"
 ARCHS = ("vikin-kan2", "vikin-mlp3", "vikin-mixed")
 SCHED_ARCHS = ("vikin-kan2", "vikin-mlp3")
+KANFFN_ARCH = "kanffn-ci"
 
 
 def seeded_params(model, seed: int):
@@ -182,10 +195,65 @@ def sched_fifo_vs_affinity(archs: Sequence[str] = SCHED_ARCHS, *,
     }
 
 
+def kanffn_dense_vs_kan(arch: str = KANFFN_ARCH, *, n_check: int = 6,
+                        n_slots: int = 4, device: str = "cuda",
+                        seed: int = 0) -> Dict:
+    """The ``kanffn:*`` row: a KAN-FFN transformer against its all-"mlp"
+    twin of the same widths through the VIKIN cycle model, batch=1 a
+    request (simulated cycles, DMA bytes, the mode plan and its flips),
+    and whether batched greedy decode through ``Engine`` equals fresh
+    single-request engines at the same ``n_slots``, token for token."""
+    cfg = KANFFN_ARCHS[arch]
+    dense_cfg = dataclasses.replace(
+        cfg, name=cfg.name + "-dense",
+        ffn_kinds=tuple("mlp" for _ in cfg.ffn_kinds))
+
+    def side(c):
+        params = T.init_params(c, torch.Generator().manual_seed(seed))
+        b = TransformerBackend(c, params, device=device)
+        rep = serving_report(b.layers, b.hw, batch=1, precision=b.precision)
+        plan = b.plan.summary()
+        return b, {"sim_cycles_per_req": rep["sim_cycles"],
+                   "dma_bytes_per_req": rep["dma_bytes"],
+                   "mode_plan": plan["segments"],
+                   "mode_switches_per_req": plan["n_switches"]}
+
+    backend, kan = side(cfg)
+    _, dense = side(dense_cfg)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size,
+                            size=int(rng.integers(3, 9))).astype(np.int32)
+               for _ in range(n_check)]
+    eng = Engine(backend, n_slots=n_slots, max_len=32)
+    rids = [eng.submit(p, max_new_tokens=4) for p in prompts]
+    batched = eng.run_until_done()
+    singles = []
+    for p in prompts:
+        eng1 = Engine(backend, n_slots=n_slots, max_len=32)
+        rid1 = eng1.submit(p, max_new_tokens=4)
+        singles.append(eng1.run_until_done()[rid1])
+    return {
+        "arch": arch,
+        "device": device_tag(backend.device),
+        "ffn_kinds": list(cfg.ffn_kinds),
+        "requests": n_check,
+        "n_slots": n_slots,
+        "dense_mlp": dense,
+        "kanffn": kan,
+        "cycle_ratio": (kan["sim_cycles_per_req"]
+                        / max(dense["sim_cycles_per_req"], 1e-9)),
+        "dma_ratio": (kan["dma_bytes_per_req"]
+                      / max(dense["dma_bytes_per_req"], 1e-9)),
+        "batched_equals_single": all(batched[rid] == singles[i]
+                                     for i, rid in enumerate(rids)),
+    }
+
+
 def run(device: str = "cuda", out: Optional[str | Path] = None, *,
         n_requests: int = 32, n_slots: int = 8, seed: int = 0
         ) -> Dict[str, Dict]:
-    """Emit the burst rows and the sched row, merged into ``out``."""
+    """Emit the burst rows, the sched row and the kanffn row, merged into
+    ``out``."""
     rows: Dict[str, Dict] = {
         a: serve_burst(a, n_requests=n_requests, n_slots=n_slots,
                        device=device, seed=seed)
@@ -193,6 +261,8 @@ def run(device: str = "cuda", out: Optional[str | Path] = None, *,
     rows[f"sched:{'+'.join(SCHED_ARCHS)}"] = sched_fifo_vs_affinity(
         SCHED_ARCHS, n_requests=n_requests, n_slots=n_slots, device=device,
         seed=seed)
+    rows[f"kanffn:{KANFFN_ARCH}"] = kanffn_dense_vs_kan(device=device,
+                                                        seed=seed)
     path = merge_rows(rows, out)
     for a, r in rows.items():
         if a.startswith("sched:"):
@@ -203,6 +273,13 @@ def run(device: str = "cuda", out: Optional[str | Path] = None, *,
                   f"{m['sim_cycles_per_req']:.0f} "
                   f"({r['reconfig_reduction']:.1f}x fewer reconfig cycles, "
                   f"bitwise_identical={r['bitwise_identical']})")
+            continue
+        if a.startswith("kanffn:"):
+            print(f"{a}: {r['kanffn']['sim_cycles_per_req']:.1f} sim cyc/req "
+                  f"vs the dense twin's "
+                  f"{r['dense_mlp']['sim_cycles_per_req']:.1f} (cycle ratio "
+                  f"{r['cycle_ratio']:.4f}, dma ratio {r['dma_ratio']:.4f}), "
+                  f"batched_equals_single={r['batched_equals_single']}")
             continue
         print(f"{a}: {r['requests']} requests in {r['batches']} batches, "
               f"wall {r['wall_rps']:.1f} req/s, "

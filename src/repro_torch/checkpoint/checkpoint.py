@@ -40,7 +40,13 @@ import torch
 
 from repro_torch.core.quant import LayerScales, StackScales
 from repro_torch.core.sparsity import PatternMask
-from repro_torch.utils import leaf_paths, tree_map, tree_map_with_path
+from repro_torch.utils import (
+    BF16_NP,
+    leaf_from_numpy,
+    leaf_paths,
+    tree_map,
+    tree_map_with_path,
+)
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 _MASK_FILE = "masks.npz"
@@ -53,6 +59,8 @@ class CheckpointMismatchError(ValueError):
 
 def _np_dtype(leaf: Any) -> np.dtype:
     if torch.is_tensor(leaf):
+        if leaf.dtype == torch.bfloat16:
+            return BF16_NP
         return torch.empty((), dtype=leaf.dtype).numpy().dtype
     return np.asarray(leaf).dtype
 
@@ -91,6 +99,9 @@ def _unflatten_into(target: Any, flat: Dict[str, np.ndarray],
             f"({len(problems)} problem(s)):\n  " + "\n  ".join(problems))
     leaves = {}
     for key, leaf in paths:
+        if _np_dtype(leaf) == BF16_NP and flat[key].dtype == BF16_NP:
+            leaves[key] = leaf_from_numpy(flat[key]).to(leaf.device)
+            continue
         a = flat[key].astype(_np_dtype(leaf)) if cast else flat[key]
         leaves[key] = (torch.from_numpy(np.array(a)).to(leaf.device)
                        if torch.is_tensor(leaf) else np.array(a))
@@ -100,6 +111,9 @@ def _unflatten_into(target: Any, flat: Dict[str, np.ndarray],
 def _host(leaf: Any) -> np.ndarray:
     """A host numpy copy of a tensor (on any device) or array leaf."""
     if torch.is_tensor(leaf):
+        if leaf.dtype == torch.bfloat16:
+            return (leaf.detach().to("cpu", copy=True).view(torch.int16)
+                    .numpy().view(BF16_NP))
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf)
 

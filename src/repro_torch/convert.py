@@ -8,6 +8,8 @@ so both packages contract like with like:
 * kan layer: ``{"w_b": (n_in, n_out), "t": (n_in, G+K, n_out)}``
 * mlp layer: ``{"w": (n_in, n_out), "b": (n_out,)}``
 
+``transformer_params_from_jax`` carries a transformer's whole params tree
+(nested dicts and lists) leaf for leaf, bf16 leaves bit for bit.
 ``stack_params_to_numpy`` is the reverse direction: the port's params
 (trained on any device) as numpy arrays in that layout, which the
 reference's functions take as they are.  ``paper_npz_entries`` and
@@ -26,7 +28,7 @@ from repro_torch.core.kan import KANConfig
 from repro_torch.core.quant import LayerScales, StackScales
 from repro_torch.core.sparsity import PatternMask
 from repro_torch.models.ffn import stack_layer_cfgs
-from repro_torch.utils import host_f32
+from repro_torch.utils import host_f32, leaf_from_numpy, tree_map
 
 
 def _layer_from_jax(p: Mapping[str, Any], want: Mapping[str, tuple],
@@ -128,3 +130,11 @@ def paper_params_from_npz(entries: Mapping[str, Any],
         if mname == model.name:
             layers[int(idx)][pname] = entries[key]
     return stack_params_from_jax(layers, model)
+
+
+def transformer_params_from_jax(tree: Any, device: torch.device | str = "cpu"
+                                ) -> Any:
+    """The reference's transformer params tree (``models/transformer.
+    init_params``; nested dicts and lists of arrays) as the port's, every
+    leaf the same dtype and bits, on ``device``."""
+    return tree_map(lambda a: leaf_from_numpy(a).to(device), tree)

@@ -1,6 +1,6 @@
 """Post-training calibration: two-stage sparsity masks and int8 scales.
 
-Counterpart of the stack half of ``repro/core/calibrate.py``:
+Counterpart of ``repro/core/calibrate.py``:
 
   * **KAN layers** (stage 2 on the basis dimension): the mean |B_i(x)|
     energy of every basis over the layer's calibration inputs, weighted
@@ -12,6 +12,10 @@ Counterpart of the stack half of ``repro/core/calibrate.py``:
     Layer 0 is never masked -- raw request features always enter dense.
   * **Scales** (``calibrate_scales``): from the same calibration batch,
     the symmetric int8 scales of core/quant.
+  * **KAN-FFN transformers** (``calibrate_kanffn_masks``): per ``"kan"``
+    FFN layer, the basis saliency of its KAN up-projection (stage 1) and
+    the input saliency of its down-projection over the hidden lanes the
+    dense up-projection emits (stage 2), from one dense forward's taps.
 
 The dense forward and the basis values run on the params' device: on
 the card the forward launches the kernels (``VikinStack`` under
@@ -37,8 +41,10 @@ from repro_torch.core.sparsity import (
     weight_saliency,
 )
 from repro_torch.core.splines import SplineSpec, bases_dense
+from repro_torch.core.kan import kan_apply
 from repro_torch.models.ffn import VikinStack, stack_layer_cfgs
-from repro_torch.utils import host_f32
+from repro_torch.models.transformer import forward
+from repro_torch.utils import host_f32, leaf_paths
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,3 +187,70 @@ def calibrate_scales(params: Sequence[Dict[str, Any]], model: Any,
         derive_layer_scales(kind, p, acts[i])
         for i, (p, (kind, _)) in enumerate(
             zip(params, stack_layer_cfgs(dense_model)))))
+
+
+def kanffn_saliencies(params: Any, cfg: Any, tokens: np.ndarray
+                      ) -> List[Optional[Tuple[np.ndarray, np.ndarray]]]:
+    """Per layer of a kan-ffn arch: None for a non-"kan" layer, else its
+    (basis saliency (n_bases,), hidden saliency (hidden,)).
+
+    One dense forward over ``tokens`` (masks and pattern rate off)
+    captures each layer's normed FFN input (``forward``'s ffn_taps), on
+    the params' device.  The basis saliency scores the KAN up-projection's
+    bases on that input; the hidden saliency scores the down-projection's
+    input lanes on the hidden activations the dense up-projection emits
+    for it, computed in f32 from the (exactly widened) up weights, as the
+    reference's f32 taps meet its bf16 weights.  Reduced in host numpy.
+    """
+    if cfg.ffn_kinds is None:
+        raise ValueError(f"{cfg.name}: not a kan-ffn arch (ffn_kinds unset)")
+    dense_cfg = dataclasses.replace(cfg, ffn_masks=None, pattern_rate=0.0)
+    dev = leaf_paths(params)[0][1].device
+    taps: Dict[int, torch.Tensor] = {}
+    with torch.no_grad():
+        forward(params, dense_cfg, torch.as_tensor(
+            np.asarray(tokens, np.int32), device=dev), ffn_taps=taps)
+    out: List[Optional[Tuple[np.ndarray, np.ndarray]]] = []
+    for i, kind in enumerate(cfg.ffn_kinds):
+        if kind != "kan":
+            out.append(None)
+            continue
+        p = params["extra"][i]["ffn"]
+        up_cfg = dense_cfg.ffn_cfg(i).kanffn_up_cfg()
+        tap = host_f32(taps[i])
+        tap2 = tap.reshape(-1, tap.shape[-1])
+        s1 = kan_basis_saliency(p["kan_up"], up_cfg.spec, tap2)
+        up = {k: v.to(torch.float32) for k, v in p["kan_up"].items()}
+        with torch.no_grad():
+            hid = host_f32(kan_apply(up, _f32_on(tap2, dev), up_cfg))
+        s2 = mlp_input_saliency({"w": p["w"]}, hid)
+        out.append((s1, s2))
+    return out
+
+
+def calibrate_kanffn_masks(params: Any, cfg: Any, tokens: np.ndarray, *,
+                           keep_per_group: int = 2) -> Tuple:
+    """Two-stage masks for every "kan" FFN layer of a transformer arch.
+
+    From ``kanffn_saliencies``: stage 1 keeps the top ``keep_per_group``
+    bases of each group of four of the KAN up-projection (the fused
+    kernel's kb), stage 2 the top hidden lanes into the down-projection's
+    pattern matmul.  Returns an ``ArchConfig.ffn_masks`` tuple: one entry
+    per layer, None for non-kan layers, else (basis_keep, hidden_keep)
+    index tuples.  A fixed batch gives the same masks every run.
+    """
+    if cfg.ffn_kinds is None:
+        raise ValueError(f"{cfg.name}: not a kan-ffn arch (ffn_kinds unset)")
+    if not 1 <= keep_per_group <= GROUP:
+        raise ValueError(f"keep_per_group must be in [1, {GROUP}]")
+    if keep_per_group == GROUP:
+        return tuple(None for _ in cfg.ffn_kinds)
+    out: List[Optional[tuple]] = []
+    for sal in kanffn_saliencies(params, cfg, tokens):
+        if sal is None:
+            out.append(None)
+            continue
+        bk, hk = (magnitude_mask(s, keep_per_group) for s in sal)
+        out.append((tuple(int(j) for j in bk.indices()),
+                    tuple(int(j) for j in hk.indices())))
+    return tuple(out)

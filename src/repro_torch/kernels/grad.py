@@ -33,9 +33,10 @@ def refuse_grad(fn: str, why: str) -> None:
 
 def ieee_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in IEEE f32, as the reference's XLA products: refuses a
-    CUDA product while TF32 is allowed."""
+    CUDA product while TF32 is allowed (the gradient products here, the
+    transformer models' plain products in ``models/layers.py``)."""
     if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
-            "the gradient products must run in IEEE f32: set "
+            "f32 products must run in IEEE f32: set "
             "torch.backends.cuda.matmul.allow_tf32 = False")
     return torch.matmul(a, b)

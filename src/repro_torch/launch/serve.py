@@ -1,8 +1,9 @@
-"""Serving launcher for ``vikin-*`` KAN/MLP stacks on a torch device.
+"""Serving launcher for ``vikin-*`` KAN/MLP stacks and decoder-only
+transformers on a torch device.
 
-Counterpart of the ``vikin-*`` path of ``repro/launch/serve.py``: random
-weights from a seed, one inference per request, simulated VIKIN cycles
-reported next to wall-clock.  Runs on the GPU by default:
+Counterpart of ``repro/launch/serve.py``: random weights from a seed,
+simulated VIKIN cycles reported next to wall-clock.  Runs on the GPU by
+default:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vikin-mixed \
       --requests 8 --slots 4
@@ -39,6 +40,23 @@ queue, ``--admission reject|shed`` says what a full queue does, and
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vikin-mlp3 \
       --trace /tmp/t.json --max-queue 16 --admission shed --drop-expired
+
+A transformer arch (``configs/registry``: the ten zoo archs and the
+KAN-FFN hybrids ``qwen2-0.5b-kanffn`` and ``kanffn-ci``) serves greedy
+decode through ``runtime/server.Server``: ``--requests`` seeded prompts
+of 3-15 tokens, ``--new-tokens`` each, on ``--slots`` KV-cache lanes of
+``--max-len`` positions.  ``--scale smoke`` (the default, as in the
+reference) serves the arch's ``reduce()``d width; ``--scale full`` the
+registry's.  A KAN-FFN hybrid's "kan" layers run the fused KAN and
+pattern-matmul kernels; ``--precision bf16`` casts its params once
+(``f32`` keeps the arch's dtype, bf16 for ``qwen2-0.5b-kanffn`` at full
+scale).  ``--ckpt-dir`` restores the params tree.  The weights are drawn
+from a ``torch.Generator`` at seed 0, not the reference's ``jax.random``
+draws, so the tokens differ from the reference launcher's; the
+simulated cycles do not:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen2-0.5b-kanffn --scale full --precision bf16 --requests 8
 """
 from __future__ import annotations
 
@@ -49,19 +67,21 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import (
+    latest_step,
     restore_checkpoint,
     restore_masks,
     restore_scales,
 )
-from repro_torch.configs.vikin_models import VIKIN_ARCHS
+from repro_torch.configs.registry import get_serving_config
 from repro_torch.core.calibrate import calibrate_scales
 from repro_torch.core.kan import KANLayer
 from repro_torch.core.quant import QuantKANLayer, QuantPatternLinear
 from repro_torch.kernels import autotune
+from repro_torch.models import transformer as T
 from repro_torch.models.ffn import PatternLinear, vikin_stack_init
 from repro_torch.runtime.backends import MultiWorkloadBackend, VikinBackend
 from repro_torch.runtime.loadgen import Trace, replay
-from repro_torch.runtime.server import Engine
+from repro_torch.runtime.server import Engine, Server
 
 
 def make_vikin_backend(model: Any, device: str, seed: int = 0, *,
@@ -281,24 +301,122 @@ def replay_trace(eng: Engine, path: str) -> Dict[str, object]:
     return rep
 
 
-def parse_archs(arch: str) -> List[Any]:
+def resolve_archs(arch: str) -> Tuple[str, List[Any]]:
+    """(family, configs) of a ``--arch`` value: "vikin" and one or more
+    paper-model configs, or "transformer" and one ``ArchConfig``."""
     names = [a.strip() for a in arch.split(",") if a.strip()]
     if not names:
         raise SystemExit("--arch got no arch ids; pass one id or a comma "
                          "list like vikin-kan2,vikin-mlp3")
-    unknown = [n for n in names if n not in VIKIN_ARCHS]
-    if unknown:
-        raise SystemExit(f"unknown arch {unknown[0]!r}; this launcher serves "
-                         f"{sorted(VIKIN_ARCHS)}")
-    return [VIKIN_ARCHS[n] for n in names]
+    try:
+        resolved = [get_serving_config(n) for n in names]
+    except KeyError as e:
+        raise SystemExit(str(e.args[0]))
+    families = {fam for fam, _ in resolved}
+    if len(names) > 1 and families != {"vikin"}:
+        raise SystemExit(
+            f"multi-workload serving (--arch a,b,c) is vikin-only "
+            f"(runtime/scheduler.py); got families {sorted(families)}. "
+            f"Serve one transformer arch at a time")
+    return resolved[0][0], [cfg for _, cfg in resolved]
+
+
+def parse_archs(arch: str) -> List[Any]:
+    """The paper-model configs of a ``--arch`` value of ``vikin-*`` ids."""
+    family, models = resolve_archs(arch)
+    if family != "vikin":
+        raise SystemExit(f"{arch!r} is a transformer arch; pass vikin-* ids")
+    return models
+
+
+def check_transformer_args(args: argparse.Namespace, cfg: Any) -> None:
+    """The reference launcher's refusals for a transformer arch, each a
+    ``SystemExit``."""
+    if cfg.enc_dec or cfg.frontend is not None:
+        raise SystemExit(
+            f"arch {cfg.name!r} ({cfg.family}) needs modality inputs "
+            f"(frames/patches) that the token-only serving path does not "
+            f"provide; serve a decoder-only arch or a vikin-* workload")
+    if args.trace:
+        raise SystemExit(
+            f"--trace is vikin-only (runtime/loadgen replays on the "
+            f"simulated VIKIN clock); {args.arch!r} has no simulated "
+            f"cycle model to replay against")
+    if args.max_queue is not None or args.admission != "unbounded":
+        raise SystemExit(
+            "--max-queue/--admission are vikin-only here; the "
+            "transformer Server keeps the unbounded path")
+    if args.precision != "f32":
+        # kan-ffn transformers serve bf16 through the backend's cast;
+        # int8 stays vikin-only (core/quant)
+        if cfg.ffn_kinds is None:
+            raise SystemExit(
+                f"--precision is vikin/kan-ffn-only; plain arch "
+                f"{args.arch!r} would silently serve f32 anyway")
+        if args.precision == "int8":
+            raise SystemExit(
+                "--precision int8 is vikin-only (core/quant path); "
+                "kan-ffn transformers serve f32 or bf16")
+
+
+def serve_transformer(args: argparse.Namespace, cfg: Any) -> Server:
+    """Serve ``--requests`` seeded prompts of one transformer arch and
+    print the tokens, the engine's stats and, for a KAN-FFN hybrid, its
+    mode plan and simulated VIKIN cycles."""
+    check_transformer_args(args, cfg)
+    if args.scale == "smoke":
+        cfg = cfg.reduce()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
+        params, step, _ = restore_checkpoint(args.ckpt_dir,
+                                             {"params": params})
+        params = params["params"]
+        print(f"restored params from step {step}")
+    kanffn = cfg.ffn_kinds is not None
+    srv = Server(cfg, params, n_slots=args.slots, max_len=args.max_len,
+                 precision=args.precision, device=args.device)
+    if kanffn:
+        plan = srv.backend.plan.summary()
+        print(f"arch {cfg.name}: kan-ffn hybrid, ffn_kinds="
+              f"{list(cfg.ffn_kinds)} device={srv.backend.device} "
+              f"precision={args.precision}")
+        print(f"mode plan: {plan['segments']} "
+              f"({plan['n_switches']} switches, "
+              f"{plan['reconfig_cycles']} reconfig cycles/instance)")
+    rng = np.random.default_rng(0)
+    for _ in range(args.requests):
+        n = int(rng.integers(3, 16))
+        srv.submit(rng.integers(0, cfg.vocab_size, size=n).astype(np.int32),
+                   max_new_tokens=args.new_tokens)
+    out = srv.run_until_done()
+    for rid, toks in sorted(out.items()):
+        print(f"req {rid}: {toks}")
+    s = srv.stats
+    print(f"\n{int(s['served'])} requests, {int(s['ticks'])} ticks, "
+          f"wall {s['wall_s']:.2f} s")
+    if kanffn:
+        print(f"simulated VIKIN: {s['sim_cycles']:.0f} cycles, "
+              f"{s['sim_latency_s']*1e6:.1f} us, "
+              f"{int(s['mode_switches'])} mode switches "
+              f"({s['reconfig_cycles']:.0f} reconfig cycles)")
+    return srv
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Engine:
-    ap = argparse.ArgumentParser()
+    ap = argparse.ArgumentParser(
+        epilog="Weights are drawn from a torch.Generator at seed 0: not "
+               "the reference's jax.random draws, so served answers and "
+               "tokens differ from its launcher's (simulated cycles do "
+               "not).")
     ap.add_argument("--arch", required=True,
-                    help="one vikin-* id, or a comma list served together "
-                         "by the multi-workload scheduler")
+                    help="one arch id (vikin-*, a transformer or a kan-ffn "
+                         "hybrid), or a comma list of vikin-* ids served "
+                         "together by the multi-workload scheduler")
     ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--new-tokens", type=int, default=12,
+                    help="transformer archs: tokens generated a request")
+    ap.add_argument("--max-len", type=int, default=128,
+                    help="transformer archs: KV-cache positions a slot")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--policy", default="mode-affinity",
                     choices=["fifo", "mode-affinity"],
@@ -308,9 +426,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Engine:
     ap.add_argument("--precision", default="f32",
                     choices=["f32", "bf16", "int8"],
                     help="served numerics: bf16 casts params and "
-                         "activations (f32 accumulation, f32 answers); "
-                         "int8 is the post-training quantized path "
-                         "(core/quant.py)")
+                         "activations (f32 accumulation; vikin answers "
+                         "f32); int8 is the post-training quantized path "
+                         "(core/quant.py), vikin archs only; kan-ffn "
+                         "transformers take f32 (the arch's dtype) or bf16")
     ap.add_argument("--scale", default="smoke", choices=["smoke", "full"],
                     help="smoke applies each config's reduce(), as the "
                          "reference does; the paper models are already "
@@ -319,8 +438,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Engine:
                     help="checkpoint directory of the reference's layout: "
                          "params, masks and int8 scales are restored")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="the same as --ckpt (launch/train.py writes "
-                         "through this spelling)")
+                    help="vikin archs: the same as --ckpt (launch/train.py "
+                         "writes through this spelling); transformer "
+                         "archs: restore the params tree from here")
     ap.add_argument("--trace", default=None,
                     help="replay this arrival-trace JSON (python -m "
                          "repro_torch.runtime.loadgen) open-loop on the "
@@ -337,7 +457,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Engine:
                     help="shed queued requests whose deadline already "
                          "passed instead of serving them dead")
     args = ap.parse_args(argv)
-    models = parse_archs(args.arch)
+    family, models = resolve_archs(args.arch)
+    if family == "transformer":
+        return serve_transformer(args, models[0])
     if args.scale == "smoke":
         models = [m.reduce() for m in models]
     # either spelling restores: serving random weights because train.py's

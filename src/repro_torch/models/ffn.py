@@ -1,8 +1,23 @@
-"""Stacked KAN/MLP feed-forward workloads (the VIKIN serving path).
+"""FFN family: dense MLP / SwiGLU / GeGLU / KAN / **KAN-FFN**, and the
+stacked KAN/MLP feed-forward workloads of the VIKIN serving path.
 
-Counterpart of the stack half of ``repro/models/ffn.py``.  A ``model`` is
-any config with ``.sizes``, ``.layer_kinds``, ``.spec`` and
-``.pattern_rate`` (configs/vikin_models.PaperModelConfig).  Contract:
+Counterpart of ``repro/models/ffn.py``.  Every transformer block selects
+its feed-forward through ``FFNConfig.kind``: ``mlp``, ``swiglu`` and
+``geglu`` are plain f32-accumulated products (``torch.matmul`` of the
+widened operands), optionally with a static m-of-4 mask over the hidden
+dimension; ``kan`` is two KAN layers through ``core/kan.kan_apply``;
+``kanffn`` (``kan_ffn_apply``, ``KanFFN``) is the paper's technique at
+LM scale: a KAN up-projection through the fused KAN kernel (stage-1
+basis mask) and a linear down-projection through the pattern-matmul
+kernel (stage-2 hidden mask).  ``kan_impl`` is kept for the reference's
+field set and takes only ``"auto"``: the tensor's device picks kernel or
+plain version.  The reference's interpret-mode single-k-tile rule has no
+counterpart (there is no TPU interpreter here).
+
+The stack half (``stack_layer_cfgs`` .. ``vikin_stack_apply``) serves
+the paper's models.  A ``model`` is any config with ``.sizes``,
+``.layer_kinds``, ``.spec`` and ``.pattern_rate``
+(configs/vikin_models.PaperModelConfig).  Contract:
 
 * "kan" layers run the fused KAN kernel (core/kan.KANLayer) with the
   stage-2 basis mask; inputs are clipped into the spline domain by the
@@ -14,25 +29,212 @@ any config with ``.sizes``, ``.layer_kinds``, ``.spec`` and
 
 Parameters keep the JAX package's layout: one dict per layer, kan
 ``{"w_b": (n_in, n_out), "t": (n_in, G+K, n_out)}``, mlp
-``{"w": (n_in, n_out), "b": (n_out,)}``.
+``{"w": (n_in, n_out), "b": (n_out,)}``; a kanffn FFN
+``{"kan_up": {"w_b", "t"}, "w": (h, d_model), "b": (d_model,)}``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.core.kan import KANConfig, KANLayer, kan_init
+from repro_torch.core.kan import KANConfig, KANLayer, kan_apply, kan_init
 from repro_torch.core.sparsity import (
     PatternMask,
     sparsity_to_pattern,
     tiled_mask,
 )
+from repro_torch.core.splines import SplineSpec
 from repro_torch.kernels.pattern_matmul.ops import matmul_compact
+from repro_torch.models.layers import ACT_FNS, dense, dense_init, f32_matmul
 
 Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class FFNConfig:
+    d_model: int
+    d_ff: int
+    kind: str = "swiglu"            # mlp | swiglu | geglu | kan | kanffn
+    act: str = "gelu"               # for kind == "mlp"
+    bias: bool = False
+    # stage-2 pattern sparsity over the hidden dim (MLP) / bases (KAN)
+    pattern_rate: float = 0.0
+    # KAN-FFN options
+    kan_grid: int = 4
+    kan_order: int = 3
+    kan_hidden: Optional[int] = None    # default: param-matched
+    kan_impl: str = "auto"              # "auto" only: the device picks
+    kan_version: int = 2                # fused-kernel generation (2 = v2)
+    # (bm, bi, bn) knob override for the fused KAN kernels; None defers
+    # to the autotune cache, then the kernel's defaults
+    kan_blocks: Optional[Tuple[int, int, int]] = None
+    # kind == "kanffn": calibrated two-stage masks.  Stage 1 keeps these
+    # basis indices of the KAN up-projection (None = a tiled mask from
+    # pattern_rate, or dense when that is 0); stage 2 keeps these hidden
+    # lanes into the down-projection.
+    basis_keep: Optional[Tuple[int, ...]] = None
+    hidden_keep: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self) -> None:
+        if self.kan_impl != "auto":
+            raise ValueError(
+                f"FFNConfig.kan_impl={self.kan_impl!r}: the port has no "
+                f"impl switch (a CUDA tensor launches the kernels, a CPU "
+                f"tensor runs their plain versions); pass 'auto'")
+
+    @property
+    def hidden_mask(self) -> Optional[PatternMask]:
+        if self.pattern_rate <= 0.0 or self.kind in ("kan", "kanffn"):
+            return None
+        return tiled_mask(self.d_ff, sparsity_to_pattern(self.pattern_rate))
+
+    def kan_cfgs(self) -> Tuple[KANConfig, KANConfig]:
+        spec = SplineSpec(self.kan_grid, self.kan_order)
+        h = self.kan_hidden or max(8, self.d_ff // (spec.n_bases + 1))
+        pat = (sparsity_to_pattern(self.pattern_rate)
+               if self.pattern_rate > 0 else None)
+        up = KANConfig(self.d_model, h, spec, pattern=pat,
+                       version=self.kan_version, blocks=self.kan_blocks)
+        down = KANConfig(h, self.d_model, spec, pattern=pat,
+                         version=self.kan_version, blocks=self.kan_blocks)
+        return up, down
+
+    # -------------------------------------------------- kind == "kanffn"
+    @property
+    def kanffn_hidden(self) -> int:
+        """Param-matched hidden width for the kan-up + linear-down FFN.
+
+        Up carries h*d_model*(n_bases+1) params, down h*d_model, so
+        h = 2*d_ff/(n_bases+2) matches the dense MLP's 2*d_model*d_ff.
+        """
+        spec = SplineSpec(self.kan_grid, self.kan_order)
+        return self.kan_hidden or max(8, 2 * self.d_ff // (spec.n_bases + 2))
+
+    def kanffn_up_cfg(self) -> KANConfig:
+        spec = SplineSpec(self.kan_grid, self.kan_order)
+        pat = (sparsity_to_pattern(self.pattern_rate)
+               if self.basis_keep is None and self.pattern_rate > 0
+               else None)
+        return KANConfig(self.d_model, self.kanffn_hidden, spec,
+                         pattern=pat, basis_keep=self.basis_keep,
+                         version=self.kan_version, blocks=self.kan_blocks)
+
+    def kanffn_hidden_mask(self) -> Optional[PatternMask]:
+        """Stage-2 mask over the hidden lanes feeding the down-projection."""
+        h = self.kanffn_hidden
+        if self.hidden_keep is not None:
+            keep = np.zeros(h, bool)
+            keep[np.asarray(self.hidden_keep, np.int64)] = True
+            return PatternMask(keep)
+        if self.pattern_rate > 0:
+            return tiled_mask(h, sparsity_to_pattern(self.pattern_rate))
+        return None
+
+
+def ffn_init(generator: Optional[torch.Generator], cfg: FFNConfig,
+             dtype: torch.dtype = torch.float32) -> Dict:
+    """The FFN's params on the CPU, drawn from ``generator``: the
+    reference's shapes and distributions, not its draws."""
+    if cfg.kind == "mlp":
+        return {
+            "up": dense_init(generator, cfg.d_model, cfg.d_ff, bias=cfg.bias,
+                             dtype=dtype),
+            "down": dense_init(generator, cfg.d_ff, cfg.d_model,
+                               bias=cfg.bias, dtype=dtype),
+        }
+    if cfg.kind in ("swiglu", "geglu"):
+        return {
+            "gate": dense_init(generator, cfg.d_model, cfg.d_ff, dtype=dtype),
+            "up": dense_init(generator, cfg.d_model, cfg.d_ff, dtype=dtype),
+            "down": dense_init(generator, cfg.d_ff, cfg.d_model, dtype=dtype),
+        }
+    if cfg.kind == "kan":
+        up_cfg, down_cfg = cfg.kan_cfgs()
+        return {"kan_up": kan_init(up_cfg, generator, dtype),
+                "kan_down": kan_init(down_cfg, generator, dtype)}
+    if cfg.kind == "kanffn":
+        # KAN up-projection + plain linear down-projection; init against
+        # the DENSE up config: masks are serving-time overlays, params do
+        # not change shape when calibration lands a mask
+        h = cfg.kanffn_hidden
+        up_cfg = dataclasses.replace(cfg.kanffn_up_cfg(), pattern=None,
+                                     basis_keep=None)
+        return {
+            "kan_up": kan_init(up_cfg, generator, dtype),
+            "w": (torch.randn((h, cfg.d_model), generator=generator)
+                  * float(np.sqrt(2.0 / h))).to(dtype),
+            "b": torch.zeros((cfg.d_model,), dtype=dtype),
+        }
+    raise ValueError(f"unknown ffn kind {cfg.kind!r}")
+
+
+def _compact(kernel: torch.Tensor, mask: PatternMask,
+             axis: int) -> torch.Tensor:
+    """Static m-of-4 weight compaction: the kept rows (axis 0) or
+    columns (axis 1) of a weight."""
+    idx = torch.as_tensor(mask.indices(), dtype=torch.long,
+                          device=kernel.device)
+    return kernel.index_select(axis, idx)
+
+
+def ffn_apply(params: Dict, x: torch.Tensor, cfg: FFNConfig) -> torch.Tensor:
+    mask = cfg.hidden_mask
+    f32 = torch.float32
+    if cfg.kind == "mlp":
+        if mask is not None:
+            # stage-2 as pure shape reduction: up emits ONLY the kept
+            # hidden columns; down consumes only the kept rows
+            up_k = _compact(params["up"]["kernel"], mask, 1)
+            down_k = _compact(params["down"]["kernel"], mask, 0)
+            h = f32_matmul(x, up_k)
+            if "bias" in params["up"]:
+                h = h + _compact(params["up"]["bias"][None], mask,
+                                 1)[0].to(f32)
+            h = ACT_FNS[cfg.act](h).to(x.dtype)
+            y = f32_matmul(h, down_k)
+            if "bias" in params["down"]:
+                y = y + params["down"]["bias"].to(f32)
+            return y.to(x.dtype)
+        h = dense(params["up"], x)
+        h = ACT_FNS[cfg.act](h.to(f32)).to(x.dtype)
+        return dense(params["down"], h)
+    if cfg.kind in ("swiglu", "geglu"):
+        act = F.silu if cfg.kind == "swiglu" else ACT_FNS["gelu"]
+        if mask is not None:
+            gate_k = _compact(params["gate"]["kernel"], mask, 1)
+            up_k = _compact(params["up"]["kernel"], mask, 1)
+            down_k = _compact(params["down"]["kernel"], mask, 0)
+            g = act(f32_matmul(x, gate_k))
+            h = (g * f32_matmul(x, up_k)).to(x.dtype)
+            return f32_matmul(h, down_k).to(x.dtype)
+        g = act(dense(params["gate"], x).to(f32)).to(x.dtype)
+        h = g * dense(params["up"], x)
+        return dense(params["down"], h)
+    if cfg.kind == "kan":
+        up_cfg, down_cfg = cfg.kan_cfgs()
+        h = kan_apply(params["kan_up"], x, up_cfg)
+        return kan_apply(params["kan_down"], h, down_cfg)
+    if cfg.kind == "kanffn":
+        return kan_ffn_apply(params, x, cfg)
+    raise ValueError(cfg.kind)
+
+
+def kan_ffn_apply(params: Dict, x: torch.Tensor,
+                  cfg: FFNConfig) -> torch.Tensor:
+    """KAN-FFN: fused-v2 KAN up-projection, pattern-sparse linear down.
+
+    Stage 1 (basis_keep, or tiled from pattern_rate) compacts the spline
+    contraction inside the fused KAN kernel; stage 2 (hidden_keep)
+    statically compacts the hidden lanes entering the down matmul.  One
+    ``kan_fused_v2`` and one ``pattern_matmul`` launch on a CUDA tensor.
+    Builds the layer on every call; serving holds a ``KanFFN``.
+    """
+    return KanFFN(cfg, params)(x)
 
 
 def stack_layer_cfgs(model: Any,
@@ -134,6 +336,27 @@ class PatternLinear(nn.Module):
             xf = xf.index_select(1, self.idx)
         y = matmul_compact(xf.contiguous(), self.w_c, self.b, act=self.act)
         return y.reshape(*lead, self.n_out)
+
+
+class KanFFN(nn.Module):
+    """A ``kind == "kanffn"`` FFN holding its weights fused and compacted
+    once: the KAN up-projection as a ``KANLayer`` (the kept bases of
+    ``basis_keep``) and the down-projection as a ``PatternLinear`` over
+    the kept hidden lanes, with its bias and no activation, both in the
+    params' dtype (x's dtype in, x's dtype out)."""
+
+    def __init__(self, cfg: FFNConfig, params: Dict) -> None:
+        super().__init__()
+        if cfg.kind != "kanffn":
+            raise ValueError(f"KanFFN needs kind='kanffn', got {cfg.kind!r}")
+        self.up = KANLayer(cfg.kanffn_up_cfg(), params["kan_up"])
+        self.down = PatternLinear(
+            {"n_in": cfg.kanffn_hidden, "n_out": cfg.d_model,
+             "mask": cfg.kanffn_hidden_mask(), "act": None},
+            {"w": params["w"], "b": params["b"]})
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down(self.up(x))
 
 
 class VikinStack(nn.Module):

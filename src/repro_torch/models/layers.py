@@ -1,0 +1,165 @@
+"""Shared neural building blocks of the transformer models (functional,
+params as nested dicts of tensors).
+
+Counterpart of ``repro/models/layers.py``, in the reference's numerics:
+norms run in f32 and cast back to x's dtype; ``dense`` multiplies the
+widened operands in f32 (a product of two bf16 values is exact in f32),
+adds the bias in f32 and rounds once to x's dtype, as the reference's
+``preferred_element_type=f32`` dot; ``unembed`` returns f32 logits.
+On the card these f32 products refuse TF32, as the port's plain
+versions do.  ``gelu`` is the tanh form (``jax.nn.gelu`` defaults to
+``approximate=True``).
+
+Initialisers draw on the CPU from an explicit ``torch.Generator`` and
+cast to the params' dtype; the draws are not ``jax.random``'s (parity
+tests carry the reference's weights across with ``convert.py``).  The
+reference's ``shard_hint`` is a mesh sharding hint that means nothing on
+one device, and has no counterpart; its mixed-precision ``DTypePolicy``
+is unused by the models and has none either.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.grad import ieee_matmul
+
+Params = Dict[str, Any]
+
+
+def f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of the operands widened to f32, in IEEE f32 (refused on
+    the card while TF32 is allowed)."""
+    return ieee_matmul(a.to(torch.float32), b.to(torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(dim: int, dtype: torch.dtype = torch.float32) -> Params:
+    return {"scale": torch.ones((dim,), dtype=dtype)}
+
+
+def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6,
+            offset: float = 0.0) -> torch.Tensor:
+    """RMSNorm in f32 (gemma-style optional +1 offset via ``offset=1``)."""
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (params["scale"].to(torch.float32) + offset)).to(x.dtype)
+
+
+def layernorm_init(dim: int, dtype: torch.dtype = torch.float32) -> Params:
+    return {"scale": torch.ones((dim,), dtype=dtype),
+            "bias": torch.zeros((dim,), dtype=dtype)}
+
+
+def layernorm(params: Params, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = (y * params["scale"].to(torch.float32)
+         + params["bias"].to(torch.float32))
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dense / embedding
+# ---------------------------------------------------------------------------
+
+def dense_init(generator: Optional[torch.Generator], d_in: int, d_out: int,
+               *, bias: bool = False, dtype: torch.dtype = torch.float32,
+               scale: Optional[float] = None) -> Params:
+    scale = scale if scale is not None else 1.0 / np.sqrt(d_in)
+    p = {"kernel": (torch.randn((d_in, d_out), generator=generator)
+                    * float(scale)).to(dtype)}
+    if bias:
+        p["bias"] = torch.zeros((d_out,), dtype=dtype)
+    return p
+
+
+def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """``x @ kernel (+ bias)``, f32 accumulation, one rounding to x's
+    dtype."""
+    y = f32_matmul(x, params["kernel"])
+    if "bias" in params:
+        y = y + params["bias"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+def embed_init(generator: Optional[torch.Generator], vocab: int, dim: int,
+               dtype: torch.dtype = torch.float32) -> Params:
+    return {"table": (torch.randn((vocab, dim), generator=generator)
+                      * 0.02).to(dtype)}
+
+
+def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["table"][tokens.long()]
+
+
+def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Tied LM head: f32 logits = x @ table^T."""
+    return f32_matmul(x, params["table"].t())
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, base: float = 10000.0,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / torch.pow(base, exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               base: float = 10000.0) -> torch.Tensor:
+    """x: (..., S, H, head_dim); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, base, x.device)
+    angles = positions[..., None].to(torch.float32) * freqs   # (...,S,hd/2)
+    angles = angles[..., None, :]                              # head axis
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Misc
+# ---------------------------------------------------------------------------
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """Gemma-2 style logit soft-capping: cap * tanh(x / cap)."""
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+ACT_FNS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "relu": torch.relu,
+    "gelu": gelu,
+    "silu": F.silu,
+}
+
+
+def count_params(tree: Any) -> int:
+    """Elements over every tensor or array leaf of a nest of dicts and
+    lists."""
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(count_params(v) for v in tree)
+    return int(math.prod(tree.shape))

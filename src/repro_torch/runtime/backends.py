@@ -1,16 +1,24 @@
 """Model backends for the continuous-batching engine (runtime/server.py).
 
-Counterpart of ``repro/runtime/backends.py`` without the transformer
-backend.  The engine owns slots, the queue and the tick loop; everything
-model-shaped lives behind the ``ModelBackend`` protocol:
+Counterpart of ``repro/runtime/backends.py``.  The engine owns slots,
+the queue and the tick loop; everything model-shaped lives behind the
+``ModelBackend`` protocol:
 
-  * ``init_state``  -- allocate per-slot state (input staging buffers).
+  * ``init_state``  -- allocate per-slot state (KV-cache lanes, input
+                       staging buffers).
   * ``prefill``     -- stage one admitted request into its slot.
   * ``step``        -- one batched engine iteration over the active slots;
                        sets outputs on the Request objects and marks
                        finished ones ``done``.
   * ``batch_report``-- simulated-hardware accounting for the step just
-                       executed (VIKIN cycle model).
+                       executed (VIKIN cycle model), or None when the
+                       backend has no hardware model.
+
+``TransformerBackend`` serves an ``ArchConfig`` transformer: greedy
+autoregressive decode over slot KV caches, one token per active slot a
+step.  For KAN-FFN hybrids every ``"kan"`` layer's FFN runs the fused
+KAN kernel (up) and the pattern-matmul kernel (down), and the VIKIN
+cycle model charges each served tick.
 
 ``VikinBackend`` serves a stacked KAN/MLP feed-forward workload
 (configs/vikin_models.PaperModelConfig) on a torch device: a request is
@@ -33,24 +41,37 @@ import numpy as np
 import torch
 
 from repro_torch.core.calibrate import masked_pattern_rates
-from repro_torch.core.engine import VikinHW, serving_report
-from repro_torch.core.modes import ExecMode, ModePlan
+from repro_torch.core.engine import (
+    LayerWork,
+    VikinHW,
+    run_model,
+    serving_report,
+)
+from repro_torch.core.modes import (
+    RECONFIG_CYCLES,
+    ExecMode,
+    LayerKind,
+    ModePlan,
+)
 from repro_torch.core.quant import (
     QuantVikinStack,
     StackScales,
     quantize_stack_params,
 )
 from repro_torch.core.sparsity import PatternMask
+from repro_torch.models import transformer as T
 from repro_torch.models.ffn import VikinStack
-from repro_torch.utils import next_pow2, resolve_device
+from repro_torch.utils import next_pow2, resolve_device, tree_map
 
 
 @dataclasses.dataclass
 class Request:
     """One serving request.
 
-    ``prompt`` is the request payload (a float feature vector for VIKIN
-    backends); one-shot backends set ``output``.  Scheduling fields
+    ``prompt`` is the request payload: int32 token ids for the
+    transformer backend, a float feature vector for VIKIN backends.
+    Token backends append into ``generated``; one-shot backends set
+    ``output``.  Scheduling fields
     (runtime/scheduler.py): ``priority`` (higher is more urgent),
     ``deadline_s`` (engine-clock budget from submission) and ``workload``
     (which of a MultiWorkloadBackend's models serves it).  ``shed`` /
@@ -116,6 +137,223 @@ class ModelBackend:
         back under ``"exit_mode"``.
         """
         return None
+
+
+# ---------------------------------------------------------------------------
+# Transformer (autoregressive) backend.
+# ---------------------------------------------------------------------------
+
+
+def transformer_layer_works(cfg: Any) -> List[LayerWork]:
+    """Per-phase VIKIN LayerWorks for a kan-ffn transformer arch.
+
+    Every block's attention projections are one parallel-mode (MLP) work
+    item, a "kan" FFN is a pipeline-mode KAN up-projection (stage-1 basis
+    sparsity) followed by a parallel-mode down matmul (stage-2 hidden
+    sparsity), and an "mlp" FFN is its two parallel-mode matmuls -- so
+    KAN-FFN phases charge pipeline-mode cycles and everything else stays
+    parallel.
+    """
+    works: List[LayerWork] = []
+    hd = cfg.hd
+    attn_out = (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.d_model
+    for i in range(cfg.n_layers):
+        block = cfg.pattern[i % len(cfg.pattern)]
+        if block == "attn":
+            works.append(LayerWork(LayerKind.MLP, cfg.d_model, attn_out))
+        else:
+            # recurrent/xlstm blocks: their gate/proj matmuls are
+            # parallel-mode work of roughly d_model x d_model
+            works.append(LayerWork(LayerKind.MLP, cfg.d_model, cfg.d_model))
+        fk = cfg.layer_ffn_kind(i)
+        if fk == "kan":
+            fcfg = cfg.ffn_cfg(i)
+            up = fcfg.kanffn_up_cfg()
+            h = fcfg.kanffn_hidden
+            s1 = 1.0 - up.n_bases_kept / up.spec.n_bases
+            hm = fcfg.kanffn_hidden_mask()
+            s2 = 0.0 if hm is None else float(hm.sparsity)
+            works.append(LayerWork(LayerKind.KAN, cfg.d_model, h,
+                                   spec=up.spec, pattern_rate=s1))
+            works.append(LayerWork(LayerKind.MLP, h, cfg.d_model,
+                                   pattern_rate=s2))
+        elif fk == "mlp" and cfg.d_ff > 0:
+            gated = cfg.ffn_kind in ("swiglu", "geglu")
+            up_out = 2 * cfg.d_ff if gated else cfg.d_ff
+            works.append(LayerWork(LayerKind.MLP, cfg.d_model, up_out))
+            works.append(LayerWork(LayerKind.MLP, cfg.d_ff, cfg.d_model))
+        elif fk == "moe":
+            # top_k expert FFNs' worth of parallel-mode work per token
+            k = max(cfg.top_k, 1)
+            works.append(LayerWork(LayerKind.MLP, cfg.d_model,
+                                   2 * k * cfg.d_ff))
+            works.append(LayerWork(LayerKind.MLP, k * cfg.d_ff, cfg.d_model))
+    return works
+
+
+def splice_cache(caches: Any, cache: Any, slot: int) -> Any:
+    """``caches`` (batch n_slots) with lane ``slot`` replaced by the
+    batch-1 ``cache`` of one prefilled request: dim 0 of each ``"extra"``
+    layer's tensors, dim 1 under the stacked ``"units"``.  Returns new
+    tensors; ``caches`` is left as it was."""
+    def put(dim: int):
+        def fn(full: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+            out = full.clone()
+            out.narrow(dim, slot, 1).copy_(new.to(full.dtype))
+            return out
+        return fn
+
+    out = {"extra": [tree_map(put(0), f, n)
+                     for f, n in zip(caches["extra"], cache["extra"])]}
+    if "units" in caches:
+        out["units"] = tree_map(put(1), caches["units"], cache["units"])
+    return out
+
+
+class TransformerBackend(ModelBackend):
+    """Slot KV-cache greedy decode for ``ArchConfig`` transformer stacks.
+
+    ``params`` is the tree of ``models/transformer.init_params`` (tensors
+    on any device, e.g. ``convert.transformer_params_from_jax`` of the
+    reference's); it is moved to ``device`` (default ``"cuda"``, refused
+    when CUDA is missing; ``"cpu"`` runs the plain PyTorch versions).
+    ``precision`` is "f32" (the params as they are: a bf16 arch stays
+    bf16, as in the reference) or "bf16" (the arch's dtype set to bf16
+    and every floating param cast once, here); int8 is refused, as the
+    reference refuses it.  ``masks`` installs calibrated per-layer
+    (basis_keep, hidden_keep) pairs (core/calibrate.
+    calibrate_kanffn_masks) as ``cfg.ffn_masks``.  Each KAN-FFN layer is
+    built once (``models/ffn.KanFFN``: fused up weights, compacted down
+    weights).  The reference's ``impl=`` has no counterpart: the device
+    picks kernels or plain versions.
+
+    KAN-FFN archs (``cfg.ffn_kinds`` set) gain the VIKIN cycle model: a
+    per-layer ModePlan (attention and down phases parallel, KAN
+    up-projections pipeline) charged through ``batch_report`` with the
+    cross-tick mode carry-over, counting one model instance per decoded
+    token plus one per prefilled prompt token.  Plain archs keep
+    ``batch_report() -> None``.
+    """
+
+    def __init__(self, cfg: Any, params: Any, *,
+                 device: str | torch.device = "cuda", masks: Any = None,
+                 precision: str = "f32",
+                 hw: Optional[VikinHW] = None) -> None:
+        if precision not in ("f32", "bf16"):
+            raise ValueError(
+                f"TransformerBackend serves f32|bf16, got {precision!r} "
+                "(int8 transformer serving is not supported; the vikin "
+                "backends own the quantized path)")
+        if masks is not None:
+            cfg = dataclasses.replace(cfg, ffn_masks=tuple(masks))
+        if precision == "bf16" and cfg.dtype != "bfloat16":
+            cfg = dataclasses.replace(cfg, dtype="bfloat16")
+        T.check_supported(cfg)
+        self.device = resolve_device(device)
+
+        def place(a: torch.Tensor) -> torch.Tensor:
+            if precision == "bf16" and a.is_floating_point():
+                a = a.to(torch.bfloat16)
+            return a.to(self.device)
+
+        self.cfg, self.precision = cfg, precision
+        self.params = tree_map(place, params)
+        self.ffns = T.ffn_modules(self.params, cfg)
+        self.n_slots: Optional[int] = None
+        self.max_len: Optional[int] = None
+        self.hw = hw or VikinHW()
+        self.plan: Optional[ModePlan] = None
+        self.layers: Optional[List[LayerWork]] = None
+        if cfg.ffn_kinds is not None:
+            self.layers = transformer_layer_works(cfg)
+            self.plan = ModePlan.for_layers([w.kind for w in self.layers])
+        self._pending_prefill = 0
+        self._report_cache: Dict[Tuple[int, int, Optional[ExecMode]],
+                                 Dict[str, float]] = {}
+
+    def init_state(self, n_slots: int, max_len: int) -> Any:
+        self.n_slots, self.max_len = n_slots, max_len
+        return T.init_caches(self.cfg, n_slots, max_len, self.device)
+
+    def prefill(self, caches: Any, slot: int, req: Request) -> Any:
+        """Prefill one request and splice its (batch=1) cache into lane
+        ``slot`` of the server's (batch=n_slots) caches."""
+        tokens = torch.as_tensor(np.asarray(req.prompt, np.int32)[None, :],
+                                 device=self.device)
+        if self.layers is not None:
+            # each prefilled prompt token is one model instance the cycle
+            # model charges on the NEXT tick's report
+            self._pending_prefill += tokens.shape[1]
+        with torch.no_grad():
+            logits, cache = T.prefill(self.params, self.cfg, tokens,
+                                      max_len=self.max_len, ffns=self.ffns)
+            req.generated.append(int(T.greedy_token(logits)[0, 0]))
+            return splice_cache(caches, cache, slot)
+
+    def step(self, caches: Any,
+             slot_req: Sequence[Optional[Request]]) -> Any:
+        active = [s for s, r in enumerate(slot_req) if r is not None]
+        toks = np.zeros((self.n_slots, 1), np.int32)
+        for s in active:
+            toks[s, 0] = slot_req[s].generated[-1]
+        with torch.no_grad():
+            logits, caches = T.decode_step(
+                self.params, self.cfg, torch.from_numpy(toks).to(self.device),
+                caches, ffns=self.ffns)
+            nxt = T.greedy_token(logits).cpu().numpy()
+        for s in active:
+            req = slot_req[s]
+            tok = int(nxt[s, 0])
+            req.generated.append(tok)
+            if (len(req.generated) >= req.max_new_tokens
+                    or (req.eos_id is not None and tok == req.eos_id)):
+                req.done = True
+        return caches
+
+    def batch_report(self, n_active: int,
+                     prev_mode: Optional[ExecMode] = None,
+                     ) -> Optional[Dict[str, float]]:
+        """VIKIN cycle model for the tick just run (kan-ffn archs only).
+
+        ``batch`` = one model instance per active decode slot plus one per
+        prompt token prefilled since the last report; ``prev_mode`` is the
+        carried interconnect state and ``exit_mode`` hands the closing
+        state back to the engine.  Plain archs return None.
+        """
+        if self.layers is None:
+            return None
+        pending, self._pending_prefill = self._pending_prefill, 0
+        batch = n_active + pending
+        if batch <= 0:
+            return None
+        key = (n_active, pending, prev_mode)
+        if key not in self._report_cache:
+            self._report_cache[key] = serving_report(
+                self.layers, self.hw, batch=batch,
+                prev_mode=prev_mode, precision=self.precision)
+        return dict(self._report_cache[key])
+
+    def cycle_attribution(self, batch: int,
+                          prev_mode: Optional[ExecMode] = None,
+                          ) -> Dict[str, object]:
+        """Per-layer-phase cycle split whose parts sum EXACTLY to the
+        serving report's sim_cycles at the same (batch, prev_mode):
+        sum(per_layer_cycles) + reconfig_cycles == sim_cycles."""
+        if self.layers is None or self.plan is None:
+            raise ValueError("cycle_attribution needs a kan-ffn arch "
+                             "(cfg.ffn_kinds set)")
+        rep = run_model(self.layers, self.hw, batch=batch)
+        switches, _ = self.plan.stream_switches(batch, prev_mode)
+        return {
+            "per_layer_cycles": [float(lc.total * batch)
+                                 for lc in rep.per_layer],
+            "reconfig_cycles": float(switches * RECONFIG_CYCLES),
+        }
+
+
+# ---------------------------------------------------------------------------
+# VIKIN backend -- stacked KAN/MLP feed-forward serving.
+# ---------------------------------------------------------------------------
 
 
 class VikinBackend(ModelBackend):

@@ -1,8 +1,8 @@
 """Backend-agnostic continuous-batching engine with slot-based state lanes.
 
-Host-side copy of ``repro/runtime/server.py`` (the ``Engine``; the
-transformer ``Server`` wrapper is not ported).  The port imports nothing
-of the JAX package.
+Host-side copy of ``repro/runtime/server.py``: the ``Engine``, and the
+transformer ``Server`` (an Engine over a ``TransformerBackend``).  The
+port imports nothing of the JAX package.
 
 Continuous-batching-lite: the engine owns ``n_slots`` state lanes; incoming
 requests wait in per-workload queues, a pluggable ``BatchPolicy``
@@ -47,10 +47,12 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
+import torch
 
 from repro_torch.runtime.backends import (  # noqa: F401  (Request re-export)
     ModelBackend,
     Request,
+    TransformerBackend,
 )
 from repro_torch.runtime.scheduler import (
     BatchPolicy,
@@ -437,3 +439,26 @@ class Engine:
         if self.stats["sim_latency_s"] > 0:
             out["sim_rps"] = served / self.stats["sim_latency_s"]
         return out
+
+
+class Server(Engine):
+    """Transformer server: an Engine over a TransformerBackend.
+
+    ``masks`` and ``precision`` pass through to the backend for kan-ffn
+    archs (calibrated two-stage masks, f32|bf16 serving); ``device``
+    picks kernels (``"cuda"``, the default) or plain versions
+    (``"cpu"``).  The defaults serve plain archs unchanged."""
+
+    def __init__(self, cfg: Any, params: Any, *, n_slots: int = 4,
+                 max_len: int = 256, masks: Any = None,
+                 precision: str = "f32",
+                 device: str | torch.device = "cuda") -> None:
+        super().__init__(
+            TransformerBackend(cfg, params, device=device, masks=masks,
+                               precision=precision),
+            n_slots=n_slots, max_len=max_len)
+        self.cfg, self.params = self.backend.cfg, self.backend.params
+
+    @property
+    def caches(self) -> Any:
+        return self.state

@@ -33,6 +33,22 @@ def host_f32(a: Any) -> np.ndarray:
     return np.asarray(a, np.float32)
 
 
+# numpy has no bf16: a bf16 array is ml_dtypes' bfloat16 (JAX's leaves)
+# or, saved and loaded back through npz, a 2-byte void array of the same
+# bytes
+BF16_NP = np.dtype("V2")
+
+
+def leaf_from_numpy(a: Any) -> torch.Tensor:
+    """An array as a CPU tensor of the same dtype and bits; a bf16 array
+    (either form above, which ``torch.from_numpy`` refuses) crosses
+    through its 16-bit patterns."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16" or a.dtype == BF16_NP:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
 def leaf_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     """(path, leaf) of every tensor or array in a nest of lists, tuples and
     dicts, in the JAX package's leaf order (a list index, then a sorted

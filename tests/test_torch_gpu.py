@@ -1466,3 +1466,87 @@ def test_kan3_kernel_and_grad_at_fig8_grids(cuda, G):
     for k in ref:
         err = float((got[k] - ref[k]).abs().max())
         assert err <= TOL * float(ref[k].abs().max()), (k, err)
+
+
+# ------------------------------------------------- KAN-FFN transformers
+# One KAN-FFN layer (the fused-KAN up-projection and the pattern-matmul
+# down-projection of models/ffn.KanFFN) at a reduced width, and the
+# kanffn-ci transformer served through TransformerBackend on the card.
+
+from repro_torch.benchmarks.kernel_ab import layer_calls  # noqa: E402
+from repro_torch.configs.registry import KANFFN_ARCHS  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
+from repro_torch.models.ffn import FFNConfig, KanFFN, ffn_init  # noqa: E402
+from repro_torch.runtime.backends import TransformerBackend  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("M", [1, 3, 8, 16, 64])
+def test_kan_ffn_layer_on_card(cuda, dtype, masked, M):
+    """One fused-KAN and one pattern-matmul launch a call; each kernel
+    within its tolerance of its plain version on the same input (f32
+    ``TOL``, bf16 one ulp), the layer bitwise its two kernels."""
+    dt = getattr(torch, dtype)
+    cfg = FFNConfig(d_model=96, d_ff=608, kind="kanffn")
+    if masked:
+        cfg = dataclasses.replace(
+            cfg, basis_keep=(0, 2, 4, 5, 6),
+            hidden_keep=tuple(range(0, cfg.kanffn_hidden, 2)))
+    params = ffn_init(torch.Generator().manual_seed(0), cfg, dt)
+    f = KanFFN(cfg, {k: (v.to(cuda) if torch.is_tensor(v)
+                         else {a: b.to(cuda) for a, b in v.items()})
+                     for k, v in params.items()})
+    x = (torch.randn((M, 96), generator=torch.Generator().manual_seed(M))
+         .to(cuda, dt))
+    sfx = "_bf16" if dt == BF else ""
+    before = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        y = f(x)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    assert launched == {k: int(k in ("kan_fused_v2" + sfx,
+                                     "pattern_matmul" + sfx))
+                        for k in launched}
+    tol = 2.0 ** -8 if dt == BF else TOL
+    _, _, up_k, up_p = layer_calls(f.up, x)
+    h = up_k()
+    _close(h.float(), up_p().float(), tol)
+    _, _, down_k, down_p = layer_calls(f.down, h)
+    assert torch.equal(y, down_k())
+    _close(y.float(), down_p().float(), tol)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_kanffn_ci_served_on_card(cuda, precision):
+    """kanffn-ci on the card: 1 + 1 kernel launches a prefill and a decode
+    step, batched == single token-exact, the simulated cycles a CPU
+    engine's."""
+    cfg = KANFFN_ARCHS["kanffn-ci"]
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0))
+    be = TransformerBackend(cfg, params, device=cuda, precision=precision)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(rng.integers(3, 9)))
+               .astype(np.int32) for _ in range(5)]
+    before = dict(_build.LAUNCHES)
+    eng = Engine(be, n_slots=4, max_len=32)
+    rids = [eng.submit(p, max_new_tokens=4) for p in prompts]
+    out = eng.run_until_done()
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    n = len(prompts) + int(eng.stats["ticks"])
+    sfx = "_bf16" if precision == "bf16" else ""
+    assert launched == {k: n * int(k in ("kan_fused_v2" + sfx,
+                                         "pattern_matmul" + sfx))
+                        for k in launched}
+    for i, p in enumerate(prompts):
+        one = Engine(be, n_slots=4, max_len=32)
+        rid = one.submit(p, max_new_tokens=4)
+        assert one.run_until_done()[rid] == out[rids[i]]
+    cpu = Engine(TransformerBackend(cfg, params, device="cpu",
+                                    precision=precision), n_slots=4,
+                 max_len=32)
+    for p in prompts:
+        cpu.submit(p, max_new_tokens=4)
+    cpu.run_until_done()
+    assert cpu.stats["sim_cycles"] == eng.stats["sim_cycles"]

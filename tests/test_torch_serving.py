@@ -310,8 +310,9 @@ def test_serve_refuses_admission_without_a_bound():
 
 def test_serving_bench_rows_equal_the_committed_sim_fields(tmp_path):
     """The port's serving bench on the CPU: every field that does not read
-    the host clock equals the JAX package's committed row, and batched
-    serving is bitwise single-request serving under both policies."""
+    the host clock equals the JAX package's committed row, batched
+    serving is bitwise single-request serving under both policies, and
+    the KAN-FFN transformer's batched decode is single-request decode."""
     import json
     from pathlib import Path
 
@@ -324,10 +325,13 @@ def test_serving_bench_rows_equal_the_committed_sim_fields(tmp_path):
     rows = json.loads(json.dumps(serving_bench.run("cpu", out)))
     assert json.loads(out.read_text()) == rows
     assert sorted(rows) == sorted([*serving_bench.ARCHS,
-                                   "sched:vikin-kan2+vikin-mlp3"])
+                                   "sched:vikin-kan2+vikin-mlp3",
+                                   "kanffn:kanffn-ci"])
     for key, row in rows.items():
         ref = committed[key]
         assert row["device"] == "cpu"
+        if key.startswith("kanffn:"):
+            assert row["batched_equals_single"]
         if key.startswith("sched:"):
             assert row["bitwise_identical"]
             for p, pol in ref["policies"].items():
