@@ -184,7 +184,26 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    launcher at ``--scale full``, f32 and bf16, in a subprocess; (e) a
    decode step's host and device ms, idle share, profile and kernel
    share, a prefill's ms, the two kernels' rows at the decode shape;
-   (f) the ``kanffn:kanffn-ci`` bench row.
+   (f) the ``kanffn:kanffn-ci`` bench row;
+11. MoE, RG-LRU and xLSTM serving (``moe_rec_phase``) at full width,
+   depth cut where one card cannot hold the arch (``MR_DEPTH``:
+   qwen3-moe-235b-a22b 2 of 94 layers, llama4-scout-17b-a16e 2 of 48,
+   recurrentgemma-9b 6 of 38, xlstm-125m whole), params drawn on the
+   card: (a) one MoE layer of KAN experts at qwen3-moe's widths (d 4096,
+   128 experts, top-8, hidden 192), f32 and bf16, at T = 8 and 64: 2 x
+   128 fused-KAN launches a call, each held against its plain version,
+   the layer within ``MOE_LAYER_TOL``; (b) qwen3-moe with KAN experts at
+   bf16 and its f32 twin through ``Server``, 8 requests x 16 tokens on
+   8 slots: 512 launches a prefill and a decode step, teacher-forced
+   logits within ``MOE_TF_TOL`` of the plain versions' (the plain run
+   takes the kernel run's expert choices); (c) qwen3-moe and
+   llama4-scout as registered at bf16, (d) recurrentgemma-9b and
+   xlstm-125m (cached decode against the full forward at f32 within
+   the reference's 2e-3, then bf16): served, logits finite, batched ==
+   single, a decode step's host and device ms, idle share and peak
+   device memory; (e) the five ``reduce()``d configs, the card against
+   the CPU within ``CPU_TOL``; (f) the launcher on the four archs at
+   ``--scale smoke`` and xlstm-125m at ``--scale full``.
 
 No served path launches the spline-basis or v1 kernels, so their
 ``launches`` in the record are those of phases 6 and 5.  The served rows
@@ -192,7 +211,8 @@ also carry ``launches_openloop``, their launches in phase 7's replays,
 every row ``launches_train``, its launches in phase 8 (b)'s first
 run of each arch, ``launches_paper``, its launches in phase 9's
 runs of the paper scripts (Table I, the Fig. 8 sweep, Table II), and
-``launches_kanffn``, its launches in phase 10 (b)'s three served runs.
+``launches_kanffn``, its launches in phase 10 (b)'s three served runs,
+and ``launches_moe``, its launches in phase 11 (a) and (b).
 
 It prints the ``{"kernels": [...]}`` record, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It imports nothing
@@ -201,6 +221,7 @@ of JAX or of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import inspect
 import json
 import os
@@ -262,6 +283,27 @@ TF_SLOTS = 8
 TF_MAX_LEN = 128
 TF_NEW_TOKENS = 16
 TF_LAYER_M = (1, 3, 8, 16, 64)
+# phase 11: MoE, RG-LRU and xLSTM archs at full width.  Depth is cut only
+# where one card cannot hold the arch (None: whole).  A KAN-expert
+# token's logits pass 2 MoE layers of 2 fused-KAN launches in series
+# (each expert's up then down; a MoE output is a gate-weighted mean of
+# expert outputs, no larger an error than its worst expert's), so 4
+# launch tolerances of 1 + max|plain logits|, as phase 10 builds TF_TOL.
+# One MoE layer against its plain version: its 2 launches in series, and
+# at bf16 one more ulp for the combine's rounding.
+MR_DEPTH = {"qwen3-moe-235b-a22b": 2, "llama4-scout-17b-a16e": 2,
+            "recurrentgemma-9b": 6, "xlstm-125m": None}
+MR_SLOTS = 8
+MR_MAX_LEN = 64
+MR_NEW_TOKENS = 16
+MR_LAYER_T = (8, 64)
+MOE_TF_LAUNCHES = 4
+MOE_TF_TOL = {torch.float32: MOE_TF_LAUNCHES * KERNEL_TOL,
+              torch.bfloat16: MOE_TF_LAUNCHES * BF16_ULP}
+MOE_LAYER_TOL = {torch.float32: 2 * KERNEL_TOL,
+                 torch.bfloat16: 3 * BF16_ULP}
+DECODE_TOL = 2e-3             # the reference's decode-vs-forward tolerance
+CPU_TOL = 1e-4                # the port on the card against it on the CPU
 ARCHS = ("vikin-kan2", "vikin-mlp3", "vikin-mixed")
 BUCKETS = (2, 4, 8, 16)
 BIG = 8192
@@ -849,6 +891,528 @@ def kanffn_phase(dev: torch.device, card: str) -> dict:
             "launcher": launcher, "bench_row": row,
             "served": {k: {f: v for f, v in sv.items() if f != "srv"}
                        for k, sv in served.items()}}
+
+
+def moe_rec_phase(dev: torch.device, card: str) -> dict:
+    """Phase 11: MoE, RG-LRU and xLSTM serving on the card at full width
+    (d_model, heads, experts, top-k, d_ff and vocab as registered; depth
+    cut to ``MR_DEPTH``), params drawn on the card from seeded generators.
+
+    (a) one MoE layer of KAN experts at qwen3-moe's widths (d 4096, 128
+    experts, top-8, hidden 192), f32 and bf16, at T in ``MR_LAYER_T``:
+    exactly 2 * 128 fused-KAN launches a call; each expert's two launches
+    within ``KERNEL_TOL`` / ``BF16_ULP`` of the plain version on the same
+    input, the served output bitwise the expert's kernels; the layer
+    within ``MOE_LAYER_TOL`` of the same layer through the plain
+    versions; the kernel's times at the expert shapes;
+    (b) qwen3-moe with ``ffn_kind="kan"`` at bf16 and its f32 twin, 8
+    requests x 16 tokens through ``Server`` on 8 slots: 512 launches a
+    prefill and a decode step; teacher-forced logits within
+    ``MOE_TF_TOL`` of the plain versions', the plain run taking the
+    kernel run's expert choices (a router within an ulp of a tie would
+    otherwise pick another expert: another result, not a rounding);
+    (c) qwen3-moe and llama4-scout as registered (SwiGLU experts;
+    llama4's shared expert) at bf16: 8 x 16 through ``Server``, every
+    teacher-forced logit finite and its argmax the served token, each
+    request's tokens those it gets served alone, a decode step's host and
+    device ms, idle share and peak device memory;
+    (d) recurrentgemma-9b and xlstm-125m: at f32, cached decode against
+    the full forward within ``DECODE_TOL``; at bf16, served and recorded
+    as (c);
+    (e) the five ``reduce()``d configs at f32 on the card against the
+    same port on the CPU within ``CPU_TOL``;
+    (f) the launcher in subprocesses: each arch at ``--scale smoke``,
+    ``xlstm-125m`` at ``--scale full``.
+    Returns what it measured; raises on any fault."""
+    from repro_torch.benchmarks.kernel_ab import graph_ms, time_ms
+    from repro_torch.configs.registry import ARCHS as ZOO
+    from repro_torch.core.splines import spu_op_count
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.kan_fused.ops import kan_fused_v2
+    from repro_torch.kernels.kan_fused.ref import kan_fused_v2_ref
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as TF
+    from repro_torch.runtime.backends import splice_cache
+    from repro_torch.runtime.server import Server
+    from repro_torch.utils import leaf_paths, tree_map
+
+    t_phase = time.perf_counter()
+    qwen, scout = "qwen3-moe-235b-a22b", "llama4-scout-17b-a16e"
+    rgemma, xlstm = "recurrentgemma-9b", "xlstm-125m"
+
+    def gen(seed: int) -> torch.Generator:
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def cut(name: str, **over) -> object:
+        cfg = ZOO[name]
+        if MR_DEPTH[name] is not None:
+            cfg = dataclasses.replace(cfg, n_layers=MR_DEPTH[name])
+        return dataclasses.replace(cfg, **over)
+
+    def n_params(tree) -> int:
+        return sum(int(a.numel()) for _, a in leaf_paths(tree))
+
+    def launches_only(want: dict, what: str) -> dict:
+        got = dict(_build.LAUNCHES)
+        full = {k: want.get(k, 0) for k in got}
+        check(got == full, f"(phase 11) {what}: launches {got}, want {full}")
+        return got
+
+    def plain_experts(ex):
+        """``ex``'s experts through the fused-KAN kernel's plain version,
+        on the card."""
+        def fn(h):
+            return torch.stack([
+                kan_fused_v2_ref(kan_fused_v2_ref(h[e], ex.wt_up[e], ex.spec,
+                                                  ex.kb),
+                                 ex.wt_down[e], ex.spec, ex.kb)
+                for e in range(h.shape[0])])
+        return fn
+
+    def free() -> None:
+        # a Server sits in reference cycles: collect them, so a freed
+        # arch's params leave the device before the next one's peak
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # (a) one MoE layer of KAN experts at qwen3-moe's widths
+    mcfg = cut(qwen, ffn_kind="kan").moe_cfg()
+    E = mcfg.n_experts
+    up_cfg, _ = mcfg.kan_cfgs()
+    p_f = M.moe_init(gen(20), mcfg, F32)
+    layer_err, kernel_rows, launches_moe = {}, [], {}
+
+    def layer_check(dt: torch.dtype, p: dict) -> None:
+        """(a) at one dtype; its tensors (and the views and closures that
+        hold them) die when it returns."""
+        ex = M.KanExperts(mcfg, p["experts"])
+        kname = "kan_fused_v2" + SUFFIX[dt]
+        errs = []
+        for T in MR_LAYER_T:
+            x = torch.randn((1, T, mcfg.d_model), generator=gen(21 + T),
+                            device=dev).to(dt)
+            seen = {}
+
+            def served(h, ex=ex, seen=seen):
+                seen["h"], seen["y"] = h, ex(h)
+                return seen["y"]
+
+            _build.reset_launches()
+            with torch.no_grad():
+                r = M.moe_apply(p, x, mcfg, experts=served)
+            torch.cuda.synchronize()
+            got = launches_only({kname: 2 * E},
+                                f"(a) {dt} MoE layer at T={T}")
+            launches_moe[kname] = launches_moe.get(kname, 0) + got[kname]
+            h, y = seen["h"], seen["y"]
+            check(h.shape[1] == mcfg.capacity(T),
+                  f"(a) capacity {h.shape[1]} at T={T}, want "
+                  f"{mcfg.capacity(T)}")
+            with torch.no_grad():
+                for e in range(E):
+                    mid = kan_fused_v2(h[e], ex.wt_up[e], ex.spec, ex.kb,
+                                       ex.slot_of)
+                    check(torch.equal(y[e], kan_fused_v2(
+                        mid, ex.wt_down[e], ex.spec, ex.kb, ex.slot_of)),
+                          f"(a) {dt} T={T} expert {e}: the served output "
+                          f"is not its two kernels, bitwise")
+                    for what, k_out, ref in (
+                            ("up", mid, kan_fused_v2_ref(
+                                h[e], ex.wt_up[e], ex.spec, ex.kb)),
+                            ("down", y[e], kan_fused_v2_ref(
+                                mid, ex.wt_down[e], ex.spec, ex.kb))):
+                        err, scale, nan = rel_err(k_out, ref)
+                        tol = KERNEL_TOL if dt == F32 else BF16_ULP
+                        check(not nan and err <= tol * scale,
+                              f"(a) {dt} T={T} expert {e} {what}: max|kernel"
+                              f" - plain| {err:.3e} vs {tol:g} * {scale:.4g}")
+                        errs.append(err / scale)
+                rp = M.moe_apply(p, x, mcfg, experts=plain_experts(ex))
+            err, scale, nan = rel_err(r["out"], rp["out"])
+            check(not nan and err <= MOE_LAYER_TOL[dt] * scale,
+                  f"(a) {dt} T={T}: the layer {err:.3e} from its plain "
+                  f"version vs {MOE_LAYER_TOL[dt]:g} * {scale:.4g}")
+            check(torch.equal(r["aux_loss"], rp["aux_loss"]),
+                  f"(a) {dt} T={T}: the aux loss differs from the plain "
+                  f"run's (the router saw the same input)")
+            layer_err[f"{'bf16' if dt == BF else 'f32'} T={T}"] = {
+                "launch": max(errs), "layer": err / scale}
+        # the kernel at the experts' shapes: expert 0's dispatched rows
+        # of the last call (M = its capacity) and their up-projection
+        xin = seen["h"][0]
+        mid = kan_fused_v2(xin, ex.wt_up[0], ex.spec, ex.kb, ex.slot_of)
+        esz = 2.0 if dt == BF else 4.0
+        mac_rate = BF16_FLOPS_PER_S if dt == BF else F32_FLOPS_PER_S
+        for what, xx, wt in (("up", xin, ex.wt_up[0]),
+                             ("down", mid, ex.wt_down[0])):
+            rows_m, n_in = xx.shape
+            n_out = wt.shape[1]
+            # every basis is kept: K + 1 local basis values a feature
+            hits = rows_m * n_in * ex.spec.n_active
+            n_bytes = (esz * (xx.numel() + wt.numel() + rows_m * n_out)
+                       + 4.0 * ex.slot_of.numel())
+            work = [(2.0 * n_out * (rows_m * n_in + hits), mac_rate),
+                    (rows_m * n_in * (spu_op_count(ex.spec) + 4),
+                     F32_FLOPS_PER_S)]
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = sum(n / rt for n, rt in work) * 1e3
+
+            def kern(xx=xx, wt=wt):
+                return kan_fused_v2(xx, wt, ex.spec, ex.kb, ex.slot_of)
+
+            def plain(xx=xx, wt=wt):
+                return kan_fused_v2_ref(xx, wt, ex.spec, ex.kb)
+
+            kernel_rows.append({
+                "kernel": kname, "model": f"{qwen} KAN experts",
+                "layer": what, "shape": [rows_m, n_in, n_out],
+                "precision": "bf16" if dt == BF else "f32",
+                "ms": time_ms(kern), "device_ms": graph_ms(kern),
+                "plain_ms": time_ms(plain, iters=20), "library_ms": None,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "launches_per_moe_layer_call": E,
+                "card": card})
+            print(json.dumps(kernel_rows[-1]))
+
+    for dt in (BF, F32):
+        layer_check(dt, p_f if dt == F32
+                    else tree_map(lambda a: a.to(BF), p_f))
+        free()
+    del p_f
+    free()
+    print(f"phase 11: (a) one MoE layer of KAN experts (d {mcfg.d_model}, "
+          f"{E} experts, top-{mcfg.top_k}, hidden {up_cfg.n_out}) at T = "
+          + ", ".join(map(str, MR_LAYER_T))
+          + f": 2 x {E} fused-KAN launches a call; each launch within its "
+          "tolerance of its plain version, the layer within MOE_LAYER_TOL "
+          "(max err / (1 + max): "
+          + ", ".join(f"{k} launch {v['launch']:.2e} layer {v['layer']:.2e}"
+                      for k, v in layer_err.items()) + ")")
+
+    rng = np.random.default_rng(30)
+    prompts = [rng.integers(0, 1 << 30, size=int(rng.integers(3, 16)))
+               .astype(np.int64) for _ in range(MR_SLOTS)]
+
+    def prompts_for(cfg) -> list:
+        return [(p % cfg.vocab_size).astype(np.int32) for p in prompts]
+
+    def serve(cfg, params, what: str) -> tuple:
+        srv = Server(cfg, params, n_slots=MR_SLOTS, max_len=MR_MAX_LEN,
+                     device=DEVICE)
+        rids = [srv.submit(p, max_new_tokens=MR_NEW_TOKENS)
+                for p in prompts_for(cfg)]
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = srv.run_until_done()
+        torch.cuda.synchronize()
+        return srv, [out[r] for r in rids], time.perf_counter() - t0
+
+    def teacher(be, toks: list, ffns) -> list:
+        """Each prompt prefilled into its own lane, then the served tokens
+        decoded in lockstep: [(8, V) logits a position]."""
+        caches = TF.init_caches(be.cfg, MR_SLOTS, MR_MAX_LEN, dev)
+        pre, steps = [], []
+        with torch.no_grad():
+            for s, p in enumerate(prompts_for(be.cfg)):
+                lg, c = TF.prefill(be.params, be.cfg,
+                                   torch.as_tensor(p[None], device=dev),
+                                   max_len=MR_MAX_LEN, ffns=ffns)
+                pre.append(lg[:, -1])
+                caches = splice_cache(caches, c, s)
+            for t in range(MR_NEW_TOKENS - 1):
+                tok = torch.as_tensor(np.array([[g[t]] for g in toks],
+                                               np.int32), device=dev)
+                lg, caches = TF.decode_step(be.params, be.cfg, tok, caches,
+                                            ffns=ffns)
+                steps.append(lg[:, -1])
+        return [torch.cat(pre), *steps]
+
+    def consistent(logits: list, toks: list, what: str) -> None:
+        served_t = torch.as_tensor(np.array(toks), device=dev)
+        for t, lg in enumerate(logits):
+            check(bool(torch.isfinite(lg).all()),
+                  f"{what} step {t}: a logit is not finite")
+            check(torch.equal(lg.argmax(-1), served_t[:, t].long()),
+                  f"{what} step {t}: the teacher-forced logits' argmax is "
+                  f"not the served token")
+
+    def alone(cfg, params, toks: list, what: str) -> None:
+        for i, p in enumerate(prompts_for(cfg)):
+            one = Server(cfg, params, n_slots=MR_SLOTS, max_len=MR_MAX_LEN,
+                         device=DEVICE)
+            rid = one.submit(p, max_new_tokens=MR_NEW_TOKENS)
+            check(one.run_until_done()[rid] == toks[i],
+                  f"{what}: request {i} served alone differs from its "
+                  f"tokens served in the batch of {MR_SLOTS}")
+
+    class Replay:
+        """``moe._route`` recording the kernel run's expert choices and
+        replaying them into the plain run (its own gate weights at those
+        experts), counting the picks that would have differed."""
+
+        def __init__(self, route) -> None:
+            self.route, self.calls, self.mode = route, [], "record"
+            self.i = self.differ = self.picks = 0
+
+        def __call__(self, probs, K):
+            top_p, top_e = self.route(probs, K)
+            if self.mode == "record":
+                self.calls.append(top_e)
+                return top_p, top_e
+            e = self.calls[self.i]
+            self.i += 1
+            self.picks += int(e.numel())
+            self.differ += int((e != top_e).sum())
+            tp = probs.gather(1, e)
+            return tp / torch.sum(tp, dim=-1, keepdim=True), e
+
+    # (b) qwen3-moe with KAN experts, bf16 and its f32 twin
+    cfg_f = cut(qwen, ffn_kind="kan", dtype="float32")
+    cfg_b = dataclasses.replace(cfg_f, dtype="bfloat16")
+    t0 = time.perf_counter()
+    params_f = TF.init_params(cfg_f, gen(0), dev)
+    torch.cuda.synchronize()
+    print(f"phase 11: (b) {qwen} with KAN experts: {cfg_f.n_layers} of "
+          f"{ZOO[qwen].n_layers} layers, d {cfg_f.d_model}, {cfg_f.n_heads} "
+          f"heads ({cfg_f.n_kv_heads} KV), {E} experts top-{cfg_f.top_k}, "
+          f"expert hidden {up_cfg.n_out}, vocab {cfg_f.vocab_size}; "
+          f"{n_params(params_f)} params, drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    kan_served = {}
+    for what, cfg, dt in (("bf16", cfg_b, BF), ("f32 twin", cfg_f, F32)):
+        params = (params_f if dt == F32
+                  else tree_map(lambda a: a.to(BF), params_f))
+        srv, toks, wall = serve(cfg, params, what)
+        kname = "kan_fused_v2" + SUFFIX[dt]
+        n_calls = len(prompts) + int(srv.stats["ticks"])
+        got = launches_only({kname: 2 * E * cfg.n_layers * n_calls},
+                            f"(b) {what} served")
+        launches_moe[kname] = launches_moe.get(kname, 0) + got[kname]
+        be = srv.backend
+        replay = Replay(M._route)
+        M._route = replay
+        try:
+            lk = teacher(be, toks, be.ffns)
+            replay.mode = "replay"
+            lp = teacher(be, toks, [None if f is None else plain_experts(f)
+                                    for f in be.ffns])
+        finally:
+            M._route = replay.route
+        consistent(lk, toks, f"(b) {what}")
+        tol = MOE_TF_TOL[dt]
+        worst, near = 0.0, 0
+        served_t = torch.as_tensor(np.array(toks), device=dev)
+        for t, (a, b) in enumerate(zip(lk, lp)):
+            err, scale, nan = rel_err(a, b)
+            check(not nan and err <= tol * scale,
+                  f"(b) {what} step {t}: max|kernel - plain| logits "
+                  f"{err:.3e} vs {tol:g} * {scale:.4g}")
+            worst = max(worst, err / scale)
+            top2 = b.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > tol * scale
+            same = b.argmax(-1) == served_t[:, t].long()
+            check(bool((same | ~clear).all()),
+                  f"(b) {what} step {t}: the plain argmax differs from the "
+                  f"served token where the top-2 margin exceeds {tol:g}")
+            near += int((~clear).sum())
+        kan_served[what] = {
+            "launches": got[kname], "ticks": int(srv.stats["ticks"]),
+            "wall_s": wall, "max_err_over_scale": worst, "tol": tol,
+            "near_ties": near, "route_picks": replay.picks,
+            "route_picks_differing": replay.differ}
+        print(f"phase 11: (b) {what}: {len(prompts)} requests x "
+              f"{MR_NEW_TOKENS} tokens on {MR_SLOTS} slots in "
+              f"{kan_served[what]['ticks']} decode steps, wall {wall:.3f} s; "
+              f"{got[kname]} {kname} launches ({2 * E * cfg.n_layers} a "
+              f"prefill and a decode step); teacher-forced logits within "
+              f"{tol:g} of the plain versions' (max {worst:.3e} of 1 + "
+              f"max|plain|), {near} near-tie positions; the plain run took "
+              f"the kernel run's {replay.picks} expert picks, "
+              f"{replay.differ} of which its own router would have made "
+              f"otherwise")
+        del srv, be, params, lk, lp, replay
+        free()
+    del params_f
+    free()
+
+    # (c) and (d): the registered archs served at bf16, with times
+    def timed(name: str, cfg, params) -> dict:
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        srv, toks, wall = serve(cfg, params, name)
+        launches_only({}, f"{name} served (no kernel on this path)")
+        consistent(teacher(srv.backend, toks, None), toks, name)
+        alone(cfg, params, toks, name)
+        be = srv.backend
+        p0 = prompts_for(cfg)
+        tok8 = torch.as_tensor(np.array([[p[0]] for p in p0], np.int32),
+                               device=dev)
+        with torch.no_grad():
+            caches = TF.init_caches(be.cfg, MR_SLOTS, MR_MAX_LEN, dev)
+            for s, p in enumerate(p0):
+                _, c = TF.prefill(be.params, be.cfg,
+                                  torch.as_tensor(p[None], device=dev),
+                                  max_len=MR_MAX_LEN)
+                caches = splice_cache(caches, c, s)
+
+            def step():
+                return TF.greedy_token(TF.decode_step(
+                    be.params, be.cfg, tok8, caches)[0]).cpu()
+
+            step_host = host_ms(step, iters=3, reps=5)
+            # device time: the CUDA kernels' own time over 3 steps
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    step()
+            kern = sorted((e for e in prof.key_averages()
+                           if str(getattr(e, "device_type", ""))
+                           .endswith("CUDA")), key=lambda e: -_device_us(e))
+            step_dev = sum(_device_us(e) for e in kern) / 3e3
+        check(step_dev > 0, f"{name}: the profiler saw no device time")
+        peak = torch.cuda.max_memory_allocated()
+        rec = {"decode_step_host_ms": step_host,
+               "decode_step_device_ms": step_dev,
+               "device_idle_share": 1.0 - step_dev / step_host,
+               "peak_device_bytes": peak, "resident_bytes": resident,
+               "ticks": int(srv.stats["ticks"]),
+               "serve_wall_s": wall, "card": card,
+               "kernels_a_step": sum(e.count for e in kern) / 3,
+               "top_device": [(e.key[:72], _device_us(e) / 3, e.count / 3)
+                              for e in kern[:6]]}
+        print(f"phase 11: {name} at bf16: {len(prompts)} requests x "
+              f"{MR_NEW_TOKENS} tokens on {MR_SLOTS} slots in "
+              f"{rec['ticks']} decode steps, wall {wall:.3f} s, logits "
+              f"finite, batched == single; a decode step: host "
+              f"{step_host:.3f} ms, device {step_dev:.4f} ms (idle "
+              f"{rec['device_idle_share'] * 100:.1f}%; "
+              f"{rec['kernels_a_step']:.0f} kernels, by device time "
+              + ", ".join(f"{k} {us:.0f} us x{n:.0f}"
+                          for k, us, n in rec["top_device"])
+              + f"), peak device memory {peak / 2**30:.2f} GiB while "
+              f"serving, {resident / 2**30:.2f} GiB resident when it "
+              f"starts ({card})")
+        return rec
+
+    timing = {}
+    for name in (qwen, scout):
+        cfg = cut(name)
+        t0 = time.perf_counter()
+        params = TF.init_params(cfg, gen(1), dev)
+        torch.cuda.synchronize()
+        print(f"phase 11: (c) {name}: {cfg.n_layers} of {ZOO[name].n_layers} "
+              f"layers, d {cfg.d_model}, {cfg.n_experts} experts top-"
+              f"{cfg.top_k}{' + shared' if cfg.shared_expert else ''}, d_ff "
+              f"{cfg.d_ff}, vocab {cfg.vocab_size}; {n_params(params)} "
+              f"{cfg.dtype} params drawn on the card in "
+              f"{time.perf_counter() - t0:.2f} s")
+        timing[name] = timed(name, cfg, params)
+        del params
+        free()
+
+    for name in (rgemma, xlstm):
+        cfg_f = cut(name, dtype="float32")
+        params_f = TF.init_params(cfg_f, gen(2), dev)
+        print(f"phase 11: (d) {name}: {cfg_f.n_layers} of "
+              f"{ZOO[name].n_layers} layers, pattern {cfg_f.pattern}, d "
+              f"{cfg_f.d_model}, d_ff {cfg_f.d_ff}, vocab "
+              f"{cfg_f.vocab_size}; {n_params(params_f)} params")
+        tok = torch.as_tensor(np.random.default_rng(31).integers(
+            0, cfg_f.vocab_size, size=(2, 10)), device=dev)
+        with torch.no_grad():
+            h, _ = TF.forward(params_f, cfg_f, tok)
+            full = TF._logits(params_f, cfg_f, h)[:, 4:10]
+            _, caches = TF.prefill(params_f, cfg_f, tok[:, :4], max_len=12)
+            got = []
+            for t in range(4, 10):
+                lg, caches = TF.decode_step(params_f, cfg_f, tok[:, t:t + 1],
+                                            caches)
+                got.append(lg[:, 0])
+        got = torch.stack(got, 1)
+        gap = (got - full).abs()
+        check(bool((gap <= DECODE_TOL + DECODE_TOL * full.abs()).all()),
+              f"(d) {name} f32: cached decode {float(gap.max()):.3e} from "
+              f"the full forward, beyond the reference's {DECODE_TOL}")
+        print(f"phase 11: (d) {name} f32: cached decode = the full forward "
+              f"within {DECODE_TOL} (max |gap| {float(gap.max()):.3e})")
+        params_b = tree_map(lambda a: a.to(BF), params_f)
+        del params_f, h, full, caches, got
+        free()
+        timing[name] = timed(name, cut(name), params_b)
+        del params_b
+        free()
+
+    # (e) the reduced configs: the card against the CPU
+    reduced = {}
+    for label, name, over in (("qwen3-moe", qwen, {}),
+                              ("qwen3-moe-kan", qwen, {"ffn_kind": "kan"}),
+                              ("llama4-scout", scout, {}),
+                              ("recurrentgemma", rgemma, {}),
+                              ("xlstm", xlstm, {})):
+        cfg = dataclasses.replace(ZOO[name].reduce(), **over)
+        p_cpu = TF.init_params(cfg, torch.Generator().manual_seed(3))
+        p_dev = tree_map(lambda a: a.to(dev), p_cpu)
+        tok = np.random.default_rng(32).integers(0, cfg.vocab_size,
+                                                 size=(2, 8))
+        worst = 0.0
+        with torch.no_grad():
+            outs = []
+            for params, d in ((p_cpu, "cpu"), (p_dev, dev)):
+                t = torch.as_tensor(tok, device=d)
+                h, aux = TF.forward(params, cfg, t)
+                seq = [h, aux[None]]
+                lg, c = TF.prefill(params, cfg, t[:, :5], max_len=16)
+                seq.append(lg)
+                for i in range(5, 8):
+                    lg, c = TF.decode_step(params, cfg, t[:, i:i + 1], c)
+                    seq.append(lg)
+                outs.append(seq)
+        for a, b in zip(*outs):
+            err, scale, nan = rel_err(b.cpu(), a)
+            check(not nan and err <= CPU_TOL * scale,
+                  f"(e) {label}: the card {err:.3e} from the CPU, vs "
+                  f"{CPU_TOL} * {scale:.4g}")
+            worst = max(worst, err / scale)
+        reduced[label] = worst
+    print("phase 11: (e) the reduce()d configs at f32, the card against the "
+          f"CPU within {CPU_TOL} (forward, aux, prefill, 3 decode steps): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in reduced.items()))
+
+    # (f) the launcher, in parallel subprocesses on the card
+    runs = [[name, "--scale", "smoke"] for name in (qwen, scout, rgemma,
+                                                     xlstm)]
+    runs.append([xlstm, "--scale", "full"])
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", a,
+         *rest, "--requests", "4", "--new-tokens", "8"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC))) for a, *rest in runs]
+    launcher = {}
+    for (a, *rest), proc in zip(runs, procs):
+        out, err = proc.communicate(timeout=600)
+        key = f"{a} {' '.join(rest)}"
+        check(proc.returncode == 0,
+              f"(f) the launcher at {key} exited {proc.returncode}: "
+              f"{err[-2000:]}")
+        check("4 requests" in out, f"(f) the launcher at {key} served no "
+              f"4 requests: {out[-500:]}")
+        launcher[key] = next(ln for ln in out.splitlines()
+                             if "4 requests" in ln)
+    print(f"phase 11: (f) the launcher in {len(runs)} subprocesses, each "
+          f"exit 0, in {time.perf_counter() - t0:.1f} s: "
+          + "; ".join(f"{k}: {v}" for k, v in launcher.items()))
+
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 11: {seconds:.1f} s")
+    return {"seconds": seconds, "launches": launches_moe,
+            "layer_err": layer_err, "kernel_rows": kernel_rows,
+            "kan_served": kan_served, "timing": timing,
+            "reduced_vs_cpu": reduced, "launcher": launcher}
 
 
 def _device_us(event) -> float:
@@ -2927,6 +3491,10 @@ def main() -> int:
     # KAN-FFN transformer serving at full width (``kanffn_phase``)
     kanffn = kanffn_phase(dev, card)
 
+    # ---------------------------------------------------------------- 11
+    # MoE, RG-LRU and xLSTM serving at full width (``moe_rec_phase``)
+    moe_rec = moe_rec_phase(dev, card)
+
     launched = {k: (served[p]["launches"][k], f"phase 3, {p} burst")
                 for p in PRECISIONS for k in SERVED_KERNELS[p]}
     launched["kan_fused_v1_bf16"] = (b_v1_launches["kan_fused_v1_bf16"],
@@ -2950,6 +3518,7 @@ def main() -> int:
             "launches_train": train_launches[k],
             "launches_paper": paper_launches[k],
             "launches_kanffn": kanffn["launches"][k],
+            "launches_moe": moe_rec["launches"].get(k, 0),
             "max_abs_err": max_err[k], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -2972,6 +3541,7 @@ def main() -> int:
          "train": train,
          "paper": paper,
          "kanffn": kanffn,
+         "moe_rec": moe_rec,
          "ptxas": usage,
          "knob_checks": knob_checks,
          "kernel_bench_launches": bench_launches},

@@ -92,15 +92,17 @@ class KANConfig:
 
 def kan_init(cfg: KANConfig, generator: Optional[torch.Generator] = None,
              dtype: torch.dtype = torch.float32) -> Params:
-    """KAN-paper style init on the CPU: w_b ~ U(-1/sqrt(n_in), 1/sqrt(n_in)),
-    spline coefficients 0.1/sqrt(n_in) * N(0, 1).  Same shapes and
-    distributions as the JAX ``kan_init``; the draws differ."""
+    """KAN-paper style init on the generator's device (the CPU for None):
+    w_b ~ U(-1/sqrt(n_in), 1/sqrt(n_in)), spline coefficients
+    0.1/sqrt(n_in) * N(0, 1).  Same shapes and distributions as the JAX
+    ``kan_init``; the draws differ."""
     scale_b = 1.0 / np.sqrt(cfg.n_in)
+    device = torch.device("cpu") if generator is None else generator.device
     w_b = (torch.rand((cfg.n_in, cfg.n_out), generator=generator,
-                      dtype=dtype) * 2.0 - 1.0) * scale_b
+                      dtype=dtype, device=device) * 2.0 - 1.0) * scale_b
     t = 0.1 * scale_b * torch.randn(
         (cfg.n_in, cfg.spec.n_bases, cfg.n_out), generator=generator,
-        dtype=dtype)
+        dtype=dtype, device=device)
     return {"w_b": w_b, "t": t}
 
 

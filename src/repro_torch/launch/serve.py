@@ -41,11 +41,13 @@ queue, ``--admission reject|shed`` says what a full queue does, and
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vikin-mlp3 \
       --trace /tmp/t.json --max-queue 16 --admission shed --drop-expired
 
-A transformer arch (``configs/registry``: the ten zoo archs and the
-KAN-FFN hybrids ``qwen2-0.5b-kanffn`` and ``kanffn-ci``) serves greedy
-decode through ``runtime/server.Server``: ``--requests`` seeded prompts
-of 3-15 tokens, ``--new-tokens`` each, on ``--slots`` KV-cache lanes of
-``--max-len`` positions.  ``--scale smoke`` (the default, as in the
+A transformer arch (``configs/registry``: the eight decoder-only zoo
+archs -- MoE, RG-LRU and xLSTM ones included -- and the KAN-FFN hybrids
+``qwen2-0.5b-kanffn`` and ``kanffn-ci``; the encoder-decoder and
+frontend archs are refused, as the reference refuses them) serves
+greedy decode through ``runtime/server.Server``: ``--requests`` seeded
+prompts of 3-15 tokens, ``--new-tokens`` each, on ``--slots`` cache
+lanes (KV caches and recurrent states) of ``--max-len`` positions.  ``--scale smoke`` (the default, as in the
 reference) serves the arch's ``reduce()``d width; ``--scale full`` the
 registry's.  A KAN-FFN hybrid's "kan" layers run the fused KAN and
 pattern-matmul kernels; ``--precision bf16`` casts its params once

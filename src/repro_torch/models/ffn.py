@@ -50,7 +50,14 @@ from repro_torch.core.sparsity import (
 )
 from repro_torch.core.splines import SplineSpec
 from repro_torch.kernels.pattern_matmul.ops import matmul_compact
-from repro_torch.models.layers import ACT_FNS, dense, dense_init, f32_matmul
+from repro_torch.models.layers import (
+    ACT_FNS,
+    dense,
+    dense_init,
+    f32_matmul,
+    gen_device,
+    randn,
+)
 
 Params = Dict[str, torch.Tensor]
 
@@ -138,7 +145,7 @@ class FFNConfig:
 
 def ffn_init(generator: Optional[torch.Generator], cfg: FFNConfig,
              dtype: torch.dtype = torch.float32) -> Dict:
-    """The FFN's params on the CPU, drawn from ``generator``: the
+    """The FFN's params drawn from ``generator`` on its device: the
     reference's shapes and distributions, not its draws."""
     if cfg.kind == "mlp":
         return {
@@ -166,9 +173,10 @@ def ffn_init(generator: Optional[torch.Generator], cfg: FFNConfig,
                                      basis_keep=None)
         return {
             "kan_up": kan_init(up_cfg, generator, dtype),
-            "w": (torch.randn((h, cfg.d_model), generator=generator)
+            "w": (randn(generator, (h, cfg.d_model))
                   * float(np.sqrt(2.0 / h))).to(dtype),
-            "b": torch.zeros((cfg.d_model,), dtype=dtype),
+            "b": torch.zeros((cfg.d_model,), dtype=dtype,
+                             device=gen_device(generator)),
         }
     raise ValueError(f"unknown ffn kind {cfg.kind!r}")
 

@@ -10,9 +10,10 @@ On the card these f32 products refuse TF32, as the port's plain
 versions do.  ``gelu`` is the tanh form (``jax.nn.gelu`` defaults to
 ``approximate=True``).
 
-Initialisers draw on the CPU from an explicit ``torch.Generator`` and
-cast to the params' dtype; the draws are not ``jax.random``'s (parity
-tests carry the reference's weights across with ``convert.py``).  The
+Initialisers draw from an explicit ``torch.Generator`` on the
+generator's device (the CPU for ``None``) and cast to the params' dtype;
+the draws are not ``jax.random``'s (parity tests carry the reference's
+weights across with ``convert.py``).  The
 reference's ``shard_hint`` is a mesh sharding hint that means nothing on
 one device, and has no counterpart; its mixed-precision ``DTypePolicy``
 is unused by the models and has none either.
@@ -20,7 +21,7 @@ is unused by the models and has none either.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +30,18 @@ import torch.nn.functional as F
 from repro_torch.kernels.grad import ieee_matmul
 
 Params = Dict[str, Any]
+
+
+def gen_device(generator: Optional[torch.Generator]) -> torch.device:
+    """Where ``generator`` draws: its own device, the CPU for None."""
+    return torch.device("cpu") if generator is None else generator.device
+
+
+def randn(generator: Optional[torch.Generator],
+          shape: Tuple[int, ...]) -> torch.Tensor:
+    """f32 N(0, 1) of ``shape`` drawn on the generator's device."""
+    return torch.randn(shape, generator=generator,
+                       device=gen_device(generator))
 
 
 def f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -78,10 +91,11 @@ def dense_init(generator: Optional[torch.Generator], d_in: int, d_out: int,
                *, bias: bool = False, dtype: torch.dtype = torch.float32,
                scale: Optional[float] = None) -> Params:
     scale = scale if scale is not None else 1.0 / np.sqrt(d_in)
-    p = {"kernel": (torch.randn((d_in, d_out), generator=generator)
+    p = {"kernel": (randn(generator, (d_in, d_out))
                     * float(scale)).to(dtype)}
     if bias:
-        p["bias"] = torch.zeros((d_out,), dtype=dtype)
+        p["bias"] = torch.zeros((d_out,), dtype=dtype,
+                                device=gen_device(generator))
     return p
 
 
@@ -96,8 +110,7 @@ def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 def embed_init(generator: Optional[torch.Generator], vocab: int, dim: int,
                dtype: torch.dtype = torch.float32) -> Params:
-    return {"table": (torch.randn((vocab, dim), generator=generator)
-                      * 0.02).to(dtype)}
+    return {"table": (randn(generator, (vocab, dim)) * 0.02).to(dtype)}
 
 
 def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:

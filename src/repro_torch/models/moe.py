@@ -1,15 +1,60 @@
-"""Mixture-of-Experts: its config alone, so far.
+"""Mixture-of-Experts with capacity-bounded dispatch.
 
-Counterpart of the ``MoEConfig`` of ``repro/models/moe.py``, copied
-exactly, so that ``configs/base.ArchConfig.moe_cfg`` and the arch
-registry are whole.  The capacity-bounded dispatch (``moe_init``,
-``moe_apply``, ``moe_init_with_shared``) is not ported yet
-(``ROADMAP.md``, queue 1, item 2); ``models/transformer`` refuses an
-FFN of kind ``"moe"``.
+Counterpart of ``repro/models/moe.py`` on one device.  Each token picks
+its top-k experts from the router's softmax; a token's position inside
+its expert is the exclusive cumsum of the flattened (T*K, E) one-hot in
+token-major order, and tokens beyond an expert's capacity C are dropped
+(their combine weight is 0).  Dispatch scatters each kept (token, pick)
+into an (E, C + 1, d) buffer whose slot C is a trash row, cut off before
+the experts run; the combine gathers each pick back and sums over k in
+x's dtype.  The two paths keep the reference's two capacity formulas
+and routers:
+
+* swiglu experts (``_moe_local``): f32 router logits, ``C = ceil(int(cf
+  * T * K) / E)`` rounded up to a multiple of 8 (at least 8);
+* KAN experts (``_moe_local_kan``): the router through ``dense`` (x's
+  dtype, then f32: a bf16 router ties), ``C = cfg.capacity(T)``.  Every
+  expert runs on every call, as the reference's ``jax.vmap`` over all E
+  does: two KAN layers, each one fused-KAN launch on a CUDA tensor (2 E
+  launches a call).  ``KanExperts`` holds each expert's fused ``[w_b ;
+  t]`` once; the functional form fuses them per call.
+
+``jax.lax.top_k`` puts the lower index first on a tie; a stable
+descending sort does the same here.  The Switch-style aux loss is over
+the whole router distribution, in f32.  ``shared_expert`` adds
+llama4-scout's always-on SwiGLU expert.
+
+The expert products are plain f32-accumulated products.  bf16 expert
+weights are widened a group of experts at a time
+(``WIDEN_BYTES``), never a layer's whole (E, d, f) stack at once: a
+product of two bf16 values is exact in f32, so only the summation order
+can differ from the reference's.  On the card every f32 product refuses
+TF32.
+
+The reference's expert-parallel ``shard_map`` branch (experts sharded
+over a mesh's ``model`` axis) and ``_ambient_mesh_axes`` have no
+counterpart: a mesh means nothing on one device.  Experts over several
+cards are ``ROADMAP.md`` queue 1's expert-parallel item.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core.kan import KANConfig, kan_init
+from repro_torch.core.splines import SplineSpec
+from repro_torch.kernels.grad import ieee_matmul
+from repro_torch.kernels.kan_fused.ops import kan_fused_v2, slot_table
+from repro_torch.models.ffn import FFNConfig, ffn_apply, ffn_init
+from repro_torch.models.layers import dense, dense_init, randn
+
+Params = Dict[str, torch.Tensor]
+# the f32 copy of bf16 expert weights one product widens at a time
+WIDEN_BYTES = 1 << 28
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,3 +74,234 @@ class MoEConfig:
         c = int(self.capacity_factor * self.top_k * n_tokens
                 / self.n_experts) + 1
         return max(self.top_k, min(c, n_tokens))
+
+    def kan_cfgs(self) -> Tuple[KANConfig, KANConfig]:
+        """Each KAN expert's (up, down) layers: d -> h -> d, h as the
+        reference sizes it."""
+        spec = SplineSpec(self.kan_grid, self.kan_order)
+        h = max(8, self.d_ff // (spec.n_bases + 1))
+        return KANConfig(self.d_model, h, spec), KANConfig(h, self.d_model,
+                                                           spec)
+
+
+def _stack(layers: List[Params]) -> Params:
+    return {k: torch.stack([p[k] for p in layers]) for k in layers[0]}
+
+
+def moe_init(generator: Optional[torch.Generator], cfg: MoEConfig,
+             dtype: torch.dtype = torch.float32) -> Dict:
+    """Router and stacked experts drawn from ``generator`` on its device
+    (the reference's shapes and distributions, not its draws)."""
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    p: Dict = {"router": dense_init(generator, d, E, dtype=dtype)}
+    if cfg.ffn_kind == "swiglu":
+        std = float(d ** -0.5)
+        p["experts"] = {
+            name: (randn(generator, shape) * std).to(dtype)
+            for name, shape in (("gate", (E, d, f)), ("up", (E, d, f)),
+                                ("down", (E, f, d)))}
+    elif cfg.ffn_kind == "kan":
+        up_cfg, down_cfg = cfg.kan_cfgs()
+        p["experts"] = {
+            "up": _stack([kan_init(up_cfg, generator, dtype)
+                          for _ in range(E)]),
+            "down": _stack([kan_init(down_cfg, generator, dtype)
+                            for _ in range(E)])}
+    else:
+        raise ValueError(cfg.ffn_kind)
+    return p
+
+
+def _expert_matmul(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """f32 (E, C, n) = h (E, C, m) @ w (E, m, n), operands widened to f32
+    a group of experts at a time."""
+    E = w.shape[0]
+    if w.dtype == torch.float32 and h.dtype == torch.float32:
+        return ieee_matmul(h, w)
+    per = max(1, WIDEN_BYTES // (4 * w[0].numel()))
+    return torch.cat([
+        ieee_matmul(h[e:e + per].to(torch.float32),
+                    w[e:e + per].to(torch.float32))
+        for e in range(0, E, per)])
+
+
+def _swiglu_experts(h: torch.Tensor, gate_w: torch.Tensor,
+                    up_w: torch.Tensor, down_w: torch.Tensor) -> torch.Tensor:
+    """h: (E, C, d) -> (E, C, d) in h's dtype."""
+    g = _expert_matmul(h, gate_w)
+    u = _expert_matmul(h, up_w)
+    z = (F.silu(g) * u).to(h.dtype)
+    return _expert_matmul(z, down_w).to(h.dtype)
+
+
+class KanExperts(nn.Module):
+    """E KAN experts (two KAN layers each) holding every expert's fused
+    ``[w_b ; t]`` rows once, in the params' dtype: ``forward`` maps
+    (E, C, d) to (E, C, d), one fused-KAN launch a layer an expert on a
+    CUDA tensor."""
+
+    def __init__(self, cfg: MoEConfig, experts: Dict[str, Params]) -> None:
+        super().__init__()
+        if cfg.ffn_kind != "kan":
+            raise ValueError(f"KanExperts needs ffn_kind='kan', got "
+                             f"{cfg.ffn_kind!r}")
+        self.cfgs = cfg.kan_cfgs()
+        self.spec = self.cfgs[0].spec
+        self.kb = tuple(range(self.spec.n_bases))
+        for name, kcfg in zip(("up", "down"), self.cfgs):
+            w_b, t = experts[name]["w_b"], experts[name]["t"]
+            E = w_b.shape[0]
+            want = ((E, kcfg.n_in, kcfg.n_out),
+                    (E, kcfg.n_in, self.spec.n_bases, kcfg.n_out))
+            if (tuple(w_b.shape), tuple(t.shape)) != want:
+                raise ValueError(
+                    f"KanExperts {name}: got w_b {tuple(w_b.shape)} and t "
+                    f"{tuple(t.shape)}, expected {want}")
+            self.register_buffer(f"wt_{name}", _fuse_stack(w_b, t),
+                                 persistent=False)
+        self.register_buffer(
+            "slot_of", slot_table(self.kb, self.spec.n_bases, w_b.device),
+            persistent=False)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        outs = []
+        for e in range(h.shape[0]):
+            mid = kan_fused_v2(h[e].contiguous(), self.wt_up[e], self.spec,
+                               self.kb, self.slot_of)
+            outs.append(kan_fused_v2(mid, self.wt_down[e], self.spec,
+                                     self.kb, self.slot_of))
+        return torch.stack(outs)
+
+
+def _fuse_stack(w_b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(E, n_in*(nb+1), n_out): each expert's fused ``[w_b ; t]`` rows
+    (``kan_fused.ops.fuse_wt``'s layout), in w_b's dtype."""
+    E, n_in, n_out = w_b.shape
+    return torch.cat([w_b[:, :, None], t.to(w_b.dtype)], dim=2).reshape(
+        E, -1, n_out)
+
+
+def _route(probs: torch.Tensor, K: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(top_p normalised, top_e) of (T, E) probs; the lower expert first
+    on a tie, as ``jax.lax.top_k``."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = vals[:, :K], idx[:, :K]
+    return top_p / torch.sum(top_p, dim=-1, keepdim=True), top_e
+
+
+def _dispatch(xt: torch.Tensor, top_e: torch.Tensor, top_p: torch.Tensor,
+              E: int, C: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor]:
+    """(buf (E, C, d), flat_e, flat_pos, gate): each kept pick at its
+    position in its expert's slots, dropped picks at the trash slot C
+    (cut off) with gate 0."""
+    T, d = xt.shape
+    K = top_e.shape[1]
+    onehot = F.one_hot(top_e, E).to(torch.int32)                # (T, K, E)
+    flat = onehot.reshape(T * K, E)
+    rank = torch.cumsum(flat, dim=0, dtype=torch.int32) - flat  # exclusive
+    pos = torch.sum(rank * flat, dim=-1).reshape(T, K)
+    keep = pos < C
+    gate = torch.where(keep, top_p, torch.zeros((), dtype=top_p.dtype,
+                                                device=top_p.device))
+    flat_e = top_e.reshape(-1)
+    flat_pos = torch.where(keep.reshape(-1), pos.reshape(-1),
+                           torch.full((), C, dtype=pos.dtype,
+                                      device=pos.device)).long()
+    buf = torch.zeros((E, C + 1, d), dtype=xt.dtype, device=xt.device)
+    tok_idx = torch.arange(T, device=xt.device).repeat_interleave(K)
+    buf.index_put_((flat_e, flat_pos), xt[tok_idx], accumulate=True)
+    return buf[:, :C], flat_e, flat_pos, gate
+
+
+def _combine(hidden: torch.Tensor, flat_e: torch.Tensor,
+             flat_pos: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """(T, d): each token's picks weighted by their gates, summed over k
+    in hidden's dtype."""
+    T, K = gate.shape
+    E, _, d = hidden.shape
+    padded = torch.cat([hidden, torch.zeros((E, 1, d), dtype=hidden.dtype,
+                                            device=hidden.device)], dim=1)
+    picked = padded[flat_e, flat_pos].reshape(T, K, d)
+    return torch.sum(picked * gate[..., None].to(picked.dtype), dim=1)
+
+
+def _aux_loss(probs: torch.Tensor, top_e: torch.Tensor,
+              E: int) -> torch.Tensor:
+    """Switch-style load balance, over the full router distribution."""
+    me = torch.mean(probs, dim=0)
+    ce = torch.mean(F.one_hot(top_e[:, 0], E).to(torch.float32), dim=0)
+    return E * torch.sum(me * ce)
+
+
+def _moe_local(xt: torch.Tensor, router_k: torch.Tensor,
+               gate_w: torch.Tensor, up_w: torch.Tensor,
+               down_w: torch.Tensor, cfg: MoEConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SwiGLU experts: routing + expert FFN + combine over all E."""
+    T, d = xt.shape
+    E, K = cfg.n_experts, cfg.top_k
+    logits = ieee_matmul(xt.to(torch.float32),
+                         router_k.to(torch.float32))            # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = _route(probs, K)
+    # capacity per expert, padded to keep shapes friendly
+    C = -(-int(cfg.capacity_factor * T * K) // E)   # ceil
+    C = max(8, -(-C // 8) * 8)
+    buf, flat_e, flat_pos, gate = _dispatch(xt, top_e, top_p, E, C)
+    hidden = _swiglu_experts(buf, gate_w, up_w, down_w)
+    out = _combine(hidden, flat_e, flat_pos, gate)
+    return out, _aux_loss(probs, top_e, E)
+
+
+def _moe_local_kan(params: Dict, xt: torch.Tensor, cfg: MoEConfig,
+                   experts: Optional[KanExperts] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """KAN experts: dispatch like ``_moe_local``, every expert's two KAN
+    layers through the fused-KAN kernel."""
+    T, d = xt.shape
+    E, K = cfg.n_experts, cfg.top_k
+    logits = dense(params["router"], xt).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = _route(probs, K)
+    C = cfg.capacity(T)
+    buf, flat_e, flat_pos, gate = _dispatch(xt, top_e, top_p, E, C)
+    if experts is None:
+        experts = KanExperts(cfg, params["experts"])
+    hidden = experts(buf)
+    out = _combine(hidden, flat_e, flat_pos, gate)
+    return out, _aux_loss(probs, top_e, E)
+
+
+def moe_apply(params: Dict, x: torch.Tensor, cfg: MoEConfig,
+              experts: Optional[KanExperts] = None) -> Dict:
+    """x: (B, S, d) -> {"out": (B, S, d), "aux_loss": f32 scalar}.
+
+    ``experts`` (KAN experts only) is the layer's ``KanExperts``, or any
+    callable on (E, C, d); without it the fused weights are built per
+    call."""
+    B, S, d = x.shape
+    xt = x.reshape(B * S, d)
+    e = params["experts"]
+    if cfg.ffn_kind == "swiglu":
+        out, aux = _moe_local(xt, params["router"]["kernel"], e["gate"],
+                              e["up"], e["down"], cfg)
+    else:
+        out, aux = _moe_local_kan(params, xt, cfg, experts)
+    if cfg.shared_expert and "shared" in params:
+        sh = ffn_apply(params["shared"], xt,
+                       FFNConfig(cfg.d_model, cfg.d_ff, kind="swiglu"))
+        out = out + sh
+    return {"out": out.reshape(B, S, d).to(x.dtype), "aux_loss": aux}
+
+
+def moe_init_with_shared(generator: Optional[torch.Generator],
+                         cfg: MoEConfig,
+                         dtype: torch.dtype = torch.float32) -> Dict:
+    p = moe_init(generator, cfg, dtype)
+    if cfg.shared_expert:
+        p["shared"] = ffn_init(
+            generator, FFNConfig(cfg.d_model, cfg.d_ff, kind="swiglu"),
+            dtype)
+    return p

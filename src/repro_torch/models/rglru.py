@@ -1,16 +1,33 @@
-"""RG-LRU recurrent block (RecurrentGemma / Griffin): its config alone,
-so far.
+"""RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427).
 
-Counterpart of the ``RGLRUConfig`` of ``repro/models/rglru.py``, copied
-exactly, so that ``configs/base.ArchConfig.rglru_cfg`` and the arch
-registry are whole.  The recurrence (``rglru_init``, ``rglru_apply``,
-``rglru_decode_step``) is not ported yet (``ROADMAP.md``, queue 1,
-item 2); ``models/transformer`` refuses a ``"rec"`` block.
+Counterpart of ``repro/models/rglru.py``.  The Real-Gated Linear
+Recurrent Unit is a diagonal linear recurrence
+
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t),
+    log a_t = -c * softplus(Lambda) * r_t,          c = 8
+
+with input/recurrence gates r_t, i_t = sigmoid(linear(x_t)), decoded in
+O(1) state.  The reference runs the recurrence as
+``jax.lax.associative_scan``; the port runs it as a loop over time,
+which rounds differently (a few f32 ulps; the parity tests state the
+tolerance).  ``softplus`` is ``logaddexp(x, 0)``, as ``jax.nn.softplus``
+(``F.softplus`` turns into the identity above its threshold).
+``lambda`` is f32 at init; a bf16 server casts it with every other
+floating leaf, as the reference's does.  The state ``h`` is f32, ``conv``
+has x's dtype.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models.layers import dense, dense_init, gelu, gen_device
+from repro_torch.models.xlstm import _causal_conv
+
+Params = Dict[str, torch.Tensor]
+C_FACTOR = 8.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,3 +39,82 @@ class RGLRUConfig:
     @property
     def width(self) -> int:
         return self.lru_width or self.d_model
+
+
+def rglru_init(generator: Optional[torch.Generator], cfg: RGLRUConfig,
+               dtype: torch.dtype = torch.float32) -> Params:
+    d, w = cfg.d_model, cfg.width
+    dev = gen_device(generator)
+    # Lambda init so a^c spans ~[0.9, 0.999] (paper appendix)
+    u = torch.empty((w,), dtype=torch.float32, device=dev).uniform_(
+        0.9 ** 2, 0.999 ** 2, generator=generator)
+    lam = torch.log(torch.exp(-torch.log(u) / (2 * C_FACTOR)) - 1.0)
+    conv = torch.randn((cfg.conv_kernel, w), generator=generator, device=dev)
+    return {
+        "in_x": dense_init(generator, d, w, dtype=dtype),
+        "in_gate": dense_init(generator, d, w, dtype=dtype),
+        "conv": (conv * 0.1).to(dtype),
+        "wa": dense_init(generator, w, w, bias=True, dtype=dtype),
+        "wx": dense_init(generator, w, w, bias=True, dtype=dtype),
+        "lambda": lam,                      # (w,) f32
+        "out": dense_init(generator, w, d, dtype=dtype),
+    }
+
+
+def _lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t over axis 1 (h_0 = b_0)."""
+    hs = [b[:, 0]]
+    for t in range(1, a.shape[1]):
+        hs.append(a[:, t] * hs[-1] + b[:, t])
+    return torch.stack(hs, dim=1)
+
+
+def rglru_apply(params: Params, x: torch.Tensor, cfg: RGLRUConfig,
+                state: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B,S,d) -> (y, state); state = {conv, h} for O(1) decode."""
+    f32 = torch.float32
+    gate = gelu(dense(params["in_gate"], x).to(f32))
+    xb = dense(params["in_x"], x)
+    conv_state = None if state is None else state.get("conv")
+    xc, conv_state = _causal_conv(xb, params["conv"], conv_state)
+
+    xf = xc.to(f32)
+    r = torch.sigmoid(dense(params["wa"], xc).to(f32))
+    i = torch.sigmoid(dense(params["wx"], xc).to(f32))
+    lam = params["lambda"]
+    softplus = torch.logaddexp(lam, torch.zeros((), dtype=lam.dtype,
+                                                device=lam.device))
+    log_a = -C_FACTOR * softplus * r                    # (B,S,w)
+    a = torch.exp(log_a)
+    # sqrt(1 - a^2) in log space for stability near a ~ 1
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    b = beta * (i * xf)
+
+    if state is not None and "h" in state:
+        # prepend carry-in: h_0 contributes a_1 * h_in
+        b = torch.cat([(b[:, 0] + a[:, 0] * state["h"])[:, None], b[:, 1:]],
+                      dim=1)
+    h = _lru_scan(a, b)                                 # (B,S,w)
+    y = dense(params["out"], (h * gate).to(x.dtype))
+    new_state = {"conv": conv_state, "h": h[:, -1, :]}
+    return y, new_state
+
+
+def rglru_init_state(batch: int, cfg: RGLRUConfig,
+                     dtype: torch.dtype = torch.float32,
+                     device: torch.device | str = "cpu"
+                     ) -> Dict[str, torch.Tensor]:
+    return {
+        "conv": torch.zeros((batch, cfg.conv_kernel - 1, cfg.width),
+                            dtype=dtype, device=device),
+        "h": torch.zeros((batch, cfg.width), dtype=torch.float32,
+                         device=device),
+    }
+
+
+def rglru_decode_step(params: Params, x1: torch.Tensor, cfg: RGLRUConfig,
+                      state: Dict[str, torch.Tensor]
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-token recurrent update (the server's decode step)."""
+    return rglru_apply(params, x1, cfg, state)

@@ -14,11 +14,13 @@ the queue and the tick loop; everything model-shaped lives behind the
                        executed (VIKIN cycle model), or None when the
                        backend has no hardware model.
 
-``TransformerBackend`` serves an ``ArchConfig`` transformer: greedy
-autoregressive decode over slot KV caches, one token per active slot a
-step.  For KAN-FFN hybrids every ``"kan"`` layer's FFN runs the fused
-KAN kernel (up) and the pattern-matmul kernel (down), and the VIKIN
-cycle model charges each served tick.
+``TransformerBackend`` serves a decoder-only ``ArchConfig`` model
+(attention, MoE, RG-LRU and xLSTM blocks): greedy autoregressive decode
+over slot caches (KV caches and recurrent states), one token per active
+slot a step.  For KAN-FFN hybrids every ``"kan"`` layer's FFN runs the
+fused KAN kernel (up) and the pattern-matmul kernel (down), and the
+VIKIN cycle model charges each served tick; a MoE of KAN experts runs
+every expert's two layers through the fused KAN kernel.
 
 ``VikinBackend`` serves a stacked KAN/MLP feed-forward workload
 (configs/vikin_models.PaperModelConfig) on a torch device: a request is
@@ -193,9 +195,10 @@ def transformer_layer_works(cfg: Any) -> List[LayerWork]:
 
 def splice_cache(caches: Any, cache: Any, slot: int) -> Any:
     """``caches`` (batch n_slots) with lane ``slot`` replaced by the
-    batch-1 ``cache`` of one prefilled request: dim 0 of each ``"extra"``
-    layer's tensors, dim 1 under the stacked ``"units"``.  Returns new
-    tensors; ``caches`` is left as it was."""
+    batch-1 ``cache`` of one prefilled request -- KV caches and recurrent
+    states (``h``, ``conv``, ``C``, ``n``, ``m``, ``c``) alike: dim 0 of
+    each ``"extra"`` layer's tensors, dim 1 under the stacked
+    ``"units"``.  Returns new tensors; ``caches`` is left as it was."""
     def put(dim: int):
         def fn(full: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
             out = full.clone()
@@ -211,7 +214,7 @@ def splice_cache(caches: Any, cache: Any, slot: int) -> Any:
 
 
 class TransformerBackend(ModelBackend):
-    """Slot KV-cache greedy decode for ``ArchConfig`` transformer stacks.
+    """Slot-cache greedy decode for decoder-only ``ArchConfig`` stacks.
 
     ``params`` is the tree of ``models/transformer.init_params`` (tensors
     on any device, e.g. ``convert.transformer_params_from_jax`` of the
@@ -224,8 +227,11 @@ class TransformerBackend(ModelBackend):
     (basis_keep, hidden_keep) pairs (core/calibrate.
     calibrate_kanffn_masks) as ``cfg.ffn_masks``.  Each KAN-FFN layer is
     built once (``models/ffn.KanFFN``: fused up weights, compacted down
-    weights).  The reference's ``impl=`` has no counterpart: the device
-    picks kernels or plain versions.
+    weights), and each MoE layer of KAN experts (``models/moe.
+    KanExperts``: every expert's fused weights).  The encoder-decoder
+    and frontend archs are refused (``NotImplementedError``).  The
+    reference's ``impl=`` has no counterpart: the device picks kernels
+    or plain versions.
 
     KAN-FFN archs (``cfg.ffn_kinds`` set) gain the VIKIN cycle model: a
     per-layer ModePlan (attention and down phases parallel, KAN

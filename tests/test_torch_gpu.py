@@ -1550,3 +1550,39 @@ def test_kanffn_ci_served_on_card(cuda, precision):
         cpu.submit(p, max_new_tokens=4)
     cpu.run_until_done()
     assert cpu.stats["sim_cycles"] == eng.stats["sim_cycles"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [8, 64])
+def test_kan_experts_on_card(cuda, dtype, C):
+    """qwen3-moe's KAN experts at their widths (4096 -> 192 -> 4096), a
+    few of them: two fused-KAN launches an expert a call, each within its
+    tolerance of its plain version on the same input."""
+    from repro_torch.kernels.kan_fused.ref import kan_fused_v2_ref
+    from repro_torch.models.moe import KanExperts, MoEConfig, moe_init
+
+    dt = getattr(torch, dtype)
+    cfg = MoEConfig(d_model=4096, d_ff=1536, n_experts=3, top_k=2,
+                    ffn_kind="kan")
+    params = moe_init(torch.Generator(device=cuda).manual_seed(0), cfg, dt)
+    ex = KanExperts(cfg, params["experts"])
+    assert ex.wt_up.shape[1:] == (4096 * 8, 192)
+    h = torch.randn((3, C, 4096), generator=torch.Generator(
+        device=cuda).manual_seed(C), device=cuda).to(dt)
+    sfx = "_bf16" if dt == BF else ""
+    before = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        y = ex(h)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    assert launched == {k: 6 * int(k == "kan_fused_v2" + sfx)
+                        for k in launched}
+    tol = 2.0 ** -8 if dt == BF else TOL
+    for e in range(3):
+        mid = kan_fused_v2(h[e], ex.wt_up[e], ex.spec, ex.kb, ex.slot_of)
+        _close(mid.float(), kan_fused_v2_ref(h[e], ex.wt_up[e], ex.spec,
+                                             ex.kb).float(), tol)
+        _close(y[e].float(), kan_fused_v2_ref(mid, ex.wt_down[e], ex.spec,
+                                              ex.kb).float(), tol)
+        assert torch.equal(y[e], kan_fused_v2(mid, ex.wt_down[e], ex.spec,
+                                              ex.kb, ex.slot_of))

@@ -292,7 +292,7 @@ def test_backend_refusals(ci_setup):
     with pytest.raises(ValueError, match="int8"):
         _backend(cfg, params, precision="int8")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _backend(T_ZOO["xlstm-125m"].reduce(), params)
+        _backend(T_ZOO["whisper-medium"].reduce(), params)
 
 
 def test_bf16_backend_casts_the_params_once(ci_setup):
