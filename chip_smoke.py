@@ -203,7 +203,30 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    single, a decode step's host and device ms, idle share and peak
    device memory; (e) the five ``reduce()``d configs, the card against
    the CPU within ``CPU_TOL``; (f) the launcher on the four archs at
-   ``--scale smoke`` and xlstm-125m at ``--scale full``.
+   ``--scale smoke`` and xlstm-125m at ``--scale full``;
+12. encoder-decoder and prefix-VLM archs (``encdec_vlm_phase``) at full
+   width and depth through ``launch/steps``, batches of 8 requests of 16
+   tokens, params drawn on the card: (a) a KAN FFN (kept bases 0, 2, 4,
+   5, 6) of each arch at the rows its steps give it (whisper-medium-kan's
+   encoder FFN, 1024 -> 512 -> 1024, at M = 8 x 1500, f32 and bf16;
+   paligemma-3b-kan's, 2048 -> 2048 -> 2048, at 8 x 272 and 8, bf16;
+   whisper-medium-kan's decoder FFN at 8 x 16 and 8, bf16), each
+   fused-KAN launch against its plain version, its times and bound; (b)
+   whisper-medium-kan (24 + 24 layers, frames of 1500 x 1024) at bf16
+   and its f32 twin, a prefill step and 16 decode steps: 2 x 24 + 2 x 24
+   launches a prefill and 2 x 24 a decode step, teacher-forced logits
+   within ``ED_TF_TOL`` of the plain versions', every launch of that
+   run within one launch's tolerance of its plain version on the same
+   input, and each FFN's input along the layers of ``forward`` against
+   the plain versions'; (c) paligemma-3b-kan (18 layers, 256 patches) at
+   bf16, the same, 2 x 18 launches a step; (d) both as published:
+   ``forward`` + ``lm_loss`` finite and cached decode against
+   ``forward`` (whisper) or a longer prefill (paligemma) within
+   ``DECODE_TOL`` at f32, then at bf16 a prefill step's and a decode
+   step's host and device ms, idle share,
+   kernels and peak device memory; (e) the four ``reduce()``d configs,
+   the card against the CPU within ``CPU_TOL``; (f) the launcher and
+   ``TransformerBackend`` refuse both with the reference's reason.
 
 No served path launches the spline-basis or v1 kernels, so their
 ``launches`` in the record are those of phases 6 and 5.  The served rows
@@ -212,7 +235,8 @@ every row ``launches_train``, its launches in phase 8 (b)'s first
 run of each arch, ``launches_paper``, its launches in phase 9's
 runs of the paper scripts (Table I, the Fig. 8 sweep, Table II), and
 ``launches_kanffn``, its launches in phase 10 (b)'s three served runs,
-and ``launches_moe``, its launches in phase 11 (a) and (b).
+``launches_moe``, its launches in phase 11 (a) and (b), and
+``launches_encdec``, its launches in phase 12 (a)-(c).
 
 It prints the ``{"kernels": [...]}`` record, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It imports nothing
@@ -302,6 +326,23 @@ MOE_TF_TOL = {torch.float32: MOE_TF_LAUNCHES * KERNEL_TOL,
               torch.bfloat16: MOE_TF_LAUNCHES * BF16_ULP}
 MOE_LAYER_TOL = {torch.float32: 2 * KERNEL_TOL,
                  torch.bfloat16: 3 * BF16_ULP}
+# phase 12: the encoder-decoder and prefix-VLM archs at full width and
+# depth, batches of ED_BATCH requests of ED_PROMPT tokens, ED_NEW_TOKENS
+# decode steps.  A KAN drop-in's teacher-forced logits against the same
+# model with every KAN FFN through its plain version on the card: the
+# launches a token's logits pass in series, each within one launch's
+# tolerance, as phase 10 builds TF_TOL.  whisper-medium: the encoder's
+# 2 x 24 (every decoder block's cross-attention reads their memory) and
+# the decoder's 2 x 24; paligemma-3b: 2 x 18.  A sum over launches in
+# series is loose, so the same run also holds every launch to one
+# launch's tolerance on the input it is served.
+ED_BATCH = 8
+ED_PROMPT = 16
+ED_NEW_TOKENS = 16
+ED_TF_LAUNCHES = {"whisper-medium": 2 * 24 + 2 * 24, "paligemma-3b": 2 * 18}
+ED_TF_TOL = {name: {torch.float32: n * KERNEL_TOL,
+                    torch.bfloat16: n * BF16_ULP}
+             for name, n in ED_TF_LAUNCHES.items()}
 DECODE_TOL = 2e-3             # the reference's decode-vs-forward tolerance
 CPU_TOL = 1e-4                # the port on the card against it on the CPU
 ARCHS = ("vikin-kan2", "vikin-mlp3", "vikin-mixed")
@@ -1414,6 +1455,611 @@ def moe_rec_phase(dev: torch.device, card: str) -> dict:
             "kan_served": kan_served, "timing": timing,
             "reduced_vs_cpu": reduced, "launcher": launcher}
 
+
+def encdec_vlm_phase(dev: torch.device, card: str) -> dict:
+    """Phase 12: the encoder-decoder and prefix-VLM archs at full width
+    and depth through ``launch/steps``, params drawn on the card from
+    seeded generators, batches of ``ED_BATCH`` requests (``ED_PROMPT``
+    seeded tokens; whisper: frames of (1500, 1024), paligemma: 256
+    patches of 2048, each ``0.1 * N(0, 1)`` in the params' dtype).
+
+    (a) a KAN FFN (kept bases (0, 2, 4, 5, 6)) of each arch at the rows
+    its served steps give it: whisper-medium-kan's encoder FFN (1024 ->
+    512 -> 1024) at M = 8 x 1500, f32 and bf16, paligemma-3b-kan's (2048
+    -> 2048 -> 2048) at M = 8 x 272 and 8, bf16, whisper-medium-kan's
+    decoder FFN at M = 8 x 16 and 8, bf16: its two fused-KAN launches,
+    each within ``KERNEL_TOL`` / ``BF16_ULP`` of the plain version on
+    the same input; device ms (CUDA graph), back to back ms, the plain
+    version's ms and the bound;
+    (b) whisper-medium-kan (24 + 24 layers) at bf16 and its f32 twin:
+    ``make_prefill_step`` then ``ED_NEW_TOKENS`` ``make_decode_step``
+    steps, exactly 2 x 24 + 2 x 24 launches a prefill and 2 x 24 a
+    decode step; teacher-forced logits within ``ED_TF_TOL`` of the same
+    model with every KAN FFN through its plain version on the card, and
+    every launch of that teacher-forced run within ``KERNEL_TOL`` /
+    ``BF16_ULP`` of the plain version on the input it is served; then
+    ``forward`` with the kernels and with the plain versions: each FFN's
+    input along the layers, the last hidden state and its logits;
+    (c) paligemma-3b-kan (18 layers, vocab 257216) at bf16, as (b): 2 x
+    18 launches a prefill and a decode step;
+    (d) whisper-medium and paligemma-3b as published (gelu MLP, GeGLU):
+    at f32 ``forward`` + ``lm_loss`` finite, cached decode against
+    ``forward`` (whisper) or a longer prefill (paligemma: the
+    reference's prefill is causal over the patches) within
+    ``DECODE_TOL``; at bf16 the host and device ms of a prefill step and
+    of a decode step, the idle share, the kernels a step and the peak
+    device memory;
+    (e) the four ``reduce()``d configs (as published, KAN drop-in) at
+    f32 on the card against the CPU within ``CPU_TOL``;
+    (f) the launcher and ``TransformerBackend`` refuse both archs on the
+    card with the reference's reason.
+    Returns what it measured; raises on any fault."""
+    from repro_torch.benchmarks.kernel_ab import graph_ms, time_ms
+    from repro_torch.configs.registry import ARCHS as ZOO
+    from repro_torch.core.splines import locate_cell, spu_op_count
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.kan_fused.ops import kan_fused_v2
+    from repro_torch.kernels.kan_fused.ref import kan_fused_v2_ref
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import ffn as FF
+    from repro_torch.models import transformer as TF
+    from repro_torch.runtime.backends import TransformerBackend
+    from repro_torch.utils import leaf_paths, tree_map
+
+    t_phase = time.perf_counter()
+    whisper, pali = "whisper-medium", "paligemma-3b"
+    kan = {"ffn_kind": "kan", "pattern_rate": 0.5}
+
+    def gen(seed: int) -> torch.Generator:
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def n_params(tree) -> int:
+        return sum(int(a.numel()) for _, a in leaf_paths(tree))
+
+    def launches_only(want: dict, what: str) -> dict:
+        got = dict(_build.LAUNCHES)
+        full = {k: want.get(k, 0) for k in got}
+        check(got == full, f"(phase 12) {what}: launches {got}, want {full}")
+        return got
+
+    def free() -> None:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def plain(mod):
+        """A ``KanPairFFN`` through the fused-KAN kernel's plain version,
+        on the card."""
+        def fn(x):
+            lead = x.shape[:-1]
+            h = x.reshape(-1, mod.up.cfg.n_in)
+            for layer in (mod.up, mod.down):
+                h = kan_fused_v2_ref(h, layer.wt, layer.cfg.spec, layer.kb)
+            return h.reshape(*lead, mod.down.cfg.n_out)
+        return fn
+
+    def checked(mod, part: str, tol: float, worst: dict):
+        """``mod`` with each of its two launches held to the plain version
+        on the same input, within ``tol`` of 1 + max|plain|, the worst
+        err / (1 + max) kept in ``worst`` by part and rows; the same
+        bits as ``mod``."""
+        def fn(x):
+            h = x
+            for layer in (mod.up, mod.down):
+                out = layer(h)
+                flat = h.reshape(-1, layer.cfg.n_in)
+                err, scale, nan = rel_err(
+                    out.reshape(-1, layer.cfg.n_out),
+                    kan_fused_v2_ref(flat, layer.wt, layer.cfg.spec,
+                                     layer.kb))
+                key = f"{part} M = {flat.shape[0]}"
+                check(not nan and err <= tol * scale,
+                      f"{key}: a served launch {err:.3e} from its plain "
+                      f"version, vs {tol:g} * {scale:.4g}")
+                worst[key] = max(worst.get(key, 0.0), err / scale)
+                h = out
+            return h
+        return fn
+
+    def probe(fn, taps: list):
+        """``fn`` that keeps each input it is given in ``taps``."""
+        def g(x):
+            taps.append(x)
+            return fn(x)
+        return g
+
+    launches_ed: dict = {}
+
+    def tally(got: dict) -> None:
+        for k, v in got.items():
+            launches_ed[k] = launches_ed.get(k, 0) + v
+
+    # (a) a KAN FFN of each arch at the rows its served steps give it:
+    # whisper-medium-kan's encoder FFN at a prefill's 8 x 1500 frames (f32
+    # and bf16), paligemma-3b-kan's FFN at a prefill's 8 x 272 positions
+    # and a decode step's 8, whisper-medium-kan's decoder FFN at a
+    # prefill's 8 x 16 and a decode step's 8 (bf16)
+    kernel_rows, layer_err = [], {}
+    a_cases = (
+        (whisper, "encoder FFN, a prefill", (F32, BF),
+         ED_BATCH * ZOO[whisper].n_frontend_tokens, ZOO[whisper].n_enc_layers),
+        (pali, "FFN, a prefill", (BF,),
+         ED_BATCH * (ZOO[pali].n_frontend_tokens + ED_PROMPT),
+         ZOO[pali].n_layers),
+        (pali, "FFN, a decode step", (BF,), ED_BATCH, ZOO[pali].n_layers),
+        (whisper, "decoder FFN, a prefill", (BF,), ED_BATCH * ED_PROMPT,
+         ZOO[whisper].n_layers),
+        (whisper, "decoder FFN, a decode step", (BF,), ED_BATCH,
+         ZOO[whisper].n_layers))
+    for name, where, dts, rows, per_step in a_cases:
+        fcfg = dataclasses.replace(ZOO[name], **kan).ffn_cfg(0)
+        p_f = FF.ffn_init(gen(40), fcfg, F32)
+        x_f = torch.randn((rows, fcfg.d_model), generator=gen(41),
+                          device=dev)
+        for dt in dts:
+            mod = FF.KanPairFFN(fcfg, p_f if dt == F32
+                                else tree_map(lambda a: a.to(BF), p_f))
+            kname = "kan_fused_v2" + SUFFIX[dt]
+            prec = "bf16" if dt == BF else "f32"
+            label = f"{name}-kan {where} (M = {rows}) {prec}"
+            x = x_f.to(dt)
+            _build.reset_launches()
+            with torch.no_grad():
+                y = mod(x)
+            torch.cuda.synchronize()
+            tally(launches_only({kname: 2}, f"(a) {label}"))
+            tol = KERNEL_TOL if dt == F32 else BF16_ULP
+            errs = []
+            with torch.no_grad():
+                mid = mod.up(x)
+                check(torch.equal(y, mod.down(mid)),
+                      f"(a) {label}: the FFN is not its two layers, bitwise")
+                for what, layer, xin in (("up", mod.up, x),
+                                         ("down", mod.down, mid)):
+                    k_out = layer(xin)
+                    ref = kan_fused_v2_ref(xin, layer.wt, layer.cfg.spec,
+                                           layer.kb)
+                    err, scale, nan = rel_err(k_out, ref)
+                    check(not nan and err <= tol * scale,
+                          f"(a) {label} {what}: max|kernel - plain| "
+                          f"{err:.3e} vs {tol:g} * {scale:.4g}")
+                    errs.append(err / scale)
+                    rows_m, n_in = xin.shape
+                    n_out = layer.wt.shape[1]
+                    spec = layer.cfg.spec
+                    # the kept bases this run's inputs hit: the K + 1
+                    # active bases of each input's cell, those of kb
+                    cell = locate_cell(spec.clip(xin), spec)[0].long()
+                    kept = torch.tensor(
+                        [len(set(range(c, c + spec.n_active))
+                             & set(layer.kb))
+                         for c in range(spec.grid_size)], device=dev)
+                    hits = int(kept[cell].sum())
+                    esz = 2.0 if dt == BF else 4.0
+                    mac_rate = (BF16_FLOPS_PER_S if dt == BF
+                                else F32_FLOPS_PER_S)
+                    n_bytes = (esz * (xin.numel() + layer.wt.numel()
+                                      + rows_m * n_out)
+                               + 4.0 * layer.slot_of.numel())
+                    work = [(2.0 * n_out * (rows_m * n_in + hits), mac_rate),
+                            (rows_m * n_in * (spu_op_count(spec) + 4),
+                             F32_FLOPS_PER_S)]
+                    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+                    t_ops = sum(n / rt for n, rt in work) * 1e3
+
+                    def kern(xin=xin, layer=layer):
+                        return kan_fused_v2(xin, layer.wt, layer.cfg.spec,
+                                            layer.kb, layer.slot_of)
+
+                    def plain_fn(xin=xin, layer=layer):
+                        return kan_fused_v2_ref(xin, layer.wt,
+                                                layer.cfg.spec, layer.kb)
+
+                    kernel_rows.append({
+                        "kernel": kname, "model": f"{name}-kan {where}",
+                        "layer": what, "shape": [rows_m, n_in, n_out],
+                        "nbk": len(layer.kb), "precision": prec,
+                        "ms": time_ms(kern, iters=10, reps=5),
+                        "device_ms": graph_ms(kern, iters=5, reps=5),
+                        "plain_ms": time_ms(plain_fn, iters=3, reps=3),
+                        "library_ms": None,
+                        "bound_ms": max(t_bytes, t_ops),
+                        "bound_by": ("bytes" if t_bytes >= t_ops
+                                     else "operations"),
+                        "kept_basis_hits": hits,
+                        "launches_a_step": per_step, "card": card})
+                    print(json.dumps(kernel_rows[-1]))
+            layer_err[label] = max(errs)
+            del mod, x, y, mid
+            free()
+        del p_f, x_f
+        free()
+    print("phase 12: (a) a KAN FFN (kept bases (0, 2, 4, 5, 6)) of each "
+          "arch at the rows its steps give it: 2 fused-KAN launches a call, "
+          "each within its tolerance of its plain version (max err / (1 + "
+          "max): " + ", ".join(f"{k} {v:.2e}"
+                               for k, v in layer_err.items()) + ")")
+
+    def batch_for(cfg, seed: int) -> dict:
+        rng = np.random.default_rng(seed)
+        toks = torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, size=(ED_BATCH, ED_PROMPT)).astype(np.int32),
+            device=dev)
+        stub = 0.1 * torch.randn(
+            (ED_BATCH, cfg.n_frontend_tokens, cfg.d_model),
+            generator=gen(seed), device=dev)
+        key = "frames" if cfg.enc_dec else "patches"
+        return {"tokens": toks, key: stub.to(cfg.param_dtype)}
+
+    def modality(batch: dict) -> dict:
+        return {k: v for k, v in batch.items() if k in ST.MODALITIES}
+
+    def teacher(cfg, params, batch, toks, ffns, enc) -> list:
+        """Prefill's logits, then each served token decoded in turn:
+        [(B, V) logits a position]."""
+        out = []
+        with torch.no_grad():
+            lg, caches = TF.prefill(params, cfg, batch["tokens"],
+                                    ffns=ffns, enc_ffns=enc,
+                                    **modality(batch))
+            out.append(lg[:, -1])
+            for t in range(ED_NEW_TOKENS):
+                lg, caches = TF.decode_step(params, cfg, toks[:, t:t + 1],
+                                            caches, ffns=ffns)
+                out.append(lg[:, -1])
+        return out
+
+    kan_served = {}
+
+    def served_kan(name: str, cfg, params, seed: int) -> None:
+        """(b)/(c) at one dtype: the serve steps, launch counts, and the
+        teacher-forced logits against the plain versions'."""
+        dt = cfg.param_dtype
+        kname = "kan_fused_v2" + SUFFIX[dt]
+        ffns = TF.ffn_modules(params, cfg)
+        enc = TF.encoder_ffn_modules(params, cfg) if cfg.enc_dec else None
+        n_enc = cfg.n_enc_layers if cfg.enc_dec else 0
+        batch = batch_for(cfg, seed)
+        prefill_step = ST.make_prefill_step(cfg, ffns=ffns, enc_ffns=enc)
+        decode_step = ST.make_decode_step(cfg, ffns=ffns)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        tok, caches = prefill_step(params, batch)
+        toks = [tok]
+        for _ in range(ED_NEW_TOKENS):
+            tok, caches = decode_step(params, {"token": tok,
+                                               "caches": caches})
+            toks.append(tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        per_prefill = 2 * (n_enc + cfg.n_layers)
+        per_decode = 2 * cfg.n_layers
+        got = launches_only(
+            {kname: per_prefill + ED_NEW_TOKENS * per_decode},
+            f"{name} {dt} served")
+        tally(got)
+        toks = torch.cat(toks, dim=1)                    # (B, 1 + new)
+        del caches
+        # the kernel run again, each launch held to its plain version on
+        # the input it is served: one launch's tolerance
+        per_launch: dict = {}
+        one = KERNEL_TOL if dt == F32 else BF16_ULP
+        lk = teacher(cfg, params, batch, toks,
+                     [None if f is None else
+                      checked(f, "decoder", one, per_launch) for f in ffns],
+                     None if enc is None else
+                     [checked(f, "encoder", one, per_launch) for f in enc])
+        lp = teacher(cfg, params, batch, toks,
+                     [None if f is None else plain(f) for f in ffns],
+                     None if enc is None else [plain(f) for f in enc])
+        tol = ED_TF_TOL[name][dt]
+        worst, near = 0.0, 0
+        for t, (a, b) in enumerate(zip(lk, lp)):
+            check(bool(torch.isfinite(a).all()),
+                  f"{name} {dt} position {t}: a logit is not finite")
+            check(torch.equal(a.argmax(-1), toks[:, t].long()),
+                  f"{name} {dt} position {t}: the teacher-forced logits' "
+                  f"argmax is not the served token")
+            err, scale, nan = rel_err(a, b)
+            check(not nan and err <= tol * scale,
+                  f"{name} {dt} position {t}: max|kernel - plain| logits "
+                  f"{err:.3e} vs {tol:g} * {scale:.4g}")
+            worst = max(worst, err / scale)
+            top2 = b.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > tol * scale
+            same = b.argmax(-1) == toks[:, t].long()
+            check(bool((same | ~clear).all()),
+                  f"{name} {dt} position {t}: the plain argmax differs "
+                  f"from the served token where the top-2 margin exceeds "
+                  f"{tol:g}")
+            near += int((~clear).sum())
+        del lk, lp
+        # where the logits' gap comes from: forward with the kernels and
+        # with the plain versions, each FFN's input layer by layer (the
+        # encoder's first), the last position's hidden state and logits
+        taps_k, taps_p = [], []
+        with torch.no_grad():
+            h_k, _ = TF.forward(
+                params, cfg, batch["tokens"], **modality(batch),
+                ffns=[probe(f, taps_k) for f in ffns],
+                enc_ffns=None if enc is None else
+                [probe(f, taps_k) for f in enc])
+            h_p, _ = TF.forward(
+                params, cfg, batch["tokens"], **modality(batch),
+                ffns=[probe(plain(f), taps_p) for f in ffns],
+                enc_ffns=None if enc is None else
+                [probe(plain(f), taps_p) for f in enc])
+
+            def gap(a, b) -> float:
+                err, scale, _ = rel_err(a, b)
+                return err / scale
+
+            depth = [gap(a, b) for a, b in zip(taps_k, taps_p)]
+            hidden = gap(h_k[:, -1], h_p[:, -1])
+            logits = gap(TF._logits(params, cfg, h_k[:, -1:]),
+                         TF._logits(params, cfg, h_p[:, -1:]))
+        del taps_k, taps_p, h_k, h_p
+        unit = one if dt == BF else 1.0
+        what = f"{name}-kan {'bf16' if dt == BF else 'f32'}"
+        kan_served[what] = {
+            "launches": got[kname], "launches_a_prefill": per_prefill,
+            "launches_a_decode_step": per_decode, "wall_s": wall,
+            "max_err_over_scale": worst, "tol": tol, "near_ties": near,
+            "per_launch": per_launch, "per_launch_tol": one,
+            "forward_ffn_input_err_by_layer": depth,
+            "forward_hidden_err": hidden, "forward_logits_err": logits,
+            "params": n_params(params)}
+        print(f"phase 12: {what}: {ED_BATCH} requests of {ED_PROMPT} tokens "
+              f"+ {ED_NEW_TOKENS} decode steps through launch/steps, wall "
+              f"{wall:.3f} s; {got[kname]} {kname} launches ({per_prefill} "
+              f"a prefill, {per_decode} a decode step); teacher-forced "
+              f"logits within {tol:g} of the plain versions' (max "
+              f"{worst:.3e} of 1 + max|plain|), {near} near-tie positions; "
+              f"each served launch within {one:g} of its plain version's (max "
+              + ", ".join(f"{k} {v:.2e}" for k, v in per_launch.items())
+              + f"); forward, err / (1 + max)"
+              + (" in bf16 ulps" if dt == BF else "") + ": FFN inputs by "
+              f"layer {' '.join(f'{v / unit:.3g}' for v in depth)}, the last "
+              f"hidden state {hidden / unit:.3g}, its logits "
+              f"{logits / unit:.3g}")
+
+    # (b) whisper-medium-kan, bf16 and its f32 twin
+    cfg_f = dataclasses.replace(ZOO[whisper], dtype="float32", **kan)
+    t0 = time.perf_counter()
+    params_f = TF.init_params(cfg_f, gen(0), dev)
+    torch.cuda.synchronize()
+    up_cfg, down_cfg = cfg_f.ffn_cfg(0).kan_cfgs()
+    print(f"phase 12: (b) {whisper}-kan: {cfg_f.n_enc_layers} + "
+          f"{cfg_f.n_layers} layers, d {cfg_f.d_model}, KAN FFNs "
+          f"{up_cfg.n_in} -> {up_cfg.n_out} -> {down_cfg.n_out}, vocab "
+          f"{cfg_f.vocab_size}; {n_params(params_f)} params, drawn on the "
+          f"card in {time.perf_counter() - t0:.2f} s")
+    served_kan(whisper, dataclasses.replace(cfg_f, dtype="bfloat16"),
+               tree_map(lambda a: a.to(BF), params_f), 50)
+    free()
+    served_kan(whisper, cfg_f, params_f, 50)
+    del params_f
+    free()
+
+    # (c) paligemma-3b-kan at bf16
+    cfg_b = dataclasses.replace(ZOO[pali], dtype="bfloat16", **kan)
+    t0 = time.perf_counter()
+    params_b = tree_map(lambda a: a.to(BF), TF.init_params(
+        dataclasses.replace(cfg_b, dtype="float32"), gen(1), dev))
+    free()
+    pup, _ = cfg_b.ffn_cfg(0).kan_cfgs()
+    print(f"phase 12: (c) {pali}-kan: {cfg_b.n_layers} layers, d "
+          f"{cfg_b.d_model}, KAN FFNs {pup.n_in} -> {pup.n_out} -> "
+          f"{pup.n_in}, vocab {cfg_b.vocab_size}; {n_params(params_b)} "
+          f"bf16 params drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    served_kan(pali, cfg_b, params_b, 51)
+    del params_b
+    free()
+
+    # (d) the archs as published: f32 checks, then bf16 times
+    def dev_ms(fn, n: int) -> tuple:
+        """(device ms a call, kernels a call, top device ops) over ``n``
+        calls, from the profiler."""
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+        kern = sorted((e for e in prof.key_averages()
+                       if str(getattr(e, "device_type", ""))
+                       .endswith("CUDA")), key=lambda e: -_device_us(e))
+        return (sum(_device_us(e) for e in kern) / n / 1e3,
+                sum(e.count for e in kern) / n,
+                [(e.key[:72], _device_us(e) / n, e.count / n)
+                 for e in kern[:6]])
+
+    timing, checks = {}, {}
+    for name, seed in ((whisper, 2), (pali, 3)):
+        cfg_f = dataclasses.replace(ZOO[name], dtype="float32")
+        params_f = TF.init_params(cfg_f, gen(seed), dev)
+        rng = np.random.default_rng(60 + seed)
+        toks = torch.as_tensor(rng.integers(0, cfg_f.vocab_size,
+                                            size=(2, 17)), device=dev)
+        stub = 0.1 * torch.randn((2, cfg_f.n_frontend_tokens,
+                                  cfg_f.d_model), generator=gen(70 + seed),
+                                 device=dev)
+        kw = {"frames" if cfg_f.enc_dec else "patches": stub}
+        with torch.no_grad():
+            inputs, labels = toks[:, :-1], toks[:, 1:]
+            h, aux = TF.forward(params_f, cfg_f, inputs, **kw)
+            loss = TF.lm_loss(params_f, cfg_f, h[:, -labels.shape[1]:],
+                              labels)
+            check(bool(torch.isfinite(loss)) and bool(torch.isfinite(aux)),
+                  f"(d) {name} f32: forward + lm_loss not finite")
+            got, want, full = [], [], None
+            _, caches = TF.prefill(params_f, cfg_f, inputs[:, :4], **kw)
+            if cfg_f.enc_dec:
+                full = TF._logits(params_f, cfg_f, h)
+            for t in range(4, 12):
+                lg, caches = TF.decode_step(params_f, cfg_f,
+                                            inputs[:, t:t + 1], caches)
+                got.append(lg[:, 0])
+                if cfg_f.enc_dec:
+                    want.append(full[:, t])
+                else:
+                    want.append(TF.prefill(params_f, cfg_f,
+                                           inputs[:, :t + 1], **kw)[0][:, 0])
+        got, want = torch.stack(got, 1), torch.stack(want, 1)
+        gap = (got - want).abs()
+        check(bool((gap <= DECODE_TOL + DECODE_TOL * want.abs()).all()),
+              f"(d) {name} f32: cached decode {float(gap.max()):.3e} from "
+              f"{'forward' if cfg_f.enc_dec else 'a longer prefill'}, "
+              f"beyond the reference's {DECODE_TOL}")
+        checks[name] = {"loss": float(loss), "decode_gap": float(gap.max())}
+        print(f"phase 12: (d) {name} f32: forward + lm_loss {float(loss):.4f}"
+              f" (finite); cached decode = "
+              f"{'forward' if cfg_f.enc_dec else 'a longer prefill'} within "
+              f"{DECODE_TOL} (max |gap| {float(gap.max()):.3e})")
+        del h, caches, got, want, full
+        cfg = ZOO[name]
+        params = tree_map(lambda a: a.to(BF), params_f)
+        del params_f
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        batch = batch_for(cfg, 80 + seed)
+        prefill_step = ST.make_prefill_step(cfg)
+        decode_step = ST.make_decode_step(cfg)
+        _build.reset_launches()
+        tok, caches = prefill_step(params, batch)
+        step_batch = {"token": tok, "caches": caches}
+        for _ in range(ED_NEW_TOKENS):
+            tok, caches = decode_step(params, {"token": tok,
+                                               "caches": caches})
+            check(bool(((tok >= 0) & (tok < cfg.vocab_size)).all()),
+                  f"(d) {name} bf16: a token out of the vocab")
+        torch.cuda.synchronize()
+        launches_only({}, f"(d) {name} bf16 (no kernel on this path)")
+        del caches
+
+        def pre():
+            return prefill_step(params, batch)[0].cpu()
+
+        def step():
+            return decode_step(params, step_batch)[0].cpu()
+
+        rec = {"card": card, "resident_bytes": resident}
+        for what, fn in (("prefill", pre), ("decode_step", step)):
+            host = host_ms(fn, iters=2, reps=3)
+            dms, nk, top = dev_ms(fn, 2)
+            check(dms > 0, f"(d) {name}: the profiler saw no device time")
+            rec.update({f"{what}_host_ms": host, f"{what}_device_ms": dms,
+                        f"{what}_idle_share": 1.0 - dms / host,
+                        f"{what}_kernels": nk, f"{what}_top_device": top})
+        rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        timing[name] = rec
+        print(f"phase 12: (d) {name} at bf16, {ED_BATCH} requests of "
+              f"{ED_PROMPT} tokens: a prefill step host "
+              f"{rec['prefill_host_ms']:.3f} ms, device "
+              f"{rec['prefill_device_ms']:.4f} ms (idle "
+              f"{rec['prefill_idle_share'] * 100:.1f}%, "
+              f"{rec['prefill_kernels']:.0f} kernels); a decode step host "
+              f"{rec['decode_step_host_ms']:.3f} ms, device "
+              f"{rec['decode_step_device_ms']:.4f} ms (idle "
+              f"{rec['decode_step_idle_share'] * 100:.1f}%, "
+              f"{rec['decode_step_kernels']:.0f} kernels; by device time "
+              + ", ".join(f"{k} {us:.0f} us x{n:.0f}"
+                          for k, us, n in rec["decode_step_top_device"])
+              + f"); peak device memory "
+              f"{rec['peak_device_bytes'] / 2**30:.2f} GiB, "
+              f"{resident / 2**30:.2f} GiB resident ({card})")
+        del params, batch, step_batch
+        free()
+
+    # (e) the reduced configs: the card against the CPU
+    reduced = {}
+    for name in (whisper, pali):
+        for label, over in ((name, {}), (f"{name}-kan", kan)):
+            cfg = dataclasses.replace(ZOO[name].reduce(), **over)
+            p_cpu = TF.init_params(cfg, torch.Generator().manual_seed(4))
+            p_dev = tree_map(lambda a: a.to(dev), p_cpu)
+            rng = np.random.default_rng(33)
+            tok = rng.integers(0, cfg.vocab_size, size=(2, 9))
+            stub = (0.1 * rng.normal(size=(2, cfg.n_frontend_tokens,
+                                           cfg.d_model))).astype(np.float32)
+            key = "frames" if cfg.enc_dec else "patches"
+            outs = []
+            with torch.no_grad():
+                for params, d in ((p_cpu, "cpu"), (p_dev, dev)):
+                    t = torch.as_tensor(tok, device=d)
+                    kw = {key: torch.as_tensor(stub, device=d)}
+                    h, aux = TF.forward(params, cfg, t[:, :8], **kw)
+                    seq = [h, aux[None], TF.lm_loss(
+                        params, cfg, h[:, -8:], t[:, 1:])[None]]
+                    if cfg.enc_dec:
+                        seq.append(TF.encode(params, cfg, kw[key]))
+                    lg, c = TF.prefill(params, cfg, t[:, :5], **kw)
+                    seq.append(lg)
+                    for i in range(5, 8):
+                        lg, c = TF.decode_step(params, cfg, t[:, i:i + 1], c)
+                        seq.append(lg)
+                    outs.append(seq)
+            worst = 0.0
+            for a, b in zip(*outs):
+                err, scale, nan = rel_err(b.cpu(), a)
+                check(not nan and err <= CPU_TOL * scale,
+                      f"(e) {label}: the card {err:.3e} from the CPU, vs "
+                      f"{CPU_TOL} * {scale:.4g}")
+                worst = max(worst, err / scale)
+            reduced[label] = worst
+    print("phase 12: (e) the reduce()d configs at f32, the card against the "
+          f"CPU within {CPU_TOL} (forward, aux, lm_loss, encode, prefill, 3 "
+          "decode steps): " + ", ".join(f"{k} {v:.2e}"
+                                         for k, v in reduced.items()))
+
+    # (f) token-only serving refuses both archs, as the reference's
+    why = "needs modality inputs (frames/patches)"
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", a],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC))) for a in (whisper, pali)]
+    refusals = {}
+    for a, proc in zip((whisper, pali), procs):
+        out, err = proc.communicate(timeout=300)
+        check(proc.returncode != 0 and why in err,
+              f"(f) the launcher at --arch {a} exited {proc.returncode} "
+              f"without the reference's refusal: {err[-500:]}")
+        refusals[a] = err.strip().splitlines()[-1]
+        cfg = ZOO[a].reduce()
+        try:
+            TransformerBackend(cfg, TF.init_params(cfg), device=DEVICE)
+        except NotImplementedError as e:
+            check(why in str(e), f"(f) TransformerBackend({a}): {e}")
+        else:
+            check(False, f"(f) TransformerBackend served {a}")
+    print("phase 12: (f) the launcher and TransformerBackend refuse both "
+          "archs on the card: " + "; ".join(f"{k}: {v}"
+                                            for k, v in refusals.items()))
+    # ... and ``python -m repro_torch.launch.steps`` serves both (reduced,
+    # KAN drop-in) through the kernels
+    runs = {a: subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.steps", "--arch", a,
+         "--ffn", "kan", "--pattern", "0.5"], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, env=dict(os.environ, PYTHONPATH=str(SRC)))
+        for a in (whisper, pali)}
+    steps_cli = {}
+    for a, r in runs.items():
+        check(r.returncode == 0 and "'kan_fused_v2': " in r.stdout,
+              f"(f) launch.steps --arch {a} exited {r.returncode} or "
+              f"launched no fused-KAN kernel: {r.stdout[-500:]} "
+              f"{r.stderr[-1000:]}")
+        steps_cli[a] = r.stdout.splitlines()[0]
+    print("phase 12: (f) launch.steps on the card: "
+          + "; ".join(steps_cli.values()))
+
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 12: {seconds:.1f} s")
+    return {"seconds": seconds, "launches": launches_ed,
+            "layer_err": layer_err, "kernel_rows": kernel_rows,
+            "kan_served": kan_served, "checks": checks, "timing": timing,
+            "reduced_vs_cpu": reduced, "refusals": refusals,
+            "steps_cli": steps_cli}
 
 def _device_us(event) -> float:
     """Self device time (us) of a profiler row; the attribute's name moved
@@ -3495,6 +4141,11 @@ def main() -> int:
     # MoE, RG-LRU and xLSTM serving at full width (``moe_rec_phase``)
     moe_rec = moe_rec_phase(dev, card)
 
+    # ---------------------------------------------------------------- 12
+    # encoder-decoder and prefix-VLM archs at full width
+    # (``encdec_vlm_phase``)
+    encdec = encdec_vlm_phase(dev, card)
+
     launched = {k: (served[p]["launches"][k], f"phase 3, {p} burst")
                 for p in PRECISIONS for k in SERVED_KERNELS[p]}
     launched["kan_fused_v1_bf16"] = (b_v1_launches["kan_fused_v1_bf16"],
@@ -3519,6 +4170,7 @@ def main() -> int:
             "launches_paper": paper_launches[k],
             "launches_kanffn": kanffn["launches"][k],
             "launches_moe": moe_rec["launches"].get(k, 0),
+            "launches_encdec": encdec["launches"].get(k, 0),
             "max_abs_err": max_err[k], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -3542,6 +4194,7 @@ def main() -> int:
          "paper": paper,
          "kanffn": kanffn,
          "moe_rec": moe_rec,
+         "encdec": encdec,
          "ptxas": usage,
          "knob_checks": knob_checks,
          "kernel_bench_launches": bench_launches},

@@ -81,7 +81,11 @@ from repro_torch.core.quant import QuantKANLayer, QuantPatternLinear
 from repro_torch.kernels import autotune
 from repro_torch.models import transformer as T
 from repro_torch.models.ffn import PatternLinear, vikin_stack_init
-from repro_torch.runtime.backends import MultiWorkloadBackend, VikinBackend
+from repro_torch.runtime.backends import (
+    MultiWorkloadBackend,
+    VikinBackend,
+    needs_modality_inputs,
+)
 from repro_torch.runtime.loadgen import Trace, replay
 from repro_torch.runtime.server import Engine, Server
 
@@ -334,11 +338,10 @@ def parse_archs(arch: str) -> List[Any]:
 def check_transformer_args(args: argparse.Namespace, cfg: Any) -> None:
     """The reference launcher's refusals for a transformer arch, each a
     ``SystemExit``."""
-    if cfg.enc_dec or cfg.frontend is not None:
-        raise SystemExit(
-            f"arch {cfg.name!r} ({cfg.family}) needs modality inputs "
-            f"(frames/patches) that the token-only serving path does not "
-            f"provide; serve a decoder-only arch or a vikin-* workload")
+    why = needs_modality_inputs(cfg)
+    if why is not None:
+        raise SystemExit(f"{why}; serve a decoder-only arch or a vikin-* "
+                         f"workload")
     if args.trace:
         raise SystemExit(
             f"--trace is vikin-only (runtime/loadgen replays on the "

@@ -369,15 +369,26 @@ def cross_attn_init(generator: Optional[torch.Generator], cfg: AttnConfig,
                      dtype)
 
 
+def cross_kv(params: Dict, memory: torch.Tensor, cfg: AttnConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The keys and values (B, Sk, n_kv_heads, hd) of encoder states
+    memory (B, Sk, d)."""
+    B, Sk, _ = memory.shape
+    shape = (B, Sk, cfg.n_kv_heads, cfg.hd)
+    return (dense(params["wk"], memory).reshape(shape),
+            dense(params["wv"], memory).reshape(shape))
+
+
 def cross_attention(params: Dict, x: torch.Tensor, memory: torch.Tensor,
-                    cfg: AttnConfig) -> torch.Tensor:
-    """x: (B, Sq, d) queries; memory: (B, Sk, d) encoder states (no rope)."""
+                    cfg: AttnConfig, *,
+                    kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                    ) -> torch.Tensor:
+    """x: (B, Sq, d) queries; memory: (B, Sk, d) encoder states (no rope);
+    ``kv``: their ``cross_kv``, where the caller has them already."""
     B, Sq, _ = x.shape
-    Sk = memory.shape[1]
     hd = cfg.hd
     q = dense(params["wq"], x).reshape(B, Sq, cfg.n_heads, hd)
-    k = dense(params["wk"], memory).reshape(B, Sk, cfg.n_kv_heads, hd)
-    v = dense(params["wv"], memory).reshape(B, Sk, cfg.n_kv_heads, hd)
+    k, v = cross_kv(params, memory, cfg) if kv is None else kv
     qf = (q.to(torch.float32) / math.sqrt(hd)).reshape(
         B, Sq, cfg.n_kv_heads, cfg.q_groups, hd)
     s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.to(torch.float32))

@@ -5,7 +5,8 @@ Counterpart of ``repro/models/ffn.py``.  Every transformer block selects
 its feed-forward through ``FFNConfig.kind``: ``mlp``, ``swiglu`` and
 ``geglu`` are plain f32-accumulated products (``torch.matmul`` of the
 widened operands), optionally with a static m-of-4 mask over the hidden
-dimension; ``kan`` is two KAN layers through ``core/kan.kan_apply``;
+dimension; ``kan`` is two KAN layers (``KanPairFFN``: two
+``core/kan.KANLayer``s, one fused-KAN launch each on a CUDA tensor);
 ``kanffn`` (``kan_ffn_apply``, ``KanFFN``) is the paper's technique at
 LM scale: a KAN up-projection through the fused KAN kernel (stage-1
 basis mask) and a linear down-projection through the pattern-matmul
@@ -42,7 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.core.kan import KANConfig, KANLayer, kan_apply, kan_init
+from repro_torch.core.kan import KANConfig, KANLayer, kan_init
 from repro_torch.core.sparsity import (
     PatternMask,
     sparsity_to_pattern,
@@ -224,9 +225,7 @@ def ffn_apply(params: Dict, x: torch.Tensor, cfg: FFNConfig) -> torch.Tensor:
         h = g * dense(params["up"], x)
         return dense(params["down"], h)
     if cfg.kind == "kan":
-        up_cfg, down_cfg = cfg.kan_cfgs()
-        h = kan_apply(params["kan_up"], x, up_cfg)
-        return kan_apply(params["kan_down"], h, down_cfg)
+        return KanPairFFN(cfg, params)(x)
     if cfg.kind == "kanffn":
         return kan_ffn_apply(params, x, cfg)
     raise ValueError(cfg.kind)
@@ -362,6 +361,24 @@ class KanFFN(nn.Module):
             {"n_in": cfg.kanffn_hidden, "n_out": cfg.d_model,
              "mask": cfg.kanffn_hidden_mask(), "act": None},
             {"w": params["w"], "b": params["b"]})
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down(self.up(x))
+
+
+class KanPairFFN(nn.Module):
+    """A ``kind == "kan"`` FFN holding its two KAN layers (``kan_up``,
+    ``kan_down``) as ``KANLayer``s: kept bases compacted and weights fused
+    once, in the params' dtype (x's dtype in, x's dtype out).  The
+    functional ``ffn_apply`` builds one per call."""
+
+    def __init__(self, cfg: FFNConfig, params: Dict) -> None:
+        super().__init__()
+        if cfg.kind != "kan":
+            raise ValueError(f"KanPairFFN needs kind='kan', got {cfg.kind!r}")
+        up_cfg, down_cfg = cfg.kan_cfgs()
+        self.up = KANLayer(up_cfg, params["kan_up"])
+        self.down = KANLayer(down_cfg, params["kan_down"])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down(self.up(x))

@@ -1,11 +1,17 @@
-"""Decoder-only model assembly: init, forward, prefill and decode.
+"""Model assembly for every arch of the zoo: init, forward, loss,
+prefill and decode.
 
-Counterpart of ``repro/models/transformer.py`` for decoder-only archs:
-one ``ArchConfig`` drives init and every pass.  Block kinds: ``"attn"``
-(GQA + FFN or MoE), ``"rec"`` (RG-LRU + FFN, ``models/rglru``),
-``"mlstm"``/``"slstm"`` (xLSTM, self-contained, ``models/xlstm``);
-``cfg.pattern`` tiles them.  Params and caches are nested dicts and
-lists of tensors in the reference's layout, so
+Counterpart of ``repro/models/transformer.py``: one ``ArchConfig``
+drives init and every pass.  Block kinds: ``"attn"`` (GQA + FFN or
+MoE), ``"rec"`` (RG-LRU + FFN, ``models/rglru``), ``"mlstm"``/
+``"slstm"`` (xLSTM, self-contained, ``models/xlstm``); ``cfg.pattern``
+tiles them.  ``enc_dec`` adds a bidirectional encoder (``encode``) and
+cross-attention in every decoder block (whisper); ``prefix_lm`` with a
+vision frontend makes the prefix-VLM (paligemma).  Frontends are stubs,
+as in the reference: the caller gives precomputed frame or patch
+embeddings and the learnable ``frontend_proj`` maps them into the
+residual stream.  Params and caches are nested dicts and lists of
+tensors in the reference's layout, so
 ``convert.transformer_params_from_jax`` carries the reference's weights
 across leaf for leaf:
 
@@ -20,17 +26,22 @@ across leaf for leaf:
   * MoE layers (``"moe"`` FFNs) route through ``models/moe.moe_apply``
     and add its aux loss; with ``ffn_kind="kan"`` every expert is two
     fused-KAN launches on a CUDA tensor.
+  * ``ffn_kind="kan"`` (the reference's KAN drop-in) makes every FFN,
+    the encoder's too, two fused-KAN launches on a CUDA tensor.
+  * the encoder's layers are stacked under ``params["encoder"]["units"]``
+    whatever ``scan_layers`` says, and run with layer 0's FFN config, as
+    the reference's scan does.
 
-``ffns`` (``ffn_modules``, one entry per layer by absolute index) lets a
-server hold each KAN-FFN layer with its weights fused and compacted
+``ffns`` (``ffn_modules``, one entry per decoder layer by absolute
+index) and ``enc_ffns`` (``encoder_ffn_modules``, one per encoder layer)
+let a caller hold each KAN FFN with its weights fused and compacted
 once, and each KAN-expert MoE layer's experts fused once
-(``models/moe.KanExperts``); without it the functional forms rebuild
+(``models/moe.KanExperts``); without them the functional forms rebuild
 them per call.  Either gives the same bits.
 
-Not ported yet (``ROADMAP.md``, queue 1, item 2), each refused with
-``NotImplementedError``: the encoder-decoder path (``encode``,
-cross-attention blocks) and modality frontends.  ``lm_loss`` and
-``param_shapes`` wait for LM training (item 5).
+``prefill`` is causal over a prefix-LM's image tokens, as the
+reference's is (its ``block_prefill`` passes no ``prefix_len``);
+``forward`` attends to them bidirectionally.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
@@ -46,6 +58,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import xlstm as X
 from repro_torch.models.layers import (
+    dense,
     dense_init,
     embed,
     embed_init,
@@ -59,23 +72,8 @@ from repro_torch.models.layers import (
 from repro_torch.utils import leaf_paths, tree_map
 
 Params = Dict[str, Any]
-_WAITS = "is not ported yet (ROADMAP.md, queue 1, item 2)"
 BLOCK_KINDS = ("attn", "rec", "mlstm", "slstm")
 Ffns = Optional[Sequence[Optional[Any]]]
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for an arch that needs a part of the
-    reference the port does not have yet."""
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder path (encode, cross-attention "
-            f"blocks) {_WAITS}")
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend {_WAITS}")
-    for kind in cfg.pattern:
-        _check_block(kind)
 
 
 def _check_block(kind: str) -> None:
@@ -116,12 +114,19 @@ def _norm(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def block_init(generator: Optional[torch.Generator], cfg: ArchConfig,
-               kind: str, *, layer: int = 0) -> Params:
+               kind: str, *, cross: bool = False, causal: bool = True,
+               layer: int = 0) -> Params:
+    """One block's params; ``cross`` adds a decoder block's
+    cross-attention, ``causal=False`` makes an encoder block."""
     _check_block(kind)
     dtype = cfg.param_dtype
     if kind == "attn":
+        acfg = cfg.attn_cfg() if causal else cfg.enc_attn_cfg()
         p = {"attn_norm": _norm_init(cfg, dtype),
-             "attn": A.attn_init(generator, cfg.attn_cfg(), dtype)}
+             "attn": A.attn_init(generator, acfg, dtype)}
+        if cross:
+            p["cross_norm"] = _norm_init(cfg, dtype)
+            p["cross"] = A.cross_attn_init(generator, cfg.attn_cfg(), dtype)
         fk = cfg.layer_ffn_kind(layer)
         if fk == "moe":
             p["moe_norm"] = _norm_init(cfg, dtype)
@@ -170,15 +175,21 @@ def _no_aux(x: torch.Tensor) -> torch.Tensor:
 
 
 def block_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
-                layer: int = 0,
+                causal: bool = True, prefix_len: Optional[int] = None,
+                memory: Optional[torch.Tensor] = None, layer: int = 0,
                 taps: Optional[Dict[int, torch.Tensor]] = None,
                 ffn: Optional[Any] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence path (no cache).  Returns (x, aux_loss)."""
     _check_block(kind)
     if kind == "attn":
-        x = x + A.attention(p["attn"], _norm(cfg, p["attn_norm"], x),
-                            cfg.attn_cfg())
+        acfg = cfg.attn_cfg() if causal else cfg.enc_attn_cfg()
+        x = x + A.attention(p["attn"], _norm(cfg, p["attn_norm"], x), acfg,
+                            prefix_len=prefix_len)
+        if "cross" in p and memory is not None:
+            x = x + A.cross_attention(
+                p["cross"], _norm(cfg, p["cross_norm"], x), memory,
+                cfg.attn_cfg())
         return _apply_ffn_part(p, x, cfg, layer, taps, ffn)
     if kind == "rec":
         y, _ = R.rglru_apply(p["rec"], _norm(cfg, p["rec_norm"], x),
@@ -192,13 +203,21 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
 
 
 def block_init_cache(batch: int, max_len: int, cfg: ArchConfig, kind: str,
-                     device: torch.device | str = "cpu") -> Params:
+                     device: torch.device | str = "cpu", *,
+                     cross_len: int = 0) -> Params:
+    """A block's empty decode cache; ``cross_len`` adds zero cross-
+    attention keys and values (``ck``, ``cv``) of that many frames."""
     _check_block(kind)
     dtype = cfg.param_dtype
     if kind == "attn":
         acfg = cfg.attn_cfg()
         size = min(max_len, acfg.window) if acfg.window else max_len
-        return A.init_cache(batch, size, acfg, dtype, device)
+        c = A.init_cache(batch, size, acfg, dtype, device)
+        if cross_len:
+            shape = (batch, cross_len, acfg.n_kv_heads, acfg.hd)
+            c["ck"] = torch.zeros(shape, dtype=dtype, device=device)
+            c["cv"] = torch.zeros(shape, dtype=dtype, device=device)
+        return c
     if kind == "rec":
         return R.rglru_init_state(batch, cfg.rglru_cfg(), dtype, device)
     if kind == "mlstm":
@@ -207,10 +226,13 @@ def block_init_cache(batch: int, max_len: int, cfg: ArchConfig, kind: str,
 
 
 def block_prefill(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str,
-                  max_len: int, *, layer: int = 0,
-                  ffn: Optional[Any] = None
+                  max_len: int, *, memory: Optional[torch.Tensor] = None,
+                  layer: int = 0, ffn: Optional[Any] = None
                   ) -> Tuple[torch.Tensor, Params]:
-    """Full-sequence pass that also returns the decode cache."""
+    """Full-sequence pass that also returns the decode cache.  Causal
+    over every position, a prefix-LM's prefix too (the reference's
+    ``block_prefill`` passes no ``prefix_len``); with ``memory`` the
+    cache also holds the cross-attention keys and values of it."""
     _check_block(kind)
     if kind == "attn":
         acfg = cfg.attn_cfg()
@@ -219,7 +241,15 @@ def block_prefill(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str,
         # prefill_cache handles the ring layout when S > window
         y, cache = A.prefill_cache(p["attn"], xn, acfg, size,
                                    dtype=cfg.param_dtype)
-        x, _ = _apply_ffn_part(p, x + y, cfg, layer, ffn=ffn)
+        x = x + y
+        if "cross" in p and memory is not None:
+            # the memory's keys and values, once: attended now and cached
+            kv = A.cross_kv(p["cross"], memory, acfg)
+            cache["ck"], cache["cv"] = kv
+            x = x + A.cross_attention(
+                p["cross"], _norm(cfg, p["cross_norm"], x), memory, acfg,
+                kv=kv)
+        x, _ = _apply_ffn_part(p, x, cfg, layer, ffn=ffn)
         return x, cache
     if kind == "rec":
         y, st = R.rglru_apply(p["rec"], _norm(cfg, p["rec_norm"], x),
@@ -231,17 +261,40 @@ def block_prefill(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str,
     return X.slstm_apply(p["slstm"], x, cfg.xlstm_cfg())
 
 
+def _cross_decode(p: Params, x1: torch.Tensor, cache: Params,
+                  acfg: A.AttnConfig) -> torch.Tensor:
+    """One token's cross-attention over every cached frame: f32 softmax,
+    no mask, no RoPE."""
+    B = x1.shape[0]
+    hd = acfg.hd
+    q = dense(p["wq"], x1).reshape(B, acfg.n_kv_heads, acfg.q_groups, hd)
+    qf = q.to(torch.float32) / math.sqrt(hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qf, cache["ck"].to(torch.float32))
+    pr = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskh->bkgh", pr, cache["cv"].to(torch.float32))
+    o = o.reshape(B, 1, acfg.n_heads * hd).to(x1.dtype)
+    return dense(p["wo"], o)
+
+
 def block_decode(p: Params, x1: torch.Tensor, cfg: ArchConfig, kind: str,
                  cache: Params, *, layer: int = 0,
                  ffn: Optional[Any] = None
                  ) -> Tuple[torch.Tensor, Params]:
-    """One-token step.  Returns (x1, new_cache)."""
+    """One-token step.  Returns (x1, new_cache); ``ck``/``cv`` ride
+    through unchanged."""
     _check_block(kind)
     if kind == "attn":
-        y, cache = A.decode_step(p["attn"], _norm(cfg, p["attn_norm"], x1),
-                                 cfg.attn_cfg(), cache)
-        x1, _ = _apply_ffn_part(p, x1 + y, cfg, layer, ffn=ffn)
-        return x1, cache
+        acfg = cfg.attn_cfg()
+        # decode_step reads and returns the self-attention entries only
+        y, sub = A.decode_step(p["attn"], _norm(cfg, p["attn_norm"], x1),
+                               acfg, cache)
+        x1 = x1 + y
+        new_cache = {**cache, **sub}
+        if "cross" in p and "ck" in cache:
+            x1 = x1 + _cross_decode(
+                p["cross"], _norm(cfg, p["cross_norm"], x1), cache, acfg)
+        x1, _ = _apply_ffn_part(p, x1, cfg, layer, ffn=ffn)
+        return x1, new_cache
     if kind == "rec":
         y, st = R.rglru_decode_step(
             p["rec"], _norm(cfg, p["rec_norm"], x1), cfg.rglru_cfg(), cache)
@@ -278,12 +331,12 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     a generator on the card draws there, which a full-width MoE needs):
     the reference's shapes and distributions (``jax.random``'s draws
     cannot be reproduced)."""
-    check_supported(cfg)
     dtype = cfg.param_dtype
+    cross = cfg.enc_dec
     p: Params = {"embed": embed_init(generator, cfg.vocab_size, cfg.d_model,
                                      dtype)}
     n_units, rem = _unit_counts(cfg)
-    units = [{f"slot{i}": block_init(generator, cfg, kind)
+    units = [{f"slot{i}": block_init(generator, cfg, kind, cross=cross)
               for i, kind in enumerate(cfg.pattern)}
              for _ in range(n_units)]
     if units:
@@ -291,18 +344,37 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
         del units
     off = n_units * len(cfg.pattern)
     p["extra"] = [block_init(generator, cfg, _block_kind(cfg, off + i),
-                             layer=off + i) for i in range(rem)]
+                             cross=cross, layer=off + i)
+                  for i in range(rem)]
     p["final_norm"] = _norm_init(cfg, dtype)
     if not cfg.tied_embeddings:
         p["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab_size,
                                   dtype=dtype)
+    if cfg.enc_dec:
+        p["encoder"] = {
+            "units": _stack([block_init(generator, cfg, "attn", causal=False)
+                             for _ in range(cfg.n_enc_layers)]),
+            "final_norm": _norm_init(cfg, dtype),
+        }
+    if cfg.frontend is not None:
+        p["frontend_proj"] = dense_init(generator, cfg.d_model, cfg.d_model,
+                                        dtype=dtype)
     return tree_map(lambda a: a.to(device), p)
+
+
+def param_shapes(cfg: ArchConfig) -> Params:
+    """The params' tree as tensors on the meta device, shapes and dtypes
+    only: nothing is allocated or drawn (a 235 B-param arch too)."""
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fake = init_params(cfg)
+    return tree_map(lambda a: torch.empty(a.shape, dtype=a.dtype,
+                                          device="meta"), fake)
 
 
 def _layers(params: Params, cfg: ArchConfig
             ) -> List[Tuple[int, str, Params, Optional[int]]]:
     """(absolute layer, block kind, block params, unit or None) of every
-    layer in order: the stacked units' slots, then ``"extra"``."""
+    decoder layer in order: the stacked units' slots, then ``"extra"``."""
     out = []
     n_units, _ = _unit_counts(cfg)
     u_len = len(cfg.pattern)
@@ -317,20 +389,44 @@ def _layers(params: Params, cfg: ArchConfig
     return out
 
 
+def _encoder_layers(params: Params) -> List[Params]:
+    units = params["encoder"]["units"]
+    return [_take(units, i) for i in range(_n_stacked(units))]
+
+
+def _held_ffn(fcfg: F.FFNConfig, p: Params) -> Optional[Any]:
+    if fcfg.kind == "kanffn":
+        return F.KanFFN(fcfg, p)
+    if fcfg.kind == "kan":
+        return F.KanPairFFN(fcfg, p)
+    return None
+
+
 def ffn_modules(params: Params, cfg: ArchConfig) -> List[Optional[Any]]:
-    """One entry per layer, by absolute index: a ``models/ffn.KanFFN``
-    (weights fused and compacted once) for a ``"kan"`` FFN, a
-    ``models/moe.KanExperts`` (every expert's weights fused once) for a
-    MoE layer of KAN experts, else None."""
+    """One entry per decoder layer, by absolute index: a ``models/ffn.
+    KanFFN`` (weights fused and compacted once) for a ``"kanffn"`` FFN,
+    a ``models/ffn.KanPairFFN`` (both KAN layers fused once) for a
+    ``"kan"`` FFN, a ``models/moe.KanExperts`` (every expert's weights
+    fused once) for a MoE layer of KAN experts, else None."""
     mods: List[Optional[Any]] = []
-    for layer, _, bp, _ in _layers(params, cfg):
+    for layer, _, bp, unit in _layers(params, cfg):
         if "moe" in bp and cfg.moe_cfg().ffn_kind == "kan":
             mods.append(M.KanExperts(cfg.moe_cfg(), bp["moe"]["experts"]))
-        elif "ffn" in bp and cfg.layer_ffn_kind(layer) == "kan":
-            mods.append(F.KanFFN(cfg.ffn_cfg(layer), bp["ffn"]))
+        elif "ffn" in bp:
+            # stacked units run with layer 0's FFN config
+            mods.append(_held_ffn(cfg.ffn_cfg(layer if unit is None else 0),
+                                  bp["ffn"]))
         else:
             mods.append(None)
     return mods
+
+
+def encoder_ffn_modules(params: Params,
+                        cfg: ArchConfig) -> List[Optional[Any]]:
+    """``ffn_modules`` of the encoder's layers, one entry per layer (all
+    with layer 0's FFN config, as ``encode`` runs them)."""
+    return [_held_ffn(cfg.ffn_cfg(0), bp["ffn"]) if "ffn" in bp else None
+            for bp in _encoder_layers(params)]
 
 
 # ---------------------------------------------------------------------------
@@ -350,19 +446,55 @@ def _ffn_of(ffns: Ffns, layer: int) -> Optional[Any]:
     return None if ffns is None else ffns[layer]
 
 
-def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
-            ffn_taps: Optional[Dict[int, torch.Tensor]] = None,
-            ffns: Ffns = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (final hidden (B, S, d), aux_loss).  ``ffn_taps`` collects
-    each ``"extra"`` layer's normed FFN input by absolute layer index."""
-    check_supported(cfg)
+def encode(params: Params, cfg: ArchConfig, frames: torch.Tensor, *,
+           ffns: Ffns = None) -> torch.Tensor:
+    """The encoder over stub frames (B, T_audio, d): ``frontend_proj``,
+    bidirectional blocks, the final norm.  ``ffns``: one per encoder
+    layer (``encoder_ffn_modules``)."""
+    x = dense(params["frontend_proj"], frames)
+    for i, bp in enumerate(_encoder_layers(params)):
+        x, _ = block_apply(bp, x, cfg, "attn", causal=False,
+                           ffn=_ffn_of(ffns, i))
+    return _norm(cfg, params["encoder"]["final_norm"], x)
+
+
+def _front(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+           frames: Optional[torch.Tensor], patches: Optional[torch.Tensor],
+           enc_ffns: Ffns
+           ) -> Tuple[torch.Tensor, Optional[int], Optional[torch.Tensor]]:
+    """(the decoder's input: patches through ``frontend_proj`` before the
+    embedded text, prefix length under ``prefix_lm``, encoder memory)."""
     x = _embed_in(params, cfg, tokens)
+    prefix_len = None
+    if patches is not None:
+        img = dense(params["frontend_proj"], patches).to(x.dtype)
+        x = torch.cat([img, x], dim=1)
+        if cfg.prefix_lm:
+            prefix_len = patches.shape[1]
+    memory = (encode(params, cfg, frames, ffns=enc_ffns)
+              if frames is not None else None)
+    return x, prefix_len, memory
+
+
+def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
+            frames: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None,
+            ffn_taps: Optional[Dict[int, torch.Tensor]] = None,
+            ffns: Ffns = None, enc_ffns: Ffns = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (final hidden (B, S_total, d), aux_loss): ``frames`` (B,
+    T_audio, d) feed the encoder, ``patches`` (B, n_img, d) come before
+    the text.  ``ffn_taps`` collects each ``"extra"`` layer's normed FFN
+    input by absolute layer index."""
+    x, prefix_len, memory = _front(params, cfg, tokens, frames, patches,
+                                   enc_ffns)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, kind, bp, unit in _layers(params, cfg):
         # stacked units run as the reference's scan body: layer 0's FFN
         # config, no taps
         extra = unit is None
-        x, a = block_apply(bp, x, cfg, kind, layer=layer if extra else 0,
+        x, a = block_apply(bp, x, cfg, kind, prefix_len=prefix_len,
+                           memory=memory, layer=layer if extra else 0,
                            taps=ffn_taps if extra else None,
                            ffn=_ffn_of(ffns, layer))
         aux = aux + a
@@ -375,24 +507,57 @@ def _logits(params: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     return f32_matmul(h, params["lm_head"]["kernel"])
 
 
+def lm_loss(params: Params, cfg: ArchConfig, hidden: torch.Tensor,
+            labels: torch.Tensor, mask: Optional[torch.Tensor] = None,
+            z_loss: float = 1e-4) -> torch.Tensor:
+    """Stable cross-entropy (plus ``z_loss`` times the squared log-
+    partition) over ``cfg.loss_chunks`` chunks of the positions, never
+    the whole (B, S, V) logits at once; ``hidden`` (B, S, d) aligned with
+    ``labels`` (B, S), the mean over ``mask``'s positions."""
+    B, S, _ = hidden.shape
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
+    n_chunks = max(1, min(cfg.loss_chunks, S))
+    if S % n_chunks:
+        raise ValueError(f"lm_loss: {S} positions do not split into "
+                         f"{n_chunks} chunks")
+    L = S // n_chunks
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    for c in range(n_chunks):
+        sl = slice(c * L, (c + 1) * L)
+        lg = _logits(params, cfg, hidden[:, sl]).to(torch.float32)
+        m = mask[:, sl]
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, labels[:, sl, None].long())[..., 0]
+        out = torch.sum((lse - gold) * m)
+        if z_loss:
+            out = out + z_loss * torch.sum(torch.square(lse) * m)
+        total = total + out
+    return total / denom
+
+
 # ---------------------------------------------------------------------------
 # Serving: prefill + decode
 # ---------------------------------------------------------------------------
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 device: torch.device | str = "cpu") -> Params:
-    check_supported(cfg)
+    """Empty decode caches; an ``enc_dec`` arch's attention blocks also
+    hold zero cross-attention keys and values of its frames."""
     n_units, rem = _unit_counts(cfg)
+    cross_len = cfg.n_frontend_tokens if cfg.enc_dec else 0
     caches: Params = {}
     if n_units:
         caches["units"] = _stack([
-            {f"slot{i}": block_init_cache(batch, max_len, cfg, kind, device)
+            {f"slot{i}": block_init_cache(batch, max_len, cfg, kind, device,
+                                          cross_len=cross_len)
              for i, kind in enumerate(cfg.pattern)}
             for _ in range(n_units)])
     off = n_units * len(cfg.pattern)
     caches["extra"] = [
         block_init_cache(batch, max_len, cfg, _block_kind(cfg, off + i),
-                         device) for i in range(rem)]
+                         device, cross_len=cross_len) for i in range(rem)]
     return caches
 
 
@@ -414,18 +579,20 @@ def _regroup(cfg: ArchConfig, layers: list, new: List[Params]) -> Params:
 
 
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
-            max_len: Optional[int] = None, ffns: Ffns = None
-            ) -> Tuple[torch.Tensor, Params]:
-    """Full forward + cache build.  Returns (last-position logits, caches)."""
-    check_supported(cfg)
-    x = _embed_in(params, cfg, tokens)
+            frames: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None,
+            max_len: Optional[int] = None, ffns: Ffns = None,
+            enc_ffns: Ffns = None) -> Tuple[torch.Tensor, Params]:
+    """Full forward + cache build.  Returns (last-position logits, caches).
+    Causal over a prefix-LM's patches too, as the reference's prefill."""
+    x, _, memory = _front(params, cfg, tokens, frames, patches, enc_ffns)
     total = x.shape[1]
-    # the cache covers the prompt + margin
+    # the cache covers the full prefix (modality tokens too) + margin
     max_len = max(max_len or 0, total + cfg.decode_margin)
     layers = _layers(params, cfg)
     new = []
     for layer, kind, bp, unit in layers:
-        x, c = block_prefill(bp, x, cfg, kind, max_len,
+        x, c = block_prefill(bp, x, cfg, kind, max_len, memory=memory,
                              layer=layer if unit is None else 0,
                              ffn=_ffn_of(ffns, layer))
         new.append(c)
@@ -438,7 +605,6 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Params]:
     """One token for the whole stack.  Returns (logits (B,1,V), caches);
     the input caches are left as they were."""
-    check_supported(cfg)
     x = _embed_in(params, cfg, token)
     layers = _layers(params, cfg)
     n_units, _ = _unit_counts(cfg)

@@ -213,6 +213,16 @@ def splice_cache(caches: Any, cache: Any, slot: int) -> Any:
     return out
 
 
+def needs_modality_inputs(cfg: Any) -> Optional[str]:
+    """Why token-only serving refuses ``cfg`` (an encoder-decoder or a
+    frontend arch), in the reference launcher's words, or None."""
+    if cfg.enc_dec or cfg.frontend is not None:
+        return (f"arch {cfg.name!r} ({cfg.family}) needs modality inputs "
+                f"(frames/patches) that the token-only serving path does "
+                f"not provide")
+    return None
+
+
 class TransformerBackend(ModelBackend):
     """Slot-cache greedy decode for decoder-only ``ArchConfig`` stacks.
 
@@ -229,7 +239,10 @@ class TransformerBackend(ModelBackend):
     built once (``models/ffn.KanFFN``: fused up weights, compacted down
     weights), and each MoE layer of KAN experts (``models/moe.
     KanExperts``: every expert's fused weights).  The encoder-decoder
-    and frontend archs are refused (``NotImplementedError``).  The
+    and frontend archs are refused (``NotImplementedError``), as the
+    reference launcher refuses them: they need modality inputs
+    (frames, patches) that token-only serving does not carry
+    (``launch/steps`` serves them).  The
     reference's ``impl=`` has no counterpart: the device picks kernels
     or plain versions.
 
@@ -254,7 +267,9 @@ class TransformerBackend(ModelBackend):
             cfg = dataclasses.replace(cfg, ffn_masks=tuple(masks))
         if precision == "bf16" and cfg.dtype != "bfloat16":
             cfg = dataclasses.replace(cfg, dtype="bfloat16")
-        T.check_supported(cfg)
+        why = needs_modality_inputs(cfg)
+        if why is not None:
+            raise NotImplementedError(why)
         self.device = resolve_device(device)
 
         def place(a: torch.Tensor) -> torch.Tensor:

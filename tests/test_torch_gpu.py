@@ -1586,3 +1586,54 @@ def test_kan_experts_on_card(cuda, dtype, C):
                                               ex.kb).float(), tol)
         assert torch.equal(y[e], kan_fused_v2(mid, ex.wt_down[e], ex.spec,
                                               ex.kb, ex.slot_of))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["whisper-medium", "paligemma-3b"])
+def test_kan_drop_in_serve_steps_on_card(cuda, name, dtype):
+    """The reference's KAN drop-in (``ffn_kind="kan"``), reduced, through
+    ``launch/steps`` on the card: two fused-KAN launches an FFN (whisper's
+    encoder too) a prefill and a decode step, and the card's logits
+    within the launches in series of the CPU's (each one launch's
+    tolerance: 1e-5 at f32, a bf16 ulp, of 1 + max|cpu|)."""
+    from repro_torch.configs.registry import ARCHS as ZOO
+    from repro_torch.launch import steps as TS
+    from repro_torch.utils import tree_map
+
+    dt = getattr(torch, dtype)
+    cfg = dataclasses.replace(ZOO[name].reduce(), ffn_kind="kan",
+                              pattern_rate=0.5, dtype=dtype)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0))
+    on_card = tree_map(lambda a: a.to(cuda), params)
+    stub = (0.1 * torch.randn((2, cfg.n_frontend_tokens, cfg.d_model),
+                              generator=torch.Generator().manual_seed(1)))
+    kw = {"frames" if cfg.enc_dec else "patches": stub.to(dt)}
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 6)).astype(np.int32))
+    n_enc = cfg.n_enc_layers if cfg.enc_dec else 0
+    in_series = 2 * (cfg.n_layers + n_enc)
+    tol = in_series * (BF16_ULP if dt == BF else TOL)
+    ffns = TT.ffn_modules(on_card, cfg)
+    enc = TT.encoder_ffn_modules(on_card, cfg) if cfg.enc_dec else None
+    kname = "kan_fused_v2" + ("_bf16" if dt == BF else "")
+    before = dict(_build.LAUNCHES)
+    tok, caches = TS.make_prefill_step(cfg, ffns=ffns, enc_ffns=enc)(
+        on_card, {"tokens": toks.to(cuda),
+                  **{k: v.to(cuda) for k, v in kw.items()}})
+    dec = TS.make_decode_step(cfg, ffns=ffns)
+    for _ in range(2):
+        tok, caches = dec(on_card, {"token": tok, "caches": caches})
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    want = 2 * (cfg.n_layers + n_enc) + 2 * 2 * cfg.n_layers
+    assert launched == {k: want * int(k == kname) for k in launched}
+    with torch.no_grad():
+        lc, cc = TT.prefill(params, cfg, toks, **kw)
+        lg, cg = TT.prefill(on_card, cfg, toks.to(cuda), ffns=ffns,
+                            enc_ffns=enc,
+                            **{k: v.to(cuda) for k, v in kw.items()})
+        _close(lg.float().cpu(), lc.float(), tol)
+        step = TT.greedy_token(lc)
+        lc, _ = TT.decode_step(params, cfg, step, cc)
+        lg, _ = TT.decode_step(on_card, cfg, step.to(cuda), cg, ffns=ffns)
+        _close(lg.float().cpu(), lc.float(), tol)

@@ -240,6 +240,24 @@ def test_cross_attention():
         None, dataclasses.replace(tc, qk_norm=True))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_attention_over_given_keys_and_values(dtype):
+    """A prefill caches ``cross_kv`` and attends over the same tensors:
+    the same bits as projecting the memory inside ``cross_attention``."""
+    tc = TA.AttnConfig(**ATTN_CASES["gqa"])
+    dt = getattr(torch, dtype)
+    p = {k: {n: a.to(dt) for n, a in v.items()} for k, v in
+         TA.cross_attn_init(torch.Generator().manual_seed(4), tc).items()}
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((2, 5, 32), generator=g).to(dt)
+    mem = torch.randn((2, 7, 32), generator=g).to(dt)
+    k, v = TA.cross_kv(p, mem, tc)
+    assert k.shape == v.shape == (2, 7, tc.n_kv_heads, tc.hd)
+    assert k.dtype == v.dtype == dt
+    assert torch.equal(TA.cross_attention(p, x, mem, tc, kv=(k, v)),
+                       TA.cross_attention(p, x, mem, tc))
+
+
 # ---------------------------------------------------------- whole models
 MODEL_ARCHS = ["qwen2-0.5b", "qwen1.5-0.5b", "mistral-nemo-12b",
                "granite-20b", "kanffn-ci", "qwen2-0.5b-kanffn"]
@@ -433,14 +451,3 @@ def test_arch_config_errors_equal_the_reference(case):
         tbase.ArchConfig(**kw)
     assert str(et.value) == str(ej.value)
     assert issubclass(tbase.ArchConfigError, ValueError)
-
-
-@pytest.mark.parametrize("name,what", [
-    ("whisper-medium", "encoder-decoder"), ("paligemma-3b", "frontend")])
-def test_families_that_wait_are_refused(name, what):
-    cfg = treg.ARCHS[name].reduce()
-    with pytest.raises(NotImplementedError, match=what) as e:
-        TT.init_params(cfg)
-    assert "ROADMAP.md" in str(e.value)
-    with pytest.raises(NotImplementedError):
-        TT.init_caches(cfg, 2, 8)
