@@ -227,6 +227,20 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    kernels and peak device memory; (e) the four ``reduce()``d configs,
    the card against the CPU within ``CPU_TOL``; (f) the launcher and
    ``TransformerBackend`` refuse both with the reference's reason.
+13. LM training (``lm_train_phase``): qwen2-0.5b with the reference's
+   KAN drop-in (896 -> 608 -> 896, kept bases 0, 2, 4, 5, 6) at full
+   width, ``SyntheticLM`` batches of 8 x 128 tokens: (a) each KAN layer
+   at M = 1024, bf16 and f32: the forward and dx, d wt through the
+   kernels against the plain versions on the card, the launches, the
+   fused-KAN and spline-basis times and bounds at these shapes; (b)
+   ``Trainer`` at bf16, full depth, 8 steps: first loss near ln(vocab),
+   finite losses, 48 ``kan_fused_v2_bf16`` and 48 ``spline_basis_bf16``
+   launches a step and no other kernel, host and device ms a step, idle
+   share, peak memory; (c) at 4 layers, a run killed at step 3 and
+   restarted from its checkpoint bitwise equal to a clean run; (d) the
+   f32 twin, 2 steps, loss and every gradient leaf against the plain
+   versions on the same params; (e) the train launcher at full scale, 4
+   steps, as a subprocess.
 
 No served path launches the spline-basis or v1 kernels, so their
 ``launches`` in the record are those of phases 6 and 5.  The served rows
@@ -235,8 +249,9 @@ every row ``launches_train``, its launches in phase 8 (b)'s first
 run of each arch, ``launches_paper``, its launches in phase 9's
 runs of the paper scripts (Table I, the Fig. 8 sweep, Table II), and
 ``launches_kanffn``, its launches in phase 10 (b)'s three served runs,
-``launches_moe``, its launches in phase 11 (a) and (b), and
-``launches_encdec``, its launches in phase 12 (a)-(c).
+``launches_moe``, its launches in phase 11 (a) and (b),
+``launches_encdec``, its launches in phase 12 (a)-(c), and
+``launches_lm_train``, its launches in phase 13 (a)-(d).
 
 It prints the ``{"kernels": [...]}`` record, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It imports nothing
@@ -259,6 +274,11 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.utils.deterministic as torch_det
+
+# torch reads cuBLAS's workspace setting once, at its first product under
+# deterministic algorithms (phase 9), and refuses one in phase 13's train
+# steps unless it is one of cuBLAS's deterministic settings
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -343,6 +363,25 @@ ED_TF_LAUNCHES = {"whisper-medium": 2 * 24 + 2 * 24, "paligemma-3b": 2 * 18}
 ED_TF_TOL = {name: {torch.float32: n * KERNEL_TOL,
                     torch.bfloat16: n * BF16_ULP}
              for name, n in ED_TF_LAUNCHES.items()}
+# phase 13: LM training of qwen2-0.5b with the KAN drop-in at full width
+# (896 -> 608 -> 896, kept bases 0, 2, 4, 5, 6), batches of LM_BATCH x
+# LM_SEQ tokens.  A bf16 layer's gradient through the kernels against the
+# same backward with the plain spline basis: the bases are bitwise the
+# plain version's, so one ulp is margin.  The f32 twin: the kernel path's
+# loss and gradients against the plain path's on the same params (the
+# closed-form spline derivative against autograd of the recursion, and
+# sums in other orders along 24 layers).  The restart runs at
+# LM_RESTART_DEPTH layers (each checkpoint of the full state is 3.9 GB).
+LM_ARCH = "qwen2-0.5b"
+LM_SEQ, LM_BATCH, LM_STEPS = 128, 8, 8
+LM_KB = (0, 2, 4, 5, 6)
+LM_HIDDEN = 608
+LM_LAYER_GRAD_ULPS = 1
+LM_FIRST_LOSS_TOL = 0.5
+LM_RESTART_DEPTH = 4
+LM_F32_STEPS = 2
+LM_LOSS_RTOL = 1e-5
+LM_GRAD_TOL = 1e-4
 DECODE_TOL = 2e-3             # the reference's decode-vs-forward tolerance
 CPU_TOL = 1e-4                # the port on the card against it on the CPU
 ARCHS = ("vikin-kan2", "vikin-mlp3", "vikin-mixed")
@@ -2060,6 +2099,419 @@ def encdec_vlm_phase(dev: torch.device, card: str) -> dict:
             "kan_served": kan_served, "checks": checks, "timing": timing,
             "reduced_vs_cpu": reduced, "refusals": refusals,
             "steps_cli": steps_cli}
+
+def lm_train_phase(dev: torch.device, card: str) -> dict:
+    """Phase 13: LM training of ``qwen2-0.5b`` with the reference's KAN
+    drop-in (``ffn_kind="kan"``, ``pattern_rate=0.5``: every FFN 896 ->
+    608 -> 896 through two fused-KAN launches, kept bases (0, 2, 4, 5,
+    6)) at full width, ``SyntheticLM`` batches of ``LM_BATCH`` x
+    ``LM_SEQ`` tokens (M = 1024 rows a KAN layer).
+
+    (a) each KAN layer of the step at M = 1024 (896 -> 608 and 608 ->
+    896), bf16 and f32: the forward against its plain version (one bf16
+    ulp; f32 ``KERNEL_TOL``), dx and d wt through the kernels against
+    the same gradient from the plain versions on the card (bf16: the
+    same backward with the plain spline basis, ``LM_LAYER_GRAD_ULPS``;
+    f32: autograd through the plain version, ``KERNEL_TOL``), the
+    launches of one forward and backward; the fused-KAN forward's and
+    the spline basis's times and bounds at these shapes;
+    (b) ``Trainer`` at bf16, full width and depth, ``LM_STEPS`` steps:
+    the first loss near ln(vocab), every loss finite, the launches a
+    step by kernel (``kan_fused_v2_bf16`` and ``spline_basis_bf16``, 48
+    each, no other kernel of the port), host ms a step, device ms from
+    the profiler, idle share, peak device memory;
+    (c) the same at ``LM_RESTART_DEPTH`` layers, a clean run and one with
+    ``failure_at=3``, ``ckpt_every=2``, ``keep=1`` through
+    ``run_with_restarts``: the final state (params, moments, step) of
+    the two bitwise equal; the time outside the steps (host copies,
+    writes, the restore);
+    (d) the f32 twin at full width and depth, ``LM_F32_STEPS`` steps
+    along the kernel path: at each, the loss and every gradient leaf
+    against the same step with every KAN FFN through the plain versions
+    (autograd through them) on the same params, within ``LM_LOSS_RTOL``
+    and ``LM_GRAD_TOL`` of ``1 + max|plain|``;
+    (e) ``python -m repro_torch.launch.train --arch qwen2-0.5b --scale
+    full --ffn kan --pattern 0.5 --steps 4 --seq 128 --batch 8``, as a
+    subprocess, prints ``final step 4``.
+    Returns what it measured; raises on any fault."""
+    import math
+    import shutil
+    from unittest import mock
+
+    from repro_torch.benchmarks.kernel_ab import graph_ms, time_ms
+    from repro_torch.configs.registry import ARCHS as ZOO
+    from repro_torch.core.splines import locate_cell, spu_op_count
+    from repro_torch.data.lm import LMDataConfig, SyntheticLM
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.kan_fused import ops as KO
+    from repro_torch.kernels.kan_fused.ref import kan_fused_v2_ref
+    from repro_torch.kernels.spline_basis.ops import spline_basis
+    from repro_torch.kernels.spline_basis.ref import spline_basis_plain
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import ffn as FF
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim import adamw_update
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.utils import leaf_paths, tree_map
+
+    t_phase = time.perf_counter()
+    kan = {"ffn_kind": "kan", "pattern_rate": 0.5}
+    cfg = dataclasses.replace(ZOO[LM_ARCH], **kan)
+    M = LM_BATCH * LM_SEQ
+    launches_lm: dict = {}
+
+    def gen(seed: int) -> torch.Generator:
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def free() -> None:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def launched() -> dict:
+        return {k: v for k, v in _build.LAUNCHES.items() if v}
+
+    # (a) each KAN layer of the step at M rows
+    fcfg = cfg.ffn_cfg(0)
+    up_cfg, down_cfg = fcfg.kan_cfgs()
+    check(up_cfg.kb == LM_KB and down_cfg.kb == LM_KB
+          and (up_cfg.n_in, up_cfg.n_out) == (cfg.d_model, LM_HIDDEN),
+          f"(phase 13) the KAN drop-in's layers: {up_cfg}, {down_cfg}")
+    p_f = FF.ffn_init(gen(60), fcfg, F32)
+    spec = up_cfg.spec
+    nbk = len(LM_KB)
+
+    def plain_basis(x, spec, **_):
+        return spline_basis_plain(x.reshape(-1), spec).reshape(
+            *x.shape, spec.n_bases)
+
+    kernel_rows, layer_err = [], {}
+    for what, lcfg, lp in (("up", up_cfg, p_f["kan_up"]),
+                           ("down", down_cfg, p_f["kan_down"])):
+        n_in, n_out = lcfg.n_in, lcfg.n_out
+        wt_f = KO.fuse_wt(lp["w_b"], KO.flatten_t(lp["t"], LM_KB), nbk)
+        x_f = torch.randn((M, n_in), generator=gen(61), device=dev)
+        g_f = torch.randn((M, n_out), generator=gen(62), device=dev)
+        for dt in (BF, F32):
+            prec = "bf16" if dt == BF else "f32"
+            label = f"{what} {n_in}->{n_out} {prec}"
+            x, wt, g = x_f.to(dt), wt_f.to(dt).contiguous(), g_f.to(dt)
+            xk = x.clone().requires_grad_(True)
+            wk = wt.clone().requires_grad_(True)
+            _build.reset_launches()
+            y = KO.kan_fused_v2(xk, wk, spec, LM_KB)
+            y.backward(g)
+            torch.cuda.synchronize()
+            sfx = SUFFIX[dt]
+            want = {"kan_fused_v2" + sfx: 1,
+                    "spline_basis" + sfx: 1 if dt == BF else 2}
+            check(launched() == want, f"(a) {label}: launches "
+                  f"{launched()}, want {want}")
+            with torch.no_grad():
+                ref = kan_fused_v2_ref(x, wt, spec, LM_KB)
+            fwd_tol = BF16_ULP if dt == BF else KERNEL_TOL
+            err_y, scale_y, nan = rel_err(y.detach(), ref)
+            check(not nan and err_y <= fwd_tol * scale_y,
+                  f"(a) {label}: forward {err_y:.3e} from its plain "
+                  f"version, vs {fwd_tol:g} * {scale_y:.4g}")
+            if dt == BF:
+                with mock.patch.object(KO, "spline_basis", plain_basis):
+                    dx_p, dwt_p = KO._bf16_grads(x, wt, g, spec, LM_KB,
+                                                 True, True)
+                grad_tol = LM_LAYER_GRAD_ULPS * BF16_ULP
+            else:
+                xp = x.clone().requires_grad_(True)
+                wp = wt.clone().requires_grad_(True)
+                kan_fused_v2_ref(xp, wp, spec, LM_KB).backward(g)
+                dx_p, dwt_p = xp.grad, wp.grad
+                grad_tol = KERNEL_TOL
+            errs = {"y": err_y / scale_y}
+            for name, got, want_g in (("dx", xk.grad, dx_p),
+                                      ("dwt", wk.grad, dwt_p)):
+                check(got.dtype == dt, f"(a) {label}: {name} is {got.dtype}")
+                err, scale, nan = rel_err(got, want_g)
+                check(not nan and err <= grad_tol * scale,
+                      f"(a) {label}: {name} {err:.3e} from the plain "
+                      f"versions' gradient, vs {grad_tol:g} * {scale:.4g}")
+                errs[name] = err / scale
+            layer_err[label] = errs
+            for k, v in launched().items():
+                launches_lm[k] = launches_lm.get(k, 0) + v
+            # times and bounds: the fused-KAN forward at these rows, and
+            # the spline basis on the layer's clipped inputs (order K)
+            cell = locate_cell(spec.clip(x), spec)[0].long()
+            kept = torch.tensor(
+                [len(set(range(c, c + spec.n_active)) & set(LM_KB))
+                 for c in range(spec.grid_size)], device=dev)
+            hits = int(kept[cell].sum())
+            esz = 2.0 if dt == BF else 4.0
+            mac_rate = BF16_FLOPS_PER_S if dt == BF else F32_FLOPS_PER_S
+            slot_of = KO.slot_table(LM_KB, spec.n_bases, dev)
+            n_bytes = esz * (x.numel() + wt.numel() + M * n_out) + 4.0 * (
+                slot_of.numel())
+            work = [(2.0 * n_out * (M * n_in + hits), mac_rate),
+                    (M * n_in * (spu_op_count(spec) + 4), F32_FLOPS_PER_S)]
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = sum(n / rt for n, rt in work) * 1e3
+            xc = spec.clip(x)
+
+            def kern(x=x, wt=wt, slot_of=slot_of):
+                return KO.kan_fused_v2(x, wt, spec, LM_KB, slot_of)
+
+            def kplain(x=x, wt=wt):
+                return kan_fused_v2_ref(x, wt, spec, LM_KB)
+
+            def basis(xc=xc):
+                return spline_basis(xc, spec)
+
+            def bplain(xc=xc):
+                return plain_basis(xc, spec)
+
+            with torch.no_grad():
+                kernel_rows.append({
+                    "kernel": "kan_fused_v2" + sfx, "layer": what,
+                    "shape": [M, n_in, n_out], "nbk": nbk,
+                    "precision": prec,
+                    "ms": time_ms(kern, iters=10, reps=5),
+                    "device_ms": graph_ms(kern, iters=5, reps=5),
+                    "plain_ms": time_ms(kplain, iters=3, reps=3),
+                    "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "kept_basis_hits": hits, "launches_a_step": cfg.n_layers,
+                    "card": card})
+                print(json.dumps(kernel_rows[-1]))
+                n = xc.numel()
+                s_bytes = esz * (n + n * spec.n_bases)
+                s_ops = n * (spu_op_count(spec) + 4) / F32_FLOPS_PER_S
+                s_bytes_ms = s_bytes / HBM_BYTES_PER_S * 1e3
+                kernel_rows.append({
+                    "kernel": "spline_basis" + sfx, "layer": what,
+                    "shape": [n, spec.n_bases], "precision": prec,
+                    "ms": time_ms(basis, iters=10, reps=5),
+                    "device_ms": graph_ms(basis, iters=5, reps=5),
+                    "plain_ms": time_ms(bplain, iters=3, reps=3),
+                    "library_ms": None,
+                    "bound_ms": max(s_bytes_ms, s_ops * 1e3),
+                    "bound_by": ("bytes" if s_bytes_ms >= s_ops * 1e3
+                                 else "operations"),
+                    "launches_a_step": cfg.n_layers * (1 if dt == BF else 2),
+                    "card": card})
+                print(json.dumps(kernel_rows[-1]))
+            del x, wt, g, xk, wk, y, ref, dx_p, dwt_p
+            free()
+    del p_f
+    free()
+    print("phase 13: (a) the KAN drop-in's layers at M = "
+          f"{M}: one fused-KAN and one (bf16) or two (f32) spline-basis "
+          "launches a forward and backward, each within its tolerance of "
+          "its plain version (err / (1 + max): " + "; ".join(
+              f"{k} " + ", ".join(f"{n} {v:.2e}" for n, v in e.items())
+              for k, e in layer_err.items()) + ")")
+
+    data = SyntheticLM(LMDataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=LM_SEQ, global_batch=LM_BATCH))
+    opts = ST.StepOptions(lr=3e-4, total_steps=LM_STEPS, warmup=0)
+
+    def dev_ms(fn) -> tuple:
+        """(device ms, kernels, top device ops) of one call of ``fn``,
+        from the profiler."""
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = sorted((e for e in prof.key_averages()
+                       if str(getattr(e, "device_type", ""))
+                       .endswith("CUDA")), key=lambda e: -_device_us(e))
+        return (sum(_device_us(e) for e in kern) / 1e3,
+                sum(e.count for e in kern),
+                [(e.key[:72], _device_us(e) / 1e3, e.count)
+                 for e in kern[:8]])
+
+    # (b) Trainer at bf16, full width and depth
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, TrainerConfig(max_steps=LM_STEPS, log_every=1), dev,
+                 data, opts)
+    n_params = sum(int(a.numel()) for _, a in leaf_paths(tr.state["params"]))
+    _build.reset_launches()
+    out = tr.run()
+    torch.cuda.synchronize()
+    per_step = {k: v / LM_STEPS for k, v in launched().items()}
+    want = {"kan_fused_v2_bf16": 2 * cfg.n_layers,
+            "spline_basis_bf16": 2 * cfg.n_layers}
+    check(per_step == want, f"(b) launches a step {per_step}, want {want}")
+    for k, v in launched().items():
+        launches_lm[k] = launches_lm.get(k, 0) + v
+    losses = [m["loss"] for m in out["metrics"]]
+    check(out["final_step"] == LM_STEPS and all(map(math.isfinite, losses)),
+          f"(b) final step {out['final_step']}, losses {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) < LM_FIRST_LOSS_TOL,
+          f"(b) first loss {losses[0]:.4f}, ln(vocab) "
+          f"{math.log(cfg.vocab_size):.4f}")
+    host_steps = [m["step_time_s"] * 1e3 for m in out["metrics"][1:]]
+    peak = torch.cuda.max_memory_allocated()
+    batch = tr.batch_at(LM_STEPS)
+    step_fn = ST.make_train_step(cfg, opts)
+    dms, nk, top = dev_ms(lambda: step_fn(tr.state, batch))
+    check(dms > 0, "(b) the profiler saw no device time")
+    host_med = statistics.median(host_steps)
+    train = {"arch": cfg.name, "params": n_params, "steps": LM_STEPS,
+             "losses": losses, "launches_a_step": per_step,
+             "host_ms_steps": host_steps, "host_ms": host_med,
+             "device_ms": dms, "idle_share": 1.0 - dms / host_med,
+             "kernels_a_step": nk, "top_device_ops": top,
+             "peak_device_bytes": peak,
+             "seconds": time.perf_counter() - t0, "card": card}
+    print(f"phase 13: (b) {cfg.name} KAN drop-in, bf16, {n_params / 1e6:.1f}"
+          f" M params, {LM_STEPS} steps of {LM_BATCH} x {LM_SEQ}: losses "
+          + ", ".join(f"{v:.4f}" for v in losses)
+          + f"; launches a step {per_step}; host {host_med:.3f} ms a step "
+          f"(median of steps 1-{LM_STEPS - 1}), device {dms:.3f} ms (idle "
+          f"{train['idle_share'] * 100:.1f}%, {nk} kernels), peak "
+          f"{peak / 2 ** 30:.2f} GiB; top device ops {top[:4]} ({card})")
+    del tr, out, batch
+    free()
+
+    # (c) restart at LM_RESTART_DEPTH layers, bitwise a clean run
+    t0 = time.perf_counter()
+    cfg_c = dataclasses.replace(cfg, n_layers=LM_RESTART_DEPTH)
+    clean = Trainer(cfg_c, TrainerConfig(max_steps=LM_STEPS, log_every=100),
+                    dev, data, opts)
+    clean.run()
+    ck = tempfile.mkdtemp(prefix="lm_restart_")
+    try:
+        faulty = Trainer(cfg_c, TrainerConfig(
+            max_steps=LM_STEPS, ckpt_dir=ck, ckpt_every=2, keep=1,
+            failure_at=3, log_every=100), dev, data, opts)
+        t1 = time.perf_counter()
+        fout = faulty.run_with_restarts(max_restarts=1)
+        wall = time.perf_counter() - t1
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(ck) for f in fs)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    check(fout["final_step"] == LM_STEPS, f"(c) final step "
+          f"{fout['final_step']}")
+    a, b = leaf_paths(clean.state), leaf_paths(faulty.state)
+    check([k for k, _ in a] == [k for k, _ in b] and all(
+        torch.equal(x, y) for (_, x), (_, y) in zip(a, b)),
+        "(c) the restarted run's state is not the clean run's, bitwise")
+    outside = wall - sum(m["step_time_s"] for m in fout["metrics"])
+    restart = {"n_layers": LM_RESTART_DEPTH, "bitwise": True,
+               "steps_run": len(fout["metrics"]), "wall_s": wall,
+               "outside_steps_s": outside, "checkpoint_bytes": ckpt_bytes,
+               "seconds": time.perf_counter() - t0, "card": card}
+    print(f"phase 13: (c) {LM_RESTART_DEPTH} of {cfg.n_layers} layers: "
+          f"failed at step 3, restored from step 2, final state bitwise "
+          f"the clean run's; {len(fout['metrics'])} steps in {wall:.2f} s, "
+          f"{outside:.2f} s outside the steps (copies, writes of "
+          f"{ckpt_bytes / 2 ** 30:.2f} GiB a step kept, the restore)")
+    del clean, faulty
+    free()
+
+    # (d) the f32 twin at full width: kernels against plain versions
+    t0 = time.perf_counter()
+    cfg_f = dataclasses.replace(cfg, dtype="float32")
+    state = ST.init_train_state(cfg_f, opts, gen(63), dev)
+    opt_cfg = ST.default_opt_cfg(opts)
+
+    def plain_ffns(live):
+        def pair(fc, p):
+            up, down = fc.kan_cfgs()
+
+            def layer(c, lp, h):
+                wt = KO.fuse_wt(lp["w_b"], KO.flatten_t(lp["t"], c.kb),
+                                len(c.kb))
+                return kan_fused_v2_ref(h, wt, c.spec, c.kb)
+
+            def fn(x):
+                lead = x.shape[:-1]
+                h = layer(up, p["kan_up"], x.reshape(-1, up.n_in))
+                return layer(down, p["kan_down"], h).reshape(
+                    *lead, down.n_out)
+            return fn
+        return [pair(cfg_f.ffn_cfg(0), bp["ffn"])
+                for _, _, bp, _ in TF._layers(live, cfg_f)]
+
+    twin = []
+    _build.reset_launches()
+    for s in range(LM_F32_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch_at(s).items()}
+        before = dict(_build.LAUNCHES)
+        with ST.deterministic(dev):
+            total, ce, grads = ST.value_and_grad(cfg_f, opts,
+                                                 state["params"], batch)
+        step_launch = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                       if v != before[k]}
+        want = {"kan_fused_v2": 2 * cfg.n_layers,
+                "spline_basis": 4 * cfg.n_layers}
+        check(step_launch == want, f"(d) step {s}: launches {step_launch}, "
+              f"want {want}")
+        before = dict(_build.LAUNCHES)
+        with ST.deterministic(dev):
+            ptotal, pce, pgrads = ST.value_and_grad(
+                cfg_f, opts, state["params"], batch, ffns_of=plain_ffns)
+        check(_build.LAUNCHES == before, "(d) the plain path launched a "
+              "kernel")
+        loss_err = abs(float(ce) - float(pce)) / abs(float(pce))
+        check(loss_err <= LM_LOSS_RTOL, f"(d) step {s}: loss {float(ce)} vs "
+              f"plain {float(pce)} ({loss_err:.2e} relative)")
+        worst = (0.0, "")
+        pg = dict(leaf_paths(pgrads))
+        for k, v in leaf_paths(grads):
+            err, scale, nan = rel_err(v, pg[k])
+            check(not nan and err <= LM_GRAD_TOL * scale,
+                  f"(d) step {s}: gradient {k} {err:.3e} from the plain "
+                  f"path's, vs {LM_GRAD_TOL:g} * {scale:.4g}")
+            worst = max(worst, (err / scale, k))
+        twin.append({"step": s, "loss": float(ce), "plain_loss": float(pce),
+                     "loss_rel_err": loss_err, "worst_grad": worst})
+        new_params, new_opt, _ = adamw_update(grads, state["opt"],
+                                              state["params"], opt_cfg)
+        state = {"params": new_params, "opt": new_opt,
+                 "step": state["step"] + 1}
+        del grads, pgrads, pg
+        free()
+    for k, v in launched().items():
+        launches_lm[k] = launches_lm.get(k, 0) + v
+    print(f"phase 13: (d) the f32 twin, {LM_F32_STEPS} steps, kernels "
+          f"against plain versions on the same params: " + "; ".join(
+              f"step {t['step']} loss {t['loss']:.6f} ({t['loss_rel_err']:.1e}"
+              f" rel), worst gradient {t['worst_grad'][0]:.2e} at "
+              f"{t['worst_grad'][1]}" for t in twin)
+          + f" ({time.perf_counter() - t0:.1f} s)")
+    del state
+    free()
+
+    # (e) the launcher, as a subprocess
+    t0 = time.perf_counter()
+    ck = tempfile.mkdtemp(prefix="lm_launcher_")
+    try:
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             LM_ARCH, "--scale", "full", "--ffn", "kan", "--pattern", "0.5",
+             "--steps", "4", "--seq", str(LM_SEQ), "--batch",
+             str(LM_BATCH), "--ckpt-dir", ck],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(SRC)))
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    tail = run.stdout.strip().splitlines()[-1] if run.stdout.strip() else ""
+    check(run.returncode == 0 and tail.startswith("final step 4,"),
+          f"(e) the launcher: rc {run.returncode}, last line {tail!r}, "
+          f"stderr {run.stderr[-2000:]}")
+    print(f"phase 13: (e) python -m repro_torch.launch.train --arch "
+          f"{LM_ARCH} --scale full --ffn kan --pattern 0.5 --steps 4: "
+          f"{tail!r} ({time.perf_counter() - t0:.1f} s)")
+    print(f"phase 13: LM training passed in "
+          f"{time.perf_counter() - t_phase:.1f} s; launches {launches_lm}")
+    return {"kernel_rows": kernel_rows, "layer_err": layer_err,
+            "train": train, "restart": restart, "f32_twin": twin,
+            "launcher": tail, "launches": launches_lm,
+            "seconds": time.perf_counter() - t_phase}
+
 
 def _device_us(event) -> float:
     """Self device time (us) of a profiler row; the attribute's name moved
@@ -4146,6 +4598,10 @@ def main() -> int:
     # (``encdec_vlm_phase``)
     encdec = encdec_vlm_phase(dev, card)
 
+    # ---------------------------------------------------------------- 13
+    # LM training at full width (``lm_train_phase``)
+    lm = lm_train_phase(dev, card)
+
     launched = {k: (served[p]["launches"][k], f"phase 3, {p} burst")
                 for p in PRECISIONS for k in SERVED_KERNELS[p]}
     launched["kan_fused_v1_bf16"] = (b_v1_launches["kan_fused_v1_bf16"],
@@ -4171,6 +4627,7 @@ def main() -> int:
             "launches_kanffn": kanffn["launches"][k],
             "launches_moe": moe_rec["launches"].get(k, 0),
             "launches_encdec": encdec["launches"].get(k, 0),
+            "launches_lm_train": lm["launches"].get(k, 0),
             "max_abs_err": max_err[k], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -4195,6 +4652,7 @@ def main() -> int:
          "kanffn": kanffn,
          "moe_rec": moe_rec,
          "encdec": encdec,
+         "lm_train": lm,
          "ptxas": usage,
          "knob_checks": knob_checks,
          "kernel_bench_launches": bench_launches},

@@ -1,15 +1,15 @@
 """When a kernel wrapper takes its gradient path, and what that path
 refuses.
 
-The f32 version-2 KAN kernel and the f32 pattern-matmul kernel carry a
-``torch.autograd.Function`` each (``kan_fused/ops.py``,
-``pattern_matmul/ops.py``): the forward is the kernel, the gradient is
-written out in PyTorch ops, as XLA's autodiff writes out the reference's
-(which has no backward kernel).  A wrapper takes that path only when
-grad is enabled and an operand requires it, so a forward under
-``torch.no_grad`` or ``torch.inference_mode`` launches what it did
-before.  The reference trains in f32 only: the bf16, int8 and version-1
-kernels refuse a gradient.
+The version-2 KAN kernel (f32, and bf16 with a bf16 output) and the f32
+pattern-matmul kernel carry a ``torch.autograd.Function`` each
+(``kan_fused/ops.py``, ``pattern_matmul/ops.py``): the forward is the
+kernel, the gradient is written out in PyTorch ops, as XLA's autodiff
+writes out the reference's (which has no backward kernel).  A wrapper
+takes that path only when grad is enabled and an operand requires it,
+so a forward under ``torch.no_grad`` or ``torch.inference_mode``
+launches what it did before.  The int8 and version-1 kernels, the bf16
+matmul and the matmul's gelu epilogue refuse a gradient.
 """
 from __future__ import annotations
 
@@ -26,9 +26,10 @@ def grad_wanted(*operands: Optional[torch.Tensor]) -> bool:
 
 def refuse_grad(fn: str, why: str) -> None:
     raise NotImplementedError(
-        f"{fn}: no gradient {why}; the reference trains in f32 through the "
-        f"version-2 KAN and pattern-matmul kernels only, and a gradient "
-        f"through the other kernels is not ported (ROADMAP.md, queue 2)")
+        f"{fn}: no gradient {why}; the port trains through the version-2 "
+        f"KAN kernel (f32, bf16) and the f32 pattern-matmul kernel only, "
+        f"and a gradient through the other kernels is not ported "
+        f"(ROADMAP.md, queue 2)")
 
 
 def ieee_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -28,20 +28,26 @@ Weights keep the JAX package's layouts: ``w_b`` (n_in, n_out), ``t``
 (n_in, G+K, n_out), ``t_flat`` (n_in*nbk, n_out) feature-major, and the
 fused ``wt`` (n_in*(nbk+1), n_out) with the silu row first per feature.
 
-``kan_fused_v2`` has a gradient at f32 (``KanFusedV2``, taken only when
-grad is enabled and x or wt requires it; ``kernels/grad.py``): the
-forward is the kernel, and the backward rebuilds the fused activations
-from the spline-basis kernel at order K and their derivatives from it at
-order K - 1.
+``kan_fused_v2`` has a gradient at f32 and at bf16 with a bf16 output
+(``KanFusedV2``, taken only when grad is enabled and x or wt requires
+it; ``kernels/grad.py``): the forward is the kernel, and the backward
+rebuilds the fused activations from the spline-basis kernel at order K.
+At f32 the derivatives come from that kernel at order K - 1 (B_i' =
+(Bm_{i-1} - Bm_i) / h).  At bf16 the backward rounds where ``jax.grad``
+of the reference's jnp layer rounds: the products' f32 results to bf16,
+the silu branch's f32 cotangent once, the spline branch's cotangent op
+by op back through the de Boor recursion, again after the 1/h scale,
+and the two branches' sum -- the bits of the reference's gradient on
+the CPU.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.splines import SplineSpec, locate_cell
+from repro_torch.core.splines import INV_LUT, SplineSpec, locate_cell, silu
 from repro_torch.kernels import _build, autotune
 from repro_torch.kernels.epilogue import resolve_out_dtype
 from repro_torch.kernels.grad import grad_wanted, ieee_matmul, refuse_grad
@@ -351,8 +357,8 @@ def kan_fused_v2(x: torch.Tensor, wt: torch.Tensor, spec: SplineSpec,
     dtype, what = kernel_dtype(x)
     out_dtype = resolve_out_dtype("kan_fused_v2", x, out_dtype)
     if grad_wanted(x, wt):
-        if dtype != torch.float32 or out_dtype != torch.float32:
-            refuse_grad("kan_fused_v2", "at bf16")
+        if out_dtype != dtype:
+            refuse_grad("kan_fused_v2", "at a bf16 x with an f32 output")
         return KanFusedV2.apply(x, wt, spec, tuple(kb), slot_of, blocks)
     if x.device.type == "cpu":
         if blocks is not None:
@@ -398,7 +404,8 @@ def fused_activations(x: torch.Tensor, spec: SplineSpec,
     the version-2 layer contracts against ``wt``, the bases from
     ``spline_basis`` (the kernel on a CUDA tensor)."""
     bases = _kept(spline_basis(spec.clip(x), spec), spec, kb)
-    return torch.cat([(x * torch.sigmoid(x))[..., None], bases], dim=-1)
+    s = silu(x.to(torch.float32)).to(x.dtype)       # f32 at bf16, as forward
+    return torch.cat([s[..., None], bases], dim=-1)
 
 
 def fused_activation_grads(x: torch.Tensor, spec: SplineSpec,
@@ -420,16 +427,115 @@ def fused_activation_grads(x: torch.Tensor, spec: SplineSpec,
         lower = torch.nn.functional.one_hot(cell, G).to(x.dtype)
     lower = torch.nn.functional.pad(lower, (1, 1))          # Bm_{i-1} at i
     dbases = _kept((lower[..., :-1] - lower[..., 1:]) * spec.inv_h, spec, kb)
-    inside = (x > spec.x0) & (x < spec.clip_hi)
-    at_bound = (x == spec.x0) | (x == spec.clip_hi)
-    dclip = inside.to(x.dtype) + 0.5 * at_bound.to(x.dtype)
     sig = torch.sigmoid(x)
     dsilu = sig + x * (sig * (1 - sig))
-    return torch.cat([dsilu[..., None], dbases * dclip[..., None]], dim=-1)
+    return torch.cat([dsilu[..., None], dbases * _clip_slope(x, spec)[..., None]],
+                     dim=-1)
+
+
+def _clip_slope(x: torch.Tensor, spec: SplineSpec) -> torch.Tensor:
+    """d clip(x) / dx in x's dtype: 1 inside the bounds, 0 outside, 1/2 at
+    a bound (JAX's ``jnp.clip`` splits the tie), the bounds rounded to
+    x's dtype as the reference's are."""
+    lo = torch.tensor(spec.x0, dtype=x.dtype, device=x.device)
+    hi = torch.tensor(spec.clip_hi, dtype=x.dtype, device=x.device)
+    inside = (x > lo) & (x < hi)
+    at_bound = (x == lo) | (x == hi)
+    return inside.to(x.dtype) + 0.5 * at_bound.to(x.dtype)
+
+
+def _recursion_vjp_r(r: torch.Tensor, ct_vals: Sequence[torch.Tensor],
+                     order: int) -> torch.Tensor:
+    """The cotangent of r (the position in the cell, x's dtype) given the
+    cotangents ``ct_vals`` of the K+1 local de Boor values: reverse mode
+    through ``core/splines.bases_local``'s recursion, op by op in r's
+    dtype, in the order ``jax.grad`` of the reference takes it (each
+    level from the last, each iteration from the last; a knot
+    difference's cotangents summed in the order they arrive, then the
+    K left ones minus the K right ones)."""
+    K = order
+    d = [torch.tensor(float(i), dtype=r.dtype, device=r.device)
+         for i in range(K)]
+    right = [(d[i] + 1.0) - r for i in range(K)]
+    left = [r + d[i] for i in range(K)]
+    vals = [torch.ones_like(r)] + [torch.zeros_like(r) for _ in range(K)]
+    temps = {}
+    for j in range(1, K + 1):
+        inv = torch.tensor(INV_LUT[j], dtype=r.dtype, device=r.device)
+        saved = torch.zeros_like(r)
+        for rr in range(j):
+            temps[j, rr] = temp = vals[rr] * inv
+            vals[rr] = saved + right[rr] * temp
+            saved = left[j - rr - 1] * temp
+        vals[j] = saved
+    ct = list(ct_vals)
+    ct_right: List[List[torch.Tensor]] = [[] for _ in range(K)]
+    ct_left: List[List[torch.Tensor]] = [[] for _ in range(K)]
+    for j in range(K, 0, -1):
+        inv = torch.tensor(INV_LUT[j], dtype=r.dtype, device=r.device)
+        ct_saved = ct[j]
+        for rr in range(j - 1, -1, -1):
+            temp = temps[j, rr]
+            ct_left[j - rr - 1].append(ct_saved * temp)
+            ct_right[rr].append(ct[rr] * temp)
+            ct_temp = ct[rr] * right[rr] + ct_saved * left[j - rr - 1]
+            ct_saved = ct[rr]
+            ct[rr] = ct_temp * inv
+
+    def total(terms: Sequence[torch.Tensor]) -> torch.Tensor:
+        out = terms[0]
+        for t in terms[1:]:
+            out = out + t
+        return out
+
+    return (total([total(c) for c in ct_left])
+            + -total([total(c) for c in ct_right]))
+
+
+def _bf16_grads(x: torch.Tensor, wt: torch.Tensor, g: torch.Tensor,
+                spec: SplineSpec, kb: Tuple[int, ...], need_x: bool,
+                need_wt: bool) -> Tuple[Optional[torch.Tensor],
+                                        Optional[torch.Tensor]]:
+    """(dx, d wt) of the bf16 layer, in x's and wt's dtypes, as
+    ``jax.grad`` of the reference's jnp layer takes them (bitwise on the
+    CPU): f32 products of the widened operands rounded to the operand's
+    dtype (``d wt`` against the activations of the spline-basis kernel;
+    an f32 wt, which the plain version takes beside a bf16 x, keeps its
+    f32 gradient, as the reference's promoted product does); the silu
+    branch's cotangent
+    in f32 from the rounded ``g wt^T``, rounded once; the spline
+    branch's from the kept columns of ``g wt^T`` back through the de Boor
+    recursion in bf16 (``_recursion_vjp_r``), widened, scaled by 1/h and
+    rounded, times clip's slope; the two branches added in bf16."""
+    B, n_in = x.shape
+    bf16, f32 = torch.bfloat16, torch.float32
+    gf = g.to(f32)
+    dx = dwt = None
+    if need_wt:
+        a = fused_activations(x, spec, kb).reshape(B, -1).to(f32)
+        dwt = ieee_matmul(a.t(), gf).to(wt.dtype)
+    if need_x:
+        gw = ieee_matmul(gf, wt.to(f32).t()).to(bf16).reshape(B, n_in, -1)
+        xf = x.to(f32)
+        sig = torch.sigmoid(xf)
+        cs = gw[..., 0].to(f32)
+        d_silu = (cs * sig + (xf * cs) * (sig * (1 - sig))).to(bf16)
+        cell, r = locate_cell(spec.clip(x), spec)
+        delta = (torch.as_tensor(kb, dtype=torch.int32, device=x.device)
+                 - cell[..., None])
+        zero = torch.zeros((), dtype=bf16, device=x.device)
+        # the kept column holding local value j (at most one), else 0
+        ct_vals = [torch.where(delta == j, gw[..., 1:], zero).sum(-1)
+                   for j in range(spec.n_active)]
+        dr = _recursion_vjp_r(r, ct_vals, spec.order)
+        d_spline = (dr.to(f32) * spec.inv_h).to(bf16)
+        dx = d_silu + d_spline * _clip_slope(x, spec)
+    return dx, dwt
 
 
 class KanFusedV2(torch.autograd.Function):
-    """The f32 version-2 layer with its gradient with respect to x and
+    """The version-2 layer (f32, or bf16 with a bf16 output; bf16:
+    ``_bf16_grads``) with its gradient with respect to x and
     the fused ``wt``; ``fuse_wt`` is plain torch ops, so autograd carries
     ``d wt`` back to ``w_b`` and ``t``.
 
@@ -451,6 +557,11 @@ class KanFusedV2(torch.autograd.Function):
         x, wt = ctx.saved_tensors
         B, n_in = x.shape
         g = g.contiguous()
+        if x.dtype == torch.bfloat16:
+            dx, dwt = _bf16_grads(x, wt, g, ctx.spec, ctx.kb,
+                                  ctx.needs_input_grad[0],
+                                  ctx.needs_input_grad[1])
+            return dx, dwt, None, None, None, None
         dx = dwt = None
         if ctx.needs_input_grad[1]:
             a = fused_activations(x, ctx.spec, ctx.kb)

@@ -10,8 +10,9 @@ what the data pipeline or a serving frontend feeds:
   decode  : {"token": (B, 1) int32, "caches": the whole cache tree}
 
 The params' stand-ins are ``models/transformer.param_shapes``; the
-reference's ``param_specs`` and ``state_specs`` (the training state)
-wait for LM training (``ROADMAP.md``, queue 1, item 5).
+reference's ``param_specs`` and ``state_specs`` (the training state's
+stand-ins, which its dry run lowers) wait with ``launch/dryrun.py``
+(``ROADMAP.md``, queue 1, item 5).
 """
 from __future__ import annotations
 

@@ -1,15 +1,30 @@
-"""The serve steps: a prefill step and a decode step, each returning
-(greedy token, caches).
+"""Train and serve steps: the LM train step with its options and state,
+and a prefill step and a decode step, each returning (greedy token,
+caches).
 
-Counterpart of the serving half of ``repro/launch/steps.py``, with no
-``mesh`` argument: one card runs the step whole.  The steps reach every
-arch of the zoo, the encoder-decoder and frontend ones too (a batch
-carries ``frames`` or ``patches`` beside its tokens), which token-only
-serving (``runtime/server.Server``) refuses, as the reference's does.
-``ffns`` (``models/transformer.ffn_modules``) and ``enc_ffns``
-(``encoder_ffn_modules``) hold the KAN FFNs' weights fused once; without
-them each step rebuilds them, with the same bits.  A step runs without
-autograd (the bf16 kernels refuse a gradient).
+Counterpart of ``repro/launch/steps.py``, with no ``mesh`` argument: one
+card runs a step whole.  The train step (``make_train_step``) runs
+``T.forward`` with no held ``ffns`` -- the weights change every step, so
+the KAN FFNs fuse their weights inside autograd -- then ``T.lm_loss`` +
+``aux_weight * aux``, the gradients (autograd through the kernels'
+Functions, ``kernels/grad.py``), optional int8 error-feedback
+compression (``optim/compression``) and ``adamw_update`` at the
+reference's cosine schedule.  On a CUDA device it runs under
+``torch.use_deterministic_algorithms(True)`` (no NaN fill of
+``torch.empty``), so two runs of a step give the same bits.  The
+reference's ``remat`` and ``scan_layers`` change no number and are not
+read; its ``activation_mode`` only names a sharding constraint and waits
+with the sharding wrappers (``train_state_shardings``, ``jitted_*``,
+``lower_cell``) for the multi-card plans (``ROADMAP.md``, queue 1, item
+4).
+
+The serve steps reach every arch of the zoo, the encoder-decoder and
+frontend ones too (a batch carries ``frames`` or ``patches`` beside its
+tokens), which token-only serving (``runtime/server.Server``) refuses,
+as the reference's does.  ``ffns`` (``models/transformer.ffn_modules``)
+and ``enc_ffns`` (``encoder_ffn_modules``) hold the KAN FFNs' weights
+fused once; without them each step rebuilds them, with the same bits.  A
+serve step runs without autograd.
 
 Run a prefill step and decode steps of any arch on seeded tokens (and
 seeded ``0.1 * N(0, 1)`` frames or patches in the params' dtype):
@@ -20,33 +35,161 @@ seeded ``0.1 * N(0, 1)`` frames or patches in the params' dtype):
       --scale full                              # on the card, bf16
 
 A run is ``BATCH`` requests of ``PROMPT`` tokens, then ``NEW_TOKENS``
-decode steps, drawn from seed ``SEED``.  The reference's train step and
-its options (``StepOptions``, ``default_opt_cfg``, ``_split_batch``,
-``init_train_state``, ``make_train_step``) wait for LM training, and its
-sharding wrappers (``train_state_shardings``, ``jitted_*``,
-``lower_cell``) for the multi-card plans (``ROADMAP.md``, queue 1, items
-4-5).
+decode steps, drawn from seed ``SEED``.  Training runs through
+``runtime/trainer.Trainer`` (``launch/train.py``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.deterministic as torch_det
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.registry import ARCHS
 from repro_torch.kernels import _build
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import Ffns
-from repro_torch.utils import resolve_device
+from repro_torch.optim import (
+    AdamWConfig,
+    adamw_init,
+    adamw_update,
+    compressed_allreduce,
+    cosine_schedule,
+    init_compression,
+)
+from repro_torch.utils import (
+    leaf_paths,
+    resolve_device,
+    tree_map,
+    tree_map_with_path,
+)
 
 Params = Any
 MODALITIES = ("frames", "patches")
 BATCH, PROMPT, NEW_TOKENS, SEED = 2, 8, 4, 0
+# torch's deterministic mode takes a cuBLAS product only under one of
+# cuBLAS's deterministic workspace settings, read once a process (set it
+# before the first product under that mode)
+CUBLAS_WORKSPACE = ":4096:8"
+
+
+@dataclasses.dataclass(frozen=True)
+class StepOptions:
+    lr: float = 3e-4
+    total_steps: int = 10000
+    warmup: int = 200
+    aux_weight: float = 0.01
+    # int8 error-feedback gradient compression (optim/compression.py)
+    grad_compression: bool = False
+
+
+def default_opt_cfg(opts: StepOptions) -> AdamWConfig:
+    return AdamWConfig(lr=cosine_schedule(opts.lr, opts.total_steps,
+                                          opts.warmup))
+
+
+def init_train_state(cfg: ArchConfig, opts: StepOptions = StepOptions(),
+                     generator: Optional[torch.Generator] = None,
+                     device: torch.device | str = "cpu", *,
+                     params: Optional[Params] = None) -> Dict[str, Any]:
+    """``{"params", "opt", "step"}`` (+ ``"ef_residual"`` under
+    ``grad_compression``) on ``device``: params drawn from ``generator``
+    (``T.init_params``), or ``params`` carried over (e.g. the reference's,
+    ``convert.transformer_params_from_jax``), each leaf copied."""
+    if params is None:
+        params = T.init_params(cfg, generator, device)
+    else:
+        params = tree_map(lambda a: a.detach().to(device, copy=True), params)
+    state = {"params": params, "opt": adamw_init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    if opts.grad_compression:
+        state["ef_residual"] = init_compression(params)
+    return state
+
+
+def _split_batch(cfg: ArchConfig, batch: Dict
+                 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
+    kw = {k: batch[k] for k in MODALITIES if k in batch}
+    tokens = batch["tokens"]
+    return tokens[:, :-1], tokens[:, 1:], kw
+
+
+@contextlib.contextmanager
+def deterministic(device: torch.device) -> Iterator[None]:
+    """On a CUDA device, torch's deterministic algorithms (refusing any op
+    without a deterministic form) with no NaN fill of ``torch.empty``;
+    the previous settings come back on exit.  The CPU runs as it is."""
+    if device.type != "cuda":
+        yield
+        return
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled(),
+              torch_det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True)
+    torch_det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        torch_det.fill_uninitialized_memory = before[2]
+
+
+def value_and_grad(cfg: ArchConfig, opts: StepOptions, params: Params,
+                   batch: Dict, *,
+                   ffns_of: Optional[Callable[[Params], Ffns]] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
+    """(total loss, cross-entropy, gradients shaped like ``params``) of
+    one batch: the loss the reference's ``train_step`` differentiates.
+    A leaf the loss does not reach gets a zero gradient, as from
+    ``jax.grad``.  ``ffns_of(params)``, given the params being
+    differentiated, returns ``T.forward``'s ``ffns`` (e.g. plain
+    versions to hold the kernels against); None runs the model's own."""
+    inputs, labels, kw = _split_batch(cfg, batch)
+    leaves = leaf_paths(params)
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    h, aux = T.forward(live, cfg, inputs, **kw,
+                       ffns=None if ffns_of is None else ffns_of(live))
+    ce = T.lm_loss(live, cfg, h[:, -labels.shape[1]:], labels)
+    total = ce + opts.aux_weight * aux
+    live_leaves = [p for _, p in leaf_paths(live)]
+    grads = torch.autograd.grad(total, live_leaves, allow_unused=True)
+    by_path = {k: (torch.zeros_like(p) if g is None else g)
+               for (k, p), g in zip(leaves, grads)}
+    return (total.detach(), ce.detach(),
+            tree_map_with_path(lambda k, _: by_path[k], params))
+
+
+def make_train_step(cfg: ArchConfig, opts: StepOptions = StepOptions()
+                    ) -> Callable[[Dict, Dict], Tuple[Dict, Dict]]:
+    """``step(state, batch) -> (new state, metrics)``: metrics ``loss``
+    (cross-entropy), ``total_loss`` (+ ``aux_weight * aux``),
+    ``grad_norm`` (before the clip) and ``lr``, 0-d tensors on the
+    state's device; the input state is left as it was."""
+    opt_cfg = default_opt_cfg(opts)
+
+    def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
+        with deterministic(state["step"].device):
+            total, ce, grads = value_and_grad(cfg, opts, state["params"],
+                                              batch)
+            new_state = {"step": state["step"] + 1}
+            if opts.grad_compression:
+                grads, residual = compressed_allreduce(
+                    grads, state["ef_residual"])
+                new_state["ef_residual"] = residual
+            new_params, new_opt, metrics = adamw_update(
+                grads, state["opt"], state["params"], opt_cfg)
+        new_state.update({"params": new_params, "opt": new_opt})
+        return new_state, {"loss": ce, "total_loss": total, **metrics}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, *, ffns: Ffns = None,

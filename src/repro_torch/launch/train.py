@@ -1,24 +1,41 @@
-"""Training launcher for ``vikin-*`` KAN/MLP stacks on a torch device.
+"""Training launcher on a torch device: the LM ``Trainer`` for the zoo's
+transformer archs, and the ``vikin-*`` KAN/MLP stack pipeline.
 
-Counterpart of the ``vikin-*`` path of ``repro/launch/train.py``: train a
-stack dense, calibrate its two-stage sparsity masks and int8 scales
-post-training, and export a checkpoint in the reference's layout (params,
-masks and scales in one commit) that ``repro_torch.launch.serve --ckpt``
-serves (DESIGN.md Sec. 12).  Runs on the GPU by default; ``--device cpu``
-runs the kernels' plain versions:
+Counterpart of ``repro/launch/train.py``.  Runs on the GPU by default;
+``--device cpu`` runs the kernels' plain versions.
+
+``--arch <zoo arch>`` trains the LM through ``runtime/trainer.Trainer``
+on ``data/lm.SyntheticLM`` batches, AdamW at a cosine schedule (warmup
+``min(100, steps // 10)``), checkpoints every ``max(10, steps // 5)``
+steps, restarting from the latest on an injected failure, and prints
+``final step N, loss X`` as the reference does.  ``--ffn kan --pattern
+0.5`` is the paper's KAN drop-in: every FFN two KAN layers through the
+fused-KAN kernel, its gradient through the spline-basis kernel:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
+      --steps 100 --seq 128 --batch 8 --scale smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
+      --scale full --ffn kan --pattern 0.5 --steps 4    # on the card
+
+The reference's ``--dry-run`` and ``--shape`` (lower and compile for a
+production mesh, ``launch/dryrun.py``) are refused: they wait for the
+multi-card plans (``ROADMAP.md``, queue 1, items 4-5).
+
+``--arch vikin-*`` trains a stack dense, calibrates its two-stage
+sparsity masks and int8 scales post-training on the device it trained
+on, and exports a checkpoint in the reference's layout (params, masks
+and scales in one commit) that ``repro_torch.launch.serve --ckpt``
+serves (DESIGN.md Sec. 12):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch vikin-mixed \
       --steps 200 --pattern 0.5 --ckpt-dir /tmp/vikin_ckpt
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vikin-mixed \
       --ckpt /tmp/vikin_ckpt
-
-Calibration runs on the device the stack trained on (its dense forward
-through the kernels on the card).  The transformer archs (the
-reference's LM ``Trainer``) are not ported.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import tempfile
 from typing import Any, Dict, Optional, Sequence
 
@@ -26,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import save_checkpoint
+from repro_torch.configs.registry import get_config
 from repro_torch.configs.vikin_models import VIKIN_ARCHS
 from repro_torch.core.calibrate import (
     calibrate_scales,
@@ -35,8 +53,15 @@ from repro_torch.core.calibrate import (
 )
 from repro_torch.core.engine import run_model
 from repro_torch.core.quant import quant_stack_apply, quantize_stack_params
+from repro_torch.data.lm import LMDataConfig, SyntheticLM
 from repro_torch.data.stack_task import task_for_model
-from repro_torch.runtime.trainer import StackTrainer, StackTrainerConfig
+from repro_torch.launch.steps import StepOptions
+from repro_torch.runtime.trainer import (
+    StackTrainer,
+    StackTrainerConfig,
+    Trainer,
+    TrainerConfig,
+)
 
 
 def train_vikin(args: argparse.Namespace, model: Any) -> Dict[str, Any]:
@@ -109,19 +134,62 @@ def train_vikin(args: argparse.Namespace, model: Any) -> Dict[str, Any]:
     return {**extra, "ckpt_dir": ckpt_dir}
 
 
+def train_lm(args: argparse.Namespace) -> Dict[str, Any]:
+    """The reference's transformer branch: ``Trainer`` on SyntheticLM;
+    returns ``run_with_restarts``'s result."""
+    cfg = get_config(args.arch)
+    if args.scale == "smoke":
+        cfg = cfg.reduce()
+    over = {}
+    if args.ffn:
+        over["ffn_kind"] = args.ffn
+    if args.pattern:
+        over["pattern_rate"] = args.pattern
+    if over:
+        cfg = dataclasses.replace(cfg, **over)
+    data = SyntheticLM(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=args.seq,
+        global_batch=args.batch, seed=args.seed))
+    tcfg = TrainerConfig(
+        max_steps=args.steps,
+        ckpt_dir=args.ckpt_dir or tempfile.mkdtemp(prefix="train_"),
+        ckpt_every=max(10, args.steps // 5), log_every=10, seed=args.seed)
+    trainer = Trainer(cfg, tcfg, args.device, data,
+                      StepOptions(lr=args.lr, total_steps=args.steps,
+                                  warmup=min(100, args.steps // 10)))
+    print(f"arch {cfg.name} ({cfg.dtype}, ffn {cfg.ffn_kind}, pattern "
+          f"{cfg.pattern_rate}) on {trainer.device}: {args.steps} steps of "
+          f"{args.batch} x {args.seq} tokens, checkpoints in "
+          f"{tcfg.ckpt_dir}", flush=True)
+    out = trainer.run_with_restarts()
+    print(f"final step {out['final_step']}, "
+          f"loss {out['metrics'][-1]['loss']:.4f}")
+    return out
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default=None,
+                    help="the reference's dry-run shape; refused (the "
+                         "multi-card plans are not ported)")
     ap.add_argument("--scale", default="smoke", choices=["smoke", "full"],
-                    help="the reference's flag; the vikin path does not "
-                         "read it")
+                    help="transformer archs: smoke is the arch's reduce()d "
+                         "width, full the registry's; the vikin path does "
+                         "not read it")
     ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq", type=int, default=128,
+                    help="transformer archs: tokens a sequence")
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--lr", type=float, default=1e-2)
+    ap.add_argument("--lr", type=float, default=None,
+                    help="default: 3e-4 (transformer) / 1e-2 (vikin stacks)")
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ffn", default=None,
+                    help="transformer archs: override ffn_kind (kan: the "
+                         "reference's KAN drop-in)")
     ap.add_argument("--pattern", type=float, default=0.0,
-                    help="stage-2 sparsity rate of the calibration; 0 uses "
-                         "the arch's configured rate")
+                    help="stage-2 sparsity rate (vikin: of the calibration; "
+                         "0 uses the arch's configured rate)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--loss", default="mse", choices=["mse", "xent"],
                     help="stack task: regression | classification")
@@ -134,13 +202,23 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                     help="target serving precision; int8 scales are "
                          "always calibrated and saved, int8 here also "
                          "prints the quantized validation MSE")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="the reference's lower-and-compile for a "
+                         "production mesh; refused")
     args = ap.parse_args(argv)
-    if args.arch not in VIKIN_ARCHS:
+    if args.arch in VIKIN_ARCHS:
+        if args.lr is None:
+            args.lr = 1e-2
+        return train_vikin(args, VIKIN_ARCHS[args.arch])
+    if args.lr is None:
+        args.lr = 3e-4
+    if args.dry_run or args.shape is not None:
+        flag = "--dry-run" if args.dry_run else "--shape"
         raise SystemExit(
-            f"arch {args.arch!r}: the port trains only the vikin-* stacks "
-            f"{sorted(VIKIN_ARCHS)}; the transformer archs wait for "
-            f"ROADMAP.md queue 1 items 6-7")
-    return train_vikin(args, VIKIN_ARCHS[args.arch])
+            f"{flag}: lowering and compiling a step for a production mesh "
+            f"(the reference's launch/dryrun.py) waits for the multi-card "
+            f"plans, ROADMAP.md queue 1, items 4-5")
+    return train_lm(args)
 
 
 if __name__ == "__main__":

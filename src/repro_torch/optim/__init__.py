@@ -5,6 +5,13 @@ from repro_torch.optim.adamw import (
     adamw_update,
     global_norm,
 )
+from repro_torch.optim.compression import (
+    CompressionState,
+    compress_int8,
+    compressed_allreduce,
+    decompress_int8,
+    init_compression,
+)
 from repro_torch.optim.schedules import (
     constant_schedule,
     cosine_schedule,
@@ -14,4 +21,6 @@ from repro_torch.optim.schedules import (
 __all__ = [
     "AdamWConfig", "OptState", "adamw_init", "adamw_update", "global_norm",
     "constant_schedule", "cosine_schedule", "linear_schedule",
+    "CompressionState", "compress_int8", "decompress_int8",
+    "compressed_allreduce", "init_compression",
 ]

@@ -6,7 +6,10 @@ whatever the params' dtype, the global-norm clip ``min(1, clip / (gnorm
 in f32 cast back to each param's dtype, and the decay mask read from
 each leaf's ``keystr`` path (``utils.leaf_paths``).  A tree is a nest of
 lists, tuples and dicts of tensors; its leaves are taken in the
-reference's order (a list index, then a sorted dict key).
+reference's order (a list index, then a sorted dict key).  An
+``OptState`` is a tree node (``utils.register_node``): its mu, nu and
+count sit at ``[<flat index 0>]``, ``[<flat index 1>]`` and ``[<flat
+index 2>]`` of a checkpoint's keys, as the reference's.
 """
 from __future__ import annotations
 
@@ -15,7 +18,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.utils import leaf_paths, tree_map, tree_map_with_path
+from repro_torch.utils import (
+    leaf_paths,
+    register_node,
+    tree_map,
+    tree_map_with_path,
+)
 
 Tree = Any
 
@@ -32,6 +40,7 @@ class AdamWConfig:
     no_decay_tokens: Tuple[str, ...] = ("bias", "norm", "scale", "ln_")
 
 
+@register_node
 @dataclasses.dataclass
 class OptState:
     mu: Tree

@@ -1,28 +1,66 @@
-"""The VIKIN stack trainer: fit a KAN/MLP stack on a small task.
+"""Training loops: the fault-tolerant LM ``Trainer`` and the VIKIN
+``StackTrainer``.
 
-Counterpart of ``StackTrainer`` in ``repro/runtime/trainer.py``, the
+Counterpart of ``repro/runtime/trainer.py``.  ``Trainer`` is the LM
+training loop, with the reference's contract on one torch device (a
+``device`` takes the mesh's place; the multi-card plans are ``ROADMAP.md``
+queue 1, item 4):
+
+  * **Deterministic resume**: the data source is keyed by step and the
+    step counter lives in the checkpointed state, so a restart replays
+    exactly the batch the dead run would have seen; the step runs under
+    torch's deterministic algorithms on the card
+    (``launch/steps.deterministic``), so a run killed at step k and
+    restarted finishes with the same bits as one that was not.
+  * **Checkpoint/restart**: ``AsyncCheckpointer`` (the host copy on the
+    calling thread, the files on another) every ``ckpt_every`` steps and
+    at the end, atomic commits, ``keep`` newest; the keys are the
+    reference's, so either package restores what the other saved.
+  * **Failure injection**: ``failure_at`` raises ``SimulatedFailure``
+    once; ``run_with_restarts`` is the supervisor loop (restore the
+    latest checkpoint, continue).
+  * **Straggler watchdog**: a step's wall time, taken after the step has
+    finished on the device, against the median of the last 50; a step
+    over ``straggler_factor`` times it fires ``on_straggler`` (or is
+    logged).
+
+``params=`` takes the initial params (the reference's ``jax.random``
+draws cannot be reproduced; tests carry them across with
+``convert.transformer_params_from_jax``); without it they are drawn from
+a ``torch.Generator`` on the device, seeded ``tcfg.seed``.
+
+``StackTrainer`` (bottom of file) fits the paper's KAN/MLP stacks, the
 "train" end of the train -> calibrate -> serve pipeline (DESIGN.md
 Sec. 12).  Training runs DENSE (``pattern_rate`` forced to 0); the
 two-stage masks are derived afterwards by ``core/calibrate``.  The
 minibatch of step ``s`` is drawn from ``np.random.default_rng(seed *
 100003 + s)``, so a fixed seed reproduces the run, and AdamW
 (``optim/adamw``) runs at a constant lr with no decay on ``['b']``.
-
-The differences from the reference: ``device`` replaces ``impl`` (the
+Its differences from the reference: ``device`` replaces ``impl`` (the
 stack runs through the kernels on a CUDA device and their plain
-versions on the CPU), and ``params=`` takes the initial params (the
-reference's ``jax.random`` init cannot be drawn in torch; tests carry it
-across with ``convert.py``).  The LM ``Trainer`` is not ported.
+versions on the CPU), and ``params=`` takes the initial params.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.checkpoint import (
+    AsyncCheckpointer,
+    latest_step,
+    restore_checkpoint,
+)
+from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.steps import (
+    StepOptions,
+    init_train_state,
+    make_train_step,
+)
 from repro_torch.models.ffn import vikin_stack_apply, vikin_stack_init
 from repro_torch.optim.adamw import (
     AdamWConfig,
@@ -39,6 +77,125 @@ from repro_torch.utils import (
 )
 
 Params = List[Dict[str, torch.Tensor]]
+
+
+class SimulatedFailure(RuntimeError):
+    """Injected node failure (tests / chaos drills)."""
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    max_steps: int = 100
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 50
+    keep: int = 3
+    log_every: int = 10
+    straggler_factor: float = 3.0     # step > factor * median -> straggler
+    failure_at: Optional[int] = None  # inject SimulatedFailure at this step
+    seed: int = 0
+
+
+class Trainer:
+    def __init__(self, cfg: ArchConfig, tcfg: TrainerConfig,
+                 device: torch.device | str, source: Any,
+                 opts: StepOptions = StepOptions(),
+                 on_straggler: Optional[Callable[[int, float], None]] = None,
+                 *, params: Optional[Any] = None) -> None:
+        self.cfg, self.tcfg, self.source = cfg, tcfg, source
+        self.device = resolve_device(device)
+        self.opts = opts
+        self.on_straggler = on_straggler
+        self.metrics_log: List[Dict[str, float]] = []
+        self.straggler_events: List[int] = []
+        self._step_times: List[float] = []
+        self._params0 = params
+        self._ckpt = (AsyncCheckpointer(tcfg.ckpt_dir, keep=tcfg.keep)
+                      if tcfg.ckpt_dir else None)
+        self._step_fn = make_train_step(cfg, opts)
+        self.state = self._init_or_restore()
+
+    # ------------------------------------------------------------------
+    def _init_or_restore(self) -> Dict[str, Any]:
+        gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
+        state = init_train_state(self.cfg, self.opts, gen, self.device,
+                                 params=self._params0)
+        if self._ckpt is not None and latest_step(
+                self.tcfg.ckpt_dir) is not None:
+            state, step, _ = restore_checkpoint(self.tcfg.ckpt_dir, state)
+            print(f"[trainer] restored checkpoint at step {step}", flush=True)
+        return state
+
+    @property
+    def step(self) -> int:
+        return int(self.state["step"])
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
+        """The source's batch of ``step`` on the trainer's device."""
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in self.source.batch_at(step).items()}
+
+    # ------------------------------------------------------------------
+    def _watchdog(self, step: int, dt: float) -> None:
+        self._step_times.append(dt)
+        if len(self._step_times) < 5:
+            return
+        med = float(np.median(self._step_times[-50:]))
+        if dt > self.tcfg.straggler_factor * med:
+            self.straggler_events.append(step)
+            if self.on_straggler:
+                self.on_straggler(step, dt)
+            else:
+                print(f"[trainer] straggler at step {step}: "
+                      f"{dt * 1e3:.0f}ms vs median {med * 1e3:.0f}ms "
+                      f"(would trigger hot-spare swap)", flush=True)
+
+    def run(self) -> Dict[str, Any]:
+        """Single run attempt; raises SimulatedFailure if injected."""
+        while self.step < self.tcfg.max_steps:
+            step = self.step
+            if self.tcfg.failure_at is not None and step == self.tcfg.failure_at:
+                self.tcfg.failure_at = None   # fail once
+                raise SimulatedFailure(f"injected failure at step {step}")
+            batch = self.batch_at(step)
+            self._sync()
+            t0 = time.time()
+            self.state, metrics = self._step_fn(self.state, batch)
+            self._sync()
+            dt = time.time() - t0
+            self._watchdog(step, dt)
+            m = {k: float(v) for k, v in metrics.items()}
+            m["step"], m["step_time_s"] = step, dt
+            self.metrics_log.append(m)
+            if step % self.tcfg.log_every == 0:
+                print(f"[trainer] step {step} loss {m['loss']:.4f} "
+                      f"({dt * 1e3:.0f}ms)", flush=True)
+            new_step = step + 1
+            if self._ckpt is not None and new_step % self.tcfg.ckpt_every == 0:
+                self._ckpt.save(new_step, self.state)
+        if self._ckpt is not None:
+            self._ckpt.save(self.step, self.state)
+            self._ckpt.wait()
+        return {"final_step": self.step, "metrics": self.metrics_log,
+                "stragglers": self.straggler_events}
+
+    def run_with_restarts(self, max_restarts: int = 3) -> Dict[str, Any]:
+        """Supervisor loop: restart from the latest checkpoint on failure."""
+        attempts = 0
+        while True:
+            try:
+                return self.run()
+            except SimulatedFailure as e:
+                attempts += 1
+                if attempts > max_restarts or self._ckpt is None:
+                    raise
+                print(f"[trainer] {e}; restarting "
+                      f"({attempts}/{max_restarts})", flush=True)
+                self._ckpt.wait()
+                self.state = self._init_or_restore()
 
 
 @dataclasses.dataclass

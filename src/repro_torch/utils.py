@@ -1,7 +1,8 @@
 """Small shared utilities (counterpart of ``repro/utils.py``)."""
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+import dataclasses
+from typing import Any, Callable, List, Tuple, Type
 
 import numpy as np
 import torch
@@ -49,11 +50,34 @@ def leaf_from_numpy(a: Any) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
+# Dataclasses whose instances are tree nodes (``optim.OptState``): their
+# fields are the children, in order, each written ``[<flat index i>]`` as
+# ``keystr`` writes the children of a node the reference registers without
+# keys (its ``OptState``'s mu, nu and count).
+_NODES: set = set()
+
+
+def register_node(cls: Type) -> Type:
+    """Make instances of the dataclass ``cls`` tree nodes (see ``_NODES``);
+    returns ``cls``, so it can decorate the class."""
+    _NODES.add(cls)
+    return cls
+
+
+def _children(tree: Any) -> List[Any]:
+    return [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+
+
 def leaf_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
-    """(path, leaf) of every tensor or array in a nest of lists, tuples and
-    dicts, in the JAX package's leaf order (a list index, then a sorted
-    dict key), each path written as ``jax.tree_util.keystr`` writes it:
-    ``[0]['w_b']``.  Checkpoint keys and AdamW's decay mask read them."""
+    """(path, leaf) of every tensor or array in a nest of lists, tuples,
+    dicts and registered dataclasses, in the JAX package's leaf order (a
+    list index, then a sorted dict key), each path written as
+    ``jax.tree_util.keystr`` writes it: ``[0]['w_b']``,
+    ``['opt'][<flat index 0>]['embed']``.  Checkpoint keys and AdamW's
+    decay mask read them."""
+    if type(tree) in _NODES:
+        return [kv for i, v in enumerate(_children(tree))
+                for kv in leaf_paths(v, f"{prefix}[<flat index {i}>]")]
     if isinstance(tree, dict):
         return [kv for k in sorted(tree)
                 for kv in leaf_paths(tree[k], f"{prefix}[{k!r}]")]
@@ -67,6 +91,10 @@ def tree_map_with_path(fn: Callable[[str, Any], Any], tree: Any,
                        prefix: str = "") -> Any:
     """``fn(path, leaf)`` for every leaf of ``tree`` (paths as
     ``leaf_paths`` writes them), in a tree of the same structure."""
+    if type(tree) in _NODES:
+        return type(tree)(*(tree_map_with_path(fn, v,
+                                               f"{prefix}[<flat index {i}>]")
+                            for i, v in enumerate(_children(tree))))
     if isinstance(tree, dict):
         return {k: tree_map_with_path(fn, v, f"{prefix}[{k!r}]")
                 for k, v in tree.items()}
@@ -79,6 +107,10 @@ def tree_map_with_path(fn: Callable[[str, Any], Any], tree: Any,
 def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     """``fn`` applied leaf by leaf to ``tree`` and the trees ``rest`` of
     the same structure, which the result keeps."""
+    if type(tree) in _NODES:
+        rests = [_children(r) for r in rest]
+        return type(tree)(*(tree_map(fn, v, *(r[i] for r in rests))
+                            for i, v in enumerate(_children(tree))))
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}

@@ -16,12 +16,16 @@ each output in one fixed order, the int8 one exactly.
 """
 import dataclasses
 import json
+import os
 from pathlib import Path
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the LM train step runs under deterministic algorithms, whose cuBLAS
+# setting torch reads once a process
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 from repro_torch.configs.vikin_models import VIKIN_ARCHS  # noqa: E402
 from repro_torch.core.sparsity import (  # noqa: E402
@@ -1637,3 +1641,102 @@ def test_kan_drop_in_serve_steps_on_card(cuda, name, dtype):
         lc, _ = TT.decode_step(params, cfg, step, cc)
         lg, _ = TT.decode_step(on_card, cfg, step.to(cuda), cg, ffns=ffns)
         _close(lg.float().cpu(), lc.float(), tol)
+
+
+# ------------------------------------------------------------ LM training
+# The bf16 KAN gradient (the bf16 fused-KAN kernel forward; the
+# spline-basis kernel's bases for d wt, the de Boor recursion reversed
+# in bf16 torch ops for dx) on the card against the same layer on the
+# CPU, in units of 2**-8 * (1 + max|cpu|), which is half an ulp of the
+# largest entries: the products' f32 sums run in other orders, so a
+# rounded product may land an ulp apart (d wt: 2 units), and dx adds
+# two branches that each carry such an ulp of g wt^T (4 units; 2.56
+# measured at 256 x 608 -> 896 on an H100).
+LM_GRAD_ULPS = {"y": 1, "dx": 4, "dwt": 2}
+LM_STEP_GRAD_ULPS = 4
+
+
+@pytest.mark.parametrize("B,n_in,n_out", [(64, 96, 40), (256, 896, 608),
+                                          (256, 608, 896)])
+def test_bf16_kan_grad_on_card_matches_cpu(cuda, B, n_in, n_out):
+    spec = SplineSpec(4, 3)
+    kb = (0, 2, 4, 5, 6)
+    gen = torch.Generator().manual_seed(n_in)
+    x = torch.randn((B, n_in), generator=gen)
+    x[0, :4] = torch.tensor([spec.x0, 1.0, 1.5, -1.5])
+    x = x.to(BF)
+    wt = (torch.randn((n_in * (len(kb) + 1), n_out), generator=gen)
+          * 0.05).to(BF)
+    g = torch.randn((B, n_out), generator=gen).to(BF)
+    out = {}
+    for dev in ("cpu", cuda):
+        xd = x.to(dev).clone().requires_grad_(True)
+        wd = wt.to(dev).clone().requires_grad_(True)
+        before = dict(_build.LAUNCHES)
+        y = kan_fused_v2(xd, wd, spec, kb)
+        y.backward(g.to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                        if v != before[k]}
+            assert launched == {"kan_fused_v2_bf16": 1,
+                                "spline_basis_bf16": 1}
+        out[str(dev)] = (y.detach().cpu(), xd.grad.cpu(), wd.grad.cpu())
+    for got, ref, name in zip(out["cuda"], out["cpu"], ("y", "dx", "dwt")):
+        assert got.dtype == BF, name
+        err = float((got.float() - ref.float()).abs().max())
+        scale = 1.0 + float(ref.float().abs().max())
+        print(f"{name}: {err / scale / BF16_ULP:.3f} units of 2**-8 (1+max)")
+        _close(got.float(), ref.float(), LM_GRAD_ULPS[name] * BF16_ULP)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_lm_train_step_on_card(cuda, dtype):
+    """One ``make_train_step`` of the reduced qwen2-0.5b with the KAN
+    drop-in on the card: its launches (a fused-KAN launch a KAN layer
+    forward, a spline-basis launch a KAN layer for d wt, and at f32 one
+    more for dx), and its loss and gradients against the same step on
+    the CPU."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps as TS
+    from repro_torch.utils import tree_map
+
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduce(),
+                              ffn_kind="kan", pattern_rate=0.5, dtype=dtype)
+    opts = TS.StepOptions(lr=1e-2, total_steps=2, warmup=0)
+    state = TS.init_train_state(cfg, opts, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 33)).astype(np.int32))
+    seen = {}
+    orig = TS.adamw_update
+
+    def adamw(grads, *a, **k):
+        seen[grads["embed"]["table"].device.type] = grads
+        return orig(grads, *a, **k)
+
+    TS.adamw_update = adamw
+    try:
+        cpu_state, cpu_m = TS.make_train_step(cfg, opts)(state,
+                                                         {"tokens": toks})
+        on_card = tree_map(lambda a: a.to(cuda), state)
+        before = dict(_build.LAUNCHES)
+        new, m = TS.make_train_step(cfg, opts)(on_card,
+                                               {"tokens": toks.to(cuda)})
+        torch.cuda.synchronize()
+    finally:
+        TS.adamw_update = orig
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                if v != before[k]}
+    n = 2 * cfg.n_layers
+    suffix = "_bf16" if dtype == "bfloat16" else ""
+    assert launched == {"kan_fused_v2" + suffix: n,
+                        "spline_basis" + suffix: n * (1 if suffix else 2)}
+    assert int(new["step"]) == 1
+    rtol = 1e-3 if suffix else 1e-5
+    assert abs(float(m["loss"]) - float(cpu_m["loss"])) <= rtol * float(
+        cpu_m["loss"])
+    tol = LM_STEP_GRAD_ULPS * BF16_ULP if suffix else 1e-4
+    got, ref = dict(leaf_paths(seen["cuda"])), dict(leaf_paths(seen["cpu"]))
+    for k in ref:
+        assert got[k].dtype == ref[k].dtype, k
+        _close(got[k].float().cpu(), ref[k].float(), tol)

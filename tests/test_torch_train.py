@@ -204,8 +204,6 @@ def test_gradient_refused_where_the_reference_does_not_train():
     x = torch.rand((4, 3), requires_grad=True)
     wt = torch.rand((3 * (len(kb) + 1), 2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kan_fused_v2(x.to(torch.bfloat16), wt.to(torch.bfloat16), spec, kb)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         kan_fused_v1(x, wt[:3], wt[3:3 + 3 * len(kb)], spec, kb)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         kan_fused_v2_q8(torch.zeros((4, 3), dtype=torch.int8),
@@ -217,6 +215,28 @@ def test_gradient_refused_where_the_reference_does_not_train():
                                                          dtype=torch.bfloat16))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         matmul_compact(x, torch.rand(3, 2), act="gelu")
+
+
+def test_bf16_v2_gradient_runs():
+    """The bf16 version-2 layer has a gradient (bf16 x and wt, bf16 out):
+    through ``KanFusedV2``, each gradient in its operand's dtype; a bf16
+    x with an f32 output still refuses one."""
+    spec = SplineSpec(4, 3)
+    kb = (0, 2, 4, 5, 6)
+    g = torch.Generator().manual_seed(3)
+    x = (torch.rand((6, 3), generator=g) * 2.4 - 1.2).to(torch.bfloat16)
+    wt = torch.randn((3 * (len(kb) + 1), 2), generator=g).to(torch.bfloat16)
+    x.requires_grad_(True)
+    wt.requires_grad_(True)
+    y = kan_fused_v2(x, wt, spec, kb)
+    assert y.dtype == torch.bfloat16
+    assert "KanFusedV2Backward" in _nodes(y)
+    y.float().sum().backward()
+    for t in (x, wt):
+        assert t.grad.dtype == torch.bfloat16
+        assert torch.isfinite(t.grad.float()).all() and t.grad.abs().sum() > 0
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kan_fused_v2(x, wt, spec, kb, out_dtype=torch.float32)
 
 
 def test_serving_path_takes_no_gradient_path():
@@ -370,8 +390,10 @@ def test_train_launcher_checkpoint_restores_in_the_reference_and_serves(
                            "--device", "cpu", "--precision", precision,
                            "--requests", "4"])
         assert eng.stats["served"] == 4
+    # a transformer arch trains (tests/test_torch_lm_train.py); its
+    # --dry-run (the reference's lower-and-compile for a mesh) is refused
     with pytest.raises(SystemExit, match="ROADMAP"):
-        ttrain.main(["--arch", "qwen2-0.5b", "--device", "cpu"])
+        ttrain.main(["--arch", "qwen2-0.5b", "--device", "cpu", "--dry-run"])
     # the reference serves what the port trained, from the same numbers
     back = stack_params_to_numpy(
         tserve.restore_checkpoint(ck, [
