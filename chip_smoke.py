@@ -8,8 +8,9 @@ Run from anywhere on a machine with one NVIDIA GPU:
 Phases, each of which fails the run (non-zero exit) on any fault:
 
 1. device and build -- print the card (nvidia-smi name and power limit)
-   and the torch/CUDA versions, then build all ten kernels (six f32 and
-   int8, four bf16) from ``src/repro_torch/kernels/*/csrc/*.cu`` with
+   and the torch/CUDA versions, then build all eleven kernels (six f32
+   and int8, four bf16, one bf16 x against f32 weights) from
+   ``src/repro_torch/kernels/*/csrc/*.cu`` with
    nvcc for sm_90a, one compiler per source, in parallel, and print what
    ptxas gives every kernel instance (registers, spills); no instance
    may spill;
@@ -44,8 +45,13 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    (``2**-8 * (1 + max|plain|)``) at bf16 out, the matmul within one
    bf16 ulp (f32 out within 1e-5), the spline basis bitwise (every G x
    K, in and out of range, every ``block_n``, outputs 2..14 bytes past a
-   16-byte boundary); every knob bitwise the default's; batched == single
-   bitwise at buckets 2/4/8/16 and 8192;
+   16-byte boundary; and on all 65 280 finite bf16 inputs, NaN for NaN);
+   bf16 v1 (tensor cores) also within one bf16 ulp of bf16 v2; every knob
+   bitwise the default's; batched == single bitwise at buckets 2/4/8/16
+   and 8192; the mixed kernel (a bf16 x against f32 fused rows, a bf16
+   model's: its t is f32) at the KAN drop-in's 896->608->896 and
+   1024->512->1024 (M = 1024, and 12000 for whisper's encoder) against
+   its plain version, every knob bitwise, batched == single;
 3. serve -- 48 requests of vikin-kan2, vikin-mlp3 and vikin-mixed through
    the port's Engine + MultiWorkloadBackend on 8 slots, once in f32 and
    once in int8: every answer against the same stack run through the
@@ -81,7 +87,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    a backend forward, the stack on the card, the kernels alone); the same
    rows for the four bf16 kernels (their multiply-adds at the bf16
    rate, the SPU and spline work at the f32 rate; library ``addmm`` in
-   bf16 with f32 accumulation) and the per-arch breakdown at bf16;
+   bf16 with f32 accumulation), the mixed kernel on the bf16 stack's
+   input against the f32 stack's rows (its multiply-adds at the f32
+   rate), and the per-arch breakdown at bf16;
 5. the v1 path -- a ``KANLayer`` at ``version=1`` built from the
    vikin-kan2 stack's weights runs forward on the card at buckets
    2/4/8/16, 8192 and 65535 * 16 + 1 (more 16-row tiles than grid.y
@@ -230,20 +238,24 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 13. LM training (``lm_train_phase``): qwen2-0.5b with the reference's
    KAN drop-in (896 -> 608 -> 896, kept bases 0, 2, 4, 5, 6) at full
    width, ``SyntheticLM`` batches of 8 x 128 tokens: (a) each KAN layer
-   at M = 1024, bf16 and f32: the forward and dx, d wt through the
-   kernels against the plain versions on the card, the launches, the
-   fused-KAN and spline-basis times and bounds at these shapes; (b)
-   ``Trainer`` at bf16, full depth, 8 steps: first loss near ln(vocab),
-   finite losses, 48 ``kan_fused_v2_bf16`` and 48 ``spline_basis_bf16``
-   launches a step and no other kernel, host and device ms a step, idle
-   share, peak memory; (c) at 4 layers, a run killed at step 3 and
+   at M = 1024, bf16, mixed (bf16 x, f32 rows) and f32: the forward and
+   dx, d wt through the kernels against the plain versions on the card,
+   the launches, the fused-KAN and spline-basis times and bounds at these
+   shapes; (b) ``Trainer`` at bf16 (its t f32, as the reference's), full
+   depth, 8 steps: first loss near ln(vocab), finite losses, 48
+   ``kan_fused_v2_mixed`` and 48 ``spline_basis_bf16`` launches a step
+   and no other kernel, host and device ms a step, idle share, peak
+   memory, and one more step with every mixed launch within one bf16 ulp
+   of its plain version on its input; (c) at 4 layers, a run killed at
+   step 3 and
    restarted from its checkpoint bitwise equal to a clean run; (d) the
    f32 twin, 2 steps, loss and every gradient leaf against the plain
    versions on the same params; (e) the train launcher at full scale, 4
    steps, as a subprocess.
 
 No served path launches the spline-basis or v1 kernels, so their
-``launches`` in the record are those of phases 6 and 5.  The served rows
+``launches`` in the record are those of phases 6 and 5; the mixed
+kernel's are phase 13 (b)'s.  The served rows
 also carry ``launches_openloop``, their launches in phase 7's replays,
 every row ``launches_train``, its launches in phase 8 (b)'s first
 run of each arch, ``launches_paper``, its launches in phase 9's
@@ -441,14 +453,26 @@ KERNEL_INFO = {
         "source": ("src/repro_torch/kernels/spline_basis/csrc/"
                    "spline_basis_bf16.cu"),
         "headers": ["src/repro_torch/kernels/spline_basis/csrc/"
-                    "spline_basis.cuh"],
+                    "spline_basis.cuh",
+                    "src/repro_torch/kernels/kan_fused/csrc/kan_fused.cuh"],
         "replaces": "src/repro/kernels/spline_basis/spline_basis.py:68",
     },
     "kan_fused_v1_bf16": {
         "source": ("src/repro_torch/kernels/kan_fused/csrc/"
                    "kan_fused_v1_bf16.cu"),
-        "headers": ["src/repro_torch/kernels/kan_fused/csrc/kan_split.cuh"],
+        "headers": ["src/repro_torch/kernels/kan_fused/csrc/kan_mma.cuh",
+                    "src/repro_torch/kernels/kan_fused/csrc/kan_split.cuh",
+                    "src/repro_torch/kernels/pattern_matmul/csrc/"
+                    "mma_bf16.cuh"],
         "replaces": "src/repro/kernels/kan_fused/kan_fused.py:227",
+    },
+    # a bf16 x against f32 fused rows: a bf16 model's, whose spline
+    # coefficients t are f32 as the reference's kan_init draws them
+    "kan_fused_v2_mixed": {
+        "source": ("src/repro_torch/kernels/kan_fused/csrc/"
+                   "kan_fused_mixed.cu"),
+        "headers": ["src/repro_torch/kernels/kan_fused/csrc/kan_split.cuh"],
+        "replaces": "src/repro/kernels/kan_fused/kan_fused.py:284",
     },
 }
 F32_KERNELS = ("kan_fused_v2", "pattern_matmul")
@@ -456,11 +480,13 @@ Q8_KERNELS = ("kan_fused_v2_q8", "pattern_matmul_q8")
 TOOLING_KERNELS = ("spline_basis", "kan_fused_v1")
 BF16_KERNELS = ("kan_fused_v2_bf16", "pattern_matmul_bf16")
 BF16_TOOLING_KERNELS = ("spline_basis_bf16", "kan_fused_v1_bf16")
+MIXED = "kan_fused_v2_mixed"     # bf16 x, f32 weights, bf16 or f32 out
 PRECISIONS = ("f32", "int8", "bf16")
 SERVED_KERNELS = {"f32": F32_KERNELS, "int8": Q8_KERNELS,
                   "bf16": BF16_KERNELS}    # (KAN, matmul) per precision
 DTYPE = {k: "bfloat16" if k.endswith("_bf16") else
          "int8" if k.endswith("_q8") else "float32" for k in KERNEL_INFO}
+DTYPE[MIXED] = "bfloat16 x, float32 weights"
 BF, F32 = torch.bfloat16, torch.float32
 SUFFIX = {F32: "", BF: "_bf16"}            # kernel name by operand dtype
 
@@ -2108,7 +2134,8 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
     ``LM_SEQ`` tokens (M = 1024 rows a KAN layer).
 
     (a) each KAN layer of the step at M = 1024 (896 -> 608 and 608 ->
-    896), bf16 and f32: the forward against its plain version (one bf16
+    896), bf16, mixed (bf16 x, f32 fused rows: the train step's) and
+    f32: the forward against its plain version (one bf16
     ulp; f32 ``KERNEL_TOL``), dx and d wt through the kernels against
     the same gradient from the plain versions on the card (bf16: the
     same backward with the plain spline basis, ``LM_LAYER_GRAD_ULPS``;
@@ -2117,9 +2144,11 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
     the spline basis's times and bounds at these shapes;
     (b) ``Trainer`` at bf16, full width and depth, ``LM_STEPS`` steps:
     the first loss near ln(vocab), every loss finite, the launches a
-    step by kernel (``kan_fused_v2_bf16`` and ``spline_basis_bf16``, 48
-    each, no other kernel of the port), host ms a step, device ms from
-    the profiler, idle share, peak device memory;
+    step by kernel (``kan_fused_v2_mixed`` -- the bf16 model's t is f32,
+    as the reference's -- and ``spline_basis_bf16``, 48 each, no other
+    kernel of the port), host ms a step, device ms from the profiler,
+    idle share, peak device memory, then one more step with each mixed
+    launch held to its plain version on its input (one bf16 ulp);
     (c) the same at ``LM_RESTART_DEPTH`` layers, a clean run and one with
     ``failure_at=3``, ``ckpt_every=2``, ``keep=1`` through
     ``run_with_restarts``: the final state (params, moments, step) of
@@ -2192,10 +2221,13 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
         wt_f = KO.fuse_wt(lp["w_b"], KO.flatten_t(lp["t"], LM_KB), nbk)
         x_f = torch.randn((M, n_in), generator=gen(61), device=dev)
         g_f = torch.randn((M, n_out), generator=gen(62), device=dev)
-        for dt in (BF, F32):
-            prec = "bf16" if dt == BF else "f32"
+        # bf16 fused rows (a model whose every leaf is cast to bf16), f32
+        # rows beside a bf16 x (a bf16 model's own draw: f32 t, the train
+        # step's path) and the f32 twin
+        for prec, dt, wdt in (("bf16", BF, BF), ("mixed", BF, F32),
+                              ("f32", F32, F32)):
             label = f"{what} {n_in}->{n_out} {prec}"
-            x, wt, g = x_f.to(dt), wt_f.to(dt).contiguous(), g_f.to(dt)
+            x, wt, g = x_f.to(dt), wt_f.to(wdt).contiguous(), g_f.to(dt)
             xk = x.clone().requires_grad_(True)
             wk = wt.clone().requires_grad_(True)
             _build.reset_launches()
@@ -2203,8 +2235,8 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
             y.backward(g)
             torch.cuda.synchronize()
             sfx = SUFFIX[dt]
-            want = {"kan_fused_v2" + sfx: 1,
-                    "spline_basis" + sfx: 1 if dt == BF else 2}
+            kname = MIXED if prec == "mixed" else "kan_fused_v2" + sfx
+            want = {kname: 1, "spline_basis" + sfx: 1 if dt == BF else 2}
             check(launched() == want, f"(a) {label}: launches "
                   f"{launched()}, want {want}")
             with torch.no_grad():
@@ -2226,9 +2258,10 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
                 dx_p, dwt_p = xp.grad, wp.grad
                 grad_tol = KERNEL_TOL
             errs = {"y": err_y / scale_y}
-            for name, got, want_g in (("dx", xk.grad, dx_p),
-                                      ("dwt", wk.grad, dwt_p)):
-                check(got.dtype == dt, f"(a) {label}: {name} is {got.dtype}")
+            for name, got, want_g, gdt in (("dx", xk.grad, dx_p, dt),
+                                           ("dwt", wk.grad, dwt_p, wdt)):
+                check(got.dtype == gdt,
+                      f"(a) {label}: {name} is {got.dtype}")
                 err, scale, nan = rel_err(got, want_g)
                 check(not nan and err <= grad_tol * scale,
                       f"(a) {label}: {name} {err:.3e} from the plain "
@@ -2245,10 +2278,13 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
                  for c in range(spec.grid_size)], device=dev)
             hits = int(kept[cell].sum())
             esz = 2.0 if dt == BF else 4.0
-            mac_rate = BF16_FLOPS_PER_S if dt == BF else F32_FLOPS_PER_S
+            # bf16 products on tensor cores; the mixed and f32 kernels' f32
+            # FMAs on CUDA cores
+            mac_rate = BF16_FLOPS_PER_S if prec == "bf16" else F32_FLOPS_PER_S
             slot_of = KO.slot_table(LM_KB, spec.n_bases, dev)
-            n_bytes = esz * (x.numel() + wt.numel() + M * n_out) + 4.0 * (
-                slot_of.numel())
+            n_bytes = (esz * (x.numel() + M * n_out)
+                       + wt.element_size() * wt.numel()
+                       + 4.0 * slot_of.numel())
             work = [(2.0 * n_out * (M * n_in + hits), mac_rate),
                     (M * n_in * (spu_op_count(spec) + 4), F32_FLOPS_PER_S)]
             t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -2268,8 +2304,10 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
                 return plain_basis(xc, spec)
 
             with torch.no_grad():
+                # a step (b) launches the mixed kernel, the f32 twin (d)
+                # the f32 one; no train path launches the bf16 kernel here
                 kernel_rows.append({
-                    "kernel": "kan_fused_v2" + sfx, "layer": what,
+                    "kernel": kname, "layer": what,
                     "shape": [M, n_in, n_out], "nbk": nbk,
                     "precision": prec,
                     "ms": time_ms(kern, iters=10, reps=5),
@@ -2277,9 +2315,14 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
                     "plain_ms": time_ms(kplain, iters=3, reps=3),
                     "library_ms": None, "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                    "kept_basis_hits": hits, "launches_a_step": cfg.n_layers,
+                    "kept_basis_hits": hits,
+                    "launches_a_step": 0 if prec == "bf16" else cfg.n_layers,
                     "card": card})
                 print(json.dumps(kernel_rows[-1]))
+                if prec == "mixed":      # the bf16 row timed these bases
+                    del x, wt, g, xk, wk, y, ref, dx_p, dwt_p
+                    free()
+                    continue
                 n = xc.numel()
                 s_bytes = esz * (n + n * spec.n_bases)
                 s_ops = n * (spu_op_count(spec) + 4) / F32_FLOPS_PER_S
@@ -2302,7 +2345,8 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
     del p_f
     free()
     print("phase 13: (a) the KAN drop-in's layers at M = "
-          f"{M}: one fused-KAN and one (bf16) or two (f32) spline-basis "
+          f"{M}: one fused-KAN (bf16, mixed or f32) and one (bf16 x) or two "
+          "(f32) spline-basis "
           "launches a forward and backward, each within its tolerance of "
           "its plain version (err / (1 + max): " + "; ".join(
               f"{k} " + ", ".join(f"{n} {v:.2e}" for n, v in e.items())
@@ -2337,11 +2381,15 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
     _build.reset_launches()
     out = tr.run()
     torch.cuda.synchronize()
-    per_step = {k: v / LM_STEPS for k, v in launched().items()}
-    want = {"kan_fused_v2_bf16": 2 * cfg.n_layers,
-            "spline_basis_bf16": 2 * cfg.n_layers}
+    launches_b = launched()
+    per_step = {k: v / LM_STEPS for k, v in launches_b.items()}
+    # the bf16 model's t is f32 (the reference's kan_init): its fused rows
+    # are f32, so every KAN layer is the mixed kernel, with no cast
+    check(all(a.dtype == F32 for k, a in leaf_paths(tr.state["params"])
+              if k.endswith("['t']")), "(b) a KAN layer's t is not f32")
+    want = {MIXED: 2 * cfg.n_layers, "spline_basis_bf16": 2 * cfg.n_layers}
     check(per_step == want, f"(b) launches a step {per_step}, want {want}")
-    for k, v in launched().items():
+    for k, v in launches_b.items():
         launches_lm[k] = launches_lm.get(k, 0) + v
     losses = [m["loss"] for m in out["metrics"]]
     check(out["final_step"] == LM_STEPS and all(map(math.isfinite, losses)),
@@ -2355,9 +2403,37 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
     step_fn = ST.make_train_step(cfg, opts)
     dms, nk, top = dev_ms(lambda: step_fn(tr.state, batch))
     check(dms > 0, "(b) the profiler saw no device time")
+    # one more step, each of its mixed launches held to its plain version
+    # on the input it is served: one launch's tolerance (one bf16 ulp)
+    held = {"n": 0, "worst": 0.0}
+    served_v2 = KO.kan_fused_v2
+
+    def held_v2(x, wt, spec, kb, slot_of=None, **kw):
+        y = served_v2(x, wt, spec, kb, slot_of, **kw)
+        with torch.no_grad():
+            ref = kan_fused_v2_ref(x.detach(), wt.detach(), spec, kb,
+                                   kw.get("out_dtype"))
+        err, scale, nan = rel_err(y.detach(), ref)
+        check(not nan and err <= BF16_ULP * scale,
+              f"(b) a {MIXED} launch {tuple(x.shape)} -> {tuple(y.shape)}: "
+              f"{err:.3e} from its plain version, vs {BF16_ULP:g} * "
+              f"{scale:.4g}")
+        held["n"] += 1
+        held["worst"] = max(held["worst"], err / scale)
+        return y
+
+    before = dict(_build.LAUNCHES)
+    with mock.patch.object(KO, "kan_fused_v2", held_v2):
+        step_fn(tr.state, batch)
+    torch.cuda.synchronize()
+    check(held["n"] == 2 * cfg.n_layers and _build.LAUNCHES[MIXED] -
+          before[MIXED] == held["n"], f"(b) the held step ran {held['n']} "
+          f"layer calls, {_build.LAUNCHES[MIXED] - before[MIXED]} launches")
     host_med = statistics.median(host_steps)
     train = {"arch": cfg.name, "params": n_params, "steps": LM_STEPS,
              "losses": losses, "launches_a_step": per_step,
+             "mixed_launches_held": held["n"],
+             "mixed_worst_err": held["worst"],
              "host_ms_steps": host_steps, "host_ms": host_med,
              "device_ms": dms, "idle_share": 1.0 - dms / host_med,
              "kernels_a_step": nk, "top_device_ops": top,
@@ -2369,7 +2445,10 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
           + f"; launches a step {per_step}; host {host_med:.3f} ms a step "
           f"(median of steps 1-{LM_STEPS - 1}), device {dms:.3f} ms (idle "
           f"{train['idle_share'] * 100:.1f}%, {nk} kernels), peak "
-          f"{peak / 2 ** 30:.2f} GiB; top device ops {top[:4]} ({card})")
+          f"{peak / 2 ** 30:.2f} GiB; top device ops {top[:4]}; one more "
+          f"step's {held['n']} {MIXED} launches within "
+          f"{held['worst'] / BF16_ULP:.2f} bf16 ulps of their plain "
+          f"versions ({card})")
     del tr, out, batch
     free()
 
@@ -2510,6 +2589,7 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
     return {"kernel_rows": kernel_rows, "layer_err": layer_err,
             "train": train, "restart": restart, "f32_twin": twin,
             "launcher": tail, "launches": launches_lm,
+            "launches_b": launches_b,
             "seconds": time.perf_counter() - t_phase}
 
 
@@ -2563,6 +2643,7 @@ def main() -> int:
     from repro_torch.kernels import _build, autotune
     from repro_torch.kernels.kan_fused.ops import (
         flatten_t,
+        fuse_wt,
         kan_fused_v1,
         kan_fused_v2,
         kan_fused_v2_q8,
@@ -2623,7 +2704,7 @@ def main() -> int:
     from repro_torch.benchmarks import table1_models as T1
     from repro_torch.benchmarks import table2_overall as T2
     from repro_torch.configs.vikin_models import PAPER_MODELS
-    from repro_torch.core.kan import KANConfig
+    from repro_torch.core.kan import KANConfig, kan_init
     from repro_torch.data.traffic import TrafficConfig, load_traffic
     from repro_torch.data.traffic import batches as traffic_batches
     from repro_torch.optim import AdamWConfig, adamw_init, constant_schedule
@@ -2856,23 +2937,24 @@ def main() -> int:
                 (buf[off + n * nb:] == -7.0).all()),
                 f"{name} {what}: a store outside the output")
 
-    v1_v2 = {"err": 0.0, "n": 0}
+    v1_v2 = {F32: {"err": 0.0, "n": 0}, BF: {"err": 0.0, "n": 0}}
 
     def check_v1(x, w_b, t_flat, wt, spec, kb, slot, what: str) -> None:
-        compare_calls("kan_fused_v1" + SUFFIX[x.dtype],
-                      lambda od=None: kan_fused_v1(x, w_b, t_flat, spec, kb,
-                                                   slot, out_dtype=od),
-                      lambda od=None: kan_fused_v1_ref(x, w_b, t_flat, spec,
-                                                       kb, od), what)
-        if x.dtype != F32:
-            return
-        got = kan_fused_v1(x, w_b, t_flat, spec, kb, slot)
+        """v1 against its plain version and against v2 on the same
+        weights (f32 within KERNEL_TOL, bf16 within one ulp)."""
+        got = compare_calls(
+            "kan_fused_v1" + SUFFIX[x.dtype],
+            lambda od=None: kan_fused_v1(x, w_b, t_flat, spec, kb, slot,
+                                         out_dtype=od),
+            lambda od=None: kan_fused_v1_ref(x, w_b, t_flat, spec, kb, od),
+            what)
+        tol = KERNEL_TOL if x.dtype == F32 else BF16_ULP
         err, scale, nan = rel_err(got, kan_fused_v2(x, wt, spec, kb, slot))
-        check(not nan and err <= KERNEL_TOL * scale,
-              f"kan_fused_v1 {what}: max|v1 - v2| = {err:.3e} > "
-              f"{KERNEL_TOL:g} * {scale:.4g} (NaN: {nan})")
-        v1_v2["err"] = max(v1_v2["err"], err)
-        v1_v2["n"] += 1
+        check(not nan and err <= tol * scale,
+              f"kan_fused_v1{SUFFIX[x.dtype]} {what}: max|v1 - v2| = "
+              f"{err:.3e} > {tol:g} * {scale:.4g} (NaN: {nan})")
+        v1_v2[x.dtype]["err"] = max(v1_v2[x.dtype]["err"], err)
+        v1_v2[x.dtype]["n"] += 1
 
     rng_sb = np.random.default_rng(3)
     for dtype, bes in by_dtype.items():
@@ -3212,6 +3294,113 @@ def main() -> int:
                 f"pattern_matmul_bf16: row {i} alone != row {i} of {b}")
             n_single += 3
     torch.cuda.synchronize()
+
+    # the bf16 spline basis on every bf16 bit pattern but NaN and inf, at
+    # every G x K and block_n, and into outputs 2..14 bytes past a 16-byte
+    # boundary: bitwise its plain version, NaN for NaN (huge inputs
+    # extrapolate to inf and NaN; the kernel's NaN is the card's
+    # canonical one, torch's another payload)
+    every_bf = torch.arange(1 << 16, dtype=torch.int32).to(
+        torch.int16).view(BF)
+    every_bf = every_bf[torch.isfinite(every_bf.float())].contiguous().to(
+        dev)
+    n_every = every_bf.numel()
+
+    def bits_equal(got: torch.Tensor, ref: torch.Tensor) -> bool:
+        gn, rn = torch.isnan(got.float()), torch.isnan(ref.float())
+        return bool(torch.equal(gn, rn)) and bool(
+            ((got.view(torch.int16) == ref.view(torch.int16)) | gn).all())
+
+    n_every_checks = 0
+    for g in VALID_G:
+        for k in VALID_K:
+            spec_a = SplineSpec(g, k)
+            nb = spec_a.n_bases
+            plain = spline_basis_plain(every_bf, spec_a)
+            for bn in sorted({c["block_n"] for c in
+                              autotune.candidates_spline_basis(
+                                  n_every, nb, BF)} | {32, 64, 128}):
+                check(bits_equal(spline_basis(every_bf, spec_a, block_n=bn),
+                                 plain),
+                      f"spline_basis_bf16 every bf16 input G{g}K{k} "
+                      f"block_n={bn}: kernel != plain, bitwise")
+                n_every_checks += 1
+            for off in range(1, 8):
+                buf = torch.full((n_every * nb + 16,), -7.0, device=dev,
+                                 dtype=BF)
+                _build.launch("spline_basis_bf16", every_bf.data_ptr(),
+                              buf[off:].data_ptr(), n_every, g, k,
+                              float(spec_a.x0), float(spec_a.inv_h), 256,
+                              torch.cuda.current_stream().cuda_stream)
+                check(bits_equal(buf[off:off + n_every * nb].reshape(
+                    n_every, nb), plain) and bool((buf[:off] == -7.0).all())
+                    and bool((buf[off + n_every * nb:] == -7.0).all()),
+                    f"spline_basis_bf16 every bf16 input G{g}K{k} output "
+                    f"+{2 * off} bytes: kernel != plain, or a stray store")
+                n_every_checks += 1
+    n_checks["spline_basis_bf16"] += n_every_checks
+    del every_bf, plain, buf
+    torch.cuda.synchronize()
+    print(f"phase 2 bf16: spline_basis_bf16 bitwise its plain version on "
+          f"all {n_every} finite bf16 inputs at every G x K, block_n and "
+          f"output offset: {n_every_checks} launches")
+
+    # the mixed kernel (a bf16 x against f32 fused rows: a bf16 model's,
+    # its t f32 as the reference's kan_init draws it) at the KAN drop-in's
+    # layers -- qwen2-0.5b's 896 -> 608 -> 896 and whisper-medium's
+    # 1024 -> 512 -> 1024, kept bases 0, 2, 4, 5, 6 -- at M = 1024 under
+    # every knob with batched == single, whisper's also at its encoder's
+    # M = 8 x 1500; no bf16 kernel and no cast
+    n_mixed = 0
+    for arch_m, d_m, h_m in (("qwen2-0.5b", 896, 608),
+                             ("whisper-medium", 1024, 512)):
+        for n_in, n_out in ((d_m, h_m), (h_m, d_m)):
+            p_m = kan_init(KANConfig(n_in, n_out, spec, basis_keep=kb),
+                           torch.Generator(device=dev).manual_seed(n_in),
+                           BF)
+            wt_m = fuse_wt(p_m["w_b"], flatten_t(p_m["t"], kb), len(kb))
+            check(p_m["w_b"].dtype == BF and wt_m.dtype == F32,
+                  f"{MIXED}: a bf16 kan_init gives w_b {p_m['w_b'].dtype} "
+                  f"and fused rows {wt_m.dtype}")
+            for M in (1024, 8 * 1500) if d_m == 1024 else (1024,):
+                xm = (torch.randn((M, n_in), generator=torch.Generator(
+                    device=dev).manual_seed(M + n_in), device=dev)
+                    * 1.5).to(BF)
+                what = f"{arch_m} {M}x{n_in}->{n_out}"
+                before = dict(_build.LAUNCHES)
+                ref_m = compare_calls(
+                    MIXED,
+                    lambda od=None: kan_fused_v2(xm, wt_m, spec, kb, slot,
+                                                 out_dtype=od),
+                    lambda od=None: kan_fused_v2_ref(xm, wt_m, spec, kb, od),
+                    what)
+                got_l = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                         if v != before[k]}
+                check(got_l == {MIXED: 2}, f"{MIXED} {what}: launches "
+                      f"{got_l}, want 2 of {MIXED} alone")
+                n_mixed += 1
+                if M != 1024:
+                    continue
+                for c in autotune.candidates_kan_fused(M, n_in, n_out,
+                                                       len(kb), BF, 2, F32):
+                    knob = (c["bm"], c["bi"], c["bn"])
+                    check(torch.equal(kan_fused_v2(xm, wt_m, spec, kb, slot,
+                                                   blocks=knob), ref_m),
+                          f"{MIXED} {what}: knob {knob} != the default "
+                          f"knob, bitwise")
+                    knob_checks[MIXED] = knob_checks.get(MIXED, 0) + 1
+                for i in (0, M // 2, M - 1):
+                    one = kan_fused_v2(xm[i:i + 1].contiguous(), wt_m, spec,
+                                       kb, slot, blocks=(8, 128, 8))
+                    check(torch.equal(one, ref_m[i:i + 1]),
+                          f"{MIXED} {what}: row {i} alone != row {i} of {M}")
+                    n_single += 1
+            del p_m, wt_m, xm, ref_m
+    torch.cuda.synchronize()
+    print(f"phase 2 bf16: {MIXED} at qwen2-0.5b's and whisper-medium's KAN "
+          f"drop-in layers, {n_mixed} shapes within tolerance of the plain "
+          f"version, {knob_checks.get(MIXED, 0)} knobs bitwise the "
+          f"default's, batched == single")
     print(f"phase 2 bf16: every candidate knob of the bf16 kernels bitwise "
           f"the default's at the served layers (B=8 and {BIG}) and, for "
           f"KAN, at ragged 77x37->13 and 77x301->33, G16K4 nbk=20 "
@@ -3225,13 +3414,16 @@ def main() -> int:
                                      "spline_basis_bf16")
                else f"bf16 out within {BF16_ULP:g}*(1+max|plain|), f32 out "
                f"within {KERNEL_TOL:g}*(1+max|plain|)" if name in
-               BF16_KERNELS + BF16_TOOLING_KERNELS
+               BF16_KERNELS + BF16_TOOLING_KERNELS + (MIXED,)
                else f"within {KERNEL_TOL:g}*(1+max|plain|)")
         print(f"phase 2: {name}: {n_checks[name]} shapes {how}, max abs "
               f"err {max_err[name]:.3e}")
-    print(f"phase 2: kan_fused_v1 vs kan_fused_v2: {v1_v2['n']} shapes "
-          f"within {KERNEL_TOL:g}*(1+max|v2|), max abs err "
-          f"{v1_v2['err']:.3e}; v1 batched == single, bitwise, on 6 rows")
+    print(f"phase 2: kan_fused_v1 vs kan_fused_v2: {v1_v2[F32]['n']} "
+          f"shapes within {KERNEL_TOL:g}*(1+max|v2|), max abs err "
+          f"{v1_v2[F32]['err']:.3e}; bf16 v1 vs bf16 v2: {v1_v2[BF]['n']} "
+          f"shapes within {BF16_ULP:g}*(1+max|v2|), max abs err "
+          f"{v1_v2[BF]['err']:.3e}; v1 batched == single, bitwise, on 6 "
+          f"rows")
 
     # ---------------------------------------------------------------- 3
     # a 48-request burst of the three archs through the launcher's engine
@@ -3575,6 +3767,31 @@ def main() -> int:
             rec["v2_ms"] = time_ms(v2)
             rec["v2_graph_ms"] = graph_ms(v2)
             torch.cuda.synchronize()
+
+    # the mixed kernel at the vikin-mixed KAN layer: the bf16 stack's
+    # input against the f32 stack's fused rows (a bf16 model holding the
+    # reference's f32 t), its multiply-adds at the f32 CUDA-core rate
+    f_layer = next(lay for lay in backends["vikin-mixed"].stack.layers
+                   if isinstance(lay, KANLayer))
+    for batch in (8, BIG):
+        _, xin = kan_inputs(bf_backends["vikin-mixed"].stack,
+                            rand(np.random.default_rng(2), batch,
+                                 "vikin-mixed", BF))[0]
+        n_in, n_out = f_layer.cfg.n_in, f_layer.cfg.n_out
+        a = new_acc()
+        time_into(a, lambda xin=xin: kan_fused_v2(
+            xin, f_layer.wt, f_layer.cfg.spec, f_layer.kb, f_layer.slot_of),
+                  lambda xin=xin: kan_fused_v2_ref(
+                      xin, f_layer.wt, f_layer.cfg.spec, f_layer.kb))
+        a["work"] = kan_work(f_layer, xin, F32_FLOPS_PER_S, 4)
+        a["bytes"] = (2.0 * (xin.numel() + batch * n_out)
+                      + 4.0 * (f_layer.wt.numel() + f_layer.slot_of.numel()))
+        a["shapes"] = [f"{batch}x{n_in}->{n_out} kb={list(f_layer.kb)} "
+                       f"bf16 x, f32 weights"]
+        a["blocks"] = [kan_blocks(batch, n_in, n_out, len(f_layer.kb), BF,
+                                  device=dev, wt_dtype=F32)]
+        record(MIXED, "bf16 x, f32 weights", batch, a)
+    torch.cuda.synchronize()
 
     # the int8 kernels at the int8 vikin-mixed stack's shapes
     q_stack = q8_backends["vikin-mixed"].stack
@@ -4606,6 +4823,7 @@ def main() -> int:
                 for p in PRECISIONS for k in SERVED_KERNELS[p]}
     launched["kan_fused_v1_bf16"] = (b_v1_launches["kan_fused_v1_bf16"],
                                      "phase 5, bf16 v1 path")
+    launched[MIXED] = (lm["launches_b"][MIXED], "phase 13 (b), LM training")
     launched["spline_basis_bf16"] = (bench_launches["spline_basis_bf16"],
                                      "phase 6, kernel bench")
     launched["kan_fused_v1"] = (v1_launches["kan_fused_v1"],

@@ -277,6 +277,18 @@ def knob_rules(checkout: Path) -> Dict[str, Dict[str, Callable]]:
     return rules
 
 
+def _takes_wt_dtype(fn: Callable) -> Callable:
+    """``fn``, or where a side's rule predates the mixed KAN kernel (no
+    ``wt_dtype``), ``fn`` with that keyword dropped: such a side has only
+    kernels whose weights are x's dtype."""
+    if "wt_dtype" in inspect.signature(fn).parameters:
+        return fn
+
+    def rule(*args, wt_dtype=None, **kwargs):
+        return fn(*args, **kwargs)
+    return rule
+
+
 @contextlib.contextmanager
 def use(side: Optional[Dict]) -> Iterator[None]:
     """Run the wrappers as ``side`` ships (``{"entries": C entries by
@@ -292,7 +304,7 @@ def use(side: Optional[Dict]) -> Iterator[None]:
     _build._entry = side["entries"].__getitem__
     for kernel, funcs in side["rules"].items():
         for f, fn in funcs.items():
-            setattr(KNOB_MODULES[kernel], f, fn)
+            setattr(KNOB_MODULES[kernel], f, _takes_wt_dtype(fn))
     try:
         yield
     finally:
@@ -316,12 +328,14 @@ def knobs_of(call: Callable[[], object], side: Optional[Dict]):
 
 
 def build_parent(parent: Path, out_dir: Path) -> Dict[str, Callable]:
-    """The parent's C entry of every kernel in ``_build.KERNELS``, built
-    from ``parent``'s sources (one ``nvcc`` each, all started together)
-    and loaded with ``ctypes``."""
+    """The parent's C entry of every kernel in ``_build.KERNELS`` that its
+    sources hold, built from them (one ``nvcc`` each, all started
+    together) and loaded with ``ctypes``."""
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     for name, (src, _, _) in _build.KERNELS.items():
+        if not (parent / src.relative_to(ROOT)).exists():
+            continue
         lib = out_dir / f"lib{name}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xcompiler",
                "-fno-gnu-unique", "-o", str(lib),

@@ -93,16 +93,24 @@ class KANConfig:
 def kan_init(cfg: KANConfig, generator: Optional[torch.Generator] = None,
              dtype: torch.dtype = torch.float32) -> Params:
     """KAN-paper style init on the generator's device (the CPU for None):
-    w_b ~ U(-1/sqrt(n_in), 1/sqrt(n_in)), spline coefficients
-    0.1/sqrt(n_in) * N(0, 1).  Same shapes and distributions as the JAX
-    ``kan_init``; the draws differ."""
+    w_b ~ U(-1/sqrt(n_in), 1/sqrt(n_in)) in ``dtype``, spline coefficients
+    ``t`` ~ 0.1/sqrt(n_in) * N(0, 1) in ``promote_types(dtype, f32)``.
+    Same shapes, distributions and dtypes as the JAX ``kan_init``; the
+    draws differ.
+
+    ``t`` is f32 in a bf16 model because it is in the reference: its
+    scale ``0.1 * scale_b`` is a numpy float64, a strongly typed scalar
+    that JAX (without x64) takes as f32, so the product promotes the
+    bf16 draw to f32.  A bf16 model's fused ``[w_b ; t]`` rows are then
+    f32, and its layers run the bf16-x / f32-weight kernel
+    (``kan_fused_v2``)."""
     scale_b = 1.0 / np.sqrt(cfg.n_in)
     device = torch.device("cpu") if generator is None else generator.device
     w_b = (torch.rand((cfg.n_in, cfg.n_out), generator=generator,
                       dtype=dtype, device=device) * 2.0 - 1.0) * scale_b
     t = 0.1 * scale_b * torch.randn(
         (cfg.n_in, cfg.spec.n_bases, cfg.n_out), generator=generator,
-        dtype=dtype, device=device)
+        dtype=torch.promote_types(dtype, torch.float32), device=device)
     return {"w_b": w_b, "t": t}
 
 

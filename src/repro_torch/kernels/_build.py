@@ -104,6 +104,14 @@ KERNELS = {
         # inv_h, out_f32, bm, bi, bn, stream
         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
          _I, _P)),
+    # bf16 x against f32 fused weights (a bf16 model's f32 spline rows)
+    "kan_fused_v2_mixed": (
+        KERNELS_DIR / "kan_fused" / "csrc" / "kan_fused_mixed.cu",
+        "kan_fused_v2_mixed",
+        # x, wt, slot_of, out, B, n_in, n_out, nbk, G, K, x0, hi, inv_h,
+        # out_f32, bm, bi, bn, stream
+        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I,
+         _P)),
 }
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)

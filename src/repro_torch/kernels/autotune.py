@@ -34,7 +34,8 @@ the JAX package), ``(bm, bk, bn)`` of the three pattern-matmul kernels,
 f32, bf16 and int8 alike under kernel ``pattern_matmul``, ``(bm, bi,
 bn)`` of the three version-2 KAN kernels under kernel ``kan_fused_v2``
 (the dtype tells f32, bf16 and int8 apart, as in the JAX
-``resolve_blocks``) and of the two version-1 KAN kernels under
+``resolve_blocks``), of the mixed one (bf16 x, f32 weights) under
+``kan_fused_v2_mixed``, and of the two version-1 KAN kernels under
 ``kan_fused_v1``.
 """
 from __future__ import annotations
@@ -379,10 +380,12 @@ def tune_pattern_matmul(x_c: torch.Tensor, w_c: torch.Tensor,
 
 
 def candidates_kan_fused(B: int, n_in: int, n_out: int, nbk: int,
-                         dtype: torch.dtype,
-                         version: int = 2) -> List[Dict[str, int]]:
-    """``(bm, bi, bn)`` grid of the f32, bf16 or int8 version-2 KAN
-    kernel, or of the f32 or bf16 version-1 kernel: bm at most ``max(8,
+                         dtype: torch.dtype, version: int = 2,
+                         wt_dtype: Optional[torch.dtype] = None
+                         ) -> List[Dict[str, int]]:
+    """``(bm, bi, bn)`` grid of the f32, bf16, mixed (bf16 x, ``wt_dtype``
+    f32) or int8 version-2 KAN kernel, or of the f32 or bf16 version-1
+    kernel: bm at most ``max(8,
     next_pow2(B))``, bn at most ``max(8, next_pow2(n_out))``, bi a power
     of two from 32 up to the first that covers ``n_in``, pruned to what
     the kernel takes on the card (``ops.check_blocks``: tile, shared
@@ -403,7 +406,8 @@ def candidates_kan_fused(B: int, n_in: int, n_out: int, nbk: int,
             for bi in bis:
                 cand = {"bm": bm, "bi": bi, "bn": bn}
                 try:
-                    ops.check_blocks(cand, n_in, n_out, nbk, dtype, version)
+                    ops.check_blocks(cand, n_in, n_out, nbk, dtype, version,
+                                     wt_dtype)
                 except ValueError:
                     continue
                 out.append(cand)
@@ -423,11 +427,13 @@ def tune_kan_fused(x: torch.Tensor, wt: torch.Tensor, spec,
     2, against the fused ``wt`` (``ops.fuse_wt``): bf16 operands tune the
     bf16 kernel, int8 codes the int8 kernel, which needs ``slot_scales``
     and ``x_scale``; all are stored under kernel ``kan_fused_v2`` with
-    their dtype.  At version 1, ``wt``
+    their dtype, a bf16 x against an f32 ``wt`` (the mixed kernel) under
+    ``kan_fused_v2_mixed``.  At version 1, ``wt``
     is ``w_b`` and ``t_flat`` the kept-basis rows, stored under kernel
     ``kan_fused_v1``, as the JAX ``tune_kan_fused(..., version=1)``
     does."""
     from repro_torch.kernels.kan_fused.ops import (
+        cache_kernel,
         kan_fused_v1,
         kan_fused_v2,
         kan_fused_v2_q8,
@@ -461,7 +467,9 @@ def tune_kan_fused(x: torch.Tensor, wt: torch.Tensor, spec,
         def run(bm: int, bi: int, bn: int) -> torch.Tensor:
             return kan_fused_v2(x, wt, spec, kb, slot_of,
                                 blocks=(bm, bi, bn))
-    return search(f"kan_fused_v{version}", (B, n_in, n_out, nbk), x.dtype,
-                  run, candidates_kan_fused(B, n_in, n_out, nbk, x.dtype,
-                                            version),
+    wt_dtype = wt.dtype if version == 2 else None
+    return search(cache_kernel(version, x.dtype, wt_dtype),
+                  (B, n_in, n_out, nbk), x.dtype, run,
+                  candidates_kan_fused(B, n_in, n_out, nbk, x.dtype,
+                                       version, wt_dtype),
                   device=x.device, reps=reps, cache=cache)

@@ -1,8 +1,10 @@
 // The SPU stage, `spu()`, of the port's spline kernels, for sm_90a: the
 // interval location and the stage-buffer de Boor recursion of one input,
-// shared by the KAN layer kernels' body (kan_split.cuh) and the spline-
-// basis kernels (spline_basis.cuh).  `spu<false>` is the f32 recursion,
-// `spu<true>` the bf16 one.
+// shared by the KAN layer kernels' bodies (kan_split.cuh, kan_mma.cuh)
+// and the f32 spline-basis kernel (spline_basis.cuh).  `spu<false>` is
+// the f32 recursion, `spu<true>` the bf16 one; `spu_bf16x2` is
+// spu<true>'s recursion on two inputs in native bf16x2 ops (the bf16
+// spline-basis kernel's; kan_mma.cuh may adopt it).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -81,6 +83,73 @@ __device__ __forceinline__ int spu(float xv, float x0, float inv_h, int G,
     vals[j] = saved;
   }
   return (int)cf;
+}
+
+// Native bf16x2 arithmetic (sm_90): each half is the exact result rounded
+// once to bf16.  That is the f32 result rounded to bf16 -- spu<true>'s
+// rnd(__fmul_rn / __fadd_rn / __fsub_rn) -- because f32 has at least 2p + 2
+// significand bits for bf16's p = 8, so rounding twice never differs from
+// rounding once for +, - and *.  The explicit .rn keeps ptxas from
+// contracting a product and a sum into one FMA.
+__device__ __forceinline__ unsigned bf2_mul(unsigned a, unsigned b) {
+  unsigned d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ unsigned bf2_add(unsigned a, unsigned b) {
+  unsigned d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ unsigned bf2_sub(unsigned a, unsigned b) {
+  unsigned d;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// Both halves the bf16 bit pattern `v`.
+__host__ __device__ constexpr unsigned bf2_splat(unsigned v) {
+  return v | (v << 16);
+}
+
+// The bf16 bits of d = 0..4 (exact), and of core/splines.INV_LUT[j] at
+// bf16 (inv_lut<true>: 1, 0.5, 0.333984375, 0.25).
+__host__ __device__ constexpr unsigned bf16_int(int d) {
+  return d == 0 ? 0x0000u : d == 1 ? 0x3f80u : d == 2 ? 0x4000u
+       : d == 3 ? 0x4040u : 0x4080u;
+}
+__host__ __device__ constexpr unsigned bf16_inv(int j) {
+  return j == 1 ? 0x3f80u : j == 2 ? 0x3f00u : j == 3 ? 0x3eabu : 0x3e80u;
+}
+
+// spu<true>'s recursion on two inputs at once, packed in bf16x2 (the low
+// half one input, the high half the other): `r2` the two positions in
+// their cells, each already rounded to bf16 (spu<true>'s r).  Every op is
+// spu<true>'s, in its order, as one bf16x2 op with no convert, so each
+// half of vals2[j] is bitwise spu<true>'s vals[j] of its input.  K is a
+// template parameter: the loops unroll to what K needs.
+template <int K>
+__device__ __forceinline__ void spu_bf16x2(unsigned r2,
+                                           unsigned vals2[K + 1]) {
+  unsigned right[K], left[K];
+#pragma unroll
+  for (int d = 0; d < K; ++d) {
+    right[d] = bf2_sub(bf2_splat(bf16_int(d + 1)), r2);
+    left[d] = bf2_add(r2, bf2_splat(bf16_int(d)));
+  }
+  vals2[0] = bf2_splat(bf16_int(1));
+#pragma unroll
+  for (int j = 1; j <= K; ++j) {
+    const unsigned inv = bf2_splat(bf16_inv(j));
+    unsigned saved = 0u;
+#pragma unroll
+    for (int rr = 0; rr < j; ++rr) {
+      const unsigned temp = bf2_mul(vals2[rr], inv);
+      vals2[rr] = bf2_add(saved, bf2_mul(right[rr], temp));
+      saved = bf2_mul(left[j - rr - 1], temp);
+    }
+    vals2[j] = saved;
+  }
 }
 
 }  // namespace kan_fused

@@ -64,5 +64,5 @@ extern "C" int kan_fused_v2_bf16(const void* x, const void* wt,
   p.x0 = x0;
   p.hi = hi;
   p.inv_h = inv_h;
-  return kan_mma::launch(p, bm, bi, bn, stream);
+  return kan_mma::launch<false>(p, bm, bi, bn, stream);
 }

@@ -1,6 +1,7 @@
-// The bf16 version-2 KAN layer on tensor cores (kan_fused_bf16.cu), for
-// sm_90a, with kan_split.cuh's launch-time knobs (bm, bi, bn), knob
-// checks, feature split and cluster launch.
+// The bf16 KAN layers on tensor cores, version 2 (kan_fused_bf16.cu) and
+// version 1 (kan_fused_v1_bf16.cu), for sm_90a, with kan_split.cuh's
+// launch-time knobs (bm, bi, bn), knob checks, feature split and cluster
+// launch.
 //
 // It runs the TPU kernel's algorithm (`_kan_kernel_v2`): per chunk of PC
 // = 32 features, the activation tile [silu | kept bases] of each feature
@@ -38,6 +39,18 @@
 // that order through distributed shared memory.  An MMA's output element
 // depends on its row of A, its column of B and its accumulator alone, so
 // every knob gives the same bits and a row does not depend on its batch.
+//
+// Version 1 (`V1`) keeps the silu and spline sums apart, as the TPU
+// kernel's two dots and the plain version's `s @ w_b + act @ t_flat`
+// do.  Its A tile puts the chunk's 32 silu columns first, then the 32 *
+// nbk kept-basis columns feature-major; its B rows are w_b's 32 rows of
+// the chunk, then t_flat's 32 * nbk (one contiguous block each, staged
+// from their own arrays with cp.async).  So the first two k16 steps are
+// the silu MMA chain and the rest the spline chain: each keeps its own
+// accumulators from zero a chunk and follows the contract above (chunk
+// 0's partial, __fadd_rn of each later one in order, across the cluster
+// where bi < n_in), and the output is __fadd_rn(silu total, spline
+// total), rounded once.  The SPU pass is version 2's.
 #pragma once
 
 #include "../../pattern_matmul/csrc/mma_bf16.cuh"
@@ -67,16 +80,28 @@ inline int warp_n8s(int bm, int bn) {
 }
 
 // Threads a block: the SPU pass runs on all of them, 256, or 512 from a
-// 32 x 32 tile on (ops.kernel_threads mirrors it).
-inline int threads_of(int bm, int bn) { return bm * bn >= 1024 ? 512 : 256; }
+// 32 x 32 tile on -- but 256 for version 1 at 8 n8 tiles a warp, whose
+// two chains' accumulators need more than the 128 registers 512 threads
+// leave a thread (ops.kernel_threads mirrors it).
+inline int threads_of(int bm, int bn, bool v1) {
+  if (v1 && warp_n8s(bm, bn) == 8) return 256;
+  return bm * bn >= 1024 ? 512 : 256;
+}
+
+// The block size a kernel instance is compiled for (its registers).
+__host__ __device__ constexpr int max_threads(bool v1, int wn) {
+  return v1 && wn == 8 ? 256 : MAX_THREADS;
+}
 
 // Dynamic shared memory of a block (ops.kernel_smem mirrors it): the slot
-// table, a cluster member's chunk partials (f32, A-tile rows x bn), and
-// `stages` raw weight buffers, x buffers and A tiles.
-inline long smem_bytes(int bm, int bn, int nbk, int cpb, int nsplit) {
+// table, a cluster member's chunk partials (f32, A-tile rows x bn, a set
+// a chain), and `stages` raw weight buffers, x buffers and A tiles.
+inline long smem_bytes(int bm, int bn, int nbk, int cpb, int nsplit,
+                       int chains) {
   const long rows = (long)PC * (nbk + 1);
   const long stages = cpb > 1 ? 2 : 1;
-  return HDR_BYTES + (nsplit > 1 ? 4L * cpb * a_rows(bm) * bn : 0) +
+  return HDR_BYTES +
+         (nsplit > 1 ? 4L * chains * cpb * a_rows(bm) * bn : 0) +
          2 * stages *
              (rows * (bn + pm::bpad(bn)) + (long)bm * XLD +
               (long)a_rows(bm) * a_ld(nbk));
@@ -88,10 +113,12 @@ __device__ __forceinline__ unsigned short bf16_bits(float v) {
 }
 
 // WN: n8 tiles a compute warp owns; KK: the spline order K, so that the
-// SPU's loops over the K+1 local bases unroll to what K needs.
-template <int WN, int KK>
-__global__ void __launch_bounds__(MAX_THREADS)
+// SPU's loops over the K+1 local bases unroll to what K needs; V1:
+// version 1 (two chains).
+template <int WN, int KK, bool V1>
+__global__ void __launch_bounds__(max_threads(V1, WN))
     kan_mma_kernel(const Params p) {
+  constexpr int NC = V1 ? 2 : 1;          // accumulator chains
   extern __shared__ __align__(16) unsigned char smem_mma[];
   int* s_slot = reinterpret_cast<int*>(smem_mma);
   const int nbk1 = p.nbk + 1, rows = PC * nbk1;
@@ -99,7 +126,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
   const int ldb = p.bn + pm::bpad(p.bn);
   float* s_part = reinterpret_cast<float*>(smem_mma + HDR_BYTES);
   unsigned short* s_w = reinterpret_cast<unsigned short*>(
-      s_part + (gridDim.z > 1 ? p.cpb * arows * p.bn : 0));
+      s_part + (gridDim.z > 1 ? NC * p.cpb * arows * p.bn : 0));
   unsigned short* s_x = s_w + p.stages * rows * ldb;
   unsigned short* s_a = s_x + p.stages * p.bm * XLD;
 
@@ -109,15 +136,27 @@ __global__ void __launch_bounds__(MAX_THREADS)
   const int nloc = max(0, min(p.cpb, p.nchunks - c0));
   const unsigned short* x = static_cast<const unsigned short*>(p.x);
   const unsigned short* wt = static_cast<const unsigned short*>(p.wt);
+  const unsigned short* tf = static_cast<const unsigned short*>(p.t_flat);
   const int nthr = blockDim.x;
   const pm::Walk walk_w(p.bn / (p.vec_w / 2), tid, nthr);
   const pm::Walk walk_x(PC / (p.vec_x / 2), tid, nthr);
   const int sm = p.stages - 1;             // buffer of chunk l: l & sm
-  // chunk l's weight rows p0 * (nbk+1) .., zero past n_in and n_out
+  // chunk l's weight rows, zero past n_in and n_out: version 2 the fused
+  // rows p0 * (nbk+1) ..; version 1 w_b's rows p0 .. p0+31, then
+  // t_flat's p0 * nbk .. (p0+32) * nbk - 1
   auto issue_w = [&](int l) {
-    pm::stage_any(p.vec_w, s_w + (l & sm) * rows * ldb, ldb, wt, p.n_out,
-                  p.n_in * nbk1, p.n_out, (c0 + l) * PC * nbk1, n0, rows,
-                  walk_w);
+    unsigned short* dst = s_w + (l & sm) * rows * ldb;
+    const int p0 = (c0 + l) * PC;
+    if constexpr (V1) {
+      pm::stage_any(p.vec_w, dst, ldb, wt, p.n_out, p.n_in, p.n_out, p0, n0,
+                    PC, walk_w);
+      pm::stage_any(p.vec_w, dst + PC * ldb, ldb, tf, p.n_out,
+                    p.n_in * p.nbk, p.n_out, p0 * p.nbk, n0, PC * p.nbk,
+                    walk_w);
+    } else {
+      pm::stage_any(p.vec_w, dst, ldb, wt, p.n_out, p.n_in * nbk1, p.n_out,
+                    p0 * nbk1, n0, rows, walk_w);
+    }
   };
   // chunk l's x tile, zero past B and n_in
   auto issue_x = [&](int l) {
@@ -143,11 +182,13 @@ __global__ void __launch_bounds__(MAX_THREADS)
   const int cwarps = arows / 16 * warps_n;     // compute warps
   const bool computes = warp < cwarps;
   const int wm0 = (warp / warps_n) * 16, wn0 = (warp % warps_n) * WN * 8;
-  float total[WN][4];
+  float total[NC][WN][4];
 #pragma unroll
-  for (int j = 0; j < WN; ++j)
+  for (int h = 0; h < NC; ++h)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) total[j][q] = 0.f;
+    for (int j = 0; j < WN; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) total[h][j][q] = 0.f;
 
   // One barrier a chunk: a warp done with chunk l's MMAs goes on to chunk
   // l+1's SPU work while others still multiply.  Chunk l's A tile and x
@@ -162,8 +203,11 @@ __global__ void __launch_bounds__(MAX_THREADS)
     const unsigned short* xs = s_x + (l & sm) * p.bm * XLD;
     for (int e = tid; e < p.bm * PC; e += nthr) {
       const int bl = e >> 5, pl = e & (PC - 1);
-      unsigned short* seg = s_al + bl * lda + pl * nbk1;
-      for (int s = 1; s < nbk1; ++s) seg[s] = 0;
+      // the feature's silu column and its nbk kept-basis columns
+      unsigned short* row = s_al + bl * lda;
+      unsigned short* sil = V1 ? row + pl : row + pl * nbk1;
+      unsigned short* seg = V1 ? row + PC + pl * p.nbk : sil + 1;
+      for (int s = 0; s < p.nbk; ++s) seg[s] = 0;
       unsigned short silu = 0;
       if (b0 + bl < p.B && p0 + pl < p.n_in) {
         const float xv = pm::widen(xs[bl * XLD + pl]);
@@ -178,10 +222,10 @@ __global__ void __launch_bounds__(MAX_THREADS)
 #pragma unroll
         for (int j = 0; j <= KK; ++j) {
           const int slot = s_slot[cell + j];
-          if (slot >= 0) seg[1 + slot] = bf16_bits(vals[j]);
+          if (slot >= 0) seg[slot] = bf16_bits(vals[j]);
         }
       }
-      seg[0] = silu;
+      *sil = silu;
     }
     // chunk l's weights (and chunk l+1's x) have landed
     pm::cp_async_wait_n<0>();
@@ -193,33 +237,41 @@ __global__ void __launch_bounds__(MAX_THREADS)
     if (computes) {
       const unsigned short* as = s_al + wm0 * lda;
       const unsigned short* ws = s_w + (l & sm) * rows * ldb + wn0;
-      float part[WN][4];
+      // chain h's k16 steps: version 1 the silu columns (h = 0), then the
+      // kept-basis columns (h = 1); version 2 all of them
 #pragma unroll
-      for (int j = 0; j < WN; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) part[j][q] = 0.f;
-      for (int k = 0; k < rows; k += 16) {
-        unsigned af[4], bf[WN][2];
-        pm::ldmatrix_a(af, as + k, lda, lane);
-#pragma unroll
-        for (int j = 0; j < WN; ++j)
-          pm::ldmatrix_b(bf[j], ws + k * ldb + j * 8, ldb, lane);
-#pragma unroll
-        for (int j = 0; j < WN; ++j) pm::mma_bf16(part[j], af, bf[j]);
-      }
-      if (blockIdx.z == 0) {
+      for (int h = 0; h < NC; ++h) {
+        const int k0 = V1 && h == 1 ? PC : 0;
+        const int k1 = V1 && h == 0 ? PC : rows;
+        float part[WN][4];
 #pragma unroll
         for (int j = 0; j < WN; ++j)
 #pragma unroll
-          for (int q = 0; q < 4; ++q)
-            total[j][q] = l == 0 ? part[j][q]
-                                 : __fadd_rn(total[j][q], part[j][q]);
-      } else {
-        float* sp = s_part + (l * cwarps + warp) * WN * 4 * 32 + lane;
+          for (int q = 0; q < 4; ++q) part[j][q] = 0.f;
+        for (int k = k0; k < k1; k += 16) {
+          unsigned af[4], bf[WN][2];
+          pm::ldmatrix_a(af, as + k, lda, lane);
 #pragma unroll
-        for (int j = 0; j < WN; ++j)
+          for (int j = 0; j < WN; ++j)
+            pm::ldmatrix_b(bf[j], ws + k * ldb + j * 8, ldb, lane);
 #pragma unroll
-          for (int q = 0; q < 4; ++q) sp[(j * 4 + q) * 32] = part[j][q];
+          for (int j = 0; j < WN; ++j) pm::mma_bf16(part[j], af, bf[j]);
+        }
+        if (blockIdx.z == 0) {
+#pragma unroll
+          for (int j = 0; j < WN; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              total[h][j][q] = l == 0 ? part[j][q]
+                                      : __fadd_rn(total[h][j][q], part[j][q]);
+        } else {
+          float* sp = s_part + ((h * p.cpb + l) * cwarps + warp) * WN * 4 * 32 +
+                      lane;
+#pragma unroll
+          for (int j = 0; j < WN; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) sp[(j * 4 + q) * 32] = part[j][q];
+        }
       }
     }
   }
@@ -232,13 +284,18 @@ __global__ void __launch_bounds__(MAX_THREADS)
       // local chunk c % cpb
       int r = 1, l = 0;
       for (int c = p.cpb; c < p.nchunks; ++c) {
-        const float* rp = cluster.map_shared_rank(s_part, r) +
-                          (l * cwarps + warp) * WN * 4 * 32 + lane;
+        const float* rs = cluster.map_shared_rank(s_part, r);
 #pragma unroll
-        for (int j = 0; j < WN; ++j)
+        for (int h = 0; h < NC; ++h) {
+          const float* rp =
+              rs + ((h * p.cpb + l) * cwarps + warp) * WN * 4 * 32 + lane;
 #pragma unroll
-          for (int q = 0; q < 4; ++q)
-            total[j][q] = __fadd_rn(total[j][q], rp[(j * 4 + q) * 32]);
+          for (int j = 0; j < WN; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              total[h][j][q] =
+                  __fadd_rn(total[h][j][q], rp[(j * 4 + q) * 32]);
+        }
         if (++l == p.cpb) {
           l = 0;
           ++r;
@@ -257,7 +314,13 @@ __global__ void __launch_bounds__(MAX_THREADS)
       const int row = wm0 + g + 8 * h, b = b0 + row;
       const int n = n0 + wn0 + j * 8 + 2 * tig;
       if (row >= p.bm || b >= p.B || n >= p.n_out) continue;
-      const float v0 = total[j][2 * h], v1 = total[j][2 * h + 1];
+      // version 1: the silu and spline totals added once
+      const float v0 = V1 ? __fadd_rn(total[0][j][2 * h],
+                                      total[NC - 1][j][2 * h])
+                          : total[0][j][2 * h];
+      const float v1 = V1 ? __fadd_rn(total[0][j][2 * h + 1],
+                                      total[NC - 1][j][2 * h + 1])
+                          : total[0][j][2 * h + 1];
       const size_t at = (size_t)b * p.n_out + n;
       if (p.out_bf16) {
         // one rounding of the f32 total to bf16
@@ -282,46 +345,57 @@ __global__ void __launch_bounds__(MAX_THREADS)
 }
 
 // The instance for the layer's K (plan() checked 1 <= K <= KMAX).
-template <int WN>
+template <int WN, bool V1>
 int run_k(const Params& p, dim3 grid, int threads, int smem,
           cudaStream_t s) {
   switch (p.K) {
     case 1:
-      return kan_split::run<kan_mma_kernel<WN, 1>>(p, grid, threads, smem, s);
+      return kan_split::run<kan_mma_kernel<WN, 1, V1>>(p, grid, threads,
+                                                       smem, s);
     case 2:
-      return kan_split::run<kan_mma_kernel<WN, 2>>(p, grid, threads, smem, s);
+      return kan_split::run<kan_mma_kernel<WN, 2, V1>>(p, grid, threads,
+                                                       smem, s);
     case 3:
-      return kan_split::run<kan_mma_kernel<WN, 3>>(p, grid, threads, smem, s);
+      return kan_split::run<kan_mma_kernel<WN, 3, V1>>(p, grid, threads,
+                                                       smem, s);
     default:
-      return kan_split::run<kan_mma_kernel<WN, 4>>(p, grid, threads, smem, s);
+      return kan_split::run<kan_mma_kernel<WN, 4, V1>>(p, grid, threads,
+                                                       smem, s);
   }
 }
 
 // Checks the sizes and knobs (kan_split.cuh's; ops.check_blocks checks the
-// same) and launches on `stream`; returns cudaGetLastError().
-inline int launch(Params p, int bm, int bi, int bn, void* stream) {
+// same) and launches version 2, or version 1 (`V1`: p.wt is w_b, p.t_flat
+// the kept-basis rows), on `stream`; returns cudaGetLastError().
+template <bool V1>
+int launch(Params p, int bm, int bi, int bn, void* stream) {
   int e = kan_split::plan(p, bm, bi, bn, kan_split::MAX_TILE);
   if (e != 0) return e;
-  const long smem =
-      smem_bytes(bm, bn, p.nbk, p.cpb, kan_split::nsplit_of(p));
+  const long smem = smem_bytes(bm, bn, p.nbk, p.cpb,
+                               kan_split::nsplit_of(p), V1 ? 2 : 1);
   dim3 grid;
   e = kan_split::grid_of(p, smem, &grid);
   if (e != 0) return e;
-  // copy bytes of the weight and x rows; the output by pairs
+  // copy bytes of the weight (both arrays' at version 1) and x rows; the
+  // output by pairs
   p.vec_w = pm::copy_bytes(p.wt, p.n_out);
+  if (V1) {
+    const int vt = pm::copy_bytes(p.t_flat, p.n_out);
+    if (vt < p.vec_w) p.vec_w = vt;
+  }
   p.vec_x = pm::copy_bytes(p.x, p.n_in);
   p.vec_out = p.n_out % 2 == 0 && pm::aligned(p.out, p.out_bf16 ? 4 : 8);
   cudaStream_t s = (cudaStream_t)stream;
-  const int threads = threads_of(bm, bn);
+  const int threads = threads_of(bm, bn, V1);
   switch (warp_n8s(bm, bn)) {
     case 1:
-      return run_k<1>(p, grid, threads, (int)smem, s);
+      return run_k<1, V1>(p, grid, threads, (int)smem, s);
     case 2:
-      return run_k<2>(p, grid, threads, (int)smem, s);
+      return run_k<2, V1>(p, grid, threads, (int)smem, s);
     case 4:
-      return run_k<4>(p, grid, threads, (int)smem, s);
+      return run_k<4, V1>(p, grid, threads, (int)smem, s);
     default:
-      return run_k<8>(p, grid, threads, (int)smem, s);
+      return run_k<8, V1>(p, grid, threads, (int)smem, s);
   }
 }
 

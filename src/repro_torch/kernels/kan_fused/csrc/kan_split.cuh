@@ -1,17 +1,17 @@
 // The fused KAN layer kernel of kan_fused.cu (f32), kan_fused_q8.cu
 // (int8 codes), kan_fused_v1.cu (version 1: w_b and t_flat apart) and
-// kan_fused_v1_bf16.cu (bf16, version 1), for sm_90a, with its launch-time
-// knobs (bm, bi, bn).
+// kan_fused_mixed.cu (bf16 x, f32 weights), for sm_90a, with its
+// launch-time knobs (bm, bi, bn).
 //
 // One template body over an operand policy `Op` (`F32`: x and the fused
 // [w_b ; t[kb]] rows of ops.fuse_wt as f32; `Q8`: int8 codes, copied raw
 // and dequantized once a chunk in shared memory; `Split`: the version-1
-// weights, w_b and t_flat, staged into the same fused layout; `BF16`: the
-// version-1 bf16 x and weights, copied raw and widened to f32 once a chunk
-// in shared memory, with the bf16 SPU and a bf16 or f32 output) and the
-// rows a thread owns (`TM`).  The bf16 version-2 kernel runs its own
-// tensor-core body (kan_mma.cuh) on this file's knob checks, feature split
-// and cluster launch.
+// weights, w_b and t_flat, staged into the same fused layout; `Mixed`: a
+// bf16 x, copied raw and read raw by the bf16 SPU, against F32's f32
+// rows, with a bf16 or f32 output) and the rows a thread owns (`TM`).
+// The bf16 kernels of both versions run their own tensor-core body
+// (kan_mma.cuh) on this file's knob checks, feature split and cluster
+// launch.
 //
 // What each output is, bit for bit, depends on the layer alone:
 //   * the input features are cut into chunks of PC = 32, a constant that
@@ -76,11 +76,11 @@ constexpr int MAX_SMEM = pm::MAX_SMEM;
 
 struct Params {
   const void* x;
-  const void* wt;            // Split, BF16: w_b
-  const void* t_flat;        // Split, BF16: the kept-basis rows
+  const void* wt;            // version 1: w_b
+  const void* t_flat;        // version 1: the kept-basis rows
   const float* slot_scales;  // Q8 only: (nbk+1,) silu row, kept bases
   const int* slot_of;
-  void* out;                 // f32, or bf16 where out_bf16 (BF16 only)
+  void* out;                 // f32, or bf16 where out_bf16 (bf16 x only)
   int B, n_in, n_out, nbk, n_bases, G, K;
   float x_scale, x0, hi, inv_h;
   int out_bf16;
@@ -103,20 +103,21 @@ constexpr int max_tile(int chains) {
 }
 
 // Dynamic shared memory of a block (ops.kernel_smem mirrors it): the
-// header, `stages` f32 weight and x buffers (where `one_wide`, one f32
-// weight buffer and none for x), the staged (row, feature) values, a
-// cluster member's chunk partials (one set a chain), and the `stages`
-// buffers of raw weight and x elements int8 (raw = 1 byte) and bf16 (2)
-// stage before widening.
-inline long smem_bytes(int bm, int bn, int nbk, int cpb, int nsplit,
-                       int raw, bool one_wide, int chains) {
+// header, `stages` f32 weight buffers and as many f32 x buffers (none
+// where the SPU pass reads a bf16 x raw), the staged (row, feature)
+// values, a cluster member's chunk partials (one set a chain), and the
+// `stages` buffers of raw weights (kRawW bytes an element) and raw x
+// (kRawX bytes) staged before widening.
+template <class Op>
+inline long smem_bytes(int bm, int bn, int nbk, int cpb, int nsplit) {
   const long rows = (long)PC * (nbk + 1);
   const long stages = cpb > 1 ? 2 : 1;
-  const long words = HDR + (one_wide ? 1 : stages) * rows * bn +
-                     (one_wide ? 0 : stages) * (long)bm * PC +
+  const long words = HDR + stages * rows * bn +
+                     (Op::kBF16 ? 0 : stages) * (long)bm * PC +
                      (long)bm * ACT_STRIDE +
-                     (nsplit > 1 ? (long)chains * cpb * bm * bn : 0);
-  return 4 * words + raw * stages * (rows * bn + (long)bm * PC);
+                     (nsplit > 1 ? (long)Op::kChains * cpb * bm * bn : 0);
+  return 4 * words +
+         stages * (Op::kRawW * rows * bn + Op::kRawX * (long)bm * PC);
 }
 
 // The f32 x tile of rows b0.. and features p0..; rows past B and features
@@ -131,40 +132,75 @@ __device__ __forceinline__ void issue_x(const Params& p, float* xs, int b0,
   }
 }
 
-// The weight rows of chunk p0 .. p0+PC-1 and output columns n0 .. n0+bn-1:
-// local row r is global row p0*(nbk+1) + r; rows past n_in*(nbk+1) and
-// columns past n_out read as zero.  A thread keeps one column (group) and
-// walks the rows: bn <= 128 <= threads, all powers of two.
+// The f32 weight rows of chunk p0 .. p0+PC-1 and output columns n0 ..
+// n0+bn-1: local row r is global row p0*(nbk+1) + r; rows past
+// n_in*(nbk+1) and columns past n_out read as zero.  A thread keeps one
+// column (group) and walks the rows: bn <= 128 <= threads, all powers of
+// two.
+__device__ __forceinline__ void issue_w_f32(const Params& p, float* ws,
+                                            int p0, int n0, int tid,
+                                            int nthr) {
+  const float* wt = static_cast<const float*>(p.wt);
+  const int nbk1 = p.nbk + 1, rows = PC * nbk1;
+  const size_t row0 = (size_t)p0 * nbk1, nrows = (size_t)p.n_in * nbk1;
+  if (p.vec_w) {
+    const int cols = p.bn >> 2, lg = __ffs(cols) - 1;
+    const int c = tid & (cols - 1), n = n0 + 4 * c;
+    for (int r = tid >> lg; r < rows; r += nthr >> lg) {
+      const bool ok = row0 + r < nrows && n < p.n_out;
+      pm::cp_async<16>(ws + r * p.bn + 4 * c,
+                       ok ? wt + (row0 + r) * p.n_out + n : wt, ok);
+    }
+  } else {
+    const int lg = __ffs(p.bn) - 1, c = tid & (p.bn - 1), n = n0 + c;
+    for (int r = tid >> lg; r < rows; r += nthr >> lg) {
+      const bool ok = row0 + r < nrows && n < p.n_out;
+      pm::cp_async<4>(ws + r * p.bn + c,
+                      ok ? wt + (row0 + r) * p.n_out + n : wt, ok);
+    }
+  }
+}
+
+// The raw bf16 x tile of rows b0.. and features p0.. into `rx`; rows past
+// B and features past n_in read as zero.  x rows of n_in % 4 != 0
+// elements (or an x not 8-byte aligned) are staged an element at a time
+// with plain loads: cp.async copies 4 bytes at least, and a copy would
+// straddle two rows there.
+__device__ __forceinline__ void issue_x_bf16(const Params& p,
+                                             unsigned short* rx, int b0,
+                                             int p0, int tid, int nthr) {
+  const unsigned short* x = static_cast<const unsigned short*>(p.x);
+  if (p.vec_x) {
+    for (int e = tid; e < p.bm * (PC / 4); e += nthr) {
+      const int b = b0 + (e >> 3), f = p0 + 4 * (e & 7);
+      const bool ok = b < p.B && f < p.n_in;
+      pm::cp_async<8>(rx + 4 * e, ok ? x + (size_t)b * p.n_in + f : x, ok);
+    }
+  } else {
+    for (int e = tid; e < p.bm * PC; e += nthr) {
+      const int b = b0 + (e >> 5), f = p0 + (e & (PC - 1));
+      rx[e] = b < p.B && f < p.n_in ? __ldg(x + (size_t)b * p.n_in + f)
+                                    : (unsigned short)0;
+    }
+  }
+}
+
+// Each policy names its staging: kRawW / kRawX, the bytes of a raw weight
+// / x element staged before widening (0: staged as f32); kBF16, a bf16 x
+// read raw by the bf16 SPU (no f32 x buffer) and a bf16 or f32 output;
+// kChains, the accumulator chains (2: version 1's silu and spline sums).
 struct F32 {
   static constexpr bool kQ8 = false;
   static constexpr bool kBF16 = false;
-  static constexpr int kRaw = 0;
-  static constexpr bool kOneWide = false;
+  static constexpr int kRawW = 0;
+  static constexpr int kRawX = 0;
   static constexpr int kChains = 1;
 
   __device__ static void issue(const Params& p, float* ws, float* xs,
                                int8_t*, int b0, int p0, int n0, int tid,
                                int nthr) {
     issue_x(p, xs, b0, p0, tid, nthr);
-    const float* wt = static_cast<const float*>(p.wt);
-    const int nbk1 = p.nbk + 1, rows = PC * nbk1;
-    const size_t row0 = (size_t)p0 * nbk1, nrows = (size_t)p.n_in * nbk1;
-    if (p.vec_w) {
-      const int cols = p.bn >> 2, lg = __ffs(cols) - 1;
-      const int c = tid & (cols - 1), n = n0 + 4 * c;
-      for (int r = tid >> lg; r < rows; r += nthr >> lg) {
-        const bool ok = row0 + r < nrows && n < p.n_out;
-        pm::cp_async<16>(ws + r * p.bn + 4 * c,
-                         ok ? wt + (row0 + r) * p.n_out + n : wt, ok);
-      }
-    } else {
-      const int lg = __ffs(p.bn) - 1, c = tid & (p.bn - 1), n = n0 + c;
-      for (int r = tid >> lg; r < rows; r += nthr >> lg) {
-        const bool ok = row0 + r < nrows && n < p.n_out;
-        pm::cp_async<4>(ws + r * p.bn + c,
-                        ok ? wt + (row0 + r) * p.n_out + n : wt, ok);
-      }
-    }
+    issue_w_f32(p, ws, p0, n0, tid, nthr);
   }
 
   __device__ static void prepare(const Params&, float*, float*,
@@ -184,8 +220,8 @@ struct F32 {
 struct Q8 {
   static constexpr bool kQ8 = true;
   static constexpr bool kBF16 = false;
-  static constexpr int kRaw = 1;
-  static constexpr bool kOneWide = false;
+  static constexpr int kRawW = 1;
+  static constexpr int kRawX = 1;
   static constexpr int kChains = 1;
 
   __device__ static void issue(const Params& p, float*, float*,
@@ -265,8 +301,8 @@ struct Q8 {
 struct Split {
   static constexpr bool kQ8 = false;
   static constexpr bool kBF16 = false;
-  static constexpr int kRaw = 0;
-  static constexpr bool kOneWide = false;
+  static constexpr int kRawW = 0;
+  static constexpr int kRawX = 0;
   static constexpr int kChains = 2;
 
   template <int BYTES>
@@ -316,103 +352,37 @@ struct Split {
   }
 };
 
-// bf16, version 1: w_b and t_flat, staged into the fused layout as Split
-// does (the bf16 version-2 kernel runs kan_mma.cuh's tensor-core body).
-// x and the weight rows are copied raw, half the bytes of F32, and widened
-// to f32 once a chunk in shared memory.  Widening is exact, so the FMA
-// pass is the f32 one: every product of two bf16 values is exact in f32,
-// each fmaf rounds once, and the summation order is Split's.  Rows of
-// n_out % 4 != 0 elements, and x rows of n_in % 4 != 0, are staged an
-// element at a time with plain loads: cp.async copies 4 bytes at least,
-// and a 4-byte copy would straddle two rows there.
-struct BF16 {
+// A bf16 x against f32 fused rows (ops.fuse_wt of a bf16 w_b and the f32
+// t a bf16 model holds, as the reference's kan_init promotes it): the
+// weights staged as F32 stages them, x copied raw (half F32's x bytes)
+// into the raw area and read raw by the SPU pass, which runs the bf16
+// numerics of kan_fused_bf16.cu (silu rounded once to bf16, spu<true>).
+// Each bf16 activation widens exactly, so the FMA pass is F32's on the
+// same staged rows, IEEE f32 fmaf on CUDA cores in F32's fixed order:
+// every knob gives the same bits and batched == single holds bitwise.
+struct Mixed {
   static constexpr bool kQ8 = false;
   static constexpr bool kBF16 = true;
-  static constexpr int kRaw = 2;
-  // The raw buffers take the copies in flight, so one f32 weight buffer,
-  // which the chunk in hand widens into, suffices, and the SPU pass reads
-  // x raw: with two f32 buffers of each, a 32 x 32 tile of all 304
-  // features needs 120 KB and one block an SM, not two.
-  static constexpr bool kOneWide = true;
-  static constexpr int kChains = 2;
+  static constexpr int kRawW = 0;
+  static constexpr int kRawX = 2;
+  static constexpr int kChains = 1;
 
-  // column n of staged row s (0: silu, 1 + slot: kept basis) of feature f
-  __device__ static const unsigned short* src(const Params& p, int f, int s,
-                                              int n) {
-    const unsigned short* wb = static_cast<const unsigned short*>(p.wt);
-    const unsigned short* tf = static_cast<const unsigned short*>(p.t_flat);
-    return s == 0 ? wb + (size_t)f * p.n_out + n
-                  : tf + ((size_t)f * p.nbk + (s - 1)) * p.n_out + n;
-  }
-
-  __device__ static void issue(const Params& p, float*, float*,
-                               int8_t* raw8, int b0, int p0, int n0, int tid,
+  __device__ static void issue(const Params& p, float* ws, float*,
+                               int8_t* raw, int b0, int p0, int n0, int tid,
                                int nthr) {
-    unsigned short* raw = reinterpret_cast<unsigned short*>(raw8);
-    const unsigned short* base = static_cast<const unsigned short*>(p.wt);
-    const int nbk1 = p.nbk + 1, rows = PC * nbk1;
-    const int w = p.vec_w ? 4 : 1;               // columns a copy
-    const int cols = p.bn / w, lg = __ffs(cols) - 1;
-    const int c = tid & (cols - 1), n = n0 + w * c;
-    const int r0 = tid >> lg, step = nthr >> lg;
-    const int dpl = step / nbk1, ds = step - dpl * nbk1;
-    int pl = r0 / nbk1, s = r0 - pl * nbk1;
-    for (int r = r0; r < rows; r += step) {
-      const int f = p0 + pl;
-      const bool ok = f < p.n_in && n < p.n_out;
-      unsigned short* dst = raw + r * p.bn + w * c;
-      if (p.vec_w)
-        pm::cp_async<8>(dst, ok ? src(p, f, s, n) : base, ok);
-      else
-        *dst = ok ? __ldg(src(p, f, s, n)) : (unsigned short)0;
-      pl += dpl;
-      s += ds;
-      if (s >= nbk1) {
-        s -= nbk1;
-        ++pl;
-      }
-    }
-    // the x elements go to the raw area's tail (rows * bn elements on)
-    const unsigned short* x = static_cast<const unsigned short*>(p.x);
-    unsigned short* rx = raw + rows * p.bn;
-    if (p.vec_x) {
-      for (int e = tid; e < p.bm * (PC / 4); e += nthr) {
-        const int b = b0 + (e >> 3), f = p0 + 4 * (e & 7);
-        const bool ok = b < p.B && f < p.n_in;
-        pm::cp_async<8>(rx + 4 * e, ok ? x + (size_t)b * p.n_in + f : x, ok);
-      }
-    } else {
-      for (int e = tid; e < p.bm * PC; e += nthr) {
-        const int b = b0 + (e >> 5), f = p0 + (e & (PC - 1));
-        rx[e] = b < p.B && f < p.n_in ? __ldg(x + (size_t)b * p.n_in + f)
-                                      : (unsigned short)0;
-      }
-    }
+    issue_w_f32(p, ws, p0, n0, tid, nthr);
+    issue_x_bf16(p, reinterpret_cast<unsigned short*>(raw), b0, p0, tid,
+                 nthr);
   }
 
-  // The chunk's x elements, raw, for spu_stage.
-  __device__ static const unsigned short* x_of(const Params& p,
-                                               const float*,
-                                               const int8_t* raw8) {
-    return reinterpret_cast<const unsigned short*>(raw8) +
-           PC * (p.nbk + 1) * p.bn;
-  }
+  __device__ static void prepare(const Params&, float*, float*,
+                                 const int8_t*, const float*, int, int) {}
 
-  // Widens the weights; the SPU pass reads x raw (x_of).
-  __device__ static void prepare(const Params& p, float* ws, float*,
-                                 const int8_t* raw8, const float*, int tid,
-                                 int nthr) {
-    const int rows = PC * (p.nbk + 1);
-    // the weights keep their layout: 4 elements in, a float4 out
-    const uint2* r4 = reinterpret_cast<const uint2*>(raw8);
-    float4* w4 = reinterpret_cast<float4*>(ws);
-    for (int v = tid; v < rows * p.bn / 4; v += nthr) {
-      const uint2 q = r4[v];
-      w4[v] = make_float4(__uint_as_float(q.x << 16),
-                          __uint_as_float(q.x & 0xffff0000u),
-                          __uint_as_float(q.y << 16),
-                          __uint_as_float(q.y & 0xffff0000u));
-    }
+  // The chunk's x elements, raw (the raw area holds x alone), for
+  // spu_stage.
+  __device__ static const unsigned short* x_of(const Params&, const float*,
+                                               const int8_t* raw) {
+    return reinterpret_cast<const unsigned short*>(raw);
   }
 };
 
@@ -522,12 +492,13 @@ kan_split_kernel(const Params p) {
   float* s_scale = smem + TABLE;
   const int nbk1 = p.nbk + 1;
   const int wsz = PC * nbk1 * p.bn;            // elements a weight stage
-  const int rsz = Op::kRaw * (wsz + p.bm * PC);  // raw bytes a stage
+  // raw bytes a stage: the weights', then x's
+  const int rsz = Op::kRawW * wsz + Op::kRawX * p.bm * PC;
   const int psz = p.cpb * p.bm * p.bn;         // words a chain's partials
   float* s_w = smem + HDR;
-  // f32 weight and x buffers: `stages` of each, or one and none
-  float* s_x = s_w + (Op::kOneWide ? 1 : p.stages) * wsz;
-  float* s_act = s_x + (Op::kOneWide ? 0 : p.stages) * p.bm * PC;
+  // f32 weight and x buffers: `stages` of each (none for a raw bf16 x)
+  float* s_x = s_w + p.stages * wsz;
+  float* s_act = s_x + (Op::kBF16 ? 0 : p.stages) * p.bm * PC;
   float* s_part = s_act + p.bm * ACT_STRIDE;
   int8_t* s_raw = reinterpret_cast<int8_t*>(
       s_part + (gridDim.z > 1 ? NC * psz : 0));
@@ -541,8 +512,7 @@ kan_split_kernel(const Params p) {
   // depends on the other, and their latencies overlap.  The barrier at
   // the top of the chunk loop publishes the tables.
   for (int l = 0; l < min(p.stages, nloc); ++l) {
-    const int wl = Op::kOneWide ? 0 : l;
-    Op::issue(p, s_w + wl * wsz, s_x + wl * p.bm * PC, s_raw + l * rsz, b0,
+    Op::issue(p, s_w + l * wsz, s_x + l * p.bm * PC, s_raw + l * rsz, b0,
               (c0 + l) * PC, n0, tid, nthr);
     pm::cp_async_commit();
   }
@@ -565,8 +535,8 @@ kan_split_kernel(const Params p) {
   for (int l = 0; l < nloc; ++l) {
     const int buf = l & (p.stages - 1);
     const int p0 = (c0 + l) * PC;
-    float* ws = s_w + (Op::kOneWide ? 0 : buf) * wsz;
-    float* xs = s_x + (Op::kOneWide ? 0 : buf) * p.bm * PC;
+    float* ws = s_w + buf * wsz;
+    float* xs = s_x + buf * p.bm * PC;
     pm::cp_async_wait(min(p.stages, nloc - l) - 1);
     __syncthreads();
     Op::prepare(p, ws, xs, s_raw + buf * rsz, s_scale, tid, nthr);
@@ -767,21 +737,20 @@ template <class Op>
 int launch(Params p, int bm, int bi, int bn, void* stream) {
   int e = plan(p, bm, bi, bn, max_tile(Op::kChains));
   if (e != 0) return e;
-  const long smem = smem_bytes(bm, bn, p.nbk, p.cpb, nsplit_of(p), Op::kRaw,
-                               Op::kOneWide, Op::kChains);
+  const long smem = smem_bytes<Op>(bm, bn, p.nbk, p.cpb, nsplit_of(p));
   dim3 grid;
   e = grid_of(p, smem, &grid);
   if (e != 0) return e;
   const int tm = tile_rows(bm, bn);
   int threads = (bm / tm) * (bn / 4);
   if (threads < MIN_THREADS) threads = MIN_THREADS;
-  // a weight copy is 4 columns: 4 int8 bytes, 8 bf16 bytes, 16 f32 bytes;
-  // an x copy 4 elements (int8, bf16)
-  const uintptr_t wal = Op::kRaw ? 4 * Op::kRaw : 16;
+  // a weight copy is 4 columns: 4 int8 bytes, 16 f32 bytes; an x copy 4
+  // elements (int8, bf16), or one f32
+  const uintptr_t wal = Op::kRawW ? 4 * Op::kRawW : 16;
   p.vec_w = p.n_out % 4 == 0 &&
             reinterpret_cast<uintptr_t>(p.wt) % wal == 0 &&
             reinterpret_cast<uintptr_t>(p.t_flat) % wal == 0;
-  const uintptr_t xal = Op::kRaw ? 4 * Op::kRaw : 4;
+  const uintptr_t xal = Op::kRawX ? 4 * Op::kRawX : 4;
   p.vec_x = p.n_in % 4 == 0 && reinterpret_cast<uintptr_t>(p.x) % xal == 0;
   p.vec_out = p.n_out % 4 == 0 &&
               reinterpret_cast<uintptr_t>(p.out) % (p.out_bf16 ? 8 : 16) == 0;

@@ -3,22 +3,25 @@
 Counterpart of ``repro/kernels/kan_fused/ops.py``.  A CPU tensor runs
 the plain version (``ref.kan_fused_v2_ref``, ``ref.kan_fused_v1_ref`` for
 version 1, or ``ref.kan_fused_v2_q8_ref`` for int8 codes); a CUDA tensor
-launches the hand-written kernel for its dtype -- f32:
+launches the hand-written kernel for its operands' dtypes -- f32:
 ``csrc/kan_fused.cu`` (``csrc/kan_fused_v1.cu`` at version 1); bf16:
-``csrc/kan_fused_bf16.cu`` (``csrc/kan_fused_v1_bf16.cu``); int8 codes:
-``csrc/kan_fused_q8.cu`` -- or raises.  There is no fallback from a
-kernel to its plain version.  f32 and bf16 layers take ``out_dtype``, as
-the JAX ``kan_linear`` does: x's dtype (the default) or f32, the bf16
-kernels' f32 accumulator unrounded.
+``csrc/kan_fused_bf16.cu`` (``csrc/kan_fused_v1_bf16.cu``); a bf16 x
+against f32 fused weights (a bf16 model's, whose spline coefficients
+``t`` are f32 as the reference's are): ``csrc/kan_fused_mixed.cu``;
+int8 codes: ``csrc/kan_fused_q8.cu`` -- or raises.  There is no cast and
+no fallback from a kernel to its plain version.  f32 and bf16 layers
+take ``out_dtype``, as the JAX ``kan_linear`` does: x's dtype (the
+default) or f32, the bf16 kernels' f32 accumulator unrounded.
 
-Four kernels run one body (``csrc/kan_split.cuh``); the bf16 version-2
-kernel runs a tensor-core body (``csrc/kan_mma.cuh``) on the same knob
-checks and feature split.  All five take their knobs ``(bm, bi, bn)`` at
-launch time: bm rows x bn outputs a block, bi input features a block
-walk.  ``resolve_blocks`` picks them as the JAX
-one does, at either version: explicit ``blocks=`` > autotune-cache hit
-for (kernel ``kan_fused_v{version}``, shape bucket, dtype, card) > a
-default by batch bucket; the wrappers never search
+Four kernels run one CUDA-core body (``csrc/kan_split.cuh``: v2 f32,
+int8 and mixed, v1 f32); the bf16 kernels of both versions run a
+tensor-core body (``csrc/kan_mma.cuh``) on the same knob checks and
+feature split.  All six take their knobs ``(bm, bi, bn)`` at launch
+time: bm rows x bn outputs a block, bi input features a block walk.
+``resolve_blocks`` picks them as the JAX one does, at either version:
+explicit ``blocks=`` > autotune-cache hit for (kernel
+``kan_fused_v{version}``, or ``kan_fused_v2_mixed``, shape bucket,
+dtype, card) > a default by batch bucket; the wrappers never search
 (``autotune.tune_kan_fused`` does, and ``launch/serve.py`` runs it under
 ``REPRO_TORCH_AUTOTUNE=1``).  No knob changes a bit of the output: the
 summation order is fixed by the layer alone.  A knob the kernel does not
@@ -62,10 +65,14 @@ from repro_torch.utils import next_pow2
 KERNEL = "kan_fused_v2"
 KERNEL_V1 = "kan_fused_v1"
 KERNEL_Q8 = "kan_fused_v2_q8"
-# the _build kernel of each (version, x dtype) of the f32 and bf16 layers
-KERNELS = {(2, torch.float32): KERNEL, (1, torch.float32): KERNEL_V1,
-           (2, torch.bfloat16): "kan_fused_v2_bf16",
-           (1, torch.bfloat16): "kan_fused_v1_bf16"}
+KERNEL_MIXED = "kan_fused_v2_mixed"
+# the _build kernel of each (version, x dtype, weight dtype) of the f32,
+# bf16 and mixed layers; no other pair has a kernel
+KERNELS = {(2, torch.float32, torch.float32): KERNEL,
+           (1, torch.float32, torch.float32): KERNEL_V1,
+           (2, torch.bfloat16, torch.bfloat16): "kan_fused_v2_bf16",
+           (1, torch.bfloat16, torch.bfloat16): "kan_fused_v1_bf16",
+           (2, torch.bfloat16, torch.float32): KERNEL_MIXED}
 DEFAULT_VERSION = 2
 
 # The knobs the kernels take (csrc/kan_split.cuh checks the same): bm and
@@ -86,10 +93,20 @@ _SMS = 132                      # the H100's SMs (default_blocks)
 Blocks = Dict[str, int]
 
 
-def max_tile(version: int = DEFAULT_VERSION) -> int:
-    """The largest bm * bn: the version-1 kernel's two accumulator chains
-    spill at 8 rows a thread, so it stops at 4 (half the tile)."""
-    return MAX_TILE // 2 if version == 1 else MAX_TILE
+def _mma(dtype: torch.dtype, wt_dtype: Optional[torch.dtype]) -> bool:
+    """Whether x of ``dtype`` against weights of ``wt_dtype`` (None: the
+    same) runs the tensor-core body: bf16 against bf16, either version."""
+    return dtype == torch.bfloat16 and wt_dtype in (None, torch.bfloat16)
+
+
+def max_tile(version: int = DEFAULT_VERSION,
+             dtype: torch.dtype = torch.float32) -> int:
+    """The largest bm * bn: the f32 version-1 kernel's two accumulator
+    chains spill at 8 rows a thread on the CUDA-core body, so it stops at
+    4 (half the tile); the bf16 version-1 kernel (tensor cores) takes the
+    whole tile."""
+    return (MAX_TILE // 2 if version == 1 and dtype != torch.bfloat16
+            else MAX_TILE)
 
 
 def tile_rows(bm: int, bn: int) -> int:
@@ -98,12 +115,17 @@ def tile_rows(bm: int, bn: int) -> int:
 
 
 def kernel_threads(bm: int, bn: int, dtype: torch.dtype = torch.float32,
-                   version: int = DEFAULT_VERSION) -> int:
+                   version: int = DEFAULT_VERSION,
+                   wt_dtype: Optional[torch.dtype] = None) -> int:
     """Threads a block: on ``kan_split.cuh``'s body one per TM rows x 4
-    columns, at least 128 (the rest only stage); the bf16 version-2
-    kernel (``kan_mma.cuh``) 256, or 512 from a 32 x 32 tile on, its SPU
-    pass on all of them, its MMAs on at most 8 warps."""
-    if dtype == torch.bfloat16 and version == 2:
+    columns, at least 128 (the rest only stage); the bf16 kernels
+    (``kan_mma.cuh``) 256, or 512 from a 32 x 32 tile on, their SPU pass
+    on all of them, their MMAs on at most 8 warps -- except version 1 at
+    a full 8192 tile, 256: its two chains' accumulators at 8 n8 tiles a
+    warp need more registers than 512 threads leave."""
+    if _mma(dtype, wt_dtype):
+        if version == 1 and max(16, bm) * bn >= MAX_TILE:
+            return 256
         return 512 if bm * bn >= 1024 else 256
     return max(_MIN_THREADS, (bm // tile_rows(bm, bn)) * (bn // 4))
 
@@ -117,50 +139,56 @@ def split(n_in: int, bi: int) -> Tuple[int, int, int]:
 
 
 def kernel_smem(bm: int, bi: int, bn: int, n_in: int, nbk: int,
-                dtype: torch.dtype, version: int = DEFAULT_VERSION) -> int:
-    """Dynamic shared memory, in bytes, a block of the kernel for
-    ``dtype`` and ``version`` uses: weight and x buffers (two when a block
-    walks several chunks), the staged (row, feature) values, a cluster
-    member's chunk partials (two sets at version 1: the silu and the
-    spline chain), and the raw weight and x elements int8 (a byte each)
-    and bf16 (two) stage before they widen.  bf16 at version 1 widens its
-    weights into one f32 buffer, its raw buffers taking the copies in
-    flight, and reads x raw; bf16 at version 2 (``kan_mma.cuh``) widens
-    nothing and writes a bf16 A tile for its MMAs."""
+                dtype: torch.dtype, version: int = DEFAULT_VERSION,
+                wt_dtype: Optional[torch.dtype] = None) -> int:
+    """Dynamic shared memory, in bytes, a block of the kernel for x of
+    ``dtype`` against weights of ``wt_dtype`` (None: the same) at
+    ``version`` uses.  On ``kan_split.cuh``'s body: f32 weight buffers
+    (two when a block walks several chunks) and as many f32 x buffers,
+    except where x is bf16 (the mixed kernel reads it raw), the staged
+    (row, feature) values, a cluster member's chunk partials (two sets at
+    version 1: the silu and the spline chain), and the raw int8 weights
+    (a byte each) and the raw int8 or bf16 x (one or two) staged before
+    they widen.  The bf16 kernels (``kan_mma.cuh``) widen nothing and
+    write a bf16 A tile for their MMAs."""
     _, cpb, nsplit = split(n_in, bi)
     rows = PC * (nbk + 1)
     stages = 2 if cpb > 1 else 1
-    bf16 = dtype == torch.bfloat16
-    if bf16 and version == 2:
+    chains = 2 if version == 1 else 1
+    if _mma(dtype, wt_dtype):
         # kan_mma.cuh: the slot table, a cluster member's f32 chunk
-        # partials (A-tile rows x bn), and `stages` raw bf16 weight buffers
-        # (rows padded to an odd number of 16 B), x buffers (32 + 8 a row)
-        # and bf16 A tiles (max(16, bm) rows of 32 * (nbk+1) + 8)
+        # partials (A-tile rows x bn, a set a chain), and `stages` raw
+        # bf16 weight buffers (rows padded to an odd number of 16 B), x
+        # buffers (32 + 8 a row) and bf16 A tiles (max(16, bm) rows of
+        # 32 * (nbk+1) + 8)
         arows = max(16, bm)
-        return (4 * 32 + (4 * cpb * arows * bn if nsplit > 1 else 0)
+        return (4 * 32 + (4 * chains * cpb * arows * bn if nsplit > 1 else 0)
                 + 2 * stages * (rows * (bn + (16 if bn == 8 else 8))
                                 + bm * (PC + 8) + arows * (rows + 8)))
-    chains = 2 if version == 1 else 1
-    words = (_HDR_WORDS + (1 if bf16 else stages) * rows * bn
-             + (0 if bf16 else stages) * bm * PC + bm * _ACT_STRIDE
+    raw_x = {torch.int8: 1, torch.bfloat16: 2}.get(dtype, 0)
+    raw_w = 1 if dtype == torch.int8 else 0
+    words = (_HDR_WORDS + stages * rows * bn
+             + (0 if dtype == torch.bfloat16 else stages) * bm * PC
+             + bm * _ACT_STRIDE
              + (chains * cpb * bm * bn if nsplit > 1 else 0))
-    raw = {torch.int8: 1, torch.bfloat16: 2}.get(dtype, 0)
-    return 4 * words + raw * stages * (rows * bn + bm * PC)
+    return 4 * words + stages * (raw_w * rows * bn + raw_x * bm * PC)
 
 
 def check_blocks(blocks: Blocks, n_in: int, n_out: int, nbk: int,
-                 dtype: torch.dtype, version: int = DEFAULT_VERSION) -> None:
-    """Raise ``ValueError`` unless the kernel for ``dtype`` and
-    ``version`` takes ``blocks`` at this layer's widths."""
+                 dtype: torch.dtype, version: int = DEFAULT_VERSION,
+                 wt_dtype: Optional[torch.dtype] = None) -> None:
+    """Raise ``ValueError`` unless the kernel for x of ``dtype`` against
+    weights of ``wt_dtype`` (None: the same) at ``version`` takes
+    ``blocks`` at this layer's widths."""
     bm, bi, bn = (blocks[k] for k in ("bm", "bi", "bn"))
     what = f"kan_fused blocks (bm={bm}, bi={bi}, bn={bn})"
     if min(bm, bi, bn) <= 0:
         raise ValueError(f"{what}: every knob must be positive")
     if bm not in TILES or bn not in TILES:
         raise ValueError(f"{what}: the kernel takes bm and bn in {TILES}")
-    if bm * bn > max_tile(version):
-        raise ValueError(f"{what}: bm * bn exceeds {max_tile(version)} at "
-                         f"version {version}")
+    if bm * bn > max_tile(version, dtype):
+        raise ValueError(f"{what}: bm * bn exceeds "
+                         f"{max_tile(version, dtype)} at version {version}")
     if bi % PC and bi < n_in:
         raise ValueError(f"{what}: bi must be a multiple of {PC} or cover "
                          f"all {n_in} features")
@@ -168,7 +196,7 @@ def check_blocks(blocks: Blocks, n_in: int, n_out: int, nbk: int,
     if nsplit > MAX_SPLIT:
         raise ValueError(f"{what}: {nsplit} blocks a cluster exceed "
                          f"{MAX_SPLIT} at n_in={n_in}")
-    smem = kernel_smem(bm, bi, bn, n_in, nbk, dtype, version)
+    smem = kernel_smem(bm, bi, bn, n_in, nbk, dtype, version, wt_dtype)
     if smem > autotune.MAX_SMEM_BYTES:
         raise ValueError(f"{what}: {smem} bytes of shared memory exceed "
                          f"{autotune.MAX_SMEM_BYTES} at nbk={nbk}")
@@ -182,21 +210,23 @@ def check_blocks(blocks: Blocks, n_in: int, n_out: int, nbk: int,
 
 def default_blocks(B: int, n_in: int, n_out: int, nbk: int,
                    dtype: torch.dtype,
-                   version: int = DEFAULT_VERSION) -> Blocks:
+                   version: int = DEFAULT_VERSION,
+                   wt_dtype: Optional[torch.dtype] = None) -> Blocks:
     """The knobs a launch takes when none is given or cached (the fastest
     candidates at vikin's KAN layers at B = 8 and 8192 on an H100): 8 or
     16 rows x 8 outputs at serving buckets, with the features split over
     a cluster of up to 16 blocks until the grid holds about two blocks an
     SM; 32 x 32 tiles at large batches, where a grid of at least one wave
     walks every feature in one block (a split only adds the combine).
-    The bf16 version-2 kernel (tensor cores) evaluates every (row,
-    feature) once a column tile, so at large batches its bn covers n_out
+    The bf16 kernels (tensor cores) evaluate every (row, feature) once a
+    column tile, so at large batches their bn covers n_out
     (up to 128) with 32 rows a block, 64 from bn = 64 on (at most B
     rounded up to a power of two), and it splits the features only below
-    half a wave of tiles.  bi is a power of two
+    half a wave of tiles.  The mixed kernel (bf16 x, f32 weights) runs the
+    CUDA-core body and takes its knobs.  bi is a power of two
     (an autotune candidate); the tiles halve where the shared memory
     would not fit."""
-    mma = dtype == torch.bfloat16 and version == 2 and B > 16
+    mma = _mma(dtype, wt_dtype) and B > 16
     bm = 8 if B <= 8 else 16 if B <= 16 else 32
     bn = min(8 if B <= 16 else 32, max(8, next_pow2(n_out)))
     if mma:
@@ -211,7 +241,8 @@ def default_blocks(B: int, n_in: int, n_out: int, nbk: int,
         knob = {"bm": bm, "bi": PC * next_pow2(-(-nchunks // want)),
                 "bn": bn}
         try:
-            check_blocks(knob, n_in, n_out, nbk, dtype, version)
+            check_blocks(knob, n_in, n_out, nbk, dtype, version,
+                         wt_dtype=wt_dtype)
             return knob
         except ValueError:
             if bm == 8 and bn == 8:
@@ -231,34 +262,50 @@ def resolve_blocks(B: int, n_in: int, n_out: int, nbk: int,
                    dtype: torch.dtype,
                    blocks: Optional[Sequence[int]] = None,
                    version: int = DEFAULT_VERSION,
-                   device: torch.device | str = "cuda") -> Blocks:
-    """(bm, bi, bn) for the kernel of ``dtype`` and ``version``: explicit >
-    cached (kernel ``kan_fused_v{version}``; at version 2 the dtype tells
-    f32 from int8) > default by batch bucket, checked against what the
-    kernel takes."""
+                   device: torch.device | str = "cuda",
+                   wt_dtype: Optional[torch.dtype] = None) -> Blocks:
+    """(bm, bi, bn) for the kernel of x ``dtype``, weights ``wt_dtype``
+    (None: the same) and ``version``: explicit > cached (kernel
+    ``kan_fused_v{version}``, at version 2 the dtype telling f32, bf16
+    and int8 apart; ``kan_fused_v2_mixed`` for a bf16 x against f32
+    weights) > default by batch bucket, checked against what the kernel
+    takes."""
     return dict(zip(("bm", "bi", "bn"), _knobs(B, n_in, n_out, nbk, dtype,
-                                               blocks, device, version)))
+                                               blocks, device, version,
+                                               wt_dtype)))
+
+
+def cache_kernel(version: int, dtype: torch.dtype,
+                 wt_dtype: Optional[torch.dtype] = None) -> str:
+    """The autotune-cache kernel name of a layer's knobs."""
+    if version == 1:
+        return KERNEL_V1
+    return KERNEL if wt_dtype in (None, dtype) else KERNEL_MIXED
 
 
 def _knobs(B: int, n_in: int, n_out: int, nbk: int, dtype: torch.dtype,
            blocks: Optional[Sequence[int]], device: torch.device | str,
-           version: int = DEFAULT_VERSION) -> Tuple[int, int, int]:
+           version: int = DEFAULT_VERSION,
+           wt_dtype: Optional[torch.dtype] = None) -> Tuple[int, int, int]:
     """``resolve_blocks`` as a tuple; without ``blocks`` the answer for an
     exact shape is remembered in ``autotune.RESOLVED`` (dropped with the
     cache's other answers on a store, clear or new cache), so a served
     batch pays one dict lookup."""
     if blocks is not None:
         knob = _as_blocks(blocks)
-        check_blocks(knob, n_in, n_out, nbk, dtype, version)
+        check_blocks(knob, n_in, n_out, nbk, dtype, version,
+                     wt_dtype=wt_dtype)
         return knob["bm"], knob["bi"], knob["bn"]
-    kernel = KERNEL_V1 if version == 1 else KERNEL
+    kernel = cache_kernel(version, dtype, wt_dtype)
     key = autotune.memo_key(kernel, B, n_in, n_out, nbk, dtype, device)
     knobs = autotune.RESOLVED.get(key)
     if knobs is None:
         knob = (autotune.cached_blocks(kernel, (B, n_in, n_out, nbk), dtype,
                                        device)
-                or default_blocks(B, n_in, n_out, nbk, dtype, version))
-        check_blocks(knob, n_in, n_out, nbk, dtype, version)
+                or default_blocks(B, n_in, n_out, nbk, dtype, version,
+                                  wt_dtype=wt_dtype))
+        check_blocks(knob, n_in, n_out, nbk, dtype, version,
+                     wt_dtype=wt_dtype)
         knobs = autotune.RESOLVED[key] = knob["bm"], knob["bi"], knob["bn"]
     return knobs
 
@@ -345,9 +392,11 @@ def kan_fused_v2(x: torch.Tensor, wt: torch.Tensor, spec: SplineSpec,
                  slot_of: Optional[torch.Tensor] = None, *,
                  blocks: Optional[Sequence[int]] = None,
                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """One KAN layer on (B, n_in) x against the fused ``wt``, f32 or bf16
-    (both of one dtype), f32 accumulation, ``out_dtype`` out (x's dtype
-    by default, or f32).
+    """One KAN layer on (B, n_in) x against the fused ``wt``, f32
+    accumulation, ``out_dtype`` out (x's dtype by default, or f32).  On
+    the card the pair (x, wt) picks the kernel: f32/f32, bf16/bf16, or a
+    bf16 x against an f32 ``wt`` (a bf16 model's f32 spline rows, as
+    ``fuse_wt`` promotes them); any other pair raises.
 
     ``slot_of`` is ``slot_table(kb, ...)`` on the device; layers build it
     once and pass it, else it is built here.  ``blocks`` overrides the
@@ -360,29 +409,35 @@ def kan_fused_v2(x: torch.Tensor, wt: torch.Tensor, spec: SplineSpec,
         if out_dtype != dtype:
             refuse_grad("kan_fused_v2", "at a bf16 x with an f32 output")
         return KanFusedV2.apply(x, wt, spec, tuple(kb), slot_of, blocks)
+    wt_dtype = (torch.float32 if dtype == torch.bfloat16
+                and wt.dtype == torch.float32 else dtype)
     if x.device.type == "cpu":
         if blocks is not None:
             check_blocks(_as_blocks(blocks), x.shape[-1], wt.shape[-1],
-                         len(kb), dtype)
+                         len(kb), dtype, wt_dtype=wt_dtype)
         return kan_fused_v2_ref(x, wt, spec, kb, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"kan_fused_v2: no kernel for device {x.device}")
     if slot_of is None:
         slot_of = slot_table(kb, spec.n_bases, x.device)
     nbk = len(kb)
+    if wt_dtype != dtype:
+        what = "a bf16 x takes a bf16 or an f32 wt"
     B, n_in, n_out = _check_operands(
         "kan_fused_v2", x, [("wt", wt, nbk + 1)], slot_of, spec,
-        [("x", x, dtype), ("wt", wt, dtype),
+        [("x", x, dtype), ("wt", wt, wt_dtype),
          ("slot_of", slot_of, torch.int32)], what)
     out = torch.empty((B, n_out), dtype=out_dtype, device=x.device)
     if B == 0 or n_out == 0:
         return out
-    bm, bi, bn = _knobs(B, n_in, n_out, nbk, dtype, blocks, x.device)
-    # the bf16 kernels also take the output's dtype
+    bm, bi, bn = _knobs(B, n_in, n_out, nbk, dtype, blocks, x.device,
+                        wt_dtype=wt_dtype)
+    # the bf16-x kernels also take the output's dtype
     out_f32 = (() if dtype == torch.float32
                else (int(out_dtype == torch.float32),))
     _build.launch(
-        KERNELS[2, dtype], x.data_ptr(), wt.data_ptr(), slot_of.data_ptr(),
+        KERNELS[2, dtype, wt_dtype], x.data_ptr(), wt.data_ptr(),
+        slot_of.data_ptr(),
         out.data_ptr(), B, n_in, n_out, nbk, spec.grid_size, spec.order,
         float(spec.x0), float(spec.clip_hi), float(spec.inv_h), *out_f32, bm,
         bi, bn, torch.cuda.current_stream(x.device).cuda_stream)
@@ -578,11 +633,12 @@ def kan_fused_v1(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
                  blocks: Optional[Sequence[int]] = None,
                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """One KAN layer, version 1: (B, n_in) x against the unfused ``w_b``
-    (n_in, n_out) and ``t_flat`` (n_in*nbk, n_out), all f32 or all bf16,
-    the silu and spline branches summed apart and added once, ``out_dtype``
-    out (x's dtype by default, or f32).  ``blocks`` overrides the kernel's
-    (bm, bi, bn); None consults the autotune cache (kernel
-    ``kan_fused_v1``) before the defaults."""
+    (n_in, n_out) and ``t_flat`` (n_in*nbk, n_out), all f32 or all bf16
+    on the card (the plain version also takes the reference's f32
+    ``t_flat`` beside a bf16 x), the silu and spline branches summed
+    apart and added once, ``out_dtype`` out (x's dtype by default, or
+    f32).  ``blocks`` overrides the kernel's (bm, bi, bn); None consults
+    the autotune cache (kernel ``kan_fused_v1``) before the defaults."""
     dtype, what = kernel_dtype(x)
     out_dtype = resolve_out_dtype("kan_fused_v1", x, out_dtype)
     if grad_wanted(x, w_b, t_flat):
@@ -594,6 +650,11 @@ def kan_fused_v1(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
         return kan_fused_v1_ref(x, w_b, t_flat, spec, kb, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"kan_fused_v1: no kernel for device {x.device}")
+    if x.dtype == torch.bfloat16 and torch.float32 in (w_b.dtype,
+                                                        t_flat.dtype):
+        raise TypeError("kan_fused_v1: no version-1 kernel takes a bf16 x "
+                        "against f32 weights (ROADMAP.md, queue 3); run "
+                        "version 2, whose mixed kernel does")
     if slot_of is None:
         slot_of = slot_table(kb, spec.n_bases, x.device)
     nbk = len(kb)
@@ -611,7 +672,8 @@ def kan_fused_v1(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
     out_f32 = (() if dtype == torch.float32
                else (int(out_dtype == torch.float32),))
     _build.launch(
-        KERNELS[1, dtype], x.data_ptr(), w_b.data_ptr(), t_flat.data_ptr(),
+        KERNELS[1, dtype, dtype], x.data_ptr(), w_b.data_ptr(),
+        t_flat.data_ptr(),
         slot_of.data_ptr(), out.data_ptr(), B, n_in, n_out, nbk,
         spec.grid_size, spec.order, float(spec.x0), float(spec.clip_hi),
         float(spec.inv_h), *out_f32, bm, bi, bn,

@@ -14,5 +14,5 @@
 extern "C" int spline_basis_f32(const float* x, float* out, int n, int G,
                                 int K, float x0, float inv_h, int block_n,
                                 void* stream) {
-  return launch<float>(x, out, n, G, K, x0, inv_h, block_n, stream);
+  return launch_f32(x, out, n, G, K, x0, inv_h, block_n, stream);
 }

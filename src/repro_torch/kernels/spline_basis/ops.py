@@ -9,7 +9,9 @@ raises.  There is no fallback from a kernel to its plain version.
 The kernel's one launch knob, ``block_n``, is the number of consecutive
 inputs a block takes (the JAX kernel's block): a power of two from 32 to
 4096 whose (block_n, G+K) output stretch fits in the block's shared
-memory (half as much at bf16); a block has min(block_n, 256) threads.
+memory (half as much at bf16); a block has min(block_n, 256) threads
+(bf16: min(block_n / 2, 256), each evaluating two inputs at once in
+bf16x2).
 It resolves: explicit argument > autotune-cache hit for (n bucket, dtype,
 card) > a measured search when ``REPRO_TORCH_AUTOTUNE=1`` >
 ``DEFAULT_BLOCK_N``, and is checked (``check_block_n``) on the CPU too.

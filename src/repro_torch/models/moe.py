@@ -136,7 +136,7 @@ def _swiglu_experts(h: torch.Tensor, gate_w: torch.Tensor,
 
 class KanExperts(nn.Module):
     """E KAN experts (two KAN layers each) holding every expert's fused
-    ``[w_b ; t]`` rows once, in the params' dtype: ``forward`` maps
+    ``[w_b ; t]`` rows once, in the params' promoted dtype: ``forward`` maps
     (E, C, d) to (E, C, d), one fused-KAN launch a layer an expert on a
     CUDA tensor."""
 
@@ -175,9 +175,11 @@ class KanExperts(nn.Module):
 
 def _fuse_stack(w_b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(E, n_in*(nb+1), n_out): each expert's fused ``[w_b ; t]`` rows
-    (``kan_fused.ops.fuse_wt``'s layout), in w_b's dtype."""
+    (``kan_fused.ops.fuse_wt``'s layout), in w_b's and t's promoted dtype:
+    f32 in a bf16 model, whose t is f32 (the reference's ``kan_init``),
+    as the reference's expert layer promotes its product."""
     E, n_in, n_out = w_b.shape
-    return torch.cat([w_b[:, :, None], t.to(w_b.dtype)], dim=2).reshape(
+    return torch.cat([w_b[:, :, None], t], dim=2).reshape(
         E, -1, n_out)
 
 

@@ -225,24 +225,31 @@ def test_kan_wrappers_check_bf16_operands_on_cpu():
     with pytest.raises(ValueError, match="out_dtype"):
         tkf.kan_linear(xt.float(), wt.float(), tt.float(), spec,
                        out_dtype=torch.bfloat16)
-    # bf16 knobs are checked on the CPU with bf16's shared memory
+    # bf16 knobs are checked on the CPU with bf16's shared memory; bf16
+    # version 1 (tensor cores) takes the whole 8192 tile, f32 version 1
+    # half of it
     with pytest.raises(ValueError, match="bm \\* bn"):
-        tkf.kan_linear(xt, wt, tt, spec, version=1, blocks=(128, 32, 64))
+        tkf.kan_linear(xt, wt, tt, spec, version=1, blocks=(128, 32, 128))
+    with pytest.raises(ValueError, match="bm \\* bn"):
+        tkf.kan_linear(xt.float(), wt.float(), tt.float(), spec, version=1,
+                       blocks=(128, 32, 64))
+    tkf.kan_linear(xt, wt, tt, spec, version=1, blocks=(128, 32, 64))
     tkf.kan_linear(xt, wt, tt, spec, blocks=(8, 32, 8))
     assert dict(_build.LAUNCHES) == before
     assert tkf.kernel_dtype(xt) == (torch.bfloat16,
                                     "this kernel is bf16 only")
     assert tkf.kernel_dtype(xt.double())[0] == torch.float32
-    # bf16 version 1: one f32 weight buffer (no f32 x buffer: x is read
-    # raw) beside `stages` raw buffers of weights and x, 2 bytes an
-    # element; at bi=32 the 304 features split over 10 blocks, each with
-    # its chunk partials (two chains: silu and spline)
+    # bf16 version 1 (tensor cores): version 2's raw bf16 weight and x
+    # rows, padded, and the bf16 A tile (max(16, bm) rows), with a set of
+    # f32 chunk partials a chain (silu and spline) where the 304 features
+    # split over 10 blocks at bi=32
     rows = 32 * 6
-    for bm, bi, bn, stages, part in ((8, 32, 8, 1, 2 * 8 * 8),
+    for bm, bi, bn, stages, part in ((8, 32, 8, 1, 2 * 16 * 8),
                                      (32, 512, 32, 2, 0)):
-        raw = 2 * stages * (rows * bn + bm * 32)
+        ldb = bn + (16 if bn == 8 else 8)
         assert tkf.kernel_smem(bm, bi, bn, 304, 5, torch.bfloat16, 1) == \
-            4 * (64 + rows * bn + bm * (32 * 8 + 4) + part) + raw
+            4 * 32 + 4 * part + 2 * stages * (
+                rows * ldb + bm * 40 + max(16, bm) * (rows + 8))
     # bf16 version 2 (tensor cores): raw bf16 weight and x rows, padded,
     # and the bf16 A tile; nothing widened
     assert tkf.kernel_smem(32, 512, 32, 304, 5, torch.bfloat16) == \

@@ -64,19 +64,20 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     assert _build.library_path("k") == before
     hdr.write_text("#pragma once\nconstexpr int A = 2;\n")
     assert _build.library_path("k") != before
-    # four KAN kernels share one body; the bf16 version-2 one runs its
+    # four KAN kernels share one body; the two bf16 ones run their
     # tensor-core body on that one's knob checks and launch, with the bf16
     # matmul's MMA pieces; the two spline-basis kernels share theirs, and
-    # only spu() with the KAN kernels
+    # only the SPU header with the KAN kernels
     for name in ("kan_fused_v2", "kan_fused_v2_q8", "kan_fused_v1",
-                 "kan_fused_v1_bf16"):
+                 "kan_fused_v2_mixed"):
         files = _build.source_files(_build.KERNELS[name][0])
         assert [f.name for f in files[1:]] == [
             "kan_split.cuh", "staging.cuh", "kan_fused.cuh"], name
-    files = _build.source_files(_build.KERNELS["kan_fused_v2_bf16"][0])
-    assert [f.name for f in files[1:]] == [
-        "kan_mma.cuh", "mma_bf16.cuh", "kan_split.cuh", "staging.cuh",
-        "kan_fused.cuh"]
+    for name in ("kan_fused_v2_bf16", "kan_fused_v1_bf16"):
+        files = _build.source_files(_build.KERNELS[name][0])
+        assert [f.name for f in files[1:]] == [
+            "kan_mma.cuh", "mma_bf16.cuh", "kan_split.cuh", "staging.cuh",
+            "kan_fused.cuh"], name
     files = _build.source_files(_build.KERNELS["pattern_matmul_bf16"][0])
     assert [f.name for f in files[1:]] == [
         "epilogue.cuh", "mma_bf16.cuh", "staging.cuh"]

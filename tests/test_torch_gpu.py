@@ -1260,6 +1260,133 @@ def test_bf16_spline_basis_misaligned_output_bitwise(cuda, G, K):
         assert bool((buf[off + n * nb:] == -7.0).all())
 
 
+
+# ---------------- the bf16 spline basis, bf16 v1 and the mixed KAN kernel
+def _bits_equal(got, ref):
+    """bf16 outputs bitwise equal, NaN for NaN (the kernel's NaN is the
+    card's canonical one, torch's another payload)."""
+    gn, rn = torch.isnan(got.float()), torch.isnan(ref.float())
+    return bool(torch.equal(gn, rn)) and bool(
+        ((got.view(torch.int16) == ref.view(torch.int16)) | gn).all())
+
+
+@pytest.mark.parametrize("G", VALID_G)
+@pytest.mark.parametrize("K", VALID_K)
+def test_bf16_spline_basis_bitwise_on_every_bf16_pattern(cuda, G, K):
+    """The packed bf16x2 kernel on all 65 536 bf16 bit patterns but NaN
+    and inf (huge inputs extrapolate to inf and NaN): bitwise its plain
+    version at every block_n, into outputs 2..14 bytes past a 16-byte
+    boundary, and from an x that is not 4-byte aligned."""
+    spec = SplineSpec(G, K)
+    nb = spec.n_bases
+    bits = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    xs = bits.view(BF)
+    x = xs[torch.isfinite(xs.float())].contiguous().to(cuda)
+    n = x.numel()
+    assert n == 65536 - 256
+    plain = spline_basis_plain(x, spec)
+    for bn in sorted({c["block_n"] for c in autotune.candidates_spline_basis(
+            n, nb, BF)} | {32, 64, 128}):
+        got = spline_basis(x, spec, block_n=bn)
+        torch.cuda.synchronize()
+        assert got.dtype == BF and _bits_equal(got, plain), bn
+    for off in range(1, 8):
+        buf = torch.full((n * nb + 16,), -7.0, device=cuda, dtype=BF)
+        _build.launch("spline_basis_bf16", x.data_ptr(),
+                      buf[off:].data_ptr(), n, G, K, float(spec.x0),
+                      float(spec.inv_h), 256,
+                      torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert _bits_equal(buf[off:off + n * nb].reshape(n, nb), plain), off
+        assert bool((buf[:off] == -7.0).all())
+        assert bool((buf[off + n * nb:] == -7.0).all())
+    shifted = torch.empty(n + 1, dtype=BF, device=cuda)
+    shifted[1:] = x
+    assert _bits_equal(spline_basis(shifted[1:], spec), plain)
+
+
+V1_BF16_CASES = [((4, 3), (0, 2, 4, 5, 6), (8, 304, 32)),
+                 ((4, 3), (0, 2, 4, 5, 6), (8192, 304, 32)),
+                 ((4, 3), (0, 2, 4, 5, 6), (77, 301, 33)),
+                 ((16, 4), tuple(range(20)), (77, 37, 33)),
+                 ((4, 3), (), (33, 304, 32)),
+                 ((2, 1), (0, 1), (300, 64, 256))]
+
+
+@pytest.mark.parametrize("GK,kb,shape", V1_BF16_CASES)
+def test_bf16_v1_on_tensor_cores(cuda, GK, kb, shape):
+    """bf16 version 1 (two MMA chains): within one bf16 ulp of its plain
+    version and of bf16 version 2 (f32 out within TOL of its plain
+    version), every knob of its grid (full 8192 tiles too) bitwise the
+    default's, each row alone bitwise its row in the batch."""
+    B, n_in, n_out = shape
+    spec = SplineSpec(*GK)
+    x, wt, w_b, t_flat = _bf16_kan_case(cuda, B + n_in, B, n_in, n_out,
+                                        len(kb))
+    v2, v1 = _check_kan_bf16(x, wt, w_b, t_flat, spec, kb)
+    _close(v1.float(), v2.float(), BF16_ULP)
+    cands = autotune.candidates_kan_fused(B, n_in, n_out, len(kb), BF, 1)
+    for c in cands:
+        got = kan_fused_v1(x, w_b, t_flat, spec, kb, blocks=_kan_knob(c))
+        assert torch.equal(got, v1), c
+    for i in sorted({0, B // 2, B - 1}):
+        one = kan_fused_v1(x[i:i + 1].contiguous(), w_b, t_flat, spec, kb,
+                           blocks=(8, 64, 16))
+        assert torch.equal(one, v1[i:i + 1]), i
+    if B >= 64 and n_out >= 128:
+        assert any(c["bm"] * c["bn"] == 8192 for c in cands)
+
+
+def test_bf16_v1_refuses_f32_weights_on_the_card(cuda):
+    spec, kb = SplineSpec(4, 3), (0, 2, 4, 5, 6)
+    x, _, w_b, t_flat = _bf16_kan_case(cuda, 1, 8, 64, 16, len(kb))
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(TypeError, match="ROADMAP"):
+        kan_fused_v1(x, w_b, t_flat.float(), spec, kb)
+    assert dict(_build.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("B,n_in,n_out,GK,kb", [
+    (1024, 896, 608, (4, 3), (0, 2, 4, 5, 6)),
+    (1024, 608, 896, (4, 3), (0, 2, 4, 5, 6)),
+    (96, 1024, 512, (4, 3), (0, 2, 4, 5, 6)),
+    (77, 37, 13, (4, 3), (0, 2, 4, 5, 6)),
+    (33, 301, 33, (16, 4), tuple(range(20))),
+    (8, 304, 32, (4, 3), (0, 2, 4, 5, 6))])
+def test_mixed_kernel_matches_plain_under_every_knob(cuda, B, n_in, n_out,
+                                                     GK, kb):
+    """A bf16 x against f32 fused rows launches the mixed kernel, with no
+    cast: within TOL of its plain version at f32 out, one bf16 ulp at
+    bf16 out (the f32 output rounded once), every knob bitwise the
+    default's, each row alone bitwise its row in the batch."""
+    spec = SplineSpec(*GK)
+    gen = torch.Generator().manual_seed(B + n_in)
+    x = (torch.randn((B, n_in), generator=gen) * 1.5).to(cuda, BF)
+    wt = (torch.randn((n_in * (len(kb) + 1), n_out), generator=gen)
+          * 0.05).to(cuda)
+    before = dict(_build.LAUNCHES)
+    got32 = kan_fused_v2(x, wt, spec, kb, out_dtype=torch.float32)
+    got = kan_fused_v2(x, wt, spec, kb)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                if v != before[k]}
+    assert launched == {"kan_fused_v2_mixed": 2}
+    assert got.dtype == BF and got32.dtype == torch.float32
+    _close(got32, kan_fused_v2_ref(x, wt, spec, kb, torch.float32))
+    _close(got.float(), kan_fused_v2_ref(x, wt, spec, kb).float(), BF16_ULP)
+    assert torch.equal(got, got32.to(BF))
+    cands = autotune.candidates_kan_fused(B, n_in, n_out, len(kb), BF, 2,
+                                          torch.float32)
+    for c in cands[::2] if B >= 1024 else cands:
+        assert torch.equal(kan_fused_v2(x, wt, spec, kb,
+                                        blocks=_kan_knob(c)), got), c
+    for i in sorted({0, B // 2, B - 1}):
+        one = kan_fused_v2(x[i:i + 1].contiguous(), wt, spec, kb,
+                           blocks=(8, 128, 8))
+        assert torch.equal(one, got[i:i + 1]), i
+    with pytest.raises(TypeError, match="wt"):
+        kan_fused_v2(x.float(), wt.to(BF), spec, kb)
+
 SERVE_TOL_BF16 = 2.0 ** -8
 
 
@@ -1490,7 +1617,9 @@ from repro_torch.runtime.backends import TransformerBackend  # noqa: E402
 def test_kan_ffn_layer_on_card(cuda, dtype, masked, M):
     """One fused-KAN and one pattern-matmul launch a call; each kernel
     within its tolerance of its plain version on the same input (f32
-    ``TOL``, bf16 one ulp), the layer bitwise its two kernels."""
+    ``TOL``, bf16 one ulp), the layer bitwise its two kernels.  A bf16
+    draw's KAN rows are f32 (its ``t`` is, as the reference's), so its
+    up-projection is the mixed kernel."""
     dt = getattr(torch, dtype)
     cfg = FFNConfig(d_model=96, d_ff=608, kind="kanffn")
     if masked:
@@ -1504,13 +1633,13 @@ def test_kan_ffn_layer_on_card(cuda, dtype, masked, M):
     x = (torch.randn((M, 96), generator=torch.Generator().manual_seed(M))
          .to(cuda, dt))
     sfx = "_bf16" if dt == BF else ""
+    kan = "kan_fused_v2_mixed" if dt == BF else "kan_fused_v2"
     before = dict(_build.LAUNCHES)
     with torch.no_grad():
         y = f(x)
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
-    assert launched == {k: int(k in ("kan_fused_v2" + sfx,
-                                     "pattern_matmul" + sfx))
+    assert launched == {k: int(k in (kan, "pattern_matmul" + sfx))
                         for k in launched}
     tol = 2.0 ** -8 if dt == BF else TOL
     _, _, up_k, up_p = layer_calls(f.up, x)
@@ -1561,7 +1690,8 @@ def test_kanffn_ci_served_on_card(cuda, precision):
 def test_kan_experts_on_card(cuda, dtype, C):
     """qwen3-moe's KAN experts at their widths (4096 -> 192 -> 4096), a
     few of them: two fused-KAN launches an expert a call, each within its
-    tolerance of its plain version on the same input."""
+    tolerance of its plain version on the same input.  A bf16 draw's
+    experts hold f32 rows (f32 ``t``): the mixed kernel."""
     from repro_torch.kernels.kan_fused.ref import kan_fused_v2_ref
     from repro_torch.models.moe import KanExperts, MoEConfig, moe_init
 
@@ -1573,14 +1703,13 @@ def test_kan_experts_on_card(cuda, dtype, C):
     assert ex.wt_up.shape[1:] == (4096 * 8, 192)
     h = torch.randn((3, C, 4096), generator=torch.Generator(
         device=cuda).manual_seed(C), device=cuda).to(dt)
-    sfx = "_bf16" if dt == BF else ""
+    kan = "kan_fused_v2_mixed" if dt == BF else "kan_fused_v2"
     before = dict(_build.LAUNCHES)
     with torch.no_grad():
         y = ex(h)
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
-    assert launched == {k: 6 * int(k == "kan_fused_v2" + sfx)
-                        for k in launched}
+    assert launched == {k: 6 * int(k == kan) for k in launched}
     tol = 2.0 ** -8 if dt == BF else TOL
     for e in range(3):
         mid = kan_fused_v2(h[e], ex.wt_up[e], ex.spec, ex.kb, ex.slot_of)
@@ -1619,7 +1748,8 @@ def test_kan_drop_in_serve_steps_on_card(cuda, name, dtype):
     tol = in_series * (BF16_ULP if dt == BF else TOL)
     ffns = TT.ffn_modules(on_card, cfg)
     enc = TT.encoder_ffn_modules(on_card, cfg) if cfg.enc_dec else None
-    kname = "kan_fused_v2" + ("_bf16" if dt == BF else "")
+    # a bf16 draw's KAN rows are f32 (the reference's f32 t): mixed kernel
+    kname = "kan_fused_v2" + ("_mixed" if dt == BF else "")
     before = dict(_build.LAUNCHES)
     tok, caches = TS.make_prefill_step(cfg, ffns=ffns, enc_ffns=enc)(
         on_card, {"tokens": toks.to(cuda),
@@ -1694,9 +1824,10 @@ def test_bf16_kan_grad_on_card_matches_cpu(cuda, B, n_in, n_out):
 def test_lm_train_step_on_card(cuda, dtype):
     """One ``make_train_step`` of the reduced qwen2-0.5b with the KAN
     drop-in on the card: its launches (a fused-KAN launch a KAN layer
-    forward, a spline-basis launch a KAN layer for d wt, and at f32 one
-    more for dx), and its loss and gradients against the same step on
-    the CPU."""
+    forward -- at bf16 the mixed kernel, the params holding the
+    reference's f32 ``t`` -- a spline-basis launch a KAN layer for d wt,
+    and at f32 one more for dx), and its loss and gradients against the
+    same step on the CPU."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import steps as TS
     from repro_torch.utils import tree_map
@@ -1729,7 +1860,8 @@ def test_lm_train_step_on_card(cuda, dtype):
                 if v != before[k]}
     n = 2 * cfg.n_layers
     suffix = "_bf16" if dtype == "bfloat16" else ""
-    assert launched == {"kan_fused_v2" + suffix: n,
+    kan = "kan_fused_v2" + ("_mixed" if suffix else "")
+    assert launched == {kan: n,
                         "spline_basis" + suffix: n * (1 if suffix else 2)}
     assert int(new["step"]) == 1
     rtol = 1e-3 if suffix else 1e-5

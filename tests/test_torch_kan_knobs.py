@@ -230,29 +230,41 @@ def test_kernel_models_mirror_the_sources():
         tkf.kernel_smem(64, 64, 64, 304, 5, torch.float32) == 4 * 2 * 64 * 64
     with pytest.raises(ValueError, match="shared memory"):
         tkf.check_blocks(knob, 304, 64, 5, torch.float32, 1)
-    # two chains at 8 rows a thread spill: version 1 stops at half the tile
+    # two chains at 8 rows a thread spill: f32 version 1 stops at half the
+    # tile
     assert (tkf.max_tile(1), tkf.max_tile(2)) == (4096, 8192)
-    # bf16 version 2 (kan_mma.cuh): 256 threads, 512 from 32 x 32 on; the slot
-    # table, a member's f32 partials (max(16, bm) rows x bn), and a stage
-    # of raw bf16 weight rows (bn + 16 at 8, else bn + 8), x rows (40) and
-    # the bf16 A tile (max(16, bm) rows of 32 * (nbk+1) + 8)
+    # bf16, both versions (kan_mma.cuh): 256 threads, 512 from 32 x 32 on
+    # (version 1 at a full 8192 tile 256); the slot table, a member's f32
+    # partials (max(16, bm) rows x bn, a set a chain), and a stage of raw
+    # bf16 weight rows (bn + 16 at 8, else bn + 8), x rows (40) and the
+    # bf16 A tile (max(16, bm) rows of 32 * (nbk+1) + 8)
     bf = torch.bfloat16
     assert tkf.kernel_threads(8, 8, bf) == tkf.kernel_threads(16, 32, bf) \
         == 256
     assert tkf.kernel_threads(32, 32, bf) == tkf.kernel_threads(128, 64, bf) \
         == 512
-    assert tkf.kernel_threads(8, 8, bf, 1) == 128      # v1: kan_split.cuh
+    assert tkf.kernel_threads(8, 8, bf, 1) == 256
+    assert tkf.kernel_threads(32, 32, bf, 1) == 512
+    assert tkf.kernel_threads(128, 64, bf, 1) == 256
+    assert tkf.max_tile(1, bf) == 8192
     assert tkf.kernel_smem(8, 32, 8, 304, 5, bf) == \
         128 + 4 * 16 * 8 + 2 * (192 * 24 + 8 * 40) + 2 * 16 * 200
+    assert tkf.kernel_smem(8, 32, 8, 304, 5, bf, 1) == \
+        128 + 2 * 4 * 16 * 8 + 2 * (192 * 24 + 8 * 40) + 2 * 16 * 200
     assert tkf.kernel_smem(32, 512, 32, 304, 5, bf) == \
+        tkf.kernel_smem(32, 512, 32, 304, 5, bf, 1) == \
         128 + 2 * 2 * (192 * 40 + 32 * 40 + 32 * 200)
     # nbk = 0: the silu row alone, a chunk two k16 steps deep
     assert tkf.kernel_smem(16, 64, 16, 64, 0, bf) == \
         128 + 2 * 2 * (32 * 24 + 16 * 40 + 16 * 40)
-    # less than the widening body's (bf16 version 1) at vikin-mixed's
-    # default knobs
-    assert tkf.kernel_smem(32, 512, 32, 304, 5, bf) < \
-        tkf.kernel_smem(32, 512, 32, 304, 5, bf, 1)
+    # the mixed kernel (bf16 x, f32 weights; kan_split.cuh): f32 weight
+    # stages, no f32 x buffer, a raw bf16 x stage
+    f32 = torch.float32
+    words = 64 + 2 * 192 * 32 + 64 * 260
+    assert tkf.kernel_smem(64, 512, 32, 304, 5, bf, 2, f32) == \
+        4 * words + 2 * 2 * 64 * 32
+    assert tkf.kernel_threads(64, 32, bf, 2, f32) == \
+        tkf.kernel_threads(64, 32)
 
 
 @pytest.mark.parametrize("blocks,n_in,match", [
