@@ -88,8 +88,10 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    rows for the four bf16 kernels (their multiply-adds at the bf16
    rate, the SPU and spline work at the f32 rate; library ``addmm`` in
    bf16 with f32 accumulation), the mixed kernel on the bf16 stack's
-   input against the f32 stack's rows (its multiply-adds at the f32
-   rate), and the per-arch breakdown at bf16;
+   input against the f32 stack's rows (its multiply-adds at the cheaper
+   of two costs, ``mixed_macs``: f32 FMAs at the f32 rate or three bf16
+   products at the bf16 rate; with its design, as the bf16 KAN row's),
+   and the per-arch breakdown at bf16;
 5. the v1 path -- a ``KANLayer`` at ``version=1`` built from the
    vikin-kan2 stack's weights runs forward on the card at buckets
    2/4/8/16, 8192 and 65535 * 16 + 1 (more 16-row tiles than grid.y
@@ -299,6 +301,9 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 on CUDA cores (no tensor cores)
 INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core rate
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
+# A bf16 activation times an f32 weight is three exact products of bf16
+# values (the weight's three bf16 planes, kan_mma.cuh).
+MIXED_PLANES = 3
 KERNEL_TOL = 1e-5
 SERVE_TOL = 1e-4
 BF16_ULP = 2.0 ** -8          # one bf16 ulp of (1 + max|ref|)
@@ -467,11 +472,15 @@ KERNEL_INFO = {
         "replaces": "src/repro/kernels/kan_fused/kan_fused.py:227",
     },
     # a bf16 x against f32 fused rows: a bf16 model's, whose spline
-    # coefficients t are f32 as the reference's kan_init draws them
+    # coefficients t are f32 as the reference's kan_init draws them; the
+    # rows split into three bf16 planes on the tensor-core body
     "kan_fused_v2_mixed": {
         "source": ("src/repro_torch/kernels/kan_fused/csrc/"
                    "kan_fused_mixed.cu"),
-        "headers": ["src/repro_torch/kernels/kan_fused/csrc/kan_split.cuh"],
+        "headers": ["src/repro_torch/kernels/kan_fused/csrc/kan_mma.cuh",
+                    "src/repro_torch/kernels/kan_fused/csrc/kan_split.cuh",
+                    "src/repro_torch/kernels/pattern_matmul/csrc/"
+                    "mma_bf16.cuh"],
         "replaces": "src/repro/kernels/kan_fused/kan_fused.py:284",
     },
 }
@@ -494,6 +503,16 @@ SUFFIX = {F32: "", BF: "_bf16"}            # kernel name by operand dtype
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def mixed_macs(flops: float) -> tuple:
+    """(operations, rate) of ``flops`` of multiply-adds of bf16
+    activations with f32 weights, whichever implements them: the cheaper
+    of f32 FMAs on CUDA cores and three bf16-plane products on tensor
+    cores."""
+    return min(((flops, F32_FLOPS_PER_S),
+                (MIXED_PLANES * flops, BF16_FLOPS_PER_S)),
+               key=lambda w: w[0] / w[1])
 
 
 def card_line() -> str:
@@ -2278,14 +2297,17 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
                  for c in range(spec.grid_size)], device=dev)
             hits = int(kept[cell].sum())
             esz = 2.0 if dt == BF else 4.0
-            # bf16 products on tensor cores; the mixed and f32 kernels' f32
-            # FMAs on CUDA cores
-            mac_rate = BF16_FLOPS_PER_S if prec == "bf16" else F32_FLOPS_PER_S
+            # bf16 products on tensor cores, the f32 kernel's FMAs on CUDA
+            # cores, the mixed kernel's at the cheaper of the two ways
+            # (mixed_macs)
+            macs = 2.0 * n_out * (M * n_in + hits)
             slot_of = KO.slot_table(LM_KB, spec.n_bases, dev)
             n_bytes = (esz * (x.numel() + M * n_out)
                        + wt.element_size() * wt.numel()
                        + 4.0 * slot_of.numel())
-            work = [(2.0 * n_out * (M * n_in + hits), mac_rate),
+            work = [mixed_macs(macs) if prec == "mixed" else
+                    (macs, BF16_FLOPS_PER_S if prec == "bf16"
+                     else F32_FLOPS_PER_S),
                     (M * n_in * (spu_op_count(spec) + 4), F32_FLOPS_PER_S)]
             t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
             t_ops = sum(n / rt for n, rt in work) * 1e3
@@ -2648,6 +2670,7 @@ def main() -> int:
         kan_fused_v2,
         kan_fused_v2_q8,
         kernel_smem,
+        kernel_threads,
         slot_table,
         split,
     )
@@ -3770,7 +3793,8 @@ def main() -> int:
 
     # the mixed kernel at the vikin-mixed KAN layer: the bf16 stack's
     # input against the f32 stack's fused rows (a bf16 model holding the
-    # reference's f32 t), its multiply-adds at the f32 CUDA-core rate
+    # reference's f32 t), its multiply-adds at the cheaper of f32 FMAs and
+    # three bf16-plane products (mixed_macs)
     f_layer = next(lay for lay in backends["vikin-mixed"].stack.layers
                    if isinstance(lay, KANLayer))
     for batch in (8, BIG):
@@ -3784,12 +3808,31 @@ def main() -> int:
                   lambda xin=xin: kan_fused_v2_ref(
                       xin, f_layer.wt, f_layer.cfg.spec, f_layer.kb))
         a["work"] = kan_work(f_layer, xin, F32_FLOPS_PER_S, 4)
+        macs = a["work"][0][0]
+        a["work"][0] = mixed_macs(macs)
         a["bytes"] = (2.0 * (xin.numel() + batch * n_out)
                       + 4.0 * (f_layer.wt.numel() + f_layer.slot_of.numel()))
         a["shapes"] = [f"{batch}x{n_in}->{n_out} kb={list(f_layer.kb)} "
                        f"bf16 x, f32 weights"]
-        a["blocks"] = [kan_blocks(batch, n_in, n_out, len(f_layer.kb), BF,
-                                  device=dev, wt_dtype=F32)]
+        knob = kan_blocks(batch, n_in, n_out, len(f_layer.kb), BF,
+                          device=dev, wt_dtype=F32)
+        a["blocks"] = [knob]
+        # the tensor-core body's shared memory a block (f32 rows and their
+        # plane tile), and the multiply-adds its three plane MMAs issue on
+        # the dense tile beside the useful ones
+        nbk1 = len(f_layer.kb) + 1
+        outs = (-(-batch // knob["bm"]) * max(16, knob["bm"])
+                * -(-n_out // knob["bn"]) * knob["bn"])
+        a["design"] = [{
+            "smem_bytes": kernel_smem(knob["bm"], knob["bi"], knob["bn"],
+                                      n_in, len(f_layer.kb), BF,
+                                      wt_dtype=F32),
+            "threads": kernel_threads(knob["bm"], knob["bn"], BF,
+                                      wt_dtype=F32),
+            "cluster": split(n_in, knob["bi"])[2],
+            "mma_flops": MIXED_PLANES * 2.0 * outs * split(n_in, 32)[0]
+            * 32 * nbk1,
+            "useful_flops": MIXED_PLANES * macs}]
         record(MIXED, "bf16 x, f32 weights", batch, a)
     torch.cuda.synchronize()
 

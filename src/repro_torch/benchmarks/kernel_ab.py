@@ -20,9 +20,11 @@ within one bf16 ulp (bf16 out) or ``1e-5 * (1 + max|parent|)`` (f32 out),
 and whether they are bitwise equal is recorded beside.  Device times are
 CUDA-graph replays taken in turns parent, change, change, parent, each
 side's two turns averaged.  The kernel calls of the vikin-kan2 and
-vikin-mlp3 stacks at batch 8192 too, and then the three archs' stacks at
-bucket 8 in each precision, as whole forwards, the same way (one
-tolerance a layer).
+vikin-mlp3 stacks at batch 8192 too; the mixed kernel (a bf16 x against
+f32 fused rows, ``mixed_calls``) at vikin-mixed's KAN layer at 8 and 8192
+and at the LM train step's two KAN layers (qwen2-0.5b's drop-in, M =
+1024); and then the three archs' stacks at bucket 8 in each precision, as
+whole forwards, the same way (one tolerance a layer).
 It fails on the first output outside its tolerance.
 
 With ``--served`` it instead holds the served path of the two trees
@@ -52,8 +54,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.vikin_models import VIKIN_ARCHS
-from repro_torch.core.kan import KANLayer
+from repro_torch.core.kan import KANConfig, KANLayer, kan_init
 from repro_torch.core.quant import QuantKANLayer, quantize_static
+from repro_torch.core.splines import SplineSpec
 from repro_torch.kernels import _build, autotune
 from repro_torch.kernels.epilogue import scale_bias_act
 from repro_torch.kernels.kan_fused import ops as kan_ops
@@ -63,6 +66,7 @@ from repro_torch.kernels.kan_fused.ops import (
     kan_fused_v1,
     kan_fused_v2,
     kan_fused_v2_q8,
+    slot_table,
 )
 from repro_torch.kernels.kan_fused.ref import (
     kan_fused_v2_q8_ref,
@@ -84,6 +88,11 @@ PRECISIONS = ("f32", "int8", "bf16")
 BATCHES = (2, 4, 8, 16, 8192)
 BF16_ULP = 2.0 ** -8
 F32_TOL = 1e-5
+MIXED = "kan_fused_v2_mixed"
+# The LM train step's KAN layers (qwen2-0.5b's drop-in at pattern 0.5:
+# (M, n_in, n_out), kept bases), each a launch of the mixed kernel.
+LM_MIXED = ((1024, 896, 608), (1024, 608, 896))
+LM_KB = (0, 2, 4, 5, 6)
 # The ops modules whose knob rules each side brings, and those rules.
 KNOB_MODULES = {"pattern_matmul": pm_ops, "kan_fused": kan_ops}
 KNOB_FUNCS = ("default_blocks", "check_blocks")
@@ -175,6 +184,46 @@ def tooling_calls(stack, x: torch.Tensor
                      flat, layer.cfg.spec))]
         x = layer(x)
     return []
+
+
+def mixed_calls(stack_f32, stack_bf16, n_in: int,
+                device: torch.device | str
+                ) -> List[Tuple[str, torch.Tensor, Callable, Callable]]:
+    """(shape, kernel input, kernel call, plain call) of the mixed kernel,
+    a bf16 x against f32 fused rows: vikin-mixed's KAN layer at batches 8
+    and 8192 (the bf16 stack's KAN input on seeded batches of ``n_in``
+    features against the f32 stack's rows), and the LM train step's KAN
+    layers (``LM_MIXED``: a seeded bf16 ``kan_init``, whose ``t`` is f32,
+    and x of 1.5 N(0, 1) rounded to bf16)."""
+    out = []
+    f_layer = next(lay for lay in stack_f32.layers
+                   if isinstance(lay, KANLayer))
+    spec, kb = f_layer.cfg.spec, f_layer.kb
+    for batch in (8, 8192):
+        x = torch.from_numpy(np.random.default_rng(2).random(
+            (batch, n_in), dtype=np.float32)).to(device, torch.bfloat16)
+        xin = next(xi for n, xi, _ in stack_calls("bf16", stack_bf16, x)
+                   if n.startswith("kan_fused"))
+        out.append((f"{tuple(xin.shape)} vikin-mixed KAN", xin,
+                    lambda xin=xin: kan_fused_v2(xin, f_layer.wt, spec, kb,
+                                                 f_layer.slot_of),
+                    lambda xin=xin: kan_fused_v2_ref(xin, f_layer.wt, spec,
+                                                     kb)))
+    lm_spec = SplineSpec(4, 3)
+    slot_of = slot_table(LM_KB, lm_spec.n_bases, device)
+    for M, n_in, n_out in LM_MIXED:
+        gen = torch.Generator(device=device).manual_seed(n_in)
+        p = kan_init(KANConfig(n_in, n_out, lm_spec, basis_keep=LM_KB), gen,
+                     torch.bfloat16)
+        wt = fuse_wt(p["w_b"], flatten_t(p["t"], LM_KB), len(LM_KB))
+        x = (torch.randn((M, n_in), generator=gen, device=device)
+             * 1.5).to(torch.bfloat16)
+        out.append((f"{(M, n_in)} -> {n_out} LM train step", x,
+                    lambda x=x, wt=wt: kan_fused_v2(x, wt, lm_spec, LM_KB,
+                                                    slot_of),
+                    lambda x=x, wt=wt: kan_fused_v2_ref(x, wt, lm_spec,
+                                                        LM_KB)))
+    return out
 
 
 def plain_stack(params, x: torch.Tensor, model) -> torch.Tensor:
@@ -411,6 +460,12 @@ def run(parent_dir: str | Path, out: str | Path | None = None) -> Dict:
             for name, what, call in calls:
                 rows.append(ab_row(name, what, call, parent, arch=arch,
                                    precision=precision, batch=batch))
+    for what, _, call, _ in mixed_calls(
+            backends["vikin-mixed", "f32"].stack,
+            backends["vikin-mixed", "bf16"].stack,
+            backends["vikin-mixed", "f32"].n_in, dev):
+        rows.append(ab_row(MIXED, what, call, parent,
+                           precision="bf16 x, f32 rows"))
     for precision in PRECISIONS:
         for arch in ARCHS:
             be = backends[arch, precision]

@@ -104,7 +104,8 @@ KERNELS = {
         # inv_h, out_f32, bm, bi, bn, stream
         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
          _I, _P)),
-    # bf16 x against f32 fused weights (a bf16 model's f32 spline rows)
+    # bf16 x against f32 fused weights (a bf16 model's f32 spline rows),
+    # on kan_mma.cuh's tensor-core body (the rows split into bf16 planes)
     "kan_fused_v2_mixed": (
         KERNELS_DIR / "kan_fused" / "csrc" / "kan_fused_mixed.cu",
         "kan_fused_v2_mixed",

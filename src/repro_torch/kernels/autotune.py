@@ -36,7 +36,11 @@ bn)`` of the three version-2 KAN kernels under kernel ``kan_fused_v2``
 (the dtype tells f32, bf16 and int8 apart, as in the JAX
 ``resolve_blocks``), of the mixed one (bf16 x, f32 weights) under
 ``kan_fused_v2_mixed``, and of the two version-1 KAN kernels under
-``kan_fused_v1``.
+``kan_fused_v1``.  The mixed kernel moved from the CUDA-core body to the
+tensor-core one, whose shared memory differs, with this file's schema
+unchanged: a ``kan_fused_v2_mixed`` entry its body refuses is a miss
+(``kan_fused/ops``) until ``tune_kan_fused`` searches the shape again;
+any other kernel's refused entry raises.
 """
 from __future__ import annotations
 

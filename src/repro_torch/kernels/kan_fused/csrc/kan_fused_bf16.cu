@@ -9,7 +9,7 @@
 //
 //   silu(x) in f32, rounded once to bf16; the input clipped and rounded
 //   to bf16, its cell located in f32 and its K+1 de Boor values by the
-//   bf16 recursion (every op rounded to bf16, kan_fused.cuh's spu<true>);
+//   bf16 recursion (every op rounded to bf16, kan_fused.cuh's spu_bf16x2);
 //   the products against the bf16 weights summed in f32; the total
 //   rounded once to bf16 (or written as f32).
 //
@@ -64,5 +64,5 @@ extern "C" int kan_fused_v2_bf16(const void* x, const void* wt,
   p.x0 = x0;
   p.hi = hi;
   p.inv_h = inv_h;
-  return kan_mma::launch<false>(p, bm, bi, bn, stream);
+  return kan_mma::launch<kan_mma::BF16_V2>(p, bm, bi, bn, stream);
 }

@@ -55,5 +55,5 @@ extern "C" int kan_fused_v1_bf16(const void* x, const void* w_b,
   p.x0 = x0;
   p.hi = hi;
   p.inv_h = inv_h;
-  return kan_mma::launch<true>(p, bm, bi, bn, stream);
+  return kan_mma::launch<kan_mma::BF16_V1>(p, bm, bi, bn, stream);
 }

@@ -1,17 +1,15 @@
 // The fused KAN layer kernel of kan_fused.cu (f32), kan_fused_q8.cu
-// (int8 codes), kan_fused_v1.cu (version 1: w_b and t_flat apart) and
-// kan_fused_mixed.cu (bf16 x, f32 weights), for sm_90a, with its
-// launch-time knobs (bm, bi, bn).
+// (int8 codes) and kan_fused_v1.cu (version 1: w_b and t_flat apart), for
+// sm_90a, with its launch-time knobs (bm, bi, bn).
 //
 // One template body over an operand policy `Op` (`F32`: x and the fused
 // [w_b ; t[kb]] rows of ops.fuse_wt as f32; `Q8`: int8 codes, copied raw
 // and dequantized once a chunk in shared memory; `Split`: the version-1
-// weights, w_b and t_flat, staged into the same fused layout; `Mixed`: a
-// bf16 x, copied raw and read raw by the bf16 SPU, against F32's f32
-// rows, with a bf16 or f32 output) and the rows a thread owns (`TM`).
-// The bf16 kernels of both versions run their own tensor-core body
-// (kan_mma.cuh) on this file's knob checks, feature split and cluster
-// launch.
+// weights, w_b and t_flat, staged into the same fused layout) and the
+// rows a thread owns (`TM`).  The kernels with a bf16 x -- bf16 rows of
+// both versions, and f32 rows split into bf16 planes (kan_fused_mixed.cu)
+// -- run their own tensor-core body (kan_mma.cuh) on this file's knob
+// checks, feature split, cluster launch and f32 row staging.
 //
 // What each output is, bit for bit, depends on the layer alone:
 //   * the input features are cut into chunks of PC = 32, a constant that
@@ -80,7 +78,7 @@ struct Params {
   const void* t_flat;        // version 1: the kept-basis rows
   const float* slot_scales;  // Q8 only: (nbk+1,) silu row, kept bases
   const int* slot_of;
-  void* out;                 // f32, or bf16 where out_bf16 (bf16 x only)
+  void* out;                 // f32, or bf16 where out_bf16 (kan_mma.cuh)
   int B, n_in, n_out, nbk, n_bases, G, K;
   float x_scale, x0, hi, inv_h;
   int out_bf16;
@@ -103,17 +101,15 @@ constexpr int max_tile(int chains) {
 }
 
 // Dynamic shared memory of a block (ops.kernel_smem mirrors it): the
-// header, `stages` f32 weight buffers and as many f32 x buffers (none
-// where the SPU pass reads a bf16 x raw), the staged (row, feature)
-// values, a cluster member's chunk partials (one set a chain), and the
-// `stages` buffers of raw weights (kRawW bytes an element) and raw x
-// (kRawX bytes) staged before widening.
+// header, `stages` f32 weight buffers and as many f32 x buffers, the
+// staged (row, feature) values, a cluster member's chunk partials (one
+// set a chain), and the `stages` buffers of raw weights (kRawW bytes an
+// element) and raw x (kRawX bytes) staged before widening.
 template <class Op>
 inline long smem_bytes(int bm, int bn, int nbk, int cpb, int nsplit) {
   const long rows = (long)PC * (nbk + 1);
   const long stages = cpb > 1 ? 2 : 1;
-  const long words = HDR + stages * rows * bn +
-                     (Op::kBF16 ? 0 : stages) * (long)bm * PC +
+  const long words = HDR + stages * rows * bn + stages * (long)bm * PC +
                      (long)bm * ACT_STRIDE +
                      (nsplit > 1 ? (long)Op::kChains * cpb * bm * bn : 0);
   return 4 * words +
@@ -133,10 +129,10 @@ __device__ __forceinline__ void issue_x(const Params& p, float* xs, int b0,
 }
 
 // The f32 weight rows of chunk p0 .. p0+PC-1 and output columns n0 ..
-// n0+bn-1: local row r is global row p0*(nbk+1) + r; rows past
-// n_in*(nbk+1) and columns past n_out read as zero.  A thread keeps one
-// column (group) and walks the rows: bn <= 128 <= threads, all powers of
-// two.
+// n0+bn-1 (F32 here, and kan_mma.cuh's f32 rows): local row r is global
+// row p0*(nbk+1) + r; rows past n_in*(nbk+1) and columns past n_out read
+// as zero.  A thread keeps one column (group) and walks the rows: bn <=
+// 128 <= threads, all powers of two.
 __device__ __forceinline__ void issue_w_f32(const Params& p, float* ws,
                                             int p0, int n0, int tid,
                                             int nthr) {
@@ -161,37 +157,11 @@ __device__ __forceinline__ void issue_w_f32(const Params& p, float* ws,
   }
 }
 
-// The raw bf16 x tile of rows b0.. and features p0.. into `rx`; rows past
-// B and features past n_in read as zero.  x rows of n_in % 4 != 0
-// elements (or an x not 8-byte aligned) are staged an element at a time
-// with plain loads: cp.async copies 4 bytes at least, and a copy would
-// straddle two rows there.
-__device__ __forceinline__ void issue_x_bf16(const Params& p,
-                                             unsigned short* rx, int b0,
-                                             int p0, int tid, int nthr) {
-  const unsigned short* x = static_cast<const unsigned short*>(p.x);
-  if (p.vec_x) {
-    for (int e = tid; e < p.bm * (PC / 4); e += nthr) {
-      const int b = b0 + (e >> 3), f = p0 + 4 * (e & 7);
-      const bool ok = b < p.B && f < p.n_in;
-      pm::cp_async<8>(rx + 4 * e, ok ? x + (size_t)b * p.n_in + f : x, ok);
-    }
-  } else {
-    for (int e = tid; e < p.bm * PC; e += nthr) {
-      const int b = b0 + (e >> 5), f = p0 + (e & (PC - 1));
-      rx[e] = b < p.B && f < p.n_in ? __ldg(x + (size_t)b * p.n_in + f)
-                                    : (unsigned short)0;
-    }
-  }
-}
-
 // Each policy names its staging: kRawW / kRawX, the bytes of a raw weight
-// / x element staged before widening (0: staged as f32); kBF16, a bf16 x
-// read raw by the bf16 SPU (no f32 x buffer) and a bf16 or f32 output;
-// kChains, the accumulator chains (2: version 1's silu and spline sums).
+// / x element staged before widening (0: staged as f32); kChains, the
+// accumulator chains (2: version 1's silu and spline sums).
 struct F32 {
   static constexpr bool kQ8 = false;
-  static constexpr bool kBF16 = false;
   static constexpr int kRawW = 0;
   static constexpr int kRawX = 0;
   static constexpr int kChains = 1;
@@ -219,7 +189,6 @@ struct F32 {
 // them.
 struct Q8 {
   static constexpr bool kQ8 = true;
-  static constexpr bool kBF16 = false;
   static constexpr int kRawW = 1;
   static constexpr int kRawX = 1;
   static constexpr int kChains = 1;
@@ -300,7 +269,6 @@ struct Q8 {
 // unchanged.  The (pl, s) of a thread's rows are stepped, not divided.
 struct Split {
   static constexpr bool kQ8 = false;
-  static constexpr bool kBF16 = false;
   static constexpr int kRawW = 0;
   static constexpr int kRawX = 0;
   static constexpr int kChains = 2;
@@ -352,68 +320,23 @@ struct Split {
   }
 };
 
-// A bf16 x against f32 fused rows (ops.fuse_wt of a bf16 w_b and the f32
-// t a bf16 model holds, as the reference's kan_init promotes it): the
-// weights staged as F32 stages them, x copied raw (half F32's x bytes)
-// into the raw area and read raw by the SPU pass, which runs the bf16
-// numerics of kan_fused_bf16.cu (silu rounded once to bf16, spu<true>).
-// Each bf16 activation widens exactly, so the FMA pass is F32's on the
-// same staged rows, IEEE f32 fmaf on CUDA cores in F32's fixed order:
-// every knob gives the same bits and batched == single holds bitwise.
-struct Mixed {
-  static constexpr bool kQ8 = false;
-  static constexpr bool kBF16 = true;
-  static constexpr int kRawW = 0;
-  static constexpr int kRawX = 2;
-  static constexpr int kChains = 1;
-
-  __device__ static void issue(const Params& p, float* ws, float*,
-                               int8_t* raw, int b0, int p0, int n0, int tid,
-                               int nthr) {
-    issue_w_f32(p, ws, p0, n0, tid, nthr);
-    issue_x_bf16(p, reinterpret_cast<unsigned short*>(raw), b0, p0, tid,
-                 nthr);
-  }
-
-  __device__ static void prepare(const Params&, float*, float*,
-                                 const int8_t*, const float*, int, int) {}
-
-  // The chunk's x elements, raw (the raw area holds x alone), for
-  // spu_stage.
-  __device__ static const unsigned short* x_of(const Params&, const float*,
-                                               const int8_t* raw) {
-    return reinterpret_cast<const unsigned short*>(raw);
-  }
-};
-
 // SIMD + SPU + TSE once per (row, feature) of the chunk.  Each entry is
 // two float4: {silu, v0, v1, v2} and {v3, v4, rel0..3, rel4}, where vj is
 // the j-th de Boor value if its basis is kept (else 0) and relj the
 // staged row it multiplies relative to the feature's silu row (1 + slot,
 // or 0 -- the silu row, times 0 -- for a dropped basis), one byte each.
-// With BF (x a bf16 value, read raw) silu is computed in f32 and rounded
-// once to bf16, the clipped input is rounded to bf16 (torch clamps a bf16
-// tensor to bounds rounded to bf16: the same value) and the de Boor values
-// are spu<true>'s, as the plain version computes them on a bf16 tensor.
-__device__ __forceinline__ float x_value(float v) { return v; }
-__device__ __forceinline__ float x_value(unsigned short b) {
-  return kan_fused::bf16_widen(b);
-}
-
-template <bool BF, class X>
-__device__ __forceinline__ void spu_stage(const Params& p, const X* xs,
+__device__ __forceinline__ void spu_stage(const Params& p, const float* xs,
                                           float* s_act, const int* s_slot,
                                           int p0, int tid, int nthr) {
   for (int e = tid; e < p.bm * PC; e += nthr) {
     const int bl = e >> 5, pl = e & (PC - 1);
     float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
     if (p0 + pl < p.n_in) {
-      const float xv = x_value(xs[e]);
+      const float xv = xs[e];
       // The KAN layer evaluates its bases on x clipped to [x0, x1 - eps).
       float vals[KMAX + 1];
-      const int cell = kan_fused::spu<BF>(
-          kan_fused::rnd<BF>(fminf(fmaxf(xv, p.x0), p.hi)), p.x0, p.inv_h,
-          p.G, p.K, vals);
+      const int cell = kan_fused::spu(fminf(fmaxf(xv, p.x0), p.hi), p.x0,
+                                      p.inv_h, p.G, p.K, vals);
       float v[KMAX + 1];
       unsigned rel = 0, rel4 = 0;
 #pragma unroll
@@ -426,8 +349,7 @@ __device__ __forceinline__ void spu_stage(const Params& p, const X* xs,
         else
           rel4 = r;
       }
-      lo = make_float4(kan_fused::rnd<BF>(xv * (1.f / (1.f + expf(-xv)))),
-                       v[0], v[1], v[2]);
+      lo = make_float4(xv * (1.f / (1.f + expf(-xv))), v[0], v[1], v[2]);
       hi = make_float4(v[3], v[4], __uint_as_float(rel),
                        __uint_as_float(rel4));
     }
@@ -496,9 +418,9 @@ kan_split_kernel(const Params p) {
   const int rsz = Op::kRawW * wsz + Op::kRawX * p.bm * PC;
   const int psz = p.cpb * p.bm * p.bn;         // words a chain's partials
   float* s_w = smem + HDR;
-  // f32 weight and x buffers: `stages` of each (none for a raw bf16 x)
+  // f32 weight and x buffers: `stages` of each
   float* s_x = s_w + p.stages * wsz;
-  float* s_act = s_x + (Op::kBF16 ? 0 : p.stages) * p.bm * PC;
+  float* s_act = s_x + p.stages * p.bm * PC;
   float* s_part = s_act + p.bm * ACT_STRIDE;
   int8_t* s_raw = reinterpret_cast<int8_t*>(
       s_part + (gridDim.z > 1 ? NC * psz : 0));
@@ -541,8 +463,8 @@ kan_split_kernel(const Params p) {
     __syncthreads();
     Op::prepare(p, ws, xs, s_raw + buf * rsz, s_scale, tid, nthr);
     if (Op::kQ8) __syncthreads();      // the dequantized x, for spu_stage
-    spu_stage<Op::kBF16>(p, Op::x_of(p, xs, s_raw + buf * rsz), s_act,
-                         s_slot, p0, tid, nthr);
+    spu_stage(p, Op::x_of(p, xs, s_raw + buf * rsz), s_act, s_slot, p0, tid,
+              nthr);
     __syncthreads();
     if (computes) {
       float part[NC][TM][4];
@@ -620,24 +542,6 @@ kan_split_kernel(const Params p) {
       for (int k = 0; k < 4; ++k)
         v[k] = NC == 2 ? __fadd_rn(total[0][i][k], total[NC - 1][i][k])
                        : total[0][i][k];
-      if (Op::kBF16 && p.out_bf16) {
-        // one rounding of the f32 total to bf16
-        __nv_bfloat16* o =
-            static_cast<__nv_bfloat16*>(p.out) + (size_t)b * p.n_out + n;
-        if (p.vec_out) {
-          if (n < p.n_out) {
-            reinterpret_cast<__nv_bfloat162*>(o)[0] =
-                __floats2bfloat162_rn(v[0], v[1]);
-            reinterpret_cast<__nv_bfloat162*>(o)[1] =
-                __floats2bfloat162_rn(v[2], v[3]);
-          }
-        } else {
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            if (n + k < p.n_out) o[k] = __float2bfloat16_rn(v[k]);
-        }
-        continue;
-      }
       float* o = static_cast<float*>(p.out) + (size_t)b * p.n_out + n;
       if (p.vec_out) {
         if (n < p.n_out)
@@ -745,15 +649,14 @@ int launch(Params p, int bm, int bi, int bn, void* stream) {
   int threads = (bm / tm) * (bn / 4);
   if (threads < MIN_THREADS) threads = MIN_THREADS;
   // a weight copy is 4 columns: 4 int8 bytes, 16 f32 bytes; an x copy 4
-  // elements (int8, bf16), or one f32
+  // int8 elements, or one f32
   const uintptr_t wal = Op::kRawW ? 4 * Op::kRawW : 16;
   p.vec_w = p.n_out % 4 == 0 &&
             reinterpret_cast<uintptr_t>(p.wt) % wal == 0 &&
             reinterpret_cast<uintptr_t>(p.t_flat) % wal == 0;
   const uintptr_t xal = Op::kRawX ? 4 * Op::kRawX : 4;
   p.vec_x = p.n_in % 4 == 0 && reinterpret_cast<uintptr_t>(p.x) % xal == 0;
-  p.vec_out = p.n_out % 4 == 0 &&
-              reinterpret_cast<uintptr_t>(p.out) % (p.out_bf16 ? 8 : 16) == 0;
+  p.vec_out = p.n_out % 4 == 0 && reinterpret_cast<uintptr_t>(p.out) % 16 == 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (tm) {
     case 1:

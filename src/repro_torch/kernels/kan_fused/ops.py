@@ -13,9 +13,10 @@ no fallback from a kernel to its plain version.  f32 and bf16 layers
 take ``out_dtype``, as the JAX ``kan_linear`` does: x's dtype (the
 default) or f32, the bf16 kernels' f32 accumulator unrounded.
 
-Four kernels run one CUDA-core body (``csrc/kan_split.cuh``: v2 f32,
-int8 and mixed, v1 f32); the bf16 kernels of both versions run a
-tensor-core body (``csrc/kan_mma.cuh``) on the same knob checks and
+Three kernels run one CUDA-core body (``csrc/kan_split.cuh``: v2 f32 and
+int8, v1 f32); the three with a bf16 x -- bf16 rows of both versions,
+and the mixed kernel's f32 rows, split into three exact bf16 planes --
+run a tensor-core body (``csrc/kan_mma.cuh``) on the same knob checks and
 feature split.  All six take their knobs ``(bm, bi, bn)`` at launch
 time: bm rows x bn outputs a block, bi input features a block walk.
 ``resolve_blocks`` picks them as the JAX one does, at either version:
@@ -93,10 +94,16 @@ _SMS = 132                      # the H100's SMs (default_blocks)
 Blocks = Dict[str, int]
 
 
-def _mma(dtype: torch.dtype, wt_dtype: Optional[torch.dtype]) -> bool:
+def _mma(dtype: torch.dtype) -> bool:
+    """Whether x of ``dtype`` runs the tensor-core body: a bf16 x, against
+    bf16 rows (either version) or f32 rows (``_planes``)."""
+    return dtype == torch.bfloat16
+
+
+def _planes(dtype: torch.dtype, wt_dtype: Optional[torch.dtype]) -> bool:
     """Whether x of ``dtype`` against weights of ``wt_dtype`` (None: the
-    same) runs the tensor-core body: bf16 against bf16, either version."""
-    return dtype == torch.bfloat16 and wt_dtype in (None, torch.bfloat16)
+    same) is the mixed kernel's: a bf16 x, f32 rows split into planes."""
+    return dtype == torch.bfloat16 and wt_dtype == torch.float32
 
 
 def max_tile(version: int = DEFAULT_VERSION,
@@ -118,13 +125,15 @@ def kernel_threads(bm: int, bn: int, dtype: torch.dtype = torch.float32,
                    version: int = DEFAULT_VERSION,
                    wt_dtype: Optional[torch.dtype] = None) -> int:
     """Threads a block: on ``kan_split.cuh``'s body one per TM rows x 4
-    columns, at least 128 (the rest only stage); the bf16 kernels
+    columns, at least 128 (the rest only stage); the bf16-x kernels
     (``kan_mma.cuh``) 256, or 512 from a 32 x 32 tile on, their SPU pass
-    on all of them, their MMAs on at most 8 warps -- except version 1 at
-    a full 8192 tile, 256: its two chains' accumulators at 8 n8 tiles a
-    warp need more registers than 512 threads leave."""
-    if _mma(dtype, wt_dtype):
-        if version == 1 and max(16, bm) * bn >= MAX_TILE:
+    on all of them, their MMAs on at most 8 warps -- except version 1 and
+    the mixed kernel at a full 8192 tile, 256: at 8 n8 tiles a warp the
+    two chains' accumulators, or the three planes' fragments beside one,
+    need more registers than 512 threads leave."""
+    if _mma(dtype):
+        if ((version == 1 or _planes(dtype, wt_dtype))
+                and max(16, bm) * bn >= MAX_TILE):
             return 256
         return 512 if bm * bn >= 1024 else 256
     return max(_MIN_THREADS, (bm // tile_rows(bm, bn)) * (bn // 4))
@@ -145,33 +154,39 @@ def kernel_smem(bm: int, bi: int, bn: int, n_in: int, nbk: int,
     ``dtype`` against weights of ``wt_dtype`` (None: the same) at
     ``version`` uses.  On ``kan_split.cuh``'s body: f32 weight buffers
     (two when a block walks several chunks) and as many f32 x buffers,
-    except where x is bf16 (the mixed kernel reads it raw), the staged
-    (row, feature) values, a cluster member's chunk partials (two sets at
-    version 1: the silu and the spline chain), and the raw int8 weights
-    (a byte each) and the raw int8 or bf16 x (one or two) staged before
-    they widen.  The bf16 kernels (``kan_mma.cuh``) widen nothing and
-    write a bf16 A tile for their MMAs."""
+    the staged (row, feature) values, a cluster member's chunk partials
+    (two sets at version 1: the silu and the spline chain), and the raw
+    int8 weights and x (a byte each) staged before they widen.  The
+    bf16-x kernels (``kan_mma.cuh``) write a bf16 A tile for their MMAs;
+    the mixed kernel stages its f32 rows and splits them into a bf16
+    plane tile."""
     _, cpb, nsplit = split(n_in, bi)
     rows = PC * (nbk + 1)
     stages = 2 if cpb > 1 else 1
     chains = 2 if version == 1 else 1
-    if _mma(dtype, wt_dtype):
+    if _mma(dtype):
         # kan_mma.cuh: the slot table, a cluster member's f32 chunk
-        # partials (A-tile rows x bn, a set a chain), and `stages` raw
-        # bf16 weight buffers (rows padded to an odd number of 16 B), x
-        # buffers (32 + 8 a row) and bf16 A tiles (max(16, bm) rows of
-        # 32 * (nbk+1) + 8)
+        # partials (A-tile rows x bn, a set a chain), `stages` x buffers
+        # (32 + 8 a row), bf16 A tiles (max(16, bm) rows of 32 * (nbk+1)
+        # + 8) and B tiles: for bf16 rows `stages` of each, the raw rows
+        # padded to an odd number of 16 B; for f32 rows `stages` f32 row
+        # buffers and one A tile and one plane tile, whose rows hold hi,
+        # mid and lo (3 bn, padded by 8 save at bn = 8)
         arows = max(16, bm)
+        x_tile, a_tile = 2 * bm * (PC + 8), 2 * arows * (rows + 8)
+        if _planes(dtype, wt_dtype):
+            tiles = (stages * (4 * rows * bn + x_tile) + a_tile
+                     + 2 * rows * (3 * bn + (0 if bn == 8 else 8)))
+        else:
+            tiles = stages * (2 * rows * (bn + (16 if bn == 8 else 8))
+                              + x_tile + a_tile)
         return (4 * 32 + (4 * chains * cpb * arows * bn if nsplit > 1 else 0)
-                + 2 * stages * (rows * (bn + (16 if bn == 8 else 8))
-                                + bm * (PC + 8) + arows * (rows + 8)))
-    raw_x = {torch.int8: 1, torch.bfloat16: 2}.get(dtype, 0)
-    raw_w = 1 if dtype == torch.int8 else 0
-    words = (_HDR_WORDS + stages * rows * bn
-             + (0 if dtype == torch.bfloat16 else stages) * bm * PC
+                + tiles)
+    raw = 1 if dtype == torch.int8 else 0
+    words = (_HDR_WORDS + stages * rows * bn + stages * bm * PC
              + bm * _ACT_STRIDE
              + (chains * cpb * bm * bn if nsplit > 1 else 0))
-    return 4 * words + stages * (raw_w * rows * bn + raw_x * bm * PC)
+    return 4 * words + stages * raw * (rows * bn + bm * PC)
 
 
 def check_blocks(blocks: Blocks, n_in: int, n_out: int, nbk: int,
@@ -218,20 +233,22 @@ def default_blocks(B: int, n_in: int, n_out: int, nbk: int,
     a cluster of up to 16 blocks until the grid holds about two blocks an
     SM; 32 x 32 tiles at large batches, where a grid of at least one wave
     walks every feature in one block (a split only adds the combine).
-    The bf16 kernels (tensor cores) evaluate every (row, feature) once a
-    column tile, so at large batches their bn covers n_out
-    (up to 128) with 32 rows a block, 64 from bn = 64 on (at most B
-    rounded up to a power of two), and it splits the features only below
-    half a wave of tiles.  The mixed kernel (bf16 x, f32 weights) runs the
-    CUDA-core body and takes its knobs.  bi is a power of two
-    (an autotune candidate); the tiles halve where the shared memory
-    would not fit."""
-    mma = _mma(dtype, wt_dtype) and B > 16
+    The bf16-x kernels (tensor cores, the mixed one's f32 rows too)
+    evaluate every (row, feature) once a column tile, so at large batches
+    their bn covers n_out (up to 128) with 32 rows a block, 64 from bn =
+    64 on and for the mixed kernel (at most B rounded up to a power of
+    two), and it splits the features only below half a wave of tiles.  bi is a power of two (an
+    autotune candidate); the tiles halve, bn first, where the shared
+    memory would not fit (the mixed kernel's f32 rows and planes: 64 x 64
+    at nbk = 5)."""
+    mma = _mma(dtype) and B > 16
     bm = 8 if B <= 8 else 16 if B <= 16 else 32
     bn = min(8 if B <= 16 else 32, max(8, next_pow2(n_out)))
     if mma:
         bn = min(128, max(8, next_pow2(n_out)))
-        bm = min(32 if bn <= 32 else 64, next_pow2(B))
+        # the mixed kernel splits a block's f32 rows once for all its rows
+        bm = min(32 if bn <= 32 and not _planes(dtype, wt_dtype) else 64,
+                 next_pow2(B))
     wave = _SMS // 2 if mma else _SMS
     nchunks = max(1, -(-n_in // PC))
     while True:
@@ -300,10 +317,20 @@ def _knobs(B: int, n_in: int, n_out: int, nbk: int, dtype: torch.dtype,
     key = autotune.memo_key(kernel, B, n_in, n_out, nbk, dtype, device)
     knobs = autotune.RESOLVED.get(key)
     if knobs is None:
-        knob = (autotune.cached_blocks(kernel, (B, n_in, n_out, nbk), dtype,
-                                       device)
-                or default_blocks(B, n_in, n_out, nbk, dtype, version,
-                                  wt_dtype=wt_dtype))
+        knob = autotune.cached_blocks(kernel, (B, n_in, n_out, nbk), dtype,
+                                      device)
+        if kernel == KERNEL_MIXED and knob is not None:
+            # a mixed entry may come from the CUDA-core body this kernel
+            # ran before its f32 rows were split into bf16 planes: one the
+            # tensor-core body refuses is a miss, never launched, until
+            # autotune.tune_kan_fused searches the shape again
+            try:
+                check_blocks(knob, n_in, n_out, nbk, dtype, version,
+                             wt_dtype=wt_dtype)
+            except ValueError:
+                knob = None
+        knob = knob or default_blocks(B, n_in, n_out, nbk, dtype, version,
+                                      wt_dtype=wt_dtype)
         check_blocks(knob, n_in, n_out, nbk, dtype, version,
                      wt_dtype=wt_dtype)
         knobs = autotune.RESOLVED[key] = knob["bm"], knob["bi"], knob["bn"]

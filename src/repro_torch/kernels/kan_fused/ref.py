@@ -14,7 +14,10 @@ rounds the total once.  ``kan_fused_v2_q8_ref`` mirrors
 (``dequant_wt`` per weight-row slot).  They are
 what the wrappers run for a CPU tensor and what the CUDA kernels are held
 against on the card.  The dense Eq. 3 oracle is
-``core/kan.kan_reference_dense``.
+``core/kan.kan_reference_dense``.  ``split_bf16_planes`` and
+``kan_fused_v2_planes`` model, for the tests, the arithmetic of the mixed
+kernel (a bf16 x against f32 fused rows), which contracts the activation
+tile with three exact bf16 planes of the rows on tensor cores.
 """
 from __future__ import annotations
 
@@ -96,3 +99,51 @@ def kan_fused_v2_q8_ref(x_q: torch.Tensor, wt_q: torch.Tensor,
     wt = dequant_wt(wt_q, slot_scales, nbk)
     fused = torch.cat([s[..., None], act], dim=-1)
     return torch.matmul(fused.reshape(x_q.shape[0], n_in * (nbk + 1)), wt)
+
+
+_HIGH16 = -65536                # 0xffff0000 as an int32
+
+
+def _high16(v: torch.Tensor) -> torch.Tensor:
+    """f32 ``v`` with its low 16 bits cleared: rounded toward zero to a
+    bf16 value."""
+    return (v.view(torch.int32) & _HIGH16).view(torch.float32)
+
+
+def split_bf16_planes(w: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The three bf16 planes (hi, mid, lo) of f32 ``w``, as the mixed
+    kernel splits its f32 rows (``csrc/kan_mma.cuh``): hi is ``w`` with
+    its low 16 bits cleared, mid the same of ``w - hi``, lo the same of
+    ``w - hi - mid``.  Both subtractions are exact in f32 and ``w - hi -
+    mid`` has at most 8 significant bits, so ``hi + mid + lo == w`` for
+    every finite ``w`` (rounding toward zero never overflows), save where
+    that remainder has bits below bf16's subnormal step 2^-133 (``|w|``
+    below about 2^-110), which lo drops: less than 2^-133 a weight."""
+    w = w.to(torch.float32).contiguous()
+    hi = _high16(w)
+    r1 = w - hi
+    mid = _high16(r1)
+    lo = _high16(r1 - mid)
+    return hi.to(torch.bfloat16), mid.to(torch.bfloat16), lo.to(torch.bfloat16)
+
+
+def kan_fused_v2_planes(x: torch.Tensor, wt: torch.Tensor, spec: SplineSpec,
+                        kb: Tuple[int, ...],
+                        out_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+    """The mixed kernel's products on the CPU: bf16 ``x``'s activation
+    tile (``kan_fused_v2_ref``'s) against each bf16 plane of the f32
+    ``wt`` (``split_bf16_planes``) in an f32 product, the three added lo,
+    mid, hi, cast to ``out_dtype`` (x's dtype by default).  Each product
+    of two bf16 values is exact in f32, so this is ``kan_fused_v2_ref``'s
+    function with its f32 sums in another order.  For the tests."""
+    n_in = x.shape[-1]
+    s, act = _silu_and_bases(x, spec, kb)
+    a = torch.cat([s[..., None], act], dim=-1).reshape(
+        x.shape[0], n_in * (len(kb) + 1)).to(torch.float32)
+    hi, mid, lo = split_bf16_planes(wt)
+    y = torch.matmul(a, lo.to(torch.float32))
+    y = y + torch.matmul(a, mid.to(torch.float32))
+    y = y + torch.matmul(a, hi.to(torch.float32))
+    return y.to(out_dtype or x.dtype)

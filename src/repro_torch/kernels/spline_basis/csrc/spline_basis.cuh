@@ -139,7 +139,7 @@ spline_basis_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
     const int il = k * nthr + tid;
     if (il < rows) {
       float vals[KMAX + 1];
-      const int cell = kan_fused::spu<false>(xv[k], x0, inv_h, G, K, vals);
+      const int cell = kan_fused::spu(xv[k], x0, inv_h, G, K, vals);
       float* row = row0 + il * nb;
       for (int c = 0; c < nb; ++c) row[c] = 0.f;
       // 0 + v, as the plain version's scatter sums it (a -0 becomes +0)

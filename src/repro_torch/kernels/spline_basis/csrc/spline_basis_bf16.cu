@@ -4,7 +4,7 @@
 // spline_basis.cuh's function as the TPU kernel and the plain version
 // (spline_basis/ref.py) do on a bf16 input: the cell located in f32 on
 // the widened input, every op of the de Boor recursion rounded to bf16
-// (kan_fused.cuh's spu<true>), each output 0 + v_j inside cell..cell+K
+// (kan_fused.cuh's spu_bf16x2), each output 0 + v_j inside cell..cell+K
 // and +0 outside it -- bit for bit, in range and out of it.
 //
 // What bounds it on an H100 (3.35 TB/s): bytes, 2 in and 2 (G+K) out an
@@ -15,20 +15,20 @@
 // byte bound (the f32 instance, twice the bytes and no converts, came
 // within 1.24x of its bound).
 // Design: two consecutive inputs a thread, loaded as one 4-byte word and
-// evaluated together in one bf16x2 register each step: every recursion
-// op is one native bf16x2 op (mul/add/sub.rn.bf16x2, kan_fused.cuh's
+// evaluated together in one bf16x2 register each step: every recursion op
+// is one native bf16x2 op (mul/add/sub.rn.bf16x2, kan_fused.cuh's
 // spu_bf16x2) and needs no convert -- one rounding of the exact result is
-// the f32 result rounded, so the bits are spu<true>'s.  The location stays
-// in f32; only the two positions are packed (one convert a pair).  K is a
-// template parameter, so the recursion unrolls to what K needs.  The
+// the f32 result rounded, so the bits are the plain version's. The location
+// stays in f32; only the two positions are packed (one convert a pair). K
+// is a template parameter, so the recursion unrolls to what K needs. The
 // block's output stretch (block_n * (G+K) elements) is zeroed in shared
 // memory with 16-byte stores, each pair's 2 (K+1) values are written into
-// it (lanes' pairs sit G+K words apart, an odd stride at G4K3, so a
-// warp's writes spread over the banks), and the stretch goes out with
-// coalesced 16-byte streaming stores (spline_basis.cuh).  `block_n`
-// (inputs a block) stays the one knob: a block has min(block_n / 2, 256)
-// threads, each with block_n / (2 * threads) pairs whose loads all go out
-// before the first value is computed; it changes no bit.
+// it (lanes' pairs sit G+K words apart, an odd stride at G4K3, so a warp's
+// writes spread over the banks), and the stretch goes out with coalesced
+// 16-byte streaming stores (spline_basis.cuh). `block_n` (inputs a block)
+// stays the one knob: a block has min(block_n / 2, 256) threads, each with
+// block_n / (2 * threads) pairs whose loads all go out before the first
+// value is computed; it changes no bit.
 #include "spline_basis.cuh"
 
 namespace {
@@ -36,7 +36,7 @@ namespace {
 using kan_fused::bf16_widen;
 
 // The cell of input `b` (bf16 bits) and its position in it, in f32, as
-// spu<true> locates it; `r` not yet rounded.
+// spu() locates it; `r` not yet rounded.
 __device__ __forceinline__ int locate(unsigned short b, float x0,
                                       float inv_h, int G, float* r) {
   const float u = __fmul_rn(__fsub_rn(bf16_widen(b), x0), inv_h);
@@ -92,7 +92,7 @@ spline_basis_bf16_kernel(const unsigned short* __restrict__ x,
     const int ca = locate((unsigned short)(xw[k] & 0xffffu), x0, inv_h, G,
                           &ra);
     const int cb = locate((unsigned short)(xw[k] >> 16), x0, inv_h, G, &rb);
-    // r rounded to bf16 (spu<true>'s first rounding), both in one convert
+    // r rounded to bf16 (the recursion's first rounding), both in one convert
     const __nv_bfloat162 r2 = __floats2bfloat162_rn(ra, rb);
     unsigned vals2[K + 1];
     kan_fused::spu_bf16x2<K>(*reinterpret_cast<const unsigned*>(&r2),

@@ -64,16 +64,17 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     assert _build.library_path("k") == before
     hdr.write_text("#pragma once\nconstexpr int A = 2;\n")
     assert _build.library_path("k") != before
-    # four KAN kernels share one body; the two bf16 ones run their
-    # tensor-core body on that one's knob checks and launch, with the bf16
-    # matmul's MMA pieces; the two spline-basis kernels share theirs, and
-    # only the SPU header with the KAN kernels
-    for name in ("kan_fused_v2", "kan_fused_v2_q8", "kan_fused_v1",
-                 "kan_fused_v2_mixed"):
+    # three KAN kernels share one body; the three with a bf16 x (the
+    # mixed one's f32 rows split into bf16 planes) run their tensor-core
+    # body on that one's knob checks, launch and f32 row staging, with the
+    # bf16 matmul's MMA pieces; the two spline-basis kernels share theirs,
+    # and only the SPU header with the KAN kernels
+    for name in ("kan_fused_v2", "kan_fused_v2_q8", "kan_fused_v1"):
         files = _build.source_files(_build.KERNELS[name][0])
         assert [f.name for f in files[1:]] == [
             "kan_split.cuh", "staging.cuh", "kan_fused.cuh"], name
-    for name in ("kan_fused_v2_bf16", "kan_fused_v1_bf16"):
+    for name in ("kan_fused_v2_bf16", "kan_fused_v1_bf16",
+                 "kan_fused_v2_mixed"):
         files = _build.source_files(_build.KERNELS[name][0])
         assert [f.name for f in files[1:]] == [
             "kan_mma.cuh", "mma_bf16.cuh", "kan_split.cuh", "staging.cuh",

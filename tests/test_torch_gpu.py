@@ -1387,6 +1387,97 @@ def test_mixed_kernel_matches_plain_under_every_knob(cuda, B, n_in, n_out,
     with pytest.raises(TypeError, match="wt"):
         kan_fused_v2(x.float(), wt.to(BF), spec, kb)
 
+
+def _mixed_layer(dev, n_in, n_out, seed=1):
+    """The f32 fused rows of a seeded bf16 KAN drop-in layer (its t f32,
+    as the reference's kan_init draws it)."""
+    from repro_torch.kernels.kan_fused.ops import flatten_t, fuse_wt
+    cfg = KANConfig(n_in, n_out, SplineSpec(4, 3), basis_keep=KAN_KB)
+    p = kan_init(cfg, torch.Generator(device=dev).manual_seed(seed), BF)
+    wt = fuse_wt(p["w_b"], flatten_t(p["t"], KAN_KB), len(KAN_KB))
+    assert wt.dtype == torch.float32
+    return cfg, p, wt
+
+
+@pytest.mark.parametrize("scale", [1e-30, 1e20, "ties"])
+def test_mixed_kernel_at_extreme_weights_and_bf16_ties(cuda, scale):
+    """f32 rows of tiny (1e-30) or huge (1e20) magnitude, and rows exactly
+    half a bf16 ulp off a bf16 value (where rounding to bf16 ties and the
+    split's hi plane drops the tie bit): within TOL of the plain version
+    at f32 out and one bf16 ulp at bf16 out, each relative to the rows'
+    scale, one mixed launch a call."""
+    spec, kb = SplineSpec(4, 3), KAN_KB
+    gen = torch.Generator().manual_seed(7)
+    x = (torch.randn((256, 608), generator=gen) * 1.5).to(cuda, BF)
+    wt = torch.randn((608 * (len(kb) + 1), 96), generator=gen) * 0.05
+    s = 1.0 if scale == "ties" else scale
+    if scale == "ties":
+        base = wt.to(BF).float()
+        _, e = torch.frexp(base)
+        wt = base + torch.ldexp(torch.sign(base), e - 9)
+        assert not torch.equal(wt, base)
+    else:
+        wt = wt * scale
+    wt = wt.to(cuda)
+    before = dict(_build.LAUNCHES)
+    got32 = kan_fused_v2(x, wt, spec, kb, out_dtype=torch.float32)
+    got = kan_fused_v2(x, wt, spec, kb)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in _build.LAUNCHES.items()
+            if v != before[k]} == {"kan_fused_v2_mixed": 2}
+    ref32 = kan_fused_v2_ref(x, wt, spec, kb, torch.float32)
+    assert torch.isfinite(ref32).all() and float(ref32.abs().max()) > 0
+    _close(got32 / s, ref32 / s)
+    _close(got.float() / s, kan_fused_v2_ref(x, wt, spec, kb).float() / s,
+           BF16_ULP)
+    assert torch.equal(got, got32.to(BF))
+
+
+def test_mixed_kernel_launches_once_a_layer_call(cuda):
+    """A ``KANLayer`` of a bf16 model (f32 t) is one ``kan_fused_v2_mixed``
+    launch a call and no other kernel: the split into bf16 planes happens
+    inside the launch."""
+    cfg, p, _ = _mixed_layer(cuda, 896, 608)
+    layer = KANLayer(cfg, p)
+    assert layer.wt.dtype == torch.float32
+    x = (torch.randn((1024, 896), generator=torch.Generator(
+        device=cuda).manual_seed(2), device=cuda) * 1.5).to(BF)
+    before = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        for _ in range(3):
+            y = layer(x)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in _build.LAUNCHES.items()
+            if v != before[k]} == {"kan_fused_v2_mixed": 3}
+    assert y.dtype == BF and y.shape == (1024, 608)
+    _close(y.float(), kan_fused_v2_ref(x, layer.wt, cfg.spec,
+                                       layer.kb).float(), BF16_ULP)
+
+
+@pytest.mark.parametrize("n_in,n_out", [(896, 608), (608, 896)])
+def test_mixed_kernel_every_knob_and_batched_equals_single(cuda, n_in,
+                                                           n_out):
+    """At the LM train step's layers: every candidate knob bitwise the
+    default's at M = 1024, and the first M rows of a batch, M = 1, 8 and
+    1024, bitwise the batch's, under their own default knobs."""
+    spec, kb = SplineSpec(4, 3), KAN_KB
+    _, _, wt = _mixed_layer(cuda, n_in, n_out, seed=n_in)
+    x = (torch.randn((1024, n_in), generator=torch.Generator(
+        device=cuda).manual_seed(3), device=cuda) * 1.5).to(BF)
+    got = kan_fused_v2(x, wt, spec, kb)
+    cands = autotune.candidates_kan_fused(1024, n_in, n_out, len(kb), BF, 2,
+                                          torch.float32)
+    assert len(cands) > 10
+    for c in cands:
+        assert torch.equal(kan_fused_v2(x, wt, spec, kb,
+                                        blocks=_kan_knob(c)), got), c
+    for M in (1, 8, 1024):
+        assert torch.equal(kan_fused_v2(x[:M].contiguous(), wt, spec, kb),
+                           got[:M]), M
+    for i in (5, 511, 1023):
+        assert torch.equal(kan_fused_v2(x[i:i + 1].contiguous(), wt, spec,
+                                        kb), got[i:i + 1]), i
+
 SERVE_TOL_BF16 = 2.0 ** -8
 
 

@@ -10,8 +10,9 @@ in a promoted f32 product.  The port draws the same dtypes
 f32 ``wt`` (the plain version here, the mixed kernel on the card).
 Also: the bf16 spline basis's plain version bitwise the reference's jnp
 bases on every finite bf16 input around the grid, and the knob rules of
-the kernels this slice added or moved (bf16 version 1 on the tensor-core
-body, the mixed kernel on the CUDA-core body) against their candidates.
+the kernels moved onto the tensor-core body (bf16 version 1, and the
+mixed kernel with its f32 rows split into bf16 planes) against their
+candidates.
 """
 import dataclasses
 
@@ -214,26 +215,32 @@ def test_bf16_v1_knob_rules_match_the_candidates(B, n_in, n_out, nbk):
     (8, 304, 32, 5), (1024, 896, 608, 5), (1024, 608, 896, 5),
     (77, 37, 13, 20), (4, 64, 8, 0)])
 def test_mixed_knob_rules_are_the_cuda_core_bodys(B, n_in, n_out, nbk):
-    """The mixed kernel (kan_split.cuh, one chain) takes the f32 kernel's
-    tiles and threads; its shared memory holds f32 weight rows and a raw
-    bf16 x tile, no f32 x buffer."""
+    """The mixed kernel, once on the CUDA-core body, now takes the
+    tensor-core body's rules (kan_mma.cuh with f32 rows): the bf16
+    kernel's tiles and threads (256 at a full 8192 tile), its shared
+    memory an f32 row buffer a stage in place of the raw bf16 rows, and
+    one plane tile and one A tile in place of `stages` A tiles; a default
+    among the candidates."""
     bf, f32 = torch.bfloat16, torch.float32
     cands = autotune.candidates_kan_fused(B, n_in, n_out, nbk, bf, 2, f32)
     assert cands
+    rows = tkf.PC * (nbk + 1)
     for c in cands:
         bm, bi, bn = c["bm"], c["bi"], c["bn"]
         tkf.check_blocks(c, n_in, n_out, nbk, bf, wt_dtype=f32)
+        full = max(16, bm) * bn == tkf.MAX_TILE
         assert tkf.kernel_threads(bm, bn, bf, 2, f32) == \
-            tkf.kernel_threads(bm, bn, f32)
+            (256 if full else tkf.kernel_threads(bm, bn, bf))
         stages = 2 if tkf.split(n_in, bi)[1] > 1 else 1
-        assert tkf.kernel_smem(bm, bi, bn, n_in, nbk, f32) - \
-            tkf.kernel_smem(bm, bi, bn, n_in, nbk, bf, 2, f32) == \
-            stages * bm * tkf.PC * (4 - 2)
+        planes = 3 * bn + (0 if bn == 8 else 8)
+        raw = bn + (16 if bn == 8 else 8)
+        a_tile = 2 * max(16, bm) * (rows + 8)
+        assert tkf.kernel_smem(bm, bi, bn, n_in, nbk, bf, 2, f32) - \
+            tkf.kernel_smem(bm, bi, bn, n_in, nbk, bf) == \
+            stages * (4 * rows * bn - 2 * rows * raw - a_tile) \
+            + 2 * rows * planes + a_tile
     default = tkf.default_blocks(B, n_in, n_out, nbk, bf, 2, f32)
     assert default in cands
-    assert default == tkf.default_blocks(B, n_in, n_out, nbk, f32) or \
-        tkf.kernel_smem(default["bm"], default["bi"], default["bn"], n_in,
-                        nbk, bf, 2, f32) <= autotune.MAX_SMEM_BYTES
 
 
 def test_mixed_knobs_cache_under_their_own_kernel(tmp_path, monkeypatch):
@@ -245,7 +252,9 @@ def test_mixed_knobs_cache_under_their_own_kernel(tmp_path, monkeypatch):
     try:
         dims = (1024, 896, 608, 5)
         bf, f32 = torch.bfloat16, torch.float32
-        hit = {"bm": 16, "bi": 64, "bn": 32}
+        # a knob the tensor-core body takes (bi 64 would split the
+        # features over 14 blocks, two of which an SM cannot hold)
+        hit = {"bm": 16, "bi": 128, "bn": 32}
         autotune.get_cache().store(autotune.cache_key(
             "kan_fused_v2_mixed", dims, bf, "cpu"), hit)
         assert tkf.resolve_blocks(*dims, bf, device="cpu",

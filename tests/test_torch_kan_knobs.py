@@ -257,14 +257,19 @@ def test_kernel_models_mirror_the_sources():
     # nbk = 0: the silu row alone, a chunk two k16 steps deep
     assert tkf.kernel_smem(16, 64, 16, 64, 0, bf) == \
         128 + 2 * 2 * (32 * 24 + 16 * 40 + 16 * 40)
-    # the mixed kernel (bf16 x, f32 weights; kan_split.cuh): f32 weight
-    # stages, no f32 x buffer, a raw bf16 x stage
+    # the mixed kernel (bf16 x, f32 weights; kan_mma.cuh, the rows split
+    # into three bf16 planes): a stage holds an f32 row buffer (rows x bn)
+    # and an x buffer; one plane tile (rows of hi | mid | lo, 3 bn + 8, 3 bn
+    # at bn = 8) and one A tile; 256 threads at a full 8192 tile
     f32 = torch.float32
-    words = 64 + 2 * 192 * 32 + 64 * 260
     assert tkf.kernel_smem(64, 512, 32, 304, 5, bf, 2, f32) == \
-        4 * words + 2 * 2 * 64 * 32
+        128 + 2 * (192 * 4 * 32 + 64 * 80) + 192 * 2 * 104 + 64 * 400
+    assert tkf.kernel_smem(8, 32, 8, 304, 5, bf, 2, f32) == \
+        128 + 4 * 16 * 8 + 192 * 4 * 8 + 8 * 80 + 192 * 2 * 24 + 16 * 400
     assert tkf.kernel_threads(64, 32, bf, 2, f32) == \
-        tkf.kernel_threads(64, 32)
+        tkf.kernel_threads(64, 32, bf) == 512
+    assert tkf.kernel_threads(8, 8, bf, 2, f32) == 256
+    assert tkf.kernel_threads(128, 64, bf, 2, f32) == 256
 
 
 @pytest.mark.parametrize("blocks,n_in,match", [

@@ -133,3 +133,20 @@ def test_a_side_brings_its_knob_rules_and_they_are_put_back():
     _, knobs = kernel_ab.knobs_of(
         lambda: pm_ops.matmul_compact(x, w), None)
     assert knobs == []      # the CPU path resolves no knob
+
+
+def test_mixed_calls_are_the_mixed_kernel_at_its_shapes():
+    """The mixed kernel's A/B calls: a bf16 x against f32 fused rows at
+    vikin-mixed's KAN layer (8 and 8192 rows) and at the LM train step's
+    two KAN layers (M = 1024); on the CPU each is its plain version."""
+    f32 = make_vikin_backend(VIKIN_ARCHS["vikin-mixed"], "cpu",
+                             precision="f32")
+    bf = make_vikin_backend(VIKIN_ARCHS["vikin-mixed"], "cpu",
+                            precision="bf16")
+    calls = kernel_ab.mixed_calls(f32.stack, bf.stack, f32.n_in, "cpu")
+    assert [tuple(xin.shape) for _, xin, _, _ in calls] == [
+        (8, 304), (8192, 304), (1024, 896), (1024, 608)]
+    for what, xin, kernel, plain in calls:
+        assert xin.dtype == BF, what
+        y = kernel()
+        assert y.dtype == BF and torch.equal(y, plain()), what
