@@ -132,9 +132,10 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    in both, every served answer is held to ``SERVE_TOL`` against the
    plain versions on the card (int8 as in phase 3), and the launches to
    what the served batches imply;
-   (c) the port's serving and load benches on the card
-   (``chiprun_out/serving_bench.json``): every simulated field equal to
-   the committed rows, batched == single bitwise under both policies;
+   (c) the port's serving bench's burst, sched and kanffn rows and the
+   load bench on the card (``chiprun_out/serving_bench.json``): every
+   simulated field equal to the committed rows, batched == single
+   bitwise under both policies;
 8. training on the card, f32 with TF32 off (asserted):
    (a) one step of vikin-mixed and of vikin-kan2 at batch 64 through
    ``StackTrainer.loss_fn``: every gradient through the kernels'
@@ -253,7 +254,28 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    restarted from its checkpoint bitwise equal to a clean run; (d) the
    f32 twin, 2 steps, loss and every gradient leaf against the plain
    versions on the same params; (e) the train launcher at full scale, 4
-   steps, as a subprocess.
+   steps, as a subprocess;
+14. the VIKIN array plans (``array_phase``, ``runtime/sharded``) at the
+   paper's Table I widths from seed 0, each array's chips logical chips
+   of the one card (``ARRAY_CHIPS`` = 4, ``["cuda:0"] * 4``): (a) the
+   data plan, vikin-mixed and vikin-mlp3 at f32, bf16 and int8, 48
+   requests on 8 slots and single ticks of 1, 2, 6, 9 and 33 requests
+   (per-shard buckets 2, 4 and 16): bitwise the single-device backend's
+   answers, held to the plain versions as in phase 3, launches 4 shards
+   x the layers a tick, one stack for the four shards, host ms a bucket-8
+   batch beside the single-device backend's; (b) the pipeline plan,
+   vikin-mixed over 3 chips (even split) and ``stage_map=[2, 1]``, f32
+   and bf16: bitwise, one launch a layer a tick; (c) the hetero plan
+   over pins pipeline, pipeline, parallel, parallel: vikin-mixed bitwise
+   with 0 reconfig cycles, and the vikin-kan2 + vikin-mlp3 engine on an
+   interleaved stream bitwise the single-request answers, 0 flips, each
+   tick serving the oldest waiting request's workload; (d) the
+   refusals (int8 staged, a hetero array missing a mode, more cards than
+   visible); (e) ``serving_bench.run`` (every row family) into phase
+   7's file: 13 rows, ``check_regression --serving`` exits 0 against
+   ``BENCH_serving.json``; (f) ``roofline --engine`` at batch 1 and 8,
+   f32, bf16 and int8, equal to a CPU-only process's rows; (g)
+   ``python -m repro_torch.examples.serve_batch`` on the card.
 
 No served path launches the spline-basis or v1 kernels, so their
 ``launches`` in the record are those of phases 6 and 5; the mixed
@@ -265,7 +287,8 @@ runs of the paper scripts (Table I, the Fig. 8 sweep, Table II), and
 ``launches_kanffn``, its launches in phase 10 (b)'s three served runs,
 ``launches_moe``, its launches in phase 11 (a) and (b),
 ``launches_encdec``, its launches in phase 12 (a)-(c), and
-``launches_lm_train``, its launches in phase 13 (a)-(d).
+``launches_lm_train``, its launches in phase 13 (a)-(d), and
+``launches_array``, its launches in phase 14's served runs.
 
 It prints the ``{"kernels": [...]}`` record, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It imports nothing
@@ -405,6 +428,7 @@ ARCHS = ("vikin-kan2", "vikin-mlp3", "vikin-mixed")
 BUCKETS = (2, 4, 8, 16)
 BIG = 8192
 DEVICE = "cuda"
+ARRAY_CHIPS = 4               # phase 14: logical chips of one card
 
 KERNEL_INFO = {
     "kan_fused_v2": {
@@ -2615,6 +2639,343 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
             "seconds": time.perf_counter() - t_phase}
 
 
+def array_phase(dev: torch.device, card: str, hold) -> dict:
+    """Phase 14: the VIKIN array plans (``runtime/sharded``) on the card,
+    at the paper's Table I widths from seed 0, every array's chips
+    logical chips of one card (``ARRAY_CHIPS``).
+
+    (a) data plan: vikin-mixed and vikin-mlp3 over 4 chips at f32, bf16
+    and int8: 48 requests on 8 slots, and single ticks of 1, 2, 6, 9 and
+    33 active requests (per-shard buckets 2, 4 and 16): every answer
+    bitwise the single-device ``VikinBackend``'s on the card and held by
+    ``hold`` (phase 3's) to the plain versions, the launches equal to
+    the per-shard layer applications; host ms a batch at bucket 8
+    against the single-device backend's;
+    (b) pipeline plan: vikin-mixed over 3 chips (even split) and with
+    ``stage_map=[2, 1]``, f32 and bf16: bitwise ``--devices 1``, one
+    launch a layer a tick;
+    (c) hetero plan: vikin-mixed over pins pipeline, pipeline, parallel,
+    parallel, and the two-workload engine vikin-kan2 + vikin-mlp3 of
+    hetero arrays on an interleaved stream: bitwise the single-request
+    answers, ``reconfig_cycles == 0``, admitted in arrival order;
+    (d) refusals: int8 on a staged plan, a hetero array missing a needed
+    mode, and more cards than are visible, each with the reference's
+    facts;
+    (e) ``serving_bench.run`` (every row family) into phase 7's
+    ``chiprun_out/serving_bench.json`` beside its open-loop rows: 13
+    rows, then ``check_regression --serving`` exits 0 against
+    ``BENCH_serving.json``;
+    (f) ``roofline --engine`` at batch 1 and 8, f32, bf16 and int8:
+    every row equal to a CPU-only process's run of the same call;
+    (g) ``python -m repro_torch.examples.serve_batch`` runs to its end.
+    Returns what it measured; raises on any fault."""
+    from repro_torch.benchmarks import check_regression, roofline
+    from repro_torch.benchmarks import serving_bench
+    from repro_torch.configs.vikin_models import VIKIN_ARCHS
+    from repro_torch.core.modes import ExecMode
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import make_vikin_backend
+    from repro_torch.runtime.backends import MultiWorkloadBackend
+    from repro_torch.runtime.server import Engine
+    from repro_torch.runtime.sharded import (
+        ShardedVikinBackend,
+        make_array_backend,
+    )
+
+    t_phase = time.perf_counter()
+    secs, launches, rec = {}, {}, {"card": card}
+    # ["cuda:0"] * ARRAY_CHIPS on the card: the bench's own device list
+    chips = [str(d) for d in serving_bench.array_devices(ARRAY_CHIPS,
+                                                         DEVICE)]
+    rng = np.random.default_rng(0)
+    kernels = {"f32": F32_KERNELS, "int8": Q8_KERNELS, "bf16": BF16_KERNELS}
+
+    def serve(backend, xs, n_slots: int) -> tuple:
+        """(answers in submission order, engine stats, launches of the
+        run) of ``xs`` through an engine over ``backend``."""
+        eng = Engine(backend, n_slots=n_slots)
+        rids = [eng.submit(x) for x in xs]
+        _build.reset_launches()
+        out = eng.run_until_done()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in _build.LAUNCHES.items() if v}
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return np.stack([out[r] for r in rids]), dict(eng.stats), got
+
+    def want(model, precision: str, applications: int) -> dict:
+        """The launches of ``applications`` passes of every layer."""
+        kan_k, mm_k = kernels[precision]
+        kinds = model.layer_kinds
+        return {k: n * applications for k, n in
+                ((kan_k, kinds.count("kan")), (mm_k, kinds.count("mlp")))
+                if n}
+
+    # (a) the data plan
+    t0 = time.perf_counter()
+    rec["data"] = []
+    for name in ("vikin-mixed", "vikin-mlp3"):
+        model = VIKIN_ARCHS[name]
+        xs = [rng.random(model.sizes[0], dtype=np.float32)
+              for _ in range(48)]
+        for precision in ("f32", "bf16", "int8"):
+            single = make_vikin_backend(model, DEVICE, precision=precision)
+            multi = make_vikin_backend(model, DEVICE, precision=precision,
+                                       devices=chips, plan="data")
+            check(isinstance(multi, ShardedVikinBackend)
+                  and len(multi.stacks()) == 1,
+                  f"(a) {name} {precision}: {len(multi.stacks())} stacks "
+                  f"for 4 shards on one card")
+            what = f"(a) {name} {precision}"
+            y1, s1, _ = serve(single, xs, 8)
+            yn, sn, burst = serve(multi, xs, 8)
+            implied = want(model, precision, ARRAY_CHIPS * int(sn["ticks"]))
+            check(np.array_equal(y1, yn),
+                  f"{what}: data-plan answers != the single-device ones")
+            check(burst == implied,
+                  f"{what}: launched {burst}, {ARRAY_CHIPS} shards x "
+                  f"{int(sn['ticks'])} ticks imply {implied}")
+            check(abs(sn["sim_cycles"] - sn["chip_cycles"]
+                      - sn["comm_cycles"]) <= 1e-6 * sn["sim_cycles"],
+                  f"{what}: sim_cycles {sn['sim_cycles']} != chip "
+                  f"{sn['chip_cycles']} + comm {sn['comm_cycles']}")
+            err, _ = hold(precision, single.stack, np.stack(xs), yn, what)
+            buckets = {}
+            for n in (1, 2, 6, 9, 33):
+                sub = [rng.random(model.sizes[0], dtype=np.float32)
+                       for _ in range(n)]
+                a1, _, _ = serve(single, sub, n)
+                an, _, got = serve(multi, sub, n)
+                b = multi.shard_bucket(n)
+                check(np.array_equal(a1, an), f"{what}: {n} active "
+                      f"(per-shard bucket {b}): answers != single-device")
+                check(got == want(model, precision, ARRAY_CHIPS),
+                      f"{what}: {n} active launched {got}")
+                hold(precision, single.stack, np.stack(sub), an,
+                     f"{what} {n} active")
+                buckets[n] = b
+            check(sorted(set(buckets.values())) == [2, 4, 16],
+                  f"{what}: per-shard buckets {buckets}")
+            xb = np.stack(xs[:8])
+            ms1 = host_ms(lambda: single.forward(xb))
+            msn = host_ms(lambda: multi.forward(xb))
+            rec["data"].append({
+                "arch": name, "precision": precision, "ticks": sn["ticks"],
+                "launches": burst, "max_abs_err": err,
+                "per_shard_buckets": buckets, "host_ms_single_b8": ms1,
+                "host_ms_data_b8": msn, "sim_cycles": sn["sim_cycles"],
+                "chip_cycles": sn["chip_cycles"],
+                "comm_cycles": sn["comm_cycles"]})
+            print(f"phase 14: {what}: 48 requests on 8 slots and 1/2/6/9/33 "
+                  f"active (per-shard buckets {buckets}) over {chips}: "
+                  f"bitwise the single-device answers, within tolerance of "
+                  f"the plain versions (max abs err {err:.3e}), launches "
+                  f"{burst} = {ARRAY_CHIPS} shards x the layers a tick; host "
+                  f"ms a batch at "
+                  f"bucket 8: single {ms1:.4f}, data plan {msn:.4f} ({card})")
+    secs["a"] = time.perf_counter() - t0
+
+    # (b) the pipeline plan
+    t0 = time.perf_counter()
+    mixed = VIKIN_ARCHS["vikin-mixed"]
+    xs = [rng.random(mixed.sizes[0], dtype=np.float32) for _ in range(48)]
+    rec["pipeline"] = []
+    for precision in ("f32", "bf16"):
+        single = make_vikin_backend(mixed, DEVICE, precision=precision)
+        y1, s1, _ = serve(single, xs, 8)
+        for n, stage_map in ((3, None), (3, [2, 1])):
+            pipe = make_vikin_backend(mixed, DEVICE, precision=precision,
+                                      devices=chips[:n],
+                                      plan="pipeline", stage_map=stage_map)
+            yp, sp, got = serve(pipe, xs, 8)
+            what = f"(b) pipeline {precision} stage_map={stage_map}"
+            check(np.array_equal(y1, yp),
+                  f"{what}: answers != the single-device ones")
+            check(got == want(mixed, precision, int(sp["ticks"])),
+                  f"{what}: launched {got}")
+            check("bubble_cycles" in sp, f"{what}: no bubble_cycles")
+            stages = [(lo, hi) for lo, hi, _ in pipe._stage_ranges()]
+            rec["pipeline"].append({"precision": precision,
+                                    "stages": stages, "launches": got,
+                                    "sim_cycles": sp["sim_cycles"],
+                                    "bubble_cycles": sp["bubble_cycles"]})
+            print(f"phase 14: {what}: stages {stages}, 48 requests bitwise "
+                  f"the single-device answers, launches {got}, bubble "
+                  f"{sp['bubble_cycles']:.0f} cycles")
+    secs["b"] = time.perf_counter() - t0
+
+    # (c) the hetero plan
+    t0 = time.perf_counter()
+    pins = ["pipeline", "pipeline", "parallel", "parallel"]
+    rec["hetero"] = {}
+    for precision in ("f32", "bf16"):
+        single = make_vikin_backend(mixed, DEVICE, precision=precision)
+        het = make_vikin_backend(mixed, DEVICE, precision=precision,
+                                 devices=chips, plan="hetero",
+                                 mode_pins=pins)
+        y1, s1, _ = serve(single, xs, 8)
+        yh, sh, got = serve(het, xs, 8)
+        check(np.array_equal(y1, yh) and sh["reconfig_cycles"] == 0
+              and s1["reconfig_cycles"] > 0
+              and got == want(mixed, precision, int(sh["ticks"])),
+              f"(c) hetero {precision}: bitwise {np.array_equal(y1, yh)}, "
+              f"reconfig {sh['reconfig_cycles']} (single "
+              f"{s1['reconfig_cycles']}), launched {got}")
+        rec["hetero"][precision] = {"launches": got,
+                                    "sim_cycles": sh["sim_cycles"]}
+    pair = ("vikin-kan2", "vikin-mlp3")
+    stream = [(a, rng.random(VIKIN_ARCHS[a].sizes[0], dtype=np.float32))
+              for a in pair * 16]
+    singles = {}
+    for a in pair:
+        eng = Engine(make_vikin_backend(VIKIN_ARCHS[a], DEVICE), n_slots=8)
+        for i, (w, x) in enumerate(stream):
+            if w == a:
+                rid = eng.submit(x)
+                singles[i] = eng.run_until_done()[rid]
+    mwb = MultiWorkloadBackend({a: make_vikin_backend(
+        VIKIN_ARCHS[a], DEVICE, devices=chips, plan="hetero") for a in pair})
+    check(mwb.pinned_modes == frozenset(ExecMode),
+          f"(c) the engine's pinned modes {mwb.pinned_modes}")
+    admitted, prefill = [], mwb.prefill
+
+    def note_prefill(state, slot, req):
+        admitted.append((eng.stats["ticks"], req.rid))
+        return prefill(state, slot, req)
+    mwb.prefill = note_prefill
+    eng = Engine(mwb, n_slots=8, policy="mode-affinity")
+    reqs = [eng.submit(x, workload=a) for a, x in stream]
+    _build.reset_launches()
+    out = eng.run_until_done()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in _build.LAUNCHES.items() if v}
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    # arrival order at the queue heads: every tick serves the workload
+    # holding the oldest waiting request (one chip per workload under
+    # mode-affinity would keep the carried mode's workload instead)
+    waiting, heads = set(reqs), []
+    for tick in sorted({t for t, _ in admitted}):
+        batch = {r for t, r in admitted if t == tick}
+        heads.append(min(batch) == min(waiting))
+        waiting -= batch
+    check(all(heads) and not waiting,
+          f"(c) the two-workload hetero engine skipped the oldest waiting "
+          f"request: ticks {admitted}")
+    check(all(np.array_equal(out[r], singles[i])
+              for i, r in enumerate(reqs)),
+          "(c) the two-workload hetero engine's answers != single-request")
+    check(eng.stats["reconfig_cycles"] == 0
+          and eng.stats["mode_switches"] == 0,
+          f"(c) the two-workload hetero engine paid "
+          f"{eng.stats['reconfig_cycles']} reconfig cycles")
+    rec["hetero"]["two_workload"] = {
+        "ticks": eng.stats["ticks"], "launches": got,
+        "p95_queue_wait_sim_s": eng.stats.get("p95_queue_wait_sim_s")}
+    print(f"phase 14: (c) hetero over pins {pins}: vikin-mixed f32 and bf16 "
+          f"bitwise --devices 1 with 0 reconfig cycles; vikin-kan2 + "
+          f"vikin-mlp3, 32 interleaved requests in {int(eng.stats['ticks'])}"
+          f" ticks, each serving the oldest waiting request's workload, "
+          f"bitwise the single-request "
+          f"answers, 0 flips, launches {got}")
+    secs["c"] = time.perf_counter() - t0
+
+    # (d) refusals on the card
+    t0 = time.perf_counter()
+    params = serving_bench.seeded_params(mixed, 0)
+    refusals = {}
+    for label, call, text in (
+            ("int8 staged", lambda: make_array_backend(
+                mixed, params, devices=chips, plan="pipeline",
+                precision="int8", scales=object()), "f32/bf16 only"),
+            ("hetero missing a mode", lambda: make_array_backend(
+                mixed, params, devices=chips, plan="hetero",
+                mode_pins=["parallel"] * ARRAY_CHIPS),
+             "no chip pinned to 'pipeline'"),
+            ("more cards than visible", lambda: ShardedVikinBackend(
+                mixed, params, devices=torch.cuda.device_count() + 1),
+             "visible")):
+        try:
+            call()
+        except ValueError as e:
+            check(text in str(e), f"(d) {label}: {e}")
+            refusals[label] = str(e)
+            continue
+        check(False, f"(d) {label} was not refused")
+    rec["refusals"] = refusals
+    for label, msg in refusals.items():
+        print(f"phase 14: (d) {label}: refused: {msg}")
+    secs["d"] = time.perf_counter() - t0
+
+    # (f) and (g) run in other processes beside (e): roofline in a
+    # CPU-only process, the example on the card
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    rl_dir = ROOT / "chiprun_out" / "roofline"
+    rl_dir.mkdir(parents=True, exist_ok=True)
+    combos = [(b, p) for b in (1, 8) for p in ("f32", "bf16", "int8")]
+    rl_code = ("from repro_torch.benchmarks import roofline\n" + "".join(
+        f"roofline.main(['--engine', '--batch', '{b}', '--precision', "
+        f"'{p}', '--out', '{rl_dir}/engine_{p}_b{b}.json'])\n"
+        for b, p in combos))
+    t0 = time.perf_counter()
+    rl_proc = subprocess.Popen(
+        [sys.executable, "-c", rl_code], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(env, CUDA_VISIBLE_DEVICES=""))
+    ex_proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.examples.serve_batch"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+    # (e) every bench row, then the gate
+    bench_out = ROOT / "chiprun_out" / "serving_bench.json"
+    rows = serving_bench.run(DEVICE, bench_out)
+    file_rows = json.loads(bench_out.read_text())
+    check(len(file_rows) == 13 and all(
+              k in file_rows for k in ("openloop:sweep:vikin-mlp3",
+                                       "openloop:burst:vikin-mlp3")),
+          f"(e) {bench_out} holds {sorted(file_rows)}")
+    check(all(r.get("device_list") == chips for k, r in rows.items()
+              if k.startswith(("sharded:", "pipe:", "hetero:"))),
+          "(e) an array row ran on another device list")
+    gate = check_regression.main(["--serving", "--fresh", str(bench_out)])
+    check(gate == 0, f"(e) check_regression --serving exited {gate}")
+    rec["bench_rows"] = sorted(file_rows)
+    secs["e"] = time.perf_counter() - t0
+
+    # (f) the engine roofline, this process against the CPU-only one
+    t0 = time.perf_counter()
+    out_rl, err_rl = rl_proc.communicate(timeout=300)
+    check(rl_proc.returncode == 0,
+          f"(f) the roofline process exited {rl_proc.returncode}: "
+          f"{err_rl[-2000:]}")
+    for b, p in combos:
+        cpu_rows = json.loads((rl_dir / f"engine_{p}_b{b}.json").read_text())
+        here = json.loads(json.dumps(roofline.engine_rows(b, p)))
+        check(here == cpu_rows, f"(f) roofline batch {b} {p}: rows differ "
+              f"from the CPU-only run's")
+    print(f"phase 14: (f) roofline --engine at batch 1 and 8, f32/bf16/int8: "
+          f"{len(cpu_rows)} rows each, equal to a CPU-only process's")
+    secs["f"] = time.perf_counter() - t0
+
+    # (g) the batched-serving example on the card
+    t0 = time.perf_counter()
+    out_ex, err_ex = ex_proc.communicate(timeout=600)
+    check(ex_proc.returncode == 0 and "vikin-mixed: 6 requests" in out_ex,
+          f"(g) examples/serve_batch exited {ex_proc.returncode}: "
+          f"{out_ex[-1000:]} {err_ex[-2000:]}")
+    print(f"phase 14: (g) examples/serve_batch on the card: "
+          f"{out_ex.strip().splitlines()[-1]}")
+    secs["g"] = time.perf_counter() - t0
+
+    rec.update(secs=secs, launches=launches)
+    print(f"phase 14: seconds by part " + ", ".join(
+        f"({k}) {v:.1f}" for k, v in secs.items())
+        + f"; launches of the served runs {launches}; {card}")
+    print(f"phase 14: array plans passed in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return rec
+
+
 def _device_us(event) -> float:
     """Self device time (us) of a profiler row; the attribute's name moved
     between torch versions."""
@@ -4236,7 +4597,8 @@ def main() -> int:
 
     bench_out = ROOT / "chiprun_out" / "serving_bench.json"
     bench_out.unlink(missing_ok=True)
-    rows = serving_bench.run(DEVICE, bench_out)
+    rows = serving_bench.run(DEVICE, bench_out,
+                             families=("burst", "sched", "kanffn"))
     rows.update(loadgen_bench.run(DEVICE, bench_out))
     for key, row in json.loads(json.dumps(rows)).items():
         ref = committed[key]
@@ -4862,6 +5224,10 @@ def main() -> int:
     # LM training at full width (``lm_train_phase``)
     lm = lm_train_phase(dev, card)
 
+    # ---------------------------------------------------------------- 14
+    # the VIKIN array plans (``array_phase``)
+    array = array_phase(dev, card, hold)
+
     launched = {k: (served[p]["launches"][k], f"phase 3, {p} burst")
                 for p in PRECISIONS for k in SERVED_KERNELS[p]}
     launched["kan_fused_v1_bf16"] = (b_v1_launches["kan_fused_v1_bf16"],
@@ -4889,6 +5255,7 @@ def main() -> int:
             "launches_moe": moe_rec["launches"].get(k, 0),
             "launches_encdec": encdec["launches"].get(k, 0),
             "launches_lm_train": lm["launches"].get(k, 0),
+            "launches_array": array["launches"].get(k, 0),
             "max_abs_err": max_err[k], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -4914,6 +5281,7 @@ def main() -> int:
          "moe_rec": moe_rec,
          "encdec": encdec,
          "lm_train": lm,
+         "array": array,
          "ptxas": usage,
          "knob_checks": knob_checks,
          "kernel_bench_launches": bench_launches},

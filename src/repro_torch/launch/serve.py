@@ -41,6 +41,20 @@ queue, ``--admission reject|shed`` says what a full queue does, and
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vikin-mlp3 \
       --trace /tmp/t.json --max-queue 16 --admission shed --drop-expired
 
+``--devices N`` serves each vikin workload over an N-chip array
+(``runtime/sharded``); ``--array-plan`` picks how the stack maps onto the
+chips: ``data`` (default) splits request rows over replicated stacks,
+``pipeline`` stages the layers across chips (``--stage-map 2,1`` = layers
+per stage), ``hetero`` pins each chip to one interconnect mode
+(``--stage-map kan,kan,mlp,mlp``) so reconfiguration cycles drop to 0.
+Served answers are bitwise those of ``--devices 1`` under every plan.
+``N`` takes the first N cards; with ``--device cpu`` it is N logical
+chips on the host; a comma list of devices (``cuda:0,cuda:0,cuda:0,
+cuda:0``) serves logical chips on one card:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch vikin-mixed \
+      --devices 4 --array-plan pipeline --device cpu
+
 A transformer arch (``configs/registry``: the eight decoder-only zoo
 archs -- MoE, RG-LRU and xLSTM ones included -- and the KAN-FFN hybrids
 ``qwen2-0.5b-kanffn`` and ``kanffn-ci``; the encoder-decoder and
@@ -79,6 +93,7 @@ from repro_torch.core.calibrate import calibrate_scales
 from repro_torch.core.kan import KANLayer
 from repro_torch.core.quant import QuantKANLayer, QuantPatternLinear
 from repro_torch.kernels import autotune
+from repro_torch.launch.mesh import DeviceSpec
 from repro_torch.models import transformer as T
 from repro_torch.models.ffn import PatternLinear, vikin_stack_init
 from repro_torch.runtime.backends import (
@@ -88,18 +103,25 @@ from repro_torch.runtime.backends import (
 )
 from repro_torch.runtime.loadgen import Trace, replay
 from repro_torch.runtime.server import Engine, Server
+from repro_torch.runtime.sharded import make_array_backend
 
 
 def make_vikin_backend(model: Any, device: str, seed: int = 0, *,
                        precision: str = "f32",
-                       ckpt: Optional[str] = None) -> VikinBackend:
+                       ckpt: Optional[str] = None,
+                       devices: DeviceSpec = 1, plan: str = "data",
+                       stage_map: Optional[Sequence[int]] = None,
+                       mode_pins: Optional[Sequence[str]] = None
+                       ) -> VikinBackend:
     """A backend serving ``model`` at ``precision``.
 
     Weights are drawn from ``seed``, or restored from ``ckpt`` with the
     masks and int8 scales saved beside them (bf16 casts the f32 params and
     needs no scales).  At int8 without a checkpoint, scales are calibrated
     on the CPU from a seed-0 batch like the features ``submit_burst``
-    sends.
+    sends.  More than one device (a count, or a device list) serves the
+    array backend of ``plan`` (``runtime/sharded.make_array_backend``);
+    its refusals are ``SystemExit``s.
     """
     params = vikin_stack_init(model, torch.Generator().manual_seed(seed))
     masks = scales = None
@@ -129,8 +151,19 @@ def make_vikin_backend(model: Any, device: str, seed: int = 0, *,
         scales = calibrate_scales(params, model, calib_x)
         print(f"no checkpoint: calibrated int8 scales from a synthetic "
               f"batch (x={scales.summary()['x']})")
-    backend = VikinBackend(model, params, device=device, masks=masks,
-                           precision=precision, scales=scales)
+    n_dev = devices if isinstance(devices, int) else len(devices)
+    if n_dev > 1:
+        try:
+            backend: VikinBackend = make_array_backend(
+                model, params, device=device, devices=devices, plan=plan,
+                stage_map=stage_map, mode_pins=mode_pins, masks=masks,
+                precision=precision, scales=scales)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        print_array(backend, plan)
+    else:
+        backend = VikinBackend(model, params, device=device, masks=masks,
+                               precision=precision, scales=scales)
     if precision != "f32":
         print(f"serving precision: {precision} "
               f"(f32 accumulation, dtype-aware DMA model)")
@@ -143,6 +176,23 @@ def make_vikin_backend(model: Any, device: str, seed: int = 0, *,
     return backend
 
 
+def print_array(backend: Any, plan: str) -> None:
+    """One line saying how an array backend maps onto its chips."""
+    devs = [str(d) for d in backend.devices]
+    if plan == "data":
+        print(f"sharded serving: {len(devs)} devices {devs}, per-shard "
+              f"bucket >= {backend.shard_bucket(1)}, one stack per distinct "
+              f"device ({len(backend.stacks())})")
+    elif plan == "pipeline":
+        stages = [(lo, hi) for lo, hi, _ in backend._stage_ranges()]
+        print(f"pipeline serving: {len(devs)} chips {devs}, {len(stages)} "
+              f"layer stages {stages}")
+    else:
+        pins = [m.value for m in backend.array.resolved_pins()]
+        print(f"hetero serving: {len(devs)} chips {devs} pinned {pins} "
+              f"(reconfig cycles pinned to 0)")
+
+
 def tune_layers(backends: Sequence[VikinBackend], slots: int) -> None:
     """Search and cache the knobs of every matmul and KAN layer
     ``backends`` serve, at every bucket a batch of up to ``slots``
@@ -150,12 +200,14 @@ def tune_layers(backends: Sequence[VikinBackend], slots: int) -> None:
     serving: the kernel wrappers never search inside a forward."""
     gen = torch.Generator().manual_seed(0)
     for be in backends:
+        # the rows one stack sees: a data plan's per-shard bucket
+        bucket = getattr(be, "shard_bucket", be.bucket)
         buckets = []
-        b = be.bucket(1)
-        while b <= be.bucket(slots):
+        b = bucket(1)
+        while b <= bucket(slots):
             buckets.append(b)
             b *= 2
-        for layer in be.stack.layers:
+        for layer in [la for st in be.stacks() for la in st.layers]:
             for m in buckets:
                 if isinstance(layer, (KANLayer, QuantKANLayer)):
                     n_in = layer.cfg.n_in
@@ -198,14 +250,20 @@ def make_engine(models: Sequence[Any], *, slots: int, policy: str,
                 device: str, seed: int = 0, precision: str = "f32",
                 ckpt: Optional[str] = None, max_queue: Optional[int] = None,
                 admission: str = "unbounded",
-                drop_expired: bool = False) -> Engine:
+                drop_expired: bool = False, devices: DeviceSpec = 1,
+                plan: str = "data",
+                stage_map: Optional[Sequence[int]] = None,
+                mode_pins: Optional[Sequence[str]] = None) -> Engine:
     """One engine over one backend, or a MultiWorkloadBackend for several;
     with ``REPRO_TORCH_AUTOTUNE=1`` its matmul and KAN knobs are tuned
     first.  ``max_queue``, ``admission`` and ``drop_expired`` are the
-    engine's overload controls; a bad combination is a ``SystemExit``."""
-    backends = {m.name: make_vikin_backend(m, device, seed,
-                                           precision=precision, ckpt=ckpt)
-                for m in models}
+    engine's overload controls; ``devices``, ``plan``, ``stage_map`` and
+    ``mode_pins`` the array's (``make_vikin_backend``); a bad combination
+    is a ``SystemExit``."""
+    backends = {m.name: make_vikin_backend(
+        m, device, seed, precision=precision, ckpt=ckpt, devices=devices,
+        plan=plan, stage_map=stage_map, mode_pins=mode_pins)
+        for m in models}
     if autotune.autotune_enabled():
         tune_layers(list(backends.values()), slots)
     if len(models) > 1:
@@ -267,6 +325,59 @@ def print_report(eng: Engine, out: Dict[int, np.ndarray],
               f"{int(ws.get('batches', 0))} batches, "
               f"{ws.get('sim_cycles', 0):.0f} sim cycles, "
               f"{ws.get('reconfig_cycles', 0):.0f} reconfig cycles")
+    if "chip_cycles" in s:
+        print(f"  array: {s['chip_cycles']:.0f} per-chip compute cycles + "
+              f"{s['comm_cycles']:.0f} scatter/gather cycles"
+              + (f" ({s['bubble_cycles']:.0f} pipeline bubble cycles)"
+                 if "bubble_cycles" in s else ""))
+
+
+def parse_devices(value: str) -> DeviceSpec:
+    """``--devices``: a chip count, or a comma list of torch devices
+    (repeats allowed: ``cuda:0,cuda:0`` is two logical chips on one
+    card)."""
+    value = value.strip()
+    if value.isdigit():
+        return int(value)
+    devs = [t.strip() for t in value.split(",") if t.strip()]
+    if not devs:
+        raise SystemExit(f"--devices {value!r}: pass a count or a comma "
+                         f"list of devices")
+    return devs
+
+
+def parse_stage_map(args: argparse.Namespace
+                    ) -> Tuple[Optional[List[int]], Optional[List[str]]]:
+    """``--stage-map`` as (stage_map, mode_pins): layers per stage under
+    ``--array-plan pipeline`` (``2,1``), one mode per chip under hetero
+    (``kan,kan,mlp,mlp``; aliases pipeline=kan, parallel=mlp)."""
+    toks = [t.strip() for t in (args.stage_map or "").split(",")
+            if t.strip()]
+    if not toks or args.array_plan == "data":
+        return None, None
+    if args.array_plan == "hetero":
+        return None, toks
+    try:
+        return [int(t) for t in toks], None
+    except ValueError:
+        raise SystemExit(
+            f"--stage-map {args.stage_map!r}: the pipeline plan takes a "
+            f"comma list of per-stage layer counts (e.g. 2,1)")
+
+
+def check_array_args(args: argparse.Namespace, n_devices: int) -> None:
+    """The reference launcher's refusals of the array flags for vikin
+    archs, each a ``SystemExit``."""
+    if args.array_plan != "data" and n_devices <= 1:
+        raise SystemExit(
+            f"--array-plan {args.array_plan} needs a multi-chip array; "
+            f"pass --devices N (N > 1): with --device cpu, N logical chips "
+            f"on the host; on one card, a device list such as "
+            f"--devices cuda:0,cuda:0")
+    if args.stage_map and args.array_plan == "data":
+        raise SystemExit(
+            "--stage-map only applies to --array-plan pipeline (layers "
+            "per stage) or hetero (mode pins per chip)")
 
 
 def replay_trace(eng: Engine, path: str) -> Dict[str, object]:
@@ -351,6 +462,15 @@ def check_transformer_args(args: argparse.Namespace, cfg: Any) -> None:
         raise SystemExit(
             "--max-queue/--admission are vikin-only here; the "
             "transformer Server keeps the unbounded path")
+    if parse_devices(args.devices) != 1:
+        raise SystemExit(
+            f"--devices is vikin-only (runtime/sharded); serving "
+            f"{args.arch!r} would silently run single-device. Drop the flag "
+            f"or serve a vikin-* workload")
+    if args.array_plan != "data" or args.stage_map:
+        raise SystemExit(
+            "--array-plan/--stage-map are vikin-only (runtime/sharded); "
+            "serve a vikin-* workload")
     if args.precision != "f32":
         # kan-ffn transformers serve bf16 through the backend's cast;
         # int8 stays vikin-only (core/quant)
@@ -461,6 +581,21 @@ def main(argv: Optional[Sequence[str]] = None) -> Engine:
     ap.add_argument("--drop-expired", action="store_true",
                     help="shed queued requests whose deadline already "
                          "passed instead of serving them dead")
+    ap.add_argument("--devices", default="1",
+                    help="vikin archs: serve over an N-chip array "
+                         "(runtime/sharded; answers bitwise those of "
+                         "--devices 1 under every --array-plan): N cards, "
+                         "N logical chips on the host with --device cpu, "
+                         "or a comma list of devices (cuda:0,cuda:0)")
+    ap.add_argument("--array-plan", default="data",
+                    choices=["data", "pipeline", "hetero"],
+                    help="how the array maps the stack onto its chips: "
+                         "data = rows split, stacks replicated; pipeline = "
+                         "layer stages; hetero = chips pinned per "
+                         "interconnect mode (reconfig cycles -> 0)")
+    ap.add_argument("--stage-map", default=None,
+                    help="pipeline: layers per stage ('2,1'); hetero: one "
+                         "mode per chip ('kan,kan,mlp,mlp')")
     args = ap.parse_args(argv)
     family, models = resolve_archs(args.arch)
     if family == "transformer":
@@ -472,11 +607,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Engine:
     ckpt = args.ckpt or args.ckpt_dir
     if ckpt and len(models) > 1:
         raise SystemExit("--ckpt restores one arch; pass a single --arch")
+    devices = parse_devices(args.devices)
+    check_array_args(args, devices if isinstance(devices, int)
+                     else len(devices))
+    stage_map, mode_pins = parse_stage_map(args)
     eng = make_engine(models, slots=args.slots, policy=args.policy,
                       device=args.device, precision=args.precision,
                       ckpt=ckpt, max_queue=args.max_queue,
                       admission=args.admission,
-                      drop_expired=args.drop_expired)
+                      drop_expired=args.drop_expired, devices=devices,
+                      plan=args.array_plan, stage_map=stage_map,
+                      mode_pins=mode_pins)
     if args.trace:
         replay_trace(eng, args.trace)
         return eng

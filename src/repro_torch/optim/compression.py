@@ -10,8 +10,8 @@ so the codes, scales and residuals are its bits on the CPU.
 
 On one card there is nothing to all-reduce: ``axis_name`` (the
 reference's collective over a mesh axis, inside ``shard_map``/``pmap``)
-raises until the multi-card plans exist (``ROADMAP.md``, queue 1, item
-4).
+raises until the multi-process (``torch.distributed`` process group)
+design exists (``ROADMAP.md``, queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -51,7 +51,7 @@ def compressed_allreduce(grads: Tree, residual: CompressionState,
     if axis_name is not None:
         raise NotImplementedError(
             f"compressed_allreduce(axis_name={axis_name!r}): the int32 "
-            f"all-reduce across cards waits for the multi-card plans "
+            f"all-reduce across cards waits for the multi-process design "
             f"(ROADMAP.md, queue 1, item 4); one card has nothing to reduce")
     out = {}
 

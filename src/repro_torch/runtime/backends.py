@@ -45,6 +45,7 @@ import torch
 from repro_torch.core.calibrate import masked_pattern_rates
 from repro_torch.core.engine import (
     LayerWork,
+    VikinArray,
     VikinHW,
     run_model,
     serving_report,
@@ -435,26 +436,46 @@ class VikinBackend(ModelBackend):
         else:
             self.layers = model.layer_works(nnz_rates)
         self.n_in = int(model.sizes[0])
-        tensors = [{k: torch.as_tensor(v, dtype=torch.float32,
-                                       device=self.device)
-                    for k, v in p.items()} for p in params]
         # the served dtype of the stack's input and weights (int8: f32
         # payloads, quantized inside QuantVikinStack)
         self.dtype = torch.bfloat16 if precision == "bf16" else torch.float32
-        self.stack: torch.nn.Module
-        if precision == "int8":
-            assert scales is not None            # checked above
-            self.stack = QuantVikinStack(
-                model, quantize_stack_params(tensors, model, scales), scales,
-                self.masks)
-        else:
-            self.stack = VikinStack(
-                model, [{k: v.to(self.dtype) for k, v in p.items()}
-                        for p in tensors], self.masks)
-        self.stack.eval()
+        # the multi-chip cycle model (runtime/sharded.py); None = one chip
+        self.array: Optional[VikinArray] = None
+        self._place(params)
         self._report_cache: Dict[Tuple[int, Optional[ExecMode]],
                                  Dict[str, float]] = {}
         self.n_slots: Optional[int] = None
+
+    def make_stack(self, params: Sequence[Dict[str, Any]],
+                   device: torch.device,
+                   layer_range: Optional[Tuple[int, int]] = None
+                   ) -> torch.nn.Module:
+        """The served stack (or layers ``lo..hi-1`` of it) on ``device``,
+        in the served precision: a ``VikinStack``, or at int8 a
+        ``QuantVikinStack`` (whole stacks only)."""
+        tensors = [{k: torch.as_tensor(v, dtype=torch.float32, device=device)
+                    for k, v in p.items()} for p in params]
+        stack: torch.nn.Module
+        if self.precision == "int8":
+            assert self.scales is not None and layer_range is None
+            stack = QuantVikinStack(
+                self.model, quantize_stack_params(tensors, self.model,
+                                                  self.scales),
+                self.scales, self.masks)
+        else:
+            stack = VikinStack(
+                self.model, [{k: v.to(self.dtype) for k, v in p.items()}
+                             for p in tensors], self.masks, layer_range)
+        return stack.eval()
+
+    def _place(self, params: Sequence[Dict[str, Any]]) -> None:
+        """Build what ``run`` serves from: one stack on ``self.device``."""
+        self.stack = self.make_stack(params, self.device)
+
+    def stacks(self) -> List[torch.nn.Module]:
+        """Every stack module this backend serves from (knob tuning walks
+        their layers)."""
+        return [self.stack]
 
     def init_state(self, n_slots: int, max_len: int) -> np.ndarray:
         self.n_slots = n_slots
@@ -495,11 +516,39 @@ class VikinBackend(ModelBackend):
     def forward(self, xb: np.ndarray) -> np.ndarray:
         """The batched stack forward on one (bucket, n_in) host batch; at
         bf16 the batch is rounded to bf16 and the answer widened to f32, on
-        the host (half the bytes each way)."""
+        the host (half the bytes each way).  ``run`` is the device part:
+        every block it returns is issued before the first is copied back,
+        and the blocks are joined on the host."""
         with torch.inference_mode():
-            x = torch.from_numpy(xb).to(self.dtype)
-            y = self.stack(x.to(self.device))
-            return y.cpu().to(torch.float32).numpy()
+            blocks = self.run(torch.from_numpy(xb).to(self.dtype))
+            y = torch.cat([b.cpu() for b in blocks])
+            return y.to(torch.float32).numpy()
+
+    def run(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """The device part of ``forward``: the host batch ``x`` in the
+        served dtype -> the answer rows, in order, as tensors on the
+        device.  One stack on one device here; the array backends
+        (runtime/sharded.py) replace only this."""
+        return [self.apply(self.stack, x.to(self.device))]
+
+    def apply(self, stack: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """``stack(x)``, each row's bits independent of the rows beside
+        it.  The kernels are row-independent on the card.  The plain
+        versions on the CPU are not: MKL's threads split a product of few
+        rows (differently call by call past one thread a core), and
+        torch's elementwise CPU loops finish a tensor's tail on another
+        code path than its body.  So on the CPU the stack runs one row at
+        a time, on one thread: every row is then computed alike whatever
+        batch, bucket, shard or stage carries it, and batched == single
+        and every array plan hold bitwise on the host as on the card."""
+        if x.device.type != "cpu":
+            return stack(x)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            return torch.cat([stack(row) for row in x.split(1)])
+        finally:
+            torch.set_num_threads(threads)
 
     def step(self, inputs: np.ndarray,
              slot_req: Sequence[Optional[Request]]) -> np.ndarray:
@@ -520,11 +569,12 @@ class VikinBackend(ModelBackend):
         """VIKIN cycle model for one served batch (single engine instance:
         compute cycles scale linearly in n_active, every instance pays its
         mode plan, and entering from a disagreeing ``prev_mode`` costs one
-        extra flip)."""
+        extra flip).  ``self.array`` (set by the array backends of
+        runtime/sharded.py) swaps in the multi-chip report."""
         key = (n_active, prev_mode)
         if key not in self._report_cache:
             self._report_cache[key] = serving_report(
-                self.layers, self.hw, batch=n_active,
+                self.layers, self.hw, batch=n_active, array=self.array,
                 prev_mode=prev_mode, precision=self.precision)
         return dict(self._report_cache[key])
 

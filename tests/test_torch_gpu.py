@@ -1963,3 +1963,62 @@ def test_lm_train_step_on_card(cuda, dtype):
     for k in ref:
         assert got[k].dtype == ref[k].dtype, k
         _close(got[k].float().cpu(), ref[k].float(), tol)
+
+
+# ---------------------------------------------------------------------------
+# The VIKIN array plans (runtime/sharded) on logical chips of one card.
+# ---------------------------------------------------------------------------
+
+from repro_torch.launch.mesh import require_devices  # noqa: E402
+from repro_torch.launch.serve import make_vikin_backend  # noqa: E402
+from repro_torch.runtime.sharded import ShardedVikinBackend  # noqa: E402
+
+ARRAY_KERNELS = {"f32": ("kan_fused_v2", "pattern_matmul"),
+                 "bf16": ("kan_fused_v2_bf16", "pattern_matmul_bf16"),
+                 "int8": ("kan_fused_v2_q8", "pattern_matmul_q8")}
+
+
+@pytest.mark.parametrize("plan,n_chips,precision", [
+    ("data", 4, "f32"), ("data", 4, "bf16"), ("data", 4, "int8"),
+    ("pipeline", 3, "f32"), ("pipeline", 3, "bf16"),
+    ("hetero", 4, "f32"), ("hetero", 4, "bf16")])
+def test_array_plans_on_the_card_are_bitwise_single(cuda, plan, n_chips,
+                                                    precision):
+    """Every plan over logical chips of one card serves bitwise the
+    single-device answers, one launch a layer a shard (data) or a tick
+    (staged), from one stack per distinct device."""
+    model = VIKIN_ARCHS["vikin-mixed"]
+    rng = np.random.default_rng(3)
+    xs = [rng.random(model.sizes[0], dtype=np.float32) for _ in range(21)]
+
+    def serve(backend):
+        eng = Engine(backend, n_slots=8)
+        rids = [eng.submit(x) for x in xs]
+        before = dict(_build.LAUNCHES)
+        out = eng.run_until_done()
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+               if v != before[k]}
+        return np.stack([out[r] for r in rids]), eng.stats, got
+
+    y1, _, _ = serve(make_vikin_backend(model, "cuda", precision=precision))
+    be = make_vikin_backend(model, "cuda", precision=precision,
+                            devices=["cuda:0"] * n_chips, plan=plan)
+    yn, s, got = serve(be)
+    assert np.array_equal(y1, yn)
+    shards = n_chips if plan == "data" else 1
+    kan_k, mm_k = ARRAY_KERNELS[precision]
+    assert got == {kan_k: shards * int(s["ticks"]),
+                   mm_k: 2 * shards * int(s["ticks"])}
+    assert len(be.stacks()) == (1 if plan == "data" else len(be._stages))
+
+
+def test_array_refuses_more_cards_than_visible(cuda):
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match="visible"):
+        require_devices(n)
+    model = VIKIN_ARCHS["vikin-small"]
+    params = vikin_stack_init(model, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="logical chips on one card"):
+        ShardedVikinBackend(model, params, devices=n)
+    assert require_devices(["cuda:0"] * n) == [torch.device("cuda:0")] * n

@@ -140,14 +140,22 @@ def test_stats_report_simulated_cycles_and_modes():
 
 
 def test_step_matches_direct_stack_apply():
+    """The engine returns each request exactly what the stack gives its
+    row: on the CPU the backend runs the stack one row at a time on one
+    thread (``VikinBackend.apply``), so the direct apply does too."""
     from repro_torch.models.ffn import vikin_stack_apply
 
     model, params, eng = _engine("vikin-small", n_slots=2)
     prompts = _burst(model, 2)
     rids = [eng.submit(p) for p in prompts]
     out = eng.run_until_done()
-    direct = vikin_stack_apply(params, torch.from_numpy(np.stack(prompts)),
-                               model).numpy()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        direct = [vikin_stack_apply(params, torch.from_numpy(p)[None],
+                                    model).numpy()[0] for p in prompts]
+    finally:
+        torch.set_num_threads(threads)
     for j, rid in enumerate(rids):
         np.testing.assert_array_equal(out[rid], direct[j])
 
@@ -322,7 +330,8 @@ def test_serving_bench_rows_equal_the_committed_sim_fields(tmp_path):
         (Path(__file__).resolve().parents[1] / "BENCH_serving.json")
         .read_text())
     out = tmp_path / "serving_bench.json"
-    rows = json.loads(json.dumps(serving_bench.run("cpu", out)))
+    rows = json.loads(json.dumps(serving_bench.run(
+        "cpu", out, families=("burst", "sched", "kanffn"))))
     assert json.loads(out.read_text()) == rows
     assert sorted(rows) == sorted([*serving_bench.ARCHS,
                                    "sched:vikin-kan2+vikin-mlp3",
