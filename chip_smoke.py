@@ -276,6 +276,23 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    ``BENCH_serving.json``; (f) ``roofline --engine`` at batch 1 and 8,
    f32, bf16 and int8, equal to a CPU-only process's rows; (g)
    ``python -m repro_torch.examples.serve_batch`` on the card.
+15. training and serving on a process mesh (``mesh_phase``,
+   ``launch/mesh``, ``launch/sharding``, the mesh step of
+   ``launch/steps``): four ranks of this script (``--mesh-worker``)
+   share the card over gloo, the kernels built once before they start:
+   (a) qwen2-0.5b with the KAN drop-in at full width and depth (bf16, f32
+   t) on a 2x2 (data, model) mesh with ZeRO-1, 8 x 128 tokens a step, 3
+   steps from seed 0: each step's loss within the reference's sharded ==
+   dense bound (1e-3 * (1 + |loss|)) of one process's, two runs bitwise,
+   48 ``kan_fused_v2_mixed`` and 48 ``spline_basis_bf16`` launches a step
+   a rank and nothing else; per rank host and device ms a step, the bytes
+   it sends, peak memory; (b) the same mesh with ``grad_compression``:
+   each rank's dequantized gradients bitwise the host's reduction of the
+   same int8 codes; (c) qwen3-moe-235b-a22b (2 of 94 layers, full width,
+   bf16) on a 1x4 mesh, 32 experts a rank: a prefill of 8 x 16 tokens
+   and 8 decode steps, greedy tokens equal and logits within phase 11's
+   ``MOE_TF_TOL`` of one process's; (d) (a)'s checkpoint restored on 1x2
+   and 1x1 bitwise, one more step on each.
 
 No served path launches the spline-basis or v1 kernels, so their
 ``launches`` in the record are those of phases 6 and 5; the mixed
@@ -287,8 +304,9 @@ runs of the paper scripts (Table I, the Fig. 8 sweep, Table II), and
 ``launches_kanffn``, its launches in phase 10 (b)'s three served runs,
 ``launches_moe``, its launches in phase 11 (a) and (b),
 ``launches_encdec``, its launches in phase 12 (a)-(c), and
-``launches_lm_train``, its launches in phase 13 (a)-(d), and
-``launches_array``, its launches in phase 14's served runs.
+``launches_lm_train``, its launches in phase 13 (a)-(d),
+``launches_array``, its launches in phase 14's served runs, and
+``launches_mesh``, rank 0's launches in phase 15 (a)'s first run.
 
 It prints the ``{"kernels": [...]}`` record, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It imports nothing
@@ -300,7 +318,9 @@ import dataclasses
 import gc
 import inspect
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -429,6 +449,23 @@ BUCKETS = (2, 4, 8, 16)
 BIG = 8192
 DEVICE = "cuda"
 ARRAY_CHIPS = 4               # phase 14: logical chips of one card
+# phase 15: training and serving on a process mesh (``mesh_phase``): the
+# ranks are processes of this script (``--mesh-worker``) that share the
+# one card over gloo (NCCL refuses two ranks on one device).  (a) data
+# parallelism with ZeRO-1 against one process: the loss of each step
+# within the reference's sharded == dense bound, 1e-3 * (1 + |loss|).
+MESH_DP = (2, 2)
+MESH_STEPS = 3
+MESH_COMP_STEPS = 2
+MESH_LOSS_TOL = 1e-3
+MESH_EP = (1, 4)
+MESH_EP_ARCH = "qwen3-moe-235b-a22b"
+MESH_EP_DEPTH = 2
+MESH_EP_BATCH, MESH_EP_PROMPT, MESH_EP_NEW = 8, 16, 8
+MESH_RESTORE_RANKS = (1, 2)    # (d) on ranks of (a)'s spawn, then 1x1
+MESH_SPAWN_S = 600
+MESH_DEV = "cuda:0"
+MESH_GIB = 60.0               # the four ranks' peaks together on the card
 
 KERNEL_INFO = {
     "kan_fused_v2": {
@@ -2976,6 +3013,542 @@ def array_phase(dev: torch.device, card: str, hold) -> dict:
     return rec
 
 
+def _mesh_lm_cfg():
+    """Phase 15 (a)-(b), (d): qwen2-0.5b with the reference's KAN
+    drop-in at full width and depth (bf16, its t f32)."""
+    from repro_torch.configs.registry import ARCHS as ZOO
+    return dataclasses.replace(ZOO[LM_ARCH], ffn_kind="kan",
+                               pattern_rate=0.5)
+
+
+def _mesh_ep_cfg():
+    from repro_torch.configs.registry import ARCHS as ZOO
+    return dataclasses.replace(ZOO[MESH_EP_ARCH], n_layers=MESH_EP_DEPTH)
+
+
+def _mesh_data(cfg):
+    from repro_torch.data.lm import LMDataConfig, SyntheticLM
+    return SyntheticLM(LMDataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=LM_SEQ, global_batch=LM_BATCH))
+
+
+def _mesh_opts(**over):
+    from repro_torch.launch import steps as ST
+    return ST.StepOptions(lr=3e-4, total_steps=LM_STEPS, warmup=0, **over)
+
+
+def _profile_ms(fn) -> dict:
+    """Device ms of one call of ``fn`` from the profiler: all of it, the
+    host <-> device copies' (``Memcpy``) and the copy kernels' share of
+    the kernels' time (the widening ``.to`` copies)."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    total = sum(_device_us(e) for e in dev)
+    memcpy = sum(_device_us(e) for e in dev if e.key.startswith("Memcpy"))
+    kern = total - memcpy
+    copies = sum(_device_us(e) for e in dev
+                 if "copy" in e.key.lower() and not e.key.startswith("Memcpy"))
+    return {"device_ms": total / 1e3, "memcpy_ms": memcpy / 1e3,
+            "kernel_ms": kern / 1e3,
+            "copy_share": copies / kern if kern else float("nan")}
+
+
+def _mesh_worker(argv: list) -> int:
+    """One rank of phase 15 (``python chip_smoke.py --mesh-worker OUT
+    CKPT``, started by ``mesh_phase`` through ``launch.mesh.spawn_ranks``):
+    (a), (b) on the 2x2 mesh, (d)'s 1x2 restore on ranks 0-1, then (c)
+    on the 1x4 mesh, each on a process group of its own; writes
+    ``OUT/dp_rank<r>.json`` and ``OUT/ep_rank<r>.json``, with the seconds
+    each part took (``laps``)."""
+    entry_wall = time.time()
+    sys.path.insert(0, str(SRC))
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.kernels import _build
+    from repro_torch.launch import collectives as COLL
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim.compression import (
+        compress_int8,
+        compressed_allreduce,
+    )
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.utils import leaf_paths, tree_map
+
+    out, ck = Path(argv[0]), argv[1]
+    dev = torch.device(MESH_DEV)
+    laps: dict = {}
+    last = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        laps[name] = now - last[0]
+        last[0] = now
+
+    rank = int(os.environ["RANK"])
+
+    def join(shape: tuple, tag: str):
+        m = M.init_process_mesh(shape, rank=rank,
+                                world_size=math.prod(shape), device=dev,
+                                rendezvous=str(out / f"rv_{tag}"))
+        return m, {"rank": rank, "coords": m.coords, "backend": m.backend,
+                   "device": str(dev), "entry_wall": entry_wall,
+                   "laps": laps}
+
+    # every rank's CUDA context at once (in (c) the ranks draw in turn)
+    torch.empty(1, device=dev)
+    sync = torch.cuda.synchronize
+    mesh, res = join(MESH_DP, "dp")
+    lap("init")
+
+    def restore_on(m, ck: str) -> dict:
+        """(d): a Trainer on mesh ``m`` restores the checkpoint; each
+        rank holds its shards to the same cut of the saved leaves (the
+        shards of every rank make each leaf whole), then one more
+        step."""
+        cfg = _mesh_lm_cfg()
+        tr = Trainer(cfg, TrainerConfig(max_steps=MESH_STEPS + 1,
+                                        ckpt_dir=ck, log_every=100),
+                     dev, _mesh_data(cfg), _mesh_opts(), mesh=m)
+        lap("d12_restore")
+        target = tree_map(lambda a: torch.empty(a.shape, dtype=a.dtype),
+                          SP.state_specs(cfg))
+        saved, saved_step, _ = restore_checkpoint(ck, target)
+        specs = ST.train_state_shardings(cfg, m)
+        keys = ("params", "opt", "step")
+        want = {k: SH.shard_tree(saved[k], specs[k], m) for k in keys}
+        r: dict = {"restored_step": saved_step,
+                   "n_leaves": len(leaf_paths(saved)),
+                   "bad_leaves": [
+                       k for (k, a), (_, b) in zip(
+                           leaf_paths({k: tr.state[k] for k in keys}),
+                           leaf_paths(want))
+                       if not torch.equal(a.cpu(), b)]}
+        del saved, want
+        lap("d12_check")
+        b = tr.batch_at(tr.step)
+        tr.state, m_ = tr._step_fn(tr.state, b)
+        sync()
+        r["step"], r["loss"] = int(tr.state["step"]), float(m_["loss"])
+        lap("d12_step")
+        return r
+
+    def launched() -> dict:
+        return {k: v for k, v in _build.LAUNCHES.items() if v}
+
+    def bits(state) -> list:
+        return [a.detach().reshape(-1).view(torch.uint8).cpu()
+                if a.dtype == torch.bfloat16 else a.detach().cpu()
+                for _, a in leaf_paths(state)]
+
+    cfg = _mesh_lm_cfg()
+    data = _mesh_data(cfg)
+    opts = _mesh_opts()
+    params = TF.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    step = ST.make_train_step(cfg, opts, mesh)
+
+    def batch(s):
+        b = {k: torch.from_numpy(np.ascontiguousarray(v))
+             for k, v in data.batch_at(s).items()}
+        return {k: v.to(dev) for k, v in ST.local_batch(b, mesh).items()}
+
+    def run(o=opts, stp=step, n=MESH_STEPS, profile=False, state=None):
+        if state is None:
+            state = ST.init_train_state(cfg, o, params=params, mesh=mesh)
+        rec = {"loss": [], "host_ms": [], "launches": [], "sent": []}
+        for s in range(int(state["step"]), n):
+            b = batch(s)
+            sync()
+            _build.reset_launches()
+            COLL.reset_sent()
+            t0 = time.perf_counter()
+            if profile and s == n - 1:   # the last step, profiled
+                box = {}
+                rec.update(_profile_ms(
+                    lambda: box.update(zip(("s", "m"), stp(state, b)))))
+                state, m = box["s"], box["m"]
+            else:
+                state, m = stp(state, b)
+            sync()
+            rec["host_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["loss"].append(float(m["loss"]))
+            rec["launches"].append(launched())
+            rec["sent"].append(dict(COLL.SENT))
+        return state, rec
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    state_a, res["a"] = run(n=MESH_STEPS - 1)
+    kept = bits(state_a)
+    state_a, rec = run(state=state_a)
+    for k in res["a"]:
+        res["a"][k] += rec[k]
+    lap("a_run1")
+    # a second run, its last step profiled, bitwise the first's
+    state_b, res["b"] = run(n=MESH_STEPS - 1, profile=True)
+    res["a_bitwise_b"] = (res["a"]["loss"][:-1] == res["b"]["loss"]
+                          and all(torch.equal(x, y) for x, y in
+                                  zip(bits(state_b), kept)))
+    del state_b, kept
+    lap("a_run2_profiled")
+    for k in ("device_ms", "memcpy_ms", "kernel_ms", "copy_share"):
+        res[k] = res["b"][k]
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    # (d)'s checkpoint: whole leaves, written by rank 0
+    whole = ST.gather_state(state_a, cfg, mesh, "cpu")
+    if mesh.rank == 0:
+        save_checkpoint(ck, MESH_STEPS, whole)
+    del whole, state_a
+    mesh.barrier()
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("a_checkpoint")
+    # (b) the int8 compressed all-reduce: the card's dequantized
+    # gradients against the same codes reduced on the host
+    oc = _mesh_opts(grad_compression=True)
+    stc = ST.make_train_step(cfg, oc, mesh)
+    st0 = ST.init_train_state(cfg, oc, params=params, mesh=mesh)
+    # step 0 by hand: the gradients, their int8 all-reduce held to
+    # the host's, then the update; step 1 through the step
+    full = stc.gathered(st0["params"])
+    with ST.deterministic(dev):
+        _, ce0, g = ST.value_and_grad(cfg, oc, full, batch(0))
+    del full
+    with torch.no_grad():
+        deq, new_r = compressed_allreduce(g, st0["ef_residual"],
+                                          axis_name=stc.dp, mesh=mesh)
+        n = mesh.axis_size(stc.dp)
+        bad = []
+        res_leaves = dict(leaf_paths(st0["ef_residual"]))
+        for (k, gk), (_, dk) in zip(leaf_paths(g), leaf_paths(deq)):
+            q, sc = compress_int8(gk.to(torch.float32) + res_leaves[k])
+            codes = COLL.all_gather_shards(q.cpu(), mesh, stc.dp)
+            scales = COLL.all_gather_shards(sc.reshape(1).cpu(), mesh,
+                                            stc.dp)
+            acc = codes[0].to(torch.int32)
+            for c in codes[1:]:
+                acc = acc + c.to(torch.int32)
+            smax = torch.max(torch.cat(scales))
+            host = (acc.to(torch.float32) * smax
+                    / torch.tensor(n, dtype=torch.float32)).to(gk.dtype)
+            if not torch.equal(host, dk.cpu()):
+                bad.append(k)
+    res["comp_bad_leaves"] = bad
+    res["comp_leaves"] = len(leaf_paths(g))
+    with ST.deterministic(dev):
+        upd, _ = stc.apply(st0, stc.zero1_slices(deq))
+    st1 = {**upd, "ef_residual": new_r, "step": st0["step"] + 1}
+    del g, deq, st0, upd, new_r, res_leaves
+    st1, res["comp"] = run(oc, stc, MESH_COMP_STEPS, state=st1)
+    res["comp"]["loss"].insert(0, float(stc._mean(ce0)))
+    del st1, stc, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("b")
+    # (d) the 1x2 restore on ranks 0 and 1 of this spawn, on a new
+    # process group (ranks 2-3 go on to (c)'s rendezvous)
+    M.destroy_process_mesh(mesh)
+    if rank < math.prod(MESH_RESTORE_RANKS):
+        sub, _ = join(MESH_RESTORE_RANKS, "restore")
+        res["restore"] = restore_on(sub, ck)
+        M.destroy_process_mesh(sub)
+    gc.collect()
+    torch.cuda.empty_cache()
+    (out / f"dp_rank{rank}.json").write_text(json.dumps(res))
+    laps = {}
+    mesh, res = join(MESH_EP, "ep")
+    lap("c_init")
+    cfg = _mesh_ep_cfg()
+    # each rank draws the whole model in turn and keeps its shards
+    for r in range(mesh.size):
+        if mesh.rank == r:
+            whole = TF.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(0), dev)
+            shards = ST.shard_params(whole, cfg, mesh)
+            del whole
+            gc.collect()
+            torch.cuda.empty_cache()
+        mesh.barrier()
+    lap("c_draw")
+    torch.cuda.reset_peak_memory_stats(dev)
+    cp = ST.compute_params(shards, cfg, mesh)
+    del shards
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("c_compute_params")
+    e = [a for k, a in leaf_paths(cp)
+         if k.endswith("['experts']['gate']")]
+    res["local_experts"] = int(e[0].shape[-3])
+    feed = torch.load(out / "ep_tokens.pt")
+    logits = []
+    with torch.no_grad(), M.set_mesh(mesh):
+        lg, caches = TF.prefill(cp, cfg, feed["prompt"].to(dev))
+        logits.append(lg[:, -1].float().cpu())
+        times = []
+        for i in range(MESH_EP_NEW):
+            tok = feed["fed"][i].to(dev)
+            sync()
+            t0 = time.perf_counter()
+            lg, caches = TF.decode_step(cp, cfg, tok, caches)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg[:, -1].float().cpu())
+        res["decode_host_ms"] = statistics.median(times)
+        lap("c_prefill_decode")
+        prof = _profile_ms(lambda: TF.decode_step(
+            cp, cfg, feed["fed"][0].to(dev), caches))
+        res["decode_device_ms"] = prof["device_ms"]
+        res["decode_kernel_ms"] = prof["kernel_ms"]
+        res["copy_share"] = prof["copy_share"]
+        lap("c_profile")
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if mesh.rank == 0:
+        torch.save(torch.stack(logits), out / "ep_logits.pt")
+    (out / f"ep_rank{rank}.json").write_text(json.dumps(res))
+    M.destroy_process_mesh(mesh)
+    return 0
+
+
+def mesh_phase(dev: torch.device, card: str) -> dict:
+    """Phase 15: training and serving on a ``launch/mesh.ProcessMesh``,
+    the ranks processes of this script that share the card over gloo
+    (the kernels built once, in phase 1, before any rank starts).
+
+    (a) data parallelism with ZeRO-1 on a 2x2 mesh: qwen2-0.5b with the
+    KAN drop-in at full width and depth (bf16, f32 t), ``LM_BATCH`` x
+    ``LM_SEQ`` tokens a step globally, ``MESH_STEPS`` steps from seed 0,
+    against the same steps in one process: each step's loss within
+    ``MESH_LOSS_TOL * (1 + |loss|)``; a second mesh run of ``MESH_STEPS``
+    - 1 steps bitwise the first's; each rank
+    launches ``kan_fused_v2_mixed`` and ``spline_basis_bf16`` 48 times a
+    step and nothing else; per rank host ms a step, device ms (profiler),
+    the bytes it sends a step and peak GiB;
+    (b) the same mesh for ``MESH_COMP_STEPS`` steps with
+    ``grad_compression``: each rank's dequantized gradients bitwise those
+    of the same codes reduced on the host, the first loss bitwise (a)'s;
+    (c) expert parallelism on a 1x4 mesh: qwen3-moe-235b-a22b, 2 of 94
+    layers, full width, bf16, 32 experts a rank: a prefill of 8 x 16
+    tokens and 8 decode steps fed the one-process run's greedy tokens,
+    every step's greedy tokens equal to it and its logits within phase
+    11's ``MOE_TF_TOL``; per rank peak GiB and the copy kernels' share
+    of a decode step's device time;
+    (d) (a)'s checkpoint restored on 1x2 (ranks) and 1x1 (this process,
+    ``Trainer(mesh=make_host_mesh())``): every leaf bitwise the saved one,
+    and one more step on each.
+    One spawn of four ranks runs (a), (b), (d)'s 1x2 and (c), each on a
+    process group of its own; the one-process references run first.
+    Returns what it measured, with the seconds of each part; raises on
+    any fault."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as TF
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.utils import leaf_paths, tree_map
+
+    t_phase = time.perf_counter()
+    _build.build()       # every rank loads these; none runs nvcc
+    out = Path(tempfile.mkdtemp(prefix="mesh_phase_"))
+    ck = out / "ckpt"
+    env = {"PYTHONPATH": str(SRC)}
+    argv0 = [str(ROOT / "chip_smoke.py"), "--mesh-worker"]
+
+    def free() -> None:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    print(f"phase 15: ranks share {MESH_DEV} over gloo (NCCL refuses two "
+          f"ranks on one device); {card}")
+    # (a) one process first
+    t0 = time.perf_counter()
+    free()
+    cfg = _mesh_lm_cfg()
+    data = _mesh_data(cfg)
+    opts = _mesh_opts()
+    params = TF.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    state = ST.init_train_state(cfg, opts, params=params)
+    step = ST.make_train_step(cfg, opts)
+    one = []
+    for s in range(MESH_STEPS):
+        b = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in data.batch_at(s).items()}
+        state, m = step(state, b)
+        one.append(float(m["loss"]))
+    del params, state, b
+    free()
+    times = {"a_one_process": time.perf_counter() - t0}
+    # (c) one process first: the tokens the ranks are fed, the logits
+    t0 = time.perf_counter()
+    ecfg = _mesh_ep_cfg()
+    params = TF.init_params(ecfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    rng = np.random.default_rng(15)
+    prompt = torch.as_tensor(rng.integers(
+        0, ecfg.vocab_size, (MESH_EP_BATCH, MESH_EP_PROMPT)).astype(np.int32))
+    ref, fed = [], []
+    with torch.no_grad():
+        lg, caches = TF.prefill(params, ecfg, prompt.to(dev))
+        ref.append(lg[:, -1].float().cpu())
+        for _ in range(MESH_EP_NEW):
+            tok = TF.greedy_token(lg)
+            fed.append(tok.cpu())
+            lg, caches = TF.decode_step(params, ecfg, tok, caches)
+            ref.append(lg[:, -1].float().cpu())
+    del params, caches, lg
+    free()
+    torch.save({"prompt": prompt, "fed": fed}, out / "ep_tokens.pt")
+    times["c_one_process"] = time.perf_counter() - t0
+    # one spawn: (a), (b), (d)'s 1x2 restore, then (c)
+    t0, w0 = time.perf_counter(), time.time()
+    n = math.prod(MESH_DP)
+    M.spawn_ranks(argv0 + [str(out), str(ck)], n, str(out / "rv"),
+                  timeout_s=MESH_SPAWN_S, env=env)
+    times["spawn"] = t_spawn = time.perf_counter() - t0
+    dp, ep = ([json.loads((out / f"{tag}_rank{r}.json").read_text())
+               for r in range(n)] for tag in ("dp", "ep"))
+    times["ranks_start"] = max(r["entry_wall"] for r in dp) - w0
+    times.update({f"rank0_{k}": v for r in (dp[0], ep[0])
+                  for k, v in r["laps"].items()})
+    gaps = []
+    for r in dp:
+        check(r["backend"] == "gloo", f"(phase 15 a) rank {r['rank']} on "
+              f"backend {r['backend']}")
+        for s, (lm, l1) in enumerate(zip(r["a"]["loss"], one)):
+            gap = abs(lm - l1)
+            gaps.append(gap)
+            check(math.isfinite(lm) and gap <= MESH_LOSS_TOL * (1 + abs(l1)),
+                  f"(phase 15 a) rank {r['rank']} step {s}: loss {lm} on "
+                  f"2x2 against {l1} in one process")
+        check(r["a_bitwise_b"], f"(phase 15 a) rank {r['rank']}: two 2x2 "
+              f"runs differ")
+        want = {MIXED: 2 * cfg.n_layers, "spline_basis_bf16": 2 * cfg.n_layers}
+        for s, got in enumerate(r["a"]["launches"]):
+            check(got == want, f"(phase 15 a) rank {r['rank']} step {s}: "
+                  f"launches {got}, want {want}")
+        check(not r["comp_bad_leaves"] and r["comp_leaves"] > 0,
+              f"(phase 15 b) rank {r['rank']}: dequantized gradients differ "
+              f"from the host's reduction of the same codes at "
+              f"{r['comp_bad_leaves'][:4]}")
+        check(r["comp"]["loss"][0] == r["a"]["loss"][0]
+              and all(math.isfinite(x) for x in r["comp"]["loss"]),
+              f"(phase 15 b) rank {r['rank']}: losses {r['comp']['loss']}")
+    per_rank = [{
+        "rank": r["rank"], "coords": r["coords"],
+        "host_ms": statistics.median(r["a"]["host_ms"]),
+        "host_ms_steps": r["a"]["host_ms"],
+        "device_ms": r["device_ms"], "memcpy_ms": r["memcpy_ms"],
+        "kernel_ms": r["kernel_ms"], "copy_share": r["copy_share"],
+        "sent_bytes_a_step": r["a"]["sent"][-1]["bytes"],
+        "collectives_a_step": r["a"]["sent"][-1]["calls"],
+        "peak_gib": r["peak_gib"]} for r in dp]
+    for p in per_rank:
+        print(f"phase 15 (a) rank {p['rank']} {p['coords']}: host "
+              f"{p['host_ms']:.1f} ms a step (median of {MESH_STEPS}), "
+              f"device {p['device_ms']:.1f} ms (profiler: kernels "
+              f"{p['kernel_ms']:.1f}, host <-> device copies "
+              f"{p['memcpy_ms']:.1f}), sends "
+              f"{p['sent_bytes_a_step'] / 2 ** 20:.1f} MiB in "
+              f"{p['collectives_a_step']} collectives a step, peak "
+              f"{p['peak_gib']:.2f} GiB")
+    check(sum(p["peak_gib"] for p in per_rank) <= MESH_GIB,
+          f"(phase 15 a) the ranks' peaks sum past {MESH_GIB} GiB")
+    print(f"phase 15 (a) 2x2 vs one process, {MESH_STEPS} steps of "
+          f"{LM_BATCH} x {LM_SEQ}: losses {dp[0]['a']['loss']} vs {one}, "
+          f"largest gap {max(gaps):.3e} (bound {MESH_LOSS_TOL} * (1 + "
+          f"|loss|)); two runs bitwise; {2 * cfg.n_layers} {MIXED} and "
+          f"{2 * cfg.n_layers} spline_basis_bf16 launches a step a rank; "
+          f"(b) int8 all-reduce bitwise the host's on "
+          f"{dp[0]['comp_leaves']} leaves a rank, losses "
+          f"{dp[0]['comp']['loss']}")
+    # (d) elastic restore: 1x2 on ranks 0-1 of (a)'s spawn, then 1x1 here
+    tag12 = "x".join(map(str, MESH_RESTORE_RANKS))
+    restores = {tag12: {**dp[0]["restore"], "bad_leaves": sorted({
+        k for r in dp[:math.prod(MESH_RESTORE_RANKS)]
+        for k in r["restore"]["bad_leaves"]})}}
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, TrainerConfig(max_steps=MESH_STEPS + 1,
+                                    ckpt_dir=str(ck), log_every=100),
+                 dev, data, opts, mesh=M.make_host_mesh(dev))
+    target = tree_map(lambda a: torch.empty(a.shape, dtype=a.dtype),
+                      SP.state_specs(cfg))
+    saved, saved_step, _ = restore_checkpoint(str(ck), target)
+    bad = [k for (k, a), (_, b_) in zip(leaf_paths(tr.state),
+                                        leaf_paths(saved))
+           if not torch.equal(a.cpu(), b_)]
+    n_leaves = len(leaf_paths(saved))
+    del saved
+    tr.state, m = tr._step_fn(tr.state, tr.batch_at(tr.step))
+    restores["1x1"] = {"restored_step": saved_step, "bad_leaves": bad,
+                       "n_leaves": n_leaves, "step": int(tr.state["step"]),
+                       "loss": float(m["loss"])}
+    del tr
+    free()
+    times["d_1x1"] = time.perf_counter() - t0
+    for tag, r0 in restores.items():
+        check(r0["restored_step"] == MESH_STEPS and not r0["bad_leaves"]
+              and r0["step"] == MESH_STEPS + 1
+              and math.isfinite(r0["loss"]),
+              f"(phase 15 d) restore on {tag}: {r0}")
+    print(f"phase 15 (d) the 2x2 checkpoint restored on "
+          + ", ".join(f"{t} ({r['n_leaves']} leaves bitwise, one more step "
+                      f"loss {r['loss']:.4f})" for t, r in restores.items()))
+    shutil.rmtree(ck, ignore_errors=True)
+    got = torch.load(out / "ep_logits.pt")
+    ref = torch.stack(ref)
+    tol = MOE_TF_TOL[torch.bfloat16]
+    err = float((got - ref).abs().max())
+    scale = 1 + float(ref.abs().max())
+    same = bool(torch.equal(got.argmax(-1), ref.argmax(-1)))
+    check(same, f"(phase 15 c) greedy tokens on 1x4 differ from one "
+          f"process's")
+    check(err <= tol * scale, f"(phase 15 c) logits {err:.3e} from one "
+          f"process's, vs {tol:g} * {scale:.4g}")
+    for r in ep:
+        check(r["local_experts"] == ecfg.n_experts // MESH_EP[1],
+              f"(phase 15 c) rank {r['rank']} holds {r['local_experts']} "
+              f"experts")
+        print(f"phase 15 (c) rank {r['rank']}: {r['local_experts']} experts, "
+              f"peak {r['peak_gib']:.2f} GiB, a decode step "
+              f"{r['decode_host_ms']:.2f} ms host, {r['decode_device_ms']:.3f} "
+              f"ms device ({r['decode_kernel_ms']:.3f} in kernels, the copy "
+              f"kernels {r['copy_share'] * 100:.1f}% of that)")
+    print(f"phase 15 (c) {MESH_EP_ARCH} ({MESH_EP_DEPTH} layers) on 1x4: "
+          f"prefill {MESH_EP_BATCH} x {MESH_EP_PROMPT} + {MESH_EP_NEW} decode "
+          f"steps, greedy tokens equal to one process's, logits "
+          f"{err / scale:.3e} of 1 + max (bound {tol:g}); one spawn of "
+          f"{n} ranks for (a)-(d) {t_spawn:.1f} s")
+    shutil.rmtree(out, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    print(f"phase 15: {wall:.1f} s; parts (s): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
+    launches: dict = {}
+    for got in dp[0]["a"]["launches"]:
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    return {"launches": launches,
+            "dp": {"losses_2x2": dp[0]["a"]["loss"], "losses_1x1": one,
+                   "max_gap": max(gaps), "per_rank": per_rank,
+                   "comp_losses": dp[0]["comp"]["loss"]},
+            "restore": restores, "times_s": times,
+            "ep": {"err_rel": err / scale, "per_rank": [
+                {k: r[k] for k in ("rank", "peak_gib", "decode_host_ms",
+                                   "decode_device_ms", "decode_kernel_ms",
+                                   "copy_share")}
+                for r in ep]},
+            "wall_s": wall, "card": card}
+
+
 def _device_us(event) -> float:
     """Self device time (us) of a profiler row; the attribute's name moved
     between torch versions."""
@@ -5228,6 +5801,10 @@ def main() -> int:
     # the VIKIN array plans (``array_phase``)
     array = array_phase(dev, card, hold)
 
+    # ---------------------------------------------------------------- 15
+    # training and serving on a process mesh (``mesh_phase``)
+    mesh = mesh_phase(dev, card)
+
     launched = {k: (served[p]["launches"][k], f"phase 3, {p} burst")
                 for p in PRECISIONS for k in SERVED_KERNELS[p]}
     launched["kan_fused_v1_bf16"] = (b_v1_launches["kan_fused_v1_bf16"],
@@ -5256,6 +5833,7 @@ def main() -> int:
             "launches_encdec": encdec["launches"].get(k, 0),
             "launches_lm_train": lm["launches"].get(k, 0),
             "launches_array": array["launches"].get(k, 0),
+            "launches_mesh": mesh["launches"].get(k, 0),
             "max_abs_err": max_err[k], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -5282,6 +5860,7 @@ def main() -> int:
          "encdec": encdec,
          "lm_train": lm,
          "array": array,
+         "mesh": mesh,
          "ptxas": usage,
          "knob_checks": knob_checks,
          "kernel_bench_launches": bench_launches},
@@ -5295,4 +5874,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(_mesh_worker(sys.argv[2:]))
     sys.exit(main())

@@ -9,10 +9,11 @@ what the data pipeline or a serving frontend feeds:
   prefill : {"tokens": (B, S) int32}    (+ frames/patches stubs)
   decode  : {"token": (B, 1) int32, "caches": the whole cache tree}
 
-The params' stand-ins are ``models/transformer.param_shapes``; the
-reference's ``param_specs`` and ``state_specs`` (the training state's
-stand-ins, which its dry run lowers) wait with ``launch/dryrun.py``
-(``ROADMAP.md``, queue 1, item 5).
+``param_specs(cfg)`` is the params' tree (``models/transformer.
+param_shapes``) and ``state_specs(cfg)`` the training state's
+(``{"params", "opt", "step"}``, the reference's ``jax.eval_shape(
+adamw_init, ...)``): they let ``launch/sharding``'s rules run on a
+full-size arch without its bytes.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.models import transformer as T
+from repro_torch.optim import adamw_init
 
 META = torch.device("meta")
 
@@ -56,3 +58,13 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, Any]:
                                         META)}
     raise ValueError(shape.kind)
 
+
+
+def param_specs(cfg: ArchConfig) -> Any:
+    return T.param_shapes(cfg)
+
+
+def state_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    params = T.param_shapes(cfg)
+    return {"params": params, "opt": adamw_init(params),
+            "step": _spec((), torch.int32)}

@@ -1,22 +1,51 @@
 """Train and serve steps: the LM train step with its options and state,
 and a prefill step and a decode step, each returning (greedy token,
-caches).
+caches), on one device or on a process mesh.
 
-Counterpart of ``repro/launch/steps.py``, with no ``mesh`` argument: one
-card runs a step whole.  The train step (``make_train_step``) runs
-``T.forward`` with no held ``ffns`` -- the weights change every step, so
-the KAN FFNs fuse their weights inside autograd -- then ``T.lm_loss`` +
-``aux_weight * aux``, the gradients (autograd through the kernels'
-Functions, ``kernels/grad.py``), optional int8 error-feedback
-compression (``optim/compression``) and ``adamw_update`` at the
-reference's cosine schedule.  On a CUDA device it runs under
-``torch.use_deterministic_algorithms(True)`` (no NaN fill of
+Counterpart of ``repro/launch/steps.py``.  The train step
+(``make_train_step``) runs ``T.forward`` with no held ``ffns`` -- the
+weights change every step, so the KAN FFNs fuse their weights inside
+autograd -- then ``T.lm_loss`` + ``aux_weight * aux``, the gradients
+(autograd through the kernels' Functions, ``kernels/grad.py``), optional
+int8 error-feedback compression (``optim/compression``) and
+``adamw_update`` at the reference's cosine schedule.  On a CUDA device it
+runs under ``torch.use_deterministic_algorithms(True)`` (no NaN fill of
 ``torch.empty``), so two runs of a step give the same bits.  The
 reference's ``remat`` and ``scan_layers`` change no number and are not
-read; its ``activation_mode`` only names a sharding constraint and waits
-with the sharding wrappers (``train_state_shardings``, ``jitted_*``,
-``lower_cell``) for the multi-card plans (``ROADMAP.md``, queue 1, item
-4).
+read.
+
+With ``mesh=`` (a ``launch/mesh.ProcessMesh``, one process a chip) the
+step keeps the reference's storage layout and its sharded == dense
+result, with the same program on every rank:
+
+* each rank stores only its shard of every leaf: params by
+  ``sharding.param_shardings`` (``fsdp`` where ``cfg.fsdp``), the AdamW
+  moments by ``zero1_shardings`` (``train_state_shardings``);
+* before use each rank all-gathers the leaves along ``model`` (and
+  ``data``), and runs the model on its ``data`` rows of the batch;
+* each rank gets only its ZeRO-1 slice of the gradients averaged over
+  the ``data`` ranks: cut along ``model`` at home, then the data ranks'
+  chunks reduce-scattered and summed in rank order in f32
+  (``collectives.reduce_scatter_over``; under ``grad_compression`` the
+  int32 all-reduce of the whole, ``compressed_allreduce(axis_name=...)``,
+  then the slice); the global norm adds the slices' sums of squares in
+  rank order (within f32 rounding of the whole gradient's, its bits
+  only on one rank); AdamW is elementwise, so a rank updates only its
+  slice of params and moments and all-gathers the params' slices over
+  ``data``;
+* SwiGLU experts are not gathered along ``model``: each ``model`` rank
+  runs its own (``models/moe``'s expert parallelism) and keeps their
+  gradients;
+* the loss, and the aux loss inside it, is averaged over the ``data``
+  ranks.
+
+This is the reference's storage and result, not Megatron tensor-parallel
+compute over ``model``: every ``model`` rank computes the whole layer
+(``ROADMAP.md`` queues that, with ``activation_mode="sp"``, as the next
+step).  ``deterministic()`` sets ``CUBLAS_WORKSPACE_CONFIG`` in every rank
+before its first product.  ``gather_state`` rebuilds the whole state
+(checkpoints, comparisons); ``compute_params`` gives the serve steps the
+gathered params of a rank (its experts only).
 
 The serve steps reach every arch of the zoo, the encoder-decoder and
 frontend ones too (a batch carries ``frames`` or ``patches`` beside its
@@ -25,6 +54,9 @@ as the reference's does.  ``ffns`` (``models/transformer.ffn_modules``)
 and ``enc_ffns`` (``encoder_ffn_modules``) hold the KAN FFNs' weights
 fused once; without them each step rebuilds them, with the same bits.  A
 serve step runs without autograd.
+
+The serve steps take ``mesh=`` too: under it a MoE serves over its
+expert ranks (``compute_params`` of each rank's shards).
 
 Run a prefill step and decode steps of any arch on seeded tokens (and
 seeded ``0.1 * N(0, 1)`` frames or patches in the params' dtype):
@@ -43,6 +75,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import os
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
@@ -54,10 +87,15 @@ import torch.utils.deterministic as torch_det
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.registry import ARCHS
 from repro_torch.kernels import _build
+from repro_torch.launch import collectives as COLL
+from repro_torch.launch import sharding as SH
+from repro_torch.launch import specs as SP
+from repro_torch.launch.mesh import ProcessMesh, set_mesh
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import Ffns
 from repro_torch.optim import (
     AdamWConfig,
+    OptState,
     adamw_init,
     adamw_update,
     compressed_allreduce,
@@ -97,21 +135,145 @@ def default_opt_cfg(opts: StepOptions) -> AdamWConfig:
 
 def init_train_state(cfg: ArchConfig, opts: StepOptions = StepOptions(),
                      generator: Optional[torch.Generator] = None,
-                     device: torch.device | str = "cpu", *,
-                     params: Optional[Params] = None) -> Dict[str, Any]:
+                     device: Optional[torch.device | str] = None, *,
+                     params: Optional[Params] = None,
+                     mesh: Optional[ProcessMesh] = None) -> Dict[str, Any]:
     """``{"params", "opt", "step"}`` (+ ``"ef_residual"`` under
     ``grad_compression``) on ``device``: params drawn from ``generator``
     (``T.init_params``), or ``params`` carried over (e.g. the reference's,
-    ``convert.transformer_params_from_jax``), each leaf copied."""
+    ``convert.transformer_params_from_jax``), each leaf copied.  Without
+    ``device``, the carried params' device (drawn ones: the CPU).  With
+    ``mesh`` the whole state is drawn or carried, then this rank keeps its
+    shards (``train_state_shardings``); its ``ef_residual`` is its own,
+    in the gathered shapes it computes gradients in."""
     if params is None:
-        params = T.init_params(cfg, generator, device)
+        params = T.init_params(cfg, generator, device or "cpu")
     else:
-        params = tree_map(lambda a: a.detach().to(device, copy=True), params)
+        to = device or leaf_paths(params)[0][1].device
+        params = tree_map(lambda a: a.detach().to(to, copy=True), params)
+    if mesh is not None:
+        return _shard_state(cfg, opts, params, mesh)
+    device = leaf_paths(params)[0][1].device
     state = {"params": params, "opt": adamw_init(params),
              "step": torch.zeros((), dtype=torch.int32, device=device)}
     if opts.grad_compression:
         state["ef_residual"] = init_compression(params)
     return state
+
+
+def train_state_shardings(cfg: ArchConfig, mesh: ProcessMesh
+                          ) -> Dict[str, Any]:
+    """The reference's tree of specs of the train state: params by
+    ``param_shardings`` (``fsdp`` where ``cfg.fsdp``), ``opt.mu`` and
+    ``opt.nu`` by ZeRO-1, ``count`` and ``step`` replicated.  Built once
+    per arch and mesh shape (not to be changed in place)."""
+    return _state_shardings(cfg, mesh.axis_names, mesh.shape)
+
+
+@functools.lru_cache(maxsize=8)
+def _state_shardings(cfg: ArchConfig, axis_names: Tuple[str, ...],
+                     shape: Tuple[int, ...]) -> Dict[str, Any]:
+    mesh = ProcessMesh(axis_names, shape, abstract=True)
+    st = SP.state_specs(cfg)
+    psh = SH.param_shardings(st["params"], mesh, fsdp=cfg.fsdp)
+    return {
+        "params": psh,
+        "opt": OptState(mu=SH.zero1_shardings(st["opt"].mu, psh, mesh),
+                        nu=SH.zero1_shardings(st["opt"].nu, psh, mesh),
+                        count=SH.replicated(mesh)),
+        "step": SH.replicated(mesh),
+    }
+
+
+def _ep_paths(cfg: ArchConfig, mesh: ProcessMesh,
+              pspecs: Params) -> set:
+    """Paths of the SwiGLU expert leaves that stay on their ``model``
+    rank (expert parallelism; ``models/moe``)."""
+    if (mesh.axis_size("model") <= 1 or cfg.ffn_kind != "swiglu"
+            or not cfg.n_experts):
+        return set()
+    return {k for k, spec in leaf_paths(pspecs)
+            if "['experts']" in k and "model" in spec.axes()}
+
+
+def _compute_axes(path: str, spec: SH.P, ep: set) -> Tuple[str, ...]:
+    """The axes a leaf is gathered along before use: all its spec's, but
+    ``model`` for a rank's own experts."""
+    return tuple(a for a in spec.axes() if not (a == "model" and path in ep))
+
+
+def compute_params(shards: Params, cfg: ArchConfig,
+                   mesh: ProcessMesh) -> Params:
+    """The params a rank computes with, from its stored shards: every
+    leaf gathered whole, but the SwiGLU experts only over ``data`` (the
+    rank's ``E / model`` experts)."""
+    pspecs = train_state_shardings(cfg, mesh)["params"]
+    specs, ep = dict(leaf_paths(pspecs)), _ep_paths(cfg, mesh, pspecs)
+    return tree_map_with_path(
+        lambda k, x: SH.gather_leaf(x, specs[k], mesh,
+                                    _compute_axes(k, specs[k], ep)), shards)
+
+
+def shard_params(params: Params, cfg: ArchConfig,
+                 mesh: ProcessMesh) -> Params:
+    """This rank's shards of whole params (``param_shardings``)."""
+    pspecs = train_state_shardings(cfg, mesh)["params"]
+    return SH.shard_tree(params, pspecs, mesh)
+
+
+def _shard_state(cfg: ArchConfig, opts: StepOptions, params: Params,
+                 mesh: ProcessMesh) -> Dict[str, Any]:
+    specs = train_state_shardings(cfg, mesh)
+    device = leaf_paths(params)[0][1].device
+
+    def zeros(p: torch.Tensor) -> torch.Tensor:
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    def zero_shards(spec: Any) -> Any:
+        return tree_map(lambda p, s: zeros(SH.shard_leaf(p, s, mesh)),
+                        params, spec)
+
+    state = {
+        "params": SH.shard_tree(params, specs["params"], mesh),
+        "opt": OptState(
+            mu=zero_shards(specs["opt"].mu), nu=zero_shards(specs["opt"].nu),
+            count=torch.zeros((), dtype=torch.int32, device=device)),
+        "step": torch.zeros((), dtype=torch.int32, device=device)}
+    if opts.grad_compression:
+        ep = _ep_paths(cfg, mesh, specs["params"])
+        pspecs = dict(leaf_paths(specs["params"]))
+        state["ef_residual"] = tree_map_with_path(
+            lambda k, p: zeros(SH.shard_leaf(p, pspecs[k], mesh, ("model",))
+                               if k in ep else p), params)
+    return state
+
+
+def gather_state(state: Dict[str, Any], cfg: ArchConfig,
+                 mesh: ProcessMesh,
+                 device: Optional[torch.device | str] = None
+                 ) -> Dict[str, Any]:
+    """The whole ``{"params", "opt", "step"}`` from every rank's shards
+    (every rank gets it, each leaf moved to ``device`` as it is gathered
+    when given; the rank-local ``ef_residual`` is left out)."""
+    specs = train_state_shardings(cfg, mesh)
+    to = (lambda a: a) if device is None else (lambda a: a.to(device))
+
+    def whole(tree: Any, spec: Any) -> Any:
+        return tree_map(lambda x, s: to(SH.gather_leaf(x, s, mesh)), tree,
+                        spec)
+
+    return {"params": whole(state["params"], specs["params"]),
+            "opt": OptState(mu=whole(state["opt"].mu, specs["opt"].mu),
+                            nu=whole(state["opt"].nu, specs["opt"].nu),
+                            count=to(state["opt"].count)),
+            "step": to(state["step"])}
+
+
+def local_batch(batch: Dict[str, Any], mesh: ProcessMesh) -> Dict[str, Any]:
+    """This rank's rows of a global batch (``batch_shardings``: the
+    batch dim over (pod, data) where it divides, else whole)."""
+    specs = SH.batch_shardings(batch, mesh)
+    return {k: SH.shard_leaf(v, specs[k], mesh) for k, v in batch.items()}
 
 
 def _split_batch(cfg: ArchConfig, batch: Dict
@@ -167,12 +329,17 @@ def value_and_grad(cfg: ArchConfig, opts: StepOptions, params: Params,
             tree_map_with_path(lambda k, _: by_path[k], params))
 
 
-def make_train_step(cfg: ArchConfig, opts: StepOptions = StepOptions()
+def make_train_step(cfg: ArchConfig, opts: StepOptions = StepOptions(),
+                    mesh: Optional[ProcessMesh] = None
                     ) -> Callable[[Dict, Dict], Tuple[Dict, Dict]]:
     """``step(state, batch) -> (new state, metrics)``: metrics ``loss``
     (cross-entropy), ``total_loss`` (+ ``aux_weight * aux``),
     ``grad_norm`` (before the clip) and ``lr``, 0-d tensors on the
-    state's device; the input state is left as it was."""
+    state's device; the input state is left as it was.  With ``mesh``
+    the state is this rank's shards (``init_train_state(mesh=)``), the
+    batch its rows (``local_batch``), and the metrics the mesh's."""
+    if mesh is not None:
+        return MeshTrainStep(cfg, opts, mesh)
     opt_cfg = default_opt_cfg(opts)
 
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
@@ -192,14 +359,168 @@ def make_train_step(cfg: ArchConfig, opts: StepOptions = StepOptions()
     return train_step
 
 
+def _zero1_delta(zspec: SH.P, pspec: SH.P) -> SH.P:
+    """The axes ZeRO-1 adds to a param's spec, dim by dim."""
+    pp = list(pspec) + [None] * (len(zspec) - len(pspec))
+    return SH.P(*(tuple(a for a in SH._entry_axes(z)
+                        if a not in SH._entry_axes(p)) or None
+                  for z, p in zip(zspec, pp)))
+
+
+class MeshTrainStep:
+    """The train step on a process mesh (module docstring): ``grads``
+    gives this rank's ZeRO-1 slices of the mesh's mean gradients,
+    ``apply`` the AdamW update of the rank's shards from them, and a
+    call both; ``gather_grads`` rebuilds the whole mean gradients."""
+
+    def __init__(self, cfg: ArchConfig, opts: StepOptions,
+                 mesh: ProcessMesh) -> None:
+        self.cfg, self.opts, self.mesh = cfg, opts, mesh
+        self.opt_cfg = dataclasses.replace(default_opt_cfg(opts),
+                                           grad_clip_norm=None)
+        self.clip = default_opt_cfg(opts).grad_clip_norm
+        specs = train_state_shardings(cfg, mesh)
+        self.pspecs = dict(leaf_paths(specs["params"]))
+        self.zspecs = dict(leaf_paths(specs["opt"].mu))
+        self.ep = _ep_paths(cfg, mesh, specs["params"])
+        self.dp = SH.dp_axes(mesh)
+        self.n_dp = mesh.axis_size(self.dp)
+        # a leaf's ZeRO-1 slice, cut from the gradient a rank computes
+        # (a rank's experts are already cut along model)
+        self.cut = {k: tuple(a for a in z.axes()
+                             if not (a == "model" and k in self.ep))
+                    for k, z in self.zspecs.items()}
+        self.delta = {k: _zero1_delta(self.zspecs[k], self.pspecs[k])
+                      for k in self.zspecs}
+        # the ranks holding a leaf's distinct slices (coordinate 0 off
+        # the axes it is cut along), in rank order
+        coords = [mesh.coords_of(mesh.axis_names, r)
+                  for r in range(mesh.size)]
+        self.holders = {
+            k: [r for r, c in enumerate(coords)
+                if all(c[a] == 0 for a in mesh.axis_names
+                       if a not in self.cut[k]
+                       and not (a == "model" and k in self.ep))]
+            for k in self.zspecs}
+
+    def _mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over the data ranks, summed in rank order in f32."""
+        if self.n_dp == 1:
+            return x
+        acc = COLL.reduce_over(x, self.mesh, self.dp, torch.float32)
+        return (acc / self.n_dp).to(x.dtype)
+
+    def _slice_mean(self, k: str, g: torch.Tensor) -> torch.Tensor:
+        """This rank's ZeRO-1 slice of the mean of ``g`` over the data
+        ranks: cut off the data axes here, then each data rank's chunk
+        reduce-scattered and summed in rank order in f32 (the bits
+        ``_mean`` gives each element)."""
+        spec, mesh = self.zspecs[k], self.mesh
+        off = [a for a in self.cut[k] if a not in self.dp]
+        g = SH.shard_leaf(g, spec, mesh, off)
+        if self.n_dp == 1:
+            return g
+        on = [a for a in self.cut[k] if a in self.dp]
+        chunks = ([SH.shard_leaf(g, spec, mesh, on,
+                                 mesh.coords_of(self.dp, j))
+                   for j in range(self.n_dp)] if on else [g] * self.n_dp)
+        acc = COLL.reduce_scatter_over(chunks, mesh, self.dp, torch.float32)
+        return (acc / self.n_dp).to(g.dtype)
+
+    def zero1_slices(self, grads: Params) -> Params:
+        """This rank's ZeRO-1 slice of every gradient (no reduction)."""
+        return tree_map_with_path(
+            lambda k, g: SH.shard_leaf(g, self.zspecs[k], self.mesh,
+                                       self.cut[k]), grads)
+
+    def gather_grads(self, slices: Params) -> Params:
+        """The whole gradients from every rank's slices (experts too)."""
+        return tree_map_with_path(
+            lambda k, g: SH.gather_leaf(g, self.zspecs[k], self.mesh),
+            slices)
+
+    def gathered(self, params: Params) -> Params:
+        return tree_map_with_path(
+            lambda k, x: SH.gather_leaf(
+                x, self.pspecs[k], self.mesh,
+                _compute_axes(k, self.pspecs[k], self.ep)), params)
+
+    def grads(self, state: Dict, batch: Dict
+              ) -> Tuple[torch.Tensor, torch.Tensor, Params, Dict]:
+        """(total, ce, gradient slices, new residuals or {}): the mesh's
+        means, each rank's ZeRO-1 slices of the gradients."""
+        with set_mesh(self.mesh):
+            full = self.gathered(state["params"])
+            total, ce, grads = value_and_grad(self.cfg, self.opts, full,
+                                              batch)
+            del full
+            extra = {}
+            if self.opts.grad_compression:
+                grads, extra["ef_residual"] = compressed_allreduce(
+                    grads, state["ef_residual"], axis_name=self.dp,
+                    mesh=self.mesh)
+                grads = self.zero1_slices(grads)
+            else:
+                grads = tree_map_with_path(self._slice_mean, grads)
+        return self._mean(total), self._mean(ce), grads, extra
+
+    def global_norm(self, slices: Params) -> torch.Tensor:
+        """``optim.global_norm`` of the whole gradients from the slices:
+        the slices' sums of squares all-gathered over the mesh, each
+        leaf's added in rank order over the ranks that hold its distinct
+        slices, the leaves in the reference's order."""
+        leaves = leaf_paths(slices)
+        sq = torch.stack([torch.sum(torch.square(g.to(torch.float32)))
+                          for _, g in leaves])
+        parts = COLL.all_gather_shards(sq, self.mesh, self.mesh.axis_names)
+        total = 0
+        for i, (k, _) in enumerate(leaves):
+            held = self.holders[k]
+            leaf = parts[held[0]][i]
+            for r in held[1:]:
+                leaf = leaf + parts[r][i]
+            total = total + leaf
+        return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+    def apply(self, state: Dict, slices: Params
+              ) -> Tuple[Dict, Dict[str, torch.Tensor]]:
+        """The clip on the whole gradients' norm, then AdamW on this
+        rank's ZeRO-1 slices; the params' slices gathered back over
+        ``data``."""
+        mesh = self.mesh
+        gnorm = self.global_norm(slices)
+        if self.clip is not None:
+            scale = torch.clamp(self.clip / (gnorm + 1e-9), max=1.0)
+            slices = tree_map(lambda g: g * scale, slices)
+        p_sl = tree_map_with_path(
+            lambda k, p: SH.shard_leaf(p, self.delta[k], mesh),
+            state["params"])
+        new_sl, new_opt, metrics = adamw_update(slices, state["opt"], p_sl,
+                                                self.opt_cfg)
+        new_params = tree_map_with_path(
+            lambda k, p: SH.gather_leaf(p, self.delta[k], mesh), new_sl)
+        return ({"params": new_params, "opt": new_opt},
+                {"grad_norm": gnorm, "lr": metrics["lr"]})
+
+    def __call__(self, state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
+        with deterministic(state["step"].device):
+            total, ce, grads, extra = self.grads(state, batch)
+            upd, metrics = self.apply(state, grads)
+        new_state = {"step": state["step"] + 1, **extra, **upd}
+        return new_state, {"loss": ce, "total_loss": total, **metrics}
+
+
 def make_prefill_step(cfg: ArchConfig, *, ffns: Ffns = None,
-                      enc_ffns: Ffns = None
+                      enc_ffns: Ffns = None,
+                      mesh: Optional[ProcessMesh] = None
                       ) -> Callable[[Params, Dict], Tuple[torch.Tensor, Any]]:
     """``step(params, {"tokens", ["frames" | "patches"]})`` -> ((B, 1)
-    int32 greedy token, caches of the prompt + ``cfg.decode_margin``)."""
+    int32 greedy token, caches of the prompt + ``cfg.decode_margin``).
+    With ``mesh`` the params are a rank's ``compute_params`` and the
+    step runs under it (a MoE over its expert ranks)."""
     def prefill_step(params: Params, batch: Dict) -> Tuple[torch.Tensor, Any]:
         kw = {k: batch[k] for k in MODALITIES if k in batch}
-        with torch.no_grad():
+        with torch.no_grad(), set_mesh(mesh):
             logits, caches = T.prefill(params, cfg, batch["tokens"],
                                        ffns=ffns, enc_ffns=enc_ffns, **kw)
             return T.greedy_token(logits), caches
@@ -207,12 +528,14 @@ def make_prefill_step(cfg: ArchConfig, *, ffns: Ffns = None,
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig, *, ffns: Ffns = None
+def make_decode_step(cfg: ArchConfig, *, ffns: Ffns = None,
+                     mesh: Optional[ProcessMesh] = None
                      ) -> Callable[[Params, Dict], Tuple[torch.Tensor, Any]]:
     """``step(params, {"token": (B, 1), "caches"})`` -> (next greedy
-    token, caches); the input caches are left as they were."""
+    token, caches); the input caches are left as they were.  ``mesh`` as
+    ``make_prefill_step``'s."""
     def decode_step(params: Params, batch: Dict) -> Tuple[torch.Tensor, Any]:
-        with torch.no_grad():
+        with torch.no_grad(), set_mesh(mesh):
             logits, caches = T.decode_step(params, cfg, batch["token"],
                                            batch["caches"], ffns=ffns)
             return T.greedy_token(logits), caches

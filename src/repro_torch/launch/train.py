@@ -17,9 +17,21 @@ fused-KAN kernel, its gradient through the spline-basis kernel:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
       --scale full --ffn kan --pattern 0.5 --steps 4    # on the card
 
+Under ``torchrun`` (``WORLD_SIZE`` > 1) ``--mesh DxM`` lays the world
+out over ("data", "model") (``PxDxM`` over ("pod", "data", "model")):
+the counterpart of the mesh the reference's ``jax.distributed`` wires.
+Each rank stores its shards, trains on its ``data`` rows and rank 0
+writes the checkpoints (``launch/steps``, ``runtime/trainer``).  A rank
+runs on ``cuda:<LOCAL_RANK>`` when each has a card (NCCL) and on
+``cuda:0`` when they share one (gloo); ``--device cpu`` runs gloo on the
+host:
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch qwen2-0.5b --mesh 2x2 --device cpu
+
 The reference's ``--dry-run`` and ``--shape`` (lower and compile for a
 production mesh, ``launch/dryrun.py``) are refused: they wait for the
-multi-card plans (``ROADMAP.md``, queue 1, items 4-5).
+next slice (``ROADMAP.md``, queue 1, item 5).
 
 ``--arch vikin-*`` trains a stack dense, calibrates its two-stage
 sparsity masks and int8 scales post-training on the device it trained
@@ -55,6 +67,7 @@ from repro_torch.core.engine import run_model
 from repro_torch.core.quant import quant_stack_apply, quantize_stack_params
 from repro_torch.data.lm import LMDataConfig, SyntheticLM
 from repro_torch.data.stack_task import task_for_model
+from repro_torch.launch import mesh as M
 from repro_torch.launch.steps import StepOptions
 from repro_torch.runtime.trainer import (
     StackTrainer,
@@ -150,20 +163,40 @@ def train_lm(args: argparse.Namespace) -> Dict[str, Any]:
     data = SyntheticLM(LMDataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
         global_batch=args.batch, seed=args.seed))
+    mesh, device = None, args.device
+    if args.mesh is not None:
+        shape = M.parse_mesh(args.mesh)
+        device = M.rank_device(args.device)
+        mesh = M.init_from_env(shape, M.POD_AXES if len(shape) == 3
+                               else M.AXES, device=device)
+    ckpt_dir = args.ckpt_dir
+    if ckpt_dir is None:
+        if mesh is not None and mesh.size > 1:
+            raise SystemExit("--mesh over several ranks needs --ckpt-dir "
+                             "(one directory every rank reads)")
+        ckpt_dir = tempfile.mkdtemp(prefix="train_")
     tcfg = TrainerConfig(
-        max_steps=args.steps,
-        ckpt_dir=args.ckpt_dir or tempfile.mkdtemp(prefix="train_"),
+        max_steps=args.steps, ckpt_dir=ckpt_dir,
         ckpt_every=max(10, args.steps // 5), log_every=10, seed=args.seed)
-    trainer = Trainer(cfg, tcfg, args.device, data,
+    trainer = Trainer(cfg, tcfg, device, data,
                       StepOptions(lr=args.lr, total_steps=args.steps,
-                                  warmup=min(100, args.steps // 10)))
-    print(f"arch {cfg.name} ({cfg.dtype}, ffn {cfg.ffn_kind}, pattern "
-          f"{cfg.pattern_rate}) on {trainer.device}: {args.steps} steps of "
-          f"{args.batch} x {args.seq} tokens, checkpoints in "
-          f"{tcfg.ckpt_dir}", flush=True)
+                                  warmup=min(100, args.steps // 10)),
+                      mesh=mesh)
+    lead = mesh is None or mesh.rank == 0
+    if lead:
+        where = (f"a {mesh.shape} mesh over {mesh.axis_names} "
+                 f"({mesh.backend or 'one process'}), rank 0 on "
+                 if mesh is not None else "")
+        print(f"arch {cfg.name} ({cfg.dtype}, ffn {cfg.ffn_kind}, pattern "
+              f"{cfg.pattern_rate}) on {where}{trainer.device}: "
+              f"{args.steps} steps of {args.batch} x {args.seq} tokens, "
+              f"checkpoints in {tcfg.ckpt_dir}", flush=True)
     out = trainer.run_with_restarts()
-    print(f"final step {out['final_step']}, "
-          f"loss {out['metrics'][-1]['loss']:.4f}")
+    if lead:
+        print(f"final step {out['final_step']}, "
+              f"loss {out['metrics'][-1]['loss']:.4f}")
+    if mesh is not None:
+        M.destroy_process_mesh(mesh)
     return out
 
 
@@ -172,7 +205,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", default=None,
                     help="the reference's dry-run shape; refused (the "
-                         "multi-card plans are not ported)")
+                         "dry run is the next slice)")
     ap.add_argument("--scale", default="smoke", choices=["smoke", "full"],
                     help="transformer archs: smoke is the arch's reduce()d "
                          "width, full the registry's; the vikin path does "
@@ -202,6 +235,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                     help="target serving precision; int8 scales are "
                          "always calibrated and saved, int8 here also "
                          "prints the quantized validation MSE")
+    ap.add_argument("--mesh", default=None,
+                    help="transformer archs under torchrun: DxM (data x "
+                         "model) or PxDxM ranks, e.g. 2x2")
     ap.add_argument("--dry-run", action="store_true",
                     help="the reference's lower-and-compile for a "
                          "production mesh; refused")
@@ -216,8 +252,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         flag = "--dry-run" if args.dry_run else "--shape"
         raise SystemExit(
             f"{flag}: lowering and compiling a step for a production mesh "
-            f"(the reference's launch/dryrun.py) waits for the multi-card "
-            f"plans, ROADMAP.md queue 1, items 4-5")
+            f"(the reference's launch/dryrun.py) waits for the next slice, "
+            f"ROADMAP.md queue 1, item 5")
     return train_lm(args)
 
 

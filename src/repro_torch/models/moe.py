@@ -31,10 +31,26 @@ product of two bf16 values is exact in f32, so only the summation order
 can differ from the reference's.  On the card every f32 product refuses
 TF32.
 
-The reference's expert-parallel ``shard_map`` branch (experts sharded
-over a mesh's ``model`` axis) and ``_ambient_mesh_axes`` have no
-counterpart: a mesh means nothing on one device.  Experts over several
-cards are ``ROADMAP.md`` queue 1's expert-parallel item.
+Expert parallelism (the reference's ``shard_map`` branch of
+``moe_apply``): under an active ``launch/mesh.ProcessMesh``
+(``launch/mesh.set_mesh``) whose ``model`` axis has more than one rank,
+with SwiGLU experts, each ``model`` rank holds ``E / m`` experts (``e0 =
+model rank * E_loc``) and runs ``_moe_local(..., e0, E_loc)`` over the
+tokens of its ``data`` shard: capacity from that local T with the global
+E, the picks of other ranks' experts masked out (``in_range``).  Its
+combine sums the picks of its experts in f32 and ``launch/collectives.
+combine`` sums that over ``model`` in rank order, cast to x's dtype
+once (the reference psums its x-dtype partials; summing in f32 keeps the
+1-device answer's single rounding).  ``collectives.enter`` on the tokens
+and on the normalised gates sums their cotangents over ``model`` in the
+backward: each rank's share covers only its experts, and the router's
+gradient and x's come out whole.  ``moe_apply`` takes the layer's whole
+experts (and slices them) or the rank's ``E_loc`` already (the train and
+serve steps store only those); the steps gather the experts' FSDP
+shards over ``data`` before the call.  The aux loss is this ``data``
+shard's; the train step averages it over the ``data`` ranks, as the
+reference's body does.  KAN experts stay on the local path, gathered, as
+in the reference.
 """
 from __future__ import annotations
 
@@ -49,6 +65,8 @@ from repro_torch.core.kan import KANConfig, kan_init
 from repro_torch.core.splines import SplineSpec
 from repro_torch.kernels.grad import ieee_matmul
 from repro_torch.kernels.kan_fused.ops import kan_fused_v2, slot_table
+from repro_torch.launch import collectives as COLL
+from repro_torch.launch.mesh import ProcessMesh, current_mesh
 from repro_torch.models.ffn import FFNConfig, ffn_apply, ffn_init
 from repro_torch.models.layers import dense, dense_init, randn
 
@@ -193,18 +211,29 @@ def _route(probs: torch.Tensor, K: int
 
 
 def _dispatch(xt: torch.Tensor, top_e: torch.Tensor, top_p: torch.Tensor,
-              E: int, C: int) -> Tuple[torch.Tensor, torch.Tensor,
-                                       torch.Tensor, torch.Tensor]:
+              E: int, C: int, e0: int = 0, local: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor]:
     """(buf (E, C, d), flat_e, flat_pos, gate): each kept pick at its
     position in its expert's slots, dropped picks at the trash slot C
-    (cut off) with gate 0."""
+    (cut off) with gate 0.  ``local`` dispatches the experts ``e0 .. e0
+    + E - 1`` of all the picks only: other picks are masked out (the
+    reference's ``in_range``)."""
     T, d = xt.shape
     K = top_e.shape[1]
+    if local:
+        le = top_e - e0                                         # local ids
+        in_range = (le >= 0) & (le < E)
+        top_e = torch.clamp(le, 0, E - 1)
     onehot = F.one_hot(top_e, E).to(torch.int32)                # (T, K, E)
+    if local:
+        onehot = onehot * in_range[..., None].to(torch.int32)
     flat = onehot.reshape(T * K, E)
     rank = torch.cumsum(flat, dim=0, dtype=torch.int32) - flat  # exclusive
     pos = torch.sum(rank * flat, dim=-1).reshape(T, K)
     keep = pos < C
+    if local:
+        keep = in_range & keep
     gate = torch.where(keep, top_p, torch.zeros((), dtype=top_p.dtype,
                                                 device=top_p.device))
     flat_e = top_e.reshape(-1)
@@ -218,15 +247,17 @@ def _dispatch(xt: torch.Tensor, top_e: torch.Tensor, top_p: torch.Tensor,
 
 
 def _combine(hidden: torch.Tensor, flat_e: torch.Tensor,
-             flat_pos: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+             flat_pos: torch.Tensor, gate: torch.Tensor,
+             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """(T, d): each token's picks weighted by their gates, summed over k
-    in hidden's dtype."""
+    in hidden's dtype (in ``dtype`` when given)."""
     T, K = gate.shape
     E, _, d = hidden.shape
     padded = torch.cat([hidden, torch.zeros((E, 1, d), dtype=hidden.dtype,
                                             device=hidden.device)], dim=1)
     picked = padded[flat_e, flat_pos].reshape(T, K, d)
-    return torch.sum(picked * gate[..., None].to(picked.dtype), dim=1)
+    return torch.sum(picked * gate[..., None].to(picked.dtype), dim=1,
+                     dtype=dtype)
 
 
 def _aux_loss(probs: torch.Tensor, top_e: torch.Tensor,
@@ -239,21 +270,35 @@ def _aux_loss(probs: torch.Tensor, top_e: torch.Tensor,
 
 def _moe_local(xt: torch.Tensor, router_k: torch.Tensor,
                gate_w: torch.Tensor, up_w: torch.Tensor,
-               down_w: torch.Tensor, cfg: MoEConfig
+               down_w: torch.Tensor, cfg: MoEConfig, e0: int = 0,
+               E_loc: Optional[int] = None,
+               mesh: Optional[ProcessMesh] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """SwiGLU experts: routing + expert FFN + combine over all E."""
+    """SwiGLU experts: routing + expert FFN + combine over the ``E_loc``
+    local experts from ``e0`` (all E by default: the 1-device path).
+    With ``mesh`` (expert parallelism over its ``model`` axis) the
+    combine is summed over ``model``; see the module docstring."""
     T, d = xt.shape
     E, K = cfg.n_experts, cfg.top_k
+    E_loc = E if E_loc is None else E_loc
     logits = ieee_matmul(xt.to(torch.float32),
                          router_k.to(torch.float32))            # (T, E)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = _route(probs, K)
-    # capacity per expert, padded to keep shapes friendly
+    # capacity per local expert, from the local T and the global E,
+    # padded to keep shapes friendly
     C = -(-int(cfg.capacity_factor * T * K) // E)   # ceil
     C = max(8, -(-C // 8) * 8)
-    buf, flat_e, flat_pos, gate = _dispatch(xt, top_e, top_p, E, C)
+    if mesh is not None:
+        xt, top_p = COLL.enter(xt, mesh), COLL.enter(top_p, mesh)
+    buf, flat_e, flat_pos, gate = _dispatch(
+        xt, top_e, top_p, E_loc, C, e0, mesh is not None or E_loc != E)
     hidden = _swiglu_experts(buf, gate_w, up_w, down_w)
-    out = _combine(hidden, flat_e, flat_pos, gate)
+    if mesh is None:
+        out = _combine(hidden, flat_e, flat_pos, gate)
+    else:
+        part = _combine(hidden, flat_e, flat_pos, gate, torch.float32)
+        out = COLL.combine(part, mesh).to(hidden.dtype)
     return out, _aux_loss(probs, top_e, E)
 
 
@@ -276,17 +321,44 @@ def _moe_local_kan(params: Dict, xt: torch.Tensor, cfg: MoEConfig,
     return out, _aux_loss(probs, top_e, E)
 
 
+def _expert_parallel(mesh: Optional[ProcessMesh], cfg: MoEConfig) -> bool:
+    return (mesh is not None and mesh.axis_size("model") > 1
+            and cfg.ffn_kind == "swiglu")
+
+
+def local_experts(cfg: MoEConfig, mesh: ProcessMesh) -> Tuple[int, int]:
+    """(e0, E_loc): the experts this ``model`` rank holds."""
+    m = mesh.axis_size("model")
+    E_loc = cfg.n_experts // m
+    if E_loc * m != cfg.n_experts:
+        raise ValueError(f"{cfg.n_experts} experts do not split over "
+                         f"{m} model ranks")
+    return mesh.index_over("model") * E_loc, E_loc
+
+
 def moe_apply(params: Dict, x: torch.Tensor, cfg: MoEConfig,
               experts: Optional[KanExperts] = None) -> Dict:
     """x: (B, S, d) -> {"out": (B, S, d), "aux_loss": f32 scalar}.
 
     ``experts`` (KAN experts only) is the layer's ``KanExperts``, or any
     callable on (E, C, d); without it the fused weights are built per
-    call."""
+    call.  Under an active mesh with ``model`` > 1 and SwiGLU experts,
+    the expert-parallel path (module docstring)."""
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
     e = params["experts"]
-    if cfg.ffn_kind == "swiglu":
+    mesh = current_mesh()
+    if _expert_parallel(mesh, cfg):
+        e0, E_loc = local_experts(cfg, mesh)
+        gw, uw, dw = e["gate"], e["up"], e["down"]
+        if gw.shape[0] == cfg.n_experts:         # the whole layer given
+            gw, uw, dw = (w[e0:e0 + E_loc] for w in (gw, uw, dw))
+        elif gw.shape[0] != E_loc:
+            raise ValueError(f"experts of {gw.shape[0]} on a model rank: "
+                             f"expected {cfg.n_experts} or {E_loc}")
+        out, aux = _moe_local(xt, params["router"]["kernel"], gw, uw, dw,
+                              cfg, e0, E_loc, mesh)
+    elif cfg.ffn_kind == "swiglu":
         out, aux = _moe_local(xt, params["router"]["kernel"], e["gate"],
                               e["up"], e["down"], cfg)
     else:

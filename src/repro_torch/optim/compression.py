@@ -8,10 +8,14 @@ residual kept per leaf.  The same f32 ops in the same order as the
 reference's; ``torch.round`` and ``jnp.round`` both round half to even,
 so the codes, scales and residuals are its bits on the CPU.
 
-On one card there is nothing to all-reduce: ``axis_name`` (the
-reference's collective over a mesh axis, inside ``shard_map``/``pmap``)
-raises until the multi-process (``torch.distributed`` process group)
-design exists (``ROADMAP.md``, queue 1, item 4).
+``axis_name`` is the reference's collective over a mesh axis (inside
+its ``shard_map``): on a ``launch/mesh.ProcessMesh`` (``mesh``, or the
+active one) each rank quantizes its own gradient and residual, then,
+in the reference's order, the int32 sum of the codes over the axis
+(``collectives.psum_int32``, exact in any order), the rank count n (the
+reference's ``psum`` of ones: the axis size), ``scale = pmax(scale)``,
+``deq = acc.f32 * scale / n.f32`` and ``new_r = g32 - deq``.  Every rank
+gets the same dequantized gradient.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.launch import collectives as COLL
+from repro_torch.launch.mesh import ProcessMesh, current_mesh
 from repro_torch.utils import leaf_paths, tree_map, tree_map_with_path
 
 Tree = Any
@@ -44,20 +50,35 @@ def decompress_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def compressed_allreduce(grads: Tree, residual: CompressionState,
-                         axis_name: Optional[str] = None
+                         axis_name: Optional[str | Tuple[str, ...]] = None,
+                         mesh: Optional[ProcessMesh] = None
                          ) -> Tuple[Tree, CompressionState]:
-    """Error-feedback int8 round trip of a gradient tree: returns (the
-    dequantized gradients in each leaf's dtype, the new f32 residuals)."""
+    """Error-feedback int8 all-reduce of a gradient tree: returns (the
+    dequantized gradients in each leaf's dtype, the new f32 residuals).
+    Without ``axis_name`` a quantize/dequantize round trip; with it the
+    int32 all-reduce over that axis of ``mesh`` (default: the active
+    mesh), the mean of the ranks' gradients."""
     if axis_name is not None:
-        raise NotImplementedError(
-            f"compressed_allreduce(axis_name={axis_name!r}): the int32 "
-            f"all-reduce across cards waits for the multi-process design "
-            f"(ROADMAP.md, queue 1, item 4); one card has nothing to reduce")
+        mesh = mesh if mesh is not None else current_mesh()
+        if mesh is None:
+            raise ValueError(
+                f"compressed_allreduce(axis_name={axis_name!r}) needs a "
+                f"process mesh: pass mesh= or run under launch.mesh."
+                f"set_mesh")
+        n = torch.tensor(mesh.axis_size(axis_name), dtype=torch.int32)
     out = {}
 
     def one(path: str, g: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         g32 = g.to(torch.float32) + r
-        deq = decompress_int8(*compress_int8(g32))
+        q, scale = compress_int8(g32)
+        if axis_name is not None:
+            acc = COLL.psum_int32(q.to(torch.int32), mesh, axis_name)
+            # scales differ per rank; the max scale is conservative
+            scale = COLL.pmax(scale, mesh, axis_name)
+            deq = (acc.to(torch.float32) * scale
+                   / n.to(device=g.device, dtype=torch.float32))
+        else:
+            deq = decompress_int8(q, scale)
         out[path] = g32 - deq
         return deq.to(g.dtype)
 

@@ -2,9 +2,9 @@
 ``StackTrainer``.
 
 Counterpart of ``repro/runtime/trainer.py``.  ``Trainer`` is the LM
-training loop, with the reference's contract on one torch device (a
-``device`` takes the mesh's place; the multi-card plans are ``ROADMAP.md``
-queue 1, item 4):
+training loop, with the reference's contract on one torch device, or on
+a process mesh (``mesh=``, a ``launch/mesh.ProcessMesh``; ``device`` is
+then the rank's):
 
   * **Deterministic resume**: the data source is keyed by step and the
     step counter lives in the checkpointed state, so a restart replays
@@ -15,7 +15,15 @@ queue 1, item 4):
   * **Checkpoint/restart**: ``AsyncCheckpointer`` (the host copy on the
     calling thread, the files on another) every ``ckpt_every`` steps and
     at the end, atomic commits, ``keep`` newest; the keys are the
-    reference's, so either package restores what the other saved.
+    reference's, so either package restores what the other saved.  On a
+    mesh a checkpoint holds whole leaves (``launch/steps.gather_state``),
+    written by rank 0; restore cuts them for whatever mesh restores them
+    (the reference's elastic restore, a different mesh OK).  Each rank
+    trains on its ``data`` rows of the step's batch
+    (``launch/steps.local_batch``).  The error-feedback residual of
+    ``grad_compression`` is checkpointed on a mesh of one rank (it is
+    whole there, as without a mesh); on more ranks it is rank-local and
+    not written, so such a mesh refuses a ``ckpt_dir`` with it.
   * **Failure injection**: ``failure_at`` raises ``SimulatedFailure``
     once; ``run_with_restarts`` is the supervisor loop (restore the
     latest checkpoint, continue).
@@ -56,11 +64,17 @@ from repro_torch.checkpoint import (
     restore_checkpoint,
 )
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch import specs as SP
+from repro_torch.launch.mesh import ProcessMesh
 from repro_torch.launch.steps import (
     StepOptions,
+    gather_state,
     init_train_state,
+    local_batch,
     make_train_step,
+    train_state_shardings,
 )
+from repro_torch.launch.sharding import shard_tree
 from repro_torch.models.ffn import vikin_stack_apply, vikin_stack_init
 from repro_torch.optim.adamw import (
     AdamWConfig,
@@ -100,10 +114,18 @@ class Trainer:
                  device: torch.device | str, source: Any,
                  opts: StepOptions = StepOptions(),
                  on_straggler: Optional[Callable[[int, float], None]] = None,
-                 *, params: Optional[Any] = None) -> None:
+                 *, params: Optional[Any] = None,
+                 mesh: Optional[ProcessMesh] = None) -> None:
         self.cfg, self.tcfg, self.source = cfg, tcfg, source
         self.device = resolve_device(device)
         self.opts = opts
+        self.mesh = mesh
+        if (mesh is not None and mesh.size > 1 and opts.grad_compression
+                and tcfg.ckpt_dir):
+            raise NotImplementedError(
+                "a checkpoint of a mesh's rank-local error-feedback "
+                "residuals (grad_compression) is not written; train "
+                "without ckpt_dir or on one rank")
         self.on_straggler = on_straggler
         self.metrics_log: List[Dict[str, float]] = []
         self.straggler_events: List[int] = []
@@ -111,19 +133,69 @@ class Trainer:
         self._params0 = params
         self._ckpt = (AsyncCheckpointer(tcfg.ckpt_dir, keep=tcfg.keep)
                       if tcfg.ckpt_dir else None)
-        self._step_fn = make_train_step(cfg, opts)
+        self._step_fn = make_train_step(cfg, opts, mesh)
         self.state = self._init_or_restore()
 
     # ------------------------------------------------------------------
     def _init_or_restore(self) -> Dict[str, Any]:
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
-        state = init_train_state(self.cfg, self.opts, gen, self.device,
-                                 params=self._params0)
-        if self._ckpt is not None and latest_step(
-                self.tcfg.ckpt_dir) is not None:
-            state, step, _ = restore_checkpoint(self.tcfg.ckpt_dir, state)
-            print(f"[trainer] restored checkpoint at step {step}", flush=True)
+        if self.mesh is None:
+            state = init_train_state(self.cfg, self.opts, gen, self.device,
+                                     params=self._params0)
+            if self._ckpt is not None and latest_step(
+                    self.tcfg.ckpt_dir) is not None:
+                state, step, _ = restore_checkpoint(self.tcfg.ckpt_dir,
+                                                    state)
+                print(f"[trainer] restored checkpoint at step {step}",
+                      flush=True)
+            return state
+        if self._ckpt is None or latest_step(self.tcfg.ckpt_dir) is None:
+            return init_train_state(self.cfg, self.opts, gen, self.device,
+                                    params=self._params0, mesh=self.mesh)
+        return self._restore_on_mesh()
+
+    def _restore_on_mesh(self) -> Dict[str, Any]:
+        """Every rank reads the whole leaves and keeps its shards."""
+        whole = tree_map(lambda a: torch.empty(a.shape, dtype=a.dtype),
+                         SP.state_specs(self.cfg))
+        if self.opts.grad_compression:     # one rank: the residual is whole
+            whole["ef_residual"] = tree_map(
+                lambda a: torch.empty(a.shape, dtype=torch.float32),
+                whole["params"])
+        whole, step, _ = restore_checkpoint(self.tcfg.ckpt_dir, whole)
+        whole = tree_map(lambda a: a.to(self.device), whole)
+        specs = train_state_shardings(self.cfg, self.mesh)
+        state = {k: shard_tree(whole[k], specs[k], self.mesh)
+                 for k in ("params", "opt", "step")}
+        if self.opts.grad_compression:
+            state["ef_residual"] = whole["ef_residual"]
+        if self._lead:
+            print(f"[trainer] restored checkpoint at step {step}",
+                  flush=True)
         return state
+
+    @property
+    def _lead(self) -> bool:
+        """Whether this process logs: one process, or rank 0 of a mesh."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _save(self, step: int) -> None:
+        """Checkpoint the state (whole leaves, written by rank 0)."""
+        if self.mesh is None:
+            self._ckpt.save(step, self.state)
+            return
+        whole = gather_state(self.state, self.cfg, self.mesh, "cpu")
+        if "ef_residual" in self.state:    # one rank: the residual is whole
+            whole["ef_residual"] = tree_map(lambda a: a.to("cpu"),
+                                            self.state["ef_residual"])
+        if self.mesh.rank == 0:
+            self._ckpt.save(step, whole)
+
+    def _wait(self) -> None:
+        """The last save committed, on every rank."""
+        self._ckpt.wait()
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     @property
     def step(self) -> int:
@@ -134,9 +206,13 @@ class Trainer:
             torch.cuda.synchronize(self.device)
 
     def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
-        """The source's batch of ``step`` on the trainer's device."""
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in self.source.batch_at(step).items()}
+        """The source's batch of ``step`` on the trainer's device (on a
+        mesh, this rank's rows of it)."""
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v))
+                 for k, v in self.source.batch_at(step).items()}
+        if self.mesh is not None:
+            batch = local_batch(batch, self.mesh)
+        return {k: v.to(self.device) for k, v in batch.items()}
 
     # ------------------------------------------------------------------
     def _watchdog(self, step: int, dt: float) -> None:
@@ -170,15 +246,15 @@ class Trainer:
             m = {k: float(v) for k, v in metrics.items()}
             m["step"], m["step_time_s"] = step, dt
             self.metrics_log.append(m)
-            if step % self.tcfg.log_every == 0:
+            if step % self.tcfg.log_every == 0 and self._lead:
                 print(f"[trainer] step {step} loss {m['loss']:.4f} "
                       f"({dt * 1e3:.0f}ms)", flush=True)
             new_step = step + 1
             if self._ckpt is not None and new_step % self.tcfg.ckpt_every == 0:
-                self._ckpt.save(new_step, self.state)
+                self._save(new_step)
         if self._ckpt is not None:
-            self._ckpt.save(self.step, self.state)
-            self._ckpt.wait()
+            self._save(self.step)
+            self._wait()
         return {"final_step": self.step, "metrics": self.metrics_log,
                 "stragglers": self.straggler_events}
 
@@ -194,7 +270,7 @@ class Trainer:
                     raise
                 print(f"[trainer] {e}; restarting "
                       f"({attempts}/{max_restarts})", flush=True)
-                self._ckpt.wait()
+                self._wait()
                 self.state = self._init_or_restore()
 
 

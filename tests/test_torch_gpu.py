@@ -2022,3 +2022,109 @@ def test_array_refuses_more_cards_than_visible(cuda):
     with pytest.raises(ValueError, match="logical chips on one card"):
         ShardedVikinBackend(model, params, devices=n)
     assert require_devices(["cuda:0"] * n) == [torch.device("cuda:0")] * n
+
+
+# ---------------------------------------------------------------------------
+# The process mesh on the card: 2 ranks share cuda:0 over gloo
+# ---------------------------------------------------------------------------
+
+MESH_WORKER = r'''
+import os, sys, json
+import numpy as np, torch
+from repro_torch.configs.registry import get_config
+from repro_torch.kernels import _build
+from repro_torch.launch import mesh as M, steps as ST
+from repro_torch.models import transformer as T
+from repro_torch.models.moe import MoEConfig, moe_apply, local_experts
+import dataclasses
+
+mode, shape, out = sys.argv[1:4]
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda:0")
+mesh = M.init_from_env(M.parse_mesh(shape), device=dev)
+res = {"backend": mesh.backend}
+if mode == "ep":
+    rng = np.random.default_rng(0)
+    f = lambda *s: torch.as_tensor(
+        (rng.standard_normal(s) * 0.25).astype(np.float32), device=dev)
+    cfg = MoEConfig(d_model=64, d_ff=128, n_experts=8, top_k=2)
+    x, router = f(2, 16, 64), f(64, 8)
+    ex = {"gate": f(8, 64, 128), "up": f(8, 64, 128), "down": f(8, 128, 64)}
+    params = {"router": {"kernel": router}, "experts": ex}
+    one = moe_apply(params, x, cfg)["out"]
+    with M.set_mesh(mesh):
+        ep = moe_apply(params, x, cfg)["out"]
+    err = float((ep - one).abs().max())
+    res["err"], res["scale"] = err, float(one.abs().max())
+else:
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduce(),
+                              ffn_kind="kan", pattern_rate=0.5)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    opts = ST.StepOptions(lr=1e-3, total_steps=10, warmup=0)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(4, 17)).astype(np.int32), device=dev)
+    step = ST.make_train_step(cfg, opts, mesh)
+    state = ST.init_train_state(cfg, opts, params=params, mesh=mesh)
+    batch = ST.local_batch({"tokens": tokens}, mesh)
+    before = dict(_build.LAUNCHES)
+    s, m = step(state, batch)
+    res["launches"] = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                       if v != before[k]}
+    with ST.deterministic(dev):
+        g = step.gather_grads(step.grads(state, batch)[2])
+        g1 = ST.value_and_grad(cfg, opts, params, {"tokens": tokens})[2]
+    whole = ST.gather_state(s, cfg, mesh)["params"]
+    s1, m1 = ST.make_train_step(cfg, opts)(
+        ST.init_train_state(cfg, opts, params=params), {"tokens": tokens})
+    from repro_torch.utils import leaf_paths
+    res["loss"], res["loss1"] = float(m["loss"]), float(m1["loss"])
+    res["grad_err"] = [
+        (float((a - b).abs().max()), float(b.abs().max()))
+        for (_, a), (_, b) in zip(leaf_paths(g), leaf_paths(g1))]
+    res["param_err"] = max(
+        float((a.float() - b.float()).abs().max())
+        for (_, a), (_, b) in zip(leaf_paths(whole),
+                                  leaf_paths(s1["params"])))
+    res["moved"] = max(
+        float((a.float() - b.float()).abs().max())
+        for (_, a), (_, b) in zip(leaf_paths(whole), leaf_paths(params)))
+if mesh.rank == 0:
+    json.dump(res, open(out, "w"))
+M.destroy_process_mesh(mesh)
+'''
+
+
+def _mesh_run(tmp_path, mode, shape):
+    from repro_torch.launch.mesh import spawn_ranks
+    out = tmp_path / f"{mode}.json"
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    spawn_ranks(["-c", MESH_WORKER, mode, shape, str(out)], 2,
+                str(tmp_path / f"rv_{mode}"), timeout_s=300,
+                env={"PYTHONPATH": src, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    return json.loads(out.read_text())
+
+
+def test_mesh_expert_parallel_layer_on_the_card(cuda, tmp_path):
+    """A SwiGLU MoE layer over 2 expert ranks on cuda:0 (gloo) against
+    the 1-device layer."""
+    res = _mesh_run(tmp_path, "ep", "1x2")
+    assert res["backend"] == "gloo"
+    assert res["err"] <= TOL * (1 + res["scale"])
+
+
+def test_mesh_data_parallel_step_on_the_card(cuda, tmp_path):
+    """One step of the reduced qwen2-0.5b with the KAN drop-in over 2
+    data ranks on cuda:0 (gloo) against one process, at lr 1e-3 with no
+    warmup: the loss within 1e-5, the mean gradient within 1e-5 * (1 +
+    max|g|) leaf by leaf, the params within a tenth of the lr (and moved
+    past half of it), and each rank's step through the fused-KAN and
+    spline-basis kernels."""
+    res = _mesh_run(tmp_path, "dp", "2x1")
+    assert res["backend"] == "gloo"
+    assert abs(res["loss"] - res["loss1"]) <= 1e-5 * (1 + abs(res["loss1"]))
+    for err, scale in res["grad_err"]:
+        assert err <= TOL * (1 + scale), (err, scale)
+    assert res["moved"] > 0.5e-3
+    assert res["param_err"] < 1e-4
+    assert res["launches"].get("kan_fused_v2", 0) > 0
+    assert res["launches"].get("spline_basis", 0) > 0

@@ -57,6 +57,8 @@ from repro_torch.data.lm import LMDataConfig, SyntheticLM  # noqa: E402
 from repro_torch.examples import train_lm as t_example  # noqa: E402
 from repro_torch.kernels.kan_fused.ops import kan_linear  # noqa: E402
 from repro_torch.launch import specs as TSP  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh as make_torch_host_mesh  # noqa
+from repro_torch.launch.mesh import set_mesh  # noqa: E402
 from repro_torch.launch import steps as TS  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.optim import compression as TC  # noqa: E402
@@ -221,8 +223,17 @@ def test_compression_bitwise():
             assert sorted(gf) == sorted(rf)
             for k in rf:
                 assert _bits(gf[k]) == _bits(np.asarray(rf[k])), (name, k)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # over a mesh axis it needs a process mesh (4 ranks against the
+    # reference's shard_map: tests/test_torch_compression.py); on the
+    # 1x1 host mesh the all-reduce is the round trip, bitwise
+    with pytest.raises(ValueError, match="process mesh"):
         TC.compressed_allreduce(tg, tr, axis_name="data")
+    with set_mesh(make_torch_host_mesh()):
+        md, mr = TC.compressed_allreduce(tg, tr, axis_name="data")
+    td, t2 = TC.compressed_allreduce(tg, tr)
+    for got, ref in ((md, td), (mr, t2)):
+        for (k, a), (_, b) in zip(leaf_paths(got), leaf_paths(ref)):
+            assert _bits(a) == _bits(b), k
 
 
 # ------------------------------------------------------ the KAN gradient
