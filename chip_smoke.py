@@ -254,7 +254,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    restarted from its checkpoint bitwise equal to a clean run; (d) the
    f32 twin, 2 steps, loss and every gradient leaf against the plain
    versions on the same params; (e) the train launcher at full scale, 4
-   steps, as a subprocess;
+   steps, as a subprocess; (f) xlstm-125m, 2 deterministic train steps
+   of 8 x 128 tokens, twice from seed 0: finite losses, the two runs
+   bitwise (the chunkwise mLSTM's scan is ``xlstm.inclusive_scan``);
 14. the VIKIN array plans (``array_phase``, ``runtime/sharded``) at the
    paper's Table I widths from seed 0, each array's chips logical chips
    of the one card (``ARRAY_CHIPS`` = 4, ``["cuda:0"] * 4``): (a) the
@@ -281,12 +283,23 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    ``launch/steps``): four ranks of this script (``--mesh-worker``)
    share the card over gloo, the kernels built once before they start:
    (a) qwen2-0.5b with the KAN drop-in at full width and depth (bf16, f32
-   t) on a 2x2 (data, model) mesh with ZeRO-1, 8 x 128 tokens a step, 3
+   t) on a 2x2 (data, model) mesh with ZeRO-1, tensor-parallel over
+   ``model`` (7 of 14 heads, 304 of 608 KAN lanes, half the vocab a
+   rank), 8 x 128 tokens a step, 3
    steps from seed 0: each step's loss within the reference's sharded ==
    dense bound (1e-3 * (1 + |loss|)) of one process's, two runs bitwise,
    48 ``kan_fused_v2_mixed`` and 48 ``spline_basis_bf16`` launches a step
-   a rank and nothing else; per rank host and device ms a step, the bytes
-   it sends, peak memory; (b) the same mesh with ``grad_compression``:
+   a rank and nothing else; per rank host, device, kernel and copy ms a
+   step, the bytes and collectives it sends, peak memory; one more step
+   with every mixed launch (512 x 896 -> 304, and 304 -> 896 with f32
+   partials) within one bf16 ulp of its plain version on its input; at
+   those shapes on each rank the mixed kernel and the bf16 spline basis
+   (n = 512 x 896, 512 x 304, bitwise) against their plain versions,
+   their times (device ms from a CUDA graph) and bounds, one rank at a
+   time; (e) the same steps with ``activation_mode="sp"`` (the
+   sequence split over ``model`` between sub-layers): each loss within
+   the same bound of one process's and of (a)'s, the same launches, the
+   same figures per rank; (b) the same mesh with ``grad_compression``:
    each rank's dequantized gradients bitwise the host's reduction of the
    same int8 codes; (c) qwen3-moe-235b-a22b (2 of 94 layers, full width,
    bf16) on a 1x4 mesh, 32 experts a rank: a prefill of 8 x 16 tokens
@@ -440,6 +453,7 @@ LM_LAYER_GRAD_ULPS = 1
 LM_FIRST_LOSS_TOL = 0.5
 LM_RESTART_DEPTH = 4
 LM_F32_STEPS = 2
+LM_XLSTM, LM_XLSTM_STEPS = "xlstm-125m", 2   # phase 13 (f)
 LM_LOSS_RTOL = 1e-5
 LM_GRAD_TOL = 1e-4
 DECODE_TOL = 2e-3             # the reference's decode-vs-forward tolerance
@@ -605,6 +619,94 @@ def host_ms(fn, iters: int = 50, reps: int = 7) -> float:
             fn()
         times.append((time.perf_counter() - t0) * 1e3 / iters)
     return statistics.median(times)
+
+
+def kan_layer_rows(x: torch.Tensor, wt: torch.Tensor, spec, kb: tuple,
+                   prec: str, card: str, layer: str, launches: int,
+                   basis_launches: int = 0, out_dtype=None) -> list:
+    """Rows of times and bounds of one KAN layer's kernels on the card at
+    the layer's operands: the fused-KAN forward (``kan_fused_v2``; the
+    mixed kernel for a bf16 x against f32 rows; ``out_dtype`` out, x's
+    dtype by default) and, with ``basis_launches``, the spline basis of
+    its clipped input (order K, x's dtype); each with its plain
+    version's time and its bound.  Also printed, a JSON line each."""
+    from repro_torch.benchmarks.kernel_ab import graph_ms, time_ms
+    from repro_torch.core.splines import locate_cell, spu_op_count
+    from repro_torch.kernels.kan_fused import ops as KO
+    from repro_torch.kernels.kan_fused.ref import kan_fused_v2_ref
+    from repro_torch.kernels.spline_basis.ops import spline_basis
+    from repro_torch.kernels.spline_basis.ref import spline_basis_plain
+
+    M, n_in = x.shape
+    n_out = wt.shape[-1]
+    dt, dev = x.dtype, x.device
+    kname = (MIXED if prec == "mixed" else "kan_fused_v2" + SUFFIX[dt])
+    cell = locate_cell(spec.clip(x), spec)[0].long()
+    kept = torch.tensor(
+        [len(set(range(c, c + spec.n_active)) & set(kb))
+         for c in range(spec.grid_size)], device=dev)
+    hits = int(kept[cell].sum())
+    esz = 2.0 if dt == BF else 4.0
+    # bf16 products on tensor cores, the f32 kernel's FMAs on CUDA
+    # cores, the mixed kernel's at the cheaper of the two ways
+    # (mixed_macs)
+    macs = 2.0 * n_out * (M * n_in + hits)
+    slot_of = KO.slot_table(kb, spec.n_bases, dev)
+    out_esz = esz if out_dtype in (None, dt) else 4.0
+    n_bytes = (esz * x.numel() + out_esz * M * n_out
+               + wt.element_size() * wt.numel() + 4.0 * slot_of.numel())
+    work = [mixed_macs(macs) if prec == "mixed" else
+            (macs, BF16_FLOPS_PER_S if prec == "bf16" else F32_FLOPS_PER_S),
+            (M * n_in * (spu_op_count(spec) + 4), F32_FLOPS_PER_S)]
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(n / rt for n, rt in work) * 1e3
+    xc = spec.clip(x)
+
+    def kern():
+        return KO.kan_fused_v2(x, wt, spec, kb, slot_of, out_dtype=out_dtype)
+
+    def kplain():
+        return kan_fused_v2_ref(x, wt, spec, kb, out_dtype)
+
+    def basis():
+        return spline_basis(xc, spec)
+
+    def bplain():
+        return spline_basis_plain(xc.reshape(-1), spec).reshape(
+            *xc.shape, spec.n_bases)
+
+    rows = []
+    with torch.no_grad():
+        rows.append({
+            "kernel": kname, "layer": layer, "shape": [M, n_in, n_out],
+            "nbk": len(kb), "precision": prec,
+            "out_dtype": str(out_dtype or dt).replace("torch.", ""),
+            "ms": time_ms(kern, iters=10, reps=5),
+            "device_ms": graph_ms(kern, iters=5, reps=5),
+            "plain_ms": time_ms(kplain, iters=3, reps=3),
+            "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "kept_basis_hits": hits, "launches_a_step": launches,
+            "card": card})
+        print(json.dumps(rows[-1]))
+        if basis_launches:
+            n = xc.numel()
+            s_bytes = esz * (n + n * spec.n_bases)
+            s_ops = n * (spu_op_count(spec) + 4) / F32_FLOPS_PER_S
+            s_bytes_ms = s_bytes / HBM_BYTES_PER_S * 1e3
+            rows.append({
+                "kernel": "spline_basis" + SUFFIX[dt], "layer": layer,
+                "shape": [n, spec.n_bases], "precision": prec,
+                "ms": time_ms(basis, iters=10, reps=5),
+                "device_ms": graph_ms(basis, iters=5, reps=5),
+                "plain_ms": time_ms(bplain, iters=3, reps=3),
+                "library_ms": None,
+                "bound_ms": max(s_bytes_ms, s_ops * 1e3),
+                "bound_by": ("bytes" if s_bytes_ms >= s_ops * 1e3
+                             else "operations"),
+                "launches_a_step": basis_launches, "card": card})
+            print(json.dumps(rows[-1]))
+    return rows
 
 
 def kanffn_phase(dev: torch.device, card: str) -> dict:
@@ -2241,20 +2343,19 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
     and ``LM_GRAD_TOL`` of ``1 + max|plain|``;
     (e) ``python -m repro_torch.launch.train --arch qwen2-0.5b --scale
     full --ffn kan --pattern 0.5 --steps 4 --seq 128 --batch 8``, as a
-    subprocess, prints ``final step 4``.
+    subprocess, prints ``final step 4``;
+    (f) ``LM_XLSTM_STEPS`` deterministic train steps of xlstm-125m at
+    full size, twice from seed 0: finite losses, the two runs bitwise.
     Returns what it measured; raises on any fault."""
     import math
     import shutil
     from unittest import mock
 
-    from repro_torch.benchmarks.kernel_ab import graph_ms, time_ms
     from repro_torch.configs.registry import ARCHS as ZOO
-    from repro_torch.core.splines import locate_cell, spu_op_count
     from repro_torch.data.lm import LMDataConfig, SyntheticLM
     from repro_torch.kernels import _build
     from repro_torch.kernels.kan_fused import ops as KO
     from repro_torch.kernels.kan_fused.ref import kan_fused_v2_ref
-    from repro_torch.kernels.spline_basis.ops import spline_basis
     from repro_torch.kernels.spline_basis.ref import spline_basis_plain
     from repro_torch.launch import steps as ST
     from repro_torch.models import ffn as FF
@@ -2351,78 +2452,15 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
             for k, v in launched().items():
                 launches_lm[k] = launches_lm.get(k, 0) + v
             # times and bounds: the fused-KAN forward at these rows, and
-            # the spline basis on the layer's clipped inputs (order K)
-            cell = locate_cell(spec.clip(x), spec)[0].long()
-            kept = torch.tensor(
-                [len(set(range(c, c + spec.n_active)) & set(LM_KB))
-                 for c in range(spec.grid_size)], device=dev)
-            hits = int(kept[cell].sum())
-            esz = 2.0 if dt == BF else 4.0
-            # bf16 products on tensor cores, the f32 kernel's FMAs on CUDA
-            # cores, the mixed kernel's at the cheaper of the two ways
-            # (mixed_macs)
-            macs = 2.0 * n_out * (M * n_in + hits)
-            slot_of = KO.slot_table(LM_KB, spec.n_bases, dev)
-            n_bytes = (esz * (x.numel() + M * n_out)
-                       + wt.element_size() * wt.numel()
-                       + 4.0 * slot_of.numel())
-            work = [mixed_macs(macs) if prec == "mixed" else
-                    (macs, BF16_FLOPS_PER_S if prec == "bf16"
-                     else F32_FLOPS_PER_S),
-                    (M * n_in * (spu_op_count(spec) + 4), F32_FLOPS_PER_S)]
-            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-            t_ops = sum(n / rt for n, rt in work) * 1e3
-            xc = spec.clip(x)
-
-            def kern(x=x, wt=wt, slot_of=slot_of):
-                return KO.kan_fused_v2(x, wt, spec, LM_KB, slot_of)
-
-            def kplain(x=x, wt=wt):
-                return kan_fused_v2_ref(x, wt, spec, LM_KB)
-
-            def basis(xc=xc):
-                return spline_basis(xc, spec)
-
-            def bplain(xc=xc):
-                return plain_basis(xc, spec)
-
-            with torch.no_grad():
-                # a step (b) launches the mixed kernel, the f32 twin (d)
-                # the f32 one; no train path launches the bf16 kernel here
-                kernel_rows.append({
-                    "kernel": kname, "layer": what,
-                    "shape": [M, n_in, n_out], "nbk": nbk,
-                    "precision": prec,
-                    "ms": time_ms(kern, iters=10, reps=5),
-                    "device_ms": graph_ms(kern, iters=5, reps=5),
-                    "plain_ms": time_ms(kplain, iters=3, reps=3),
-                    "library_ms": None, "bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                    "kept_basis_hits": hits,
-                    "launches_a_step": 0 if prec == "bf16" else cfg.n_layers,
-                    "card": card})
-                print(json.dumps(kernel_rows[-1]))
-                if prec == "mixed":      # the bf16 row timed these bases
-                    del x, wt, g, xk, wk, y, ref, dx_p, dwt_p
-                    free()
-                    continue
-                n = xc.numel()
-                s_bytes = esz * (n + n * spec.n_bases)
-                s_ops = n * (spu_op_count(spec) + 4) / F32_FLOPS_PER_S
-                s_bytes_ms = s_bytes / HBM_BYTES_PER_S * 1e3
-                kernel_rows.append({
-                    "kernel": "spline_basis" + sfx, "layer": what,
-                    "shape": [n, spec.n_bases], "precision": prec,
-                    "ms": time_ms(basis, iters=10, reps=5),
-                    "device_ms": graph_ms(basis, iters=5, reps=5),
-                    "plain_ms": time_ms(bplain, iters=3, reps=3),
-                    "library_ms": None,
-                    "bound_ms": max(s_bytes_ms, s_ops * 1e3),
-                    "bound_by": ("bytes" if s_bytes_ms >= s_ops * 1e3
-                                 else "operations"),
-                    "launches_a_step": cfg.n_layers * (1 if dt == BF else 2),
-                    "card": card})
-                print(json.dumps(kernel_rows[-1]))
+            # the spline basis on the layer's clipped inputs (order K);
+            # a step (b) launches the mixed kernel, the f32 twin (d) the
+            # f32 one; no train path launches the bf16 kernel here; the
+            # bf16 row times the bases the mixed one would
+            kernel_rows += kan_layer_rows(
+                x, wt, spec, LM_KB, prec, card, what,
+                0 if prec == "bf16" else cfg.n_layers,
+                0 if prec == "mixed" else cfg.n_layers * (
+                    1 if dt == BF else 2))
             del x, wt, g, xk, wk, y, ref, dx_p, dwt_p
             free()
     del p_f
@@ -2667,11 +2705,40 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
     print(f"phase 13: (e) python -m repro_torch.launch.train --arch "
           f"{LM_ARCH} --scale full --ffn kan --pattern 0.5 --steps 4: "
           f"{tail!r} ({time.perf_counter() - t0:.1f} s)")
+
+    # (f) xlstm-125m: deterministic train steps on the card, twice
+    t0 = time.perf_counter()
+    cfg_x = ZOO[LM_XLSTM]
+    data_x = SyntheticLM(LMDataConfig(vocab_size=cfg_x.vocab_size,
+                                      seq_len=LM_SEQ, global_batch=LM_BATCH))
+    step_x = ST.make_train_step(cfg_x, opts)
+    runs_x = []
+    for _ in range(2):
+        st = ST.init_train_state(cfg_x, opts, gen(64), dev)
+        losses_x = []
+        for s in range(LM_XLSTM_STEPS):
+            st, m = step_x(st, {k: torch.from_numpy(v).to(dev)
+                                for k, v in data_x.batch_at(s).items()})
+            losses_x.append(float(m["loss"]))
+        runs_x.append((losses_x, [a.cpu() for _, a in leaf_paths(st)]))
+        del st
+        free()
+    (l1, s1), (l2, s2) = runs_x
+    check(all(map(math.isfinite, l1)) and l1 == l2 and all(
+        torch.equal(a, b) for a, b in zip(s1, s2)),
+        f"(f) {LM_XLSTM}: losses {l1} and {l2}, or states, differ")
+    xlstm = {"arch": LM_XLSTM, "losses": l1, "bitwise": True,
+             "seconds": time.perf_counter() - t0, "card": card}
+    print(f"phase 13: (f) {LM_XLSTM} ({cfg_x.dtype}), {LM_XLSTM_STEPS} "
+          f"deterministic train steps of {LM_BATCH} x {LM_SEQ}, twice: "
+          f"losses {l1}, the two runs' states bitwise "
+          f"({xlstm['seconds']:.1f} s)")
+    del runs_x, s1, s2
     print(f"phase 13: LM training passed in "
           f"{time.perf_counter() - t_phase:.1f} s; launches {launches_lm}")
     return {"kernel_rows": kernel_rows, "layer_err": layer_err,
             "train": train, "restart": restart, "f32_twin": twin,
-            "launcher": tail, "launches": launches_lm,
+            "launcher": tail, "xlstm": xlstm, "launches": launches_lm,
             "launches_b": launches_b,
             "seconds": time.perf_counter() - t_phase}
 
@@ -3060,15 +3127,23 @@ def _profile_ms(fn) -> dict:
 
 def _mesh_worker(argv: list) -> int:
     """One rank of phase 15 (``python chip_smoke.py --mesh-worker OUT
-    CKPT``, started by ``mesh_phase`` through ``launch.mesh.spawn_ranks``):
-    (a), (b) on the 2x2 mesh, (d)'s 1x2 restore on ranks 0-1, then (c)
-    on the 1x4 mesh, each on a process group of its own; writes
+    CKPT CARD``, started by ``mesh_phase`` through
+    ``launch.mesh.spawn_ranks``): (a), its tensor-parallel kernels, (e)
+    and (b) on the 2x2 mesh, (d)'s 1x2 restore on ranks 0-1, then (c) on
+    the 1x4 mesh, each on a process group of its own; writes
     ``OUT/dp_rank<r>.json`` and ``OUT/ep_rank<r>.json``, with the seconds
     each part took (``laps``)."""
     entry_wall = time.time()
     sys.path.insert(0, str(SRC))
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from unittest import mock
+
+    from repro_torch.core.kan import KANConfig, kan_init
     from repro_torch.kernels import _build
+    from repro_torch.kernels.kan_fused import ops as KO
+    from repro_torch.kernels.kan_fused.ref import kan_fused_v2_ref
+    from repro_torch.kernels.spline_basis.ops import spline_basis
+    from repro_torch.kernels.spline_basis.ref import spline_basis_plain
     from repro_torch.launch import collectives as COLL
     from repro_torch.launch import mesh as M
     from repro_torch.launch import sharding as SH
@@ -3082,7 +3157,7 @@ def _mesh_worker(argv: list) -> int:
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
     from repro_torch.utils import leaf_paths, tree_map
 
-    out, ck = Path(argv[0]), argv[1]
+    out, ck, card = Path(argv[0]), argv[1], argv[2]
     dev = torch.device(MESH_DEV)
     laps: dict = {}
     last = [time.perf_counter()]
@@ -3201,6 +3276,72 @@ def _mesh_worker(argv: list) -> int:
     for k in ("device_ms", "memcpy_ms", "kernel_ms", "copy_share"):
         res[k] = res["b"][k]
     res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    # one more tensor-parallel step (not counted): each mixed launch held
+    # to its plain version on its input (kan_down's f32 partials too)
+    served_v2, held = KO.kan_fused_v2, {"n": 0, "worst": 0.0, "shapes": []}
+
+    def held_v2(x, wt, spec, kb, slot_of=None, **kw):
+        y = served_v2(x, wt, spec, kb, slot_of, **kw)
+        with torch.no_grad():
+            ref = kan_fused_v2_ref(x.detach(), wt.detach(), spec, kb,
+                                   kw.get("out_dtype"))
+        err, scale, nan = rel_err(y.detach(), ref)
+        check(not nan and err <= BF16_ULP * scale,
+              f"(phase 15 a) a {MIXED} launch {tuple(x.shape)} -> "
+              f"{tuple(y.shape)} {y.dtype}: {err:.3e} from its plain "
+              f"version, vs {BF16_ULP:g} * {scale:.4g}")
+        held["n"] += 1
+        held["worst"] = max(held["worst"], err / scale)
+        shape = [list(x.shape), list(wt.shape), str(y.dtype)]
+        if shape not in held["shapes"]:
+            held["shapes"].append(shape)
+        return y
+
+    with mock.patch.object(KO, "kan_fused_v2", held_v2):
+        step(state_a, batch(MESH_STEPS))
+    sync()
+    res["held"] = held
+    # the tensor-parallel shapes' kernels on this rank's rows: each held
+    # to its plain version (the spline basis bitwise), then timed, one
+    # rank at a time
+    fcfg = cfg.ffn_cfg(0)
+    m = mesh.axis_size("model")
+    rows_m = LM_BATCH // mesh.axis_size(SH.dp_axes(mesh)) * LM_SEQ
+    tp_rows, gen = [], torch.Generator(device=dev).manual_seed(70 + rank)
+    for what, kc, out_dt in (("up", fcfg.kan_cfgs()[0], None),
+                             ("down", fcfg.kan_cfgs()[1], F32)):
+        kc = dataclasses.replace(
+            kc, **({"n_out": kc.n_out // m} if what == "up"
+                   else {"n_in": kc.n_in // m}))
+        kp = kan_init(KANConfig(kc.n_in, kc.n_out, kc.spec), gen, BF)
+        wt = KO.fuse_wt(kp["w_b"], KO.flatten_t(kp["t"], kc.kb),
+                        len(kc.kb)).contiguous()
+        x = torch.randn((rows_m, kc.n_in), generator=gen,
+                        device=dev).to(BF)
+        with torch.no_grad():
+            err, scale, nan = rel_err(
+                KO.kan_fused_v2(x, wt, kc.spec, kc.kb, out_dtype=out_dt),
+                kan_fused_v2_ref(x, wt, kc.spec, kc.kb, out_dt))
+            check(not nan and err <= BF16_ULP * scale,
+                  f"(phase 15 a) {MIXED} {what} {tuple(x.shape)} -> "
+                  f"{kc.n_out}: {err:.3e} from its plain version")
+            xc = kc.spec.clip(x)
+            got = spline_basis(xc, kc.spec)
+            want = spline_basis_plain(xc.reshape(-1), kc.spec).reshape(
+                got.shape)
+            check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                  f"(phase 15 a) spline_basis_bf16 at n = {xc.numel()}: "
+                  f"not bitwise its plain version")
+        for r in range(mesh.size):
+            if r == rank:
+                tp_rows += kan_layer_rows(
+                    x, wt, kc.spec, kc.kb, "mixed", card,
+                    f"{what} (tensor-parallel, rank {rank})", cfg.n_layers,
+                    cfg.n_layers, out_dtype=out_dt)
+            mesh.barrier()
+        del x, wt, kp
+    res["tp_rows"] = tp_rows
+    lap("a_tp_kernels")
     # (d)'s checkpoint: whole leaves, written by rank 0
     whole = ST.gather_state(state_a, cfg, mesh, "cpu")
     if mesh.rank == 0:
@@ -3210,6 +3351,16 @@ def _mesh_worker(argv: list) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("a_checkpoint")
+    # (e) sequence parallelism: the same steps with activation_mode="sp",
+    # the last one profiled
+    o_sp = _mesh_opts(activation_mode="sp")
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, res["e"] = run(o_sp, ST.make_train_step(cfg, o_sp, mesh),
+                      profile=True)
+    res["e"]["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("e_sp")
     # (b) the int8 compressed all-reduce: the card's dequantized
     # gradients against the same codes reduced on the host
     oc = _mesh_opts(grad_compression=True)
@@ -3217,10 +3368,8 @@ def _mesh_worker(argv: list) -> int:
     st0 = ST.init_train_state(cfg, oc, params=params, mesh=mesh)
     # step 0 by hand: the gradients, their int8 all-reduce held to
     # the host's, then the update; step 1 through the step
-    full = stc.gathered(st0["params"])
     with ST.deterministic(dev):
-        _, ce0, g = ST.value_and_grad(cfg, oc, full, batch(0))
-    del full
+        _, ce0, g = stc.rank_value_and_grad(st0["params"], batch(0))
     with torch.no_grad():
         deq, new_r = compressed_allreduce(g, st0["ef_residual"],
                                           axis_name=stc.dp, mesh=mesh)
@@ -3321,7 +3470,8 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
     the ranks processes of this script that share the card over gloo
     (the kernels built once, in phase 1, before any rank starts).
 
-    (a) data parallelism with ZeRO-1 on a 2x2 mesh: qwen2-0.5b with the
+    (a) data parallelism with ZeRO-1 and tensor parallelism on a 2x2
+    mesh: qwen2-0.5b with the
     KAN drop-in at full width and depth (bf16, f32 t), ``LM_BATCH`` x
     ``LM_SEQ`` tokens a step globally, ``MESH_STEPS`` steps from seed 0,
     against the same steps in one process: each step's loss within
@@ -3329,7 +3479,13 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
     - 1 steps bitwise the first's; each rank
     launches ``kan_fused_v2_mixed`` and ``spline_basis_bf16`` 48 times a
     step and nothing else; per rank host ms a step, device ms (profiler),
-    the bytes it sends a step and peak GiB;
+    the bytes and collectives it sends a step and peak GiB; one more
+    step with each mixed launch held to its plain version on its input;
+    the mixed kernel and the bf16 spline basis at the rank's shapes
+    against their plain versions, timed one rank at a time;
+    (e) the same steps with ``activation_mode="sp"``: losses within
+    ``MESH_LOSS_TOL * (1 + |loss|)`` of one process's and of (a)'s, the
+    same launches and figures;
     (b) the same mesh for ``MESH_COMP_STEPS`` steps with
     ``grad_compression``: each rank's dequantized gradients bitwise those
     of the same codes reduced on the host, the first loss bitwise (a)'s;
@@ -3342,8 +3498,8 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
     (d) (a)'s checkpoint restored on 1x2 (ranks) and 1x1 (this process,
     ``Trainer(mesh=make_host_mesh())``): every leaf bitwise the saved one,
     and one more step on each.
-    One spawn of four ranks runs (a), (b), (d)'s 1x2 and (c), each on a
-    process group of its own; the one-process references run first.
+    One spawn of four ranks runs (a), (e), (b), (d)'s 1x2 and (c), each
+    on a process group of its own; the one-process references run first.
     Returns what it measured, with the seconds of each part; raises on
     any fault."""
     from repro_torch.checkpoint import restore_checkpoint
@@ -3412,7 +3568,7 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
     # one spawn: (a), (b), (d)'s 1x2 restore, then (c)
     t0, w0 = time.perf_counter(), time.time()
     n = math.prod(MESH_DP)
-    M.spawn_ranks(argv0 + [str(out), str(ck)], n, str(out / "rv"),
+    M.spawn_ranks(argv0 + [str(out), str(ck), card], n, str(out / "rv"),
                   timeout_s=MESH_SPAWN_S, env=env)
     times["spawn"] = t_spawn = time.perf_counter() - t0
     dp, ep = ([json.loads((out / f"{tag}_rank{r}.json").read_text())
@@ -3420,7 +3576,8 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
     times["ranks_start"] = max(r["entry_wall"] for r in dp) - w0
     times.update({f"rank0_{k}": v for r in (dp[0], ep[0])
                   for k, v in r["laps"].items()})
-    gaps = []
+    gaps, gaps_e = [], []
+    want = {MIXED: 2 * cfg.n_layers, "spline_basis_bf16": 2 * cfg.n_layers}
     for r in dp:
         check(r["backend"] == "gloo", f"(phase 15 a) rank {r['rank']} on "
               f"backend {r['backend']}")
@@ -3432,7 +3589,6 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
                   f"2x2 against {l1} in one process")
         check(r["a_bitwise_b"], f"(phase 15 a) rank {r['rank']}: two 2x2 "
               f"runs differ")
-        want = {MIXED: 2 * cfg.n_layers, "spline_basis_bf16": 2 * cfg.n_layers}
         for s, got in enumerate(r["a"]["launches"]):
             check(got == want, f"(phase 15 a) rank {r['rank']} step {s}: "
                   f"launches {got}, want {want}")
@@ -3443,26 +3599,56 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
         check(r["comp"]["loss"][0] == r["a"]["loss"][0]
               and all(math.isfinite(x) for x in r["comp"]["loss"]),
               f"(phase 15 b) rank {r['rank']}: losses {r['comp']['loss']}")
-    per_rank = [{
-        "rank": r["rank"], "coords": r["coords"],
-        "host_ms": statistics.median(r["a"]["host_ms"]),
-        "host_ms_steps": r["a"]["host_ms"],
-        "device_ms": r["device_ms"], "memcpy_ms": r["memcpy_ms"],
-        "kernel_ms": r["kernel_ms"], "copy_share": r["copy_share"],
-        "sent_bytes_a_step": r["a"]["sent"][-1]["bytes"],
-        "collectives_a_step": r["a"]["sent"][-1]["calls"],
-        "peak_gib": r["peak_gib"]} for r in dp]
-    for p in per_rank:
-        print(f"phase 15 (a) rank {p['rank']} {p['coords']}: host "
-              f"{p['host_ms']:.1f} ms a step (median of {MESH_STEPS}), "
-              f"device {p['device_ms']:.1f} ms (profiler: kernels "
-              f"{p['kernel_ms']:.1f}, host <-> device copies "
-              f"{p['memcpy_ms']:.1f}), sends "
-              f"{p['sent_bytes_a_step'] / 2 ** 20:.1f} MiB in "
-              f"{p['collectives_a_step']} collectives a step, peak "
-              f"{p['peak_gib']:.2f} GiB")
-    check(sum(p["peak_gib"] for p in per_rank) <= MESH_GIB,
-          f"(phase 15 a) the ranks' peaks sum past {MESH_GIB} GiB")
+        check(r["held"]["n"] == 2 * cfg.n_layers,
+              f"(phase 15 a) rank {r['rank']}: the held step ran "
+              f"{r['held']['n']} {MIXED} calls")
+        for s, (le, l1, la) in enumerate(zip(r["e"]["loss"], one,
+                                             r["a"]["loss"])):
+            for ref_l, what in ((l1, "one process"), (la, "(a)")):
+                gap = abs(le - ref_l)
+                gaps_e.append(gap)
+                check(math.isfinite(le)
+                      and gap <= MESH_LOSS_TOL * (1 + abs(ref_l)),
+                      f"(phase 15 e) rank {r['rank']} step {s}: loss {le} "
+                      f"under sp against {ref_l} of {what}")
+        for s, got in enumerate(r["e"]["launches"]):
+            check(got == want, f"(phase 15 e) rank {r['rank']} step {s}: "
+                  f"launches {got}, want {want}")
+
+    def rank_row(r: dict, run: dict) -> dict:
+        return {"rank": r["rank"], "coords": r["coords"],
+                "host_ms": statistics.median(run["host_ms"]),
+                "host_ms_steps": run["host_ms"],
+                "device_ms": run["device_ms"], "memcpy_ms": run["memcpy_ms"],
+                "kernel_ms": run["kernel_ms"], "copy_share": run["copy_share"],
+                "sent_bytes_a_step": run["sent"][-1]["bytes"],
+                "collectives_a_step": run["sent"][-1]["calls"],
+                "peak_gib": run["peak_gib"]}
+
+    per_rank = [rank_row(r, {**r["b"], "host_ms": r["a"]["host_ms"],
+                             "sent": r["a"]["sent"],
+                             "peak_gib": r["peak_gib"]}) for r in dp]
+    per_rank_e = [rank_row(r, r["e"]) for r in dp]
+    for tag, rows in (("a", per_rank), ("e", per_rank_e)):
+        for p in rows:
+            print(f"phase 15 ({tag}) rank {p['rank']} {p['coords']}: host "
+                  f"{p['host_ms']:.1f} ms a step (median of {MESH_STEPS}), "
+                  f"device {p['device_ms']:.1f} ms (profiler: kernels "
+                  f"{p['kernel_ms']:.1f}, host <-> device copies "
+                  f"{p['memcpy_ms']:.1f}), sends "
+                  f"{p['sent_bytes_a_step'] / 2 ** 20:.1f} MiB in "
+                  f"{p['collectives_a_step']} collectives a step, peak "
+                  f"{p['peak_gib']:.2f} GiB")
+        check(sum(p["peak_gib"] for p in rows) <= MESH_GIB,
+              f"(phase 15 {tag}) the ranks' peaks sum past {MESH_GIB} GiB")
+    tp_rows = [row for r in dp for row in r["tp_rows"]]
+    for row in tp_rows:             # the ranks' own prints stay in their files
+        print(json.dumps(row))
+    print(f"phase 15 (a) tensor-parallel shapes: each rank's "
+          f"{2 * cfg.n_layers} {MIXED} calls of a step within "
+          f"{max(r['held']['worst'] for r in dp) / BF16_ULP:.2f} bf16 ulps "
+          f"of their plain versions, at {dp[0]['held']['shapes']}; "
+          f"{len(tp_rows)} kernel rows timed")
     print(f"phase 15 (a) 2x2 vs one process, {MESH_STEPS} steps of "
           f"{LM_BATCH} x {LM_SEQ}: losses {dp[0]['a']['loss']} vs {one}, "
           f"largest gap {max(gaps):.3e} (bound {MESH_LOSS_TOL} * (1 + "
@@ -3470,7 +3656,9 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
           f"{2 * cfg.n_layers} spline_basis_bf16 launches a step a rank; "
           f"(b) int8 all-reduce bitwise the host's on "
           f"{dp[0]['comp_leaves']} leaves a rank, losses "
-          f"{dp[0]['comp']['loss']}")
+          f"{dp[0]['comp']['loss']}; (e) activation_mode=sp losses "
+          f"{dp[0]['e']['loss']}, largest gap to one process's or (a)'s "
+          f"{max(gaps_e):.3e}")
     # (d) elastic restore: 1x2 on ranks 0-1 of (a)'s spawn, then 1x1 here
     tag12 = "x".join(map(str, MESH_RESTORE_RANKS))
     restores = {tag12: {**dp[0]["restore"], "bad_leaves": sorted({
@@ -3539,7 +3727,12 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
     return {"launches": launches,
             "dp": {"losses_2x2": dp[0]["a"]["loss"], "losses_1x1": one,
                    "max_gap": max(gaps), "per_rank": per_rank,
-                   "comp_losses": dp[0]["comp"]["loss"]},
+                   "comp_losses": dp[0]["comp"]["loss"],
+                   "held_shapes": dp[0]["held"]["shapes"],
+                   "held_worst": max(r["held"]["worst"] for r in dp)},
+            "sp": {"losses": dp[0]["e"]["loss"], "max_gap": max(gaps_e),
+                   "per_rank": per_rank_e},
+            "tp_kernel_rows": tp_rows,
             "restore": restores, "times_s": times,
             "ep": {"err_rel": err / scale, "per_rank": [
                 {k: r[k] for k in ("rank", "peak_gib", "decode_host_ms",

@@ -154,15 +154,20 @@ class KANLayer(nn.Module):
             "slot_of", slot_table(self.kb, cfg.spec.n_bases, w_b.device),
             persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """x's dtype out, or ``out_dtype`` (f32: a bf16 layer's
+        tensor-parallel partial)."""
         lead = x.shape[:-1]
         xf = x.reshape(-1, self.cfg.n_in).contiguous()
         if self.cfg.version == 2:
             y = kan_fused_v2(xf, self.wt, self.cfg.spec, self.kb,
-                             self.slot_of, blocks=self.cfg.blocks)
+                             self.slot_of, blocks=self.cfg.blocks,
+                             out_dtype=out_dtype)
         else:
             y = kan_fused_v1(xf, self.w_b, self.t_flat, self.cfg.spec,
-                             self.kb, self.slot_of, blocks=self.cfg.blocks)
+                             self.kb, self.slot_of, blocks=self.cfg.blocks,
+                             out_dtype=out_dtype)
         return y.reshape(*lead, self.cfg.n_out)
 
 

@@ -433,9 +433,8 @@ def kan_fused_v2(x: torch.Tensor, wt: torch.Tensor, spec: SplineSpec,
     dtype, what = kernel_dtype(x)
     out_dtype = resolve_out_dtype("kan_fused_v2", x, out_dtype)
     if grad_wanted(x, wt):
-        if out_dtype != dtype:
-            refuse_grad("kan_fused_v2", "at a bf16 x with an f32 output")
-        return KanFusedV2.apply(x, wt, spec, tuple(kb), slot_of, blocks)
+        return KanFusedV2.apply(x, wt, spec, tuple(kb), slot_of, blocks,
+                                out_dtype)
     wt_dtype = (torch.float32 if dtype == torch.bfloat16
                 and wt.dtype == torch.float32 else dtype)
     if x.device.type == "cpu":
@@ -616,9 +615,10 @@ def _bf16_grads(x: torch.Tensor, wt: torch.Tensor, g: torch.Tensor,
 
 
 class KanFusedV2(torch.autograd.Function):
-    """The version-2 layer (f32, or bf16 with a bf16 output; bf16:
-    ``_bf16_grads``) with its gradient with respect to x and
-    the fused ``wt``; ``fuse_wt`` is plain torch ops, so autograd carries
+    """The version-2 layer (f32, or bf16 with a bf16 or an f32 output --
+    a tensor-parallel partial, whose f32 cotangent holds the bf16
+    output's values; bf16: ``_bf16_grads``) with its gradient with
+    respect to x and the fused ``wt``; ``fuse_wt`` is plain torch ops, so autograd carries
     ``d wt`` back to ``w_b`` and ``t``.
 
     ``d wt = A^T g`` over the (B, n_in*(nbk+1)) activations A
@@ -629,10 +629,12 @@ class KanFusedV2(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, wt, spec, kb, slot_of, blocks):  # noqa: D102
+    def forward(ctx, x, wt, spec, kb, slot_of, blocks,
+                out_dtype):  # noqa: D102
         ctx.spec, ctx.kb = spec, kb
         ctx.save_for_backward(x, wt)
-        return kan_fused_v2(x, wt, spec, kb, slot_of, blocks=blocks)
+        return kan_fused_v2(x, wt, spec, kb, slot_of, blocks=blocks,
+                            out_dtype=out_dtype)
 
     @staticmethod
     def backward(ctx, g):  # noqa: D102
@@ -643,7 +645,7 @@ class KanFusedV2(torch.autograd.Function):
             dx, dwt = _bf16_grads(x, wt, g, ctx.spec, ctx.kb,
                                   ctx.needs_input_grad[0],
                                   ctx.needs_input_grad[1])
-            return dx, dwt, None, None, None, None
+            return dx, dwt, None, None, None, None, None
         dx = dwt = None
         if ctx.needs_input_grad[1]:
             a = fused_activations(x, ctx.spec, ctx.kb)
@@ -651,7 +653,7 @@ class KanFusedV2(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             gw = ieee_matmul(g, wt.t()).reshape(B, n_in, -1)
             dx = (fused_activation_grads(x, ctx.spec, ctx.kb) * gw).sum(-1)
-        return dx, dwt, None, None, None, None
+        return dx, dwt, None, None, None, None, None
 
 
 def kan_fused_v1(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,

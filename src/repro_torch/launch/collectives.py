@@ -16,10 +16,20 @@ on the subgroup of the axes it reduces over:
 * ``psum_int32`` sums int32 with ``all_reduce`` (an integer sum is exact
   in any order) and ``pmax`` takes a maximum (exact too);
 * ``enter`` and ``combine`` are the two ``torch.autograd.Function``s of
-  expert parallelism (``models/moe``): *enter* is the identity forward
-  and sums the cotangent over the axis backward (each expert rank holds
-  only its experts' share of it); *combine* sums over the axis forward
-  and is the identity backward.
+  expert and tensor parallelism (``models/moe``, Megatron's f and g):
+  *enter* is the identity forward and sums the cotangent over the axis
+  backward (each rank's work holds only its share of it); *combine*
+  sums over the axis forward and is the identity backward;
+* ``gather_seq`` and ``scatter_seq`` are their sequence-parallel
+  counterparts over a sequence split in chunks along the axis
+  (``seq_bounds``): *gather_seq* all-gathers the chunks forward and
+  reduce-scatters the cotangent backward (or, with ``partial=False``,
+  keeps its own chunk of a cotangent every rank holds whole);
+  *scatter_seq* reduce-scatters forward (or, with ``reduce=False``,
+  keeps its chunk of a value every rank holds whole) and all-gathers
+  the cotangent backward.  A sequence that does not split evenly is
+  zero-padded to whole chunks for the collective and trimmed after, as
+  GSPMD pads; the last ranks' chunks are then short or empty.
 
 gloo takes host tensors: a card's tensor is copied to pinned host
 memory before a gloo collective and back after it, explicitly
@@ -27,12 +37,12 @@ memory before a gloo collective and back after it, explicitly
 every backend).  Along axes of one rank every function is
 the identity, with no process group needed.  ``SENT`` counts the
 collectives a rank takes part in and the bytes it contributes to them
-(an all-to-all: the chunks it sends to other ranks; ``reset_sent``
-zeroes it).
+(an all-to-all: the chunks it sends to other ranks), ``GATHERS`` its
+all-gathers by the axes they run along (``reset_sent`` zeroes both).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -40,10 +50,13 @@ import torch.distributed as dist
 from repro_torch.launch.mesh import Axes, ProcessMesh
 
 SENT = {"calls": 0, "bytes": 0}
+# all-gathers a rank takes part in, by the axes they run along
+GATHERS: Dict[Axes, int] = {}
 
 
 def reset_sent() -> None:
     SENT.update(calls=0, bytes=0)
+    GATHERS.clear()
 
 
 def _staged(mesh: ProcessMesh, x: torch.Tensor) -> bool:
@@ -79,6 +92,7 @@ def all_gather_shards(x: torch.Tensor, mesh: ProcessMesh,
     w = _host(mesh, x).reshape(-1).view(torch.uint8)
     SENT["calls"] += 1
     SENT["bytes"] += w.numel()
+    GATHERS[ax] = GATHERS.get(ax, 0) + 1
     parts = [_like(w, _staged(mesh, x)) for _ in range(mesh.axis_size(ax))]
     dist.all_gather(parts, w, group=mesh.group(ax))
     return [p.view(x.dtype).reshape(x.shape).to(x.device) for p in parts]
@@ -206,3 +220,99 @@ def combine(x: torch.Tensor, mesh: ProcessMesh,
     if not mesh.present(axis):
         return x
     return _Combine.apply(x, mesh, axis)
+
+
+def seq_bounds(n: int, mesh: ProcessMesh,
+               axis: str = "model") -> Tuple[int, int, int]:
+    """(lo, hi, c): this rank's chunk ``[lo, hi)`` of ``n`` positions
+    split over ``axis`` in chunks of ``c = ceil(n / ranks)``."""
+    m = mesh.axis_size(axis)
+    c = -(-n // m)
+    lo = min(mesh.index_over(axis) * c, n)
+    return lo, min(lo + c, n), c
+
+
+def _pad(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x`` zero-padded on ``dim`` to length ``n``."""
+    short = n - x.shape[dim]
+    if not short:
+        return x.contiguous()
+    shape = list(x.shape)
+    shape[dim] = short
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+def _gather_chunks(x: torch.Tensor, mesh: ProcessMesh, axis: str, dim: int,
+                   n: int) -> torch.Tensor:
+    """Every rank's chunk of ``n`` positions on ``dim``, concatenated."""
+    parts = all_gather_shards(_pad(x, dim, seq_bounds(n, mesh, axis)[2]),
+                              mesh, axis)
+    return torch.cat(parts, dim=dim).narrow(dim, 0, n)
+
+
+def _scatter_chunks(x: torch.Tensor, mesh: ProcessMesh, axis: str,
+                    dim: int, reduce: bool) -> torch.Tensor:
+    """This rank's chunk of ``x``'s positions on ``dim``: of the sum over
+    ``axis`` (rank order, f32, cast back) when ``reduce``, else of
+    ``x`` itself."""
+    lo, hi, c = seq_bounds(x.shape[dim], mesh, axis)
+    if not reduce:
+        return x.narrow(dim, lo, hi - lo).contiguous()
+    m = mesh.axis_size(axis)
+    x = _pad(x, dim, m * c)
+    acc = reduce_scatter_over([x.narrow(dim, j * c, c) for j in range(m)],
+                              mesh, axis, torch.float32)
+    return acc.narrow(dim, 0, hi - lo).to(x.dtype)
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, mesh: ProcessMesh, axis: str,
+                dim: int, n: int, partial: bool) -> torch.Tensor:
+        ctx.args = (mesh, axis, dim, partial)
+        return _gather_chunks(x, mesh, axis, dim, n)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        mesh, axis, dim, partial = ctx.args
+        return (_scatter_chunks(g, mesh, axis, dim, partial), None, None,
+                None, None, None)
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, mesh: ProcessMesh, axis: str,
+                dim: int, reduce: bool) -> torch.Tensor:
+        ctx.args = (mesh, axis, dim, x.shape[dim])
+        return _scatter_chunks(x, mesh, axis, dim, reduce)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        mesh, axis, dim, n = ctx.args
+        return _gather_chunks(g, mesh, axis, dim, n), None, None, None, None
+
+
+def gather_seq(x: torch.Tensor, mesh: ProcessMesh, n: int, *,
+               axis: str = "model", dim: int = 1,
+               partial: bool = True) -> torch.Tensor:
+    """The whole sequence of ``n`` positions on ``dim`` from this rank's
+    chunk ``x`` (``seq_bounds``).  Backward: the cotangent summed over
+    ``axis`` in rank order in f32, this rank's chunk of it (each rank's
+    work held only a share of it: tensor parallelism); with
+    ``partial=False`` this rank's chunk of a cotangent every rank holds
+    whole."""
+    if not mesh.present(axis):
+        return x
+    return _GatherSeq.apply(x, mesh, axis, dim, n, partial)
+
+
+def scatter_seq(x: torch.Tensor, mesh: ProcessMesh, *, axis: str = "model",
+                dim: int = 1, reduce: bool = True) -> torch.Tensor:
+    """This rank's chunk (``seq_bounds``) of the sum of ``x`` over
+    ``axis``, added in rank order in f32 and cast back to ``x``'s dtype
+    (a tensor-parallel partial); with ``reduce=False``, of ``x`` itself
+    (a value every rank holds whole).  Backward: the chunks' cotangents
+    all-gathered."""
+    if not mesh.present(axis):
+        return x
+    return _ScatterSeq.apply(x, mesh, axis, dim, reduce)

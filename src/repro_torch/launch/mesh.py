@@ -28,7 +28,9 @@ counterpart of ``jax.distributed.initialize`` plus ``jax.make_mesh``):
 ``make_production_mesh`` gives the (16, 16) and (2, 16, 16) shapes, for
 the sharding rules only (nothing is launched at that size).
 ``set_mesh`` is the counterpart of ``jax.set_mesh``: ``models/moe``
-reads the active mesh as the reference reads the ambient one.
+reads the active mesh as the reference reads the ambient one, and the
+models read its ``MeshContext`` (the activation mode, the leaves
+computed tensor-parallel) as GSPMD reads the shardings.
 """
 from __future__ import annotations
 
@@ -40,7 +42,8 @@ import os
 import subprocess
 import sys
 import time
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (Any, Dict, FrozenSet, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 import torch
 import torch.distributed as dist
@@ -295,17 +298,48 @@ def destroy_process_mesh(mesh: ProcessMesh) -> None:
         dist.destroy_process_group()
 
 
-_ACTIVE: List[ProcessMesh] = []
+ACTIVATION_MODES = ("replicated", "sp")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshContext:
+    """What the model code reads of the active mesh: the mesh, the
+    residual stream's layout between blocks (``activation_mode``:
+    ``"replicated"`` over ``model``, or ``"sp"``, its sequence split over
+    ``model``), and the paths of the leaves this rank holds only its
+    ``model`` shard of and computes with (tensor parallelism,
+    ``launch/steps._tp_paths``)."""
+    mesh: ProcessMesh
+    activation_mode: str = "replicated"
+    tp: FrozenSet[str] = frozenset()
+
+    def __post_init__(self) -> None:
+        if self.activation_mode not in ACTIVATION_MODES:
+            raise ValueError(f"activation_mode {self.activation_mode!r}: "
+                             f"expected one of {ACTIVATION_MODES}")
+
+    @property
+    def sp(self) -> bool:
+        """Whether the residual stream is sequence-sharded: ``"sp"`` on
+        more than one ``model`` rank."""
+        return (self.activation_mode == "sp"
+                and self.mesh.axis_size("model") > 1)
+
+
+_ACTIVE: List[MeshContext] = []
 
 
 @contextlib.contextmanager
-def set_mesh(mesh: Optional[ProcessMesh]) -> Iterator[None]:
+def set_mesh(mesh: Optional[ProcessMesh], *,
+             activation_mode: str = "replicated",
+             tp: FrozenSet[str] = frozenset()) -> Iterator[None]:
     """Make ``mesh`` the active mesh inside the block (the counterpart of
-    ``jax.set_mesh``); None leaves the active mesh as it is."""
+    ``jax.set_mesh``), with the activation mode and the tensor-parallel
+    leaves of ``MeshContext``; None leaves the active mesh as it is."""
     if mesh is None:
         yield
         return
-    _ACTIVE.append(mesh)
+    _ACTIVE.append(MeshContext(mesh, activation_mode, frozenset(tp)))
     try:
         yield
     finally:
@@ -313,6 +347,10 @@ def set_mesh(mesh: Optional[ProcessMesh]) -> Iterator[None]:
 
 
 def current_mesh() -> Optional[ProcessMesh]:
+    return _ACTIVE[-1].mesh if _ACTIVE else None
+
+
+def current_context() -> Optional[MeshContext]:
     return _ACTIVE[-1] if _ACTIVE else None
 
 

@@ -22,6 +22,11 @@ Storage follows the specs (``launch/steps``): ``shard_leaf`` cuts this
 rank's block of a whole leaf on a ``ProcessMesh`` and ``gather_leaf``
 rebuilds the whole (or gathers only some axes) with
 ``launch/collectives.gather_cat``.
+
+Compute follows ``tp_unit``: a leaf whose ``model`` shard is a whole
+unit of its layer's work (whole attention heads, whole FFN hidden lanes,
+whole KAN outputs or inputs, whole vocab rows) is computed from the
+shard (Megatron tensor parallelism); any other leaf is gathered whole.
 """
 from __future__ import annotations
 
@@ -186,6 +191,63 @@ def zero1_shardings(opt_moments: Tree, base: Tree,
         return P(*spec)
 
     return tree_map(one, opt_moments, base)
+
+
+# A decoder block's prefix (a stacked unit's slot, or an "extra" layer)
+_BLOCK = r"^(?:\['units'\]\['slot\d+'\]|\['extra'\]\[(\d+)\])"
+_TP_ATTN = re.compile(_BLOCK + r"\['attn'\]\['(wq|wk|wv|wo)'\]\[")
+_TP_FFN = re.compile(_BLOCK + r"\['ffn'\]\['(gate|up|down|kan_up|kan_down)'\]\[")
+_TP_VOCAB = re.compile(r"^(\['embed'\]\['table'\]|\['lm_head'\]\['kernel'\])$")
+
+
+def tp_unit(path: str, spec: P, cfg: Any, mesh: ProcessMesh) -> bool:
+    """Whether the leaf at ``path`` (spec ``spec`` under ``_RULES``) is
+    computed from its ``model`` shard: its shard is a whole unit of its
+    layer's work.
+
+    * a decoder block's ``wq`` (+ bias) and ``wo``: whole heads
+      (``n_heads % model == 0``); ``wk``/``wv``: whole kv heads too
+      (``n_kv_heads % model == 0``); else they are gathered and a rank
+      takes the kv heads its q heads use;
+    * its FFN's ``gate``/``up``/``down``: whole hidden lanes, in groups of
+      4 when a hidden mask compacts them; ``kan_up``: whole KAN outputs;
+      ``kan_down``: whole KAN inputs (``"kanffn"``: ``kan_up`` only, its
+      hidden lanes in groups of 4 under a hidden mask);
+    * ``embed.table`` / ``lm_head``: whole vocab rows or columns.
+
+    Nothing else: the MoE's experts (expert parallel, their own rule),
+    the recurrent blocks, the encoder, cross-attention and the frontend
+    are gathered.  A pure function of the arch, the spec and the mesh's
+    shape."""
+    m = mesh.axis_size("model")
+    if m <= 1 or "model" not in spec.axes():
+        return False
+    if _TP_VOCAB.match(path):
+        return True
+    attn = _TP_ATTN.match(path)
+    if attn:
+        heads = cfg.n_heads % m == 0
+        return heads and (attn.group(2) not in ("wk", "wv")
+                          or cfg.n_kv_heads % m == 0)
+    ffn = _TP_FFN.match(path)
+    if not ffn:
+        return False
+    if ffn.group(1) is None:               # stacked units: layer 0's FFN
+        layer = 0
+    else:                                  # as models/transformer lays out
+        units = 0 if cfg.ffn_kinds is not None else (
+            cfg.n_layers // len(cfg.pattern))
+        layer = units * len(cfg.pattern) + int(ffn.group(1))
+    fcfg = cfg.ffn_cfg(layer)
+    if fcfg.kind == "kan":
+        return True
+    if fcfg.kind == "kanffn":
+        if ffn.group(2) != "kan_up":
+            return False
+        width, mask = fcfg.kanffn_hidden, fcfg.kanffn_hidden_mask()
+    else:
+        width, mask = fcfg.d_ff, fcfg.hidden_mask
+    return mask is None or (width // m) % 4 == 0
 
 
 # ---------------------------------------------------------------------------

@@ -21,10 +21,31 @@ result, with the same program on every rank:
 * each rank stores only its shard of every leaf: params by
   ``sharding.param_shardings`` (``fsdp`` where ``cfg.fsdp``), the AdamW
   moments by ``zero1_shardings`` (``train_state_shardings``);
-* before use each rank all-gathers the leaves along ``model`` (and
-  ``data``), and runs the model on its ``data`` rows of the batch;
+* each rank computes Megatron tensor parallelism over ``model``, the
+  reference's baseline schedule: a leaf whose ``model`` shard is a whole
+  unit of work (``sharding.tp_unit``: attention heads, FFN hidden lanes,
+  KAN outputs or inputs, vocab rows) is not gathered along ``model``;
+  the rank computes its heads, lanes and vocab columns, and
+  ``collectives.combine`` sums the partial outputs over ``model`` in
+  rank order in f32 after attention, after the FFN and in the
+  vocab-parallel embedding and cross-entropy (``collectives.enter``
+  sums the input's cotangent).  Every other leaf is all-gathered along
+  ``model`` and computed whole, as are the recurrent blocks; the choice
+  is made once, when the step is built (``_tp_paths``);
+* ``StepOptions.activation_mode="sp"`` splits the residual stream's
+  sequence over ``model`` between sub-layers: norms run on a rank's
+  chunk (their weights' cotangents summed over ``model``), a
+  tensor-parallel sub-layer gathers the chunks at its entry and
+  reduce-scatters its partial output at its exit
+  (``collectives.gather_seq``, ``scatter_seq``), a gathered one runs on
+  the whole sequence and keeps the rank's chunk, and the final norm's
+  chunks are gathered for the loss (the reference's ``P(dp, "model",
+  None)`` constraint on the final hidden);
+* every leaf is all-gathered along ``data`` before use, and each rank
+  runs the model on its ``data`` rows of the batch;
 * each rank gets only its ZeRO-1 slice of the gradients averaged over
-  the ``data`` ranks: cut along ``model`` at home, then the data ranks'
+  the ``data`` ranks: cut along ``model`` at home (a tensor-parallel
+  leaf's gradient is its ``model`` shard already), then the data ranks'
   chunks reduce-scattered and summed in rank order in f32
   (``collectives.reduce_scatter_over``; under ``grad_compression`` the
   int32 all-reduce of the whole, ``compressed_allreduce(axis_name=...)``,
@@ -39,13 +60,11 @@ result, with the same program on every rank:
 * the loss, and the aux loss inside it, is averaged over the ``data``
   ranks.
 
-This is the reference's storage and result, not Megatron tensor-parallel
-compute over ``model``: every ``model`` rank computes the whole layer
-(``ROADMAP.md`` queues that, with ``activation_mode="sp"``, as the next
-step).  ``deterministic()`` sets ``CUBLAS_WORKSPACE_CONFIG`` in every rank
+``deterministic()`` sets ``CUBLAS_WORKSPACE_CONFIG`` in every rank
 before its first product.  ``gather_state`` rebuilds the whole state
 (checkpoints, comparisons); ``compute_params`` gives the serve steps the
-gathered params of a rank (its experts only).
+gathered params of a rank (its experts only): the serve steps compute
+every other leaf whole.
 
 The serve steps reach every arch of the zoo, the encoder-decoder and
 frontend ones too (a batch carries ``frames`` or ``patches`` beside its
@@ -90,7 +109,7 @@ from repro_torch.kernels import _build
 from repro_torch.launch import collectives as COLL
 from repro_torch.launch import sharding as SH
 from repro_torch.launch import specs as SP
-from repro_torch.launch.mesh import ProcessMesh, set_mesh
+from repro_torch.launch.mesh import ACTIVATION_MODES, ProcessMesh, set_mesh
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import Ffns
 from repro_torch.optim import (
@@ -124,8 +143,17 @@ class StepOptions:
     total_steps: int = 10000
     warmup: int = 200
     aux_weight: float = 0.01
+    # the residual stream over "model" on a mesh: replicated | sp
+    # (sequence parallel between sub-layers; launch/mesh.MeshContext)
+    activation_mode: str = "replicated"
     # int8 error-feedback gradient compression (optim/compression.py)
     grad_compression: bool = False
+
+    def __post_init__(self) -> None:
+        if self.activation_mode not in ACTIVATION_MODES:
+            raise ValueError(
+                f"StepOptions.activation_mode={self.activation_mode!r}: "
+                f"expected one of {ACTIVATION_MODES}")
 
 
 def default_opt_cfg(opts: StepOptions) -> AdamWConfig:
@@ -196,10 +224,20 @@ def _ep_paths(cfg: ArchConfig, mesh: ProcessMesh,
             if "['experts']" in k and "model" in spec.axes()}
 
 
-def _compute_axes(path: str, spec: SH.P, ep: set) -> Tuple[str, ...]:
+def _tp_paths(cfg: ArchConfig, mesh: ProcessMesh,
+              pspecs: Params) -> frozenset:
+    """Paths of the leaves computed from their ``model`` shard (tensor
+    parallelism; ``sharding.tp_unit``)."""
+    return frozenset(k for k, spec in leaf_paths(pspecs)
+                     if SH.tp_unit(k, spec, cfg, mesh))
+
+
+def _compute_axes(path: str, spec: SH.P, local: set) -> Tuple[str, ...]:
     """The axes a leaf is gathered along before use: all its spec's, but
-    ``model`` for a rank's own experts."""
-    return tuple(a for a in spec.axes() if not (a == "model" and path in ep))
+    ``model`` for a leaf a rank computes from its ``model`` shard (its
+    own experts, a tensor-parallel leaf)."""
+    return tuple(a for a in spec.axes()
+                 if not (a == "model" and path in local))
 
 
 def compute_params(shards: Params, cfg: ArchConfig,
@@ -240,11 +278,12 @@ def _shard_state(cfg: ArchConfig, opts: StepOptions, params: Params,
             count=torch.zeros((), dtype=torch.int32, device=device)),
         "step": torch.zeros((), dtype=torch.int32, device=device)}
     if opts.grad_compression:
-        ep = _ep_paths(cfg, mesh, specs["params"])
+        local = (_ep_paths(cfg, mesh, specs["params"])
+                 | _tp_paths(cfg, mesh, specs["params"]))
         pspecs = dict(leaf_paths(specs["params"]))
         state["ef_residual"] = tree_map_with_path(
             lambda k, p: zeros(SH.shard_leaf(p, pspecs[k], mesh, ("model",))
-                               if k in ep else p), params)
+                               if k in local else p), params)
     return state
 
 
@@ -383,12 +422,16 @@ class MeshTrainStep:
         self.pspecs = dict(leaf_paths(specs["params"]))
         self.zspecs = dict(leaf_paths(specs["opt"].mu))
         self.ep = _ep_paths(cfg, mesh, specs["params"])
+        self.tp = _tp_paths(cfg, mesh, specs["params"])
+        # leaves a rank computes from its model shard
+        self.local = self.ep | self.tp
         self.dp = SH.dp_axes(mesh)
         self.n_dp = mesh.axis_size(self.dp)
         # a leaf's ZeRO-1 slice, cut from the gradient a rank computes
-        # (a rank's experts are already cut along model)
+        # (a rank's experts and tensor-parallel leaves are already cut
+        # along model)
         self.cut = {k: tuple(a for a in z.axes()
-                             if not (a == "model" and k in self.ep))
+                             if not (a == "model" and k in self.local))
                     for k, z in self.zspecs.items()}
         self.delta = {k: _zero1_delta(self.zspecs[k], self.pspecs[k])
                       for k in self.zspecs}
@@ -400,7 +443,7 @@ class MeshTrainStep:
             k: [r for r, c in enumerate(coords)
                 if all(c[a] == 0 for a in mesh.axis_names
                        if a not in self.cut[k]
-                       and not (a == "model" and k in self.ep))]
+                       and not (a == "model" and k in self.local))]
             for k in self.zspecs}
 
     def _mean(self, x: torch.Tensor) -> torch.Tensor:
@@ -440,28 +483,37 @@ class MeshTrainStep:
             slices)
 
     def gathered(self, params: Params) -> Params:
+        """The params this rank computes with: every leaf gathered, but
+        its experts and tensor-parallel leaves only along ``data``."""
         return tree_map_with_path(
             lambda k, x: SH.gather_leaf(
                 x, self.pspecs[k], self.mesh,
-                _compute_axes(k, self.pspecs[k], self.ep)), params)
+                _compute_axes(k, self.pspecs[k], self.local)), params)
+
+    def rank_value_and_grad(self, params: Params, batch: Dict
+                            ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
+        """``value_and_grad`` of this rank's rows from its stored shards,
+        under the mesh's context (its tensor-parallel leaves, the
+        activation mode): the gradients of the params it computes with
+        (``gathered``), not yet reduced over the mesh."""
+        with set_mesh(self.mesh, activation_mode=self.opts.activation_mode,
+                      tp=self.tp):
+            return value_and_grad(self.cfg, self.opts, self.gathered(params),
+                                  batch)
 
     def grads(self, state: Dict, batch: Dict
               ) -> Tuple[torch.Tensor, torch.Tensor, Params, Dict]:
         """(total, ce, gradient slices, new residuals or {}): the mesh's
         means, each rank's ZeRO-1 slices of the gradients."""
-        with set_mesh(self.mesh):
-            full = self.gathered(state["params"])
-            total, ce, grads = value_and_grad(self.cfg, self.opts, full,
-                                              batch)
-            del full
-            extra = {}
-            if self.opts.grad_compression:
-                grads, extra["ef_residual"] = compressed_allreduce(
-                    grads, state["ef_residual"], axis_name=self.dp,
-                    mesh=self.mesh)
-                grads = self.zero1_slices(grads)
-            else:
-                grads = tree_map_with_path(self._slice_mean, grads)
+        total, ce, grads = self.rank_value_and_grad(state["params"], batch)
+        extra = {}
+        if self.opts.grad_compression:
+            grads, extra["ef_residual"] = compressed_allreduce(
+                grads, state["ef_residual"], axis_name=self.dp,
+                mesh=self.mesh)
+            grads = self.zero1_slices(grads)
+        else:
+            grads = tree_map_with_path(self._slice_mean, grads)
         return self._mean(total), self._mean(ce), grads, extra
 
     def global_norm(self, slices: Params) -> torch.Tensor:

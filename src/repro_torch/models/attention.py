@@ -9,6 +9,14 @@ loop over Q blocks.  Masks (causal / sliding-window / prefix-LM) come
 from positions.  The reference computes attention outside any Pallas
 kernel, so no kernel of the port runs here.
 
+Under tensor parallelism (``attention(..., shard=)``) a rank computes
+its ``n_heads / model`` heads: its columns of ``wq`` (and bias), of
+``wk``/``wv`` when the kv heads split whole, else the columns of the kv
+heads its q heads use (head h uses kv head ``h // q_groups``) from the
+gathered ``wk``/``wv``, its rows of ``wo`` without the bias; the f32
+partial is summed over ``model`` and the bias added once
+(``layers.Shard.out``).  RoPE, qk-norm and the masks are per head.
+
 Decode attends one new token per row against a KV cache; each row sits
 at its own position ``len[b]`` (slot-based serving), and with a sliding
 window the cache is a ring buffer.  ``kv_quant`` stores the cache as
@@ -25,10 +33,12 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.models.layers import (
+    Shard,
     apply_rope,
     dense,
     dense_init,
     rmsnorm,
+    f32_matmul,
     rmsnorm_init,
     softcap,
 )
@@ -200,20 +210,64 @@ def _self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               _pick_block(S, k_block))
 
 
+def local_heads(params: Dict, cfg: AttnConfig,
+                shard: Shard) -> Tuple[Dict, AttnConfig]:
+    """(params, config) of this rank's heads: ``wq`` (+ bias) are its
+    shards; ``wk``/``wv`` its shards when the kv heads split whole, else
+    whole, and then cut to the kv heads its q heads use (their cotangents
+    summed over ``model``), as are the per-head norms' weights.  Local kv
+    heads keep their q groups when each is used by as many local q heads,
+    else each q head gets its own copy."""
+    hd = cfg.hd
+    H = params["wq"]["kernel"].shape[-1] // hd
+    h0 = shard.local(H, cfg.n_heads, "wq")
+    p = {"wq": params["wq"]}
+    for name in ("q_norm", "k_norm"):
+        if name in params:
+            p[name] = {k: shard.enter(v) for k, v in params[name].items()}
+    cols = params["wk"]["kernel"].shape[-1]
+    if cols * shard.m == cfg.n_kv_heads * hd:
+        p["wk"], p["wv"] = params["wk"], params["wv"]
+        return p, dataclasses.replace(cfg, n_heads=H, head_dim=hd,
+                                      n_kv_heads=cols // hd)
+    if cols != cfg.n_kv_heads * hd:
+        raise ValueError(f"wk: {cols} columns, expected {cfg.n_kv_heads} "
+                         f"kv heads of {hd} whole or split over {shard.m}")
+    ids = [h // cfg.q_groups for h in range(h0, h0 + H)]
+    kv = sorted(set(ids))
+    if ids != [k for k in kv for _ in range(H // len(kv))]:
+        kv = ids
+    idx = torch.tensor([k * hd + j for k in kv for j in range(hd)],
+                       device=params["wk"]["kernel"].device)
+    for name in ("wk", "wv"):
+        p[name] = {k: shard.enter(v).index_select(-1, idx)
+                   for k, v in params[name].items()}
+    return p, dataclasses.replace(cfg, n_heads=H, head_dim=hd,
+                                  n_kv_heads=len(kv))
+
+
 def attention(params: Dict, x: torch.Tensor, cfg: AttnConfig, *,
               positions: Optional[torch.Tensor] = None,
               prefix_len: Optional[int] = None,
               chunk_threshold: int = 2048, q_block: int = 512,
-              k_block: int = 512) -> torch.Tensor:
-    """Self-attention over a full sequence (training / prefill)."""
+              k_block: int = 512,
+              shard: Optional[Shard] = None) -> torch.Tensor:
+    """Self-attention over a full sequence (training / prefill); with
+    ``shard``, over this rank's heads (module docstring)."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     pos1d = positions[0] if positions.dim() == 2 else positions
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    o = _self_attention(q, k, v, cfg, pos1d, prefix_len, chunk_threshold,
-                        q_block, k_block)
-    return dense(params["wo"], o.reshape(B, S, -1))
+    p, hcfg = (params, cfg) if shard is None else local_heads(params, cfg,
+                                                              shard)
+    q, k, v = _project_qkv(p, x, hcfg, positions)
+    o = _self_attention(q, k, v, hcfg, pos1d, prefix_len, chunk_threshold,
+                        q_block, k_block).reshape(B, S, -1)
+    if shard is None:
+        return dense(params["wo"], o)
+    wo = params["wo"]
+    shard.local(wo["kernel"].shape[0], cfg.n_heads * cfg.hd, "wo")
+    return shard.out(f32_matmul(o, wo["kernel"]), x.dtype, wo.get("bias"))
 
 
 # ---------------------------------------------------------------------------

@@ -53,6 +53,7 @@ from repro_torch.core.splines import SplineSpec
 from repro_torch.kernels.pattern_matmul.ops import matmul_compact
 from repro_torch.models.layers import (
     ACT_FNS,
+    Shard,
     dense,
     dense_init,
     f32_matmul,
@@ -191,9 +192,36 @@ def _compact(kernel: torch.Tensor, mask: PatternMask,
     return kernel.index_select(axis, idx)
 
 
-def ffn_apply(params: Dict, x: torch.Tensor, cfg: FFNConfig) -> torch.Tensor:
+def ffn_apply(params: Dict, x: torch.Tensor, cfg: FFNConfig,
+              shard: Optional[Shard] = None) -> torch.Tensor:
+    """The FFN of ``cfg.kind`` on x; with ``shard`` (tensor parallelism)
+    the leaves are this rank's ``model`` shards: ``gate``/``up`` its
+    hidden columns (its lanes of the hidden mask), ``down`` its rows, and
+    the f32 partial summed over ``model`` before ``down``'s bias
+    (``layers.Shard.out``); the KAN kinds as ``KanPairFFN`` and
+    ``KanFFN`` take it."""
+    if cfg.kind == "kan":
+        return KanPairFFN(cfg, params, shard)(x)
+    if cfg.kind == "kanffn":
+        return kan_ffn_apply(params, x, cfg, shard)
+    if cfg.kind not in ("mlp", "swiglu", "geglu"):
+        raise ValueError(cfg.kind)
     mask = cfg.hidden_mask
     f32 = torch.float32
+    if shard is not None:
+        width = params["down"]["kernel"].shape[0]
+        lo = shard.local(width, cfg.d_ff, "ffn.down")
+        mask = None if mask is None else PatternMask(mask.keep[lo:lo + width])
+
+    def down(h: torch.Tensor, kernel: torch.Tensor,
+             bias: Optional[torch.Tensor]) -> torch.Tensor:
+        y = f32_matmul(h, kernel)
+        if shard is not None:
+            return shard.out(y, x.dtype, bias)
+        if bias is not None:
+            y = y + bias.to(f32)
+        return y.to(x.dtype)
+
     if cfg.kind == "mlp":
         if mask is not None:
             # stage-2 as pure shape reduction: up emits ONLY the kept
@@ -205,34 +233,25 @@ def ffn_apply(params: Dict, x: torch.Tensor, cfg: FFNConfig) -> torch.Tensor:
                 h = h + _compact(params["up"]["bias"][None], mask,
                                  1)[0].to(f32)
             h = ACT_FNS[cfg.act](h).to(x.dtype)
-            y = f32_matmul(h, down_k)
-            if "bias" in params["down"]:
-                y = y + params["down"]["bias"].to(f32)
-            return y.to(x.dtype)
+            return down(h, down_k, params["down"].get("bias"))
         h = dense(params["up"], x)
         h = ACT_FNS[cfg.act](h.to(f32)).to(x.dtype)
-        return dense(params["down"], h)
-    if cfg.kind in ("swiglu", "geglu"):
-        act = F.silu if cfg.kind == "swiglu" else ACT_FNS["gelu"]
-        if mask is not None:
-            gate_k = _compact(params["gate"]["kernel"], mask, 1)
-            up_k = _compact(params["up"]["kernel"], mask, 1)
-            down_k = _compact(params["down"]["kernel"], mask, 0)
-            g = act(f32_matmul(x, gate_k))
-            h = (g * f32_matmul(x, up_k)).to(x.dtype)
-            return f32_matmul(h, down_k).to(x.dtype)
-        g = act(dense(params["gate"], x).to(f32)).to(x.dtype)
-        h = g * dense(params["up"], x)
-        return dense(params["down"], h)
-    if cfg.kind == "kan":
-        return KanPairFFN(cfg, params)(x)
-    if cfg.kind == "kanffn":
-        return kan_ffn_apply(params, x, cfg)
-    raise ValueError(cfg.kind)
+        return down(h, params["down"]["kernel"], params["down"].get("bias"))
+    act = F.silu if cfg.kind == "swiglu" else ACT_FNS["gelu"]
+    if mask is not None:
+        gate_k = _compact(params["gate"]["kernel"], mask, 1)
+        up_k = _compact(params["up"]["kernel"], mask, 1)
+        down_k = _compact(params["down"]["kernel"], mask, 0)
+        g = act(f32_matmul(x, gate_k))
+        h = (g * f32_matmul(x, up_k)).to(x.dtype)
+        return down(h, down_k, None)
+    g = act(dense(params["gate"], x).to(f32)).to(x.dtype)
+    h = g * dense(params["up"], x)
+    return down(h, params["down"]["kernel"], params["down"].get("bias"))
 
 
-def kan_ffn_apply(params: Dict, x: torch.Tensor,
-                  cfg: FFNConfig) -> torch.Tensor:
+def kan_ffn_apply(params: Dict, x: torch.Tensor, cfg: FFNConfig,
+                  shard: Optional[Shard] = None) -> torch.Tensor:
     """KAN-FFN: fused-v2 KAN up-projection, pattern-sparse linear down.
 
     Stage 1 (basis_keep, or tiled from pattern_rate) compacts the spline
@@ -240,8 +259,9 @@ def kan_ffn_apply(params: Dict, x: torch.Tensor,
     statically compacts the hidden lanes entering the down matmul.  One
     ``kan_fused_v2`` and one ``pattern_matmul`` launch on a CUDA tensor.
     Builds the layer on every call; serving holds a ``KanFFN``.
+    ``shard``: as ``KanFFN``'s.
     """
-    return KanFFN(cfg, params)(x)
+    return KanFFN(cfg, params, shard)(x)
 
 
 def stack_layer_cfgs(model: Any,
@@ -319,12 +339,13 @@ class PatternLinear(nn.Module):
         self.n_in, self.n_out = cfg["n_in"], cfg["n_out"]
         self.act = cfg["act"]
         self.mask: Optional[PatternMask] = cfg["mask"]
-        w, b = params["w"], params["b"]
-        if tuple(w.shape) != (self.n_in, self.n_out) or tuple(b.shape) != (
-                self.n_out,):
+        w, b = params["w"], params.get("b")
+        if tuple(w.shape) != (self.n_in, self.n_out) or (
+                b is not None and tuple(b.shape) != (self.n_out,)):
             raise ValueError(
                 f"PatternLinear {self.n_in}->{self.n_out}: got w "
-                f"{tuple(w.shape)} and b {tuple(b.shape)}")
+                f"{tuple(w.shape)} and b "
+                f"{None if b is None else tuple(b.shape)}")
         self.register_buffer("w", w)
         self.register_buffer("b", b)
         idx = None
@@ -336,12 +357,14 @@ class PatternLinear(nn.Module):
         self.register_buffer("idx", idx, persistent=False)
         self.register_buffer("w_c", w_c.contiguous(), persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         lead = x.shape[:-1]
         xf = x.reshape(-1, self.n_in)
         if self.idx is not None:
             xf = xf.index_select(1, self.idx)
-        y = matmul_compact(xf.contiguous(), self.w_c, self.b, act=self.act)
+        y = matmul_compact(xf.contiguous(), self.w_c, self.b, act=self.act,
+                           out_dtype=out_dtype)
         return y.reshape(*lead, self.n_out)
 
 
@@ -350,38 +373,74 @@ class KanFFN(nn.Module):
     once: the KAN up-projection as a ``KANLayer`` (the kept bases of
     ``basis_keep``) and the down-projection as a ``PatternLinear`` over
     the kept hidden lanes, with its bias and no activation, both in the
-    params' dtype (x's dtype in, x's dtype out)."""
+    params' dtype (x's dtype in, x's dtype out).
 
-    def __init__(self, cfg: FFNConfig, params: Dict) -> None:
+    With ``shard`` (tensor parallelism) ``kan_up`` is this rank's shard of
+    the hidden lanes, and the down-projection takes its rows of the
+    replicated ``w`` (their cotangents summed over ``model``) and its
+    lanes of the hidden mask, without the bias: its f32 partial is summed
+    over ``model``, then the bias added (``layers.Shard.out``)."""
+
+    def __init__(self, cfg: FFNConfig, params: Dict,
+                 shard: Optional[Shard] = None) -> None:
         super().__init__()
         if cfg.kind != "kanffn":
             raise ValueError(f"KanFFN needs kind='kanffn', got {cfg.kind!r}")
-        self.up = KANLayer(cfg.kanffn_up_cfg(), params["kan_up"])
+        up_cfg, h = cfg.kanffn_up_cfg(), cfg.kanffn_hidden
+        mask, w, b = cfg.kanffn_hidden_mask(), params["w"], params["b"]
+        self.shard = shard
+        if shard is not None:
+            h = params["kan_up"]["w_b"].shape[-1]
+            lo = shard.local(h, up_cfg.n_out, "kan_up")
+            up_cfg = dataclasses.replace(up_cfg, n_out=h)
+            w = shard.enter(w).narrow(0, lo, h)
+            mask = None if mask is None else PatternMask(
+                mask.keep[lo:lo + h])
+            self.register_buffer("b", b, persistent=False)
+            b = None
+        self.up = KANLayer(up_cfg, params["kan_up"])
         self.down = PatternLinear(
-            {"n_in": cfg.kanffn_hidden, "n_out": cfg.d_model,
-             "mask": cfg.kanffn_hidden_mask(), "act": None},
-            {"w": params["w"], "b": params["b"]})
+            {"n_in": h, "n_out": cfg.d_model, "mask": mask, "act": None},
+            {"w": w, "b": b})
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(self.up(x))
+        if self.shard is None:
+            return self.down(self.up(x))
+        part = self.down(self.up(x), torch.float32)
+        return self.shard.out(part, x.dtype, self.b)
 
 
 class KanPairFFN(nn.Module):
     """A ``kind == "kan"`` FFN holding its two KAN layers (``kan_up``,
     ``kan_down``) as ``KANLayer``s: kept bases compacted and weights fused
     once, in the params' dtype (x's dtype in, x's dtype out).  The
-    functional ``ffn_apply`` builds one per call."""
+    functional ``ffn_apply`` builds one per call.
 
-    def __init__(self, cfg: FFNConfig, params: Dict) -> None:
+    With ``shard`` (tensor parallelism) ``kan_up`` is this rank's shard of
+    the KAN outputs and ``kan_down`` of its inputs: ``kan_down``'s f32
+    partial output is summed over ``model``, then cast
+    (``layers.Shard.out``)."""
+
+    def __init__(self, cfg: FFNConfig, params: Dict,
+                 shard: Optional[Shard] = None) -> None:
         super().__init__()
         if cfg.kind != "kan":
             raise ValueError(f"KanPairFFN needs kind='kan', got {cfg.kind!r}")
         up_cfg, down_cfg = cfg.kan_cfgs()
+        self.shard = shard
+        if shard is not None:
+            h = params["kan_up"]["w_b"].shape[-1]
+            shard.local(h, up_cfg.n_out, "kan_up")
+            up_cfg = dataclasses.replace(up_cfg, n_out=h)
+            down_cfg = dataclasses.replace(down_cfg, n_in=h)
         self.up = KANLayer(up_cfg, params["kan_up"])
         self.down = KANLayer(down_cfg, params["kan_down"])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(self.up(x))
+        if self.shard is None:
+            return self.down(self.up(x))
+        part = self.down(self.up(x), torch.float32)
+        return self.shard.out(part, x.dtype)
 
 
 class VikinStack(nn.Module):

@@ -17,9 +17,20 @@ weights across with ``convert.py``).  The
 reference's ``shard_hint`` is a mesh sharding hint that means nothing on
 one device, and has no counterpart; its mixed-precision ``DTypePolicy``
 is unused by the models and has none either.
+
+Tensor parallelism (the reference's GSPMD over ``model``): a ``Shard``
+tells a sub-layer that its leaves are this rank's ``model`` shards; it
+computes an f32 partial output and ``Shard.out`` sums it over ``model``
+in rank order (``collectives.combine``, or under sequence parallelism
+``scatter_seq`` into the rank's chunk), then adds the bias once and
+rounds once to x's dtype.  ``embed`` with a ``Shard`` is the
+vocab-parallel lookup: the rank's rows, zeros for an id outside them,
+summed over ``model`` -- one non-zero and zeros add exactly, so it is
+bitwise the dense lookup.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -28,8 +39,54 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.grad import ieee_matmul
+from repro_torch.launch import collectives as COLL
+from repro_torch.launch.mesh import ProcessMesh
 
 Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """A tensor-parallel sub-layer's place on ``mesh``: its leaves are this
+    rank's shards along ``model`` (``index`` of ``m``); ``sp``: the
+    residual stream is sequence-sharded, so the output leaves as this
+    rank's chunk."""
+    mesh: ProcessMesh
+    sp: bool = False
+
+    @property
+    def m(self) -> int:
+        return self.mesh.axis_size("model")
+
+    @property
+    def index(self) -> int:
+        return self.mesh.index_over("model")
+
+    def local(self, width: int, whole: int, what: str) -> int:
+        """The first of this rank's ``width`` units of ``whole``; raises
+        unless ``width`` is ``whole``'s share of one rank."""
+        if width * self.m != whole:
+            raise ValueError(f"{what}: a shard of {width} of {whole} over "
+                             f"{self.m} model ranks")
+        return self.index * width
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated tensor read by rank-local work: its cotangent is
+        summed over ``model``."""
+        return COLL.enter(x, self.mesh)
+
+    def out(self, partial: torch.Tensor, dtype: torch.dtype,
+            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The f32 ``partial`` summed over ``model`` in rank order (this
+        rank's chunk of it under ``sp``), + ``bias`` once, in ``dtype``."""
+        if self.sp:
+            y = COLL.scatter_seq(partial, self.mesh)
+            bias = None if bias is None else self.enter(bias)
+        else:
+            y = COLL.combine(partial, self.mesh)
+        if bias is not None:
+            y = y + bias.to(torch.float32)
+        return y.to(dtype)
 
 
 def gen_device(generator: Optional[torch.Generator]) -> torch.device:
@@ -113,12 +170,25 @@ def embed_init(generator: Optional[torch.Generator], vocab: int, dim: int,
     return {"table": (randn(generator, (vocab, dim)) * 0.02).to(dtype)}
 
 
-def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens.long()]
+def embed(params: Params, tokens: torch.Tensor,
+          shard: Optional[Shard] = None) -> torch.Tensor:
+    """Rows of the table; with ``shard`` the vocab-parallel lookup of the
+    rank's rows, bitwise the dense one, whole on every rank."""
+    table = params["table"]
+    if shard is None:
+        return table[tokens.long()]
+    n = table.shape[0]
+    ids = tokens.long() - shard.index * n
+    inside = (ids >= 0) & (ids < n)
+    rows = table[torch.clamp(ids, 0, n - 1)]
+    rows = torch.where(inside[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return COLL.combine(rows, shard.mesh)
 
 
 def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Tied LM head: f32 logits = x @ table^T."""
+    """Tied LM head: f32 logits = x @ table^T (a rank's vocab columns
+    from its rows of a vocab-parallel table)."""
     return f32_matmul(x, params["table"].t())
 
 

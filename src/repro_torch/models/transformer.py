@@ -42,6 +42,25 @@ them per call.  Either gives the same bits.
 ``prefill`` is causal over a prefix-LM's image tokens, as the
 reference's is (its ``block_prefill`` passes no ``prefix_len``);
 ``forward`` attends to them bidirectionally.
+
+Under an active mesh with more than one ``model`` rank
+(``launch/mesh.set_mesh``; the mesh train step), ``forward`` and
+``lm_loss`` read its ``MeshContext``.  A decoder sub-layer whose leaves
+are in its tensor-parallel set runs over this rank's shards
+(``layers.Shard``): ``collectives.enter`` after the norm, the partial
+output summed by ``combine`` at the exit.  The embedding and the
+cross-entropy are vocab-parallel when the table (or ``lm_head``) is:
+the loss takes the max over ``model`` (``pmax``), the sums of exps and
+the gold logit summed over ``model`` in rank order in f32.  Under
+``activation_mode="sp"`` the residual stream between sub-layers is this
+rank's chunk of the sequence (``collectives.seq_bounds``): the norms run
+on the chunk, their weights' cotangents summed over ``model``; a
+tensor-parallel sub-layer gathers the normed chunks at its entry
+(``gather_seq``) and reduce-scatters its partial output
+(``scatter_seq``); any other sub-layer -- a gathered one, a MoE, the
+recurrent blocks -- runs on the gathered sequence and keeps the rank's
+chunk, its backward whole on every rank; the final norm's chunks are
+gathered for the loss.  The encoder runs whole and replicated.
 """
 from __future__ import annotations
 
@@ -52,12 +71,15 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch import collectives as COLL
+from repro_torch.launch.mesh import MeshContext, current_context
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import xlstm as X
 from repro_torch.models.layers import (
+    Shard,
     dense,
     dense_init,
     embed,
@@ -147,26 +169,103 @@ def block_init(generator: Optional[torch.Generator], cfg: ArchConfig,
     return {"slstm": X.slstm_init(generator, cfg.xlstm_cfg(), dtype)}
 
 
+def _mesh_ctx() -> Optional[MeshContext]:
+    """The active mesh's context when it has more than one ``model``
+    rank (tensor and sequence parallelism apply), else None."""
+    ctx = current_context()
+    return ctx if ctx is not None and ctx.mesh.axis_size("model") > 1 \
+        else None
+
+
+def _tp_shard(ctx: Optional[MeshContext], path: str) -> Optional[Shard]:
+    """The ``Shard`` of a sub-layer whose leaf at ``path`` is computed
+    from this rank's shard, else None."""
+    if ctx is None or path not in ctx.tp:
+        return None
+    return Shard(ctx.mesh, ctx.sp)
+
+
+def _layer_path(cfg: ArchConfig, layer: int, unit: Optional[int]) -> str:
+    """A decoder layer's params prefix in the tree (a stacked unit's slot
+    or an ``"extra"`` entry), as ``utils.leaf_paths`` writes it."""
+    u = len(cfg.pattern)
+    if unit is not None:
+        return f"['units']['slot{layer % u}']"
+    return f"['extra'][{layer - _unit_counts(cfg)[0] * u}]"
+
+
+def _sublayer(cfg: ArchConfig, ctx: Optional[MeshContext], norm_p: Params,
+              x: torch.Tensor, n: int, fn: Any,
+              shard: Optional[Shard]) -> torch.Tensor:
+    """The update of the residual ``x`` (this rank's chunk of ``n``
+    positions under sequence parallelism) by ``fn(normed input, shard)``
+    in x's layout (module docstring).  With ``shard``, ``fn`` computes
+    from this rank's shards and leaves through ``shard.out``."""
+    if ctx is None:
+        return fn(_norm(cfg, norm_p, x), None)
+    mesh = ctx.mesh
+    if not ctx.sp:
+        xn = _norm(cfg, norm_p, x)
+        return fn(xn if shard is None else COLL.enter(xn, mesh), shard)
+    norm_p = tree_map(lambda a: COLL.enter(a, mesh), norm_p)
+    xn = COLL.gather_seq(_norm(cfg, norm_p, x), mesh, n,
+                         partial=shard is not None)
+    y = fn(xn, shard)
+    return y if shard is not None else COLL.scatter_seq(y, mesh,
+                                                        reduce=False)
+
+
+def _whole(ctx: Optional[MeshContext], x: torch.Tensor, n: int,
+           fn: Any) -> torch.Tensor:
+    """``fn`` of the whole sequence of a self-contained block (the
+    xLSTM blocks) in x's layout: under sequence parallelism the chunks
+    gathered, and this rank's chunk kept."""
+    if ctx is None or not ctx.sp:
+        return fn(x)
+    y = fn(COLL.gather_seq(x, ctx.mesh, n, partial=False))
+    return COLL.scatter_seq(y, ctx.mesh, reduce=False)
+
+
 def _apply_ffn_part(p: Params, x: torch.Tensor, cfg: ArchConfig,
                     layer: int = 0,
                     taps: Optional[Dict[int, torch.Tensor]] = None,
-                    ffn: Optional[Any] = None
+                    ffn: Optional[Any] = None, *,
+                    path: Optional[str] = None,
+                    n: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The FFN or MoE sub-layer; ``path``/``n`` as ``block_apply``'s."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ctx = _mesh_ctx() if path is not None else None
     if "moe" in p:
-        r = M.moe_apply(p["moe"], _norm(cfg, p["moe_norm"], x),
-                        cfg.moe_cfg(), experts=ffn)
-        x = x + r["out"]
-        aux = r["aux_loss"]
+        auxes = []
+
+        def moe(h: torch.Tensor, _: Optional[Shard]) -> torch.Tensor:
+            r = M.moe_apply(p["moe"], h, cfg.moe_cfg(), experts=ffn)
+            auxes.append(r["aux_loss"])
+            return r["out"]
+
+        x = x + _sublayer(cfg, ctx, p["moe_norm"], x, n, moe, None)
+        aux = auxes[0]
     elif "ffn" in p:
-        xn = _norm(cfg, p["ffn_norm"], x)
-        if taps is not None:
-            # calibration hook: the normed FFN INPUT of this layer (what
-            # the saliencies of core/calibrate score against)
-            taps[layer] = xn
-        y = ffn(xn) if ffn is not None else F.ffn_apply(
-            p["ffn"], xn, cfg.ffn_cfg(layer))
-        x = x + y
+        fcfg = cfg.ffn_cfg(layer)
+        shard = None
+        if ctx is not None:
+            shard = (_tp_shard(ctx, path + "['ffn']['up']['kernel']")
+                     or _tp_shard(ctx, path + "['ffn']['kan_up']['w_b']"))
+        if shard is not None and ffn is not None:
+            raise ValueError("a held FFN module computes whole leaves; the "
+                             "tensor-parallel step runs without ffns")
+
+        def run(xn: torch.Tensor, sh: Optional[Shard]) -> torch.Tensor:
+            if taps is not None:
+                # calibration hook: the normed FFN INPUT of this layer
+                # (what the saliencies of core/calibrate score against)
+                taps[layer] = xn
+            if ffn is not None:
+                return ffn(xn)
+            return F.ffn_apply(p["ffn"], xn, fcfg, sh)
+
+        x = x + _sublayer(cfg, ctx, p["ffn_norm"], x, n, run, shard)
     return x, aux
 
 
@@ -178,27 +277,40 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                 causal: bool = True, prefix_len: Optional[int] = None,
                 memory: Optional[torch.Tensor] = None, layer: int = 0,
                 taps: Optional[Dict[int, torch.Tensor]] = None,
-                ffn: Optional[Any] = None
+                ffn: Optional[Any] = None, path: Optional[str] = None,
+                n: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence path (no cache).  Returns (x, aux_loss)."""
+    """Full-sequence path (no cache).  Returns (x, aux_loss).  ``path``
+    (the block's params prefix, ``_layer_path``) puts a decoder block
+    under the active mesh's tensor and sequence parallelism, ``n`` being
+    the sequence's whole length; None computes it whole and
+    replicated."""
     _check_block(kind)
+    ctx = _mesh_ctx() if path is not None else None
     if kind == "attn":
         acfg = cfg.attn_cfg() if causal else cfg.enc_attn_cfg()
-        x = x + A.attention(p["attn"], _norm(cfg, p["attn_norm"], x), acfg,
-                            prefix_len=prefix_len)
+        shard = None if ctx is None else _tp_shard(
+            ctx, path + "['attn']['wq']['kernel']")
+        x = x + _sublayer(cfg, ctx, p["attn_norm"], x, n, lambda h, sh:
+                          A.attention(p["attn"], h, acfg,
+                                      prefix_len=prefix_len, shard=sh),
+                          shard)
         if "cross" in p and memory is not None:
-            x = x + A.cross_attention(
-                p["cross"], _norm(cfg, p["cross_norm"], x), memory,
-                cfg.attn_cfg())
-        return _apply_ffn_part(p, x, cfg, layer, taps, ffn)
+            x = x + _sublayer(cfg, ctx, p["cross_norm"], x, n, lambda h, _:
+                              A.cross_attention(p["cross"], h, memory,
+                                                cfg.attn_cfg()), None)
+        return _apply_ffn_part(p, x, cfg, layer, taps, ffn, path=path, n=n)
     if kind == "rec":
-        y, _ = R.rglru_apply(p["rec"], _norm(cfg, p["rec_norm"], x),
-                             cfg.rglru_cfg())
-        return _apply_ffn_part(p, x + y, cfg, layer, taps, ffn)
+        y = _sublayer(cfg, ctx, p["rec_norm"], x, n, lambda h, _:
+                      R.rglru_apply(p["rec"], h, cfg.rglru_cfg())[0], None)
+        return _apply_ffn_part(p, x + y, cfg, layer, taps, ffn, path=path,
+                               n=n)
     if kind == "mlstm":
-        y, _ = X.mlstm_apply(p["mlstm"], x, cfg.xlstm_cfg())
+        y = _whole(ctx, x, n, lambda h: X.mlstm_apply(p["mlstm"], h,
+                                                      cfg.xlstm_cfg())[0])
         return y, _no_aux(x)
-    y, _ = X.slstm_apply(p["slstm"], x, cfg.xlstm_cfg())
+    y = _whole(ctx, x, n, lambda h: X.slstm_apply(p["slstm"], h,
+                                                  cfg.xlstm_cfg())[0])
     return y, _no_aux(x)
 
 
@@ -435,7 +547,8 @@ def encoder_ffn_modules(params: Params,
 
 def _embed_in(params: Params, cfg: ArchConfig,
               tokens: torch.Tensor) -> torch.Tensor:
-    x = embed(params["embed"], tokens)
+    x = embed(params["embed"], tokens,
+              _tp_shard(_mesh_ctx(), "['embed']['table']"))
     if cfg.embed_scale:
         # a 0-dim host tensor: no copy to the device (CUDA-graph safe)
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
@@ -489,6 +602,10 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     x, prefix_len, memory = _front(params, cfg, tokens, frames, patches,
                                    enc_ffns)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = x.shape[1]
+    ctx = _mesh_ctx()
+    if ctx is not None and ctx.sp:
+        x = COLL.scatter_seq(x, ctx.mesh, reduce=False)
     for layer, kind, bp, unit in _layers(params, cfg):
         # stacked units run as the reference's scan body: layer 0's FFN
         # config, no taps
@@ -496,15 +613,50 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
         x, a = block_apply(bp, x, cfg, kind, prefix_len=prefix_len,
                            memory=memory, layer=layer if extra else 0,
                            taps=ffn_taps if extra else None,
-                           ffn=_ffn_of(ffns, layer))
+                           ffn=_ffn_of(ffns, layer),
+                           path=_layer_path(cfg, layer, unit), n=n)
         aux = aux + a
-    return _norm(cfg, params["final_norm"], x), aux
+    if ctx is None or not ctx.sp:
+        return _norm(cfg, params["final_norm"], x), aux
+    # the chunks of the final norm gathered for the loss: its cotangent
+    # is each rank's share when the loss is vocab-parallel, else whole
+    norm_p = tree_map(lambda a: COLL.enter(a, ctx.mesh), params["final_norm"])
+    h = COLL.gather_seq(_norm(cfg, norm_p, x), ctx.mesh, n,
+                        partial=_vocab_shard(cfg) is not None)
+    return h, aux
 
 
 def _logits(params: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    """f32 logits of ``h`` (a rank's vocab columns of a vocab-parallel
+    table or head)."""
     if cfg.tied_embeddings:
         return unembed(params["embed"], h)
     return f32_matmul(h, params["lm_head"]["kernel"])
+
+
+def _vocab_shard(cfg: ArchConfig) -> Optional[Shard]:
+    """The ``Shard`` of a vocab-parallel LM head (the tied table or
+    ``lm_head``) under the active mesh, else None."""
+    return _tp_shard(_mesh_ctx(), "['embed']['table']" if cfg.tied_embeddings
+                     else "['lm_head']['kernel']")
+
+
+def _vocab_parallel_ce(lg: torch.Tensor, labels: torch.Tensor,
+                       shard: Shard) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(log-partition, gold logit) of a rank's f32 vocab columns ``lg``:
+    the max over ``model`` (exact), the sums of exps and the gold logit
+    (from the rank that holds it, zeros elsewhere) summed over ``model``
+    in rank order in f32."""
+    n, mesh = lg.shape[-1], shard.mesh
+    mx = COLL.pmax(torch.amax(lg, dim=-1).detach(), mesh, "model")
+    se = COLL.combine(torch.sum(torch.exp(lg - mx[..., None]), dim=-1), mesh)
+    ids = labels.long() - shard.index * n
+    inside = (ids >= 0) & (ids < n)
+    g = torch.gather(lg, -1, torch.clamp(ids, 0, n - 1)[..., None])[..., 0]
+    gold = COLL.combine(torch.where(inside, g, torch.zeros((), device=g.device,
+                                                           dtype=g.dtype)),
+                        mesh)
+    return mx + torch.log(se), gold
 
 
 def lm_loss(params: Params, cfg: ArchConfig, hidden: torch.Tensor,
@@ -513,7 +665,8 @@ def lm_loss(params: Params, cfg: ArchConfig, hidden: torch.Tensor,
     """Stable cross-entropy (plus ``z_loss`` times the squared log-
     partition) over ``cfg.loss_chunks`` chunks of the positions, never
     the whole (B, S, V) logits at once; ``hidden`` (B, S, d) aligned with
-    ``labels`` (B, S), the mean over ``mask``'s positions."""
+    ``labels`` (B, S), the mean over ``mask``'s positions.  Vocab-parallel
+    under a mesh whose LM head is tensor-parallel (module docstring)."""
     B, S, _ = hidden.shape
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
@@ -524,12 +677,19 @@ def lm_loss(params: Params, cfg: ArchConfig, hidden: torch.Tensor,
     L = S // n_chunks
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     denom = torch.clamp(torch.sum(mask), min=1.0)
+    shard = _vocab_shard(cfg)
+    if shard is not None and not shard.sp:
+        # under sp forward's gather_seq already sums hidden's cotangent
+        hidden = shard.enter(hidden)
     for c in range(n_chunks):
         sl = slice(c * L, (c + 1) * L)
         lg = _logits(params, cfg, hidden[:, sl]).to(torch.float32)
         m = mask[:, sl]
-        lse = torch.logsumexp(lg, dim=-1)
-        gold = torch.gather(lg, -1, labels[:, sl, None].long())[..., 0]
+        if shard is None:
+            lse = torch.logsumexp(lg, dim=-1)
+            gold = torch.gather(lg, -1, labels[:, sl, None].long())[..., 0]
+        else:
+            lse, gold = _vocab_parallel_ce(lg, labels[:, sl], shard)
         out = torch.sum((lse - gold) * m)
         if z_loss:
             out = out + z_loss * torch.sum(torch.square(lse) * m)

@@ -17,7 +17,12 @@ Counterpart of ``repro/models/xlstm.py``.  xlstm-125m has no FFN
   scans.
 
 Every product of the cells is f32 and, on the card, IEEE f32 with no
-TF32 (``kernels/grad.ieee_matmul``).  ``slstm_scan_flops`` and
+TF32 (``kernels/grad.ieee_matmul``).  The chunk's inclusive scan of the
+log forget gates (the reference's ``jnp.cumsum``) is the product with an
+upper-triangular ones matrix in f64, rounded once to f32
+(``inclusive_scan``): the running sum to within one f32 rounding, and
+deterministic on the card, where torch's deterministic mode refuses a
+float ``cumsum``.  ``slstm_scan_flops`` and
 ``mlstm_chunk_flops`` are the reference's analytic FLOP counts, value
 for value.  Initialisers draw from an explicit ``torch.Generator`` on
 its device (the reference's shapes and distributions, not its draws;
@@ -105,6 +110,17 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return y, xp[:, -(K - 1):, :]
 
 
+def inclusive_scan(x: torch.Tensor) -> torch.Tensor:
+    """The inclusive running sum of f32 ``x`` over its last dim: the f64
+    product with an upper-triangular ones matrix (deterministic on the
+    card, where a float ``torch.cumsum`` is refused under deterministic
+    algorithms), rounded once to f32."""
+    L = x.shape[-1]
+    upper = torch.triu(torch.ones((L, L), dtype=torch.float64,
+                                  device=x.device))
+    return torch.matmul(x.to(torch.float64), upper).to(x.dtype)
+
+
 def _mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  li: torch.Tensor, lf: torch.Tensor,
                  state: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -118,7 +134,7 @@ def _mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k = k.to(f32)
     v = v.to(f32)
 
-    Fc = torch.cumsum(lf, dim=-1)                       # (B,H,L) inclusive
+    Fc = inclusive_scan(lf)                             # (B,H,L) inclusive
     # intra-chunk exponents a[t,j] = F_t - F_j + li_j  (j <= t)
     a = Fc[..., :, None] - Fc[..., None, :] + li[..., None, :]
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))

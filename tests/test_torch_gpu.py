@@ -2056,6 +2056,32 @@ if mode == "ep":
         ep = moe_apply(params, x, cfg)["out"]
     err = float((ep - one).abs().max())
     res["err"], res["scale"] = err, float(one.abs().max())
+elif mode == "tp":
+    # tensor parallelism over 2 model ranks, both activation modes,
+    # against one process
+    cfg = dataclasses.replace(get_config("qwen2-0.5b").reduce(),
+                              ffn_kind="kan", pattern_rate=0.5,
+                              dtype="bfloat16")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(4, 17)).astype(np.int32), device=dev)
+    one = ST.make_train_step(cfg, ST.StepOptions(lr=1e-3, warmup=0))(
+        ST.init_train_state(cfg, ST.StepOptions(), params=params),
+        {"tokens": tokens})[1]
+    res["loss1"] = float(one["loss"])
+    for am in ("replicated", "sp"):
+        opts = ST.StepOptions(lr=1e-3, warmup=0, activation_mode=am)
+        step = ST.make_train_step(cfg, opts, mesh)
+        state = ST.init_train_state(cfg, opts, params=params, mesh=mesh)
+        batch = ST.local_batch({"tokens": tokens}, mesh)
+        before = dict(_build.LAUNCHES)
+        s, m = step(state, batch)
+        launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                    if v != before[k]}
+        s2, m2 = step(state, batch)
+        res[am] = {"loss": float(m["loss"]), "n_tp": len(step.tp),
+                   "bitwise": float(m["loss"]) == float(m2["loss"]),
+                   "launches": launched}
 else:
     cfg = dataclasses.replace(get_config("qwen2-0.5b").reduce(),
                               ffn_kind="kan", pattern_rate=0.5)
@@ -2110,6 +2136,51 @@ def test_mesh_expert_parallel_layer_on_the_card(cuda, tmp_path):
     res = _mesh_run(tmp_path, "ep", "1x2")
     assert res["backend"] == "gloo"
     assert res["err"] <= TOL * (1 + res["scale"])
+
+
+def test_mesh_tensor_parallel_step_on_the_card(cuda, tmp_path):
+    """One step of the reduced qwen2-0.5b with the KAN drop-in at bf16
+    (its t f32) over 2 model ranks on cuda:0 (gloo), tensor-parallel in
+    both activation modes: the loss within the phase-15 bound of one
+    process's, two steps from one state bitwise, two launches a KAN
+    layer (the mixed kernel, kan_down's partial in f32, and the bf16
+    spline basis)."""
+    res = _mesh_run(tmp_path, "tp", "1x2")
+    assert res["backend"] == "gloo"
+    for am in ("replicated", "sp"):
+        r = res[am]
+        assert r["n_tp"] > 0 and r["bitwise"], am
+        assert abs(r["loss"] - res["loss1"]) <= 1e-3 * (1 + abs(res["loss1"]))
+        assert r["launches"] == {"kan_fused_v2_mixed": 4,
+                                 "spline_basis_bf16": 4}, r["launches"]
+
+
+def test_xlstm_train_steps_on_the_card_are_deterministic(cuda):
+    """Two train steps of the reduced xlstm-125m on the card under the
+    train step's deterministic mode (the chunkwise mLSTM's scan is the
+    f64 triangular product, ``xlstm.inclusive_scan``), twice: finite
+    losses, the two runs bitwise, and the first loss within 1e-4 of the
+    same step on the CPU."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps as TS
+
+    cfg = get_config("xlstm-125m").reduce()
+    opts = TS.StepOptions(lr=1e-3, total_steps=4, warmup=0)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 33)).astype(np.int32))
+    runs = []
+    for dev in ("cuda", "cuda", "cpu"):
+        state = TS.init_train_state(cfg, opts, torch.Generator().manual_seed(0),
+                                    dev)
+        step, losses = TS.make_train_step(cfg, opts), []
+        for _ in range(2):
+            state, m = step(state, {"tokens": toks.to(dev)})
+            losses.append(float(m["loss"]))
+        runs.append((losses, [a.cpu() for _, a in leaf_paths(state)]))
+    (l1, s1), (l2, s2), (lc, _) = runs
+    assert all(np.isfinite(l1)) and l1 == l2
+    assert all(torch.equal(a, b) for a, b in zip(s1, s2))
+    assert abs(l1[0] - lc[0]) <= 1e-4 * (1 + abs(lc[0]))
 
 
 def test_mesh_data_parallel_step_on_the_card(cuda, tmp_path):

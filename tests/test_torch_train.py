@@ -220,7 +220,8 @@ def test_gradient_refused_where_the_reference_does_not_train():
 def test_bf16_v2_gradient_runs():
     """The bf16 version-2 layer has a gradient (bf16 x and wt, bf16 out):
     through ``KanFusedV2``, each gradient in its operand's dtype; a bf16
-    x with an f32 output still refuses one."""
+    x with an f32 output (a tensor-parallel partial) has one too, bitwise
+    the bf16 output's under the same cotangent values."""
     spec = SplineSpec(4, 3)
     kb = (0, 2, 4, 5, 6)
     g = torch.Generator().manual_seed(3)
@@ -235,8 +236,12 @@ def test_bf16_v2_gradient_runs():
     for t in (x, wt):
         assert t.grad.dtype == torch.bfloat16
         assert torch.isfinite(t.grad.float()).all() and t.grad.abs().sum() > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kan_fused_v2(x, wt, spec, kb, out_dtype=torch.float32)
+    want = (x.grad.clone(), wt.grad.clone())
+    x.grad = wt.grad = None
+    y32 = kan_fused_v2(x, wt, spec, kb, out_dtype=torch.float32)
+    assert y32.dtype == torch.float32 and "KanFusedV2Backward" in _nodes(y32)
+    y32.backward(torch.ones_like(y32))
+    assert all(torch.equal(a, b) for a, b in zip((x.grad, wt.grad), want))
 
 
 def test_serving_path_takes_no_gradient_path():
