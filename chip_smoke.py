@@ -302,10 +302,22 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    same figures per rank; (b) the same mesh with ``grad_compression``:
    each rank's dequantized gradients bitwise the host's reduction of the
    same int8 codes; (c) qwen3-moe-235b-a22b (2 of 94 layers, full width,
-   bf16) on a 1x4 mesh, 32 experts a rank: a prefill of 8 x 16 tokens
-   and 8 decode steps, greedy tokens equal and logits within phase 11's
-   ``MOE_TF_TOL`` of one process's; (d) (a)'s checkpoint restored on 1x2
-   and 1x1 bitwise, one more step on each.
+   bf16) on a 1x4 mesh, 32 experts a rank, its attention and vocab
+   tensor-parallel: a prefill of 8 x 16 tokens
+   and 8 decode steps teacher-forced on one process's tokens and
+   routing, greedy tokens equal but at a checked tie, logits and router
+   probs within phase 11's ``MOE_TF_TOL`` of one process's, the ranks'
+   own routing one process's but at a routing tie; (d) (a)'s checkpoint restored on 1x2
+   and 1x1 bitwise, one more step on each; (f) the tensor-parallel serve
+   steps (``launch/steps.make_prefill_step`` / ``make_decode_step`` on
+   the mesh, the reference's KV cache layout) on (a)'s 2x2 mesh, model
+   and draw: a prefill of 8 x 1024 tokens (the caches 520 of 1040 slots
+   a model rank) and 8 decode steps teacher-forced on one process's
+   tokens: greedy tokens equal but at a checked tie, logits within 2 x 24
+   bf16 ulps, every mixed launch held to its plain version, a second run
+   bitwise; per rank against one process: prefill and decode host and
+   device ms, bytes and collectives, peak GiB, KV cache bytes; the mixed
+   kernel timed at the rank's serve shapes.
 
 No served path launches the spline-basis or v1 kernels, so their
 ``launches`` in the record are those of phases 6 and 5; the mixed
@@ -319,7 +331,9 @@ runs of the paper scripts (Table I, the Fig. 8 sweep, Table II), and
 ``launches_encdec``, its launches in phase 12 (a)-(c), and
 ``launches_lm_train``, its launches in phase 13 (a)-(d),
 ``launches_array``, its launches in phase 14's served runs, and
-``launches_mesh``, rank 0's launches in phase 15 (a)'s first run.
+``launches_mesh``, rank 0's launches in phase 15 (a)'s first run, and
+``launches_tp_serve``, rank 0's in phase 15 (f)'s timed prefill and
+decode steps.
 
 It prints the ``{"kernels": [...]}`` record, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It imports nothing
@@ -477,6 +491,12 @@ MESH_EP_ARCH = "qwen3-moe-235b-a22b"
 MESH_EP_DEPTH = 2
 MESH_EP_BATCH, MESH_EP_PROMPT, MESH_EP_NEW = 8, 16, 8
 MESH_RESTORE_RANKS = (1, 2)    # (d) on ranks of (a)'s spawn, then 1x1
+# (f) tensor-parallel serve steps on (a)'s 2x2 mesh, (a)'s model and
+# draw: a prefill of 8 x 1024 tokens (4 rows a data rank; 1040 slots, 520
+# a model rank), then decode steps teacher-forced on one process's
+# tokens; the logits within the launches a token's logits pass in series
+# (2 a layer), each one bf16 ulp, as phase 12 builds ED_TF_TOL
+MESH_TP_BATCH, MESH_TP_PROMPT, MESH_TP_NEW = 8, 1024, 8
 MESH_SPAWN_S = 600
 MESH_DEV = "cuda:0"
 MESH_GIB = 60.0               # the four ranks' peaks together on the card
@@ -3125,6 +3145,211 @@ def _profile_ms(fn) -> dict:
             "copy_share": copies / kern if kern else float("nan")}
 
 
+def _tap_logits(TF):
+    """(a patcher of ``TF.greedy_token``, the list it fills): each greedy
+    token the serve steps take records the last position's logits, f32
+    (a rank's vocab columns under a vocab-parallel head)."""
+    from unittest import mock
+
+    seen, greedy = [], TF.greedy_token
+
+    def tapped(lg, cfg=None):
+        seen.append(lg[:, -1].float())
+        return greedy(lg, cfg)
+
+    return mock.patch.object(TF, "greedy_token", tapped), seen
+
+
+def _held_layers(ffns, what: str, stats: dict):
+    """A context in which each KAN layer of the held FFN modules ``ffns``
+    holds every launch to its plain version on its input (one bf16 ulp of
+    1 + max|plain|; a tensor-parallel ``kan_down``'s f32 partial too),
+    counting them, the worst err / scale and the shapes in ``stats``."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.kernels.kan_fused.ref import kan_fused_v2_ref
+
+    stack = contextlib.ExitStack()
+    for mod in ffns:
+        for layer in (mod.up, mod.down):
+            def fwd(x, out_dtype=None, layer=layer, run=layer.forward):
+                y = run(x, out_dtype)
+                xf = x.reshape(-1, layer.cfg.n_in)
+                ref = kan_fused_v2_ref(xf, layer.wt, layer.cfg.spec,
+                                       layer.kb, out_dtype)
+                err, scale, nan = rel_err(y.reshape(ref.shape), ref)
+                check(not nan and err <= BF16_ULP * scale,
+                      f"{what}: a {MIXED} launch {tuple(xf.shape)} -> "
+                      f"{tuple(ref.shape)} {ref.dtype}: {err:.3e} from its "
+                      f"plain version, vs {BF16_ULP:g} * {scale:.4g}")
+                stats["n"] += 1
+                stats["worst"] = max(stats["worst"], err / scale)
+                shape = [list(xf.shape), list(layer.wt.shape), str(ref.dtype)]
+                if shape not in stats["shapes"]:
+                    stats["shapes"].append(shape)
+                return y
+            stack.enter_context(mock.patch.object(layer, "forward", fwd))
+    return stack
+
+
+def _serve_run(pre, dec, params, batch: dict, fed: list, sync,
+               profile: bool = False) -> tuple:
+    """A prefill of ``batch`` and a decode step a token of ``fed`` (the
+    teacher's): (record, caches).  The record holds each step's greedy
+    tokens, host ms, collectives and launches; with ``profile`` also the
+    device time of one more prefill and one more decode step from the
+    profiler (not counted)."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import collectives as COLL
+
+    rec: dict = {"tokens": [], "host_ms": [], "sent": [], "launches": []}
+
+    def step(fn, *args):
+        sync()
+        _build.reset_launches()
+        COLL.reset_sent()
+        t0 = time.perf_counter()
+        tok, caches = fn(*args)
+        sync()
+        rec["host_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["sent"].append(dict(COLL.SENT))
+        rec["launches"].append({k: v for k, v in _build.LAUNCHES.items()
+                                if v})
+        rec["tokens"].append(tok.cpu())
+        return caches
+
+    caches = step(pre, params, batch)
+    first = caches
+    for tok in fed:
+        caches = step(dec, params, {"token": tok, "caches": caches})
+    if profile:
+        rec["prefill_prof"] = _profile_ms(lambda: pre(params, batch))
+        rec["decode_prof"] = _profile_ms(lambda: dec(
+            params, {"token": fed[0], "caches": first}))
+    return rec, caches
+
+
+def _checked_ties(tokens: torch.Tensor, ref: torch.Tensor, bound: float,
+                  what: str) -> list:
+    """[step, row] of each greedy token (``tokens`` (steps, B)) that is
+    not the argmax of the reference's logits ``ref`` (steps, B, V): each
+    must be a tie, the reference's top two logits within ``bound`` of
+    each other and the token one of them (as phase 3 checks a
+    requantization tie)."""
+    ties = []
+    for st in range(tokens.shape[0]):
+        for b, g in enumerate(tokens[st].tolist()):
+            want = int(ref[st, b].argmax())
+            if g == want:
+                continue
+            top = torch.topk(ref[st, b], 2)
+            gap = float(top.values[0] - top.values[1])
+            check(gap <= bound and g in top.indices.tolist(),
+                  f"{what} step {st} row {b}: token {g} on the mesh, {want} "
+                  f"in one process, top-two gap {gap:.4g} vs {bound:.4g}")
+            ties.append([st, b, gap])
+    return ties
+
+
+def _route_tap(MO, forced=None):
+    """(a patcher of ``MO._route``, the list it fills with each call's
+    (top_e, router probs) on the host).  With ``forced`` (a list of
+    another run's records) each call takes that run's experts, gated by
+    its own probs renormalised over them (calls past those records route
+    themselves): teacher-forced routing, as the decode steps are fed the
+    teacher's tokens."""
+    from unittest import mock
+
+    seen, route = [], MO._route
+
+    def tapped(probs, K):
+        top_p, top_e = route(probs, K)
+        seen.append((top_e.cpu(), probs.float().cpu()))
+        if forced is not None and len(seen) <= len(forced):
+            top_e = forced[len(seen) - 1][0].to(probs.device)
+            top_p = torch.gather(probs, -1, top_e)
+            top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+        return top_p, top_e
+
+    return mock.patch.object(MO, "_route", tapped), seen
+
+
+def _routing_ties(mesh_rec: list, one_rec: list, tol: float) -> tuple:
+    """(tokens a MoE layer call routed otherwise than one process, the
+    largest router-probability gap to it over 1 + max): the probs within
+    ``tol`` of 1 + max, and each token routed otherwise at a tie, its
+    one-process margin between the k-th and (k+1)-th expert no wider
+    than twice its largest probability gap."""
+    ties, worst = [], 0.0
+    for i, ((e_m, p_m), (e_1, p_1)) in enumerate(zip(mesh_rec, one_rec)):
+        err, scale, nan = rel_err(p_m, p_1)
+        worst = max(worst, err / scale)
+        check(not nan and err <= tol * scale,
+              f"(phase 15 c) router call {i}: probs {err:.3e} from one "
+              f"process's, vs {tol:g} * {scale:.4g}")
+        other = (torch.sort(e_m, -1)[0] != torch.sort(e_1, -1)[0]).any(-1)
+        K = e_1.shape[1]
+        top = torch.sort(p_1, dim=-1, descending=True)[0]
+        for t in torch.nonzero(other)[:, 0].tolist():
+            margin = float(top[t, K - 1] - top[t, K])
+            gap = float((p_m[t] - p_1[t]).abs().max())
+            check(margin <= 2 * gap, f"(phase 15 c) router call {i} token "
+                  f"{t}: routed otherwise with a margin {margin:.3e} over "
+                  f"twice its probability gap {gap:.3e}")
+            ties.append([i, t, margin])
+    return ties, worst
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.utils import leaf_paths
+    return sum(a.numel() * a.element_size() for _, a in leaf_paths(tree))
+
+
+def _tp_serve_one(dev: torch.device, out: Path) -> dict:
+    """Phase 15 (f) in one process on the card: (a)'s model and draw, a
+    prefill of ``MESH_TP_BATCH`` x ``MESH_TP_PROMPT`` seeded tokens and
+    ``MESH_TP_NEW`` greedy decode steps; writes the prompt, the tokens the
+    ranks are fed and the logits to ``out / "tp_feed.pt"``; returns its
+    figures."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as TF
+
+    cfg = _mesh_lm_cfg()
+    params = TF.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    rng = np.random.default_rng(15)
+    prompt = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (MESH_TP_BATCH, MESH_TP_PROMPT)).astype(np.int32))
+    ffns = TF.ffn_modules(params, cfg)
+    pre = ST.make_prefill_step(cfg, ffns=ffns)
+    dec = ST.make_decode_step(cfg, ffns=ffns)
+    batch = {"tokens": prompt.to(dev)}
+    sync = torch.cuda.synchronize
+    torch.cuda.reset_peak_memory_stats(dev)
+    tap, seen = _tap_logits(TF)
+    with tap:
+        # greedy: each step fed the token the one before it took
+        tok, caches = pre(params, batch)
+        fed = []
+        for _ in range(MESH_TP_NEW):
+            fed.append(tok)
+            tok, caches = dec(params, {"token": tok, "caches": caches})
+        logits = torch.stack([lg.cpu() for lg in seen])
+    cache_bytes = _tree_bytes(caches)
+    del caches
+    rec, _ = _serve_run(pre, dec, params, batch, fed, sync, profile=True)
+    torch.save({"prompt": prompt, "fed": [t.cpu() for t in fed],
+                "logits": logits}, out / "tp_feed.pt")
+    tokens = torch.cat(rec["tokens"], dim=1)
+    check(torch.equal(tokens, logits.argmax(-1).T.to(torch.int32)),
+          "(phase 15 f) one process: a second run's greedy tokens differ "
+          "from the first's")
+    return {"rec": rec, "cache_bytes": cache_bytes,
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+
+
+
 def _mesh_worker(argv: list) -> int:
     """One rank of phase 15 (``python chip_smoke.py --mesh-worker OUT
     CKPT CARD``, started by ``mesh_phase`` through
@@ -3351,6 +3576,85 @@ def _mesh_worker(argv: list) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("a_checkpoint")
+    # (f) tensor-parallel serve steps from (a)'s draw, teacher-forced on
+    # one process's tokens: a run with every mixed launch held to its
+    # plain version, then a run timed (its last prefill and decode step
+    # profiled), bitwise the first
+    feed = torch.load(out / "tp_feed.pt")
+    torch.cuda.reset_peak_memory_stats(dev)
+    COLL.reset_sent()
+    cp = ST.compute_params(ST.shard_params(params, cfg, mesh), cfg, mesh)
+    pspecs = ST.train_state_shardings(cfg, mesh)["params"]
+    tp = ST._tp_paths(cfg, mesh, pspecs)
+    res["f"] = {"n_tp": len(tp),
+                "model_gathers": COLL.GATHERS.get(("model",), 0),
+                "model_gathers_want": sum(
+                    "model" in sp.axes() and k not in tp
+                    for k, sp in leaf_paths(pspecs))}
+    with ST.serve_mesh(cfg, mesh):
+        ffns = TF.ffn_modules(cp, cfg)
+    batch_f = {"tokens": feed["prompt"].to(dev)}
+    layout = ST.cache_layout(cfg, mesh, batch_f)
+    pre = ST.make_prefill_step(cfg, ffns=ffns, mesh=mesh)
+    dec = ST.make_decode_step(cfg, ffns=ffns, mesh=mesh, layout=layout)
+    fed = [ST.local_batch({"token": t.to(dev)}, mesh)["token"]
+           for t in feed["fed"]]
+    held_f = {"n": 0, "worst": 0.0, "shapes": []}
+    tap, seen = _tap_logits(TF)
+    with tap, _held_layers([f for f in ffns if f is not None],
+                           "(phase 15 f)", held_f):
+        rec_h, caches = _serve_run(pre, dec, cp, batch_f, fed, sync)
+    whole = [COLL.gather_cat(COLL.gather_cat(lg, mesh, "model", -1), mesh,
+                             "data", 0).cpu() for lg in seen]
+    res["f"]["cache_bytes"] = _tree_bytes(caches)
+    res["f"]["cache_shapes_ok"] = all(
+        a.shape == e.shape for (_, a), (_, e) in zip(
+            leaf_paths(caches),
+            leaf_paths(TF.init_caches(cfg, MESH_TP_BATCH, MESH_TP_PROMPT
+                                      + cfg.decode_margin, "meta", mesh))))
+    res["f"]["seq_sharded"] = sum("model" in sp.axes()
+                                  for _, sp in leaf_paths(layout))
+    del caches
+    lap("f_held")
+    rec_f, _ = _serve_run(pre, dec, cp, batch_f, fed, sync, profile=True)
+    res["f"]["bitwise"] = all(torch.equal(a, b) for a, b in
+                              zip(rec_h["tokens"], rec_f.pop("tokens")))
+    res["f"].update(rec=rec_f, held=held_f,
+                    peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    if rank == 0:
+        torch.save({"logits": torch.stack(whole),
+                    "tokens": [COLL.gather_cat(t.to(dev), mesh, "data",
+                                               0).cpu()
+                               for t in rec_h["tokens"]]},
+                   out / "tp_logits.pt")
+    else:
+        for t in rec_h["tokens"]:
+            COLL.gather_cat(t.to(dev), mesh, "data", 0)
+    lap("f_timed")
+    # the mixed kernel at the rank's serve shapes (kan_up 896 -> 304,
+    # kan_down 304 -> 896 with f32 partials; a prefill's rows and a
+    # decode step's), on layer 0's fused rows, timed on rank 0 alone
+    f_rows = []
+    if rank == 0:
+        gen = torch.Generator(device=dev).manual_seed(71)
+        rows_f = MESH_TP_BATCH // mesh.axis_size(SH.dp_axes(mesh))
+        mod = ffns[0]
+        for M_ in (rows_f * MESH_TP_PROMPT, rows_f):
+            for what, layer, out_dt in (("up", mod.up, None),
+                                        ("down", mod.down, F32)):
+                x = torch.randn((M_, layer.cfg.n_in), generator=gen,
+                                device=dev).to(BF)
+                f_rows += kan_layer_rows(
+                    x, layer.wt, layer.cfg.spec, layer.kb, "mixed", card,
+                    f"{what} (TP serve, M = {M_}, rank 0)", cfg.n_layers,
+                    out_dtype=out_dt)
+                del x
+    mesh.barrier()
+    res["f"]["rows"] = f_rows
+    del cp, ffns, pre, dec, fed, rec_h, whole, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("f_kernels")
     # (e) sequence parallelism: the same steps with activation_mode="sp",
     # the last one profiled
     o_sp = _mesh_opts(activation_mode="sp")
@@ -3437,9 +3741,18 @@ def _mesh_worker(argv: list) -> int:
     res["local_experts"] = int(e[0].shape[-3])
     feed = torch.load(out / "ep_tokens.pt")
     logits = []
-    with torch.no_grad(), M.set_mesh(mesh):
+    res["n_tp"] = len(ST._tp_paths(cfg, mesh, ST.train_state_shardings(
+        cfg, mesh)["params"]))
+
+    def whole_logits(lg):       # the rank's vocab columns, gathered
+        return COLL.gather_cat(lg[:, -1].float(), mesh, "model", -1).cpu()
+
+    layout = ST.cache_layout(cfg, mesh, {"tokens": feed["prompt"]})
+    from repro_torch.models import moe as MO
+    tap, routes = _route_tap(MO, feed["routes"])
+    with torch.no_grad(), ST.serve_mesh(cfg, mesh, layout), tap:
         lg, caches = TF.prefill(cp, cfg, feed["prompt"].to(dev))
-        logits.append(lg[:, -1].float().cpu())
+        logits.append(whole_logits(lg))
         times = []
         for i in range(MESH_EP_NEW):
             tok = feed["fed"][i].to(dev)
@@ -3448,7 +3761,7 @@ def _mesh_worker(argv: list) -> int:
             lg, caches = TF.decode_step(cp, cfg, tok, caches)
             sync()
             times.append((time.perf_counter() - t0) * 1e3)
-            logits.append(lg[:, -1].float().cpu())
+            logits.append(whole_logits(lg))
         res["decode_host_ms"] = statistics.median(times)
         lap("c_prefill_decode")
         prof = _profile_ms(lambda: TF.decode_step(
@@ -3459,7 +3772,9 @@ def _mesh_worker(argv: list) -> int:
         lap("c_profile")
     res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     if mesh.rank == 0:
-        torch.save(torch.stack(logits), out / "ep_logits.pt")
+        torch.save({"logits": torch.stack(logits),
+                    "routes": routes[:len(feed["routes"])]},
+                   out / "ep_logits.pt")
     (out / f"ep_rank{rank}.json").write_text(json.dumps(res))
     M.destroy_process_mesh(mesh)
     return 0
@@ -3490,16 +3805,33 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
     ``grad_compression``: each rank's dequantized gradients bitwise those
     of the same codes reduced on the host, the first loss bitwise (a)'s;
     (c) expert parallelism on a 1x4 mesh: qwen3-moe-235b-a22b, 2 of 94
-    layers, full width, bf16, 32 experts a rank: a prefill of 8 x 16
-    tokens and 8 decode steps fed the one-process run's greedy tokens,
-    every step's greedy tokens equal to it and its logits within phase
-    11's ``MOE_TF_TOL``; per rank peak GiB and the copy kernels' share
+    layers, full width, bf16, 32 experts a rank, its attention and
+    vocab tensor-parallel (the serve steps' context): a prefill of 8 x
+    16 tokens and 8 decode steps fed the one-process run's greedy
+    tokens and its routing (a token whose k-th and (k+1)-th router
+    probabilities differ by less than the mesh's rounding moves them
+    would take other experts: each layer call takes the one-process
+    experts, gated by its own probs), every step's greedy tokens equal
+    to it but at a checked tie (``_checked_ties``) and its logits within
+    phase 11's ``MOE_TF_TOL``; the router probs within the same bound,
+    and the ranks' own routing the one process's but at a routing tie
+    (``_routing_ties``); per rank peak GiB and the copy kernels' share
     of a decode step's device time;
     (d) (a)'s checkpoint restored on 1x2 (ranks) and 1x1 (this process,
     ``Trainer(mesh=make_host_mesh())``): every leaf bitwise the saved one,
-    and one more step on each.
-    One spawn of four ranks runs (a), (e), (b), (d)'s 1x2 and (c), each
-    on a process group of its own; the one-process references run first.
+    and one more step on each;
+    (f) the tensor-parallel serve steps on (a)'s mesh, model and draw: a
+    prefill of ``MESH_TP_BATCH`` x ``MESH_TP_PROMPT`` tokens and
+    ``MESH_TP_NEW`` decode steps teacher-forced on one process's tokens,
+    greedy tokens equal but at a checked tie and logits within 2 bf16
+    ulps a layer of one process's, every mixed launch held to its plain
+    version, the timed run bitwise the held one; per rank and for one
+    process the host and device ms of a prefill and a decode step, the
+    bytes and collectives, peak GiB and KV cache bytes; the mixed kernel
+    at the rank's serve shapes timed on rank 0.
+    One spawn of four ranks runs (a), (f), (e), (b), (d)'s 1x2 and (c),
+    each but (f) on a process group of its own; the one-process
+    references run first.
     Returns what it measured, with the seconds of each part; raises on
     any fault."""
     from repro_torch.checkpoint import restore_checkpoint
@@ -3553,7 +3885,9 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
     prompt = torch.as_tensor(rng.integers(
         0, ecfg.vocab_size, (MESH_EP_BATCH, MESH_EP_PROMPT)).astype(np.int32))
     ref, fed = [], []
-    with torch.no_grad():
+    from repro_torch.models import moe as MO
+    tap, routes = _route_tap(MO)
+    with torch.no_grad(), tap:
         lg, caches = TF.prefill(params, ecfg, prompt.to(dev))
         ref.append(lg[:, -1].float().cpu())
         for _ in range(MESH_EP_NEW):
@@ -3563,8 +3897,15 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
             ref.append(lg[:, -1].float().cpu())
     del params, caches, lg
     free()
-    torch.save({"prompt": prompt, "fed": fed}, out / "ep_tokens.pt")
+    torch.save({"prompt": prompt, "fed": fed, "routes": routes},
+               out / "ep_tokens.pt")
     times["c_one_process"] = time.perf_counter() - t0
+    # (f) one process first: the prompt, the tokens the ranks are fed,
+    # the logits and its figures
+    t0 = time.perf_counter()
+    one_f = _tp_serve_one(dev, out)
+    free()
+    times["f_one_process"] = time.perf_counter() - t0
     # one spawn: (a), (b), (d)'s 1x2 restore, then (c)
     t0, w0 = time.perf_counter(), time.time()
     n = math.prod(MESH_DP)
@@ -3659,6 +4000,79 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
           f"{dp[0]['comp']['loss']}; (e) activation_mode=sp losses "
           f"{dp[0]['e']['loss']}, largest gap to one process's or (a)'s "
           f"{max(gaps_e):.3e}")
+    # (f) tensor-parallel serve steps against one process
+    got_f, feed_f = (torch.load(out / n) for n in ("tp_logits.pt",
+                                                  "tp_feed.pt"))
+    lf, rf = got_f["logits"], feed_f["logits"]         # (1 + new, B, V)
+    tol_f = 2 * cfg.n_layers * BF16_ULP
+    scale_f = 1 + float(rf.abs().max())
+    err_f = float((lf - rf).abs().max())
+    check(bool(torch.isfinite(lf).all()) and err_f <= tol_f * scale_f,
+          f"(phase 15 f) logits {err_f:.3e} from one process's, vs "
+          f"{tol_f:g} * {scale_f:.4g}")
+    ties_f = _checked_ties(torch.stack([t[:, 0] for t in got_f["tokens"]]),
+                           rf, tol_f * scale_f, "(phase 15 f)")
+    want_f = {MIXED: 2 * cfg.n_layers}
+    for r in dp:
+        f = r["f"]
+        check(f["bitwise"] and f["cache_shapes_ok"] and f["seq_sharded"] > 0
+              and f["n_tp"] > 0
+              and f["model_gathers"] == f["model_gathers_want"],
+              f"(phase 15 f) rank {r['rank']}: bitwise {f['bitwise']}, cache "
+              f"shapes {f['cache_shapes_ok']}, {f['seq_sharded']} "
+              f"sequence-sharded caches, {f['n_tp']} TP leaves, "
+              f"{f['model_gathers']} gathers along model (want "
+              f"{f['model_gathers_want']})")
+        check(f["held"]["n"] == (1 + MESH_TP_NEW) * 2 * cfg.n_layers,
+              f"(phase 15 f) rank {r['rank']}: {f['held']['n']} held "
+              f"{MIXED} launches")
+        for st, got in enumerate(f["rec"]["launches"]):
+            check(got == want_f, f"(phase 15 f) rank {r['rank']} step {st}: "
+                  f"launches {got}, want {want_f}")
+
+    def serve_row(who: str, rec: dict, peak: float, cache_bytes: int) -> dict:
+        return {"who": who, "prefill_host_ms": rec["host_ms"][0],
+                "prefill_device_ms": rec["prefill_prof"]["device_ms"],
+                "prefill_kernel_ms": rec["prefill_prof"]["kernel_ms"],
+                "decode_host_ms": statistics.median(rec["host_ms"][1:]),
+                "decode_host_ms_steps": rec["host_ms"][1:],
+                "decode_device_ms": rec["decode_prof"]["device_ms"],
+                "decode_kernel_ms": rec["decode_prof"]["kernel_ms"],
+                "prefill_sent_bytes": rec["sent"][0]["bytes"],
+                "prefill_collectives": rec["sent"][0]["calls"],
+                "decode_sent_bytes": rec["sent"][-1]["bytes"],
+                "decode_collectives": rec["sent"][-1]["calls"],
+                "peak_gib": peak, "cache_bytes": cache_bytes}
+
+    rows_f = [serve_row("one process", one_f["rec"], one_f["peak_gib"],
+                        one_f["cache_bytes"])]
+    rows_f += [serve_row(f"rank {r['rank']} {r['coords']}", r["f"]["rec"],
+                         r["f"]["peak_gib"], r["f"]["cache_bytes"])
+               for r in dp]
+    for p in rows_f:
+        print(f"phase 15 (f) {p['who']}: prefill {MESH_TP_BATCH} x "
+              f"{MESH_TP_PROMPT} host {p['prefill_host_ms']:.1f} ms, device "
+              f"{p['prefill_device_ms']:.1f} ms (kernels "
+              f"{p['prefill_kernel_ms']:.1f}), sends "
+              f"{p['prefill_sent_bytes'] / 2 ** 20:.1f} MiB in "
+              f"{p['prefill_collectives']} collectives; a decode step host "
+              f"{p['decode_host_ms']:.2f} ms (median of {MESH_TP_NEW}), "
+              f"device {p['decode_device_ms']:.3f} ms (kernels "
+              f"{p['decode_kernel_ms']:.3f}), sends "
+              f"{p['decode_sent_bytes'] / 2 ** 20:.3f} MiB in "
+              f"{p['decode_collectives']} collectives; peak "
+              f"{p['peak_gib']:.2f} GiB; KV caches "
+              f"{p['cache_bytes'] / 2 ** 20:.1f} MiB; {card}")
+    for row in dp[0]["f"]["rows"]:
+        print(json.dumps(row))
+    print(f"phase 15 (f) tensor-parallel serve steps on 2x2 vs one process: "
+          f"{1 + MESH_TP_NEW} steps' logits {err_f / scale_f:.3e} of 1 + "
+          f"max (bound {tol_f:g}), greedy tokens equal but at "
+          f"{len(ties_f)} checked ties {ties_f}; each rank's "
+          f"{dp[0]['f']['held']['n']} {MIXED} launches within "
+          f"{max(r['f']['held']['worst'] for r in dp) / BF16_ULP:.2f} bf16 "
+          f"ulps of their plain versions at {dp[0]['f']['held']['shapes']}; "
+          f"{dp[0]['f']['seq_sharded']} cache leaves sequence-sharded")
     # (d) elastic restore: 1x2 on ranks 0-1 of (a)'s spawn, then 1x1 here
     tag12 = "x".join(map(str, MESH_RESTORE_RANKS))
     restores = {tag12: {**dp[0]["restore"], "bad_leaves": sorted({
@@ -3692,17 +4106,19 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
           + ", ".join(f"{t} ({r['n_leaves']} leaves bitwise, one more step "
                       f"loss {r['loss']:.4f})" for t, r in restores.items()))
     shutil.rmtree(ck, ignore_errors=True)
-    got = torch.load(out / "ep_logits.pt")
+    got_c = torch.load(out / "ep_logits.pt")
+    got = got_c["logits"]
     ref = torch.stack(ref)
     tol = MOE_TF_TOL[torch.bfloat16]
+    ties_r, worst_r = _routing_ties(got_c["routes"], routes, tol)
     err = float((got - ref).abs().max())
     scale = 1 + float(ref.abs().max())
-    same = bool(torch.equal(got.argmax(-1), ref.argmax(-1)))
-    check(same, f"(phase 15 c) greedy tokens on 1x4 differ from one "
-          f"process's")
     check(err <= tol * scale, f"(phase 15 c) logits {err:.3e} from one "
           f"process's, vs {tol:g} * {scale:.4g}")
+    ties_c = _checked_ties(got.argmax(-1), ref, tol * scale, "(phase 15 c)")
     for r in ep:
+        check(r["n_tp"] > 0, f"(phase 15 c) rank {r['rank']}: no "
+              f"tensor-parallel leaf")
         check(r["local_experts"] == ecfg.n_experts // MESH_EP[1],
               f"(phase 15 c) rank {r['rank']} holds {r['local_experts']} "
               f"experts")
@@ -3713,7 +4129,10 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
               f"kernels {r['copy_share'] * 100:.1f}% of that)")
     print(f"phase 15 (c) {MESH_EP_ARCH} ({MESH_EP_DEPTH} layers) on 1x4: "
           f"prefill {MESH_EP_BATCH} x {MESH_EP_PROMPT} + {MESH_EP_NEW} decode "
-          f"steps, greedy tokens equal to one process's, logits "
+          f"steps, routing teacher-forced (the ranks' own routing one "
+          f"process's but at {len(ties_r)} checked ties {ties_r}, router "
+          f"probs {worst_r:.3e} of 1 + max), greedy tokens equal to one "
+          f"process's but at {len(ties_c)} checked ties {ties_c}, logits "
           f"{err / scale:.3e} of 1 + max (bound {tol:g}); one spawn of "
           f"{n} ranks for (a)-(d) {t_spawn:.1f} s")
     shutil.rmtree(out, ignore_errors=True)
@@ -3724,7 +4143,17 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
     for got in dp[0]["a"]["launches"]:
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
-    return {"launches": launches,
+    launches_f: dict = {}
+    for got in dp[0]["f"]["rec"]["launches"]:
+        for k, v in got.items():
+            launches_f[k] = launches_f.get(k, 0) + v
+    return {"launches": launches, "launches_tp_serve": launches_f,
+            "tp_serve": {"err_rel": err_f / scale_f, "tol": tol_f,
+                         "ties": ties_f, "per_rank": rows_f,
+                         "kernel_rows": dp[0]["f"]["rows"],
+                         "held_shapes": dp[0]["f"]["held"]["shapes"],
+                         "held_worst": max(r["f"]["held"]["worst"]
+                                           for r in dp)},
             "dp": {"losses_2x2": dp[0]["a"]["loss"], "losses_1x1": one,
                    "max_gap": max(gaps), "per_rank": per_rank,
                    "comp_losses": dp[0]["comp"]["loss"],
@@ -3734,7 +4163,9 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
                    "per_rank": per_rank_e},
             "tp_kernel_rows": tp_rows,
             "restore": restores, "times_s": times,
-            "ep": {"err_rel": err / scale, "per_rank": [
+            "ep": {"err_rel": err / scale, "ties": ties_c,
+                   "routing_ties": ties_r, "router_err_rel": worst_r,
+                   "per_rank": [
                 {k: r[k] for k in ("rank", "peak_gib", "decode_host_ms",
                                    "decode_device_ms", "decode_kernel_ms",
                                    "copy_share")}
@@ -6027,6 +6458,7 @@ def main() -> int:
             "launches_lm_train": lm["launches"].get(k, 0),
             "launches_array": array["launches"].get(k, 0),
             "launches_mesh": mesh["launches"].get(k, 0),
+            "launches_tp_serve": mesh["launches_tp_serve"].get(k, 0),
             "max_abs_err": max_err[k], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

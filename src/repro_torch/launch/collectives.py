@@ -15,6 +15,12 @@ on the subgroup of the axes it reduces over:
   the bits ``reduce_over`` gives that chunk, for 1/n of the bytes;
 * ``psum_int32`` sums int32 with ``all_reduce`` (an integer sum is exact
   in any order) and ``pmax`` takes a maximum (exact too);
+* ``all_to_all`` sends ``chunks[j]`` to the j-th rank along the axes and
+  returns what each rank sent this one, in rank order;
+* ``softmax_combine`` merges attention's softmax partials ``(m, l, o)``
+  over the axes (a sequence-sharded KV cache), in rank order in f32;
+  ``argmax_over`` is the argmax of values split over the axes, the
+  lowest global index of a tie (``jnp.argmax``'s rule);
 * ``enter`` and ``combine`` are the two ``torch.autograd.Function``s of
   expert and tensor parallelism (``models/moe``, Megatron's f and g):
   *enter* is the identity forward and sums the cotangent over the axis
@@ -123,34 +129,11 @@ def reduce_scatter_over(chunks: Sequence[torch.Tensor], mesh: ProcessMesh,
                         dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``chunks[j]`` goes to the j-th rank along ``axes`` (row-major);
     returns the sum over the ranks of the chunk each sent this rank,
-    added in rank order in ``dtype`` (default the chunks').  Every rank
-    passes chunks of one shape and dtype; they cross as their bytes."""
-    ax: Axes = mesh.present(axes)
-    n = mesh.axis_size(ax)
-    if len(chunks) != n:
-        raise ValueError(f"{len(chunks)} chunks for {n} ranks along {ax}")
-    x = chunks[0]
-    if not ax:
-        return x.to(dtype or x.dtype)
-    # one flat buffer of the chunks' bytes, chunk j at j * nbytes: gloo
-    # takes only the single-tensor all-to-all
-    staged = _staged(mesh, x)
-    nbytes = x.numel() * x.element_size()
-    send = torch.empty(n * nbytes, dtype=torch.uint8,
-                       device="cpu" if staged else x.device,
-                       pin_memory=staged)
-    for j, c in enumerate(chunks):
-        send[j * nbytes:(j + 1) * nbytes].copy_(
-            c.contiguous().reshape(-1).view(torch.uint8))
-    SENT["calls"] += 1
-    SENT["bytes"] += (n - 1) * nbytes
-    recv = _like(send, staged)
-    dist.all_to_all_single(recv, send, group=mesh.group(ax))
+    added in rank order in ``dtype`` (default the chunks'): an
+    ``all_to_all``, then the adds."""
     acc = None
-    for j in range(n):
-        p = recv[j * nbytes:(j + 1) * nbytes].view(x.dtype).reshape(
-            x.shape).to(x.device)
-        acc = p.to(dtype or x.dtype) if acc is None else acc + p.to(acc.dtype)
+    for p in all_to_all(chunks, mesh, axes):
+        acc = p.to(dtype or p.dtype) if acc is None else acc + p.to(acc.dtype)
     return acc
 
 
@@ -179,6 +162,76 @@ def pmax(x: torch.Tensor, mesh: ProcessMesh,
          axes: str | Sequence[str]) -> torch.Tensor:
     """The elementwise maximum of ``x`` over ``axes``."""
     return _all_reduce(x, mesh, axes, dist.ReduceOp.MAX)
+
+
+def all_to_all(chunks: Sequence[torch.Tensor], mesh: ProcessMesh,
+               axes: str | Sequence[str]) -> List[torch.Tensor]:
+    """``chunks[j]`` goes to the j-th rank along ``axes`` (row-major);
+    returns the chunk each rank sent this one, in rank order.  Every
+    rank passes chunks of one shape and dtype; they cross as their bytes
+    in one flat buffer (gloo takes only the single-tensor all-to-all)."""
+    ax: Axes = mesh.present(axes)
+    n = mesh.axis_size(ax)
+    if len(chunks) != n:
+        raise ValueError(f"{len(chunks)} chunks for {n} ranks along {ax}")
+    x = chunks[0]
+    if not ax:
+        return [x]
+    staged = _staged(mesh, x)
+    nbytes = x.numel() * x.element_size()
+    send = torch.empty(n * nbytes, dtype=torch.uint8,
+                       device="cpu" if staged else x.device,
+                       pin_memory=staged)
+    for j, c in enumerate(chunks):
+        send[j * nbytes:(j + 1) * nbytes].copy_(
+            c.contiguous().reshape(-1).view(torch.uint8))
+    SENT["calls"] += 1
+    SENT["bytes"] += (n - 1) * nbytes
+    recv = _like(send, staged)
+    dist.all_to_all_single(recv, send, group=mesh.group(ax))
+    return [recv[j * nbytes:(j + 1) * nbytes].view(x.dtype).reshape(
+        x.shape).to(x.device) for j in range(n)]
+
+
+def softmax_combine(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                    mesh: ProcessMesh, axes: str | Sequence[str] = "model"
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Softmax partials over a split key axis merged over ``axes``: each
+    rank's running max ``m`` (...), denominator ``l`` (...) and
+    unnormalised output ``o`` (..., d), f32, all-gathered in one buffer;
+    then ``m = max_r m_r`` and ``l``, ``o`` summed in rank order in f32
+    with weights ``exp(m_r - m)``.  Every rank gets the same bits."""
+    f32 = torch.float32
+    packed = torch.cat([m.to(f32)[..., None], l.to(f32)[..., None],
+                        o.to(f32)], dim=-1)
+    parts = all_gather_shards(packed, mesh, axes)
+    mx = parts[0][..., 0]
+    for p in parts[1:]:
+        mx = torch.maximum(mx, p[..., 0])
+    l_acc = o_acc = None
+    for p in parts:
+        w = torch.exp(p[..., 0] - mx)
+        lw, ow = p[..., 1] * w, p[..., 2:] * w[..., None]
+        l_acc = lw if l_acc is None else l_acc + lw
+        o_acc = ow if o_acc is None else o_acc + ow
+    return mx, l_acc, o_acc
+
+
+def argmax_over(x: torch.Tensor, mesh: ProcessMesh,
+                axes: str | Sequence[str] = "model") -> torch.Tensor:
+    """The global index (int64) of the maximum over the last dim of
+    values split over ``axes`` in equal blocks (rank j of them holds
+    block j): the maximum through ``pmax`` (exact), then the lowest
+    global index among the ranks that hold it, as ``jnp.argmax`` breaks
+    ties."""
+    n = x.shape[-1]
+    idx = torch.argmax(x, dim=-1)        # the first index of a local tie
+    val = torch.gather(x, -1, idx[..., None])[..., 0]
+    top = pmax(val, mesh, axes)
+    idx = idx + mesh.index_over(axes) * n
+    big = torch.full_like(idx, n * mesh.axis_size(axes))
+    return _all_reduce(torch.where(val == top, idx, big), mesh, axes,
+                       dist.ReduceOp.MIN)
 
 
 class _Enter(torch.autograd.Function):

@@ -306,12 +306,16 @@ class MeshContext:
     """What the model code reads of the active mesh: the mesh, the
     residual stream's layout between blocks (``activation_mode``:
     ``"replicated"`` over ``model``, or ``"sp"``, its sequence split over
-    ``model``), and the paths of the leaves this rank holds only its
+    ``model``), the paths of the leaves this rank holds only its
     ``model`` shard of and computes with (tensor parallelism,
-    ``launch/steps._tp_paths``)."""
+    ``launch/steps._tp_paths``), and under a serve step the specs of the
+    whole KV caches (``launch/sharding.cache_shardings``): which caches
+    a rank holds a chunk of the sequence of (``launch/steps.
+    cache_layout``; None outside the serve steps)."""
     mesh: ProcessMesh
     activation_mode: str = "replicated"
     tp: FrozenSet[str] = frozenset()
+    caches: Any = None
 
     def __post_init__(self) -> None:
         if self.activation_mode not in ACTIVATION_MODES:
@@ -332,14 +336,16 @@ _ACTIVE: List[MeshContext] = []
 @contextlib.contextmanager
 def set_mesh(mesh: Optional[ProcessMesh], *,
              activation_mode: str = "replicated",
-             tp: FrozenSet[str] = frozenset()) -> Iterator[None]:
+             tp: FrozenSet[str] = frozenset(),
+             caches: Any = None) -> Iterator[None]:
     """Make ``mesh`` the active mesh inside the block (the counterpart of
-    ``jax.set_mesh``), with the activation mode and the tensor-parallel
-    leaves of ``MeshContext``; None leaves the active mesh as it is."""
+    ``jax.set_mesh``), with the activation mode, the tensor-parallel
+    leaves and the caches' specs of ``MeshContext``; None leaves the
+    active mesh as it is."""
     if mesh is None:
         yield
         return
-    _ACTIVE.append(MeshContext(mesh, activation_mode, frozenset(tp)))
+    _ACTIVE.append(MeshContext(mesh, activation_mode, frozenset(tp), caches))
     try:
         yield
     finally:

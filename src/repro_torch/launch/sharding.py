@@ -21,7 +21,9 @@ function returns the reference's ``PartitionSpec`` entry for entry: a
 Storage follows the specs (``launch/steps``): ``shard_leaf`` cuts this
 rank's block of a whole leaf on a ``ProcessMesh`` and ``gather_leaf``
 rebuilds the whole (or gathers only some axes) with
-``launch/collectives.gather_cat``.
+``launch/collectives.gather_cat``; ``shard_caches`` and
+``gather_caches`` do the same for the serve steps' caches, whose
+sequence-sharded entries a rank holds slots ``cache_slots`` of.
 
 Compute follows ``tp_unit``: a leaf whose ``model`` shard is a whole
 unit of its layer's work (whole attention heads, whole FFN hidden lanes,
@@ -313,6 +315,39 @@ def cache_shardings(caches: Tree, mesh: ProcessMesh,
 
 def replicated(mesh: Optional[ProcessMesh] = None) -> P:
     return P()
+
+
+def cache_slots(n_slots: int, mesh: ProcessMesh,
+                coords: Optional[Dict[str, int]] = None) -> Tuple[int, int]:
+    """``[lo, hi)``: the slots of a sequence-sharded cache of ``n_slots``
+    slots that this rank (the rank at ``coords``) holds: rank r of
+    ``model`` holds ``[r * S / m, (r + 1) * S / m)``."""
+    m = mesh.axis_size("model")
+    if n_slots % m:
+        raise ValueError(f"{n_slots} slots do not split over {m} model "
+                         f"ranks")
+    size = n_slots // m
+    lo = mesh.index_over("model", coords) * size
+    return lo, lo + size
+
+
+def local_shape(shape: Iterable[int], spec: P,
+                mesh: ProcessMesh) -> Tuple[int, ...]:
+    """The shape of a rank's block of a leaf of ``shape`` by ``spec``."""
+    parts = _parts(spec, len(tuple(shape)), None)
+    return tuple(d // mesh.axis_size(ax) for d, ax in zip(shape, parts))
+
+
+def shard_caches(caches: Tree, specs: Tree, mesh: ProcessMesh) -> Tree:
+    """This rank's pieces of whole caches by their specs
+    (``cache_shardings``)."""
+    return shard_tree(caches, specs, mesh)
+
+
+def gather_caches(caches: Tree, specs: Tree, mesh: ProcessMesh) -> Tree:
+    """The whole caches from every rank's pieces (``shard_caches``'
+    inverse; comparisons, checkpoints): every rank gets them."""
+    return tree_map(lambda x, s: gather_leaf(x, s, mesh), caches, specs)
 
 
 # ---------------------------------------------------------------------------

@@ -62,9 +62,7 @@ result, with the same program on every rank:
 
 ``deterministic()`` sets ``CUBLAS_WORKSPACE_CONFIG`` in every rank
 before its first product.  ``gather_state`` rebuilds the whole state
-(checkpoints, comparisons); ``compute_params`` gives the serve steps the
-gathered params of a rank (its experts only): the serve steps compute
-every other leaf whole.
+(checkpoints, comparisons).
 
 The serve steps reach every arch of the zoo, the encoder-decoder and
 frontend ones too (a batch carries ``frames`` or ``patches`` beside its
@@ -74,8 +72,30 @@ and ``enc_ffns`` (``encoder_ffn_modules``) hold the KAN FFNs' weights
 fused once; without them each step rebuilds them, with the same bits.  A
 serve step runs without autograd.
 
-The serve steps take ``mesh=`` too: under it a MoE serves over its
-expert ranks (``compute_params`` of each rank's shards).
+With ``mesh=`` the serve steps are the reference's ``jitted_serve_step``
+on a process mesh, the same program on every rank:
+
+* the params are the rank's ``compute_params``: its ``model`` shard of
+  every tensor-parallel leaf (the train step's ``_tp_paths``) and of the
+  SwiGLU experts, every other leaf gathered; the rank computes its
+  heads, KAN lanes and vocab columns (``serve_mesh`` hands the model
+  the context, and ``ffn_modules`` built inside it hold their shards);
+* the prefill step takes the global batch and keeps the rank's ``data``
+  rows (``local_batch``);
+* the rank holds its piece of each cache as the reference's
+  ``cache_shardings`` lays it out (``cache_layout``): the batch over
+  ``data``; the sequence of ``k``, ``v``, ``ck``, ``cv`` and the int8
+  scales over ``model`` from 1024 slots that split evenly (rank r holds
+  slots ``[r * S / m, (r + 1) * S / m)``, every kv head), every other
+  cache replicated over ``model``; recurrent and mLSTM state over
+  ``data`` only.  The decode step is built with that layout: which
+  caches are sequence-sharded is fixed by the arch, the batch and the
+  prompt, never guessed from a rank's shapes;
+* each step returns the rank's greedy tokens (the argmax over ``model``
+  of a vocab-parallel head) and its pieces of the caches.
+  ``sharding.gather_caches`` rebuilds the whole caches.
+
+A 1x1 mesh is bitwise the step without one.
 
 Run a prefill step and decode steps of any arch on seeded tokens (and
 seeded ``0.1 * N(0, 1)`` frames or patches in the params' dtype):
@@ -243,13 +263,16 @@ def _compute_axes(path: str, spec: SH.P, local: set) -> Tuple[str, ...]:
 def compute_params(shards: Params, cfg: ArchConfig,
                    mesh: ProcessMesh) -> Params:
     """The params a rank computes with, from its stored shards: every
-    leaf gathered whole, but the SwiGLU experts only over ``data`` (the
-    rank's ``E / model`` experts)."""
+    leaf gathered whole, but the SwiGLU experts (the rank's ``E / model``
+    experts) and the tensor-parallel leaves (``_tp_paths``) only over
+    ``data``, as ``MeshTrainStep.gathered``."""
     pspecs = train_state_shardings(cfg, mesh)["params"]
-    specs, ep = dict(leaf_paths(pspecs)), _ep_paths(cfg, mesh, pspecs)
+    specs = dict(leaf_paths(pspecs))
+    local = _ep_paths(cfg, mesh, pspecs) | _tp_paths(cfg, mesh, pspecs)
     return tree_map_with_path(
         lambda k, x: SH.gather_leaf(x, specs[k], mesh,
-                                    _compute_axes(k, specs[k], ep)), shards)
+                                    _compute_axes(k, specs[k], local)),
+        shards)
 
 
 def shard_params(params: Params, cfg: ArchConfig,
@@ -562,35 +585,90 @@ class MeshTrainStep:
         return new_state, {"loss": ce, "total_loss": total, **metrics}
 
 
+def cache_layout(cfg: ArchConfig, mesh: ProcessMesh,
+                 batch: Dict[str, Any]) -> Any:
+    """The reference's specs of the whole caches that a prefill of the
+    global ``batch`` (``{"tokens", ["frames" | "patches"]}``) builds and
+    the decode steps after it carry (``sharding.cache_shardings``): the
+    batch over the data axes, the sequence of ``k``/``v``/``ck``/``cv``
+    and their int8 scales over ``model`` from 1024 slots that split."""
+    B, S = batch["tokens"].shape
+    if "patches" in batch:                 # a prefix-LM's image tokens
+        S += batch["patches"].shape[1]
+    whole = T.init_caches(cfg, B, S + cfg.decode_margin, "meta")
+    return SH.cache_shardings(whole, mesh)
+
+
+@contextlib.contextmanager
+def serve_mesh(cfg: ArchConfig, mesh: Optional[ProcessMesh],
+               layout: Any = None) -> Iterator[None]:
+    """The serve steps' context: ``mesh`` active with its tensor-parallel
+    leaves (``_tp_paths``, the train step's) and the caches' specs
+    ``layout`` (``cache_layout``).  ``T.ffn_modules`` of a rank's
+    ``compute_params`` built inside it hold their shards.  None: no
+    mesh."""
+    with set_mesh(mesh, **_serve_context(cfg, mesh, layout)):
+        yield
+
+
+def _serve_context(cfg: ArchConfig, mesh: Optional[ProcessMesh],
+                   layout: Any) -> Dict[str, Any]:
+    """``set_mesh``'s tensor-parallel leaves and caches' specs of a serve
+    step (none without a mesh)."""
+    if mesh is None:
+        return {}
+    pspecs = train_state_shardings(cfg, mesh)["params"]
+    return {"tp": _tp_paths(cfg, mesh, pspecs),
+            "caches": None if layout is None else dict(leaf_paths(layout))}
+
+
 def make_prefill_step(cfg: ArchConfig, *, ffns: Ffns = None,
                       enc_ffns: Ffns = None,
                       mesh: Optional[ProcessMesh] = None
                       ) -> Callable[[Params, Dict], Tuple[torch.Tensor, Any]]:
     """``step(params, {"tokens", ["frames" | "patches"]})`` -> ((B, 1)
     int32 greedy token, caches of the prompt + ``cfg.decode_margin``).
-    With ``mesh`` the params are a rank's ``compute_params`` and the
-    step runs under it (a MoE over its expert ranks)."""
+
+    With ``mesh`` (the reference's ``jitted_serve_step``): the params are
+    a rank's ``compute_params`` (``ffns`` built from them inside
+    ``serve_mesh``), the batch is the global one, of which the step takes
+    the rank's rows (``local_batch``); it returns the rank's greedy tokens
+    and its pieces of the caches in ``cache_layout(cfg, mesh, batch)``."""
     def prefill_step(params: Params, batch: Dict) -> Tuple[torch.Tensor, Any]:
+        layout = None
+        if mesh is not None:
+            layout = cache_layout(cfg, mesh, batch)
+            batch = local_batch(batch, mesh)
         kw = {k: batch[k] for k in MODALITIES if k in batch}
-        with torch.no_grad(), set_mesh(mesh):
+        with torch.no_grad(), serve_mesh(cfg, mesh, layout):
             logits, caches = T.prefill(params, cfg, batch["tokens"],
                                        ffns=ffns, enc_ffns=enc_ffns, **kw)
-            return T.greedy_token(logits), caches
+            return T.greedy_token(logits, cfg), caches
 
     return prefill_step
 
 
 def make_decode_step(cfg: ArchConfig, *, ffns: Ffns = None,
-                     mesh: Optional[ProcessMesh] = None
+                     mesh: Optional[ProcessMesh] = None, layout: Any = None
                      ) -> Callable[[Params, Dict], Tuple[torch.Tensor, Any]]:
     """``step(params, {"token": (B, 1), "caches"})`` -> (next greedy
-    token, caches); the input caches are left as they were.  ``mesh`` as
-    ``make_prefill_step``'s."""
+    token, caches); the input caches are left as they were.  With
+    ``mesh``: the params as ``make_prefill_step``'s, the token and caches
+    the rank's (its prefill's outputs), ``layout`` the caches' specs
+    (``cache_layout`` of the prefill's batch; needed on more than one
+    ``model`` rank)."""
+    if (mesh is not None and mesh.axis_size("model") > 1
+            and layout is None):
+        raise ValueError("a decode step on more than one model rank needs "
+                         "its caches' layout (cache_layout)")
+
+    context = _serve_context(cfg, mesh, layout)
+
     def decode_step(params: Params, batch: Dict) -> Tuple[torch.Tensor, Any]:
-        with torch.no_grad(), set_mesh(mesh):
+        with torch.no_grad(), set_mesh(mesh, **context):
             logits, caches = T.decode_step(params, cfg, batch["token"],
                                            batch["caches"], ffns=ffns)
-            return T.greedy_token(logits), caches
+            return T.greedy_token(logits, cfg), caches
 
     return decode_step
 

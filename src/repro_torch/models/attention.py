@@ -23,15 +23,25 @@ window the cache is a ring buffer.  ``kv_quant`` stores the cache as
 int8 with per-(token, head) f16 scales.  Caches are dicts of tensors,
 updated functionally: ``decode_step`` returns new tensors and leaves its
 inputs as they were.
+
+On a mesh (``prefill_cache`` / ``decode_step`` with ``shard=`` and
+``seq=``) a cache always holds every kv head: replicated over ``model``,
+or sequence-sharded (the rank's slots of it), and then the softmax over
+the slots is merged over ``model`` from each rank's partials
+(``collectives.softmax_combine``).  The int8 quantization is per (slot,
+head), so it splits exactly.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.launch import collectives as COLL
+from repro_torch.launch.mesh import ProcessMesh
+from repro_torch.launch.sharding import cache_slots
 from repro_torch.models.layers import (
     Shard,
     apply_rope,
@@ -91,20 +101,26 @@ def attn_init(generator: Optional[torch.Generator], cfg: AttnConfig,
     return p
 
 
+def _project_kv(params: Dict, x: torch.Tensor, cfg: AttnConfig,
+                positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    B, S, _ = x.shape
+    k = dense(params["wk"], x).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    v = dense(params["wv"], x).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        k = rmsnorm(params["k_norm"], k)
+    return apply_rope(k, positions, cfg.rope_base), v
+
+
 def _project_qkv(params: Dict, x: torch.Tensor, cfg: AttnConfig,
                  positions: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     B, S, _ = x.shape
-    hd = cfg.hd
-    q = dense(params["wq"], x).reshape(B, S, cfg.n_heads, hd)
-    k = dense(params["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
-    v = dense(params["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
+    q = dense(params["wq"], x).reshape(B, S, cfg.n_heads, cfg.hd)
+    k, v = _project_kv(params, x, cfg, positions)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q)
-        k = rmsnorm(params["k_norm"], k)
-    q = apply_rope(q, positions, cfg.rope_base)
-    k = apply_rope(k, positions, cfg.rope_base)
-    return q, k, v
+    return apply_rope(q, positions, cfg.rope_base), k, v
 
 
 def _mask_block(q_pos: torch.Tensor, k_pos: torch.Tensor, cfg: AttnConfig,
@@ -210,6 +226,15 @@ def _self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               _pick_block(S, k_block))
 
 
+def _kv_ids(cfg: AttnConfig, h0: int, H: int) -> List[int]:
+    """The kv heads that q heads ``[h0, h0 + H)`` use, in the order of
+    ``local_heads``' config: each once when each is used by as many of
+    them, else one a q head."""
+    ids = [h // cfg.q_groups for h in range(h0, h0 + H)]
+    kv = sorted(set(ids))
+    return kv if ids == [k for k in kv for _ in range(H // len(kv))] else ids
+
+
 def local_heads(params: Dict, cfg: AttnConfig,
                 shard: Shard) -> Tuple[Dict, AttnConfig]:
     """(params, config) of this rank's heads: ``wq`` (+ bias) are its
@@ -233,10 +258,7 @@ def local_heads(params: Dict, cfg: AttnConfig,
     if cols != cfg.n_kv_heads * hd:
         raise ValueError(f"wk: {cols} columns, expected {cfg.n_kv_heads} "
                          f"kv heads of {hd} whole or split over {shard.m}")
-    ids = [h // cfg.q_groups for h in range(h0, h0 + H)]
-    kv = sorted(set(ids))
-    if ids != [k for k in kv for _ in range(H // len(kv))]:
-        kv = ids
+    kv = _kv_ids(cfg, h0, H)
     idx = torch.tensor([k * hd + j for k in kv for j in range(hd)],
                        device=params["wk"]["kernel"].device)
     for name in ("wk", "wv"):
@@ -309,27 +331,25 @@ def init_cache(batch: int, max_len: int, cfg: AttnConfig,
             "len": length}
 
 
-def prefill_cache(params: Dict, x: torch.Tensor, cfg: AttnConfig,
-                  max_len: int, dtype: Optional[torch.dtype] = None
-                  ) -> Tuple[torch.Tensor, Params]:
-    """Run full attention AND return the populated cache.
+def _ring_payload(k: torch.Tensor, max_len: int, cfg: AttnConfig,
+                  dim: int = 1) -> torch.Tensor:
+    """The keys or values (S positions on ``dim``) a cache of ``max_len``
+    slots holds after a prefill of S tokens: all of them, or with a
+    sliding window (max_len == window < S) the trailing ``window``,
+    rotated so token j sits at slot j % window -- the invariant decode
+    relies on."""
+    S = k.shape[dim]
+    if S <= max_len:
+        return k
+    assert cfg.window is not None and max_len == min(cfg.window, max_len)
+    return torch.roll(k.narrow(dim, S - max_len, max_len),
+                      (S - max_len) % max_len, dims=dim)
 
-    With a sliding window (max_len == window < S), only the trailing
-    ``window`` tokens enter the ring, rotated so token j sits at slot
-    j % window -- the invariant decode_step relies on.
-    """
-    B, S, _ = x.shape
-    dtype = dtype or x.dtype
-    positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    cache = init_cache(B, max_len, cfg, dtype, x.device)
-    k_in, v_in = k, v            # the cache payload (attention below uses
-    if S > max_len:              # the FULL k, v)
-        # ring: keep the last window only, rotated so token j -> slot j % W
-        assert cfg.window is not None and max_len == min(cfg.window, max_len)
-        shift = (S - max_len) % max_len
-        k_in = torch.roll(k[:, -max_len:], shift, dims=1)
-        v_in = torch.roll(v[:, -max_len:], shift, dims=1)
+
+def _write_payload(cache: Params, k_in: torch.Tensor, v_in: torch.Tensor,
+                   cfg: AttnConfig, dtype: torch.dtype) -> None:
+    """The cache's first ``k_in.shape[1]`` slots set to the payload (int8
+    with per-(slot, head) scales under ``kv_quant``)."""
     n = k_in.shape[1]
     if cfg.kv_quant:
         kq, ks = _kv_quant(k_in)
@@ -341,36 +361,190 @@ def prefill_cache(params: Dict, x: torch.Tensor, cfg: AttnConfig,
     else:
         cache["k"][:, :n] = k_in.to(dtype)
         cache["v"][:, :n] = v_in.to(dtype)
+
+
+def _every_kv_head(params: Dict, x: torch.Tensor, cfg: AttnConfig,
+                   positions: torch.Tensor, shard: Optional[Shard],
+                   k: torch.Tensor, v: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every kv head's keys and values from a rank's (``k``, ``v`` of its
+    heads): themselves without a shard; all-gathered along ``model`` in
+    rank order when the kv heads split whole; else projected from the
+    whole ``wk``/``wv`` the rank holds."""
+    if shard is None:
+        return k, v
+    if _kv_split(params, cfg):             # one all-gather of both
+        kv = COLL.gather_cat(torch.stack([k, v]), shard.mesh, "model", 3)
+        return kv[0], kv[1]
+    return _project_kv(params, x, cfg, positions)
+
+
+def _kv_split(params: Dict, cfg: AttnConfig) -> bool:
+    """Whether ``wk``/``wv`` are a rank's shards (whole kv heads)."""
+    return params["wk"]["kernel"].shape[-1] != cfg.n_kv_heads * cfg.hd
+
+
+def _out_proj(params: Dict, o: torch.Tensor, cfg: AttnConfig,
+              shard: Optional[Shard], dtype: torch.dtype) -> torch.Tensor:
+    """``wo`` of the heads' outputs ``o`` (B, S, heads * hd): whole, or a
+    rank's rows and the f32 partial summed over ``model``."""
+    if shard is None:
+        return dense(params["wo"], o)
+    wo = params["wo"]
+    shard.local(wo["kernel"].shape[0], cfg.n_heads * cfg.hd, "wo")
+    return shard.out(f32_matmul(o, wo["kernel"]), dtype, wo.get("bias"))
+
+
+def prefill_cache(params: Dict, x: torch.Tensor, cfg: AttnConfig,
+                  max_len: int, dtype: Optional[torch.dtype] = None, *,
+                  shard: Optional[Shard] = None,
+                  seq: Optional[ProcessMesh] = None
+                  ) -> Tuple[torch.Tensor, Params]:
+    """Run full attention AND return the populated cache.
+
+    With a sliding window (max_len == window < S), only the trailing
+    ``window`` tokens enter the ring, rotated so token j sits at slot
+    j % window -- the invariant decode_step relies on.
+
+    ``shard``: attention over this rank's heads (``attention``'s).
+    ``seq``: the cache is sequence-sharded over ``seq``'s ``model`` axis,
+    and the rank builds its chunk, every kv head at its slots
+    (``launch/sharding.cache_slots``): with kv heads split over
+    ``model``, each rank's slot chunks of its heads cross in one
+    all-to-all.  A cache that is not sequence-sharded holds every kv head
+    at every slot on every rank.
+    """
+    B, S, _ = x.shape
+    dtype = dtype or x.dtype
+    positions = torch.arange(S, device=x.device)[None, :]
+    p, hcfg = (params, cfg) if shard is None else local_heads(params, cfg,
+                                                              shard)
+    q, k, v = _project_qkv(p, x, hcfg, positions)
+    if seq is None:
+        k_in, v_in = _every_kv_head(params, x, cfg, positions, shard, k, v)
+        cache = init_cache(B, max_len, cfg, dtype, x.device)
+        # the cache payload (attention below uses the FULL k, v)
+        _write_payload(cache, _ring_payload(k_in, max_len, cfg),
+                       _ring_payload(v_in, max_len, cfg), cfg, dtype)
+    else:
+        lo, hi = cache_slots(max_len, seq)
+        n = min(S, max_len)
+        cache = init_cache(B, hi - lo, cfg, dtype, x.device)
+        if shard is None or not _kv_split(params, cfg):
+            # every kv head here: the rank's slots of them
+            chunk = [_ring_payload(a, max_len, cfg)[:, lo:hi] for a in
+                     _every_kv_head(params, x, cfg, positions, shard, k, v)]
+        else:
+            # the rank's kv heads: their slot chunks to the slots' ranks,
+            # keys and values in one all-to-all
+            m = seq.axis_size("model")
+            w = max_len // m
+            a = _ring_payload(torch.stack([k, v]), max_len, cfg, dim=2)
+            a = torch.cat([a, a.new_zeros(a.shape[:2] + (max_len - n,)
+                                          + a.shape[3:])], dim=2)
+            got = COLL.all_to_all([a[:, :, j * w:(j + 1) * w]
+                                   for j in range(m)], seq, "model")
+            chunk = list(torch.cat(got, dim=3))
+        n_loc = min(max(n - lo, 0), hi - lo)
+        _write_payload(cache, chunk[0][:, :n_loc], chunk[1][:, :n_loc],
+                       cfg, dtype)
     cache["len"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
-    pos1d = positions[0]
-    o = _self_attention(q, k, v, cfg, pos1d, None, 2048, 512, 512)
-    return dense(params["wo"], o.reshape(B, S, -1)), cache
+    o = _self_attention(q, k, v, hcfg, positions[0], None, 2048, 512, 512)
+    return _out_proj(params, o.reshape(B, S, -1), cfg, shard, x.dtype), cache
+
+
+def _attend(qf: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+            cfg: AttnConfig, valid: torch.Tensor,
+            scales: Dict[str, torch.Tensor],
+            seq: Optional[ProcessMesh]) -> torch.Tensor:
+    """One query a row (qf (B, kv, G, hd), f32, scaled) against cached keys
+    and values (B, slots, kv, hd) where ``valid`` (B, slots): the
+    softmax over the slots, in f32.  ``seq``: the slots are this rank's
+    chunk of a sequence-sharded cache, and the softmax partials are
+    merged over ``model`` (``collectives.softmax_combine``)."""
+    # int8 cache: the scales factor out of the hd contraction
+    s = torch.einsum("bkgh,bskh->bkgs", qf, kc.to(torch.float32))
+    if cfg.kv_quant:
+        s = s * scales["k_scale"].to(torch.float32).permute(
+            0, 2, 1)[:, :, None, :]
+    s = softcap(s, cfg.logit_softcap)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    if seq is None:
+        p = torch.softmax(s, dim=-1)
+    else:
+        mx = torch.amax(s, dim=-1)
+        p = torch.where(valid[:, None, None, :], torch.exp(s - mx[..., None]),
+                        torch.zeros((), dtype=s.dtype, device=s.device))
+        l = torch.sum(p, dim=-1)
+    if cfg.kv_quant:
+        p = p * scales["v_scale"].to(torch.float32).permute(
+            0, 2, 1)[:, :, None, :]
+    o = torch.einsum("bkgs,bskh->bkgh", p, vc.to(torch.float32))
+    if seq is None:
+        return o
+    _, l, o = COLL.softmax_combine(mx, l, o, seq)
+    return o / l[..., None]
 
 
 def decode_step(params: Dict, x1: torch.Tensor, cfg: AttnConfig,
-                cache: Params) -> Tuple[torch.Tensor, Params]:
+                cache: Params, *, shard: Optional[Shard] = None,
+                seq: Optional[ProcessMesh] = None
+                ) -> Tuple[torch.Tensor, Params]:
     """One-token decode: x1 (B, 1, d) against the cache (functional update).
 
     Each batch row sits at its own position ``len[b]`` (slot-based serving).
     With a sliding window the cache is a ring buffer of size window (the
     RecurrentGemma local-attention layout); otherwise it is append-only.
+
+    ``shard``: the q heads and ``wo`` rows of this rank, every kv head's
+    new key and value written (the cache holds all of them).  ``seq``: the
+    cache is this rank's chunk of a sequence-sharded one
+    (``prefill_cache``'s): only the rank that owns a row's slot writes its
+    new entry; every q head (all-gathered along ``model`` under
+    ``shard``) attends over the rank's slots, masked by their global
+    indices, and the softmax partials are merged over ``model``.
     """
     B = x1.shape[0]
     t = cache["len"]                              # (B,)
     positions = t[:, None]
-    q, k, v = _project_qkv(params, x1, cfg, positions)
+    p, hcfg = (params, cfg) if shard is None else local_heads(params, cfg,
+                                                              shard)
+    q, k, v = _project_qkv(p, x1, hcfg, positions)
+    if seq is not None and shard is not None and _kv_split(params, cfg):
+        # every q head and every kv head's new key and value: one
+        # all-gather of the rank's
+        H, K = hcfg.n_heads, hcfg.n_kv_heads
+        parts = COLL.all_gather_shards(torch.cat([q, k, v], dim=2),
+                                       shard.mesh, "model")
+        q, k, v = (torch.cat([a[:, :, lo:hi] for a in parts], dim=2)
+                   for lo, hi in ((0, H), (H, H + K), (H + K, H + 2 * K)))
+    else:
+        k, v = _every_kv_head(params, x1, cfg, positions, shard, k, v)
+        if seq is not None and shard is not None:
+            q = COLL.gather_cat(q, seq, "model", 2)
 
-    max_len = cache["k"].shape[1]
+    n_loc = cache["k"].shape[1]
+    lo, max_len = 0, n_loc
+    if seq is not None:
+        max_len = n_loc * seq.axis_size("model")
+        lo, _ = cache_slots(max_len, seq)
     t64 = t.long()
     slot = (t64 % max_len) if cfg.window is not None else torch.clamp(
         t64, max=max_len - 1)
-    idx = torch.arange(max_len, device=x1.device)
+    idx = lo + torch.arange(n_loc, device=x1.device)
     rows = torch.arange(B, device=x1.device)
+    # the rows whose new entry lies in this rank's slots
+    mine = (slot >= lo) & (slot < lo + n_loc)
+    at = torch.clamp(slot - lo, 0, n_loc - 1)
 
     def write(c: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
         # per-row cache write: O(B) entries of a copy of the cache
         out = c.clone()
-        out[rows, slot] = new
+        if seq is None:
+            out[rows, at] = new
+        else:
+            keep = mine.reshape((B,) + (1,) * (new.dim() - 1))
+            out[rows, at] = torch.where(keep, new, out[rows, at])
         return out
 
     new_scales = {}
@@ -385,15 +559,6 @@ def decode_step(params: Dict, x1: torch.Tensor, cfg: AttnConfig,
         kc = write(cache["k"], k[:, 0].to(cache["k"].dtype))
         vc = write(cache["v"], v[:, 0].to(cache["v"].dtype))
 
-    hd = cfg.hd
-    qf = (q.to(torch.float32) / math.sqrt(hd)).reshape(
-        B, cfg.n_kv_heads, cfg.q_groups, hd)
-    # int8 cache: the scales factor out of the hd contraction
-    s = torch.einsum("bkgh,bskh->bkgs", qf, kc.to(torch.float32))
-    if cfg.kv_quant:
-        s = s * new_scales["k_scale"].to(torch.float32).permute(
-            0, 2, 1)[:, :, None, :]
-    s = softcap(s, cfg.logit_softcap)
     # valid = slots holding tokens visible to this row's position
     if cfg.window is not None:
         # ring buffer: every slot written within the last W tokens is live
@@ -402,14 +567,23 @@ def decode_step(params: Dict, x1: torch.Tensor, cfg: AttnConfig,
         valid = order < written[:, None]
     else:
         valid = idx[None, :] <= t64[:, None]
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    if cfg.kv_quant:
-        p = p * new_scales["v_scale"].to(torch.float32).permute(
-            0, 2, 1)[:, :, None, :]
-    o = torch.einsum("bkgs,bskh->bkgh", p, vc.to(torch.float32))
-    o = o.reshape(B, 1, cfg.n_heads * hd).to(x1.dtype)
-    out = dense(params["wo"], o)
+    hd = cfg.hd
+    acfg, kv, sc = hcfg, (kc, vc), new_scales
+    if seq is not None:             # every q head against the rank's slots
+        acfg = cfg
+    elif shard is not None:         # the rank's q heads, their kv heads
+        ids = torch.tensor(_kv_ids(cfg, shard.index * hcfg.n_heads,
+                                   hcfg.n_heads), device=x1.device)
+        kv = tuple(a.index_select(2, ids) for a in kv)
+        sc = {k_: a.index_select(2, ids) for k_, a in sc.items()}
+    qf = (q.to(torch.float32) / math.sqrt(hd)).reshape(
+        B, acfg.n_kv_heads, acfg.q_groups, hd)
+    o = _attend(qf, kv[0], kv[1], acfg, valid, sc, seq)
+    o = o.reshape(B, 1, acfg.n_heads * hd)
+    if seq is not None and shard is not None:    # the rank's heads' rows
+        h0 = shard.index * hcfg.n_heads * hd
+        o = o[..., h0:h0 + hcfg.n_heads * hd]
+    out = _out_proj(params, o.to(x1.dtype), cfg, shard, x1.dtype)
     return out, {"k": kc, "v": vc, "len": t + 1, **new_scales}
 
 

@@ -61,6 +61,16 @@ tensor-parallel sub-layer gathers the normed chunks at its entry
 recurrent blocks -- runs on the gathered sequence and keeps the rank's
 chunk, its backward whole on every rank; the final norm's chunks are
 gathered for the loss.  The encoder runs whole and replicated.
+
+``prefill`` and ``decode_step`` read the context too (the serve steps,
+``launch/steps.serve_mesh``): attention and the FFN run over the rank's
+shards where their leaves are tensor-parallel, the logits are the rank's
+vocab columns and ``greedy_token(logits, cfg)`` takes the argmax over
+``model``; the caches are the rank's pieces in the layout of
+``MeshContext.caches`` (a sequence-sharded cache holds the rank's slots
+of every kv head; cross-attention runs whole, its ``ck``/``cv`` the
+rank's frames when they split).  ``init_caches(mesh=)`` makes a rank's
+empty pieces.  Recurrent and xLSTM blocks run whole.
 """
 from __future__ import annotations
 
@@ -72,7 +82,8 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch import collectives as COLL
-from repro_torch.launch.mesh import MeshContext, current_context
+from repro_torch.launch import sharding as SH
+from repro_torch.launch.mesh import MeshContext, ProcessMesh, current_context
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import moe as M
@@ -194,6 +205,29 @@ def _layer_path(cfg: ArchConfig, layer: int, unit: Optional[int]) -> str:
     return f"['extra'][{layer - _unit_counts(cfg)[0] * u}]"
 
 
+def _ffn_shard(ctx: Optional[MeshContext], path: str) -> Optional[Shard]:
+    """The ``Shard`` of the tensor-parallel FFN of the block at ``path``,
+    else None."""
+    return (_tp_shard(ctx, path + "['ffn']['up']['kernel']")
+            or _tp_shard(ctx, path + "['ffn']['kan_up']['w_b']"))
+
+
+def _seq_mesh(ctx: Optional[MeshContext], path: str,
+              key: str) -> Optional[ProcessMesh]:
+    """The mesh whose ``model`` axis splits the sequence of the cache
+    entry ``key`` of the block at ``path`` (``MeshContext.caches``), else
+    None.  A serve step on more than one ``model`` rank carries its
+    caches' specs; without them it raises rather than guess."""
+    if ctx is None:
+        return None
+    if ctx.caches is None:
+        raise ValueError("prefill and decode on more than one model rank "
+                         "need the caches' specs (launch/steps."
+                         "cache_layout, through the serve steps)")
+    spec = ctx.caches.get(path + f"[{key!r}]")
+    return ctx.mesh if spec is not None and "model" in spec.axes() else None
+
+
 def _sublayer(cfg: ArchConfig, ctx: Optional[MeshContext], norm_p: Params,
               x: torch.Tensor, n: int, fn: Any,
               shard: Optional[Shard]) -> torch.Tensor:
@@ -248,13 +282,13 @@ def _apply_ffn_part(p: Params, x: torch.Tensor, cfg: ArchConfig,
         aux = auxes[0]
     elif "ffn" in p:
         fcfg = cfg.ffn_cfg(layer)
-        shard = None
-        if ctx is not None:
-            shard = (_tp_shard(ctx, path + "['ffn']['up']['kernel']")
-                     or _tp_shard(ctx, path + "['ffn']['kan_up']['w_b']"))
-        if shard is not None and ffn is not None:
-            raise ValueError("a held FFN module computes whole leaves; the "
-                             "tensor-parallel step runs without ffns")
+        shard = None if ctx is None else _ffn_shard(ctx, path)
+        if (shard is not None and ffn is not None
+                and getattr(ffn, "shard", None) is None):
+            raise ValueError("a held FFN module of whole leaves on a "
+                             "tensor-parallel path: build it from the "
+                             "rank's shards under the step's mesh "
+                             "(ffn_modules)")
 
         def run(xn: torch.Tensor, sh: Optional[Shard]) -> torch.Tensor:
             if taps is not None:
@@ -339,34 +373,44 @@ def block_init_cache(batch: int, max_len: int, cfg: ArchConfig, kind: str,
 
 def block_prefill(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str,
                   max_len: int, *, memory: Optional[torch.Tensor] = None,
-                  layer: int = 0, ffn: Optional[Any] = None
-                  ) -> Tuple[torch.Tensor, Params]:
+                  layer: int = 0, ffn: Optional[Any] = None,
+                  path: Optional[str] = None) -> Tuple[torch.Tensor, Params]:
     """Full-sequence pass that also returns the decode cache.  Causal
     over every position, a prefix-LM's prefix too (the reference's
     ``block_prefill`` passes no ``prefix_len``); with ``memory`` the
-    cache also holds the cross-attention keys and values of it."""
+    cache also holds the cross-attention keys and values of it.
+    ``path`` puts the block under the active mesh as ``block_apply``'s:
+    its attention and FFN tensor-parallel where their leaves are, its
+    caches in the layout of ``MeshContext.caches``."""
     _check_block(kind)
+    ctx = _mesh_ctx() if path is not None else None
     if kind == "attn":
         acfg = cfg.attn_cfg()
         xn = _norm(cfg, p["attn_norm"], x)
         size = min(max_len, acfg.window) if acfg.window else max_len
         # prefill_cache handles the ring layout when S > window
-        y, cache = A.prefill_cache(p["attn"], xn, acfg, size,
-                                   dtype=cfg.param_dtype)
+        y, cache = A.prefill_cache(
+            p["attn"], xn, acfg, size, dtype=cfg.param_dtype,
+            shard=_tp_shard(ctx, f"{path}['attn']['wq']['kernel']"),
+            seq=_seq_mesh(ctx, path, "k"))
         x = x + y
         if "cross" in p and memory is not None:
             # the memory's keys and values, once: attended now and cached
+            # (the rank's frames of a sequence-sharded cache)
             kv = A.cross_kv(p["cross"], memory, acfg)
-            cache["ck"], cache["cv"] = kv
+            seq = _seq_mesh(ctx, path, "ck")
+            cache["ck"], cache["cv"] = kv if seq is None else (
+                a[:, slice(*SH.cache_slots(a.shape[1], seq))].contiguous()
+                for a in kv)
             x = x + A.cross_attention(
                 p["cross"], _norm(cfg, p["cross_norm"], x), memory, acfg,
                 kv=kv)
-        x, _ = _apply_ffn_part(p, x, cfg, layer, ffn=ffn)
+        x, _ = _apply_ffn_part(p, x, cfg, layer, ffn=ffn, path=path)
         return x, cache
     if kind == "rec":
         y, st = R.rglru_apply(p["rec"], _norm(cfg, p["rec_norm"], x),
                               cfg.rglru_cfg())
-        x, _ = _apply_ffn_part(p, x + y, cfg, layer, ffn=ffn)
+        x, _ = _apply_ffn_part(p, x + y, cfg, layer, ffn=ffn, path=path)
         return x, st
     if kind == "mlstm":
         return X.mlstm_apply(p["mlstm"], x, cfg.xlstm_cfg())
@@ -374,43 +418,58 @@ def block_prefill(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str,
 
 
 def _cross_decode(p: Params, x1: torch.Tensor, cache: Params,
-                  acfg: A.AttnConfig) -> torch.Tensor:
+                  acfg: A.AttnConfig,
+                  seq: Optional[ProcessMesh] = None) -> torch.Tensor:
     """One token's cross-attention over every cached frame: f32 softmax,
-    no mask, no RoPE."""
+    no mask, no RoPE.  ``seq``: ``ck``/``cv`` hold this rank's frames of
+    a sequence-sharded cache, and the softmax partials are merged over
+    ``model`` (``collectives.softmax_combine``)."""
     B = x1.shape[0]
     hd = acfg.hd
     q = dense(p["wq"], x1).reshape(B, acfg.n_kv_heads, acfg.q_groups, hd)
     qf = q.to(torch.float32) / math.sqrt(hd)
     s = torch.einsum("bkgh,bskh->bkgs", qf, cache["ck"].to(torch.float32))
-    pr = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskh->bkgh", pr, cache["cv"].to(torch.float32))
+    cv = cache["cv"].to(torch.float32)
+    if seq is None:
+        o = torch.einsum("bkgs,bskh->bkgh", torch.softmax(s, dim=-1), cv)
+    else:
+        mx = torch.amax(s, dim=-1)
+        e = torch.exp(s - mx[..., None])
+        _, l, o = COLL.softmax_combine(
+            mx, torch.sum(e, dim=-1), torch.einsum("bkgs,bskh->bkgh", e, cv),
+            seq)
+        o = o / l[..., None]
     o = o.reshape(B, 1, acfg.n_heads * hd).to(x1.dtype)
     return dense(p["wo"], o)
 
 
 def block_decode(p: Params, x1: torch.Tensor, cfg: ArchConfig, kind: str,
                  cache: Params, *, layer: int = 0,
-                 ffn: Optional[Any] = None
+                 ffn: Optional[Any] = None, path: Optional[str] = None
                  ) -> Tuple[torch.Tensor, Params]:
     """One-token step.  Returns (x1, new_cache); ``ck``/``cv`` ride
-    through unchanged."""
+    through unchanged.  ``path`` as ``block_prefill``'s."""
     _check_block(kind)
+    ctx = _mesh_ctx() if path is not None else None
     if kind == "attn":
         acfg = cfg.attn_cfg()
         # decode_step reads and returns the self-attention entries only
-        y, sub = A.decode_step(p["attn"], _norm(cfg, p["attn_norm"], x1),
-                               acfg, cache)
+        y, sub = A.decode_step(
+            p["attn"], _norm(cfg, p["attn_norm"], x1), acfg, cache,
+            shard=_tp_shard(ctx, f"{path}['attn']['wq']['kernel']"),
+            seq=_seq_mesh(ctx, path, "k"))
         x1 = x1 + y
         new_cache = {**cache, **sub}
         if "cross" in p and "ck" in cache:
             x1 = x1 + _cross_decode(
-                p["cross"], _norm(cfg, p["cross_norm"], x1), cache, acfg)
-        x1, _ = _apply_ffn_part(p, x1, cfg, layer, ffn=ffn)
+                p["cross"], _norm(cfg, p["cross_norm"], x1), cache, acfg,
+                _seq_mesh(ctx, path, "ck"))
+        x1, _ = _apply_ffn_part(p, x1, cfg, layer, ffn=ffn, path=path)
         return x1, new_cache
     if kind == "rec":
         y, st = R.rglru_decode_step(
             p["rec"], _norm(cfg, p["rec_norm"], x1), cfg.rglru_cfg(), cache)
-        x1, _ = _apply_ffn_part(p, x1 + y, cfg, layer, ffn=ffn)
+        x1, _ = _apply_ffn_part(p, x1 + y, cfg, layer, ffn=ffn, path=path)
         return x1, st
     if kind == "mlstm":
         return X.mlstm_apply(p["mlstm"], x1, cfg.xlstm_cfg(), cache)
@@ -506,11 +565,12 @@ def _encoder_layers(params: Params) -> List[Params]:
     return [_take(units, i) for i in range(_n_stacked(units))]
 
 
-def _held_ffn(fcfg: F.FFNConfig, p: Params) -> Optional[Any]:
+def _held_ffn(fcfg: F.FFNConfig, p: Params,
+              shard: Optional[Shard] = None) -> Optional[Any]:
     if fcfg.kind == "kanffn":
-        return F.KanFFN(fcfg, p)
+        return F.KanFFN(fcfg, p, shard)
     if fcfg.kind == "kan":
-        return F.KanPairFFN(fcfg, p)
+        return F.KanPairFFN(fcfg, p, shard)
     return None
 
 
@@ -519,15 +579,19 @@ def ffn_modules(params: Params, cfg: ArchConfig) -> List[Optional[Any]]:
     KanFFN`` (weights fused and compacted once) for a ``"kanffn"`` FFN,
     a ``models/ffn.KanPairFFN`` (both KAN layers fused once) for a
     ``"kan"`` FFN, a ``models/moe.KanExperts`` (every expert's weights
-    fused once) for a MoE layer of KAN experts, else None."""
+    fused once) for a MoE layer of KAN experts, else None.  Under a mesh
+    whose FFN leaves are tensor-parallel (``launch/steps.serve_mesh``),
+    from the rank's shards: each FFN holds its ``Shard``."""
     mods: List[Optional[Any]] = []
+    ctx = _mesh_ctx()
     for layer, _, bp, unit in _layers(params, cfg):
         if "moe" in bp and cfg.moe_cfg().ffn_kind == "kan":
             mods.append(M.KanExperts(cfg.moe_cfg(), bp["moe"]["experts"]))
         elif "ffn" in bp:
             # stacked units run with layer 0's FFN config
             mods.append(_held_ffn(cfg.ffn_cfg(layer if unit is None else 0),
-                                  bp["ffn"]))
+                                  bp["ffn"], _ffn_shard(
+                                      ctx, _layer_path(cfg, layer, unit))))
         else:
             mods.append(None)
     return mods
@@ -702,9 +766,17 @@ def lm_loss(params: Params, cfg: ArchConfig, hidden: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
-                device: torch.device | str = "cpu") -> Params:
+                device: torch.device | str = "cpu",
+                mesh: Optional[ProcessMesh] = None) -> Params:
     """Empty decode caches; an ``enc_dec`` arch's attention blocks also
-    hold zero cross-attention keys and values of its frames."""
+    hold zero cross-attention keys and values of its frames.  With
+    ``mesh``, this rank's pieces of them (``launch/sharding.
+    cache_shardings``)."""
+    if mesh is not None:
+        whole = init_caches(cfg, batch, max_len, "meta")
+        return tree_map(lambda a, spec: torch.zeros(
+            SH.local_shape(a.shape, spec, mesh), dtype=a.dtype,
+            device=device), whole, SH.cache_shardings(whole, mesh))
     n_units, rem = _unit_counts(cfg)
     cross_len = cfg.n_frontend_tokens if cfg.enc_dec else 0
     caches: Params = {}
@@ -754,7 +826,8 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     for layer, kind, bp, unit in layers:
         x, c = block_prefill(bp, x, cfg, kind, max_len, memory=memory,
                              layer=layer if unit is None else 0,
-                             ffn=_ffn_of(ffns, layer))
+                             ffn=_ffn_of(ffns, layer),
+                             path=_layer_path(cfg, layer, unit))
         new.append(c)
     h = _norm(cfg, params["final_norm"], x)
     return _logits(params, cfg, h[:, -1:]), _regroup(cfg, layers, new)
@@ -778,13 +851,22 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
                           unit)[f"slot{layer % len(cfg.pattern)}"]
         x, c = block_decode(bp, x, cfg, kind, cache,
                             layer=layer if unit is None else 0,
-                            ffn=_ffn_of(ffns, layer))
+                            ffn=_ffn_of(ffns, layer),
+                            path=_layer_path(cfg, layer, unit))
         new.append(c)
     h = _norm(cfg, params["final_norm"], x)
     return _logits(params, cfg, h), _regroup(cfg, layers, new)
 
 
-def greedy_token(logits: torch.Tensor) -> torch.Tensor:
+def greedy_token(logits: torch.Tensor,
+                 cfg: Optional[ArchConfig] = None) -> torch.Tensor:
     """(B, 1) int32 argmax of the last position (the first index of a
-    tie, as ``jnp.argmax``)."""
-    return torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
+    tie, as ``jnp.argmax``).  With ``cfg``, under a mesh whose LM head is
+    vocab-parallel, ``logits`` are this rank's vocab columns and the
+    argmax runs over ``model`` (``collectives.argmax_over``)."""
+    shard = None if cfg is None else _vocab_shard(cfg)
+    if shard is None:
+        return torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(
+            torch.int32)
+    return COLL.argmax_over(logits[:, -1, :], shard.mesh)[:, None].to(
+        torch.int32)
