@@ -317,7 +317,27 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    bf16 ulps, every mixed launch held to its plain version, a second run
    bitwise; per rank against one process: prefill and decode host and
    device ms, bytes and collectives, peak GiB, KV cache bytes; the mixed
-   kernel timed at the rank's serve shapes.
+   kernel timed at the rank's serve shapes; (g) tensor parallelism in
+   the recurrent blocks, the encoder and cross-attention on (a)'s 2x2
+   mesh against one process, full width: whisper-medium with the KAN
+   drop-in (4 + 4 layers, bf16, 1500 frames, ``ck``/``cv``
+   sequence-sharded), recurrentgemma-9b (one unit, bf16) and xlstm-125m
+   (whole, at f32 and at its own bf16): train steps (2 replicated, and
+   1 sp but at bf16 xlstm) within (a)'s loss bound, a prefill and 4
+   decode steps within ``MESH_G_TOL`` -- bf16 xlstm's logits within
+   twice, and its losses within (a)'s bound or twice, the distance of
+   one process's bf16 run from the f32 run of the same weights,
+   measured in the same run --, greedy tokens the argmax of the mesh's
+   logits and one process's but at a checked tie (``_checked_ties``;
+   not at bf16 xlstm), the replicated state the same bits on every
+   ``model`` rank, every mixed fused-KAN and bf16 spline-basis launch
+   held to its plain version, a timed serve run bitwise the held one;
+   planted faults (one rank's partial dropped from whisper's
+   cross-attention decode or encoder sums, ``_g_faults``) outside the
+   bound; per rank against one
+   process: host and kernel ms, bytes and collectives of each step, peak
+   GiB, state and cache bytes; the mixed kernel and the spline basis at
+   whisper's rank shapes.
 
 No served path launches the spline-basis or v1 kernels, so their
 ``launches`` in the record are those of phases 6 and 5; the mixed
@@ -331,9 +351,9 @@ runs of the paper scripts (Table I, the Fig. 8 sweep, Table II), and
 ``launches_encdec``, its launches in phase 12 (a)-(c), and
 ``launches_lm_train``, its launches in phase 13 (a)-(d),
 ``launches_array``, its launches in phase 14's served runs, and
-``launches_mesh``, rank 0's launches in phase 15 (a)'s first run, and
-``launches_tp_serve``, rank 0's in phase 15 (f)'s timed prefill and
-decode steps.
+``launches_mesh``, rank 0's launches in phase 15 (a)'s first run and
+(g)'s train steps, and ``launches_tp_serve``, rank 0's in phase 15 (f)'s
+and (g)'s timed prefill and decode steps.
 
 It prints the ``{"kernels": [...]}`` record, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It imports nothing
@@ -497,6 +517,51 @@ MESH_RESTORE_RANKS = (1, 2)    # (d) on ranks of (a)'s spawn, then 1x1
 # tokens; the logits within the launches a token's logits pass in series
 # (2 a layer), each one bf16 ulp, as phase 12 builds ED_TF_TOL
 MESH_TP_BATCH, MESH_TP_PROMPT, MESH_TP_NEW = 8, 1024, 8
+# (g) tensor parallelism in the recurrent blocks, the encoder and
+# cross-attention on (a)'s 2x2 mesh, against one process: whisper-medium
+# with the KAN drop-in (bf16, f32 t, 1500 frames), recurrentgemma-9b and
+# xlstm-125m at full width; depth cut to keep (g) short (whisper 4 + 4
+# of 24 + 24 layers, recurrentgemma one (rec, rec, attn) unit of 38
+# layers, xlstm whole); recurrentgemma's loss in one chunk (a rank's 128
+# positions' logits are 65 MB; each of four chunks would widen its half
+# of the 256000 x 4096 table to f32 and keep it for the backward).
+# xlstm-125m runs twice.  At f32 ("xlstm") the mesh's sums in another
+# order stay at f32 rounding, so a tight bound holds its TP path.  At its
+# own bf16 ("xlstm-bf16") its exponential gates turn the bf16 roundings
+# that the mesh's products flip (its gates' columns are a product of
+# another width) into ~11 bf16 ulps of its logits and 0.0115 of its
+# second loss (H100 80GB HBM3, 700 W), past an ulp count a layer; so it is
+# held to its own rounding, measured in the same run (a witness): one
+# process's bf16 run against the f32 run of the same weights (its bf16
+# draw widened).  Two bf16 runs of one function, each within the
+# witness's distance of the f32 run, lie within twice it of each other:
+# the mesh's bf16 logits within 2 x the witness's largest logit gap, its
+# losses within (a)'s bound or 2 x the witness's loss gap of the step,
+# whichever is larger.  MESH_G_STEPS: (train steps replicated, steps with
+# activation_mode="sp"), then a prefill of MESH_G_BATCH x MESH_G_PROMPT
+# tokens and MESH_G_NEW decode steps fed seeded tokens, held, and again
+# timed.  MESH_G_PROFILED: what the profiler measures of each (the last
+# replicated step, the sp step, the timed serve run); xlstm's profiled
+# train step takes 30-37 s of host time, so its sp step and the bf16
+# run are timed on the host only.  Serve logits within the roundings a
+# token passes in series that the mesh sums in another order -- each
+# tensor-parallel sub-layer's output, one ulp (bf16, or KERNEL_TOL at
+# f32) -- twice over, as (f) builds its bound: whisper 4 x 2 (encoder) +
+# 4 x 3 (decoder), recurrentgemma 3 x 2, xlstm's 6 mLSTM blocks.
+# MESH_G_WITNESS: the archs whose one process also runs the f32 witness
+# (whisper-kan's serve steps only, reported beside its bound).  Faults
+# planted in each run (``_g_faults``: model rank 1's partial dropped from
+# the sums over model of whisper-kan's cross-attention decode steps, or
+# of its encoder) must leave its bound.
+MESH_G_BATCH, MESH_G_SEQ, MESH_G_PROMPT, MESH_G_NEW = 4, 64, 64, 4
+MESH_G_STEPS = {"rgemma": (2, 1), "whisper-kan": (2, 1), "xlstm": (2, 1),
+                "xlstm-bf16": (2, 0)}
+MESH_G_PROFILED = {"rgemma": ("replicated", "sp", "serve"),
+                   "whisper-kan": ("replicated", "sp", "serve"),
+                   "xlstm": ("replicated", "serve"), "xlstm-bf16": ()}
+MESH_G_TOL = {"whisper-kan": 2 * (4 * 2 + 4 * 3) * BF16_ULP,
+              "rgemma": 2 * 3 * 2 * BF16_ULP, "xlstm": 2 * 6 * KERNEL_TOL}
+MESH_G_WITNESS = ("whisper-kan", "xlstm-bf16")
 MESH_SPAWN_S = 600
 MESH_DEV = "cuda:0"
 MESH_GIB = 60.0               # the four ranks' peaks together on the card
@@ -3230,6 +3295,11 @@ def _serve_run(pre, dec, params, batch: dict, fed: list, sync,
     return rec, caches
 
 
+def _ms(v, digits: int) -> str:
+    """A profiled time in ms, or "not profiled"."""
+    return "not profiled" if v is None else f"{v:.{digits}f} ms"
+
+
 def _checked_ties(tokens: torch.Tensor, ref: torch.Tensor, bound: float,
                   what: str) -> list:
     """[step, row] of each greedy token (``tokens`` (steps, B)) that is
@@ -3350,12 +3420,377 @@ def _tp_serve_one(dev: torch.device, out: Path) -> dict:
 
 
 
+def _g_cfgs() -> dict:
+    """Phase 15 (g)'s archs, full width, depth cut (``MESH_G_*``)."""
+    from repro_torch.configs.registry import ARCHS as ZOO
+    return {"rgemma": dataclasses.replace(ZOO["recurrentgemma-9b"],
+                                          n_layers=3, loss_chunks=1),
+            "whisper-kan": dataclasses.replace(
+                ZOO["whisper-medium"], ffn_kind="kan", pattern_rate=0.5,
+                n_layers=4, n_enc_layers=4),
+            "xlstm": dataclasses.replace(ZOO["xlstm-125m"],
+                                         dtype="float32"),
+            "xlstm-bf16": ZOO["xlstm-125m"]}
+
+
+def _widened(params, cfg) -> tuple:
+    """(params, config) of the f32 witness: ``params``' floating leaves
+    widened to f32 (exact), the config at f32."""
+    from repro_torch.utils import tree_map
+    return (tree_map(lambda a: a.float() if a.is_floating_point() else a,
+                     params), dataclasses.replace(cfg, dtype="float32"))
+
+
+def _dropped_partial(module, fn: str):
+    """A patcher of ``module.fn`` that plants a fault (phase 15 (g)):
+    model rank 1's partial is left out of every sum over ``model``
+    (``collectives.combine``) the call makes, as a combine that skipped
+    one rank would (every rank gets model rank 0's partial)."""
+    from unittest import mock
+
+    from repro_torch.launch import collectives as COLL
+
+    real, combine = getattr(module, fn), COLL.combine
+
+    def dropped(x, mesh, *a, **kw):
+        if mesh.index_over("model") == 1:
+            x = torch.zeros_like(x)
+        return combine(x, mesh, *a, **kw)
+
+    def faulty(*a, **kw):
+        with mock.patch.object(COLL, "combine", dropped):
+            return real(*a, **kw)
+
+    return mock.patch.object(module, fn, faulty)
+
+
+def _g_faults() -> dict:
+    """Phase 15 (g)'s planted faults in whisper-kan's serve steps, by
+    name: (module, function) whose sums over ``model`` drop model rank
+    1's partial (``_dropped_partial``)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as TF
+    return {"cross-attention decode": (A, "cross_decode"),
+            "encoder": (TF, "encode")}
+
+
+def _g_inputs(cfg) -> tuple:
+    """(a train batch, a prompt batch, the tokens the decode steps are
+    fed), global and on the host, from seed 16 with numpy; whisper's
+    frames 0.1 * N(0, 1) in the params' dtype."""
+    rng = np.random.default_rng(16)
+
+    def tok(shape):
+        return torch.as_tensor(rng.integers(0, cfg.vocab_size, shape)
+                               .astype(np.int32))
+
+    train = {"tokens": tok((MESH_G_BATCH, MESH_G_SEQ + 1))}
+    serve = {"tokens": tok((MESH_G_BATCH, MESH_G_PROMPT))}
+    fed = [tok((MESH_G_BATCH, 1)) for _ in range(MESH_G_NEW)]
+    if cfg.enc_dec:
+        train["frames"] = serve["frames"] = torch.as_tensor(
+            (0.1 * rng.standard_normal((MESH_G_BATCH, cfg.n_frontend_tokens,
+                                        cfg.d_model))).astype(np.float32)
+        ).to(cfg.param_dtype)
+    return train, serve, fed
+
+
+def _train_run(step, state, batch: dict, n: int, profile: bool) -> tuple:
+    """``n`` steps of ``step`` from ``state`` on ``batch``, the last one
+    profiled with ``profile``: (state, record of each step's loss, host
+    ms, launches and collectives, and the profile's device ms)."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import collectives as COLL
+
+    rec: dict = {"loss": [], "host_ms": [], "launches": [], "sent": []}
+    for s in range(n):
+        torch.cuda.synchronize()
+        # the cached blocks released between steps: four ranks of
+        # recurrentgemma's step leave the card no room to fragment
+        torch.cuda.empty_cache()
+        _build.reset_launches()
+        COLL.reset_sent()
+        t0 = time.perf_counter()
+        if profile and s == n - 1:
+            box: dict = {}
+            rec.update(_profile_ms(
+                lambda: box.update(zip(("s", "m"), step(state, batch)))))
+            state, m = box["s"], box["m"]
+        else:
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        rec["host_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["loss"].append(float(m["loss"]))
+        rec["launches"].append({k: v for k, v in _build.LAUNCHES.items()
+                                if v})
+        rec["sent"].append(dict(COLL.SENT))
+    return state, rec
+
+
+def _rec_tp_one(dev: torch.device, out: Path) -> dict:
+    """Phase 15 (g) in one process on the card: each arch's
+    ``MESH_G_STEPS`` train steps and its serve steps (``_serve_run``),
+    profiled as ``MESH_G_PROFILED`` says, and for the archs of
+    ``MESH_G_WITNESS`` the f32 witness (``_widened``: the serve steps,
+    and the train steps where the mesh is held to its losses); writes
+    the losses and the logits the ranks are held to to ``out /
+    "g_ref.pt"``; returns its figures."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as TF
+
+    def run(cfg, params, train, serve, fed, n, prof):
+        rec_t: dict = {"loss": []}
+        if n:
+            opts = _mesh_opts()
+            state = ST.init_train_state(cfg, opts, params=params)
+            state, rec_t = _train_run(
+                ST.make_train_step(cfg, opts), state,
+                {k: v.to(dev) for k, v in train.items()}, n,
+                "replicated" in prof)
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+        ffns = TF.ffn_modules(params, cfg)
+        enc = TF.encoder_ffn_modules(params, cfg) if cfg.enc_dec else None
+        pre = ST.make_prefill_step(cfg, ffns=ffns, enc_ffns=enc)
+        dec = ST.make_decode_step(cfg, ffns=ffns)
+        tap, seen = _tap_logits(TF)
+        with tap:
+            rec_s, caches = _serve_run(
+                pre, dec, params, {k: v.to(dev) for k, v in serve.items()},
+                [t.to(dev) for t in fed], torch.cuda.synchronize,
+                profile="serve" in prof)
+        rec_s.pop("tokens")
+        logits = torch.stack([lg.cpu() for lg in seen[:1 + MESH_G_NEW]])
+        return rec_t, rec_s, logits, _tree_bytes(caches)
+
+    figs, ref = {}, {}
+    for name, cfg in _g_cfgs().items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = TF.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        train, serve, fed = _g_inputs(cfg)
+        rec_t, rec_s, logits, state_bytes = run(
+            cfg, params, train, serve, fed, MESH_G_STEPS[name][0],
+            MESH_G_PROFILED[name])
+        ref[name] = {"loss": rec_t["loss"], "logits": logits}
+        figs[name] = {"train": rec_t, "serve": rec_s,
+                      "state_bytes": state_bytes,
+                      "peak_gib": torch.cuda.max_memory_allocated(dev)
+                      / 2 ** 30}
+        if name in MESH_G_WITNESS:
+            p32, cfg32 = _widened(params, cfg)
+            del params
+            held = name == "xlstm-bf16"     # the mesh's losses held to it
+            w_t, _, w_lg, _ = run(cfg32, p32, train, serve, fed,
+                                  MESH_G_STEPS[name][0] if held else 0, ())
+            ref[name]["witness"] = {"loss": w_t["loss"], "logits": w_lg}
+            del p32
+        else:
+            del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(ref, out / "g_ref.pt")
+    return figs
+
+
+def _rec_tp_rank(mesh, dev: torch.device, out: Path, card: str,
+                 lap) -> dict:
+    """Phase 15 (g) on one rank of (a)'s 2x2 mesh: each arch's train
+    steps (``MESH_G_STEPS`` replicated, one more with every mixed
+    fused-KAN and bf16 spline-basis launch held to its plain version,
+    then those with ``activation_mode="sp"``), then a prefill and
+    ``MESH_G_NEW`` decode steps held to the plain versions, and again
+    timed, bitwise the first (profiled as ``MESH_G_PROFILED`` says);
+    whisper-kan's serve steps once more for each of ``_g_faults``, and
+    its encoder kernels at the rank's shapes timed on rank 0.  Returns
+    its record; rank 0 writes each arch's whole logits and greedy tokens
+    (and the faulty runs' logits) to ``out / "g_logits.pt"``."""
+    from unittest import mock
+
+    from repro_torch.kernels.kan_fused import ops as KO
+    from repro_torch.kernels.kan_fused.ref import kan_fused_v2_ref
+    from repro_torch.kernels.spline_basis.ref import spline_basis_plain
+    from repro_torch.launch import collectives as COLL
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as TF
+    from repro_torch.utils import leaf_paths
+
+    sync = torch.cuda.synchronize
+    res: dict = {}
+    logits: dict = {}
+    served_v2, served_sb = KO.kan_fused_v2, KO.spline_basis
+    for name, cfg in _g_cfgs().items():
+        r: dict = {"start_gib": torch.cuda.memory_allocated(dev) / 2 ** 30,
+                   "card_free_gib": torch.cuda.mem_get_info(dev)[0]
+                   / 2 ** 30}
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        def shards_of(what):
+            """``what`` of the draw, which is dropped after it (four ranks
+            cannot each hold a whole recurrentgemma beside a step)."""
+            params = TF.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(0), dev)
+            out_ = what(params)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            return out_
+
+        train, serve, fed = _g_inputs(cfg)
+        tb = {k: v.to(dev) for k, v in ST.local_batch(train, mesh).items()}
+        held = {"n": 0, "n_basis": 0, "worst": 0.0, "shapes": []}
+
+        def held_v2(x, wt, spec, kb, slot_of=None, **kw):
+            y = served_v2(x, wt, spec, kb, slot_of, **kw)
+            with torch.no_grad():
+                ref = kan_fused_v2_ref(x.detach(), wt.detach(), spec, kb,
+                                       kw.get("out_dtype"))
+            err, scale, nan = rel_err(y.detach(), ref)
+            check(not nan and err <= BF16_ULP * scale,
+                  f"(phase 15 g) {name}: a {MIXED} launch "
+                  f"{tuple(x.shape)} -> {tuple(y.shape)} {y.dtype}: "
+                  f"{err:.3e} from its plain version")
+            held["n"] += 1
+            held["worst"] = max(held["worst"], err / scale)
+            shape = [list(x.shape), list(wt.shape), str(y.dtype)]
+            if shape not in held["shapes"]:
+                held["shapes"].append(shape)
+            return y
+
+        def held_sb(xc, spec, *a, **kw):
+            got = served_sb(xc, spec, *a, **kw)
+            want = spline_basis_plain(xc.reshape(-1), spec).reshape(
+                got.shape)
+            check(torch.equal(got.view(torch.int16), want.view(torch.int16))
+                  if got.dtype == BF else torch.equal(got, want),
+                  f"(phase 15 g) {name}: a spline-basis launch at n = "
+                  f"{xc.numel()} is not bitwise its plain version")
+            held["n_basis"] += 1
+            return got
+
+        prof = MESH_G_PROFILED[name]
+        for mode, n in zip(("replicated", "sp"), MESH_G_STEPS[name]):
+            if not n:
+                r[mode] = {"loss": [], "launches": []}
+                continue
+            o = _mesh_opts(activation_mode=mode)
+            step = ST.make_train_step(cfg, o, mesh)
+            st = shards_of(lambda p: ST.init_train_state(cfg, o, params=p,
+                                                         mesh=mesh))
+            if mode == "replicated":
+                COLL.reset_sent()
+                step.gathered(st["params"])
+                r["n_tp"] = len(step.tp)
+                r["model_gathers"] = COLL.GATHERS.get(("model",), 0)
+                r["model_gathers_want"] = sum(
+                    "model" in sp.axes() and k not in step.local
+                    for k, sp in step.pspecs.items())
+            st, r[mode] = _train_run(step, st, tb, n, mode in prof)
+            if mode == "replicated" and cfg.ffn_kind == "kan":
+                # one more step (not counted), every launch held
+                with mock.patch.object(KO, "kan_fused_v2", held_v2), \
+                        mock.patch.object(KO, "spline_basis", held_sb):
+                    step(st, tb)
+                sync()
+            del st, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        lap(f"g_{name}_train")
+        cp = ST.compute_params(shards_of(
+            lambda p: ST.shard_params(p, cfg, mesh)), cfg, mesh)
+        with ST.serve_mesh(cfg, mesh):
+            ffns = TF.ffn_modules(cp, cfg)
+            enc = TF.encoder_ffn_modules(cp, cfg) if cfg.enc_dec else None
+            vocab_tp = TF._vocab_shard(cfg) is not None
+        mods = [f for f in ffns + (enc or []) if f is not None]
+        batch = {k: v.to(dev) for k, v in serve.items()}
+        layout = ST.cache_layout(cfg, mesh, batch)
+        pre = ST.make_prefill_step(cfg, ffns=ffns, enc_ffns=enc, mesh=mesh)
+        dec = ST.make_decode_step(cfg, ffns=ffns, mesh=mesh, layout=layout)
+        fed_l = [ST.local_batch({"token": t}, mesh)["token"].to(dev)
+                 for t in fed]
+        held_s = {"n": 0, "worst": 0.0, "shapes": []}
+        tap, seen = _tap_logits(TF)
+        with tap, _held_layers(mods, f"(phase 15 g) {name}", held_s):
+            rec_h, caches = _serve_run(pre, dec, cp, batch, fed_l, sync)
+        def whole(seen):
+            return torch.stack([COLL.gather_cat(
+                COLL.gather_cat(lg, mesh, "model", -1) if vocab_tp else lg,
+                mesh, "data", 0).cpu() for lg in seen])
+
+        got = {"logits": whole(seen),
+               "tokens": [COLL.gather_cat(t.to(dev), mesh, "data", 0).cpu()
+                          for t in rec_h["tokens"]]}
+        r["state_bytes"] = _tree_bytes(caches)
+        r["seq_sharded"] = sorted(k for k, sp in leaf_paths(layout)
+                                  if "model" in sp.axes())
+        # the state and every cache not split over model: the same bits
+        # on every model rank
+        gathered = [COLL.all_gather_shards(a.contiguous(), mesh, "model")
+                    for (_, a), (_, sp) in zip(leaf_paths(caches),
+                                               leaf_paths(layout))
+                    if "model" not in sp.axes()]
+        r["replicas_equal"] = all(torch.equal(parts[0], q)
+                                  for parts in gathered for q in parts[1:])
+        del gathered
+        del caches
+        if cfg.enc_dec:
+            # the planted faults: their logits must leave the bound
+            got["faults"] = {}
+            for what, (mod, fn) in _g_faults().items():
+                tap, seen = _tap_logits(TF)
+                with tap, _dropped_partial(mod, fn):
+                    _serve_run(pre, dec, cp, batch, fed_l, sync)
+                got["faults"][what] = whole(seen)
+        if mesh.rank == 0:
+            logits[name] = got
+        lap(f"g_{name}_serve_held")
+        rec_s, _ = _serve_run(pre, dec, cp, batch, fed_l, sync,
+                              profile="serve" in prof)
+        r["serve_bitwise"] = all(torch.equal(a, b) for a, b in
+                                 zip(rec_h["tokens"], rec_s.pop("tokens")))
+        r.update(serve=rec_s, held_train=held, held_serve=held_s,
+                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        lap(f"g_{name}_serve_timed")
+        rows = []
+        if mesh.rank == 0 and enc:
+            # the encoder's KAN layers at the rank's train shapes: its
+            # rows x 1500 frames, kan_up's 1024 -> 512 / m (bf16 out),
+            # kan_down's 512 / m -> 1024 (f32 partials), each with the
+            # spline basis its backward launches
+            gen = torch.Generator(device=dev).manual_seed(72)
+            M_ = MESH_G_BATCH // mesh.axis_size(SH.dp_axes(mesh)) \
+                * cfg.n_frontend_tokens
+            for what, layer, out_dt in (("up", enc[0].up, None),
+                                        ("down", enc[0].down, F32)):
+                x = torch.randn((M_, layer.cfg.n_in), generator=gen,
+                                device=dev).to(BF)
+                rows += kan_layer_rows(
+                    x, layer.wt, layer.cfg.spec, layer.kb, "mixed", card,
+                    f"whisper-kan encoder {what} (TP, M = {M_}, rank 0)",
+                    cfg.n_enc_layers, cfg.n_enc_layers, out_dtype=out_dt)
+                del x
+        mesh.barrier()
+        r["rows"] = rows
+        res[name] = r
+        del cp, ffns, enc, mods, pre, dec, rec_h, seen, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap(f"g_{name}_kernels")
+    if mesh.rank == 0:
+        torch.save(logits, out / "g_logits.pt")
+    return res
+
+
+
 def _mesh_worker(argv: list) -> int:
     """One rank of phase 15 (``python chip_smoke.py --mesh-worker OUT
     CKPT CARD``, started by ``mesh_phase`` through
-    ``launch.mesh.spawn_ranks``): (a), its tensor-parallel kernels, (e)
-    and (b) on the 2x2 mesh, (d)'s 1x2 restore on ranks 0-1, then (c) on
-    the 1x4 mesh, each on a process group of its own; writes
+    ``launch.mesh.spawn_ranks``): (a), its tensor-parallel kernels, (f),
+    (e), (b) and (g) on the 2x2 mesh, (d)'s 1x2 restore on ranks 0-1,
+    then (c) on the 1x4 mesh, each on a process group of its own; writes
     ``OUT/dp_rank<r>.json`` and ``OUT/ep_rank<r>.json``, with the seconds
     each part took (``laps``)."""
     entry_wall = time.time()
@@ -3705,6 +4140,11 @@ def _mesh_worker(argv: list) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("b")
+    # (g) tensor parallelism in the recurrent blocks, the encoder and
+    # cross-attention (whisper-kan, recurrentgemma, xlstm), once (a)'s
+    # model is dropped: four ranks of recurrentgemma's train step take
+    # most of the card
+    res["g"] = _rec_tp_rank(mesh, dev, out, card, lap)
     # (d) the 1x2 restore on ranks 0 and 1 of this spawn, on a new
     # process group (ranks 2-3 go on to (c)'s rendezvous)
     M.destroy_process_mesh(mesh)
@@ -3780,6 +4220,194 @@ def _mesh_worker(argv: list) -> int:
     return 0
 
 
+def _serve_row(who: str, rec: dict, peak: float, cache_bytes: int) -> dict:
+    """A serve run's figures (``_serve_run``'s record) for phase 15's
+    per-rank lines; a device time not profiled is None."""
+    pre, dec = (rec.get(k, {}) for k in ("prefill_prof", "decode_prof"))
+    return {"who": who, "prefill_host_ms": rec["host_ms"][0],
+            "prefill_device_ms": pre.get("device_ms"),
+            "prefill_kernel_ms": pre.get("kernel_ms"),
+            "decode_host_ms": statistics.median(rec["host_ms"][1:]),
+            "decode_host_ms_steps": rec["host_ms"][1:],
+            "decode_device_ms": dec.get("device_ms"),
+            "decode_kernel_ms": dec.get("kernel_ms"),
+            "prefill_sent_bytes": rec["sent"][0]["bytes"],
+            "prefill_collectives": rec["sent"][0]["calls"],
+            "decode_sent_bytes": rec["sent"][-1]["bytes"],
+            "decode_collectives": rec["sent"][-1]["calls"],
+            "peak_gib": peak, "cache_bytes": cache_bytes}
+
+
+def _rec_tp_checks(dp: list, one_g: dict, out: Path, card: str) -> tuple:
+    """Phase 15 (g)'s checks and figures from the ranks' records ``dp``,
+    one process's figures ``one_g`` and the logits files under ``out``
+    (``_rec_tp_one``, ``_rec_tp_rank``): (kernel rows, summary by arch);
+    raises on any fault."""
+    ref_g, got_g = (torch.load(out / n) for n in ("g_ref.pt",
+                                                 "g_logits.pt"))
+    rows_g, g_summary = [], {}
+    for name, cfg_g in _g_cfgs().items():
+        kan = cfg_g.ffn_kind == "kan"
+        layers = cfg_g.n_layers + (cfg_g.n_enc_layers if kan else 0)
+        want_t = ({MIXED: 2 * layers, "spline_basis_bf16": 2 * layers}
+                  if kan else {})
+        want_p = {MIXED: 2 * layers} if kan else {}
+        want_d = {MIXED: 2 * cfg_g.n_layers} if kan else {}
+        lo = ref_g[name]["loss"]
+        wit = ref_g[name].get("witness")
+        # each step's loss bound: (a)'s, or where the mesh is held to the
+        # witness, twice its loss gap if that is larger
+        tol_l = [max(MESH_LOSS_TOL * (1 + abs(l1)),
+                     2 * abs(l1 - wit["loss"][s_]) if wit and wit["loss"]
+                     else 0.0) for s_, l1 in enumerate(lo)]
+        for r in dp:
+            g = r["g"][name]
+            for mode in ("replicated", "sp"):
+                for s_, (lm, l1) in enumerate(zip(g[mode]["loss"], lo)):
+                    check(math.isfinite(lm) and abs(lm - l1) <= tol_l[s_],
+                          f"(phase 15 g) {name} rank {r['rank']} {mode} step "
+                          f"{s_}: loss {lm} on 2x2 against {l1} in one "
+                          f"process (bound {tol_l[s_]:.4g})")
+                for s_, got in enumerate(g[mode]["launches"]):
+                    check(got == want_t, f"(phase 15 g) {name} rank "
+                          f"{r['rank']} {mode} step {s_}: launches {got}, "
+                          f"want {want_t}")
+            check(g["n_tp"] > 0 and g["model_gathers"]
+                  == g["model_gathers_want"] and g["serve_bitwise"]
+                  and g["replicas_equal"],
+                  f"(phase 15 g) {name} rank {r['rank']}: {g['n_tp']} TP "
+                  f"leaves, {g['model_gathers']} gathers along model (want "
+                  f"{g['model_gathers_want']}), serve runs bitwise "
+                  f"{g['serve_bitwise']}, replicated state equal on the "
+                  f"model ranks {g['replicas_equal']}")
+            check(g["held_train"]["n"] == (2 * layers if kan else 0)
+                  and g["held_train"]["n_basis"]
+                  == (2 * layers if kan else 0)
+                  and g["held_serve"]["n"] == (
+                      2 * layers + MESH_G_NEW * 2 * cfg_g.n_layers
+                      if kan else 0),
+                  f"(phase 15 g) {name} rank {r['rank']}: held "
+                  f"{g['held_train']} in a train step, {g['held_serve']} in "
+                  f"the serve run")
+            launched_s = g["serve"]["launches"]
+            check(launched_s[0] == want_p
+                  and all(x == want_d for x in launched_s[1:]),
+                  f"(phase 15 g) {name} rank {r['rank']}: serve launches "
+                  f"{launched_s}, want {want_p} then {want_d}")
+            if name == "whisper-kan":
+                check(any(k.endswith("['ck']") for k in g["seq_sharded"]),
+                      f"(phase 15 g) whisper-kan rank {r['rank']}: ck/cv "
+                      f"not sequence-sharded: {g['seq_sharded']}")
+        lg, rf = got_g[name]["logits"], ref_g[name]["logits"]
+        scale_g = 1 + float(rf.abs().max())
+        # the f32 witness's largest logit gap to one process's bf16 run
+        wit_err = (float((wit["logits"] - rf).abs().max()) if wit
+                   else None)
+        tol_g = MESH_G_TOL.get(name, 2 * (wit_err or 0.0) / scale_g)
+        err_g = float((lg - rf).abs().max())
+        print(f"phase 15 (g) {name}: logits {err_g:.4e} from one process's "
+              f"({err_g / scale_g:.3e} of 1 + max, "
+              f"{err_g / scale_g / BF16_ULP:.2f} bf16 ulps; bound {tol_g:g})"
+              + ("" if wit is None else
+                 f"; f32 witness {wit_err:.4e} from one process's bf16 "
+                 f"({wit_err / scale_g / BF16_ULP:.2f} bf16 ulps), losses "
+                 f"{wit['loss']}"))
+        check(bool(torch.isfinite(lg).all()) and err_g <= tol_g * scale_g,
+              f"(phase 15 g) {name}: logits {err_g:.3e} from one process's, "
+              f"vs {tol_g:g} * {scale_g:.4g}")
+        # the greedy tokens the serve steps returned: the argmax of the
+        # mesh's own logits (argmax_over), and one process's but at a
+        # checked tie -- not at bf16 xlstm, whose one-process top logits
+        # can lie three within its rounding: its logits bound holds it
+        toks_g = torch.stack([t[:, 0] for t in got_g[name]["tokens"]])
+        check(torch.equal(toks_g, lg.argmax(-1).to(toks_g.dtype)),
+              f"(phase 15 g) {name}: the serve steps' greedy tokens are not "
+              f"the argmax of the mesh's logits")
+        ties_g = ([] if name == "xlstm-bf16" else _checked_ties(
+            toks_g, rf, tol_g * scale_g, f"(phase 15 g) {name}"))
+        faults = {}
+        for what, lg_f in got_g[name].get("faults", {}).items():
+            e = float((lg_f - rf).abs().max())
+            faults[what] = e / scale_g
+            print(f"phase 15 (g) {name}: planted fault (model rank 1's "
+                  f"partial dropped from the {what}'s sums over model) "
+                  f"{e:.4e} from one process's logits ({e / scale_g:.3e} "
+                  f"of 1 + max, {e / scale_g / BF16_ULP:.2f} bf16 ulps; "
+                  f"bound {tol_g:g})")
+            check(e > tol_g * scale_g,
+                  f"(phase 15 g) {name}: the {what} fault's logits {e:.3e} "
+                  f"lie within the bound {tol_g:g} * {scale_g:.4g}")
+        one = one_g[name]
+        per = [{"who": "one process", "train_host_ms": one["train"]["host_ms"],
+                "train_kernel_ms": one["train"].get("kernel_ms"),
+                "train_sent_bytes": 0, "train_collectives": 0,
+                **_serve_row("one process", one["serve"], one["peak_gib"],
+                            one["state_bytes"])}]
+        for r in dp:
+            g = r["g"][name]
+            row = {"who": f"rank {r['rank']} {r['coords']}"}
+            for mode, key in (("replicated", "train"), ("sp", "sp")):
+                if g[mode]["loss"]:
+                    row.update({
+                        f"{key}_host_ms": g[mode]["host_ms"],
+                        f"{key}_kernel_ms": g[mode].get("kernel_ms"),
+                        f"{key}_sent_bytes": g[mode]["sent"][-1]["bytes"],
+                        f"{key}_collectives": g[mode]["sent"][-1]["calls"]})
+            per.append({**row, **_serve_row(
+                row["who"], g["serve"], g["peak_gib"], g["state_bytes"])})
+        for p_ in per:
+            print(f"phase 15 (g) {name} {p_['who']}: train step host "
+                  f"{[round(x, 1) for x in p_['train_host_ms']]} ms, "
+                  f"kernels {_ms(p_['train_kernel_ms'], 1)}, sends "
+                  f"{p_['train_sent_bytes'] / 2 ** 20:.1f} MiB in "
+                  f"{p_['train_collectives']} collectives"
+                  + (f"; sp host {p_['sp_host_ms'][0]:.1f} ms, kernels "
+                     f"{_ms(p_['sp_kernel_ms'], 1)}, "
+                     f"{p_['sp_sent_bytes'] / 2 ** 20:.1f} MiB in "
+                     f"{p_['sp_collectives']}" if "sp_host_ms" in p_ else "")
+                  + f"; prefill {MESH_G_BATCH} x {MESH_G_PROMPT} host "
+                  f"{p_['prefill_host_ms']:.1f} ms, kernels "
+                  f"{_ms(p_['prefill_kernel_ms'], 2)}, "
+                  f"{p_['prefill_sent_bytes'] / 2 ** 20:.2f} MiB in "
+                  f"{p_['prefill_collectives']}; a decode step host "
+                  f"{p_['decode_host_ms']:.2f} ms, kernels "
+                  f"{_ms(p_['decode_kernel_ms'], 3)}, "
+                  f"{p_['decode_sent_bytes'] / 2 ** 20:.3f} MiB in "
+                  f"{p_['decode_collectives']}; peak {p_['peak_gib']:.2f} "
+                  f"GiB; state and caches "
+                  f"{p_['cache_bytes'] / 2 ** 20:.2f} MiB; {card}")
+        for row in dp[0]["g"][name]["rows"]:
+            print(json.dumps(row))
+        rows_g += dp[0]["g"][name]["rows"]
+        g0 = dp[0]["g"][name]
+        worst_t, worst_s = (max(r["g"][name][h]["worst"] for r in dp)
+                            / BF16_ULP for h in ("held_train", "held_serve"))
+        print(f"phase 15 (g) {name} on 2x2 vs one process: losses "
+              f"{g0['replicated']['loss']} (sp {g0['sp']['loss']}) vs {lo}; "
+              f"{1 + MESH_G_NEW} serve steps' logits {err_g / scale_g:.3e} "
+              f"of 1 + max (bound {tol_g:g}), greedy tokens the argmax of "
+              f"the mesh's logits and "
+              + ("not held to one process's (bf16 xlstm); "
+                 if name == "xlstm-bf16" else
+                 f"one process's but at {len(ties_g)} checked ties "
+                 f"{ties_g}; ")
+              + f"{g0['held_train']['n']} + {g0['held_serve']['n']} held "
+              f"{MIXED} launches within {worst_t:.2f} / {worst_s:.2f} "
+              f"bf16 ulps, {g0['held_train']['n_basis']} spline bases "
+              f"bitwise; {g0['n_tp']} TP leaves; "
+              f"{len(g0['seq_sharded'])} cache leaves sequence-sharded")
+        g_summary[name] = {"err_rel": err_g / scale_g, "tol": tol_g,
+                           "witness_err_rel": None if wit is None
+                           else wit_err / scale_g,
+                           "witness_losses": None if wit is None
+                           else wit["loss"], "loss_tol": tol_l,
+                           "fault_err_rel": faults,
+                           "ties": ties_g, "per_rank": per,
+                           "losses_2x2": g0["replicated"]["loss"],
+                           "losses_sp": g0["sp"]["loss"], "losses_1x1": lo}
+    return rows_g, g_summary
+
+
 def mesh_phase(dev: torch.device, card: str) -> dict:
     """Phase 15: training and serving on a ``launch/mesh.ProcessMesh``,
     the ranks processes of this script that share the card over gloo
@@ -3829,9 +4457,12 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
     process the host and device ms of a prefill and a decode step, the
     bytes and collectives, peak GiB and KV cache bytes; the mixed kernel
     at the rank's serve shapes timed on rank 0.
-    One spawn of four ranks runs (a), (f), (e), (b), (d)'s 1x2 and (c),
-    each but (f) on a process group of its own; the one-process
-    references run first.
+    (g) tensor parallelism in the recurrent blocks, the encoder and
+    cross-attention on (a)'s mesh (``_rec_tp_rank``; module docstring),
+    against one process (``_rec_tp_one``).
+    One spawn of four ranks runs (a), (f), (e), (b), (g), (d)'s 1x2 and
+    (c), each but (f), (e), (b) and (g) on a process group of its own; the
+    one-process references run first.
     Returns what it measured, with the seconds of each part; raises on
     any fault."""
     from repro_torch.checkpoint import restore_checkpoint
@@ -3906,7 +4537,17 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
     one_f = _tp_serve_one(dev, out)
     free()
     times["f_one_process"] = time.perf_counter() - t0
+    # (g) one process first: the losses and logits the ranks are held to
+    t0 = time.perf_counter()
+    one_g = _rec_tp_one(dev, out)
+    free()
+    times["g_one_process"] = time.perf_counter() - t0
     # one spawn: (a), (b), (d)'s 1x2 restore, then (c)
+    print(f"phase 15: this process holds "
+          f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB "
+          f"({torch.cuda.memory_reserved(dev) / 2 ** 30:.2f} reserved) on "
+          f"the card beside the ranks; the card "
+          f"{torch.cuda.mem_get_info(dev)[0] / 2 ** 30:.2f} GiB free")
     t0, w0 = time.perf_counter(), time.time()
     n = math.prod(MESH_DP)
     M.spawn_ranks(argv0 + [str(out), str(ck), card], n, str(out / "rv"),
@@ -4030,24 +4671,10 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
             check(got == want_f, f"(phase 15 f) rank {r['rank']} step {st}: "
                   f"launches {got}, want {want_f}")
 
-    def serve_row(who: str, rec: dict, peak: float, cache_bytes: int) -> dict:
-        return {"who": who, "prefill_host_ms": rec["host_ms"][0],
-                "prefill_device_ms": rec["prefill_prof"]["device_ms"],
-                "prefill_kernel_ms": rec["prefill_prof"]["kernel_ms"],
-                "decode_host_ms": statistics.median(rec["host_ms"][1:]),
-                "decode_host_ms_steps": rec["host_ms"][1:],
-                "decode_device_ms": rec["decode_prof"]["device_ms"],
-                "decode_kernel_ms": rec["decode_prof"]["kernel_ms"],
-                "prefill_sent_bytes": rec["sent"][0]["bytes"],
-                "prefill_collectives": rec["sent"][0]["calls"],
-                "decode_sent_bytes": rec["sent"][-1]["bytes"],
-                "decode_collectives": rec["sent"][-1]["calls"],
-                "peak_gib": peak, "cache_bytes": cache_bytes}
-
-    rows_f = [serve_row("one process", one_f["rec"], one_f["peak_gib"],
-                        one_f["cache_bytes"])]
-    rows_f += [serve_row(f"rank {r['rank']} {r['coords']}", r["f"]["rec"],
-                         r["f"]["peak_gib"], r["f"]["cache_bytes"])
+    rows_f = [_serve_row("one process", one_f["rec"], one_f["peak_gib"],
+                         one_f["cache_bytes"])]
+    rows_f += [_serve_row(f"rank {r['rank']} {r['coords']}", r["f"]["rec"],
+                          r["f"]["peak_gib"], r["f"]["cache_bytes"])
                for r in dp]
     for p in rows_f:
         print(f"phase 15 (f) {p['who']}: prefill {MESH_TP_BATCH} x "
@@ -4073,6 +4700,9 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
           f"{max(r['f']['held']['worst'] for r in dp) / BF16_ULP:.2f} bf16 "
           f"ulps of their plain versions at {dp[0]['f']['held']['shapes']}; "
           f"{dp[0]['f']['seq_sharded']} cache leaves sequence-sharded")
+    # (g) tensor parallelism in the recurrent blocks, the encoder and
+    # cross-attention against one process
+    rows_g, g_summary = _rec_tp_checks(dp, one_g, out, card)
     # (d) elastic restore: 1x2 on ranks 0-1 of (a)'s spawn, then 1x1 here
     tag12 = "x".join(map(str, MESH_RESTORE_RANKS))
     restores = {tag12: {**dp[0]["restore"], "bad_leaves": sorted({
@@ -4143,8 +4773,15 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
     for got in dp[0]["a"]["launches"]:
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
+    for name in _g_cfgs():
+        g = dp[0]["g"][name]
+        for got in g["replicated"]["launches"] + g["sp"]["launches"]:
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
     launches_f: dict = {}
-    for got in dp[0]["f"]["rec"]["launches"]:
+    for got in dp[0]["f"]["rec"]["launches"] + [
+            x for name in _g_cfgs()
+            for x in dp[0]["g"][name]["serve"]["launches"]]:
         for k, v in got.items():
             launches_f[k] = launches_f.get(k, 0) + v
     return {"launches": launches, "launches_tp_serve": launches_f,
@@ -4162,6 +4799,7 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
             "sp": {"losses": dp[0]["e"]["loss"], "max_gap": max(gaps_e),
                    "per_rank": per_rank_e},
             "tp_kernel_rows": tp_rows,
+            "rec_tp": {"archs": g_summary, "kernel_rows": rows_g},
             "restore": restores, "times_s": times,
             "ep": {"err_rel": err / scale, "ties": ties_c,
                    "routing_ties": ties_r, "router_err_rel": worst_r,

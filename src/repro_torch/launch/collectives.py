@@ -35,7 +35,14 @@ on the subgroup of the axes it reduces over:
   keeps its chunk of a value every rank holds whole) and all-gathers
   the cotangent backward.  A sequence that does not split evenly is
   zero-padded to whole chunks for the collective and trimmed after, as
-  GSPMD pads; the last ranks' chunks are then short or empty.
+  GSPMD pads; the last ranks' chunks are then short or empty;
+* ``gather_lanes`` is *gather_seq* over the last dim split over
+  ``model`` in equal blocks (tensor parallelism's lanes): the rank's
+  block all-gathered in rank order forward, the cotangent summed over
+  ``model`` in rank order in f32 and the rank's block kept backward;
+* ``gather_blocks`` makes several tensors whole along ``model`` from
+  every rank's equal blocks of each (the serve steps' recurrent state),
+  in one all-gather of one f32 buffer.
 
 gloo takes host tensors: a card's tensor is copied to pinned host
 memory before a gloo collective and back after it, explicitly
@@ -109,6 +116,28 @@ def gather_cat(x: torch.Tensor, mesh: ProcessMesh,
     """The shards of ``x`` along ``axes`` concatenated on ``dim``."""
     parts = all_gather_shards(x, mesh, axes)
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+def gather_blocks(parts: Dict[str, torch.Tensor], dims: Dict[str, int],
+                  mesh: ProcessMesh) -> Dict[str, torch.Tensor]:
+    """Each ``parts[k]`` whole from every rank's block of it along
+    ``dims[k]``, in rank order over ``model``; each holds the same count
+    of units (lanes, heads) along its dim.  One all-gather of one f32
+    buffer: a float of f32 or narrower widens and narrows back exactly."""
+    if not mesh.present("model"):
+        return dict(parts)
+    front = {k: parts[k].movedim(d, 0) for k, d in dims.items()}
+    n = next(iter(front.values())).shape[0]
+    whole = gather_cat(torch.cat([t.reshape(n, -1).to(torch.float32)
+                                  for t in front.values()], dim=1),
+                       mesh, "model", 0)
+    out, c = {}, 0
+    for k, t in front.items():
+        w = t[0].numel()
+        out[k] = (whole[:, c:c + w].reshape(-1, *t.shape[1:]).to(t.dtype)
+                  .movedim(0, dims[k]).contiguous())
+        c += w
+    return out
 
 
 def reduce_over(x: torch.Tensor, mesh: ProcessMesh,
@@ -369,3 +398,14 @@ def scatter_seq(x: torch.Tensor, mesh: ProcessMesh, *, axis: str = "model",
     if not mesh.present(axis):
         return x
     return _ScatterSeq.apply(x, mesh, axis, dim, reduce)
+
+
+def gather_lanes(x: torch.Tensor, mesh: ProcessMesh) -> torch.Tensor:
+    """The whole last dim, split over ``model`` in equal blocks, from this
+    rank's block ``x``, in rank order.  Backward: the cotangent summed
+    over ``model`` in rank order in f32, this rank's block of it (the
+    whole was read by rank-local work)."""
+    if not mesh.present("model"):
+        return x
+    return _GatherSeq.apply(x, mesh, "model", x.dim() - 1,
+                            x.shape[-1] * mesh.axis_size("model"), True)

@@ -27,8 +27,9 @@ sequence-sharded entries a rank holds slots ``cache_slots`` of.
 
 Compute follows ``tp_unit``: a leaf whose ``model`` shard is a whole
 unit of its layer's work (whole attention heads, whole FFN hidden lanes,
-whole KAN outputs or inputs, whole vocab rows) is computed from the
-shard (Megatron tensor parallelism); any other leaf is gathered whole.
+whole KAN outputs or inputs, whole recurrence lanes, whole vocab rows)
+is computed from the shard (Megatron tensor parallelism); any other leaf
+is gathered whole.
 """
 from __future__ import annotations
 
@@ -195,10 +196,19 @@ def zero1_shardings(opt_moments: Tree, base: Tree,
     return tree_map(one, opt_moments, base)
 
 
-# A decoder block's prefix (a stacked unit's slot, or an "extra" layer)
-_BLOCK = r"^(?:\['units'\]\['slot\d+'\]|\['extra'\]\[(\d+)\])"
-_TP_ATTN = re.compile(_BLOCK + r"\['attn'\]\['(wq|wk|wv|wo)'\]\[")
-_TP_FFN = re.compile(_BLOCK + r"\['ffn'\]\['(gate|up|down|kan_up|kan_down)'\]\[")
+# A block's prefix: a stacked decoder unit's slot, an "extra" decoder
+# layer, or the encoder's stacked blocks
+_BLOCK = (r"^(?:\['units'\]\['slot\d+'\]|\['extra'\]\[(?P<extra>\d+)\]"
+          r"|\['encoder'\]\['units'\])")
+_TP_ATTN = re.compile(
+    _BLOCK + r"\['(?:attn|cross)'\]\['(?P<leaf>wq|wk|wv|wo)'\]\[")
+_TP_FFN = re.compile(
+    _BLOCK + r"\['ffn'\]\['(?P<leaf>gate|up|down|kan_up|kan_down)'\]\[")
+_TP_REC = re.compile(
+    _BLOCK + r"\['rec'\]\['(in_x|in_gate|wa|wx|out|conv|lambda)'\]")
+_TP_MLSTM = re.compile(_BLOCK + r"\['mlstm'\]\['(wq|wk|wv|down)'\]\[")
+_TP_SHARED = re.compile(
+    _BLOCK + r"\['moe'\]\['shared'\]\['(up|down)'\]\[")
 _TP_VOCAB = re.compile(r"^(\['embed'\]\['table'\]|\['lm_head'\]\['kernel'\])$")
 
 
@@ -207,44 +217,70 @@ def tp_unit(path: str, spec: P, cfg: Any, mesh: ProcessMesh) -> bool:
     computed from its ``model`` shard: its shard is a whole unit of its
     layer's work.
 
-    * a decoder block's ``wq`` (+ bias) and ``wo``: whole heads
-      (``n_heads % model == 0``); ``wk``/``wv``: whole kv heads too
+    * ``wq`` (+ bias) and ``wo`` of a decoder block's self-attention,
+      of its cross-attention and of an encoder block's attention: whole
+      heads (``n_heads % model == 0``); ``wk``/``wv``: whole kv heads too
       (``n_kv_heads % model == 0``); else they are gathered and a rank
       takes the kv heads its q heads use;
-    * its FFN's ``gate``/``up``/``down``: whole hidden lanes, in groups of
-      4 when a hidden mask compacts them; ``kan_up``: whole KAN outputs;
-      ``kan_down``: whole KAN inputs (``"kanffn"``: ``kan_up`` only, its
-      hidden lanes in groups of 4 under a hidden mask);
+    * a decoder or encoder block's FFN ``gate``/``up``/``down``: whole
+      hidden lanes, in groups of 4 when a hidden mask compacts them;
+      ``kan_up``: whole KAN outputs; ``kan_down``: whole KAN inputs
+      (``"kanffn"``: ``kan_up`` only, its hidden lanes in groups of 4
+      under a hidden mask);
+    * the RG-LRU's ``in_x``/``in_gate``/``wa``/``wx`` columns,
+      ``conv``/``lambda`` lanes and ``out`` rows: whole recurrence lanes
+      (the scan is elementwise over them);
+    * the mLSTM's ``wq``/``wk``/``wv`` columns and ``down`` rows: whole
+      heads (``n_heads % model == 0``);
+    * the shared expert's ``up`` columns and ``down`` rows: whole hidden
+      lanes (its ``gate`` is replicated by the rules, and a rank slices
+      its columns);
     * ``embed.table`` / ``lm_head``: whole vocab rows or columns.
 
-    Nothing else: the MoE's experts (expert parallel, their own rule),
-    the recurrent blocks, the encoder, cross-attention and the frontend
-    are gathered.  A pure function of the arch, the spec and the mesh's
-    shape."""
+    Gathered whole, though the rules shard them:
+
+    * the MoE's routed experts (expert parallel, their own rule);
+    * the mLSTM's ``up`` (its columns are ``[z | gate]``: a contiguous
+      shard is half of one of them), ``wif`` (reshaped to (2, heads): a
+      shard is all input or all forget gates) and ``conv`` (z feeds every
+      head's q and k whole);
+    * the sLSTM's ``wx`` (its columns are (4 gates, heads, head dim): a
+      shard is two gates of every head), ``up`` (``[a | b]``) and
+      ``down``: the block runs whole;
+    * ``frontend_proj``: its output is read whole by replicated work, so
+      a rank's columns would be all-gathered at every call, B x T x d / m
+      entries a rank against the leaf's d x d / m once a step (whisper's
+      1500 frames at 4 rows: 5.9x the bytes), and the serve steps gather
+      the leaf once, in ``compute_params``.
+
+    A pure function of the arch, the spec and the mesh's shape."""
     m = mesh.axis_size("model")
     if m <= 1 or "model" not in spec.axes():
         return False
-    if _TP_VOCAB.match(path):
+    if _TP_VOCAB.match(path) or _TP_REC.match(path) \
+            or _TP_SHARED.match(path):
         return True
+    if _TP_MLSTM.match(path):
+        return cfg.n_heads % m == 0
     attn = _TP_ATTN.match(path)
     if attn:
         heads = cfg.n_heads % m == 0
-        return heads and (attn.group(2) not in ("wk", "wv")
+        return heads and (attn.group("leaf") not in ("wk", "wv")
                           or cfg.n_kv_heads % m == 0)
     ffn = _TP_FFN.match(path)
     if not ffn:
         return False
-    if ffn.group(1) is None:               # stacked units: layer 0's FFN
-        layer = 0
+    if ffn.group("extra") is None:         # stacked units, the encoder:
+        layer = 0                          # layer 0's FFN
     else:                                  # as models/transformer lays out
         units = 0 if cfg.ffn_kinds is not None else (
             cfg.n_layers // len(cfg.pattern))
-        layer = units * len(cfg.pattern) + int(ffn.group(1))
+        layer = units * len(cfg.pattern) + int(ffn.group("extra"))
     fcfg = cfg.ffn_cfg(layer)
     if fcfg.kind == "kan":
         return True
     if fcfg.kind == "kanffn":
-        if ffn.group(2) != "kan_up":
+        if ffn.group("leaf") != "kan_up":
             return False
         width, mask = fcfg.kanffn_hidden, fcfg.kanffn_hidden_mask()
     else:

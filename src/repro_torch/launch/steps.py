@@ -23,15 +23,19 @@ result, with the same program on every rank:
   moments by ``zero1_shardings`` (``train_state_shardings``);
 * each rank computes Megatron tensor parallelism over ``model``, the
   reference's baseline schedule: a leaf whose ``model`` shard is a whole
-  unit of work (``sharding.tp_unit``: attention heads, FFN hidden lanes,
-  KAN outputs or inputs, vocab rows) is not gathered along ``model``;
-  the rank computes its heads, lanes and vocab columns, and
-  ``collectives.combine`` sums the partial outputs over ``model`` in
-  rank order in f32 after attention, after the FFN and in the
-  vocab-parallel embedding and cross-entropy (``collectives.enter``
-  sums the input's cotangent).  Every other leaf is all-gathered along
-  ``model`` and computed whole, as are the recurrent blocks; the choice
-  is made once, when the step is built (``_tp_paths``);
+  unit of work (``sharding.tp_unit``: the heads of self-attention,
+  cross-attention, the encoder's attention and the mLSTM, the hidden
+  lanes of the decoder's and the encoder's FFNs and of the shared
+  expert, KAN outputs or inputs, the RG-LRU's recurrence lanes, vocab
+  rows) is not gathered along ``model``; the rank computes its heads,
+  lanes and vocab columns, and ``collectives.combine`` sums the partial
+  outputs over ``model`` in rank order in f32 at each such sub-layer's
+  exit and in the vocab-parallel embedding and cross-entropy
+  (``collectives.enter`` sums the input's cotangent).  Every other leaf
+  (the sLSTM's, the mLSTM's ``up``/``wif``/``conv``, ``frontend_proj``,
+  any leaf whose shard is not whole heads) is all-gathered along
+  ``model`` and computed whole; the choice is made once, when the step
+  is built (``_tp_paths``);
 * ``StepOptions.activation_mode="sp"`` splits the residual stream's
   sequence over ``model`` between sub-layers: norms run on a rank's
   chunk (their weights' cotangents summed over ``model``), a
@@ -40,7 +44,8 @@ result, with the same program on every rank:
   (``collectives.gather_seq``, ``scatter_seq``), a gathered one runs on
   the whole sequence and keeps the rank's chunk, and the final norm's
   chunks are gathered for the loss (the reference's ``P(dp, "model",
-  None)`` constraint on the final hidden);
+  None)`` constraint on the final hidden); the encoder runs with its
+  activations replicated;
 * every leaf is all-gathered along ``data`` before use, and each rank
   runs the model on its ``data`` rows of the batch;
 * each rank gets only its ZeRO-1 slice of the gradients averaged over
@@ -78,8 +83,10 @@ on a process mesh, the same program on every rank:
 * the params are the rank's ``compute_params``: its ``model`` shard of
   every tensor-parallel leaf (the train step's ``_tp_paths``) and of the
   SwiGLU experts, every other leaf gathered; the rank computes its
-  heads, KAN lanes and vocab columns (``serve_mesh`` hands the model
-  the context, and ``ffn_modules`` built inside it hold their shards);
+  heads (self-attention, the encoder's, cross-attention's, the mLSTM's),
+  lanes (FFNs, KAN, the RG-LRU, the shared expert) and vocab columns
+  (``serve_mesh`` hands the model the context, and ``ffn_modules`` and
+  ``encoder_ffn_modules`` built inside it hold their shards);
 * the prefill step takes the global batch and keeps the rank's ``data``
   rows (``local_batch``);
 * the rank holds its piece of each cache as the reference's
@@ -88,7 +95,13 @@ on a process mesh, the same program on every rank:
   scales over ``model`` from 1024 slots that split evenly (rank r holds
   slots ``[r * S / m, (r + 1) * S / m)``, every kv head), every other
   cache replicated over ``model``; recurrent and mLSTM state over
-  ``data`` only.  The decode step is built with that layout: which
+  ``data`` only, so replicated over ``model``: a rank reads its lanes
+  (the RG-LRU's) or heads (the mLSTM's) of it, and their new values are
+  all-gathered along ``model`` after each block, so every ``model`` rank
+  holds the same whole state.  ``ck``/``cv`` hold every kv head: a rank
+  computes its kv heads' keys and values over every frame, and they
+  cross as the self-attention caches' do.  The decode step is built
+  with that layout: which
   caches are sequence-sharded is fixed by the arch, the batch and the
   prompt, never guessed from a rank's shapes;
 * each step returns the rank's greedy tokens (the argmax over ``model``

@@ -30,6 +30,12 @@ or sequence-sharded (the rank's slots of it), and then the softmax over
 the slots is merged over ``model`` from each rank's partials
 (``collectives.softmax_combine``).  The int8 quantization is per (slot,
 head), so it splits exactly.
+
+Cross-attention (whisper's decoder) splits the same way
+(``cross_attention``, ``cross_prefill``, ``cross_decode`` with
+``shard=``, ``seq=``): a rank's q heads over every frame of its kv
+heads; ``ck``/``cv`` hold every kv head, of every frame or of the rank's
+frames.
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ from repro_torch.models.layers import (
 
 NEG_INF = -2.0e38
 Params = Dict[str, torch.Tensor]
+KV = Tuple[torch.Tensor, torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -597,8 +604,7 @@ def cross_attn_init(generator: Optional[torch.Generator], cfg: AttnConfig,
                      dtype)
 
 
-def cross_kv(params: Dict, memory: torch.Tensor, cfg: AttnConfig
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+def cross_kv(params: Dict, memory: torch.Tensor, cfg: AttnConfig) -> KV:
     """The keys and values (B, Sk, n_kv_heads, hd) of encoder states
     memory (B, Sk, d)."""
     B, Sk, _ = memory.shape
@@ -609,18 +615,111 @@ def cross_kv(params: Dict, memory: torch.Tensor, cfg: AttnConfig
 
 def cross_attention(params: Dict, x: torch.Tensor, memory: torch.Tensor,
                     cfg: AttnConfig, *,
-                    kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                    ) -> torch.Tensor:
+                    kv: Optional[KV] = None,
+                    shard: Optional[Shard] = None) -> torch.Tensor:
     """x: (B, Sq, d) queries; memory: (B, Sk, d) encoder states (no rope);
-    ``kv``: their ``cross_kv``, where the caller has them already."""
+    ``kv``: their ``cross_kv``, where the caller has them already (with
+    ``shard``, those of the rank's kv heads, ``cross_prefill``'s).  With
+    ``shard``, over this rank's heads, as ``attention``: the memory, read
+    whole by every rank, enters through ``Shard.enter``."""
     B, Sq, _ = x.shape
     hd = cfg.hd
-    q = dense(params["wq"], x).reshape(B, Sq, cfg.n_heads, hd)
-    k, v = cross_kv(params, memory, cfg) if kv is None else kv
+    p, hcfg = (params, cfg) if shard is None else local_heads(params, cfg,
+                                                              shard)
+    q = dense(p["wq"], x).reshape(B, Sq, hcfg.n_heads, hd)
+    if kv is None:
+        kv = cross_kv(p, memory if shard is None else shard.enter(memory),
+                      hcfg)
+    k, v = kv
     qf = (q.to(torch.float32) / math.sqrt(hd)).reshape(
-        B, Sq, cfg.n_kv_heads, cfg.q_groups, hd)
+        B, Sq, hcfg.n_kv_heads, hcfg.q_groups, hd)
     s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.to(torch.float32))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.to(torch.float32))
-    o = o.reshape(B, Sq, cfg.n_heads * hd).to(x.dtype)
-    return dense(params["wo"], o)
+    p_ = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p_, v.to(torch.float32))
+    o = o.reshape(B, Sq, hcfg.n_heads * hd).to(x.dtype)
+    return _out_proj(params, o, cfg, shard, x.dtype)
+
+
+def cross_prefill(params: Dict, memory: torch.Tensor, cfg: AttnConfig, *,
+                  shard: Optional[Shard] = None,
+                  seq: Optional[ProcessMesh] = None
+                  ) -> Tuple[KV, KV]:
+    """(the keys and values ``cross_attention`` reads, the ``ck``/``cv``
+    the cache holds) of encoder states ``memory``.  With ``shard``, the
+    former are those of the kv heads the rank's q heads use
+    (``local_heads``'; cut from every kv head's where they do not split
+    over ``model``).  The cache holds
+    every kv head: of every frame, or with ``seq`` the rank's frames
+    (``launch/sharding.cache_slots``); with kv heads split over
+    ``model``, all-gathered along it in rank order, or under ``seq`` each
+    rank's frame chunks of its heads sent to the chunks' ranks in one
+    all-to-all, as ``prefill_cache``'s."""
+    if shard is None:
+        kv = every = cross_kv(params, memory, cfg)
+    elif not _kv_split(params, cfg):
+        # every kv head once; the rank's are those its q heads use
+        every = cross_kv(params, memory, cfg)
+        H = params["wq"]["kernel"].shape[-1] // cfg.hd
+        ids = torch.tensor(_kv_ids(cfg, shard.local(H, cfg.n_heads, "wq"),
+                                   H), device=memory.device)
+        kv = (every[0].index_select(2, ids), every[1].index_select(2, ids))
+    else:
+        p, hcfg = local_heads(params, cfg, shard)
+        kv = cross_kv(p, memory, hcfg)
+        if seq is None:
+            both = COLL.gather_cat(torch.stack(kv), shard.mesh, "model", 3)
+            every = (both[0], both[1])
+        else:
+            m = seq.axis_size("model")
+            a = torch.stack(kv)                  # (2, B, Sk, K / m, hd)
+            w = a.shape[2] // m
+            got = COLL.all_to_all([a[:, :, j * w:(j + 1) * w]
+                                   for j in range(m)], seq, "model")
+            return kv, tuple(torch.cat(got, dim=3).contiguous())
+    if seq is None:
+        return kv, every
+    lo, hi = cache_slots(every[0].shape[1], seq)
+    return kv, tuple(a[:, lo:hi].contiguous() for a in every)
+
+
+def cross_decode(params: Dict, x1: torch.Tensor, cache: Params,
+                 cfg: AttnConfig, *, shard: Optional[Shard] = None,
+                 seq: Optional[ProcessMesh] = None) -> torch.Tensor:
+    """One token's cross-attention over every cached frame: f32 softmax,
+    no mask, no RoPE.  ``seq``: ``ck``/``cv`` hold this rank's frames of
+    a sequence-sharded cache, and the softmax partials are merged over
+    ``model`` (``collectives.softmax_combine``).  ``shard``: this rank's
+    q heads and ``wo`` rows, as ``decode_step``'s: under ``seq`` every q
+    head all-gathered against the rank's frames, the rank's heads' output
+    kept; else the rank's q heads against their kv heads."""
+    B = x1.shape[0]
+    hd = cfg.hd
+    p, hcfg = (params, cfg) if shard is None else local_heads(params, cfg,
+                                                              shard)
+    q = dense(p["wq"], x1).reshape(B, hcfg.n_heads, hd)
+    acfg, ck, cv = hcfg, cache["ck"], cache["cv"]
+    if seq is not None and shard is not None:
+        q = COLL.gather_cat(q, seq, "model", 1)
+        acfg = cfg
+    elif shard is not None:
+        ids = torch.tensor(_kv_ids(cfg, shard.index * hcfg.n_heads,
+                                   hcfg.n_heads), device=x1.device)
+        ck, cv = ck.index_select(2, ids), cv.index_select(2, ids)
+    q = q.reshape(B, acfg.n_kv_heads, acfg.q_groups, hd)
+    qf = q.to(torch.float32) / math.sqrt(hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qf, ck.to(torch.float32))
+    cv = cv.to(torch.float32)
+    if seq is None:
+        o = torch.einsum("bkgs,bskh->bkgh", torch.softmax(s, dim=-1), cv)
+    else:
+        mx = torch.amax(s, dim=-1)
+        e = torch.exp(s - mx[..., None])
+        _, l, o = COLL.softmax_combine(
+            mx, torch.sum(e, dim=-1), torch.einsum("bkgs,bskh->bkgh", e, cv),
+            seq)
+        o = o / l[..., None]
+    o = o.reshape(B, 1, acfg.n_heads * hd)
+    if seq is not None and shard is not None:    # the rank's heads' rows
+        h0 = shard.index * hcfg.n_heads * hd
+        o = o[..., h0:h0 + hcfg.n_heads * hd]
+    return _out_proj(params, o.to(x1.dtype), cfg, shard, x1.dtype)

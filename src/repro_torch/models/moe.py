@@ -51,6 +51,13 @@ shards over ``data`` before the call.  The aux loss is this ``data``
 shard's; the train step averages it over the ``data`` ranks, as the
 reference's body does.  KAN experts stay on the local path, gathered, as
 in the reference.
+
+The shared expert is tensor-parallel over ``model`` (``moe_apply(...,
+shared=)``, a ``layers.Shard``): a rank holds its columns of ``up`` and
+rows of ``down`` and computes its hidden lanes, slicing its columns of
+the replicated ``gate`` (which the reference's rules do not shard); the
+tokens and the whole ``gate`` enter through ``Shard.enter`` and the f32
+partial leaves through ``Shard.out``.
 """
 from __future__ import annotations
 
@@ -68,7 +75,7 @@ from repro_torch.kernels.kan_fused.ops import kan_fused_v2, slot_table
 from repro_torch.launch import collectives as COLL
 from repro_torch.launch.mesh import ProcessMesh, current_mesh
 from repro_torch.models.ffn import FFNConfig, ffn_apply, ffn_init
-from repro_torch.models.layers import dense, dense_init, randn
+from repro_torch.models.layers import Shard, dense, dense_init, randn
 
 Params = Dict[str, torch.Tensor]
 # the f32 copy of bf16 expert weights one product widens at a time
@@ -337,13 +344,15 @@ def local_experts(cfg: MoEConfig, mesh: ProcessMesh) -> Tuple[int, int]:
 
 
 def moe_apply(params: Dict, x: torch.Tensor, cfg: MoEConfig,
-              experts: Optional[KanExperts] = None) -> Dict:
+              experts: Optional[KanExperts] = None,
+              shared: Optional[Shard] = None) -> Dict:
     """x: (B, S, d) -> {"out": (B, S, d), "aux_loss": f32 scalar}.
 
     ``experts`` (KAN experts only) is the layer's ``KanExperts``, or any
     callable on (E, C, d); without it the fused weights are built per
     call.  Under an active mesh with ``model`` > 1 and SwiGLU experts,
-    the expert-parallel path (module docstring)."""
+    the expert-parallel path; ``shared``: the shared expert's leaves are
+    the rank's shards (module docstring)."""
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
     e = params["experts"]
@@ -364,8 +373,17 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: MoEConfig,
     else:
         out, aux = _moe_local_kan(params, xt, cfg, experts)
     if cfg.shared_expert and "shared" in params:
-        sh = ffn_apply(params["shared"], xt,
-                       FFNConfig(cfg.d_model, cfg.d_ff, kind="swiglu"))
+        fcfg, sp = FFNConfig(cfg.d_model, cfg.d_ff, kind="swiglu"), \
+            params["shared"]
+        if shared is None:
+            sh = ffn_apply(sp, xt, fcfg)
+        else:
+            n = sp["up"]["kernel"].shape[-1]
+            lo = shared.local(n, cfg.d_ff, "shared expert")
+            gate = {k: shared.enter(v)[..., lo:lo + n]
+                    for k, v in sp["gate"].items()}
+            sh = ffn_apply({**sp, "gate": gate}, shared.enter(xt), fcfg,
+                           shared)
         out = out + sh
     return {"out": out.reshape(B, S, d).to(x.dtype), "aux_loss": aux}
 

@@ -15,6 +15,20 @@ tolerance).  ``softplus`` is ``logaddexp(x, 0)``, as ``jax.nn.softplus``
 ``lambda`` is f32 at init; a bf16 server casts it with every other
 floating leaf, as the reference's does.  The state ``h`` is f32, ``conv``
 has x's dtype.
+
+Tensor parallelism (``rglru_apply(..., shard=)``): a rank holds its
+``model`` shard of ``in_x``/``in_gate``/``wa``/``wx`` (columns),
+``conv``/``lambda`` (lanes) and ``out`` (rows), and computes its lanes
+of ``xb``, of the depthwise conv, of the gate and of the scan, which is
+elementwise over lanes.  ``wa``/``wx`` read every lane of the conv's
+output, so it is all-gathered along ``model`` before them
+(``collectives.gather_lanes``: exact; backward, the cotangent summed in
+rank order and the rank's lanes kept); ``out``'s f32 partial leaves
+through ``layers.Shard.out``.  The rank reads its lanes of a whole state
+and returns its lanes of the new one (``STATE_LANES``: the dim of each
+entry that holds them); the serve steps all-gather them along ``model``
+(``collectives.gather_blocks``), so every ``model`` rank holds the same
+whole state.
 """
 from __future__ import annotations
 
@@ -23,10 +37,20 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models.layers import dense, dense_init, gelu, gen_device
+from repro_torch.launch import collectives as COLL
+from repro_torch.models.layers import (
+    Shard,
+    dense,
+    dense_init,
+    f32_matmul,
+    gelu,
+    gen_device,
+)
 from repro_torch.models.xlstm import _causal_conv
 
 Params = Dict[str, torch.Tensor]
+# the dim of each state entry that holds a rank's lanes
+STATE_LANES = {"conv": 2, "h": 1}
 C_FACTOR = 8.0
 
 
@@ -70,18 +94,30 @@ def _lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def rglru_apply(params: Params, x: torch.Tensor, cfg: RGLRUConfig,
-                state: Optional[Dict[str, torch.Tensor]] = None
+                state: Optional[Dict[str, torch.Tensor]] = None,
+                shard: Optional[Shard] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: (B,S,d) -> (y, state); state = {conv, h} for O(1) decode."""
+    """x: (B,S,d) -> (y, state); state = {conv, h} for O(1) decode.  With
+    ``shard`` the rank's lanes (module docstring): ``state`` whole, the
+    new state the rank's lanes of it."""
     f32 = torch.float32
+    lanes = slice(None)
+    if shard is not None:
+        n = params["lambda"].shape[-1]
+        lo = shard.local(n, cfg.width, "rglru lanes")
+        lanes = slice(lo, lo + n)
     gate = gelu(dense(params["in_gate"], x).to(f32))
     xb = dense(params["in_x"], x)
     conv_state = None if state is None else state.get("conv")
+    if conv_state is not None:
+        conv_state = conv_state[..., lanes]
     xc, conv_state = _causal_conv(xb, params["conv"], conv_state)
+    # wa / wx read every lane
+    xw = xc if shard is None else COLL.gather_lanes(xc, shard.mesh)
 
     xf = xc.to(f32)
-    r = torch.sigmoid(dense(params["wa"], xc).to(f32))
-    i = torch.sigmoid(dense(params["wx"], xc).to(f32))
+    r = torch.sigmoid(dense(params["wa"], xw).to(f32))
+    i = torch.sigmoid(dense(params["wx"], xw).to(f32))
     lam = params["lambda"]
     softplus = torch.logaddexp(lam, torch.zeros((), dtype=lam.dtype,
                                                 device=lam.device))
@@ -93,10 +129,15 @@ def rglru_apply(params: Params, x: torch.Tensor, cfg: RGLRUConfig,
 
     if state is not None and "h" in state:
         # prepend carry-in: h_0 contributes a_1 * h_in
-        b = torch.cat([(b[:, 0] + a[:, 0] * state["h"])[:, None], b[:, 1:]],
-                      dim=1)
+        b = torch.cat([(b[:, 0] + a[:, 0] * state["h"][:, lanes])[:, None],
+                       b[:, 1:]], dim=1)
     h = _lru_scan(a, b)                                 # (B,S,w)
-    y = dense(params["out"], (h * gate).to(x.dtype))
+    hg = (h * gate).to(x.dtype)
+    if shard is None:
+        y = dense(params["out"], hg)
+    else:
+        y = shard.out(f32_matmul(hg, params["out"]["kernel"]), x.dtype,
+                      params["out"].get("bias"))
     new_state = {"conv": conv_state, "h": h[:, -1, :]}
     return y, new_state
 

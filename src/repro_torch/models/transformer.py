@@ -45,37 +45,47 @@ reference's is (its ``block_prefill`` passes no ``prefix_len``);
 
 Under an active mesh with more than one ``model`` rank
 (``launch/mesh.set_mesh``; the mesh train step), ``forward`` and
-``lm_loss`` read its ``MeshContext``.  A decoder sub-layer whose leaves
-are in its tensor-parallel set runs over this rank's shards
-(``layers.Shard``): ``collectives.enter`` after the norm, the partial
-output summed by ``combine`` at the exit.  The embedding and the
-cross-entropy are vocab-parallel when the table (or ``lm_head``) is:
-the loss takes the max over ``model`` (``pmax``), the sums of exps and
-the gold logit summed over ``model`` in rank order in f32.  Under
-``activation_mode="sp"`` the residual stream between sub-layers is this
-rank's chunk of the sequence (``collectives.seq_bounds``): the norms run
-on the chunk, their weights' cotangents summed over ``model``; a
-tensor-parallel sub-layer gathers the normed chunks at its entry
-(``gather_seq``) and reduce-scatters its partial output
-(``scatter_seq``); any other sub-layer -- a gathered one, a MoE, the
-recurrent blocks -- runs on the gathered sequence and keeps the rank's
-chunk, its backward whole on every rank; the final norm's chunks are
-gathered for the loss.  The encoder runs whole and replicated.
+``lm_loss`` read its ``MeshContext``.  A sub-layer whose leaves are in
+its tensor-parallel set (``launch/sharding.tp_unit``) runs over this
+rank's shards (``layers.Shard``): a decoder or encoder block's attention
+and FFN, cross-attention, the RG-LRU (its lanes), the mLSTM (its heads)
+and the shared expert (its hidden lanes); ``collectives.enter`` after
+the norm, the partial output summed by ``combine`` at the exit.  The
+embedding and the cross-entropy are vocab-parallel when the table (or
+``lm_head``) is: the loss takes the max over ``model`` (``pmax``), the
+sums of exps and the gold logit summed over ``model`` in rank order in
+f32.  Under ``activation_mode="sp"`` the decoder's residual stream
+between sub-layers is this rank's chunk of the sequence
+(``collectives.seq_bounds``): the norms run on the chunk, their weights'
+cotangents summed over ``model``; a tensor-parallel sub-layer gathers
+the normed chunks at its entry (``gather_seq``) and reduce-scatters its
+partial output (``scatter_seq``); any other sub-layer -- a gathered one,
+a MoE (its shared expert's partial summed whole), the xLSTM blocks (the
+mLSTM's partial summed whole) -- runs on the gathered sequence and keeps
+the rank's chunk, its backward whole on every rank; the final norm's
+chunks are gathered for the loss.  The encoder runs tensor-parallel with
+its activations replicated under either mode (the reference's ``sp``
+constrains only the decoder's final hidden state); ``frontend_proj`` is
+gathered (``tp_unit`` says why).
 
 ``prefill`` and ``decode_step`` read the context too (the serve steps,
-``launch/steps.serve_mesh``): attention and the FFN run over the rank's
-shards where their leaves are tensor-parallel, the logits are the rank's
-vocab columns and ``greedy_token(logits, cfg)`` takes the argmax over
-``model``; the caches are the rank's pieces in the layout of
-``MeshContext.caches`` (a sequence-sharded cache holds the rank's slots
-of every kv head; cross-attention runs whole, its ``ck``/``cv`` the
-rank's frames when they split).  ``init_caches(mesh=)`` makes a rank's
-empty pieces.  Recurrent and xLSTM blocks run whole.
+``launch/steps.serve_mesh``): the same sub-layers run over the rank's
+shards, the logits are the rank's vocab columns and
+``greedy_token(logits, cfg)`` takes the argmax over ``model``; the
+caches are the rank's pieces in the layout of ``MeshContext.caches`` (a
+sequence-sharded cache holds the rank's slots of every kv head,
+``ck``/``cv`` the rank's frames of every kv head).  Recurrent and mLSTM
+state is replicated over ``model``: a rank reads its lanes or heads of
+it and the new values are all-gathered along ``model`` after the block
+(``_whole_state``: one ``collectives.gather_blocks``), so every rank
+holds the same whole state.  ``init_caches(mesh=)`` makes a rank's empty
+pieces.  The sLSTM runs whole.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
@@ -83,7 +93,12 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch import collectives as COLL
 from repro_torch.launch import sharding as SH
-from repro_torch.launch.mesh import MeshContext, ProcessMesh, current_context
+from repro_torch.launch.mesh import (
+    MeshContext,
+    ProcessMesh,
+    current_context,
+    set_mesh,
+)
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import moe as M
@@ -106,6 +121,8 @@ from repro_torch.utils import leaf_paths, tree_map
 
 Params = Dict[str, Any]
 BLOCK_KINDS = ("attn", "rec", "mlstm", "slstm")
+# the encoder's stacked blocks' params prefix, as utils.leaf_paths writes it
+ENCODER = "['encoder']['units']"
 Ffns = Optional[Sequence[Optional[Any]]]
 
 
@@ -196,6 +213,25 @@ def _tp_shard(ctx: Optional[MeshContext], path: str) -> Optional[Shard]:
     return Shard(ctx.mesh, ctx.sp)
 
 
+def _whole_shard(ctx: Optional[MeshContext], path: str) -> Optional[Shard]:
+    """``_tp_shard`` of a sub-layer whose output every rank holds whole
+    (a block that runs on the gathered sequence under sp): its partial
+    summed over ``model`` whole."""
+    shard = _tp_shard(ctx, path)
+    return None if shard is None else Shard(shard.mesh)
+
+
+@contextlib.contextmanager
+def _replicated(ctx: Optional[MeshContext]) -> Iterator[None]:
+    """``ctx`` with a replicated residual stream inside the block (the
+    encoder under ``activation_mode="sp"``)."""
+    if ctx is None or not ctx.sp:
+        yield
+        return
+    with set_mesh(ctx.mesh, tp=ctx.tp, caches=ctx.caches):
+        yield
+
+
 def _layer_path(cfg: ArchConfig, layer: int, unit: Optional[int]) -> str:
     """A decoder layer's params prefix in the tree (a stacked unit's slot
     or an ``"extra"`` entry), as ``utils.leaf_paths`` writes it."""
@@ -273,8 +309,12 @@ def _apply_ffn_part(p: Params, x: torch.Tensor, cfg: ArchConfig,
     if "moe" in p:
         auxes = []
 
+        shared = None if ctx is None else _whole_shard(
+            ctx, path + "['moe']['shared']['up']['kernel']")
+
         def moe(h: torch.Tensor, _: Optional[Shard]) -> torch.Tensor:
-            r = M.moe_apply(p["moe"], h, cfg.moe_cfg(), experts=ffn)
+            r = M.moe_apply(p["moe"], h, cfg.moe_cfg(), experts=ffn,
+                            shared=shared)
             auxes.append(r["aux_loss"])
             return r["out"]
 
@@ -315,9 +355,9 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                 n: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence path (no cache).  Returns (x, aux_loss).  ``path``
-    (the block's params prefix, ``_layer_path``) puts a decoder block
-    under the active mesh's tensor and sequence parallelism, ``n`` being
-    the sequence's whole length; None computes it whole and
+    (the block's params prefix, ``_layer_path`` or ``ENCODER``) puts the
+    block under the active mesh's tensor and sequence parallelism, ``n``
+    being the sequence's whole length; None computes it whole and
     replicated."""
     _check_block(kind)
     ctx = _mesh_ctx() if path is not None else None
@@ -330,18 +370,26 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                                       prefix_len=prefix_len, shard=sh),
                           shard)
         if "cross" in p and memory is not None:
-            x = x + _sublayer(cfg, ctx, p["cross_norm"], x, n, lambda h, _:
+            shard = None if ctx is None else _tp_shard(
+                ctx, path + "['cross']['wq']['kernel']")
+            x = x + _sublayer(cfg, ctx, p["cross_norm"], x, n, lambda h, sh:
                               A.cross_attention(p["cross"], h, memory,
-                                                cfg.attn_cfg()), None)
+                                                cfg.attn_cfg(), shard=sh),
+                              shard)
         return _apply_ffn_part(p, x, cfg, layer, taps, ffn, path=path, n=n)
     if kind == "rec":
-        y = _sublayer(cfg, ctx, p["rec_norm"], x, n, lambda h, _:
-                      R.rglru_apply(p["rec"], h, cfg.rglru_cfg())[0], None)
+        shard = None if ctx is None else _tp_shard(
+            ctx, path + "['rec']['lambda']")
+        y = _sublayer(cfg, ctx, p["rec_norm"], x, n, lambda h, sh:
+                      R.rglru_apply(p["rec"], h, cfg.rglru_cfg(),
+                                    shard=sh)[0], shard)
         return _apply_ffn_part(p, x + y, cfg, layer, taps, ffn, path=path,
                                n=n)
     if kind == "mlstm":
-        y = _whole(ctx, x, n, lambda h: X.mlstm_apply(p["mlstm"], h,
-                                                      cfg.xlstm_cfg())[0])
+        shard = None if ctx is None else _whole_shard(
+            ctx, path + "['mlstm']['wq']['kernel']")
+        y = _whole(ctx, x, n, lambda h: X.mlstm_apply(
+            p["mlstm"], h, cfg.xlstm_cfg(), shard=shard)[0])
         return y, _no_aux(x)
     y = _whole(ctx, x, n, lambda h: X.slstm_apply(p["slstm"], h,
                                                   cfg.xlstm_cfg())[0])
@@ -396,51 +444,40 @@ def block_prefill(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str,
         x = x + y
         if "cross" in p and memory is not None:
             # the memory's keys and values, once: attended now and cached
-            # (the rank's frames of a sequence-sharded cache)
-            kv = A.cross_kv(p["cross"], memory, acfg)
-            seq = _seq_mesh(ctx, path, "ck")
-            cache["ck"], cache["cv"] = kv if seq is None else (
-                a[:, slice(*SH.cache_slots(a.shape[1], seq))].contiguous()
-                for a in kv)
+            # (every kv head; the rank's frames of a sequence-sharded
+            # cache)
+            shard = _tp_shard(ctx, f"{path}['cross']['wq']['kernel']")
+            kv, (cache["ck"], cache["cv"]) = A.cross_prefill(
+                p["cross"], memory, acfg, shard=shard,
+                seq=_seq_mesh(ctx, path, "ck"))
             x = x + A.cross_attention(
                 p["cross"], _norm(cfg, p["cross_norm"], x), memory, acfg,
-                kv=kv)
+                kv=kv, shard=shard)
         x, _ = _apply_ffn_part(p, x, cfg, layer, ffn=ffn, path=path)
         return x, cache
     if kind == "rec":
+        shard = _tp_shard(ctx, f"{path}['rec']['lambda']")
         y, st = R.rglru_apply(p["rec"], _norm(cfg, p["rec_norm"], x),
-                              cfg.rglru_cfg())
+                              cfg.rglru_cfg(), shard=shard)
         x, _ = _apply_ffn_part(p, x + y, cfg, layer, ffn=ffn, path=path)
-        return x, st
+        return x, _whole_state(st, shard, R.STATE_LANES)
     if kind == "mlstm":
-        return X.mlstm_apply(p["mlstm"], x, cfg.xlstm_cfg())
+        shard = _whole_shard(ctx, f"{path}['mlstm']['wq']['kernel']")
+        y, st = X.mlstm_apply(p["mlstm"], x, cfg.xlstm_cfg(), shard=shard)
+        return y, _whole_state(st, shard, X.MLSTM_STATE_HEADS)
     return X.slstm_apply(p["slstm"], x, cfg.xlstm_cfg())
 
 
-def _cross_decode(p: Params, x1: torch.Tensor, cache: Params,
-                  acfg: A.AttnConfig,
-                  seq: Optional[ProcessMesh] = None) -> torch.Tensor:
-    """One token's cross-attention over every cached frame: f32 softmax,
-    no mask, no RoPE.  ``seq``: ``ck``/``cv`` hold this rank's frames of
-    a sequence-sharded cache, and the softmax partials are merged over
-    ``model`` (``collectives.softmax_combine``)."""
-    B = x1.shape[0]
-    hd = acfg.hd
-    q = dense(p["wq"], x1).reshape(B, acfg.n_kv_heads, acfg.q_groups, hd)
-    qf = q.to(torch.float32) / math.sqrt(hd)
-    s = torch.einsum("bkgh,bskh->bkgs", qf, cache["ck"].to(torch.float32))
-    cv = cache["cv"].to(torch.float32)
-    if seq is None:
-        o = torch.einsum("bkgs,bskh->bkgh", torch.softmax(s, dim=-1), cv)
-    else:
-        mx = torch.amax(s, dim=-1)
-        e = torch.exp(s - mx[..., None])
-        _, l, o = COLL.softmax_combine(
-            mx, torch.sum(e, dim=-1), torch.einsum("bkgs,bskh->bkgh", e, cv),
-            seq)
-        o = o / l[..., None]
-    o = o.reshape(B, 1, acfg.n_heads * hd).to(x1.dtype)
-    return dense(p["wo"], o)
+def _whole_state(state: Params, shard: Optional[Shard],
+                 dims: Dict[str, int]) -> Params:
+    """``state`` with each entry of ``dims`` (a rank's lanes or heads of
+    it) all-gathered along ``model``, so every ``model`` rank holds the
+    same whole state (``collectives.gather_blocks``); without ``shard``,
+    ``state``."""
+    if shard is None:
+        return state
+    return {**state, **COLL.gather_blocks({k: state[k] for k in dims},
+                                          dims, shard.mesh)}
 
 
 def block_decode(p: Params, x1: torch.Tensor, cfg: ArchConfig, kind: str,
@@ -461,18 +498,23 @@ def block_decode(p: Params, x1: torch.Tensor, cfg: ArchConfig, kind: str,
         x1 = x1 + y
         new_cache = {**cache, **sub}
         if "cross" in p and "ck" in cache:
-            x1 = x1 + _cross_decode(
+            x1 = x1 + A.cross_decode(
                 p["cross"], _norm(cfg, p["cross_norm"], x1), cache, acfg,
-                _seq_mesh(ctx, path, "ck"))
+                shard=_tp_shard(ctx, f"{path}['cross']['wq']['kernel']"),
+                seq=_seq_mesh(ctx, path, "ck"))
         x1, _ = _apply_ffn_part(p, x1, cfg, layer, ffn=ffn, path=path)
         return x1, new_cache
     if kind == "rec":
-        y, st = R.rglru_decode_step(
-            p["rec"], _norm(cfg, p["rec_norm"], x1), cfg.rglru_cfg(), cache)
+        shard = _tp_shard(ctx, f"{path}['rec']['lambda']")
+        y, st = R.rglru_apply(p["rec"], _norm(cfg, p["rec_norm"], x1),
+                              cfg.rglru_cfg(), cache, shard)
         x1, _ = _apply_ffn_part(p, x1 + y, cfg, layer, ffn=ffn, path=path)
-        return x1, st
+        return x1, _whole_state(st, shard, R.STATE_LANES)
     if kind == "mlstm":
-        return X.mlstm_apply(p["mlstm"], x1, cfg.xlstm_cfg(), cache)
+        shard = _whole_shard(ctx, f"{path}['mlstm']['wq']['kernel']")
+        y, st = X.mlstm_apply(p["mlstm"], x1, cfg.xlstm_cfg(), cache,
+                              shard=shard)
+        return y, _whole_state(st, shard, X.MLSTM_STATE_HEADS)
     return X.slstm_apply(p["slstm"], x1, cfg.xlstm_cfg(), cache)
 
 
@@ -600,9 +642,11 @@ def ffn_modules(params: Params, cfg: ArchConfig) -> List[Optional[Any]]:
 def encoder_ffn_modules(params: Params,
                         cfg: ArchConfig) -> List[Optional[Any]]:
     """``ffn_modules`` of the encoder's layers, one entry per layer (all
-    with layer 0's FFN config, as ``encode`` runs them)."""
-    return [_held_ffn(cfg.ffn_cfg(0), bp["ffn"]) if "ffn" in bp else None
-            for bp in _encoder_layers(params)]
+    with layer 0's FFN config, as ``encode`` runs them); from the rank's
+    shards where the encoder's FFN leaves are tensor-parallel."""
+    shard = _ffn_shard(_mesh_ctx(), ENCODER)
+    return [_held_ffn(cfg.ffn_cfg(0), bp["ffn"], shard) if "ffn" in bp
+            else None for bp in _encoder_layers(params)]
 
 
 # ---------------------------------------------------------------------------
@@ -627,11 +671,15 @@ def encode(params: Params, cfg: ArchConfig, frames: torch.Tensor, *,
            ffns: Ffns = None) -> torch.Tensor:
     """The encoder over stub frames (B, T_audio, d): ``frontend_proj``,
     bidirectional blocks, the final norm.  ``ffns``: one per encoder
-    layer (``encoder_ffn_modules``)."""
+    layer (``encoder_ffn_modules``).  Under a mesh its blocks are
+    tensor-parallel where their leaves are, their activations
+    replicated."""
     x = dense(params["frontend_proj"], frames)
-    for i, bp in enumerate(_encoder_layers(params)):
-        x, _ = block_apply(bp, x, cfg, "attn", causal=False,
-                           ffn=_ffn_of(ffns, i))
+    with _replicated(_mesh_ctx()):
+        for i, bp in enumerate(_encoder_layers(params)):
+            x, _ = block_apply(bp, x, cfg, "attn", causal=False,
+                               ffn=_ffn_of(ffns, i), path=ENCODER,
+                               n=x.shape[1])
     return _norm(cfg, params["encoder"]["final_norm"], x)
 
 

@@ -27,6 +27,25 @@ float ``cumsum``.  ``slstm_scan_flops`` and
 for value.  Initialisers draw from an explicit ``torch.Generator`` on
 its device (the reference's shapes and distributions, not its draws;
 sLSTM's orthogonal ``r`` comes from a QR of a normal draw).
+
+Tensor parallelism (``mlstm_apply(..., shard=)``): a rank holds its
+``model`` shard of ``wq``/``wk``/``wv`` (whole heads' columns) and of
+``down`` (those heads' rows), and every other leaf whole.  It computes
+z, the conv, ``zc`` and the gate whole, as every rank does, then q, k, v
+and the chunk scan over its heads, their input and forget gates from
+their columns of the whole ``wif``, and its heads' lanes of the output;
+z, ``zc`` and the gate enter the rank's work through ``layers.Shard.
+enter`` (their cotangents summed over ``model``), as does ``wif``.
+``out_norm`` normalises over the whole inner width: its mean of squares
+is each rank's f32 sum of squares summed over ``model`` in rank order
+(not bitwise the one-device norm), its scale the rank's lanes; ``down``'s
+f32 partial leaves through ``Shard.out``.  The rank reads its heads of a
+whole state and returns its heads of the new (C, n, m) with the whole
+conv state (``MLSTM_STATE_HEADS``: the dim of each entry that holds
+them); the serve steps all-gather the heads along ``model``
+(``collectives.gather_blocks``).  The sLSTM
+block's ``wx`` columns are (4 gates, heads, head dim) and its ``up``
+``[a | b]``, so no shard of them is a whole unit: it runs whole.
 """
 from __future__ import annotations
 
@@ -38,9 +57,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.grad import ieee_matmul
+from repro_torch.launch import collectives as COLL
 from repro_torch.models.layers import (
+    Shard,
     dense,
     dense_init,
+    f32_matmul,
     gelu,
     randn,
     rmsnorm,
@@ -49,6 +71,9 @@ from repro_torch.models.layers import (
 
 Params = Dict[str, torch.Tensor]
 LOG_EPS = -30.0
+# the dim of each mLSTM state entry that holds a rank's heads (its conv
+# state is whole)
+MLSTM_STATE_HEADS = {"C": 1, "n": 1, "m": 1}
 # the reference's mLSTM chunk loops longer than this run as lax.scan
 UNROLL_MAX_CHUNKS = 8
 
@@ -167,10 +192,27 @@ def _mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return h, (C_out, n_out, m_out)
 
 
+def _rmsnorm_lanes(params: Params, x: torch.Tensor, width: int,
+                   lanes: slice, shard: Shard) -> torch.Tensor:
+    """``rmsnorm`` over ``width`` lanes split over ``model``, of this
+    rank's ``lanes`` ``x``: the mean of squares from each rank's f32 sum
+    of squares summed over ``model`` in rank order (backward: the
+    cotangent, each rank's share, summed too)."""
+    xf = x.to(torch.float32)
+    ss = torch.sum(torch.square(xf), dim=-1, keepdim=True)
+    ss = COLL.enter(COLL.combine(ss, shard.mesh), shard.mesh)
+    y = xf * torch.rsqrt(ss / width + 1e-6)       # rmsnorm's eps
+    scale = shard.enter(params["scale"])[lanes]
+    return (y * scale.to(torch.float32)).to(x.dtype)
+
+
 def mlstm_apply(params: Params, x: torch.Tensor, cfg: XLSTMConfig,
-                state: Optional[Dict[str, torch.Tensor]] = None
+                state: Optional[Dict[str, torch.Tensor]] = None,
+                shard: Optional[Shard] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: (B,S,d).  state carries (conv, C, n, m) for decode."""
+    """x: (B,S,d).  state carries (conv, C, n, m) for decode.  With
+    ``shard`` the rank's heads (module docstring): ``state`` whole, the
+    new (C, n, m) the rank's heads of it; the output whole."""
     f32 = torch.float32
     B, S, d = x.shape
     H, hd, di = cfg.n_heads, cfg.head_dim, cfg.d_inner
@@ -180,24 +222,36 @@ def mlstm_apply(params: Params, x: torch.Tensor, cfg: XLSTMConfig,
     conv_state = None if state is None else state.get("conv")
     zc, conv_state = _causal_conv(z, params["conv"], conv_state)
     zc = F.silu(zc.to(f32)).to(x.dtype)
+    wif, Hl, hs_ = params["wif"], H, slice(None)
+    if shard is not None:
+        Hl = params["wq"]["kernel"].shape[-1] // hd
+        h0 = shard.local(Hl, H, "mlstm heads")
+        hs_, lanes = slice(h0, h0 + Hl), slice(h0 * hd, (h0 + Hl) * hd)
+        z, zc, gate = shard.enter(torch.stack([z, zc, gate])).unbind(0)
+        gate = gate[..., lanes]
+        # the rank's heads' input and forget gate columns
+        idx = torch.tensor([g * H + h0 + j for g in range(2)
+                            for j in range(Hl)], device=x.device)
+        wif = {k: shard.enter(v).index_select(-1, idx)
+               for k, v in wif.items()}
 
     def heads(t: torch.Tensor) -> torch.Tensor:
-        return t.reshape(B, S, H, hd).permute(0, 2, 1, 3)
+        return t.reshape(B, S, Hl, hd).permute(0, 2, 1, 3)
 
     q = heads(dense(params["wq"], zc))
     k = heads(dense(params["wk"], zc))
     v = heads(dense(params["wv"], z))
-    gif = dense(params["wif"], zc).to(f32)
-    g = gif.reshape(B, S, 2, H).permute(0, 3, 1, 2)     # (B,H,S,2)
+    gif = dense(wif, zc).to(f32)
+    g = gif.reshape(B, S, 2, Hl).permute(0, 3, 1, 2)    # (B,H,S,2)
     li = g[..., 0]                                      # (B,H,S) log input
     lf = F.logsigmoid(g[..., 1])                        # log forget
 
     if state is None:
-        st = (torch.zeros((B, H, hd, hd), dtype=f32, device=x.device),
-              torch.zeros((B, H, hd), dtype=f32, device=x.device),
-              torch.zeros((B, H), dtype=f32, device=x.device))
+        st = (torch.zeros((B, Hl, hd, hd), dtype=f32, device=x.device),
+              torch.zeros((B, Hl, hd), dtype=f32, device=x.device),
+              torch.zeros((B, Hl), dtype=f32, device=x.device))
     else:
-        st = (state["C"], state["n"], state["m"])
+        st = (state["C"][:, hs_], state["n"][:, hs_], state["m"][:, hs_])
 
     L = min(cfg.chunk, S)
     n_chunks = -(-S // L)
@@ -211,10 +265,17 @@ def mlstm_apply(params: Params, x: torch.Tensor, cfg: XLSTMConfig,
                               li[:, :, sl], lf[:, :, sl], st)
         outs.append(hh)
     hs = torch.cat(outs, dim=2)                         # (B,H,S,hd)
-    hs = hs.permute(0, 2, 1, 3).reshape(B, S, di).to(x.dtype)
-    hs = rmsnorm(params["out_norm"], hs)
+    hs = hs.permute(0, 2, 1, 3).reshape(B, S, Hl * hd).to(x.dtype)
+    if shard is None:
+        hs = rmsnorm(params["out_norm"], hs)
+    else:
+        hs = _rmsnorm_lanes(params["out_norm"], hs, di, lanes, shard)
     hs = hs * F.silu(gate.to(f32)).to(x.dtype)
-    y = x + dense(params["down"], hs)
+    if shard is None:
+        y = x + dense(params["down"], hs)
+    else:
+        y = x + shard.out(f32_matmul(hs, params["down"]["kernel"]),
+                          x.dtype, params["down"].get("bias"))
     new_state = {"conv": conv_state, "C": st[0], "n": st[1], "m": st[2]}
     return y, new_state
 

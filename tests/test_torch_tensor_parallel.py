@@ -60,6 +60,15 @@ ATTN = {"attn.wq.kernel", "attn.wo.kernel"}
 KV = {"attn.wk.kernel", "attn.wv.kernel"}
 QKV_BIAS = {"attn.wq.bias", "attn.wk.bias", "attn.wv.bias"}
 GLU = {"ffn.gate.kernel", "ffn.up.kernel", "ffn.down.kernel"}
+REC = {"rec.in_x.kernel", "rec.in_gate.kernel", "rec.conv", "rec.lambda",
+       "rec.wa.kernel", "rec.wa.bias", "rec.wx.kernel", "rec.wx.bias",
+       "rec.out.kernel"}
+MLP = {"ffn.up.kernel", "ffn.up.bias", "ffn.down.kernel"}
+CROSS = {"cross." + r[len("attn."):] for r in ATTN | KV | QKV_BIAS}
+ENC = {"encoder.units." + r for r in ATTN | KV | QKV_BIAS | MLP}
+MLSTM = {"mlstm.wq.kernel", "mlstm.wk.kernel", "mlstm.wv.kernel",
+         "mlstm.down.kernel"}
+SHARED = {"moe.shared.up.kernel", "moe.shared.down.kernel"}
 TP_ROLES = {
     ("qwen2-0.5b", "2x2"): ATTN | KV | QKV_BIAS | GLU | {"embed.table"},
     # 14 heads, 2 kv heads: no whole heads over 4 ranks
@@ -77,8 +86,8 @@ TP_ROLES = {
     ("granite-20b", "1x4"): ATTN | {"attn.wq.bias", "ffn.up.kernel",
                                     "ffn.up.bias", "ffn.down.kernel",
                                     "embed.table"},
-    ("recurrentgemma-9b", "2x2"): ATTN | GLU | {"embed.table"},
-    ("recurrentgemma-9b", "1x4"): ATTN | GLU | {"embed.table"},
+    ("recurrentgemma-9b", "2x2"): ATTN | GLU | REC | {"embed.table"},
+    ("recurrentgemma-9b", "1x4"): ATTN | GLU | REC | {"embed.table"},
     ("paligemma-3b", "2x2"): ATTN | GLU | {"embed.table"},
     ("paligemma-3b", "1x4"): ATTN | GLU | {"embed.table"},
     # the experts are expert-parallel, not in this rule
@@ -86,18 +95,18 @@ TP_ROLES = {
                                                  "lm_head.kernel"},
     ("qwen3-moe-235b-a22b", "1x4"): ATTN | KV | {"embed.table",
                                                  "lm_head.kernel"},
-    ("llama4-scout-17b-a16e", "2x2"): ATTN | KV | {"embed.table",
-                                                   "lm_head.kernel"},
-    ("llama4-scout-17b-a16e", "1x4"): ATTN | KV | {"embed.table",
-                                                   "lm_head.kernel"},
-    # the encoder and cross-attention are gathered; vocab 51865 is odd
-    ("whisper-medium", "2x2"): ATTN | KV | QKV_BIAS | {
-        "ffn.up.kernel", "ffn.up.bias", "ffn.down.kernel"},
-    ("whisper-medium", "1x4"): ATTN | KV | QKV_BIAS | {
-        "ffn.up.kernel", "ffn.up.bias", "ffn.down.kernel"},
-    # the recurrent blocks are gathered
-    ("xlstm-125m", "2x2"): {"embed.table"},
-    ("xlstm-125m", "1x4"): {"embed.table"},
+    # the routed experts are expert-parallel; the shared one's lanes TP
+    ("llama4-scout-17b-a16e", "2x2"): ATTN | KV | SHARED | {
+        "embed.table", "lm_head.kernel"},
+    ("llama4-scout-17b-a16e", "1x4"): ATTN | KV | SHARED | {
+        "embed.table", "lm_head.kernel"},
+    # the encoder and cross-attention too; frontend_proj is gathered;
+    # vocab 51865 is odd
+    ("whisper-medium", "2x2"): ATTN | KV | QKV_BIAS | MLP | CROSS | ENC,
+    ("whisper-medium", "1x4"): ATTN | KV | QKV_BIAS | MLP | CROSS | ENC,
+    # the mLSTM's heads; the sLSTM is gathered
+    ("xlstm-125m", "2x2"): MLSTM | {"embed.table"},
+    ("xlstm-125m", "1x4"): MLSTM | {"embed.table"},
 }
 BLOCK = re.compile(r"^(\['units'\]\['slot\d+'\]|\['extra'\]\[\d+\])")
 
@@ -128,7 +137,7 @@ def test_unit_rule_at_full_config(arch, shape):
             assert cfg.n_heads % m == 0, k
         if re.search(r"\['(wk|wv)'\]", k):
             assert cfg.n_kv_heads % m == 0, k
-        assert "['encoder']" not in k and "['cross']" not in k, k
+        assert "['frontend_proj']" not in k and "['slstm']" not in k, k
 
 
 def test_unit_rule_gathers_kv_heads_that_do_not_split():

@@ -51,12 +51,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _mesh_parity import (  # noqa: E402
+    REF_HEAD,
+    REPO,
+    SPAWN_S,
+    WORKER_HEAD,
+    close as _close,
+    env as _env,
+    f64 as _f64,
+    one_serve,
+    tokens_match as _tokens_match,
+)
 from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(REPO, "src")
-SPAWN_S = 240
-TOL = 1e-4
 B, PROMPT, SHORT, NEW = 2, 1024, 40, 4
 # (name, registry arch, reduce() overrides)
 ARCHS = [
@@ -85,199 +92,28 @@ INPUTS = textwrap.dedent("""
         return out
 """)
 
-# the reference's draws and its jitted_serve_step on 2x4
-REF_SCRIPT = textwrap.dedent("""
-    import os
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-    import sys, json, dataclasses
-    import jax, jax.numpy as jnp, numpy as np
-    import jax.tree_util as jtu
-    import repro.jax_compat  # noqa: F401
-    from repro.configs.base import ShapeSpec
-    from repro.configs.registry import get_config
-    from repro.launch.steps import jitted_serve_step
-    from repro.models import transformer as T
+CONSTS = json.dumps({"B": B, "PROMPT": PROMPT, "SHORT": SHORT, "NEW": NEW})
 
-    out, archs = sys.argv[1], json.loads(sys.argv[2])
-    B, PROMPT, NEW = int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5])
-    exec(sys.argv[6])
-    flat = lambda t: {jtu.keystr(p): np.asarray(v)
-                      for p, v in jtu.tree_flatten_with_path(t)[0]}
-    # the jitted step returns the last position's logits where it returns
-    # its greedy token (the token is their argmax: numpy's, like
-    # jnp.argmax, takes the first index of a tie)
-    T.greedy_token = lambda lg: lg[:, -1]
-    mesh = jax.make_mesh((2, 4), ("data", "model"),
-                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+# the reference's draws and its jitted_serve_step on 2x4
+REF_SCRIPT = REF_HEAD + textwrap.dedent("""
     for name, arch, over in archs:
         cfg = get_config(arch).reduce(**over)
-        params = T.init_params(jax.random.key(0), cfg)
-        np.savez(f"{out}/init_{name}.npz", **flat(params))
-        z = inputs(cfg, PROMPT)
-        batch = {k: v for k, v in z.items() if k != "fed"}
-        toks, logits = [], []
-        with jax.set_mesh(mesh):
-            pre, _ = jitted_serve_step(cfg, mesh, ShapeSpec(
-                "p", PROMPT, B, "prefill"))
-            dec, _ = jitted_serve_step(cfg, mesh, ShapeSpec(
-                "d", PROMPT, B, "decode"))
-            lg, caches = pre(params, batch)
-            logits.append(np.asarray(lg))
-            first = flat(caches)
-            for i in range(NEW):
-                lg, caches = dec(params, {"token": z["fed"][i],
-                                          "caches": caches})
-                logits.append(np.asarray(lg))
-        logits = np.stack(logits)
-        np.savez(f"{out}/ref_{name}.npz", logits=logits,
-                 tokens=np.argmax(logits, axis=-1).T.astype(np.int32))
-        np.savez(f"{out}/ref_caches_{name}.npz", **first)
-        np.savez(f"{out}/ref_caches_last_{name}.npz", **flat(caches))
+        ref_serve(name, cfg, draw(name, cfg), inputs(cfg, PROMPT))
 """)
 
 # one rank of the 2x2 runs
-WORKER = textwrap.dedent("""
-    import sys, json
-    import numpy as np, torch
-    torch.set_num_threads(1)
-    from repro_torch.configs.registry import get_config
-    from repro_torch.launch import collectives as COLL, mesh as M, \\
-        sharding as SH, steps as ST
-    from repro_torch.models import ffn as F, transformer as T
-    from repro_torch.utils import leaf_from_numpy, leaf_paths, \\
-        tree_map_with_path
-
-    out, archs = sys.argv[1], json.loads(sys.argv[2])
-    B, PROMPT, SHORT, NEW = (int(a) for a in sys.argv[3:7])
-    exec(sys.argv[7])
-    mesh = M.init_from_env((2, 2), device="cpu")
-    rank, msize = mesh.rank, mesh.axis_size("model")
-    greedy, seen = T.greedy_token, []
-
-    def hooked(lg, cfg=None):             # the logits the steps reduce
-        seen.append(lg[:, -1])
-        return greedy(lg, cfg)
-
-    T.greedy_token = hooked
-
-    def whole_logits(lg, cfg):
-        with ST.serve_mesh(cfg, mesh):
-            if T._vocab_shard(cfg) is not None:
-                lg = COLL.gather_cat(lg, mesh, "model", -1)
-        return COLL.gather_cat(lg, mesh, "data", 0)
-
-    def save(tag, tree):
-        if rank == 0:
-            np.savez(f"{out}/{tag}.npz",
-                     **{k: v.numpy() for k, v in leaf_paths(tree)})
-
-    def changed(before, after):
-        # per cache leaf k/v/ck/cv: the (row, slot) entries a step changed
-        res = {}
-        for (k, a), (_, b) in zip(leaf_paths(before), leaf_paths(after)):
-            if k.endswith(("['k']", "['v']")):
-                d = (a != b).reshape(*a.shape[:-2], -1).any(-1)
-                res[k] = [list(map(int, i)) for i in torch.nonzero(d)]
-        return res
-
-    def run(name, cfg, params, prompt):
-        z = inputs(cfg, prompt)
-        batch = {k: torch.from_numpy(v) for k, v in z.items() if k != "fed"}
-        res = {}
-        COLL.reset_sent()
-        cp = ST.compute_params(ST.shard_params(params, cfg, mesh), cfg, mesh)
-        pspecs = dict(leaf_paths(ST.train_state_shardings(cfg, mesh)[
-            "params"]))
-        tp = ST._tp_paths(cfg, mesh, ST.train_state_shardings(cfg, mesh)[
-            "params"])
-        ep = ST._ep_paths(cfg, mesh, ST.train_state_shardings(cfg, mesh)[
-            "params"])
-        res["n_tp"] = len(tp)
-        res["model_gathers"] = COLL.GATHERS.get(("model",), 0)
-        res["model_gathers_want"] = sum(
-            "model" in s.axes() and k not in tp | ep
-            for k, s in pspecs.items())
-        res["tp_shapes_bad"] = [
-            k for k, a in leaf_paths(cp) if k in tp and tuple(a.shape) !=
-            SH.local_shape(dict(leaf_paths(params))[k].shape,
-                           SH.P(*(e if e == "model" else None
-                                  for e in pspecs[k])), mesh)]
-        with ST.serve_mesh(cfg, mesh):
-            ffns = T.ffn_modules(cp, cfg)
-            enc = T.encoder_ffn_modules(cp, cfg) if cfg.enc_dec else None
-            # a held KAN FFN: bitwise the functional FFN on the same shards
-            held = [(f, bp["ffn"]) for (_, _, bp, _), f in zip(
-                T._layers(cp, cfg), ffns) if f is not None and "ffn" in bp]
-            x = torch.randn((B // 2, 3, cfg.d_model),
-                            generator=torch.Generator().manual_seed(3))
-            res["held_ffn_bitwise"] = [
-                torch.equal(f(x), F.ffn_apply(p, x, cfg.ffn_cfg(0), f.shard))
-                for f, p in held[:1]]
-        layout = ST.cache_layout(cfg, mesh, batch)
-        prefill = ST.make_prefill_step(cfg, ffns=ffns, enc_ffns=enc,
-                                       mesh=mesh)
-        decode = ST.make_decode_step(cfg, ffns=ffns, mesh=mesh,
-                                     layout=layout)
-        seen.clear()
-        COLL.reset_sent()
-        tok, caches = prefill(cp, batch)
-        res["prefill_sent"] = dict(COLL.SENT)
-        whole = T.init_caches(cfg, B, prompt + cfg.decode_margin, "meta")
-        res["cache_shapes_bad"] = [
-            k for (k, a), (_, w), (_, s) in zip(
-                leaf_paths(caches), leaf_paths(whole), leaf_paths(layout))
-            if tuple(a.shape) != SH.local_shape(w.shape, s, mesh)]
-        res["seq_sharded"] = sorted(k for k, s in leaf_paths(layout)
-                                    if "model" in s.axes())
-        empty = T.init_caches(cfg, B, prompt + cfg.decode_margin, "cpu", mesh)
-        res["init_shapes_bad"] = [
-            k for (k, a), (_, e) in zip(leaf_paths(caches), leaf_paths(empty))
-            if a.shape != e.shape or a.dtype != e.dtype]
-        first = SH.gather_caches(caches, layout, mesh)
-        res["shard_roundtrip"] = all(
-            torch.equal(a, b) for (_, a), (_, b) in zip(
-                leaf_paths(SH.shard_caches(first, layout, mesh)),
-                leaf_paths(caches)))
-        toks = [COLL.gather_cat(tok, mesh, "data", 0)]
-        logits = []
-        res["writes"], res["model_replicas_equal"] = [], []
-        for i in range(NEW):
-            fed = ST.local_batch({"token": torch.from_numpy(z["fed"][i])},
-                                 mesh)["token"]
-            COLL.reset_sent()
-            tok, new = decode(cp, {"token": fed, "caches": caches})
-            res.setdefault("decode_sent", dict(COLL.SENT))
-            res["writes"].append(changed(caches, new))
-            caches = new
-            toks.append(COLL.gather_cat(tok, mesh, "data", 0))
-            # every leaf not split over model: the same bits on both
-            # model ranks
-            same = True
-            for (k, a), (_, s) in zip(leaf_paths(caches), leaf_paths(layout)):
-                if "model" not in s.axes():
-                    parts = COLL.all_gather_shards(a.contiguous(), mesh,
-                                                   "model")
-                    same = same and all(torch.equal(parts[0], p)
-                                        for p in parts[1:])
-            res["model_replicas_equal"].append(same)
-        logits = [whole_logits(lg, cfg) for lg in seen]
-        last = SH.gather_caches(caches, layout, mesh)
-        return res, torch.cat(toks, 1), torch.stack(logits), first, last
-
+WORKER = WORKER_HEAD + textwrap.dedent("""
     results = {}
     for name, arch, over in archs:
         cfg = get_config(arch).reduce(**over)
-        with np.load(f"{out}/init_{name}.npz") as z:
-            params = tree_map_with_path(lambda k, _: leaf_from_numpy(z[k]),
-                                        T.param_shapes(cfg))
-        res, toks, lg, first, last = run(name, cfg, params, PROMPT)
-        _, toks_b, lg_b, first_b, last_b = run(name, cfg, params, PROMPT)
+        params = load(name, cfg)
+        res, toks, lg, first, last = serve(cfg, params, inputs(cfg, PROMPT))
+        _, toks_b, lg_b, first_b, last_b = serve(cfg, params,
+                                                 inputs(cfg, PROMPT))
         res["bitwise"] = (torch.equal(toks, toks_b) and torch.equal(lg, lg_b)
-                          and all(torch.equal(a, b) for t1, t2 in (
-                              (first, first_b), (last, last_b))
-                              for (_, a), (_, b) in zip(leaf_paths(t1),
-                                                        leaf_paths(t2))))
-        short, toks_s, lg_s, _, _ = run(name, cfg, params, SHORT)
+                          and same_tree(first, first_b)
+                          and same_tree(last, last_b))
+        short, toks_s, lg_s, _, _ = serve(cfg, params, inputs(cfg, SHORT))
         res["short"] = {k: short[k] for k in ("seq_sharded",
                                               "model_replicas_equal")}
         results[name] = res
@@ -317,11 +153,6 @@ WORKER = textwrap.dedent("""
 """)
 
 
-def _env():
-    return {"PYTHONPATH": SRC + os.pathsep + os.environ.get("PYTHONPATH", ""),
-            "OMP_NUM_THREADS": "1"}
-
-
 def _inputs_fn():
     ns = {"B": B, "NEW": NEW}
     exec(INPUTS, ns)
@@ -332,41 +163,14 @@ def _one_process(name, arch, over, tmp, prompt, mesh=None):
     """(tokens (B, 1 + NEW), logits (1 + NEW, B, V), first caches, last
     caches) of one process, without a mesh or on ``mesh``."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.launch import steps as ST
     from repro_torch.models import transformer as T
-    from repro_torch.utils import leaf_from_numpy, leaf_paths, \
-        tree_map_with_path
+    from repro_torch.utils import leaf_from_numpy, tree_map_with_path
 
     cfg = get_config(arch).reduce(**over)
     with np.load(tmp / f"init_{name}.npz") as z:
         params = tree_map_with_path(lambda k, _: leaf_from_numpy(z[k]),
                                     T.param_shapes(cfg))
-    z = _inputs_fn()(cfg, prompt)
-    batch = {k: torch.from_numpy(v) for k, v in z.items() if k != "fed"}
-    seen, greedy = [], T.greedy_token
-
-    def hooked(lg, cfg=None):
-        seen.append(lg[:, -1])
-        return greedy(lg, cfg)
-
-    T.greedy_token = hooked
-    try:
-        ffns = T.ffn_modules(params, cfg)
-        enc = T.encoder_ffn_modules(params, cfg) if cfg.enc_dec else None
-        layout = None if mesh is None else ST.cache_layout(cfg, mesh, batch)
-        pre = ST.make_prefill_step(cfg, ffns=ffns, enc_ffns=enc, mesh=mesh)
-        dec = ST.make_decode_step(cfg, ffns=ffns, mesh=mesh, layout=layout)
-        tok, caches = pre(params, batch)
-        first = dict(leaf_paths(caches))
-        toks = [tok]
-        for i in range(NEW):
-            tok, caches = dec(params, {"token": torch.from_numpy(z["fed"][i]),
-                                       "caches": caches})
-            toks.append(tok)
-    finally:
-        T.greedy_token = greedy
-    return (torch.cat(toks, 1), torch.stack(seen), first,
-            dict(leaf_paths(caches)))
+    return one_serve(cfg, params, _inputs_fn()(cfg, prompt), mesh)
 
 
 @pytest.fixture(scope="module")
@@ -374,13 +178,12 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tp_serve")
     archs = json.dumps(ARCHS)
     r = subprocess.run([sys.executable, "-c", REF_SCRIPT, str(tmp), archs,
-                        str(B), str(PROMPT), str(NEW), INPUTS],
-                       capture_output=True, text=True, cwd=REPO,
-                       timeout=SPAWN_S, env={**os.environ, **_env()})
+                        CONSTS, INPUTS], capture_output=True, text=True,
+                       cwd=REPO, timeout=SPAWN_S,
+                       env={**os.environ, **_env()})
     assert r.returncode == 0, r.stderr[-3000:]
-    spawn_ranks(["-c", WORKER, str(tmp), archs, str(B), str(PROMPT),
-                 str(SHORT), str(NEW), INPUTS], 4, str(tmp / "rv"),
-                timeout_s=SPAWN_S, env=_env())
+    spawn_ranks(["-c", WORKER, str(tmp), archs, CONSTS, INPUTS], 4,
+                str(tmp / "rv"), timeout_s=SPAWN_S, env=_env())
     ranks = []
     for r in range(4):
         with open(tmp / f"res_rank{r}.json") as f:
@@ -399,19 +202,6 @@ def runs(tmp_path_factory):
     return out
 
 
-def _f64(a):
-    if isinstance(a, torch.Tensor):
-        a = a.numpy()
-    return np.asarray(a, np.float64)
-
-
-def _close(got, ref, what):
-    got, ref = _f64(got), _f64(ref)
-    assert got.shape == ref.shape, (what, got.shape, ref.shape)
-    err = float(np.abs(got - ref).max())
-    assert err <= TOL * (1 + float(np.abs(ref).max())), (what, err)
-
-
 def _int8_close(got, ref, k, what):
     """An int8 cache entry and its f16 scales: equal but at a
     requantization tie, where the f32 value being rounded lies within the
@@ -425,22 +215,6 @@ def _int8_close(got, ref, k, what):
     assert (scales <= 2.0 ** -10 * np.abs(_f64(ref[sk]))).all(), what
     assert float((codes > 0).mean()) <= 1e-3, (what, (codes > 0).mean())
     assert float((scales > 0).mean()) <= 1e-3, (what, (scales > 0).mean())
-
-
-def _tokens_match(got, ref_tokens, ref_logits, what):
-    """Greedy tokens equal, but where the reference side's top two logits
-    lie within the bound of each other: then one of the two."""
-    got, ref_tokens = np.asarray(got), np.asarray(ref_tokens)
-    lg = _f64(ref_logits)                     # (steps, B, V)
-    bound = TOL * (1 + float(np.abs(lg).max()))
-    for s in range(lg.shape[0]):
-        for b in range(lg.shape[1]):
-            g, w = int(got[b, s]), int(ref_tokens[b, s])
-            if g == w:
-                continue
-            top2 = np.argsort(lg[s, b])[-2:]
-            tie = lg[s, b, top2[1]] - lg[s, b, top2[0]] <= bound
-            assert tie and g in top2, (what, s, b, g, w)
 
 
 @pytest.mark.parametrize("name", NAMES)
