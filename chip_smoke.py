@@ -338,6 +338,20 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    process: host and kernel ms, bytes and collectives of each step, peak
    GiB, state and cache bytes; the mixed kernel and the spline basis at
    whisper's rank shapes.
+16. the dry run held against the card (``dryrun_phase``,
+   ``launch/dryrun``: one rank's step counted on the meta device): (a)
+   phase 13's train step in one process, counted on the card and on
+   meta: FLOPs, bytes, each kernel's counted launches (and
+   ``_build.LAUNCHES``) and the argument bytes equal, argument + temp
+   within ``DRYRUN_PEAK_TOL`` of the card's peak over the step, the
+   card's memory ``dryrun.CARD_BYTES``; (b) phase 15's (a), (e) and (f)
+   cells on an abstract 2x2 mesh for each rank: its collectives' calls
+   and bytes and its argument bytes those it recorded on the card in
+   phase 15, its predicted peak printed beside the measured one; (c)
+   ``DRYRUN_CLIS``: the dry run of qwen2-0.5b decode_32k on both
+   production meshes and of xlstm-125m long_500k, ``train --dry-run``,
+   then ``roofline`` and ``report`` over their records, each exiting 0
+   and printing its table.
 
 No served path launches the spline-basis or v1 kernels, so their
 ``launches`` in the record are those of phases 6 and 5; the mixed
@@ -565,6 +579,29 @@ MESH_G_WITNESS = ("whisper-kan", "xlstm-bf16")
 MESH_SPAWN_S = 600
 MESH_DEV = "cuda:0"
 MESH_GIB = 60.0               # the four ranks' peaks together on the card
+# phase 16: the dry run (``launch/dryrun``, the step counted on meta) held
+# against the card.  (a) phase 13's train step in one process: the
+# counts on the card and on meta equal, argument + temp within
+# DRYRUN_PEAK_TOL of the card's peak (reset before the step, less what
+# the process held before it built the step's inputs); (b) phase 15's
+# (a), (e) and (f) cells on an abstract 2x2 mesh, each rank's
+# collectives and argument bytes those it recorded on the card; (c) the
+# CLIs on production cells, then roofline and report over their records.
+# The meta counts run in DRYRUN_WORKERS processes of this script and the
+# CLIs in a thread while (a) runs on the card.
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_WORKERS = ("one", "0", "1", "2", "3")
+DRYRUN_WORKER_S = 300
+DRYRUN_CLIS = (
+    ["-m", "repro_torch.launch.dryrun", "--arch", "qwen2-0.5b", "--shape",
+     "decode_32k", "--mesh", "both"],
+    ["-m", "repro_torch.launch.dryrun", "--arch", "xlstm-125m", "--shape",
+     "long_500k", "--mesh", "single"],
+    ["-m", "repro_torch.launch.train", "--arch", "qwen2-0.5b", "--shape",
+     "decode_32k", "--dry-run"],
+    ["-m", "repro_torch.benchmarks.roofline"],
+    ["-m", "repro_torch.benchmarks.report"],
+)
 
 KERNEL_INFO = {
     "kan_fused_v2": {
@@ -3268,9 +3305,11 @@ def _serve_run(pre, dec, params, batch: dict, fed: list, sync,
     from repro_torch.kernels import _build
     from repro_torch.launch import collectives as COLL
 
-    rec: dict = {"tokens": [], "host_ms": [], "sent": [], "launches": []}
+    rec: dict = {"tokens": [], "host_ms": [], "sent": [], "launches": [],
+                 "arg_bytes": []}
 
     def step(fn, *args):
+        rec["arg_bytes"].append(_tree_bytes(list(args)))
         sync()
         _build.reset_launches()
         COLL.reset_sent()
@@ -3898,9 +3937,11 @@ def _mesh_worker(argv: list) -> int:
     def run(o=opts, stp=step, n=MESH_STEPS, profile=False, state=None):
         if state is None:
             state = ST.init_train_state(cfg, o, params=params, mesh=mesh)
-        rec = {"loss": [], "host_ms": [], "launches": [], "sent": []}
+        rec = {"loss": [], "host_ms": [], "launches": [], "sent": [],
+               "arg_bytes": []}
         for s in range(int(state["step"]), n):
             b = batch(s)
+            rec["arg_bytes"].append(_tree_bytes([state, b]))
             sync()
             _build.reset_launches()
             COLL.reset_sent()
@@ -4784,7 +4825,21 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
             for x in dp[0]["g"][name]["serve"]["launches"]]:
         for k, v in got.items():
             launches_f[k] = launches_f.get(k, 0) + v
+    # what phase 16 (b) holds the dry run to: each rank's collectives and
+    # argument bytes of every step of (a), (e) and (f), and its peaks
+    dryrun_ref = [{
+        "a": {"sent": r["a"]["sent"], "arg": r["a"]["arg_bytes"],
+              "peak_gib": r["peak_gib"]},
+        "e": {"sent": r["e"]["sent"], "arg": r["e"]["arg_bytes"],
+              "peak_gib": r["e"]["peak_gib"]},
+        "f_prefill": {"sent": r["f"]["rec"]["sent"][:1],
+                      "arg": r["f"]["rec"]["arg_bytes"][:1],
+                      "peak_gib": r["f"]["peak_gib"]},
+        "f_decode": {"sent": r["f"]["rec"]["sent"][1:],
+                     "arg": r["f"]["rec"]["arg_bytes"][1:],
+                     "peak_gib": r["f"]["peak_gib"]}} for r in dp]
     return {"launches": launches, "launches_tp_serve": launches_f,
+            "dryrun_ref": dryrun_ref,
             "tp_serve": {"err_rel": err_f / scale_f, "tol": tol_f,
                          "ties": ties_f, "per_rank": rows_f,
                          "kernel_rows": dp[0]["f"]["rows"],
@@ -4808,6 +4863,274 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
                                    "decode_device_ms", "decode_kernel_ms",
                                    "copy_share")}
                 for r in ep]},
+            "wall_s": wall, "card": card}
+
+
+def _dryrun_cells() -> dict:
+    """Phase 16's cells: tag -> (shape, step options); "one" is (a),
+    the others phase 15's (a), (e) and (f) steps on its 2x2 mesh."""
+    from repro_torch.configs.base import ShapeSpec
+    train = ShapeSpec("lm_train", LM_SEQ, LM_BATCH, "train")
+    return {
+        "one": (train, _mesh_opts()),
+        "a": (train, _mesh_opts()),
+        "e": (train, _mesh_opts(activation_mode="sp")),
+        "f_prefill": (ShapeSpec("tp_prefill", MESH_TP_PROMPT, MESH_TP_BATCH,
+                                "prefill"), _mesh_opts()),
+        "f_decode": (ShapeSpec("tp_decode", MESH_TP_PROMPT, MESH_TP_BATCH,
+                               "decode"), _mesh_opts())}
+
+
+def _dryrun_worker(argv: list) -> int:
+    """Phase 16's meta counts, in a process of their own (``python
+    chip_smoke.py --dryrun-worker OUT WHO``): WHO "one" counts (a)'s step
+    on the 1x1 mesh, WHO r rank r's cells of phase 15 on an abstract 2x2
+    mesh; writes ``OUT/dryrun_<WHO>.json``."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch import dryrun as DR
+
+    out, who = Path(argv[0]), argv[1]
+    cfg = _mesh_lm_cfg()
+    res = {}
+    for tag, (shape, opts) in _dryrun_cells().items():
+        if (tag == "one") != (who == "one"):
+            continue
+        t0 = time.perf_counter()
+        rec = DR.analyze_cell(cfg, shape, opts=opts,
+                              rank=0 if who == "one" else int(who),
+                              mesh_shape=(1, 1) if who == "one" else MESH_DP)
+        rec["wall_s"] = time.perf_counter() - t0
+        res[tag] = rec
+    (out / f"dryrun_{who}.json").write_text(json.dumps(res))
+    return 0
+
+
+def _dryrun_clis(done: dict) -> None:
+    """Phase 16 (c): ``DRYRUN_CLIS`` from the repository's root (their
+    records in ``chiprun_out/``): the xlstm cell beside the two qwen2
+    ones (which write the same files, one after the other), then roofline
+    and report over the records; each one's exit code, output and
+    seconds into ``done``."""
+    import threading
+
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+
+    def run(argv: list) -> None:
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, *argv], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=600)
+        done[" ".join(argv[1:])] = {"rc": p.returncode, "out": p.stdout,
+                                    "err": p.stderr[-3000:],
+                                    "s": time.perf_counter() - t0}
+
+    side = threading.Thread(target=run, args=(DRYRUN_CLIS[1],))
+    side.start()
+    run(DRYRUN_CLIS[0])
+    run(DRYRUN_CLIS[2])
+    side.join()
+    for argv in DRYRUN_CLIS[3:]:
+        run(argv)
+
+
+def _op_diff(a: dict, b: dict, n: int = 12) -> list:
+    """The ``n`` aten ops whose (calls, FLOPs, bytes) differ most between
+    two ``by_op`` counts."""
+    keys = set(a) | set(b)
+    rows = [(k, a.get(k, [0, 0.0, 0.0]), b.get(k, [0, 0.0, 0.0]))
+            for k in keys if a.get(k) != b.get(k)]
+    rows.sort(key=lambda r: -abs(r[1][2] - r[2][2]) - abs(r[1][1] - r[2][1]))
+    return rows[:n]
+
+
+def dryrun_phase(dev: torch.device, card: str, mesh_rec: dict) -> dict:
+    """Phase 16: the dry run (``launch/dryrun``: one rank's step counted
+    on meta) held against the card.
+
+    (a) phase 13's train step (qwen2-0.5b with the KAN drop-in at full
+    width and depth, bf16 with f32 t, ``LM_BATCH`` x ``LM_SEQ`` tokens) in
+    one process, the dry run's cell (``dryrun.cell_inputs``, the 1x1
+    mesh), once on the card and once on meta, each under
+    ``dryrun.count``: FLOPs, bytes, each kernel's counted launches and the
+    argument bytes equal, the card's counted launches those of
+    ``_build.LAUNCHES``; the meta argument + temp within
+    ``DRYRUN_PEAK_TOL`` of ``torch.cuda.max_memory_allocated()`` over the
+    step (the peak stats reset before it, less what the process held
+    before the inputs were made); the card's memory the dry run's
+    ``CARD_BYTES``;
+    (b) phase 15's (a), (e) (``activation_mode="sp"``) and (f) (a prefill
+    of ``MESH_TP_BATCH`` x ``MESH_TP_PROMPT`` tokens, a decode step
+    after it) cells, ``dryrun.analyze_cell`` on an abstract 2x2 mesh for
+    each rank: its collectives' calls and bytes (``SENT``) those the rank
+    recorded on the card at every step of phase 15, its argument bytes
+    those of the state and batch it stepped; each rank's predicted peak
+    printed beside its measured one;
+    (c) ``DRYRUN_CLIS``: the dry run of qwen2-0.5b decode_32k on both
+    production meshes and of xlstm-125m long_500k, ``train --dry-run``,
+    then ``roofline`` and ``report`` over their records: each exits 0 and
+    prints its table.
+    Returns what it measured; raises on any fault."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as TF
+
+    import threading
+
+    t_phase = time.perf_counter()
+    out = Path(tempfile.mkdtemp(prefix="dryrun_phase_"))
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    workers = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-worker",
+         str(out), who], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for who in DRYRUN_WORKERS]
+    clis: dict = {}
+    cli_thread = threading.Thread(target=_dryrun_clis, args=(clis,))
+    cli_thread.start()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    check(total == DR.CARD_BYTES, f"(phase 16) the card's memory {total} "
+          f"bytes, the dry run's CARD_BYTES {DR.CARD_BYTES}")
+
+    # (a) the step on the card, counted
+    cells = _dryrun_cells()
+    shape, opts = cells["one"]
+    cfg = _mesh_lm_cfg()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    alloc0 = torch.cuda.memory_allocated(dev)
+    params = TF.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in _mesh_data(cfg).batch_at(0).items()}
+    step, inputs = DR.cell_inputs(cfg, shape, M.make_host_mesh(dev), opts,
+                                  params=params, batch=batch)
+    del params, batch
+    gc.collect()
+    torch.cuda.synchronize()
+    inputs_alloc = torch.cuda.memory_allocated(dev) - alloc0
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    card_full = DR.count_step(step, inputs)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - alloc0
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    del step, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for w in workers:
+        _, err = w.communicate(timeout=DRYRUN_WORKER_S)
+        check(w.returncode == 0, f"(phase 16) a dry-run worker exited "
+              f"{w.returncode}:\n{err[-3000:]}")
+    meta = {who: json.loads((out / f"dryrun_{who}.json").read_text())
+            for who in DRYRUN_WORKERS}
+    shutil.rmtree(out, ignore_errors=True)
+    mfull = meta["one"]["one"]["full"]
+    card_launches = {k: v["launches"] for k, v in card_full["kernels"].items()}
+    meta_launches = {k: v["launches"] for k, v in mfull["kernels"].items()}
+    marg = mfull["memory"]["argument_size_in_bytes"]
+    mtemp = mfull["memory"]["temp_size_in_bytes"]
+    same = {k: (card_full[k], mfull[k]) for k in ("flops", "bytes_accessed")
+            if card_full[k] != mfull[k]}
+    if same or card_launches != meta_launches:
+        print("phase 16: (a) the aten ops whose counts differ, (calls, "
+              "FLOPs, bytes) on the card / on meta: " + "; ".join(
+                  f"{k} {c} / {m}" for k, c, m in _op_diff(
+                      card_full["by_op"], mfull["by_op"])))
+    check(not same, f"(a) card / meta counts differ: {same}")
+    check(card_launches == meta_launches == launched,
+          f"(a) counted launches: card {card_launches}, meta "
+          f"{meta_launches}; _build.LAUNCHES {launched}")
+    check(card_full["memory"]["argument_size_in_bytes"] == marg,
+          f"(a) argument bytes: card "
+          f"{card_full['memory']['argument_size_in_bytes']}, meta {marg}")
+    gap = (marg + mtemp) / peak - 1.0
+    check(abs(gap) <= DRYRUN_PEAK_TOL,
+          f"(a) meta argument + temp {(marg + mtemp) / 2 ** 30:.3f} GiB vs "
+          f"the card's peak {peak / 2 ** 30:.3f} GiB: {gap * 100:+.2f}%, "
+          f"bound {DRYRUN_PEAK_TOL * 100:.0f}%")
+    one = {"flops": mfull["flops"], "bytes": mfull["bytes_accessed"],
+           "launches": meta_launches, "argument_bytes": marg,
+           "temp_bytes": mtemp,
+           "card_temp_bytes": card_full["memory"]["temp_size_in_bytes"],
+           "card_inputs_allocated": inputs_alloc, "card_peak_bytes": peak,
+           "peak_gap": gap, "aten_ops": [card_full["aten_ops"],
+                                         mfull["aten_ops"]],
+           "card_s": card_s, "meta_s": meta["one"]["one"]["wall_s"],
+           "card_bytes": total}
+    print(f"phase 16: (a) {cfg.name} KAN drop-in train step, "
+          f"{LM_BATCH} x {LM_SEQ}: card / meta FLOPs {mfull['flops']:.6e}, "
+          f"bytes {mfull['bytes_accessed']:.6e} (equal), launches "
+          f"{meta_launches} (equal, and _build's), argument "
+          f"{marg / 2 ** 30:.4f} GiB (equal); meta argument + temp "
+          f"{(marg + mtemp) / 2 ** 30:.4f} GiB vs the card's peak "
+          f"{peak / 2 ** 30:.4f} GiB ({gap * 100:+.2f}%; the card's own "
+          f"count's temp {card_full['memory']['temp_size_in_bytes'] / 2 ** 30:.4f}"
+          f" GiB, inputs allocated {inputs_alloc / 2 ** 30:.4f} GiB); "
+          f"{card_full['aten_ops']} / {mfull['aten_ops']} aten ops; counted "
+          f"step {card_s:.1f} s on the card, {one['meta_s']:.1f} s on meta "
+          f"(card memory {total} bytes; {card})")
+
+    # (b) each rank's cells of phase 15 against what the rank recorded
+    ranks = []
+    for r, ref in enumerate(mesh_rec["dryrun_ref"]):
+        got = meta[str(r)]
+        row = {"rank": r}
+        for tag in ("a", "e", "f_prefill", "f_decode"):
+            f = got[tag]["full"]
+            sent = f["sent"]
+            arg = f["memory"]["argument_size_in_bytes"]
+            check(all(s == sent for s in ref[tag]["sent"])
+                  and ref[tag]["sent"],
+                  f"(b) rank {r} {tag}: meta sends {sent}, the card "
+                  f"{ref[tag]['sent']}")
+            check(all(a == arg for a in ref[tag]["arg"]) and ref[tag]["arg"],
+                  f"(b) rank {r} {tag}: meta argument {arg} bytes, the card "
+                  f"{ref[tag]['arg']}")
+            row[tag] = {"sent": sent, "argument_bytes": arg,
+                        "predicted_gib": (arg + f["memory"][
+                            "temp_size_in_bytes"]) / 2 ** 30,
+                        "measured_gib": ref[tag]["peak_gib"],
+                        "collectives": f["collectives"],
+                        "meta_s": got[tag]["wall_s"]}
+        ranks.append(row)
+        print(f"phase 16: (b) rank {r}: " + "; ".join(
+            f"{tag} {row[tag]['sent']['calls']} collectives, "
+            f"{row[tag]['sent']['bytes']} bytes, argument "
+            f"{row[tag]['argument_bytes']} bytes (= phase 15's), peak "
+            f"predicted {row[tag]['predicted_gib']:.3f} GiB, measured "
+            f"{row[tag]['measured_gib']:.3f} (the rank's whole run)"
+            for tag in ("a", "e", "f_prefill", "f_decode")))
+
+    # (c) the CLIs
+    cli_thread.join(timeout=DRYRUN_WORKER_S)
+    check(not cli_thread.is_alive() and len(clis) == len(DRYRUN_CLIS),
+          f"(c) the CLIs ran {len(clis)} of {len(DRYRUN_CLIS)}")
+    for cmd, r in clis.items():
+        check(r["rc"] == 0, f"(c) {cmd} exited {r['rc']}:\n{r['err']}")
+        print(f"phase 16: (c) {cmd}: exit 0 in {r['s']:.1f} s")
+    outs = [clis[" ".join(argv[1:])] for argv in DRYRUN_CLIS]
+    want = [("[OK ] qwen2-0.5b", "decode_32k   16x16", "decode_32k   2x16x16",
+             "0 failures"),
+            ("[OK ] xlstm-125m", "long_500k    16x16", "0 failures"),
+            ("[OK ] qwen2-0.5b", "decode_32k   2x16x16", "0 failures"),
+            ("| qwen2-0.5b", "| decode_32k", "| xlstm-125m", "| long_500k"),
+            ("| qwen2-0.5b | decode_32k | 16x16 |",
+             "| qwen2-0.5b | decode_32k | 2x16x16 |",
+             "| xlstm-125m | long_500k | 16x16 |", "worst roofline")]
+    for r, need in zip(outs, want):
+        for w in need:
+            check(w in r["out"], f"(c) {w!r} not in the output:\n"
+                  f"{r['out'][-2000:]}")
+    print("phase 16: (c) roofline's table:\n" + outs[3]["out"].strip())
+    print("phase 16: (c) report's tables:\n" + outs[4]["out"].strip())
+    wall = time.perf_counter() - t_phase
+    print(f"phase 16: the dry run held against the card in {wall:.1f} s "
+          f"({card})")
+    return {"one": one, "ranks": ranks,
+            "clis": {k: {"rc": v["rc"], "s": v["s"]} for k, v in clis.items()},
             "wall_s": wall, "card": card}
 
 
@@ -7067,6 +7390,10 @@ def main() -> int:
     # training and serving on a process mesh (``mesh_phase``)
     mesh = mesh_phase(dev, card)
 
+    # ---------------------------------------------------------------- 16
+    # the dry run held against the card (``dryrun_phase``)
+    dry = dryrun_phase(dev, card, mesh)
+
     launched = {k: (served[p]["launches"][k], f"phase 3, {p} burst")
                 for p in PRECISIONS for k in SERVED_KERNELS[p]}
     launched["kan_fused_v1_bf16"] = (b_v1_launches["kan_fused_v1_bf16"],
@@ -7124,6 +7451,7 @@ def main() -> int:
          "lm_train": lm,
          "array": array,
          "mesh": mesh,
+         "dryrun": dry,
          "ptxas": usage,
          "knob_checks": knob_checks,
          "kernel_bench_launches": bench_launches},
@@ -7139,4 +7467,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-worker"]:
         sys.exit(_mesh_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--dryrun-worker"]:
+        sys.exit(_dryrun_worker(sys.argv[2:]))
     sys.exit(main())

@@ -8,9 +8,12 @@ headline ratio the paper claims.  The rows: Table I, Figs. 6-8 and
 Table II (``repro_torch.benchmarks.table1_models`` and the rest, their
 files under ``--out-dir``, reused only where the same epochs, seed,
 data config and device made them), then the port's kernel bench and serving
-bench (``chiprun_out/kernel_bench.json`` and ``serving_bench.json``).  It
-writes no ``BENCH_*.json`` and nothing under ``experiments/``; the
-reference's roofline row waits for its dry-run artifacts.
+bench (``chiprun_out/kernel_bench.json`` and ``serving_bench.json``),
+and the roofline's worst cell (``roofline_worst_cell``, its step time at
+the datasheet constants) when the dry run's single-pod records
+(``chiprun_out/dryrun/*__single.json``, ``repro_torch.launch.dryrun``)
+exist.  It writes no ``BENCH_*.json`` and nothing under
+``experiments/``.
 
 Usage (with ``PYTHONPATH=src``)::
 
@@ -27,6 +30,7 @@ from repro_torch.benchmarks import (
     fig7_sparsity,
     fig8_grid_scaling,
     kernel_bench,
+    roofline,
     serving_bench,
     table1_models,
     table2_overall,
@@ -118,6 +122,16 @@ def main() -> None:
                 f"fifo_reconfig={fifo['reconfig_cycles']:.0f};"
                 f"affinity_reconfig={aff['reconfig_cycles']:.0f};"
                 f"bitwise={r['bitwise_identical']}"))
+
+    # the roofline's worst cell, from the dry run's records if any
+    if list(roofline.DEFAULT_DIR.glob("*__single.json")):
+        rl = [r for r in roofline.main([]) if "error" not in r]
+        if rl:
+            worst_cell = min(rl, key=lambda r: r["roofline_frac"])
+            rows.append((
+                "roofline_worst_cell", worst_cell["step_t"] * 1e6,
+                f"{worst_cell['arch']}/{worst_cell['shape']}="
+                f"{worst_cell['roofline_frac']:.2f}"))
 
     print("\nname,us_per_call,derived")
     for name, us, derived in rows:

@@ -8,8 +8,11 @@ launches the hand-written kernel for its operands' dtypes -- f32:
 ``csrc/kan_fused_bf16.cu`` (``csrc/kan_fused_v1_bf16.cu``); a bf16 x
 against f32 fused weights (a bf16 model's, whose spline coefficients
 ``t`` are f32 as the reference's are): ``csrc/kan_fused_mixed.cu``;
-int8 codes: ``csrc/kan_fused_q8.cu`` -- or raises.  There is no cast and
-no fallback from a kernel to its plain version.  f32 and bf16 layers
+int8 codes: ``csrc/kan_fused_q8.cu`` -- or raises.  A meta tensor (the
+dry run, ``launch/dryrun``) gets the card's checks and tensors and no
+launch; each call's work goes to the dry run's counts
+(``kernels/work``).  There is no cast and no fallback from a kernel to
+its plain version.  f32 and bf16 layers
 take ``out_dtype``, as the JAX ``kan_linear`` does: x's dtype (the
 default) or f32, the bf16 kernels' f32 accumulator unrounded.
 
@@ -52,7 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.splines import INV_LUT, SplineSpec, locate_cell, silu
-from repro_torch.kernels import _build, autotune
+from repro_torch.kernels import _build, autotune, work
 from repro_torch.kernels.epilogue import resolve_out_dtype
 from repro_torch.kernels.grad import grad_wanted, ieee_matmul, refuse_grad
 from repro_torch.kernels.kan_fused.ref import (
@@ -61,7 +64,7 @@ from repro_torch.kernels.kan_fused.ref import (
     kan_fused_v2_ref,
 )
 from repro_torch.kernels.spline_basis.ops import spline_basis
-from repro_torch.utils import next_pow2
+from repro_torch.utils import next_pow2, one_hot
 
 KERNEL = "kan_fused_v2"
 KERNEL_V1 = "kan_fused_v1"
@@ -437,12 +440,28 @@ def kan_fused_v2(x: torch.Tensor, wt: torch.Tensor, spec: SplineSpec,
                                 out_dtype)
     wt_dtype = (torch.float32 if dtype == torch.bfloat16
                 and wt.dtype == torch.float32 else dtype)
+    with work.kernel(KERNELS.get((2, dtype, wt_dtype), KERNEL),
+                     lambda: work.kan_fused(
+                         x.shape[0], x.shape[-1], wt.shape[-1], spec,
+                         len(kb), x.dtype, wt.dtype, out_dtype)):
+        return _kan_fused_v2(x, wt, spec, kb, slot_of, blocks, out_dtype,
+                             dtype, wt_dtype, what)
+
+
+def _kan_fused_v2(x: torch.Tensor, wt: torch.Tensor, spec: SplineSpec,
+                  kb: Tuple[int, ...], slot_of: Optional[torch.Tensor],
+                  blocks: Optional[Sequence[int]], out_dtype: torch.dtype,
+                  dtype: torch.dtype, wt_dtype: torch.dtype,
+                  what: str) -> torch.Tensor:
+    """``kan_fused_v2``'s device branch: the plain version on the CPU,
+    the kernel on the card, on meta the card's checks and tensors and no
+    launch (``kernels/work``: the dry run)."""
     if x.device.type == "cpu":
         if blocks is not None:
             check_blocks(_as_blocks(blocks), x.shape[-1], wt.shape[-1],
                          len(kb), dtype, wt_dtype=wt_dtype)
         return kan_fused_v2_ref(x, wt, spec, kb, out_dtype)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"kan_fused_v2: no kernel for device {x.device}")
     if slot_of is None:
         slot_of = slot_table(kb, spec.n_bases, x.device)
@@ -454,6 +473,11 @@ def kan_fused_v2(x: torch.Tensor, wt: torch.Tensor, spec: SplineSpec,
         [("x", x, dtype), ("wt", wt, wt_dtype),
          ("slot_of", slot_of, torch.int32)], what)
     out = torch.empty((B, n_out), dtype=out_dtype, device=x.device)
+    if x.is_meta:
+        if blocks is not None:
+            check_blocks(_as_blocks(blocks), n_in, n_out, nbk, dtype,
+                         wt_dtype=wt_dtype)
+        return out
     if B == 0 or n_out == 0:
         return out
     bm, bi, bn = _knobs(B, n_in, n_out, nbk, dtype, blocks, x.device,
@@ -505,7 +529,7 @@ def fused_activation_grads(x: torch.Tensor, spec: SplineSpec,
         lower = spline_basis(xc, SplineSpec(G, K - 1, spec.x0, spec.x1))
     else:
         cell = locate_cell(xc, spec)[0].long()
-        lower = torch.nn.functional.one_hot(cell, G).to(x.dtype)
+        lower = one_hot(cell, G, x.dtype)
     lower = torch.nn.functional.pad(lower, (1, 1))          # Bm_{i-1} at i
     dbases = _kept((lower[..., :-1] - lower[..., 1:]) * spec.inv_h, spec, kb)
     sig = torch.sigmoid(x)
@@ -672,12 +696,26 @@ def kan_fused_v1(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
     out_dtype = resolve_out_dtype("kan_fused_v1", x, out_dtype)
     if grad_wanted(x, w_b, t_flat):
         refuse_grad("kan_fused_v1", "through the version-1 kernel")
+    with work.kernel(KERNELS.get((1, dtype, dtype), KERNEL_V1),
+                     lambda: work.kan_fused(
+                         x.shape[0], x.shape[-1], w_b.shape[-1], spec,
+                         len(kb), x.dtype, w_b.dtype, out_dtype)):
+        return _kan_fused_v1(x, w_b, t_flat, spec, kb, slot_of, blocks,
+                             out_dtype, dtype, what)
+
+
+def _kan_fused_v1(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
+                  spec: SplineSpec, kb: Tuple[int, ...],
+                  slot_of: Optional[torch.Tensor],
+                  blocks: Optional[Sequence[int]], out_dtype: torch.dtype,
+                  dtype: torch.dtype, what: str) -> torch.Tensor:
+    """``kan_fused_v1``'s device branch (``_kan_fused_v2``'s rules)."""
     if x.device.type == "cpu":
         if blocks is not None:
             check_blocks(_as_blocks(blocks), x.shape[-1], w_b.shape[-1],
                          len(kb), dtype, version=1)
         return kan_fused_v1_ref(x, w_b, t_flat, spec, kb, out_dtype)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"kan_fused_v1: no kernel for device {x.device}")
     if x.dtype == torch.bfloat16 and torch.float32 in (w_b.dtype,
                                                         t_flat.dtype):
@@ -693,6 +731,11 @@ def kan_fused_v1(x: torch.Tensor, w_b: torch.Tensor, t_flat: torch.Tensor,
         [("x", x, dtype), ("w_b", w_b, dtype), ("t_flat", t_flat, dtype),
          ("slot_of", slot_of, torch.int32)], what)
     out = torch.empty((B, n_out), dtype=out_dtype, device=x.device)
+    if x.is_meta:
+        if blocks is not None:
+            check_blocks(_as_blocks(blocks), n_in, n_out, nbk, dtype,
+                         version=1)
+        return out
     if B == 0 or n_out == 0:
         return out
     bm, bi, bn = _knobs(B, n_in, n_out, nbk, dtype, blocks, x.device,
@@ -725,12 +768,25 @@ def kan_fused_v2_q8(x_q: torch.Tensor, wt_q: torch.Tensor,
     if slot_scales.shape != (nbk + 1,):
         raise ValueError(f"kan_fused_v2_q8: slot_scales has shape "
                          f"{tuple(slot_scales.shape)} for nbk={nbk}")
+    with work.kernel(KERNEL_Q8, lambda: work.kan_fused_q8(
+            x_q.shape[0], x_q.shape[-1], wt_q.shape[-1], spec, nbk)):
+        return _kan_fused_v2_q8(x_q, wt_q, slot_scales, spec, kb, x_scale,
+                                slot_of, blocks)
+
+
+def _kan_fused_v2_q8(x_q: torch.Tensor, wt_q: torch.Tensor,
+                     slot_scales: torch.Tensor, spec: SplineSpec,
+                     kb: Tuple[int, ...], x_scale: float,
+                     slot_of: Optional[torch.Tensor],
+                     blocks: Optional[Sequence[int]]) -> torch.Tensor:
+    """``kan_fused_v2_q8``'s device branch (``_kan_fused_v2``'s rules)."""
+    nbk = len(kb)
     if x_q.device.type == "cpu":
         if blocks is not None:
             check_blocks(_as_blocks(blocks), x_q.shape[-1], wt_q.shape[-1],
                          nbk, torch.int8)
         return kan_fused_v2_q8_ref(x_q, wt_q, slot_scales, spec, kb, x_scale)
-    if x_q.device.type != "cuda":
+    if x_q.device.type not in ("cuda", "meta"):
         raise ValueError(f"kan_fused_v2_q8: no kernel for device "
                          f"{x_q.device}")
     if slot_of is None:
@@ -741,6 +797,10 @@ def kan_fused_v2_q8(x_q: torch.Tensor, wt_q: torch.Tensor,
          ("slot_scales", slot_scales, torch.float32),
          ("slot_of", slot_of, torch.int32)], "this kernel takes int8 codes")
     out = torch.empty((B, n_out), dtype=torch.float32, device=x_q.device)
+    if x_q.is_meta:
+        if blocks is not None:
+            check_blocks(_as_blocks(blocks), n_in, n_out, nbk, torch.int8)
+        return out
     if B == 0 or n_out == 0:
         return out
     bm, bi, bn = _knobs(B, n_in, n_out, nbk, torch.int8, blocks, x_q.device)

@@ -7,7 +7,9 @@ the compact matmul with the fused ``act(acc + bias)`` epilogue -- the
 plain version (``ref.matmul_compact_ref``) for a CPU tensor, the CUDA
 kernel for its dtype for a CUDA tensor: ``csrc/pattern_matmul.cu`` (f32,
 CUDA cores) or ``csrc/pattern_matmul_bf16.cu`` (bf16 tensor cores, f32
-accumulation, bf16 or f32 out by ``out_dtype``).  The int8 path is the
+accumulation, bf16 or f32 out by ``out_dtype``); a meta tensor (the dry
+run, ``launch/dryrun``) gets the card's checks and output and no launch,
+its work counted by ``kernels/work``.  The int8 path is the
 same with ``matmul_q8`` (``ref.matmul_q8_ref`` or
 ``csrc/pattern_matmul_q8.cu``), whose raw integer accumulator
 ``pattern_linear_q8`` scales with the shared ``scale_bias_act``.  There is
@@ -33,7 +35,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.sparsity import PatternMask
-from repro_torch.kernels import _build, autotune
+from repro_torch.kernels import _build, autotune, work
 from repro_torch.kernels.epilogue import (
     ACT_CODES,
     resolve_out_dtype,
@@ -277,12 +279,27 @@ def matmul_compact(x_c: torch.Tensor, w_c: torch.Tensor,
         if act not in (None, "relu"):
             refuse_grad("matmul_compact", f"through the {act} epilogue")
         return MatmulCompact.apply(x_c, w_c, bias, act, blocks)
+    with work.kernel(KERNEL_BF16 if bf16 else KERNEL, lambda: work.matmul(
+            x_c.shape[0], x_c.shape[-1], w_c.shape[-1], x_c.dtype,
+            out_dtype, None if bias is None else bias.dtype)):
+        return _matmul_compact(x_c, w_c, bias, act, blocks, out_dtype,
+                               dtype)
+
+
+def _matmul_compact(x_c: torch.Tensor, w_c: torch.Tensor,
+                    bias: Optional[torch.Tensor], act: Optional[str],
+                    blocks: Optional[Sequence[int]], out_dtype: torch.dtype,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """``matmul_compact``'s device branch: the plain version on the CPU,
+    the kernel on the card, on meta the card's checks and output and no
+    launch (``kernels/work``: the dry run)."""
+    bf16 = dtype == torch.bfloat16
     if x_c.device.type == "cpu":
         if blocks is not None:
             check_blocks(_as_blocks(blocks), x_c.shape[-1], w_c.shape[-1],
                          dtype)
         return matmul_compact_ref(x_c, w_c, bias, act, out_dtype)
-    if x_c.device.type != "cuda":
+    if x_c.device.type not in ("cuda", "meta"):
         raise ValueError(f"matmul_compact: no kernel for device {x_c.device}")
     if act not in ACT_CODES:
         raise ValueError(f"matmul_compact: unknown act {act!r}")
@@ -297,6 +314,10 @@ def matmul_compact(x_c: torch.Tensor, w_c: torch.Tensor,
         "matmul_compact", x_c, w_c, operands, dtype,
         "this kernel is bf16 only" if bf16 else "this kernel is f32 only")
     y = torch.empty((M, N), dtype=out_dtype, device=x_c.device)
+    if x_c.is_meta:
+        if blocks is not None:
+            check_blocks(_as_blocks(blocks), K, N, dtype)
+        return y
     if M == 0 or N == 0:
         return y
     bm, bk, bn = _tiles(M, K, N, dtype, blocks, x_c.device)
@@ -338,17 +359,30 @@ def matmul_q8(x_q: torch.Tensor, w_q: torch.Tensor, *,
     """The raw accumulator ``x_q @ w_q`` as f32 on (M, Kc) and (Kc, N)
     int8 codes: exact integers while Kc * 127^2 < 2^24.  ``blocks``
     overrides the kernel's (bm, bk, bn) tiles."""
+    with work.kernel(KERNEL_Q8, lambda: work.matmul(
+            x_q.shape[0], x_q.shape[-1], w_q.shape[-1], torch.int8,
+            torch.float32)):
+        return _matmul_q8(x_q, w_q, blocks)
+
+
+def _matmul_q8(x_q: torch.Tensor, w_q: torch.Tensor,
+               blocks: Optional[Sequence[int]]) -> torch.Tensor:
+    """``matmul_q8``'s device branch (``_matmul_compact``'s rules)."""
     if x_q.device.type == "cpu":
         if blocks is not None:
             check_blocks(_as_blocks(blocks), x_q.shape[-1], w_q.shape[-1],
                          torch.int8)
         return matmul_q8_ref(x_q, w_q)
-    if x_q.device.type != "cuda":
+    if x_q.device.type not in ("cuda", "meta"):
         raise ValueError(f"matmul_q8: no kernel for device {x_q.device}")
     M, K, N = _check_operands("matmul_q8", x_q, w_q,
                               [("x_q", x_q), ("w_q", w_q)], torch.int8,
                               "this kernel takes int8 codes")
     y = torch.empty((M, N), dtype=torch.float32, device=x_q.device)
+    if x_q.is_meta:
+        if blocks is not None:
+            check_blocks(_as_blocks(blocks), K, N, torch.int8)
+        return y
     if M == 0 or N == 0:
         return y
     bm, bk, bn = _tiles(M, K, N, torch.int8, blocks, x_q.device)

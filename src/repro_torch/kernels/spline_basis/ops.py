@@ -4,7 +4,9 @@ Counterpart of ``repro/kernels/spline_basis/ops.py``.  A CPU tensor runs
 the plain version (``ref.spline_basis_plain``, f32 or bf16); a CUDA tensor
 launches the hand-written kernel for its dtype, ``csrc/spline_basis.cu``
 (f32) or ``csrc/spline_basis_bf16.cu`` (bf16, the output in bf16), or
-raises.  There is no fallback from a kernel to its plain version.
+raises; a meta tensor (the dry run, ``launch/dryrun``) gets the card's
+checks and output and no launch, its work counted by ``kernels/work``.
+There is no fallback from a kernel to its plain version.
 
 The kernel's one launch knob, ``block_n``, is the number of consecutive
 inputs a block takes (the JAX kernel's block): a power of two from 32 to
@@ -24,7 +26,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.core.splines import SplineSpec, bases_local
-from repro_torch.kernels import _build, autotune
+from repro_torch.kernels import _build, autotune, work
 from repro_torch.kernels.spline_basis.ref import spline_basis_plain
 
 KERNEL = "spline_basis"
@@ -94,6 +96,10 @@ def _launch(x: torch.Tensor, spec: SplineSpec,
         return out
     if n > 2**31 - 1 - MAX_BLOCK_N:
         raise ValueError(f"spline_basis: {n} inputs exceed the grid limit")
+    if x.is_meta:
+        if block_n is not None:
+            check_block_n(int(block_n), nb, x.dtype)
+        return out
     bn = resolve_block_n(n, nb, x.dtype, block_n, x.device,
                          tune=lambda: autotune.tune_spline_basis(x, spec))
     _build.launch(KERNEL_BF16 if x.dtype == torch.bfloat16 else KERNEL,
@@ -109,14 +115,18 @@ def spline_basis(x: torch.Tensor, spec: SplineSpec, *,
     [x0, x1) get their edge cell's extrapolated values).  ``block_n``
     (inputs a block) is checked on the CPU too."""
     flat = x.reshape(-1)
-    if x.device.type == "cpu":
-        if block_n is not None:
-            check_block_n(int(block_n), spec.n_bases, x.dtype)
-        out = spline_basis_plain(flat, spec)
-    elif x.device.type == "cuda":
-        out = _launch(flat.contiguous(), spec, block_n)
-    else:
-        raise ValueError(f"spline_basis: no kernel for device {x.device}")
+    name = KERNEL_BF16 if x.dtype == torch.bfloat16 else KERNEL
+    with work.kernel(name, lambda: work.spline_basis(flat.numel(), spec,
+                                                     x.dtype)):
+        if x.device.type == "cpu":
+            if block_n is not None:
+                check_block_n(int(block_n), spec.n_bases, x.dtype)
+            out = spline_basis_plain(flat, spec)
+        elif x.device.type in ("cuda", "meta"):
+            out = _launch(flat.contiguous(), spec, block_n)
+        else:
+            raise ValueError(f"spline_basis: no kernel for device "
+                             f"{x.device}")
     return out.reshape(*x.shape, spec.n_bases)
 
 

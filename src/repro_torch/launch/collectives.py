@@ -51,25 +51,56 @@ every backend).  Along axes of one rank every function is
 the identity, with no process group needed.  ``SENT`` counts the
 collectives a rank takes part in and the bytes it contributes to them
 (an all-to-all: the chunks it sends to other ranks), ``GATHERS`` its
-all-gathers by the axes they run along (``reset_sent`` zeroes both).
+all-gathers by the axes they run along, ``TALLY`` each kind's calls and
+operand bytes by those axes (``reset_sent`` zeroes all three).
+
+On an abstract mesh (``mesh.make_production_mesh``, or any
+``ProcessMesh(..., abstract=True)``) a meta tensor goes through the same
+three primitives -- ``all_gather_shards``, ``_all_reduce`` and
+``all_to_all``, which every other function here calls -- with the same
+counts, and gets meta tensors of the shapes and dtypes a real call
+returns; no process group is opened (the dry run, ``launch/dryrun``).
+Any other tensor on an abstract mesh raises, as ``mesh.group`` does.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels import work
 from repro_torch.launch.mesh import Axes, ProcessMesh
 
 SENT = {"calls": 0, "bytes": 0}
 # all-gathers a rank takes part in, by the axes they run along
 GATHERS: Dict[Axes, int] = {}
+# (kind, axes) -> [calls, operand bytes]: the operand as the reference's
+# HLO counts it (an all-gather's and all-reduce's the rank's tensor, an
+# all-to-all's its whole send buffer)
+TALLY: Dict[Tuple[str, Axes], List[int]] = {}
 
 
 def reset_sent() -> None:
     SENT.update(calls=0, bytes=0)
     GATHERS.clear()
+    TALLY.clear()
+
+
+def _count(kind: str, ax: Axes, sent: int, operand: int) -> None:
+    SENT["calls"] += 1
+    SENT["bytes"] += sent
+    t = TALLY.setdefault((kind, ax), [0, 0])
+    t[0] += 1
+    t[1] += operand
+
+
+def _group(mesh: ProcessMesh, ax: Axes, x: torch.Tensor) -> Any:
+    """The process group along ``ax``, or None for a meta tensor on an
+    abstract mesh: the call then launches nothing."""
+    if mesh.abstract and x.is_meta:
+        return None
+    return mesh.group(ax)
 
 
 def _staged(mesh: ProcessMesh, x: torch.Tensor) -> bool:
@@ -103,11 +134,13 @@ def all_gather_shards(x: torch.Tensor, mesh: ProcessMesh,
     if not ax:
         return [x]
     w = _host(mesh, x).reshape(-1).view(torch.uint8)
-    SENT["calls"] += 1
-    SENT["bytes"] += w.numel()
+    _count("all-gather", ax, w.numel(), w.numel())
     GATHERS[ax] = GATHERS.get(ax, 0) + 1
     parts = [_like(w, _staged(mesh, x)) for _ in range(mesh.axis_size(ax))]
-    dist.all_gather(parts, w, group=mesh.group(ax))
+    group = _group(mesh, ax, x)
+    if group is not None:
+        with work.hidden():
+            dist.all_gather(parts, w, group=group)
     return [p.view(x.dtype).reshape(x.shape).to(x.device) for p in parts]
 
 
@@ -173,9 +206,12 @@ def _all_reduce(x: torch.Tensor, mesh: ProcessMesh,
         return x
     w = _host(mesh, x)
     w = w if _staged(mesh, x) else w.clone()
-    SENT["calls"] += 1
-    SENT["bytes"] += w.numel() * w.element_size()
-    dist.all_reduce(w, op=op, group=mesh.group(ax))
+    nbytes = w.numel() * w.element_size()
+    _count("all-reduce", ax, nbytes, nbytes)
+    group = _group(mesh, ax, x)
+    if group is not None:
+        with work.hidden():
+            dist.all_reduce(w, op=op, group=group)
     return w.to(x.device)
 
 
@@ -214,10 +250,12 @@ def all_to_all(chunks: Sequence[torch.Tensor], mesh: ProcessMesh,
     for j, c in enumerate(chunks):
         send[j * nbytes:(j + 1) * nbytes].copy_(
             c.contiguous().reshape(-1).view(torch.uint8))
-    SENT["calls"] += 1
-    SENT["bytes"] += (n - 1) * nbytes
+    _count("all-to-all", ax, (n - 1) * nbytes, n * nbytes)
     recv = _like(send, staged)
-    dist.all_to_all_single(recv, send, group=mesh.group(ax))
+    group = _group(mesh, ax, x)
+    if group is not None:
+        with work.hidden():
+            dist.all_to_all_single(recv, send, group=group)
     return [recv[j * nbytes:(j + 1) * nbytes].view(x.dtype).reshape(
         x.shape).to(x.device) for j in range(n)]
 

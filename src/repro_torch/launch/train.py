@@ -29,9 +29,14 @@ host:
   torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --arch qwen2-0.5b --mesh 2x2 --device cpu
 
-The reference's ``--dry-run`` and ``--shape`` (lower and compile for a
-production mesh, ``launch/dryrun.py``) are refused: they wait for the
-next slice (``ROADMAP.md``, queue 1, item 5).
+``--dry-run`` counts one rank's step of ``--shape`` (``train_4k`` by
+default) on the single- and multi-pod production meshes, on the meta
+device, as the reference's re-exec of ``launch/dryrun.py`` does: it runs
+``repro_torch.launch.dryrun --arch A --shape S --mesh both`` (records
+under ``chiprun_out/dryrun/``, no card needed) and exits with its code:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
+      --shape decode_32k --dry-run
 
 ``--arch vikin-*`` trains a stack dense, calibrates its two-stage
 sparsity masks and int8 scales post-training on the device it trained
@@ -203,9 +208,8 @@ def train_lm(args: argparse.Namespace) -> Dict[str, Any]:
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--shape", default=None,
-                    help="the reference's dry-run shape; refused (the "
-                         "dry run is the next slice)")
+    ap.add_argument("--shape", default="train_4k",
+                    help="--dry-run: the production shape of the cell")
     ap.add_argument("--scale", default="smoke", choices=["smoke", "full"],
                     help="transformer archs: smoke is the arch's reduce()d "
                          "width, full the registry's; the vikin path does "
@@ -239,8 +243,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                     help="transformer archs under torchrun: DxM (data x "
                          "model) or PxDxM ranks, e.g. 2x2")
     ap.add_argument("--dry-run", action="store_true",
-                    help="the reference's lower-and-compile for a "
-                         "production mesh; refused")
+                    help="count one rank's step of --shape on the "
+                         "production meshes on meta (launch/dryrun) and "
+                         "exit with its code")
     args = ap.parse_args(argv)
     if args.arch in VIKIN_ARCHS:
         if args.lr is None:
@@ -248,12 +253,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         return train_vikin(args, VIKIN_ARCHS[args.arch])
     if args.lr is None:
         args.lr = 3e-4
-    if args.dry_run or args.shape is not None:
-        flag = "--dry-run" if args.dry_run else "--shape"
-        raise SystemExit(
-            f"{flag}: lowering and compiling a step for a production mesh "
-            f"(the reference's launch/dryrun.py) waits for the next slice, "
-            f"ROADMAP.md queue 1, item 5")
+    if args.dry_run:
+        from repro_torch.launch import dryrun
+        dryrun.main(["--arch", args.arch, "--shape", args.shape,
+                     "--mesh", "both"])
     return train_lm(args)
 
 

@@ -76,6 +76,7 @@ from repro_torch.launch import collectives as COLL
 from repro_torch.launch.mesh import ProcessMesh, current_mesh
 from repro_torch.models.ffn import FFNConfig, ffn_apply, ffn_init
 from repro_torch.models.layers import Shard, dense, dense_init, randn
+from repro_torch.utils import one_hot
 
 Params = Dict[str, torch.Tensor]
 # the f32 copy of bf16 expert weights one product widens at a time
@@ -232,7 +233,7 @@ def _dispatch(xt: torch.Tensor, top_e: torch.Tensor, top_p: torch.Tensor,
         le = top_e - e0                                         # local ids
         in_range = (le >= 0) & (le < E)
         top_e = torch.clamp(le, 0, E - 1)
-    onehot = F.one_hot(top_e, E).to(torch.int32)                # (T, K, E)
+    onehot = one_hot(top_e, E, torch.int32)                     # (T, K, E)
     if local:
         onehot = onehot * in_range[..., None].to(torch.int32)
     flat = onehot.reshape(T * K, E)
@@ -271,7 +272,7 @@ def _aux_loss(probs: torch.Tensor, top_e: torch.Tensor,
               E: int) -> torch.Tensor:
     """Switch-style load balance, over the full router distribution."""
     me = torch.mean(probs, dim=0)
-    ce = torch.mean(F.one_hot(top_e[:, 0], E).to(torch.float32), dim=0)
+    ce = torch.mean(one_hot(top_e[:, 0], E, torch.float32), dim=0)
     return E * torch.sum(me * ce)
 
 

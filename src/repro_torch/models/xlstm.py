@@ -244,7 +244,10 @@ def mlstm_apply(params: Params, x: torch.Tensor, cfg: XLSTMConfig,
     gif = dense(wif, zc).to(f32)
     g = gif.reshape(B, S, 2, Hl).permute(0, 3, 1, 2)    # (B,H,S,2)
     li = g[..., 0]                                      # (B,H,S) log input
-    lf = F.logsigmoid(g[..., 1])                        # log forget
+    # log forget, of a contiguous copy: log_sigmoid's output keeps a
+    # strided input's layout on meta and the card, not on the CPU, and
+    # the layout picks the scan's product (mm or bmm; launch/dryrun)
+    lf = F.logsigmoid(g[..., 1].contiguous())
 
     if state is None:
         st = (torch.zeros((B, Hl, hd, hd), dtype=f32, device=x.device),

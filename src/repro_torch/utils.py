@@ -13,6 +13,15 @@ def next_pow2(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length()
 
 
+def one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``F.one_hot(idx, n).to(dtype)`` as one comparison with ``arange``:
+    the same aten ops on every device, where ``F.one_hot`` checks the
+    indices with a host sync on the CPU, scatters on the card and
+    compares on meta (the dry run counts a step op by op,
+    ``launch/dryrun``).  An index outside ``[0, n)`` gives a zero row."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
 def resolve_device(device: str | torch.device) -> torch.device:
     """The torch device an entry point runs on.
 

@@ -199,10 +199,18 @@ def test_cpu_runs_the_plain_v1_without_launching():
     assert _build.LAUNCHES == before
 
 
-def test_v1_has_no_fallback_on_other_devices():
+def test_v1_has_no_fallback_on_other_devices(monkeypatch):
+    # off the CPU the plain version never runs: a meta tensor (the dry
+    # run) gets the card's checks and its output, and nothing launches
+    def refuse(*_, **__):
+        raise AssertionError("the plain version ran off the CPU")
+
+    monkeypatch.setattr(tkf, "kan_fused_v1_ref", refuse)
+    before = dict(_build.LAUNCHES)
     kb = (0, 2, 4, 5, 6)
-    with pytest.raises(ValueError, match="no kernel"):
-        tkf.kan_fused_v1(torch.empty((2, 8), device="meta"),
+    y = tkf.kan_fused_v1(torch.empty((2, 8), device="meta"),
                          torch.empty((8, 4), device="meta"),
                          torch.empty((8 * 5, 4), device="meta"),
                          tsl.SplineSpec(4, 3), kb)
+    assert y.is_meta and y.shape == (2, 4)
+    assert _build.LAUNCHES == before

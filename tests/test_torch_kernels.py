@@ -185,12 +185,21 @@ def test_cpu_runs_the_plain_version_without_launching():
     assert _build.LAUNCHES == before
 
 
-def test_no_fallback_on_other_devices():
-    """A tensor that is neither on the CPU nor on CUDA raises: the
-    wrappers never fall back to the plain version off the CPU."""
+def _refuse(*_, **__):
+    raise AssertionError("a plain version ran off the CPU")
+
+
+def test_no_fallback_on_other_devices(monkeypatch):
+    """The wrappers never fall back to the plain version off the CPU: a
+    meta tensor (the dry run, ``launch/dryrun``) gets the card's checks
+    and its output, and nothing runs or launches."""
+    monkeypatch.setattr(tkf, "kan_fused_v2_ref", _refuse)
+    monkeypatch.setattr(tpm, "matmul_compact_ref", _refuse)
+    before = dict(_build.LAUNCHES)
     x = torch.empty((2, 8), device="meta")
     wt = torch.empty((8 * 6, 4), device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        tkf.kan_fused_v2(x, wt, tsl.SplineSpec(4, 3), KB_MASKED)
-    with pytest.raises(ValueError, match="no kernel"):
-        tpm.matmul_compact(x, torch.empty((8, 4), device="meta"))
+    y = tkf.kan_fused_v2(x, wt, tsl.SplineSpec(4, 3), KB_MASKED)
+    assert y.is_meta and y.shape == (2, 4)
+    y = tpm.matmul_compact(x, torch.empty((8, 4), device="meta"))
+    assert y.is_meta and y.shape == (2, 4)
+    assert _build.LAUNCHES == before

@@ -25,6 +25,7 @@ Tolerances, each measured with margin on this CPU:
   where the port rounds each).
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -468,10 +469,23 @@ def test_launcher_trains_a_transformer_on_cpu(tmp_path, capsys):
     assert (tmp_path / "step_3" / "manifest.json").exists()
 
 
-@pytest.mark.parametrize("flag", [["--dry-run"], ["--shape", "train_4k"]])
-def test_launcher_refuses_dry_run_and_shape(flag):
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        ttrain.main(["--arch", "qwen2-0.5b", "--device", "cpu", *flag])
+@pytest.mark.parametrize("arch,shape", [("xlstm-125m", "long_500k"),
+                                        ("qwen2-0.5b", "decode_32k")])
+def test_launcher_dry_run_writes_both_meshes(arch, shape, tmp_path,
+                                             monkeypatch):
+    # --dry-run counts the cell on meta on both production meshes
+    # (launch/dryrun), as the reference re-execs its dryrun, and exits
+    # with its code
+    from repro_torch.launch import dryrun
+    monkeypatch.setattr(dryrun, "OUT_DIR", tmp_path)
+    with pytest.raises(SystemExit) as e:
+        ttrain.main(["--arch", arch, "--shape", shape, "--dry-run"])
+    assert e.value.code == 0
+    for tag, mesh in (("single", "16x16"), ("multi", "2x16x16")):
+        rec = json.loads((tmp_path / f"{arch}__{shape}__{tag}.json")
+                         .read_text())
+        assert rec["ok"] and rec["mesh"] == mesh and rec["shape"] == shape
+        assert rec["full"]["flops"] > 0 and rec["counted_by"] == "torch meta"
 
 
 def test_example_restarts_after_injected_failure(tmp_path, capsys):

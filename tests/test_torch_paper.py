@@ -405,6 +405,9 @@ def test_run_aggregates_the_port_rows(table2, tmp_path, monkeypatch,
                       "bitwise_identical": True}})
     monkeypatch.setattr(sys, "argv", ["run", "--fast", "--device", "cpu",
                                       "--out-dir", str(port_dir)])
+    # no dry-run records, so no roofline row (tests/test_torch_dryrun_tools
+    # holds the roofline itself)
+    monkeypatch.setattr(TRUN.roofline, "DEFAULT_DIR", tmp_path / "dryrun")
     ref_files = sorted(ROOT.glob("BENCH_*.json")) + sorted(
         (ROOT / "experiments").rglob("*"))
     stamps = [(p, p.stat().st_mtime_ns) for p in ref_files]

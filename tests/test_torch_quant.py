@@ -288,15 +288,21 @@ def test_q8_wrappers_on_cpu_launch_nothing_and_check_inputs():
         tkf.kan_linear_q8(torch.from_numpy(x_q), torch.from_numpy(wt_q),
                           ss[:-1], tsl.SplineSpec(4, 3), KB_MASKED,
                           x_scale=0.01)
+    # off the CPU the plain versions never run: a meta tensor (the dry
+    # run, launch/dryrun) gets the card's checks and its output, and
+    # nothing launches
     meta = torch.empty((2, 8), dtype=torch.int8, device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        tpm.matmul_q8(meta, torch.empty((8, 4), dtype=torch.int8,
+    y = tpm.matmul_q8(meta, torch.empty((8, 4), dtype=torch.int8,
                                         device="meta"))
-    with pytest.raises(ValueError, match="no kernel"):
-        tkf.kan_fused_v2_q8(meta, torch.empty((48, 4), dtype=torch.int8,
-                                              device="meta"),
-                            torch.ones(6), tsl.SplineSpec(4, 3), KB_MASKED,
-                            0.01)
+    assert y.is_meta and y.shape == (2, 4) and y.dtype == torch.float32
+    wt_meta = torch.empty((48, 4), dtype=torch.int8, device="meta")
+    y = tkf.kan_fused_v2_q8(meta, wt_meta, torch.ones(6, device="meta"),
+                            tsl.SplineSpec(4, 3), KB_MASKED, 0.01)
+    assert y.is_meta and y.shape == (2, 4) and y.dtype == torch.float32
+    with pytest.raises(ValueError, match="slot_scales on cpu"):
+        tkf.kan_fused_v2_q8(meta, wt_meta, torch.ones(6),
+                            tsl.SplineSpec(4, 3), KB_MASKED, 0.01)
+    assert _build.LAUNCHES == before
 
 
 # ---------------------------------------------------------------------------

@@ -210,6 +210,14 @@ def test_cpu_runs_the_plain_version_without_launching():
     assert _build.KERNELS["spline_basis"][1] == "spline_basis_f32"
 
 
-def test_no_fallback_on_other_devices():
-    with pytest.raises(ValueError, match="no kernel"):
-        tsb.spline_basis(torch.empty(8, device="meta"), tsl.SplineSpec(4, 3))
+def test_no_fallback_on_other_devices(monkeypatch):
+    # off the CPU the plain version never runs: a meta tensor (the dry
+    # run) gets the card's checks and its output, and nothing launches
+    def refuse(*_, **__):
+        raise AssertionError("the plain version ran off the CPU")
+
+    monkeypatch.setattr(tsb, "spline_basis_plain", refuse)
+    before = dict(_build.LAUNCHES)
+    y = tsb.spline_basis(torch.empty(8, device="meta"), tsl.SplineSpec(4, 3))
+    assert y.is_meta and y.shape == (8, 7)
+    assert _build.LAUNCHES == before

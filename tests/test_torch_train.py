@@ -18,6 +18,7 @@ wrapper's plain version).  Tolerances, each measured with margin:
   difference into a larger share of a step of size lr = 1e-2.
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -396,9 +397,16 @@ def test_train_launcher_checkpoint_restores_in_the_reference_and_serves(
                            "--requests", "4"])
         assert eng.stats["served"] == 4
     # a transformer arch trains (tests/test_torch_lm_train.py); its
-    # --dry-run (the reference's lower-and-compile for a mesh) is refused
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        ttrain.main(["--arch", "qwen2-0.5b", "--device", "cpu", "--dry-run"])
+    # --dry-run counts one rank's step on meta and writes its record
+    from repro_torch.launch import dryrun
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(dryrun, "OUT_DIR", tmp_path / "dryrun")
+        with pytest.raises(SystemExit) as e:
+            ttrain.main(["--arch", "xlstm-125m", "--shape", "long_500k",
+                         "--dry-run"])
+    assert e.value.code == 0
+    assert json.loads((tmp_path / "dryrun" / "xlstm-125m__long_500k__"
+                       "single.json").read_text())["ok"]
     # the reference serves what the port trained, from the same numbers
     back = stack_params_to_numpy(
         tserve.restore_checkpoint(ck, [
