@@ -245,9 +245,10 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    dx, d wt through the kernels against the plain versions on the card,
    the launches, the fused-KAN and spline-basis times and bounds at these
    shapes; (b) ``Trainer`` at bf16 (its t f32, as the reference's), full
-   depth, 8 steps: first loss near ln(vocab), finite losses, 48
-   ``kan_fused_v2_mixed`` and 48 ``spline_basis_bf16`` launches a step
-   and no other kernel, host and device ms a step, idle share, peak
+   depth, 8 steps: first loss near ln(vocab), finite losses, 96
+   ``kan_fused_v2_mixed`` (48 in the forward, 48 in the backward's
+   recompute of each checkpointed unit: the registry's ``remat``) and 48
+   ``spline_basis_bf16`` launches a step and no other kernel, host and device ms a step, idle share, peak
    memory, and one more step with every mixed launch within one bf16 ulp
    of its plain version on its input; (c) at 4 layers, a run killed at
    step 3 and
@@ -288,9 +289,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    rank), 8 x 128 tokens a step, 3
    steps from seed 0: each step's loss within the reference's sharded ==
    dense bound (1e-3 * (1 + |loss|)) of one process's, two runs bitwise,
-   48 ``kan_fused_v2_mixed`` and 48 ``spline_basis_bf16`` launches a step
-   a rank and nothing else; per rank host, device, kernel and copy ms a
-   step, the bytes and collectives it sends, peak memory; one more step
+   96 ``kan_fused_v2_mixed`` (with the recompute) and 48
+   ``spline_basis_bf16`` launches a step a rank and nothing else; per
+   rank host, device, kernel and copy ms a step, the bytes and collectives it sends, peak memory; one more step
    with every mixed launch (512 x 896 -> 304, and 304 -> 896 with f32
    partials) within one bf16 ulp of its plain version on its input; at
    those shapes on each rank the mixed kernel and the bf16 spline basis
@@ -352,6 +353,20 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    production meshes and of xlstm-125m long_500k, ``train --dry-run``,
    then ``roofline`` and ``report`` over their records, each exiting 0
    and printing its table.
+17. activation checkpointing on the card (``remat_phase``,
+   ``models/layers.remat``: each stacked unit when ``cfg.remat``, each
+   loss chunk and flash-attention block always): (a) phase 13's model at
+   ``LM_RESTART_DEPTH`` layers, a gradient at 8 x 128 tokens (direct
+   attention) and at 2 x 4096 (chunked, 8 x 8 blocks of 512), each with
+   ``remat`` on and off under ``steps.deterministic``: the loss and
+   every gradient leaf bitwise, the launches on exactly the recompute's
+   extra forward launches, the peak memory of each; (b) the same model
+   at full depth, one train step of 2 x 4096 tokens with ``remat``: the
+   loss finite and near ln(vocab), its FLOPs, bytes and launches on the
+   card those counted on meta, the card's peak within
+   ``DRYRUN_PEAK_TOL`` of meta's argument + temp, the same cell without
+   ``remat`` counted on meta beside ``dryrun.CARD_BYTES`` (and run on
+   the card if it fits), host and device ms and the idle share.
 
 No served path launches the spline-basis or v1 kernels, so their
 ``launches`` in the record are those of phases 6 and 5; the mixed
@@ -366,8 +381,9 @@ runs of the paper scripts (Table I, the Fig. 8 sweep, Table II), and
 ``launches_lm_train``, its launches in phase 13 (a)-(d),
 ``launches_array``, its launches in phase 14's served runs, and
 ``launches_mesh``, rank 0's launches in phase 15 (a)'s first run and
-(g)'s train steps, and ``launches_tp_serve``, rank 0's in phase 15 (f)'s
-and (g)'s timed prefill and decode steps.
+(g)'s train steps, ``launches_tp_serve``, rank 0's in phase 15 (f)'s
+and (g)'s timed prefill and decode steps, and ``launches_remat``, its
+launches in phase 17 (b)'s timed step.
 
 It prints the ``{"kernels": [...]}`` record, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It imports nothing
@@ -602,6 +618,16 @@ DRYRUN_CLIS = (
     ["-m", "repro_torch.benchmarks.roofline"],
     ["-m", "repro_torch.benchmarks.report"],
 )
+# phase 17: activation checkpointing (``models/layers.remat``) on the
+# card.  (a) phase 13's model at LM_RESTART_DEPTH layers, a gradient at
+# each of REMAT_SHAPES (8 x 128: direct attention; 2 x 4096: chunked, 8 x
+# 8 blocks of 512) with remat on and off, bitwise; (b) at full depth one
+# train step of REMAT_LONG (batch, seq) with remat, counted on the card
+# and on meta (two REMAT_WORKERS processes of this script count it with
+# and without remat beside the card's work).
+REMAT_SHAPES = ((LM_BATCH, LM_SEQ), (2, 4096))
+REMAT_LONG = (2, 4096)
+REMAT_WORKERS = ("long_on", "long_off")
 
 KERNEL_INFO = {
     "kan_fused_v2": {
@@ -700,6 +726,14 @@ SUFFIX = {F32: "", BF: "_bf16"}            # kernel name by operand dtype
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def train_fwd(cfg, n: int) -> int:
+    """A train step's launches of a kernel whose forward launches it ``n``
+    times in stacked units and encoder layers: twice that under
+    ``cfg.remat``, the backward's recompute running each one's forward
+    once more, whole (``models/layers.remat``: no early stop)."""
+    return 2 * n if cfg.remat else n
 
 
 def mixed_macs(flops: float) -> tuple:
@@ -2449,7 +2483,8 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
     (b) ``Trainer`` at bf16, full width and depth, ``LM_STEPS`` steps:
     the first loss near ln(vocab), every loss finite, the launches a
     step by kernel (``kan_fused_v2_mixed`` -- the bf16 model's t is f32,
-    as the reference's -- and ``spline_basis_bf16``, 48 each, no other
+    as the reference's -- 96, the backward's recompute of each
+    checkpointed unit included, and ``spline_basis_bf16`` 48, no other
     kernel of the port), host ms a step, device ms from the profiler,
     idle share, peak device memory, then one more step with each mixed
     launch held to its plain version on its input (one bf16 ulp);
@@ -2580,7 +2615,7 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
             # bf16 row times the bases the mixed one would
             kernel_rows += kan_layer_rows(
                 x, wt, spec, LM_KB, prec, card, what,
-                0 if prec == "bf16" else cfg.n_layers,
+                0 if prec == "bf16" else train_fwd(cfg, cfg.n_layers),
                 0 if prec == "mixed" else cfg.n_layers * (
                     1 if dt == BF else 2))
             del x, wt, g, xk, wk, y, ref, dx_p, dwt_p
@@ -2630,7 +2665,10 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
     # are f32, so every KAN layer is the mixed kernel, with no cast
     check(all(a.dtype == F32 for k, a in leaf_paths(tr.state["params"])
               if k.endswith("['t']")), "(b) a KAN layer's t is not f32")
-    want = {MIXED: 2 * cfg.n_layers, "spline_basis_bf16": 2 * cfg.n_layers}
+    # the forward's 2 a layer, and its recompute's in the backward
+    # (cfg.remat); the spline basis only in the backward
+    want = {MIXED: train_fwd(cfg, 2 * cfg.n_layers),
+            "spline_basis_bf16": 2 * cfg.n_layers}
     check(per_step == want, f"(b) launches a step {per_step}, want {want}")
     for k, v in launches_b.items():
         launches_lm[k] = launches_lm.get(k, 0) + v
@@ -2669,8 +2707,9 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
     with mock.patch.object(KO, "kan_fused_v2", held_v2):
         step_fn(tr.state, batch)
     torch.cuda.synchronize()
-    check(held["n"] == 2 * cfg.n_layers and _build.LAUNCHES[MIXED] -
-          before[MIXED] == held["n"], f"(b) the held step ran {held['n']} "
+    check(held["n"] == train_fwd(cfg, 2 * cfg.n_layers)
+          and _build.LAUNCHES[MIXED] - before[MIXED] == held["n"],
+          f"(b) the held step ran {held['n']} "
           f"layer calls, {_build.LAUNCHES[MIXED] - before[MIXED]} launches")
     host_med = statistics.median(host_steps)
     train = {"arch": cfg.name, "params": n_params, "steps": LM_STEPS,
@@ -2767,7 +2806,7 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
                                                  state["params"], batch)
         step_launch = {k: v - before[k] for k, v in _build.LAUNCHES.items()
                        if v != before[k]}
-        want = {"kan_fused_v2": 2 * cfg.n_layers,
+        want = {"kan_fused_v2": train_fwd(cfg_f, 2 * cfg.n_layers),
                 "spline_basis": 4 * cfg.n_layers}
         check(step_launch == want, f"(d) step {s}: launches {step_launch}, "
               f"want {want}")
@@ -3227,21 +3266,25 @@ def _mesh_opts(**over):
 
 
 def _profile_ms(fn) -> dict:
-    """Device ms of one call of ``fn`` from the profiler: all of it, the
-    host <-> device copies' (``Memcpy``) and the copy kernels' share of
-    the kernels' time (the widening ``.to`` copies)."""
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    """Device ms of one call of ``fn`` from the profiler (CUDA activity):
+    all of it, the host <-> device copies' (``Memcpy``) and the copy
+    kernels' share of the kernels' time (the widening ``.to`` copies).
+    Summed from the profiler's raw event list: ``key_averages`` of a step
+    of tens or hundreds of thousands of launches takes minutes to build
+    (30-40 s for an xlstm train step's)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages()
-           if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    total = sum(_device_us(e) for e in dev)
-    memcpy = sum(_device_us(e) for e in dev if e.key.startswith("Memcpy"))
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = [(e.name(), e.duration_ns() / 1e3)
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == cuda]
+    total = sum(us for _, us in dev)
+    memcpy = sum(us for name, us in dev if name.startswith("Memcpy"))
     kern = total - memcpy
-    copies = sum(_device_us(e) for e in dev
-                 if "copy" in e.key.lower() and not e.key.startswith("Memcpy"))
+    copies = sum(us for name, us in dev
+                 if "copy" in name.lower() and not name.startswith("Memcpy"))
     return {"device_ms": total / 1e3, "memcpy_ms": memcpy / 1e3,
             "kernel_ms": kern / 1e3,
             "copy_share": copies / kern if kern else float("nan")}
@@ -3809,7 +3852,8 @@ def _rec_tp_rank(mesh, dev: torch.device, out: Path, card: str,
                 rows += kan_layer_rows(
                     x, layer.wt, layer.cfg.spec, layer.kb, "mixed", card,
                     f"whisper-kan encoder {what} (TP, M = {M_}, rank 0)",
-                    cfg.n_enc_layers, cfg.n_enc_layers, out_dtype=out_dt)
+                    train_fwd(cfg, cfg.n_enc_layers), cfg.n_enc_layers,
+                    out_dtype=out_dt)
                 del x
         mesh.barrier()
         r["rows"] = rows
@@ -4037,8 +4081,9 @@ def _mesh_worker(argv: list) -> int:
             if r == rank:
                 tp_rows += kan_layer_rows(
                     x, wt, kc.spec, kc.kb, "mixed", card,
-                    f"{what} (tensor-parallel, rank {rank})", cfg.n_layers,
-                    cfg.n_layers, out_dtype=out_dt)
+                    f"{what} (tensor-parallel, rank {rank})",
+                    train_fwd(cfg, cfg.n_layers), cfg.n_layers,
+                    out_dtype=out_dt)
             mesh.barrier()
         del x, wt, kp
     res["tp_rows"] = tp_rows
@@ -4290,8 +4335,8 @@ def _rec_tp_checks(dp: list, one_g: dict, out: Path, card: str) -> tuple:
     for name, cfg_g in _g_cfgs().items():
         kan = cfg_g.ffn_kind == "kan"
         layers = cfg_g.n_layers + (cfg_g.n_enc_layers if kan else 0)
-        want_t = ({MIXED: 2 * layers, "spline_basis_bf16": 2 * layers}
-                  if kan else {})
+        want_t = ({MIXED: train_fwd(cfg_g, 2 * layers),
+                   "spline_basis_bf16": 2 * layers} if kan else {})
         want_p = {MIXED: 2 * layers} if kan else {}
         want_d = {MIXED: 2 * cfg_g.n_layers} if kan else {}
         lo = ref_g[name]["loss"]
@@ -4321,7 +4366,8 @@ def _rec_tp_checks(dp: list, one_g: dict, out: Path, card: str) -> tuple:
                   f"{g['model_gathers_want']}), serve runs bitwise "
                   f"{g['serve_bitwise']}, replicated state equal on the "
                   f"model ranks {g['replicas_equal']}")
-            check(g["held_train"]["n"] == (2 * layers if kan else 0)
+            check(g["held_train"]["n"] == (train_fwd(cfg_g, 2 * layers)
+                                           if kan else 0)
                   and g["held_train"]["n_basis"]
                   == (2 * layers if kan else 0)
                   and g["held_serve"]["n"] == (
@@ -4461,8 +4507,8 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
     against the same steps in one process: each step's loss within
     ``MESH_LOSS_TOL * (1 + |loss|)``; a second mesh run of ``MESH_STEPS``
     - 1 steps bitwise the first's; each rank
-    launches ``kan_fused_v2_mixed`` and ``spline_basis_bf16`` 48 times a
-    step and nothing else; per rank host ms a step, device ms (profiler),
+    launches ``kan_fused_v2_mixed`` 96 times a step (the recompute
+    included) and ``spline_basis_bf16`` 48 times, and nothing else; per rank host ms a step, device ms (profiler),
     the bytes and collectives it sends a step and peak GiB; one more
     step with each mixed launch held to its plain version on its input;
     the mixed kernel and the bf16 spline basis at the rank's shapes
@@ -4600,7 +4646,8 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
     times.update({f"rank0_{k}": v for r in (dp[0], ep[0])
                   for k, v in r["laps"].items()})
     gaps, gaps_e = [], []
-    want = {MIXED: 2 * cfg.n_layers, "spline_basis_bf16": 2 * cfg.n_layers}
+    n_fwd = train_fwd(cfg, 2 * cfg.n_layers)     # with the recompute
+    want = {MIXED: n_fwd, "spline_basis_bf16": 2 * cfg.n_layers}
     for r in dp:
         check(r["backend"] == "gloo", f"(phase 15 a) rank {r['rank']} on "
               f"backend {r['backend']}")
@@ -4622,7 +4669,7 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
         check(r["comp"]["loss"][0] == r["a"]["loss"][0]
               and all(math.isfinite(x) for x in r["comp"]["loss"]),
               f"(phase 15 b) rank {r['rank']}: losses {r['comp']['loss']}")
-        check(r["held"]["n"] == 2 * cfg.n_layers,
+        check(r["held"]["n"] == n_fwd,
               f"(phase 15 a) rank {r['rank']}: the held step ran "
               f"{r['held']['n']} {MIXED} calls")
         for s, (le, l1, la) in enumerate(zip(r["e"]["loss"], one,
@@ -4668,14 +4715,14 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
     for row in tp_rows:             # the ranks' own prints stay in their files
         print(json.dumps(row))
     print(f"phase 15 (a) tensor-parallel shapes: each rank's "
-          f"{2 * cfg.n_layers} {MIXED} calls of a step within "
+          f"{n_fwd} {MIXED} calls of a step within "
           f"{max(r['held']['worst'] for r in dp) / BF16_ULP:.2f} bf16 ulps "
           f"of their plain versions, at {dp[0]['held']['shapes']}; "
           f"{len(tp_rows)} kernel rows timed")
     print(f"phase 15 (a) 2x2 vs one process, {MESH_STEPS} steps of "
           f"{LM_BATCH} x {LM_SEQ}: losses {dp[0]['a']['loss']} vs {one}, "
           f"largest gap {max(gaps):.3e} (bound {MESH_LOSS_TOL} * (1 + "
-          f"|loss|)); two runs bitwise; {2 * cfg.n_layers} {MIXED} and "
+          f"|loss|)); two runs bitwise; {n_fwd} {MIXED} and "
           f"{2 * cfg.n_layers} spline_basis_bf16 launches a step a rank; "
           f"(b) int8 all-reduce bitwise the host's on "
           f"{dp[0]['comp_leaves']} leaves a rank, losses "
@@ -4881,15 +4928,33 @@ def _dryrun_cells() -> dict:
                                "decode"), _mesh_opts())}
 
 
+def _remat_long(remat: bool) -> tuple:
+    """Phase 17 (b)'s cell: (config, shape) of phase 13's model at full
+    depth with ``remat`` at ``REMAT_LONG``."""
+    from repro_torch.configs.base import ShapeSpec
+    batch, seq = REMAT_LONG
+    return (dataclasses.replace(_mesh_lm_cfg(), remat=remat),
+            ShapeSpec("remat_long", seq, batch, "train"))
+
+
 def _dryrun_worker(argv: list) -> int:
-    """Phase 16's meta counts, in a process of their own (``python
-    chip_smoke.py --dryrun-worker OUT WHO``): WHO "one" counts (a)'s step
-    on the 1x1 mesh, WHO r rank r's cells of phase 15 on an abstract 2x2
-    mesh; writes ``OUT/dryrun_<WHO>.json``."""
+    """Phase 16's and 17's meta counts, in a process of their own
+    (``python chip_smoke.py --dryrun-worker OUT WHO``): WHO "one" counts
+    phase 16 (a)'s step on the 1x1 mesh, WHO r rank r's cells of phase 15
+    on an abstract 2x2 mesh, WHO "long_on" / "long_off" phase 17 (b)'s
+    step with / without remat; writes ``OUT/dryrun_<WHO>.json``."""
     sys.path.insert(0, str(SRC))
     from repro_torch.launch import dryrun as DR
 
     out, who = Path(argv[0]), argv[1]
+    if who in REMAT_WORKERS:
+        cfg, shape = _remat_long(who == "long_on")
+        t0 = time.perf_counter()
+        rec = DR.analyze_cell(cfg, shape, opts=_mesh_opts(),
+                              mesh_shape=(1, 1))
+        rec["wall_s"] = time.perf_counter() - t0
+        (out / f"dryrun_{who}.json").write_text(json.dumps({"long": rec}))
+        return 0
     cfg = _mesh_lm_cfg()
     res = {}
     for tag, (shape, opts) in _dryrun_cells().items():
@@ -4942,7 +5007,8 @@ def _op_diff(a: dict, b: dict, n: int = 12) -> list:
     return rows[:n]
 
 
-def dryrun_phase(dev: torch.device, card: str, mesh_rec: dict) -> dict:
+def dryrun_phase(dev: torch.device, card: str, mesh_rec: dict,
+                 during=None) -> dict:
     """Phase 16: the dry run (``launch/dryrun``: one rank's step counted
     on meta) held against the card.
 
@@ -4968,6 +5034,8 @@ def dryrun_phase(dev: torch.device, card: str, mesh_rec: dict) -> dict:
     production meshes and of xlstm-125m long_500k, ``train --dry-run``,
     then ``roofline`` and ``report`` over their records: each exits 0 and
     prints its table.
+    ``during`` (phase 17) runs on the card while the CLIs run on the
+    host; its time is not phase 16's.
     Returns what it measured; raises on any fault."""
     from repro_torch.kernels import _build
     from repro_torch.launch import dryrun as DR
@@ -5104,7 +5172,11 @@ def dryrun_phase(dev: torch.device, card: str, mesh_rec: dict) -> dict:
             f"{row[tag]['measured_gib']:.3f} (the rank's whole run)"
             for tag in ("a", "e", "f_prefill", "f_decode")))
 
-    # (c) the CLIs
+    # (c) the CLIs, with ``during`` on the card meanwhile
+    t_during = time.perf_counter()
+    if during is not None:
+        during()
+    t_during = time.perf_counter() - t_during
     cli_thread.join(timeout=DRYRUN_WORKER_S)
     check(not cli_thread.is_alive() and len(clis) == len(DRYRUN_CLIS),
           f"(c) the CLIs ran {len(clis)} of {len(DRYRUN_CLIS)}")
@@ -5126,12 +5198,251 @@ def dryrun_phase(dev: torch.device, card: str, mesh_rec: dict) -> dict:
                   f"{r['out'][-2000:]}")
     print("phase 16: (c) roofline's table:\n" + outs[3]["out"].strip())
     print("phase 16: (c) report's tables:\n" + outs[4]["out"].strip())
-    wall = time.perf_counter() - t_phase
+    wall = time.perf_counter() - t_phase - t_during
     print(f"phase 16: the dry run held against the card in {wall:.1f} s "
-          f"({card})")
+          f"besides the {t_during:.1f} s of phase 17 ({card})")
     return {"one": one, "ranks": ranks,
             "clis": {k: {"rc": v["rc"], "s": v["s"]} for k, v in clis.items()},
             "wall_s": wall, "card": card}
+
+
+def remat_phase(dev: torch.device, card: str) -> dict:
+    """Phase 17: activation checkpointing (``models/layers.remat``, the
+    reference's ``jax.checkpoint``) on the card.
+
+    (a) phase 13's model (qwen2-0.5b with the KAN drop-in, bf16, f32 t)
+    at ``LM_RESTART_DEPTH`` layers, one gradient (``steps.
+    value_and_grad`` under ``steps.deterministic``) at each of
+    ``REMAT_SHAPES`` with ``remat`` on and off: the loss and every
+    gradient leaf bitwise; off, 2 ``kan_fused_v2_mixed`` and 2
+    ``spline_basis_bf16`` launches a layer; on, the recompute's 2 mixed
+    launches a layer more and nothing else; the peak memory and host ms
+    of each;
+    (b) the same model at full depth, ``REMAT_LONG`` tokens, the dry
+    run's cell (``dryrun.cell_inputs`` on the 1x1 mesh): one step counted
+    on the card (``dryrun.count_step``) against the same step counted on
+    meta: FLOPs, bytes, each kernel's launches (and ``_build.LAUNCHES``)
+    and the argument bytes equal, meta's argument + temp within
+    ``DRYRUN_PEAK_TOL`` of the card's peak over the step; then one step
+    timed and profiled (CUDA activity only; its loss finite and within
+    ``LM_FIRST_LOSS_TOL`` of ln(vocab), its launches the record's
+    ``launches_remat``): host and device ms, the idle share; the cell without
+    ``remat`` counted on meta, printed beside ``dryrun.CARD_BYTES``, and
+    run on the card (its peak printed) only if it fits.
+    Returns what it measured; raises on any fault."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as TF
+    from repro_torch.utils import leaf_paths
+
+    t_phase = time.perf_counter()
+    out = Path(tempfile.mkdtemp(prefix="remat_phase_"))
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    workers = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-worker",
+         str(out), who], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for who in REMAT_WORKERS]
+    opts = _mesh_opts()
+
+    def free() -> None:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def launched() -> dict:
+        return {k: v for k, v in _build.LAUNCHES.items() if v}
+
+    def tokens(cfg, batch: int, seq: int, seed: int) -> dict:
+        rng = np.random.default_rng(seed)
+        return {"tokens": torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)).to(dev)}
+
+    # (a) remat on against off, bitwise, at LM_RESTART_DEPTH layers
+    cfg4 = dataclasses.replace(_mesh_lm_cfg(), n_layers=LM_RESTART_DEPTH)
+    params = TF.init_params(cfg4, torch.Generator(device=dev).manual_seed(17),
+                            dev)
+    L = cfg4.n_layers
+    a_rows = []
+    for i, (B_, S_) in enumerate(REMAT_SHAPES):
+        batch = tokens(cfg4, B_, S_, 17 + i)
+        runs = {}
+        for remat in (True, False):
+            cfg_r = dataclasses.replace(cfg4, remat=remat)
+            free()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            with ST.deterministic(dev):
+                total, ce, grads = ST.value_and_grad(cfg_r, opts, params,
+                                                     batch)
+            torch.cuda.synchronize()
+            runs[remat] = {
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "peak": torch.cuda.max_memory_allocated(dev) - base,
+                "launches": launched(), "loss": (total, ce),
+                "grads": [g for _, g in leaf_paths(grads)]}
+            del total, ce, grads
+        on, off = runs[True], runs[False]
+        bitwise = (all(torch.equal(a, b) for a, b in zip(on["loss"],
+                                                         off["loss"]))
+                   and len(on["grads"]) == len(off["grads"])
+                   and all(torch.equal(a, b) for a, b in zip(on["grads"],
+                                                             off["grads"])))
+        check(bitwise, f"(phase 17 a) {B_} x {S_}: the loss or a gradient "
+              f"leaf differs with remat on and off")
+        want_off = {MIXED: 2 * L, "spline_basis_bf16": 2 * L}
+        want_on = {MIXED: 4 * L, "spline_basis_bf16": 2 * L}
+        check(off["launches"] == want_off and on["launches"] == want_on,
+              f"(phase 17 a) {B_} x {S_}: launches on {on['launches']} "
+              f"(want {want_on}), off {off['launches']} (want {want_off})")
+        loss = float(on["loss"][1])
+        row = {"batch": B_, "seq": S_, "loss": loss, "bitwise": True,
+               "leaves": len(on["grads"]),
+               "launches_on": on["launches"], "launches_off": off["launches"],
+               "peak_on_bytes": on["peak"], "peak_off_bytes": off["peak"],
+               "host_ms_on": on["ms"], "host_ms_off": off["ms"],
+               "card": card}
+        a_rows.append(row)
+        print(f"phase 17: (a) {L} layers, {B_} x {S_} tokens: loss "
+              f"{loss:.6f} and {row['leaves']} gradient leaves bitwise with "
+              f"remat on and off; launches on {on['launches']}, off "
+              f"{off['launches']}; peak {on['peak'] / 2 ** 30:.3f} GiB on, "
+              f"{off['peak'] / 2 ** 30:.3f} GiB off; host "
+              f"{on['ms']:.1f} ms on, {off['ms']:.1f} ms off ({card})")
+        del runs, on, off, batch
+    del params
+    free()
+
+    # (b) the long sequence at full depth with remat, card against meta
+    cfg, shape = _remat_long(True)
+    check(cfg.remat, "(phase 17 b) the registry's qwen2-0.5b has remat off")
+    alloc0 = torch.cuda.memory_allocated(dev)
+    params = TF.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    batch = tokens(cfg, shape.global_batch, shape.seq_len, 0)
+    step, inputs = DR.cell_inputs(cfg, shape, M.make_host_mesh(dev), opts,
+                                  params=params, batch=batch)
+    del params, batch
+    free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    card_full = DR.count_step(step, inputs)
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - alloc0
+    counted = launched()
+    free()
+    # one step timed and profiled (CUDA activity only): its host ms, its
+    # device ms, its launches the record's launches_remat
+    _build.reset_launches()
+    box: dict = {}
+    t0 = time.perf_counter()
+    device_ms = _profile_ms(lambda: box.update(zip(
+        ("state", "metrics"), step(*inputs))))["device_ms"]
+    host_ms = (time.perf_counter() - t0) * 1e3
+    launches_b = launched()
+    loss = float(box["metrics"]["loss"])
+    del box
+    free()
+    check(math.isfinite(loss)
+          and abs(loss - math.log(cfg.vocab_size)) < LM_FIRST_LOSS_TOL,
+          f"(phase 17 b) loss {loss}, ln(vocab) "
+          f"{math.log(cfg.vocab_size):.4f}")
+
+    for w in workers:
+        _, err = w.communicate(timeout=DRYRUN_WORKER_S)
+        check(w.returncode == 0, f"(phase 17) a dry-run worker exited "
+              f"{w.returncode}:\n{err[-3000:]}")
+    meta = {who: json.loads((out / f"dryrun_{who}.json").read_text())["long"]
+            for who in REMAT_WORKERS}
+    shutil.rmtree(out, ignore_errors=True)
+    mfull = meta["long_on"]["full"]
+    card_launches = {k: v["launches"] for k, v in card_full["kernels"].items()}
+    meta_launches = {k: v["launches"] for k, v in mfull["kernels"].items()}
+    marg = mfull["memory"]["argument_size_in_bytes"]
+    mtemp = mfull["memory"]["temp_size_in_bytes"]
+    differ = {k: (card_full[k], mfull[k]) for k in ("flops", "bytes_accessed")
+              if card_full[k] != mfull[k]}
+    if differ or card_launches != meta_launches:
+        print("phase 17: (b) the aten ops whose counts differ, (calls, "
+              "FLOPs, bytes) on the card / on meta: " + "; ".join(
+                  f"{k} {c} / {m}" for k, c, m in _op_diff(
+                      card_full["by_op"], mfull["by_op"])))
+    check(not differ, f"(phase 17 b) card / meta counts differ: {differ}")
+    want = {MIXED: train_fwd(cfg, 2 * cfg.n_layers),
+            "spline_basis_bf16": 2 * cfg.n_layers}
+    check(card_launches == meta_launches == counted == launches_b == want,
+          f"(phase 17 b) launches: card counted {card_launches}, meta "
+          f"{meta_launches}, _build.LAUNCHES {counted} and {launches_b}, "
+          f"want {want}")
+    check(card_full["memory"]["argument_size_in_bytes"] == marg,
+          f"(phase 17 b) argument bytes: card "
+          f"{card_full['memory']['argument_size_in_bytes']}, meta {marg}")
+    gap = (marg + mtemp) / peak - 1.0
+    check(abs(gap) <= DRYRUN_PEAK_TOL,
+          f"(phase 17 b) meta argument + temp {(marg + mtemp) / 2 ** 30:.3f}"
+          f" GiB vs the card's peak {peak / 2 ** 30:.3f} GiB: "
+          f"{gap * 100:+.2f}%, bound {DRYRUN_PEAK_TOL * 100:.0f}%")
+    off = meta["long_off"]
+    ofull = off["full"]
+    off_need = (ofull["memory"]["argument_size_in_bytes"]
+                + ofull["memory"]["temp_size_in_bytes"])
+    check(off["remat"] is False and meta["long_on"]["remat"] is True,
+          "(phase 17 b) the meta records' remat")
+    off_peak = None
+    if off_need <= DR.CARD_BYTES:
+        # it fits: the same step without remat, its peak on the card
+        step_off = ST.make_train_step(_remat_long(False)[0], opts,
+                                      M.make_host_mesh(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_off(*inputs)
+        torch.cuda.synchronize()
+        off_peak = torch.cuda.max_memory_allocated(dev) - alloc0
+        free()
+    del step, inputs
+    free()
+    idle = 1.0 - device_ms / host_ms
+    long = {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "batch": shape.global_batch, "seq": shape.seq_len, "loss": loss,
+            "flops": mfull["flops"], "bytes": mfull["bytes_accessed"],
+            "launches": launches_b, "argument_bytes": marg,
+            "temp_bytes": mtemp, "card_peak_bytes": peak, "peak_gap": gap,
+            "aten_ops": [card_full["aten_ops"], mfull["aten_ops"]],
+            "counted_s": count_s, "meta_s": meta["long_on"]["wall_s"],
+            "host_ms": host_ms, "device_ms": device_ms, "idle_share": idle,
+            "off_flops": ofull["flops"],
+            "off_argument_bytes": ofull["memory"]["argument_size_in_bytes"],
+            "off_temp_bytes": ofull["memory"]["temp_size_in_bytes"],
+            "off_fits": off_need <= DR.CARD_BYTES, "off_card_peak_bytes":
+            off_peak, "off_meta_s": off["wall_s"],
+            "card_bytes": DR.CARD_BYTES, "card": card}
+    print(f"phase 17: (b) {cfg.name} KAN drop-in, {cfg.n_layers} layers, "
+          f"{shape.global_batch} x {shape.seq_len} tokens, remat: loss "
+          f"{loss:.4f} (ln(vocab) {math.log(cfg.vocab_size):.4f}); card / "
+          f"meta FLOPs {mfull['flops']:.6e}, bytes "
+          f"{mfull['bytes_accessed']:.6e} (equal), launches {launches_b} "
+          f"(equal); meta argument + temp {(marg + mtemp) / 2 ** 30:.3f} "
+          f"GiB vs the card's peak {peak / 2 ** 30:.3f} GiB "
+          f"({gap * 100:+.2f}%); a profiled step host {host_ms:.1f} ms, "
+          f"device {device_ms:.1f} ms (idle {idle * 100:.1f}%); counted "
+          f"{count_s:.1f} s on the card, {long['meta_s']:.1f} s on meta "
+          f"({card})")
+    print(f"phase 17: (b) without remat, counted on meta: argument + temp "
+          f"{off_need / 2 ** 30:.2f} GiB against the card's "
+          f"{DR.CARD_BYTES / 2 ** 30:.2f} GiB ("
+          + ("fits; its peak on the card "
+             f"{off_peak / 2 ** 30:.3f} GiB, with remat {peak / 2 ** 30:.3f}"
+             if off_peak is not None else "does not fit; not run")
+          + f"), FLOPs {ofull['flops']:.6e} against {mfull['flops']:.6e} "
+          f"with remat ({off['wall_s']:.1f} s on meta)")
+    wall = time.perf_counter() - t_phase
+    print(f"phase 17: activation checkpointing passed in {wall:.1f} s")
+    return {"a": a_rows, "long": long, "launches": launches_b,
+            "seconds": wall, "card": card}
 
 
 def _device_us(event) -> float:
@@ -7391,8 +7702,13 @@ def main() -> int:
     mesh = mesh_phase(dev, card)
 
     # ---------------------------------------------------------------- 16
-    # the dry run held against the card (``dryrun_phase``)
-    dry = dryrun_phase(dev, card, mesh)
+    # the dry run held against the card (``dryrun_phase``); 17,
+    # activation checkpointing (``remat_phase``), runs on the card while
+    # phase 16's CLIs run on the host
+    box: dict = {}
+    dry = dryrun_phase(dev, card, mesh, during=lambda: box.update(
+        remat=remat_phase(dev, card)))
+    remat = box["remat"]
 
     launched = {k: (served[p]["launches"][k], f"phase 3, {p} burst")
                 for p in PRECISIONS for k in SERVED_KERNELS[p]}
@@ -7424,6 +7740,7 @@ def main() -> int:
             "launches_array": array["launches"].get(k, 0),
             "launches_mesh": mesh["launches"].get(k, 0),
             "launches_tp_serve": mesh["launches_tp_serve"].get(k, 0),
+            "launches_remat": remat["launches"].get(k, 0),
             "max_abs_err": max_err[k], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -7452,6 +7769,7 @@ def main() -> int:
          "array": array,
          "mesh": mesh,
          "dryrun": dry,
+         "remat": remat,
          "ptxas": usage,
          "knob_checks": knob_checks,
          "kernel_bench_launches": bench_launches},

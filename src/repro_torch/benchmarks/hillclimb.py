@@ -14,7 +14,10 @@ baseline record of the same cell (``--baseline-dir``, the dry run's
       --arch granite-20b --shape train_4k --set pattern_rate=0.5 \\
       --opt activation_mode=sp --tag p50_sp
 
-The row goes to ``chiprun_out/hillclimb/<arch>__<shape>__<tag>.json``.
+The row goes to ``chiprun_out/hillclimb/<arch>__<shape>__<tag>.json``,
+with the cfg's ``remat``: ``--set remat=false`` counts the step without
+the checkpoints (every activation kept for the backward, no
+recompute).
 An override the port's step refuses raises here as it does on the card.
 """
 from __future__ import annotations
@@ -35,7 +38,8 @@ OUT_DIR = ROOT / "chiprun_out" / "hillclimb"
 
 
 def fmt(r: Dict[str, Any]) -> str:
-    return (f"compute {r['compute_t']*1e3:8.3f}ms | memory "
+    return (f"remat {str(r.get('remat', '-')):5s} | compute "
+            f"{r['compute_t']*1e3:8.3f}ms | memory "
             f"{r['memory_t']*1e3:8.3f}ms | coll {r['collective_t']*1e3:8.3f}ms"
             f" | bound {r['dominant']:10s} | step {r['step_t']*1e3:8.3f}ms"
             f" | mem {r['mem_gib']['args']:.1f}+{r['mem_gib']['temp']:.1f}GiB")
@@ -61,7 +65,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     cfg = dataclasses.replace(get_config(args.arch), **cfg_over)
     rec = DR.analyze_cell(cfg, args.shape, multi_pod=False,
                           opts=StepOptions(**opt_over), rank=args.rank)
-    res = analyze(rec, cfg)
+    res = {**analyze(rec, cfg), "remat": rec["remat"]}
 
     base = None
     base_path = DR.cell_path(args.baseline_dir, args.arch, args.shape,
@@ -69,7 +73,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     if base_path.exists():
         brec = json.loads(base_path.read_text())
         if brec.get("ok"):
-            base = analyze(brec)
+            base = {**analyze(brec), "remat": brec.get("remat")}
     if base:
         print(f"baseline : {fmt(base)}")
     print(f"{args.tag:9s}: {fmt(res)}")

@@ -39,7 +39,7 @@ def dryrun_table(directory: str | Path) -> str:
                          for d in r["full"].get("collectives", {}).values())
             rows.append(
                 f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
-                f"{r.get('rank', 0)} | ok | "
+                f"{r.get('rank', 0)} | ok | {r.get('remat', '-')} | "
                 f"{m['argument_size_in_bytes']/2**30:.2f} | "
                 f"{m['temp_size_in_bytes']/2**30:.2f} | "
                 f"{'yes' if r.get('fits') else 'no'} | "
@@ -49,12 +49,12 @@ def dryrun_table(directory: str | Path) -> str:
         else:
             rows.append(f"| {r.get('arch')} | {r.get('shape')} | "
                         f"{r.get('mesh')} | {r.get('rank', 0)} | **FAIL** "
-                        f"| - | - | - | - | - | - | "
+                        f"| {r.get('remat', '-')} | - | - | - | - | - | - | "
                         f"{r.get('wall_s', 0):.1f} s |")
-    hdr = ("| arch | shape | mesh | rank | status | args GiB/card | "
+    hdr = ("| arch | shape | mesh | rank | status | remat | args GiB/card | "
            "temp GiB/card | fits 80 GB | FLOPs (counted) | bytes (unfused) "
            "| collectives | wall (meta) |\n"
-           "|---|---|---|---|---|---|---|---|---|---|---|---|")
+           "|---|---|---|---|---|---|---|---|---|---|---|---|---|")
     n_ok = sum("| ok |" in r for r in rows)
     note = (f"\n{n_ok}/{len(rows)} cells ran on meta. One rank's counts: "
             "FLOPs and bytes of every aten op and kernel of its step, "

@@ -8,7 +8,9 @@ messages), sub-config builders, ``reduce`` and ``SHAPES``.
 JAX lowering reads (``scan_layers``, ``remat``, ``fsdp``) are kept so
 the registry's configs are the reference's field for field; the port
 reads ``scan_layers`` only through the params' layout (stacked
-``"units"`` against per-layer ``"extra"``).
+``"units"`` against per-layer ``"extra"``), and ``remat`` as the
+reference does: each stacked unit and encoder layer of a train step is
+checkpointed (``models/transformer.forward``, ``encode``).
 """
 from __future__ import annotations
 

@@ -9,7 +9,9 @@ the kernel (cuda), ran its plain version (cpu) or made only its outputs
 (meta).  Inside the wrapper's device branch the aten ops it runs (the
 plain version's, the output's allocation, the slot table's copy) are
 hidden from the FLOP and byte counters; the live-bytes tracker still sees
-the tensors the branch makes.
+the tensors the branch makes.  A checkpointed forward's recompute in
+the backward (``models/layers.remat``) calls the wrappers again, so its
+kernels' work is counted again, as their launches are.
 
 What a kernel's work counts is what its bound in ``PERF.md`` §6 counts:
 the multiply-adds of its contraction as two operations each (the KAN

@@ -30,6 +30,14 @@ computes still runs on the card unless asked for the CPU.
   makes on its device and still holds (``weakref.finalize`` on each);
   ``argument_size_in_bytes`` is the bytes of the leaves the step takes.
 
+A train step checkpoints as the reference does (``models/layers.remat``:
+each unit and encoder layer when ``cfg.remat``, each loss chunk and
+each flash-attention block always), and the counts see it: the
+backward's recompute runs under the same dispatch mode (its ops, and
+each kernel's work once more), and the storages a checkpoint does not
+keep are freed, so temp falls.  The record carries the cfg's ``remat``;
+``hillclimb --set remat=false`` counts the other setting.
+
 There are no ``calib1``/``calib2`` compiles: the port's layers and the
 sLSTM, RG-LRU and mLSTM time loops are Python loops, each counted as it
 runs, so nothing is scanned and nothing needs correcting (``--recalib``
@@ -44,7 +52,7 @@ Usage (``PYTHONPATH=src``)::
 
 Each cell writes ``chiprun_out/dryrun/<arch>__<shape>__<single|multi>.json``
 with the reference's keys (``roofline`` and ``report`` read it), plus
-``rank``, ``counted_by`` and ``fits`` (argument + temp within
+``remat``, ``rank``, ``counted_by`` and ``fits`` (argument + temp within
 ``CARD_BYTES``); a cell that fails writes ``ok: false`` with its error,
 and the exit code is 1 if any cell failed.
 """
@@ -62,7 +70,6 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeSpec
@@ -96,8 +103,20 @@ _ALLOCATIONS = {torch.ops.aten.empty, torch.ops.aten.empty_like,
 
 
 def _tensors(tree: Any) -> List[torch.Tensor]:
-    """The tensors of an aten op's arguments or results."""
-    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+    """The tensors of an aten op's arguments or results: an aten schema
+    carries tensors alone or in lists, tuples and dicts, so this walks
+    only those (torch's pytree flatten, which checks every registered
+    node type, is most of a counted op's host time)."""
+    out, todo = [], [tree]
+    while todo:
+        x = todo.pop()
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif isinstance(x, (list, tuple)):
+            todo.extend(x)
+        elif isinstance(x, dict):
+            todo.extend(x.values())
+    return out
 
 
 def _leaves(tree: Any) -> List[torch.Tensor]:
@@ -119,8 +138,8 @@ def tree_bytes(tree: Any) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
 
-def _op_bytes(tree: Any) -> int:
-    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+def _op_bytes(tensors: List[torch.Tensor]) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 class Count(TorchDispatchMode):
@@ -167,12 +186,11 @@ class Count(TorchDispatchMode):
         self._held.discard(key)
         self.live -= n
 
-    def _track(self, args: Any, out: Any) -> None:
-        outs = _tensors(out)
+    def _track(self, args: List[torch.Tensor],
+               outs: List[torch.Tensor]) -> None:
         if not outs:
             return
-        ins = {st._cdata for st in map(_storage, _tensors(args))
-               if st is not None}
+        ins = {st._cdata for st in map(_storage, args) if st is not None}
         for t in outs:
             if t.device.type != self.device_type:
                 continue
@@ -189,20 +207,21 @@ class Count(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         self.ops += 1
+        ins, outs = _tensors((args, kwargs)), _tensors(out)
         if not self.hidden:
             packet = func._overloadpacket
             formula = flop_registry.get(packet)
             flops = (0.0 if formula is None
                      else float(formula(*args, **kwargs, out_val=out)))
             nbytes = (0 if func.is_view or packet in _ALLOCATIONS
-                      else _op_bytes((args, kwargs)) + _op_bytes(out))
+                      else _op_bytes(ins) + _op_bytes(outs))
             self.flops += flops
             self.bytes += nbytes
             row = self.by_op.setdefault(str(packet), [0, 0.0, 0.0])
             row[0] += 1
             row[1] += flops
             row[2] += nbytes
-        self._track((args, kwargs), out)
+        self._track(ins, outs)
         return out
 
 
@@ -330,7 +349,7 @@ def analyze_cell(cfg: ArchConfig, shape_name: str | ShapeSpec,
         "global_batch": shape.global_batch, "dtype": cfg.dtype,
         "pattern": list(cfg.pattern),
         "n_units": cfg.n_layers // len(cfg.pattern),
-        "n_extra": cfg.n_layers % len(cfg.pattern),
+        "n_extra": cfg.n_layers % len(cfg.pattern), "remat": cfg.remat,
         "rank": rank, "counted_by": "torch meta", "ok": False,
         "opts": dataclasses.asdict(opts)}
     step, inputs = cell_inputs(cfg, shape, mesh, opts)
@@ -379,7 +398,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     status = "OK " if rec.get("ok") else "FAIL"
     mem = rec.get("full", {}).get("memory", {})
     print(f"[{status}] {arch:26s} {shape_name:12s} {rec['mesh']:8s} "
-          f"rank {rank} args={mem.get('argument_size_in_bytes', 0)/2**30:.2f}"
+          f"rank {rank} remat={rec.get('remat')} "
+          f"args={mem.get('argument_size_in_bytes', 0)/2**30:.2f}"
           f"GiB temp={mem.get('temp_size_in_bytes', 0)/2**30:.2f}GiB "
           f"flops={rec.get('full', {}).get('flops', 0):.3e} "
           f"wall={rec['wall_s']}s", flush=True)

@@ -352,6 +352,19 @@ def set_mesh(mesh: Optional[ProcessMesh], *,
         _ACTIVE.pop()
 
 
+@contextlib.contextmanager
+def use_context(ctx: Optional[MeshContext]) -> Iterator[None]:
+    """``ctx`` as the only active context inside the block (None: no
+    mesh), whatever is active around it: the recompute of a checkpointed
+    function (``models/layers.remat``) runs in its forward's context."""
+    saved = list(_ACTIVE)
+    _ACTIVE[:] = [] if ctx is None else [ctx]
+    try:
+        yield
+    finally:
+        _ACTIVE[:] = saved
+
+
 def current_mesh() -> Optional[ProcessMesh]:
     return _ACTIVE[-1].mesh if _ACTIVE else None
 

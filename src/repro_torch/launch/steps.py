@@ -11,8 +11,14 @@ int8 error-feedback compression (``optim/compression``) and
 ``adamw_update`` at the reference's cosine schedule.  On a CUDA device it
 runs under ``torch.use_deterministic_algorithms(True)`` (no NaN fill of
 ``torch.empty``), so two runs of a step give the same bits.  The
-reference's ``remat`` and ``scan_layers`` change no number and are not
-read.
+model checkpoints where the reference's does (``models/layers.remat``):
+each stacked unit and encoder layer when ``cfg.remat`` (``MeshTrainStep``
+too: the reference reads the config, no ``StepOptions`` field), each
+loss chunk and each flash-attention block always; the backward
+recomputes their forwards, with the same bits, launches and
+collectives once more.  The serve steps run without autograd and take
+no checkpoint.  ``scan_layers`` is read only through the params'
+layout.
 
 With ``mesh=`` (a ``launch/mesh.ProcessMesh``, one process a chip) the
 step keeps the reference's storage layout and its sharded == dense

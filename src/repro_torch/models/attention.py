@@ -55,6 +55,7 @@ from repro_torch.models.layers import (
     dense_init,
     rmsnorm,
     f32_matmul,
+    remat,
     rmsnorm_init,
     softcap,
 )
@@ -169,7 +170,12 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        k_pos: torch.Tensor, prefix_len: Optional[int],
                        q_block: int, k_block: int) -> torch.Tensor:
     """Flash-style: a loop over Q blocks, an inner loop over KV blocks
-    with an online softmax (running max m, denominator l, accumulator)."""
+    with an online softmax (running max m, denominator l, accumulator).
+    Each Q block and, inside it, each KV step is checkpointed
+    (``layers.remat``), as the reference's: otherwise the backward keeps
+    every block's (q_block, k_block) scores, O(S^2), and the chunking
+    saves nothing; with it the backward recomputes one block at a
+    time."""
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     G = cfg.q_groups
@@ -183,9 +189,23 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vf = v.reshape(B, nk, k_block, KV, hd).permute(1, 0, 3, 2, 4)
     qp = q_pos.reshape(nq, q_block)
     kp = k_pos.reshape(nk, k_block)
-    outs = []
-    for i in range(nq):
-        qblk = qf[i].to(torch.float32)                  # (B,KV,G,qb,hd)
+
+    def kv_step(acc, m, l, qblk, kblk, vblk, qpos, kpos):
+        s = torch.einsum("bkgqh,bksh->bkgqs", qblk, kblk.to(torch.float32))
+        s = softcap(s, cfg.logit_softcap)
+        mask = _mask_block(qpos, kpos, cfg, prefix_len)
+        s = torch.where(mask[None, None, None], s, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqs,bksh->bkgqh", p.to(vblk.dtype).to(torch.float32),
+            vblk.to(torch.float32))
+        return acc, m_new, l
+
+    def q_step(qb, qpos):
+        qblk = qb.to(torch.float32)                     # (B,KV,G,qb,hd)
         acc = torch.zeros((B, KV, G, q_block, hd), dtype=torch.float32,
                           device=q.device)
         m = torch.full((B, KV, G, q_block), NEG_INF, dtype=torch.float32,
@@ -193,21 +213,12 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = torch.zeros((B, KV, G, q_block), dtype=torch.float32,
                         device=q.device)
         for j in range(nk):
-            s = torch.einsum("bkgqh,bksh->bkgqs", qblk,
-                             kf[j].to(torch.float32))
-            s = softcap(s, cfg.logit_softcap)
-            mask = _mask_block(qp[i], kp[j], cfg, prefix_len)
-            s = torch.where(mask[None, None, None], s, NEG_INF)
-            m_new = torch.maximum(m, torch.amax(s, dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + torch.sum(p, dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bkgqs,bksh->bkgqh", p.to(vf.dtype).to(torch.float32),
-                vf[j].to(torch.float32))
-            m = m_new
+            acc, m, l = remat(kv_step, acc, m, l, qblk, kf[j], vf[j], qpos,
+                              kp[j])
         out = acc / torch.clamp(l[..., None], min=1e-30)
-        outs.append(out.to(q.dtype))
+        return out.to(q.dtype)
+
+    outs = [remat(q_step, qf[i], qp[i]) for i in range(nq)]
     o = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, H, hd)
     return o.to(q.dtype)
 

@@ -27,6 +27,9 @@ rounds once to x's dtype.  ``embed`` with a ``Shard`` is the
 vocab-parallel lookup: the rank's rows, zeros for an id outside them,
 summed over ``model`` -- one non-zero and zeros add exactly, so it is
 bitwise the dense lookup.
+
+``remat`` is the reference's ``jax.checkpoint``: the backward recomputes
+a function's forward instead of keeping what it saved.
 """
 from __future__ import annotations
 
@@ -37,10 +40,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as CK
 
-from repro_torch.kernels.grad import ieee_matmul
+from repro_torch.kernels.grad import grad_wanted, ieee_matmul
 from repro_torch.launch import collectives as COLL
-from repro_torch.launch.mesh import ProcessMesh
+from repro_torch.launch.mesh import ProcessMesh, current_context, use_context
 
 Params = Dict[str, Any]
 
@@ -87,6 +91,35 @@ class Shard:
         if bias is not None:
             y = y + bias.to(torch.float32)
         return y.to(dtype)
+
+
+def remat(fn: Callable[..., Any], *args: Any) -> Any:
+    """``fn(*args)``; checkpointed when autograd records and a tensor of
+    ``args`` requires a gradient: the forward keeps only ``args`` and
+    the backward runs ``fn`` once more, whole, to get what its ops saved
+    -- the same ops on the same inputs, so the same bits.  Otherwise (a
+    serve path under ``no_grad`` or ``inference_mode``) it calls ``fn``.
+
+    Non-reentrant (checkpoints nest, and the kernels' and collectives'
+    ``autograd.Function``s run inside).  The recompute runs whole (no
+    early stop): every rank re-issues all of ``fn``'s collectives, in
+    order, and each kernel's launch and counted work (``kernels/work``)
+    comes once more, never cut off inside a wrapper.  It runs in the
+    mesh context ``fn``'s forward ran in (``launch/mesh.use_context``).
+    No model function draws random numbers, so the RNG state is not
+    saved and restored (which would also call the RNG of the meta
+    device, which has none)."""
+    if not grad_wanted(*(a for a in args if isinstance(a, torch.Tensor))):
+        return fn(*args)
+    ctx = current_context()
+
+    def body(*a: Any) -> Any:
+        with use_context(ctx):
+            return fn(*a)
+
+    with CK.set_checkpoint_early_stop(False):
+        return CK.checkpoint(body, *args, use_reentrant=False,
+                             preserve_rng_state=False)
 
 
 def gen_device(generator: Optional[torch.Generator]) -> torch.device:

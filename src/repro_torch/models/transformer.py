@@ -39,6 +39,13 @@ once, and each KAN-expert MoE layer's experts fused once
 (``models/moe.KanExperts``); without them the functional forms rebuild
 them per call.  Either gives the same bits.
 
+Activation checkpointing (``layers.remat``, the reference's
+``jax.checkpoint``): when ``cfg.remat``, ``forward`` checkpoints each
+stacked unit (all of ``cfg.pattern``'s blocks, the carry ``(x, aux)``)
+and ``encode`` each encoder layer; ``"extra"`` layers never are.
+``lm_loss`` checkpoints each chunk's cross-entropy always.  Under
+``no_grad`` (the serve paths) nothing is checkpointed.
+
 ``prefill`` is causal over a prefix-LM's image tokens, as the
 reference's is (its ``block_prefill`` passes no ``prefix_len``);
 ``forward`` attends to them bidirectionally.
@@ -84,6 +91,8 @@ pieces.  The sLSTM runs whole.
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import math
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -113,6 +122,7 @@ from repro_torch.models.layers import (
     f32_matmul,
     layernorm,
     layernorm_init,
+    remat,
     rmsnorm,
     rmsnorm_init,
     unembed,
@@ -675,11 +685,17 @@ def encode(params: Params, cfg: ArchConfig, frames: torch.Tensor, *,
     tensor-parallel where their leaves are, their activations
     replicated."""
     x = dense(params["frontend_proj"], frames)
+
+    def layer(x: torch.Tensor, bp: Params, ffn: Optional[Any]
+              ) -> torch.Tensor:
+        return block_apply(bp, x, cfg, "attn", causal=False, ffn=ffn,
+                           path=ENCODER, n=x.shape[1])[0]
+
     with _replicated(_mesh_ctx()):
         for i, bp in enumerate(_encoder_layers(params)):
-            x, _ = block_apply(bp, x, cfg, "attn", causal=False,
-                               ffn=_ffn_of(ffns, i), path=ENCODER,
-                               n=x.shape[1])
+            body = functools.partial(layer, bp=bp, ffn=_ffn_of(ffns, i))
+            # each layer one checkpoint under cfg.remat, as the reference
+            x = remat(body, x) if cfg.remat else body(x)
     return _norm(cfg, params["encoder"]["final_norm"], x)
 
 
@@ -718,16 +734,31 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     ctx = _mesh_ctx()
     if ctx is not None and ctx.sp:
         x = COLL.scatter_seq(x, ctx.mesh, reduce=False)
-    for layer, kind, bp, unit in _layers(params, cfg):
-        # stacked units run as the reference's scan body: layer 0's FFN
-        # config, no taps
-        extra = unit is None
-        x, a = block_apply(bp, x, cfg, kind, prefix_len=prefix_len,
-                           memory=memory, layer=layer if extra else 0,
-                           taps=ffn_taps if extra else None,
-                           ffn=_ffn_of(ffns, layer),
-                           path=_layer_path(cfg, layer, unit), n=n)
-        aux = aux + a
+
+    def run(x: torch.Tensor, aux: torch.Tensor, group: list
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        for layer, kind, bp, unit in group:
+            # stacked units run as the reference's scan body: layer 0's
+            # FFN config, no taps
+            extra = unit is None
+            x, a = block_apply(bp, x, cfg, kind, prefix_len=prefix_len,
+                               memory=memory, layer=layer if extra else 0,
+                               taps=ffn_taps if extra else None,
+                               ffn=_ffn_of(ffns, layer),
+                               path=_layer_path(cfg, layer, unit), n=n)
+            aux = aux + a
+        return x, aux
+
+    for unit, group in itertools.groupby(_layers(params, cfg),
+                                         key=lambda t: t[3]):
+        body = functools.partial(run, group=list(group))
+        # a stacked unit is one checkpoint under cfg.remat, its carry
+        # (x, aux) -- under sp x is the rank's sequence chunk, the
+        # reference's remat residual; "extra" layers never are
+        if cfg.remat and unit is not None:
+            x, aux = remat(body, x, aux)
+        else:
+            x, aux = body(x, aux)
     if ctx is None or not ctx.sp:
         return _norm(cfg, params["final_norm"], x), aux
     # the chunks of the final norm gathered for the loss: its cotangent
@@ -793,19 +824,26 @@ def lm_loss(params: Params, cfg: ArchConfig, hidden: torch.Tensor,
     if shard is not None and not shard.sp:
         # under sp forward's gather_seq already sums hidden's cotangent
         hidden = shard.enter(hidden)
-    for c in range(n_chunks):
-        sl = slice(c * L, (c + 1) * L)
-        lg = _logits(params, cfg, hidden[:, sl]).to(torch.float32)
-        m = mask[:, sl]
+
+    def chunk_ce(h_c: torch.Tensor, lab_c: torch.Tensor,
+                 m: torch.Tensor) -> torch.Tensor:
+        lg = _logits(params, cfg, h_c).to(torch.float32)
         if shard is None:
             lse = torch.logsumexp(lg, dim=-1)
-            gold = torch.gather(lg, -1, labels[:, sl, None].long())[..., 0]
+            gold = torch.gather(lg, -1, lab_c[..., None].long())[..., 0]
         else:
-            lse, gold = _vocab_parallel_ce(lg, labels[:, sl], shard)
+            lse, gold = _vocab_parallel_ce(lg, lab_c, shard)
         out = torch.sum((lse - gold) * m)
         if z_loss:
             out = out + z_loss * torch.sum(torch.square(lse) * m)
-        total = total + out
+        return out
+
+    for c in range(n_chunks):
+        sl = slice(c * L, (c + 1) * L)
+        # always checkpointed: the backward recomputes a chunk's logits
+        # instead of keeping n_chunks (B, L, V) of them alive
+        total = total + remat(chunk_ce, hidden[:, sl], labels[:, sl],
+                              mask[:, sl])
     return total / denom
 
 

@@ -4,18 +4,21 @@ counts held against the same steps run for real, on the CPU.
 * Meta against the CPU, one process (the 1x1 mesh): the train, prefill
   and decode steps of reduced qwen3-moe, recurrentgemma, xlstm, whisper,
   paligemma, qwen2-0.5b with the KAN drop-in and qwen2-0.5b-kanffn (a
-  KAN-FFN's pattern matmul), on real tensors from a numpy seed and on
-  meta: FLOPs, bytes, each kernel's counted calls and the argument bytes
-  equal.
+  KAN-FFN's pattern matmul), and the train step with ``remat`` set back
+  on (``reduce()`` turns it off; the backward's recompute counted), on
+  real tensors from a numpy seed and on meta: FLOPs, bytes, each
+  kernel's counted calls and the argument bytes equal.
 * The abstract 2x2 mesh against 4 real gloo ranks (one spawn for every
   arch): the reduced KAN drop-in, the MoE (expert parallel) and
   recurrentgemma, a train step under ``activation_mode`` "replicated"
-  and "sp", a prefill and a decode step: each rank's ``SENT``,
-  ``GATHERS``, argument bytes, FLOPs and bytes equal.
+  and "sp" (and under "sp" with ``remat``), a prefill and a decode step:
+  each rank's ``SENT``, ``GATHERS``, argument bytes, FLOPs and bytes
+  equal.
 * Each kernel entry point's meta branch: the output's shape and dtype
   those of its plain version, the card's refusals (a wrong dtype, a
   refused gradient, a knob), its work the formula of ``kernels/work``.
-* The live-bytes tracker on toy functions whose peak is known; the
+* The live-bytes tracker on toy functions whose peak is known (a
+  checkpointed one's forward and backward too); the
   collectives on an abstract mesh; two production decode cells at full
   width on 16 x 16, their argument bytes the sum over leaves of
   ``sharding.local_shape`` x itemsize.
@@ -46,6 +49,7 @@ from repro_torch.launch import specs as SP  # noqa: E402
 from repro_torch.launch import steps as ST  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh, spawn_ranks  # noqa
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.layers import remat  # noqa: E402
 from repro_torch.utils import leaf_paths, tree_map  # noqa: E402
 
 META = torch.device("meta")
@@ -58,7 +62,9 @@ ONE = [("qwen3-moe", "qwen3-moe-235b-a22b", {}),
        ("paligemma", "paligemma-3b", {}),
        ("qwen2-kan", "qwen2-0.5b", KAN),
        ("qwen2-kanffn", "qwen2-0.5b-kanffn", {})]
-KINDS = ("train", "prefill", "decode")
+# kind -> (step kind, remat)
+KINDS = {"train": ("train", False), "prefill": ("prefill", False),
+         "decode": ("decode", False), "train_remat": ("train", True)}
 SEQ, BATCH = 16, 2
 
 
@@ -92,7 +98,8 @@ def _counts(full):
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("name,arch,over", ONE, ids=[a[0] for a in ONE])
 def test_meta_counts_equal_the_cpu_step(name, arch, over, kind):
-    cfg = _cfg(arch, over)
+    kind, remat = KINDS[kind]
+    cfg = dataclasses.replace(_cfg(arch, over), remat=remat)
     shape = ShapeSpec(kind, SEQ, BATCH, kind)
     opts = ST.StepOptions()
     meta = D.analyze_cell(cfg, shape, opts=opts, mesh_shape=(1, 1))
@@ -117,10 +124,12 @@ def test_meta_counts_equal_the_cpu_step(name, arch, over, kind):
 MESH = [("qwen2-kan", "qwen2-0.5b", KAN),
         ("qwen3-moe", "qwen3-moe-235b-a22b", {}),
         ("rgemma", "recurrentgemma-9b", {})]
-# (tag, kind, activation mode)
-CELLS = [("train", "train", "replicated"), ("train_sp", "train", "sp"),
-         ("prefill", "prefill", "replicated"),
-         ("decode", "decode", "replicated")]
+# (tag, kind, activation mode, remat)
+CELLS = [("train", "train", "replicated", False),
+         ("train_sp", "train", "sp", False),
+         ("prefill", "prefill", "replicated", False),
+         ("decode", "decode", "replicated", False),
+         ("train_sp_remat", "train", "sp", True)]
 MSEQ, MBATCH = 16, 4
 
 WORKER = textwrap.dedent("""
@@ -139,9 +148,10 @@ WORKER = textwrap.dedent("""
     mesh = M.init_from_env((2, 2), device="cpu")
     res = {}
     for name, arch, over in archs:
-        cfg = _cfg(arch, over)
-        params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-        for tag, kind, mode, seq, batch in cells:
+        for tag, kind, mode, remat, seq, batch in cells:
+            cfg = dataclasses.replace(_cfg(arch, over), remat=remat)
+            params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
             shape = ShapeSpec(tag, seq, batch, kind)
             b = _real(SP.input_specs(cfg, shape), cfg, shape,
                       np.random.default_rng(0))
@@ -162,7 +172,7 @@ def gloo_runs(tmp_path_factory):
     """Every rank's counts of every (arch, cell) from one spawn of 4 gloo
     ranks on the CPU."""
     out = tmp_path_factory.mktemp("dryrun_mesh")
-    cells = [(t, k, m, MSEQ, MBATCH) for t, k, m in CELLS]
+    cells = [(*c, MSEQ, MBATCH) for c in CELLS]
     spawn_ranks(["-c", WORKER, str(out), json.dumps(MESH), json.dumps(cells),
                  os.path.join(REPO, "tests")], 4, str(out / "rv"),
                 timeout_s=240, env=_env())
@@ -170,11 +180,12 @@ def gloo_runs(tmp_path_factory):
             for r in range(4)]
 
 
-@pytest.mark.parametrize("tag,kind,mode", CELLS, ids=[c[0] for c in CELLS])
+@pytest.mark.parametrize("tag,kind,mode,remat", CELLS,
+                         ids=[c[0] for c in CELLS])
 @pytest.mark.parametrize("name,arch,over", MESH, ids=[a[0] for a in MESH])
 def test_abstract_mesh_counts_equal_gloo_ranks(gloo_runs, name, arch, over,
-                                               tag, kind, mode):
-    cfg = _cfg(arch, over)
+                                               tag, kind, mode, remat):
+    cfg = dataclasses.replace(_cfg(arch, over), remat=remat)
     for r, real in enumerate(gloo_runs):
         rec = D.analyze_cell(cfg, ShapeSpec(tag, MSEQ, MBATCH, kind),
                              opts=ST.StepOptions(activation_mode=mode),
@@ -322,6 +333,30 @@ def test_live_bytes_tracker_peak_is_exact(device):
     big = torch.ones(2048, device=device)   # two halves of one storage
     assert _peak(lambda a, b: torch.cat([a, b]), big[:1024],
                  big[1024:]) == (2 * n, 2 * n)
+
+    def block(a):                           # saves exp's result e
+        return a.exp() * 3.0
+
+    def two_blocks(x, wrap, backward):
+        y = wrap(block, x)
+        z = wrap(block, y)
+        if backward:
+            torch.autograd.grad(z.sum(), x)
+
+    leaf = torch.ones(1024, device=device, requires_grad=True)
+
+    def direct(fn, a):
+        return fn(a)
+
+    # forward: e1, y, e2, z alive at the end; checkpointed, e1 and e2
+    # are freed as each block returns: y beside e2 and z at most
+    assert _peak(two_blocks, leaf, direct, False) == (4 * n, n)
+    assert _peak(two_blocks, leaf, remat, False) == (3 * n, n)
+    # backward (after z.sum() and its 4-byte seed): y, z, the 3 * g
+    # cotangent, then block 2's recompute e2' and z' (z' freed at once),
+    # then e2' * cotangent -- 5n + 8 bytes, 6n + 8 keeping e1 and e2
+    assert _peak(two_blocks, leaf, direct, True) == (6 * n + 8, n)
+    assert _peak(two_blocks, leaf, remat, True) == (5 * n + 8, n)
 
 
 def test_collectives_on_an_abstract_mesh():

@@ -14,8 +14,14 @@ against the JAX package, on the CPU.
 * The CLIs on a tiny production cell (xlstm-125m long_500k, 3 s on
   meta) into ``tmp_path``: the dry run (a failing cell recorded with
   ``ok: false`` and exit 1; ``--recalib`` refused), ``hillclimb`` beside
-  its baseline, ``roofline`` without ``--engine`` and ``report``.
+  its baseline, ``roofline`` without ``--engine`` and ``report``, each
+  carrying the cell's ``remat``.
+* What ``hillclimb --set remat=...`` runs, on reduced archs at a small
+  train shape: ``analyze_cell`` with ``remat`` parsed true and false,
+  the checkpointed step counting more FLOPs (the recompute) and less
+  temp.
 """
+import dataclasses
 import json
 
 import pytest
@@ -28,6 +34,7 @@ from repro.models.xlstm import slstm_scan_flops  # noqa: E402
 from repro_torch.benchmarks import hillclimb as HC  # noqa: E402
 from repro_torch.benchmarks import report as RP  # noqa: E402
 from repro_torch.benchmarks import roofline as RL  # noqa: E402
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.configs.registry import ARCHS  # noqa: E402
 from repro_torch.launch import dryrun as D  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -159,6 +166,7 @@ def test_hillclimb_roofline_and_report_clis(tmp_path, capsys):
     assert saved == json.loads(json.dumps(res))
     assert saved["overrides"] == {"cfg": {}, "opts": {
         "activation_mode": "sp"}}
+    assert saved["remat"] is True and "remat True " in out
     rows = RL.main(["--dir", str(tmp_path / "dryrun"), "--out",
                     str(tmp_path / "roofline.json")])
     assert [r["arch"] for r in rows] == [ARCH]
@@ -172,8 +180,26 @@ def test_hillclimb_roofline_and_report_clis(tmp_path, capsys):
     assert text == md.read_text()
     for marker in ("<!-- DRYRUN_TABLE -->", "<!-- ROOFLINE_TABLE -->"):
         assert text.count(marker) == 1
-    assert f"| {ARCH} | {SHAPE} | 16x16 | 0 | ok |" in text
+    assert f"| {ARCH} | {SHAPE} | 16x16 | 0 | ok | True |" in text
     assert f"| {ARCH} | {SHAPE} | " in text.split("## Roofline")[1]
     assert RP.main(args) == text                    # idempotent
     with pytest.raises(SystemExit, match="EXPERIMENTS"):
         RP.main([*args[:4], "--out", str(tmp_path / "EXPERIMENTS.md")])
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "whisper-medium"])
+def test_analyze_cell_counts_remat_both_ways(arch):
+    shape = ShapeSpec("train_small", 64, 4, "train")
+    full = {}
+    for flag in ("true", "false"):
+        over = D.parse_kv([f"remat={flag}"])
+        cfg = dataclasses.replace(ARCHS[arch].reduce(), **over)
+        rec = D.analyze_cell(cfg, shape, mesh_shape=(1, 1))
+        assert rec["ok"] and rec["remat"] is over["remat"]
+        full[over["remat"]] = rec["full"]
+    on, off = full[True], full[False]
+    assert on["flops"] > off["flops"]
+    assert on["memory"]["temp_size_in_bytes"] < \
+        off["memory"]["temp_size_in_bytes"]
+    assert on["memory"]["argument_size_in_bytes"] == \
+        off["memory"]["argument_size_in_bytes"]
