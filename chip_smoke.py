@@ -283,14 +283,15 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    ``launch/mesh``, ``launch/sharding``, the mesh step of
    ``launch/steps``): four ranks of this script (``--mesh-worker``)
    share the card over gloo, the kernels built once before they start:
-   (a) qwen2-0.5b with the KAN drop-in at full width and depth (bf16, f32
-   t) on a 2x2 (data, model) mesh with ZeRO-1, tensor-parallel over
-   ``model`` (7 of 14 heads, 304 of 608 KAN lanes, half the vocab a
-   rank), 8 x 128 tokens a step, 3
+   (a) qwen2-0.5b with the KAN drop-in at full width, ``MESH_DEPTH`` of
+   its 24 layers (bf16, f32 t) on a 2x2 (data, model) mesh with ZeRO-1,
+   tensor-parallel over ``model`` (7 of 14 heads, 304 of 608 KAN lanes,
+   half the vocab a rank), 8 x 128 tokens a step, ``MESH_STEPS``
    steps from seed 0: each step's loss within the reference's sharded ==
    dense bound (1e-3 * (1 + |loss|)) of one process's, two runs bitwise,
-   96 ``kan_fused_v2_mixed`` (with the recompute) and 48
-   ``spline_basis_bf16`` launches a step a rank and nothing else; per
+   4 ``kan_fused_v2_mixed`` (with the recompute) and 2
+   ``spline_basis_bf16`` launches a layer a step a rank and nothing
+   else; per
    rank host, device, kernel and copy ms a step, the bytes and collectives it sends, peak memory; one more step
    with every mixed launch (512 x 896 -> 304, and 304 -> 896 with f32
    partials) within one bf16 ulp of its plain version on its input; at
@@ -367,6 +368,24 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    ``DRYRUN_PEAK_TOL`` of meta's argument + temp, the same cell without
    ``remat`` counted on meta beside ``dryrun.CARD_BYTES`` (and run on
    the card if it fits), host and device ms and the idle share.
+18. training with the reference's KAN-FFN (``kanffn_train_phase``,
+   ``--ffn kanffn --pattern 0.5``: each FFN a mixed fused-KAN
+   up-projection 896 -> 1080 and a bf16 pattern matmul 540 -> 896 +
+   bias): (a) the matmul's gradient (``MatmulCompact``) against
+   autograd through its plain version on the card, at the step's 1024 x
+   540 -> 896 (bf16 out), a tensor-parallel rank's 512 x 270 -> 896
+   (f32 partial) and every epilogue at a small shape, each leaf within
+   one bf16 ulp of ``max|plain|`` (``KT_GRAD_TOL``), with the kernels'
+   times and bounds at the step's shapes; (b) ``Trainer`` at full
+   width and depth, 3 steps, the launches a step by kernel, host and
+   device ms, idle, peak; a restart bitwise a clean run; the launcher
+   from the same seed as a subprocess, its last checkpoint bitwise the
+   in-process run's final state; (c) 4 layers on 2x2 gloo ranks on
+   ``cuda:0``, a step in each activation mode, each rank's loss within
+   ``MESH_LOSS_TOL`` of one process's, its bytes and collectives; (d)
+   (b)'s step counted on the card and on meta: FLOPs, bytes, launches
+   and argument bytes equal, argument + temp within ``KT_PEAK_TOL`` of
+   the card's peak.
 
 No served path launches the spline-basis or v1 kernels, so their
 ``launches`` in the record are those of phases 6 and 5; the mixed
@@ -382,8 +401,9 @@ runs of the paper scripts (Table I, the Fig. 8 sweep, Table II), and
 ``launches_array``, its launches in phase 14's served runs, and
 ``launches_mesh``, rank 0's launches in phase 15 (a)'s first run and
 (g)'s train steps, ``launches_tp_serve``, rank 0's in phase 15 (f)'s
-and (g)'s timed prefill and decode steps, and ``launches_remat``, its
-launches in phase 17 (b)'s timed step.
+and (g)'s timed prefill and decode steps, ``launches_remat``, its
+launches in phase 17 (b)'s timed step, and ``launches_kanffn_train``,
+its launches in phase 18 (b)'s in-process run of 3 steps.
 
 It prints the ``{"kernels": [...]}`` record, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It imports nothing
@@ -532,8 +552,11 @@ ARRAY_CHIPS = 4               # phase 14: logical chips of one card
 # one card over gloo (NCCL refuses two ranks on one device).  (a) data
 # parallelism with ZeRO-1 against one process: the loss of each step
 # within the reference's sharded == dense bound, 1e-3 * (1 + |loss|).
+# Two steps a run, and MESH_DEPTH of the model's 24 layers (the widths
+# and a layer's shapes whole), keep the script inside its time.
 MESH_DP = (2, 2)
-MESH_STEPS = 3
+MESH_STEPS = 2
+MESH_DEPTH = 8
 MESH_COMP_STEPS = 2
 MESH_LOSS_TOL = 1e-3
 MESH_EP = (1, 4)
@@ -628,6 +651,28 @@ DRYRUN_CLIS = (
 REMAT_SHAPES = ((LM_BATCH, LM_SEQ), (2, 4096))
 REMAT_LONG = (2, 4096)
 REMAT_WORKERS = ("long_on", "long_off")
+
+# phase 18: training qwen2-0.5b with the reference's KAN-FFN (``--ffn
+# kanffn --pattern 0.5``): each FFN 896 -> 1080 (the mixed fused-KAN
+# kernel) and 540 -> 896 + bias (the bf16 pattern matmul) of the 1080
+# hidden lanes the tiled mask keeps half of.  (a) holds the matmul's bf16
+# forward to autograd through its plain version on the card within
+# BF16_ULP of 1 + max|plain|, and its gradient (dx, dw, db), there and for
+# each epilogue at KT_ACT_SHAPE, within KT_GRAD_TOL: a gradient is an f32
+# sum rounded once, and the kernel sums in another order than cuBLAS, so
+# the two roundings may land one bf16 ulp apart (2^-5 at a dx of 6.25 on
+# an H100, past 2^-8 (1 + max)); 2^-7 (1 + max) is one ulp of the largest
+# value at the bottom of its binade and two at the top; (b) KT_STEPS steps
+# at full depth, and the launcher's run of them; (c) KT_TP_DEPTH layers
+# on 2x2; (d) the dry run's argument + temp within KT_PEAK_TOL of the
+# card's peak.
+KT_HIDDEN = 1080
+KT_STEPS = 3
+KT_TP_DEPTH = 4
+KT_ACT_SHAPE = (64, 96, 80)
+KT_GRAD_TOL = 2 * BF16_ULP
+KT_PEAK_TOL = 0.01
+KT_WORKER_S = 300
 
 KERNEL_INFO = {
     "kan_fused_v2": {
@@ -1161,23 +1206,33 @@ def kanffn_phase(dev: torch.device, card: str) -> dict:
     print(f"phase 10: (c) simulated cycles an instance: masked {masked_c:.1f} "
           f"< dense {dense_c:.1f}")
 
-    # (d) the launcher in a subprocess, at full width
+    # (d) the launcher in a subprocess a precision, at full width, the two
+    # side by side
     launcher = {}
-    for prec in ("f32", "bf16"):
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-               TF_ARCH, "--scale", "full", "--requests", "4",
-               "--new-tokens", "8", "--precision", prec]
-        t0 = time.perf_counter()
-        run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                             timeout=600,
-                             env=dict(os.environ, PYTHONPATH=str(SRC)))
-        secs = time.perf_counter() - t0
-        check(run.returncode == 0, f"(d) the launcher at {prec} exited "
-              f"{run.returncode}: {run.stderr[-2000:]}")
-        check("kan-ffn hybrid" in run.stdout
-              and "simulated VIKIN" in run.stdout,
+    t0 = time.perf_counter()
+    procs = {prec: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         TF_ARCH, "--scale", "full", "--requests", "4", "--new-tokens", "8",
+         "--precision", prec], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC))) for prec in ("f32", "bf16")}
+    outs = {}
+    try:
+        for prec, pr in procs.items():
+            outs[prec] = pr.communicate(timeout=600)
+    finally:
+        for pr in procs.values():
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    secs = time.perf_counter() - t0
+    for prec, (sout, serr) in outs.items():
+        rc = procs[prec].returncode
+        check(rc == 0, f"(d) the launcher at {prec} exited {rc}: "
+              f"{serr[-2000:]}")
+        check("kan-ffn hybrid" in sout and "simulated VIKIN" in sout,
               f"(d) the launcher at {prec} printed no kan-ffn lines")
-        line = next(ln for ln in run.stdout.splitlines()
+        line = next(ln for ln in sout.splitlines()
                     if ln.startswith("simulated VIKIN:"))
         printed = float(line.split()[2])
         lrng = np.random.default_rng(0)
@@ -1195,8 +1250,8 @@ def kanffn_phase(dev: torch.device, card: str) -> dict:
               f"the host's cycle model {want:.1f}")
         launcher[prec] = {"seconds": secs, "sim_cycles": printed,
                           "host_cycles": want}
-        print(f"phase 10: (d) launcher --precision {prec}: exit 0 in "
-              f"{secs:.1f} s, {printed:.0f} simulated cycles = the host's "
+        print(f"phase 10: (d) launcher --precision {prec}: exit 0 (both "
+              f"in {secs:.1f} s), {printed:.0f} simulated cycles = the host's "
               f"cycle model ({instances} instances); | {line}")
 
     # (e) times, bf16 at 8 slots
@@ -1708,15 +1763,8 @@ def moe_rec_phase(dev: torch.device, card: str) -> dict:
 
             step_host = host_ms(step, iters=3, reps=5)
             # device time: the CUDA kernels' own time over 3 steps
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(3):
-                    step()
-            kern = sorted((e for e in prof.key_averages()
-                           if str(getattr(e, "device_type", ""))
-                           .endswith("CUDA")), key=lambda e: -_device_us(e))
-            step_dev = sum(_device_us(e) for e in kern) / 3e3
+            dev_us, n_kern, top_dev = _device_ops(step, 3, top=6)
+            step_dev = dev_us / 1e3
         check(step_dev > 0, f"{name}: the profiler saw no device time")
         peak = torch.cuda.max_memory_allocated()
         rec = {"decode_step_host_ms": step_host,
@@ -1725,9 +1773,7 @@ def moe_rec_phase(dev: torch.device, card: str) -> dict:
                "peak_device_bytes": peak, "resident_bytes": resident,
                "ticks": int(srv.stats["ticks"]),
                "serve_wall_s": wall, "card": card,
-               "kernels_a_step": sum(e.count for e in kern) / 3,
-               "top_device": [(e.key[:72], _device_us(e) / 3, e.count / 3)
-                              for e in kern[:6]]}
+               "kernels_a_step": n_kern, "top_device": top_dev}
         print(f"phase 11: {name} at bf16: {len(prompts)} requests x "
               f"{MR_NEW_TOKENS} tokens on {MR_SLOTS} slots in "
               f"{rec['ticks']} decode steps, wall {wall:.3f} s, logits "
@@ -2264,18 +2310,8 @@ def encdec_vlm_phase(dev: torch.device, card: str) -> dict:
     def dev_ms(fn, n: int) -> tuple:
         """(device ms a call, kernels a call, top device ops) over ``n``
         calls, from the profiler."""
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-        kern = sorted((e for e in prof.key_averages()
-                       if str(getattr(e, "device_type", ""))
-                       .endswith("CUDA")), key=lambda e: -_device_us(e))
-        return (sum(_device_us(e) for e in kern) / n / 1e3,
-                sum(e.count for e in kern) / n,
-                [(e.key[:72], _device_us(e) / n, e.count / n)
-                 for e in kern[:6]])
+        us, nk, top = _device_ops(fn, n, top=6)
+        return us / 1e3, nk, top
 
     timing, checks = {}, {}
     for name, seed in ((whisper, 2), (pali, 3)):
@@ -2500,7 +2536,7 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
     and ``LM_GRAD_TOL`` of ``1 + max|plain|``;
     (e) ``python -m repro_torch.launch.train --arch qwen2-0.5b --scale
     full --ffn kan --pattern 0.5 --steps 4 --seq 128 --batch 8``, as a
-    subprocess, prints ``final step 4``;
+    subprocess running beside (d) and (f), prints ``final step 4``;
     (f) ``LM_XLSTM_STEPS`` deterministic train steps of xlstm-125m at
     full size, twice from seed 0: finite losses, the two runs bitwise.
     Returns what it measured; raises on any fault."""
@@ -2637,18 +2673,8 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
     def dev_ms(fn) -> tuple:
         """(device ms, kernels, top device ops) of one call of ``fn``,
         from the profiler."""
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kern = sorted((e for e in prof.key_averages()
-                       if str(getattr(e, "device_type", ""))
-                       .endswith("CUDA")), key=lambda e: -_device_us(e))
-        return (sum(_device_us(e) for e in kern) / 1e3,
-                sum(e.count for e in kern),
-                [(e.key[:72], _device_us(e) / 1e3, e.count)
-                 for e in kern[:8]])
+        us, nk, top = _device_ops(fn)
+        return us / 1e3, int(nk), [(k, v / 1e3, int(c)) for k, v, c in top]
 
     # (b) Trainer at bf16, full width and depth
     t0 = time.perf_counter()
@@ -2771,129 +2797,137 @@ def lm_train_phase(dev: torch.device, card: str) -> dict:
     del clean, faulty
     free()
 
-    # (d) the f32 twin at full width: kernels against plain versions
-    t0 = time.perf_counter()
-    cfg_f = dataclasses.replace(cfg, dtype="float32")
-    state = ST.init_train_state(cfg_f, opts, gen(63), dev)
-    opt_cfg = ST.default_opt_cfg(opts)
-
-    def plain_ffns(live):
-        def pair(fc, p):
-            up, down = fc.kan_cfgs()
-
-            def layer(c, lp, h):
-                wt = KO.fuse_wt(lp["w_b"], KO.flatten_t(lp["t"], c.kb),
-                                len(c.kb))
-                return kan_fused_v2_ref(h, wt, c.spec, c.kb)
-
-            def fn(x):
-                lead = x.shape[:-1]
-                h = layer(up, p["kan_up"], x.reshape(-1, up.n_in))
-                return layer(down, p["kan_down"], h).reshape(
-                    *lead, down.n_out)
-            return fn
-        return [pair(cfg_f.ffn_cfg(0), bp["ffn"])
-                for _, _, bp, _ in TF._layers(live, cfg_f)]
-
-    twin = []
-    _build.reset_launches()
-    for s in range(LM_F32_STEPS):
-        batch = {k: torch.from_numpy(v).to(dev)
-                 for k, v in data.batch_at(s).items()}
-        before = dict(_build.LAUNCHES)
-        with ST.deterministic(dev):
-            total, ce, grads = ST.value_and_grad(cfg_f, opts,
-                                                 state["params"], batch)
-        step_launch = {k: v - before[k] for k, v in _build.LAUNCHES.items()
-                       if v != before[k]}
-        want = {"kan_fused_v2": train_fwd(cfg_f, 2 * cfg.n_layers),
-                "spline_basis": 4 * cfg.n_layers}
-        check(step_launch == want, f"(d) step {s}: launches {step_launch}, "
-              f"want {want}")
-        before = dict(_build.LAUNCHES)
-        with ST.deterministic(dev):
-            ptotal, pce, pgrads = ST.value_and_grad(
-                cfg_f, opts, state["params"], batch, ffns_of=plain_ffns)
-        check(_build.LAUNCHES == before, "(d) the plain path launched a "
-              "kernel")
-        loss_err = abs(float(ce) - float(pce)) / abs(float(pce))
-        check(loss_err <= LM_LOSS_RTOL, f"(d) step {s}: loss {float(ce)} vs "
-              f"plain {float(pce)} ({loss_err:.2e} relative)")
-        worst = (0.0, "")
-        pg = dict(leaf_paths(pgrads))
-        for k, v in leaf_paths(grads):
-            err, scale, nan = rel_err(v, pg[k])
-            check(not nan and err <= LM_GRAD_TOL * scale,
-                  f"(d) step {s}: gradient {k} {err:.3e} from the plain "
-                  f"path's, vs {LM_GRAD_TOL:g} * {scale:.4g}")
-            worst = max(worst, (err / scale, k))
-        twin.append({"step": s, "loss": float(ce), "plain_loss": float(pce),
-                     "loss_rel_err": loss_err, "worst_grad": worst})
-        new_params, new_opt, _ = adamw_update(grads, state["opt"],
-                                              state["params"], opt_cfg)
-        state = {"params": new_params, "opt": new_opt,
-                 "step": state["step"] + 1}
-        del grads, pgrads, pg
-        free()
-    for k, v in launched().items():
-        launches_lm[k] = launches_lm.get(k, 0) + v
-    print(f"phase 13: (d) the f32 twin, {LM_F32_STEPS} steps, kernels "
-          f"against plain versions on the same params: " + "; ".join(
-              f"step {t['step']} loss {t['loss']:.6f} ({t['loss_rel_err']:.1e}"
-              f" rel), worst gradient {t['worst_grad'][0]:.2e} at "
-              f"{t['worst_grad'][1]}" for t in twin)
-          + f" ({time.perf_counter() - t0:.1f} s)")
-    del state
-    free()
-
-    # (e) the launcher, as a subprocess
-    t0 = time.perf_counter()
+    # (e) the launcher, as a subprocess beside (d) and (f), which check
+    # values only
+    t_e = time.perf_counter()
     ck = tempfile.mkdtemp(prefix="lm_launcher_")
+    launcher = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         LM_ARCH, "--scale", "full", "--ffn", "kan", "--pattern", "0.5",
+         "--steps", "4", "--seq", str(LM_SEQ), "--batch", str(LM_BATCH),
+         "--ckpt-dir", ck], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC)))
     try:
-        run = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-             LM_ARCH, "--scale", "full", "--ffn", "kan", "--pattern", "0.5",
-             "--steps", "4", "--seq", str(LM_SEQ), "--batch",
-             str(LM_BATCH), "--ckpt-dir", ck],
-            cwd=ROOT, capture_output=True, text=True, timeout=600,
-            env=dict(os.environ, PYTHONPATH=str(SRC)))
+        # (d) the f32 twin at full width: kernels against plain versions
+        t0 = time.perf_counter()
+        cfg_f = dataclasses.replace(cfg, dtype="float32")
+        state = ST.init_train_state(cfg_f, opts, gen(63), dev)
+        opt_cfg = ST.default_opt_cfg(opts)
+
+        def plain_ffns(live):
+            def pair(fc, p):
+                up, down = fc.kan_cfgs()
+
+                def layer(c, lp, h):
+                    wt = KO.fuse_wt(lp["w_b"], KO.flatten_t(lp["t"], c.kb),
+                                    len(c.kb))
+                    return kan_fused_v2_ref(h, wt, c.spec, c.kb)
+
+                def fn(x):
+                    lead = x.shape[:-1]
+                    h = layer(up, p["kan_up"], x.reshape(-1, up.n_in))
+                    return layer(down, p["kan_down"], h).reshape(
+                        *lead, down.n_out)
+                return fn
+            return [pair(cfg_f.ffn_cfg(0), bp["ffn"])
+                    for _, _, bp, _ in TF._layers(live, cfg_f)]
+
+        twin = []
+        _build.reset_launches()
+        for s in range(LM_F32_STEPS):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in data.batch_at(s).items()}
+            before = dict(_build.LAUNCHES)
+            with ST.deterministic(dev):
+                total, ce, grads = ST.value_and_grad(cfg_f, opts,
+                                                     state["params"], batch)
+            step_launch = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                           if v != before[k]}
+            want = {"kan_fused_v2": train_fwd(cfg_f, 2 * cfg.n_layers),
+                    "spline_basis": 4 * cfg.n_layers}
+            check(step_launch == want, f"(d) step {s}: launches "
+                  f"{step_launch}, want {want}")
+            before = dict(_build.LAUNCHES)
+            with ST.deterministic(dev):
+                ptotal, pce, pgrads = ST.value_and_grad(
+                    cfg_f, opts, state["params"], batch, ffns_of=plain_ffns)
+            check(_build.LAUNCHES == before, "(d) the plain path launched a "
+                  "kernel")
+            loss_err = abs(float(ce) - float(pce)) / abs(float(pce))
+            check(loss_err <= LM_LOSS_RTOL, f"(d) step {s}: loss "
+                  f"{float(ce)} vs plain {float(pce)} ({loss_err:.2e} "
+                  f"relative)")
+            worst = (0.0, "")
+            pg = dict(leaf_paths(pgrads))
+            for k, v in leaf_paths(grads):
+                err, scale, nan = rel_err(v, pg[k])
+                check(not nan and err <= LM_GRAD_TOL * scale,
+                      f"(d) step {s}: gradient {k} {err:.3e} from the plain "
+                      f"path's, vs {LM_GRAD_TOL:g} * {scale:.4g}")
+                worst = max(worst, (err / scale, k))
+            twin.append({"step": s, "loss": float(ce),
+                         "plain_loss": float(pce), "loss_rel_err": loss_err,
+                         "worst_grad": worst})
+            new_params, new_opt, _ = adamw_update(grads, state["opt"],
+                                                  state["params"], opt_cfg)
+            state = {"params": new_params, "opt": new_opt,
+                     "step": state["step"] + 1}
+            del grads, pgrads, pg
+            free()
+        for k, v in launched().items():
+            launches_lm[k] = launches_lm.get(k, 0) + v
+        print(f"phase 13: (d) the f32 twin, {LM_F32_STEPS} steps, kernels "
+              f"against plain versions on the same params: " + "; ".join(
+                  f"step {t['step']} loss {t['loss']:.6f} "
+                  f"({t['loss_rel_err']:.1e} rel), worst gradient "
+                  f"{t['worst_grad'][0]:.2e} at "
+                  f"{t['worst_grad'][1]}" for t in twin)
+              + f" ({time.perf_counter() - t0:.1f} s)")
+        del state
+        free()
+
+        # (f) xlstm-125m: deterministic train steps on the card, twice
+        t0 = time.perf_counter()
+        cfg_x = ZOO[LM_XLSTM]
+        data_x = SyntheticLM(LMDataConfig(vocab_size=cfg_x.vocab_size,
+                                          seq_len=LM_SEQ,
+                                          global_batch=LM_BATCH))
+        step_x = ST.make_train_step(cfg_x, opts)
+        runs_x = []
+        for _ in range(2):
+            st = ST.init_train_state(cfg_x, opts, gen(64), dev)
+            losses_x = []
+            for s in range(LM_XLSTM_STEPS):
+                st, m = step_x(st, {k: torch.from_numpy(v).to(dev)
+                                    for k, v in data_x.batch_at(s).items()})
+                losses_x.append(float(m["loss"]))
+            runs_x.append((losses_x, [a.cpu() for _, a in leaf_paths(st)]))
+            del st
+            free()
+        (l1, s1), (l2, s2) = runs_x
+        check(all(map(math.isfinite, l1)) and l1 == l2 and all(
+            torch.equal(a, b) for a, b in zip(s1, s2)),
+            f"(f) {LM_XLSTM}: losses {l1} and {l2}, or states, differ")
+        xlstm = {"arch": LM_XLSTM, "losses": l1, "bitwise": True,
+                 "seconds": time.perf_counter() - t0, "card": card}
+        print(f"phase 13: (f) {LM_XLSTM} ({cfg_x.dtype}), {LM_XLSTM_STEPS} "
+              f"deterministic train steps of {LM_BATCH} x {LM_SEQ}, twice: "
+              f"losses {l1}, the two runs' states bitwise "
+              f"({xlstm['seconds']:.1f} s)")
+        sout, serr = launcher.communicate(timeout=600)
     finally:
+        if launcher.poll() is None:
+            launcher.kill()
+            launcher.wait()
         shutil.rmtree(ck, ignore_errors=True)
-    tail = run.stdout.strip().splitlines()[-1] if run.stdout.strip() else ""
-    check(run.returncode == 0 and tail.startswith("final step 4,"),
-          f"(e) the launcher: rc {run.returncode}, last line {tail!r}, "
-          f"stderr {run.stderr[-2000:]}")
+    tail = sout.strip().splitlines()[-1] if sout.strip() else ""
+    check(launcher.returncode == 0 and tail.startswith("final step 4,"),
+          f"(e) the launcher: rc {launcher.returncode}, last line {tail!r}, "
+          f"stderr {serr[-2000:]}")
     print(f"phase 13: (e) python -m repro_torch.launch.train --arch "
           f"{LM_ARCH} --scale full --ffn kan --pattern 0.5 --steps 4: "
-          f"{tail!r} ({time.perf_counter() - t0:.1f} s)")
-
-    # (f) xlstm-125m: deterministic train steps on the card, twice
-    t0 = time.perf_counter()
-    cfg_x = ZOO[LM_XLSTM]
-    data_x = SyntheticLM(LMDataConfig(vocab_size=cfg_x.vocab_size,
-                                      seq_len=LM_SEQ, global_batch=LM_BATCH))
-    step_x = ST.make_train_step(cfg_x, opts)
-    runs_x = []
-    for _ in range(2):
-        st = ST.init_train_state(cfg_x, opts, gen(64), dev)
-        losses_x = []
-        for s in range(LM_XLSTM_STEPS):
-            st, m = step_x(st, {k: torch.from_numpy(v).to(dev)
-                                for k, v in data_x.batch_at(s).items()})
-            losses_x.append(float(m["loss"]))
-        runs_x.append((losses_x, [a.cpu() for _, a in leaf_paths(st)]))
-        del st
-        free()
-    (l1, s1), (l2, s2) = runs_x
-    check(all(map(math.isfinite, l1)) and l1 == l2 and all(
-        torch.equal(a, b) for a, b in zip(s1, s2)),
-        f"(f) {LM_XLSTM}: losses {l1} and {l2}, or states, differ")
-    xlstm = {"arch": LM_XLSTM, "losses": l1, "bitwise": True,
-             "seconds": time.perf_counter() - t0, "card": card}
-    print(f"phase 13: (f) {LM_XLSTM} ({cfg_x.dtype}), {LM_XLSTM_STEPS} "
-          f"deterministic train steps of {LM_BATCH} x {LM_SEQ}, twice: "
-          f"losses {l1}, the two runs' states bitwise "
-          f"({xlstm['seconds']:.1f} s)")
+          f"{tail!r} ({time.perf_counter() - t_e:.1f} s, beside (d) and (f))")
     del runs_x, s1, s2
     print(f"phase 13: LM training passed in "
           f"{time.perf_counter() - t_phase:.1f} s; launches {launches_lm}")
@@ -3241,12 +3275,13 @@ def array_phase(dev: torch.device, card: str, hold) -> dict:
     return rec
 
 
-def _mesh_lm_cfg():
-    """Phase 15 (a)-(b), (d): qwen2-0.5b with the reference's KAN
-    drop-in at full width and depth (bf16, its t f32)."""
+def _mesh_lm_cfg(n_layers=None):
+    """qwen2-0.5b with the reference's KAN drop-in at full width (bf16,
+    its t f32), at full depth or ``n_layers`` (phase 15's ``MESH_DEPTH``)."""
     from repro_torch.configs.registry import ARCHS as ZOO
+    over = {} if n_layers is None else {"n_layers": n_layers}
     return dataclasses.replace(ZOO[LM_ARCH], ffn_kind="kan",
-                               pattern_rate=0.5)
+                               pattern_rate=0.5, **over)
 
 
 def _mesh_ep_cfg():
@@ -3265,25 +3300,47 @@ def _mesh_opts(**over):
     return ST.StepOptions(lr=3e-4, total_steps=LM_STEPS, warmup=0, **over)
 
 
-def _profile_ms(fn) -> dict:
-    """Device ms of one call of ``fn`` from the profiler (CUDA activity):
-    all of it, the host <-> device copies' (``Memcpy``) and the copy
-    kernels' share of the kernels' time (the widening ``.to`` copies).
-    Summed from the profiler's raw event list: ``key_averages`` of a step
-    of tens or hundreds of thousands of launches takes minutes to build
-    (30-40 s for an xlstm train step's)."""
+def _device_events(fn, n: int = 1) -> dict:
+    """{name: (device us, count)} of ``n`` calls of ``fn``: the profiler's
+    raw CUDA events (kernels, copies, memsets) summed by name.  Read
+    without ``key_averages``, whose CPU activity and averaging over every
+    traced op take seconds to minutes a call of tens of thousands of ops
+    on a slow host (30-40 s for an xlstm train step's)."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    dev = [(e.name(), e.duration_ns() / 1e3)
-           for e in prof.profiler.kineto_results.events()
-           if e.device_type() == cuda]
-    total = sum(us for _, us in dev)
-    memcpy = sum(us for name, us in dev if name.startswith("Memcpy"))
+    by: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            us, c = by.get(e.name(), (0.0, 0))
+            by[e.name()] = (us + e.duration_ns() / 1e3, c + 1)
+    return by
+
+
+def _device_ops(fn, n: int = 1, top: int = 8) -> tuple:
+    """(device us a call, device events a call, the ``top`` device ops by
+    time as (name, us a call, count a call)) of ``n`` calls of ``fn``
+    (``_device_events``)."""
+    by = _device_events(fn, n)
+    rows = sorted(by.items(), key=lambda kv: -kv[1][0])
+    return (sum(us for us, _ in by.values()) / n,
+            sum(c for _, c in by.values()) / n,
+            [(k[:72], us / n, c / n) for k, (us, c) in rows[:top]])
+
+
+def _profile_ms(fn) -> dict:
+    """Device ms of one call of ``fn`` (``_device_events``): all of it,
+    the host <-> device copies' (``Memcpy``) and the copy kernels' share
+    of the kernels' time (the widening ``.to`` copies)."""
+    by = _device_events(fn)
+    total = sum(us for us, _ in by.values())
+    memcpy = sum(us for name, (us, _) in by.items()
+                 if name.startswith("Memcpy"))
     kern = total - memcpy
-    copies = sum(us for name, us in dev
+    copies = sum(us for name, (us, _) in by.items()
                  if "copy" in name.lower() and not name.startswith("Memcpy"))
     return {"device_ms": total / 1e3, "memcpy_ms": memcpy / 1e3,
             "kernel_ms": kern / 1e3,
@@ -3467,7 +3524,7 @@ def _tp_serve_one(dev: torch.device, out: Path) -> dict:
     from repro_torch.launch import steps as ST
     from repro_torch.models import transformer as TF
 
-    cfg = _mesh_lm_cfg()
+    cfg = _mesh_lm_cfg(MESH_DEPTH)
     params = TF.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             dev)
     rng = np.random.default_rng(15)
@@ -3931,7 +3988,7 @@ def _mesh_worker(argv: list) -> int:
         rank holds its shards to the same cut of the saved leaves (the
         shards of every rank make each leaf whole), then one more
         step."""
-        cfg = _mesh_lm_cfg()
+        cfg = _mesh_lm_cfg(MESH_DEPTH)
         tr = Trainer(cfg, TrainerConfig(max_steps=MESH_STEPS + 1,
                                         ckpt_dir=ck, log_every=100),
                      dev, _mesh_data(cfg), _mesh_opts(), mesh=m)
@@ -3966,7 +4023,7 @@ def _mesh_worker(argv: list) -> int:
                 if a.dtype == torch.bfloat16 else a.detach().cpu()
                 for _, a in leaf_paths(state)]
 
-    cfg = _mesh_lm_cfg()
+    cfg = _mesh_lm_cfg(MESH_DEPTH)
     data = _mesh_data(cfg)
     opts = _mesh_opts()
     params = TF.init_params(
@@ -4578,7 +4635,7 @@ def mesh_phase(dev: torch.device, card: str) -> dict:
     # (a) one process first
     t0 = time.perf_counter()
     free()
-    cfg = _mesh_lm_cfg()
+    cfg = _mesh_lm_cfg(MESH_DEPTH)
     data = _mesh_data(cfg)
     opts = _mesh_opts()
     params = TF.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -4955,7 +5012,8 @@ def _dryrun_worker(argv: list) -> int:
         rec["wall_s"] = time.perf_counter() - t0
         (out / f"dryrun_{who}.json").write_text(json.dumps({"long": rec}))
         return 0
-    cfg = _mesh_lm_cfg()
+    # (a) counts phase 13's model whole, (b) phase 15's at MESH_DEPTH
+    cfg = _mesh_lm_cfg(None if who == "one" else MESH_DEPTH)
     res = {}
     for tag, (shape, opts) in _dryrun_cells().items():
         if (tag == "one") != (who == "one"):
@@ -5443,6 +5501,591 @@ def remat_phase(dev: torch.device, card: str) -> dict:
     print(f"phase 17: activation checkpointing passed in {wall:.1f} s")
     return {"a": a_rows, "long": long, "launches": launches_b,
             "seconds": wall, "card": card}
+
+
+def _kt_cfg(n_layers=None):
+    """Phase 18's model: qwen2-0.5b with the reference's KAN-FFN
+    (``--ffn kanffn --pattern 0.5``) at full width, bf16 with f32 ``t``
+    and the registry's ``remat``; ``n_layers`` cuts the depth."""
+    from repro_torch.configs.registry import ARCHS as ZOO
+    over = {} if n_layers is None else {"n_layers": n_layers}
+    return dataclasses.replace(ZOO[LM_ARCH], ffn_kind="kanffn",
+                               pattern_rate=0.5, **over)
+
+
+def _kt_launches(cfg, tp: bool) -> dict:
+    """A KAN-FFN train step's launches by kernel: each layer's forward (a
+    mixed fused-KAN up-projection, a bf16 pattern-matmul down-projection)
+    and, under ``remat``, its recompute; the spline basis in the KAN's
+    backward (d wt); the matmul's dx and dw where its cotangent is the
+    bf16 output's (one process), none where it is an f32 partial (a
+    tensor-parallel rank: IEEE f32 products)."""
+    fwd = train_fwd(cfg, cfg.n_layers)
+    return {MIXED: fwd, "pattern_matmul_bf16": fwd + (0 if tp else
+                                                      2 * cfg.n_layers),
+            "spline_basis_bf16": cfg.n_layers}
+
+
+def _kanffn_worker(argv: list) -> int:
+    """Phase 18 in processes of its own (``python chip_smoke.py
+    --kanffn-worker OUT WHO``): WHO "meta" counts (b)'s step on meta (the
+    dry run's 1x1 cell); WHO "rank" is one rank of (c), the 2x2 mesh on
+    ``MESH_DEV`` over gloo at ``KT_TP_DEPTH`` layers, one step in each
+    activation mode from the draw of seed 0.  Writes
+    ``OUT/kt_<WHO>[<rank>].json``."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun as DR
+
+    out, who = Path(argv[0]), argv[1]
+    if who == "meta":
+        t0 = time.perf_counter()
+        rec = DR.analyze_cell(_kt_cfg(), ShapeSpec("lm_train", LM_SEQ,
+                                                   LM_BATCH, "train"),
+                              opts=_mesh_opts(), mesh_shape=(1, 1))
+        rec["wall_s"] = time.perf_counter() - t0
+        (out / "kt_meta.json").write_text(json.dumps(rec))
+        return 0
+    from repro_torch.kernels import _build
+    from repro_torch.launch import collectives as COLL
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as TF
+
+    dev = torch.device(MESH_DEV)
+    rank = int(os.environ["RANK"])
+    torch.empty(1, device=dev)
+    mesh = M.init_process_mesh(MESH_DP, rank=rank,
+                               world_size=math.prod(MESH_DP), device=dev,
+                               rendezvous=str(out / "rv_kt"))
+    cfg = _kt_cfg(KT_TP_DEPTH)
+    params = TF.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    b = {k: torch.from_numpy(np.ascontiguousarray(v))
+         for k, v in _mesh_data(cfg).batch_at(0).items()}
+    batch = {k: v.to(dev) for k, v in ST.local_batch(b, mesh).items()}
+    res = {"rank": rank, "coords": mesh.coords, "backend": mesh.backend,
+           "rows": int(batch["tokens"].numel() - batch["tokens"].shape[0])}
+    for mode in ("replicated", "sp"):
+        opts = _mesh_opts(activation_mode=mode)
+        step = ST.make_train_step(cfg, opts, mesh)
+        state = ST.init_train_state(cfg, opts, params=params, mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launches()
+        COLL.reset_sent()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        res[mode] = {"loss": float(m["loss"]),
+                     "host_ms": (time.perf_counter() - t0) * 1e3,
+                     "launches": {k: v for k, v in _build.LAUNCHES.items()
+                                  if v},
+                     "sent": dict(COLL.SENT),
+                     "tp": sorted(step.tp),
+                     "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    (out / f"kt_rank{rank}.json").write_text(json.dumps(res))
+    M.destroy_process_mesh(mesh)
+    return 0
+
+
+def _kt_tp(dev, out: Path) -> tuple:
+    """Phase 18 (c): the one-process loss of the ``KT_TP_DEPTH``-layer
+    step, the 2x2 ranks (``_kanffn_worker``) with nothing else of the
+    phase running, each rank's checks.  Returns (rows a rank and mode, the
+    one-process loss, rank 0's replicated launches, seconds)."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as TF
+
+    t0 = time.perf_counter()
+    cfg_t = _kt_cfg(KT_TP_DEPTH)
+    params = TF.init_params(cfg_t, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    state = ST.init_train_state(cfg_t, _mesh_opts(), params=params)
+    b0 = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+          for k, v in _mesh_data(cfg_t).batch_at(0).items()}
+    _, m = ST.make_train_step(cfg_t, _mesh_opts())(state, b0)
+    one_loss = float(m["loss"])
+    del params, state, b0, m
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    M.spawn_ranks([str(ROOT / "chip_smoke.py"), "--kanffn-worker",
+                   str(out), "rank"], math.prod(MESH_DP), str(out / "rv"),
+                  timeout_s=KT_WORKER_S, env={"PYTHONPATH": str(SRC)})
+    ranks = [json.loads((out / f"kt_rank{r}.json").read_text())
+             for r in range(math.prod(MESH_DP))]
+    want_t = _kt_launches(cfg_t, tp=True)
+    tp_rows = []
+    for r in ranks:
+        for mode in ("replicated", "sp"):
+            rm = r[mode]
+            check(r["backend"] == "gloo" and any(
+                "['kan_up']['w_b']" in k for k in rm["tp"]),
+                f"(c) rank {r['rank']} {mode}: backend {r['backend']}, "
+                f"kan_up not tensor-parallel")
+            check(abs(rm["loss"] - one_loss)
+                  <= MESH_LOSS_TOL * (1 + abs(one_loss)),
+                  f"(c) rank {r['rank']} {mode}: loss {rm['loss']} vs one "
+                  f"process's {one_loss}")
+            check(rm["launches"] == want_t, f"(c) rank {r['rank']} {mode}: "
+                  f"launches {rm['launches']}, want {want_t}")
+            tp_rows.append({"rank": r["rank"], "mode": mode,
+                            "loss": rm["loss"], "host_ms": rm["host_ms"],
+                            "sent_bytes": rm["sent"]["bytes"],
+                            "collectives": rm["sent"]["calls"],
+                            "peak_bytes": rm["peak_bytes"]})
+            print(f"phase 18: (c) rank {r['rank']} {r['coords']} {mode}: "
+                  f"loss {rm['loss']:.6f} (one process {one_loss:.6f}), "
+                  f"host {rm['host_ms']:.1f} ms, {rm['sent']['calls']} "
+                  f"collectives, {rm['sent']['bytes'] / 2 ** 20:.1f} MiB "
+                  f"sent, peak {rm['peak_bytes'] / 2 ** 30:.2f} GiB")
+    tp_s = time.perf_counter() - t0
+    print(f"phase 18: (c) {KT_TP_DEPTH} layers on 2x2 in {tp_s:.1f} s")
+    return tp_rows, one_loss, ranks[0]["replicated"]["launches"], tp_s
+
+
+def _kt_launcher(launcher, ck: str, cfg, last_loss: float,
+                 state_b: list) -> str:
+    """Phase 18 (b)'s second run from seed 0: the launcher's exit, its
+    last line against (b)'s final loss and its step-``KT_STEPS``
+    checkpoint against (b)'s final state ``state_b``, leaf by leaf,
+    bitwise.  Returns the last line."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.launch import specs as SP
+    from repro_torch.utils import leaf_paths, tree_map
+
+    sout, serr = launcher.communicate(timeout=KT_WORKER_S)
+    lines = sout.strip().splitlines()
+    tail = lines[-1] if lines else ""
+    want_tail = f"final step {KT_STEPS}, loss {last_loss:.4f}"
+    check(launcher.returncode == 0 and tail == want_tail
+          and "ffn kanffn, pattern 0.5" in sout,
+          f"(b) the launcher: rc {launcher.returncode}, last line {tail!r} "
+          f"(want {want_tail!r}), stderr {serr[-2000:]}")
+    target = tree_map(lambda a: torch.empty(a.shape, dtype=a.dtype),
+                      SP.state_specs(cfg))
+    saved, step, _ = restore_checkpoint(ck, target)
+    got = leaf_paths(saved)
+    check(step == KT_STEPS and [k for k, _ in got] == [k for k, _ in state_b]
+          and all(torch.equal(a, b) for (_, a), (_, b) in zip(got, state_b)),
+          f"(b) the launcher's step-{step} checkpoint is not the in-process "
+          f"run's final state, bitwise")
+    return tail
+
+
+def kanffn_train_phase(dev: torch.device, card: str) -> dict:
+    """Phase 18: training ``qwen2-0.5b`` with the reference's KAN-FFN
+    (``--ffn kanffn --pattern 0.5``) at full width: each of 24 FFNs a
+    fused-KAN up-projection 896 -> 1080 (nbk 5, kept bases (0, 2, 4, 5,
+    6); bf16 x against f32 rows, the mixed kernel) and a bf16 pattern
+    matmul 540 -> 896 + bias over the kept half of the hidden lanes,
+    under ``remat``, ``LM_BATCH`` x ``LM_SEQ`` tokens (M = 1024).
+
+    (a) the matmul's gradient (``MatmulCompact``) on the card against
+    autograd through its plain version on the same card (the loss a
+    fixed bf16 or f32 cotangent): at the step's 1024 x 540 -> 896 + bias
+    (bf16 out: dx and dw by two more bf16-kernel launches), at a rank's
+    512 x 270 -> 896 of (c) (f32 partial out: IEEE f32 products), and
+    every epilogue at ``KT_ACT_SHAPE`` (bf16 out, f32 out, and f32
+    operands): a bf16 forward within ``BF16_ULP`` of ``1 + max|plain|``
+    (an f32 one within ``KERNEL_TOL``), dx, dw and db each within
+    ``KT_GRAD_TOL``, the launches those the Function's rules give; the
+    forward kernel's and the backward products' times and bounds at the
+    step's shapes beside one cuBLAS call's (``addmm`` / ``mm``, with
+    ``out_dtype`` for the f32 partial), and the mixed up-projection's and
+    the spline basis's;
+    (b) ``Trainer`` at full width and depth, ``KT_STEPS`` steps from
+    seed 0 at the launcher's options: the first loss within
+    ``LM_FIRST_LOSS_TOL`` of ln(vocab), the launches a step by kernel
+    (``_kt_launches``), host ms, device ms from the profiler, idle share,
+    peak memory; a restart at ``LM_RESTART_DEPTH`` layers bitwise a clean
+    run (as phase 13 (c)); the second run from seed 0 is the launcher
+    (``--scale full --ffn kanffn --pattern 0.5``, a subprocess): its last
+    line this run's final loss, its step-``KT_STEPS`` checkpoint this
+    run's final state, bitwise;
+    (c) four gloo ranks on ``MESH_DEV`` (2x2, ``kan_up`` tensor-parallel:
+    a rank's down-projection an f32 partial) at ``KT_TP_DEPTH`` layers,
+    one step in each activation mode: each rank's loss within
+    ``MESH_LOSS_TOL * (1 + |loss|)`` of one process's, its launches, the
+    bytes and collectives it sent, host ms and peak;
+    (d) (b)'s step in the dry run's 1x1 cell counted on the card and on
+    meta (a worker process): FLOPs, bytes, launches (and ``_build``'s)
+    and argument bytes equal, meta's argument + temp within
+    ``KT_PEAK_TOL`` of the card's peak.
+    Nothing else runs while a time is taken: the launcher and the meta
+    worker start once (b)'s timed steps and profile are done, run beside
+    (b)'s restart and (d)'s count on the card, which take no time, and
+    are collected before (c).
+    Returns what it measured; raises on any fault."""
+    from repro_torch.benchmarks.kernel_ab import graph_ms, time_ms
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.kan_fused import ops as KO
+    from repro_torch.kernels.pattern_matmul import ops as PO
+    from repro_torch.kernels.pattern_matmul.ref import matmul_compact_ref
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import ffn as FF
+    from repro_torch.models import transformer as TF
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.utils import leaf_paths
+
+    t_phase = time.perf_counter()
+    out = Path(tempfile.mkdtemp(prefix="kanffn_train_phase_"))
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    ck = tempfile.mkdtemp(prefix="kt_launcher_")
+    procs: dict = {}
+    try:
+        cfg = _kt_cfg()
+        fcfg = cfg.ffn_cfg(0)
+        up_cfg, mask = fcfg.kanffn_up_cfg(), fcfg.kanffn_hidden_mask()
+        check(up_cfg.kb == LM_KB and fcfg.kanffn_hidden == KT_HIDDEN
+              and mask.n_keep == KT_HIDDEN // 2,
+              f"(phase 18) the KAN-FFN's layers: {up_cfg}, {mask.n_keep} of "
+              f"{fcfg.kanffn_hidden} hidden lanes kept")
+        M_ = LM_BATCH * LM_SEQ
+        kc, d = mask.n_keep, cfg.d_model
+        times: dict = {}
+
+        def gen(seed: int) -> torch.Generator:
+            return torch.Generator(device=dev).manual_seed(seed)
+
+        def free() -> None:
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+        def launched() -> dict:
+            return {k: v for k, v in _build.LAUNCHES.items() if v}
+
+        # (a) the matmul's gradient, kernel path against plain autograd
+        t0 = time.perf_counter()
+        KM = "pattern_matmul_bf16"
+
+        def grad_case(label, M, K, N, dt, out_dt, act, bias=True):
+            x = torch.randn((M, K), generator=gen(80), device=dev).to(dt)
+            w = (torch.randn((K, N), generator=gen(81), device=dev)
+                 * K ** -0.5).to(dt)
+            b = torch.randn((N,), generator=gen(82), device=dev).to(dt)
+            g = torch.randn((M, N), generator=gen(83), device=dev).to(out_dt)
+            leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+            _build.reset_launches()
+            y = PO.matmul_compact(leaves[0], leaves[1],
+                                  leaves[2] if bias else None, act,
+                                  out_dtype=out_dt)
+            y.backward(g)
+            torch.cuda.synchronize()
+            got = launched()
+            kname = KM if dt == BF else "pattern_matmul"
+            n = (3 if act is None and out_dt == BF == dt else
+                 1 if act is None or (act == "relu" and out_dt == F32) else 2)
+            check(got == {kname: n}, f"(a) {label}: launches {got}, want "
+                  f"{ {kname: n} }")
+            plain = [t.clone().requires_grad_(True) for t in (x, w, b)]
+            yp = matmul_compact_ref(plain[0], plain[1],
+                                    plain[2] if bias else None, act, out_dt)
+            yp.backward(g)
+            torch.cuda.synchronize()
+            check(_build.LAUNCHES[kname] == n, f"(a) {label}: the plain "
+                  f"version launched a kernel")
+            ftol = BF16_ULP if out_dt == BF else KERNEL_TOL
+            errs = {}
+            pairs = [("y", y.detach(), yp.detach(), ftol)] + [
+                (name, t.grad, p.grad, KT_GRAD_TOL)
+                for name, t, p in zip(("dx", "dw", "db"), leaves, plain)
+                if name != "db" or bias]
+            for name, a, r, tol in pairs:
+                check(a.dtype == r.dtype, f"(a) {label}: {name} is {a.dtype}, "
+                      f"plain {r.dtype}")
+                err, scale, nan = rel_err(a, r)
+                check(not nan and err <= tol * scale,
+                      f"(a) {label}: {name} {err:.3e} from the plain "
+                      f"version's, vs {tol:g} * {scale:.4g}")
+                errs[name] = err / scale
+            return errs, n
+
+        layer_err, launches_a = {}, {}
+        cases = [(f"{M_} x {kc}->{d} + bias, bf16 out", M_, kc, d, BF, BF,
+                  None, True),
+                 (f"{M_ // 2} x {kc // 2}->{d}, f32 out (a TP rank's partial)",
+                  M_ // 2, kc // 2, d, BF, F32, None, False)]
+        m_, k_, n_ = KT_ACT_SHAPE
+        for act in ("relu", "gelu", "silu"):
+            for dt, out_dt in ((BF, BF), (BF, F32), (F32, F32)):
+                cases.append((f"{m_} x {k_}->{n_} + bias, {act}, "
+                              f"{str(dt)[6:]} -> {str(out_dt)[6:]}",
+                              m_, k_, n_, dt, out_dt, act, True))
+        for label, *case in cases:
+            layer_err[label], n = grad_case(label, *case)
+            kname = KM if case[3] == BF else "pattern_matmul"
+            launches_a[kname] = launches_a.get(kname, 0) + n
+        free()
+        print("phase 18: (a) the pattern matmul's gradient on the card "
+              "against autograd through its plain version, each leaf within "
+              f"{KT_GRAD_TOL:g} * (1 + max|plain|) (err / (1 + max): "
+              + "; ".join(f"{k}: " + ", ".join(f"{n} {v:.2e}"
+                                               for n, v in e.items())
+                          for k, e in layer_err.items()) + ")")
+
+        # (a) times and bounds at the step's shapes
+        def mm_row(label, x, w, b, out_dt, launches):
+            M, K = x.shape
+            N = w.shape[1]
+            esz = 2.0
+            n_bytes = (esz * (M * K + K * N) + (esz if out_dt == BF else 4.0)
+                       * M * N + (esz * N if b is not None else 0.0))
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = 2.0 * M * K * N / BF16_FLOPS_PER_S * 1e3
+
+            def kern():
+                return PO.matmul_compact(x, w, b, out_dtype=out_dt)
+
+            def plain():
+                return matmul_compact_ref(x, w, b, None, out_dt)
+
+            # one cuBLAS call: bf16 out, or f32 out (``out_dtype``) from the
+            # same f32 accumulation
+            kw = {} if out_dt == x.dtype else {"out_dtype": out_dt}
+
+            def library():
+                return (torch.addmm(b, x, w, **kw) if b is not None
+                        else torch.mm(x, w, **kw))
+
+            with torch.no_grad():
+                row = {"kernel": KM, "layer": label, "shape": [M, K, N],
+                       "out_dtype": str(out_dt)[6:], "bias": b is not None,
+                       "ms": time_ms(kern), "device_ms": graph_ms(kern),
+                       "plain_ms": time_ms(plain, iters=20),
+                       "library_ms": time_ms(library),
+                       "library_device_ms": graph_ms(library),
+                       "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": ("bytes" if t_bytes >= t_ops
+                                    else "operations"),
+                       "launches_a_step": launches, "card": card}
+            print(json.dumps(row))
+            return row
+
+        xb = torch.randn((M_, kc), generator=gen(84), device=dev).to(BF)
+        wb = (torch.randn((kc, d), generator=gen(85), device=dev)
+              * kc ** -0.5).to(BF)
+        bb = torch.randn((d,), generator=gen(86), device=dev).to(BF)
+        gb = torch.randn((M_, d), generator=gen(87), device=dev).to(BF)
+        n_l = cfg.n_layers
+        kernel_rows = [
+            mm_row("down-projection forward", xb, wb, bb, BF,
+                   train_fwd(cfg, n_l)),
+            mm_row("down-projection dx = g w_c^T", gb, wb.t().contiguous(),
+                   None, BF, n_l),
+            mm_row("down-projection dw = x_c^T g", xb.t().contiguous(), gb,
+                   None, BF, n_l),
+            mm_row("a TP rank's down-projection (f32 partial)",
+                   xb[:M_ // 2, :kc // 2].contiguous(),
+                   wb[:kc // 2].contiguous(), None, F32,
+                   train_fwd(cfg, KT_TP_DEPTH))]
+        del xb, wb, bb, gb
+        p_up = FF.ffn_init(gen(88), fcfg, BF)["kan_up"]
+        nbk = len(LM_KB)
+        wt = KO.fuse_wt(p_up["w_b"], KO.flatten_t(p_up["t"], LM_KB), nbk)
+        check(wt.dtype == F32, f"(a) the KAN-FFN's fused rows are {wt.dtype}")
+        xu = torch.randn((M_, d), generator=gen(89), device=dev).to(BF)
+        kernel_rows += kan_layer_rows(xu, wt.contiguous(), up_cfg.spec, LM_KB,
+                                      "mixed", card, "kanffn up",
+                                      train_fwd(cfg, n_l), n_l)
+        del p_up, wt, xu
+        free()
+        times["a"] = time.perf_counter() - t0
+
+        # (b) Trainer at full width and depth, timed with nothing beside it
+        t0 = time.perf_counter()
+        data = _mesh_data(cfg)
+        # the launcher's options at --steps KT_STEPS (lr 3e-4, no warmup)
+        opts = ST.StepOptions(lr=3e-4, total_steps=KT_STEPS, warmup=0)
+        free()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr = Trainer(cfg, TrainerConfig(max_steps=KT_STEPS, log_every=1), dev,
+                     data, opts)
+        n_params = sum(int(a.numel())
+                       for _, a in leaf_paths(tr.state["params"]))
+        _build.reset_launches()
+        res = tr.run()
+        torch.cuda.synchronize()
+        launches_b = launched()
+        peak_b = torch.cuda.max_memory_allocated(dev)
+        losses = [m["loss"] for m in res["metrics"]]
+        host_b = [m["step_time_s"] * 1e3 for m in res["metrics"]]
+        check(all(a.dtype == F32 for k, a in leaf_paths(tr.state["params"])
+                  if k.endswith("['t']")), "(b) a KAN-FFN's t is not f32")
+        state_b = [(k, a.detach().cpu()) for k, a in leaf_paths(tr.state)]
+        batch = tr.batch_at(KT_STEPS)
+        step_fn = ST.make_train_step(cfg, opts)
+        prof = _profile_ms(lambda: step_fn(tr.state, batch))
+        del tr, res, batch, step_fn
+        free()
+        # the timing is done: the second run from seed 0 (the launcher) and
+        # (d)'s meta count start here, beside the untimed work below
+        procs["launcher"] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             LM_ARCH, "--scale", "full", "--ffn", "kanffn", "--pattern",
+             "0.5", "--steps", str(KT_STEPS), "--seq", str(LM_SEQ),
+             "--batch", str(LM_BATCH), "--ckpt-dir", ck], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        t_bg = time.perf_counter()
+        procs["meta"] = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--kanffn-worker",
+             str(out), "meta"], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        check(len(losses) == KT_STEPS and all(map(math.isfinite, losses)),
+              f"(b) losses {losses}")
+        check(abs(losses[0] - math.log(cfg.vocab_size)) < LM_FIRST_LOSS_TOL,
+              f"(b) first loss {losses[0]:.4f}, ln(vocab) "
+              f"{math.log(cfg.vocab_size):.4f}")
+        per_step = {k: v / KT_STEPS for k, v in launches_b.items()}
+        want = _kt_launches(cfg, tp=False)
+        check(per_step == want, f"(b) launches a step {per_step}, want {want}")
+        host_med = statistics.median(host_b[1:])
+        dms = prof["device_ms"]
+        check(dms > 0, "(b) the profiler saw no device time")
+        # a restart at LM_RESTART_DEPTH layers, bitwise a clean run
+        cfg_c = _kt_cfg(LM_RESTART_DEPTH)
+        clean = Trainer(cfg_c, TrainerConfig(max_steps=4, log_every=100), dev,
+                        data, opts)
+        clean.run()
+        ck_r = tempfile.mkdtemp(prefix="kt_restart_")
+        try:
+            faulty = Trainer(cfg_c, TrainerConfig(
+                max_steps=4, ckpt_dir=ck_r, ckpt_every=2, keep=1,
+                failure_at=3, log_every=100), dev, data, opts)
+            fout = faulty.run_with_restarts(max_restarts=1)
+        finally:
+            shutil.rmtree(ck_r, ignore_errors=True)
+        a, b = leaf_paths(clean.state), leaf_paths(faulty.state)
+        check(fout["final_step"] == 4
+              and [k for k, _ in a] == [k for k, _ in b]
+              and all(torch.equal(x, y) for (_, x), (_, y) in zip(a, b)),
+              "(b) the restarted run's state is not the clean run's, bitwise")
+        del clean, faulty, a, b
+        free()
+        times["b"] = time.perf_counter() - t0
+
+        # (d) (b)'s step counted on the card and on meta
+        t0 = time.perf_counter()
+        alloc0 = torch.cuda.memory_allocated(dev)
+        params = TF.init_params(cfg, gen(0), dev)
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in _mesh_data(cfg).batch_at(0).items()}
+        step, inputs = DR.cell_inputs(
+            cfg, ShapeSpec("lm_train", LM_SEQ, LM_BATCH, "train"),
+            M.make_host_mesh(dev), _mesh_opts(), params=params, batch=batch)
+        del params, batch
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launches()
+        card_full = DR.count_step(step, inputs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - alloc0
+        counted = launched()
+        del step, inputs
+        free()
+        _, err = procs["meta"].communicate(timeout=KT_WORKER_S)
+        check(procs["meta"].returncode == 0, f"(d) the meta worker exited "
+              f"{procs['meta'].returncode}:\n{err[-3000:]}")
+        mrec = json.loads((out / "kt_meta.json").read_text())
+        mfull = mrec["full"]
+        card_l = {k: v["launches"] for k, v in card_full["kernels"].items()}
+        meta_l = {k: v["launches"] for k, v in mfull["kernels"].items()}
+        differ = {k: (card_full[k], mfull[k])
+                  for k in ("flops", "bytes_accessed")
+                  if card_full[k] != mfull[k]}
+        if differ or card_l != meta_l:
+            print("phase 18: (d) the aten ops whose counts differ, (calls, "
+                  "FLOPs, bytes) on the card / on meta: " + "; ".join(
+                      f"{k} {c} / {m}" for k, c, m in _op_diff(
+                          card_full["by_op"], mfull["by_op"])))
+        check(not differ, f"(d) card / meta counts differ: {differ}")
+        check(card_l == meta_l == counted == _kt_launches(cfg, tp=False),
+              f"(d) launches: card {card_l}, meta {meta_l}, _build {counted}")
+        marg = mfull["memory"]["argument_size_in_bytes"]
+        mtemp = mfull["memory"]["temp_size_in_bytes"]
+        check(card_full["memory"]["argument_size_in_bytes"] == marg,
+              f"(d) argument bytes: card "
+              f"{card_full['memory']['argument_size_in_bytes']}, meta {marg}")
+        gap = (marg + mtemp) / peak - 1.0
+        check(abs(gap) <= KT_PEAK_TOL,
+              f"(d) meta argument + temp {(marg + mtemp) / 2 ** 30:.3f} GiB "
+              f"vs the card's peak {peak / 2 ** 30:.3f} GiB: "
+              f"{gap * 100:+.2f}%, "
+              f"bound {KT_PEAK_TOL * 100:.0f}%")
+        dry = {"flops": mfull["flops"], "bytes": mfull["bytes_accessed"],
+               "launches": meta_l, "argument_bytes": marg, "temp_bytes": mtemp,
+               "card_peak_bytes": peak, "peak_gap": gap,
+               "meta_s": mrec["wall_s"]}
+        times["d"] = time.perf_counter() - t0
+
+        # (b)'s second run from seed 0: the launcher, collected before (c)
+        t0 = time.perf_counter()
+        tail = _kt_launcher(procs["launcher"], ck, cfg, losses[-1], state_b)
+        launcher_s = time.perf_counter() - t_bg
+        times["launcher_wait"] = time.perf_counter() - t0
+        del state_b
+        train = {"arch": cfg.name, "ffn": "kanffn", "params": n_params,
+                 "steps": KT_STEPS, "losses": losses,
+                 "launcher_bitwise": True, "launches_a_step": per_step,
+                 "host_ms_steps": host_b, "host_ms": host_med,
+                 "device_ms": dms,
+                 "kernel_ms": prof["kernel_ms"],
+                 "idle_share": 1.0 - dms / host_med,
+                 "peak_device_bytes": peak_b,
+                 "restart_bitwise": True, "launcher": tail,
+                 "launcher_s": launcher_s, "card": card}
+        print(f"phase 18: (b) {cfg.name} --ffn kanffn --pattern 0.5, bf16, "
+              f"{n_params / 1e6:.1f} M params, {KT_STEPS} steps of {LM_BATCH} "
+              f"x {LM_SEQ}: losses " + ", ".join(f"{v:.4f}" for v in losses)
+              + f"; launches a step {per_step}; host {host_med:.3f} ms a step "
+              f"(median of steps 1-{KT_STEPS - 1}), device {dms:.3f} ms "
+              f"({prof['kernel_ms']:.3f} of kernels; idle "
+              f"{train['idle_share'] * 100:.1f}%), peak "
+              f"{peak_b / 2 ** 30:.2f} GiB, nothing else running; a restart "
+              f"at {LM_RESTART_DEPTH} layers bitwise a clean run; the "
+              f"launcher from seed 0: {tail!r} in {launcher_s:.1f} s, its "
+              f"step-{KT_STEPS} checkpoint bitwise this run's state "
+              f"({card})")
+        print(f"phase 18: (d) the step on the card and on meta: FLOPs "
+              f"{mfull['flops']:.6e}, bytes {mfull['bytes_accessed']:.6e}, "
+              f"launches {meta_l} (equal, and _build's), argument "
+              f"{marg / 2 ** 30:.4f} GiB (equal); meta argument + temp "
+              f"{(marg + mtemp) / 2 ** 30:.3f} GiB vs the card's peak "
+              f"{peak / 2 ** 30:.3f} GiB ({gap * 100:+.2f}%; meta "
+              f"{mrec['wall_s']:.1f} s in its worker, beside the launcher)")
+
+        # (c) tensor parallelism on 2x2, nothing else of the phase running
+        t0 = time.perf_counter()
+        tp_rows, one_loss, launches_c, _ = _kt_tp(dev, out)
+        free()
+        times["c"] = time.perf_counter() - t0
+        launches = dict(launches_b)
+        wall = time.perf_counter() - t_phase
+        print(f"phase 18: KAN-FFN training passed in {wall:.1f} s; parts (s): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in times.items())
+              + f"; launches of (b) {launches}")
+        return {"layer_err": layer_err, "kernel_rows": kernel_rows,
+                "launches_a": launches_a, "train": train, "tp": tp_rows,
+                "tp_one_loss": one_loss, "launches_tp_rank0": launches_c,
+                "dryrun": dry, "launches": launches, "seconds": wall,
+                "times": times, "card": card}
+    finally:
+        for pr in procs.values():
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+        shutil.rmtree(ck, ignore_errors=True)
+        shutil.rmtree(out, ignore_errors=True)
 
 
 def _device_us(event) -> float:
@@ -7710,6 +8353,10 @@ def main() -> int:
         remat=remat_phase(dev, card)))
     remat = box["remat"]
 
+    # ---------------------------------------------------------------- 18
+    # training with the reference's KAN-FFN (``kanffn_train_phase``)
+    kt = kanffn_train_phase(dev, card)
+
     launched = {k: (served[p]["launches"][k], f"phase 3, {p} burst")
                 for p in PRECISIONS for k in SERVED_KERNELS[p]}
     launched["kan_fused_v1_bf16"] = (b_v1_launches["kan_fused_v1_bf16"],
@@ -7741,6 +8388,7 @@ def main() -> int:
             "launches_mesh": mesh["launches"].get(k, 0),
             "launches_tp_serve": mesh["launches_tp_serve"].get(k, 0),
             "launches_remat": remat["launches"].get(k, 0),
+            "launches_kanffn_train": kt["launches"].get(k, 0),
             "max_abs_err": max_err[k], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -7770,6 +8418,7 @@ def main() -> int:
          "mesh": mesh,
          "dryrun": dry,
          "remat": remat,
+         "kanffn_train": kt,
          "ptxas": usage,
          "knob_checks": knob_checks,
          "kernel_bench_launches": bench_launches},
@@ -7787,4 +8436,6 @@ if __name__ == "__main__":
         sys.exit(_mesh_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--dryrun-worker"]:
         sys.exit(_dryrun_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--kanffn-worker"]:
+        sys.exit(_kanffn_worker(sys.argv[2:]))
     sys.exit(main())

@@ -5,8 +5,10 @@ because ``jax.nn.gelu`` defaults to ``approximate=True``.  The f32 and
 bf16 CUDA pattern-matmul kernels apply the same ``act(acc + bias)`` in
 the same order (``pattern_matmul/csrc/epilogue.cuh``), bf16 rounding the
 result once; ``ACT_CODES`` is the integer the kernels take for each
-activation.  ``resolve_out_dtype`` is the output-dtype rule of the f32
-and bf16 layers.  ``scale_bias_act`` is the int8 matmul's epilogue,
+activation.  ``act_grad`` is the epilogue's derivative, as ``jax.grad``
+takes it (the pattern matmul's gradient, ``pattern_matmul/ops.py``).
+``resolve_out_dtype`` is the output-dtype rule of the f32 and bf16
+layers.  ``scale_bias_act`` is the int8 matmul's epilogue,
 applied outside its kernel in both paths.
 """
 from __future__ import annotations
@@ -36,6 +38,19 @@ def bias_act(acc: torch.Tensor, bias: Optional[torch.Tensor],
     """
     y = acc if bias is None else acc + bias.to(torch.float32)
     return ACTS[act](y).to(out_dtype)
+
+
+def act_grad(g: torch.Tensor, pre: torch.Tensor, act: str) -> torch.Tensor:
+    """The cotangent ``g`` of ``act(pre)`` carried back to ``pre``, in f32
+    on the f32 pre-activation ``acc + bias``: relu's derivative is 0 at
+    0, as ``jax.nn.relu``'s; gelu's is the tanh form's."""
+    if act == "relu":
+        return torch.where(pre > 0, g, torch.zeros_like(g))
+    if act == "gelu":
+        return torch.ops.aten.gelu_backward(g, pre, approximate="tanh")
+    if act == "silu":
+        return torch.ops.aten.silu_backward(g, pre)
+    raise ValueError(f"act_grad: unknown act {act!r}")
 
 
 def resolve_out_dtype(fn: str, x: torch.Tensor,

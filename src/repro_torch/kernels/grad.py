@@ -1,15 +1,20 @@
 """When a kernel wrapper takes its gradient path, and what that path
 refuses.
 
-The version-2 KAN kernel (f32, and bf16 with a bf16 output) and the f32
-pattern-matmul kernel carry a ``torch.autograd.Function`` each
+The version-2 KAN kernel (f32, and bf16 with a bf16 or an f32 output)
+and the pattern-matmul kernel (f32, and bf16 with a bf16 or an f32
+output, every epilogue) carry a ``torch.autograd.Function`` each
 (``kan_fused/ops.py``, ``pattern_matmul/ops.py``): the forward is the
-kernel, the gradient is written out in PyTorch ops, as XLA's autodiff
-writes out the reference's (which has no backward kernel).  A wrapper
-takes that path only when grad is enabled and an operand requires it,
-so a forward under ``torch.no_grad`` or ``torch.inference_mode``
-launches what it did before.  The int8 and version-1 kernels, the bf16
-matmul and the matmul's gelu epilogue refuse a gradient.
+kernel, the gradient follows ``jax.grad`` of the reference's jnp path,
+as XLA's autodiff writes it out (the reference has no backward kernel).
+A wrapper takes that path only when grad is enabled and an operand
+requires it, so a forward under ``torch.no_grad`` or
+``torch.inference_mode`` launches what it did before.
+
+Two kernels refuse a gradient, because no entry point of the reference
+trains through them: the version-1 KAN kernel (its configs never pass
+``kan_version``) and the int8 kernels (serving only: no float operand of
+a training path reaches them).
 """
 from __future__ import annotations
 
@@ -27,8 +32,9 @@ def grad_wanted(*operands: Optional[torch.Tensor]) -> bool:
 def refuse_grad(fn: str, why: str) -> None:
     raise NotImplementedError(
         f"{fn}: no gradient {why}; the port trains through the version-2 "
-        f"KAN kernel (f32, bf16) and the f32 pattern-matmul kernel only, "
-        f"and a gradient through the other kernels is not ported "
+        f"KAN kernel and the pattern-matmul kernel (f32, bf16), as the "
+        f"reference does, and the version-1 and int8 kernels, which no "
+        f"entry point of the reference trains, have no gradient "
         f"(ROADMAP.md, queue 2)")
 
 

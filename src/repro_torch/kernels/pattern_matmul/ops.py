@@ -23,10 +23,13 @@ does, and ``launch/serve.py`` runs it under ``REPRO_TORCH_AUTOTUNE=1``).
 No knob changes a bit of the output (the kernels' notes say why).  A
 knob the kernel does not take raises, on the CPU too.
 
-``matmul_compact`` has a gradient at f32 with the ``relu`` and ``None``
-epilogues (``MatmulCompact``, taken only when grad is enabled and an
-operand requires it; ``kernels/grad.py``): the forward is the kernel,
-the backward three IEEE f32 products in PyTorch ops.
+``matmul_compact`` has a gradient (``MatmulCompact``, taken only when
+grad is enabled and an operand requires it; ``kernels/grad.py``) at f32
+and at bf16 with a bf16 or an f32 output, through every epilogue: the
+forward is the kernel, the backward ``jax.grad`` of the reference's jnp
+path -- f32 products rounded once to the operands' dtype, run by the
+bf16 kernel where the cotangent is the bf16 output's own (the KAN-FFN's
+down-projection), else as IEEE f32 products.
 """
 from __future__ import annotations
 
@@ -38,10 +41,11 @@ from repro_torch.core.sparsity import PatternMask
 from repro_torch.kernels import _build, autotune, work
 from repro_torch.kernels.epilogue import (
     ACT_CODES,
+    act_grad,
     resolve_out_dtype,
     scale_bias_act,
 )
-from repro_torch.kernels.grad import grad_wanted, ieee_matmul, refuse_grad
+from repro_torch.kernels.grad import grad_wanted, ieee_matmul
 from repro_torch.kernels.pattern_matmul.ref import (
     matmul_compact_ref,
     matmul_q8_ref,
@@ -274,11 +278,7 @@ def matmul_compact(x_c: torch.Tensor, w_c: torch.Tensor,
     dtype = torch.bfloat16 if bf16 else torch.float32
     out_dtype = resolve_out_dtype("matmul_compact", x_c, out_dtype)
     if grad_wanted(x_c, w_c, bias):
-        if bf16 or out_dtype != torch.float32:
-            refuse_grad("matmul_compact", "at bf16")
-        if act not in (None, "relu"):
-            refuse_grad("matmul_compact", f"through the {act} epilogue")
-        return MatmulCompact.apply(x_c, w_c, bias, act, blocks)
+        return MatmulCompact.apply(x_c, w_c, bias, act, blocks, out_dtype)
     with work.kernel(KERNEL_BF16 if bf16 else KERNEL, lambda: work.matmul(
             x_c.shape[0], x_c.shape[-1], w_c.shape[-1], x_c.dtype,
             out_dtype, None if bias is None else bias.dtype)):
@@ -332,26 +332,55 @@ def _matmul_compact(x_c: torch.Tensor, w_c: torch.Tensor,
 
 
 class MatmulCompact(torch.autograd.Function):
-    """The f32 ``act(x_c @ w_c + bias)`` (act None or relu) with its
-    gradient: ``g' = g * (y > 0)`` at relu (0 at 0, as ``jax.nn.relu``),
-    ``dx_c = g' w_c^T``, ``dw_c = x_c^T g'``, ``dbias = sum_rows g'``."""
+    """``act(x_c @ w_c + bias)`` (f32, or bf16 with a bf16 or an f32
+    output -- a tensor-parallel partial --, any epilogue of ``ACTS``) with
+    its gradient as ``jax.grad`` writes it for the reference's jnp path:
+    the cotangent widened to f32, ``g' = g * act'(acc + bias)`` in f32
+    (``epilogue.act_grad``), ``dx_c = g' w_c^T`` and ``dw_c = x_c^T g'``
+    as f32 products rounded once to the operand's dtype, ``dbias =
+    sum_rows g'`` rounded to the bias's.
+
+    The forward is the kernel.  An f32 output under relu masks by its own
+    output (0 at 0); any other epilogue recomputes its f32 pre-activation
+    ``acc + bias`` by one more launch (no epilogue, f32 out).  Where
+    ``g'`` is the bf16 cotangent itself (bf16 operands and output, no
+    epilogue: the KAN-FFN's down-projection) both products are launches of
+    the bf16 kernel (exact products, f32 accumulation, one rounding);
+    otherwise IEEE f32 products of the widened operands (``ieee_matmul``).
+    """
 
     @staticmethod
-    def forward(ctx, x_c, w_c, bias, act, blocks):  # noqa: D102
-        y = matmul_compact(x_c, w_c, bias, act, blocks=blocks)
-        ctx.save_for_backward(x_c, w_c, y if act == "relu" else None)
+    def forward(ctx, x_c, w_c, bias, act, blocks, out_dtype):  # noqa: D102
+        y = matmul_compact(x_c, w_c, bias, act, blocks=blocks,
+                           out_dtype=out_dtype)
+        ctx.act, ctx.blocks = act, blocks
+        masks_by_y = act == "relu" and y.dtype == torch.float32
+        ctx.save_for_backward(x_c, w_c, bias, y if masks_by_y else None)
         return y
 
     @staticmethod
     def backward(ctx, g):  # noqa: D102
-        x_c, w_c, y = ctx.saved_tensors
+        x_c, w_c, bias, y = ctx.saved_tensors
+        need, f32 = ctx.needs_input_grad, torch.float32
+        g = g.contiguous()
+        if ctx.act is None and g.dtype == x_c.dtype == torch.bfloat16:
+            dx = matmul_compact(g, w_c.t().contiguous()) if need[0] else None
+            dw = matmul_compact(x_c.t().contiguous(), g) if need[1] else None
+            db = g.to(f32).sum(0).to(bias.dtype) if need[2] else None
+            return dx, dw, db, None, None, None
+        gp = g.to(f32)
         if y is not None:
-            g = torch.where(y > 0, g, torch.zeros_like(g))
-        need = ctx.needs_input_grad
-        dx = ieee_matmul(g, w_c.t()) if need[0] else None
-        dw = ieee_matmul(x_c.t(), g) if need[1] else None
-        db = g.sum(0) if need[2] else None
-        return dx, dw, db, None, None
+            gp = act_grad(gp, y, "relu")
+        elif ctx.act is not None:
+            pre = matmul_compact(x_c, w_c, bias, None, blocks=ctx.blocks,
+                                 out_dtype=f32)
+            gp = act_grad(gp, pre, ctx.act)
+        dx = (ieee_matmul(gp, w_c.to(f32).t()).to(x_c.dtype) if need[0]
+              else None)
+        dw = (ieee_matmul(x_c.to(f32).t(), gp).to(w_c.dtype) if need[1]
+              else None)
+        db = gp.sum(0).to(bias.dtype) if need[2] else None
+        return dx, dw, db, None, None, None
 
 
 def matmul_q8(x_q: torch.Tensor, w_q: torch.Tensor, *,

@@ -10,12 +10,19 @@ on ``data/lm.SyntheticLM`` batches, AdamW at a cosine schedule (warmup
 steps, restarting from the latest on an injected failure, and prints
 ``final step N, loss X`` as the reference does.  ``--ffn kan --pattern
 0.5`` is the paper's KAN drop-in: every FFN two KAN layers through the
-fused-KAN kernel, its gradient through the spline-basis kernel:
+fused-KAN kernel, its gradient through the spline-basis kernel.
+``--ffn kanffn --pattern 0.5`` is the reference's KAN-FFN: every FFN a
+fused-KAN up-projection (the tiled stage-1 basis mask) and a
+pattern-matmul down-projection over the kept half of the hidden lanes,
+its gradient (bf16 at ``--scale full``) through the pattern-matmul
+kernel (``kernels/pattern_matmul/ops.MatmulCompact``):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
       --steps 100 --seq 128 --batch 8 --scale smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
       --scale full --ffn kan --pattern 0.5 --steps 4    # on the card
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
+      --scale full --ffn kanffn --pattern 0.5 --steps 4  # on the card
 
 Under ``torchrun`` (``WORLD_SIZE`` > 1) ``--mesh DxM`` lays the world
 out over ("data", "model") (``PxDxM`` over ("pod", "data", "model")):
@@ -223,7 +230,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ffn", default=None,
                     help="transformer archs: override ffn_kind (kan: the "
-                         "reference's KAN drop-in)")
+                         "reference's KAN drop-in, two KAN layers; kanffn: "
+                         "its KAN-FFN, a KAN up-projection and a "
+                         "pattern-sparse linear down-projection)")
     ap.add_argument("--pattern", type=float, default=0.0,
                     help="stage-2 sparsity rate (vikin: of the calibration; "
                          "0 uses the arch's configured rate)")
